@@ -1,0 +1,374 @@
+"""Leaf-wise tree learner on the device (port of the serial path of
+lightgbm_tpu/models/device_learner.py).
+
+The JAX package grows a whole tree inside one `lax.while_loop`. Here the
+same loop runs on the host as a sequence of launches, with one small host
+read per split (the chosen leaf's split and the children's best splits):
+
+- root: the identity partition, so the root histogram reads the head of
+  ``bins`` contiguously (kernel B1 with no index slice);
+- each split: stable partition of the chosen leaf's slice, the smaller
+  child's histogram (B1 over its slice of the partition), the larger
+  child's by subtraction from the parent's stored histogram
+  (`FeatureHistogram::Subtract`), and one split search for both children;
+- ``max_depth``, ``min_data_in_leaf`` and ``min_sum_hessian_in_leaf`` act
+  exactly as in the reference; monotone constraints propagate to the
+  children.
+
+The JAX package pads leaf slices to a table of bucket sizes because XLA
+needs static shapes; launches here take the exact slice, so nothing is
+padded.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..io.dataset import Dataset
+from ..ops.histogram import leaf_histogram, subtract_histogram
+from ..ops.partition import (MISSING_NAN_C, MISSING_ZERO_C, leaf_value_fill,
+                             split_partition, unpermute_to_rows)
+from ..ops.split import SplitHyper, make_split_finder
+from ..utils.xla_math import fma_f32
+from .tree import Tree
+
+# packed per-leaf "best split" float lanes
+BF_GAIN, BF_LG, BF_LH, BF_RG, BF_RH, BF_LOUT, BF_ROUT = range(7)
+# packed per-leaf "best split" int lanes
+BI_FEAT, BI_THR, BI_LC, BI_RC, BI_DEFLEFT = range(5)
+
+
+class TreeRecord(NamedTuple):
+    """Per-split records of one grown tree (host arrays)."""
+    num_splits: int
+    leaf: np.ndarray               # i32[L-1] leaf id split at step s
+    feature: np.ndarray            # i32[L-1] inner feature index
+    threshold_bin: np.ndarray      # i32[L-1]
+    default_left: np.ndarray       # bool[L-1]
+    left_output: np.ndarray        # f32[L-1]
+    right_output: np.ndarray       # f32[L-1]
+    left_count: np.ndarray         # i32[L-1]
+    right_count: np.ndarray        # i32[L-1]
+    gain: np.ndarray               # f32[L-1]
+    leaf_value: np.ndarray         # f32[L] final leaf outputs
+    leaf_begin: np.ndarray         # i32[L] partition begins
+    leaf_count: np.ndarray         # i32[L] partition counts
+
+
+def record_to_children(leaf_rec: np.ndarray, num_splits: int
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """Child links from the split sequence: node s split leaf
+    ``leaf_rec[s]`` into left = same leaf id, right = s+1. A child is the
+    next node that splits that leaf, else ``~leaf``."""
+    left = np.zeros(max(num_splits, 1), np.int32)
+    right = np.zeros(max(num_splits, 1), np.int32)
+    node_of_leaf = {}
+    for s in range(num_splits - 1, -1, -1):
+        lf = int(leaf_rec[s])
+        left[s] = node_of_leaf.get(lf, ~lf)
+        right[s] = node_of_leaf.get(s + 1, ~(s + 1))
+        node_of_leaf[lf] = s
+    return left, right
+
+
+class DeviceTreeLearner:
+    """Serial leaf-wise learner over a device-resident binned matrix."""
+
+    def __init__(self, cfg: Config, dataset: Dataset,
+                 device: torch.device) -> None:
+        if cfg.tpu_grow_mode not in ("auto", "leafwise"):
+            raise NotImplementedError(
+                f"tpu_grow_mode={cfg.tpu_grow_mode!r}: only the leaf-wise "
+                "builder is ported")
+        if cfg.forcedsplits_filename or cfg.cegb_penalty_split > 0 \
+                or cfg.cegb_penalty_feature_coupled \
+                or cfg.cegb_penalty_feature_lazy:
+            raise NotImplementedError("forced splits and CEGB are not "
+                                      "ported yet")
+        self.cfg = cfg
+        self.ds = dataset
+        self.device = device
+        self.n = dataset.num_data
+        self.num_features = dataset.num_features
+        self.meta = dataset.feature_meta_arrays()
+        self.max_bin_global = int(self.meta["num_bin"].max()) \
+            if self.num_features else 2
+        self.bins = dataset.bins.to(device).contiguous()
+        self._bins_T: Optional[torch.Tensor] = None
+        self.hyper = SplitHyper.from_config(cfg)
+        self.finder = make_split_finder(self.hyper, self.meta,
+                                        self.max_bin_global, device)
+        self.mappers = dataset.used_mappers()
+        self._feat_rng = torch.Generator().manual_seed(
+            int(cfg.feature_fraction_seed))
+        self.hist_precision = "f64" if cfg.tpu_use_f64_hist else "f32"
+        self._depth_limit = cfg.max_depth if cfg.max_depth > 0 else 1 << 30
+        self._mono_any = bool(np.any(self.meta["monotone"] != 0))
+
+    @property
+    def bins_T(self) -> torch.Tensor:
+        """Transposed bins [F, N]: the split feature's column is one
+        contiguous row for the partition step."""
+        if self._bins_T is None:
+            self._bins_T = self.bins.t().contiguous()
+        return self._bins_T
+
+    def feature_mask(self) -> Optional[np.ndarray]:
+        frac = self.cfg.feature_fraction
+        if frac >= 1.0:
+            return None
+        used_cnt = max(1, int(round(self.num_features * frac)))
+        mask = np.zeros(self.num_features, bool)
+        pick = torch.randperm(self.num_features, generator=self._feat_rng)
+        mask[pick[:used_cnt].numpy()] = True
+        return mask
+
+    # ------------------------------------------------------------------
+    def _eval_leaves(self, hist, sg, sh, cnt, minc, maxc, depth, fmask):
+        """Best split of each leaf in a batch: hist [K, F, B, 3] f32 and
+        host per-leaf sums -> (f32 [K, 7] BF_* lanes, i64 [K, 5] BI_*
+        lanes) on the host (reference eval_leaf + pack_best_payload)."""
+        dev = self.device
+
+        def t(vals, dtype):
+            return torch.tensor(np.asarray(vals), dtype=dtype, device=dev)
+
+        out = self.finder(hist, t(sg, torch.float32), t(sh, torch.float32),
+                          t(cnt, torch.int32), t(minc, torch.float32),
+                          t(maxc, torch.float32))
+        gain = torch.where(fmask > 0, out["gain"], float("-inf"))
+        deep = t(np.asarray(depth) >= self._depth_limit, torch.bool)
+        gain = torch.where(deep[:, None], float("-inf"), gain)
+        f = torch.argmax(gain, dim=1, keepdim=True)
+
+        def at(a):
+            return torch.gather(a, 1, f)[:, 0]
+
+        vec_f = torch.stack([at(gain), at(out["left_g"]), at(out["left_h"]),
+                             at(out["right_g"]), at(out["right_h"]),
+                             at(out["left_output"]),
+                             at(out["right_output"])], dim=1)
+        vec_i = torch.stack([f[:, 0], at(out["threshold"]).long(),
+                             at(out["left_c"]).long(),
+                             at(out["right_c"]).long(),
+                             at(out["default_left"]).long()], dim=1)
+        return vec_f.cpu().numpy(), vec_i.cpu().numpy()
+
+    def train_fresh(self, grad: torch.Tensor, hess: torch.Tensor,
+                    feature_mask: Optional[np.ndarray] = None
+                    ) -> Tuple[torch.Tensor, TreeRecord]:
+        """Grow one tree on the full data from the identity partition;
+        returns (final partition indices [N] int32, TreeRecord)."""
+        cfg = self.cfg
+        dev = self.device
+        L = cfg.num_leaves
+        Lm1 = max(L - 1, 1)
+        n = self.n
+        B = self.max_bin_global
+        prec = self.hist_precision
+        nb, db, mt = (self.meta["num_bin"], self.meta["default_bin"],
+                      self.meta["missing_type"])
+        mono = self.meta["monotone"]
+        gh = torch.stack([grad, hess], dim=1).to(torch.float32).contiguous()
+        indices = torch.arange(n, dtype=torch.int32, device=dev)
+        fmask = torch.ones(self.num_features, dtype=torch.float32, device=dev) \
+            if feature_mask is None else torch.as_tensor(
+                feature_mask.astype(np.float32), device=dev)
+
+        # ---------- root: contiguous rows, no index slice
+        root_hist = leaf_histogram(self.bins, gh, None, 0, n, B, prec)
+        sums = gh.double().sum(0) if prec == "f64" else gh.sum(0)
+        root_g, root_h = sums.to(torch.float32).cpu().numpy()
+        store = torch.zeros((L, self.num_features, B, 3), dtype=torch.float32,
+                            device=dev)
+        store[0] = root_hist.to(torch.float32)
+
+        # ---------- host per-leaf state (f32 values as the reference keeps)
+        leaf_sg = np.zeros(L, np.float32)
+        leaf_sh = np.zeros(L, np.float32)
+        leaf_min = np.full(L, -np.inf, np.float32)
+        leaf_max = np.full(L, np.inf, np.float32)
+        leaf_value = np.zeros(L, np.float32)
+        leaf_begin = np.zeros(L, np.int64)
+        leaf_count = np.zeros(L, np.int64)
+        leaf_depth = np.zeros(L, np.int64)
+        leaf_sg[0], leaf_sh[0], leaf_count[0] = root_g, root_h, n
+        best_f = np.full((L, 7), -np.inf, np.float32)
+        best_i = np.zeros((L, 5), np.int64)
+        rec_leaf = np.zeros(Lm1, np.int32)
+        rec_feat = np.zeros(Lm1, np.int32)
+        rec_thr = np.zeros(Lm1, np.int32)
+        rec_dl = np.zeros(Lm1, bool)
+        rec_lout = np.zeros(Lm1, np.float32)
+        rec_rout = np.zeros(Lm1, np.float32)
+        rec_lc = np.zeros(Lm1, np.int32)
+        rec_rc = np.zeros(Lm1, np.int32)
+        rec_gain = np.zeros(Lm1, np.float32)
+
+        vf, vi = self._eval_leaves(store[:1], [root_g], [root_h], [n],
+                                   [-np.inf], [np.inf], [0], fmask)
+        best_f[0], best_i[0] = vf[0], vi[0]
+
+        s = 0
+        while s < L - 1 and best_f[:, BF_GAIN].max() > 0.0:
+            bl = int(np.argmax(best_f[:, BF_GAIN]))
+            new_leaf = s + 1
+            bf, bi = best_f[bl].copy(), best_i[bl]
+            f, thr = int(bi[BI_FEAT]), int(bi[BI_THR])
+            dleft = bool(bi[BI_DEFLEFT])
+            left_cnt_g, right_cnt_g = int(bi[BI_LC]), int(bi[BI_RC])
+            begin, count = int(leaf_begin[bl]), int(leaf_count[bl])
+            left_cnt = split_partition(indices, self.bins_T[f], begin, count,
+                                       thr, dleft, int(mt[f]), int(db[f]),
+                                       int(nb[f]))
+            right_cnt = count - left_cnt
+
+            rec_leaf[s], rec_feat[s], rec_thr[s] = bl, f, thr
+            rec_dl[s] = dleft
+            rec_lout[s], rec_rout[s] = bf[BF_LOUT], bf[BF_ROUT]
+            rec_gain[s] = bf[BF_GAIN]
+            rec_lc[s], rec_rc[s] = left_cnt_g, right_cnt_g
+
+            depth = int(leaf_depth[bl]) + 1
+            lmin = rmin = leaf_min[bl]
+            lmax = rmax = leaf_max[bl]
+            if self._mono_any and mono[f] != 0:
+                mid = (bf[BF_LOUT] + bf[BF_ROUT]) / np.float32(2.0)
+                if mono[f] > 0:
+                    lmax, rmin = min(lmax, mid), max(rmin, mid)
+                else:
+                    lmin, rmax = max(lmin, mid), min(rmax, mid)
+            leaf_sg[bl], leaf_sh[bl] = bf[BF_LG], bf[BF_LH]
+            leaf_sg[new_leaf], leaf_sh[new_leaf] = bf[BF_RG], bf[BF_RH]
+            leaf_min[bl], leaf_max[bl] = lmin, lmax
+            leaf_min[new_leaf], leaf_max[new_leaf] = rmin, rmax
+            leaf_value[bl], leaf_value[new_leaf] = bf[BF_LOUT], bf[BF_ROUT]
+            leaf_begin[new_leaf] = begin + left_cnt
+            leaf_count[bl], leaf_count[new_leaf] = left_cnt, right_cnt
+            leaf_depth[bl] = leaf_depth[new_leaf] = depth
+
+            # histogram the smaller child; larger = parent - smaller
+            smaller_is_left = left_cnt_g <= right_cnt_g
+            sm_begin = begin if smaller_is_left else begin + left_cnt
+            sm_count = left_cnt if smaller_is_left else right_cnt
+            sm_hist = leaf_histogram(self.bins, gh, indices, sm_begin,
+                                     sm_count, B, prec).to(torch.float32)
+            lg_hist = subtract_histogram(store[bl], sm_hist)
+            left_hist, right_hist = ((sm_hist, lg_hist) if smaller_is_left
+                                     else (lg_hist, sm_hist))
+            store[bl] = left_hist
+            store[new_leaf] = right_hist
+
+            vf, vi = self._eval_leaves(
+                torch.stack([left_hist, right_hist]),
+                [bf[BF_LG], bf[BF_RG]], [bf[BF_LH], bf[BF_RH]],
+                [left_cnt_g, right_cnt_g], [lmin, rmin], [lmax, rmax],
+                [depth, depth], fmask)
+            best_f[bl], best_i[bl] = vf[0], vi[0]
+            best_f[new_leaf], best_i[new_leaf] = vf[1], vi[1]
+            s += 1
+
+        record = TreeRecord(
+            num_splits=s, leaf=rec_leaf, feature=rec_feat,
+            threshold_bin=rec_thr, default_left=rec_dl,
+            left_output=rec_lout, right_output=rec_rout,
+            left_count=rec_lc, right_count=rec_rc, gain=rec_gain,
+            leaf_value=leaf_value,
+            leaf_begin=leaf_begin.astype(np.int32),
+            leaf_count=leaf_count.astype(np.int32))
+        return indices, record
+
+    # ------------------------------------------------------------------
+    def add_score_from_partition(self, score: torch.Tensor, class_id: int,
+                                 record: TreeRecord, indices: torch.Tensor,
+                                 scale: float) -> None:
+        """score[class_id] += scale * tree(x) from the final partition:
+        each leaf's rows are contiguous in `indices`, so the per-position
+        value is a difference-array fill, scattered back to row order
+        (reference `_partition_score_update`, device_learner.py:1643).
+        The multiply-add is fused, as XLA fuses it."""
+        dev = self.device
+        fill = leaf_value_fill(
+            torch.as_tensor(record.leaf_begin, device=dev),
+            torch.as_tensor(record.leaf_count, device=dev),
+            torch.as_tensor(record.leaf_value, device=dev), self.n)
+        delta = unpermute_to_rows(indices, fill, self.n)
+        score[class_id] = fma_f32(delta, float(np.float32(scale)),
+                                  score[class_id])
+
+    def add_record_score(self, score_row: torch.Tensor, bins: torch.Tensor,
+                         record: TreeRecord, scale: float) -> None:
+        """score_row += scale * tree(x) over another binned matrix (a
+        validation set), by traversal of the record's tree."""
+        leaves = traverse_record(bins, record, self.meta)
+        lv = torch.as_tensor(record.leaf_value, device=bins.device)
+        score_row.copy_(fma_f32(lv[leaves], float(np.float32(scale)),
+                                score_row))
+
+    def record_to_tree(self, rec: TreeRecord, shrinkage: float = 1.0
+                       ) -> Tree:
+        """Host conversion of a TreeRecord into a full Tree (bin thresholds
+        -> real values via the BinMappers)."""
+        tree = Tree(self.cfg.num_leaves)
+        mt_code = {"none": 0, "zero": 1, "nan": 2}
+        for s in range(int(rec.num_splits)):
+            f = int(rec.feature[s])
+            mapper = self.mappers[f]
+            thr_bin = int(rec.threshold_bin[s])
+            tree.split(
+                int(rec.leaf[s]), f, int(self.ds.real_feature_idx[f]),
+                thr_bin, mapper.bin_to_value(thr_bin),
+                float(rec.left_output[s]), float(rec.right_output[s]),
+                int(rec.left_count[s]), int(rec.right_count[s]),
+                float(rec.gain[s]), mt_code[mapper.missing_type],
+                bool(rec.default_left[s]),
+                default_bin=mapper.default_bin, num_bin=mapper.num_bin)
+        if shrinkage != 1.0:
+            tree.apply_shrinkage(shrinkage)
+        return tree
+
+
+def traverse_record(bins: torch.Tensor, rec: TreeRecord, meta
+                    ) -> torch.Tensor:
+    """[N] leaf index per row of one record's tree over binned data
+    (reference `traverse_record`, device_learner.py:1693)."""
+    n = bins.shape[0]
+    dev = bins.device
+    ns = int(rec.num_splits)
+    if ns == 0:
+        return torch.zeros(n, dtype=torch.int64, device=dev)
+    left, right = record_to_children(rec.leaf, ns)
+    depth = np.zeros(ns, np.int64)
+    for s in range(ns):          # parents precede children in split order
+        for c in (left[s], right[s]):
+            if c >= 0:
+                depth[c] = depth[s] + 1
+    feat = rec.feature[:ns].astype(np.int64)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), device=dev)
+
+    f_t, thr_t = t(feat), t(rec.threshold_bin[:ns].astype(np.int32))
+    dl_t = t(rec.default_left[:ns])
+    mt_t = t(meta["missing_type"][feat])
+    db_t = t(meta["default_bin"][feat])
+    nb_t = t(meta["num_bin"][feat])
+    l_t, r_t = t(left.astype(np.int64)), t(right.astype(np.int64))
+    rows = torch.arange(n, device=dev)
+    node = torch.zeros(n, dtype=torch.int64, device=dev)
+    for _ in range(int(depth.max()) + 1):
+        safe = node.clamp(min=0)
+        fval = bins[rows, f_t[safe]].to(torch.int32)
+        base = fval <= thr_t[safe]
+        m = mt_t[safe]
+        is_default = torch.where(m == MISSING_ZERO_C, fval == db_t[safe],
+                                 (m == MISSING_NAN_C)
+                                 & (fval == nb_t[safe] - 1))
+        goes_left = torch.where(is_default, dl_t[safe], base)
+        nxt = torch.where(goes_left, l_t[safe], r_t[safe])
+        node = torch.where(node >= 0, nxt, node)
+    return ~node
+

@@ -1,0 +1,161 @@
+"""Evaluation metrics (copied from lightgbm_tpu/ops/metrics.py: l2, rmse,
+binary logloss, binary error and AUC).
+
+Re-creates the reference metric interface (`src/metric/*.hpp`, factory
+`src/metric/metric.cpp:16-60`): `eval(raw_scores, objective)` applying
+the objective's `ConvertOutput`, returning named values plus
+`bigger_is_better` for early stopping (`include/LightGBM/metric.h`).
+Host NumPy (f64): metrics run once per iteration over the label vector.
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..config import Config
+
+K_EPSILON = 1e-15
+
+
+class Metric:
+    name: str = ""
+    bigger_is_better: bool = False
+
+    def __init__(self, cfg: Config) -> None:
+        self.cfg = cfg
+
+    def init(self, metadata, num_data: int) -> None:
+        self.label = np.asarray(metadata.label, np.float64) \
+            if metadata.label is not None else np.zeros(num_data)
+        self.weight = (np.asarray(metadata.weight, np.float64)
+                       if metadata.weight is not None else None)
+        self.num_data = num_data
+        self.sum_weights = (float(self.weight.sum()) if self.weight is not None
+                            else float(num_data))
+
+    def eval(self, scores: np.ndarray, objective) -> List[Tuple[str, float]]:
+        raise NotImplementedError
+
+
+class _PointwiseMetric(Metric):
+    """Weighted mean of a pointwise loss with ConvertOutput applied
+    (reference RegressionMetric::Eval, regression_metric.hpp:50-95)."""
+    use_convert = True
+
+    def loss(self, label: np.ndarray, pred: np.ndarray) -> np.ndarray:
+        raise NotImplementedError
+
+    def average(self, sum_loss: float) -> float:
+        return sum_loss / self.sum_weights
+
+    def eval(self, scores, objective):
+        pred = scores[0].astype(np.float64)
+        if self.use_convert and objective is not None:
+            pred = objective.convert_output(pred)
+        pt = self.loss(self.label, pred)
+        if self.weight is not None:
+            s = float(np.sum(pt * self.weight))
+        else:
+            s = float(np.sum(pt))
+        return [(self.name, self.average(s))]
+
+
+class L2Metric(_PointwiseMetric):
+    name = "l2"
+
+    def loss(self, y, p):
+        return (p - y) ** 2
+
+
+class RMSEMetric(L2Metric):
+    name = "rmse"
+
+    def average(self, s):
+        return math.sqrt(s / self.sum_weights)
+
+
+class BinaryLoglossMetric(_PointwiseMetric):
+    name = "binary_logloss"
+
+    def loss(self, y, p):
+        # (binary_metric.hpp:119-131)
+        pos = y > 0
+        neg_ok = (1.0 - p) > K_EPSILON
+        pos_ok = p > K_EPSILON
+        return np.where(pos, np.where(pos_ok, -np.log(np.maximum(p, 1e-300)),
+                                      -np.log(K_EPSILON)),
+                        np.where(neg_ok, -np.log(np.maximum(1 - p, 1e-300)),
+                                 -np.log(K_EPSILON)))
+
+
+class BinaryErrorMetric(_PointwiseMetric):
+    name = "binary_error"
+
+    def loss(self, y, p):
+        return np.where(p <= 0.5, (y > 0).astype(float),
+                        (y <= 0).astype(float))
+
+
+class AUCMetric(Metric):
+    """Weighted rank-sum AUC on raw scores (binary_metric.hpp:159-240)."""
+    name = "auc"
+    bigger_is_better = True
+
+    def eval(self, scores, objective):
+        score = scores[0].astype(np.float64)
+        y = self.label > 0
+        w = (self.weight if self.weight is not None
+             else np.ones_like(score))
+        order = np.argsort(score, kind="mergesort")
+        s, ys, ws = score[order], y[order], w[order]
+        # tie groups share the average rank: accumulate per distinct score
+        pos_w = ws * ys
+        neg_w = ws * (~ys)
+        # cumulative negative weight strictly below each element + half ties
+        group_id = np.zeros(len(s), np.int64)
+        group_id[1:] = np.cumsum(np.diff(s) != 0)
+        n_groups = group_id[-1] + 1 if len(s) else 0
+        gsum_neg = np.bincount(group_id, weights=neg_w, minlength=n_groups)
+        gsum_pos = np.bincount(group_id, weights=pos_w, minlength=n_groups)
+        cum_neg_before = np.concatenate([[0], np.cumsum(gsum_neg)[:-1]])
+        acc = float(np.sum(gsum_pos * (cum_neg_before + 0.5 * gsum_neg)))
+        total_pos = float(pos_w.sum())
+        total_neg = float(neg_w.sum())
+        if total_pos <= 0 or total_neg <= 0:
+            return [(self.name, 1.0)]
+        return [(self.name, acc / (total_pos * total_neg))]
+
+
+_METRICS = {
+    "l2": L2Metric, "rmse": RMSEMetric,
+    "binary_logloss": BinaryLoglossMetric, "binary_error": BinaryErrorMetric,
+    "auc": AUCMetric,
+}
+
+_DEFAULT_METRIC_FOR_OBJECTIVE = {
+    "regression": "l2", "binary": "binary_logloss",
+}
+
+
+def metric_names(cfg: Config) -> List[str]:
+    """Resolve configured metric list with the objective default
+    (reference Config::CheckParamConflict + metric.cpp:16)."""
+    names = [m for m in cfg.metric if m]
+    if not names:
+        default = _DEFAULT_METRIC_FOR_OBJECTIVE.get(cfg.objective)
+        if default:
+            names = [default]
+    return [n for n in names if n != "none"]
+
+
+def create_metrics(cfg: Config, names: Optional[Sequence[str]] = None
+                   ) -> List[Metric]:
+    out = []
+    for n in (names if names is not None else metric_names(cfg)):
+        cls = _METRICS.get(n)
+        if cls is None:
+            raise NotImplementedError(f"metric {n!r} is not ported yet")
+        out.append(cls(cfg))
+    return out

@@ -1,0 +1,81 @@
+"""Leaf partition of the training rows (port of
+lightgbm_tpu/ops/partition.py).
+
+The reference `DataPartition` (`src/treelearner/data_partition.hpp`) +
+`DenseBin::Split` routing (`src/io/dense_bin.hpp:195-255`): a permuted
+row-index array where each leaf's rows are contiguous. A split stably
+partitions one leaf's slice in place — left rows first, then right rows,
+each in their previous order.
+
+Routing semantics (numerical features):
+- missing None : bin <= threshold -> left
+- missing Zero : bin == default_bin -> default side; else <= thr
+- missing NaN  : bin == num_bin-1 (NaN bin) -> default side; else <= thr
+"""
+from __future__ import annotations
+
+import torch
+
+MISSING_NONE_C, MISSING_ZERO_C, MISSING_NAN_C = 0, 1, 2
+
+
+def numerical_goes_left(binvals: torch.Tensor, threshold: int,
+                        default_left: bool, missing_type: int,
+                        default_bin: int, num_bin: int) -> torch.Tensor:
+    base = binvals <= threshold
+    if missing_type == MISSING_ZERO_C:
+        is_default = binvals == default_bin
+    elif missing_type == MISSING_NAN_C:
+        is_default = binvals == num_bin - 1
+    else:
+        return base
+    return torch.where(is_default, default_left, base)
+
+
+def split_partition(indices: torch.Tensor, bins_col: torch.Tensor,
+                    begin: int, count: int, threshold: int,
+                    default_left: bool, missing_type: int, default_bin: int,
+                    num_bin: int) -> int:
+    """Stable-partition one leaf's slice ``indices[begin:begin+count]`` in
+    place by the split feature's bin column ``bins_col`` [N]; returns the
+    left count (one host read)."""
+    idx = indices[begin:begin + count]
+    b = bins_col[idx.long()].to(torch.int32)
+    goes_left = numerical_goes_left(b, threshold, default_left, missing_type,
+                                    default_bin, num_bin)
+    left = idx[goes_left]
+    right = idx[~goes_left]
+    indices[begin:begin + count] = torch.cat([left, right])
+    return int(left.numel())
+
+
+def leaf_value_fill(leaf_begin: torch.Tensor, leaf_count: torch.Tensor,
+                    leaf_value: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """Per-POSITION leaf values from the final partition: leaves are
+    disjoint contiguous [begin, begin+count) segments, so a difference
+    array with +(id+1) at each begin and -(id+1) at each end, prefix
+    summed, gives the covering leaf at every position. The cover ids are
+    integers, so the fill is exact."""
+    live = leaf_count > 0
+    ids = torch.arange(1, leaf_value.shape[0] + 1, dtype=torch.int64,
+                       device=leaf_value.device)
+    d = torch.zeros(n_pad + 1, dtype=torch.int64, device=leaf_value.device)
+    d.index_add_(0, torch.where(live, leaf_begin, n_pad).long(),
+                 torch.where(live, ids, 0))
+    d.index_add_(0, torch.where(live, leaf_begin + leaf_count, n_pad).long(),
+                 torch.where(live, -ids, 0))
+    cover = torch.cumsum(d[:-1], 0)  # 0 outside every leaf, id+1 inside
+    vpad = torch.cat([torch.zeros(1, dtype=leaf_value.dtype,
+                                  device=leaf_value.device), leaf_value])
+    return vpad[cover]
+
+
+def unpermute_to_rows(indices: torch.Tensor, values: torch.Tensor,
+                      n: int) -> torch.Tensor:
+    """Map per-POSITION values back to per-ROW order: position p holds row
+    ``indices[p]``. The reference sorts by row id (a sort is cheap on the
+    TPU, a scatter is not); on the GPU this is one scatter. Requires
+    ``indices[:n]`` to be a permutation of [0, n)."""
+    out = torch.empty(n, dtype=values.dtype, device=values.device)
+    out[indices[:n].long()] = values[:n]
+    return out

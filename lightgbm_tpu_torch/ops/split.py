@@ -1,0 +1,268 @@
+"""Vectorized best-split search over per-feature histograms (port of
+lightgbm_tpu/ops/split.py, numerical features).
+
+The reference `FeatureHistogram` scans (`feature_histogram.hpp:91-644`)
+become masked prefix sums over the bin axis for all features — and here
+for a batch of leaves — at once, with the JAX package's f32 op order:
+
+- the prefix sums add in the order XLA's CPU cumsum adds
+  (`_prefix_sum_f32`), one elementwise f32 op at a time, so a CUDA run
+  and a CPU run round every partial sum alike;
+- the dir=+1 winner is the first maximum over thresholds, the dir=-1
+  winner the last (`_first_argmax` / `_last_argmax`), and dir=-1 wins
+  ties between the two.
+
+Categorical features raise `NotImplementedError`: the categorical scan
+(`ops/split.py:242` in the JAX package) is a later slice.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple
+
+import numpy as np
+import torch
+
+from ..utils.xla_math import fma_f32
+
+K_EPSILON = 1e-15
+NEG_INF = float("-inf")
+
+
+class SplitHyper(NamedTuple):
+    """Static split hyper-parameters (subset of Config used by the finder)."""
+    lambda_l1: float
+    lambda_l2: float
+    max_delta_step: float
+    min_data_in_leaf: int
+    min_sum_hessian_in_leaf: float
+    min_gain_to_split: float
+
+    @classmethod
+    def from_config(cls, cfg) -> "SplitHyper":
+        return cls(
+            lambda_l1=float(cfg.lambda_l1),
+            lambda_l2=float(cfg.lambda_l2),
+            max_delta_step=float(cfg.max_delta_step),
+            min_data_in_leaf=int(cfg.min_data_in_leaf),
+            min_sum_hessian_in_leaf=float(cfg.min_sum_hessian_in_leaf),
+            min_gain_to_split=float(cfg.min_gain_to_split),
+        )
+
+
+def _threshold_l1(s, l1):
+    """reference ThresholdL1 (feature_histogram.hpp:446)."""
+    reg = torch.clamp(torch.abs(s) - l1, min=0.0)
+    return torch.sign(s) * reg
+
+
+def _leaf_output(sg, sh, l1, l2, mds):
+    """reference CalculateSplittedLeafOutput (feature_histogram.hpp:451)."""
+    ret = -_threshold_l1(sg, l1) / (sh + l2)
+    if mds > 0.0:
+        ret = torch.clamp(ret, -mds, mds)
+    return ret
+
+
+def _leaf_gain_given_output(sg, sh, l1, l2, out):
+    """reference GetLeafSplitGainGivenOutput (feature_histogram.hpp:503)."""
+    reg = _threshold_l1(sg, l1)
+    # the first product fused into the add, as XLA's CPU backend contracts
+    # it: the two scan directions of a leaf whose missing bin is empty tie
+    # up to rounding, and the winner must be the JAX package's
+    return -fma_f32(2.0 * reg, out, (sh + l2) * out * out)
+
+
+def _leaf_gain(sg, sh, l1, l2, mds):
+    out = _leaf_output(sg, sh, l1, l2, mds)
+    return _leaf_gain_given_output(sg, sh, l1, l2, out)
+
+
+def _clip(x, lo, hi):
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def _split_gains(lg, lh, rg, rh, l1, l2, mds, min_c, max_c, mono):
+    """reference GetSplitGains (feature_histogram.hpp:461-473): clamped
+    outputs, monotone veto -> gain 0."""
+    lo = _clip(_leaf_output(lg, lh, l1, l2, mds), min_c, max_c)
+    ro = _clip(_leaf_output(rg, rh, l1, l2, mds), min_c, max_c)
+    gain = (_leaf_gain_given_output(lg, lh, l1, l2, lo)
+            + _leaf_gain_given_output(rg, rh, l1, l2, ro))
+    veto = ((mono > 0) & (lo > ro)) | ((mono < 0) & (lo < ro))
+    return torch.where(veto, torch.zeros_like(gain), gain)
+
+
+def _first_argmax(values, dim=-1):
+    """argmax returning the first occurrence (ties -> lowest index)."""
+    return torch.argmax(values, dim=dim)
+
+
+def _last_argmax(values, dim=-1):
+    """argmax returning the last occurrence (ties -> highest index)."""
+    b = values.shape[dim]
+    return b - 1 - torch.argmax(torch.flip(values, dims=[dim]), dim=dim)
+
+
+_SCAN_BLOCK = 16
+
+
+def _prefix_sum_f32(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive f32 prefix sum over the last axis, in the order XLA's CPU
+    backend computes the reference's cumsum: the axis is zero-padded to
+    blocks of 16, each block is folded left to right, and each block adds
+    the left fold of the earlier blocks' totals. Every add is one
+    elementwise f32 op, so CPU and CUDA round alike; the loop costs ~32
+    launches whatever the bin count."""
+    b = x.shape[-1]
+    nblk = -(-b // _SCAN_BLOCK)
+    xp = torch.nn.functional.pad(x, (0, nblk * _SCAN_BLOCK - b))
+    cols = xp.reshape(*x.shape[:-1], nblk, _SCAN_BLOCK).movedim(
+        -1, 0).contiguous()                              # [16, ..., nblk]
+    local = torch.empty_like(cols)
+    torch.add(torch.zeros_like(cols[0]), cols[0], out=local[0])
+    for i in range(1, _SCAN_BLOCK):
+        torch.add(local[i - 1], cols[i], out=local[i])
+    totals = local[-1].movedim(-1, 0).contiguous()       # [nblk, ...]
+    before = torch.zeros_like(totals)
+    for k in range(1, nblk):
+        torch.add(before[k - 1], totals[k - 1], out=before[k])
+    out = local.movedim(0, -1) + before.movedim(0, -1)[..., None]
+    return out.reshape(*x.shape[:-1], nblk * _SCAN_BLOCK)[..., :b]
+
+
+def _take(arr, idx):
+    return torch.gather(arr, -1, idx.unsqueeze(-1)).squeeze(-1)
+
+
+def make_split_finder(hyper: SplitHyper, feature_meta: Dict[str, np.ndarray],
+                      max_bin: int, device=torch.device("cpu")):
+    """Build the split finder for a fixed dataset + config.
+
+    feature_meta arrays (length F): num_bin, default_bin, missing_type
+    (0 none / 1 zero / 2 nan), bin_type (0 numerical / 1 categorical),
+    monotone, penalty.
+
+    Returns fn(hist[K,F,B,3] f32, sum_grad[K], sum_hess[K], num_data[K],
+    min_constr[K], max_constr[K]) -> dict of [K, F] arrays: one search
+    per leaf of the batch (the JAX finder's search, with a leading leaf
+    axis).
+    """
+    if (np.asarray(feature_meta["bin_type"]) == 1).any():
+        raise NotImplementedError(
+            "categorical splits are not ported yet (the categorical scan "
+            "of lightgbm_tpu/ops/split.py:242 is queued in ROADMAP.md)")
+
+    def dev(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    nb = dev(feature_meta["num_bin"], torch.int32)[:, None]       # [F,1]
+    db = dev(feature_meta["default_bin"], torch.int32)[:, None]
+    mt = dev(feature_meta["missing_type"], torch.int32)[:, None]
+    mono = dev(feature_meta["monotone"], torch.int32)[:, None]
+    penalty = dev(feature_meta["penalty"], torch.float32)
+    h = hyper
+    bins = torch.arange(max_bin, dtype=torch.int32, device=device)[None, :]
+    in_range = bins < nb
+    # effective flags (reference feature_histogram.hpp:97-111)
+    two_scan = (nb > 2) & (mt != 0)
+    skip_def = (mt == 1) & two_scan
+    use_na = ((mt == 2) & two_scan).to(torch.int32)
+    not_def = ~(skip_def & (bins == db))
+    inc1 = in_range & not_def
+    inc2 = in_range & not_def & (bins <= nb - 1 - use_na)
+    cand1 = two_scan & (bins <= nb - 2) & not_def
+    cand2 = (bins <= nb - 2 - use_na) & ~(skip_def & (bins + 1 == db))
+    nan_two_bins = (nb[:, 0] <= 2) & (mt[:, 0] == 2)
+    min_data_f = float(h.min_data_in_leaf)
+    min_hess = float(h.min_sum_hessian_in_leaf)
+    l1, l2, mds = h.lambda_l1, h.lambda_l2, h.max_delta_step
+
+    def find_best_splits(hist, sum_grad, sum_hess, num_data, min_constraint,
+                         max_constraint):
+        hist = hist.to(torch.float32)
+        k = hist.shape[0]
+        sum_grad = sum_grad.to(torch.float32)[:, None, None]     # [K,1,1]
+        sum_hess = sum_hess.to(torch.float32)[:, None, None] + 2 * K_EPSILON
+        num_data_f = num_data.to(torch.float32)[:, None, None]
+        min_c = min_constraint.to(torch.float32)[:, None, None]
+        max_c = max_constraint.to(torch.float32)[:, None, None]
+        gain_shift = _leaf_gain(sum_grad, sum_hess, l1, l2, mds)
+        min_gain_shift = gain_shift + h.min_gain_to_split
+
+        g, hs, c = hist[..., 0], hist[..., 1], hist[..., 2]      # [K,F,B]
+        zero = torch.zeros((), dtype=torch.float32, device=hist.device)
+        # both scans' prefix sums in one sequential fold: [K, 6, F, B]
+        pre = _prefix_sum_f32(torch.stack(
+            [torch.where(inc1, g, zero), torch.where(inc1, hs, zero),
+             torch.where(inc1, c, zero), torch.where(inc2, g, zero),
+             torch.where(inc2, hs, zero), torch.where(inc2, c, zero)],
+            dim=1))
+        pg, ph, pc, pg2, ph2, pc2 = pre.unbind(dim=1)
+
+        # ---- dir = +1: accumulate from the left; missing/default -> right
+        lg1, lh1, lc1 = pg, ph + K_EPSILON, pc
+        rg1 = sum_grad - lg1
+        rh1 = sum_hess - lh1
+        rc1 = num_data_f - lc1
+        valid1 = (cand1 & (lc1 >= min_data_f) & (rc1 >= min_data_f)
+                  & (lh1 >= min_hess) & (rh1 >= min_hess))
+        gain1 = _split_gains(lg1, lh1, rg1, rh1, l1, l2, mds, min_c, max_c,
+                             mono)
+        gain1 = torch.where(valid1 & (gain1 > min_gain_shift), gain1,
+                            NEG_INF)
+
+        # ---- dir = -1: accumulate from the right; missing/default -> left
+        tg2, th2, tc2 = pg2[..., -1:], ph2[..., -1:], pc2[..., -1:]
+        rg2 = tg2 - pg2
+        rh2 = (th2 - ph2) + K_EPSILON
+        rc2 = tc2 - pc2
+        lg2 = sum_grad - rg2
+        lh2 = sum_hess - rh2
+        lc2 = num_data_f - rc2
+        valid2 = (cand2 & (rc2 >= min_data_f) & (lc2 >= min_data_f)
+                  & (rh2 >= min_hess) & (lh2 >= min_hess))
+        gain2 = _split_gains(lg2, lh2, rg2, rh2, l1, l2, mds, min_c, max_c,
+                             mono)
+        gain2 = torch.where(valid2 & (gain2 > min_gain_shift), gain2,
+                            NEG_INF)
+
+        # ---- per-direction winners with the reference tie-break order
+        t1 = _first_argmax(gain1)                 # dir=+1 scans low->high
+        t2 = _last_argmax(gain2)                  # dir=-1 scans high->low
+        g1b = _take(gain1, t1)
+        g2b = _take(gain2, t2)
+        use1 = g1b > g2b                          # dir=-1 first, strict >
+        thr = torch.where(use1, t1, t2).to(torch.int32)
+        best_gain = torch.where(use1, g1b, g2b)
+        # NaN-with-2-bins direction fix (feature_histogram.hpp:108-110)
+        default_left = ~use1 & ~nan_two_bins
+
+        def pick(a1, a2):
+            return torch.where(use1, _take(a1, t1), _take(a2, t2))
+
+        sg0, sh0 = sum_grad[..., 0], sum_hess[..., 0]             # [K,1]
+        lg = pick(lg1, lg2)
+        lh = pick(lh1, lh2)
+        lc = pick(lc1, lc2)
+        mc, xc = min_c[..., 0], max_c[..., 0]
+        lo = _clip(_leaf_output(lg, lh, l1, l2, mds), mc, xc)
+        ro = _clip(_leaf_output(sg0 - lg, sh0 - lh, l1, l2, mds), mc, xc)
+
+        mgs = min_gain_shift[..., 0]
+        left_c = lc.to(torch.int32)
+        return {
+            "gain": torch.where(torch.isfinite(best_gain),
+                                (best_gain - mgs) * penalty, NEG_INF),
+            "threshold": thr,
+            "default_left": default_left,
+            "left_g": lg,
+            "left_h": lh - K_EPSILON,
+            "left_c": left_c,
+            "right_g": sg0 - lg,
+            "right_h": sh0 - lh - K_EPSILON,
+            "right_c": num_data.to(torch.int32)[:, None] - left_c,
+            "left_output": lo,
+            "right_output": ro,
+        }
+
+    return find_best_splits

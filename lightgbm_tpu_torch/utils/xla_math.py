@@ -1,0 +1,50 @@
+"""The f32 arithmetic of XLA's CPU backend, reproduced in PyTorch.
+
+The JAX package's numbers come from XLA, which contracts every ``a * b
++ c`` of f32 values into one fused multiply-add and computes ``exp``
+with its own polynomial. The port computes the gradients and the score
+updates the same way, so both packages feed the same bits into every
+histogram and grow the same trees. Both functions are plain tensor code
+and give the same bits on the CPU and on CUDA.
+
+The split scan's per-side gain ``-(2 reg out + (h + l2) out^2)`` is
+contracted as XLA's CPU backend contracts it (the first product fused
+into the add), so two directions that tie up to rounding pick the same
+winner in both packages. The gain shift is left unfused, so the
+``split_gain`` written to the model text may differ in its last bit.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """f32 ``a * b + c`` with one rounding, computed in f64: the product of
+    two f32 values is exact there."""
+    return (a.double() * b + c).float()
+
+
+# XLA's f32 exp (its CPU backend's Cephes polynomial): n = floor(x log2 e
+# + 1/2), a = x - n ln 2 in two fused steps, e^a by a degree-7
+# polynomial, times 2^n; results below the smallest normal flush to 0
+_EXP_POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+             4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+_F32 = np.float32
+
+
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """``exp`` of an f32 tensor, bit-identical to XLA's f32 exp."""
+    x = x.clamp(-87.8, 88.8)
+    n = torch.floor(fma_f32(x, float(_F32(1.44269504088896341)), 0.5))
+    n = n.clamp(-127.0, 127.0)
+    a = fma_f32(n, -0.693359375, x)
+    a = fma_f32(n, float(_F32(2.12194440e-4)), a)
+    z = fma_f32(a, float(_F32(_EXP_POLY[0])), float(_F32(_EXP_POLY[1])))
+    for c in _EXP_POLY[2:]:
+        z = fma_f32(z, a, float(_F32(c)))
+    z = 1.0 + fma_f32(z, a * a, a)
+    two_n = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    y = z * two_n
+    return torch.where(y < float(np.finfo(np.float32).tiny),
+                       torch.zeros_like(y), y)

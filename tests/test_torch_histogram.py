@@ -1,0 +1,118 @@
+"""Kernel B1's plain twin (lightgbm_tpu_torch/ops/histogram.py) against
+the JAX package's histogram: the Pallas kernel in interpret mode (as
+tests/test_subbin_spill.py runs it) and the f64 einsum path."""
+import jax
+import jax.experimental
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lightgbm_tpu.ops.histogram import \
+    histogram_from_gathered_gh as jax_hist
+from lightgbm_tpu.ops.pallas_hist import pallas_histogram
+from lightgbm_tpu_torch.ops import histogram as H
+
+
+@pytest.fixture
+def jax_x64(monkeypatch):
+    """The JAX package's f64 mode enters `jax.experimental.enable_x64()`,
+    which JAX 0.9 removed; give it the replacement for this test."""
+    monkeypatch.setattr(jax.experimental, "enable_x64",
+                        lambda: jax.enable_x64(True), raising=False)
+
+
+def _mk(n, f, max_bin, seed=0, int_payload=False):
+    rng = np.random.RandomState(seed)
+    bins = rng.randint(0, max_bin, (n, f)).astype(np.uint8)
+    if int_payload:
+        g = rng.randint(-8, 9, n).astype(np.float32)
+        h = rng.randint(0, 5, n).astype(np.float32)
+    else:
+        g = rng.standard_normal(n).astype(np.float32)
+        h = rng.uniform(0.01, 0.25, n).astype(np.float32)
+    valid = rng.rand(n) < 0.7
+    return bins, np.stack([g, h], axis=1), valid
+
+
+def _port(bins, gh, valid, max_bin, precision="f32"):
+    return H.histogram_from_gathered_gh(
+        torch.tensor(bins), torch.tensor(gh), torch.tensor(valid), max_bin,
+        precision).numpy()
+
+
+def _pallas(bins, gh, valid, max_bin):
+    return np.asarray(pallas_histogram(
+        jnp.asarray(bins), jnp.asarray(gh), jnp.asarray(valid),
+        max_bin=max_bin, chunk=512, interpret=True))
+
+
+@pytest.mark.parametrize("max_bin", [63, 255])
+def test_integer_payload_bitwise_vs_pallas(max_bin):
+    """Integer payloads: the bf16 hi/lo split is exact, so the port's
+    histogram equals the Pallas kernel's bit for bit (255 bins takes the
+    sub-bin branch)."""
+    bins, gh, valid = _mk(1500, 5, max_bin, seed=1, int_payload=True)
+    np.testing.assert_array_equal(_port(bins, gh, valid, max_bin),
+                                  _pallas(bins, gh, valid, max_bin))
+
+
+@pytest.mark.parametrize("max_bin", [63, 255])
+def test_float_payload_vs_pallas(max_bin):
+    """Float payloads: counts exact; grad/hess within the tolerance of
+    test_subbin_spill.py (the hi/lo split is only about f32)."""
+    bins, gh, valid = _mk(2000, 4, max_bin, seed=2)
+    got = _port(bins, gh, valid, max_bin)
+    ref = _pallas(bins, gh, valid, max_bin)
+    np.testing.assert_array_equal(got[..., 2], ref[..., 2])
+    np.testing.assert_allclose(got, ref, rtol=2e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("max_bin", [63, 255])
+def test_f64_equals_reference_f64(max_bin, jax_x64):
+    """tpu_use_f64_hist: exactly the JAX package's f64 histogram."""
+    bins, gh, valid = _mk(1800, 6, max_bin, seed=3)
+    got = _port(bins, gh, valid, max_bin, "f64")
+    ref = np.asarray(jax_hist(jnp.asarray(bins), jnp.asarray(gh),
+                              jnp.asarray(valid), max_bin=max_bin,
+                              precision="f64"))
+    assert got.dtype == np.float64
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_leaf_slice_and_root_match_gathered():
+    """The fused gather: a leaf's index slice and the contiguous root give
+    the histogram of the rows they name, without launching a kernel on
+    CPU tensors."""
+    bins, gh, _ = _mk(900, 7, 63, seed=4)
+    tb, tgh = torch.tensor(bins), torch.tensor(gh)
+    perm = torch.tensor(np.random.RandomState(5).permutation(900),
+                        dtype=torch.int32)
+    H.reset_launches()
+    got = H.leaf_histogram(tb, tgh, perm, 100, 333, 63, "f64")
+    rows = perm[100:433].long()
+    ref = H.histogram_plain(tb[rows], tgh[rows], None, 0, 333, 63, "f64")
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    root = H.leaf_histogram(tb, tgh, None, 0, 900, 63)
+    assert root.dtype == torch.float32
+    np.testing.assert_array_equal(root[..., 2].sum(1).numpy(), 900)
+    assert H.LAUNCHES == {"f32": 0, "f64": 0}
+    torch.testing.assert_close(
+        H.subtract_histogram(root, got.float()),
+        root - got.float(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bins,precision,tiles", [
+    (63, "f32", 1), (255, "f32", 1), (63, "f64", 1), (255, "f64", 2)])
+def test_launch_shape_fits_shared_memory(bins, precision, tiles):
+    """28 features: every feature tile's sub-histogram fits a block's
+    shared memory (227 KB opt-in on an H100), and no more blocks run
+    than two per SM."""
+    fpb, blocks = H.launch_shape(10_500_000, 28, bins, precision,
+                                 num_sms=132, smem_optin=232448)
+    itemsize = 4 if precision == "f32" else 8
+    assert -(-28 // fpb) == tiles
+    assert fpb * bins * 3 * itemsize <= 232448
+    assert 1 <= blocks * tiles <= 2 * 132
+    assert H.launch_shape(1000, 28, bins, precision, 132, 232448)[1] == 1
+
