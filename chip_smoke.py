@@ -6,8 +6,10 @@
 Phases, each of which ends the run with a non-zero exit if it fails:
 
 1. device: torch, CUDA and nvcc versions, the card's name and power limit;
-2. build: nvcc compiles every CUDA source of the port (kernel B1,
-   ``lightgbm_tpu_torch/ops/csrc/histogram.cu``) for sm_90a;
+2. build: nvcc compiles every CUDA source of the port for sm_90a, one
+   process per source, all started together (kernel B1,
+   ``lightgbm_tpu_torch/ops/csrc/histogram.cu``; kernels B2-B4,
+   ``lightgbm_tpu_torch/ops/csrc/aligned.cu``);
 3. kernel vs plain: the histogram kernel against its plain PyTorch twin
    on the card at the main path's shapes (10.5M x 28), at 63 and 255
    bins, over the contiguous root and over a large (half the rows) and a
@@ -16,16 +18,33 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    it times the kernel, the twin and one ``index_add_`` over a prebuilt
    flat index (the yardstick, never called by the port), and it times
    the kernel on the gathered children;
-4. main path: ``train`` -> ``Booster.predict`` / ``model_to_string`` on
-   synthetic HIGGS-shaped data (10.5M x 28, 500k holdout, the recipe of
+4. leaf-wise path: ``train`` (``tpu_grow_mode=leafwise``) ->
+   ``Booster.predict`` / ``model_to_string`` on synthetic HIGGS-shaped
+   data (10.5M x 28, 500k holdout, the recipe of
    ``bench.py::synth_higgs``), 255 leaves, 10 rounds at max_bin 63 and 5
    at 255; the kernel launch counts are zeroed just before each run and
    read just after; holdout AUC must exceed 0.6 and the card's
    predictions must match a CPU predict of the same model text;
    one more round at max_bin 63 runs under ``torch.profiler`` and prints
    the device's busy share and the kernels that take the most time;
-5. f64 determinism: a small f64-histogram run on the card and on the CPU
-   must write the same trees.
+5. aligned path: the same data and params through ``train`` with the
+   default ``tpu_grow_mode=auto``, which must take the aligned engine and
+   say so in the log; launches of B2-B4 per tree, speculative rounds per
+   tree and fallbacks; holdout AUC above 0.6 and within 2e-3 of the
+   leaf-wise run's; one profiled round at max_bin 63;
+6. aligned kernels vs plain: one aligned tree at each bin count, in the
+   COMPACT layout and in the STANDARD layout (``tpu_force_big_n``), with
+   the engine's kernel calls recorded: the root's histogram pass, the
+   root's move and the move of the round with the most split blocks (and
+   that round's count pass), replayed through each kernel and its plain
+   twin on the card: counts equal, moved records equal on the rows the
+   new layout covers, histogram counts equal and g/h within 1e-5 x the
+   slot's sum of |g| (|h|); each kernel timed beside its twin, its byte
+   bound and, for B4, one ``index_add_``;
+7. big-n path: an aligned run with ``tpu_force_big_n`` (STANDARD records,
+   the exact i32 count pass, kernel B3) at max_bin 63, 3 rounds;
+8. f64 determinism: a small f64-histogram leaf-wise run on the card and
+   on the CPU must write the same trees.
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -34,6 +53,7 @@ beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -47,6 +67,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM data sheet, f32 outside the tensor cores
 F64_OPS_PER_S = 34e12          # H100 SXM data sheet, f64 outside the tensor cores
 KERNEL_SOURCE = "lightgbm_tpu_torch/ops/csrc/histogram.cu"
+ALIGNED_SOURCE = "lightgbm_tpu_torch/ops/csrc/aligned.cu"
+SOURCES = {"histogram": KERNEL_SOURCE, "aligned": ALIGNED_SOURCE}
+ROUNDS = {63: 10, 255: 5}
 DEVICE = "cuda:0"              # one card
 
 
@@ -130,13 +153,18 @@ def phase_device(torch) -> dict:
 
 
 def phase_build() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
     from lightgbm_tpu_torch.utils import cuda_build
     t0 = time.perf_counter()
-    text = cuda_build.build("histogram")
-    log(f"build: {time.perf_counter() - t0:.3f} s for {KERNEL_SOURCE}")
-    for line in text.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        texts = dict(zip(SOURCES, pool.map(cuda_build.build, SOURCES)))
+    log(f"build: {time.perf_counter() - t0:.3f} s for "
+        f"{', '.join(SOURCES.values())} (one nvcc each, in parallel)")
+    for name, text in texts.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
 
 
 def check_parity(torch, H, binm, gh, idx, begin, count, bins, prec,
@@ -233,86 +261,362 @@ def phase_parity(torch, dev, rows: int) -> dict:
     return results
 
 
-def phase_main(torch, lt, rows: int, holdout: int) -> dict:
-    """The port's main path at the HIGGS shape, once per bin count."""
+def holdout_auc(lt, raw, yte) -> float:
     from lightgbm_tpu_torch.io.dataset import Metadata
-    from lightgbm_tpu_torch.ops import histogram as H
     from lightgbm_tpu_torch.ops.metrics import AUCMetric
+    md = Metadata(len(yte))
+    md.set_label(yte)
+    auc_m = AUCMetric(lt.Config())
+    auc_m.init(md, len(yte))
+    return auc_m.eval(raw[None, :], None)[0][1]
+
+
+def train_run(torch, lt, ds, params, rounds, Xte, yte, what) -> tuple:
+    """One ``train`` on the card, timed per iteration, with every kernel
+    count zeroed just before and read just after; holdout AUC, and the
+    card's predictions against a CPU predict of the model text."""
+    from lightgbm_tpu_torch.ops import aligned as A
+    from lightgbm_tpu_torch.ops import histogram as H
+    stamps = []
+
+    def stamp(env):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    H.reset_launches()
+    A.reset_launches()
+    t_start = time.perf_counter()
+    bst = lt.train(params, ds, num_boost_round=rounds, callbacks=[stamp],
+                   verbose_eval=False)
+    launches = {"B1": H.LAUNCHES["f32"], **A.LAUNCHES}
+    trees = bst.num_trees()
+    iters = np.diff([t_start] + stamps)
+    peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
-    X, y = synth_higgs(rows + holdout, 28)
+    raw = bst.predict(Xte, raw_score=True)
+    pred_s = time.perf_counter() - t0
+    auc = holdout_auc(lt, raw, yte)
+    text = bst.model_to_string()
+    cpu = lt.Booster(model_str=text, params={"device_type": "cpu"})
+    sub = Xte[:4000]
+    np.testing.assert_allclose(bst.predict(sub, raw_score=True),
+                               cpu.predict(sub, raw_score=True),
+                               rtol=1e-5, atol=1e-7)
+    if not np.all(np.isfinite(raw)) or raw.shape != (len(yte),):
+        raise AssertionError(f"{what}: predictions are not finite of shape "
+                             f"({len(yte)},)")
+    if trees != rounds:
+        raise AssertionError(f"{what}: {trees} trees after {rounds} rounds")
+    if auc <= 0.6:
+        raise AssertionError(f"{what}: holdout AUC {auc} <= 0.6")
+    med = statistics.median(iters[1:]) * 1e3 if len(iters) > 1 \
+        else float("nan")
+    r = {"first_round_s": float(iters[0]), "median_iter_ms": med,
+         "launches": launches,
+         "launches_per_tree": {k: v / trees for k, v in launches.items()},
+         "auc": auc, "peak_bytes": peak, "predict_s": pred_s,
+         "model_chars": len(text)}
+    return bst, r
+
+
+def phase_main(torch, lt, X, y, rows: int, max_bin: int) -> tuple:
+    """The leaf-wise path at the HIGGS shape (pinned: under ``auto`` the
+    card takes the aligned engine). Returns (Dataset, results)."""
     Xtr, ytr, Xte, yte = X[:rows], y[:rows], X[rows:], y[rows:]
-    log(f"data: {rows}+{holdout} x 28 synthetic rows in "
-        f"{time.perf_counter() - t0:.3f} s")
-    out = {}
-    for max_bin, rounds in ((63, 10), (255, 5)):
-        params = {"objective": "binary", "num_leaves": 255,
-                  "max_bin": max_bin, "learning_rate": 0.1,
-                  "min_data_in_leaf": 20, "feature_fraction": 1.0,
-                  "verbosity": -1}
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        ds = lt.Dataset(Xtr, label=ytr, params=params,
-                        free_raw_data=False).construct()
-        torch.cuda.synchronize()
-        bin_s = time.perf_counter() - t0
-        stamps = []
+    rounds = ROUNDS[max_bin]
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": max_bin,
+              "learning_rate": 0.1, "min_data_in_leaf": 20,
+              "feature_fraction": 1.0, "verbosity": -1}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = lt.Dataset(Xtr, label=ytr, params=params,
+                    free_raw_data=False).construct()
+    torch.cuda.synchronize()
+    bin_s = time.perf_counter() - t0
+    bst, r = train_run(torch, lt, ds, {**params, "tpu_grow_mode": "leafwise"},
+                       rounds, Xte, yte, f"leaf-wise {max_bin}")
+    r["binning_s"] = bin_s
+    if r["launches"]["B1"] == 0:
+        raise AssertionError("the leaf-wise path never launched the "
+                             "histogram kernel")
+    log(f"main leaf-wise max_bin={max_bin}: binning {bin_s:.3f} s, first "
+        f"round {r['first_round_s']:.3f} s, median iteration "
+        f"{r['median_iter_ms']:.1f} ms over {rounds - 1}, B1 launches "
+        f"{r['launches']['B1']} ({r['launches_per_tree']['B1']:.1f}/tree), "
+        f"holdout AUC {r['auc']:.6f}, predict {len(yte)} rows "
+        f"{r['predict_s']:.3f} s, peak device memory "
+        f"{r['peak_bytes'] / 2**30:.3f} GiB, model text "
+        f"{r['model_chars']} chars")
+    if max_bin == 63:
+        r["profile"] = profile_round(torch, bst)
+    del bst
+    torch.cuda.empty_cache()
+    return ds, params, r
 
-        def stamp(env):
-            torch.cuda.synchronize()
-            stamps.append(time.perf_counter())
 
-        H.reset_launches()
-        torch.cuda.synchronize()
-        t_start = time.perf_counter()
-        bst = lt.train(params, ds, num_boost_round=rounds,
-                       callbacks=[stamp], verbose_eval=False)
-        launches = dict(H.LAUNCHES)
-        trees = bst.num_trees()
-        iters = np.diff([t_start] + stamps)
-        peak = torch.cuda.max_memory_allocated()
-        t0 = time.perf_counter()
-        raw = bst.predict(Xte, raw_score=True)
-        pred_s = time.perf_counter() - t0
-        md = Metadata(holdout)
-        md.set_label(yte)
-        auc_m = AUCMetric(lt.Config())
-        auc_m.init(md, holdout)
-        auc = auc_m.eval(raw[None, :], None)[0][1]
-        text = bst.model_to_string()
-        cpu = lt.Booster(model_str=text, params={"device_type": "cpu"})
-        sub = Xte[:4000]
-        np.testing.assert_allclose(bst.predict(sub, raw_score=True),
-                                   cpu.predict(sub, raw_score=True),
-                                   rtol=1e-5, atol=1e-7)
-        if not np.all(np.isfinite(raw)) or raw.shape != (holdout,):
-            raise AssertionError("predictions are not finite of shape "
-                                 f"({holdout},)")
-        if trees != rounds:
-            raise AssertionError(f"{trees} trees after {rounds} rounds")
-        if launches["f32"] == 0:
-            raise AssertionError("the main path never launched the "
-                                 "histogram kernel")
-        if auc <= 0.6:
-            raise AssertionError(f"holdout AUC {auc} <= 0.6")
-        med = statistics.median(iters[1:]) * 1e3 if len(iters) > 1 \
-            else float("nan")
-        r = {"binning_s": bin_s, "first_round_s": float(iters[0]),
-             "median_iter_ms": med, "launches": launches["f32"],
-             "launches_per_tree": launches["f32"] / trees, "auc": auc,
-             "peak_bytes": peak, "predict_s": pred_s}
-        out[max_bin] = r
-        log(f"main max_bin={max_bin}: binning {bin_s:.3f} s, first round "
-            f"{r['first_round_s']:.3f} s, median iteration {med:.1f} ms "
-            f"over {rounds - 1}, B1 launches {launches['f32']} "
-            f"({r['launches_per_tree']:.1f}/tree), holdout AUC {auc:.6f}, "
-            f"predict {holdout} rows {pred_s:.3f} s, peak device memory "
-            f"{peak / 2**30:.3f} GiB, model text {len(text)} chars")
-        if max_bin == 63:
-            r["profile"] = profile_round(torch, bst)
-        del ds, bst, cpu
-        torch.cuda.empty_cache()
+def phase_aligned_main(torch, lt, ds, params, X, y, rows: int, max_bin: int,
+                       leaf: dict) -> dict:
+    """The aligned engine through ``train`` under the default ``auto``:
+    the log must name the aligned path; AUC within 2e-3 of the leaf-wise
+    run on the same data and params."""
+    from lightgbm_tpu_torch.utils import log as port_log
+    Xte, yte = X[rows:], y[rows:]
+    rounds = ROUNDS[max_bin]
+    lines = []
+    port_log.register_callback(lines.append)
+    try:
+        bst, r = train_run(torch, lt, ds, {**params, "verbosity": 1},
+                           rounds, Xte, yte, f"aligned {max_bin}")
+    finally:
+        port_log.register_callback(None)
+    g = bst._gbdt
+    if not any("training path: aligned" in ln for ln in lines):
+        raise AssertionError(f"the log does not name the aligned path: "
+                             f"{lines[:3]}")
+    stats = g.aligned_stats
+    r["rounds_per_tree"] = [s[0] for s in stats]
+    r["splits_executed_per_tree"] = [s[1] for s in stats]
+    r["fallbacks"] = g._aligned_eng.fallbacks
+    r["auc_leafwise"] = leaf["auc"]
+    if r["launches"]["move_pass"] == 0 or r["launches"]["slot_hist_pass"] == 0:
+        raise AssertionError(f"the aligned path launched {r['launches']}")
+    if abs(r["auc"] - leaf["auc"]) > 2e-3:
+        raise AssertionError(f"aligned AUC {r['auc']} is not within 2e-3 of "
+                             f"the leaf-wise {leaf['auc']}")
+    lp = r["launches_per_tree"]
+    r["binning_s"] = leaf["binning_s"]
+    log(f"main aligned max_bin={max_bin}: binning (the leaf-wise run's "
+        f"Dataset) {leaf['binning_s']:.3f} s, first round "
+        f"{r['first_round_s']:.3f} s, median iteration "
+        f"{r['median_iter_ms']:.1f} ms over {rounds - 1}, rounds per tree "
+        f"{r['rounds_per_tree']}, fallbacks {r['fallbacks']}, launches per "
+        f"tree B2 {lp['move_pass']:.1f} B3 {lp['count_pass']:.1f} B4 "
+        f"{lp['slot_hist_pass']:.1f} B1 {lp['B1']:.1f}, holdout AUC "
+        f"{r['auc']:.6f} (leaf-wise {leaf['auc']:.6f}), predict "
+        f"{r['predict_s']:.3f} s, peak device memory "
+        f"{r['peak_bytes'] / 2**30:.3f} GiB")
+    if max_bin == 63:
+        r["profile"] = profile_round(torch, bst)
+    del bst, g
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_big_n(torch, lt, ds, params, X, y, rows: int) -> dict:
+    """The STANDARD layout and B3 on a real path: tpu_force_big_n at full
+    width, max_bin 63, 3 rounds."""
+    bst, r = train_run(torch, lt, ds, {**params, "tpu_force_big_n": True},
+                       3, X[rows:], y[rows:], "big-n")
+    eng = bst._gbdt._aligned_eng
+    if bst._gbdt.train_path != "aligned" or eng.compact:
+        raise AssertionError("the big-n run left the STANDARD aligned path")
+    if r["launches"]["count_pass"] == 0:
+        raise AssertionError("the big-n run never launched count_pass")
+    r["rounds_per_tree"] = [s[0] for s in bst._gbdt.aligned_stats]
+    log(f"big-n aligned (STANDARD, count pass) max_bin=63: first round "
+        f"{r['first_round_s']:.3f} s, median iteration "
+        f"{r['median_iter_ms']:.1f} ms, launches {r['launches']}, rounds "
+        f"per tree {r['rounds_per_tree']}, holdout AUC {r['auc']:.6f}")
+    del bst, eng
+    torch.cuda.empty_cache()
+    return r
+
+
+def capture_kernel_calls(torch, lt, ds, params) -> dict:
+    """One aligned tree with the engine's kernel calls recorded (clones of
+    their inputs): the root's histogram pass, the root's move, and the
+    move of the round with the most split blocks among those that also
+    copy unsplit blocks, with that round's count pass (STANDARD only)."""
+    from lightgbm_tpu_torch.models import aligned_builder as AB
+    names = ("move_pass", "count_pass", "slot_hist_pass")
+    real = {n: getattr(AB, n) for n in names}
+    keep, state = {}, {"count": None, "blocks": -1}
+
+    def clone(args):
+        return tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+
+    def slot_hist(*args):
+        keep.setdefault("slot_hist_pass", clone(args))
+        return real["slot_hist_pass"](*args)
+
+    def count(*args):
+        state["count"] = clone(args)
+        return real["count_pass"](*args)
+
+    def move(*args, out=None):
+        r1, meta, hs, k = args[1], args[5], args[7], args[8]
+        blocks = int(torch.unique(hs[(hs & 0xFFFFFF) < k]).numel())
+        copies = int(((((r1 >> 16) & 1) == 1)
+                      & ((meta & 0xFFFFF) > 0)).sum())
+        if "move_root" not in keep:
+            keep["move_root"] = clone(args)
+        elif copies > 0 and blocks >= state["blocks"]:
+            keep.pop("move_wide", None)
+            keep["move_wide"] = clone(args)
+            keep["count_wide"] = state["count"]
+            state["blocks"] = blocks
+        state["count"] = None
+        return real["move_pass"](*args, out=out)
+
+    for n, fn in zip(names, (move, count, slot_hist)):
+        setattr(AB, n, fn)
+    try:
+        lt.train(params, ds, num_boost_round=1, verbose_eval=False)
+    finally:
+        for n in names:
+            setattr(AB, n, real[n])
+    keep["wide_blocks"] = state["blocks"]
+    return keep
+
+
+def slot_abs_sums(torch, A, rec, slot_of_chunk, meta, k, wcnt, grad):
+    """[k, 2] sum of |g| and |h| over the valid rows of each slot's chunks
+    (the scale of the histogram tolerance)."""
+    g, h = A._payload(rec, wcnt, grad)
+    valid = A._valid_rows(meta, rec.shape[2])
+    per_chunk = torch.stack([torch.where(valid, g.abs(), 0.0).sum(1),
+                             torch.where(valid, h.abs(), 0.0).sum(1)], dim=1)
+    ok = (slot_of_chunk >= 0) & (slot_of_chunk < k)
+    out = torch.zeros((k, 2), dtype=torch.float32, device=rec.device)
+    out.index_add_(0, slot_of_chunk[ok].long(), per_chunk[ok])
     return out
+
+
+def check_hist(torch, got, ref, scale, what) -> float:
+    """Counts equal, g/h within 1e-5 x the slot's sum of |g| (|h|);
+    returns the largest |difference|."""
+    torch.cuda.synchronize()
+    if not torch.equal(got[..., 2], ref[..., 2]):
+        raise AssertionError(f"{what}: histogram counts differ")
+    err = (got[..., :2] - ref[..., :2]).abs()
+    if bool((err > 1e-5 * scale[:, None, None, :]).any()):
+        raise AssertionError(f"{what}: g/h differ beyond 1e-5 x sum|.| "
+                             f"(max |d| {err.max().item()})")
+    return err.max().item()
+
+
+def bound(nbytes: float, ops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_move(torch, A, args, what) -> float:
+    """The move kernel against its twin: records equal on the rows the new
+    layout covers (the twin run into two fills marks them) in the used
+    lanes; the smaller children's histograms by `check_hist`."""
+    rec, meta, hs, k = args[0], args[5], args[7], args[8]
+    wcnt, w_used, grad = args[11], args[13], args[14]
+    out, hist = A.move_pass(*args)
+    ref_a, ref_hist = A.move_pass_plain(*args, out=torch.full_like(rec, -1))
+    cov = ref_a[:, 0] == A.move_pass_plain(
+        *args, out=torch.full_like(rec, -2))[0][:, 0]
+    for u in range(w_used):
+        if not torch.equal(out[:, u][cov], ref_a[:, u][cov]):
+            raise AssertionError(f"{what}: moved records differ in lane {u}")
+    err = check_hist(torch, hist, ref_hist, slot_abs_sums(
+        torch, A, rec, hs & 0xFFFFFF, meta, k, wcnt, grad), what)
+    del out, hist, ref_a, ref_hist, cov
+    return err
+
+
+def phase_aligned_parity(torch, lt, ds, params, max_bin: int,
+                         layout: str) -> dict:
+    """B2/B3/B4 against their twins on the inputs of one real aligned tree
+    at 10.5M x 28, timed beside the twin, the byte bound and (B4) one
+    ``index_add_``."""
+    from lightgbm_tpu_torch.ops import aligned as A
+    calls = capture_kernel_calls(
+        torch, lt, ds, {**params, "tpu_force_big_n": layout == "standard"})
+    what = f"{max_bin} bins, {layout}"
+    res = {}
+    # ---- B4: the root pass
+    args = calls["slot_hist_pass"]
+    rec, slots, meta, k, F, B, wcnt, bits, grad = args
+    nc, W, C = rec.shape
+    err = check_hist(torch, A.slot_hist_pass(*args),
+                     A.slot_hist_pass_plain(*args),
+                     slot_abs_sums(torch, A, rec, slots, meta, k, wcnt, grad),
+                     f"slot_hist_pass root, {what}")
+    rows = int((meta & 0xFFFFF)[(slots >= 0) & (slots < k)].sum())
+    r = {"max_abs_err": err, "rows": rows,
+         "ms": cuda_ms(torch, lambda: A.slot_hist_pass(*args)),
+         "plain_ms": cuda_ms(torch, lambda: A.slot_hist_pass_plain(*args),
+                             reps=2)}
+    g, h = A._payload(rec, wcnt, grad)
+    sel = A._valid_rows(meta, C).reshape(-1).nonzero()[:, 0]
+    pay = torch.stack([g.reshape(-1)[sel], h.reshape(-1)[sel],
+                       torch.ones_like(sel, dtype=torch.float32)], dim=1)
+    bpw = 32 // bits
+    cell = torch.stack([(rec[sel // C, f // bpw, sel % C]
+                         >> ((f % bpw) * bits)) & ((1 << bits) - 1)
+                        for f in range(F)], dim=1).long() \
+        + torch.arange(F, device=rec.device) * B
+    cell = cell.reshape(-1)
+    pay = pay[:, None, :].expand(-1, F, -1).reshape(-1, 3)
+    hout = torch.zeros((F * B, 3), dtype=torch.float32, device=rec.device)
+    r["library_ms"] = cuda_ms(torch, lambda: hout.index_add_(0, cell, pay),
+                              reps=2)
+    del g, h, sel, pay, cell, hout
+    r["bound_ms"], r["bound_by"] = bound(
+        rows * (wcnt + 2) * 4 + nc * 2 * 4 + k * F * B * 3 * 4,
+        3 * F * rows)
+    res["slot_hist_pass"] = r
+    # ---- B2: the root's move, then the widest round's
+    err = check_move(torch, A, calls["move_root"],
+                     f"move_pass root, {what}")
+    args = calls["move_wide"]
+    err = max(err, check_move(torch, A, args, f"move_pass wide, {what}"))
+    rec, r1, meta, k, w_used = args[0], args[1], args[5], args[8], args[13]
+    cnt = meta & 0xFFFFF
+    is_copy = ((r1 >> 16) & 1) == 1
+    split_rows = int(cnt[~is_copy].sum())
+    copy_chunks = int((is_copy & (cnt > 0)).sum())
+    buf = torch.empty_like(rec)
+    r = {"max_abs_err": err, "split_blocks": calls["wide_blocks"],
+         "split_rows": split_rows, "copy_chunks": copy_chunks,
+         "ms": cuda_ms(torch, lambda: A.move_pass(*args, out=buf)),
+         "plain_ms": cuda_ms(torch, lambda: A.move_pass_plain(*args,
+                                                              out=buf),
+                             reps=2),
+         "library_ms": None}
+    r["bound_ms"], r["bound_by"] = bound(
+        2 * (split_rows * w_used * 4 + copy_chunks * W * C * 4)
+        + nc * 7 * 4 + k * F * B * 3 * 4, 3 * F * split_rows / 2)
+    res["move_pass"] = r
+    del buf
+    # ---- B3: the widest round's count pass (STANDARD)
+    if calls.get("count_wide") is not None:
+        args = calls["count_wide"]
+        got, ref = A.count_pass(*args), A.count_pass_plain(*args)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"count_pass differs from its twin, {what}")
+        meta, ks, k = args[3], args[5], args[6]
+        rows = int((meta & 0xFFFFF)[(ks >= 0) & (ks < k)].sum())
+        r = {"max_abs_err": 0.0, "rows": rows,
+             "ms": cuda_ms(torch, lambda: A.count_pass(*args)),
+             "plain_ms": cuda_ms(torch, lambda: A.count_pass_plain(*args),
+                                 reps=2),
+             "library_ms": None}
+        r["bound_ms"], r["bound_by"] = bound(rows * 4 + nc * 5 * 4 + k * 4,
+                                             rows)
+        res["count_pass"] = r
+    sizes = ("rows", "split_blocks", "split_rows", "copy_chunks")
+    for name, r in res.items():
+        lib = "none" if r["library_ms"] is None \
+            else f"{r['library_ms']:.4f} ms"
+        log(f"kernel {name} ({what}): kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {lib}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max |d| "
+            f"{r['max_abs_err']:.3e}, "
+            f"{ {k: v for k, v in r.items() if k in sizes} }")
+    del calls
+    torch.cuda.empty_cache()
+    return res
 
 
 def profile_round(torch, bst) -> dict:
@@ -354,7 +658,8 @@ def phase_f64(torch, lt) -> int:
     from lightgbm_tpu_torch.ops import histogram as H
     X, y = synth_higgs(20000, 28, seed=11)
     params = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
-              "tpu_use_f64_hist": True, "verbosity": -1}
+              "tpu_use_f64_hist": True, "tpu_grow_mode": "leafwise",
+              "verbosity": -1}
     texts = {}
     launches = 0
     for dev in ("cuda", "cpu"):
@@ -393,7 +698,23 @@ def main() -> int:
     info = phase_device(torch)
     phase_build()
     par = phase_parity(torch, dev, args.rows)
-    main_r = phase_main(torch, lt, args.rows, args.holdout)
+    t0 = time.perf_counter()
+    X, y = synth_higgs(args.rows + args.holdout, 28)
+    log(f"data: {args.rows}+{args.holdout} x 28 synthetic rows in "
+        f"{time.perf_counter() - t0:.3f} s")
+    main_r, aligned_r, apar = {}, {}, {}
+    for max_bin in (63, 255):
+        ds, params, main_r[max_bin] = phase_main(torch, lt, X, y, args.rows,
+                                                 max_bin)
+        aligned_r[max_bin] = phase_aligned_main(
+            torch, lt, ds, params, X, y, args.rows, max_bin, main_r[max_bin])
+        if max_bin == 63:
+            big_n = phase_big_n(torch, lt, ds, params, X, y, args.rows)
+        for layout in ("compact", "standard"):
+            apar[(max_bin, layout)] = phase_aligned_parity(
+                torch, lt, ds, params, max_bin, layout)
+        del ds
+        torch.cuda.empty_cache()
     f64_launches = phase_f64(torch, lt)
 
     def entry(name, replaces, bins, prec, launches):
@@ -408,15 +729,44 @@ def main() -> int:
                 "library_ms": p[f"library_ms_{prec}"],
                 "shape": f"root {args.rows}x28, {bins} bins, {prec}"}
 
+    def aentry(name, kernel, line, bins, layout, launches, shape):
+        p = apar[(bins, layout)][kernel]
+        return {"name": name, "route": "cuda", "source": ALIGNED_SOURCE,
+                "replaces": f"lightgbm_tpu/ops/aligned.py:{line}",
+                "launches": launches, "max_abs_err": p["max_abs_err"],
+                "ms": p["ms"], "plain_ms": p["plain_ms"],
+                "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
+                "library_ms": p["library_ms"],
+                "shape": f"{shape}, {args.rows}x28, {bins} bins, {layout}"}
+
     kernels = [
         entry("histogram_f32_63bin", "lightgbm_tpu/ops/pallas_hist.py:205",
-              63, "f32", main_r[63]["launches"]),
+              63, "f32", main_r[63]["launches"]["B1"]),
         entry("histogram_f32_255bin", "lightgbm_tpu/ops/pallas_hist.py:188",
-              255, "f32", main_r[255]["launches"]),
+              255, "f32", main_r[255]["launches"]["B1"]),
         entry("histogram_f64", "lightgbm_tpu/ops/histogram.py:39", 63,
               "f64", f64_launches),
     ]
+    for bins in (63, 255):
+        launches = aligned_r[bins]["launches"]
+        kernels.append(aentry(f"move_pass_{bins}bin", "move_pass", 960,
+                              bins, "compact", launches["move_pass"],
+                              "widest round of tree 1"))
+        kernels.append(aentry(f"slot_hist_pass_{bins}bin", "slot_hist_pass",
+                              1141, bins, "compact",
+                              launches["slot_hist_pass"], "root pass"))
+    kernels.append(aentry("count_pass", "count_pass", 1056, 63, "standard",
+                          big_n["launches"]["count_pass"],
+                          "widest round of tree 1"))
+    for k in kernels:
+        if k["launches"] == 0:
+            raise AssertionError(f"{k['name']} was never launched on its "
+                                 "main path")
     log(json.dumps({"main": {str(k): v for k, v in main_r.items()},
+                    "aligned": {str(k): v for k, v in aligned_r.items()},
+                    "big_n": big_n,
+                    "aligned_kernels": {f"{b} {lay}": v for (b, lay), v
+                                        in apar.items()},
                     "power": info["smi"]}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

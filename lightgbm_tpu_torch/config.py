@@ -351,9 +351,22 @@ class Config:
     # order of the kernel's atomics and a CUDA run grows the same trees
     # as a CPU run
     tpu_use_f64_hist: bool = False
-    # tree growth strategy; the port grows leaf-wise ("auto" resolves to
-    # it). The aligned and level engines are not ported yet
+    # tree growth strategy: "auto" takes the aligned engine
+    # (models/aligned_builder.py) when every gate of
+    # DeviceTreeLearner.aligned_mode_gate passes, else leaf-wise;
+    # "aligned" forces it and raises on a failing gate; "leafwise" forces
+    # the leaf-wise builder. The level builder is not ported yet
     tpu_grow_mode: str = "auto"
+    # speculation slots of the aligned engine as a multiple of num_leaves
+    tpu_level_spec: float = 4.5
+    # aligned rows per chunk (0 = auto: 1024 up to 40 features, else 512)
+    tpu_chunk: int = 0
+    # run the aligned engine on the CPU through the kernels' plain twins
+    # (the JAX package's flag for its interpret-mode kernels)
+    tpu_aligned_interpret: bool = False
+    # force the aligned engine's big-n layout (STANDARD records and the
+    # exact i32 count pass, normally n > 2^24 only) at any row count
+    tpu_force_big_n: bool = False
 
     # internal (set by trainer, reference config.h:832-833)
     is_parallel: bool = False

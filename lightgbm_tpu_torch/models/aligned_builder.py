@@ -1,0 +1,523 @@
+"""Aligned tree builder: speculative level growth over the chunk-aligned
+record matrix (`ops/aligned.py`), with exact leaf-wise replay (port of
+lightgbm_tpu/models/aligned_builder.py, serial numerical path).
+
+A tree grows in a handful of speculative rounds. Each round splits up to
+K = min(S - 1, 256) leaves at once in one pass over the rows:
+
+1. need-driven selection: the leaves the leaf-wise replay flagged as its
+   frontier, best gain first;
+2. left counts (the split finder's exact left count, or kernel B3 for the
+   STANDARD layout of ``tpu_force_big_n`` and n > 2^24) give the new
+   chunk-aligned layout: the left child at the parent's slot, the right
+   child at a fresh slot, every block's begin rounded up to a chunk;
+3. kernel B2 partitions every split block into the new layout, copies
+   unsplit blocks whole, and histograms each split's smaller child; the
+   larger child is parent minus sibling (`FeatureHistogram::Subtract`);
+4. the split finder evaluates the 2k children, and the reference's
+   priority queue (`serial_tree_learner.cpp:173-237`) is replayed over the
+   executed splits to flag the next frontier.
+
+The records stay permuted across iterations: gradients are elementwise,
+so nothing is unpermuted on the hot path; row-order scores are
+materialized lazily through the rid lane. The JAX package runs the rounds
+inside one `lax.while_loop`; here they are a host loop whose per-leaf
+tables (a few thousand numbers) live in numpy, with one small read from
+the card per round (the children's best splits) and a second one when the
+count pass runs. The replay decides exactly what the JAX package's
+`device_replay` decides: same lowest-slot tie-break, same budget cap, the
+same all-needed shortcut and the same authoritative final replay
+(`replay_frontier`), so the rounds and the number of executed splits are
+the JAX package's.
+"""
+from __future__ import annotations
+
+import heapq
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..ops.aligned import (META_FIRST, META_LAST, META_RID_MASK, R_COPY,
+                           R_DL, R_MT, R_SHIFT, _bpw_for_bits, chunk_for,
+                           count_pass, lane_layout, move_pass, pack_records,
+                           pack_route2, slot_hist_pass)
+from ..utils.xla_math import fma_f32
+from .device_learner import (BF_GAIN, BF_LG, BF_LH, BF_LOUT, BF_RG, BF_RH,
+                             BF_ROUT, BF_W, BI_DEFLEFT, BI_FEAT, BI_LC, BI_RC,
+                             BI_THR, BI_W, LF_MAXC, LF_MINC, LF_SG, LF_SH,
+                             LF_VALUE, LF_W, LI_BEGIN, LI_COUNT, LI_COUNTG,
+                             LI_DEPTH, LI_W)
+from .level_builder import (SF_GAIN, SF_IVAL, SF_LOUT, SF_ROUT, SF_W,
+                            SI_DEFLEFT, SI_FEAT, SI_LC, SI_RC, SI_SLOT,
+                            SI_THR, SI_W, replay_leafwise, spec_slots)
+
+K_CAP = 256      # splits per round at most (the JAX package's K)
+
+
+class AlignedSpec(NamedTuple):
+    """One aligned speculative build's tables (host numpy): what the
+    leaf-wise replay reads, and the build's round count."""
+    rounds: int
+    n_exec: int
+    execF: np.ndarray      # f32[Sm1, SF_W]
+    execI: np.ndarray      # i64[Sm1, SI_W]
+    bestF: np.ndarray      # f32[S, BF_W]
+    leafI: np.ndarray      # i64[S, LI_W] (LI_BEGIN in chunk units)
+
+
+def slot_in_any_map(begin, count, nc: int, chunk: int):
+    """(slot_of [nc], in_range [nc]) from monotonic block begins: a
+    chunk's slot is the last slot whose begin is <= the chunk."""
+    nslot = begin.shape[0]
+    iota = np.arange(nc)
+    marks = np.zeros(nc + 1, np.int64)
+    np.add.at(marks, np.clip(begin, 0, nc), 1)
+    slot_of = np.clip(np.cumsum(marks[:nc]) - 1, 0, nslot - 1)
+    nch = (count + chunk - 1) // chunk
+    in_range = ((iota >= begin[slot_of])
+                & (iota < begin[slot_of] + nch[slot_of])
+                & (count[slot_of] > 0))
+    return slot_of, in_range
+
+
+def chunk_maps(begin, count, exists, nc: int, chunk: int, cnts_pc=None,
+               root_span: bool = False):
+    """(slot_of, cnt_of, first, last, in_any) per chunk from the block
+    tables. A freshly moved layout is table-exact (full chunks, a partial
+    last one); the layout a tree inherits at its root round has gaps, so
+    there the root block spans all chunks and counts come from the carried
+    per-chunk ``cnts_pc``."""
+    nch = (count + chunk - 1) // chunk
+    if root_span:
+        nch = nch.copy()
+        nch[0] = nc
+    slot_of, _ = slot_in_any_map(begin, count, nc, chunk)
+    iota = np.arange(nc)
+    b = begin[slot_of]
+    in_any = ((iota >= b) & (iota < b + nch[slot_of]) & exists[slot_of]
+              & (count[slot_of] > 0))
+    if cnts_pc is None:
+        cnt_of = np.clip(count[slot_of] - (iota - b) * chunk, 0, chunk)
+    else:
+        cnt_of = cnts_pc
+    cnt_of = np.where(in_any, cnt_of, 0)
+    first = in_any & (iota == b)
+    last = in_any & (iota == b + np.maximum(nch[slot_of], 1) - 1)
+    return slot_of, cnt_of, first, last, in_any
+
+
+def route_words(feat, thr, default_left, split, meta, bits: int):
+    """Per-slot route words (r1, r2, wsel) of the slots' best splits; r1's
+    copy bit is set where ``split`` is False."""
+    bpw = _bpw_for_bits(bits)
+    r1 = (np.clip(thr, 0, 255)
+          | (((feat % bpw) * bits) << R_SHIFT)
+          | (default_left << R_DL)
+          | (meta["missing_type"][feat].astype(np.int64) << R_MT)
+          | ((1 - split.astype(np.int64)) << R_COPY))
+    r2 = pack_route2(np.clip(meta["default_bin"][feat], 0, 255)
+                     .astype(np.int64),
+                     np.clip(meta["num_bin"][feat], 1, 256).astype(np.int64))
+    return r1, r2, feat // bpw
+
+
+def new_layout(sel, exists, right_slot, left_local, count, chunk: int):
+    """(new_begin [S+1] in chunks, right_local) of the layout after a
+    round: every existing block keeps its left part at its slot, each
+    selected split's right part goes to its fresh right slot, and blocks
+    take consecutive chunk-aligned ranges in slot order."""
+    S = sel.shape[0] - 1
+    right_local = count - left_local
+    allcnt = np.where(exists, left_local, 0)
+    allcnt[right_slot[sel]] += right_local[sel]
+    nch = (allcnt + chunk - 1) // chunk
+    new_begin = np.concatenate([[0], np.cumsum(nch)[:S]])
+    return new_begin, right_local
+
+
+def replay_frontier(execF, execI, best_gain, n_exec: int, S: int,
+                    Lm1: int):
+    """The reference's leaf-wise priority queue replayed over the
+    speculated splits (JAX package: `device_replay`, a `lax.while_loop`
+    on the TPU; here a heap on the host). Returns (commit [S] bool over
+    execs, need [S+1] bool, ncommit): ``commit`` marks the executed splits
+    the true leaf-wise order takes, ``need`` the slots whose next split it
+    wants but speculation has not executed (the frontier, marked only
+    while commits plus marks stay under the L-1 budget). An empty ``need``
+    certifies the replay exact. Ties pop the lowest slot, as `argmax`."""
+    Sm1 = S - 1
+    E_INF = Sm1 + 1
+    first_e = np.full(S + 1, E_INF, np.int64)
+    nxt = np.full(Sm1 + 1, E_INF, np.int64)
+    for e in range(n_exec - 1, -1, -1):
+        sl = int(execI[e, SI_SLOT])
+        nxt[e] = first_e[sl]
+        first_e[sl] = e
+    ptr = np.full(S + 1, E_INF, np.int64)
+    ptr[0] = first_e[0]
+
+    def key(s):
+        e = ptr[s]
+        return float(execF[e, SF_GAIN]) if e < E_INF else float(best_gain[s])
+
+    heap = [(-key(0), 0)]
+    commit = np.zeros(Sm1 + 1, bool)
+    need = np.zeros(S + 1, bool)
+    ncommit = nneed = 0
+    while heap and ncommit < Lm1:
+        neg, sl = heapq.heappop(heap)
+        if not -neg > 0.0:
+            break
+        e = ptr[sl]
+        if e < E_INF:
+            commit[e] = True
+            ncommit += 1
+            ptr[sl] = nxt[e]
+            heapq.heappush(heap, (-key(sl), sl))
+            r = min(e + 1, S)
+            ptr[r] = first_e[r]
+            heapq.heappush(heap, (-key(r), r))
+        elif ncommit + nneed < Lm1:
+            need[sl] = True
+            nneed += 1
+    return commit, need, ncommit
+
+
+def replay_spec(spec: AlignedSpec, num_leaves: int):
+    """The TreeRecord of a build: the leaf-wise replay of its executed
+    splits, the tree `replay_frontier` committed. (Its exactness flag
+    agrees with the build's, which the caller already holds.)"""
+    return replay_leafwise(spec, num_leaves)[0]
+
+
+class AlignedEngine:
+    """Persistent aligned-record training state for one Dataset: the
+    [NC, W, C] record matrix (two buffers the move pass ping-pongs), the
+    per-chunk valid counts and the per-slot histogram store."""
+
+    def __init__(self, learner, objective, init_row_scores=None) -> None:
+        self.learner = learner
+        self.objective = objective
+        self.cfg = cfg = learner.cfg
+        self.device = dev = learner.device
+        self.n = n = learner.n
+        F = learner.num_features
+        self.C = C = chunk_for(cfg, F, n)
+        self.S = S = spec_slots(cfg.num_leaves, float(cfg.tpu_level_spec))
+        pg = objective.point_grad_fn()
+        label = objective._label_np
+        weight = objective._weight_np
+        lab01 = bool(np.all((label == 0) | (label == 1)))
+        # COMPACT: gradients recomputed in the kernels from score + label
+        # bit; STANDARD otherwise, and for the big-n layout
+        self.compact = (pg is not None and weight is None and lab01
+                        and n <= (1 << 24) and not cfg.tpu_force_big_n)
+        self.big_n = n > (1 << 24) or bool(cfg.tpu_force_big_n)
+        self.pgrad = pg
+        self.grad = pg if self.compact else None
+        rec, self.wcnt, self.W, cnts, self.bits = pack_records(
+            learner.bins, label, weight, C, compact=self.compact,
+            max_bin=learner.max_bin_global)
+        nc_data = rec.shape[0]
+        self.NC = NC = nc_data + S + 2
+        self.lanes, _ = lane_layout(self.wcnt, self.compact)
+        self.w_used = max(self.lanes.values()) + 1
+        self.rec = torch.zeros((NC, self.W, C), dtype=torch.int32,
+                               device=dev)
+        self.rec[:nc_data] = rec
+        del rec
+        self._spare = torch.empty_like(self.rec)
+        self.cnts = np.zeros(NC, np.int64)
+        self.cnts[:nc_data] = cnts
+        if init_row_scores is not None:
+            sc = torch.zeros(nc_data * C, dtype=torch.float32, device=dev)
+            sc[:n] = torch.as_tensor(init_row_scores, dtype=torch.float32,
+                                     device=dev)
+            self.rec[:nc_data, self.lanes["score"]] = \
+                sc.view(nc_data, C).view(torch.int32)
+        self._hist_store = None
+        self.fallbacks = 0
+
+    # ------------------------------------------------------------------
+    def _lane_f32(self, name: str) -> torch.Tensor:
+        return self.rec[:, self.lanes[name]].view(torch.float32)
+
+    def _rid(self) -> torch.Tensor:
+        if self.compact:
+            return self.rec[:, self.lanes["meta"]] & META_RID_MASK
+        return self.rec[:, self.lanes["rid"]]
+
+    def _grad_lanes(self) -> None:
+        """STANDARD records: the grad/hess lanes from the score, label
+        (and weight) lanes, in the records' permuted row order."""
+        w = self._lane_f32("weight") if self.objective.weight is not None \
+            else None
+        g, h = self.pgrad(self._lane_f32("score"), self._lane_f32("label"),
+                          w)
+        self.rec[:, self.lanes["grad"]] = g.view(torch.int32)
+        self.rec[:, self.lanes["hess"]] = h.view(torch.int32)
+
+    def row_scores(self) -> torch.Tensor:
+        """Training scores in row order ([N] f32 on the device)."""
+        C, n = self.C, self.n
+        pos = torch.arange(C, device=self.device)
+        cnts = torch.as_tensor(self.cnts, device=self.device)
+        valid = (pos[None, :] < cnts[:, None]).reshape(-1)
+        rid = self._rid().reshape(-1).long()
+        rid = torch.where(valid & (rid < n), rid, n)
+        out = torch.zeros(n + 1, dtype=torch.float32, device=self.device)
+        out[rid] = self._lane_f32("score").reshape(-1)
+        return out[:n]
+
+    def set_row_scores(self, row_scores: torch.Tensor) -> None:
+        """Re-ingest row-order scores into the score lane (after a
+        leaf-wise fallback tree updated them in row order)."""
+        rid = self._rid().long().clamp(0, self.n - 1)
+        vals = row_scores.to(torch.float32)[rid]
+        self.rec[:, self.lanes["score"]] = vals.view(torch.int32)
+
+    # ------------------------------------------------------------------
+    def _upload(self, *arrays) -> torch.Tensor:
+        """Per-chunk host arrays -> one int32 [len, NC] device tensor."""
+        host = np.stack([np.asarray(a, np.int64) for a in arrays])
+        return torch.as_tensor(host.astype(np.int32), device=self.device)
+
+    def train_iter(self, scale: float, fmask: Optional[np.ndarray] = None):
+        """One tree: gradients, speculative build, and (when the replay is
+        exact) the score-lane update. Returns (AlignedSpec, exact)."""
+        lr = self.learner
+        cfg = self.cfg
+        dev = self.device
+        C, NC, S = self.C, self.NC, self.S
+        Sm1 = S - 1
+        K = min(Sm1, K_CAP)
+        Lm1 = max(cfg.num_leaves - 1, 1)
+        F, B = lr.num_features, lr.max_bin_global
+        bits, wcnt, grad = self.bits, self.wcnt, self.grad
+        meta = lr.meta
+        mono = meta["monotone"].astype(np.int64)
+        fmask_t = torch.ones(F, dtype=torch.float32, device=dev) \
+            if fmask is None else torch.as_tensor(fmask.astype(np.float32),
+                                                  device=dev)
+        s_ids = np.arange(S + 1)
+        chunk_iota = np.arange(NC)
+        if not self.compact:
+            self._grad_lanes()
+        if self._hist_store is None:
+            self._hist_store = torch.empty((S + 1, F, B, 3),
+                                           dtype=torch.float32, device=dev)
+        store = self._hist_store
+
+        # ---------- root: every chunk maps to slot 0
+        cnts_pc = self.cnts
+        cm = self._upload(np.zeros(NC), cnts_pc)
+        root = slot_hist_pass(self.rec, cm[0], cm[1], 1, F, B, wcnt, bits,
+                              grad)[0]
+        store[0] = root
+        tot = root[0].sum(0).cpu().numpy()           # feature 0's bins
+        root_g, root_h = np.float32(tot[0]), np.float32(tot[1])
+        root_cnt_g = int(tot[2])
+
+        leafF = np.zeros((S + 1, LF_W), np.float32)
+        leafF[:, LF_MINC] = -np.inf
+        leafF[:, LF_MAXC] = np.inf
+        leafF[0, LF_SG], leafF[0, LF_SH] = root_g, root_h
+        leafI = np.zeros((S + 1, LI_W), np.int64)
+        leafI[:, LI_BEGIN] = NC
+        leafI[0, LI_BEGIN] = 0
+        leafI[0, LI_COUNT] = int(cnts_pc.sum())
+        leafI[0, LI_COUNTG] = root_cnt_g
+        execF = np.zeros((Sm1 + 1, SF_W), np.float32)
+        execI = np.zeros((Sm1 + 1, SI_W), np.int64)
+        bestF = np.full((S + 1, BF_W), -np.inf, np.float32)
+        bestI = np.zeros((S + 1, BI_W), np.int64)
+        vf, vi = lr._eval_leaves(root[None], [root_g], [root_h],
+                                 [root_cnt_g], [-np.inf], [np.inf], [0],
+                                 fmask_t)
+        bestF[0], bestI[0] = vf[0], vi[0]
+        need = np.zeros(S + 1, bool)
+        need[0] = bestF[0, BF_GAIN] > 0.0
+        done = rounds = 0
+
+        while done < Sm1 and need.any():
+            gains = bestF[:, BF_GAIN]
+            budget = min(Sm1 - done, K)
+            sel = need & (gains > 0.0)
+            order = np.argsort(-gains, kind="stable")
+            selrank = np.empty(S + 1, np.int64)
+            selrank[order] = np.cumsum(sel[order]) - 1
+            sel &= selrank < budget
+            k = int(sel.sum())
+            if k == 0:
+                break
+            seq = done + selrank
+            right_slot = seq + 1
+            sl_sel = np.nonzero(sel)[0]
+            # slot of each selection rank
+            slot_l = np.empty(k, np.int64)
+            slot_l[selrank[sl_sel]] = sl_sel
+            slot_r = done + np.arange(k) + 1
+
+            # ---- record the executed splits
+            e_sel = seq[sl_sel]
+            execF[e_sel, SF_GAIN] = bestF[sl_sel, BF_GAIN]
+            execF[e_sel, SF_LOUT] = bestF[sl_sel, BF_LOUT]
+            execF[e_sel, SF_ROUT] = bestF[sl_sel, BF_ROUT]
+            execF[e_sel, SF_IVAL] = leafF[sl_sel, LF_VALUE]
+            execI[e_sel] = 0
+            execI[e_sel, SI_SLOT] = sl_sel
+            execI[e_sel, SI_FEAT] = bestI[sl_sel, BI_FEAT]
+            execI[e_sel, SI_THR] = bestI[sl_sel, BI_THR]
+            execI[e_sel, SI_DEFLEFT] = bestI[sl_sel, BI_DEFLEFT]
+            execI[e_sel, SI_LC] = bestI[sl_sel, BI_LC]
+            execI[e_sel, SI_RC] = bestI[sl_sel, BI_RC]
+
+            exists = s_ids <= done
+            slot_of, cnt_of, first, last, in_any = chunk_maps(
+                leafI[:, LI_BEGIN], leafI[:, LI_COUNT], exists, NC, C,
+                cnts_pc=cnts_pc, root_span=done == 0)
+            r1_s, r2_s, wsel_s = route_words(
+                bestI[:, BI_FEAT], bestI[:, BI_THR], bestI[:, BI_DEFLEFT],
+                sel, meta, bits)
+            meta_pc = (cnt_of | (first.astype(np.int64) << META_FIRST)
+                       | (last.astype(np.int64) << META_LAST))
+
+            # ---- left counts: the finder's exact count, or the i32 count
+            # pass when the f32 count channel cannot be trusted (n > 2^24)
+            if self.big_n:
+                ks_s = np.where(sel, np.clip(selrank, 0, K - 1), K)
+                ks_pc = np.where(in_any & sel[slot_of], ks_s[slot_of], K)
+                up = self._upload(r1_s[slot_of], r2_s[slot_of], meta_pc,
+                                  wsel_s[slot_of], ks_pc)
+                phys = count_pass(self.rec, up[0], up[1], up[2], up[3],
+                                  up[4], K, bits).cpu().numpy()
+                left_local = np.where(sel, phys[np.clip(selrank, 0, K - 1)],
+                                      leafI[:, LI_COUNT])
+            else:
+                left_local = np.where(sel, bestI[:, BI_LC],
+                                      leafI[:, LI_COUNT])
+            new_begin, right_local = new_layout(
+                sel, exists, right_slot, left_local, leafI[:, LI_COUNT], C)
+
+            # ---- per-chunk destinations in the new layout
+            copy_pc = ~sel[slot_of] & in_any
+            direct_pc = new_begin[slot_of] + chunk_iota \
+                - leafI[:, LI_BEGIN][slot_of]
+            br_s = np.where(sel, new_begin[np.where(sel, right_slot, S)],
+                            new_begin)
+            bl_pc = np.where(copy_pc, direct_pc, new_begin[slot_of])
+            smaller_is_left = bestI[:, BI_LC] <= bestI[:, BI_RC]
+            hslot_s = np.where(sel, np.clip(selrank, 0, K - 1)
+                               | ((~smaller_is_left).astype(np.int64) << 24),
+                               K)
+            up = self._upload(r1_s[slot_of], r2_s[slot_of], bl_pc,
+                              br_s[slot_of], meta_pc, wsel_s[slot_of],
+                              np.where(in_any, hslot_s[slot_of], K))
+            out, hout = move_pass(self.rec, up[0], up[1], up[2], up[3],
+                                  up[4], up[5], up[6], K, F, B, wcnt, bits,
+                                  self.w_used, grad,
+                                  out=self._spare if self.rec.is_cuda
+                                  else None)
+            self._spare, self.rec = self.rec, out
+
+            # ---- tables: children of the selected slots
+            depth_new = leafI[:, LI_DEPTH] + 1
+            lmin = rmin = leafF[:, LF_MINC].copy()
+            lmax = rmax = leafF[:, LF_MAXC].copy()
+            if mono.any():
+                m = mono[bestI[:, BI_FEAT]]
+                mid = (bestF[:, BF_LOUT] + bestF[:, BF_ROUT]) \
+                    / np.float32(2.0)
+                lmax = np.where(m > 0, np.minimum(lmax, mid), lmax)
+                rmin = np.where(m > 0, np.maximum(rmin, mid), rmin)
+                lmin = np.where(m < 0, np.maximum(lmin, mid), lmin)
+                rmax = np.where(m < 0, np.minimum(rmax, mid), rmax)
+            rs = right_slot[sl_sel]
+            leafF[rs] = 0.0
+            leafF[rs, LF_SG] = bestF[sl_sel, BF_RG]
+            leafF[rs, LF_SH] = bestF[sl_sel, BF_RH]
+            leafF[rs, LF_MINC] = rmin[sl_sel]
+            leafF[rs, LF_MAXC] = rmax[sl_sel]
+            leafF[rs, LF_VALUE] = bestF[sl_sel, BF_ROUT]
+            leafI[rs] = 0
+            leafI[rs, LI_COUNT] = right_local[sl_sel]
+            leafI[rs, LI_COUNTG] = bestI[sl_sel, BI_RC]
+            leafI[rs, LI_DEPTH] = depth_new[sl_sel]
+            leafF[sl_sel, LF_SG] = bestF[sl_sel, BF_LG]
+            leafF[sl_sel, LF_SH] = bestF[sl_sel, BF_LH]
+            leafF[sl_sel, LF_MINC] = lmin[sl_sel]
+            leafF[sl_sel, LF_MAXC] = lmax[sl_sel]
+            leafF[sl_sel, LF_VALUE] = bestF[sl_sel, BF_LOUT]
+            leafI[sl_sel, LI_COUNT] = left_local[sl_sel]
+            leafI[sl_sel, LI_COUNTG] = bestI[sl_sel, BI_LC]
+            leafI[sl_sel, LI_DEPTH] = depth_new[sl_sel]
+            exists2 = s_ids <= done + k
+            leafI[:, LI_BEGIN] = np.where(exists2, new_begin, NC)
+            cnts_pc = chunk_maps(leafI[:, LI_BEGIN], leafI[:, LI_COUNT],
+                                 exists2, NC, C)[1]
+
+            # ---- children histograms (smaller from the move pass, larger
+            # by subtraction) and their best splits
+            il = torch.as_tensor(slot_l, device=dev)
+            ir = torch.as_tensor(slot_r, device=dev)
+            sm = hout[:k]
+            parent = store[il]
+            lg = parent - sm
+            sil = torch.as_tensor(smaller_is_left[slot_l],
+                                  device=dev)[:, None, None, None]
+            left_h = torch.where(sil, sm, lg)
+            right_h = torch.where(sil, lg, sm)
+            store[il] = left_h
+            store[ir] = right_h
+            vf, vi = lr._eval_leaves(
+                torch.cat([left_h, right_h]),
+                np.concatenate([bestF[slot_l, BF_LG], bestF[slot_l, BF_RG]]),
+                np.concatenate([bestF[slot_l, BF_LH], bestF[slot_l, BF_RH]]),
+                np.concatenate([bestI[slot_l, BI_LC], bestI[slot_l, BI_RC]]),
+                np.concatenate([lmin[slot_l], rmin[slot_l]]),
+                np.concatenate([lmax[slot_l], rmax[slot_l]]),
+                np.concatenate([depth_new[slot_l]] * 2), fmask_t)
+            bestF[slot_l], bestI[slot_l] = vf[:k], vi[:k]
+            bestF[slot_r], bestI[slot_r] = vf[k:], vi[k:]
+
+            # ---- next frontier: while 2e + 1 < L - 1 (e = execs so far)
+            # the budget cap cannot bind and every positive slot is needed
+            if 2 * (done + k) + 1 < Lm1:
+                need = (bestF[:, BF_GAIN] > 0.0) & exists2
+            else:
+                need = replay_frontier(execF, execI, bestF[:, BF_GAIN],
+                                       done + k, S, Lm1)[1]
+            done += k
+            rounds += 1
+
+        # authoritative final replay: the last round may have taken the
+        # shortcut, and a tree that stops early must commit its splits
+        n_exec = done
+        commit, need_fin, _ = replay_frontier(
+            execF, execI, bestF[:, BF_GAIN], n_exec, S, Lm1)
+        exact = not need_fin.any()
+        cover = np.zeros(S + 1, np.float32)
+        for e in range(n_exec):
+            sl = int(execI[e, SI_SLOT])
+            if commit[e]:
+                cover[sl] = execF[e, SF_LOUT]
+                cover[e + 1] = execF[e, SF_ROUT]
+            else:
+                cover[e + 1] = cover[sl]
+        self.cnts = cnts_pc
+        if exact:
+            slot_f, _, _, _, in_any_f = chunk_maps(
+                leafI[:, LI_BEGIN], leafI[:, LI_COUNT], s_ids <= n_exec, NC,
+                C)
+            valmap = torch.as_tensor(
+                np.where(in_any_f, cover[slot_f], 0.0).astype(np.float32),
+                device=dev)
+            sc = self._lane_f32("score")
+            self.rec[:, self.lanes["score"]] = fma_f32(
+                valmap[:, None], float(np.float32(scale)), sc) \
+                .view(torch.int32)
+        spec = AlignedSpec(rounds=rounds, n_exec=n_exec, execF=execF[:Sm1],
+                           execI=execI[:Sm1], bestF=bestF[:S],
+                           leafI=leafI[:S])
+        return spec, exact

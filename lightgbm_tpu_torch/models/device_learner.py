@@ -35,10 +35,17 @@ from ..ops.split import SplitHyper, make_split_finder
 from ..utils.xla_math import fma_f32
 from .tree import Tree
 
-# packed per-leaf "best split" float lanes
+# packed per-leaf "best split" float lanes (`pack_best_payload`)
 BF_GAIN, BF_LG, BF_LH, BF_RG, BF_RH, BF_LOUT, BF_ROUT = range(7)
+BF_W = 8
 # packed per-leaf "best split" int lanes
-BI_FEAT, BI_THR, BI_LC, BI_RC, BI_DEFLEFT = range(5)
+BI_FEAT, BI_THR, BI_LC, BI_RC, BI_DEFLEFT, BI_ISCAT = range(6)
+BI_W = 8
+# packed per-leaf float / int state lanes of the aligned engine
+LF_SG, LF_SH, LF_MINC, LF_MAXC, LF_VALUE = range(5)
+LF_W = 8
+LI_BEGIN, LI_COUNT, LI_COUNTG, LI_DEPTH = range(4)
+LI_W = 8
 
 
 class TreeRecord(NamedTuple):
@@ -79,10 +86,10 @@ class DeviceTreeLearner:
 
     def __init__(self, cfg: Config, dataset: Dataset,
                  device: torch.device) -> None:
-        if cfg.tpu_grow_mode not in ("auto", "leafwise"):
+        if cfg.tpu_grow_mode not in ("auto", "leafwise", "aligned"):
             raise NotImplementedError(
-                f"tpu_grow_mode={cfg.tpu_grow_mode!r}: only the leaf-wise "
-                "builder is ported")
+                f"tpu_grow_mode={cfg.tpu_grow_mode!r}: the leaf-wise and "
+                "aligned builders are ported")
         if cfg.forcedsplits_filename or cfg.cegb_penalty_split > 0 \
                 or cfg.cegb_penalty_feature_coupled \
                 or cfg.cegb_penalty_feature_lazy:
@@ -128,9 +135,10 @@ class DeviceTreeLearner:
 
     # ------------------------------------------------------------------
     def _eval_leaves(self, hist, sg, sh, cnt, minc, maxc, depth, fmask):
-        """Best split of each leaf in a batch: hist [K, F, B, 3] f32 and
-        host per-leaf sums -> (f32 [K, 7] BF_* lanes, i64 [K, 5] BI_*
-        lanes) on the host (reference eval_leaf + pack_best_payload)."""
+        """Best split of each leaf in a batch, on the device: hist
+        [K, F, B, 3] f32 and host per-leaf sums -> host arrays (f32 [K,
+        BF_W] BF_* lanes, i64 [K, BI_W] BI_* lanes), the reference's
+        eval_leaf + pack_best_payload, read back in one copy."""
         dev = self.device
 
         def t(vals, dtype):
@@ -147,15 +155,23 @@ class DeviceTreeLearner:
         def at(a):
             return torch.gather(a, 1, f)[:, 0]
 
+        k = hist.shape[0]
+        zf = torch.zeros(k, dtype=torch.float32, device=dev)
         vec_f = torch.stack([at(gain), at(out["left_g"]), at(out["left_h"]),
                              at(out["right_g"]), at(out["right_h"]),
                              at(out["left_output"]),
-                             at(out["right_output"])], dim=1)
-        vec_i = torch.stack([f[:, 0], at(out["threshold"]).long(),
-                             at(out["left_c"]).long(),
-                             at(out["right_c"]).long(),
-                             at(out["default_left"]).long()], dim=1)
-        return vec_f.cpu().numpy(), vec_i.cpu().numpy()
+                             at(out["right_output"]), zf], dim=1)
+        zi = torch.zeros(k, dtype=torch.int32, device=dev)
+        vec_i = torch.stack([f[:, 0].to(torch.int32),
+                             at(out["threshold"]).to(torch.int32),
+                             at(out["left_c"]).to(torch.int32),
+                             at(out["right_c"]).to(torch.int32),
+                             at(out["default_left"]).to(torch.int32),
+                             zi, zi, zi], dim=1)
+        both = torch.cat([vec_f, vec_i.view(torch.float32)], dim=1).cpu()
+        return (both[:, :BF_W].numpy(),
+                both[:, BF_W:].contiguous().view(torch.int32).numpy()
+                .astype(np.int64))
 
     def train_fresh(self, grad: torch.Tensor, hess: torch.Tensor,
                     feature_mask: Optional[np.ndarray] = None
@@ -196,8 +212,8 @@ class DeviceTreeLearner:
         leaf_count = np.zeros(L, np.int64)
         leaf_depth = np.zeros(L, np.int64)
         leaf_sg[0], leaf_sh[0], leaf_count[0] = root_g, root_h, n
-        best_f = np.full((L, 7), -np.inf, np.float32)
-        best_i = np.zeros((L, 5), np.int64)
+        best_f = np.full((L, BF_W), -np.inf, np.float32)
+        best_i = np.zeros((L, BI_W), np.int64)
         rec_leaf = np.zeros(Lm1, np.int32)
         rec_feat = np.zeros(Lm1, np.int32)
         rec_thr = np.zeros(Lm1, np.int32)
@@ -329,6 +345,64 @@ class DeviceTreeLearner:
         if shrinkage != 1.0:
             tree.apply_shrinkage(shrinkage)
         return tree
+
+    # ------------------------------------------------------------------
+    def aligned_mode_gate(self, objective) -> Optional[str]:
+        """First failing gate of the aligned engine
+        (`models/aligned_builder.py`) as a short reason, or None when it
+        can run (JAX package: `aligned_mode_gate`). The gates of the JAX
+        package that decide its path are kept, so both packages choose
+        the same one; the parts of the engine this port leaves out are
+        gates of their own."""
+        from ..ops.aligned import aligned_num_chunks
+        from .level_builder import spec_slots
+        cfg = self.cfg
+        if cfg.tpu_grow_mode not in ("auto", "aligned"):
+            return f"tpu_grow_mode={cfg.tpu_grow_mode}"
+        if not (cfg.tpu_aligned_interpret or self.device.type == "cuda"):
+            return "CUDA kernels unavailable (CPU device, " \
+                "tpu_aligned_interpret off)"
+        if cfg.tree_learner != "serial":
+            return f"tree_learner={cfg.tree_learner} (data-parallel " \
+                "aligned engine not ported)"
+        if cfg.bagging_freq > 0 and (cfg.bagging_fraction < 1.0
+                                     or cfg.pos_bagging_fraction < 1.0
+                                     or cfg.neg_bagging_fraction < 1.0):
+            return "bagging (bag lane not ported)"
+        if (np.asarray(self.meta["bin_type"]) == 1).any():
+            return "categorical features (bitset routing not ported)"
+        if objective is None:
+            return "no objective"
+        if objective.num_model_per_iteration != 1:
+            return "multiclass (class lanes not ported)"
+        if objective.point_grad_fn() is None:
+            return "non-pointwise objective (EXT layout not ported)"
+        S = spec_slots(cfg.num_leaves, float(cfg.tpu_level_spec))
+        nc = aligned_num_chunks(self.n, cfg, S, self.num_features)
+        if nc > 65535:
+            return f"chunk count {nc} > 65535"
+        if self.num_features > 1020:
+            return f"num_features {self.num_features} > 1020"
+        if self.bins.dtype != torch.uint8:
+            return "bins not uint8"
+        if self.num_features <= 0:
+            return "no features"
+        if cfg.num_leaves < 2:
+            return "num_leaves < 2"
+        if self.max_bin_global > 256:
+            return "max_bin > 256"
+        return None
+
+    def aligned_mode_ok(self, objective) -> bool:
+        return self.aligned_mode_gate(objective) is None
+
+    def aligned_engine(self, objective, init_row_scores=None):
+        """A new AlignedEngine over this learner's data. The caller keeps
+        it: the engine refers to the learner, and a reference back from
+        the learner would hold its device buffers until the next cyclic
+        garbage collection."""
+        from .aligned_builder import AlignedEngine
+        return AlignedEngine(self, objective, init_row_scores=init_row_scores)
 
 
 def traverse_record(bins: torch.Tensor, rec: TreeRecord, meta

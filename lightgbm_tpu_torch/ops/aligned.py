@@ -1,0 +1,522 @@
+"""Chunk-aligned records and the aligned engine's kernels (port of
+lightgbm_tpu/ops/aligned.py, serial numerical path).
+
+One persistent ``[NC, W, C]`` int32 record matrix holds the training rows,
+chunk-blocked and transposed: within a chunk each lane is a contiguous run
+of C words. The first ``wcnt`` lanes are packed bin words (8, 5 or 4 bins a
+word at 4-, 6- and 8-bit widths), the rest the layout's value lanes
+(`lane_layout`): STANDARD score/label/grad/hess/rid/weight, or COMPACT
+score/meta, where meta packs rid | label << 24 | bag << 31 and gradients
+are recomputed inside the kernels from the score and the label bit.
+
+Tree blocks own disjoint chunk-aligned ranges, so every chunk belongs to
+one block and the routing arrives as per-chunk int32 arrays (bit layouts
+below). Three kernels, in ``ops/csrc/aligned.cu``, work on the matrix:
+
+- B2 `move_pass`: a stable two-way partition of every split block into its
+  new chunk-aligned left and right ranges, whole-chunk copies of unsplit
+  blocks, and the smaller child's histogram per compact slot;
+- B3 `count_pass`: exact i32 left counts per compact slot;
+- B4 `slot_hist_pass`: histograms of chunks mapped to slots.
+
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
+tensor it runs the plain PyTorch twin beside it (``*_plain``), which is
+also what the card's kernels are held against.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..utils import log
+
+NUM_STATS = 3
+MISSING_NONE_C, MISSING_ZERO_C, MISSING_NAN_C = 0, 1, 2
+
+# route word 1 (per chunk): threshold bin | shift within the split word
+# << 8 | default_left << 13 | missing type << 14 | copy-through << 16
+R_THR = 0
+R_SHIFT = 8
+R_DL = 13
+R_MT = 14
+R_COPY = 16
+# route word 2: default_bin | (num_bin - 1) << 8 (`pack_route2`)
+# chunk meta word: valid rows | first chunk of block << 20 | last << 21
+META_CNT_MASK = (1 << 20) - 1
+META_FIRST = 20
+META_LAST = 21
+# COMPACT meta lane: rid | label << 24 | bag << 31
+META_RID_MASK = (1 << 24) - 1
+META_LABEL = 24
+META_LABEL_MASK = 127
+META_BAG = 31
+
+# kernel launches by wrapper (a CPU call of a twin does not count)
+LAUNCHES: Dict[str, int] = {"move_pass": 0, "count_pass": 0,
+                            "slot_hist_pass": 0}
+
+_GRAD_KIND = {None: 0, "binary": 1, "l2": 2}
+_THREADS = 512
+_SMEM_BUDGET = 112 * 1024       # two histogram CTAs per SM
+# shared bytes per (feature, bin) of the histogram kernel: f64 g and h,
+# u32 count
+_CELL_BYTES = 2 * 8 + 4
+_fns: Dict[str, object] = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# chunk size and layout (host)
+# ---------------------------------------------------------------------------
+def effective_chunk(cfg, num_features: int = 0) -> int:
+    """Rows per chunk: ``tpu_chunk`` when set, else 1024 up to 40 features
+    and 512 above (the JAX package's choice, kept so both packages pick
+    the same C and NC)."""
+    C = int(getattr(cfg, "tpu_chunk", 0) or 0)
+    if C > 0:
+        return C
+    return 1024 if num_features <= 40 else 512
+
+
+def chunk_for(cfg, num_features: int, n: int) -> int:
+    """`effective_chunk`, doubled until the data takes at most 40,000
+    chunks (the JAX package's scalar-prefetch bound, kept as a gate so
+    both packages choose the same layout); a pinned ``tpu_chunk`` that
+    has to grow says so."""
+    C0 = C = effective_chunk(cfg, num_features)
+    while n // C > 40_000:
+        C *= 2
+    if C != C0 and int(getattr(cfg, "tpu_chunk", 0) or 0):
+        log.warning(f"tpu_chunk={C0} cannot hold {n} rows within 40000 "
+                    f"chunks; using tpu_chunk={C} instead")
+    return C
+
+
+def aligned_num_chunks(n: int, cfg, spec_slots: int,
+                       num_features: int = 0) -> int:
+    """NC of the engine's record matrix: data chunks + one fresh chunk per
+    speculative slot + 2."""
+    C = chunk_for(cfg, num_features, n)
+    return (n + C - 1) // C + spec_slots + 2
+
+
+def _bpw_for_bits(bits: int) -> int:
+    """Bins per 32-bit word at a bin bit width."""
+    return {4: 8, 6: 5, 8: 4}[bits]
+
+
+def lane_layout(wcnt: int, compact: bool = False):
+    """(lane indices, W padded to a multiple of 8) of a record with
+    ``wcnt`` bin words: COMPACT score + meta, or STANDARD score, label,
+    grad, hess, rid and weight."""
+    ls = wcnt
+    if compact:
+        lanes = dict(score=ls, meta=ls + 1)
+        w = wcnt + 2
+    else:
+        lanes = dict(score=ls, label=ls + 1, grad=ls + 2, hess=ls + 3,
+                     rid=ls + 4, weight=ls + 5)
+        w = wcnt + 6
+    return lanes, ((w + 7) // 8) * 8
+
+
+def _as_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 with the same 32 bits."""
+    return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
+
+
+def pack_records(bins: torch.Tensor, label, weight, chunk: int,
+                 compact: bool = False, max_bin: int = 0,
+                 rid_base: int = 0):
+    """[N, F] uint8 bins -> ([NC, W, C] int32 records on the device of
+    ``bins``, wcnt, W, cnts, bits); cnts[i] (numpy) is the number of valid
+    rows of chunk i. Bits equal the JAX package's ``pack_records``: bin
+    words at the narrowest width the bin range allows (4 bits under 16
+    bins, 6 under 64, else 8), pad rows zero, rids from ``rid_base``."""
+    n, f = bins.shape
+    dev = bins.device
+    bmax = max(int(bins.max()) if n * f else 0, max_bin - 1)
+    bits = 4 if bmax < 16 else (6 if bmax < 64 else 8)
+    bpw = _bpw_for_bits(bits)
+    wcnt = (f + bpw - 1) // bpw
+    lanes, w_pad = lane_layout(wcnt, compact)
+    nc = (n + chunk - 1) // chunk
+    n_pad = nc * chunk
+    rec = torch.zeros((nc, w_pad, chunk), dtype=torch.int32, device=dev)
+    for w in range(wcnt):
+        acc = torch.zeros(n_pad, dtype=torch.int64, device=dev)
+        for i in range(bpw):
+            col = w * bpw + i
+            if col < f:
+                acc[:n] |= bins[:, col].to(torch.int64) << (bits * i)
+        rec[:, w, :] = _as_int32(acc).view(nc, chunk)
+    rid = rid_base + torch.arange(n_pad, dtype=torch.int64, device=dev)
+
+    def lane(vals: torch.Tensor) -> torch.Tensor:
+        return vals.view(nc, chunk)
+
+    if compact:
+        lab = (torch.as_tensor(np.asarray(label), device=dev) > 0) \
+            .to(torch.int64)
+        meta = rid & META_RID_MASK
+        meta[:n] |= (lab << META_LABEL) | (1 << META_BAG)
+        rec[:, lanes["meta"], :] = lane(_as_int32(meta))
+    else:
+        f32 = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+        f32[:n] = torch.as_tensor(np.asarray(label, np.float32), device=dev)
+        rec[:, lanes["label"], :] = lane(f32.view(torch.int32))
+        rec[:, lanes["rid"], :] = lane(rid.to(torch.int32))
+        wv = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+        wv[:n] = 1.0 if weight is None else torch.as_tensor(
+            np.asarray(weight, np.float32), device=dev)
+        rec[:, lanes["weight"], :] = lane(wv.view(torch.int32))
+    cnts = np.full(nc, chunk, np.int32)
+    if nc:
+        cnts[-1] = n - (nc - 1) * chunk
+    return rec, wcnt, w_pad, cnts, bits
+
+
+def pack_route2(db, nb):
+    """Route word 2: default_bin | (num_bin - 1) << 8 (8-bit fields, so
+    num_bin <= 256). Works on ints and numpy arrays."""
+    return (db & 255) | (((nb - 1) & 255) << 8)
+
+
+def goes_left(binv: torch.Tensor, r1: torch.Tensor, r2: torch.Tensor,
+              valid: torch.Tensor) -> torch.Tensor:
+    """Reference DenseBin::Split routing (dense_bin.hpp:195-283),
+    numerical with missing None/Zero/NaN; copy-through routes every valid
+    row left. ``r1``/``r2`` broadcast against ``binv``."""
+    thr = r1 & 255
+    dl = ((r1 >> R_DL) & 1) != 0
+    mt = (r1 >> R_MT) & 3
+    copy = ((r1 >> R_COPY) & 1) != 0
+    db = r2 & 255
+    nb = ((r2 >> 8) & 255) + 1
+    is_def = (((mt == MISSING_ZERO_C) & (binv == db))
+              | ((mt == MISSING_NAN_C) & (binv == nb - 1)))
+    left = torch.where(is_def, dl, binv <= thr)
+    return (copy | left) & valid
+
+
+# ---------------------------------------------------------------------------
+# plain twins
+# ---------------------------------------------------------------------------
+def _split_bins(records: torch.Tensor, r1: torch.Tensor,
+                wsel: torch.Tensor, bits: int) -> torch.Tensor:
+    """[NC, C] bin of each chunk's split feature (word lane wsel, shift
+    from r1)."""
+    nc, _, C = records.shape
+    word = records[torch.arange(nc, device=records.device), wsel.long()]
+    shift = ((r1 >> R_SHIFT) & 31)[:, None]
+    return (word >> shift) & ((1 << bits) - 1)
+
+
+def _valid_rows(meta: torch.Tensor, C: int) -> torch.Tensor:
+    pos = torch.arange(C, device=meta.device)
+    return pos[None, :] < (meta & META_CNT_MASK)[:, None]
+
+
+def _payload(records: torch.Tensor, wcnt: int, grad):
+    """[NC, C] (g, h): grad/hess lanes (STANDARD, grad None) or recomputed
+    from the score lane and the meta label bits by ``grad`` (COMPACT)."""
+    if grad is None:
+        return (records[:, wcnt + 2].view(torch.float32),
+                records[:, wcnt + 3].view(torch.float32))
+    score = records[:, wcnt].view(torch.float32)
+    label = ((records[:, wcnt + 1] >> META_LABEL) & META_LABEL_MASK) \
+        .to(torch.float32)
+    return grad(score, label)
+
+
+def _slot_histograms(records, take, slot_of_chunk, num_slots, num_features,
+                     num_bins, wcnt, bits, grad) -> torch.Tensor:
+    """hist[num_slots, F, B, 3]: (g, h, 1) of the rows where ``take``
+    [NC, C] is set, into the slot of their chunk; one ``index_add_`` per
+    feature. The sums run in f64 and round to f32 once: a plain f32
+    accumulator drifts when a cell sums millions of equal gradients (the
+    first tree's, from a constant score), by far more than the kernel's
+    blocked f32 sums do."""
+    nc, _, C = records.shape
+    dev = records.device
+    out = torch.zeros((num_slots, num_features, num_bins, NUM_STATS),
+                      dtype=torch.float32, device=dev)
+    sel = take.reshape(-1).nonzero()[:, 0]
+    if sel.numel() == 0:
+        return out
+    g, h = _payload(records, wcnt, grad)
+    pay = torch.stack([g.reshape(-1)[sel], h.reshape(-1)[sel],
+                       torch.ones(sel.numel(), dtype=torch.float32,
+                                  device=dev)], dim=1).double()
+    chunk = sel // C
+    row = sel % C
+    slot = slot_of_chunk.long()[chunk]
+    bpw = _bpw_for_bits(bits)
+    for f in range(num_features):
+        b = (records[chunk, f // bpw, row] >> ((f % bpw) * bits)) \
+            & ((1 << bits) - 1)
+        ok = b < num_bins
+        cell = slot * num_bins + b.long()
+        acc = torch.zeros((num_slots * num_bins, NUM_STATS),
+                          dtype=torch.float64, device=dev)
+        acc.index_add_(0, cell[ok], pay[ok])
+        out[:, f] = acc.view(num_slots, num_bins, NUM_STATS).float()
+    return out
+
+
+def slot_hist_pass_plain(records, slots, meta, num_slots, num_features,
+                         num_bins, wcnt, bits, grad=None):
+    """Plain twin of `slot_hist_pass`."""
+    nc, _, C = records.shape
+    in_slot = (slots >= 0) & (slots < num_slots)
+    take = _valid_rows(meta, C) & in_slot[:, None]
+    return _slot_histograms(records, take, slots, num_slots, num_features,
+                            num_bins, wcnt, bits, grad)
+
+
+def count_pass_plain(records, r1, r2, meta, wsel, kslots, num_slots, bits):
+    """Plain twin of `count_pass`."""
+    nc, _, C = records.shape
+    left = goes_left(_split_bins(records, r1, wsel, bits), r1[:, None],
+                     r2[:, None], _valid_rows(meta, C))
+    per_chunk = left.sum(dim=1).to(torch.int32)
+    ok = (kslots >= 0) & (kslots < num_slots)
+    out = torch.zeros(num_slots, dtype=torch.int32, device=records.device)
+    out.index_add_(0, kslots[ok].long(), per_chunk[ok])
+    return out
+
+
+def move_pass_plain(records, r1, r2, basel, baser, meta, wsel, hslots,
+                    num_slots, num_features, num_bins, wcnt, bits, w_used,
+                    grad=None, out=None):
+    """Plain twin of `move_pass`: block-segmented exclusive ranks of the
+    left and right rows in (chunk, row) order, one scatter of the used
+    lanes, whole-chunk copies, and the smaller children's histograms from
+    the rows that go to the smaller side."""
+    nc, W, C = records.shape
+    dev = records.device
+    out = records.clone() if out is None else out
+    valid = _valid_rows(meta, C)
+    cnt = meta & META_CNT_MASK
+    copy = ((r1 >> R_COPY) & 1) != 0
+    left = goes_left(_split_bins(records, r1, wsel, bits), r1[:, None],
+                     r2[:, None], valid)
+    split = valid & ~copy[:, None]
+    go_l = split & left
+    go_r = split & ~left
+    iota = torch.arange(nc, device=dev)
+    first = ((meta >> META_FIRST) & 1) != 0
+    block0 = torch.cummax(torch.where(first, iota, 0), dim=0).values
+
+    def ranks(mask):
+        m = mask.reshape(-1).to(torch.int64)
+        excl = (torch.cumsum(m, 0) - m).view(nc, C)
+        return excl - excl[block0, 0][:, None]
+
+    lanes = torch.arange(w_used, device=dev)
+    for mask, base in ((go_l, basel), (go_r, baser)):
+        rank = ranks(mask)
+        c, r = mask.nonzero(as_tuple=True)
+        d = rank[c, r]
+        dc = base.long()[c] + d // C
+        out[dc[:, None], lanes[None, :], (d % C)[:, None]] = \
+            records[c[:, None], lanes[None, :], r[:, None]]
+    cc = (copy & (cnt > 0)).nonzero()[:, 0]
+    out[basel.long()[cc]] = records[cc]
+    hslot = hslots & 0xFFFFFF
+    side_r = ((hslots >> 24) & 1) != 0
+    take = torch.where(side_r[:, None], go_r, go_l) \
+        & (hslot < num_slots)[:, None]
+    hist = _slot_histograms(records, take, hslot, num_slots, num_features,
+                            num_bins, wcnt, bits, grad)
+    return out, hist
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+def _lib():
+    if not _fns:
+        from ..utils import cuda_build
+        lib = cuda_build.load("aligned")
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        sigs = {
+            "lgbt_count_pass": [p, i, i, i, p, p, p, p, p, i, i, p, p],
+            "lgbt_move_partition": [p, i, i, i, i, i, p, p, p, p, p, p, p,
+                                    i, p, p, p, p, p, p, p],
+            "lgbt_slot_hist": [p, i, i, i, i, i, i, i, i, i, i, p, p, i, i,
+                               f, f, f, p, p, p, p],
+            "lgbt_aligned_smem_optin": [i],
+        }
+        for name, args in sigs.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+            _fns[name] = fn
+    return _fns
+
+
+def _check_cuda(records: torch.Tensor, *arrays: torch.Tensor) -> None:
+    if records.dtype != torch.int32 or records.dim() != 3 \
+            or not records.is_contiguous():
+        raise ValueError("records must be a contiguous int32 [NC, W, C] "
+                         "tensor")
+    nc = records.shape[0]
+    for a in arrays:
+        if a.dtype != torch.int32 or a.shape != (nc,) \
+                or not a.is_contiguous() or a.device != records.device:
+            raise ValueError("per-chunk arrays must be contiguous int32 [NC] "
+                             "tensors on the device of records")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def _grad_args(grad):
+    if grad is None:
+        return 0, 0.0, 0.0, 0.0
+    return (_GRAD_KIND[grad.kind], float(grad.sigmoid), float(grad.w_pos),
+            float(grad.w_neg))
+
+
+def hist_launch_shape(nc: int, num_features: int, num_bins: int,
+                      num_sms: int, smem_optin: int):
+    """(features per CTA, CTAs along the chunks) of the histogram kernel:
+    a feature tile's sub-histogram fits the shared-memory budget, and
+    about two CTAs per SM run over contiguous chunk ranges."""
+    per_feature = num_bins * _CELL_BYTES
+    budget = min(_SMEM_BUDGET, smem_optin)
+    fpb = max(1, min(num_features, budget // per_feature))
+    if fpb * per_feature > smem_optin:
+        raise ValueError(f"{num_bins} bins exceed the {smem_optin} B of "
+                         "shared memory")
+    grid_y = -(-num_features // fpb)
+    return fpb, max(1, min(nc, 2 * num_sms // grid_y))
+
+
+def _slot_hist_cuda(records, slots, meta, num_slots, num_features,
+                    num_bins, wcnt, bits, grad):
+    dev = records.device
+    nc, W, C = records.shape
+    if not 1 <= num_bins <= 256:
+        raise ValueError(f"num_bins={num_bins} outside [1, 256]")
+    fns = _lib()
+    ordinal = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
+    fpb, blocks = hist_launch_shape(
+        nc, num_features, num_bins,
+        torch.cuda.get_device_properties(ordinal).multi_processor_count,
+        fns["lgbt_aligned_smem_optin"](ordinal))
+    cells = (num_slots, num_features, num_bins)
+    out = torch.empty(cells + (NUM_STATS,), dtype=torch.float32, device=dev)
+    gh = torch.zeros(cells + (2,), dtype=torch.float64, device=dev)
+    cnt = torch.zeros(cells, dtype=torch.int32, device=dev)
+    kind, sig, wp, wn = _grad_args(grad)
+    with torch.cuda.device(dev):
+        err = fns["lgbt_slot_hist"](
+            records.data_ptr(), nc, W, C, wcnt, bits, num_features,
+            num_bins, fpb, blocks, _THREADS, slots.data_ptr(),
+            meta.data_ptr(), num_slots, kind, sig, wp, wn, gh.data_ptr(),
+            cnt.data_ptr(), out.data_ptr(), _stream(dev))
+    _raise_on(err, "slot_hist_pass")
+    return out
+
+
+def slot_hist_pass(records, slots, meta, num_slots, num_features, num_bins,
+                   wcnt, bits, grad=None):
+    """hist[num_slots, F, num_bins, 3] over the valid rows (``meta &
+    META_CNT_MASK``) of every chunk whose ``slots`` entry is in
+    [0, num_slots); chunks mapped to ``num_slots`` (the dummy) are
+    skipped. ``grad`` None reads the STANDARD grad/hess lanes; a
+    `PointGrad` recomputes them from a COMPACT record."""
+    if not records.is_cuda:
+        return slot_hist_pass_plain(records, slots, meta, num_slots,
+                                    num_features, num_bins, wcnt, bits, grad)
+    _check_cuda(records, slots, meta)
+    out = _slot_hist_cuda(records, slots, meta, num_slots, num_features,
+                          num_bins, wcnt, bits, grad)
+    LAUNCHES["slot_hist_pass"] += 1
+    return out
+
+
+def count_pass(records, r1, r2, meta, wsel, kslots, num_slots, bits):
+    """[num_slots] int32 left rows per compact slot: kslots[i] is the slot
+    of chunk i's split (``num_slots`` skips); r1/r2/meta/wsel as for
+    `move_pass` (copy bit clear on counted chunks)."""
+    if not records.is_cuda:
+        return count_pass_plain(records, r1, r2, meta, wsel, kslots,
+                                num_slots, bits)
+    _check_cuda(records, r1, r2, meta, wsel, kslots)
+    nc, W, C = records.shape
+    dev = records.device
+    out = torch.zeros(num_slots, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib()["lgbt_count_pass"](
+            records.data_ptr(), nc, W, C, r1.data_ptr(), r2.data_ptr(),
+            meta.data_ptr(), wsel.data_ptr(), kslots.data_ptr(), num_slots,
+            bits, out.data_ptr(), _stream(dev))
+    _raise_on(err, "count_pass")
+    LAUNCHES["count_pass"] += 1
+    return out
+
+
+def move_pass(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
+              num_features, num_bins, wcnt, bits, w_used, grad=None,
+              out: Optional[torch.Tensor] = None):
+    """Stable two-way partition of every block in one pass, plus the
+    smaller children's histograms.
+
+    Per chunk i: r1/r2 route words, meta = count | first << 20 | last <<
+    21, wsel the split word lane. A split chunk (copy bit clear) sends its
+    valid rows to the left child's chunks from basel[i] or the right's
+    from baser[i], after the rows of the block's earlier chunks, in row
+    order; a copy chunk moves whole to basel[i]. hslots[i] = slot | side
+    << 24 names the compact slot of the block's smaller child (side 0:
+    the left rows), ``num_slots`` skips.
+
+    Returns (records_out, hist[num_slots, F, num_bins, 3]). Rows outside
+    the new layout and lanes >= ``w_used`` of moved rows keep whatever
+    ``out`` held (a fresh copy of ``records`` on the CPU)."""
+    if not records.is_cuda:
+        return move_pass_plain(records, r1, r2, basel, baser, meta, wsel,
+                               hslots, num_slots, num_features, num_bins,
+                               wcnt, bits, w_used, grad, out)
+    _check_cuda(records, r1, r2, basel, baser, meta, wsel, hslots)
+    nc, W, C = records.shape
+    dev = records.device
+    if out is None:
+        out = torch.empty_like(records)
+    elif out.shape != records.shape or out.dtype != torch.int32 \
+            or not out.is_contiguous() or out.device != dev \
+            or out.data_ptr() == records.data_ptr():
+        raise ValueError("out must be another contiguous int32 tensor of "
+                         "the shape of records")
+    scratch = torch.empty((3, nc), dtype=torch.int32, device=dev)
+    nslot = torch.full((nc,), num_slots, dtype=torch.int32, device=dev)
+    ncnt = torch.zeros(nc, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib()["lgbt_move_partition"](
+            records.data_ptr(), nc, W, C, w_used, bits, r1.data_ptr(),
+            r2.data_ptr(), meta.data_ptr(), wsel.data_ptr(),
+            basel.data_ptr(), baser.data_ptr(), hslots.data_ptr(), num_slots,
+            scratch[0].data_ptr(), scratch[1].data_ptr(),
+            scratch[2].data_ptr(), nslot.data_ptr(), ncnt.data_ptr(),
+            out.data_ptr(), _stream(dev))
+    _raise_on(err, "move_pass")
+    hist = _slot_hist_cuda(out, nslot, ncnt, num_slots, num_features,
+                           num_bins, wcnt, bits, grad)
+    LAUNCHES["move_pass"] += 1
+    return out, hist

@@ -12,7 +12,7 @@ alike. Scores are laid out ``[num_tree_per_iteration, num_data]``.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +20,37 @@ import torch
 from ..config import Config
 from ..io.dataset import Metadata
 from ..utils.xla_math import exp_f32
+
+
+class PointGrad(NamedTuple):
+    """The pointwise gradient of a single-class objective, as a function
+    of (score, label, weight|None) and as the parameters the aligned
+    engine's CUDA kernels inline (JAX package: ``point_grad_fn``, its
+    closure). ``kind`` is "binary" (logistic loss with ``sigmoid`` and the
+    label weights) or "l2" (score - label, hessian 1)."""
+    kind: str
+    sigmoid: float = 1.0
+    w_pos: float = 1.0
+    w_neg: float = 1.0
+
+    def __call__(self, score: torch.Tensor, label: torch.Tensor,
+                 weight: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.kind == "l2":
+            g, h = score - label, torch.ones_like(score)
+        else:
+            sig = self.sigmoid
+            pos = label > 0
+            sl = torch.where(pos, 1.0, -1.0)
+            lw = torch.where(pos, self.w_pos, self.w_neg)
+            response = -sl * sig / (1.0 + exp_f32(sl * sig * score))
+            absr = torch.abs(response)
+            g = response * lw
+            h = absr * (sig - absr) * lw
+        if weight is not None:
+            g = g * weight
+            h = h * weight
+        return g, h
 
 
 class ObjectiveFunction:
@@ -64,6 +95,12 @@ class ObjectiveFunction:
     def _point_grad(self, score, label):
         raise NotImplementedError
 
+    def point_grad_fn(self) -> Optional[PointGrad]:
+        """The objective's gradient as a pure function of one row's
+        values, or None when it is not pointwise: the aligned engine
+        evaluates it in the records' permuted row order."""
+        return None
+
     def boost_from_score(self, class_id: int) -> float:
         return 0.0
 
@@ -92,6 +129,9 @@ class RegressionL2(ObjectiveFunction):
 
     def _point_grad(self, score, label):
         return score - label, torch.ones_like(score)
+
+    def point_grad_fn(self) -> PointGrad:
+        return PointGrad("l2")
 
     def boost_from_score(self, class_id):
         # weighted mean (regression_objective.hpp:156-177)
@@ -130,6 +170,10 @@ class BinaryLogloss(ObjectiveFunction):
         self._label_weight = torch.as_tensor(
             np.where(pos, w_pos, w_neg).astype(np.float32), device=device)
         self.need_train = cnt_pos > 0 and cnt_neg > 0
+
+    def point_grad_fn(self) -> PointGrad:
+        return PointGrad("binary", float(self.cfg.sigmoid), self._w_pos,
+                         self._w_neg)
 
     def get_gradients(self, scores):
         sig = float(self.cfg.sigmoid)

@@ -73,8 +73,13 @@ def _leaf_gain_given_output(sg, sh, l1, l2, out):
 
 
 def _leaf_gain(sg, sh, l1, l2, mds):
+    """The parent's gain shift. XLA's CPU backend leaves this per-leaf
+    expression uncontracted (each product rounds on its own), unlike the
+    per-threshold side gains above, so the split gain written to the
+    model text is the JAX package's bit for bit."""
     out = _leaf_output(sg, sh, l1, l2, mds)
-    return _leaf_gain_given_output(sg, sh, l1, l2, out)
+    reg = _threshold_l1(sg, l1)
+    return -(2.0 * reg * out + (sh + l2) * out * out)
 
 
 def _clip(x, lo, hi):

@@ -10,8 +10,10 @@ and give the same bits on the CPU and on CUDA.
 The split scan's per-side gain ``-(2 reg out + (h + l2) out^2)`` is
 contracted as XLA's CPU backend contracts it (the first product fused
 into the add), so two directions that tie up to rounding pick the same
-winner in both packages. The gain shift is left unfused, so the
-``split_gain`` written to the model text may differ in its last bit.
+winner in both packages. The parent's gain shift, the same expression
+evaluated once per leaf, XLA leaves uncontracted, and so does the port
+(`ops/split.py::_leaf_gain`): the ``split_gain`` written to the model
+text is the JAX package's bit for bit.
 """
 from __future__ import annotations
 

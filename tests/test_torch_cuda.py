@@ -1,5 +1,6 @@
-"""Tests of the port that need the card: the CUDA histogram kernel against
-its plain twin, and f64 training on the card against the CPU. They import
+"""Tests of the port that need the card: the CUDA histogram kernel and the
+aligned engine's kernels against their plain twins, f64 training on the
+card against the CPU, and the aligned engine on the card. They import
 neither JAX nor the JAX package, so they run where only PyTorch is
 installed:
 
@@ -11,6 +12,8 @@ import pytest
 import torch
 
 import lightgbm_tpu_torch as tlgb
+from lightgbm_tpu_torch.models import aligned_builder as AB
+from lightgbm_tpu_torch.ops import aligned as A
 from lightgbm_tpu_torch.ops import histogram as H
 
 
@@ -61,7 +64,8 @@ def test_f64_training_on_gpu_equals_cpu(cuda):
     X = rng.standard_normal((3000, 8))
     y = (X[:, 0] + X[:, 1] * X[:, 2] + rng.standard_normal(3000) > 0)
     params = {"objective": "binary", "num_leaves": 15, "max_bin": 63,
-              "tpu_use_f64_hist": True, "verbosity": -1}
+              "tpu_use_f64_hist": True, "tpu_grow_mode": "leafwise",
+              "verbosity": -1}
     texts = {}
     for dev in ("cuda", "cpu"):
         H.reset_launches()
@@ -72,3 +76,78 @@ def test_f64_training_on_gpu_equals_cpu(cuda):
         t = bst.model_to_string()
         texts[dev] = t[t.index("Tree=0"):t.index("end of trees")]
     assert texts["cuda"] == texts["cpu"]
+
+
+def _slot_abs_sums(rec, slot_of_chunk, meta, k, wcnt, grad):
+    """[k, 2] sum of |g| and |h| over the valid rows of each slot's
+    chunks (the scale of the histogram tolerance)."""
+    g, h = A._payload(rec, wcnt, grad)
+    valid = A._valid_rows(meta, rec.shape[2])
+    per_chunk = torch.stack([torch.where(valid, g.abs(), 0.0).sum(1),
+                             torch.where(valid, h.abs(), 0.0).sum(1)], dim=1)
+    ok = (slot_of_chunk >= 0) & (slot_of_chunk < k)
+    out = torch.zeros((k, 2), dtype=torch.float32, device=rec.device)
+    out.index_add_(0, slot_of_chunk[ok].long(), per_chunk[ok])
+    return out
+
+
+def _assert_hist_close(got, ref, scale):
+    assert torch.equal(got[..., 2], ref[..., 2])
+    err = (got[..., :2] - ref[..., :2]).abs()
+    assert bool((err <= 1e-5 * scale[:, None, None, :]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_bin,force_big_n", [(63, False), (255, False),
+                                                 (63, True)])
+def test_aligned_kernels_match_twins_on_gpu(cuda, monkeypatch, max_bin,
+                                            force_big_n):
+    """B2/B3/B4 against their twins on the inputs of a real aligned run on
+    the card (COMPACT, and STANDARD under tpu_force_big_n): counts equal,
+    moved records equal on the rows they cover, histograms' counts equal
+    and g/h within 1e-5 x the slot's sum of |g| (|h|)."""
+    rng = np.random.RandomState(4)
+    X = rng.standard_normal((60000, 28))
+    y = (X[:, 0] + X[:, 1] * X[:, 2] + rng.standard_normal(60000) > 0)
+    calls = []
+
+    def recorder(name, fn):
+        def wrapped(*args, **kw):
+            calls.append((name, tuple(a.clone() if torch.is_tensor(a)
+                                      else a for a in args)))
+            return fn(*args, **kw)
+        return wrapped
+
+    for name in ("move_pass", "count_pass", "slot_hist_pass"):
+        monkeypatch.setattr(AB, name, recorder(name, getattr(AB, name)))
+    A.reset_launches()
+    bst = tlgb.train({"objective": "binary", "num_leaves": 31,
+                      "max_bin": max_bin, "verbosity": -1,
+                      "tpu_force_big_n": force_big_n},
+                     tlgb.Dataset(X, label=y.astype(np.float64)),
+                     num_boost_round=2, verbose_eval=False)
+    assert bst._gbdt.train_path == "aligned"
+    assert A.LAUNCHES["move_pass"] > 0 and A.LAUNCHES["slot_hist_pass"] > 0
+    assert (A.LAUNCHES["count_pass"] > 0) == force_big_n
+    for name, args in calls:
+        if name == "count_pass":
+            assert torch.equal(A.count_pass(*args),
+                               A.count_pass_plain(*args))
+        elif name == "slot_hist_pass":
+            rec, slots, meta, k, _, _, wcnt, _, grad = args
+            _assert_hist_close(A.slot_hist_pass(*args),
+                               A.slot_hist_pass_plain(*args),
+                               _slot_abs_sums(rec, slots, meta, k, wcnt,
+                                              grad))
+        else:
+            rec, meta, hs, k = args[0], args[5], args[7], args[8]
+            wcnt, w_used, grad = args[11], args[13], args[14]
+            out, hist = A.move_pass(*args)
+            ref_a, ref_hist = A.move_pass_plain(
+                *args, out=torch.full_like(rec, -1))
+            ref_b, _ = A.move_pass_plain(*args, out=torch.full_like(rec, -2))
+            cov = ref_a[:, 0] == ref_b[:, 0]
+            for u in range(w_used):
+                assert torch.equal(out[:, u][cov], ref_a[:, u][cov])
+            _assert_hist_close(hist, ref_hist, _slot_abs_sums(
+                rec, hs & 0xFFFFFF, meta, k, wcnt, grad))

@@ -20,7 +20,10 @@ def _sources():
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, lightgbm_tpu_torch, lightgbm_tpu_torch.convert; "
+    code = ("import sys, lightgbm_tpu_torch, lightgbm_tpu_torch.convert, "
+            "lightgbm_tpu_torch.ops.aligned, "
+            "lightgbm_tpu_torch.models.level_builder, "
+            "lightgbm_tpu_torch.models.aligned_builder; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'lightgbm_tpu' or "
             "m.startswith('lightgbm_tpu.')]; "

@@ -76,12 +76,20 @@ def test_bin_boundaries_equal(runs):
                                   tds._handle.bins.numpy())
 
 
+def _tree_sections(booster):
+    text = booster.model_to_string()
+    return text[text.index("Tree=0"):text.index("end of trees")]
+
+
 def test_f64_trees_and_predictions_match(runs):
-    """tpu_use_f64_hist: identical tree structure, leaf values at
-    rtol=1e-6, raw predictions at rtol=1e-5 / atol=1e-7."""
+    """tpu_use_f64_hist: the tree sections of the model text are the JAX
+    package's byte for byte (split gains included); identical tree
+    structure, leaf values at rtol=1e-6, raw predictions at rtol=1e-5 /
+    atol=1e-7."""
     _, jb, _, tb = runs[True]
     Xte = runs["data"][2]
     assert tb.num_trees() == jb.num_trees() == ROUNDS
+    assert _tree_sections(tb) == _tree_sections(jb)
     for jt, tt in zip(jb.trees, tb.trees):
         assert tt.num_leaves == jt.num_leaves
         m = tt.num_leaves - 1
