@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (`lightgbm_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # the full run: HIGGS shape, 10.5M rows
+    python3 chip_smoke.py            # the full run: HIGGS 10.5M x 28, MSLR
+                                     # 2.27M x 137
 
 Phases, each of which ends the run with a non-zero exit if it fails:
 
@@ -44,7 +45,24 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 7. big-n path: an aligned run with ``tpu_force_big_n`` (STANDARD records,
    the exact i32 count pass, kernel B3) at max_bin 63, 3 rounds;
 8. f64 determinism: a small f64-histogram leaf-wise run on the card and
-   on the CPU must write the same trees.
+   on the CPU must write the same trees;
+9. lambdarank kernel vs plain: kernel B6
+   (``lightgbm_tpu_torch/ops/csrc/rank.cu``) against its twin on the
+   MSLR-shape queries (the recipe of ``bench.py::synth_mslr``, 2.27M rows
+   in queries of 80-159 documents, random scores), on long queries (1 to
+   5,000 documents) and under ``tpu_rank_sigmoid_bins=1024``: g and h
+   within 1e-5 x max|g| (max|h|), timed beside the twin;
+10. ranking path: lambdarank at the MSLR shape (2.27M x 137, 255 bins,
+   255 leaves, ``min_data_in_leaf`` 50) through ``train`` under ``auto``
+   (6 rounds; it must take the aligned engine on EXT records) and pinned
+   leaf-wise (3 rounds), the kernel counts zeroed just before each run
+   and read just after, the plain twins of B2, B4 and B6 counted too (a
+   call fails the run); NDCG@10 over the queries of the first 200,000
+   rows (the protocol of ``bench.py::run_mslr``): the two runs' at 3
+   rounds within 5e-3 of each other and both above an all-zero score's;
+   one profiled round each;
+11. EXT kernels vs plain: phase 6 on the inputs of one aligned
+   lambdarank tree at the MSLR shape (255 bins, ``gh_off`` 1).
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -68,8 +86,18 @@ F32_OPS_PER_S = 67e12          # H100 SXM data sheet, f32 outside the tensor cor
 F64_OPS_PER_S = 34e12          # H100 SXM data sheet, f64 outside the tensor cores
 KERNEL_SOURCE = "lightgbm_tpu_torch/ops/csrc/histogram.cu"
 ALIGNED_SOURCE = "lightgbm_tpu_torch/ops/csrc/aligned.cu"
-SOURCES = {"histogram": KERNEL_SOURCE, "aligned": ALIGNED_SOURCE}
+RANK_SOURCE = "lightgbm_tpu_torch/ops/csrc/rank.cu"
+SOURCES = {"histogram": KERNEL_SOURCE, "aligned": ALIGNED_SOURCE,
+           "rank": RANK_SOURCE}
 ROUNDS = {63: 10, 255: 5}
+MSLR_ROWS, MSLR_FEATURES = 2_270_000, 137     # bench.py stage 3
+MSLR_ROUNDS, MSLR_LEAF_ROUNDS = 6, 3
+NDCG_ROWS = 200_000
+# f32 operations of one pair factor (rank.cu::pair_terms, an FMA counted
+# as 2, the bf16 roundings not at all): 18 arithmetic operations around
+# XLA's exp, whose polynomial is 10 FMAs and 7 more operations, plus the
+# two accumulations
+OPS_PER_PAIR = 18 + 27 + 2
 DEVICE = "cuda:0"              # one card
 
 
@@ -429,7 +457,8 @@ def capture_kernel_calls(torch, lt, ds, params) -> dict:
     """One aligned tree with the engine's kernel calls recorded (clones of
     their inputs): the root's histogram pass, the root's move, and the
     move of the round with the most split blocks among those that also
-    copy unsplit blocks, with that round's count pass (STANDARD only)."""
+    copy unsplit blocks, with that round's count pass (STANDARD only);
+    ``gh_off`` is the grad lane offset the engine passed (EXT: 1)."""
     from lightgbm_tpu_torch.models import aligned_builder as AB
     names = ("move_pass", "count_pass", "slot_hist_pass")
     real = {n: getattr(AB, n) for n in names}
@@ -438,15 +467,16 @@ def capture_kernel_calls(torch, lt, ds, params) -> dict:
     def clone(args):
         return tuple(a.clone() if torch.is_tensor(a) else a for a in args)
 
-    def slot_hist(*args):
+    def slot_hist(*args, **kw):
         keep.setdefault("slot_hist_pass", clone(args))
-        return real["slot_hist_pass"](*args)
+        keep.setdefault("gh_off", kw.get("gh_off", 2))
+        return real["slot_hist_pass"](*args, **kw)
 
     def count(*args):
         state["count"] = clone(args)
         return real["count_pass"](*args)
 
-    def move(*args, out=None):
+    def move(*args, out=None, **kw):
         r1, meta, hs, k = args[1], args[5], args[7], args[8]
         blocks = int(torch.unique(hs[(hs & 0xFFFFFF) < k]).numel())
         copies = int(((((r1 >> 16) & 1) == 1)
@@ -459,7 +489,7 @@ def capture_kernel_calls(torch, lt, ds, params) -> dict:
             keep["count_wide"] = state["count"]
             state["blocks"] = blocks
         state["count"] = None
-        return real["move_pass"](*args, out=out)
+        return real["move_pass"](*args, out=out, **kw)
 
     for n, fn in zip(names, (move, count, slot_hist)):
         setattr(AB, n, fn)
@@ -472,10 +502,11 @@ def capture_kernel_calls(torch, lt, ds, params) -> dict:
     return keep
 
 
-def slot_abs_sums(torch, A, rec, slot_of_chunk, meta, k, wcnt, grad):
+def slot_abs_sums(torch, A, rec, slot_of_chunk, meta, k, wcnt, grad,
+                  gh_off=2):
     """[k, 2] sum of |g| and |h| over the valid rows of each slot's chunks
     (the scale of the histogram tolerance)."""
-    g, h = A._payload(rec, wcnt, grad)
+    g, h = A._payload(rec, wcnt, grad, gh_off)
     valid = A._valid_rows(meta, rec.shape[2])
     per_chunk = torch.stack([torch.where(valid, g.abs(), 0.0).sum(1),
                              torch.where(valid, h.abs(), 0.0).sum(1)], dim=1)
@@ -505,21 +536,22 @@ def bound(nbytes: float, ops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_move(torch, A, args, what) -> float:
+def check_move(torch, A, args, what, gh_off=2) -> float:
     """The move kernel against its twin: records equal on the rows the new
     layout covers (the twin run into two fills marks them) in the used
     lanes; the smaller children's histograms by `check_hist`."""
     rec, meta, hs, k = args[0], args[5], args[7], args[8]
     wcnt, w_used, grad = args[11], args[13], args[14]
-    out, hist = A.move_pass(*args)
-    ref_a, ref_hist = A.move_pass_plain(*args, out=torch.full_like(rec, -1))
+    out, hist = A.move_pass(*args, gh_off=gh_off)
+    ref_a, ref_hist = A.move_pass_plain(*args, out=torch.full_like(rec, -1),
+                                        gh_off=gh_off)
     cov = ref_a[:, 0] == A.move_pass_plain(
-        *args, out=torch.full_like(rec, -2))[0][:, 0]
+        *args, out=torch.full_like(rec, -2), gh_off=gh_off)[0][:, 0]
     for u in range(w_used):
         if not torch.equal(out[:, u][cov], ref_a[:, u][cov]):
             raise AssertionError(f"{what}: moved records differ in lane {u}")
     err = check_hist(torch, hist, ref_hist, slot_abs_sums(
-        torch, A, rec, hs & 0xFFFFFF, meta, k, wcnt, grad), what)
+        torch, A, rec, hs & 0xFFFFFF, meta, k, wcnt, grad, gh_off), what)
     del out, hist, ref_a, ref_hist, cov
     return err
 
@@ -527,27 +559,33 @@ def check_move(torch, A, args, what) -> float:
 def phase_aligned_parity(torch, lt, ds, params, max_bin: int,
                          layout: str) -> dict:
     """B2/B3/B4 against their twins on the inputs of one real aligned tree
-    at 10.5M x 28, timed beside the twin, the byte bound and (B4) one
+    (HIGGS shape: COMPACT, or STANDARD under ``tpu_force_big_n``; MSLR
+    shape: EXT), timed beside the twin, the byte bound and (B4) one
     ``index_add_``."""
     from lightgbm_tpu_torch.ops import aligned as A
     calls = capture_kernel_calls(
         torch, lt, ds, {**params, "tpu_force_big_n": layout == "standard"})
     what = f"{max_bin} bins, {layout}"
+    gh = calls["gh_off"]
+    if (gh == 1) != (layout == "ext"):
+        raise AssertionError(f"{what}: the engine passed gh_off={gh}")
     res = {}
     # ---- B4: the root pass
     args = calls["slot_hist_pass"]
     rec, slots, meta, k, F, B, wcnt, bits, grad = args
     nc, W, C = rec.shape
-    err = check_hist(torch, A.slot_hist_pass(*args),
-                     A.slot_hist_pass_plain(*args),
-                     slot_abs_sums(torch, A, rec, slots, meta, k, wcnt, grad),
+    err = check_hist(torch, A.slot_hist_pass(*args, gh_off=gh),
+                     A.slot_hist_pass_plain(*args, gh_off=gh),
+                     slot_abs_sums(torch, A, rec, slots, meta, k, wcnt, grad,
+                                   gh),
                      f"slot_hist_pass root, {what}")
     rows = int((meta & 0xFFFFF)[(slots >= 0) & (slots < k)].sum())
     r = {"max_abs_err": err, "rows": rows,
-         "ms": cuda_ms(torch, lambda: A.slot_hist_pass(*args)),
-         "plain_ms": cuda_ms(torch, lambda: A.slot_hist_pass_plain(*args),
-                             reps=2)}
-    g, h = A._payload(rec, wcnt, grad)
+         "ms": cuda_ms(torch, lambda: A.slot_hist_pass(*args, gh_off=gh)),
+         "plain_ms": cuda_ms(
+             torch, lambda: A.slot_hist_pass_plain(*args, gh_off=gh),
+             reps=2)}
+    g, h = A._payload(rec, wcnt, grad, gh)
     sel = A._valid_rows(meta, C).reshape(-1).nonzero()[:, 0]
     pay = torch.stack([g.reshape(-1)[sel], h.reshape(-1)[sel],
                        torch.ones_like(sel, dtype=torch.float32)], dim=1)
@@ -568,9 +606,9 @@ def phase_aligned_parity(torch, lt, ds, params, max_bin: int,
     res["slot_hist_pass"] = r
     # ---- B2: the root's move, then the widest round's
     err = check_move(torch, A, calls["move_root"],
-                     f"move_pass root, {what}")
+                     f"move_pass root, {what}", gh)
     args = calls["move_wide"]
-    err = max(err, check_move(torch, A, args, f"move_pass wide, {what}"))
+    err = max(err, check_move(torch, A, args, f"move_pass wide, {what}", gh))
     rec, r1, meta, k, w_used = args[0], args[1], args[5], args[8], args[13]
     cnt = meta & 0xFFFFF
     is_copy = ((r1 >> 16) & 1) == 1
@@ -579,10 +617,10 @@ def phase_aligned_parity(torch, lt, ds, params, max_bin: int,
     buf = torch.empty_like(rec)
     r = {"max_abs_err": err, "split_blocks": calls["wide_blocks"],
          "split_rows": split_rows, "copy_chunks": copy_chunks,
-         "ms": cuda_ms(torch, lambda: A.move_pass(*args, out=buf)),
-         "plain_ms": cuda_ms(torch, lambda: A.move_pass_plain(*args,
-                                                              out=buf),
-                             reps=2),
+         "ms": cuda_ms(torch, lambda: A.move_pass(*args, out=buf,
+                                                  gh_off=gh)),
+         "plain_ms": cuda_ms(torch, lambda: A.move_pass_plain(
+             *args, out=buf, gh_off=gh), reps=2),
          "library_ms": None}
     r["bound_ms"], r["bound_by"] = bound(
         2 * (split_rows * w_used * 4 + copy_chunks * W * C * 4)
@@ -680,10 +718,308 @@ def phase_f64(torch, lt) -> int:
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# ranking: MSLR shape
+# ---------------------------------------------------------------------------
+def synth_mslr(n: int, f: int, seed: int = 11):
+    """MSLR-shaped ranking data: queries of 80-159 documents, graded 0-4
+    relevance by within-query quantile of a sparse linear signal (a copy
+    of the recipe of bench.py::synth_mslr)."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, f), dtype=np.float32)
+    w = np.zeros(f, np.float32)
+    k = min(25, f)
+    idx = rng.choice(f, k, replace=False)
+    w[idx] = rng.standard_normal(k).astype(np.float32)
+    s = X @ w / 5.0 + 0.8 * rng.standard_normal(n).astype(np.float32)
+    sizes = []
+    left = n
+    while left > 0:
+        q = min(int(rng.integers(80, 160)), left)
+        sizes.append(q)
+        left -= q
+    group = np.asarray(sizes, np.int32)
+    y = np.zeros(n, np.float32)
+    pos = 0
+    for q in sizes:
+        ranks = s[pos:pos + q].argsort().argsort() / max(q - 1, 1)
+        y[pos:pos + q] = np.digitize(ranks, [0.55, 0.75, 0.9, 0.97])
+        pos += q
+    return X, y, group
+
+
+def ndcg_at(preds, y, group, k=10) -> float:
+    """Mean NDCG@k over the queries with a positive ideal DCG (a copy of
+    bench.py::ndcg_at)."""
+    pos = 0
+    total, cnt = 0.0, 0
+    for q in group:
+        p = preds[pos:pos + q]
+        lab = y[pos:pos + q]
+        order = np.argsort(-p)[:k]
+        dcg = np.sum((2.0 ** lab[order] - 1)
+                     / np.log2(np.arange(len(order)) + 2))
+        ideal = np.sort(lab)[::-1][:k]
+        idcg = np.sum((2.0 ** ideal - 1) / np.log2(np.arange(len(ideal)) + 2))
+        if idcg > 0:
+            total += dcg / idcg
+            cnt += 1
+        pos += q
+    return total / max(cnt, 1)
+
+
+def ndcg_queries(group, rows: int):
+    """The queries that lie wholly within the first ``rows`` rows (the
+    protocol of bench.py::run_mslr)."""
+    out, tot = [], 0
+    for q in group:
+        if tot + q > rows:
+            break
+        out.append(int(q))
+        tot += q
+    return out, tot
+
+
+def rank_bound_ms(obj, label_np) -> tuple:
+    """Least time of one lambdarank gradient on this card: bytes (score,
+    label and gain read, g and h written, per document; offsets and inverse
+    max DCG per query) against operations: each unordered pair with two
+    different labels evaluated once at OPS_PER_PAIR, plus one compare per
+    unordered pair for the ranks."""
+    qb = obj.query_boundaries
+    n, nq = int(qb[-1]), len(qb) - 1
+    lab = label_np.astype(np.int64)
+    distinct = 0
+    allp = 0
+    for lo, hi in zip(qb[:-1], qb[1:]):
+        c = int(hi - lo)
+        cnt = np.bincount(lab[lo:hi], minlength=5)
+        distinct += (c * c - int((cnt * cnt).sum())) // 2
+        allp += c * (c - 1) // 2
+    nbytes = n * 5 * 4 + nq * 2 * 4
+    return bound(nbytes, OPS_PER_PAIR * distinct + allp) + (distinct,)
+
+
+def phase_rank_parity(torch, lt, y, group) -> dict:
+    """B6 against its plain twin on the card, on three inputs: the MSLR
+    queries with random scores, a set of long queries (1 to 5,000
+    documents), and the MSLR queries under tpu_rank_sigmoid_bins=1024.
+    g and h must agree within 1e-5 x max|g| (max|h|): both compute the
+    same bf16-rounded pair factors, and the sums differ only in f32
+    order. Each is timed beside the twin."""
+    from lightgbm_tpu_torch.io.dataset import Metadata
+    from lightgbm_tpu_torch.ops import rank as R
+    from lightgbm_tpu_torch.ops.objectives import LambdarankNDCG
+    rng = np.random.default_rng(21)
+    long_counts = np.concatenate([[1, 2, 63, 64, 65, 129, 600, 2000, 5000,
+                                   4999, 777], rng.integers(1, 300, 40)])
+    long_y = rng.integers(0, 5, int(long_counts.sum())).astype(np.float32)
+    cases = {"mslr": (y, group, 0), "long": (long_y, long_counts, 0),
+             "mslr_lut1024": (y, group, 1024)}
+    res = {}
+    for name, (lab, grp, lut) in cases.items():
+        md = Metadata(len(lab))
+        md.set_label(lab)
+        md.set_group(grp)
+        obj = LambdarankNDCG(lt.Config.from_params(
+            {"objective": "lambdarank", "tpu_rank_sigmoid_bins": lut}))
+        obj.init(md, len(lab), torch.device(DEVICE))
+        score = torch.as_tensor(rng.standard_normal(len(lab))
+                                .astype(np.float32), device=DEVICE)
+        args = (score, obj._qoff, obj._label_i, obj._gain, obj._inv,
+                obj._disc, 1.0, lut)
+        g, h = R.lambdarank_grad(*args, obj._blocks)
+        gp, hp = R.lambdarank_grad_plain(*args)
+        torch.cuda.synchronize()
+        mg, mh = gp.abs().max().item(), hp.abs().max().item()
+        eg, eh = (g - gp).abs().max().item(), (h - hp).abs().max().item()
+        if not (eg <= 1e-5 * mg and eh <= 1e-5 * mh):
+            raise AssertionError(f"lambdarank_grad ({name}) differs from its "
+                                 f"twin: max |dg| {eg} (max |g| {mg}), max "
+                                 f"|dh| {eh} (max |h| {mh})")
+        r = {"docs": len(lab), "queries": len(grp),
+             "longest": int(np.max(grp)), "max_abs_err": max(eg, eh),
+             "rel_err_g": eg / mg, "rel_err_h": eh / mh,
+             "ms": cuda_ms(torch, lambda: R.lambdarank_grad(*args,
+                                                            obj._blocks)),
+             "plain_ms": cuda_ms(torch, lambda: R.lambdarank_grad_plain(
+                 *args), reps=2), "library_ms": None}
+        r["bound_ms"], r["bound_by"], r["pairs_distinct"] = \
+            rank_bound_ms(obj, lab)
+        log(f"kernel lambdarank_grad ({name}: {r['docs']} docs, "
+            f"{r['queries']} queries, longest {r['longest']}): kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library none, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+            f"{r['pairs_distinct']} pairs), max |dg|/max|g| "
+            f"{r['rel_err_g']:.3e}, max |dh|/max|h| {r['rel_err_h']:.3e}")
+        res[name] = r
+        del obj, args, g, h, gp, hp
+    torch.cuda.empty_cache()
+    return res
+
+
+def mslr_run(torch, lt, ds, params, rounds, X, y, group, what) -> tuple:
+    """One lambdarank ``train`` at the MSLR shape, timed per iteration,
+    with every kernel count zeroed just before and read just after, and
+    the plain twins of B2, B4 and B6 counted (a call on this path fails
+    the run); NDCG@10 over the queries of the first 200,000 rows at the
+    leaf-wise run's round count and at the end."""
+    from lightgbm_tpu_torch.ops import aligned as A
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.ops import rank as R
+    from lightgbm_tpu_torch.utils import log as port_log
+    plain = {(A, "slot_hist_pass_plain"): 0, (A, "move_pass_plain"): 0,
+             (R, "lambdarank_grad_plain"): 0}
+    real = {key: getattr(*key) for key in plain}
+
+    def counting(key):
+        def fn(*args, **kw):
+            plain[key] += 1
+            return real[key](*args, **kw)
+        return fn
+
+    stamps, lines = [], []
+
+    def stamp(env):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for key in plain:
+        setattr(*key, counting(key))
+    port_log.register_callback(lines.append)
+    try:
+        H.reset_launches()
+        A.reset_launches()
+        R.reset_launches()
+        t_start = time.perf_counter()
+        bst = lt.train(params, ds, num_boost_round=rounds, callbacks=[stamp],
+                       verbose_eval=False)
+        launches = {"B1": H.LAUNCHES["f32"], **A.LAUNCHES, **R.LAUNCHES}
+    finally:
+        port_log.register_callback(None)
+        for key in plain:
+            setattr(*key, real[key])
+    if any(plain.values()):
+        raise AssertionError(f"{what}: plain twins ran on the card's path: "
+                             f"{ {k[1]: v for k, v in plain.items()} }")
+    iters = np.diff([t_start] + stamps)
+    peak = torch.cuda.max_memory_allocated()
+    g = bst._gbdt
+    trees = bst.num_trees()
+    if trees != rounds:
+        raise AssertionError(f"{what}: {trees} trees after {rounds} rounds")
+    if launches["lambdarank_grad"] < rounds:
+        raise AssertionError(f"{what}: lambdarank_grad launched "
+                             f"{launches['lambdarank_grad']} times in "
+                             f"{rounds} rounds")
+    qs, nrows = ndcg_queries(group, NDCG_ROWS)
+    t0 = time.perf_counter()
+    preds = bst.predict(X[:nrows])
+    pred_s = time.perf_counter() - t0
+    if not np.all(np.isfinite(preds)) or preds.shape != (nrows,):
+        raise AssertionError(f"{what}: predictions are not finite of shape "
+                             f"({nrows},)")
+    r = {"first_round_s": float(iters[0]),
+         "median_iter_ms": statistics.median(iters[1:]) * 1e3,
+         "launches": launches,
+         "launches_per_tree": {k: v / trees for k, v in launches.items()},
+         "ndcg10": ndcg_at(preds, y[:nrows], qs),
+         f"ndcg10_at_{MSLR_LEAF_ROUNDS}": ndcg_at(
+             bst.predict(X[:nrows], num_iteration=MSLR_LEAF_ROUNDS),
+             y[:nrows], qs),
+         "peak_bytes": peak, "predict_s": pred_s,
+         "train_path": g.train_path, "ndcg_queries": len(qs)}
+    if g.train_path == "aligned":
+        eng = g._aligned_eng
+        r["rounds_per_tree"] = [st[0] for st in g.aligned_stats]
+        r["splits_executed_per_tree"] = [st[1] for st in g.aligned_stats]
+        r["fallbacks"] = eng.fallbacks
+        r["layout_ext"] = bool(eng.ext)
+        # the gradient round trip of one iteration, step by step: the
+        # row-order score read, B6 (with the weights folded in), the
+        # gather of g/h into the records by rid
+        rs = eng.row_scores()
+        gd, hd = g.objective.get_gradients(rs[None, :])
+        r["round_trip_ms"] = {
+            "row_scores": cuda_ms(torch, eng.row_scores),
+            "gradients": cuda_ms(
+                torch, lambda: g.objective.get_gradients(rs[None, :])),
+            "gather": cuda_ms(
+                torch, lambda: eng._gather_grad_lanes(gd[0], hd[0]))}
+        del eng, rs, gd, hd
+    r["path_logged"] = any(f"training path: {g.train_path}" in ln
+                           for ln in lines)
+    r["profile"] = profile_round(torch, bst)
+    del bst, g
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_mslr(torch, lt, X, y, group) -> tuple:
+    """lambdarank at the MSLR shape (2.27M x 137, 255 bins, 255 leaves):
+    binning with the query groups, then ``train`` under the default
+    ``auto`` (which must take the aligned engine on EXT records) and a
+    leaf-wise run (pinned) on the same Dataset. NDCG@10 of both, at the
+    leaf-wise run's round count, within 5e-3 of each other (the JAX
+    package's tolerance, tests/test_rank_fused.py) and above an all-zero
+    score's. Returns (Dataset, params, results)."""
+    params = {"objective": "lambdarank", "num_leaves": 255, "max_bin": 255,
+              "learning_rate": 0.1, "min_data_in_leaf": 50, "metric": "none",
+              "verbosity": 1}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = lt.Dataset(X, label=y, group=group, params=params,
+                    free_raw_data=False).construct()
+    torch.cuda.synchronize()
+    bin_s = time.perf_counter() - t0
+    res = {"binning_s": bin_s}
+    res["aligned"] = a = mslr_run(torch, lt, ds, params, MSLR_ROUNDS, X, y,
+                                  group, "MSLR auto")
+    res["leafwise"] = w = mslr_run(
+        torch, lt, ds, {**params, "tpu_grow_mode": "leafwise"},
+        MSLR_LEAF_ROUNDS, X, y, group, "MSLR leaf-wise")
+    qs, nrows = ndcg_queries(group, NDCG_ROWS)
+    res["ndcg10_zero"] = zero = ndcg_at(np.zeros(nrows), y[:nrows], qs)
+    if a["train_path"] != "aligned" or not a["layout_ext"] \
+            or not a["path_logged"]:
+        raise AssertionError(f"MSLR auto took {a['train_path']} (EXT "
+                             f"{a.get('layout_ext')}, logged "
+                             f"{a['path_logged']})")
+    if a["launches"]["move_pass"] == 0 or a["launches"]["slot_hist_pass"] == 0:
+        raise AssertionError(f"MSLR aligned launched {a['launches']}")
+    at = f"ndcg10_at_{MSLR_LEAF_ROUNDS}"
+    if abs(a[at] - w[at]) > 5e-3:
+        raise AssertionError(f"MSLR aligned NDCG@10 {a[at]} is not within "
+                             f"5e-3 of the leaf-wise {w[at]}")
+    if not (a[at] > zero and w[at] > zero):
+        raise AssertionError(f"MSLR NDCG@10 {a[at]} / {w[at]} not above the "
+                             f"all-zero score's {zero}")
+    for name, r in (("aligned (auto, EXT)", a), ("leaf-wise", w)):
+        lp = r["launches_per_tree"]
+        log(f"MSLR {name}: binning {bin_s:.3f} s, first round "
+            f"{r['first_round_s']:.3f} s, median iteration "
+            f"{r['median_iter_ms']:.1f} ms, rounds per tree "
+            f"{r.get('rounds_per_tree', '-')}, fallbacks "
+            f"{r.get('fallbacks', '-')}, launches per tree B6 "
+            f"{lp['lambdarank_grad']:.1f} B2 {lp['move_pass']:.1f} B4 "
+            f"{lp['slot_hist_pass']:.1f} B1 {lp['B1']:.1f}, NDCG@10 "
+            f"{r['ndcg10']:.6f} ({len(qs)} queries; at "
+            f"{MSLR_LEAF_ROUNDS} rounds {r[at]:.6f}, all-zero {zero:.6f}), "
+            f"peak device memory {r['peak_bytes'] / 2**30:.3f} GiB")
+    log(f"MSLR gradient round trip (aligned): "
+        f"{ {k: round(v, 4) for k, v in a['round_trip_ms'].items()} } ms")
+    return ds, params, res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=10_500_000)
     ap.add_argument("--holdout", type=int, default=500_000)
+    ap.add_argument("--mslr-rows", type=int, default=MSLR_ROWS)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -716,6 +1052,18 @@ def main() -> int:
         del ds
         torch.cuda.empty_cache()
     f64_launches = phase_f64(torch, lt)
+    del X, y
+    gc.collect()
+    t0 = time.perf_counter()
+    Xm, ym, gm = synth_mslr(args.mslr_rows, MSLR_FEATURES)
+    log(f"data: {args.mslr_rows} x {MSLR_FEATURES} synthetic MSLR rows in "
+        f"{len(gm)} queries, {time.perf_counter() - t0:.3f} s")
+    rpar = phase_rank_parity(torch, lt, ym, gm)
+    mds, mparams, mslr = phase_mslr(torch, lt, Xm, ym, gm)
+    apar[(255, "ext")] = phase_aligned_parity(torch, lt, mds, mparams, 255,
+                                              "ext")
+    del mds
+    torch.cuda.empty_cache()
 
     def entry(name, replaces, bins, prec, launches):
         p = par[bins]
@@ -729,7 +1077,8 @@ def main() -> int:
                 "library_ms": p[f"library_ms_{prec}"],
                 "shape": f"root {args.rows}x28, {bins} bins, {prec}"}
 
-    def aentry(name, kernel, line, bins, layout, launches, shape):
+    def aentry(name, kernel, line, bins, layout, launches, shape,
+               dims=f"{args.rows}x28"):
         p = apar[(bins, layout)][kernel]
         return {"name": name, "route": "cuda", "source": ALIGNED_SOURCE,
                 "replaces": f"lightgbm_tpu/ops/aligned.py:{line}",
@@ -737,7 +1086,7 @@ def main() -> int:
                 "ms": p["ms"], "plain_ms": p["plain_ms"],
                 "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
                 "library_ms": p["library_ms"],
-                "shape": f"{shape}, {args.rows}x28, {bins} bins, {layout}"}
+                "shape": f"{shape}, {dims}, {bins} bins, {layout}"}
 
     kernels = [
         entry("histogram_f32_63bin", "lightgbm_tpu/ops/pallas_hist.py:205",
@@ -758,6 +1107,23 @@ def main() -> int:
     kernels.append(aentry("count_pass", "count_pass", 1056, 63, "standard",
                           big_n["launches"]["count_pass"],
                           "widest round of tree 1"))
+    launches = mslr["aligned"]["launches"]
+    dims = f"{args.mslr_rows}x{MSLR_FEATURES}"
+    kernels.append(aentry("move_pass_ext_255bin", "move_pass", 960, 255,
+                          "ext", launches["move_pass"],
+                          "widest round of tree 1", dims))
+    kernels.append(aentry("slot_hist_pass_ext_255bin", "slot_hist_pass",
+                          1141, 255, "ext", launches["slot_hist_pass"],
+                          "root pass", dims))
+    rp = rpar["mslr"]
+    kernels.append({
+        "name": "lambdarank_grad", "route": "cuda", "source": RANK_SOURCE,
+        "replaces": "lightgbm_tpu/ops/pallas_rank.py:345",
+        "launches": launches["lambdarank_grad"],
+        "max_abs_err": rp["max_abs_err"], "ms": rp["ms"],
+        "plain_ms": rp["plain_ms"], "bound_ms": rp["bound_ms"],
+        "bound_by": rp["bound_by"], "library_ms": None,
+        "shape": f"{rp['docs']} docs in {rp['queries']} queries (MSLR)"})
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was never launched on its "
@@ -767,6 +1133,7 @@ def main() -> int:
                     "big_n": big_n,
                     "aligned_kernels": {f"{b} {lay}": v for (b, lay), v
                                         in apar.items()},
+                    "mslr": mslr, "rank_kernel": rpar,
                     "power": info["smi"]}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

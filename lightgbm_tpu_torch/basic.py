@@ -1,5 +1,5 @@
 """Public Dataset / Booster (port of lightgbm_tpu/basic.py, dense input,
-binary and L2 objectives).
+binary, L2 and lambdarank objectives).
 
 `Booster.predict` walks the trees on the run's device (``cuda`` unless
 the params ask for ``device_type=cpu``); `model_to_string` writes the
@@ -40,7 +40,7 @@ class Dataset:
     """Lazily-constructed dataset (reference basic.py:600+)."""
 
     def __init__(self, data, label=None, reference: "Dataset" = None,
-                 weight=None, init_score=None,
+                 weight=None, group=None, init_score=None,
                  feature_name: Union[str, List[str]] = "auto",
                  categorical_feature: Union[str, List[int]] = "auto",
                  params: Optional[Dict] = None,
@@ -49,6 +49,7 @@ class Dataset:
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group
         self.init_score = init_score
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
@@ -68,17 +69,26 @@ class Dataset:
                 else [int(c) for c in self.categorical_feature])
         self._handle = _CoreDataset.from_matrix(
             _to_matrix(self.data), label=self.label, config=cfg,
-            weight=self.weight, init_score=self.init_score,
-            feature_names=names, categorical_feature=cats, reference=ref,
+            weight=self.weight, group=self.group,
+            init_score=self.init_score, feature_names=names,
+            categorical_feature=cats, reference=ref,
             device=resolve_device(cfg))
         if self.free_raw_data:
             self.data = None
         return self
 
-    def create_valid(self, data, label=None, weight=None, init_score=None,
-                     params=None) -> "Dataset":
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None) -> "Dataset":
         return Dataset(data, label=label, reference=self, weight=weight,
-                       init_score=init_score, params=params or self.params)
+                       group=group, init_score=init_score,
+                       params=params or self.params)
+
+    def set_group(self, group) -> "Dataset":
+        """Query sizes (or boundaries) of the rows, in row order."""
+        self.group = group
+        if self._handle is not None:
+            self._handle.metadata.set_group(group)
+        return self
 
     @property
     def num_data(self) -> int:

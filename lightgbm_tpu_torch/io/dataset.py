@@ -150,6 +150,7 @@ class Dataset:
     def from_matrix(cls, data: np.ndarray, label: Optional[Sequence] = None,
                     config: Optional[Config] = None,
                     weight: Optional[Sequence] = None,
+                    group: Optional[Sequence[int]] = None,
                     init_score: Optional[Sequence] = None,
                     feature_names: Optional[List[str]] = None,
                     categorical_feature: Optional[Sequence[int]] = None,
@@ -186,6 +187,7 @@ class Dataset:
         if label is not None:
             self.metadata.set_label(label)
         self.metadata.set_weight(weight)
+        self.metadata.set_group(group)
         self.metadata.set_init_score(init_score)
         return self
 

@@ -18,13 +18,17 @@ K = min(S - 1, 256) leaves at once in one pass over the rows:
    priority queue (`serial_tree_learner.cpp:173-237`) is replayed over the
    executed splits to flag the next frontier.
 
-The records stay permuted across iterations: gradients are elementwise,
-so nothing is unpermuted on the hot path; row-order scores are
-materialized lazily through the rid lane. The JAX package runs the rounds
-inside one `lax.while_loop`; here they are a host loop whose per-leaf
-tables (a few thousand numbers) live in numpy, with one small read from
-the card per round (the children's best splits) and a second one when the
-count pass runs. The replay decides exactly what the JAX package's
+The records stay permuted across iterations. Pointwise gradients are
+computed in the records' permuted order, so nothing is unpermuted on the
+hot path; row-order scores are materialized lazily through the rid lane.
+An objective whose gradients are not pointwise (lambdarank) takes the
+EXT records: each iteration reads the row-order scores on the device,
+the objective computes (g, h) in row order (kernel B6), and the engine
+gathers them by rid into the grad/hess lanes. The JAX package runs the
+rounds inside one `lax.while_loop`; here they are a host loop whose
+per-leaf tables (a few thousand numbers) live in numpy, with one small
+read from the card per round (the children's best splits) and a second
+one when the count pass runs. The replay decides exactly what the JAX package's
 `device_replay` decides: same lowest-slot tie-break, same budget cap, the
 same all-needed shortcut and the same authoritative final replay
 (`replay_frontier`), so the rounds and the number of executed splits are
@@ -210,18 +214,21 @@ class AlignedEngine:
         weight = objective._weight_np
         lab01 = bool(np.all((label == 0) | (label == 1)))
         # COMPACT: gradients recomputed in the kernels from score + label
-        # bit; STANDARD otherwise, and for the big-n layout
+        # bit; EXT: gradients from the objective in row order (ranking);
+        # STANDARD otherwise, and for the big-n layout
         self.compact = (pg is not None and weight is None and lab01
                         and n <= (1 << 24) and not cfg.tpu_force_big_n)
+        self.ext = pg is None
+        self.gh_off = 1 if self.ext else 2
         self.big_n = n > (1 << 24) or bool(cfg.tpu_force_big_n)
         self.pgrad = pg
         self.grad = pg if self.compact else None
         rec, self.wcnt, self.W, cnts, self.bits = pack_records(
             learner.bins, label, weight, C, compact=self.compact,
-            max_bin=learner.max_bin_global)
+            max_bin=learner.max_bin_global, ext=self.ext)
         nc_data = rec.shape[0]
         self.NC = NC = nc_data + S + 2
-        self.lanes, _ = lane_layout(self.wcnt, self.compact)
+        self.lanes, _ = lane_layout(self.wcnt, self.compact, self.ext)
         self.w_used = max(self.lanes.values()) + 1
         self.rec = torch.zeros((NC, self.W, C), dtype=torch.int32,
                                device=dev)
@@ -258,8 +265,17 @@ class AlignedEngine:
         self.rec[:, self.lanes["grad"]] = g.view(torch.int32)
         self.rec[:, self.lanes["hess"]] = h.view(torch.int32)
 
+    def _gather_grad_lanes(self, g_rows: torch.Tensor,
+                           h_rows: torch.Tensor) -> None:
+        """EXT records: the grad/hess lanes from row-order (g, h), by the
+        rid lane (pad rows read the last row's, and no pass reads them)."""
+        rid = self._rid().long().clamp(0, self.n - 1)
+        self.rec[:, self.lanes["grad"]] = g_rows[rid].view(torch.int32)
+        self.rec[:, self.lanes["hess"]] = h_rows[rid].view(torch.int32)
+
     def row_scores(self) -> torch.Tensor:
-        """Training scores in row order ([N] f32 on the device)."""
+        """Training scores in row order ([N] f32 on the device; nothing
+        is read back to the host)."""
         C, n = self.C, self.n
         pos = torch.arange(C, device=self.device)
         cnts = torch.as_tensor(self.cnts, device=self.device)
@@ -283,9 +299,12 @@ class AlignedEngine:
         host = np.stack([np.asarray(a, np.int64) for a in arrays])
         return torch.as_tensor(host.astype(np.int32), device=self.device)
 
-    def train_iter(self, scale: float, fmask: Optional[np.ndarray] = None):
+    def train_iter(self, scale: float, fmask: Optional[np.ndarray] = None,
+                   grads=None):
         """One tree: gradients, speculative build, and (when the replay is
-        exact) the score-lane update. Returns (AlignedSpec, exact)."""
+        exact) the score-lane update. EXT records take ``grads``, the
+        objective's row-order (g [N], h [N]) on the device. Returns
+        (AlignedSpec, exact)."""
         lr = self.learner
         cfg = self.cfg
         dev = self.device
@@ -294,7 +313,8 @@ class AlignedEngine:
         K = min(Sm1, K_CAP)
         Lm1 = max(cfg.num_leaves - 1, 1)
         F, B = lr.num_features, lr.max_bin_global
-        bits, wcnt, grad = self.bits, self.wcnt, self.grad
+        bits, wcnt, grad, gh_off = self.bits, self.wcnt, self.grad, \
+            self.gh_off
         meta = lr.meta
         mono = meta["monotone"].astype(np.int64)
         fmask_t = torch.ones(F, dtype=torch.float32, device=dev) \
@@ -302,7 +322,9 @@ class AlignedEngine:
                                                   device=dev)
         s_ids = np.arange(S + 1)
         chunk_iota = np.arange(NC)
-        if not self.compact:
+        if self.ext:
+            self._gather_grad_lanes(*grads)
+        elif not self.compact:
             self._grad_lanes()
         if self._hist_store is None:
             self._hist_store = torch.empty((S + 1, F, B, 3),
@@ -313,7 +335,7 @@ class AlignedEngine:
         cnts_pc = self.cnts
         cm = self._upload(np.zeros(NC), cnts_pc)
         root = slot_hist_pass(self.rec, cm[0], cm[1], 1, F, B, wcnt, bits,
-                              grad)[0]
+                              grad, gh_off=gh_off)[0]
         store[0] = root
         tot = root[0].sum(0).cpu().numpy()           # feature 0's bins
         root_g, root_h = np.float32(tot[0]), np.float32(tot[1])
@@ -418,7 +440,7 @@ class AlignedEngine:
                                   up[4], up[5], up[6], K, F, B, wcnt, bits,
                                   self.w_used, grad,
                                   out=self._spare if self.rec.is_cuda
-                                  else None)
+                                  else None, gh_off=gh_off)
             self._spare, self.rec = self.rec, out
 
             # ---- tables: children of the selected slots

@@ -46,6 +46,9 @@ LF_SG, LF_SH, LF_MINC, LF_MAXC, LF_VALUE = range(5)
 LF_W = 8
 LI_BEGIN, LI_COUNT, LI_COUNTG, LI_DEPTH = range(4)
 LI_W = 8
+# rows from which `auto` trains a non-pointwise objective on the aligned
+# engine (the JAX package's row floor)
+NON_POINTWISE_ROW_FLOOR = 1_000_000
 
 
 class TreeRecord(NamedTuple):
@@ -375,8 +378,6 @@ class DeviceTreeLearner:
             return "no objective"
         if objective.num_model_per_iteration != 1:
             return "multiclass (class lanes not ported)"
-        if objective.point_grad_fn() is None:
-            return "non-pointwise objective (EXT layout not ported)"
         S = spec_slots(cfg.num_leaves, float(cfg.tpu_level_spec))
         nc = aligned_num_chunks(self.n, cfg, S, self.num_features)
         if nc > 65535:
@@ -391,6 +392,14 @@ class DeviceTreeLearner:
             return "num_leaves < 2"
         if self.max_bin_global > 256:
             return "max_bin > 256"
+        # an objective whose gradients are not pointwise (ranking) pays a
+        # row-order gradient round trip each iteration (EXT records); the
+        # JAX package takes the engine for it from 1M rows, or when forced
+        if not (objective.point_grad_fn() is not None
+                or self.n >= NON_POINTWISE_ROW_FLOOR
+                or cfg.tpu_grow_mode == "aligned"):
+            return ("non-pointwise objective below the row floor "
+                    f"({self.n} < {NON_POINTWISE_ROW_FLOOR} rows)")
         return None
 
     def aligned_mode_ok(self, objective) -> bool:

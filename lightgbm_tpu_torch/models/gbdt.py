@@ -8,8 +8,11 @@ Scores live on the device as ``[K, N]`` f32; metrics pull them to the
 host once per eval.
 
 A tree grows on the aligned engine (`aligned_builder.py`) when its gates
-pass, else leaf-wise. The aligned engine keeps the training scores in a
-lane of its permuted records; ``train_score`` is synced from it lazily.
+pass, else leaf-wise. For a non-pointwise objective (lambdarank) each
+aligned iteration reads the engine's row-order scores on the device and
+hands the objective's gradients to the engine. The aligned engine keeps
+the training scores in a lane of its permuted records; ``train_score``
+is synced from it lazily.
 An aligned tree whose replay is not exact is not applied: that iteration
 grows an exact leaf-wise tree instead. The JAX package pipelines its
 aligned rounds to hide XLA's dispatch round trip; the port runs them
@@ -218,7 +221,13 @@ class GBDT:
         if eng is None:
             eng = self._aligned_eng = self.learner.aligned_engine(
                 self.objective, init_row_scores=self.train_score.score[0])
-        spec, exact = eng.train_iter(self.shrinkage_rate, fmask)
+        grads = None
+        if eng.ext:
+            # ranking: gradients in row order from the engine's scores,
+            # gathered back into the records by rid (all on the device)
+            g, h = self.objective.get_gradients(eng.row_scores()[None, :])
+            grads = (g[0], h[0])
+        spec, exact = eng.train_iter(self.shrinkage_rate, fmask, grads)
         self.aligned_stats.append((spec.rounds, spec.n_exec, exact))
         if not exact:
             eng.fallbacks += 1

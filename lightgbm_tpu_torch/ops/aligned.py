@@ -5,9 +5,12 @@ One persistent ``[NC, W, C]`` int32 record matrix holds the training rows,
 chunk-blocked and transposed: within a chunk each lane is a contiguous run
 of C words. The first ``wcnt`` lanes are packed bin words (8, 5 or 4 bins a
 word at 4-, 6- and 8-bit widths), the rest the layout's value lanes
-(`lane_layout`): STANDARD score/label/grad/hess/rid/weight, or COMPACT
+(`lane_layout`): STANDARD score/label/grad/hess/rid/weight; COMPACT
 score/meta, where meta packs rid | label << 24 | bag << 31 and gradients
-are recomputed inside the kernels from the score and the label bit.
+are recomputed inside the kernels from the score and the label bit; or
+EXT score/grad/hess/rid for objectives whose gradients are not pointwise
+(ranking), which arrive in row order and are gathered into the grad/hess
+lanes by rid.
 
 Tree blocks own disjoint chunk-aligned ranges, so every chunk belongs to
 one block and the routing arrives as per-chunk int32 arrays (bit layouts
@@ -112,12 +115,15 @@ def _bpw_for_bits(bits: int) -> int:
     return {4: 8, 6: 5, 8: 4}[bits]
 
 
-def lane_layout(wcnt: int, compact: bool = False):
+def lane_layout(wcnt: int, compact: bool = False, ext: bool = False):
     """(lane indices, W padded to a multiple of 8) of a record with
-    ``wcnt`` bin words: COMPACT score + meta, or STANDARD score, label,
-    grad, hess, rid and weight."""
+    ``wcnt`` bin words: EXT score, grad, hess and rid; COMPACT score +
+    meta; or STANDARD score, label, grad, hess, rid and weight."""
     ls = wcnt
-    if compact:
+    if ext:
+        lanes = dict(score=ls, grad=ls + 1, hess=ls + 2, rid=ls + 3)
+        w = wcnt + 4
+    elif compact:
         lanes = dict(score=ls, meta=ls + 1)
         w = wcnt + 2
     else:
@@ -134,7 +140,7 @@ def _as_int32(x: torch.Tensor) -> torch.Tensor:
 
 def pack_records(bins: torch.Tensor, label, weight, chunk: int,
                  compact: bool = False, max_bin: int = 0,
-                 rid_base: int = 0):
+                 rid_base: int = 0, ext: bool = False):
     """[N, F] uint8 bins -> ([NC, W, C] int32 records on the device of
     ``bins``, wcnt, W, cnts, bits); cnts[i] (numpy) is the number of valid
     rows of chunk i. Bits equal the JAX package's ``pack_records``: bin
@@ -146,7 +152,7 @@ def pack_records(bins: torch.Tensor, label, weight, chunk: int,
     bits = 4 if bmax < 16 else (6 if bmax < 64 else 8)
     bpw = _bpw_for_bits(bits)
     wcnt = (f + bpw - 1) // bpw
-    lanes, w_pad = lane_layout(wcnt, compact)
+    lanes, w_pad = lane_layout(wcnt, compact, ext)
     nc = (n + chunk - 1) // chunk
     n_pad = nc * chunk
     rec = torch.zeros((nc, w_pad, chunk), dtype=torch.int32, device=dev)
@@ -162,7 +168,9 @@ def pack_records(bins: torch.Tensor, label, weight, chunk: int,
     def lane(vals: torch.Tensor) -> torch.Tensor:
         return vals.view(nc, chunk)
 
-    if compact:
+    if ext:
+        rec[:, lanes["rid"], :] = lane(rid.to(torch.int32))
+    elif compact:
         lab = (torch.as_tensor(np.asarray(label), device=dev) > 0) \
             .to(torch.int64)
         meta = rid & META_RID_MASK
@@ -224,12 +232,13 @@ def _valid_rows(meta: torch.Tensor, C: int) -> torch.Tensor:
     return pos[None, :] < (meta & META_CNT_MASK)[:, None]
 
 
-def _payload(records: torch.Tensor, wcnt: int, grad):
-    """[NC, C] (g, h): grad/hess lanes (STANDARD, grad None) or recomputed
-    from the score lane and the meta label bits by ``grad`` (COMPACT)."""
+def _payload(records: torch.Tensor, wcnt: int, grad, gh_off: int = 2):
+    """[NC, C] (g, h): the grad/hess lanes at ``wcnt + gh_off`` (grad
+    None; STANDARD: 2, EXT: 1) or recomputed from the score lane and the
+    meta label bits by ``grad`` (COMPACT)."""
     if grad is None:
-        return (records[:, wcnt + 2].view(torch.float32),
-                records[:, wcnt + 3].view(torch.float32))
+        return (records[:, wcnt + gh_off].view(torch.float32),
+                records[:, wcnt + gh_off + 1].view(torch.float32))
     score = records[:, wcnt].view(torch.float32)
     label = ((records[:, wcnt + 1] >> META_LABEL) & META_LABEL_MASK) \
         .to(torch.float32)
@@ -237,7 +246,7 @@ def _payload(records: torch.Tensor, wcnt: int, grad):
 
 
 def _slot_histograms(records, take, slot_of_chunk, num_slots, num_features,
-                     num_bins, wcnt, bits, grad) -> torch.Tensor:
+                     num_bins, wcnt, bits, grad, gh_off) -> torch.Tensor:
     """hist[num_slots, F, B, 3]: (g, h, 1) of the rows where ``take``
     [NC, C] is set, into the slot of their chunk; one ``index_add_`` per
     feature. The sums run in f64 and round to f32 once: a plain f32
@@ -251,7 +260,7 @@ def _slot_histograms(records, take, slot_of_chunk, num_slots, num_features,
     sel = take.reshape(-1).nonzero()[:, 0]
     if sel.numel() == 0:
         return out
-    g, h = _payload(records, wcnt, grad)
+    g, h = _payload(records, wcnt, grad, gh_off)
     pay = torch.stack([g.reshape(-1)[sel], h.reshape(-1)[sel],
                        torch.ones(sel.numel(), dtype=torch.float32,
                                   device=dev)], dim=1).double()
@@ -272,13 +281,13 @@ def _slot_histograms(records, take, slot_of_chunk, num_slots, num_features,
 
 
 def slot_hist_pass_plain(records, slots, meta, num_slots, num_features,
-                         num_bins, wcnt, bits, grad=None):
+                         num_bins, wcnt, bits, grad=None, gh_off=2):
     """Plain twin of `slot_hist_pass`."""
     nc, _, C = records.shape
     in_slot = (slots >= 0) & (slots < num_slots)
     take = _valid_rows(meta, C) & in_slot[:, None]
     return _slot_histograms(records, take, slots, num_slots, num_features,
-                            num_bins, wcnt, bits, grad)
+                            num_bins, wcnt, bits, grad, gh_off)
 
 
 def count_pass_plain(records, r1, r2, meta, wsel, kslots, num_slots, bits):
@@ -295,7 +304,7 @@ def count_pass_plain(records, r1, r2, meta, wsel, kslots, num_slots, bits):
 
 def move_pass_plain(records, r1, r2, basel, baser, meta, wsel, hslots,
                     num_slots, num_features, num_bins, wcnt, bits, w_used,
-                    grad=None, out=None):
+                    grad=None, out=None, gh_off=2):
     """Plain twin of `move_pass`: block-segmented exclusive ranks of the
     left and right rows in (chunk, row) order, one scatter of the used
     lanes, whole-chunk copies, and the smaller children's histograms from
@@ -335,7 +344,7 @@ def move_pass_plain(records, r1, r2, basel, baser, meta, wsel, hslots,
     take = torch.where(side_r[:, None], go_r, go_l) \
         & (hslot < num_slots)[:, None]
     hist = _slot_histograms(records, take, hslot, num_slots, num_features,
-                            num_bins, wcnt, bits, grad)
+                            num_bins, wcnt, bits, grad, gh_off)
     return out, hist
 
 
@@ -351,8 +360,8 @@ def _lib():
             "lgbt_count_pass": [p, i, i, i, p, p, p, p, p, i, i, p, p],
             "lgbt_move_partition": [p, i, i, i, i, i, p, p, p, p, p, p, p,
                                     i, p, p, p, p, p, p, p],
-            "lgbt_slot_hist": [p, i, i, i, i, i, i, i, i, i, i, p, p, i, i,
-                               f, f, f, p, p, p, p],
+            "lgbt_slot_hist": [p, i, i, i, i, i, i, i, i, i, i, i, p, p, i,
+                               i, f, f, f, p, p, p, p],
             "lgbt_aligned_smem_optin": [i],
         }
         for name, args in sigs.items():
@@ -408,7 +417,7 @@ def hist_launch_shape(nc: int, num_features: int, num_bins: int,
 
 
 def _slot_hist_cuda(records, slots, meta, num_slots, num_features,
-                    num_bins, wcnt, bits, grad):
+                    num_bins, wcnt, bits, grad, gh_off):
     dev = records.device
     nc, W, C = records.shape
     if not 1 <= num_bins <= 256:
@@ -427,7 +436,7 @@ def _slot_hist_cuda(records, slots, meta, num_slots, num_features,
     kind, sig, wp, wn = _grad_args(grad)
     with torch.cuda.device(dev):
         err = fns["lgbt_slot_hist"](
-            records.data_ptr(), nc, W, C, wcnt, bits, num_features,
+            records.data_ptr(), nc, W, C, wcnt, gh_off, bits, num_features,
             num_bins, fpb, blocks, _THREADS, slots.data_ptr(),
             meta.data_ptr(), num_slots, kind, sig, wp, wn, gh.data_ptr(),
             cnt.data_ptr(), out.data_ptr(), _stream(dev))
@@ -436,18 +445,20 @@ def _slot_hist_cuda(records, slots, meta, num_slots, num_features,
 
 
 def slot_hist_pass(records, slots, meta, num_slots, num_features, num_bins,
-                   wcnt, bits, grad=None):
+                   wcnt, bits, grad=None, gh_off=2):
     """hist[num_slots, F, num_bins, 3] over the valid rows (``meta &
     META_CNT_MASK``) of every chunk whose ``slots`` entry is in
     [0, num_slots); chunks mapped to ``num_slots`` (the dummy) are
-    skipped. ``grad`` None reads the STANDARD grad/hess lanes; a
-    `PointGrad` recomputes them from a COMPACT record."""
+    skipped. ``grad`` None reads the grad/hess lanes at ``wcnt + gh_off``
+    (STANDARD: 2, EXT: 1); a `PointGrad` recomputes them from a COMPACT
+    record."""
     if not records.is_cuda:
         return slot_hist_pass_plain(records, slots, meta, num_slots,
-                                    num_features, num_bins, wcnt, bits, grad)
+                                    num_features, num_bins, wcnt, bits, grad,
+                                    gh_off)
     _check_cuda(records, slots, meta)
     out = _slot_hist_cuda(records, slots, meta, num_slots, num_features,
-                          num_bins, wcnt, bits, grad)
+                          num_bins, wcnt, bits, grad, gh_off)
     LAUNCHES["slot_hist_pass"] += 1
     return out
 
@@ -475,7 +486,7 @@ def count_pass(records, r1, r2, meta, wsel, kslots, num_slots, bits):
 
 def move_pass(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
               num_features, num_bins, wcnt, bits, w_used, grad=None,
-              out: Optional[torch.Tensor] = None):
+              out: Optional[torch.Tensor] = None, gh_off: int = 2):
     """Stable two-way partition of every block in one pass, plus the
     smaller children's histograms.
 
@@ -485,7 +496,8 @@ def move_pass(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
     from baser[i], after the rows of the block's earlier chunks, in row
     order; a copy chunk moves whole to basel[i]. hslots[i] = slot | side
     << 24 names the compact slot of the block's smaller child (side 0:
-    the left rows), ``num_slots`` skips.
+    the left rows), ``num_slots`` skips. ``grad`` and ``gh_off`` as for
+    `slot_hist_pass`.
 
     Returns (records_out, hist[num_slots, F, num_bins, 3]). Rows outside
     the new layout and lanes >= ``w_used`` of moved rows keep whatever
@@ -493,7 +505,7 @@ def move_pass(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
     if not records.is_cuda:
         return move_pass_plain(records, r1, r2, basel, baser, meta, wsel,
                                hslots, num_slots, num_features, num_bins,
-                               wcnt, bits, w_used, grad, out)
+                               wcnt, bits, w_used, grad, out, gh_off)
     _check_cuda(records, r1, r2, basel, baser, meta, wsel, hslots)
     nc, W, C = records.shape
     dev = records.device
@@ -517,6 +529,6 @@ def move_pass(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
             out.data_ptr(), _stream(dev))
     _raise_on(err, "move_pass")
     hist = _slot_hist_cuda(out, nslot, ncnt, num_slots, num_features,
-                           num_bins, wcnt, bits, grad)
+                           num_bins, wcnt, bits, grad, gh_off)
     LAUNCHES["move_pass"] += 1
     return out, hist

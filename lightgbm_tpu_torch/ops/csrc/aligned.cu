@@ -43,6 +43,9 @@
 // histogram reads the bin words and the two payload lanes of its rows.
 // The 3 adds per (row, feature) are far below the card's f32 rate.
 //
+// Records of the STANDARD and EXT layouts carry grad/hess lanes, at wcnt +
+// gh_off and the lane after (STANDARD: gh_off 2, after score and label;
+// EXT, for ranking: gh_off 1, after the score); the kernels read them.
 // Gradients of the COMPACT layout are computed in the histogram kernel
 // from the score lane and the label bits of the meta lane, with the
 // JAX package's f32 op order pinned by __fmul_rn/__fadd_rn/__fdiv_rn (so
@@ -52,6 +55,8 @@
 // cases; histograms are held to 1e-5 x sum |g| of the slot.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "xla_math.cuh"
 
 namespace {
 
@@ -76,33 +81,17 @@ __device__ __forceinline__ bool goes_left(int binv, int r1, int r2) {
   return is_def ? dl != 0 : binv <= thr;
 }
 
-// XLA's f32 exp (lightgbm_tpu_torch/utils/xla_math.py::exp_f32)
-__device__ __forceinline__ float exp_xla(float x) {
-  x = fminf(fmaxf(x, -87.8f), 88.8f);
-  float n = floorf(__fmaf_rn(x, 1.44269504088896341f, 0.5f));
-  n = fminf(fmaxf(n, -127.0f), 127.0f);
-  float a = __fmaf_rn(n, -0.693359375f, x);
-  a = __fmaf_rn(n, 2.12194440e-4f, a);
-  float z = __fmaf_rn(a, 1.9875691500e-4f, 1.3981999507e-3f);
-  z = __fmaf_rn(z, a, 8.3334519073e-3f);
-  z = __fmaf_rn(z, a, 4.1665795894e-2f);
-  z = __fmaf_rn(z, a, 1.6666665459e-1f);
-  z = __fmaf_rn(z, a, 5.0000001201e-1f);
-  z = __fadd_rn(1.0f, __fmaf_rn(z, __fmul_rn(a, a), a));
-  const float two_n = __int_as_float((static_cast<int>(n) + 127) << 23);
-  const float y = __fmul_rn(z, two_n);
-  return y < 1.17549435e-38f ? 0.0f : y;
-}
-
-// (g, h) of one row: from the grad/hess lanes (STANDARD) or recomputed
-// from the score lane and the meta label (COMPACT)
+// (g, h) of one row: from the grad/hess lanes at wcnt + gh_off (STANDARD:
+// 2, EXT: 1) or recomputed from the score lane and the meta label
+// (COMPACT)
 __device__ __forceinline__ void payload(const int32_t* chunk, int C, int r,
-                                        int wcnt, int kind, float sig,
-                                        float wp, float wn, float& g,
-                                        float& h) {
+                                        int wcnt, int gh_off, int kind,
+                                        float sig, float wp, float wn,
+                                        float& g, float& h) {
   if (kind == kGradLanes) {
-    g = __int_as_float(chunk[static_cast<long long>(wcnt + 2) * C + r]);
-    h = __int_as_float(chunk[static_cast<long long>(wcnt + 3) * C + r]);
+    g = __int_as_float(chunk[static_cast<long long>(wcnt + gh_off) * C + r]);
+    h = __int_as_float(
+        chunk[static_cast<long long>(wcnt + gh_off + 1) * C + r]);
     return;
   }
   const float score = __int_as_float(chunk[static_cast<long long>(wcnt) * C
@@ -312,7 +301,7 @@ __global__ void scatter_kernel(const int32_t* __restrict__ rec, int W, int C,
 // walks a fixed range of chunks for one feature tile and flushes its
 // shared sub-histogram whenever the slot changes.
 __global__ void slot_hist_kernel(const int32_t* __restrict__ rec, int W,
-                                 int C, int wcnt, int bits,
+                                 int C, int wcnt, int gh_off, int bits,
                                  int num_features, int num_bins,
                                  int feat_per_block, int chunks_per_block,
                                  int nc, const int32_t* __restrict__ slots,
@@ -368,7 +357,7 @@ __global__ void slot_hist_kernel(const int32_t* __restrict__ rec, int W,
     const int32_t* chunk = rec + static_cast<long long>(c) * W * C;
     for (int r = threadIdx.x; r < cnt; r += blockDim.x) {
       float g, h;
-      payload(chunk, C, r, wcnt, kind, sig, wp, wn, g, h);
+      payload(chunk, C, r, wcnt, gh_off, kind, sig, wp, wn, g, h);
       int wi = -1, word = 0;
       for (int f = 0; f < nf; ++f) {
         const int ff = f0 + f, w = ff / bpw;
@@ -465,9 +454,11 @@ int lgbt_move_partition(const void* rec, int nc, int W, int C, int w_used,
 
 // B4 (and B2's smaller-child histograms): out [num_slots, F, B, 3] f32;
 // gh ([num_slots, F, B, 2] f64) and cnt ([num_slots, F, B] u32) are
-// accumulators zeroed by the caller. kind 0 reads the grad/hess lanes; 1
-// (binary logloss) and 2 (l2) recompute them from the score and meta lanes.
-int lgbt_slot_hist(const void* rec, int nc, int W, int C, int wcnt, int bits,
+// accumulators zeroed by the caller. kind 0 reads the grad/hess lanes at
+// wcnt + gh_off; 1 (binary logloss) and 2 (l2) recompute them from the
+// score and meta lanes.
+int lgbt_slot_hist(const void* rec, int nc, int W, int C, int wcnt,
+                   int gh_off, int bits,
                    int num_features, int num_bins, int feat_per_block,
                    int blocks_x, int threads, const void* slots,
                    const void* meta, int num_slots, int kind, float sig,
@@ -484,8 +475,9 @@ int lgbt_slot_hist(const void* rec, int nc, int W, int C, int wcnt, int bits,
   const int grid_y = (num_features + feat_per_block - 1) / feat_per_block;
   const int cpb = (nc + blocks_x - 1) / blocks_x;
   slot_hist_kernel<<<dim3(blocks_x, grid_y), threads, smem, s>>>(
-      static_cast<const int32_t*>(rec), W, C, wcnt, bits, num_features,
-      num_bins, feat_per_block, cpb, nc, static_cast<const int32_t*>(slots),
+      static_cast<const int32_t*>(rec), W, C, wcnt, gh_off, bits,
+      num_features, num_bins, feat_per_block, cpb, nc,
+      static_cast<const int32_t*>(slots),
       static_cast<const int32_t*>(meta), num_slots, kind, sig, wp, wn,
       static_cast<double*>(gh), static_cast<unsigned*>(cnt));
   const int err = check();

@@ -1,5 +1,5 @@
 """Evaluation metrics (copied from lightgbm_tpu/ops/metrics.py: l2, rmse,
-binary logloss, binary error and AUC).
+binary logloss, binary error, AUC and NDCG).
 
 Re-creates the reference metric interface (`src/metric/*.hpp`, factory
 `src/metric/metric.cpp:16-60`): `eval(raw_scores, objective)` applying
@@ -15,6 +15,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..config import Config
+from .ranking import dcg_at_k, max_dcg_at_k
 
 K_EPSILON = 1e-15
 
@@ -128,14 +129,61 @@ class AUCMetric(Metric):
         return [(self.name, acc / (total_pos * total_neg))]
 
 
+class _RankMetric(Metric):
+    bigger_is_better = True
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        if metadata.query_boundaries is None:
+            raise ValueError(f"{self.name} metric requires query information")
+        self.qb = np.asarray(metadata.query_boundaries, np.int64)
+        self.num_queries = len(self.qb) - 1
+
+
+class NDCGMetric(_RankMetric):
+    """NDCG@k per query, averaged over queries; a query whose max DCG is
+    0 counts 1 (reference rank_metric.hpp)."""
+    name = "ndcg"
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        self.label_gain = np.asarray(self.cfg.label_gain, np.float64)
+        self.eval_at = list(self.cfg.eval_at)
+        li = self.label.astype(np.int64)
+        self.max_dcgs = {
+            k: np.asarray([
+                max_dcg_at_k(k, li[self.qb[q]:self.qb[q + 1]],
+                             self.label_gain)
+                for q in range(self.num_queries)])
+            for k in self.eval_at
+        }
+
+    def eval(self, scores, objective):
+        score = scores[0].astype(np.float64)
+        li = self.label.astype(np.int64)
+        out = []
+        for k in self.eval_at:
+            accum = 0.0
+            for q in range(self.num_queries):
+                lo, hi = self.qb[q], self.qb[q + 1]
+                m = self.max_dcgs[k][q]
+                if m <= 0:
+                    accum += 1.0
+                else:
+                    accum += dcg_at_k(k, li[lo:hi], score[lo:hi],
+                                      self.label_gain) / m
+            out.append((f"{self.name}@{k}", accum / self.num_queries))
+        return out
+
+
 _METRICS = {
     "l2": L2Metric, "rmse": RMSEMetric,
     "binary_logloss": BinaryLoglossMetric, "binary_error": BinaryErrorMetric,
-    "auc": AUCMetric,
+    "auc": AUCMetric, "ndcg": NDCGMetric,
 }
 
 _DEFAULT_METRIC_FOR_OBJECTIVE = {
-    "regression": "l2", "binary": "binary_logloss",
+    "regression": "l2", "binary": "binary_logloss", "lambdarank": "ndcg",
 }
 
 

@@ -1,5 +1,5 @@
 """Objective functions (port of lightgbm_tpu/ops/objectives.py: the base
-class, `RegressionL2` and `BinaryLogloss`).
+class, `RegressionL2`, `BinaryLogloss` and `LambdarankNDCG`).
 
 Gradients are f32 torch tensors on the device of the scores, computed
 with the JAX package's f32 op order. Its ``exp`` is XLA's, which is not
@@ -19,7 +19,10 @@ import torch
 
 from ..config import Config
 from ..io.dataset import Metadata
+from ..utils import log
 from ..utils.xla_math import exp_f32
+from .rank import lambdarank_grad, query_blocks
+from .ranking import discount_table, max_dcg_at_k
 
 
 class PointGrad(NamedTuple):
@@ -204,7 +207,61 @@ class BinaryLogloss(ObjectiveFunction):
         return 1.0 / (1.0 + np.exp(-self.cfg.sigmoid * raw))
 
 
-_OBJECTIVES = {"regression": RegressionL2, "binary": BinaryLogloss}
+class LambdarankNDCG(ObjectiveFunction):
+    """reference rank_objective.hpp (LambdarankNDCG): the gradients of
+    every query's pairs come from kernel B6 (`ops/rank.py`), in row order;
+    row weights fold in after."""
+    name = "lambdarank"
+
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        super().init(metadata, num_data, device)
+        if metadata.query_boundaries is None:
+            raise ValueError("Lambdarank tasks require query information")
+        qb = np.asarray(metadata.query_boundaries, np.int64)
+        self.query_boundaries = qb
+        nq = len(qb) - 1
+        label_gain = np.asarray(self.cfg.label_gain, np.float64)
+        labels = self._label_np.astype(np.int64)
+        if num_data and int(labels.max()) >= len(label_gain):
+            raise ValueError("label_gain too short for labels")
+        # inverse max DCG at max_position (rank_objective.hpp:60-69)
+        inv = np.zeros(nq, np.float64)
+        for q in range(nq):
+            m = max_dcg_at_k(self.cfg.max_position,
+                             labels[qb[q]:qb[q + 1]], label_gain)
+            inv[q] = 1.0 / m if m > 0 else 0.0
+        longest = int(np.diff(qb).max()) if nq else 1
+
+        def t(a, dtype):
+            return torch.as_tensor(np.ascontiguousarray(a, dtype),
+                                   device=device)
+
+        self._qoff = t(qb, np.int32)
+        self._label_i = t(labels, np.int32)
+        self._gain = t(label_gain[labels].astype(np.float32), np.float32)
+        self._inv = t(inv.astype(np.float32), np.float32)
+        self._disc = t(discount_table(max(longest, 1)), np.float32)
+        self._blocks = t(query_blocks(qb), np.int32)
+        if (str(self.cfg.tpu_rank_fused).lower() != "auto"
+                or int(self.cfg.tpu_rank_tile) != 512):
+            log.info("tpu_rank_fused and tpu_rank_tile have no effect in "
+                     "the port: its lambdarank kernel takes every query "
+                     "length")
+
+    def get_gradients(self, scores):
+        g, h = lambdarank_grad(scores[0], self._qoff, self._label_i,
+                               self._gain, self._inv, self._disc,
+                               float(self.cfg.sigmoid),
+                               int(self.cfg.tpu_rank_sigmoid_bins),
+                               self._blocks)
+        if self.weight is not None:
+            g = g * self.weight
+            h = h * self.weight
+        return g[None, :], h[None, :]
+
+
+_OBJECTIVES = {"regression": RegressionL2, "binary": BinaryLogloss,
+               "lambdarank": LambdarankNDCG}
 
 
 def create_objective(cfg: Config) -> Optional[ObjectiveFunction]:

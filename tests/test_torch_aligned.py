@@ -149,7 +149,9 @@ def test_inexact_replay_falls_back_to_leafwise(runs):
 
 def test_gate_names_what_the_slice_leaves_out(runs):
     """Under auto a params set the engine leaves out trains leaf-wise and
-    the log names the gate; under tpu_grow_mode=aligned it raises."""
+    the log names the gate; under tpu_grow_mode=aligned it raises. A
+    non-pointwise objective (lambdarank) passes from 1M rows under auto,
+    at any size when forced."""
     X, y, _ = runs["data"]
     lines = []
     log.register_callback(lines.append)
@@ -174,5 +176,15 @@ def test_gate_names_what_the_slice_leaves_out(runs):
         obj.init(ds.metadata, ds.num_data)
         learner = DeviceTreeLearner(cfg, ds, ds.bins.device)
         assert learner.aligned_mode_gate(obj).startswith(why)
+    ds.metadata.set_group([ds.num_data // 2, ds.num_data - ds.num_data // 2])
+    for mode, why in (("auto", "non-pointwise objective below the row "
+                               f"floor ({ds.num_data} < 1000000 rows)"),
+                      ("aligned", None)):
+        cfg = Config.from_params({**_params(mode), "objective": "lambdarank",
+                                  "tpu_aligned_interpret": True})
+        obj = create_objective(cfg)
+        obj.init(ds.metadata, ds.num_data)
+        learner = DeviceTreeLearner(cfg, ds, ds.bins.device)
+        assert learner.aligned_mode_gate(obj) == why
     with pytest.raises(NotImplementedError, match="aligned engine cannot"):
         _port(X, y, "aligned", tpu_aligned_interpret=False)

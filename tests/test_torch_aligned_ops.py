@@ -206,3 +206,106 @@ def test_wrappers_take_the_twins_on_cpu(rounds):
     for bins, tiles in ((63, 1), (255, 2)):
         fpb, blocks = TA.hist_launch_shape(11_404, 28, bins, 132, 232448)
         assert -(-28 // fpb) == tiles and blocks * tiles == 264
+
+
+@pytest.mark.parametrize("max_bin,bits", [(15, 4), (63, 6), (255, 8)])
+def test_pack_records_ext_bit_equal(max_bin, bits):
+    """EXT records (ranking): bin words, then score, grad, hess and rid
+    lanes, bit for bit the JAX package's."""
+    rng = np.random.RandomState(max_bin + 1)
+    bins = rng.randint(0, max_bin, (N, F)).astype(np.uint8)
+    label = rng.randint(0, 5, N).astype(np.float32)
+    ref = JA.pack_records(bins, label, None, CHUNK, max_bin=max_bin,
+                          ext=True, rid_base=7)
+    got = TA.pack_records(torch.tensor(bins), label, None, CHUNK,
+                          max_bin=max_bin, rid_base=7, ext=True)
+    np.testing.assert_array_equal(got[0].numpy(), ref[0])
+    assert got[1:3] == ref[1:3] and got[4] == bits
+    np.testing.assert_array_equal(got[3], ref[3])
+    wcnt = got[1]
+    assert TA.lane_layout(wcnt, ext=True) == JA.lane_layout(wcnt, ext=True)
+    assert TA.lane_layout(wcnt, ext=True)[0] == {
+        "score": wcnt, "grad": wcnt + 1, "hess": wcnt + 2, "rid": wcnt + 3}
+
+
+@pytest.fixture(scope="module")
+def ext_rounds():
+    """The kernel calls of two lambdarank trees of the port's aligned
+    engine on EXT records (on the CPU, through the twins)."""
+    rng = np.random.default_rng(2)
+    counts = rng.integers(10, 80, 60)
+    n = int(counts.sum())
+    X = rng.standard_normal((n, F)).astype(np.float32)
+    y = np.minimum((X[:, 0] + rng.standard_normal(n) > 0.5) * 2
+                   + (X[:, 1] > 1.0), 4).astype(np.float32)
+    calls = []
+
+    def recorder(name, fn):
+        def wrapped(*args, **kw):
+            calls.append((name, args, kw))
+            return fn(*args, **kw)
+        return wrapped
+
+    params = {"objective": "lambdarank", "num_leaves": 8, "max_bin": 63,
+              "min_data_in_leaf": 10, "verbosity": -1, "metric": "none",
+              "tpu_grow_mode": "aligned", "tpu_aligned_interpret": True,
+              "tpu_chunk": CHUNK, "device_type": "cpu"}
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("move_pass", "slot_hist_pass"):
+            mp.setattr(AB, name, recorder(name, getattr(AB, name)))
+        bst = tlgb.train(params, tlgb.Dataset(X, label=y, group=counts),
+                         num_boost_round=2, verbose_eval=False)
+    eng = bst._gbdt._aligned_eng
+    assert eng.ext and eng.gh_off == 1
+    assert all(kw["gh_off"] == 1 for _, _, kw in calls)
+    return eng, calls
+
+
+def test_ext_move_pass_plain_equals_pallas(ext_rounds):
+    """The move pass on EXT records (gh_off=1) with integer grad/hess
+    lanes: records equal on the rows the new layout covers, histograms
+    bit-equal."""
+    eng, calls = ext_rounds
+    moves = [c for c in calls if c[0] == "move_pass"]
+    assert len(moves) >= 3
+    for i, (_, args, kw) in enumerate((moves[0], moves[2])):
+        (rec, r1, r2, bl, br, meta, wsel, hs, k, F_, B, wcnt, bits,
+         w_used, grad) = args
+        rec = _integer_gh(rec, eng, seed=10 + i)
+        args = (rec,) + args[1:]
+        got_rec, got_hist = TA.move_pass_plain(*args, gh_off=1)
+        ref_rec, ref_hist = JA.move_pass(
+            jnp.asarray(rec.numpy()),
+            *(jnp.asarray(_np(a)) for a in (r1, r2, bl, br, meta, wsel, hs)),
+            jnp.zeros((k + 1) * 8, jnp.int32), CHUNK, rec.shape[1], wcnt, k,
+            F_, B, _group(B), bits=bits, grad_fn=None, w_used=w_used,
+            gh_off=1, interpret=True, subbin=B > 128)
+        outs = [TA.move_pass_plain(*args, out=torch.full_like(rec, fill),
+                                   gh_off=1)[0][:, 0] for fill in (-1, -2)]
+        cov = (outs[0] == outs[1]).numpy()
+        got_np, ref_np = got_rec.numpy(), np.asarray(ref_rec)
+        for u in range(w_used):
+            np.testing.assert_array_equal(got_np[:, u][cov], ref_np[:, u][cov])
+        np.testing.assert_array_equal(got_hist.numpy(), np.asarray(ref_hist))
+
+
+@pytest.mark.parametrize("max_bin", [63, 255])
+def test_ext_slot_hist_pass_plain_equals_pallas(ext_rounds, max_bin):
+    """The root pass of the first EXT tree (gh_off=1), with integer
+    grad/hess lanes, and declared 255 bins wide: bit-equal."""
+    eng, calls = ext_rounds
+    _, args, _ = next(c for c in calls if c[0] == "slot_hist_pass")
+    rec, slots, meta, k, F_, B, wcnt, bits, grad = args
+    rec = _integer_gh(rec, eng, seed=5)
+    B = max_bin if max_bin == 255 else B
+    got = TA.slot_hist_pass_plain(rec, slots, meta, k, F_, B, wcnt, bits,
+                                  grad, gh_off=1).numpy()
+    ref = np.asarray(JA.slot_hist_pass(
+        jnp.asarray(rec.numpy()), jnp.asarray(slots.numpy()),
+        jnp.asarray(meta.numpy()), k, F_, B, CHUNK, _group(B), wcnt,
+        bits=bits, grad_fn=None, gh_off=1, interpret=True, subbin=B > 128))
+    np.testing.assert_array_equal(got, ref)
+    # the payload really came from the EXT lanes: wcnt + 1 and + 2
+    g = rec[:, wcnt + 1].view(torch.float32)
+    valid = TA._valid_rows(meta, rec.shape[2])
+    assert got[0, 0, :, 0].sum() == float(g[valid].sum())

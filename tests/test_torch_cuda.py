@@ -1,6 +1,7 @@
-"""Tests of the port that need the card: the CUDA histogram kernel and the
-aligned engine's kernels against their plain twins, f64 training on the
-card against the CPU, and the aligned engine on the card. They import
+"""Tests of the port that need the card: the CUDA histogram kernel, the
+aligned engine's kernels and the lambdarank kernel against their plain
+twins, f64 training on the card against the CPU, and the aligned engine
+on the card (binary, and lambdarank on EXT records). They import
 neither JAX nor the JAX package, so they run where only PyTorch is
 installed:
 
@@ -15,6 +16,8 @@ import lightgbm_tpu_torch as tlgb
 from lightgbm_tpu_torch.models import aligned_builder as AB
 from lightgbm_tpu_torch.ops import aligned as A
 from lightgbm_tpu_torch.ops import histogram as H
+from lightgbm_tpu_torch.ops import rank as R
+from lightgbm_tpu_torch.ops.ranking import discount_table
 
 
 @pytest.fixture
@@ -151,3 +154,64 @@ def test_aligned_kernels_match_twins_on_gpu(cuda, monkeypatch, max_bin,
                 assert torch.equal(out[:, u][cov], ref_a[:, u][cov])
             _assert_hist_close(hist, ref_hist, _slot_abs_sums(
                 rec, hs & 0xFFFFFF, meta, k, wcnt, grad))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lut_bins", [0, 1024])
+def test_rank_kernel_matches_plain_on_gpu(cuda, lut_bins):
+    """B6 against its twin over queries of 1 to 5,000 documents (several
+    blocks of one CTA each): g and h within 1e-5 x max|g| (max|h|), f32
+    summation order being the only difference."""
+    rng = np.random.default_rng(8)
+    counts = np.concatenate([[1, 2, 63, 64, 65, 129, 600, 2000, 5000],
+                             rng.integers(80, 160, 300)])
+    qb = np.concatenate([[0], np.cumsum(counts)])
+    n = int(qb[-1])
+    lab = rng.integers(0, 5, n)
+    gains = np.asarray([float((1 << i) - 1) for i in range(31)], np.float32)
+
+    def t(a, dtype):
+        return torch.as_tensor(np.asarray(a, dtype), device=cuda)
+
+    args = (t(rng.normal(size=n), np.float32), t(qb, np.int32),
+            t(lab, np.int32), t(gains[lab], np.float32),
+            t(rng.uniform(0.01, 0.2, len(counts)), np.float32),
+            t(discount_table(int(counts.max())), np.float32), 1.0, lut_bins)
+    R.reset_launches()
+    g, h = R.lambdarank_grad(*args)
+    gp, hp = R.lambdarank_grad_plain(*args)
+    assert R.LAUNCHES["lambdarank_grad"] == 1
+    assert float((g - gp).abs().max()) <= 1e-5 * float(gp.abs().max())
+    assert float((h - hp).abs().max()) <= 1e-5 * float(hp.abs().max())
+
+
+@pytest.mark.cuda
+def test_lambdarank_aligned_on_gpu(cuda):
+    """lambdarank forced onto the aligned engine (EXT records) on the card:
+    B6 once per iteration, B2/B4 launched, and the NDCG of the leaf-wise
+    run on the card within 5e-3."""
+    rng = np.random.default_rng(3)
+    counts = rng.integers(20, 120, 500)
+    n = int(counts.sum())
+    X = rng.standard_normal((n, 20))
+    y = np.clip(np.round(X[:, 0] + 0.5 * X[:, 1] + rng.standard_normal(n)),
+                0, 4)
+    params = {"objective": "lambdarank", "num_leaves": 31, "max_bin": 63,
+              "verbosity": -1, "metric": "ndcg", "eval_at": [10]}
+    ndcg = {}
+    for mode in ("aligned", "leafwise"):
+        R.reset_launches()
+        A.reset_launches()
+        ds = tlgb.Dataset(X, label=y, group=counts)
+        ev = {}
+        bst = tlgb.train({**params, "tpu_grow_mode": mode}, ds,
+                         num_boost_round=3, valid_sets=[ds],
+                         evals_result=ev, verbose_eval=False)
+        assert bst._gbdt.train_path == mode
+        assert R.LAUNCHES["lambdarank_grad"] >= 3
+        if mode == "aligned":
+            assert bst._gbdt._aligned_eng.ext
+            assert A.LAUNCHES["move_pass"] > 0
+            assert A.LAUNCHES["slot_hist_pass"] > 0
+        ndcg[mode] = ev["training"]["ndcg@10"][-1]
+    assert abs(ndcg["aligned"] - ndcg["leafwise"]) <= 5e-3

@@ -21,7 +21,8 @@ def _sources():
 
 def test_import_leaves_jax_out():
     code = ("import sys, lightgbm_tpu_torch, lightgbm_tpu_torch.convert, "
-            "lightgbm_tpu_torch.ops.aligned, "
+            "lightgbm_tpu_torch.ops.aligned, lightgbm_tpu_torch.ops.rank, "
+            "lightgbm_tpu_torch.ops.ranking, "
             "lightgbm_tpu_torch.models.level_builder, "
             "lightgbm_tpu_torch.models.aligned_builder; "
             "bad = [m for m in sys.modules if m == 'jax' or "
