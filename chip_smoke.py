@@ -10,7 +10,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 2. build: nvcc compiles every CUDA source of the port for sm_90a, one
    process per source, all started together (kernel B1,
    ``lightgbm_tpu_torch/ops/csrc/histogram.cu``; kernels B2-B4,
-   ``lightgbm_tpu_torch/ops/csrc/aligned.cu``);
+   ``lightgbm_tpu_torch/ops/csrc/aligned.cu``; B5,
+   ``histogram_words.cu``; B6, ``rank.cu``);
 3. kernel vs plain: the histogram kernel against its plain PyTorch twin
    on the card at the main path's shapes (10.5M x 28), at 63 and 255
    bins, over the contiguous root and over a large (half the rows) and a
@@ -44,8 +45,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    bound and, for B4, one ``index_add_``;
 7. big-n path: an aligned run with ``tpu_force_big_n`` (STANDARD records,
    the exact i32 count pass, kernel B3) at max_bin 63, 3 rounds;
-8. f64 determinism: a small f64-histogram leaf-wise run on the card and
-   on the CPU must write the same trees;
+8. f64 determinism: small f64-histogram leaf-wise and level
+   (``tpu_grow_mode=level``) runs on the card and on the CPU must write
+   the same trees;
 9. lambdarank kernel vs plain: kernel B6
    (``lightgbm_tpu_torch/ops/csrc/rank.cu``) against its twin on the
    MSLR-shape queries (the recipe of ``bench.py::synth_mslr``, 2.27M rows
@@ -62,7 +64,23 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    rounds within 5e-3 of each other and both above an all-zero score's;
    one profiled round each;
 11. EXT kernels vs plain: phase 6 on the inputs of one aligned
-   lambdarank tree at the MSLR shape (255 bins, ``gh_off`` 1).
+   lambdarank tree at the MSLR shape (255 bins, ``gh_off`` 1);
+12. level kernel vs plain: kernel B5
+   (``lightgbm_tpu_torch/ops/csrc/histogram_words.cu``) on the inputs of
+   one level tree at the HIGGS shape, 63 and 255 bins: the root (one
+   segment of 10.5M rows) and the round with the most smaller children
+   (one segment each, one launch); bit-equal to its twin, timed beside
+   the twin, the byte bound and one ``index_add_``;
+13. level path: ``train`` with ``tpu_grow_mode=level`` on phase 4's data
+   and params (10 rounds at 63 bins, 5 at 255); the log must name the
+   level path, B5's launches are zeroed before and read after, a call of
+   B5's plain twin fails the run; rounds and executed splits per tree,
+   fallbacks, each level build timed on its own; holdout AUC above 0.6
+   and within 2e-3 of the leaf-wise run's; the card's predictions
+   against a CPU predict; one profiled round at 63 bins. Then the same at
+   63 bins with ``max_depth`` 8, where the speculation covers every tree:
+   no tree may fall back, and the AUC must be within 2e-3 of the aligned
+   engine's on the same params; one profiled round.
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -87,8 +105,9 @@ F64_OPS_PER_S = 34e12          # H100 SXM data sheet, f64 outside the tensor cor
 KERNEL_SOURCE = "lightgbm_tpu_torch/ops/csrc/histogram.cu"
 ALIGNED_SOURCE = "lightgbm_tpu_torch/ops/csrc/aligned.cu"
 RANK_SOURCE = "lightgbm_tpu_torch/ops/csrc/rank.cu"
+WORDS_SOURCE = "lightgbm_tpu_torch/ops/csrc/histogram_words.cu"
 SOURCES = {"histogram": KERNEL_SOURCE, "aligned": ALIGNED_SOURCE,
-           "rank": RANK_SOURCE}
+           "rank": RANK_SOURCE, "histogram_words": WORDS_SOURCE}
 ROUNDS = {63: 10, 255: 5}
 MSLR_ROWS, MSLR_FEATURES = 2_270_000, 137     # bench.py stage 3
 MSLR_ROUNDS, MSLR_LEAF_ROUNDS = 6, 3
@@ -319,7 +338,8 @@ def train_run(torch, lt, ds, params, rounds, Xte, yte, what) -> tuple:
     t_start = time.perf_counter()
     bst = lt.train(params, ds, num_boost_round=rounds, callbacks=[stamp],
                    verbose_eval=False)
-    launches = {"B1": H.LAUNCHES["f32"], **A.LAUNCHES}
+    launches = {"B1": H.LAUNCHES["f32"], **A.LAUNCHES,
+                "B5": H.WORDS_LAUNCHES["histogram_words"]}
     trees = bst.num_trees()
     iters = np.diff([t_start] + stamps)
     peak = torch.cuda.max_memory_allocated()
@@ -692,30 +712,238 @@ def profile_round(torch, bst) -> dict:
 
 
 def phase_f64(torch, lt) -> int:
-    """A small f64-histogram run on the card and on the CPU: same trees."""
+    """Small f64-histogram runs on the card and on the CPU, leaf-wise and
+    on the level builder: same trees."""
     from lightgbm_tpu_torch.ops import histogram as H
     X, y = synth_higgs(20000, 28, seed=11)
     params = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
-              "tpu_use_f64_hist": True, "tpu_grow_mode": "leafwise",
-              "verbosity": -1}
-    texts = {}
-    launches = 0
-    for dev in ("cuda", "cpu"):
-        H.reset_launches()
-        bst = lt.train({**params, "device_type": dev},
-                       lt.Dataset(X, label=y), num_boost_round=3,
-                       verbose_eval=False)
-        if dev == "cuda":
-            launches = H.LAUNCHES["f64"]
-        t = bst.model_to_string()
-        texts[dev] = t[t.index("Tree=0"):t.index("end of trees")]
-    if texts["cuda"] != texts["cpu"]:
-        raise AssertionError("f64 trees differ between cuda and cpu")
-    if launches == 0:
-        raise AssertionError("the f64 run never launched the kernel")
-    log(f"f64: cuda and cpu trees equal (3 trees, 31 leaves, "
-        f"{launches} f64 launches)")
-    return launches
+              "tpu_use_f64_hist": True, "verbosity": -1}
+    launches = {}
+    for mode in ("leafwise", "level"):
+        texts = {}
+        for dev in ("cuda", "cpu"):
+            H.reset_launches()
+            bst = lt.train({**params, "tpu_grow_mode": mode,
+                            "device_type": dev},
+                           lt.Dataset(X, label=y), num_boost_round=3,
+                           verbose_eval=False)
+            if bst._gbdt.train_path != mode:
+                raise AssertionError(f"f64 {mode} run took "
+                                     f"{bst._gbdt.train_path}")
+            if dev == "cuda":
+                launches[mode] = H.LAUNCHES["f64"] if mode == "leafwise" \
+                    else H.WORDS_LAUNCHES["histogram_words"]
+            t = bst.model_to_string()
+            texts[dev] = t[t.index("Tree=0"):t.index("end of trees")]
+        if texts["cuda"] != texts["cpu"]:
+            raise AssertionError(f"f64 {mode} trees differ between cuda "
+                                 "and cpu")
+        if launches[mode] == 0:
+            raise AssertionError(f"the f64 {mode} run never launched its "
+                                 "kernel")
+    log(f"f64: cuda and cpu trees equal, leaf-wise and level (3 trees, 31 "
+        f"leaves; B1 f64 launches {launches['leafwise']}, B5 launches "
+        f"{launches['level']})")
+    return launches["leafwise"]
+
+
+# ---------------------------------------------------------------------------
+# the level builder: kernel B5 and the level path
+# ---------------------------------------------------------------------------
+def level_run(torch, lt, ds, params, rounds, Xte, yte, what) -> tuple:
+    """`train_run` under ``tpu_grow_mode=level``: the log must name the
+    level path, B5's plain twin is counted (a call fails the run), and
+    each level build is timed on its own (synchronized wall ms)."""
+    from lightgbm_tpu_torch.models.device_learner import DeviceTreeLearner
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.utils import log as port_log
+    lines, plain, build_ms = [], [0], []
+    real_plain = H.histogram_words_plain
+    real_build = DeviceTreeLearner._level_train_fresh
+
+    def counting(*args, **kw):
+        plain[0] += 1
+        return real_plain(*args, **kw)
+
+    def timed(self, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_build(self, *args, **kw)
+        torch.cuda.synchronize()
+        build_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    H.histogram_words_plain = counting
+    DeviceTreeLearner._level_train_fresh = timed
+    port_log.register_callback(lines.append)
+    try:
+        bst, r = train_run(torch, lt, ds, {**params, "verbosity": 1,
+                                           "tpu_grow_mode": "level"},
+                           rounds, Xte, yte, what)
+    finally:
+        port_log.register_callback(None)
+        H.histogram_words_plain = real_plain
+        DeviceTreeLearner._level_train_fresh = real_build
+    g = bst._gbdt
+    if plain[0]:
+        raise AssertionError(f"{what}: B5's plain twin ran {plain[0]} times "
+                             "on the card's path")
+    if g.train_path != "level" or not any("training path: level" in ln
+                                          for ln in lines):
+        raise AssertionError(f"{what}: took {g.train_path}; log "
+                             f"{lines[:3]}")
+    if r["launches"]["B5"] == 0:
+        raise AssertionError(f"{what}: B5 never launched")
+    r["rounds_per_tree"] = [s[0] for s in g.level_stats]
+    r["splits_executed_per_tree"] = [s[1] for s in g.level_stats]
+    r["fallbacks"] = g.learner.level_fallbacks
+    r["build_ms"] = build_ms
+    r["median_build_ms"] = statistics.median(build_ms[1:] or build_ms)
+    return bst, r
+
+
+def phase_level_main(torch, lt, ds, params, X, y, rows: int, max_bin: int,
+                     leaf: dict) -> dict:
+    """The level path on phase 4's data and params (255 leaves): AUC
+    within 2e-3 of the leaf-wise run; rounds, executed splits and
+    fallbacks per tree; one profiled round at 63 bins."""
+    rounds = ROUNDS[max_bin]
+    bst, r = level_run(torch, lt, ds, params, rounds, X[rows:], y[rows:],
+                       f"level {max_bin}")
+    if abs(r["auc"] - leaf["auc"]) > 2e-3:
+        raise AssertionError(f"level AUC {r['auc']} is not within 2e-3 of "
+                             f"the leaf-wise {leaf['auc']}")
+    r["auc_leafwise"] = leaf["auc"]
+    log_level(r, f"main level max_bin={max_bin}", "leaf-wise", leaf["auc"])
+    if max_bin == 63:
+        r["profile"] = profile_round(torch, bst)
+    del bst
+    torch.cuda.empty_cache()
+    return r
+
+
+def log_level(r, what, other, other_auc) -> None:
+    lp = r["launches_per_tree"]
+    log(f"{what}: first round {r['first_round_s']:.3f} s, median iteration "
+        f"{r['median_iter_ms']:.1f} ms, median level build "
+        f"{r['median_build_ms']:.1f} ms, rounds per tree "
+        f"{r['rounds_per_tree']}, executed splits per tree "
+        f"{r['splits_executed_per_tree']}, fallbacks {r['fallbacks']}, "
+        f"launches per tree B5 {lp['B5']:.1f} B1 {lp['B1']:.1f}, holdout "
+        f"AUC {r['auc']:.6f} ({other} {other_auc:.6f}), predict "
+        f"{r['predict_s']:.3f} s, peak device memory "
+        f"{r['peak_bytes'] / 2**30:.3f} GiB")
+
+
+def phase_level_depth(torch, lt, ds, params, X, y, rows: int) -> dict:
+    """The level path where its speculation covers the tree: max_depth 8
+    (255 leaves at most, within the 1,147-split budget), 63 bins, 5
+    rounds. Every tree must be exact (no fallback), and the AUC within
+    2e-3 of the aligned engine's on the same params (both grow the
+    leaf-wise trees); one profiled round."""
+    p = {**params, "max_depth": 8}
+    bst, a = train_run(torch, lt, ds, p, 5, X[rows:], y[rows:],
+                       "aligned max_depth 8")
+    if bst._gbdt.train_path != "aligned":
+        raise AssertionError(f"max_depth 8 under auto took "
+                             f"{bst._gbdt.train_path}")
+    del bst
+    bst, r = level_run(torch, lt, ds, p, 5, X[rows:], y[rows:],
+                       "level max_depth 8")
+    if r["fallbacks"] or r["launches"]["B1"]:
+        raise AssertionError(f"level max_depth 8 fell back "
+                             f"{r['fallbacks']} times")
+    if abs(r["auc"] - a["auc"]) > 2e-3:
+        raise AssertionError(f"level max_depth 8 AUC {r['auc']} is not "
+                             f"within 2e-3 of the aligned {a['auc']}")
+    r["aligned"] = {k: a[k] for k in ("auc", "median_iter_ms",
+                                      "first_round_s")}
+    log_level(r, "level max_depth=8 max_bin=63", "aligned", a["auc"])
+    log(f"aligned max_depth=8 max_bin=63: median iteration "
+        f"{a['median_iter_ms']:.1f} ms, holdout AUC {a['auc']:.6f}")
+    r["profile"] = profile_round(torch, bst)
+    del bst
+    torch.cuda.empty_cache()
+    return r
+
+
+def capture_words_calls(torch, lt, ds, params) -> dict:
+    """One level tree with B5's calls recorded (clones of their inputs):
+    the root's, and the round's with the most segments."""
+    from lightgbm_tpu_torch.models import level_builder as LB
+    real = LB.histogram_from_words
+    keep = {}
+
+    def record(*args, **kw):
+        nseg = args[3].numel()
+        if "root" not in keep:
+            keep["root"] = (tuple(a.clone() if torch.is_tensor(a) else a
+                                  for a in args), kw)
+        elif nseg > keep.get("wide_segments", 0):
+            keep.pop("wide", None)
+            keep["wide"] = (tuple(a.clone() if torch.is_tensor(a) else a
+                                  for a in args), kw)
+            keep["wide_segments"] = nseg
+        return real(*args, **kw)
+
+    LB.histogram_from_words = record
+    try:
+        lt.train({**params, "tpu_grow_mode": "level"}, ds,
+                 num_boost_round=1, verbose_eval=False)
+    finally:
+        LB.histogram_from_words = real
+    return keep
+
+
+def phase_level_parity(torch, lt, ds, params, max_bin: int) -> dict:
+    """B5 against its plain twin on the inputs of one level tree: the root
+    and the widest round, bit-equal; each timed beside the twin, the byte
+    bound and (the root) one ``index_add_`` over a prebuilt flat index."""
+    from lightgbm_tpu_torch.ops import histogram as H
+    calls = capture_words_calls(torch, lt, ds, params)
+    res = {}
+    for what in ("root", "wide"):
+        args, kw = calls[what]
+        words, g, h, beg, cnt, F, B = args
+        got = H.histogram_from_words(*args, **kw)
+        ref = H.histogram_words_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            d = (got - ref).abs().max().item()
+            raise AssertionError(f"histogram_words ({what}, {max_bin} bins) "
+                                 f"differs from its twin: max |d| {d}")
+        rows = int(cnt.sum())
+        nseg = beg.numel()
+        r = {"max_abs_err": 0.0, "rows": rows, "segments": nseg,
+             "ms": cuda_ms(torch, lambda: H.histogram_from_words(*args,
+                                                                 **kw)),
+             "plain_ms": cuda_ms(torch, lambda: H.histogram_words_plain(
+                 *args), reps=2), "library_ms": None}
+        r["bound_ms"], r["bound_by"] = bound(
+            rows * (words.shape[0] * 4 + 8) + nseg * 8
+            + nseg * F * B * 3 * 4, 3 * F * rows)
+        if what == "root":
+            f = torch.arange(F, device=words.device)
+            cell = (((words[f >> 2] >> ((f & 3) * 8)[:, None]) & 255).long()
+                    + (f * B)[:, None]).t().reshape(-1)
+            pay = torch.stack([g, h, torch.ones_like(g)], dim=1)
+            pay = pay[:, None, :].expand(-1, F, -1).reshape(-1, 3)
+            out = torch.zeros((F * B, 3), dtype=torch.float32,
+                              device=words.device)
+            r["library_ms"] = cuda_ms(
+                torch, lambda: out.index_add_(0, cell, pay), reps=2)
+            del cell, pay, out
+        lib = "none" if r["library_ms"] is None \
+            else f"{r['library_ms']:.4f} ms"
+        log(f"kernel histogram_words ({what}, {max_bin} bins, {rows} rows in "
+            f"{nseg} segments): kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {lib}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), bit-equal")
+        res[what] = r
+        del got, ref
+    del calls
+    torch.cuda.empty_cache()
+    return res
 
 
 
@@ -1038,7 +1266,7 @@ def main() -> int:
     X, y = synth_higgs(args.rows + args.holdout, 28)
     log(f"data: {args.rows}+{args.holdout} x 28 synthetic rows in "
         f"{time.perf_counter() - t0:.3f} s")
-    main_r, aligned_r, apar = {}, {}, {}
+    main_r, aligned_r, apar, level_r, lpar = {}, {}, {}, {}, {}
     for max_bin in (63, 255):
         ds, params, main_r[max_bin] = phase_main(torch, lt, X, y, args.rows,
                                                  max_bin)
@@ -1049,6 +1277,12 @@ def main() -> int:
         for layout in ("compact", "standard"):
             apar[(max_bin, layout)] = phase_aligned_parity(
                 torch, lt, ds, params, max_bin, layout)
+        level_r[max_bin] = phase_level_main(
+            torch, lt, ds, params, X, y, args.rows, max_bin, main_r[max_bin])
+        if max_bin == 63:
+            level_r["depth8"] = phase_level_depth(torch, lt, ds, params, X,
+                                                  y, args.rows)
+        lpar[max_bin] = phase_level_parity(torch, lt, ds, params, max_bin)
         del ds
         torch.cuda.empty_cache()
     f64_launches = phase_f64(torch, lt)
@@ -1115,6 +1349,19 @@ def main() -> int:
     kernels.append(aentry("slot_hist_pass_ext_255bin", "slot_hist_pass",
                           1141, 255, "ext", launches["slot_hist_pass"],
                           "root pass", dims))
+    for bins, line in ((63, 293), (255, 276)):
+        p = lpar[bins]["root"]
+        kernels.append({
+            "name": f"histogram_words_{bins}bin", "route": "cuda",
+            "source": WORDS_SOURCE,
+            "replaces": f"lightgbm_tpu/ops/pallas_hist.py:{line}",
+            "launches": level_r[bins]["launches"]["B5"],
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in lpar[bins].values()),
+            "ms": p["ms"], "plain_ms": p["plain_ms"],
+            "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
+            "library_ms": p["library_ms"],
+            "shape": f"root {p['rows']}x28, {bins} bins"})
     rp = rpar["mslr"]
     kernels.append({
         "name": "lambdarank_grad", "route": "cuda", "source": RANK_SOURCE,
@@ -1133,6 +1380,8 @@ def main() -> int:
                     "big_n": big_n,
                     "aligned_kernels": {f"{b} {lay}": v for (b, lay), v
                                         in apar.items()},
+                    "level": {str(k): v for k, v in level_r.items()},
+                    "level_kernel": {str(k): v for k, v in lpar.items()},
                     "mslr": mslr, "rank_kernel": rpar,
                     "power": info["smi"]}))
     log(json.dumps({"kernels": kernels}))

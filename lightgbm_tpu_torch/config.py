@@ -355,9 +355,12 @@ class Config:
     # (models/aligned_builder.py) when every gate of
     # DeviceTreeLearner.aligned_mode_gate passes, else leaf-wise;
     # "aligned" forces it and raises on a failing gate; "leafwise" forces
-    # the leaf-wise builder. The level builder is not ported yet
+    # the leaf-wise builder; "level" takes the speculative level builder
+    # (models/level_builder.py, kernel B5), with an inexact tree grown
+    # leaf-wise
     tpu_grow_mode: str = "auto"
-    # speculation slots of the aligned engine as a multiple of num_leaves
+    # speculation slots of the aligned engine and the level builder as a
+    # multiple of num_leaves
     tpu_level_spec: float = 4.5
     # aligned rows per chunk (0 = auto: 1024 up to 40 features, else 512)
     tpu_chunk: int = 0

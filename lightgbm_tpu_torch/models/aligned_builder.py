@@ -54,7 +54,8 @@ from .device_learner import (BF_GAIN, BF_LG, BF_LH, BF_LOUT, BF_RG, BF_RH,
                              LI_DEPTH, LI_W)
 from .level_builder import (SF_GAIN, SF_IVAL, SF_LOUT, SF_ROUT, SF_W,
                             SI_DEFLEFT, SI_FEAT, SI_LC, SI_RC, SI_SLOT,
-                            SI_THR, SI_W, replay_leafwise, spec_slots)
+                            SI_THR, SI_W, cover_values, replay_leafwise,
+                            spec_slots)
 
 K_CAP = 256      # splits per round at most (the JAX package's K)
 
@@ -317,9 +318,7 @@ class AlignedEngine:
             self.gh_off
         meta = lr.meta
         mono = meta["monotone"].astype(np.int64)
-        fmask_t = torch.ones(F, dtype=torch.float32, device=dev) \
-            if fmask is None else torch.as_tensor(fmask.astype(np.float32),
-                                                  device=dev)
+        fmask_t = lr.fmask_tensor(fmask)
         s_ids = np.arange(S + 1)
         chunk_iota = np.arange(NC)
         if self.ext:
@@ -519,14 +518,7 @@ class AlignedEngine:
         commit, need_fin, _ = replay_frontier(
             execF, execI, bestF[:, BF_GAIN], n_exec, S, Lm1)
         exact = not need_fin.any()
-        cover = np.zeros(S + 1, np.float32)
-        for e in range(n_exec):
-            sl = int(execI[e, SI_SLOT])
-            if commit[e]:
-                cover[sl] = execF[e, SF_LOUT]
-                cover[e + 1] = execF[e, SF_ROUT]
-            else:
-                cover[e + 1] = cover[sl]
+        cover = cover_values(execF, execI, commit, n_exec, S + 1)
         self.cnts = cnts_pc
         if exact:
             slot_f, _, _, _, in_any_f = chunk_maps(

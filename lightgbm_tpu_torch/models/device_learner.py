@@ -66,6 +66,11 @@ class TreeRecord(NamedTuple):
     leaf_value: np.ndarray         # f32[L] final leaf outputs
     leaf_begin: np.ndarray         # i32[L] partition begins
     leaf_count: np.ndarray         # i32[L] partition counts
+    # a level build's physical partition is finer than its tree: the
+    # score update runs over these blocks instead of the leaves
+    block_begin: Optional[np.ndarray] = None   # i32[S] block starts
+    block_cnt: Optional[np.ndarray] = None     # i32[S]
+    block_value: Optional[np.ndarray] = None   # f32[S] covering value
 
 
 def record_to_children(leaf_rec: np.ndarray, num_splits: int
@@ -89,10 +94,11 @@ class DeviceTreeLearner:
 
     def __init__(self, cfg: Config, dataset: Dataset,
                  device: torch.device) -> None:
-        if cfg.tpu_grow_mode not in ("auto", "leafwise", "aligned"):
+        if cfg.tpu_grow_mode not in ("auto", "leafwise", "aligned",
+                                     "level"):
             raise NotImplementedError(
-                f"tpu_grow_mode={cfg.tpu_grow_mode!r}: the leaf-wise and "
-                "aligned builders are ported")
+                f"tpu_grow_mode={cfg.tpu_grow_mode!r}: the leaf-wise, "
+                "aligned and level builders are ported")
         if cfg.forcedsplits_filename or cfg.cegb_penalty_split > 0 \
                 or cfg.cegb_penalty_feature_coupled \
                 or cfg.cegb_penalty_feature_lazy:
@@ -104,6 +110,11 @@ class DeviceTreeLearner:
         self.n = dataset.num_data
         self.num_features = dataset.num_features
         self.meta = dataset.feature_meta_arrays()
+        if cfg.tpu_grow_mode == "level" and (self.meta["bin_type"] == 1).any():
+            raise NotImplementedError(
+                "tpu_grow_mode=level with categorical features: the "
+                "categorical routing of the level builder waits for "
+                "categorical splits (ROADMAP A.1)")
         self.max_bin_global = int(self.meta["num_bin"].max()) \
             if self.num_features else 2
         self.bins = dataset.bins.to(device).contiguous()
@@ -117,6 +128,10 @@ class DeviceTreeLearner:
         self.hist_precision = "f64" if cfg.tpu_use_f64_hist else "f32"
         self._depth_limit = cfg.max_depth if cfg.max_depth > 0 else 1 << 30
         self._mono_any = bool(np.any(self.meta["monotone"] != 0))
+        self._words: Optional[torch.Tensor] = None
+        self.level_fallbacks = 0
+        # (rounds, executed splits, exact) of the last level build
+        self.level_last: Optional[Tuple[int, int, bool]] = None
 
     @property
     def bins_T(self) -> torch.Tensor:
@@ -136,12 +151,36 @@ class DeviceTreeLearner:
         mask[pick[:used_cnt].numpy()] = True
         return mask
 
+    def fmask_tensor(self, feature_mask: Optional[np.ndarray]
+                     ) -> torch.Tensor:
+        """The feature mask as f32 [F] on the device (all ones for None)."""
+        if feature_mask is None:
+            return torch.ones(self.num_features, dtype=torch.float32,
+                              device=self.device)
+        return torch.as_tensor(feature_mask.astype(np.float32),
+                               device=self.device)
+
     # ------------------------------------------------------------------
     def _eval_leaves(self, hist, sg, sh, cnt, minc, maxc, depth, fmask):
         """Best split of each leaf in a batch, on the device: hist
         [K, F, B, 3] f32 and host per-leaf sums -> host arrays (f32 [K,
         BF_W] BF_* lanes, i64 [K, BI_W] BI_* lanes), the reference's
         eval_leaf + pack_best_payload, read back in one copy."""
+        return self._unpack_eval(self._eval_leaves_dev(
+            hist, sg, sh, cnt, minc, maxc, depth, fmask).cpu())
+
+    @staticmethod
+    def _unpack_eval(both: torch.Tensor):
+        """(f32 [K, BF_W], i64 [K, BI_W]) from the read-back
+        [K, BF_W + BI_W] f32 tensor (int lanes as f32 bits)."""
+        return (both[:, :BF_W].numpy(),
+                both[:, BF_W:].contiguous().view(torch.int32).numpy()
+                .astype(np.int64))
+
+    def _eval_leaves_dev(self, hist, sg, sh, cnt, minc, maxc, depth, fmask
+                         ) -> torch.Tensor:
+        """`_eval_leaves` before the read: [K, BF_W + BI_W] f32 on the
+        device, the BI_* lanes as int32 bits."""
         dev = self.device
 
         def t(vals, dtype):
@@ -171,10 +210,7 @@ class DeviceTreeLearner:
                              at(out["right_c"]).to(torch.int32),
                              at(out["default_left"]).to(torch.int32),
                              zi, zi, zi], dim=1)
-        both = torch.cat([vec_f, vec_i.view(torch.float32)], dim=1).cpu()
-        return (both[:, :BF_W].numpy(),
-                both[:, BF_W:].contiguous().view(torch.int32).numpy()
-                .astype(np.int64))
+        return torch.cat([vec_f, vec_i.view(torch.float32)], dim=1)
 
     def train_fresh(self, grad: torch.Tensor, hess: torch.Tensor,
                     feature_mask: Optional[np.ndarray] = None
@@ -193,9 +229,7 @@ class DeviceTreeLearner:
         mono = self.meta["monotone"]
         gh = torch.stack([grad, hess], dim=1).to(torch.float32).contiguous()
         indices = torch.arange(n, dtype=torch.int32, device=dev)
-        fmask = torch.ones(self.num_features, dtype=torch.float32, device=dev) \
-            if feature_mask is None else torch.as_tensor(
-                feature_mask.astype(np.float32), device=dev)
+        fmask = self.fmask_tensor(feature_mask)
 
         # ---------- root: contiguous rows, no index slice
         root_hist = leaf_histogram(self.bins, gh, None, 0, n, B, prec)
@@ -308,12 +342,19 @@ class DeviceTreeLearner:
         each leaf's rows are contiguous in `indices`, so the per-position
         value is a difference-array fill, scattered back to row order
         (reference `_partition_score_update`, device_learner.py:1643).
-        The multiply-add is fused, as XLA fuses it."""
+        A level-built record scores through its physical blocks and their
+        covering values (`leaf_value_fill` skips empty blocks). The
+        multiply-add is fused, as XLA fuses it."""
         dev = self.device
-        fill = leaf_value_fill(
-            torch.as_tensor(record.leaf_begin, device=dev),
-            torch.as_tensor(record.leaf_count, device=dev),
-            torch.as_tensor(record.leaf_value, device=dev), self.n)
+        if record.block_begin is not None:
+            begin, count, value = (record.block_begin, record.block_cnt,
+                                   record.block_value)
+        else:
+            begin, count, value = (record.leaf_begin, record.leaf_count,
+                                   record.leaf_value)
+        fill = leaf_value_fill(torch.as_tensor(begin, device=dev),
+                               torch.as_tensor(count, device=dev),
+                               torch.as_tensor(value, device=dev), self.n)
         delta = unpermute_to_rows(indices, fill, self.n)
         score[class_id] = fma_f32(delta, float(np.float32(scale)),
                                   score[class_id])
@@ -404,6 +445,45 @@ class DeviceTreeLearner:
 
     def aligned_mode_ok(self, objective) -> bool:
         return self.aligned_mode_gate(objective) is None
+
+    # ------------------------------------------------------------------
+    def level_mode_ok(self) -> bool:
+        """True when the level builder (`level_builder.py`) grows this
+        learner's trees (JAX package: `level_mode_ok`, serial only): the
+        grow mode asks for it, the bins are uint8, and there is a feature
+        and a split to make. Bagging, multiclass and data-parallel
+        training raise before a learner is built."""
+        return (self.cfg.tpu_grow_mode == "level"
+                and self.bins.dtype == torch.uint8
+                and self.num_features > 0
+                and self.cfg.num_leaves >= 2)
+
+    @property
+    def words_dev(self) -> torch.Tensor:
+        """Packed bin words [ceil(F/4), N] int32 for the level builder,
+        made on the device at first use."""
+        if self._words is None:
+            from .level_builder import pack_bin_words
+            self._words = pack_bin_words(self.bins)
+        return self._words
+
+    def _level_train_fresh(self, grad: torch.Tensor, hess: torch.Tensor,
+                           feature_mask: Optional[np.ndarray] = None):
+        """Speculative level build + host leaf-wise replay: (row ids by
+        position [N] int32, TreeRecord with the block tables), or None
+        when speculation was too shallow for an exact replay (counted in
+        ``level_fallbacks``; the caller then grows the tree leaf-wise).
+        The build function is made per call, so nothing on the learner
+        refers back to it."""
+        from .level_builder import make_level_build_fn, replay_leafwise
+        spec = make_level_build_fn(self)(self.words_dev, grad, hess,
+                                         self.fmask_tensor(feature_mask))
+        rec, exact = replay_leafwise(spec, self.cfg.num_leaves)
+        self.level_last = (spec.rounds, spec.n_exec, exact)
+        if not exact:
+            self.level_fallbacks += 1
+            return None
+        return spec.rid, rec
 
     def aligned_engine(self, objective, init_row_scores=None):
         """A new AlignedEngine over this learner's data. The caller keeps

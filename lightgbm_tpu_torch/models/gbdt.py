@@ -18,6 +18,11 @@ grows an exact leaf-wise tree instead. The JAX package pipelines its
 aligned rounds to hide XLA's dispatch round trip; the port runs them
 synchronously and knows each tree's exactness when the tree ends.
 
+Under ``tpu_grow_mode=level`` a tree grows on the speculative level
+builder (`level_builder.py`) from the objective's row-order gradients,
+and an inexact replay grows that tree leaf-wise, as in the JAX package
+(`device_learner.train_fresh`).
+
 Bagging, GOSS, DART, RF and multiclass are later slices and raise here.
 """
 from __future__ import annotations
@@ -111,8 +116,9 @@ class GBDT:
             m.init(train_data.metadata, self.num_data)
         self._pending_numsplits: List[int] = []
         self.train_path: Optional[str] = None
-        # (rounds, executed splits, exact) of every aligned tree
+        # (rounds, executed splits, exact) of every aligned / level tree
         self.aligned_stats: List[Tuple[int, int, bool]] = []
+        self.level_stats: List[Tuple[int, int, bool]] = []
         self._aligned_eng = None
         self._train_score_stale = False
         if cfg.tpu_grow_mode == "aligned":
@@ -164,6 +170,9 @@ class GBDT:
         if self._aligned_eligible():
             self._log_train_path("aligned")
             return self._train_one_iter_aligned(init_score, fmask)
+        if self.learner.level_mode_ok():
+            self._log_train_path("level")
+            return self._train_one_iter_level(init_score, fmask)
         self._log_train_path("leafwise")
         return self._train_one_iter_leafwise(init_score, fmask)
 
@@ -173,6 +182,23 @@ class GBDT:
         indices, rec = self.learner.train_fresh(g[0], h[0], fmask)
         self.learner.add_score_from_partition(
             self.train_score.score, 0, rec, indices, self.shrinkage_rate)
+        return self._append_tree(rec, init_score)
+
+    def _train_one_iter_level(self, init_score: float, fmask) -> bool:
+        """One tree on the level builder; an inexact replay grows it
+        leaf-wise on the same gradients."""
+        lr = self.learner
+        g, h = self.objective.get_gradients(self.train_score.score)
+        out = lr._level_train_fresh(g[0], h[0], fmask)
+        self.level_stats.append(lr.level_last)
+        if out is None:
+            log.info(f"level: inexact replay in iteration {self.iter} "
+                     f"(fallback {lr.level_fallbacks}); growing it "
+                     "leaf-wise")
+            out = lr.train_fresh(g[0], h[0], fmask)
+        rid, rec = out
+        lr.add_score_from_partition(self.train_score.score, 0, rec, rid,
+                                    self.shrinkage_rate)
         return self._append_tree(rec, init_score)
 
     def _append_tree(self, rec, init_score: float) -> bool:
@@ -208,7 +234,7 @@ class GBDT:
             return
         self.train_path = path
         msg = f"training path: {path}"
-        if path != "aligned":
+        if path == "leafwise":
             why = self.learner.aligned_mode_gate(self.objective)
             msg += f" (aligned engine rejected: {why})"
         log.info(msg)

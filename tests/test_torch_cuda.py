@@ -1,7 +1,8 @@
-"""Tests of the port that need the card: the CUDA histogram kernel, the
-aligned engine's kernels and the lambdarank kernel against their plain
-twins, f64 training on the card against the CPU, and the aligned engine
-on the card (binary, and lambdarank on EXT records). They import
+"""Tests of the port that need the card: the CUDA histogram kernels (B1
+and the level builder's B5), the aligned engine's kernels and the
+lambdarank kernel against their plain twins, f64 training on the card
+against the CPU (leaf-wise and level), and the aligned engine on the card
+(binary, and lambdarank on EXT records). They import
 neither JAX nor the JAX package, so they run where only PyTorch is
 installed:
 
@@ -58,6 +59,49 @@ def test_kernel_matches_plain_on_gpu(cuda, max_bin):
         assert bool(((got[..., :2] - ref[..., :2]).abs()
                      <= 1e-5 * scale).all())
     assert H.LAUNCHES == {"f32": 2, "f64": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_bin", [63, 255])
+def test_words_kernel_matches_plain_on_gpu(cuda, max_bin):
+    """Kernel B5 (63 bins: B5a's branch; 255: B5b's) equals its twin bit
+    for bit over the whole rows and over a batch of segments (an empty
+    one included): both sum in f64 and round once, and the level
+    builder's level run on the card launches it and grows the CPU's f64
+    trees."""
+    from lightgbm_tpu_torch.models.level_builder import pack_bin_words
+    bins, gh = _mk(60000, 28, max_bin, seed=8)
+    words = pack_bin_words(torch.tensor(bins, device=cuda))
+    g = torch.tensor(gh[:, 0], device=cuda)
+    h = torch.tensor(gh[:, 1], device=cuda)
+    H.reset_launches()
+    for segs in ([(0, 60000)], [(7, 20000), (20007, 0), (30000, 1),
+                                (40000, 19999), (1, 5)]):
+        beg = torch.tensor([s[0] for s in segs], dtype=torch.int32,
+                           device=cuda)
+        cnt = torch.tensor([s[1] for s in segs], dtype=torch.int32,
+                           device=cuda)
+        got = H.histogram_from_words(words, g, h, beg, cnt, 28, max_bin)
+        ref = H.histogram_words_plain(words, g, h, beg, cnt, 28, max_bin)
+        assert torch.equal(got, ref)
+    assert H.WORDS_LAUNCHES["histogram_words"] == 2
+    rng = np.random.RandomState(2)
+    X = rng.standard_normal((4000, 8))
+    y = (X[:, 0] + X[:, 1] * X[:, 2] + rng.standard_normal(4000) > 0)
+    params = {"objective": "binary", "num_leaves": 15, "max_bin": max_bin,
+              "tpu_use_f64_hist": True, "tpu_grow_mode": "level",
+              "verbosity": -1}
+    texts = {}
+    for dev in ("cuda", "cpu"):
+        H.reset_launches()
+        bst = tlgb.train({**params, "device_type": dev},
+                         tlgb.Dataset(X, label=y.astype(np.float64)),
+                         num_boost_round=3, verbose_eval=False)
+        assert bst._gbdt.train_path == "level"
+        assert (H.WORDS_LAUNCHES["histogram_words"] > 0) == (dev == "cuda")
+        t = bst.model_to_string()
+        texts[dev] = t[t.index("Tree=0"):t.index("end of trees")]
+    assert texts["cuda"] == texts["cpu"]
 
 
 @pytest.mark.cuda
