@@ -11,7 +11,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    process per source, all started together (kernel B1,
    ``lightgbm_tpu_torch/ops/csrc/histogram.cu``; kernels B2-B4,
    ``lightgbm_tpu_torch/ops/csrc/aligned.cu``; B5,
-   ``histogram_words.cu``; B6, ``rank.cu``);
+   ``histogram_words.cu``; B6, ``rank.cu``; the prototypes P1-P3,
+   ``proto.cu``);
 3. kernel vs plain: the histogram kernel against its plain PyTorch twin
    on the card at the main path's shapes (10.5M x 28), at 63 and 255
    bins, over the contiguous root and over a large (half the rows) and a
@@ -52,7 +53,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    (``lightgbm_tpu_torch/ops/csrc/rank.cu``) against its twin on the
    MSLR-shape queries (the recipe of ``bench.py::synth_mslr``, 2.27M rows
    in queries of 80-159 documents, random scores), on long queries (1 to
-   5,000 documents) and under ``tpu_rank_sigmoid_bins=1024``: g and h
+   5,000 documents), and both under ``tpu_rank_sigmoid_bins=1024`` (on
+   the card ``auto`` tables the queries of at most the tile's 512
+   documents: every MSLR query, the long set's short ones): g and h
    within 1e-5 x max|g| (max|h|), timed beside the twin;
 10. ranking path: lambdarank at the MSLR shape (2.27M x 137, 255 bins,
    255 leaves, ``min_data_in_leaf`` 50) through ``train`` under ``auto``
@@ -80,7 +83,18 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    against a CPU predict; one profiled round at 63 bins. Then the same at
    63 bins with ``max_depth`` 8, where the speculation covers every tree:
    no tree may fall back, and the AUC must be within 2e-3 of the aligned
-   engine's on the same params; one profiled round.
+   engine's on the same params; one profiled round;
+14. prototype kernels: the port's measurement harnesses through their
+   entry points at their own sizes, ``lightgbm_tpu_torch.tools.
+   proto_aligned.main`` (10,485,760 rows, chunks of 256 and 512: its
+   correctness check, P1 ``slot_hist`` at four configurations, P2
+   ``move``) and ``proto_roll.main`` (P3 ``ring_stage``, both variants,
+   over 20,000 chunks of 512), the counts zeroed just before and read
+   just after, the twins counted (a call fails the run); then each of
+   the four kernel functions against its twin at those sizes (P1: counts
+   equal, g/h within 1e-5 x the slot's sum of |g|; P2 and P3
+   bit-equal), timed beside the twin, the bound and, for P1, one
+   ``index_add_``.
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -106,8 +120,10 @@ KERNEL_SOURCE = "lightgbm_tpu_torch/ops/csrc/histogram.cu"
 ALIGNED_SOURCE = "lightgbm_tpu_torch/ops/csrc/aligned.cu"
 RANK_SOURCE = "lightgbm_tpu_torch/ops/csrc/rank.cu"
 WORDS_SOURCE = "lightgbm_tpu_torch/ops/csrc/histogram_words.cu"
+PROTO_SOURCE = "lightgbm_tpu_torch/ops/csrc/proto.cu"
 SOURCES = {"histogram": KERNEL_SOURCE, "aligned": ALIGNED_SOURCE,
-           "rank": RANK_SOURCE, "histogram_words": WORDS_SOURCE}
+           "rank": RANK_SOURCE, "histogram_words": WORDS_SOURCE,
+           "proto": PROTO_SOURCE}
 ROUNDS = {63: 10, 255: 5}
 MSLR_ROWS, MSLR_FEATURES = 2_270_000, 137     # bench.py stage 3
 MSLR_ROUNDS, MSLR_LEAF_ROUNDS = 6, 3
@@ -1030,12 +1046,15 @@ def rank_bound_ms(obj, label_np) -> tuple:
 
 
 def phase_rank_parity(torch, lt, y, group) -> dict:
-    """B6 against its plain twin on the card, on three inputs: the MSLR
+    """B6 against its plain twin on the card, on four inputs: the MSLR
     queries with random scores, a set of long queries (1 to 5,000
-    documents), and the MSLR queries under tpu_rank_sigmoid_bins=1024.
-    g and h must agree within 1e-5 x max|g| (max|h|): both compute the
-    same bf16-rounded pair factors, and the sums differ only in f32
-    order. Each is timed beside the twin."""
+    documents), and both under tpu_rank_sigmoid_bins=1024, where the
+    objective on the card (fused semantics under ``auto``, the default
+    tile 512) tables every MSLR query (80-159 documents) and the long
+    set's queries of at most 512 documents only. g and h must agree
+    within 1e-5 x max|g| (max|h|): both compute the same bf16-rounded
+    pair factors, and the sums differ only in f32 order. Each is timed
+    beside the twin."""
     from lightgbm_tpu_torch.io.dataset import Metadata
     from lightgbm_tpu_torch.ops import rank as R
     from lightgbm_tpu_torch.ops.objectives import LambdarankNDCG
@@ -1044,7 +1063,8 @@ def phase_rank_parity(torch, lt, y, group) -> dict:
                                    4999, 777], rng.integers(1, 300, 40)])
     long_y = rng.integers(0, 5, int(long_counts.sum())).astype(np.float32)
     cases = {"mslr": (y, group, 0), "long": (long_y, long_counts, 0),
-             "mslr_lut1024": (y, group, 1024)}
+             "mslr_lut1024": (y, group, 1024),
+             "long_lut1024": (long_y, long_counts, 1024)}
     res = {}
     for name, (lab, grp, lut) in cases.items():
         md = Metadata(len(lab))
@@ -1056,8 +1076,12 @@ def phase_rank_parity(torch, lt, y, group) -> dict:
         score = torch.as_tensor(rng.standard_normal(len(lab))
                                 .astype(np.float32), device=DEVICE)
         args = (score, obj._qoff, obj._label_i, obj._gain, obj._inv,
-                obj._disc, 1.0, lut)
-        g, h = R.lambdarank_grad(*args, obj._blocks)
+                obj._disc, 1.0, lut, obj._lut_len)
+        if lut and obj._lut_len != 512:
+            raise AssertionError(f"lambdarank under auto on the card tables "
+                                 f"queries up to {obj._lut_len} documents, "
+                                 "not the default tile's 512")
+        g, h = R.lambdarank_grad(*args, blocks=obj._blocks)
         gp, hp = R.lambdarank_grad_plain(*args)
         torch.cuda.synchronize()
         mg, mh = gp.abs().max().item(), hp.abs().max().item()
@@ -1069,14 +1093,16 @@ def phase_rank_parity(torch, lt, y, group) -> dict:
         r = {"docs": len(lab), "queries": len(grp),
              "longest": int(np.max(grp)), "max_abs_err": max(eg, eh),
              "rel_err_g": eg / mg, "rel_err_h": eh / mh,
-             "ms": cuda_ms(torch, lambda: R.lambdarank_grad(*args,
-                                                            obj._blocks)),
+             "ms": cuda_ms(torch, lambda: R.lambdarank_grad(
+                 *args, blocks=obj._blocks)),
+             "tabled_up_to": obj._lut_len,
              "plain_ms": cuda_ms(torch, lambda: R.lambdarank_grad_plain(
                  *args), reps=2), "library_ms": None}
         r["bound_ms"], r["bound_by"], r["pairs_distinct"] = \
             rank_bound_ms(obj, lab)
         log(f"kernel lambdarank_grad ({name}: {r['docs']} docs, "
-            f"{r['queries']} queries, longest {r['longest']}): kernel "
+            f"{r['queries']} queries, longest {r['longest']}, sigmoid "
+            f"table on queries up to {r['tabled_up_to']} documents): kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library none, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
             f"{r['pairs_distinct']} pairs), max |dg|/max|g| "
@@ -1242,6 +1268,225 @@ def phase_mslr(torch, lt, X, y, group) -> tuple:
         f"{ {k: round(v, 4) for k, v in a['round_trip_ms'].items()} } ms")
     return ds, params, res
 
+# ---------------------------------------------------------------------------
+# the prototype kernels P1-P3 and their harnesses
+# ---------------------------------------------------------------------------
+def phase_proto_path(torch) -> dict:
+    """The port's prototype harnesses through their entry points at their
+    own sizes: ``proto_aligned.main`` (10,485,760 rows, chunks of 256 and
+    512, 384 slots: its correctness check, then P1 at four configurations
+    and P2 over one block) and ``proto_roll.main`` (P3's two variants over
+    20,000 chunks of 512). The kernel counts are zeroed just before and
+    read just after; the plain twins are counted too (a call fails the
+    run), and so does a failed correctness check."""
+    from lightgbm_tpu_torch.ops import proto as P
+    from lightgbm_tpu_torch.tools import proto_aligned, proto_roll
+    plain = {name: 0 for name in ("slot_hist_plain", "move_plain",
+                                  "ring_stage_plain")}
+    real = {name: getattr(P, name) for name in plain}
+
+    def counting(name):
+        def fn(*args, **kw):
+            plain[name] += 1
+            return real[name](*args, **kw)
+        return fn
+
+    for name in plain:
+        setattr(P, name, counting(name))
+    try:
+        P.reset_launches()
+        t0 = time.perf_counter()
+        aligned = proto_aligned.main(proto_aligned.N_ROWS, device=DEVICE)
+        t1 = time.perf_counter()
+        roll = proto_roll.main(proto_roll.N_CHUNKS, device=DEVICE)
+        t2 = time.perf_counter()
+        launches = dict(P.LAUNCHES)
+    finally:
+        for name in plain:
+            setattr(P, name, real[name])
+    if any(plain.values()):
+        raise AssertionError(f"the prototype harnesses ran plain twins on "
+                             f"the card: {plain}")
+    if not aligned["ok"]:
+        raise AssertionError("proto_aligned's correctness check failed")
+    idle = [k for k, v in launches.items() if v == 0]
+    if idle:
+        raise AssertionError(f"the prototype harnesses never launched {idle}")
+    log(f"prototype harnesses: proto_aligned {t1 - t0:.3f} s, proto_roll "
+        f"{t2 - t1:.3f} s (data made on the host included), launches "
+        f"{launches}")
+    return {"aligned": aligned, "roll": roll, "launches": launches,
+            "aligned_s": t1 - t0, "roll_s": t2 - t1}
+
+
+def proto_records(torch, nc: int, chunk: int, seed: int):
+    """The correctness check's kind of records on the card, at full size:
+    random words, normal g and |normal| h, valid rows per chunk between
+    half and all of it."""
+    from lightgbm_tpu_torch.ops import proto as P
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    rec = torch.randint(0, 2**31 - 1, (nc, P.W, chunk), generator=gen,
+                        device=DEVICE, dtype=torch.int32)
+    rec[:, P.LG] = torch.randn((nc, chunk), generator=gen,
+                               device=DEVICE).view(torch.int32)
+    rec[:, P.LH] = torch.randn((nc, chunk), generator=gen,
+                               device=DEVICE).abs().view(torch.int32)
+    cnts = torch.randint(chunk // 2, chunk + 1, (nc,), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    return rec, cnts
+
+
+def proto_slot_hist_library_ms(torch, words, slot, gh, num_slots: int,
+                               num_features: int, b_pad: int) -> float:
+    """One ``index_add_`` over a prebuilt flat index (slot, feature, bin)
+    of the rows' contributing (feature, bin) cells: the yardstick."""
+    f = torch.arange(num_features, device=DEVICE)
+    binv = (words[:, f >> 2] >> ((f & 3) * 8)) & 255
+    ok = binv < b_pad
+    cell = ((slot[:, None] * num_features + f) * b_pad + binv)[ok]
+    pay = torch.cat([gh, torch.ones_like(gh[:, :1])], 1)
+    pay = pay[:, None, :].expand(-1, num_features, -1)[ok]
+    out = torch.zeros((num_slots * num_features * b_pad, 3),
+                      dtype=torch.float32, device=DEVICE)
+    ms = cuda_ms(torch, lambda: out.index_add_(0, cell, pay), reps=2)
+    del binv, ok, cell, pay, out
+    return ms
+
+
+def phase_proto_parity(torch) -> dict:
+    """P1-P3 against their plain twins on the card at the harnesses'
+    sizes, each timed beside the twin and its bound:
+
+    - P1 ``slot_hist`` at the four configurations x chunks of 256 and 512
+      over 10,485,760 rows in 384 slot runs, on the correctness check's
+      kind of records: counts equal, g/h within 1e-5 x the slot's sum of
+      |g| (|h|); beside one ``index_add_`` (the yardstick);
+    - P2 ``move`` over one block of every chunk (split on byte 1 of word 1
+      at 127, as the harness does), chunks of 256 and 512: both written
+      into an output filled with -1, bit-equal everywhere (the covered
+      rows, and the fill where neither writes);
+    - P3 ``ring_stage`` at 20,000 x 512, both variants: the whole final
+      staging bit-equal (both start from zeros)."""
+    from lightgbm_tpu_torch.ops import proto as P
+    from lightgbm_tpu_torch.tools import proto_aligned as HA
+    from lightgbm_tpu_torch.tools import proto_roll as HR
+    res = {"slot_hist": {}, "move": {}, "ring": {}}
+    n = HA.N_ROWS
+    S, F = HA.NUM_SLOTS, HA.NUM_FEATURES
+    for chunk in HA.CHUNKS:
+        nc = n // chunk
+        rec, cnts = proto_records(torch, nc, chunk, 31 + chunk)
+        slots = torch.as_tensor(HA.slot_map(nc), device=DEVICE)
+        valid = torch.arange(chunk, device=DEVICE)[None, :] < cnts[:, None]
+        rows = int(valid.sum())
+        g = rec[:, P.LG].view(torch.float32)
+        h = rec[:, P.LH].view(torch.float32)
+        per_chunk = torch.stack([torch.where(valid, g.abs(), 0.0).sum(1),
+                                 torch.where(valid, h.abs(), 0.0).sum(1)],
+                                dim=1).double()
+        scale = torch.zeros((S, 2), dtype=torch.float64, device=DEVICE) \
+            .index_add_(0, slots.long(), per_chunk).float()
+        c_idx, r_idx = valid.nonzero(as_tuple=True)
+        words = rec[c_idx, :P.NWORDS, r_idx]
+        gh = torch.stack([g[c_idx, r_idx], h[c_idx, r_idx]], dim=1)
+        slot_of_row = slots.long()[c_idx]
+        del c_idx, r_idx
+        for b_pad, group in HA.CONFIGS:
+            what = f"C={chunk} B={b_pad} group={group}"
+            got = P.slot_hist(rec, slots, cnts, S, F, b_pad, group)
+            ref = P.slot_hist_plain(rec, slots, cnts, S, F, b_pad, group)
+            err = check_hist(torch, got, ref, scale, f"slot_hist {what}")
+            del got, ref
+            r = {"max_abs_err": err, "rows": rows,
+                 "ms": cuda_ms(torch, lambda: P.slot_hist(
+                     rec, slots, cnts, S, F, b_pad, group)),
+                 "plain_ms": cuda_ms(torch, lambda: P.slot_hist_plain(
+                     rec, slots, cnts, S, F, b_pad, group), reps=1),
+                 "library_ms": proto_slot_hist_library_ms(
+                     torch, words, slot_of_row, gh, S, F, b_pad)}
+            r["bound_ms"], r["bound_by"] = bound(
+                rows * (P.NWORDS + 2) * 4 + nc * 2 * 4
+                + S * F * b_pad * 3 * 4, 3 * F * rows)
+            res["slot_hist"][what] = r
+            log(f"kernel proto slot_hist ({what}, {rows} rows, {S} slots): "
+                f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                f"index_add_ {r['library_ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max |d| "
+                f"{err:.3e}")
+        del words, gh, slot_of_row
+        # ---- P2: one block of every chunk
+        key = ((rec[:, 1] >> 8) & 255) <= 127
+        n_l = int((key & valid).sum())
+        base_r = -(-n_l // chunk)
+        nc_out = base_r + -(-(rows - n_l) // chunk) + 1
+        params = torch.zeros((nc, 8), dtype=torch.int32, device=DEVICE)
+        params[:, P.P_WSEL] = 1
+        params[:, P.P_SHIFT] = 8
+        params[:, P.P_THR] = 127
+        params[:, P.P_BASER] = base_r
+        params[0, P.P_FIRST] = 1
+        params[-1, P.P_LAST] = 1
+        params[:, P.P_CNT] = cnts
+        got = P.move(rec, params, nc_out,
+                     out=torch.full((nc_out, P.W, chunk), -1,
+                                    dtype=torch.int32, device=DEVICE))
+        ref = P.move_plain(rec, params, nc_out,
+                           out=torch.full_like(got, -1))
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"move C={chunk} differs from its twin")
+        del ref
+        r = {"max_abs_err": 0.0, "rows": rows, "left_rows": n_l,
+             "ms": cuda_ms(torch, lambda: P.move(rec, params, nc_out,
+                                                 out=got)),
+             "plain_ms": cuda_ms(torch, lambda: P.move_plain(
+                 rec, params, nc_out, out=got), reps=1),
+             "library_ms": None}
+        r["bound_ms"], r["bound_by"] = bound(rows * P.W * 4 * 2
+                                             + nc * 8 * 4, rows)
+        res["move"][f"C={chunk}"] = r
+        log(f"kernel proto move (C={chunk}, {rows} rows, {n_l} left, one "
+            f"block): kernel {r['ms']:.4f} ms (with the wrapper's params "
+            f"check), plain {r['plain_ms']:.4f} ms, library none, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), bit-equal")
+        del rec, cnts, valid, got, params, key
+        torch.cuda.empty_cache()
+    # ---- P3
+    gen = torch.Generator(device=DEVICE).manual_seed(41)
+    rec = torch.randint(0, 2**31 - 1, (HR.N_CHUNKS, P.W, HR.C),
+                        generator=gen, device=DEVICE, dtype=torch.int32)
+    rows = HR.N_CHUNKS * HR.C
+    for variant in HR.VARIANTS:
+        wrap = variant == "compact_roll"
+        got = P.ring_stage(rec, wrap)
+        ref = P.ring_stage_plain(rec, wrap)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            d = int((got != ref).any(0).sum())
+            raise AssertionError(f"ring_stage {variant} differs from its "
+                                 f"twin in {d} of {got.shape[1]} positions")
+        written = int((P.ring_stage_plain(rec, wrap, fill=1) == ref)
+                      .all(0).sum())
+        r = {"max_abs_err": 0.0, "rows": rows, "written": written,
+             "ms": cuda_ms(torch, lambda: P.ring_stage(rec, wrap), reps=10),
+             "plain_ms": cuda_ms(torch, lambda: P.ring_stage_plain(
+                 rec, wrap), reps=2), "library_ms": None}
+        # the output depends on lane 0 of every row and on the whole of
+        # the rows that end in the staging, which is all a kernel must read
+        r["bound_ms"], r["bound_by"] = bound(
+            rows * 4 + written * P.W * 4 + P.W * 4 * HR.C * 4, rows)
+        res["ring"][variant] = r
+        log(f"kernel proto ring_stage ({variant}, {HR.N_CHUNKS} x {HR.C}, "
+            f"{written} of {4 * HR.C} positions written): kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library none, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; every lane of "
+            f"every row would be {bound(rows * P.W * 4, rows)[0]:.4f} ms), "
+            f"bit-equal")
+        del got, ref
+    del rec
+    torch.cuda.empty_cache()
+    return res
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1296,8 +1541,11 @@ def main() -> int:
     mds, mparams, mslr = phase_mslr(torch, lt, Xm, ym, gm)
     apar[(255, "ext")] = phase_aligned_parity(torch, lt, mds, mparams, 255,
                                               "ext")
-    del mds
+    del mds, Xm, ym, gm
+    gc.collect()
     torch.cuda.empty_cache()
+    proto_path = phase_proto_path(torch)
+    ppar = phase_proto_parity(torch)
 
     def entry(name, replaces, bins, prec, launches):
         p = par[bins]
@@ -1371,6 +1619,27 @@ def main() -> int:
         "plain_ms": rp["plain_ms"], "bound_ms": rp["bound_ms"],
         "bound_by": rp["bound_by"], "library_ms": None,
         "shape": f"{rp['docs']} docs in {rp['queries']} queries (MSLR)"})
+    plaunch = proto_path["launches"]
+    rows = proto_path["aligned"]["rows"]
+    proto_entries = (
+        ("proto_slot_hist", "tools/proto_aligned.py:127", "slot_hist",
+         ppar["slot_hist"], "C=256 B=256 group=4",
+         f"{rows} rows, chunks of 256, 384 slots, 28 features, b_pad 256"),
+        ("proto_move", "tools/proto_aligned.py:299", "move", ppar["move"],
+         "C=256", f"{rows} rows, chunks of 256, one block"),
+        ("proto_route4c", "tools/proto_roll.py:141", "route4c",
+         ppar["ring"], "route4c", "20000 x 512"),
+        ("proto_compact_roll", "tools/proto_roll.py:141", "compact_roll",
+         ppar["ring"], "compact_roll", "20000 x 512"))
+    for name, replaces, key, table, config, shape in proto_entries:
+        p = table[config]
+        kernels.append({
+            "name": name, "route": "cuda", "source": PROTO_SOURCE,
+            "replaces": replaces, "launches": plaunch[key],
+            "max_abs_err": max(r["max_abs_err"] for r in table.values()),
+            "ms": p["ms"], "plain_ms": p["plain_ms"],
+            "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
+            "library_ms": p["library_ms"], "shape": shape})
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was never launched on its "
@@ -1383,6 +1652,7 @@ def main() -> int:
                     "level": {str(k): v for k, v in level_r.items()},
                     "level_kernel": {str(k): v for k, v in lpar.items()},
                     "mslr": mslr, "rank_kernel": rpar,
+                    "proto_path": proto_path, "proto_kernels": ppar,
                     "power": info["smi"]}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

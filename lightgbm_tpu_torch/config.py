@@ -370,14 +370,17 @@ class Config:
     # force the aligned engine's big-n layout (STANDARD records and the
     # exact i32 count pass, normally n > 2^24 only) at any row count
     tpu_force_big_n: bool = False
-    # the JAX package's lambdarank knobs: the tile packing and its
-    # bucketed fallback for queries longer than a tile. The port's kernel
-    # takes every query length, so both are accepted and have no effect
+    # the JAX package's lambdarank knobs: its fused kernel (on / off /
+    # auto = on when the accelerator is attached) and the tile of queries
+    # it takes. The port's kernel takes every query length; the two say
+    # which queries take the sigmoid table below, as in the JAX package
     tpu_rank_fused: str = "auto"
     tpu_rank_tile: int = 512
     # quantize the lambdarank sigmoid's input to this many cells over
-    # [-50, 50], the reference's lookup table (rank_objective.hpp:71);
-    # 0 = exact sigmoid. Changes results, on the card and the CPU alike
+    # [-50, 50], the reference's lookup table (rank_objective.hpp:71), in
+    # the queries the fused kernel would take (queries of at most
+    # tpu_rank_tile documents under fused on, or auto on the card); 0 =
+    # exact sigmoid everywhere
     tpu_rank_sigmoid_bins: int = 0
 
     # internal (set by trainer, reference config.h:832-833)

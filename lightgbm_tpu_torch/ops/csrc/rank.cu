@@ -26,7 +26,11 @@
 //      (the JAX package's g = rowsum - colsum), and both add hes to h_i.
 //      Each pair is evaluated twice, once for each member, so nothing is
 //      shared between CTAs: no atomics, and the result is deterministic.
-// Every query length runs here and nothing falls back.
+// Every query length runs here and nothing falls back. The reference's
+// quantized sigmoid table (lut_bins cells) applies per query: to the
+// queries of at most lut_len documents, the ones the JAX package's TPU
+// kernel would take (its bucketed path computes the exact sigmoid); 0
+// tables none.
 //
 // Numerics: the JAX package computes the pair factors in bf16, rounding
 // after every bf16 operation (XLA's CPU backend does so), with the score
@@ -145,8 +149,8 @@ rank_pair_kernel(const float* __restrict__ score,
                  const int32_t* __restrict__ blocks,
                  const float* __restrict__ inv,
                  const float* __restrict__ disc_rows, float two_sig,
-                 int lut_bins, float lut_factor, float* __restrict__ g_out,
-                 float* __restrict__ h_out) {
+                 int lut_bins, float lut_factor, int lut_len,
+                 float* __restrict__ g_out, float* __restrict__ h_out) {
   __shared__ float t_s[kThreads], t_g[kThreads], t_d[kThreads];
   __shared__ int t_l[kThreads];
   __shared__ float red_hi[kThreads / 32], red_lo[kThreads / 32];
@@ -179,6 +183,7 @@ rank_pair_kernel(const float* __restrict__ score,
   const bool norm_on = mx != mn;
 
   const float inv_b = bf(inv[blocks[2 * blockIdx.x]]);
+  const int lut = b.c <= lut_len ? lut_bins : 0;    // this query's table
   const bool act = b.i < b.c;
   float si = 0.0f, gi = 0.0f, di = 0.0f;
   int li = 0;
@@ -208,7 +213,7 @@ rank_pair_kernel(const float* __restrict__ score,
         float lam, hes;
         pair_terms(up ? si : sj, up ? sj : si, up ? gi : gj, up ? gj : gi,
                    up ? di : dj, up ? dj : di, inv_b, norm_on, two_sig,
-                   lut_bins, lut_factor, lam, hes);
+                   lut, lut_factor, lam, hes);
         ga = up ? __fadd_rn(ga, lam) : __fsub_rn(ga, lam);
         ha = __fadd_rn(ha, hes);
       }
@@ -229,13 +234,14 @@ extern "C" {
 // i0 = 0, kThreads, ... below each query's length (`ops/rank.py::
 // query_blocks`); label int32 [N], gain f32 [N] (label_gain[label]), inv
 // f32 [Q] (1 / max DCG at max_position), disc f32 (rank-position
-// discounts, at least the longest query long), disc_rows f32 [N] scratch.
-// Returns the CUDA error code (0 = ok).
+// discounts, at least the longest query long), disc_rows f32 [N] scratch;
+// the queries of at most lut_len documents take the sigmoid table of
+// lut_bins cells. Returns the CUDA error code (0 = ok).
 int lgbt_rank_grad(const void* score, const void* label, const void* gain,
                    const void* qoff, const void* blocks, int num_blocks,
                    const void* inv, const void* disc, float two_sig,
-                   int lut_bins, float lut_factor, void* disc_rows, void* g,
-                   void* h, void* stream) {
+                   int lut_bins, float lut_factor, int lut_len,
+                   void* disc_rows, void* g, void* h, void* stream) {
   if (num_blocks == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(score);
@@ -250,7 +256,7 @@ int lgbt_rank_grad(const void* score, const void* label, const void* gain,
       sc, static_cast<const int32_t*>(label),
       static_cast<const float*>(gain), qo, bl,
       static_cast<const float*>(inv), static_cast<const float*>(disc_rows),
-      two_sig, lut_bins, lut_factor, static_cast<float*>(g),
+      two_sig, lut_bins, lut_factor, lut_len, static_cast<float*>(g),
       static_cast<float*>(h));
   return static_cast<int>(cudaGetLastError());
 }

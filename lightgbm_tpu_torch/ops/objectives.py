@@ -19,7 +19,6 @@ import torch
 
 from ..config import Config
 from ..io.dataset import Metadata
-from ..utils import log
 from ..utils.xla_math import exp_f32
 from .rank import lambdarank_grad, query_blocks
 from .ranking import discount_table, max_dcg_at_k
@@ -207,6 +206,11 @@ class BinaryLogloss(ObjectiveFunction):
         return 1.0 / (1.0 + np.exp(-self.cfg.sigmoid * raw))
 
 
+# the JAX package's fused lambdarank kernel packs queries into tiles of
+# 128-document subtiles (lightgbm_tpu/ops/pallas_rank.py:68)
+RANK_SUBTILE = 128
+
+
 class LambdarankNDCG(ObjectiveFunction):
     """reference rank_objective.hpp (LambdarankNDCG): the gradients of
     every query's pairs come from kernel B6 (`ops/rank.py`), in row order;
@@ -242,18 +246,29 @@ class LambdarankNDCG(ObjectiveFunction):
         self._inv = t(inv.astype(np.float32), np.float32)
         self._disc = t(discount_table(max(longest, 1)), np.float32)
         self._blocks = t(query_blocks(qb), np.int32)
-        if (str(self.cfg.tpu_rank_fused).lower() != "auto"
-                or int(self.cfg.tpu_rank_tile) != 512):
-            log.info("tpu_rank_fused and tpu_rank_tile have no effect in "
-                     "the port: its lambdarank kernel takes every query "
-                     "length")
+        self._lut_len = self._tabled_length(torch.device(device))
+
+    def _tabled_length(self, device: torch.device) -> int:
+        """The longest query that takes the sigmoid table, 0 for none: the
+        JAX package applies ``tpu_rank_sigmoid_bins`` only in its fused
+        kernel, which runs under ``tpu_rank_fused=on``, or under ``auto``
+        when the accelerator is attached (here: the card), and takes the
+        queries of at most ``tpu_rank_tile`` documents rounded up to its
+        128-document subtile (lightgbm_tpu/ops/objectives.py:740-752);
+        every other query takes the exact sigmoid."""
+        mode = str(self.cfg.tpu_rank_fused).lower()
+        fused = mode == "on" or (mode == "auto" and device.type == "cuda")
+        if not fused or int(self.cfg.tpu_rank_sigmoid_bins) <= 0:
+            return 0
+        tile = max(RANK_SUBTILE, int(self.cfg.tpu_rank_tile))
+        return -(-tile // RANK_SUBTILE) * RANK_SUBTILE
 
     def get_gradients(self, scores):
         g, h = lambdarank_grad(scores[0], self._qoff, self._label_i,
                                self._gain, self._inv, self._disc,
                                float(self.cfg.sigmoid),
                                int(self.cfg.tpu_rank_sigmoid_bins),
-                               self._blocks)
+                               self._lut_len, blocks=self._blocks)
         if self.weight is not None:
             g = g * self.weight
             h = h * self.weight

@@ -16,7 +16,11 @@ operation, so kernel and twin compute each operation in f32 and round
 there: both equal the JAX package's bucketed path up to f32 summation
 order. Unlike the JAX package, every query length runs through the same
 code (the TPU kernel leaves queries longer than ``tpu_rank_tile`` to the
-bucketed path), and ``lut_bins`` applies to all of them.
+bucketed path). The quantized sigmoid table (``lut_bins``) is what tells
+the two JAX paths apart: only the TPU kernel applies it, so here it
+applies to the queries of at most ``lut_len`` documents (the caller's
+tile when the JAX package would run its kernel, else 0) and every other
+query takes the exact sigmoid.
 """
 from __future__ import annotations
 
@@ -68,9 +72,11 @@ def _padded(c: int) -> int:
 
 
 def _pair_block(s, lab, gb, valid, inv_b, disc, two_sig: float,
-                lut_bins: int):
+                lut_bins: int, tabled: Optional[torch.Tensor]):
     """(g, h) [B, S] of a batch of queries padded to S documents: the JAX
-    package's bucketed formula, rows the higher-labelled member."""
+    package's bucketed formula, rows the higher-labelled member; the
+    queries where ``tabled`` [B] is set (None: none) take the sigmoid
+    table of ``lut_bins`` cells."""
     B, S = s.shape
     pos = torch.arange(S, device=s.device)
     sj, si = s[:, None, :], s[:, :, None]
@@ -88,11 +94,12 @@ def _pair_block(s, lab, gb, valid, inv_b, disc, two_sig: float,
     eps = float(torch.tensor(0.01).to(torch.bfloat16))
     delta = torch.where(norm_on, _bf(delta / _bf(eps + ds.abs())), delta)
     x = ds
-    if lut_bins > 0:
+    if tabled is not None:
         factor = float(np.float32(lut_bins / 100.0))
         idx = torch.floor((x.clamp(-50.0, 50.0) + 50.0) * factor) \
             .clamp(0.0, float(lut_bins - 1))
-        x = idx / torch.full_like(idx, factor) - 50.0
+        x = torch.where(tabled[:, None, None],
+                        idx / torch.full_like(idx, factor) - 50.0, x)
     # divisions by tensors: `2.0 / t` is `t.reciprocal() * 2.0`, and on
     # CUDA `t / 2.0` multiplies by the reciprocal too; neither is the
     # correctly rounded f32 quotient
@@ -110,7 +117,8 @@ def _pair_block(s, lab, gb, valid, inv_b, disc, two_sig: float,
 def lambdarank_grad_plain(score: torch.Tensor, qoff: torch.Tensor,
                           label: torch.Tensor, gain: torch.Tensor,
                           inv: torch.Tensor, disc: torch.Tensor,
-                          sigmoid: float, lut_bins: int = 0
+                          sigmoid: float, lut_bins: int = 0,
+                          lut_len: int = 0
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain twin of `lambdarank_grad`: the queries padded to a few
     widths (`_padded`) and their pair matrices built in batches."""
@@ -136,8 +144,10 @@ def lambdarank_grad_plain(score: torch.Tensor, qoff: torch.Tensor,
             s = torch.where(valid, score[idx], 0.0)
             lab = torch.where(valid, label[idx], -1)
             gb = _bf(gain[idx])
+            tabled = cnt <= lut_len if lut_bins > 0 and lut_len > 0 \
+                else None
             gq, hq = _pair_block(s, lab, gb, valid, _bf(inv[qt]), disc,
-                                 two_sig, lut_bins)
+                                 two_sig, lut_bins, tabled)
             g[idx[valid]] = gq[valid]
             h[idx[valid]] = hq[valid]
     return g, h
@@ -152,7 +162,7 @@ def _lib():
         lib = cuda_build.load("rank")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn = lib.lgbt_rank_grad
-        fn.argtypes = [p, p, p, p, p, i, p, p, f, i, f, p, p, p, p]
+        fn.argtypes = [p, p, p, p, p, i, p, p, f, i, f, i, p, p, p, p]
         fn.restype = ctypes.c_int
         _fns["lgbt_rank_grad"] = fn
     return _fns
@@ -179,21 +189,23 @@ def _check_cuda(score, qoff, label, gain, inv, disc, blocks) -> None:
 def lambdarank_grad(score: torch.Tensor, qoff: torch.Tensor,
                     label: torch.Tensor, gain: torch.Tensor,
                     inv: torch.Tensor, disc: torch.Tensor, sigmoid: float,
-                    lut_bins: int = 0, blocks: Optional[torch.Tensor] = None
+                    lut_bins: int = 0, lut_len: int = 0,
+                    blocks: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(g [N], h [N]) f32 of the documents of queries ``qoff[q] ..
     qoff[q + 1]``: ``score`` f32 [N] in row order, ``label`` int32 [N],
     ``gain`` f32 [N] (label_gain of each label), ``inv`` f32 [Q] (1 / the
     query's max DCG at max_position, 0 where that is 0), ``disc`` f32 the
     rank-position discounts (`ranking.discount_table`, at least as long
-    as the longest query), ``sigmoid`` the pair loss's slope and
-    ``lut_bins`` > 0 the reference's quantized sigmoid table. Documents
-    outside every query get 0. ``blocks`` is the kernel's work list
-    (`query_blocks` of ``qoff``, on the device), made from a host copy of
-    ``qoff`` when not given."""
+    as the longest query), ``sigmoid`` the pair loss's slope, and
+    ``lut_bins`` > 0 the cells of the reference's quantized sigmoid
+    table, which the queries of at most ``lut_len`` documents take (0:
+    none). Documents outside every query get 0. ``blocks`` is the
+    kernel's work list (`query_blocks` of ``qoff``, on the device), made
+    from a host copy of ``qoff`` when not given."""
     if not score.is_cuda:
         return lambdarank_grad_plain(score, qoff, label, gain, inv, disc,
-                                     sigmoid, lut_bins)
+                                     sigmoid, lut_bins, lut_len)
     dev = score.device
     if blocks is None:
         blocks = torch.as_tensor(query_blocks(qoff.cpu().numpy()),
@@ -210,7 +222,8 @@ def lambdarank_grad(score: torch.Tensor, qoff: torch.Tensor,
             inv.data_ptr(),
             disc.data_ptr(), float(np.float32(2.0 * sigmoid)),
             int(lut_bins), float(np.float32(lut_bins / 100.0)),
-            scratch.data_ptr(), g.data_ptr(), h.data_ptr(),
+            int(lut_len) if lut_bins > 0 else 0, scratch.data_ptr(),
+            g.data_ptr(), h.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lambdarank_grad kernel launch failed: CUDA "

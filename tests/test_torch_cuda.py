@@ -1,8 +1,9 @@
 """Tests of the port that need the card: the CUDA histogram kernels (B1
 and the level builder's B5), the aligned engine's kernels and the
 lambdarank kernel against their plain twins, f64 training on the card
-against the CPU (leaf-wise and level), and the aligned engine on the card
-(binary, and lambdarank on EXT records). They import
+against the CPU (leaf-wise and level), the aligned engine on the card
+(binary, and lambdarank on EXT records), and the prototype kernels P1-P3
+against their twins. They import
 neither JAX nor the JAX package, so they run where only PyTorch is
 installed:
 
@@ -17,6 +18,7 @@ import lightgbm_tpu_torch as tlgb
 from lightgbm_tpu_torch.models import aligned_builder as AB
 from lightgbm_tpu_torch.ops import aligned as A
 from lightgbm_tpu_torch.ops import histogram as H
+from lightgbm_tpu_torch.ops import proto as P
 from lightgbm_tpu_torch.ops import rank as R
 from lightgbm_tpu_torch.ops.ranking import discount_table
 
@@ -205,7 +207,8 @@ def test_aligned_kernels_match_twins_on_gpu(cuda, monkeypatch, max_bin,
 def test_rank_kernel_matches_plain_on_gpu(cuda, lut_bins):
     """B6 against its twin over queries of 1 to 5,000 documents (several
     blocks of one CTA each): g and h within 1e-5 x max|g| (max|h|), f32
-    summation order being the only difference."""
+    summation order being the only difference; with the sigmoid table
+    on the queries of at most 512 documents (the longer ones exact)."""
     rng = np.random.default_rng(8)
     counts = np.concatenate([[1, 2, 63, 64, 65, 129, 600, 2000, 5000],
                              rng.integers(80, 160, 300)])
@@ -220,7 +223,8 @@ def test_rank_kernel_matches_plain_on_gpu(cuda, lut_bins):
     args = (t(rng.normal(size=n), np.float32), t(qb, np.int32),
             t(lab, np.int32), t(gains[lab], np.float32),
             t(rng.uniform(0.01, 0.2, len(counts)), np.float32),
-            t(discount_table(int(counts.max())), np.float32), 1.0, lut_bins)
+            t(discount_table(int(counts.max())), np.float32), 1.0, lut_bins,
+            512 if lut_bins else 0)
     R.reset_launches()
     g, h = R.lambdarank_grad(*args)
     gp, hp = R.lambdarank_grad_plain(*args)
@@ -259,3 +263,89 @@ def test_lambdarank_aligned_on_gpu(cuda):
             assert A.LAUNCHES["slot_hist_pass"] > 0
         ndcg[mode] = ev["training"]["ndcg@10"][-1]
     assert abs(ndcg["aligned"] - ndcg["leafwise"]) <= 5e-3
+
+
+def _proto_records(nc, chunk, seed, cuda):
+    rng = np.random.default_rng(seed)
+    rec = rng.integers(0, 2**31 - 1, size=(nc, P.W, chunk), dtype=np.int32)
+    rec[:, P.LG] = rng.standard_normal((nc, chunk)).astype(np.float32) \
+        .view(np.int32)
+    rec[:, P.LH] = np.abs(rng.standard_normal((nc, chunk))) \
+        .astype(np.float32).view(np.int32)
+    return torch.tensor(rec, device=cuda), rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b_pad", [256, 64, 16])
+def test_proto_slot_hist_matches_plain_on_gpu(cuda, b_pad):
+    """P1 against its twin over partial chunks whose slots revisit earlier
+    slots (the last run wins), skip a slot and leave the range: counts
+    equal, g/h within 1e-5 x the largest |sum| (both sum in f64)."""
+    rec, rng = _proto_records(96, 256, 11, cuda)
+    slots = np.repeat(np.array([0, 3, 0, 1, 3, -1, 1, 9], np.int32), 12)
+    cnts = rng.integers(0, 300, 96).astype(np.int32)
+    args = (rec, torch.tensor(slots, device=cuda),
+            torch.tensor(cnts, device=cuda), 4, 28, b_pad, 4)
+    P.reset_launches()
+    got = P.slot_hist(*args)
+    ref = P.slot_hist_plain(*args)
+    assert P.LAUNCHES["slot_hist"] == 1
+    assert torch.equal(got[..., 2], ref[..., 2])
+    assert not bool(got[2].any())
+    scale = max(float(ref[..., :2].abs().max()), 1.0)
+    assert float((got[..., :2] - ref[..., :2]).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [256, 512])
+def test_proto_move_matches_plain_on_gpu(cuda, chunk):
+    """P2 against its twin over blocks of 1 to 40 chunks (one ends without
+    its last bit, one reads word lane 7), both written into an output
+    filled with -1: equal everywhere."""
+    rec, rng = _proto_records(100, chunk, 12, cuda)
+    params = np.zeros((100, 8), np.int32)
+    params[:, P.P_CNT] = rng.integers(0, chunk + 1, 100)
+    params[:, P.P_SHIFT] = rng.integers(0, 32, 100)
+    params[:, P.P_THR] = rng.integers(0, 256, 100)
+    edges = [0, 1, 41, 60, 61, 80, 100]
+    dest = 0
+    for blk, (c0, c1) in enumerate(zip(edges[:-1], edges[1:])):
+        params[c0:c1, P.P_WSEL] = 7 if blk == 2 else blk % P.NWORDS
+        params[c0:c1, P.P_SHIFT] = params[c0, P.P_SHIFT]
+        params[c0:c1, P.P_THR] = params[c0, P.P_THR]
+        span = -(-int(params[c0:c1, P.P_CNT].sum()) // chunk)
+        params[c0:c1, P.P_BASEL] = dest
+        params[c0:c1, P.P_BASER] = dest + span
+        dest += 2 * span + 1
+        params[c0, P.P_FIRST] = 1
+        params[c1 - 1, P.P_LAST] = blk != 3
+    pt = torch.tensor(params, device=cuda)
+    P.reset_launches()
+    got = P.move(rec, pt, dest, out=torch.full((dest, P.W, chunk), -1,
+                                               dtype=torch.int32,
+                                               device=cuda))
+    ref = P.move_plain(rec, pt, dest, out=torch.full_like(got, -1))
+    assert P.LAUNCHES["move"] == 1
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("left_share", [None, 0.9])
+@pytest.mark.parametrize("n", [1, 2, 24, 777])
+@pytest.mark.parametrize("wrap", [False, True])
+def test_proto_ring_stage_matches_plain_on_gpu(cuda, wrap, n, left_share):
+    """P3 against its twin, both variants, over random chunks of 512 rows
+    (one row in eight goes left) and chunks where nine in ten do: the
+    whole staging equal."""
+    rng = np.random.default_rng(n)
+    rec = rng.integers(0, 2**31 - 1, size=(n, P.W, 512), dtype=np.int32)
+    if left_share is not None:
+        key = np.where(rng.random((n, 512)) < left_share,
+                       rng.integers(0, 32, (n, 512)),
+                       rng.integers(32, 256, (n, 512)))
+        rec[:, 0] = (rec[:, 0] & ~255) | key
+    rec = torch.tensor(rec, device=cuda)
+    P.reset_launches()
+    got = P.ring_stage(rec, wrap)
+    assert P.LAUNCHES["compact_roll" if wrap else "route4c"] == 1
+    assert torch.equal(got, P.ring_stage_plain(rec, wrap))

@@ -24,7 +24,10 @@ def test_import_leaves_jax_out():
             "lightgbm_tpu_torch.ops.aligned, lightgbm_tpu_torch.ops.rank, "
             "lightgbm_tpu_torch.ops.ranking, "
             "lightgbm_tpu_torch.models.level_builder, "
-            "lightgbm_tpu_torch.models.aligned_builder; "
+            "lightgbm_tpu_torch.models.aligned_builder, "
+            "lightgbm_tpu_torch.ops.proto, "
+            "lightgbm_tpu_torch.tools.proto_aligned, "
+            "lightgbm_tpu_torch.tools.proto_roll; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'lightgbm_tpu' or "
             "m.startswith('lightgbm_tpu.')]; "

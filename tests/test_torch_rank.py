@@ -113,13 +113,69 @@ def test_sigmoid_table_matches_jax_fused(lut_bins):
     score = score * 4.0           # spread the inputs over many cells
     g0, h0 = _jax_grads(qb, labels, score, tpu_rank_fused="on",
                         tpu_rank_tile=128, tpu_rank_sigmoid_bins=lut_bins)
-    g1, h1 = _port_grads(qb, labels, score, tpu_rank_sigmoid_bins=lut_bins)
+    g1, h1 = _port_grads(qb, labels, score, tpu_rank_fused="on",
+                         tpu_rank_tile=128, tpu_rank_sigmoid_bins=lut_bins)
     np.testing.assert_allclose(g1, g0, rtol=1e-5,
                                atol=1e-4 * max(1.0, np.abs(g0).max()))
     np.testing.assert_allclose(h1, h0, rtol=1e-5,
                                atol=1e-4 * max(1.0, np.abs(h0).max()))
     exact = _port_grads(qb, labels, score)[0]
     assert np.abs(exact - g1).max() > 1e-3 * np.abs(exact).max()
+
+
+@pytest.mark.parametrize("mode", ["off", "auto", "on"])
+def test_sigmoid_table_only_where_jax_applies_it(mode):
+    """tpu_rank_sigmoid_bins 1024 with a 300-document query among short
+    ones. Under off, and under auto on the CPU, the JAX package computes
+    the exact sigmoid (its bucketed path): the port matches it within
+    1e-6 x max|g| and equals its own run without the table. Under on
+    with tile 128 the JAX fused kernel tables the queries of at most 128
+    documents and its bucketed path takes the 300: the port matches at
+    the fused tolerance, and its gradients on the 300 documents are the
+    table-free run's bit for bit."""
+    counts = [3, 50, 128, 90, 17, 1, 64, 300]
+    qb, labels, score = _inputs(counts, 4)
+    score = score * 4.0
+    keys = {"tpu_rank_fused": mode, "tpu_rank_sigmoid_bins": 1024}
+    if mode == "on":
+        keys["tpu_rank_tile"] = 128
+    g0, h0 = _jax_grads(qb, labels, score, **keys)
+    g1, h1 = _port_grads(qb, labels, score, **keys)
+    ge, he = _port_grads(qb, labels, score, tpu_rank_fused=mode)
+    if mode == "on":
+        np.testing.assert_allclose(g1, g0, rtol=1e-5,
+                                   atol=1e-4 * max(1.0, np.abs(g0).max()))
+        np.testing.assert_allclose(h1, h0, rtol=1e-5,
+                                   atol=1e-4 * max(1.0, np.abs(h0).max()))
+        long_q = slice(int(qb[-2]), int(qb[-1]))
+        assert np.array_equal(g1[long_q], ge[long_q])
+        assert np.array_equal(h1[long_q], he[long_q])
+        assert np.abs(g1 - ge).max() > 1e-3 * np.abs(ge).max()
+    else:
+        np.testing.assert_allclose(g1, g0, rtol=0,
+                                   atol=1e-6 * np.abs(g0).max())
+        np.testing.assert_allclose(h1, h0, rtol=0,
+                                   atol=1e-6 * np.abs(h0).max())
+        assert np.array_equal(g1, ge) and np.array_equal(h1, he)
+
+
+@pytest.mark.parametrize("keys,device,want", [
+    ({"tpu_rank_fused": "on", "tpu_rank_tile": 128}, "cpu", 128),
+    ({"tpu_rank_fused": "on", "tpu_rank_tile": 100}, "cpu", 128),
+    ({"tpu_rank_fused": "on", "tpu_rank_tile": 513}, "cpu", 640),
+    ({"tpu_rank_fused": "auto"}, "cpu", 0),
+    ({"tpu_rank_fused": "auto"}, "cuda", 512),
+    ({"tpu_rank_fused": "off"}, "cuda", 0),
+    ({"tpu_rank_fused": "on", "tpu_rank_sigmoid_bins": 0}, "cuda", 0),
+])
+def test_tabled_length_resolves_as_jax_fused_mode(keys, device, want):
+    """The longest tabled query: the JAX package's fused-mode resolution
+    (on; auto iff the accelerator, here the card, is attached; off), its
+    tile rounded up to a multiple of 128, 0 without the table."""
+    params = {"objective": "lambdarank", "device_type": "cpu",
+              "tpu_rank_sigmoid_bins": 1024, **keys}
+    obj = LambdarankNDCG(Config.from_params(params))
+    assert obj._tabled_length(torch.device(device)) == want
 
 
 def test_degenerate_queries_have_zero_gradients():
