@@ -34,7 +34,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    default ``tpu_grow_mode=auto``, which must take the aligned engine and
    say so in the log; launches of B2-B4 per tree, speculative rounds per
    tree and fallbacks; holdout AUC above 0.6 and within 2e-3 of the
-   leaf-wise run's; one profiled round at max_bin 63;
+   leaf-wise run's; one profiled round at each bin count, which also
+   prints the device time and launches of each kernel of aligned.cu
+   (B2's count, scan, scatter and child histograms apart; so does the
+   MSLR aligned round of phase 10);
 6. aligned kernels vs plain: one aligned tree at each bin count, in the
    COMPACT layout and in the STANDARD layout (``tpu_force_big_n``), with
    the engine's kernel calls recorded: the root's histogram pass, the
@@ -94,7 +97,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    the four kernel functions against its twin at those sizes (P1: counts
    equal, g/h within 1e-5 x the slot's sum of |g|; P2 and P3
    bit-equal), timed beside the twin, the bound and, for P1, one
-   ``index_add_``.
+   ``index_add_``; P1 once more at (256, 4) on payloads of random bits
+   (NaN and Inf among them), held against its twin cell by cell.
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -106,6 +110,7 @@ import argparse
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -125,6 +130,11 @@ SOURCES = {"histogram": KERNEL_SOURCE, "aligned": ALIGNED_SOURCE,
            "rank": RANK_SOURCE, "histogram_words": WORDS_SOURCE,
            "proto": PROTO_SOURCE}
 ROUNDS = {63: 10, 255: 5}
+# the kernels of aligned.cu: B2 move_pass launches count, scan, scatter and
+# the smaller children's slot_hist + hist_finalize; B4 slot_hist_pass (the
+# tree's root) slot_hist + hist_finalize; B3 count_pass count
+ALIGNED_KERNELS = ("count_kernel", "scan_kernel", "scatter_kernel",
+                   "slot_hist_kernel", "hist_finalize_kernel")
 MSLR_ROWS, MSLR_FEATURES = 2_270_000, 137     # bench.py stage 3
 MSLR_ROUNDS, MSLR_LEAF_ROUNDS = 6, 3
 NDCG_ROWS = 200_000
@@ -462,8 +472,7 @@ def phase_aligned_main(torch, lt, ds, params, X, y, rows: int, max_bin: int,
         f"{r['auc']:.6f} (leaf-wise {leaf['auc']:.6f}), predict "
         f"{r['predict_s']:.3f} s, peak device memory "
         f"{r['peak_bytes'] / 2**30:.3f} GiB")
-    if max_bin == 63:
-        r["profile"] = profile_round(torch, bst)
+    r["profile"] = profile_round(torch, bst)
     del bst, g
     torch.cuda.empty_cache()
     return r
@@ -695,8 +704,9 @@ def phase_aligned_parity(torch, lt, ds, params, max_bin: int,
 
 def profile_round(torch, bst) -> dict:
     """One more boosting round under `torch.profiler`: wall time, the
-    device's busy and idle share, host-device syncs, and the kernels that
-    take the most device time (read after the main path's counts)."""
+    device's busy and idle share, host-device syncs, the kernels that
+    take the most device time, and the device time and launches of each
+    kernel of aligned.cu by name (read after the main path's counts)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -722,8 +732,19 @@ def profile_round(torch, bst) -> dict:
         f"launches, {syncs} sync/copy calls")
     for ms, count, key in kernels[:10]:
         log(f"  {ms:9.3f} ms {count:6d}x {key[:90]}")
+    aligned = {}
+    for ms, count, key in kernels:
+        for name in ALIGNED_KERNELS:
+            if re.search(rf"\b{name}\b", key):
+                a = aligned.setdefault(name, {"ms": 0.0, "launches": 0})
+                a["ms"] += ms
+                a["launches"] += count
+    if aligned:
+        log("  aligned.cu kernels: " + ", ".join(
+            f"{name} {a['ms']:.3f} ms in {a['launches']} launches"
+            for name, a in aligned.items()))
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "launches": launches,
-            "syncs": syncs,
+            "syncs": syncs, "aligned_kernels": aligned,
             "top": [[k[2][:90], k[0], k[1]] for k in kernels[:10]]}
 
 
@@ -1353,6 +1374,55 @@ def proto_slot_hist_library_ms(torch, words, slot, gh, num_slots: int,
     return ms
 
 
+def proto_slot_hist_nonfinite(torch, rec, slots, cnts) -> dict:
+    """P1 at (256, 4) on ``rec`` with g and h lanes of random non-negative
+    int32 bits, as the TPU harness draws them: 1 value in 256 is NaN or
+    Inf, so most runs of a slot take the kernel's f64 path. NaN and Inf
+    cells where the twin has them, counts equal, finite g/h within 1e-5 x
+    the slot's sum of finite |g| (|h|), in f64; timed."""
+    from lightgbm_tpu_torch.ops import proto as P
+    from lightgbm_tpu_torch.tools import proto_aligned as HA
+    S, F = HA.NUM_SLOTS, HA.NUM_FEATURES
+    bits = rec.clone()
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    bits[:, P.LG:P.LH + 1] = torch.randint(
+        0, 2**31 - 1, bits[:, P.LG:P.LH + 1].shape, generator=gen,
+        device=DEVICE, dtype=torch.int32)
+    pay = bits[:, P.LG:P.LH + 1].view(torch.float32).double()
+    valid = torch.arange(rec.shape[2], device=DEVICE)[None, :] \
+        < cnts[:, None]
+    ok = torch.isfinite(pay) & valid[:, None, :]
+    nonfinite = int((~torch.isfinite(pay) & valid[:, None, :]).sum())
+    scale = torch.zeros((S, 2), dtype=torch.float64, device=DEVICE) \
+        .index_add_(0, slots.long(), torch.where(ok, pay.abs(), 0.0).sum(2))
+    got = P.slot_hist(bits, slots, cnts, S, F, 256, 4)
+    ref = P.slot_hist_plain(bits, slots, cnts, S, F, 256, 4)
+    torch.cuda.synchronize()
+    a, b = got[..., :2], ref[..., :2]
+    fin = torch.isfinite(b)
+    if not torch.equal(got[..., 2], ref[..., 2]) \
+            or not torch.equal(torch.isfinite(a), fin) \
+            or not torch.equal(a.isnan(), b.isnan()) \
+            or not torch.equal(a[b.isinf()], b[b.isinf()]):
+        raise AssertionError("slot_hist on non-finite payloads: counts or "
+                             "NaN/Inf cells differ from its twin")
+    err = torch.where(fin, (a.double() - b.double()).abs(), 0.0)
+    if bool((err > 1e-5 * scale[:, None, None, :]).any()):
+        raise AssertionError("slot_hist on non-finite payloads: finite g/h "
+                             "differ beyond 1e-5 x the slot's sum |.|")
+    r = {"nonfinite_values": nonfinite,
+         "nonfinite_cells": int((~fin).sum()),
+         "max_rel_err": float((err / scale[:, None, None, :]
+                               .clamp_min(1e-300)).max()),
+         "ms": cuda_ms(torch, lambda: P.slot_hist(bits, slots, cnts, S, F,
+                                                  256, 4), reps=3)}
+    log(f"kernel proto slot_hist (256, 4) on random-bit g/h "
+        f"({nonfinite} non-finite values, {r['nonfinite_cells']} "
+        f"non-finite cells, as its twin): {r['ms']:.4f} ms, max |d| / "
+        f"slot sum {r['max_rel_err']:.3e}")
+    return r
+
+
 def phase_proto_parity(torch) -> dict:
     """P1-P3 against their plain twins on the card at the harnesses'
     sizes, each timed beside the twin and its bound:
@@ -1391,13 +1461,20 @@ def phase_proto_parity(torch) -> dict:
         gh = torch.stack([g[c_idx, r_idx], h[c_idx, r_idx]], dim=1)
         slot_of_row = slots.long()[c_idx]
         del c_idx, r_idx
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
         for b_pad, group in HA.CONFIGS:
             what = f"C={chunk} B={b_pad} group={group}"
+            ctas = P.slot_hist_ctas_per_sm(
+                0, P.slot_hist_smem(chunk, F, b_pad)[1])
+            tile, smem, grid = P.slot_hist_launch_shape(
+                nc, chunk, F, b_pad, ctas, sms)
             got = P.slot_hist(rec, slots, cnts, S, F, b_pad, group)
             ref = P.slot_hist_plain(rec, slots, cnts, S, F, b_pad, group)
             err = check_hist(torch, got, ref, scale, f"slot_hist {what}")
             del got, ref
             r = {"max_abs_err": err, "rows": rows,
+                 "launch": {"tile_chunks": tile, "smem": smem,
+                            "ctas_per_sm": ctas, "grid": grid},
                  "ms": cuda_ms(torch, lambda: P.slot_hist(
                      rec, slots, cnts, S, F, b_pad, group)),
                  "plain_ms": cuda_ms(torch, lambda: P.slot_hist_plain(
@@ -1412,8 +1489,11 @@ def phase_proto_parity(torch) -> dict:
                 f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                 f"index_add_ {r['library_ms']:.4f} ms, bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max |d| "
-                f"{err:.3e}")
+                f"{err:.3e}, launch {r['launch']}")
         del words, gh, slot_of_row
+        if chunk == HA.CHUNKS[0]:
+            res["slot_hist_nonfinite"] = proto_slot_hist_nonfinite(
+                torch, rec, slots, cnts)
         # ---- P2: one block of every chunk
         key = ((rec[:, 1] >> 8) & 255) <= 127
         n_l = int((key & valid).sum())

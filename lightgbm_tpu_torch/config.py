@@ -382,6 +382,10 @@ class Config:
     # tpu_rank_tile documents under fused on, or auto on the card); 0 =
     # exact sigmoid everywhere
     tpu_rank_sigmoid_bins: int = 0
+    # the JAX package's quantized histograms (auto / on / off); the port
+    # does not quantize, which is what the JAX package does under auto off
+    # the TPU and under off, and raises on on (ROADMAP A.2)
+    tpu_quant_hist: str = "auto"
 
     # internal (set by trainer, reference config.h:832-833)
     is_parallel: bool = False

@@ -3,8 +3,9 @@
 The reference engine loop (`python-package/lightgbm/engine.py:239-267`):
 one boosting iteration per round, then the validation sets' metrics,
 recorded in ``evals_result`` and printed every round when
-``verbose_eval``, then the callbacks. Early stopping, callbacks that run
-before an iteration, ``fobj``/``feval`` and ``cv`` are later slices.
+``verbose_eval``, then the callbacks. Early stopping (a positive
+``early_stopping_round`` or alias raises), callbacks that run before an
+iteration, ``fobj``/``feval`` and ``cv`` are later slices.
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ CallbackEnv = collections.namedtuple(
 _ROUND_ALIASES = ("num_boost_round", "num_iterations", "num_iteration",
                   "n_iter", "num_tree", "num_trees", "num_round",
                   "num_rounds", "n_estimators")
+_EARLY_STOP_ALIASES = ("early_stopping_round", "early_stopping_rounds",
+                       "early_stopping")
 
 
 def train(params: Dict[str, Any], train_set: Dataset,
@@ -37,6 +40,12 @@ def train(params: Dict[str, Any], train_set: Dataset,
     if feval is not None:
         raise NotImplementedError("feval is not ported yet")
     params = dict(params)
+    for alias in _EARLY_STOP_ALIASES:
+        v = params.pop(alias, None)     # the JAX engine pops them too
+        if v is not None and int(float(v)) > 0:
+            raise NotImplementedError(
+                f"{alias}={v}: early stopping is not ported yet (ROADMAP "
+                "A.3); the JAX package would stop training early")
     for alias in _ROUND_ALIASES:
         if alias in params:
             num_boost_round = int(params.pop(alias))

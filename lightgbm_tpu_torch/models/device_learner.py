@@ -123,8 +123,7 @@ class DeviceTreeLearner:
         self.finder = make_split_finder(self.hyper, self.meta,
                                         self.max_bin_global, device)
         self.mappers = dataset.used_mappers()
-        self._feat_rng = torch.Generator().manual_seed(
-            int(cfg.feature_fraction_seed))
+        self._feat_rng = np.random.RandomState(cfg.feature_fraction_seed)
         self.hist_precision = "f64" if cfg.tpu_use_f64_hist else "f32"
         self._depth_limit = cfg.max_depth if cfg.max_depth > 0 else 1 << 30
         self._mono_any = bool(np.any(self.meta["monotone"] != 0))
@@ -142,13 +141,16 @@ class DeviceTreeLearner:
         return self._bins_T
 
     def feature_mask(self) -> Optional[np.ndarray]:
+        """The features one tree may split on (None: all), drawn as the
+        JAX package draws them, once per call in the same order, so that
+        its trees and the port's use the same subsets."""
         frac = self.cfg.feature_fraction
         if frac >= 1.0:
             return None
         used_cnt = max(1, int(round(self.num_features * frac)))
         mask = np.zeros(self.num_features, bool)
-        pick = torch.randperm(self.num_features, generator=self._feat_rng)
-        mask[pick[:used_cnt].numpy()] = True
+        mask[self._feat_rng.choice(self.num_features, used_cnt,
+                                   replace=False)] = True
         return mask
 
     def fmask_tensor(self, feature_mask: Optional[np.ndarray]

@@ -23,9 +23,8 @@
 //   P1 run_start_kernel marks, for each slot, the first chunk of its last
 //      run of consecutive chunks (the Pallas kernel zeroes the slot's
 //      block at each run's first chunk, so only the last run survives);
-//      slot_hist_kernel then sums the chunks of those runs as B4 does:
-//      shared-memory f64 g/h and u32 counts per feature tile, flushed with
-//      global atomics when the slot changes, rounded to f32 once;
+//      slot_hist_kernel then sums the chunks of those runs into f64 (its
+//      design is below) and hist_finalize_kernel rounds them to f32 once;
 //   P2 move_count_kernel counts each chunk's left rows, move_scan_kernel
 //      (one CTA) scans them within each block, move_scatter_kernel ranks
 //      each chunk's rows with warp ballots and writes all 16 lanes of a
@@ -47,7 +46,45 @@
 // the two payload lanes of every valid row (36 B) and writes the slots'
 // histograms; P2 reads and writes every valid row (64 B each way); P3
 // reads lane 0 of every row. The arithmetic is a few integer operations a
-// row (P1: 3 adds a row and feature) and far below the card's rates.
+// row (P1: 3 adds a row and feature) and far below the card's rates. What
+// holds P1 back in practice is its shared-memory atomics: five for every
+// (row, feature) whose bin lies below b_pad.
+//
+// P1's design (it was B4's until it was redesigned for Hopper):
+//   - Accumulation in 32-bit shared cells with native integer atomics. On
+//     sm_90a an f32 or f64 atomicAdd on shared memory, and a 64-bit
+//     integer one, compiles to a compare-and-swap loop (ATOMS.CAST.SPIN,
+//     .64); a 32-bit integer add is one ATOMS.ADD (cuobjdump -sass). So
+//     each run of one slot's chunks takes a scale from its largest |g|
+//     and |h| (a first pass over the run's two payload lanes), and each
+//     value v is split into two int32 words, v * 2^e = hi + lo * 2^-l,
+//     rounded once, in lo. With at most 2^nb rows in a run, m < 2^ex the
+//     run's largest |v|, e = 30 - nb - ex and l = 31 - nb, neither word's
+//     sum can overflow and a run's sum is off by at most m * 2^(3 nb -
+//     61): 1.9e-6 m for runs of up to 16384 rows, where m is at most the
+//     slot's sum of |v|. Counts are u32 (ATOMS.POPC.INC). At the end of
+//     a run each cell is decoded in f64 and added to the global f64 sums
+//     (REDG.E.ADD.F64, native); hist_finalize_kernel rounds once.
+//   - NaN and Inf. The first pass takes the largest |value| as an integer
+//     max over the bits (fmaxf would skip a NaN), so a non-finite g or h
+//     ranks above every finite one; such a run adds that stat of each of
+//     its rows straight to the f64 sums with global atomics, and NaN and
+//     Inf reach each cell as they reach the plain version's f64 sum.
+//   - One CTA of 1024 threads an SM (at most 64 registers a thread; ptxas
+//     gives it 61), which on the H100 ran faster at every b_pad than CTAs
+//     of 256 or 512 threads with more registers, one or more to an SM. CTAs take tiles of 16384
+//     rows (whole chunks) in turn, and stage a tile's slot, kept flag and
+//     count per chunk in shared memory once.
+//   - A thread takes one row at a time (consecutive threads, consecutive
+//     rows: each lane's loads coalesce) and loads all nine lanes before it
+//     adds, so the row's loads are in flight together. Two rows a thread
+//     (two row pointers, or one pointer to rows 2k and 2k + 1) ran out of
+//     registers and lost on the H100 at b_pad 64 and 256.
+//   - Warps start on different bin words (rotated by the warp's index).
+//     A warp adds a word's 4 feature sites one by one when the busiest
+//     lane has more than two of them in a bin, else in a loop over each
+//     lane's sites that are, which issues as many atomics as the busiest
+//     lane has sites: at a small b_pad most bins fall outside it.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -59,6 +96,7 @@ constexpr int kLaneG = kWords, kLaneH = kWords + 1;
 constexpr int kStats = 3;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;          // move count/scatter CTAs
+constexpr int kHistThreads = 1024;     // P1 slot_hist CTAs (ops/proto.py)
 constexpr int kScanThreads = 1024;
 constexpr int kRollThreshold = 31;     // P3: left iff (lane 0 & 255) <= 31
 // move params columns
@@ -96,84 +134,229 @@ __global__ void run_start_kernel(const int32_t* __restrict__ slots, int nc,
   }
 }
 
+// The CTA's sub-histogram: per cell the hi and lo int32 words of g and h
+// in fixed point and a u32 count, each added with one native
+// shared-memory integer atomic. A run whose g (h) holds a non-finite value
+// adds that stat straight to the slot's f64 sums instead (gx, hx), so that
+// NaN and Inf reach its cells as they reach an f64 sum.
+struct Cells {
+  unsigned *ghi, *glo, *hhi, *hlo, *n;   // [cells] each
+  double* sums;                          // the run's slot: [cells, 2] f64
+  bool gx, hx;
+  __device__ void add(int cell, unsigned gh, unsigned gl, unsigned hh,
+                      unsigned hl) const {
+    if (gx) {
+      atomicAdd(sums + 2 * cell, static_cast<double>(__uint_as_float(gh)));
+    } else {
+      atomicAdd(ghi + cell, gh);
+      atomicAdd(glo + cell, gl);
+    }
+    if (hx) {
+      atomicAdd(sums + 2 * cell + 1,
+                static_cast<double>(__uint_as_float(hh)));
+    } else {
+      atomicAdd(hhi + cell, hh);
+      atomicAdd(hlo + cell, hl);
+    }
+    atomicAdd(n + cell, 1u);
+  }
+};
+
+// The fixed-point form of one run's f32 values, at most 2^nb of them,
+// whose largest |v| has the bits mbits (those of |v| order as the values
+// do, and NaN and Inf lie above every finite one): v * 2^e = hi + lo *
+// 2^-l, hi and lo rounded to integers, so that 2^nb of either sum within
+// 2^30. A non-finite largest |v| makes the run exact: split passes the
+// value's bits through in hi.
+struct Fixed {
+  int e, l;
+  bool exact;
+  __device__ Fixed(unsigned mbits, int nb) {
+    exact = mbits >= 0x7f800000u;
+    int ex = 0;
+    if (!exact) frexpf(__uint_as_float(mbits), &ex);   // |v| < 2^ex
+    e = 30 - nb - ex;
+    l = 31 - nb;
+  }
+  __device__ void split(float v, unsigned& hi, unsigned& lo) const {
+    if (exact) {
+      hi = __float_as_uint(v);
+      lo = 0u;
+      return;
+    }
+    const float x = scalbnf(v, e);
+    const float r = rintf(x);
+    hi = static_cast<unsigned>(static_cast<int>(r));
+    lo = static_cast<unsigned>(__float2int_rn(scalbnf(x - r, l)));
+  }
+  __device__ double value(unsigned hi, unsigned lo) const {
+    return ldexp(static_cast<double>(static_cast<int>(hi))
+                 + ldexp(static_cast<double>(static_cast<int>(lo)), -l), -e);
+  }
+};
+
+// One row of a chunk (none when !valid) into the sub-histogram; every
+// lane of the warp calls it. Word slot w holds bin word (w + rot) mod
+// nwords. Of a word's 4 feature sites, those whose bin lies below b_pad
+// are added: site by site when the busiest lane has more than two of
+// them, else in a loop over each lane's own.
+__device__ __forceinline__ void add_row(const int32_t* p, int C, bool valid,
+                                        int num_features, int nwords,
+                                        int rot, int b_pad, const Cells& sm,
+                                        const Fixed& fg, const Fixed& fh) {
+  const float g = __int_as_float(__ldg(p + kLaneG * C));
+  const float h = __int_as_float(__ldg(p + kLaneH * C));
+  int word[kWords], lane_of[kWords];
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) {
+    int lw = w + rot;
+    lw -= lw >= nwords ? nwords : 0;
+    lane_of[w] = lw;
+    word[w] = w < nwords ? __ldg(p + static_cast<long long>(lw) * C) : 0;
+  }
+  unsigned gh, gl, hh, hl;
+  fg.split(g, gh, gl);
+  fh.split(h, hh, hl);
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) {
+    if (w >= nwords) break;
+    const int f0 = 4 * lane_of[w];
+    unsigned m = 0u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int b = (word[w] >> (8 * j)) & 255;
+      if (valid && f0 + j < num_features && b < b_pad) m |= 1u << j;
+    }
+    if (__reduce_max_sync(kFull, __popc(m)) > 2) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if ((m >> j) & 1u) {
+          sm.add((f0 + j) * b_pad + ((word[w] >> (8 * j)) & 255), gh, gl, hh,
+                 hl);
+        }
+      }
+    } else {
+      while (m != 0u) {
+        const int j = __ffs(m) - 1;
+        m &= m - 1u;
+        sm.add((f0 + j) * b_pad + ((word[w] >> (8 * j)) & 255), gh, gl, hh,
+               hl);
+      }
+    }
+  }
+}
+
 // (g, h) into gh [num_slots, F, b_pad, 2] f64 and the count into cnt
 // [num_slots, F, b_pad] u32 over the rows r < cnts[c] of every kept chunk.
-// A CTA walks a fixed range of chunks for one feature tile and flushes its
-// shared sub-histogram whenever the slot changes.
-__global__ void slot_hist_kernel(const int32_t* __restrict__ rec, int C,
-                                 int nc, int num_features, int b_pad,
-                                 int feat_per_block, int chunks_per_block,
-                                 const int32_t* __restrict__ slots,
-                                 const int32_t* __restrict__ cnts,
-                                 const int32_t* __restrict__ last_start,
-                                 int num_slots, double* __restrict__ gh_out,
-                                 unsigned* __restrict__ cnt_out) {
+// CTAs take tiles of tile_chunks chunks in turn; each run of one slot
+// within a tile is scaled, summed in the shared cells and added to the
+// f64 sums (a stat with a non-finite value straight into them).
+__global__ void __launch_bounds__(kHistThreads)
+slot_hist_kernel(const int32_t* __restrict__ rec, int C, int nc,
+                 int num_features, int b_pad, int tile_chunks,
+                 const int32_t* __restrict__ slots,
+                 const int32_t* __restrict__ cnts,
+                 const int32_t* __restrict__ last_start, int num_slots,
+                 double* __restrict__ gh_out, unsigned* __restrict__ cnt_out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int f0 = blockIdx.y * feat_per_block;
-  const int nf = min(feat_per_block, num_features - f0);
-  const int cells = nf * b_pad;
-  double* sh = reinterpret_cast<double*>(smem_raw);             // [cells, 2]
-  unsigned* sc = reinterpret_cast<unsigned*>(sh + 2 * cells);   // [cells]
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    sh[2 * i] = 0.0;
-    sh[2 * i + 1] = 0.0;
-    sc[i] = 0u;
-  }
-  __syncthreads();
-  const int c0 = blockIdx.x * chunks_per_block;
-  const int c1 = min(nc, c0 + chunks_per_block);
-  int cur = -1;
-  bool dirty = false;
-
-  auto flush = [&]() {
-    __syncthreads();
-    const long long base = (static_cast<long long>(cur) * num_features + f0)
-        * b_pad;
-    for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-      if (sc[i] != 0u) {
-        atomicAdd(gh_out + 2 * (base + i), sh[2 * i]);
-        atomicAdd(gh_out + 2 * (base + i) + 1, sh[2 * i + 1]);
-        atomicAdd(cnt_out + base + i, sc[i]);
-      }
-      sh[2 * i] = 0.0;
-      sh[2 * i + 1] = 0.0;
-      sc[i] = 0u;
+  const int cells = num_features * b_pad;
+  Cells sm;
+  sm.ghi = reinterpret_cast<unsigned*>(smem_raw);
+  sm.glo = sm.ghi + cells;
+  sm.hhi = sm.glo + cells;
+  sm.hlo = sm.hhi + cells;
+  sm.n = sm.hlo + cells;
+  int* tslot = reinterpret_cast<int*>(sm.n + cells);   // [tile_chunks]
+  int* tcnt = tslot + tile_chunks;                     // [tile_chunks]
+  unsigned* run_max = reinterpret_cast<unsigned*>(tcnt + tile_chunks);
+  for (int i = threadIdx.x; i < 5 * cells; i += blockDim.x) sm.ghi[i] = 0u;
+  if (threadIdx.x < 2) run_max[threadIdx.x] = 0u;
+  const int nwords = (num_features + 3) >> 2;
+  const int rot = (threadIdx.x >> 5) % nwords;
+  const int num_tiles = (nc + tile_chunks - 1) / tile_chunks;
+  for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+    const int t0 = tile * tile_chunks;
+    const int n = min(tile_chunks, nc - t0);
+    __syncthreads();                     // the last tile's readers are done
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int c = t0 + i, s = slots[c], k = min(cnts[c], C);
+      const bool keep = s >= 0 && s < num_slots && k > 0
+          && c >= last_start[s];
+      tslot[i] = keep ? s : -1;
+      tcnt[i] = k;
     }
     __syncthreads();
-  };
-
-  for (int c = c0; c < c1; ++c) {        // uniform over the CTA
-    const int s = slots[c];
-    if (s < 0 || s >= num_slots || c < last_start[s]) continue;
-    const int cnt = min(cnts[c], C);
-    if (cnt <= 0) continue;
-    if (s != cur) {
-      if (dirty) flush();
-      cur = s;
-    }
-    dirty = true;
-    const int32_t* chunk = rec + static_cast<long long>(c) * kW * C;
-    for (int r = threadIdx.x; r < cnt; r += blockDim.x) {
-      const double g = __int_as_float(chunk[kLaneG * C + r]);
-      const double h = __int_as_float(chunk[kLaneH * C + r]);
-      int wi = -1, word = 0;
-      for (int f = 0; f < nf; ++f) {
-        const int ff = f0 + f, w = ff >> 2;
-        if (w != wi) {
-          word = chunk[w * C + r];
-          wi = w;
+    for (int i = 0; i < n;) {            // uniform over the CTA
+      const int s = tslot[i];
+      int j = i + 1;
+      while (j < n && tslot[j] == s) ++j;
+      if (s >= 0) {
+        const int nq = (j - i) * C;
+        const int32_t* run = rec + static_cast<long long>(t0 + i) * kW * C;
+        // row q of the run: its address, and whether it is valid
+        auto row = [&](int q, const int32_t*& p) {
+          const int qq = min(q, nq - 1);
+          const int ci = qq / C;
+          const int r = qq - ci * C;
+          p = run + static_cast<long long>(ci) * kW * C + r;
+          return q < nq && r < tcnt[i + ci];
+        };
+        // 1. the bits of the run's largest |g| and |h|, which fix its
+        //    scale (integer max: NaN and Inf rank above every finite one)
+        unsigned mg = 0u, mh = 0u;
+        for (int q = threadIdx.x; q < nq; q += blockDim.x) {
+          const int32_t* p;
+          if (row(q, p)) {
+            mg = max(mg, static_cast<unsigned>(__ldg(p + kLaneG * C))
+                         & 0x7fffffffu);
+            mh = max(mh, static_cast<unsigned>(__ldg(p + kLaneH * C))
+                         & 0x7fffffffu);
+          }
         }
-        const int b = (word >> ((ff & 3) * 8)) & 255;
-        if (b < b_pad) {
-          const int cell = f * b_pad + b;
-          atomicAdd(sh + 2 * cell, g);
-          atomicAdd(sh + 2 * cell + 1, h);
-          atomicAdd(sc + cell, 1u);
+        mg = __reduce_max_sync(kFull, mg);
+        mh = __reduce_max_sync(kFull, mh);
+        if ((threadIdx.x & 31) == 0) {
+          atomicMax(run_max, mg);
+          atomicMax(run_max + 1, mh);
         }
+        __syncthreads();
+        const int nb = 32 - __clz(nq - 1);   // rows <= 2^nb
+        const Fixed fg(run_max[0], nb), fh(run_max[1], nb);
+        const long long base = static_cast<long long>(s) * cells;
+        sm.sums = gh_out + 2 * base;
+        sm.gx = fg.exact;
+        sm.hx = fh.exact;
+        // 2. the run's rows into the sub-histogram (whole warps)
+        for (int q0 = 0; q0 < nq; q0 += blockDim.x) {
+          const int32_t* p;
+          const bool valid = row(q0 + threadIdx.x, p);
+          add_row(p, C, valid, num_features, nwords, rot, b_pad, sm, fg, fh);
+        }
+        __syncthreads();
+        if (threadIdx.x < 2) run_max[threadIdx.x] = 0u;
+        // 3. the run into the f64 sums, one atomic a cell and stat
+        for (int c = threadIdx.x; c < cells; c += blockDim.x) {
+          const unsigned k = sm.n[c];
+          if (k == 0u) continue;
+          if (!fg.exact) {
+            atomicAdd(gh_out + 2 * (base + c), fg.value(sm.ghi[c], sm.glo[c]));
+          }
+          if (!fh.exact) {
+            atomicAdd(gh_out + 2 * (base + c) + 1,
+                      fh.value(sm.hhi[c], sm.hlo[c]));
+          }
+          atomicAdd(cnt_out + base + c, k);
+          sm.ghi[c] = 0u;
+          sm.glo[c] = 0u;
+          sm.hhi[c] = 0u;
+          sm.hlo[c] = 0u;
+          sm.n[c] = 0u;
+        }
+        __syncthreads();
       }
+      i = j;
     }
   }
-  if (dirty) flush();
 }
 
 // out [cells, 3] f32 = (g, h, count), each rounded once
@@ -473,12 +656,14 @@ extern "C" {
 
 // P1: out [num_slots, F, b_pad, 3] f32. last_start [num_slots] i32, gh
 // [num_slots, F, b_pad, 2] f64 and cnt [num_slots, F, b_pad] u32 are
-// scratch (set here). Returns the CUDA error code (0 = ok).
+// scratch (set here). tile_chunks, grid and smem are the launch shape of
+// ops/proto.py::slot_hist_launch_shape. Returns the CUDA error code (0 =
+// ok).
 int lgbt_proto_slot_hist(const void* rec, int nc, int C, const void* slots,
                          const void* cnts, int num_slots, int num_features,
-                         int b_pad, int feat_per_block, int blocks_x,
-                         int threads, void* last_start, void* gh, void* cnt,
-                         void* out, void* stream) {
+                         int b_pad, int tile_chunks, int grid, int smem,
+                         void* last_start, void* gh, void* cnt, void* out,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long cells =
       static_cast<long long>(num_slots) * num_features * b_pad;
@@ -497,17 +682,13 @@ int lgbt_proto_slot_hist(const void* rec, int nc, int C, const void* slots,
         sl, nc, num_slots, static_cast<int32_t*>(last_start));
     int err = check();
     if (err != 0) return err;
-    const size_t smem = static_cast<size_t>(feat_per_block) * b_pad
-        * (2 * sizeof(double) + sizeof(unsigned));
     e = cudaFuncSetAttribute(slot_hist_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+                             smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    const int grid_y = (num_features + feat_per_block - 1) / feat_per_block;
-    const int cpb = (nc + blocks_x - 1) / blocks_x;
-    slot_hist_kernel<<<dim3(blocks_x, grid_y), threads, smem, s>>>(
+    slot_hist_kernel<<<grid, kHistThreads, smem, s>>>(
         static_cast<const int32_t*>(rec), C, nc, num_features, b_pad,
-        feat_per_block, cpb, sl, static_cast<const int32_t*>(cnts),
+        tile_chunks, sl, static_cast<const int32_t*>(cnts),
         static_cast<const int32_t*>(last_start), num_slots,
         static_cast<double*>(gh), static_cast<unsigned*>(cnt));
     err = check();
@@ -587,14 +768,22 @@ int lgbt_proto_ring_stage(const void* rec, int n, int C, int wrap, void* kl,
   return check();
 }
 
-// Largest dynamic shared memory a block may opt in to on `device`.
-int lgbt_proto_smem_optin(int device) {
-  int v = 0;
-  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess) {
+// CTAs of slot_hist_kernel that the CUDA occupancy calculator fits on an
+// SM of the current device with `smem` bytes of dynamic shared memory
+// each; 0 where they do not fit, -1 on a CUDA error.
+int lgbt_proto_slot_hist_occupancy(int smem) {
+  int n = -1;
+  if (cudaFuncSetAttribute(slot_hist_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess) {
+    cudaGetLastError();                  // too much: clear the error
+    return 0;
+  }
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, slot_hist_kernel, kHistThreads, smem) != cudaSuccess) {
     return -1;
   }
-  return v;
+  return n;
 }
 
 }  // extern "C"

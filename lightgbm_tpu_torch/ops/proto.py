@@ -29,12 +29,10 @@ harness's numpy oracles.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
-
-from .aligned import hist_launch_shape
 
 W = 16                      # record lanes (i32)
 NWORDS = 7                  # packed bin words for 28 features
@@ -49,11 +47,20 @@ CNT_LIMIT = 1 << 20
 # is at most 31
 ROLL_THRESHOLD = 31
 
+# P1's CTA (proto.cu kHistThreads) and its tiles: a CTA sums at most a
+# tile's rows in fixed point before it adds them to the f64 sums (the
+# rows bound the rounding, proto.cu)
+SLOT_HIST_THREADS = 1024
+SLOT_HIST_TILE_ROWS = 16384
+SLOT_HIST_MAX_TILE_CHUNKS = 256
+_SLOT_HIST_CELL_BYTES = 20         # hi/lo int32 of g and of h, u32 count
+
 # kernel launches by wrapper (a CPU call of a twin does not count)
 LAUNCHES: Dict[str, int] = {"slot_hist": 0, "move": 0, "route4c": 0,
                             "compact_roll": 0}
 
 _fns: Dict[str, object] = {}
+_ctas: Dict[Tuple[int, int], int] = {}
 
 
 def reset_launches() -> None:
@@ -309,11 +316,11 @@ def _lib():
         lib = cuda_build.load("proto")
         p, i = ctypes.c_void_p, ctypes.c_int
         sigs = {
-            "lgbt_proto_slot_hist": [p, i, i, p, p, i, i, i, i, i, i, p, p,
-                                     p, p, p],
+            "lgbt_proto_slot_hist": [p, i, i, p, p, i, i, i, i, i, i,
+                                     p, p, p, p, p],
             "lgbt_proto_move": [p, i, i, p, i, p, p, p, p, p],
             "lgbt_proto_ring_stage": [p, i, i, i, p, p, p, p, p, p],
-            "lgbt_proto_smem_optin": [i],
+            "lgbt_proto_slot_hist_occupancy": [i],
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)
@@ -332,9 +339,46 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-def _threads_for(C: int) -> int:
-    """Threads of a CTA that walks a chunk's rows: one a row up to 512."""
-    return min(512, max(32, -(-C // 32) * 32))
+def slot_hist_smem(C: int, num_features: int, b_pad: int) -> Tuple[int, int]:
+    """(tile_chunks, shared bytes per CTA) of P1's kernel: a CTA holds
+    every feature's cells and one tile's chunk metadata, a tile is
+    `SLOT_HIST_TILE_ROWS` rows of whole chunks."""
+    if C > SLOT_HIST_TILE_ROWS:
+        raise ValueError(f"slot_hist takes chunks of at most "
+                         f"{SLOT_HIST_TILE_ROWS} rows, got {C}")
+    tile_chunks = min(SLOT_HIST_MAX_TILE_CHUNKS, SLOT_HIST_TILE_ROWS // C)
+    smem = _SLOT_HIST_CELL_BYTES * num_features * b_pad + 8 * tile_chunks \
+        + 8
+    return tile_chunks, smem
+
+
+def slot_hist_launch_shape(nc: int, C: int, num_features: int, b_pad: int,
+                           ctas_per_sm: int, num_sms: int):
+    """(tile_chunks, shared bytes per CTA, grid) of P1's kernel, given the
+    CTAs of `SLOT_HIST_THREADS` threads an SM holds at that shared memory
+    (`slot_hist_ctas_per_sm` on the card): that many CTAs per SM, or one
+    per tile if fewer, each taking tiles of ``tile_chunks`` chunks in
+    turn."""
+    tile_chunks, smem = slot_hist_smem(C, num_features, b_pad)
+    if ctas_per_sm < 1:
+        raise ValueError(f"{num_features} features x {b_pad} bins "
+                         f"({smem} B) exceed an SM's shared memory")
+    tiles = -(-nc // tile_chunks)
+    return tile_chunks, smem, max(1, min(tiles, ctas_per_sm * num_sms))
+
+
+def slot_hist_ctas_per_sm(ordinal: int, smem: int) -> int:
+    """CTAs of P1's kernel with ``smem`` bytes of shared memory each that
+    the CUDA occupancy calculator fits on an SM of device ``ordinal`` (0
+    where one does not fit)."""
+    key = (ordinal, smem)
+    if key not in _ctas:
+        with torch.cuda.device(ordinal):
+            n = _lib()["lgbt_proto_slot_hist_occupancy"](smem)
+        if n < 0:
+            raise RuntimeError("slot_hist: the CUDA occupancy query failed")
+        _ctas[key] = n
+    return _ctas[key]
 
 
 def slot_hist(records, slots, cnts, num_slots, num_features, b_pad,
@@ -346,7 +390,12 @@ def slot_hist(records, slots, cnts, num_slots, num_features, b_pad,
     whose chunks form several separate runs keeps its last run; a slot no
     chunk reaches is zero; chunks whose slot lies outside [0, num_slots)
     add nothing. ``group`` (the TPU kernel's MXU tiling) changes no
-    output and is only checked. Sums are f64, rounded to f32 once."""
+    output and is only checked. On the card chunks hold at most
+    `SLOT_HIST_TILE_ROWS` rows: the kernel sums each slot's rows of a
+    tile in fixed point scaled to their largest |g| (|h|), off by at most
+    1.9e-6 of it, then in f64, rounded to f32 once; a tile's run of one
+    slot that holds a non-finite g (h) sums that stat in f64 throughout,
+    so NaN and Inf come out as the twin's."""
     if not records.is_cuda:
         return slot_hist_plain(records, slots, cnts, num_slots,
                                num_features, b_pad, group)
@@ -356,21 +405,19 @@ def slot_hist(records, slots, cnts, num_slots, num_features, b_pad,
     dev = records.device
     ordinal = dev.index if dev.index is not None \
         else torch.cuda.current_device()
-    fns = _lib()
-    # B4's shared-memory layout per (feature, bin), so B4's launch shape
-    fpb, blocks = hist_launch_shape(
-        nc, num_features, b_pad,
-        torch.cuda.get_device_properties(ordinal).multi_processor_count,
-        fns["lgbt_proto_smem_optin"](ordinal))
+    _, smem = slot_hist_smem(C, num_features, b_pad)
+    tile_chunks, smem, grid = slot_hist_launch_shape(
+        nc, C, num_features, b_pad, slot_hist_ctas_per_sm(ordinal, smem),
+        torch.cuda.get_device_properties(ordinal).multi_processor_count)
     cells = (num_slots, num_features, b_pad)
     out = torch.empty(cells + (NUM_STATS,), dtype=torch.float32, device=dev)
     gh = torch.empty(cells + (2,), dtype=torch.float64, device=dev)
     cnt = torch.empty(cells, dtype=torch.int32, device=dev)
     last = torch.empty(num_slots, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = fns["lgbt_proto_slot_hist"](
+        err = _lib()["lgbt_proto_slot_hist"](
             records.data_ptr(), nc, C, slots.data_ptr(), cnts.data_ptr(),
-            num_slots, num_features, b_pad, fpb, blocks, _threads_for(C),
+            num_slots, num_features, b_pad, tile_chunks, grid, smem,
             last.data_ptr(), gh.data_ptr(), cnt.data_ptr(), out.data_ptr(),
             _stream(dev))
     _raise_on(err, "slot_hist")

@@ -8,7 +8,8 @@ tools/proto_aligned.py.
 oracles on twelve chunks of 256 rows; `main` then times `slot_hist` at
 four (b_pad, group) configurations over 384 slots and `move` over one
 block of every chunk, at chunks of 256 and 512 rows over ``n_rows``
-random rows (default 10,485,760), and prints ms and ns per row. It runs
+random rows (default 10,485,760; random bin words, normal g and |normal|
+h), and prints ms and ns per row. It runs
 on the card unless ``--device cpu`` is given. The exit code is 1 when a
 correctness check fails.
 """
@@ -144,6 +145,10 @@ def main(n_rows: int = N_ROWS, device: str = "cuda") -> dict:
         nc = n // chunk
         rec = rng.integers(0, 2**31 - 1, size=(nc, P.W, chunk),
                            dtype=np.int32)
+        rec[:, P.LG] = rng.standard_normal((nc, chunk), np.float32) \
+            .view(np.int32)
+        rec[:, P.LH] = np.abs(rng.standard_normal((nc, chunk), np.float32)) \
+            .view(np.int32)
         rec_dev = _t(rec, dev)
         slots_dev = _t(slot_map(nc), dev)
         cnts_dev = _t(np.full(nc, chunk, np.int32), dev)

@@ -277,23 +277,81 @@ def _proto_records(nc, chunk, seed, cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b_pad", [256, 64, 16])
-def test_proto_slot_hist_matches_plain_on_gpu(cuda, b_pad):
-    """P1 against its twin over partial chunks whose slots revisit earlier
-    slots (the last run wins), skip a slot and leave the range: counts
-    equal, g/h within 1e-5 x the largest |sum| (both sum in f64)."""
-    rec, rng = _proto_records(96, 256, 11, cuda)
-    slots = np.repeat(np.array([0, 3, 0, 1, 3, -1, 1, 9], np.int32), 12)
-    cnts = rng.integers(0, 300, 96).astype(np.int32)
+@pytest.mark.parametrize("chunk", [256, 512, 250])
+def test_proto_slot_hist_matches_plain_on_gpu(cuda, chunk, b_pad):
+    """P1 against its twin over partial chunks (odd counts, and counts
+    below 0 or above the chunk) whose slots revisit earlier slots (the
+    last run wins), skip a slot and leave the range, with kept runs that
+    cross the kernel's tiles; chunks of 256, 512 and 250 rows: counts
+    equal, g/h within 1e-5 x the largest |sum|."""
+    nc = 160
+    rec, rng = _proto_records(nc, chunk, 11 + chunk, cuda)
+    # runs of 20 chunks: slot 1's only run spans chunks 60-79 across the
+    # tiles of 64 (chunks of 256), 32 (512) and 65 (250) chunks
+    slots = np.repeat(np.array([0, 3, 0, 1, 3, -1, 2, 9], np.int32), 20)
+    cnts = rng.integers(-5, chunk + 40, nc).astype(np.int32)
+    cnts[rng.random(nc) < 0.5] |= 1
     args = (rec, torch.tensor(slots, device=cuda),
-            torch.tensor(cnts, device=cuda), 4, 28, b_pad, 4)
+            torch.tensor(cnts, device=cuda), 5, 28, b_pad, 4)
     P.reset_launches()
     got = P.slot_hist(*args)
     ref = P.slot_hist_plain(*args)
     assert P.LAUNCHES["slot_hist"] == 1
     assert torch.equal(got[..., 2], ref[..., 2])
-    assert not bool(got[2].any())
+    assert not bool(got[4].any())
     scale = max(float(ref[..., :2].abs().max()), 1.0)
     assert float((got[..., :2] - ref[..., :2]).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_proto_slot_hist_nonfinite_on_gpu(cuda):
+    """P1 with NaN, +Inf and -Inf among g and h, in the kept runs of some
+    slots and in a dropped run of another: each cell is NaN, Inf (of its
+    sign) or finite where its twin's is; counts equal; the finite cells
+    within 1e-5 x the largest finite |sum|."""
+    nc, chunk = 96, 256
+    rec, rng = _proto_records(nc, chunk, 21, cuda)
+    pay = rec[:, P.LG:P.LH + 1].view(torch.float32)
+    # runs of 8 chunks; the last run of each slot is kept. Chunk 3 (slot
+    # 0's dropped run): NaN g; 18 (slot 0's kept run): NaN g; 33 and 36
+    # (slot 3): +Inf and -Inf h in rows with the same bins, so their
+    # cells are NaN; 50 (slot 1's kept run): +Inf g; the rest finite
+    pay[3, 0, 9] = float("nan")
+    pay[18, 0, 5] = float("nan")
+    pay[33, 1, 7] = float("inf")
+    pay[36, 1, 100] = float("-inf")
+    rec[36, :P.NWORDS, 100] = rec[33, :P.NWORDS, 7]
+    pay[50, 0, 0] = float("inf")
+    slots = np.repeat(np.array([0, 1, 0, 2, 3, 2, 1, 4, 5, 6, 7, 5],
+                               np.int32), 8)
+    cnts = np.full(nc, chunk, np.int32)
+    args = (rec, torch.tensor(slots, device=cuda),
+            torch.tensor(cnts, device=cuda), 8, 28, 256, 4)
+    got = P.slot_hist(*args)
+    ref = P.slot_hist_plain(*args)
+    a, b = got[..., :2], ref[..., :2]
+    assert bool(b.isnan().any()) and bool(b.isinf().any())
+    assert torch.equal(got[..., 2], ref[..., 2])
+    assert torch.equal(a.isnan(), b.isnan())
+    assert torch.equal(a.isinf(), b.isinf())
+    assert torch.equal(a[b.isinf()], b[b.isinf()])
+    fin = torch.isfinite(b)
+    scale = max(float(b[fin].abs().max()), 1.0)
+    assert float((a[fin] - b[fin]).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_proto_slot_hist_ctas_per_sm_on_gpu(cuda):
+    """The CUDA occupancy calculator fits at least one of P1's CTAs on an
+    SM at every b_pad, and never fewer as b_pad falls; shared memory
+    beyond the card's fits none, and the launch shape raises there."""
+    ordinal = cuda.index or 0
+    ctas = [P.slot_hist_ctas_per_sm(ordinal, P.slot_hist_smem(256, 28, b)[1])
+            for b in (256, 64, 16)]
+    assert ctas[0] >= 1 and ctas == sorted(ctas)
+    assert P.slot_hist_ctas_per_sm(ordinal, 1 << 20) == 0
+    with pytest.raises(ValueError, match="shared memory"):
+        P.slot_hist_launch_shape(100, 256, 28, 256, 0, 132)
 
 
 @pytest.mark.cuda

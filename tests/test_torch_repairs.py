@@ -1,0 +1,174 @@
+"""The port against the JAX package on the CPU where the port used to
+diverge without a word (ROADMAP C.17, C.20, C.21), and what holds of the
+clamped leaf output (C.18, deferred to the split-scan kernel):
+
+- ``feature_fraction < 1`` draws the JAX package's feature subsets, so
+  the f64 leaf-wise model text is byte-equal and the aligned engine
+  splits on the same features;
+- early stopping and ``tpu_quant_hist=on``, not ported yet, raise where
+  they used to train silently; their off values train as before;
+- under ``max_delta_step`` the f64 leaf-wise raw predictions equal the
+  JAX package's."""
+import jax
+import jax.experimental
+import numpy as np
+import pytest
+
+import lightgbm_tpu as jlgb
+import lightgbm_tpu_torch as tlgb
+
+ROUNDS = 5
+SLICE = {"objective": "binary", "tpu_grow_mode": "leafwise",
+         "num_leaves": 31, "max_bin": 63, "learning_rate": 0.1,
+         "verbosity": -1, "tpu_use_f64_hist": True}
+
+
+def _slice_data():
+    """tests/test_torch_slice.py's data: 4,000 x 10 training rows with 5%
+    missing values and 2,000 test rows."""
+    rng = np.random.RandomState(0)
+    X = rng.standard_normal((6000, 10))
+    X[rng.rand(*X.shape) < 0.05] = np.nan
+    z = np.nan_to_num(X)
+    margin = z[:, 0] - 0.8 * z[:, 1] * z[:, 2] + 0.5 * np.sin(2 * z[:, 3])
+    y = (rng.rand(len(X)) < 1 / (1 + np.exp(-margin))).astype(np.float64)
+    return X[:4000], y[:4000], X[4000:]
+
+
+def _aligned_data():
+    """tests/test_torch_aligned.py's data: 2,500 x 6."""
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((2500, 6)).astype(np.float32)
+    y = ((X[:, 0] + X[:, 1] * X[:, 2]
+          + 0.3 * rng.standard_normal(2500)) > 0).astype(np.float32)
+    return X, y
+
+
+def _tree_sections(booster):
+    text = booster.model_to_string()
+    return text[text.index("Tree=0"):text.index("end of trees")]
+
+
+@pytest.fixture
+def x64(monkeypatch):
+    """The JAX package's f64 mode enters `jax.experimental.enable_x64()`,
+    which JAX 0.9 removed (ROADMAP C.5); give it the replacement."""
+    monkeypatch.setattr(jax.experimental, "enable_x64",
+                        lambda: jax.enable_x64(True), raising=False)
+
+
+def _leafwise_pair(params):
+    X, y, Xte = _slice_data()
+    jb = jlgb.train(params, jlgb.Dataset(X, label=y),
+                    num_boost_round=ROUNDS, verbose_eval=False)
+    tb = tlgb.train({**params, "device_type": "cpu"},
+                    tlgb.Dataset(X, label=y), num_boost_round=ROUNDS,
+                    verbose_eval=False)
+    return jb, tb, Xte
+
+
+@pytest.mark.parametrize("path", ["leafwise", "aligned"])
+@pytest.mark.parametrize("frac", [0.5, 0.9])
+def test_feature_fraction_matches_jax(x64, frac, path):
+    """C.17: one subset drawn per tree with the JAX package's
+    `RandomState(feature_fraction_seed).choice`, in its order. Leaf-wise
+    in f64 the tree sections of the model text are the JAX package's byte
+    for byte; the aligned engine (its kernels' twins against the JAX
+    package's interpret mode) splits on the same features at the same
+    thresholds, leaf values at test_torch_aligned.py's tolerance."""
+    if path == "leafwise":
+        jb, tb, _ = _leafwise_pair({**SLICE, "feature_fraction": frac})
+        assert tb.num_trees() == jb.num_trees() == ROUNDS
+        assert _tree_sections(tb) == _tree_sections(jb)
+        return
+    X, y = _aligned_data()
+    params = {"objective": "binary", "num_leaves": 8, "max_bin": 63,
+              "learning_rate": 0.1, "min_data_in_leaf": 20,
+              "verbosity": -1, "metric": "none", "tpu_grow_mode": "aligned",
+              "tpu_aligned_interpret": True, "tpu_chunk": 256,
+              "feature_fraction": frac}
+    jb = jlgb.Booster(params=params, train_set=jlgb.Dataset(
+        X, label=y, params=params).construct())
+    for _ in range(ROUNDS):
+        jb.update()
+    jtrees = jb._gbdt.materialized_models()
+    tb = tlgb.train({**params, "device_type": "cpu"},
+                    tlgb.Dataset(X, label=y), num_boost_round=ROUNDS,
+                    verbose_eval=False)
+    assert tb._gbdt.train_path == "aligned"
+    assert len(tb.trees) == len(jtrees) == ROUNDS
+    used = set()
+    for a, b in zip(jtrees, tb.trees):
+        k = b.num_leaves - 1
+        assert a.num_leaves == b.num_leaves
+        assert list(a.split_feature[:k]) == list(b.split_feature[:k])
+        assert list(a.threshold_in_bin[:k]) == list(b.threshold_in_bin[:k])
+        np.testing.assert_allclose(np.asarray(a.leaf_value[:k + 1]),
+                                   b.leaf_value[:k + 1], rtol=1e-4,
+                                   atol=1e-5)
+        used |= set(b.split_feature[:k].tolist())
+    if frac == 0.5:
+        # three of six features per tree: the subsets changed from tree
+        # to tree, or every tree would split on the same three
+        assert len(used) > 3
+
+
+@pytest.mark.parametrize("alias", ["early_stopping_round",
+                                   "early_stopping_rounds",
+                                   "early_stopping"])
+def test_early_stopping_raises(alias):
+    """C.20: a positive early-stopping round in params raises, naming
+    ROADMAP A.3, where the port used to train every round."""
+    X, y, _ = _slice_data()
+    ds = tlgb.Dataset(X, label=y)
+    with pytest.raises(NotImplementedError, match="A.3"):
+        tlgb.train({**SLICE, "device_type": "cpu", alias: 3}, ds,
+                   num_boost_round=ROUNDS, valid_sets=[ds],
+                   verbose_eval=False)
+
+
+@pytest.mark.parametrize("value", [0, None])
+def test_early_stopping_off_trains(value):
+    X, y, _ = _slice_data()
+    bst = tlgb.train({**SLICE, "device_type": "cpu",
+                      "early_stopping_round": value},
+                     tlgb.Dataset(X, label=y), num_boost_round=ROUNDS,
+                     verbose_eval=False)
+    assert bst.num_trees() == ROUNDS
+
+
+def test_quant_hist_on_raises():
+    """C.21: tpu_quant_hist=on raises, naming ROADMAP A.2, instead of
+    training unquantized. (The JAX package quantizes under on, on the CPU
+    too, unless something keeps full-precision payloads: f64 histograms,
+    as SLICE's, the level builder or a parallel learner.)"""
+    X, y, _ = _slice_data()
+    with pytest.raises(NotImplementedError, match="A.2"):
+        tlgb.train({**SLICE, "device_type": "cpu", "tpu_quant_hist": "on"},
+                   tlgb.Dataset(X, label=y), num_boost_round=ROUNDS,
+                   verbose_eval=False)
+
+
+@pytest.mark.parametrize("mode", ["auto", "off"])
+def test_quant_hist_auto_and_off_train_as_jax(x64, mode):
+    """Under auto and off the port trains on: its f64 leaf-wise tree
+    sections are the JAX package's under the same mode, byte for byte
+    (which quantizes under neither here: off never, auto only on a
+    TPU)."""
+    jb, tb, _ = _leafwise_pair({**SLICE, "tpu_quant_hist": mode})
+    assert tb.num_trees() == jb.num_trees() == ROUNDS
+    assert _tree_sections(tb) == _tree_sections(jb)
+
+
+@pytest.mark.parametrize("lambda_l1", [0.0, 1.0])
+def test_max_delta_step_predictions_equal_jax(x64, lambda_l1):
+    """C.18 (deferred): under max_delta_step 0.3 the f64 leaf-wise trees
+    give the JAX package's raw predictions exactly. The model text is not
+    byte-equal (one split gain differs in its last digits, and two splits
+    of tree 0 then come in the other order), so neither it nor the leaf
+    indices are compared."""
+    jb, tb, Xte = _leafwise_pair({**SLICE, "max_delta_step": 0.3,
+                                  "lambda_l1": lambda_l1})
+    assert tb.num_trees() == jb.num_trees() == ROUNDS
+    np.testing.assert_array_equal(tb.predict(Xte, raw_score=True),
+                                  jb.predict(Xte, raw_score=True))
