@@ -12,7 +12,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``lightgbm_tpu_torch/ops/csrc/histogram.cu``; kernels B2-B4,
    ``lightgbm_tpu_torch/ops/csrc/aligned.cu``; B5,
    ``histogram_words.cu``; B6, ``rank.cu``; the prototypes P1-P3,
-   ``proto.cu``);
+   ``proto.cu``); then ``cuobjdump -sass`` of the aligned library's
+   histogram kernel (B4, B2's smaller children), printed whole with the
+   count of each atomic opcode: it fails on a compare-and-swap loop
+   (``ATOMS.CAST.SPIN``, an f32/f64/u64 shared-memory add on sm_90a);
 3. kernel vs plain: the histogram kernel against its plain PyTorch twin
    on the card at the main path's shapes (10.5M x 28), at 63 and 255
    bins, over the contiguous root and over a large (half the rows) and a
@@ -45,8 +48,15 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    that round's count pass), replayed through each kernel and its plain
    twin on the card: counts equal, moved records equal on the rows the
    new layout covers, histogram counts equal and g/h within 1e-5 x the
-   slot's sum of |g| (|h|); each kernel timed beside its twin, its byte
-   bound and, for B4, one ``index_add_``;
+   slot's sum of |g| (|h|), the largest |difference| over that sum
+   printed for each check (the fixed-point sums are not bit-equal to the
+   twins' f64 sums); on STANDARD records B4 once more with NaN, +Inf and
+   -Inf written into the grad/hess lanes, cell by cell against the twin;
+   each kernel timed beside its twin, its byte bound and, for B4, one
+   ``index_add_``; then B2's smaller-child histograms of the widest round
+   alone (the histogram kernel over the moved records and the children's
+   chunk map), checked, timed beside the twin, the bound and one
+   ``index_add_``;
 7. big-n path: an aligned run with ``tpu_force_big_n`` (STANDARD records,
    the exact i32 count pass, kernel B3) at max_bin 63, 3 rounds;
 8. f64 determinism: small f64-histogram leaf-wise and level
@@ -70,7 +80,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    rounds within 5e-3 of each other and both above an all-zero score's;
    one profiled round each;
 11. EXT kernels vs plain: phase 6 on the inputs of one aligned
-   lambdarank tree at the MSLR shape (255 bins, ``gh_off`` 1);
+   lambdarank tree at the MSLR shape (255 bins, ``gh_off`` 1), the
+   NaN/Inf check of B4 included;
 12. level kernel vs plain: kernel B5
    (``lightgbm_tpu_torch/ops/csrc/histogram_words.cu``) on the inputs of
    one level tree at the HIGGS shape, 63 and 255 bins: the root (one
@@ -238,6 +249,36 @@ def phase_build() -> None:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+
+
+def phase_sass() -> dict:
+    """``cuobjdump -sass`` of the built aligned library's histogram kernel
+    (B4, and B2's smaller children), printed whole; fails if it holds a
+    compare-and-swap loop (``ATOMS.CAST.SPIN``, what an f32, f64 or u64
+    shared-memory atomicAdd compiles to on sm_90a). Returns the count of
+    each atomic opcode."""
+    from lightgbm_tpu_torch.utils import cuda_build
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()),
+                        "cuobjdump")
+    text = subprocess.run([tool, "-sass", cuda_build.library_path(
+        "aligned")], capture_output=True, text=True, check=True).stdout
+    funcs = re.split(r"\n\s*Function : ", text)
+    body = [f for f in funcs[1:] if "slot_hist_kernel" in f.split()[0]]
+    if len(body) != 1:
+        raise AssertionError("sass: slot_hist_kernel not found once in the "
+                             "aligned library")
+    lines = body[0].splitlines()
+    log(f"sass of {lines[0].strip()} ({len(lines)} lines):")
+    for line in lines:
+        log(f"  {line.rstrip()}")
+    ops: dict = {}
+    for op in re.findall(r"\b((?:ATOMS|ATOMG|ATOM|RED|REDG)\.[A-Z0-9_.]+)",
+                         body[0]):
+        ops[op] = ops.get(op, 0) + 1
+    log(f"sass slot_hist_kernel atomics: {ops}")
+    if any("CAST.SPIN" in op for op in ops):
+        raise AssertionError("sass: slot_hist_kernel holds ATOMS.CAST.SPIN")
+    return ops
 
 
 def check_parity(torch, H, binm, gh, idx, begin, count, bins, prec,
@@ -550,11 +591,14 @@ def capture_kernel_calls(torch, lt, ds, params) -> dict:
 def slot_abs_sums(torch, A, rec, slot_of_chunk, meta, k, wcnt, grad,
                   gh_off=2):
     """[k, 2] sum of |g| and |h| over the valid rows of each slot's chunks
-    (the scale of the histogram tolerance)."""
+    (the scale of the histogram tolerance); NaN and Inf add nothing."""
     g, h = A._payload(rec, wcnt, grad, gh_off)
     valid = A._valid_rows(meta, rec.shape[2])
-    per_chunk = torch.stack([torch.where(valid, g.abs(), 0.0).sum(1),
-                             torch.where(valid, h.abs(), 0.0).sum(1)], dim=1)
+
+    def fin(x):
+        return torch.where(valid & torch.isfinite(x), x.abs(), 0.0)
+
+    per_chunk = torch.stack([fin(g).sum(1), fin(h).sum(1)], dim=1)
     ok = (slot_of_chunk >= 0) & (slot_of_chunk < k)
     out = torch.zeros((k, 2), dtype=torch.float32, device=rec.device)
     out.index_add_(0, slot_of_chunk[ok].long(), per_chunk[ok])
@@ -562,16 +606,70 @@ def slot_abs_sums(torch, A, rec, slot_of_chunk, meta, k, wcnt, grad,
 
 
 def check_hist(torch, got, ref, scale, what) -> float:
-    """Counts equal, g/h within 1e-5 x the slot's sum of |g| (|h|);
-    returns the largest |difference|."""
+    """Counts equal, g/h within 1e-5 x the slot's sum of |g| (|h|); logs
+    the largest |difference| and the largest over the slot's sum, and
+    returns the first."""
     torch.cuda.synchronize()
     if not torch.equal(got[..., 2], ref[..., 2]):
         raise AssertionError(f"{what}: histogram counts differ")
     err = (got[..., :2] - ref[..., :2]).abs()
-    if bool((err > 1e-5 * scale[:, None, None, :]).any()):
+    lim = scale[:, None, None, :].expand_as(err)
+    if bool((err > 1e-5 * lim).any()):
         raise AssertionError(f"{what}: g/h differ beyond 1e-5 x sum|.| "
                              f"(max |d| {err.max().item()})")
+    rel = (err.double() / lim.double().clamp_min(1e-300)).max().item()
+    log(f"  check {what}: max |d| {err.max().item():.3e}, max |d| / slot "
+        f"sum|.| {rel:.3e}")
     return err.max().item()
+
+
+def poison_gh(torch, rec, wcnt, gh_off, meta, every=997):
+    """A copy of ``rec`` with NaN, +Inf and -Inf in the g and h lanes of
+    about one valid row in ``every`` (what a user's overflowing objective
+    leaves there)."""
+    rec = rec.clone()
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    valid = (torch.arange(rec.shape[2], device=DEVICE)[None, :]
+             < (meta & 0xFFFFF)[:, None]).reshape(-1).nonzero()[:, 0]
+    pick = valid[torch.randperm(valid.numel(), generator=gen,
+                                device=DEVICE)[:max(3, valid.numel()
+                                                    // every)]]
+    pay = rec[:, wcnt + gh_off:wcnt + gh_off + 2].view(torch.float32)
+    vals = torch.tensor([float("nan"), float("inf"), float("-inf")],
+                        device=DEVICE)
+    i = torch.arange(pick.numel(), device=DEVICE)
+    c, r = pick // rec.shape[2], pick % rec.shape[2]
+    pay[c, i % 2, r] = vals[i % 3]
+    return rec
+
+
+def check_hist_nonfinite(torch, got, ref, scale, what) -> dict:
+    """Counts equal; each g/h cell NaN, Inf (of its sign) or finite where
+    the twin's is; finite cells within 1e-5 x the slot's finite sum of
+    |g| (|h|)."""
+    torch.cuda.synchronize()
+    a, b = got[..., :2], ref[..., :2]
+    fin = torch.isfinite(b)
+    if not torch.equal(got[..., 2], ref[..., 2]) \
+            or not torch.equal(a.isnan(), b.isnan()) \
+            or not torch.equal(a.isinf(), b.isinf()) \
+            or not torch.equal(a[b.isinf()], b[b.isinf()]):
+        raise AssertionError(f"{what}: counts or NaN/Inf cells differ from "
+                             "the twin's")
+    if not bool((~fin).any()):
+        raise AssertionError(f"{what}: the twin has no non-finite cell")
+    err = torch.where(fin, (a - b).abs(), 0.0).double()
+    lim = scale[:, None, None, :].expand_as(err).double()
+    if bool((err > 1e-5 * lim).any()):
+        raise AssertionError(f"{what}: finite g/h differ beyond 1e-5 x "
+                             "sum|.|")
+    r = {"nonfinite_cells": int((~fin).sum()),
+         "max_abs_err": err.max().item(),
+         "max_rel_err": (err / lim.clamp_min(1e-300)).max().item()}
+    log(f"  check {what}: {r['nonfinite_cells']} non-finite cells as the "
+        f"twin's, finite max |d| {r['max_abs_err']:.3e}, max |d| / slot "
+        f"sum|.| {r['max_rel_err']:.3e}")
+    return r
 
 
 def bound(nbytes: float, ops: float):
@@ -599,6 +697,33 @@ def check_move(torch, A, args, what, gh_off=2) -> float:
         torch, A, rec, hs & 0xFFFFFF, meta, k, wcnt, grad, gh_off), what)
     del out, hist, ref_a, ref_hist, cov
     return err
+
+
+def hist_library_ms(torch, A, rec, slot_of_chunk, meta, k, F, B, wcnt,
+                    bits, grad, gh_off) -> float:
+    """One ``index_add_`` of (g, h, 1) into [k * F * B, 3] f32 over a
+    prebuilt flat index of every (valid row of a slot's chunk, feature):
+    the yardstick of the slot histogram, never called by the port."""
+    nc, _, C = rec.shape
+    g, h = A._payload(rec, wcnt, grad, gh_off)
+    take = A._valid_rows(meta, C) \
+        & ((slot_of_chunk >= 0) & (slot_of_chunk < k))[:, None]
+    sel = take.reshape(-1).nonzero()[:, 0]
+    pay = torch.stack([g.reshape(-1)[sel], h.reshape(-1)[sel],
+                       torch.ones_like(sel, dtype=torch.float32)], dim=1)
+    bpw = 32 // bits
+    cell = torch.stack([(rec[sel // C, f // bpw, sel % C]
+                         >> ((f % bpw) * bits)) & ((1 << bits) - 1)
+                        for f in range(F)], dim=1).long() \
+        + torch.arange(F, device=rec.device) * B \
+        + (slot_of_chunk.long()[sel // C] * F * B)[:, None]
+    cell = cell.reshape(-1)
+    pay = pay[:, None, :].expand(-1, F, -1).reshape(-1, 3)
+    hout = torch.zeros((k * F * B, 3), dtype=torch.float32,
+                       device=rec.device)
+    ms = cuda_ms(torch, lambda: hout.index_add_(0, cell, pay), reps=2)
+    del g, h, sel, pay, cell, hout
+    return ms
 
 
 def phase_aligned_parity(torch, lt, ds, params, max_bin: int,
@@ -629,25 +754,22 @@ def phase_aligned_parity(torch, lt, ds, params, max_bin: int,
          "ms": cuda_ms(torch, lambda: A.slot_hist_pass(*args, gh_off=gh)),
          "plain_ms": cuda_ms(
              torch, lambda: A.slot_hist_pass_plain(*args, gh_off=gh),
-             reps=2)}
-    g, h = A._payload(rec, wcnt, grad, gh)
-    sel = A._valid_rows(meta, C).reshape(-1).nonzero()[:, 0]
-    pay = torch.stack([g.reshape(-1)[sel], h.reshape(-1)[sel],
-                       torch.ones_like(sel, dtype=torch.float32)], dim=1)
-    bpw = 32 // bits
-    cell = torch.stack([(rec[sel // C, f // bpw, sel % C]
-                         >> ((f % bpw) * bits)) & ((1 << bits) - 1)
-                        for f in range(F)], dim=1).long() \
-        + torch.arange(F, device=rec.device) * B
-    cell = cell.reshape(-1)
-    pay = pay[:, None, :].expand(-1, F, -1).reshape(-1, 3)
-    hout = torch.zeros((F * B, 3), dtype=torch.float32, device=rec.device)
-    r["library_ms"] = cuda_ms(torch, lambda: hout.index_add_(0, cell, pay),
-                              reps=2)
-    del g, h, sel, pay, cell, hout
+             reps=2),
+         "library_ms": hist_library_ms(torch, A, rec, slots, meta, k, F, B,
+                                       wcnt, bits, grad, gh)}
     r["bound_ms"], r["bound_by"] = bound(
         rows * (wcnt + 2) * 4 + nc * 2 * 4 + k * F * B * 3 * 4,
         3 * F * rows)
+    if layout != "compact":
+        # NaN and Inf in the grad/hess lanes, as a user's objective may
+        # leave them: the cells where the twin's f64 sums have them
+        bad = poison_gh(torch, rec, wcnt, gh, meta)
+        r["nonfinite"] = check_hist_nonfinite(
+            torch, A.slot_hist_pass(bad, *args[1:], gh_off=gh),
+            A.slot_hist_pass_plain(bad, *args[1:], gh_off=gh),
+            slot_abs_sums(torch, A, bad, slots, meta, k, wcnt, grad, gh),
+            f"slot_hist_pass root on NaN/Inf payloads, {what}")
+        del bad
     res["slot_hist_pass"] = r
     # ---- B2: the root's move, then the widest round's
     err = check_move(torch, A, calls["move_root"],
@@ -671,7 +793,29 @@ def phase_aligned_parity(torch, lt, ds, params, max_bin: int,
         2 * (split_rows * w_used * 4 + copy_chunks * W * C * 4)
         + nc * 7 * 4 + k * F * B * 3 * 4, 3 * F * split_rows / 2)
     res["move_pass"] = r
-    del buf
+    # ---- B2's smaller-child histograms alone: the histogram kernel on
+    # the widest round's moved records and its children's chunk map
+    nslot, ncnt = A._move_partition_cuda(*args[:8], k, bits, w_used, buf)
+    child = (nslot, ncnt, k, F, B, wcnt, bits, grad)
+    _, ref = A.move_pass_plain(*args, gh_off=gh)
+    err = check_hist(torch, A._slot_hist_cuda(buf, *child, gh), ref,
+                     slot_abs_sums(torch, A, buf, nslot, ncnt, k, wcnt, grad,
+                                   gh),
+                     f"child histograms alone, wide, {what}")
+    del ref
+    rows = int(ncnt[nslot < k].sum())
+    r = {"max_abs_err": err, "rows": rows, "children": int(
+        torch.unique(nslot[nslot < k]).numel()),
+        "ms": cuda_ms(torch, lambda: A._slot_hist_cuda(buf, *child, gh)),
+        "plain_ms": cuda_ms(torch, lambda: A.slot_hist_pass_plain(
+            buf, *child, gh_off=gh), reps=2),
+        "library_ms": hist_library_ms(torch, A, buf, nslot, ncnt, k, F, B,
+                                      wcnt, bits, grad, gh)}
+    r["bound_ms"], r["bound_by"] = bound(
+        rows * (wcnt + 2) * 4 + nc * 2 * 4 + k * F * B * 3 * 4,
+        3 * F * rows)
+    res["child_hist"] = r
+    del buf, nslot, ncnt, child
     # ---- B3: the widest round's count pass (STANDARD)
     if calls.get("count_wide") is not None:
         args = calls["count_wide"]
@@ -688,7 +832,8 @@ def phase_aligned_parity(torch, lt, ds, params, max_bin: int,
         r["bound_ms"], r["bound_by"] = bound(rows * 4 + nc * 5 * 4 + k * 4,
                                              rows)
         res["count_pass"] = r
-    sizes = ("rows", "split_blocks", "split_rows", "copy_chunks")
+    sizes = ("rows", "children", "split_blocks", "split_rows",
+             "copy_chunks")
     for name, r in res.items():
         lib = "none" if r["library_ms"] is None \
             else f"{r['library_ms']:.4f} ms"
@@ -1586,6 +1731,7 @@ def main() -> int:
     dev = torch.device(DEVICE)
     info = phase_device(torch)
     phase_build()
+    sass = phase_sass()
     par = phase_parity(torch, dev, args.rows)
     t0 = time.perf_counter()
     X, y = synth_higgs(args.rows + args.holdout, 28)
@@ -1663,6 +1809,11 @@ def main() -> int:
         kernels.append(aentry(f"move_pass_{bins}bin", "move_pass", 960,
                               bins, "compact", launches["move_pass"],
                               "widest round of tree 1"))
+        kernels.append(aentry(f"move_pass_child_hist_{bins}bin",
+                              "child_hist", 960, bins, "compact",
+                              launches["move_pass"],
+                              "smaller children of the widest round of "
+                              "tree 1"))
         kernels.append(aentry(f"slot_hist_pass_{bins}bin", "slot_hist_pass",
                               1141, bins, "compact",
                               launches["slot_hist_pass"], "root pass"))
@@ -1674,6 +1825,10 @@ def main() -> int:
     kernels.append(aentry("move_pass_ext_255bin", "move_pass", 960, 255,
                           "ext", launches["move_pass"],
                           "widest round of tree 1", dims))
+    kernels.append(aentry("move_pass_child_hist_ext_255bin", "child_hist",
+                          960, 255, "ext", launches["move_pass"],
+                          "smaller children of the widest round of tree 1",
+                          dims))
     kernels.append(aentry("slot_hist_pass_ext_255bin", "slot_hist_pass",
                           1141, 255, "ext", launches["slot_hist_pass"],
                           "root pass", dims))
@@ -1733,6 +1888,7 @@ def main() -> int:
                     "level_kernel": {str(k): v for k, v in lpar.items()},
                     "mslr": mslr, "rank_kernel": rpar,
                     "proto_path": proto_path, "proto_kernels": ppar,
+                    "slot_hist_sass_atomics": sass,
                     "power": info["smi"]}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

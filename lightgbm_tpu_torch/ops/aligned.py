@@ -29,7 +29,7 @@ also what the card's kernels are held against.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,12 +62,19 @@ LAUNCHES: Dict[str, int] = {"move_pass": 0, "count_pass": 0,
                             "slot_hist_pass": 0}
 
 _GRAD_KIND = {None: 0, "binary": 1, "l2": 2}
-_THREADS = 512
-_SMEM_BUDGET = 112 * 1024       # two histogram CTAs per SM
-# shared bytes per (feature, bin) of the histogram kernel: f64 g and h,
-# u32 count
+# `hist_launch_shape`, the launch shape of the level builder's histogram
+# (B5, ops/histogram.py): two CTAs per SM, f64 g and h and a u32 count a
+# (feature, bin)
+_SMEM_BUDGET = 112 * 1024
 _CELL_BYTES = 2 * 8 + 4
+# the slot histogram (B4, B2's smaller children; CTAs of 1024 threads):
+# tiles of at most 16,384 rows (the bound of the fixed-point rounding,
+# ops/csrc/aligned.cu), hi/lo int32 of g and of h and a u32 count a cell
+SLOT_HIST_TILE_ROWS = 16384
+SLOT_HIST_MAX_TILE_CHUNKS = 256
+_SLOT_HIST_CELL_BYTES = 20
 _fns: Dict[str, object] = {}
+_ctas: Dict[Tuple[int, int], int] = {}
 
 
 def reset_launches() -> None:
@@ -360,8 +367,9 @@ def _lib():
             "lgbt_count_pass": [p, i, i, i, p, p, p, p, p, i, i, p, p],
             "lgbt_move_partition": [p, i, i, i, i, i, p, p, p, p, p, p, p,
                                     i, p, p, p, p, p, p, p],
-            "lgbt_slot_hist": [p, i, i, i, i, i, i, i, i, i, i, i, p, p, i,
-                               i, f, f, f, p, p, p, p],
+            "lgbt_slot_hist": [p, i, i, i, i, i, i, i, i, i, i, i, i, p, p,
+                               i, i, f, f, f, p, p, p, p],
+            "lgbt_slot_hist_occupancy": [i],
             "lgbt_aligned_smem_optin": [i],
         }
         for name, args in sigs.items():
@@ -416,6 +424,62 @@ def hist_launch_shape(nc: int, num_features: int, num_bins: int,
     return fpb, max(1, min(nc, 2 * num_sms // grid_y))
 
 
+def slot_hist_smem(C: int, num_features: int, num_bins: int,
+                   smem_optin: int) -> Tuple[int, int, int]:
+    """(tile_chunks, features per tile, shared bytes per CTA) of the slot
+    histogram kernel: a tile is `SLOT_HIST_TILE_ROWS` rows of whole chunks
+    (at most `SLOT_HIST_MAX_TILE_CHUNKS`), and the features are cut into
+    the fewest tiles of equal size whose cells and one tile's chunk
+    metadata fit ``smem_optin`` bytes."""
+    if C > SLOT_HIST_TILE_ROWS:
+        raise ValueError(f"slot_hist_pass takes chunks of at most "
+                         f"{SLOT_HIST_TILE_ROWS} rows, got {C}")
+    tile_chunks = min(SLOT_HIST_MAX_TILE_CHUNKS, SLOT_HIST_TILE_ROWS // C)
+    meta = 8 * tile_chunks + 8
+    per_feature = _SLOT_HIST_CELL_BYTES * num_bins
+    fit = (smem_optin - meta) // per_feature
+    if fit < 1:
+        raise ValueError(f"{num_bins} bins ({per_feature} B a feature) "
+                         f"exceed the {smem_optin} B of shared memory")
+    fpb = -(-num_features // -(-num_features // fit))
+    return tile_chunks, fpb, per_feature * fpb + meta
+
+
+def slot_hist_launch_shape(nc: int, C: int, num_features: int,
+                           num_bins: int, ctas_per_sm: int, num_sms: int,
+                           smem_optin: int):
+    """(tile_chunks, features per tile, shared bytes per CTA, grid_x,
+    grid_y) of the slot histogram kernel, given the CTAs of 1024
+    threads an SM holds at that shared memory
+    (`slot_hist_ctas_per_sm` on the card): grid_y feature tiles, and for
+    each that share of the CTAs the SMs hold (or one per row tile if
+    fewer), each taking row tiles in turn."""
+    tile_chunks, fpb, smem = slot_hist_smem(C, num_features, num_bins,
+                                            smem_optin)
+    if ctas_per_sm < 1:
+        raise ValueError(f"{fpb} features x {num_bins} bins ({smem} B) "
+                         "fit no CTA on an SM")
+    grid_y = -(-num_features // fpb)
+    tiles = -(-nc // tile_chunks)
+    grid_x = max(1, min(tiles, ctas_per_sm * num_sms // grid_y))
+    return tile_chunks, fpb, smem, grid_x, grid_y
+
+
+def slot_hist_ctas_per_sm(ordinal: int, smem: int) -> int:
+    """CTAs of the slot histogram kernel with ``smem`` bytes of shared
+    memory each that the CUDA occupancy calculator fits on an SM of
+    device ``ordinal`` (0 where one does not fit)."""
+    key = (ordinal, smem)
+    if key not in _ctas:
+        with torch.cuda.device(ordinal):
+            n = _lib()["lgbt_slot_hist_occupancy"](smem)
+        if n < 0:
+            raise RuntimeError("slot_hist_pass: the CUDA occupancy query "
+                               "failed")
+        _ctas[key] = n
+    return _ctas[key]
+
+
 def _slot_hist_cuda(records, slots, meta, num_slots, num_features,
                     num_bins, wcnt, bits, grad, gh_off):
     dev = records.device
@@ -425,10 +489,12 @@ def _slot_hist_cuda(records, slots, meta, num_slots, num_features,
     fns = _lib()
     ordinal = dev.index if dev.index is not None \
         else torch.cuda.current_device()
-    fpb, blocks = hist_launch_shape(
-        nc, num_features, num_bins,
+    optin = fns["lgbt_aligned_smem_optin"](ordinal)
+    _, _, smem = slot_hist_smem(C, num_features, num_bins, optin)
+    tile_chunks, fpb, smem, grid_x, _ = slot_hist_launch_shape(
+        nc, C, num_features, num_bins, slot_hist_ctas_per_sm(ordinal, smem),
         torch.cuda.get_device_properties(ordinal).multi_processor_count,
-        fns["lgbt_aligned_smem_optin"](ordinal))
+        optin)
     cells = (num_slots, num_features, num_bins)
     out = torch.empty(cells + (NUM_STATS,), dtype=torch.float32, device=dev)
     gh = torch.zeros(cells + (2,), dtype=torch.float64, device=dev)
@@ -437,7 +503,7 @@ def _slot_hist_cuda(records, slots, meta, num_slots, num_features,
     with torch.cuda.device(dev):
         err = fns["lgbt_slot_hist"](
             records.data_ptr(), nc, W, C, wcnt, gh_off, bits, num_features,
-            num_bins, fpb, blocks, _THREADS, slots.data_ptr(),
+            num_bins, fpb, tile_chunks, grid_x, smem, slots.data_ptr(),
             meta.data_ptr(), num_slots, kind, sig, wp, wn, gh.data_ptr(),
             cnt.data_ptr(), out.data_ptr(), _stream(dev))
     _raise_on(err, "slot_hist_pass")
@@ -451,7 +517,13 @@ def slot_hist_pass(records, slots, meta, num_slots, num_features, num_bins,
     [0, num_slots); chunks mapped to ``num_slots`` (the dummy) are
     skipped. ``grad`` None reads the grad/hess lanes at ``wcnt + gh_off``
     (STANDARD: 2, EXT: 1); a `PointGrad` recomputes them from a COMPACT
-    record."""
+    record. On the card each slot's rows of a tile (at most
+    `SLOT_HIST_TILE_ROWS`) sum in fixed point scaled to their largest
+    |g| (|h|), off by at most 1.9e-6 of it, then in f64, rounded to f32
+    once: within 2e-6 x the slot's sum of |g| (|h|) of the twin's f64
+    sums, not bit-equal to them; counts are exact. A tile's run of one
+    slot that holds a non-finite g (h) sums that stat in f64
+    throughout, so NaN and Inf come out as the twin's."""
     if not records.is_cuda:
         return slot_hist_pass_plain(records, slots, meta, num_slots,
                                     num_features, num_bins, wcnt, bits, grad,
@@ -507,7 +579,6 @@ def move_pass(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
                                hslots, num_slots, num_features, num_bins,
                                wcnt, bits, w_used, grad, out, gh_off)
     _check_cuda(records, r1, r2, basel, baser, meta, wsel, hslots)
-    nc, W, C = records.shape
     dev = records.device
     if out is None:
         out = torch.empty_like(records)
@@ -516,6 +587,22 @@ def move_pass(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
             or out.data_ptr() == records.data_ptr():
         raise ValueError("out must be another contiguous int32 tensor of "
                          "the shape of records")
+    nslot, ncnt = _move_partition_cuda(records, r1, r2, basel, baser, meta,
+                                       wsel, hslots, num_slots, bits,
+                                       w_used, out)
+    hist = _slot_hist_cuda(out, nslot, ncnt, num_slots, num_features,
+                           num_bins, wcnt, bits, grad, gh_off)
+    LAUNCHES["move_pass"] += 1
+    return out, hist
+
+
+def _move_partition_cuda(records, r1, r2, basel, baser, meta, wsel, hslots,
+                         num_slots, bits, w_used, out):
+    """`move_pass`'s partition into ``out`` (count, scan and scatter
+    kernels); returns the smaller children's chunk map (nslot, ncnt), the
+    slots and row counts its histogram takes."""
+    nc, W, C = records.shape
+    dev = records.device
     scratch = torch.empty((3, nc), dtype=torch.int32, device=dev)
     nslot = torch.full((nc,), num_slots, dtype=torch.int32, device=dev)
     ncnt = torch.zeros(nc, dtype=torch.int32, device=dev)
@@ -528,7 +615,4 @@ def move_pass(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
             scratch[2].data_ptr(), nslot.data_ptr(), ncnt.data_ptr(),
             out.data_ptr(), _stream(dev))
     _raise_on(err, "move_pass")
-    hist = _slot_hist_cuda(out, nslot, ncnt, num_slots, num_features,
-                           num_bins, wcnt, bits, grad, gh_off)
-    LAUNCHES["move_pass"] += 1
-    return out, hist
+    return nslot, ncnt

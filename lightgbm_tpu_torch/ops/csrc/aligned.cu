@@ -29,14 +29,43 @@
 //      and writes each row's used lanes to new_begin * C + prefix + rank;
 //      chunks of unsplit blocks are copied whole.
 // The smaller child's histogram is then slot_hist_kernel over the child's
-// now contiguous chunks. Histograms accumulate by bin in shared memory (the
-// ocl/histogram256.cl pattern, as kernel B1 does) and flush once per (CTA,
-// slot) with global atomics. g and h accumulate in f64 and counts as
-// integers: a CTA adds tens of thousands of rows into one cell, and an f32
-// accumulator there drifts by up to ~1e-5 of the slot's sum of |g|
-// (measured at 10.5M x 28 on an H100); the f64 sums of f32 payloads round
-// to f32 once at the end, so the result does not depend on the order of
-// the atomics in practice.
+// now contiguous chunks; the tree's root (B4) is the same kernel over
+// every chunk.
+//
+// slot_hist_kernel's design is P1's (proto.cu, redesigned for Hopper
+// first), carried over to the engine's records:
+//   - Accumulation in 32-bit shared cells with native integer atomics. On
+//     sm_90a an f32 or f64 atomicAdd on shared memory, and a 64-bit
+//     integer one, compiles to a compare-and-swap loop (ATOMS.CAST.SPIN);
+//     a 32-bit integer add is one ATOMS.ADD. Each run of one slot's chunks
+//     within a tile takes a scale from its largest |g| and |h| (a first
+//     pass that computes the payload as the second does), and each value
+//     is split into hi and lo int32 words, v * 2^e = hi + lo * 2^-l. With
+//     at most 2^nb rows in a run and m its largest |v|, the run's sum is
+//     off by at most m * 2^(3 nb - 61): tiles hold at most 16,384 rows
+//     (nb 14), so at most 1.9e-6 m, and a slot's sum over many tiles at
+//     most 1.9e-6 of its sum of |v|. Counts are u32. At the end of a run
+//     each cell is decoded in f64 and added to the global f64 sums
+//     (native); hist_finalize_kernel rounds each to f32 once. The result
+//     is not bit-equal to the plain twin's f64 sums rounded once; it is
+//     held to 1e-5 x the slot's sum of |g| (|h|).
+//   - COMPACT payloads. The scale pass recomputes g and h with the same
+//     payload() as the sum, so the scale is the run's true largest |g|;
+//     a bound from the objective (|g| <= sigmoid x the larger weight)
+//     would need no second evaluation but holds for binary only, not for
+//     l2, whose g = score - label is unbounded.
+//   - NaN and Inf. The scale pass takes an integer max over the bits, so
+//     a non-finite g or h ranks above every finite one; such a run adds
+//     that stat of each of its rows straight to the f64 sums with global
+//     atomics, so NaN and Inf reach each cell as they reach the twin's.
+//   - Feature tiles. A CTA holds 20 B a cell (hi/lo of g and h, a count)
+//     for feat_per_block features (blockIdx.y), sized by ops/aligned.py
+//     within the card's shared-memory opt-in (MSLR's 137 x 256 bins take
+//     four tiles); one CTA of 1024 threads an SM, from the occupancy
+//     calculator. A thread takes one row at a time; warps start on
+//     different features (rotated by the warp's index) so that they add
+//     to different cells, and the next bin word is loaded while the
+//     current one's sites are added.
 //
 // What bounds them on an H100: bytes. The move reads every row's used
 // lanes once and writes them once; the count reads one word a row; the
@@ -69,6 +98,7 @@ constexpr int kMetaLabel = 24, kMetaLabelMask = 127;
 constexpr int kGradLanes = 0, kGradBinary = 1, kGradL2 = 2;
 constexpr int kThreads = 256;      // count and scatter CTAs
 constexpr int kScanThreads = 1024;
+constexpr int kHistThreads = 1024;  // slot_hist CTAs (ops/aligned.py)
 
 // reference DenseBin::Split numerical routing (dense_bin.hpp:195-283),
 // as ops/aligned.py::_goes_left: missing None / Zero / NaN
@@ -295,87 +325,247 @@ __global__ void scatter_kernel(const int32_t* __restrict__ rec, int W, int C,
   }
 }
 
-// Histograms of the chunks mapped to slots: (g, h) into gh [num_slots, F,
-// B, 2] f64 and the row count into cnt [num_slots, F, B] over the valid
-// rows (meta count) of every chunk with slots[c] in [0, num_slots). A CTA
-// walks a fixed range of chunks for one feature tile and flushes its
-// shared sub-histogram whenever the slot changes.
-__global__ void slot_hist_kernel(const int32_t* __restrict__ rec, int W,
-                                 int C, int wcnt, int gh_off, int bits,
-                                 int num_features, int num_bins,
-                                 int feat_per_block, int chunks_per_block,
-                                 int nc, const int32_t* __restrict__ slots,
-                                 const int32_t* __restrict__ meta,
-                                 int num_slots, int kind, float sig, float wp,
-                                 float wn, double* __restrict__ gh_out,
-                                 unsigned* __restrict__ cnt_out) {
+// ---------------------------------------------------------------------------
+// The slot histogram (B4, and B2's smaller children): fixed-point shared
+// cells, P1's design (proto.cu) for the engine's records
+// ---------------------------------------------------------------------------
+// The CTA's sub-histogram over its feature tile: per cell five u32
+// words, side by side (one address register serves all five atomics):
+// the hi and lo int32 words of g and of h in fixed point and the count,
+// each added with one native shared-memory integer atomic. A run whose g
+// (h) holds a non-finite value adds that stat straight to the slot's f64
+// sums instead (gx, hx), so that NaN and Inf reach its cells as they
+// reach an f64 sum.
+constexpr int kCellWords = 5;
+constexpr int kGHi = 0, kGLo = 1, kHHi = 2, kHLo = 3, kN = 4;
+
+struct Cells {
+  unsigned* w;                           // [cells, kCellWords]
+  double* sums;                          // the run's slot: [cells, 2] f64
+  bool gx, hx;
+  __device__ void add(int cell, unsigned gh, unsigned gl, unsigned hh,
+                      unsigned hl) const {
+    unsigned* p = w + kCellWords * cell;
+    if (gx) {
+      atomicAdd(sums + 2 * cell, static_cast<double>(__uint_as_float(gh)));
+    } else {
+      atomicAdd(p + kGHi, gh);
+      atomicAdd(p + kGLo, gl);
+    }
+    if (hx) {
+      atomicAdd(sums + 2 * cell + 1,
+                static_cast<double>(__uint_as_float(hh)));
+    } else {
+      atomicAdd(p + kHHi, hh);
+      atomicAdd(p + kHLo, hl);
+    }
+    atomicAdd(p + kN, 1u);
+  }
+};
+
+// The fixed-point form of one run's f32 values, at most 2^nb of them,
+// whose largest |v| has the bits mbits (those of |v| order as the values
+// do, and NaN and Inf lie above every finite one): v * 2^e = hi + lo *
+// 2^-l, hi and lo rounded to integers, so that 2^nb of either sum within
+// 2^30. A non-finite largest |v| makes the run exact: split passes the
+// value's bits through in hi.
+struct Fixed {
+  int e, l;
+  bool exact;
+  __device__ Fixed(unsigned mbits, int nb) {
+    exact = mbits >= 0x7f800000u;
+    int ex = 0;
+    if (!exact) frexpf(__uint_as_float(mbits), &ex);   // |v| < 2^ex
+    e = 30 - nb - ex;
+    l = 31 - nb;
+  }
+  __device__ void split(float v, unsigned& hi, unsigned& lo) const {
+    if (exact) {
+      hi = __float_as_uint(v);
+      lo = 0u;
+      return;
+    }
+    const float x = scalbnf(v, e);
+    const float r = rintf(x);
+    hi = static_cast<unsigned>(static_cast<int>(r));
+    lo = static_cast<unsigned>(__float2int_rn(scalbnf(x - r, l)));
+  }
+  __device__ double value(unsigned hi, unsigned lo) const {
+    return ldexp(static_cast<double>(static_cast<int>(hi))
+                 + ldexp(static_cast<double>(static_cast<int>(lo)), -l), -e);
+  }
+};
+
+// How a warp walks its feature tile's sites: the tile's features f0 ..
+// f0 + nf - 1 from f0 + rot on (rot the warp's index mod nf), wrapping to
+// f0; (w_rot, p_rot) and (w0, p0) are the bin word and the site in it of
+// features f0 + rot and f0.
+struct TileWalk {
+  int bits, bpw, mask, nf, rot;
+  int w_rot, p_rot, w0, p0;   // word and site of features f0 + rot, f0
+  __device__ TileWalk(int b, int f0, int nf_, int warp) {
+    bits = b;
+    bpw = 32 / b;
+    mask = (1 << b) - 1;
+    nf = nf_;
+    rot = warp % nf_;
+    w0 = f0 / bpw;
+    p0 = f0 - w0 * bpw;
+    w_rot = (f0 + rot) / bpw;
+    p_rot = f0 + rot - w_rot * bpw;
+  }
+};
+
+// One valid row r of a chunk into the sub-histogram: each of the tile's
+// features whose bin lies below num_bins, starting at the warp's feature;
+// the next bin word is loaded before the current one's sites are added.
+__device__ __forceinline__ void add_row(const int32_t* chunk, int C, int r,
+                                        const TileWalk& t, int num_bins,
+                                        const Cells& sm, unsigned gh,
+                                        unsigned gl, unsigned hh,
+                                        unsigned hl) {
+  int fl = t.rot, w = t.w_rot, pos = t.p_rot;
+  int word = __ldg(chunk + static_cast<long long>(w) * C + r);
+  for (int k = 0; k < t.nf;) {
+    // the sites of this word: up to the word's end, the tile's wrap or
+    // the warp's last feature
+    const int run = min(min(t.bpw - pos, t.nf - fl), t.nf - k);
+    int nw, npos, nfl;
+    if (fl + run == t.nf) {
+      nfl = 0;
+      nw = t.w0;
+      npos = t.p0;
+    } else {
+      nfl = fl + run;
+      nw = w + 1;
+      npos = 0;
+    }
+    const int next = k + run < t.nf
+        ? __ldg(chunk + static_cast<long long>(nw) * C + r) : 0;
+    for (int j = 0; j < run; ++j) {
+      const int b = (word >> ((pos + j) * t.bits)) & t.mask;
+      if (b < num_bins) sm.add((fl + j) * num_bins + b, gh, gl, hh, hl);
+    }
+    k += run;
+    fl = nfl;
+    w = nw;
+    pos = npos;
+    word = next;
+  }
+}
+
+// (g, h) into gh [num_slots, F, B, 2] f64 and the row count into cnt
+// [num_slots, F, B] u32 over the valid rows (meta count) of every chunk
+// with slots[c] in [0, num_slots). blockIdx.y picks a tile of
+// feat_per_block features; the CTAs of one feature tile take tiles of
+// tile_chunks chunks (at most 16,384 rows) in turn. Each run of one
+// slot's chunks within a tile is scaled to its largest |g| and |h| (a
+// first pass over the run's payloads), summed in the shared cells and
+// added to the f64 sums (a stat with a non-finite value straight into
+// them).
+__global__ void __launch_bounds__(kHistThreads, 1)
+slot_hist_kernel(const int32_t* __restrict__ rec, int W, int C, int wcnt,
+                 int gh_off, int bits, int num_features, int num_bins,
+                 int feat_per_block, int tile_chunks, int nc,
+                 const int32_t* __restrict__ slots,
+                 const int32_t* __restrict__ meta, int num_slots, int kind,
+                 float sig, float wp, float wn, double* __restrict__ gh_out,
+                 unsigned* __restrict__ cnt_out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int f0 = blockIdx.y * feat_per_block;
   const int nf = min(feat_per_block, num_features - f0);
   const int cells = nf * num_bins;
-  double* sh = reinterpret_cast<double*>(smem_raw);             // [cells, 2]
-  unsigned* sc = reinterpret_cast<unsigned*>(sh + 2 * cells);   // [cells]
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    sh[2 * i] = 0.0;
-    sh[2 * i + 1] = 0.0;
-    sc[i] = 0u;
+  Cells sm;
+  sm.w = reinterpret_cast<unsigned*>(smem_raw);
+  int* tslot = reinterpret_cast<int*>(sm.w + kCellWords * cells);
+  int* tcnt = tslot + tile_chunks;                     // [tile_chunks]
+  unsigned* run_max = reinterpret_cast<unsigned*>(tcnt + tile_chunks);
+  for (int i = threadIdx.x; i < kCellWords * cells; i += blockDim.x) {
+    sm.w[i] = 0u;
   }
-  __syncthreads();
-  const int bpw = 32 / bits, mask = (1 << bits) - 1;
-  const int c0 = blockIdx.x * chunks_per_block;
-  const int c1 = min(nc, c0 + chunks_per_block);
-  int cur = -1;
-  bool dirty = false;
-
-  auto flush = [&]() {
-    __syncthreads();
-    const long long base = (static_cast<long long>(cur) * num_features + f0)
-        * num_bins;
-    for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-      if (sc[i] != 0u) {
-        atomicAdd(gh_out + 2 * (base + i), sh[2 * i]);
-        atomicAdd(gh_out + 2 * (base + i) + 1, sh[2 * i + 1]);
-        atomicAdd(cnt_out + base + i, sc[i]);
-      }
-      sh[2 * i] = 0.0;
-      sh[2 * i + 1] = 0.0;
-      sc[i] = 0u;
+  if (threadIdx.x < 2) run_max[threadIdx.x] = 0u;
+  const TileWalk walk(bits, f0, nf, threadIdx.x >> 5);
+  const long long cw = static_cast<long long>(W) * C;
+  const int num_tiles = (nc + tile_chunks - 1) / tile_chunks;
+  for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+    const int t0 = tile * tile_chunks;
+    const int n = min(tile_chunks, nc - t0);
+    __syncthreads();                     // the last tile's readers are done
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int c = t0 + i, s = slots[c], k = min(meta[c] & kCntMask, C);
+      tslot[i] = s >= 0 && s < num_slots && k > 0 ? s : -1;
+      tcnt[i] = k;
     }
     __syncthreads();
-  };
-
-  for (int c = c0; c < c1; ++c) {
-    const int s = slots[c];
-    if (s < 0 || s >= num_slots) continue;
-    const int cnt = meta[c] & kCntMask;
-    if (cnt == 0) continue;
-    if (s != cur) {
-      if (dirty) flush();
-      cur = s;
-    }
-    dirty = true;
-    const int32_t* chunk = rec + static_cast<long long>(c) * W * C;
-    for (int r = threadIdx.x; r < cnt; r += blockDim.x) {
-      float g, h;
-      payload(chunk, C, r, wcnt, gh_off, kind, sig, wp, wn, g, h);
-      int wi = -1, word = 0;
-      for (int f = 0; f < nf; ++f) {
-        const int ff = f0 + f, w = ff / bpw;
-        if (w != wi) {
-          word = chunk[static_cast<long long>(w) * C + r];
-          wi = w;
+    for (int i = 0; i < n;) {            // uniform over the CTA
+      const int s = tslot[i];
+      int j = i + 1;
+      while (j < n && tslot[j] == s) ++j;
+      if (s >= 0) {
+        const int nq = (j - i) * C;
+        const int32_t* run = rec + static_cast<long long>(t0 + i) * cw;
+        // 1. the bits of the run's largest |g| and |h|, which fix its
+        //    scale (integer max: NaN and Inf rank above every finite one)
+        unsigned mg = 0u, mh = 0u;
+        for (int q = threadIdx.x; q < nq; q += blockDim.x) {
+          const int ci = q / C, r = q - ci * C;
+          if (r < tcnt[i + ci]) {
+            float g, h;
+            payload(run + ci * cw, C, r, wcnt, gh_off, kind, sig, wp, wn, g,
+                    h);
+            mg = max(mg, __float_as_uint(g) & 0x7fffffffu);
+            mh = max(mh, __float_as_uint(h) & 0x7fffffffu);
+          }
         }
-        const int b = (word >> ((ff - w * bpw) * bits)) & mask;
-        if (b < num_bins) {
-          const int cell = f * num_bins + b;
-          atomicAdd(sh + 2 * cell, static_cast<double>(g));
-          atomicAdd(sh + 2 * cell + 1, static_cast<double>(h));
-          atomicAdd(sc + cell, 1u);
+        mg = __reduce_max_sync(kFull, mg);
+        mh = __reduce_max_sync(kFull, mh);
+        if ((threadIdx.x & 31) == 0) {
+          atomicMax(run_max, mg);
+          atomicMax(run_max + 1, mh);
         }
+        __syncthreads();
+        const int nb = 32 - __clz(nq - 1);   // rows <= 2^nb
+        const Fixed fg(run_max[0], nb), fh(run_max[1], nb);
+        const long long base =
+            (static_cast<long long>(s) * num_features + f0) * num_bins;
+        sm.sums = gh_out + 2 * base;
+        sm.gx = fg.exact;
+        sm.hx = fh.exact;
+        // 2. the run's rows into the sub-histogram, one row a thread
+        for (int q = threadIdx.x; q < nq; q += blockDim.x) {
+          const int ci = q / C, r = q - ci * C;
+          if (r >= tcnt[i + ci]) continue;
+          const int32_t* chunk = run + ci * cw;
+          float g, h;
+          payload(chunk, C, r, wcnt, gh_off, kind, sig, wp, wn, g, h);
+          unsigned gh, gl, hh, hl;
+          fg.split(g, gh, gl);
+          fh.split(h, hh, hl);
+          add_row(chunk, C, r, walk, num_bins, sm, gh, gl, hh, hl);
+        }
+        __syncthreads();
+        if (threadIdx.x < 2) run_max[threadIdx.x] = 0u;
+        // 3. the run into the f64 sums, one atomic a cell and stat
+        for (int c = threadIdx.x; c < cells; c += blockDim.x) {
+          unsigned* p = sm.w + kCellWords * c;
+          const unsigned k = p[kN];
+          if (k == 0u) continue;
+          if (!fg.exact) {
+            atomicAdd(gh_out + 2 * (base + c), fg.value(p[kGHi], p[kGLo]));
+          }
+          if (!fh.exact) {
+            atomicAdd(gh_out + 2 * (base + c) + 1,
+                      fh.value(p[kHHi], p[kHLo]));
+          }
+          atomicAdd(cnt_out + base + c, k);
+#pragma unroll
+          for (int u = 0; u < kCellWords; ++u) p[u] = 0u;
+        }
+        __syncthreads();
       }
+      i = j;
     }
   }
-  if (dirty) flush();
 }
 
 // out [cells, 3] f32 = (g, h, count), each rounded once
@@ -456,27 +646,23 @@ int lgbt_move_partition(const void* rec, int nc, int W, int C, int w_used,
 // gh ([num_slots, F, B, 2] f64) and cnt ([num_slots, F, B] u32) are
 // accumulators zeroed by the caller. kind 0 reads the grad/hess lanes at
 // wcnt + gh_off; 1 (binary logloss) and 2 (l2) recompute them from the
-// score and meta lanes.
+// score and meta lanes. feat_per_block, tile_chunks, grid_x and smem are
+// the launch shape of ops/aligned.py::slot_hist_launch_shape.
 int lgbt_slot_hist(const void* rec, int nc, int W, int C, int wcnt,
-                   int gh_off, int bits,
-                   int num_features, int num_bins, int feat_per_block,
-                   int blocks_x, int threads, const void* slots,
-                   const void* meta, int num_slots, int kind, float sig,
-                   float wp, float wn, void* gh, void* cnt, void* out,
-                   void* stream) {
+                   int gh_off, int bits, int num_features, int num_bins,
+                   int feat_per_block, int tile_chunks, int grid_x, int smem,
+                   const void* slots, const void* meta, int num_slots,
+                   int kind, float sig, float wp, float wn, void* gh,
+                   void* cnt, void* out, void* stream) {
   if (nc == 0 || num_features == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = static_cast<size_t>(feat_per_block) * num_bins
-      * (2 * sizeof(double) + sizeof(unsigned));
   cudaError_t e = cudaFuncSetAttribute(
-      slot_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      slot_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int grid_y = (num_features + feat_per_block - 1) / feat_per_block;
-  const int cpb = (nc + blocks_x - 1) / blocks_x;
-  slot_hist_kernel<<<dim3(blocks_x, grid_y), threads, smem, s>>>(
+  slot_hist_kernel<<<dim3(grid_x, grid_y), kHistThreads, smem, s>>>(
       static_cast<const int32_t*>(rec), W, C, wcnt, gh_off, bits,
-      num_features, num_bins, feat_per_block, cpb, nc,
+      num_features, num_bins, feat_per_block, tile_chunks, nc,
       static_cast<const int32_t*>(slots),
       static_cast<const int32_t*>(meta), num_slots, kind, sig, wp, wn,
       static_cast<double*>(gh), static_cast<unsigned*>(cnt));
@@ -491,6 +677,24 @@ int lgbt_slot_hist(const void* rec, int nc, int W, int C, int wcnt,
       static_cast<const double*>(gh), static_cast<const unsigned*>(cnt),
       cells, static_cast<float*>(out));
   return check();
+}
+
+// CTAs of slot_hist_kernel that the CUDA occupancy calculator fits on an
+// SM of the current device with `smem` bytes of dynamic shared memory
+// each; 0 where they do not fit, -1 on a CUDA error.
+int lgbt_slot_hist_occupancy(int smem) {
+  int n = -1;
+  if (cudaFuncSetAttribute(slot_hist_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess) {
+    cudaGetLastError();                  // too much: clear the error
+    return 0;
+  }
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, slot_hist_kernel, kHistThreads, smem) != cudaSuccess) {
+    return -1;
+  }
+  return n;
 }
 
 // Largest dynamic shared memory a block may opt in to on `device`.

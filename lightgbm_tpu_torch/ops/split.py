@@ -73,13 +73,25 @@ def _leaf_gain_given_output(sg, sh, l1, l2, out):
 
 
 def _leaf_gain(sg, sh, l1, l2, mds):
-    """The parent's gain shift. XLA's CPU backend leaves this per-leaf
-    expression uncontracted (each product rounds on its own), unlike the
-    per-threshold side gains above, so the split gain written to the
-    model text is the JAX package's bit for bit."""
+    """The parent's gain shift as the JAX package subtracts it from the
+    split gain it reports. XLA's CPU backend contracts this copy the
+    other way round from the per-threshold side gains above: the product
+    `(sh + l2) * out * out` is fused into the add of `2 * reg * out`.
+    Unclamped, both forms round alike, which is why an uncontracted copy
+    matched until a binding `max_delta_step` clamp."""
     out = _leaf_output(sg, sh, l1, l2, mds)
     reg = _threshold_l1(sg, l1)
-    return -(2.0 * reg * out + (sh + l2) * out * out)
+    return -fma_f32((sh + l2) * out, out, 2.0 * reg * out)
+
+
+def _leaf_gain_tested(sg, sh, l1, l2, mds):
+    """The parent's gain shift as the JAX package tests a threshold's gain
+    against it (`gain > min_gain_shift`): in that fusion XLA contracts it
+    as it does the side gains, so under a binding clamp it can differ
+    from `_leaf_gain` in its last bit, and a split whose gain is rounding
+    noise is refused where the reported shift would take it."""
+    return _leaf_gain_given_output(sg, sh, l1, l2,
+                                   _leaf_output(sg, sh, l1, l2, mds))
 
 
 def _clip(x, lo, hi):
@@ -191,8 +203,10 @@ def make_split_finder(hyper: SplitHyper, feature_meta: Dict[str, np.ndarray],
         num_data_f = num_data.to(torch.float32)[:, None, None]
         min_c = min_constraint.to(torch.float32)[:, None, None]
         max_c = max_constraint.to(torch.float32)[:, None, None]
-        gain_shift = _leaf_gain(sum_grad, sum_hess, l1, l2, mds)
-        min_gain_shift = gain_shift + h.min_gain_to_split
+        min_gain_shift = (_leaf_gain(sum_grad, sum_hess, l1, l2, mds)
+                          + h.min_gain_to_split)
+        tested_shift = (_leaf_gain_tested(sum_grad, sum_hess, l1, l2, mds)
+                        + h.min_gain_to_split)
 
         g, hs, c = hist[..., 0], hist[..., 1], hist[..., 2]      # [K,F,B]
         zero = torch.zeros((), dtype=torch.float32, device=hist.device)
@@ -213,7 +227,7 @@ def make_split_finder(hyper: SplitHyper, feature_meta: Dict[str, np.ndarray],
                   & (lh1 >= min_hess) & (rh1 >= min_hess))
         gain1 = _split_gains(lg1, lh1, rg1, rh1, l1, l2, mds, min_c, max_c,
                              mono)
-        gain1 = torch.where(valid1 & (gain1 > min_gain_shift), gain1,
+        gain1 = torch.where(valid1 & (gain1 > tested_shift), gain1,
                             NEG_INF)
 
         # ---- dir = -1: accumulate from the right; missing/default -> left
@@ -228,7 +242,7 @@ def make_split_finder(hyper: SplitHyper, feature_meta: Dict[str, np.ndarray],
                   & (rh2 >= min_hess) & (lh2 >= min_hess))
         gain2 = _split_gains(lg2, lh2, rg2, rh2, l1, l2, mds, min_c, max_c,
                              mono)
-        gain2 = torch.where(valid2 & (gain2 > min_gain_shift), gain2,
+        gain2 = torch.where(valid2 & (gain2 > tested_shift), gain2,
                             NEG_INF)
 
         # ---- per-direction winners with the reference tie-break order

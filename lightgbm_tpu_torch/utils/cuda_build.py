@@ -35,7 +35,8 @@ def nvcc_path() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def _target(name: str) -> str:
+def library_path(name: str) -> str:
+    """Where `build` puts the library of ``ops/csrc/<name>.cu``."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     for f in [f"{name}.cu", *headers]:
@@ -47,7 +48,7 @@ def _target(name: str) -> str:
 def build(name: str) -> str:
     """Compile ``ops/csrc/<name>.cu`` unless it is built; return nvcc's
     log (with ptxas's register report), or "" when nothing was built."""
-    out = _target(name)
+    out = library_path(name)
     if os.path.isfile(out):
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -71,6 +72,6 @@ def load(name: str) -> ctypes.CDLL:
             lib = _libs.get(name)
             if lib is None:
                 build(name)
-                lib = ctypes.CDLL(_target(name))
+                lib = ctypes.CDLL(library_path(name))
                 _libs[name] = lib
     return lib

@@ -11,9 +11,13 @@ The split scan's per-side gain ``-(2 reg out + (h + l2) out^2)`` is
 contracted as XLA's CPU backend contracts it (the first product fused
 into the add), so two directions that tie up to rounding pick the same
 winner in both packages. The parent's gain shift, the same expression
-evaluated once per leaf, XLA leaves uncontracted, and so does the port
-(`ops/split.py::_leaf_gain`): the ``split_gain`` written to the model
-text is the JAX package's bit for bit.
+evaluated once per leaf, XLA contracts in two ways in two fusions: as the
+side gains where each threshold's gain is tested against it, and with
+the second product fused into the add where it is subtracted from the
+reported gain. The port keeps both copies (`ops/split.py::_leaf_gain`,
+`_leaf_gain_tested`), so the ``split_gain`` written to the model text,
+and which noise-level splits are taken, are the JAX package's bit for
+bit.
 """
 from __future__ import annotations
 

@@ -127,13 +127,17 @@ def test_f64_training_on_gpu_equals_cpu(cuda):
     assert texts["cuda"] == texts["cpu"]
 
 
-def _slot_abs_sums(rec, slot_of_chunk, meta, k, wcnt, grad):
+def _slot_abs_sums(rec, slot_of_chunk, meta, k, wcnt, grad, gh_off=2):
     """[k, 2] sum of |g| and |h| over the valid rows of each slot's
-    chunks (the scale of the histogram tolerance)."""
-    g, h = A._payload(rec, wcnt, grad)
+    chunks (the scale of the histogram tolerance); NaN and Inf add
+    nothing."""
+    g, h = A._payload(rec, wcnt, grad, gh_off)
     valid = A._valid_rows(meta, rec.shape[2])
-    per_chunk = torch.stack([torch.where(valid, g.abs(), 0.0).sum(1),
-                             torch.where(valid, h.abs(), 0.0).sum(1)], dim=1)
+
+    def fin(x):
+        return torch.where(valid & torch.isfinite(x), x.abs(), 0.0)
+
+    per_chunk = torch.stack([fin(g).sum(1), fin(h).sum(1)], dim=1)
     ok = (slot_of_chunk >= 0) & (slot_of_chunk < k)
     out = torch.zeros((k, 2), dtype=torch.float32, device=rec.device)
     out.index_add_(0, slot_of_chunk[ok].long(), per_chunk[ok])
@@ -200,6 +204,147 @@ def test_aligned_kernels_match_twins_on_gpu(cuda, monkeypatch, max_bin,
                 assert torch.equal(out[:, u][cov], ref_a[:, u][cov])
             _assert_hist_close(hist, ref_hist, _slot_abs_sums(
                 rec, hs & 0xFFFFFF, meta, k, wcnt, grad))
+
+
+def _record_aligned(monkeypatch, params, X, y, group=None, rounds=1):
+    """Clones of the (args, kwargs) of every B2 and B4 call of an aligned
+    run on the card."""
+    calls = []
+
+    def recorder(name, fn):
+        def wrapped(*args, **kw):
+            calls.append((name, tuple(a.clone() if torch.is_tensor(a)
+                                      else a for a in args),
+                          {"gh_off": kw.get("gh_off", 2)}))
+            return fn(*args, **kw)
+        return wrapped
+
+    for name in ("move_pass", "slot_hist_pass"):
+        monkeypatch.setattr(AB, name, recorder(name, getattr(AB, name)))
+    A.reset_launches()
+    bst = tlgb.train({**params, "tpu_grow_mode": "aligned", "verbosity": -1},
+                     tlgb.Dataset(X, label=y, group=group),
+                     num_boost_round=rounds, verbose_eval=False)
+    assert bst._gbdt.train_path == "aligned"
+    assert A.LAUNCHES["move_pass"] > 0 and A.LAUNCHES["slot_hist_pass"] > 0
+    return calls
+
+
+def _poison(rec, wcnt, gh_off, meta, rng, every=997):
+    """NaN, +Inf and -Inf into the g and h lanes of about one valid row
+    in ``every``, as a user's overflowing objective would leave them."""
+    valid = A._valid_rows(meta, rec.shape[2]).nonzero().cpu().numpy()
+    pick = valid[rng.choice(len(valid), max(3, len(valid) // every),
+                            replace=False)]
+    pay = rec[:, wcnt + gh_off:wcnt + gh_off + 2].view(torch.float32)
+    vals = [float("nan"), float("inf"), float("-inf")]
+    for i, (c, r) in enumerate(pick):
+        pay[int(c), i % 2, int(r)] = vals[i % 3]
+
+
+def _assert_hist_nonfinite(got, ref, scale):
+    """Counts equal; each g/h cell NaN, Inf (of its sign) or finite where
+    the twin's is; finite cells within 1e-5 x the slot's finite sum of
+    |g| (|h|)."""
+    assert torch.equal(got[..., 2], ref[..., 2])
+    a, b = got[..., :2], ref[..., :2]
+    assert torch.equal(a.isnan(), b.isnan())
+    assert torch.equal(a.isinf(), b.isinf())
+    assert torch.equal(a[b.isinf()], b[b.isinf()])
+    fin = torch.isfinite(b)
+    lim = 1e-5 * scale[:, None, None, :].expand_as(a)
+    assert bool(((a - b).abs()[fin] <= lim[fin]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["standard", "ext"])
+def test_aligned_hist_nonfinite_on_gpu(cuda, monkeypatch, layout):
+    """B4 (the root) and B2's smaller-child histograms against their twins
+    on the STANDARD (binary, tpu_force_big_n) and EXT (lambdarank)
+    records of a real aligned run on the card, with NaN, +Inf and -Inf
+    written into the g/h lanes: cell by cell, NaN and Inf where the twin's
+    f64 sums have them, counts equal, finite cells within 1e-5 x the
+    slot's finite sum of |g| (|h|)."""
+    rng = np.random.default_rng(7)
+    if layout == "standard":
+        X = rng.standard_normal((60000, 28))
+        y = (X[:, 0] + X[:, 1] * X[:, 2] + rng.standard_normal(60000) > 0)
+        calls = _record_aligned(monkeypatch, {
+            "objective": "binary", "num_leaves": 31, "max_bin": 63,
+            "tpu_force_big_n": True}, X, y.astype(np.float64))
+        gh_off = 2
+    else:
+        counts = rng.integers(20, 120, 600)
+        n = int(counts.sum())
+        X = rng.standard_normal((n, 20))
+        y = np.clip(np.round(X[:, 0] + rng.standard_normal(n)), 0, 4)
+        calls = _record_aligned(monkeypatch, {
+            "objective": "lambdarank", "num_leaves": 31, "max_bin": 255},
+            X, y, group=counts)
+        gh_off = 1
+    nonfinite = 0
+    for name, args, kw in calls:
+        assert kw["gh_off"] == gh_off
+        if name == "slot_hist_pass":
+            rec, slots, meta, k, _, _, wcnt, _, grad = args
+            _poison(rec, wcnt, gh_off, meta, rng)
+            ref = A.slot_hist_pass_plain(*args, **kw)
+            _assert_hist_nonfinite(A.slot_hist_pass(*args, **kw), ref,
+                                   _slot_abs_sums(rec, slots, meta, k, wcnt,
+                                                  grad, gh_off))
+        else:
+            rec, meta, hs, k = args[0], args[5], args[7], args[8]
+            wcnt, grad = args[11], args[14]
+            _poison(rec, wcnt, gh_off, meta, rng)
+            _, ref = A.move_pass_plain(*args, **kw)
+            _, got = A.move_pass(*args, **kw)
+            _assert_hist_nonfinite(got, ref, _slot_abs_sums(
+                rec, hs & 0xFFFFFF, meta, k, wcnt, grad, gh_off))
+        nonfinite += int((~torch.isfinite(ref[..., :2])).sum())
+    assert nonfinite > 0
+
+
+@pytest.mark.cuda
+def test_aligned_l2_compact_on_gpu(cuda, monkeypatch):
+    """l2 regression on 0/1 labels, so on COMPACT records, whose g =
+    score - label the kernel recomputes and no objective bounds: B4 and
+    B2's smaller-child histograms against their twins, counts equal and
+    g/h within 1e-5 x the slot's sum of |g| (|h|)."""
+    rng = np.random.default_rng(8)
+    X = rng.standard_normal((60000, 28))
+    y = (X[:, 0] + X[:, 1] * X[:, 2] + rng.standard_normal(60000) > 0) \
+        .astype(np.float64)
+    calls = _record_aligned(monkeypatch, {
+        "objective": "regression", "num_leaves": 31, "max_bin": 255}, X, y,
+        rounds=2)
+    for name, args, kw in calls:
+        if name == "slot_hist_pass":
+            rec, slots, meta, k, _, _, wcnt, _, grad = args
+            assert grad.kind == "l2"
+            _assert_hist_close(A.slot_hist_pass(*args),
+                               A.slot_hist_pass_plain(*args),
+                               _slot_abs_sums(rec, slots, meta, k, wcnt,
+                                              grad))
+        else:
+            rec, meta, hs, k = args[0], args[5], args[7], args[8]
+            wcnt, grad = args[11], args[14]
+            _assert_hist_close(A.move_pass(*args)[1],
+                               A.move_pass_plain(*args)[1],
+                               _slot_abs_sums(rec, hs & 0xFFFFFF, meta, k,
+                                              wcnt, grad))
+
+
+@pytest.mark.cuda
+def test_slot_hist_ctas_per_sm_on_gpu(cuda):
+    """The occupancy calculator fits one CTA of the B2/B4 histogram kernel
+    on an SM at the HIGGS (28 features, 63 and 255 bins) and MSLR (137 x
+    255) shapes; shared memory beyond the card's fits none."""
+    ordinal = cuda.index or 0
+    optin = A._lib()["lgbt_aligned_smem_optin"](ordinal)
+    for F, B, C in ((28, 63, 1024), (28, 255, 1024), (137, 255, 512)):
+        smem = A.slot_hist_smem(C, F, B, optin)[2]
+        assert A.slot_hist_ctas_per_sm(ordinal, smem) >= 1
+    assert A.slot_hist_ctas_per_sm(ordinal, optin + 1) == 0
 
 
 @pytest.mark.cuda

@@ -375,9 +375,12 @@ def test_level_matches_leafwise(extra):
 def test_pure_leaf_split_gain_is_rounding_noise():
     """ROADMAP C.13: a leaf whose rows all carry one (g, h) has zero
     split gain in exact arithmetic; both finders return rounding noise
-    there, whose bits and sign follow each one's f32 op order (XLA's
-    fusion in the JAX package), so one may split such a leaf where the
-    other stops. Both stay below 1e-6 x the leaf's sum_g^2 / sum_h."""
+    there, below 1e-6 x the leaf's sum_g^2 / sum_h. Its bits and sign
+    follow the f32 op order, and which thresholds pass `gain >
+    min_gain_shift` follows the contraction of the shift XLA tests
+    against (`ops/split.py::_leaf_gain_tested`): with that copy the
+    port's noise is the JAX package's bit for bit, so both split such a
+    leaf or both stop."""
     from lightgbm_tpu.ops import split as jsplit
     from lightgbm_tpu_torch.ops import split as tsplit
     f, B = 6, 63
@@ -392,7 +395,7 @@ def test_pure_leaf_split_gain_is_rounding_noise():
                                   B)
     tf = tsplit.make_split_finder(tsplit.SplitHyper.from_config(cfg), meta,
                                   B)
-    differ = 0
+    noise = 0
     for seed in range(8):
         cnt = np.random.RandomState(seed).poisson(4, (f, B)) \
             .astype(np.float32)
@@ -412,8 +415,9 @@ def test_pure_leaf_split_gain_is_rounding_noise():
         for gain in (jg, tg):
             fin = gain[np.isfinite(gain)]
             assert np.all(np.abs(fin) <= 1e-6 * sg * sg / sh)
-        differ += int((jg != tg).sum())
-    assert differ > 0      # the divergence this test pins
+        np.testing.assert_array_equal(tg, jg)
+        noise += int(np.isfinite(jg).sum())
+    assert noise > 0       # some thresholds pass the test on noise alone
 
 
 def test_lambdarank_level_matches_leafwise():

@@ -1,14 +1,15 @@
 """The port against the JAX package on the CPU where the port used to
-diverge without a word (ROADMAP C.17, C.20, C.21), and what holds of the
-clamped leaf output (C.18, deferred to the split-scan kernel):
+diverge without a word (ROADMAP C.17, C.18, C.20, C.21, C.22):
 
 - ``feature_fraction < 1`` draws the JAX package's feature subsets, so
   the f64 leaf-wise model text is byte-equal and the aligned engine
   splits on the same features;
 - early stopping and ``tpu_quant_hist=on``, not ported yet, raise where
   they used to train silently; their off values train as before;
-- under ``max_delta_step`` the f64 leaf-wise raw predictions equal the
-  JAX package's."""
+- under a binding ``max_delta_step`` clamp (with L1/L2, ``max_depth`` or
+  a monotone constraint) the f64 tree sections, leaf-wise and level,
+  are the JAX package's byte for byte: the parent's gain shift is
+  contracted as XLA contracts each of its two copies."""
 import jax
 import jax.experimental
 import numpy as np
@@ -160,15 +161,62 @@ def test_quant_hist_auto_and_off_train_as_jax(x64, mode):
     assert _tree_sections(tb) == _tree_sections(jb)
 
 
-@pytest.mark.parametrize("lambda_l1", [0.0, 1.0])
-def test_max_delta_step_predictions_equal_jax(x64, lambda_l1):
-    """C.18 (deferred): under max_delta_step 0.3 the f64 leaf-wise trees
-    give the JAX package's raw predictions exactly. The model text is not
-    byte-equal (one split gain differs in its last digits, and two splits
-    of tree 0 then come in the other order), so neither it nor the leaf
-    indices are compared."""
-    jb, tb, Xte = _leafwise_pair({**SLICE, "max_delta_step": 0.3,
-                                  "lambda_l1": lambda_l1})
+# five settings whose clamp changes the model text's bits on this data,
+# and two that matched without the fused parent shift
+@pytest.mark.parametrize("extra", [
+    {"max_delta_step": 0.3},
+    {"max_delta_step": 0.3, "lambda_l1": 1.0},
+    {"max_delta_step": 0.3, "lambda_l2": 1.0},
+    {"max_delta_step": 0.7, "lambda_l1": 0.5, "lambda_l2": 2.0},
+    {"max_delta_step": 0.3,
+     "monotone_constraints": [0, -1, 0, 0, 0, 0, 0, 0, 0, 0]},
+    {"max_delta_step": 0.0, "lambda_l1": 1.0},
+    {"max_delta_step": 0.05, "lambda_l2": 1.0},
+], ids=["0.0", "1.0", "l2", "0.7_l1_l2", "mono_neg", "mds0_l1",
+        "0.05_l2"])
+def test_max_delta_step_predictions_equal_jax(x64, extra):
+    """C.18: under max_delta_step the f64 leaf-wise tree sections of the
+    model text are the JAX package's byte for byte, and so are the raw
+    predictions. XLA fuses the product `(sh + l2) * out * out` into the
+    add of the parent's gain shift it subtracts from the reported gain
+    (`ops/split.py::_leaf_gain`); left uncontracted, a split gain
+    changes in its last digits and two splits of tree 0 swap. (The first
+    two ids are lambda_l1 0 and 1.)"""
+    jb, tb, Xte = _leafwise_pair({**SLICE, **extra})
     assert tb.num_trees() == jb.num_trees() == ROUNDS
+    assert _tree_sections(tb) == _tree_sections(jb)
+    np.testing.assert_array_equal(tb.predict(Xte, raw_score=True),
+                                  jb.predict(Xte, raw_score=True))
+
+
+@pytest.mark.parametrize("mode", ["leafwise", "level"])
+def test_max_depth_clamped_matches_jax(x64, mode):
+    """C.18b: at max_delta_step 0.3 and max_depth 5, tree 3 of the JAX
+    package stops at 25 leaves where a 26th split has a gain of 2^-21,
+    both children clamped to -0.03, in both builders. XLA tests a
+    threshold's gain against a copy of the parent's shift contracted as
+    the side gains are (`_leaf_gain_tested`), which refuses that noise
+    split; testing against the reported shift takes it."""
+    jb, tb, Xte = _leafwise_pair({**SLICE, "max_delta_step": 0.3,
+                                  "max_depth": 5, "tpu_grow_mode": mode})
+    assert tb.num_trees() == jb.num_trees() == ROUNDS
+    if mode == "level":
+        assert tb._gbdt.train_path == "level"
+    assert _tree_sections(tb) == _tree_sections(jb)
+    np.testing.assert_array_equal(tb.predict(Xte, raw_score=True),
+                                  jb.predict(Xte, raw_score=True))
+
+
+@pytest.mark.parametrize("mds", [0.3, 0.0])
+def test_monotone_clamped_matches_jax(x64, mds):
+    """C.22: with monotone [1, 0, ...] under a binding clamp the JAX
+    package's first tree takes 25 splits and refuses 5 more whose gains
+    are noise, as C.18b's tested shift does (tested against the reported
+    shift, the trees diverge, raw predictions up to 0.031 apart); and at
+    max_delta_step 0."""
+    jb, tb, Xte = _leafwise_pair({**SLICE, "max_delta_step": mds,
+                                  "monotone_constraints": [1] + [0] * 9})
+    assert tb.num_trees() == jb.num_trees() == ROUNDS
+    assert _tree_sections(tb) == _tree_sections(jb)
     np.testing.assert_array_equal(tb.predict(Xte, raw_score=True),
                                   jb.predict(Xte, raw_score=True))
