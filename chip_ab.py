@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""A/B measurements of the aligned engine's slot histogram (kernel B4,
-and B2's smaller-child histograms: ``aligned.cu::slot_hist_kernel``) on
-one NVIDIA GPU, each pair in one process on one card, in the order
-A, B, B, A:
+"""A/B measurements of the port's histogram kernels on one NVIDIA GPU,
+each pair in one process on one card, in the order A, B, B, A: the
+aligned engine's slot histogram (kernel B4, and B2's smaller-child
+histograms: ``aligned.cu::slot_hist_kernel``) and the leaf-wise
+builder's per-leaf histogram (kernel B1, ``histogram.cu``):
 
     python3 chip_ab.py engine --baseline DIR
         the engine end to end (``train`` under ``auto``) at the HIGGS
@@ -17,7 +18,17 @@ A, B, B, A:
         by the objective's bound (|g| <= sigmoid x max weight, h <=
         sigmoid^2 / 4 x max weight) instead of the run's largest |g| and
         |h|, at the HIGGS 63 root and the widest round's children,
-        each checked against the plain twin.
+        each checked against the plain twin;
+    python3 chip_ab.py hist --baseline DIR
+        B1 of the checkout at DIR, an earlier design whose C entry points
+        take (features per block, blocks, threads, partial slab), against
+        this checkout's: each kernel alone at chip_smoke.py's phase-3
+        sizes (the 10.5M x 28 root, f32 and f64, and gathered leaves of
+        half the rows, 20,000, 16,385 and 1 row, at 63 and 255 bins),
+        checked against the plain twin; then the leaf-wise path end to end
+        (``tpu_grow_mode=leafwise``, HIGGS shape, 63 and 255 bins): median
+        iteration ms, holdout AUC, and one profiled round's wall, busy and
+        B1 device ms and launches.
 
 Run from the root of a checkout; it builds with nvcc into
 ``build/chip_ab/`` and reuses ``chip_smoke.py``'s data and phases.
@@ -140,6 +151,124 @@ def engine(torch, CS, lt, A, baseline: str) -> dict:
     return res
 
 
+def baseline_hist(torch, H, lib):
+    """`_histogram_cuda` for the earlier B1 design's entry points: shared
+    f32 / f64 atomics in blocks of 512 threads, one block per 1,024 rows
+    and at most two an SM within 112 KB of shared memory, a partial slab
+    per block and a fold kernel, the device queried on every call."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fns = {}
+    for prec in ("f32", "f64"):
+        fn = getattr(lib, f"lgbt_hist_{prec}")
+        fn.argtypes = [p, i, p, p, ll, ll, i, i, i, i, p, p, p]
+        fn.restype = i
+        fns[prec] = fn
+    lib.lgbt_smem_optin.argtypes = [i]
+    lib.lgbt_smem_optin.restype = i
+
+    def run(bins, gh, indices, begin, count, num_bins, precision):
+        dev = bins.device
+        f = bins.shape[1]
+        dtype = torch.float32 if precision == "f32" else torch.float64
+        if count == 0:
+            return torch.zeros((f, num_bins, 3), dtype=dtype, device=dev)
+        ordinal = dev.index if dev.index is not None \
+            else torch.cuda.current_device()
+        sms = torch.cuda.get_device_properties(ordinal).multi_processor_count
+        per_feature = num_bins * 3 * (4 if precision == "f32" else 8)
+        budget = min(112 * 1024, lib.lgbt_smem_optin(ordinal))
+        fpb = max(1, min(f, budget // per_feature))
+        grid_y = -(-f // fpb)
+        blocks = max(1, min(-(-count // 1024), max(1, 2 * sms // grid_y)))
+        out = torch.empty((f, num_bins, 3), dtype=dtype, device=dev)
+        partial = (torch.empty((blocks, f, num_bins, 3), dtype=dtype,
+                               device=dev) if blocks > 1 else None)
+        with torch.cuda.device(dev):
+            err = fns[precision](
+                bins.data_ptr(), f, gh.data_ptr(),
+                None if indices is None else indices.data_ptr(), int(begin),
+                int(count), int(num_bins), fpb, blocks, 512,
+                None if partial is None else partial.data_ptr(),
+                out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"baseline histogram: CUDA error {err}")
+        H.LAUNCHES[precision] += 1
+        return out
+    return run
+
+
+def hist(torch, CS, lt, H, baseline: str) -> dict:
+    src = os.path.join(baseline, "lightgbm_tpu_torch", "ops", "csrc",
+                       "histogram.cu")
+    impl = {"A": baseline_hist(torch, H, nvcc_lib(
+                src, "baseline_hist", os.path.dirname(src))),
+            "B": H._histogram_cuda}
+    dev = torch.device(CS.DEVICE)
+    n, f = 10_500_000, 28
+    gen = torch.Generator(device=dev).manual_seed(3)
+    res = {}
+    for bins in (63, 255):
+        binm = torch.randint(0, bins, (n, f), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        gh = CS.leaf_gh(torch, n, 5 + bins, dev)
+        perm = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+        cases = {"root": (None, 0, n), "large child": (perm, n // 4 + 1,
+                                                       n // 2),
+                 "small child": (perm, n // 16 + 7, 20_000),
+                 "two-tile leaf": (perm, n // 8 + 3, 16_385),
+                 "one-row leaf": (perm, n // 3, 1)}
+        refs = {what: (H.histogram_plain(binm, gh, *c, bins),
+                       CS.leaf_abs_sums(torch, gh, *c))
+                for what, c in cases.items()}
+        for which in ORDER:
+            H._histogram_cuda = impl[which]
+            r = {}
+            for what, c in cases.items():
+                got = H.leaf_histogram(binm, gh, *c, bins)
+                CS.check_hist(torch, got[None], refs[what][0][None],
+                              refs[what][1],
+                              f"chip_ab hist {which} {what}, {bins} bins")
+                r[f"{what} ms"] = CS.cuda_ms(
+                    torch, lambda c=c: H.leaf_histogram(binm, gh, *c, bins),
+                    reps=10)
+            r["root f64 ms"] = CS.cuda_ms(torch, lambda: H.leaf_histogram(
+                binm, gh, None, 0, n, bins, "f64"))
+            res.setdefault(f"sizes{bins} {which}", []).append(r)
+            CS.log(f"hist sizes {bins} bins {which}: {r}")
+        del binm, gh, perm, refs
+        torch.cuda.empty_cache()
+    X, y = CS.synth_higgs(n + 500_000, f)
+    Xtr, ytr, Xte, yte = X[:n], y[:n], X[n:], y[n:]
+    names = CS.HIST_KERNELS + ("hist_block_kernel", "hist_fold_kernel")
+    for max_bin in (63, 255):
+        params = {"objective": "binary", "num_leaves": 255,
+                  "max_bin": max_bin, "learning_rate": 0.1,
+                  "min_data_in_leaf": 20, "feature_fraction": 1.0,
+                  "verbosity": -1}
+        ds = lt.Dataset(Xtr, label=ytr, params=params,
+                        free_raw_data=False).construct()
+        for which in ORDER:
+            H._histogram_cuda = impl[which]
+            bst, r = CS.train_run(torch, lt, ds,
+                                  {**params, "tpu_grow_mode": "leafwise"},
+                                  CS.ROUNDS[max_bin], Xte, yte,
+                                  f"chip_ab hist {which}")
+            prof = CS.profile_round(torch, bst, hist_names=names)
+            b1 = prof["hist_kernels"]
+            res.setdefault(f"leafwise{max_bin} {which}", []).append({
+                "median_iter_ms": r["median_iter_ms"], "auc": r["auc"],
+                "wall_ms": prof["wall_ms"], "busy_ms": prof["busy_ms"],
+                "b1_ms": sum(k["ms"] for k in b1.values()),
+                "b1_launches": sum(k["launches"] for k in b1.values()),
+                "b1_calls": prof["hist_calls"]["f32"],
+                "b1_kernels": b1})
+            del bst
+        del ds
+        torch.cuda.empty_cache()
+    H._histogram_cuda = impl["B"]
+    return res
+
+
 def scale(torch, CS, lt, A) -> dict:
     from lightgbm_tpu_torch.utils import cuda_build
     text = open(os.path.join(cuda_build.CSRC, "aligned.cu")).read()
@@ -200,9 +329,9 @@ def scale(torch, CS, lt, A) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("what", choices=("engine", "scale"))
+    ap.add_argument("what", choices=("engine", "scale", "hist"))
     ap.add_argument("--baseline", help="checkout of the earlier design "
-                    "(engine)")
+                    "(engine, hist)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -213,12 +342,17 @@ def main() -> int:
     import chip_smoke as CS
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.ops import aligned as A
+    from lightgbm_tpu_torch.ops import histogram as H
     info = CS.phase_device(torch)
     t0 = time.perf_counter()
     if args.what == "engine":
         if not args.baseline:
             ap.error("engine needs --baseline DIR")
         res = engine(torch, CS, lt, A, args.baseline)
+    elif args.what == "hist":
+        if not args.baseline:
+            ap.error("hist needs --baseline DIR")
+        res = hist(torch, CS, lt, H, args.baseline)
     else:
         res = scale(torch, CS, lt, A)
     CS.log(f"chip_ab {args.what}: {time.perf_counter() - t0:.1f} s")

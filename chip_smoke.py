@@ -13,17 +13,25 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``lightgbm_tpu_torch/ops/csrc/aligned.cu``; B5,
    ``histogram_words.cu``; B6, ``rank.cu``; the prototypes P1-P3,
    ``proto.cu``); then ``cuobjdump -sass`` of the aligned library's
-   histogram kernel (B4, B2's smaller children), printed whole with the
-   count of each atomic opcode: it fails on a compare-and-swap loop
-   (``ATOMS.CAST.SPIN``, an f32/f64/u64 shared-memory add on sm_90a);
-3. kernel vs plain: the histogram kernel against its plain PyTorch twin
-   on the card at the main path's shapes (10.5M x 28), at 63 and 255
-   bins, over the contiguous root and over a large (half the rows) and a
-   small (20k rows) gathered child; f64 must be equal, f32 counts equal
-   and grad/hess within 1e-5 of the leaf's sum of |g| (|h|). At the root
-   it times the kernel, the twin and one ``index_add_`` over a prebuilt
-   flat index (the yardstick, never called by the port), and it times
-   the kernel on the gathered children;
+   histogram kernel (B4, B2's smaller children), printed whole, and the
+   count of each atomic opcode in it and in B1's two kernels: it fails on
+   a compare-and-swap loop (``ATOMS.CAST.SPIN``, an f32/f64/u64
+   shared-memory add on sm_90a) in the aligned kernel or in B1's f32
+   kernel (``hist_fixed_kernel``); B1's f64 kernel keeps f64 shared sums
+   and is exempt;
+3. kernel vs plain: the histogram kernel B1 against its plain PyTorch
+   twin on the card at the main path's shapes (10.5M x 28), at 63 and 255
+   bins, over the contiguous root and over gathered leaves of half the
+   rows, 20k rows, 16,385 rows (two row tiles) and 1 row; f64 must be
+   equal, f32 counts equal and grad/hess within 1e-5 of the leaf's sum
+   of |g| (|h|), the largest |difference| over that sum printed for
+   every check; then f32 and f64 on a payload with NaN, +Inf and -Inf in
+   g and h (root and the 20k child), cell by cell against the twin. At
+   the root it times the kernel, the twin and one ``index_add_`` over a
+   prebuilt flat index (the yardstick, never called by the port), f32
+   and f64, and it times the f32 kernel on the gathered leaves beside
+   its byte bound and a sector bound (32-byte sectors: 1.75 a 28-byte
+   row, one for its gh);
 4. leaf-wise path: ``train`` (``tpu_grow_mode=leafwise``) ->
    ``Booster.predict`` / ``model_to_string`` on synthetic HIGGS-shaped
    data (10.5M x 28, 500k holdout, the recipe of
@@ -32,7 +40,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    read just after; holdout AUC must exceed 0.6 and the card's
    predictions must match a CPU predict of the same model text;
    one more round at max_bin 63 runs under ``torch.profiler`` and prints
-   the device's busy share and the kernels that take the most time;
+   the device's busy share, the kernels that take the most time and B1's
+   device ms and launches by kernel name, which must equal the round's
+   calls of the histogram (one launch a call; the profiler can lose one
+   kernel record of a round);
 5. aligned path: the same data and params through ``train`` with the
    default ``tpu_grow_mode=auto``, which must take the aligned engine and
    say so in the log; launches of B2-B4 per tree, speculative rounds per
@@ -94,7 +105,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    B5's plain twin fails the run; rounds and executed splits per tree,
    fallbacks, each level build timed on its own; holdout AUC above 0.6
    and within 2e-3 of the leaf-wise run's; the card's predictions
-   against a CPU predict; one profiled round at 63 bins. Then the same at
+   against a CPU predict; one profiled round at 63 bins (with B1's device
+   ms and launches by kernel name: its trees fall back to leaf-wise). Then
+   the same at
    63 bins with ``max_depth`` 8, where the speculation covers every tree:
    no tree may fall back, and the AUC must be within 2e-3 of the aligned
    engine's on the same params; one profiled round;
@@ -146,6 +159,8 @@ ROUNDS = {63: 10, 255: 5}
 # tree's root) slot_hist + hist_finalize; B3 count_pass count
 ALIGNED_KERNELS = ("count_kernel", "scan_kernel", "scatter_kernel",
                    "slot_hist_kernel", "hist_finalize_kernel")
+# the kernels of histogram.cu (B1): one launch a call, f32 and f64
+HIST_KERNELS = ("hist_fixed_kernel", "hist_f64_kernel")
 MSLR_ROWS, MSLR_FEATURES = 2_270_000, 137     # bench.py stage 3
 MSLR_ROUNDS, MSLR_LEAF_ROUNDS = 6, 3
 NDCG_ROWS = 200_000
@@ -251,41 +266,68 @@ def phase_build() -> None:
                 log(f"  ptxas {name}: {line.strip()}")
 
 
-def phase_sass() -> dict:
-    """``cuobjdump -sass`` of the built aligned library's histogram kernel
-    (B4, and B2's smaller children), printed whole; fails if it holds a
-    compare-and-swap loop (``ATOMS.CAST.SPIN``, what an f32, f64 or u64
-    shared-memory atomicAdd compiles to on sm_90a). Returns the count of
-    each atomic opcode."""
+def sass_atomics(library: str, kernel: str, whole: bool) -> dict:
+    """The count of each atomic opcode in ``cuobjdump -sass`` of
+    ``kernel`` in the built library ``library``, the listing printed
+    whole if ``whole``."""
     from lightgbm_tpu_torch.utils import cuda_build
     tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()),
                         "cuobjdump")
     text = subprocess.run([tool, "-sass", cuda_build.library_path(
-        "aligned")], capture_output=True, text=True, check=True).stdout
+        library)], capture_output=True, text=True, check=True).stdout
     funcs = re.split(r"\n\s*Function : ", text)
-    body = [f for f in funcs[1:] if "slot_hist_kernel" in f.split()[0]]
+    body = [f for f in funcs[1:] if kernel in f.split()[0]]
     if len(body) != 1:
-        raise AssertionError("sass: slot_hist_kernel not found once in the "
-                             "aligned library")
+        raise AssertionError(f"sass: {kernel} not found once in the "
+                             f"{library} library")
     lines = body[0].splitlines()
-    log(f"sass of {lines[0].strip()} ({len(lines)} lines):")
-    for line in lines:
-        log(f"  {line.rstrip()}")
+    if whole:
+        log(f"sass of {lines[0].strip()} ({len(lines)} lines):")
+        for line in lines:
+            log(f"  {line.rstrip()}")
     ops: dict = {}
     for op in re.findall(r"\b((?:ATOMS|ATOMG|ATOM|RED|REDG)\.[A-Z0-9_.]+)",
                          body[0]):
         ops[op] = ops.get(op, 0) + 1
-    log(f"sass slot_hist_kernel atomics: {ops}")
-    if any("CAST.SPIN" in op for op in ops):
-        raise AssertionError("sass: slot_hist_kernel holds ATOMS.CAST.SPIN")
+    log(f"sass {kernel} atomics ({len(lines)} lines): {ops}")
     return ops
+
+
+def phase_sass() -> dict:
+    """``cuobjdump -sass`` of the fixed-point histogram kernels: the
+    aligned library's (B4, and B2's smaller children), printed whole, and
+    B1's f32 kernel; fails if either holds a compare-and-swap loop
+    (``ATOMS.CAST.SPIN``, what an f32, f64 or u64 shared-memory atomicAdd
+    compiles to on sm_90a). B1's f64 kernel keeps f64 shared sums and is
+    exempt; its counts are printed. Returns each kernel's counts."""
+    ops = {"slot_hist_kernel": sass_atomics("aligned", "slot_hist_kernel",
+                                            whole=True),
+           "hist_fixed_kernel": sass_atomics("histogram",
+                                             "hist_fixed_kernel",
+                                             whole=False),
+           "hist_f64_kernel": sass_atomics("histogram", "hist_f64_kernel",
+                                           whole=False)}
+    for name in ("slot_hist_kernel", "hist_fixed_kernel"):
+        if any("CAST.SPIN" in op for op in ops[name]):
+            raise AssertionError(f"sass: {name} holds ATOMS.CAST.SPIN")
+    return ops
+
+
+def leaf_abs_sums(torch, gh, idx, begin, count):
+    """[1, 2] sum of |g| and |h| over a leaf's rows (the scale of the f32
+    histogram tolerance); NaN and Inf add nothing."""
+    rows = idx[begin:begin + count].long() if idx is not None \
+        else slice(begin, begin + count)
+    v = gh[rows]
+    return torch.where(torch.isfinite(v), v.abs(), 0.0).sum(0)[None]
 
 
 def check_parity(torch, H, binm, gh, idx, begin, count, bins, prec,
                  what) -> float:
     """The kernel against its plain twin on the same inputs: f64 equal;
-    f32 counts equal and grad/hess within 1e-5 x the leaf's sum |g|
-    (sum |h|). Returns the f32 max |difference| (0 for f64)."""
+    f32 by `check_hist` (counts equal, grad/hess within 1e-5 x the
+    leaf's sum |g| (sum |h|), max |d| / sum printed). Returns the f32 max
+    |difference| (0 for f64)."""
     got = H.leaf_histogram(binm, gh, idx, begin, count, bins, prec)
     ref = H.histogram_plain(binm, gh, idx, begin, count, bins, prec)
     torch.cuda.synchronize()
@@ -295,25 +337,26 @@ def check_parity(torch, H, binm, gh, idx, begin, count, bins, prec,
             raise AssertionError(f"f64 histogram differs from the plain twin "
                                  f"({what}, {bins} bins): max |d| {d}")
         return 0.0
-    if not torch.equal(got[..., 2], ref[..., 2]):
-        raise AssertionError(f"f32 counts differ ({what}, {bins} bins)")
-    sel = idx[begin:begin + count].long() if idx is not None \
-        else slice(begin, begin + count)
-    scale = gh[sel].abs().sum(0)                        # sum |g|, sum |h|
-    err = (got[..., :2] - ref[..., :2]).abs()
-    if bool((err > 1e-5 * scale).any()):
-        raise AssertionError(f"f32 grad/hess differ beyond 1e-5 x sum|.| "
-                             f"({what}, {bins} bins): max |d| "
-                             f"{err.max().item()}")
-    return err.max().item()
+    return check_hist(torch, got[None], ref[None], leaf_abs_sums(
+        torch, gh, idx, begin, count), f"B1 {what}, {bins} bins, f32")
+
+
+def row_sectors(f: int) -> float:
+    """Mean 32-byte sectors that one row of ``f`` bin bytes at a random
+    row of bins [N, f] touches."""
+    return sum((o + f - 1) // 32 - o // 32 + 1
+               for o in ((r * f) % 32 for r in range(32))) / 32
 
 
 def phase_parity(torch, dev, rows: int) -> dict:
     """Kernel vs plain twin on the card at the main path's shapes: the
     contiguous root of ``rows`` x 28, a large gathered child (half the
-    rows) and a small one (20k rows), f32 and f64, at 63 and 255 bins.
-    At the root it times the kernel, the twin and one ``index_add_``;
-    on the gathered children it times the kernel."""
+    rows), a small one (20k rows) and leaves of 16,385 rows (two row
+    tiles) and 1 row, f32 and f64, at 63 and 255 bins; then f32 and f64
+    on a payload with NaN, +Inf and -Inf in g and h (root and the small
+    child), cell by cell against the twin. At the root it times the
+    kernel, the twin and one ``index_add_``; on the gathered leaves it
+    times the kernel beside its byte bound and its sector bound."""
     from lightgbm_tpu_torch.ops import histogram as H
     f, n = 28, rows
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -326,8 +369,10 @@ def phase_parity(torch, dev, rows: int) -> dict:
         small = min(20_000, n // 4)
         cases = {"small child": (perm, n // 16 + 7, small),
                  "large child": (perm, n // 4 + 1, n // 2),
+                 "two-tile leaf": (perm, n // 8 + 3, min(16_385, n // 4)),
+                 "one-row leaf": (perm, n // 3, 1),
                  "root": (None, 0, n)}
-        r = {"max_abs_err_f32": 0.0}
+        r = {"max_abs_err_f32": 0.0, "gathered": {}}
         for what, (idx, begin, count) in cases.items():
             for prec in ("f32", "f64"):
                 err = check_parity(torch, H, binm, gh, idx, begin, count,
@@ -337,16 +382,42 @@ def phase_parity(torch, dev, rows: int) -> dict:
             if idx is not None:
                 ms = cuda_ms(torch, lambda: H.leaf_histogram(
                     binm, gh, idx, begin, count, bins, "f32"), reps=10)
+                b_ms = hist_bound_ms(count, f, bins, 4, True)[0]
+                sec_ms = (count * (32 * (row_sectors(f) + 1) + 4)
+                          + f * bins * 3 * 4) / HBM_BYTES_PER_S * 1e3
+                r["gathered"][what] = {"rows": count, "ms": ms,
+                                       "bound_ms": b_ms,
+                                       "sector_bound_ms": sec_ms}
                 log(f"time {what} {count} of {n} rows, {bins} bins, f32: "
-                    f"kernel {ms:.4f} ms, bound "
-                    f"{hist_bound_ms(count, f, bins, 4, True)[0]:.4f} ms")
+                    f"kernel {ms:.4f} ms, bound {b_ms:.4f} ms, sector "
+                    f"bound {sec_ms:.4f} ms ({row_sectors(f):.2f} sectors "
+                    f"a row + 1 for gh)")
+        sizes = ", ".join(str(c[2]) for c in cases.values()
+                          if c[0] is not None)
         log(f"parity {bins} bins: f64 equal, f32 counts equal, f32 max |d| "
-            f"{r['max_abs_err_f32']:.3e} (root {n}, gathered children "
-            f"{n // 2} and {small} rows)")
-        del perm
+            f"{r['max_abs_err_f32']:.3e} (root {n}, gathered leaves of "
+            f"{sizes} rows)")
+        bad = gh.clone()
+        pick = torch.randperm(n // 2, generator=gen, device=dev)[
+            :max(3, n // 997)]
+        i = torch.arange(pick.numel(), device=dev)
+        vals = torch.tensor([float("nan"), float("inf"), float("-inf")],
+                            device=dev)
+        bad[pick.long(), i % 2] = vals[i % 3]
+        r["nonfinite"] = {}
+        for what, (idx, begin, count) in (("small child", cases[
+                "small child"]), ("root", cases["root"])):
+            for prec in ("f32", "f64"):
+                r["nonfinite"][f"{what} {prec}"] = check_hist_nonfinite(
+                    torch,
+                    H.leaf_histogram(binm, bad, idx, begin, count, bins,
+                                     prec)[None],
+                    H.histogram_plain(binm, bad, idx, begin, count, bins,
+                                      prec)[None],
+                    leaf_abs_sums(torch, bad, idx, begin, count),
+                    f"B1 NaN/Inf {what}, {bins} bins, {prec}")
+        del perm, bad
         for prec, itemsize in (("f32", 4), ("f64", 8)):
-            if prec == "f64" and bins != 63:
-                continue
             r[f"ms_{prec}"] = cuda_ms(torch, lambda: H.leaf_histogram(
                 binm, gh, None, 0, n, bins, prec))
             r[f"plain_ms_{prec}"] = cuda_ms(torch, lambda: H.histogram_plain(
@@ -847,19 +918,39 @@ def phase_aligned_parity(torch, lt, ds, params, max_bin: int,
     return res
 
 
-def profile_round(torch, bst) -> dict:
+def kernel_times(kernels, names) -> dict:
+    """{name: {"ms", "launches"}} of the profiled kernels (ms, count,
+    key) whose key holds one of ``names`` as a word."""
+    out = {}
+    for ms, count, key in kernels:
+        for name in names:
+            if re.search(rf"\b{name}\b", key):
+                a = out.setdefault(name, {"ms": 0.0, "launches": 0})
+                a["ms"] += ms
+                a["launches"] += count
+    return out
+
+
+def profile_round(torch, bst, hist_names=HIST_KERNELS) -> dict:
     """One more boosting round under `torch.profiler`: wall time, the
     device's busy and idle share, host-device syncs, the kernels that
     take the most device time, and the device time and launches of each
-    kernel of aligned.cu by name (read after the main path's counts)."""
+    kernel of aligned.cu and of B1 (``hist_names``) by name (read after
+    the main path's counts). With this checkout's B1, its kernels'
+    launches must equal the round's calls of `leaf_histogram` on the card
+    (one launch a call), one lost profiler record aside."""
     from torch.profiler import ProfilerActivity, profile
+
+    from lightgbm_tpu_torch.ops import histogram as H
     torch.cuda.synchronize()
+    calls = dict(H.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         bst.update()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    calls = {k: H.LAUNCHES[k] - v for k, v in calls.items()}
     cuda = torch.autograd.DeviceType.CUDA
     kernels, syncs = [], 0
     for e in prof.key_averages():
@@ -877,19 +968,31 @@ def profile_round(torch, bst) -> dict:
         f"launches, {syncs} sync/copy calls")
     for ms, count, key in kernels[:10]:
         log(f"  {ms:9.3f} ms {count:6d}x {key[:90]}")
-    aligned = {}
-    for ms, count, key in kernels:
-        for name in ALIGNED_KERNELS:
-            if re.search(rf"\b{name}\b", key):
-                a = aligned.setdefault(name, {"ms": 0.0, "launches": 0})
-                a["ms"] += ms
-                a["launches"] += count
+    aligned = kernel_times(kernels, ALIGNED_KERNELS)
     if aligned:
         log("  aligned.cu kernels: " + ", ".join(
             f"{name} {a['ms']:.3f} ms in {a['launches']} launches"
             for name, a in aligned.items()))
+    hist = kernel_times(kernels, hist_names)
+    if hist or calls["f32"] or calls["f64"]:
+        log("  B1 kernels: " + ", ".join(
+            f"{name} {a['ms']:.3f} ms in {a['launches']} launches"
+            for name, a in hist.items()) + f"; leaf_histogram calls "
+            f"{calls['f32']} f32, {calls['f64']} f64")
+    if hist_names == HIST_KERNELS:
+        # a second kernel a call shows as more launches than calls; the
+        # profiler can lose one kernel record in a round of ~90,000
+        # launches (PERF.md, slice 9), so one fewer is let through
+        for prec, name in (("f32", "hist_fixed_kernel"),
+                           ("f64", "hist_f64_kernel")):
+            got = hist.get(name, {"launches": 0})["launches"]
+            if not calls[prec] - 1 <= got <= calls[prec]:
+                raise AssertionError(f"profiled round: {name} launched "
+                                     f"{got} times for {calls[prec]} "
+                                     f"{prec} calls")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "launches": launches,
             "syncs": syncs, "aligned_kernels": aligned,
+            "hist_kernels": hist, "hist_calls": calls,
             "top": [[k[2][:90], k[0], k[1]] for k in kernels[:10]]}
 
 
@@ -1879,7 +1982,8 @@ def main() -> int:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was never launched on its "
                                  "main path")
-    log(json.dumps({"main": {str(k): v for k, v in main_r.items()},
+    log(json.dumps({"hist_kernel": {str(k): v for k, v in par.items()},
+                    "main": {str(k): v for k, v in main_r.items()},
                     "aligned": {str(k): v for k, v in aligned_r.items()},
                     "big_n": big_n,
                     "aligned_kernels": {f"{b} {lay}": v for (b, lay), v
@@ -1888,7 +1992,7 @@ def main() -> int:
                     "level_kernel": {str(k): v for k, v in lpar.items()},
                     "mslr": mslr, "rank_kernel": rpar,
                     "proto_path": proto_path, "proto_kernels": ppar,
-                    "slot_hist_sass_atomics": sass,
+                    "sass_atomics": sass,
                     "power": info["smi"]}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

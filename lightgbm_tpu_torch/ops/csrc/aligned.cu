@@ -85,6 +85,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "fixed_point.cuh"
 #include "xla_math.cuh"
 
 namespace {
@@ -329,72 +330,8 @@ __global__ void scatter_kernel(const int32_t* __restrict__ rec, int W, int C,
 // The slot histogram (B4, and B2's smaller children): fixed-point shared
 // cells, P1's design (proto.cu) for the engine's records
 // ---------------------------------------------------------------------------
-// The CTA's sub-histogram over its feature tile: per cell five u32
-// words, side by side (one address register serves all five atomics):
-// the hi and lo int32 words of g and of h in fixed point and the count,
-// each added with one native shared-memory integer atomic. A run whose g
-// (h) holds a non-finite value adds that stat straight to the slot's f64
-// sums instead (gx, hx), so that NaN and Inf reach its cells as they
-// reach an f64 sum.
-constexpr int kCellWords = 5;
-constexpr int kGHi = 0, kGLo = 1, kHHi = 2, kHLo = 3, kN = 4;
-
-struct Cells {
-  unsigned* w;                           // [cells, kCellWords]
-  double* sums;                          // the run's slot: [cells, 2] f64
-  bool gx, hx;
-  __device__ void add(int cell, unsigned gh, unsigned gl, unsigned hh,
-                      unsigned hl) const {
-    unsigned* p = w + kCellWords * cell;
-    if (gx) {
-      atomicAdd(sums + 2 * cell, static_cast<double>(__uint_as_float(gh)));
-    } else {
-      atomicAdd(p + kGHi, gh);
-      atomicAdd(p + kGLo, gl);
-    }
-    if (hx) {
-      atomicAdd(sums + 2 * cell + 1,
-                static_cast<double>(__uint_as_float(hh)));
-    } else {
-      atomicAdd(p + kHHi, hh);
-      atomicAdd(p + kHLo, hl);
-    }
-    atomicAdd(p + kN, 1u);
-  }
-};
-
-// The fixed-point form of one run's f32 values, at most 2^nb of them,
-// whose largest |v| has the bits mbits (those of |v| order as the values
-// do, and NaN and Inf lie above every finite one): v * 2^e = hi + lo *
-// 2^-l, hi and lo rounded to integers, so that 2^nb of either sum within
-// 2^30. A non-finite largest |v| makes the run exact: split passes the
-// value's bits through in hi.
-struct Fixed {
-  int e, l;
-  bool exact;
-  __device__ Fixed(unsigned mbits, int nb) {
-    exact = mbits >= 0x7f800000u;
-    int ex = 0;
-    if (!exact) frexpf(__uint_as_float(mbits), &ex);   // |v| < 2^ex
-    e = 30 - nb - ex;
-    l = 31 - nb;
-  }
-  __device__ void split(float v, unsigned& hi, unsigned& lo) const {
-    if (exact) {
-      hi = __float_as_uint(v);
-      lo = 0u;
-      return;
-    }
-    const float x = scalbnf(v, e);
-    const float r = rintf(x);
-    hi = static_cast<unsigned>(static_cast<int>(r));
-    lo = static_cast<unsigned>(__float2int_rn(scalbnf(x - r, l)));
-  }
-  __device__ double value(unsigned hi, unsigned lo) const {
-    return ldexp(static_cast<double>(static_cast<int>(hi))
-                 + ldexp(static_cast<double>(static_cast<int>(lo)), -l), -e);
-  }
-};
+// The cells (`Cells`) and the fixed-point split (`Fixed`) are in
+// fixed_point.cuh, shared with histogram.cu (B1).
 
 // How a warp walks its feature tile's sites: the tile's features f0 ..
 // f0 + nf - 1 from f0 + rot on (rot the warp's index mod nf), wrapping to

@@ -1,4 +1,5 @@
-// Per-leaf gradient / hessian / count histogram for Hopper (sm_90a).
+// Per-leaf gradient / hessian / count histogram for Hopper (sm_90a):
+// kernel B1 of the leaf-wise builder.
 //
 // Replaces the TPU kernel lightgbm_tpu/ops/pallas_hist.py::pallas_histogram
 // (_hist_kernel, pallas_call at :205, and the sub-binned
@@ -10,126 +11,333 @@
 //
 // The TPU has no fast scatter, so the Pallas kernel turns the scatter
 // into one-hot MXU contractions with a bf16 hi/lo payload split. Hopper
-// has fast shared-memory atomics, so this kernel takes the pattern of the
-// OpenCL reference (ocl/histogram256.cl): each block owns a sub-histogram
-// of a tile of features in shared memory, adds its rows into it with
-// atomicAdd, and writes it out once; a second small kernel folds the
-// per-block sub-histograms in a fixed block order.
+// scatters into shared memory with atomics, but only 32-bit integer ones
+// are native: an f32 or f64 shared atomicAdd is a compare-and-swap loop
+// (ATOMS.CAST.SPIN) on sm_90a. So the f32 path takes the fixed-point
+// design of aligned.cu's slot histogram (fixed_point.cuh), fit to the
+// leaf-wise builder, which histograms many small gathered leaves a tree:
+//   - Tiles. The leaf's rows are cut into equal tiles of at most 16,384
+//     rows (ops/histogram.py::launch_shape). A scale pass reads a tile's
+//     gh rows (through indices for a gathered leaf) and takes an integer
+//     max over the bits of |g| and |h|; the sum pass splits each value
+//     into hi/lo int32 words at that scale and adds them, and the count,
+//     to 20-byte shared cells with native ATOMS.ADD. The tile's error is
+//     at most 1.9e-6 of its largest |v|, so a leaf's at most 1.9e-6 of
+//     its sum of |v|.
+//   - Non-finite tiles. A tile whose largest |g| or |h| is NaN or Inf adds
+//     that stat straight to the f64 sums, so NaN and Inf reach each cell
+//     as they reach the plain twin's.
+//   - One launch a call. At a tile's end each cell is decoded and added to
+//     the call's f64 sums in device memory (native RED.E.ADD.F64) and its
+//     count to a u32 count. Each CTA then takes its feature tile's ticket;
+//     the tile's last CTA rounds the tile's f64 sums to the f32 output
+//     once and zeroes its sums, counts and ticket, so the scratch is zero
+//     again for the next call on the stream. No fold kernel, no partial
+//     slabs, no memset.
+//   - CTAs. One CTA of 1024 threads an SM (the occupancy calculator's
+//     count, ops/histogram.py), one row a thread. An SM adds about 1.8
+//     (row, feature) sites a clock into its cells, so a small leaf on one
+//     or two CTAs would wait on two SMs' atomics: a leaf is spread over
+//     about sqrt(7.2 x rows / bins) CTAs, which balances the rows' adds
+//     against each tile's flush of F x B cells (a 20,000-row child takes
+//     48 CTAs at 63 bins; the 10.5M root all SMs, 5 tiles each), never
+//     more CTAs than tiles.
+//   - Feature tiles (blockIdx.y): the fewest equal tiles whose cells fit
+//     the shared-memory opt-in (HIGGS 28 x 255 bins: one; MSLR 137 x 255:
+//     four).
+//   - Row reads. A row's bins are read as aligned 32-bit words, four
+//     features a load: whole words where every tile's row slice starts
+//     on a 4-byte boundary (F % 4 == 0), else the words that hold its
+//     bytes. Warps start on different features (rotated by the warp's
+//     index) so that they add to different cells.
 //
-// The gather of the leaf's rows is fused: the kernel reads the leaf's
+// The f64 path (tpu_use_f64_hist) must stay equal to its plain twin, which
+// fixed point cannot promise, so it keeps f64 shared sums (CAS loops); f64
+// sums of f32 payloads are exact at realistic leaf sizes, so their order
+// does not matter, and it shares the launch structure above: tiles taken
+// in turn without a per-tile flush, one flush a CTA into the f64 sums, the
+// last CTA's f64 output.
+//
+// The gather of the leaf's rows is fused: the kernels read the leaf's
 // slice of the partition, indices[begin, begin + count), and the rows of
 // bins [N, F] (uint8) and gh [N, 2] (f32) it names, or the contiguous rows
 // [begin, begin + count) when indices is null (the identity root
 // partition). No gathered [P, F] copy is written.
 //
-// What bounds it on an H100: bytes. One call must read count * (F + 8)
-// bytes of bins rows and gh, plus 4 * count bytes of indices for a
-// gathered leaf, and write F * B * 3 accumulators; the 3 * F * count adds
-// are two orders of magnitude below the card's f32 rate. The design keeps
-// every add in shared memory (no global atomics), reads each row once,
-// and launches only as many blocks as the card holds at once (two per SM
-// at the default shared-memory budget), so the fold pass reads at most
-// a few hundred sub-histograms.
-//
-// Acc = float is the default path. Acc = double is the exact mode: f64
-// sums of f32 payloads are exact at realistic leaf sizes, so the result
-// does not depend on the order of the atomics, and the fold runs in a
-// fixed order.
+// What bounds it on an H100: by the data sheet, bytes. One call must read
+// count * (F + 8) bytes of bins rows and gh, plus 4 * count bytes of
+// indices for a gathered leaf, and write F * B * 3 outputs; the 3 * F *
+// count adds are two orders of magnitude below the card's f32 rate (a
+// gathered 28-byte row touches 1.75 32-byte sectors on average, its gh
+// one more). What bounds it in fact is each SM's shared-memory atomics,
+// five a (row, feature) site: about 1.8 sites a clock, so the 10.5M x 28
+// root takes ~0.69 ms against 0.11 ms of bytes (PERF.md, slice 9).
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "fixed_point.cuh"
 
 namespace {
 
 constexpr int kStats = 3;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 1024;   // one CTA an SM
 
-template <typename Acc>
-__global__ void hist_block_kernel(const uint8_t* __restrict__ bins,
-                                  int num_features,
-                                  const float* __restrict__ gh,
-                                  const int32_t* __restrict__ indices,
-                                  long long begin, long long count,
-                                  int num_bins, int feat_per_block,
-                                  long long rows_per_block,
-                                  Acc* __restrict__ out) {
+// The call's scratch in device memory, zero before and after a call: the
+// f64 sums of g and h [F, B, 2], the counts [F, B] and one ticket a
+// feature tile.
+struct Scratch {
+  double* sums;
+  unsigned* cnt;
+  unsigned* tickets;
+};
+
+// Adds to the call's sums in device memory that return nothing (PTX red):
+// written as atomicAdd, this kernel's flush adds compile to ATOMG, which
+// wait for the old value
+__device__ __forceinline__ void red_add(double* p, double v) {
+  asm volatile("red.relaxed.gpu.global.add.f64 [%0], %1;"
+               :: "l"(p), "d"(v) : "memory");
+}
+__device__ __forceinline__ void red_add(unsigned* p, unsigned v) {
+  asm volatile("red.relaxed.gpu.global.add.u32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// The leaf's p-th row: indices[begin + p] of a gathered leaf, begin + p of
+// the contiguous root
+__device__ __forceinline__ long long leaf_row(const int32_t* indices,
+                                              long long begin, long long p) {
+  return indices != nullptr
+      ? static_cast<long long>(__ldg(indices + begin + p)) : begin + p;
+}
+
+// One row's bins of the CTA's feature tile (brow, nf features) into the
+// cells: add(f * num_bins + bin) for each feature f whose bin lies below
+// num_bins, from the warp's feature (rot_w's word or rot_f) on, wrapping;
+// the bins are read as 32-bit words, four features a load. words: brow
+// is 4-byte aligned and nf % 4 == 0, and the next word is loaded while
+// the current one's bins are added.
+template <typename Add>
+__device__ __forceinline__ void add_row(const uint8_t* brow, int nf,
+                                        bool words, int rot_w, int rot_f,
+                                        int num_bins, const Add& add) {
+  if (words) {
+    const unsigned* wrow = reinterpret_cast<const unsigned*>(brow);
+    const int nw = nf >> 2;
+    int w = rot_w;
+    unsigned word = __ldg(wrow + w);
+    for (int k = 0; k < nw; ++k) {
+      const int nxt = w + 1 == nw ? 0 : w + 1;
+      const unsigned next = k + 1 < nw ? __ldg(wrow + nxt) : 0u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int b = (word >> (8 * j)) & 255;
+        if (b < num_bins) add((4 * w + j) * num_bins + b);
+      }
+      w = nxt;
+      word = next;
+    }
+    return;
+  }
+  // any other row: the aligned words that hold its bytes (a word that
+  // holds one of the row's bytes lies inside bins' allocation)
+  const int o = static_cast<int>(reinterpret_cast<uintptr_t>(brow) & 3u);
+  const unsigned* wrow = reinterpret_cast<const unsigned*>(brow - o);
+  int f = rot_f;
+  int w = (o + f) >> 2;
+  unsigned word = __ldg(wrow + w);
+  for (int k = 0; k < nf; ++k) {
+    const int pos = o + f;
+    if (pos >> 2 != w) {
+      w = pos >> 2;
+      word = __ldg(wrow + w);
+    }
+    const int b = (word >> (8 * (pos & 3))) & 255;
+    if (b < num_bins) add(f * num_bins + b);
+    f = f + 1 == nf ? 0 : f + 1;
+  }
+}
+
+// The end of a call: each CTA takes its feature tile's ticket once its
+// adds to the scratch are visible (the barrier, then one thread's fence,
+// as a grid sync arrives); the tile's last CTA writes its cells [base,
+// base + cells) of out [F * B, 3] = (g, h, count), each rounded once, and
+// zeroes them and the ticket.
+template <typename Out>
+__device__ void finish(const Scratch& s, long long base, int cells,
+                       Out* out) {
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(s.tickets + blockIdx.y, 1u) == gridDim.x - 1u;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  double* sums = s.sums + 2 * base;
+  unsigned* cnt = s.cnt + base;
+  Out* dst = out + kStats * base;
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+    dst[kStats * i] = static_cast<Out>(__ldcg(sums + 2 * i));
+    dst[kStats * i + 1] = static_cast<Out>(__ldcg(sums + 2 * i + 1));
+    dst[kStats * i + 2] = static_cast<Out>(__ldcg(cnt + i));
+    sums[2 * i] = 0.0;
+    sums[2 * i + 1] = 0.0;
+    cnt[i] = 0u;
+  }
+  if (threadIdx.x == 0) s.tickets[blockIdx.y] = 0u;
+}
+
+// The f32 path. blockIdx.y picks a tile of feat_per_block features; the
+// CTAs of one feature tile take the leaf's tiles of tile_rows rows in turn.
+__global__ void __launch_bounds__(kThreads, 1)
+hist_fixed_kernel(const uint8_t* __restrict__ bins, int num_features,
+                  const float* __restrict__ gh,
+                  const int32_t* __restrict__ indices, long long begin,
+                  long long count, int num_bins, int feat_per_block,
+                  int tile_rows, int words, Scratch s,
+                  float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Acc* sh = reinterpret_cast<Acc*>(smem_raw);
   const int f0 = blockIdx.y * feat_per_block;
   const int nf = min(feat_per_block, num_features - f0);
-  const int cells = nf * num_bins * kStats;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) sh[i] = Acc(0);
-  __syncthreads();
-
-  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_block;
-  const long long r1 = min(count, r0 + rows_per_block);
+  const int cells = nf * num_bins;
+  const long long base = static_cast<long long>(f0) * num_bins;
+  Cells sm;
+  sm.w = reinterpret_cast<unsigned*>(smem_raw);
+  sm.sums = s.sums + 2 * base;
+  unsigned* run_max = sm.w + kCellWords * cells;
+  for (int i = threadIdx.x; i < kCellWords * cells; i += blockDim.x) {
+    sm.w[i] = 0u;
+  }
+  if (threadIdx.x < 2) run_max[threadIdx.x] = 0u;
+  const int warp = threadIdx.x >> 5;
+  const int rot_w = words ? warp % (nf >> 2) : 0;
+  const int rot_f = warp % nf;
   const float2* gh2 = reinterpret_cast<const float2*>(gh);
-  for (long long p = r0 + threadIdx.x; p < r1; p += blockDim.x) {
-    const long long row = indices != nullptr
-        ? static_cast<long long>(indices[begin + p]) : begin + p;
-    const float2 v = gh2[row];
-    const Acc g = static_cast<Acc>(v.x);
-    const Acc h = static_cast<Acc>(v.y);
-    const uint8_t* brow = bins + row * num_features + f0;
-    for (int f = 0; f < nf; ++f) {
-      const int b = brow[f];
-      if (b < num_bins) {
-        Acc* cell = sh + (f * num_bins + b) * kStats;
-        atomicAdd(cell, g);
-        atomicAdd(cell + 1, h);
-        atomicAdd(cell + 2, Acc(1));
+  const long long num_tiles = (count + tile_rows - 1) / tile_rows;
+  for (long long tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+    const long long r0 = tile * tile_rows;
+    const int n = static_cast<int>(min(static_cast<long long>(tile_rows),
+                                       count - r0));
+    __syncthreads();                     // the last tile's flush is done
+    // 1. the bits of the tile's largest |g| and |h|, which fix its scale
+    //    (integer max: NaN and Inf rank above every finite one)
+    unsigned mg = 0u, mh = 0u;
+    for (int q = threadIdx.x; q < n; q += blockDim.x) {
+      const float2 v = __ldg(gh2 + leaf_row(indices, begin, r0 + q));
+      mg = max(mg, __float_as_uint(v.x) & 0x7fffffffu);
+      mh = max(mh, __float_as_uint(v.y) & 0x7fffffffu);
+    }
+    mg = __reduce_max_sync(kFull, mg);
+    mh = __reduce_max_sync(kFull, mh);
+    if ((threadIdx.x & 31) == 0) {
+      atomicMax(run_max, mg);
+      atomicMax(run_max + 1, mh);
+    }
+    __syncthreads();
+    const int nb = 32 - __clz(n - 1);    // rows <= 2^nb
+    const Fixed fg(run_max[0], nb), fh(run_max[1], nb);
+    sm.gx = fg.exact;
+    sm.hx = fh.exact;
+    // 2. the tile's rows into the cells, one row a thread
+    for (int q = threadIdx.x; q < n; q += blockDim.x) {
+      const long long row = leaf_row(indices, begin, r0 + q);
+      const float2 v = __ldg(gh2 + row);
+      unsigned g_hi, g_lo, h_hi, h_lo;
+      fg.split(v.x, g_hi, g_lo);
+      fh.split(v.y, h_hi, h_lo);
+      add_row(bins + row * num_features + f0, nf, words != 0, rot_w, rot_f,
+              num_bins,
+              [&](int c) { sm.add(c, g_hi, g_lo, h_hi, h_lo); });
+    }
+    __syncthreads();
+    if (threadIdx.x < 2) run_max[threadIdx.x] = 0u;
+    // 3. the tile into the f64 sums, one atomic a cell and stat
+    for (int c = threadIdx.x; c < cells; c += blockDim.x) {
+      unsigned* p = sm.w + kCellWords * c;
+      const unsigned k = p[kN];
+      if (k == 0u) continue;
+      if (!fg.exact) red_add(sm.sums + 2 * c, fg.value(p[kGHi], p[kGLo]));
+      if (!fh.exact) {
+        red_add(sm.sums + 2 * c + 1, fh.value(p[kHHi], p[kHLo]));
       }
+      red_add(s.cnt + base + c, k);
+#pragma unroll
+      for (int u = 0; u < kCellWords; ++u) p[u] = 0u;
+    }
+  }
+  finish(s, base, cells, out);
+}
+
+// The f64 path: shared f64 sums [cells, 2] and u32 counts [cells] (20
+// bytes a cell, as the f32 path's), one flush a CTA.
+__global__ void __launch_bounds__(kThreads, 1)
+hist_f64_kernel(const uint8_t* __restrict__ bins, int num_features,
+                const float* __restrict__ gh,
+                const int32_t* __restrict__ indices, long long begin,
+                long long count, int num_bins, int feat_per_block,
+                int tile_rows, int words, Scratch s,
+                double* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int f0 = blockIdx.y * feat_per_block;
+  const int nf = min(feat_per_block, num_features - f0);
+  const int cells = nf * num_bins;
+  const long long base = static_cast<long long>(f0) * num_bins;
+  double* sg = reinterpret_cast<double*>(smem_raw);
+  unsigned* sn = reinterpret_cast<unsigned*>(sg + 2 * cells);
+  for (int i = threadIdx.x; i < 2 * cells; i += blockDim.x) sg[i] = 0.0;
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) sn[i] = 0u;
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int rot_w = words ? warp % (nf >> 2) : 0;
+  const int rot_f = warp % nf;
+  const float2* gh2 = reinterpret_cast<const float2*>(gh);
+  const long long num_tiles = (count + tile_rows - 1) / tile_rows;
+  for (long long tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+    const long long r0 = tile * tile_rows;
+    const int n = static_cast<int>(min(static_cast<long long>(tile_rows),
+                                       count - r0));
+    for (int q = threadIdx.x; q < n; q += blockDim.x) {
+      const long long row = leaf_row(indices, begin, r0 + q);
+      const float2 v = __ldg(gh2 + row);
+      const double g = v.x, h = v.y;
+      add_row(bins + row * num_features + f0, nf, words != 0, rot_w, rot_f,
+              num_bins, [&](int c) {
+                atomicAdd(sg + 2 * c, g);
+                atomicAdd(sg + 2 * c + 1, h);
+                atomicAdd(sn + c, 1u);
+              });
     }
   }
   __syncthreads();
-
-  // this block's sub-histogram of features [f0, f0 + nf) lands in its own
-  // [F, B, 3] slab: out is [gridDim.x, F, B, 3]
-  Acc* dst = out + (static_cast<long long>(blockIdx.x) * num_features + f0)
-      * num_bins * kStats;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) dst[i] = sh[i];
+  for (int c = threadIdx.x; c < cells; c += blockDim.x) {
+    const unsigned k = sn[c];
+    if (k == 0u) continue;
+    red_add(s.sums + 2 * (base + c), sg[2 * c]);
+    red_add(s.sums + 2 * (base + c) + 1, sg[2 * c + 1]);
+    red_add(s.cnt + base + c, k);
+  }
+  finish(s, base, cells, out);
 }
 
-template <typename Acc>
-__global__ void hist_fold_kernel(const Acc* __restrict__ partial,
-                                 int num_partials, long long cells,
-                                 Acc* __restrict__ out) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= cells) return;
-  Acc s = Acc(0);
-  for (int k = 0; k < num_partials; ++k) s += partial[k * cells + i];
-  out[i] = s;
-}
-
-template <typename Acc>
-int launch(const void* bins, int num_features, const void* gh,
+template <typename Kernel, typename Out>
+int launch(Kernel kernel, const void* bins, int num_features, const void* gh,
            const void* indices, long long begin, long long count,
-           int num_bins, int feat_per_block, int num_blocks, int threads,
-           void* partial, void* out, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int fpb = feat_per_block;
-  const int grid_y = (num_features + fpb - 1) / fpb;
-  const size_t smem = static_cast<size_t>(fpb) * num_bins * kStats
-      * sizeof(Acc);
-  cudaError_t err = cudaFuncSetAttribute(
-      hist_block_kernel<Acc>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long rows_per_block = (count + num_blocks - 1) / num_blocks;
-  // one block slab straight into out when a single block covers the rows
-  Acc* block_out = static_cast<Acc*>(num_blocks == 1 ? out : partial);
-  hist_block_kernel<Acc><<<dim3(num_blocks, grid_y), threads, smem, s>>>(
+           int num_bins, int feat_per_block, int tile_rows, int grid_x,
+           int words, int smem, void* sums, void* cnt, void* tickets,
+           void* out, void* stream) {
+  if (count <= 0 || num_features <= 0) return 0;
+  const int grid_y = (num_features + feat_per_block - 1) / feat_per_block;
+  const Scratch s{static_cast<double*>(sums), static_cast<unsigned*>(cnt),
+                  static_cast<unsigned*>(tickets)};
+  kernel<<<dim3(grid_x, grid_y), kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(bins), num_features,
       static_cast<const float*>(gh), static_cast<const int32_t*>(indices),
-      begin, count, num_bins, fpb, rows_per_block, block_out);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || num_blocks == 1) return static_cast<int>(err);
-  const long long cells =
-      static_cast<long long>(num_features) * num_bins * kStats;
-  const int fold_threads = 256;
-  const long long fold_blocks = (cells + fold_threads - 1) / fold_threads;
-  hist_fold_kernel<Acc><<<static_cast<unsigned>(fold_blocks), fold_threads,
-                          0, s>>>(static_cast<const Acc*>(partial),
-                                  num_blocks, cells, static_cast<Acc*>(out));
+      begin, count, num_bins, feat_per_block, tile_rows, words, s,
+      static_cast<Out*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -137,34 +345,76 @@ int launch(const void* bins, int num_features, const void* gh,
 
 extern "C" {
 
-// out: [F, num_bins, 3]; partial: [num_blocks, F, num_bins, 3] scratch
-// (unused when num_blocks == 1). Returns the CUDA error code (0 = ok).
+// out: [F, num_bins, 3] (f32 here, f64 for lgbt_hist_f64). sums ([F,
+// num_bins, 2] f64), cnt ([F, num_bins] u32) and tickets (u32, one a
+// feature tile): the scratch of calls on this stream, zero before the
+// call and zero again when it ends. feat_per_block, tile_rows, grid_x and
+// smem are
+// ops/histogram.py::launch_shape's; words is 1 where each row's feature
+// tiles start on a 4-byte boundary and hold whole words. Needs
+// lgbt_hist_setup on the device first. Returns the CUDA error code (0 =
+// ok).
 int lgbt_hist_f32(const void* bins, int num_features, const void* gh,
                   const void* indices, long long begin, long long count,
-                  int num_bins, int feat_per_block, int num_blocks,
-                  int threads, void* partial, void* out, void* stream) {
-  return launch<float>(bins, num_features, gh, indices, begin, count,
-                       num_bins, feat_per_block, num_blocks, threads,
-                       partial, out, stream);
+                  int num_bins, int feat_per_block, int tile_rows,
+                  int grid_x, int words, int smem, void* sums, void* cnt,
+                  void* tickets, void* out, void* stream) {
+  return launch<decltype(&hist_fixed_kernel), float>(
+      hist_fixed_kernel, bins, num_features, gh, indices, begin, count,
+      num_bins, feat_per_block, tile_rows, grid_x, words, smem, sums, cnt,
+      tickets, out, stream);
 }
 
 int lgbt_hist_f64(const void* bins, int num_features, const void* gh,
                   const void* indices, long long begin, long long count,
-                  int num_bins, int feat_per_block, int num_blocks,
-                  int threads, void* partial, void* out, void* stream) {
-  return launch<double>(bins, num_features, gh, indices, begin, count,
-                        num_bins, feat_per_block, num_blocks, threads,
-                        partial, out, stream);
+                  int num_bins, int feat_per_block, int tile_rows,
+                  int grid_x, int words, int smem, void* sums, void* cnt,
+                  void* tickets, void* out, void* stream) {
+  return launch<decltype(&hist_f64_kernel), double>(
+      hist_f64_kernel, bins, num_features, gh, indices, begin, count,
+      num_bins, feat_per_block, tile_rows, grid_x, words, smem, sums, cnt,
+      tickets, out, stream);
 }
 
-// Largest dynamic shared memory a block may opt in to on `device`.
-int lgbt_smem_optin(int device) {
-  int v = 0;
-  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess) {
+// Once per device (the current one): lets both kernels take the
+// shared-memory opt-in less their static shared memory as dynamic shared
+// memory. Returns those bytes, -1 on a CUDA error.
+int lgbt_hist_setup(int device) {
+  int optin = 0;
+  cudaFuncAttributes fixed_attr, f64_attr;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess
+      || cudaFuncGetAttributes(&fixed_attr, hist_fixed_kernel) != cudaSuccess
+      || cudaFuncGetAttributes(&f64_attr, hist_f64_kernel) != cudaSuccess) {
+    cudaGetLastError();
     return -1;
   }
-  return v;
+  const int dynamic = optin - static_cast<int>(
+      fixed_attr.sharedSizeBytes > f64_attr.sharedSizeBytes
+          ? fixed_attr.sharedSizeBytes : f64_attr.sharedSizeBytes);
+  if (cudaFuncSetAttribute(hist_fixed_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           dynamic) != cudaSuccess
+      || cudaFuncSetAttribute(hist_f64_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              dynamic) != cudaSuccess) {
+    cudaGetLastError();                  // clear the error for later launches
+    return -1;
+  }
+  return dynamic;
+}
+
+// CTAs of the f32 (f64 == 0) or f64 kernel that the CUDA occupancy
+// calculator fits on an SM of the current device with `smem` bytes of
+// dynamic shared memory each (after lgbt_hist_setup); -1 on a CUDA error.
+int lgbt_hist_occupancy(int f64, int smem) {
+  int n = -1;
+  const cudaError_t e = f64
+      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, hist_f64_kernel,
+                                                      kThreads, smem)
+      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, hist_fixed_kernel,
+                                                      kThreads, smem);
+  return e == cudaSuccess ? n : -1;
 }
 
 }  // extern "C"

@@ -3,11 +3,13 @@ lightgbm_tpu/ops/histogram.py, backed by kernels B1 and B5).
 
 ``hist[f, b, :] = sum over the leaf's rows r with bins[r, f] == b of
 (g_r, h_r, 1)``. On a CUDA tensor `leaf_histogram` launches the
-hand-written kernel ``ops/csrc/histogram.cu`` (shared-memory atomics,
-the `ocl/histogram256.cl` pattern) and raises if it cannot; on a CPU
-tensor it runs `histogram_plain`, the kernel's plain PyTorch twin.
-Precision ``"f32"`` is the default path, ``"f64"`` the exact mode of
-``tpu_use_f64_hist`` (order-independent sums of f32 payloads).
+hand-written kernel ``ops/csrc/histogram.cu`` once a call and raises if
+it cannot; on a CPU tensor it runs `histogram_plain`, the kernel's plain
+PyTorch twin. Precision ``"f32"`` is the default path: fixed-point shared
+cells with native integer atomics over tiles of at most `HIST_TILE_ROWS`
+rows, then f64 sums rounded to f32 once, within 2e-6 of the leaf's sum of
+|g| (|h|) of the twin, not bit-equal to it. ``"f64"`` is the exact mode
+of ``tpu_use_f64_hist``: f64 sums of f32 payloads, equal to the twin's.
 
 `histogram_from_words` is the level builder's histogram over packed bin
 words, many contiguous row segments in one call: kernel B5
@@ -18,7 +20,8 @@ f32 once, whatever the precision.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -32,15 +35,37 @@ LAUNCHES: Dict[str, int] = {"f32": 0, "f64": 0}
 WORDS_LAUNCHES: Dict[str, int] = {"histogram_words": 0}
 
 _DTYPES = {"f32": torch.float32, "f64": torch.float64}
-_THREADS = 512
-# rows one block should at least get before another block is worth it:
-# the shared-memory atomics compile to compare-and-swap loops on sm_90a,
-# so one block is slow and a leaf needs many blocks (chosen by measuring
-# 256-16,384 rows per block on an H100; PERF.md, findings of slice 1)
+# B1 (histogram.cu): one CTA of 1024 threads an SM, over tiles of at most
+# HIST_TILE_ROWS of the leaf's rows, each scaled to its own largest |g|
+# and |h| (2^14 rows keep a tile's fixed-point error within 1.9e-6 of its
+# largest |v|)
+HIST_TILE_ROWS = 16_384
+# A leaf of n rows is spread over about sqrt(HIST_SPREAD * n / num_bins)
+# CTAs: a CTA's shared adds take ~0.34 ns a row and feature on an H100
+# and the flush of its tile ~2 ns a cell (F x num_bins cells) plus its
+# share of the global adds, so that many CTAs balance the two (a tile
+# sweep on the card, PERF.md, slice 9)
+HIST_SPREAD = 7.2
+# shared bytes a cell: f32, the hi/lo int32 words of g and of h and a u32
+# count; f64, the f64 sums of g and h and a u32 count
+_CELL_BYTES = {"f32": 20, "f64": 20}
+# shared bytes a CTA beyond its cells: the tile's largest |g| and |h| bits
+_SMEM_EXTRA = 8
+# B5 (histogram_words.cu): threads a block, and the rows one block should
+# at least get before another block is worth it
+_WORDS_THREADS = 512
 _MIN_ROWS_PER_BLOCK = 1024
-# shared-memory budget per block: two blocks fit one SM's 228 KB
-_SMEM_BUDGET = 112 * 1024
 _fns: Dict[str, object] = {}
+# per device ordinal: (SMs, dynamic shared memory a CTA of B1 may take),
+# once lgbt_hist_setup ran
+_devices: Dict[int, Tuple[int, int]] = {}
+# (ordinal, F, num_bins, precision) -> (SMs, dynamic shared bytes a CTA
+# may take, CTAs an SM, shared bytes a CTA): what a call needs from above
+_shapes: Dict[Tuple[int, int, int, str], Tuple[int, int, int, int]] = {}
+# (ordinal, stream) -> B1's scratch of calls on that stream: f64 sums
+# [cells, 2], and u32 counts [cells] followed by one ticket a feature tile,
+# zero between calls
+_scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def reset_launches() -> None:
@@ -77,41 +102,128 @@ def histogram_plain(bins: torch.Tensor, gh: torch.Tensor,
     return out.view(f, num_bins, NUM_HIST_STATS)
 
 
-def _kernel(precision: str):
-    fn = _fns.get(precision)
-    if fn is None:
+def _lib() -> Dict[str, object]:
+    if "f32" not in _fns:
         from ..utils import cuda_build
         lib = cuda_build.load("histogram")
-        p = ctypes.c_void_p
-        for name in ("lgbt_hist_f32", "lgbt_hist_f64"):
-            k = getattr(lib, name)
-            k.argtypes = [p, ctypes.c_int, p, p, ctypes.c_longlong,
-                          ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_int, p, p, p]
-            k.restype = ctypes.c_int
-        lib.lgbt_smem_optin.argtypes = [ctypes.c_int]
-        lib.lgbt_smem_optin.restype = ctypes.c_int
-        _fns["f32"], _fns["f64"] = lib.lgbt_hist_f32, lib.lgbt_hist_f64
-        _fns["smem_optin"] = lib.lgbt_smem_optin
-        fn = _fns[precision]
-    return fn
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        sigs = {"lgbt_hist_f32": [p, i, p, p, ll, ll, i, i, i, i, i, i, p,
+                                  p, p, p, p],
+                "lgbt_hist_f64": [p, i, p, p, ll, ll, i, i, i, i, i, i, p,
+                                  p, p, p, p],
+                "lgbt_hist_setup": [i], "lgbt_hist_occupancy": [i, i]}
+        for name, args in sigs.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = i
+        _fns["setup"] = lib.lgbt_hist_setup
+        _fns["occupancy"] = lib.lgbt_hist_occupancy
+        _fns["f64"] = lib.lgbt_hist_f64
+        _fns["f32"] = lib.lgbt_hist_f32
+    return _fns
+
+
+def hist_smem(feat_per_block: int, num_bins: int, precision: str) -> int:
+    """Shared bytes of one CTA of kernel B1 over a feature tile."""
+    return feat_per_block * num_bins * _CELL_BYTES[precision] + _SMEM_EXTRA
 
 
 def launch_shape(count: int, num_features: int, num_bins: int,
-                 precision: str, num_sms: int, smem_optin: int):
-    """(features per block, row blocks): features are tiled so one tile's
-    sub-histogram fits the shared-memory budget, and at most as many
-    blocks run as the card holds at once."""
-    per_feature = num_bins * NUM_HIST_STATS * _DTYPES[precision].itemsize
-    budget = min(_SMEM_BUDGET, smem_optin)
-    fpb = max(1, min(num_features, budget // per_feature))
-    if fpb * per_feature > smem_optin:
-        raise ValueError(f"{num_bins} bins of {precision} accumulators "
-                         f"exceed the {smem_optin} B of shared memory")
+                 precision: str, num_sms: int, smem_optin: int,
+                 ctas_per_sm: int = 1) -> Tuple[int, int, int]:
+    """(features per tile, CTAs along the rows, rows per tile) of kernel
+    B1: the features cut into the fewest equal tiles whose cells fit
+    ``smem_optin`` bytes (whole 4-feature words where ``num_features`` %
+    4 == 0); the leaf's ``count`` rows spread over about
+    sqrt(`HIST_SPREAD` x count / num_bins) CTAs, at most the share of
+    one feature tile of the CTAs the SMs hold (``ctas_per_sm``, from the
+    occupancy calculator on the card), each CTA taking the same number
+    of equal tiles of at most `HIST_TILE_ROWS` rows; never more CTAs
+    than tiles."""
+    fit = (smem_optin - _SMEM_EXTRA) // (num_bins * _CELL_BYTES[precision])
+    if fit < 1:
+        raise ValueError(f"{num_bins} bins of {precision} cells exceed the "
+                         f"{smem_optin} B of shared memory")
+    if ctas_per_sm < 1:
+        raise ValueError(f"{num_bins} bins of {precision} cells fit no CTA "
+                         "on an SM")
+    step = 4 if num_features % 4 == 0 and fit >= 4 else 1
+    units = -(-num_features // step)
+    tiles = -(-units // (fit // step))
+    fpb = step * -(-units // tiles)
     grid_y = -(-num_features // fpb)
-    blocks = max(1, min(-(-count // _MIN_ROWS_PER_BLOCK),
-                        max(1, 2 * num_sms // grid_y)))
-    return fpb, blocks
+    rows = max(count, 1)
+    ctas = max(1, min(ctas_per_sm * num_sms // grid_y,
+                      math.ceil(math.sqrt(HIST_SPREAD * rows / num_bins))))
+    rows_per_cta = -(-rows // ctas)
+    tiles_per_cta = -(-rows_per_cta // HIST_TILE_ROWS)
+    tile_rows = -(-rows // (ctas * tiles_per_cta))
+    return fpb, min(ctas, -(-rows // tile_rows)), tile_rows
+
+
+def _device(ordinal: int) -> Tuple[int, int]:
+    """(SMs, dynamic shared bytes a CTA of B1 may take: the opt-in less
+    the kernels' static shared memory) of device ``ordinal``; the first
+    call lets B1's kernels take them there."""
+    st = _devices.get(ordinal)
+    if st is None:
+        with torch.cuda.device(ordinal):
+            optin = _lib()["setup"](ordinal)
+        if optin < 0:
+            raise RuntimeError("histogram kernel set-up failed on device "
+                               f"{ordinal}")
+        st = (torch.cuda.get_device_properties(ordinal).multi_processor_count,
+              optin)
+        _devices[ordinal] = st
+    return st
+
+
+def hist_ctas_per_sm(ordinal: int, precision: str, smem: int) -> int:
+    """CTAs of B1's ``precision`` kernel with ``smem`` shared bytes each
+    that the CUDA occupancy calculator fits on an SM of device
+    ``ordinal``."""
+    _device(ordinal)
+    with torch.cuda.device(ordinal):
+        n = _lib()["occupancy"](int(precision == "f64"), smem)
+    if n < 0:
+        raise RuntimeError("histogram kernel: the CUDA occupancy query "
+                           "failed")
+    return n
+
+
+def _shape_state(ordinal: int, num_features: int, num_bins: int,
+                 precision: str) -> Tuple[int, int, int, int]:
+    """(SMs, dynamic shared bytes a CTA may take, CTAs an SM, shared bytes
+    a CTA) of B1's ``precision`` kernel at ``num_features`` x
+    ``num_bins`` on device ``ordinal``, queried once."""
+    key = (ordinal, num_features, num_bins, precision)
+    st = _shapes.get(key)
+    if st is None:
+        num_sms, optin = _device(ordinal)
+        fpb = launch_shape(1, num_features, num_bins, precision, num_sms,
+                           optin)[0]
+        smem = hist_smem(fpb, num_bins, precision)
+        st = (num_sms, optin, hist_ctas_per_sm(ordinal, precision, smem),
+              smem)
+        _shapes[key] = st
+    return st
+
+
+def _scratch_for(dev: torch.device, ordinal: int, stream: int, cells: int,
+                 tiles: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The zeroed scratch of B1's calls on ``stream``, for at least
+    ``cells`` cells and ``tiles`` feature tiles: f64 sums [cells, 2], and
+    int32 counts [cells] followed by one ticket a feature tile."""
+    key = (ordinal, stream)
+    s = _scratch.get(key)
+    have = (0, 0) if s is None else (s[0].numel() // 2,
+                                     s[1].numel() - s[0].numel() // 2)
+    if have[0] < cells or have[1] < tiles:
+        cells, tiles = max(cells, have[0]), max(tiles, have[1])
+        s = (torch.zeros(2 * cells, dtype=torch.float64, device=dev),
+             torch.zeros(cells + tiles, dtype=torch.int32, device=dev))
+        _scratch[key] = s
+    return s
 
 
 def _histogram_cuda(bins, gh, indices, begin, count, num_bins, precision):
@@ -139,27 +251,31 @@ def _histogram_cuda(bins, gh, indices, begin, count, num_bins, precision):
     if count == 0 or f == 0:
         return torch.zeros((f, num_bins, NUM_HIST_STATS), dtype=dtype,
                            device=dev)
-    fn = _kernel(precision)
+    fn = _lib()[precision]
     ordinal = dev.index if dev.index is not None \
         else torch.cuda.current_device()
-    fpb, blocks = launch_shape(
-        count, f, num_bins, precision,
-        torch.cuda.get_device_properties(ordinal).multi_processor_count,
-        _fns["smem_optin"](ordinal))
+    num_sms, optin, ctas_per_sm, smem = _shape_state(ordinal, f, num_bins,
+                                                     precision)
+    fpb, grid_x, tile_rows = launch_shape(count, f, num_bins, precision,
+                                          num_sms, optin, ctas_per_sm)
+    words = int(f % 4 == 0 and fpb % 4 == 0 and bins.data_ptr() % 4 == 0)
     out = torch.empty((f, num_bins, NUM_HIST_STATS), dtype=dtype, device=dev)
-    partial = (torch.empty((blocks, f, num_bins, NUM_HIST_STATS),
-                           dtype=dtype, device=dev) if blocks > 1 else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        sums, cnt = _scratch_for(dev, ordinal, stream, f * num_bins,
+                                 -(-f // fpb))
         err = fn(bins.data_ptr(), f, gh.data_ptr(),
                  None if indices is None else indices.data_ptr(),
-                 int(begin), int(count), int(num_bins), fpb, blocks,
-                 _THREADS, None if partial is None else partial.data_ptr(),
-                 out.data_ptr(), stream)
+                 int(begin), int(count), int(num_bins), fpb, tile_rows,
+                 grid_x, words, smem, sums.data_ptr(), cnt.data_ptr(),
+                 cnt.data_ptr() + 4 * (sums.numel() // 2), out.data_ptr(),
+                 stream)
     if err != 0:
+        _scratch.pop((ordinal, stream), None)
         raise RuntimeError(f"histogram kernel launch failed: CUDA error "
-                           f"{err} (blocks={blocks}, features/block={fpb}, "
-                           f"bins={num_bins}, {precision})")
+                           f"{err} (CTAs={grid_x}, features/tile={fpb}, "
+                           f"rows/tile={tile_rows}, bins={num_bins}, "
+                           f"{precision})")
     LAUNCHES[precision] += 1
     return out
 
@@ -295,7 +411,7 @@ def _histogram_words_cuda(words, g, h, seg_begin, seg_cnt, num_features,
     with torch.cuda.device(dev):
         err = fn(words.data_ptr(), n, g.data_ptr(), h.data_ptr(),
                  seg_begin.data_ptr(), seg_off.data_ptr(), nseg,
-                 num_features, num_bins, fpb, blocks, _THREADS,
+                 num_features, num_bins, fpb, blocks, _WORDS_THREADS,
                  gh.data_ptr(), cnt.data_ptr(), out.data_ptr(),
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -38,29 +38,130 @@ def _mk(n, f, max_bin, seed):
     return bins, np.stack([g, h], axis=1)
 
 
+def _leaf_abs_sums(tgh, idx, begin, count):
+    """[2] sum of |g| and |h| over a leaf's rows (the scale of the f32
+    histogram tolerance); NaN and Inf add nothing."""
+    rows = idx[begin:begin + count].long() if idx is not None \
+        else slice(begin, begin + count)
+    v = tgh[rows]
+    return torch.where(torch.isfinite(v), v.abs(), 0.0).sum(0)
+
+
+def _check_leaf(tb, tgh, idx, begin, count, max_bin):
+    """B1 against its twin on one leaf: f64 equal; f32 counts equal and
+    grad/hess within 1e-5 of the rows' sum of |g| (|h|)."""
+    got = H.leaf_histogram(tb, tgh, idx, begin, count, max_bin, "f64")
+    ref = H.histogram_plain(tb, tgh, idx, begin, count, max_bin, "f64")
+    assert torch.equal(got, ref)
+    got = H.leaf_histogram(tb, tgh, idx, begin, count, max_bin)
+    ref = H.histogram_plain(tb, tgh, idx, begin, count, max_bin)
+    assert torch.equal(got[..., 2], ref[..., 2])
+    scale = _leaf_abs_sums(tgh, idx, begin, count)
+    assert bool(((got[..., :2] - ref[..., :2]).abs()
+                 <= 1e-5 * scale).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("max_bin", [63, 255])
 def test_kernel_matches_plain_on_gpu(cuda, max_bin):
     """f64 equal to the twin; f32 counts equal and grad/hess within
-    1e-5 of the rows' sum of |g| (|h|), over a leaf slice and the root."""
+    1e-5 of the rows' sum of |g| (|h|), over gathered leaves of 0, 1,
+    16,383, 16,384, 16,385 and 20,000 rows and the root, the 20,000-row
+    leaf once more on bins stored one byte off a 4-byte boundary (read
+    through the words that hold each row's bytes); at 255 bins also 137
+    features (four feature tiles)."""
     bins, gh = _mk(50000, 28, max_bin, seed=6)
     tb = torch.tensor(bins, device=cuda)
     tgh = torch.tensor(gh, device=cuda)
     perm = torch.randperm(50000, device=cuda).to(torch.int32)
+    cases = [(tb, tgh, perm, 1000, count)
+             for count in (0, 1, 16_383, 16_384, 16_385, 20_000)]
+    cases.append((tb, tgh, None, 0, 50000))
+    odd = torch.empty(tb.numel() + 1, dtype=torch.uint8,
+                      device=cuda)[1:].view(tb.shape)
+    odd.copy_(tb)
+    assert odd.is_contiguous() and odd.data_ptr() % 4 == 1
+    cases.append((odd, tgh, perm, 1000, 20_000))
+    if max_bin == 255:
+        wide, wgh = _mk(30000, 137, max_bin, seed=8)
+        tw = torch.tensor(wide, device=cuda)
+        twgh = torch.tensor(wgh, device=cuda)
+        wperm = torch.randperm(30000, device=cuda).to(torch.int32)
+        cases += [(tw, twgh, wperm, 500, 20_000), (tw, twgh, None, 0, 30000)]
     H.reset_launches()
-    for idx, begin, count in ((perm, 1000, 20000), (None, 0, 50000)):
-        got = H.leaf_histogram(tb, tgh, idx, begin, count, max_bin, "f64")
-        ref = H.histogram_plain(tb, tgh, idx, begin, count, max_bin, "f64")
-        assert torch.equal(got, ref)
-        got = H.leaf_histogram(tb, tgh, idx, begin, count, max_bin)
-        ref = H.histogram_plain(tb, tgh, idx, begin, count, max_bin)
-        assert torch.equal(got[..., 2], ref[..., 2])
-        rows = idx[begin:begin + count].long() if idx is not None \
-            else slice(0, count)
-        scale = tgh[rows].abs().sum(0)
-        assert bool(((got[..., :2] - ref[..., :2]).abs()
-                     <= 1e-5 * scale).all())
-    assert H.LAUNCHES == {"f32": 2, "f64": 2}
+    for b, g, idx, begin, count in cases:
+        _check_leaf(b, g, idx, begin, count, max_bin)
+    launched = sum(1 for c in cases if c[4] > 0)
+    assert H.LAUNCHES == {"f32": launched, "f64": launched}
+
+
+@pytest.mark.cuda
+def test_hist_nonfinite_on_gpu(cuda):
+    """NaN, +Inf and -Inf written into g and h: B1 (f32 and f64) against
+    its twin cell by cell, NaN, Inf (of its sign) or finite where the
+    twin's is, finite cells within 1e-5 x the leaf's finite sum of |g|
+    (|h|); over a gathered leaf and the root, whose last row tiles hold
+    finite payloads only."""
+    bins, gh = _mk(40000, 28, 63, seed=9)
+    rng = np.random.RandomState(10)
+    vals = [float("nan"), float("inf"), float("-inf")]
+    for i, r in enumerate(rng.choice(12000, 60, replace=False)):
+        gh[r, i % 2] = vals[i % 3]
+    tb = torch.tensor(bins, device=cuda)
+    tgh = torch.tensor(gh, device=cuda)
+    perm = torch.randperm(40000, device=cuda).to(torch.int32)
+    for idx, begin, count in ((perm, 3000, 20000), (None, 0, 40000)):
+        scale = _leaf_abs_sums(tgh, idx, begin, count)
+        for prec in ("f32", "f64"):
+            got = H.leaf_histogram(tb, tgh, idx, begin, count, 63, prec)
+            ref = H.histogram_plain(tb, tgh, idx, begin, count, 63, prec)
+            assert bool(ref[..., :2].isnan().any())
+            assert bool(ref[..., :2].isinf().any())
+            _assert_hist_nonfinite(got[None], ref[None],
+                                   scale[None].to(got.dtype))
+
+
+@pytest.mark.cuda
+def test_hist_ctas_per_sm_on_gpu(cuda):
+    """The occupancy calculator fits one 1,024-thread CTA of B1's f32 and
+    f64 kernels on an SM at the HIGGS (28 features, 63 and 255 bins) and
+    MSLR (137 x 255) shapes."""
+    ordinal = cuda.index or 0
+    num_sms, optin = H._device(ordinal)
+    for F, B in ((28, 63), (28, 255), (137, 255)):
+        for prec in ("f32", "f64"):
+            fpb = H.launch_shape(10_500_000, F, B, prec, num_sms, optin)[0]
+            smem = H.hist_smem(fpb, B, prec)
+            assert smem <= optin
+            assert H.hist_ctas_per_sm(ordinal, prec, smem) == 1
+
+
+@pytest.mark.cuda
+def test_hist_back_to_back_calls_on_gpu(cuda):
+    """Calls in a row on different leaves, sizes and bin counts, enqueued
+    without a synchronize between them, each give the twin's result: the
+    last CTA of a call zeroes the scratch and the ticket for the next."""
+    bins, gh = _mk(30000, 28, 63, seed=12)
+    tb = torch.tensor(bins, device=cuda)
+    tgh = torch.tensor(gh, device=cuda)
+    perm = torch.randperm(30000, device=cuda).to(torch.int32)
+    leaves = [(perm, 0, 20000, 255), (perm, 20000, 10000, 63),
+              (None, 0, 30000, 255), (perm, 5, 1, 63),
+              (perm, 100, 16385, 255), (perm, 7, 20000, 63)]
+    for prec in ("f32", "f64"):
+        H.reset_launches()
+        outs = [H.leaf_histogram(tb, tgh, idx, b, c, nb, prec)
+                for idx, b, c, nb in leaves]
+        assert H.LAUNCHES[prec] == len(leaves)
+        for out, (idx, b, c, nb) in zip(outs, leaves):
+            ref = H.histogram_plain(tb, tgh, idx, b, c, nb, prec)
+            if prec == "f64":
+                assert torch.equal(out, ref)
+                continue
+            assert torch.equal(out[..., 2], ref[..., 2])
+            scale = _leaf_abs_sums(tgh, idx, b, c)
+            assert bool(((out[..., :2] - ref[..., :2]).abs()
+                         <= 1e-5 * scale).all())
 
 
 @pytest.mark.cuda

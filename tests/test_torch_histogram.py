@@ -102,17 +102,51 @@ def test_leaf_slice_and_root_match_gathered():
         root - got.float(), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("bins,precision,tiles", [
-    (63, "f32", 1), (255, "f32", 1), (63, "f64", 1), (255, "f64", 2)])
-def test_launch_shape_fits_shared_memory(bins, precision, tiles):
-    """28 features: every feature tile's sub-histogram fits a block's
-    shared memory (227 KB opt-in on an H100), and no more blocks run
-    than two per SM."""
-    fpb, blocks = H.launch_shape(10_500_000, 28, bins, precision,
-                                 num_sms=132, smem_optin=232448)
-    itemsize = 4 if precision == "f32" else 8
-    assert -(-28 // fpb) == tiles
-    assert fpb * bins * 3 * itemsize <= 232448
-    assert 1 <= blocks * tiles <= 2 * 132
-    assert H.launch_shape(1000, 28, bins, precision, 132, 232448)[1] == 1
+@pytest.mark.parametrize("features,bins,precision,tiles", [
+    (28, 63, "f32", 1), (28, 255, "f32", 1), (28, 63, "f64", 1),
+    (28, 255, "f64", 1), (137, 255, "f32", 4)])
+def test_launch_shape_fits_shared_memory(features, bins, precision, tiles):
+    """Kernel B1's feature tiles: the fewest equal tiles whose 20-byte
+    cells fit a CTA's shared memory (227 KB opt-in on an H100), whole
+    4-feature words where the features divide by 4 (HIGGS's 28 in one
+    tile, MSLR's 137 at 255 bins in four); one CTA an SM over the root's
+    row tiles of at most 16,384 rows."""
+    optin = 232448
+    fpb, ctas, tile_rows = H.launch_shape(10_500_000, features, bins,
+                                          precision, num_sms=132,
+                                          smem_optin=optin)
+    assert -(-features // fpb) == tiles
+    assert H.hist_smem(fpb, bins, precision) <= optin
+    assert features % 4 or fpb % 4 == 0
+    assert tile_rows <= H.HIST_TILE_ROWS
+    assert ctas * tiles <= 132 and ctas == 132 // tiles
 
+
+@pytest.mark.parametrize("count,ctas_63,ctas_255", [
+    (1, 1, 1), (16_384, 44, 22), (16_385, 44, 22), (20_000, 48, 24),
+    (10_500_000, 132, 132)])
+def test_launch_shape_small_leaves(count, ctas_63, ctas_255):
+    """A leaf's rows are spread over about sqrt(7.2 x rows / bins) CTAs
+    (at most one an SM), each taking the same number of equal tiles (one
+    more at most) of at most 16,384 rows, never more CTAs than tiles: 1
+    row one CTA, 20,000 rows 48 at 63 bins and 24 at 255, the 10.5M root
+    all 132 SMs with five tiles each."""
+    for bins, want in ((63, ctas_63), (255, ctas_255)):
+        fpb, ctas, tile_rows = H.launch_shape(count, 28, bins, "f32", 132,
+                                              232448)
+        tiles = -(-count // tile_rows)
+        per_cta = -(-tiles // ctas)
+        assert fpb == 28
+        assert ctas == want
+        assert tile_rows <= H.HIST_TILE_ROWS
+        assert ctas <= tiles and ctas * (per_cta - 1) < tiles
+    assert H.launch_shape(10_500_000, 28, 63, "f32", 132, 232448)[2] \
+        == 15_910
+
+
+def test_launch_shape_rejects_what_does_not_fit():
+    """A feature's cells beyond the opt-in, or no CTA an SM, raise."""
+    with pytest.raises(ValueError):
+        H.launch_shape(100, 28, 255, "f32", 132, 255 * 20)
+    with pytest.raises(ValueError):
+        H.launch_shape(100, 28, 255, "f32", 132, 232448, ctas_per_sm=0)
