@@ -2,8 +2,9 @@
 """A/B measurements of the port's histogram kernels on one NVIDIA GPU,
 each pair in one process on one card, in the order A, B, B, A: the
 aligned engine's slot histogram (kernel B4, and B2's smaller-child
-histograms: ``aligned.cu::slot_hist_kernel``) and the leaf-wise
-builder's per-leaf histogram (kernel B1, ``histogram.cu``):
+histograms: ``aligned.cu::slot_hist_kernel``), the leaf-wise builder's
+per-leaf histogram (kernel B1, ``histogram.cu``) and the level builder's
+histogram over packed bin words (kernel B5, ``histogram_words.cu``):
 
     python3 chip_ab.py engine --baseline DIR
         the engine end to end (``train`` under ``auto``) at the HIGGS
@@ -28,7 +29,26 @@ builder's per-leaf histogram (kernel B1, ``histogram.cu``):
         checked against the plain twin; then the leaf-wise path end to end
         (``tpu_grow_mode=leafwise``, HIGGS shape, 63 and 255 bins): median
         iteration ms, holdout AUC, and one profiled round's wall, busy and
-        B1 device ms and launches.
+        B1 device ms and launches;
+    python3 chip_ab.py words --baseline DIR
+        B5 of the checkout at DIR, an earlier design whose C entry point
+        takes (segment prefix, features per block, blocks, threads,
+        zeroed f64 and count accumulators) and sums in f64 whatever the
+        precision, against this checkout's: each kernel alone on the
+        inputs of one level tree at the HIGGS shape (the root and the
+        round with the most segments, 63 and 255 bins, f32 and f64),
+        checked against the plain twin; then the level path end to end
+        (``tpu_grow_mode=level``, ``max_depth`` 8, 63 and 255 bins):
+        median iteration and level build ms, holdout AUC, and one
+        profiled round's wall, busy and B5 device ms and launches;
+    python3 chip_ab.py words-sweep
+        this checkout's B5 on the calls of one level tree at the HIGGS
+        shape (the root and the widest round at 255 leaves, the widest
+        round at ``max_depth`` 8; 63 and 255 bins): f32 at 1/2 to 2 times
+        the CTAs of ``words_launch_shape``'s rule, and f32 and f64
+        against a build in which the lanes of a warp start on different
+        features (A = that build, B = this checkout), each checked
+        against the plain twin.
 
 Run from the root of a checkout; it builds with nvcc into
 ``build/chip_ab/`` and reuses ``chip_smoke.py``'s data and phases.
@@ -59,9 +79,24 @@ def nvcc_lib(source: str, name: str, include: str) -> ctypes.CDLL:
     return ctypes.CDLL(os.path.abspath(out))
 
 
+def two_per_sm_shape(units: int, num_features: int, num_bins: int,
+                     num_sms: int, smem_optin: int):
+    """(features per CTA, CTAs) of the earlier slot-histogram and B5
+    designs: a feature tile's f64 g and h and u32 count (20 bytes a cell)
+    within 112 KB of shared memory, two CTAs an SM, at most ``units``."""
+    per_feature = num_bins * 20
+    budget = min(112 * 1024, smem_optin)
+    fpb = max(1, min(num_features, budget // per_feature))
+    if fpb * per_feature > smem_optin:
+        raise ValueError(f"{num_bins} bins exceed the {smem_optin} B of "
+                         "shared memory")
+    grid_y = -(-num_features // fpb)
+    return fpb, max(1, min(units, 2 * num_sms // grid_y))
+
+
 def baseline_slot_hist(torch, A, lib):
     """`_slot_hist_cuda` for the earlier design's entry point: f64 shared
-    cells, `hist_launch_shape`'s feature tiles, 512 threads a CTA."""
+    cells, `two_per_sm_shape`'s feature tiles, 512 threads a CTA."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.lgbt_slot_hist.argtypes = [p, i, i, i, i, i, i, i, i, i, i, i, p,
                                    p, i, i, f, f, f, p, p, p, p]
@@ -74,7 +109,7 @@ def baseline_slot_hist(torch, A, lib):
         nc, W, C = records.shape
         ordinal = dev.index if dev.index is not None \
             else torch.cuda.current_device()
-        fpb, blocks = A.hist_launch_shape(
+        fpb, blocks = two_per_sm_shape(
             nc, num_features, num_bins,
             torch.cuda.get_device_properties(ordinal).multi_processor_count,
             lib.lgbt_aligned_smem_optin(ordinal))
@@ -269,6 +304,226 @@ def hist(torch, CS, lt, H, baseline: str) -> dict:
     return res
 
 
+def baseline_words(torch, H, lib):
+    """`_histogram_words_cuda` for the earlier B5 design's entry point:
+    f64 shared sums and global f64 accumulators zeroed by the caller, a
+    finalize kernel, 512-thread CTAs, one per 1,024 rows and at most two
+    an SM within 112 KB (`two_per_sm_shape`); the precision is ignored."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lgbt_words_hist.argtypes = [p, ctypes.c_longlong, p, p, p, p, i, i,
+                                    i, i, i, i, p, p, p, p]
+    lib.lgbt_words_hist.restype = i
+    lib.lgbt_words_smem_optin.argtypes = [i]
+    lib.lgbt_words_smem_optin.restype = i
+
+    def run(words, g, h, seg_begin, seg_cnt, num_features, num_bins,
+            rows_hint, precision):
+        dev = words.device
+        nseg = seg_begin.numel()
+        cells = (nseg, num_features, num_bins)
+        out = torch.zeros(cells + (3,), dtype=torch.float32, device=dev)
+        ordinal = dev.index if dev.index is not None \
+            else torch.cuda.current_device()
+        fpb, blocks = two_per_sm_shape(
+            -(-max(int(rows_hint), 1) // 1024), num_features, num_bins,
+            torch.cuda.get_device_properties(ordinal).multi_processor_count,
+            lib.lgbt_words_smem_optin(ordinal))
+        seg_off = torch.zeros(nseg + 1, dtype=torch.int64, device=dev)
+        seg_off[1:] = torch.cumsum(seg_cnt.long(), 0)
+        gh = torch.zeros(cells + (2,), dtype=torch.float64, device=dev)
+        cnt = torch.zeros(cells, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.lgbt_words_hist(
+                words.data_ptr(), words.shape[1], g.data_ptr(),
+                h.data_ptr(), seg_begin.data_ptr(), seg_off.data_ptr(),
+                nseg, num_features, num_bins, fpb, blocks, 512,
+                gh.data_ptr(), cnt.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"baseline histogram_words: CUDA error {err}")
+        H.WORDS_LAUNCHES[precision] += 1
+        return out
+    return run
+
+
+def check_words(torch, CS, H, args, kw, precision, what) -> float:
+    """B5 against its twin: "f64" bit-equal, "f32" by `check_hist` against
+    each segment's sum of |g| (|h|); returns the max |d| / sum."""
+    words, g, h, beg, cnt = args[:5]
+    got = H.histogram_from_words(*args, **kw, precision=precision)
+    ref = H.histogram_words_plain(*args)
+    torch.cuda.synchronize()
+    if precision == "f64":
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{what}: f64 differs from the twin")
+        return 0.0
+    scale = CS.words_abs_sums(torch, g, h, beg, cnt)
+    CS.check_hist(torch, got, ref, scale, what)
+    err = (got[..., :2] - ref[..., :2]).abs().double()
+    return (err / scale[:, None, None, :].double().clamp_min(1e-300)) \
+        .max().item()
+
+
+def words(torch, CS, lt, H, baseline: str) -> dict:
+    src = os.path.join(baseline, "lightgbm_tpu_torch", "ops", "csrc",
+                       "histogram_words.cu")
+    impl = {"A": baseline_words(torch, H, nvcc_lib(
+                src, "baseline_words", os.path.dirname(src))),
+            "B": H._histogram_words_cuda}
+    n, f = 10_500_000, 28
+    X, y = CS.synth_higgs(n + 500_000, f)
+    Xtr, ytr, Xte, yte = X[:n], y[:n], X[n:], y[n:]
+    names = CS.WORDS_KERNELS + ("words_hist_kernel", "words_finalize_kernel")
+    res = {}
+    for max_bin in (63, 255):
+        params = {"objective": "binary", "num_leaves": 255,
+                  "max_bin": max_bin, "learning_rate": 0.1,
+                  "min_data_in_leaf": 20, "feature_fraction": 1.0,
+                  "max_depth": 8, "verbosity": -1}
+        ds = lt.Dataset(Xtr, label=ytr, params=params,
+                        free_raw_data=False).construct()
+        calls = CS.capture_words_calls(torch, lt, ds, params)
+        for which in ORDER:
+            H._histogram_words_cuda = impl[which]
+            r = {}
+            for what in ("root", "wide"):
+                args, kw = calls[what]
+                kw = {k: v for k, v in kw.items() if k != "precision"}
+                r[f"{what} segments"] = args[3].numel()
+                r[f"{what} rows"] = int(args[4].sum())
+                for prec in ("f32", "f64"):
+                    r[f"{what} {prec} max_rel_err"] = check_words(
+                        torch, CS, H, args, kw, prec,
+                        f"chip_ab words {which} {what}, {max_bin} bins, "
+                        f"{prec}")
+                    r[f"{what} {prec} ms"] = CS.cuda_ms(
+                        torch, lambda a=args, k=kw, p=prec:
+                        H.histogram_from_words(*a, **k, precision=p),
+                        reps=10)
+            res.setdefault(f"sizes{max_bin} {which}", []).append(r)
+            CS.log(f"words sizes {max_bin} bins {which}: {r}")
+        del calls
+        torch.cuda.empty_cache()
+        for which in ORDER:
+            H._histogram_words_cuda = impl[which]
+            bst, r = CS.level_run(torch, lt, ds, params, 5, Xte, yte,
+                                  f"chip_ab words {which}")
+            if r["fallbacks"]:
+                raise AssertionError(f"chip_ab words {which}: "
+                                     f"{r['fallbacks']} fallbacks")
+            prof = CS.profile_round(torch, bst, words_names=names)
+            b5 = prof["words_kernels"]
+            res.setdefault(f"level{max_bin} {which}", []).append({
+                "median_iter_ms": r["median_iter_ms"],
+                "median_build_ms": r["median_build_ms"], "auc": r["auc"],
+                "wall_ms": prof["wall_ms"], "busy_ms": prof["busy_ms"],
+                "b5_ms": sum(k["ms"] for k in b5.values()),
+                "b5_launches": sum(k["launches"] for k in b5.values()),
+                "b5_calls": prof["words_calls"]["f32"], "b5_kernels": b5})
+            CS.log(f"words level {max_bin} bins {which}: "
+                   f"{res[f'level{max_bin} {which}'][-1]}")
+            del bst
+        del ds
+        torch.cuda.empty_cache()
+    H._histogram_words_cuda = impl["B"]
+    return res
+
+
+def words_variant(torch, H):
+    """B5's f32 and f64 entry points from a build of this checkout's
+    ``histogram_words.cu`` in which the lanes of a warp start on
+    different features (word and byte), where this checkout's start all
+    on the warp's word, set up on the current device."""
+    from lightgbm_tpu_torch.utils import cuda_build
+    text = open(os.path.join(cuda_build.CSRC, "histogram_words.cu")).read()
+    rot = "  const int rot_w = (threadIdx.x >> 5) % nw;\n"
+    loop = ("    for (int j = 0; j < 4; ++j) {\n"
+            "      const int b = (word >> (8 * j)) & 255;\n")
+    if rot not in text or loop not in text:
+        raise AssertionError("histogram_words.cu's rotation is not where "
+                             "chip_ab looks for it")
+    os.makedirs(BUILD, exist_ok=True)
+    src = os.path.join(BUILD, "histogram_words_lane_rot.cu")
+    with open(src, "w") as fh:
+        fh.write(text.replace(rot, (
+            "  const int rot_w = ((threadIdx.x >> 5) + (threadIdx.x & 31))"
+            " % nw;\n")).replace(loop, (
+            "    for (int u = 0; u < 4; ++u) {\n"
+            "      const int j = (u + (threadIdx.x & 31) / nw) & 3;\n"
+            "      const int b = (word >> (8 * j)) & 255;\n")))
+    lib = nvcc_lib(src, "words_lane_rot", cuda_build.CSRC)
+    fns = H._lib("histogram_words")
+    lib.lgbt_words_setup.argtypes = [ctypes.c_int]
+    if lib.lgbt_words_setup(torch.cuda.current_device()) < 0:
+        raise RuntimeError("the variant's set-up failed")
+    out = {}
+    for prec in ("f32", "f64"):
+        fn = getattr(lib, f"lgbt_words_{prec}")
+        fn.argtypes = fns[prec].argtypes
+        fn.restype = ctypes.c_int
+        out[prec] = fn
+    return out
+
+
+def words_sweep(torch, CS, lt, H) -> dict:
+    """B5 on the calls of one level tree at the HIGGS shape (the root and
+    the widest round at 255 leaves, the widest round at ``max_depth``
+    8): at 1/2 to 2 times the rule's CTAs, and against the lane-rotation
+    variant (A = variant, B = this checkout, A, B, B, A)."""
+    n, f = 10_500_000, 28
+    X, y = CS.synth_higgs(n, f)
+    fns = H._lib("histogram_words")
+    impl = {"A": words_variant(torch, H),
+            "B": {p: fns[p] for p in ("f32", "f64")}}
+    real_shape = H.words_launch_shape
+    res = {}
+    for max_bin in (63, 255):
+        params = {"objective": "binary", "num_leaves": 255,
+                  "max_bin": max_bin, "learning_rate": 0.1,
+                  "min_data_in_leaf": 20, "feature_fraction": 1.0,
+                  "verbosity": -1}
+        ds = lt.Dataset(X, label=y, params=params,
+                        free_raw_data=False).construct()
+        calls = CS.capture_words_calls(torch, lt, ds, params)
+        cases = {"root": calls["root"], "wide": calls["wide"],
+                 "wide, max_depth 8": CS.capture_words_calls(
+                     torch, lt, ds, {**params, "max_depth": 8})["wide"]}
+        for name, (args, kw) in cases.items():
+            kw = {k: v for k, v in kw.items() if k != "precision"}
+            rows = int(args[4].sum())
+            rule = real_shape(rows, f, max_bin, "f32", 132, 200_000)[1]
+            r = {"rows": rows, "segments": args[3].numel(),
+                 "rule_ctas": rule}
+            for mult in (0.5, 1, 2):
+                ctas = max(1, min(132, round(rule * mult)))
+
+                def shape(*a, ctas=ctas, **k):
+                    return real_shape(*a, **k)[0], ctas
+                H.words_launch_shape = shape
+                r[f"{ctas} CTAs ms"] = CS.cuda_ms(
+                    torch, lambda: H.histogram_from_words(*args, **kw),
+                    reps=20)
+                H.words_launch_shape = real_shape
+            for which in ORDER:
+                fns.update(impl[which])
+                for prec in ("f32", "f64"):
+                    err = check_words(torch, CS, H, args, kw, prec,
+                                      f"words-sweep {which} {name}, "
+                                      f"{max_bin} bins, {prec}")
+                    r.setdefault(f"{which} {prec} ms", []).append(
+                        CS.cuda_ms(torch, lambda p=prec:
+                                   H.histogram_from_words(
+                                       *args, **kw, precision=p),
+                                   reps=10))
+                    r[f"{which} {prec} max_rel_err"] = err
+            fns.update(impl["B"])
+            res[f"{name}, {max_bin} bins"] = r
+            CS.log(f"words-sweep {name}, {max_bin} bins: {r}")
+        del calls, cases, ds
+        torch.cuda.empty_cache()
+    return res
+
+
 def scale(torch, CS, lt, A) -> dict:
     from lightgbm_tpu_torch.utils import cuda_build
     text = open(os.path.join(cuda_build.CSRC, "aligned.cu")).read()
@@ -329,9 +584,10 @@ def scale(torch, CS, lt, A) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("what", choices=("engine", "scale", "hist"))
+    ap.add_argument("what", choices=("engine", "scale", "hist", "words",
+                                     "words-sweep"))
     ap.add_argument("--baseline", help="checkout of the earlier design "
-                    "(engine, hist)")
+                    "(engine, hist, words)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -349,10 +605,13 @@ def main() -> int:
         if not args.baseline:
             ap.error("engine needs --baseline DIR")
         res = engine(torch, CS, lt, A, args.baseline)
-    elif args.what == "hist":
+    elif args.what in ("hist", "words"):
         if not args.baseline:
-            ap.error("hist needs --baseline DIR")
-        res = hist(torch, CS, lt, H, args.baseline)
+            ap.error(f"{args.what} needs --baseline DIR")
+        res = (hist if args.what == "hist" else words)(torch, CS, lt, H,
+                                                       args.baseline)
+    elif args.what == "words-sweep":
+        res = words_sweep(torch, CS, lt, H)
     else:
         res = scale(torch, CS, lt, A)
     CS.log(f"chip_ab {args.what}: {time.perf_counter() - t0:.1f} s")

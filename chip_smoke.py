@@ -14,11 +14,12 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``histogram_words.cu``; B6, ``rank.cu``; the prototypes P1-P3,
    ``proto.cu``); then ``cuobjdump -sass`` of the aligned library's
    histogram kernel (B4, B2's smaller children), printed whole, and the
-   count of each atomic opcode in it and in B1's two kernels: it fails on
-   a compare-and-swap loop (``ATOMS.CAST.SPIN``, an f32/f64/u64
-   shared-memory add on sm_90a) in the aligned kernel or in B1's f32
-   kernel (``hist_fixed_kernel``); B1's f64 kernel keeps f64 shared sums
-   and is exempt;
+   count of each atomic opcode in it and in B1's and B5's two kernels
+   each: it fails on a compare-and-swap loop (``ATOMS.CAST.SPIN``, an
+   f32/f64/u64 shared-memory add on sm_90a) in the aligned kernel or in
+   B1's or B5's f32 kernel (``hist_fixed_kernel``,
+   ``words_fixed_kernel``); their f64 kernels keep f64 shared sums and
+   are exempt;
 3. kernel vs plain: the histogram kernel B1 against its plain PyTorch
    twin on the card at the main path's shapes (10.5M x 28), at 63 and 255
    bins, over the contiguous root and over gathered leaves of half the
@@ -97,20 +98,25 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    (``lightgbm_tpu_torch/ops/csrc/histogram_words.cu``) on the inputs of
    one level tree at the HIGGS shape, 63 and 255 bins: the root (one
    segment of 10.5M rows) and the round with the most smaller children
-   (one segment each, one launch); bit-equal to its twin, timed beside
-   the twin, the byte bound and one ``index_add_``;
+   (one segment each, one launch), its segment count printed: ``f32``
+   counts equal and g/h within 1e-5 x each segment's sum of |g| (|h|),
+   max |d| / sum printed, ``f64`` bit-equal to the twin; both again on a
+   payload with NaN, +Inf and -Inf in g and h, cell by cell against the
+   twin; f32 and f64 timed beside the twin, the byte bound and one
+   ``index_add_``;
 13. level path: ``train`` with ``tpu_grow_mode=level`` on phase 4's data
    and params (10 rounds at 63 bins, 5 at 255); the log must name the
    level path, B5's launches are zeroed before and read after, a call of
    B5's plain twin fails the run; rounds and executed splits per tree,
    fallbacks, each level build timed on its own; holdout AUC above 0.6
    and within 2e-3 of the leaf-wise run's; the card's predictions
-   against a CPU predict; one profiled round at 63 bins (with B1's device
-   ms and launches by kernel name: its trees fall back to leaf-wise). Then
-   the same at
-   63 bins with ``max_depth`` 8, where the speculation covers every tree:
-   no tree may fall back, and the AUC must be within 2e-3 of the aligned
-   engine's on the same params; one profiled round;
+   against a CPU predict; one profiled round at 63 bins (with B1's and
+   B5's device ms and launches by kernel name: its trees fall back to
+   leaf-wise; each kernel's launches must equal its calls). Then the same
+   at 63 bins with ``max_depth`` 8, where the speculation covers every
+   tree: no tree may fall back, and the AUC must be within 2e-3 of the
+   aligned engine's on the same params; one profiled round, B5's
+   launches equal to its calls;
 14. prototype kernels: the port's measurement harnesses through their
    entry points at their own sizes, ``lightgbm_tpu_torch.tools.
    proto_aligned.main`` (10,485,760 rows, chunks of 256 and 512: its
@@ -161,6 +167,8 @@ ALIGNED_KERNELS = ("count_kernel", "scan_kernel", "scatter_kernel",
                    "slot_hist_kernel", "hist_finalize_kernel")
 # the kernels of histogram.cu (B1): one launch a call, f32 and f64
 HIST_KERNELS = ("hist_fixed_kernel", "hist_f64_kernel")
+# the kernels of histogram_words.cu (B5): one launch a call, f32 and f64
+WORDS_KERNELS = ("words_fixed_kernel", "words_f64_kernel")
 MSLR_ROWS, MSLR_FEATURES = 2_270_000, 137     # bench.py stage 3
 MSLR_ROUNDS, MSLR_LEAF_ROUNDS = 6, 3
 NDCG_ROWS = 200_000
@@ -295,19 +303,27 @@ def sass_atomics(library: str, kernel: str, whole: bool) -> dict:
 
 def phase_sass() -> dict:
     """``cuobjdump -sass`` of the fixed-point histogram kernels: the
-    aligned library's (B4, and B2's smaller children), printed whole, and
-    B1's f32 kernel; fails if either holds a compare-and-swap loop
+    aligned library's (B4, and B2's smaller children), printed whole, B1's
+    f32 kernel and B5's; fails if any holds a compare-and-swap loop
     (``ATOMS.CAST.SPIN``, what an f32, f64 or u64 shared-memory atomicAdd
-    compiles to on sm_90a). B1's f64 kernel keeps f64 shared sums and is
-    exempt; its counts are printed. Returns each kernel's counts."""
+    compiles to on sm_90a). B1's and B5's f64 kernels keep f64 shared sums
+    and are exempt; their counts are printed. Returns each kernel's
+    counts."""
     ops = {"slot_hist_kernel": sass_atomics("aligned", "slot_hist_kernel",
                                             whole=True),
            "hist_fixed_kernel": sass_atomics("histogram",
                                              "hist_fixed_kernel",
                                              whole=False),
            "hist_f64_kernel": sass_atomics("histogram", "hist_f64_kernel",
-                                           whole=False)}
-    for name in ("slot_hist_kernel", "hist_fixed_kernel"):
+                                           whole=False),
+           "words_fixed_kernel": sass_atomics("histogram_words",
+                                              "words_fixed_kernel",
+                                              whole=False),
+           "words_f64_kernel": sass_atomics("histogram_words",
+                                            "words_f64_kernel",
+                                            whole=False)}
+    for name in ("slot_hist_kernel", "hist_fixed_kernel",
+                 "words_fixed_kernel"):
         if any("CAST.SPIN" in op for op in ops[name]):
             raise AssertionError(f"sass: {name} holds ATOMS.CAST.SPIN")
     return ops
@@ -477,7 +493,7 @@ def train_run(torch, lt, ds, params, rounds, Xte, yte, what) -> tuple:
     bst = lt.train(params, ds, num_boost_round=rounds, callbacks=[stamp],
                    verbose_eval=False)
     launches = {"B1": H.LAUNCHES["f32"], **A.LAUNCHES,
-                "B5": H.WORDS_LAUNCHES["histogram_words"]}
+                "B5": sum(H.WORDS_LAUNCHES.values())}
     trees = bst.num_trees()
     iters = np.diff([t_start] + stamps)
     peak = torch.cuda.max_memory_allocated()
@@ -931,19 +947,23 @@ def kernel_times(kernels, names) -> dict:
     return out
 
 
-def profile_round(torch, bst, hist_names=HIST_KERNELS) -> dict:
+def profile_round(torch, bst, hist_names=HIST_KERNELS,
+                  words_names=WORDS_KERNELS) -> dict:
     """One more boosting round under `torch.profiler`: wall time, the
     device's busy and idle share, host-device syncs, the kernels that
     take the most device time, and the device time and launches of each
-    kernel of aligned.cu and of B1 (``hist_names``) by name (read after
-    the main path's counts). With this checkout's B1, its kernels'
-    launches must equal the round's calls of `leaf_histogram` on the card
-    (one launch a call), one lost profiler record aside."""
+    kernel of aligned.cu, of B1 (``hist_names``) and of B5
+    (``words_names``) by name (read after the main path's counts). With
+    this checkout's B1 and B5, each kernel's launches must equal the
+    round's calls of `leaf_histogram` (`histogram_from_words`) on the
+    card in its precision (one launch a call), one lost profiler record
+    aside."""
     from torch.profiler import ProfilerActivity, profile
 
     from lightgbm_tpu_torch.ops import histogram as H
     torch.cuda.synchronize()
     calls = dict(H.LAUNCHES)
+    wcalls = dict(H.WORDS_LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -951,6 +971,7 @@ def profile_round(torch, bst, hist_names=HIST_KERNELS) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     calls = {k: H.LAUNCHES[k] - v for k, v in calls.items()}
+    wcalls = {k: H.WORDS_LAUNCHES[k] - v for k, v in wcalls.items()}
     cuda = torch.autograd.DeviceType.CUDA
     kernels, syncs = [], 0
     for e in prof.key_averages():
@@ -979,20 +1000,31 @@ def profile_round(torch, bst, hist_names=HIST_KERNELS) -> dict:
             f"{name} {a['ms']:.3f} ms in {a['launches']} launches"
             for name, a in hist.items()) + f"; leaf_histogram calls "
             f"{calls['f32']} f32, {calls['f64']} f64")
+    words = kernel_times(kernels, words_names)
+    if words or any(wcalls.values()):
+        log("  B5 kernels: " + ", ".join(
+            f"{name} {a['ms']:.3f} ms in {a['launches']} launches"
+            for name, a in words.items()) + f"; histogram_from_words calls "
+            f"{wcalls['f32']} f32, {wcalls['f64']} f64")
+    # a second kernel a call shows as more launches than calls; the
+    # profiler can lose one kernel record in a round of ~90,000 launches
+    # (PERF.md, slice 9), so one fewer is let through
+    checks = []
     if hist_names == HIST_KERNELS:
-        # a second kernel a call shows as more launches than calls; the
-        # profiler can lose one kernel record in a round of ~90,000
-        # launches (PERF.md, slice 9), so one fewer is let through
-        for prec, name in (("f32", "hist_fixed_kernel"),
-                           ("f64", "hist_f64_kernel")):
-            got = hist.get(name, {"launches": 0})["launches"]
-            if not calls[prec] - 1 <= got <= calls[prec]:
+        checks += [(hist, calls, HIST_KERNELS)]
+    if words_names == WORDS_KERNELS:
+        checks += [(words, wcalls, WORDS_KERNELS)]
+    for times, n_calls, names in checks:
+        for prec, name in zip(("f32", "f64"), names):
+            got = times.get(name, {"launches": 0})["launches"]
+            if not n_calls[prec] - 1 <= got <= n_calls[prec]:
                 raise AssertionError(f"profiled round: {name} launched "
-                                     f"{got} times for {calls[prec]} "
+                                     f"{got} times for {n_calls[prec]} "
                                      f"{prec} calls")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "launches": launches,
             "syncs": syncs, "aligned_kernels": aligned,
             "hist_kernels": hist, "hist_calls": calls,
+            "words_kernels": words, "words_calls": wcalls,
             "top": [[k[2][:90], k[0], k[1]] for k in kernels[:10]]}
 
 
@@ -1017,7 +1049,7 @@ def phase_f64(torch, lt) -> int:
                                      f"{bst._gbdt.train_path}")
             if dev == "cuda":
                 launches[mode] = H.LAUNCHES["f64"] if mode == "leafwise" \
-                    else H.WORDS_LAUNCHES["histogram_words"]
+                    else H.WORDS_LAUNCHES["f64"]
             t = bst.model_to_string()
             texts[dev] = t[t.index("Tree=0"):t.index("end of trees")]
         if texts["cuda"] != texts["cpu"]:
@@ -1027,9 +1059,9 @@ def phase_f64(torch, lt) -> int:
             raise AssertionError(f"the f64 {mode} run never launched its "
                                  "kernel")
     log(f"f64: cuda and cpu trees equal, leaf-wise and level (3 trees, 31 "
-        f"leaves; B1 f64 launches {launches['leafwise']}, B5 launches "
+        f"leaves; B1 f64 launches {launches['leafwise']}, B5 f64 launches "
         f"{launches['level']})")
-    return launches["leafwise"]
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1180,52 +1212,109 @@ def capture_words_calls(torch, lt, ds, params) -> dict:
     return keep
 
 
+def words_abs_sums(torch, g, h, beg, cnt):
+    """[S, 2] sum of |g| and |h| over each segment's rows (the scale of
+    B5's f32 tolerance); NaN and Inf add nothing."""
+    cnt = cnt.long()
+    seg = torch.repeat_interleave(torch.arange(cnt.numel(), device=g.device),
+                                  cnt)
+    pos = beg.long()[seg] + torch.arange(seg.numel(), device=g.device) \
+        - (torch.cumsum(cnt, 0) - cnt)[seg]
+    v = torch.stack([g[pos], h[pos]], 1)
+    out = torch.zeros((cnt.numel(), 2), dtype=torch.float32, device=g.device)
+    return out.index_add_(0, seg, torch.where(torch.isfinite(v), v.abs(),
+                                              0.0))
+
+
 def phase_level_parity(torch, lt, ds, params, max_bin: int) -> dict:
-    """B5 against its plain twin on the inputs of one level tree: the root
-    and the widest round, bit-equal; each timed beside the twin, the byte
-    bound and (the root) one ``index_add_`` over a prebuilt flat index."""
+    """B5 against its plain twin on the inputs of one level tree, the root
+    and the widest round (the most segments): "f32" counts equal and g/h
+    within 1e-5 x each segment's sum of |g| (|h|), max |d| / sum printed,
+    and "f64" bit-equal; both again on a payload with NaN, +Inf and -Inf
+    in g and h, cell by cell against the twin. Each timed beside the
+    twin, the byte bound and one ``index_add_`` over a prebuilt flat
+    (segment, feature, bin) index."""
     from lightgbm_tpu_torch.ops import histogram as H
     calls = capture_words_calls(torch, lt, ds, params)
     res = {}
     for what in ("root", "wide"):
         args, kw = calls[what]
         words, g, h, beg, cnt, F, B = args
-        got = H.histogram_from_words(*args, **kw)
-        ref = H.histogram_words_plain(*args)
-        torch.cuda.synchronize()
-        if not torch.equal(got, ref):
-            d = (got - ref).abs().max().item()
-            raise AssertionError(f"histogram_words ({what}, {max_bin} bins) "
-                                 f"differs from its twin: max |d| {d}")
+        kw = {k: v for k, v in kw.items() if k != "precision"}
         rows = int(cnt.sum())
         nseg = beg.numel()
-        r = {"max_abs_err": 0.0, "rows": rows, "segments": nseg,
-             "ms": cuda_ms(torch, lambda: H.histogram_from_words(*args,
-                                                                 **kw)),
-             "plain_ms": cuda_ms(torch, lambda: H.histogram_words_plain(
-                 *args), reps=2), "library_ms": None}
+        scale = words_abs_sums(torch, g, h, beg, cnt)
+        ref = H.histogram_words_plain(*args)
+        r = {"rows": rows, "segments": nseg, "library_ms": None}
+        for prec in ("f32", "f64"):
+            run = (lambda prec=prec: H.histogram_from_words(
+                *args, **kw, precision=prec))
+            got = run()
+            tag = f"B5 {what}, {max_bin} bins, {nseg} segments, {prec}"
+            if prec == "f64":
+                torch.cuda.synchronize()
+                if not torch.equal(got, ref):
+                    d = (got - ref).abs().max().item()
+                    raise AssertionError(f"{tag}: differs from its twin: "
+                                         f"max |d| {d}")
+                log(f"  check {tag}: bit-equal to the twin")
+            else:
+                r["max_abs_err"] = check_hist(torch, got, ref, scale, tag)
+                err = (got[..., :2] - ref[..., :2]).abs().double()
+                r["max_rel_err"] = (err / scale[:, None, None, :].double()
+                                    .clamp_min(1e-300)).max().item()
+            r[f"ms_{prec}"] = cuda_ms(torch, run)
+            del got
+        r["ms"] = r["ms_f32"]
+        r["plain_ms"] = cuda_ms(torch, lambda: H.histogram_words_plain(
+            *args), reps=2)
         r["bound_ms"], r["bound_by"] = bound(
             rows * (words.shape[0] * 4 + 8) + nseg * 8
             + nseg * F * B * 3 * 4, 3 * F * rows)
-        if what == "root":
-            f = torch.arange(F, device=words.device)
-            cell = (((words[f >> 2] >> ((f & 3) * 8)[:, None]) & 255).long()
-                    + (f * B)[:, None]).t().reshape(-1)
-            pay = torch.stack([g, h, torch.ones_like(g)], dim=1)
-            pay = pay[:, None, :].expand(-1, F, -1).reshape(-1, 3)
-            out = torch.zeros((F * B, 3), dtype=torch.float32,
-                              device=words.device)
-            r["library_ms"] = cuda_ms(
-                torch, lambda: out.index_add_(0, cell, pay), reps=2)
-            del cell, pay, out
-        lib = "none" if r["library_ms"] is None \
-            else f"{r['library_ms']:.4f} ms"
+        # the yardstick: one index_add_ over the rows' flat cells
+        seg = torch.repeat_interleave(
+            torch.arange(nseg, device=words.device), cnt.long())
+        pos = beg.long()[seg] + torch.arange(rows, device=words.device) \
+            - (torch.cumsum(cnt.long(), 0) - cnt.long())[seg]
+        # NaN, +Inf and -Inf in g and h of about one segment row in 997
+        gen = torch.Generator(device=DEVICE).manual_seed(7)
+        pick = pos[torch.randperm(rows, generator=gen, device=DEVICE)[
+            :max(3, rows // 997)]]
+        f = torch.arange(F, device=words.device)
+        cell = (((words[f >> 2][:, pos] >> ((f & 3) * 8)[:, None]) & 255)
+                .long() + (f * B)[:, None] + (seg * F * B)[None, :]) \
+            .t().reshape(-1)
+        pay = torch.stack([g[pos], h[pos], torch.ones_like(g[pos])], dim=1)
+        pay = pay[:, None, :].expand(-1, F, -1).reshape(-1, 3)
+        out = torch.zeros((nseg * F * B, 3), dtype=torch.float32,
+                          device=words.device)
+        r["library_ms"] = cuda_ms(
+            torch, lambda: out.index_add_(0, cell, pay), reps=2)
+        del seg, pos, cell, pay, out
+        bad_g, bad_h = g.clone(), h.clone()
+        vals = torch.tensor([float("nan"), float("inf"), float("-inf")],
+                            device=DEVICE)
+        i = torch.arange(pick.numel(), device=DEVICE)
+        bad_g[pick[i % 2 == 0]] = vals[(i % 3)[i % 2 == 0]]
+        bad_h[pick[i % 2 == 1]] = vals[(i % 3)[i % 2 == 1]]
+        bad = (words, bad_g, bad_h, beg, cnt, F, B)
+        bad_ref = H.histogram_words_plain(*bad)
+        bad_scale = words_abs_sums(torch, bad_g, bad_h, beg, cnt)
+        r["nonfinite"] = {prec: check_hist_nonfinite(
+            torch, H.histogram_from_words(*bad, **kw, precision=prec),
+            bad_ref, bad_scale,
+            f"B5 NaN/Inf {what}, {max_bin} bins, {prec}")
+            for prec in ("f32", "f64")}
+        del bad, bad_g, bad_h, bad_ref
         log(f"kernel histogram_words ({what}, {max_bin} bins, {rows} rows in "
-            f"{nseg} segments): kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {lib}, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), bit-equal")
+            f"{nseg} segments): f32 {r['ms_f32']:.4f} ms (max |d| / "
+            f"segment sum|.| {r['max_rel_err']:.3e}), f64 "
+            f"{r['ms_f64']:.4f} ms (bit-equal), plain "
+            f"{r['plain_ms']:.4f} ms, index_add_ {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, data-sheet "
+            "3.35 TB/s)")
         res[what] = r
-        del got, ref
+        del ref
     del calls
     torch.cuda.empty_cache()
     return res
@@ -1905,7 +1994,7 @@ def main() -> int:
         entry("histogram_f32_255bin", "lightgbm_tpu/ops/pallas_hist.py:188",
               255, "f32", main_r[255]["launches"]["B1"]),
         entry("histogram_f64", "lightgbm_tpu/ops/histogram.py:39", 63,
-              "f64", f64_launches),
+              "f64", f64_launches["leafwise"]),
     ]
     for bins in (63, 255):
         launches = aligned_r[bins]["launches"]
@@ -1935,19 +2024,24 @@ def main() -> int:
     kernels.append(aentry("slot_hist_pass_ext_255bin", "slot_hist_pass",
                           1141, 255, "ext", launches["slot_hist_pass"],
                           "root pass", dims))
-    for bins, line in ((63, 293), (255, 276)):
+    for bins, line, prec, b5_launches in (
+            (63, 293, "f32", level_r[63]["launches"]["B5"]),
+            (255, 276, "f32", level_r[255]["launches"]["B5"]),
+            (63, 293, "f64", f64_launches["level"])):
         p = lpar[bins]["root"]
         kernels.append({
-            "name": f"histogram_words_{bins}bin", "route": "cuda",
+            "name": f"histogram_words_{bins}bin" if prec == "f32"
+            else "histogram_words_f64", "route": "cuda",
             "source": WORDS_SOURCE,
             "replaces": f"lightgbm_tpu/ops/pallas_hist.py:{line}",
-            "launches": level_r[bins]["launches"]["B5"],
+            "launches": b5_launches,
             "max_abs_err": max(r["max_abs_err"]
-                               for r in lpar[bins].values()),
-            "ms": p["ms"], "plain_ms": p["plain_ms"],
+                               for r in lpar[bins].values())
+            if prec == "f32" else 0.0,
+            "ms": p[f"ms_{prec}"], "plain_ms": p["plain_ms"],
             "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
             "library_ms": p["library_ms"],
-            "shape": f"root {p['rows']}x28, {bins} bins"})
+            "shape": f"root {p['rows']}x28, {bins} bins, {prec}"})
     rp = rpar["mslr"]
     kernels.append({
         "name": "lambdarank_grad", "route": "cuda", "source": RANK_SOURCE,

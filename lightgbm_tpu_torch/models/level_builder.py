@@ -142,7 +142,7 @@ def make_level_build_fn(learner):
         store[0] = histogram_from_words(
             cur[:wcnt], g0, h0, torch.zeros(1, dtype=i32, device=dev),
             torch.full((1,), n, dtype=i32, device=dev), F, B,
-            rows_hint=n)[0]
+            rows_hint=n, precision=learner.hist_precision)[0]
         sums = torch.stack([g0.double().sum(), h0.double().sum()]) if f64 \
             else torch.stack([g0.sum(), h0.sum()])
         root_g, root_h = sums.to(torch.float32).cpu().numpy()
@@ -232,7 +232,8 @@ def make_level_build_fn(learner):
             sm = histogram_from_words(
                 cur[:wcnt], g2, h2, torch.where(sil_t, bk, bk + lk),
                 torch.where(sil_t, lk, ck - lk), F, B,
-                rows_hint=int(np.minimum(bi[:, BI_LC], bi[:, BI_RC]).sum()))
+                rows_hint=int(np.minimum(bi[:, BI_LC], bi[:, BI_RC]).sum()),
+                precision=learner.hist_precision)
             lg = store[il] - sm
             s4 = sil_t[:, None, None, None]
             left_h = torch.where(s4, sm, lg)

@@ -62,11 +62,6 @@ LAUNCHES: Dict[str, int] = {"move_pass": 0, "count_pass": 0,
                             "slot_hist_pass": 0}
 
 _GRAD_KIND = {None: 0, "binary": 1, "l2": 2}
-# `hist_launch_shape`, the launch shape of the level builder's histogram
-# (B5, ops/histogram.py): two CTAs per SM, f64 g and h and a u32 count a
-# (feature, bin)
-_SMEM_BUDGET = 112 * 1024
-_CELL_BYTES = 2 * 8 + 4
 # the slot histogram (B4, B2's smaller children; CTAs of 1024 threads):
 # tiles of at most 16,384 rows (the bound of the fixed-point rounding,
 # ops/csrc/aligned.cu), hi/lo int32 of g and of h and a u32 count a cell
@@ -407,21 +402,6 @@ def _grad_args(grad):
         return 0, 0.0, 0.0, 0.0
     return (_GRAD_KIND[grad.kind], float(grad.sigmoid), float(grad.w_pos),
             float(grad.w_neg))
-
-
-def hist_launch_shape(nc: int, num_features: int, num_bins: int,
-                      num_sms: int, smem_optin: int):
-    """(features per CTA, CTAs along the chunks) of the histogram kernel:
-    a feature tile's sub-histogram fits the shared-memory budget, and
-    about two CTAs per SM run over contiguous chunk ranges."""
-    per_feature = num_bins * _CELL_BYTES
-    budget = min(_SMEM_BUDGET, smem_optin)
-    fpb = max(1, min(num_features, budget // per_feature))
-    if fpb * per_feature > smem_optin:
-        raise ValueError(f"{num_bins} bins exceed the {smem_optin} B of "
-                         "shared memory")
-    grid_y = -(-num_features // fpb)
-    return fpb, max(1, min(nc, 2 * num_sms // grid_y))
 
 
 def slot_hist_smem(C: int, num_features: int, num_bins: int,

@@ -1,6 +1,7 @@
 // Fixed-point shared-memory histogram cells that the port's histogram
 // kernels share (aligned.cu's slot histogram, B2/B4; histogram.cu's leaf
-// histogram, B1).
+// histogram, B1; histogram_words.cu's level histogram, B5), and the
+// device-memory scratch of B1's and B5's one-launch calls.
 //
 // On sm_90a an f32 or f64 atomicAdd on shared memory, and a 64-bit integer
 // one, compiles to a compare-and-swap loop (ATOMS.CAST.SPIN); a 32-bit
@@ -81,5 +82,60 @@ struct Fixed {
                  + ldexp(static_cast<double>(static_cast<int>(lo)), -l), -e);
   }
 };
+
+// The scratch of a one-launch histogram call in device memory, zero
+// before and after the call: f64 sums of g and h [cells, 2], u32 counts
+// [cells] and tickets. The CTAs that add to a range of cells each take its
+// ticket, and the last of them rounds the range to the output and zeroes
+// it and the ticket for the next call on the stream.
+struct Scratch {
+  double* sums;
+  unsigned* cnt;
+  unsigned* tickets;
+};
+
+// Adds to the scratch that return nothing (PTX red): written as atomicAdd,
+// the flush adds compile to ATOMG, which wait for the old value
+__device__ __forceinline__ void red_add(double* p, double v) {
+  asm volatile("red.relaxed.gpu.global.add.f64 [%0], %1;"
+               :: "l"(p), "d"(v) : "memory");
+}
+__device__ __forceinline__ void red_add(unsigned* p, unsigned v) {
+  asm volatile("red.relaxed.gpu.global.add.u32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// Whether this CTA is the last of `expected` to take `ticket`, taken once
+// its adds to the scratch are visible (the barrier, then one thread's
+// fence, as a grid sync arrives). Every thread of the CTA calls it.
+__device__ __forceinline__ bool last_to_arrive(unsigned* ticket,
+                                               unsigned expected) {
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == expected - 1u;
+  }
+  __syncthreads();
+  return last;
+}
+
+// The last CTA's part: cells [0, cells) of the scratch's sums and cnt
+// into dst [cells, 3] = (g, h, count), each rounded once, then the cells
+// and the ticket zeroed.
+template <typename Out>
+__device__ void finalize(double* sums, unsigned* cnt, unsigned* ticket,
+                         int cells, Out* dst) {
+  __threadfence();
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+    dst[3 * i] = static_cast<Out>(__ldcg(sums + 2 * i));
+    dst[3 * i + 1] = static_cast<Out>(__ldcg(sums + 2 * i + 1));
+    dst[3 * i + 2] = static_cast<Out>(__ldcg(cnt + i));
+    sums[2 * i] = 0.0;
+    sums[2 * i + 1] = 0.0;
+    cnt[i] = 0u;
+  }
+  if (threadIdx.x == 0) *ticket = 0u;
+}
 
 }  // namespace

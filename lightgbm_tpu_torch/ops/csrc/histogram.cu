@@ -83,27 +83,6 @@ constexpr int kStats = 3;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 1024;   // one CTA an SM
 
-// The call's scratch in device memory, zero before and after a call: the
-// f64 sums of g and h [F, B, 2], the counts [F, B] and one ticket a
-// feature tile.
-struct Scratch {
-  double* sums;
-  unsigned* cnt;
-  unsigned* tickets;
-};
-
-// Adds to the call's sums in device memory that return nothing (PTX red):
-// written as atomicAdd, this kernel's flush adds compile to ATOMG, which
-// wait for the old value
-__device__ __forceinline__ void red_add(double* p, double v) {
-  asm volatile("red.relaxed.gpu.global.add.f64 [%0], %1;"
-               :: "l"(p), "d"(v) : "memory");
-}
-__device__ __forceinline__ void red_add(unsigned* p, unsigned v) {
-  asm volatile("red.relaxed.gpu.global.add.u32 [%0], %1;"
-               :: "l"(p), "r"(v) : "memory");
-}
-
 // The leaf's p-th row: indices[begin + p] of a gathered leaf, begin + p of
 // the contiguous root
 __device__ __forceinline__ long long leaf_row(const int32_t* indices,
@@ -159,35 +138,15 @@ __device__ __forceinline__ void add_row(const uint8_t* brow, int nf,
   }
 }
 
-// The end of a call: each CTA takes its feature tile's ticket once its
-// adds to the scratch are visible (the barrier, then one thread's fence,
-// as a grid sync arrives); the tile's last CTA writes its cells [base,
-// base + cells) of out [F * B, 3] = (g, h, count), each rounded once, and
-// zeroes them and the ticket.
+// The end of a call: the feature tile's last CTA writes its cells [base,
+// base + cells) of out [F * B, 3] (`finalize`).
 template <typename Out>
 __device__ void finish(const Scratch& s, long long base, int cells,
                        Out* out) {
-  __shared__ bool last;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    last = atomicAdd(s.tickets + blockIdx.y, 1u) == gridDim.x - 1u;
+  if (last_to_arrive(s.tickets + blockIdx.y, gridDim.x)) {
+    finalize(s.sums + 2 * base, s.cnt + base, s.tickets + blockIdx.y, cells,
+             out + kStats * base);
   }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  double* sums = s.sums + 2 * base;
-  unsigned* cnt = s.cnt + base;
-  Out* dst = out + kStats * base;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    dst[kStats * i] = static_cast<Out>(__ldcg(sums + 2 * i));
-    dst[kStats * i + 1] = static_cast<Out>(__ldcg(sums + 2 * i + 1));
-    dst[kStats * i + 2] = static_cast<Out>(__ldcg(cnt + i));
-    sums[2 * i] = 0.0;
-    sums[2 * i + 1] = 0.0;
-    cnt[i] = 0u;
-  }
-  if (threadIdx.x == 0) s.tickets[blockIdx.y] = 0u;
 }
 
 // The f32 path. blockIdx.y picks a tile of feat_per_block features; the

@@ -13,9 +13,12 @@ of ``tpu_use_f64_hist``: f64 sums of f32 payloads, equal to the twin's.
 
 `histogram_from_words` is the level builder's histogram over packed bin
 words, many contiguous row segments in one call: kernel B5
-(``ops/csrc/histogram_words.cu``) on a CUDA tensor, its twin
-`histogram_words_plain` on a CPU tensor. Both sum in f64 and round to
-f32 once, whatever the precision.
+(``ops/csrc/histogram_words.cu``, one launch a call) on a CUDA tensor,
+its twin `histogram_words_plain` on a CPU tensor. The twin sums in f64
+and rounds to f32 once in both precisions; on the card ``"f32"`` takes
+B1's fixed-point cells over row tiles that never cross a segment (within
+2e-6 of the segment's sum of |g| (|h|) of the twin), and ``"f64"`` f64
+shared sums, equal to the twin's.
 """
 from __future__ import annotations
 
@@ -29,16 +32,16 @@ import torch
 NUM_HIST_STATS = 3
 
 # kernel launches per precision (a launch is one call that ran the CUDA
-# kernel; the plain CPU path does not count)
+# kernel; the plain CPU path does not count): B1 (`leaf_histogram`) and B5
+# (`histogram_from_words`)
 LAUNCHES: Dict[str, int] = {"f32": 0, "f64": 0}
-# launches of kernel B5 (`histogram_from_words`)
-WORDS_LAUNCHES: Dict[str, int] = {"histogram_words": 0}
+WORDS_LAUNCHES: Dict[str, int] = {"f32": 0, "f64": 0}
 
 _DTYPES = {"f32": torch.float32, "f64": torch.float64}
-# B1 (histogram.cu): one CTA of 1024 threads an SM, over tiles of at most
-# HIST_TILE_ROWS of the leaf's rows, each scaled to its own largest |g|
-# and |h| (2^14 rows keep a tile's fixed-point error within 1.9e-6 of its
-# largest |v|)
+# B1 (histogram.cu) and B5 (histogram_words.cu): one CTA of 1024 threads
+# an SM, over tiles of at most HIST_TILE_ROWS rows (of a leaf, or of a
+# segment), each scaled to its own largest |g| and |h| (2^14 rows keep a
+# tile's fixed-point error within 1.9e-6 of its largest |v|)
 HIST_TILE_ROWS = 16_384
 # A leaf of n rows is spread over about sqrt(HIST_SPREAD * n / num_bins)
 # CTAs: a CTA's shared adds take ~0.34 ns a row and feature on an H100
@@ -51,19 +54,20 @@ HIST_SPREAD = 7.2
 _CELL_BYTES = {"f32": 20, "f64": 20}
 # shared bytes a CTA beyond its cells: the tile's largest |g| and |h| bits
 _SMEM_EXTRA = 8
-# B5 (histogram_words.cu): threads a block, and the rows one block should
-# at least get before another block is worth it
-_WORDS_THREADS = 512
-_MIN_ROWS_PER_BLOCK = 1024
-_fns: Dict[str, object] = {}
-# per device ordinal: (SMs, dynamic shared memory a CTA of B1 may take),
-# once lgbt_hist_setup ran
-_devices: Dict[int, Tuple[int, int]] = {}
-# (ordinal, F, num_bins, precision) -> (SMs, dynamic shared bytes a CTA
-# may take, CTAs an SM, shared bytes a CTA): what a call needs from above
-_shapes: Dict[Tuple[int, int, int, str], Tuple[int, int, int, int]] = {}
-# (ordinal, stream) -> B1's scratch of calls on that stream: f64 sums
-# [cells, 2], and u32 counts [cells] followed by one ticket a feature tile,
+# the kernels' libraries ("histogram": B1, "histogram_words": B5) and the
+# prefix of their C entry points (<prefix>_f32, _f64, _setup, _occupancy)
+_PREFIX = {"histogram": "lgbt_hist", "histogram_words": "lgbt_words"}
+_fns: Dict[str, Dict[str, object]] = {}
+# (library, device ordinal) -> (SMs, dynamic shared memory a CTA may
+# take), once the library's setup ran
+_devices: Dict[Tuple[str, int], Tuple[int, int]] = {}
+# (library, ordinal, F, num_bins, precision) -> (SMs, dynamic shared bytes
+# a CTA may take, CTAs an SM, shared bytes a CTA): what a call needs from
+# above
+_shapes: Dict[Tuple[str, int, int, int, str],
+              Tuple[int, int, int, int]] = {}
+# (ordinal, stream) -> the scratch of B1's and B5's calls on that stream:
+# f64 sums [cells, 2], and u32 counts [cells] followed by the tickets,
 # zero between calls
 _scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
@@ -102,30 +106,62 @@ def histogram_plain(bins: torch.Tensor, gh: torch.Tensor,
     return out.view(f, num_bins, NUM_HIST_STATS)
 
 
-def _lib() -> Dict[str, object]:
-    if "f32" not in _fns:
+def _lib(name: str = "histogram") -> Dict[str, object]:
+    """The C entry points of library ``name`` (`_PREFIX`), by role:
+    "f32", "f64" (the two kernels' launches), "setup", "occupancy"."""
+    fns = _fns.get(name)
+    if fns is None:
         from ..utils import cuda_build
-        lib = cuda_build.load("histogram")
+        lib = cuda_build.load(name)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        sigs = {"lgbt_hist_f32": [p, i, p, p, ll, ll, i, i, i, i, i, i, p,
-                                  p, p, p, p],
-                "lgbt_hist_f64": [p, i, p, p, ll, ll, i, i, i, i, i, i, p,
-                                  p, p, p, p],
-                "lgbt_hist_setup": [i], "lgbt_hist_occupancy": [i, i]}
-        for name, args in sigs.items():
-            fn = getattr(lib, name)
+        launch = ([p, i, p, p, ll, ll, i, i, i, i, i, i, p, p, p, p, p]
+                  if name == "histogram" else
+                  [p, ll, p, p, p, p, i, i, i, i, i, i, p, p, p, p, p])
+        fns = {}
+        for role, args in (("f32", launch), ("f64", launch),
+                           ("setup", [i]), ("occupancy", [i, i])):
+            fn = getattr(lib, f"{_PREFIX[name]}_{role}")
             fn.argtypes = args
             fn.restype = i
-        _fns["setup"] = lib.lgbt_hist_setup
-        _fns["occupancy"] = lib.lgbt_hist_occupancy
-        _fns["f64"] = lib.lgbt_hist_f64
-        _fns["f32"] = lib.lgbt_hist_f32
-    return _fns
+            fns[role] = fn
+        _fns[name] = fns
+    return fns
 
 
 def hist_smem(feat_per_block: int, num_bins: int, precision: str) -> int:
-    """Shared bytes of one CTA of kernel B1 over a feature tile."""
+    """Shared bytes of one CTA of kernel B1 or B5 over a feature tile."""
     return feat_per_block * num_bins * _CELL_BYTES[precision] + _SMEM_EXTRA
+
+
+def _cells_fit(num_bins: int, precision: str, smem_optin: int) -> int:
+    """Features whose cells fit ``smem_optin`` bytes of one CTA."""
+    return (smem_optin - _SMEM_EXTRA) // (num_bins * _CELL_BYTES[precision])
+
+
+def _feature_tile(num_features: int, num_bins: int, precision: str,
+                  smem_optin: int, step: int) -> int:
+    """Features a tile: the fewest equal tiles of whole ``step``-feature
+    units whose cells fit ``smem_optin`` bytes."""
+    fit = _cells_fit(num_bins, precision, smem_optin)
+    if fit < step:
+        raise ValueError(f"{step} features of {num_bins} bins of "
+                         f"{precision} cells exceed the {smem_optin} B of "
+                         "shared memory")
+    units = -(-num_features // step)
+    tiles = -(-units // (fit // step))
+    return step * -(-units // tiles)
+
+
+def _spread(rows: int, num_bins: int, num_sms: int, ctas_per_sm: int,
+            grid_y: int) -> int:
+    """CTAs along ``rows`` rows: about sqrt(`HIST_SPREAD` x rows /
+    num_bins), at most one feature tile's share of the CTAs the SMs hold
+    (``ctas_per_sm``, from the occupancy calculator on the card)."""
+    if ctas_per_sm < 1:
+        raise ValueError(f"{num_bins}-bin cells fit no CTA on an SM")
+    return max(1, min(ctas_per_sm * num_sms // grid_y,
+                      math.ceil(math.sqrt(HIST_SPREAD * max(rows, 1)
+                                          / num_bins))))
 
 
 def launch_shape(count: int, num_features: int, num_bins: int,
@@ -134,86 +170,90 @@ def launch_shape(count: int, num_features: int, num_bins: int,
     """(features per tile, CTAs along the rows, rows per tile) of kernel
     B1: the features cut into the fewest equal tiles whose cells fit
     ``smem_optin`` bytes (whole 4-feature words where ``num_features`` %
-    4 == 0); the leaf's ``count`` rows spread over about
-    sqrt(`HIST_SPREAD` x count / num_bins) CTAs, at most the share of
-    one feature tile of the CTAs the SMs hold (``ctas_per_sm``, from the
-    occupancy calculator on the card), each CTA taking the same number
-    of equal tiles of at most `HIST_TILE_ROWS` rows; never more CTAs
-    than tiles."""
-    fit = (smem_optin - _SMEM_EXTRA) // (num_bins * _CELL_BYTES[precision])
-    if fit < 1:
-        raise ValueError(f"{num_bins} bins of {precision} cells exceed the "
-                         f"{smem_optin} B of shared memory")
-    if ctas_per_sm < 1:
-        raise ValueError(f"{num_bins} bins of {precision} cells fit no CTA "
-                         "on an SM")
-    step = 4 if num_features % 4 == 0 and fit >= 4 else 1
-    units = -(-num_features // step)
-    tiles = -(-units // (fit // step))
-    fpb = step * -(-units // tiles)
-    grid_y = -(-num_features // fpb)
+    4 == 0); the leaf's ``count`` rows spread over `_spread`'s CTAs, each
+    taking the same number of equal tiles of at most `HIST_TILE_ROWS`
+    rows; never more CTAs than tiles."""
+    step = 4 if num_features % 4 == 0 \
+        and _cells_fit(num_bins, precision, smem_optin) >= 4 else 1
+    fpb = _feature_tile(num_features, num_bins, precision, smem_optin, step)
     rows = max(count, 1)
-    ctas = max(1, min(ctas_per_sm * num_sms // grid_y,
-                      math.ceil(math.sqrt(HIST_SPREAD * rows / num_bins))))
+    ctas = _spread(rows, num_bins, num_sms, ctas_per_sm,
+                   -(-num_features // fpb))
     rows_per_cta = -(-rows // ctas)
     tiles_per_cta = -(-rows_per_cta // HIST_TILE_ROWS)
     tile_rows = -(-rows // (ctas * tiles_per_cta))
     return fpb, min(ctas, -(-rows // tile_rows)), tile_rows
 
 
-def _device(ordinal: int) -> Tuple[int, int]:
-    """(SMs, dynamic shared bytes a CTA of B1 may take: the opt-in less
-    the kernels' static shared memory) of device ``ordinal``; the first
-    call lets B1's kernels take them there."""
-    st = _devices.get(ordinal)
+def words_launch_shape(rows: int, num_features: int, num_bins: int,
+                       precision: str, num_sms: int, smem_optin: int,
+                       ctas_per_sm: int = 1) -> Tuple[int, int]:
+    """(features per tile, CTAs along the rows) of kernel B5: the
+    features cut into the fewest equal tiles of whole 4-feature words
+    whose cells fit ``smem_optin`` bytes; the call's ``rows`` rows (all
+    segments together) spread over `_spread`'s CTAs. The kernel splits
+    the segments' true total evenly over them and cuts each CTA's part
+    of a segment into tiles of at most `HIST_TILE_ROWS` rows."""
+    fpb = _feature_tile(num_features, num_bins, precision, smem_optin, 4)
+    return fpb, _spread(rows, num_bins, num_sms, ctas_per_sm,
+                        -(-num_features // fpb))
+
+
+def _device(ordinal: int, name: str = "histogram") -> Tuple[int, int]:
+    """(SMs, dynamic shared bytes a CTA of library ``name``'s kernels may
+    take: the opt-in less their static shared memory) of device
+    ``ordinal``; the first call lets the kernels take them there."""
+    st = _devices.get((name, ordinal))
     if st is None:
         with torch.cuda.device(ordinal):
-            optin = _lib()["setup"](ordinal)
+            optin = _lib(name)["setup"](ordinal)
         if optin < 0:
-            raise RuntimeError("histogram kernel set-up failed on device "
+            raise RuntimeError(f"{name} kernel set-up failed on device "
                                f"{ordinal}")
         st = (torch.cuda.get_device_properties(ordinal).multi_processor_count,
               optin)
-        _devices[ordinal] = st
+        _devices[(name, ordinal)] = st
     return st
 
 
-def hist_ctas_per_sm(ordinal: int, precision: str, smem: int) -> int:
-    """CTAs of B1's ``precision`` kernel with ``smem`` shared bytes each
-    that the CUDA occupancy calculator fits on an SM of device
-    ``ordinal``."""
-    _device(ordinal)
+def hist_ctas_per_sm(ordinal: int, precision: str, smem: int,
+                     name: str = "histogram") -> int:
+    """CTAs of library ``name``'s ``precision`` kernel with ``smem``
+    shared bytes each that the CUDA occupancy calculator fits on an SM of
+    device ``ordinal``."""
+    _device(ordinal, name)
     with torch.cuda.device(ordinal):
-        n = _lib()["occupancy"](int(precision == "f64"), smem)
+        n = _lib(name)["occupancy"](int(precision == "f64"), smem)
     if n < 0:
-        raise RuntimeError("histogram kernel: the CUDA occupancy query "
+        raise RuntimeError(f"{name} kernel: the CUDA occupancy query "
                            "failed")
     return n
 
 
 def _shape_state(ordinal: int, num_features: int, num_bins: int,
-                 precision: str) -> Tuple[int, int, int, int]:
+                 precision: str, name: str = "histogram"
+                 ) -> Tuple[int, int, int, int]:
     """(SMs, dynamic shared bytes a CTA may take, CTAs an SM, shared bytes
-    a CTA) of B1's ``precision`` kernel at ``num_features`` x
-    ``num_bins`` on device ``ordinal``, queried once."""
-    key = (ordinal, num_features, num_bins, precision)
+    a CTA) of library ``name``'s ``precision`` kernel at ``num_features``
+    x ``num_bins`` on device ``ordinal``, queried once."""
+    key = (name, ordinal, num_features, num_bins, precision)
     st = _shapes.get(key)
     if st is None:
-        num_sms, optin = _device(ordinal)
-        fpb = launch_shape(1, num_features, num_bins, precision, num_sms,
-                           optin)[0]
+        num_sms, optin = _device(ordinal, name)
+        shape = launch_shape if name == "histogram" else words_launch_shape
+        fpb = shape(1, num_features, num_bins, precision, num_sms, optin)[0]
         smem = hist_smem(fpb, num_bins, precision)
-        st = (num_sms, optin, hist_ctas_per_sm(ordinal, precision, smem),
-              smem)
+        st = (num_sms, optin,
+              hist_ctas_per_sm(ordinal, precision, smem, name), smem)
         _shapes[key] = st
     return st
 
 
 def _scratch_for(dev: torch.device, ordinal: int, stream: int, cells: int,
                  tiles: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The zeroed scratch of B1's calls on ``stream``, for at least
-    ``cells`` cells and ``tiles`` feature tiles: f64 sums [cells, 2], and
-    int32 counts [cells] followed by one ticket a feature tile."""
+    """The zeroed scratch of B1's and B5's calls on ``stream``, for at
+    least ``cells`` cells and ``tiles`` tickets: f64 sums [cells, 2], and
+    int32 counts [cells] followed by the tickets."""
     key = (ordinal, stream)
     s = _scratch.get(key)
     have = (0, 0) if s is None else (s[0].numel() // 2,
@@ -352,26 +392,8 @@ def histogram_words_plain(words: torch.Tensor, g: torch.Tensor,
     return out.view(nseg, num_features, num_bins, NUM_HIST_STATS).float()
 
 
-def _words_kernel():
-    fn = _fns.get("words")
-    if fn is None:
-        from ..utils import cuda_build
-        lib = cuda_build.load("histogram_words")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn = lib.lgbt_words_hist
-        fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, i, i, i, i, i, i,
-                       p, p, p, p]
-        fn.restype = ctypes.c_int
-        lib.lgbt_words_smem_optin.argtypes = [i]
-        lib.lgbt_words_smem_optin.restype = i
-        _fns["words_smem_optin"] = lib.lgbt_words_smem_optin
-        _fns["words"] = fn
-    return fn
-
-
 def _histogram_words_cuda(words, g, h, seg_begin, seg_cnt, num_features,
-                          num_bins, rows_hint):
-    from .aligned import hist_launch_shape
+                          num_bins, rows_hint, precision):
     dev = words.device
     wcnt, n = words.shape
     if words.dtype != torch.int32 or not words.is_contiguous() \
@@ -391,42 +413,43 @@ def _histogram_words_cuda(words, g, h, seg_begin, seg_cnt, num_features,
     if not 1 <= num_bins <= 256:
         raise ValueError(f"num_bins={num_bins} outside [1, 256]")
     nseg = seg_begin.numel()
-    cells = (nseg, num_features, num_bins)
-    out = torch.zeros(cells + (NUM_HIST_STATS,), dtype=torch.float32,
-                      device=dev)
+    out = torch.empty((nseg, num_features, num_bins, NUM_HIST_STATS),
+                      dtype=torch.float32, device=dev)
     if nseg == 0 or num_features == 0:
         return out
-    fn = _words_kernel()
+    lib = "histogram_words"
+    fn = _lib(lib)[precision]
     ordinal = dev.index if dev.index is not None \
         else torch.cuda.current_device()
-    fpb, blocks = hist_launch_shape(
-        -(-max(int(rows_hint), 1) // _MIN_ROWS_PER_BLOCK), num_features,
-        num_bins,
-        torch.cuda.get_device_properties(ordinal).multi_processor_count,
-        _fns["words_smem_optin"](ordinal))
-    seg_off = torch.zeros(nseg + 1, dtype=torch.int64, device=dev)
-    seg_off[1:] = torch.cumsum(seg_cnt.long(), 0)
-    gh = torch.zeros(cells + (2,), dtype=torch.float64, device=dev)
-    cnt = torch.zeros(cells, dtype=torch.int32, device=dev)
+    num_sms, optin, ctas_per_sm, smem = _shape_state(
+        ordinal, num_features, num_bins, precision, lib)
+    fpb, grid_x = words_launch_shape(rows_hint, num_features, num_bins,
+                                     precision, num_sms, optin, ctas_per_sm)
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        sums, cnt = _scratch_for(dev, ordinal, stream,
+                                 nseg * num_features * num_bins,
+                                 nseg * -(-num_features // fpb))
         err = fn(words.data_ptr(), n, g.data_ptr(), h.data_ptr(),
-                 seg_begin.data_ptr(), seg_off.data_ptr(), nseg,
-                 num_features, num_bins, fpb, blocks, _WORDS_THREADS,
-                 gh.data_ptr(), cnt.data_ptr(), out.data_ptr(),
-                 torch.cuda.current_stream(dev).cuda_stream)
+                 seg_begin.data_ptr(), seg_cnt.data_ptr(), nseg,
+                 num_features, num_bins, fpb, grid_x, smem, sums.data_ptr(),
+                 cnt.data_ptr(), cnt.data_ptr() + 4 * (sums.numel() // 2),
+                 out.data_ptr(), stream)
     if err != 0:
+        _scratch.pop((ordinal, stream), None)
         raise RuntimeError(f"histogram_words kernel launch failed: CUDA "
-                           f"error {err} (blocks={blocks}, features/block="
-                           f"{fpb}, bins={num_bins}, segments={nseg})")
-    WORDS_LAUNCHES["histogram_words"] += 1
+                           f"error {err} (CTAs={grid_x}, features/tile="
+                           f"{fpb}, bins={num_bins}, segments={nseg}, "
+                           f"{precision})")
+    WORDS_LAUNCHES[precision] += 1
     return out
 
 
 def histogram_from_words(words: torch.Tensor, g: torch.Tensor,
                          h: torch.Tensor, seg_begin: torch.Tensor,
                          seg_cnt: torch.Tensor, num_features: int,
-                         num_bins: int,
-                         rows_hint: Optional[int] = None) -> torch.Tensor:
+                         num_bins: int, rows_hint: Optional[int] = None,
+                         precision: str = "f32") -> torch.Tensor:
     """hist[S, F, num_bins, 3] f32 of S contiguous row segments
     ``[seg_begin[s], seg_begin[s] + seg_cnt[s])`` over packed bin words
     (JAX package: `histogram_from_words`, one call per segment). ``words``
@@ -434,11 +457,16 @@ def histogram_from_words(words: torch.Tensor, g: torch.Tensor,
     word ``w``; ``g``/``h`` f32 [N]; the segment table int32 [S] on the
     same device. ``rows_hint`` (the total rows, if the caller knows it)
     sizes the kernel's grid without a read from the card; the kernel
-    splits the true total itself."""
+    splits the true total itself. ``precision`` is the level builder's
+    ``hist_precision``: ``"f32"`` (fixed-point cells on the card) or
+    ``"f64"`` (f64 sums on the card); the CPU twin is exact in both."""
+    if precision not in _DTYPES:
+        raise ValueError(f"precision must be f32 or f64, got {precision!r}")
     if not words.is_cuda:
         return histogram_words_plain(words, g, h, seg_begin, seg_cnt,
                                      num_features, num_bins)
     if rows_hint is None:
         rows_hint = int(seg_cnt.sum())
     return _histogram_words_cuda(words, g, h, seg_begin, seg_cnt,
-                                 num_features, num_bins, rows_hint)
+                                 num_features, num_bins, rows_hint,
+                                 precision)

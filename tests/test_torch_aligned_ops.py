@@ -203,9 +203,6 @@ def test_wrappers_take_the_twins_on_cpu(rounds):
     assert torch.equal(out, ref_out) and torch.equal(hist, ref_hist)
     assert TA.LAUNCHES == {"move_pass": 0, "count_pass": 0,
                            "slot_hist_pass": 0}
-    for bins, tiles in ((63, 1), (255, 2)):
-        fpb, blocks = TA.hist_launch_shape(11_404, 28, bins, 132, 232448)
-        assert -(-28 // fpb) == tiles and blocks * tiles == 264
 
 
 @pytest.mark.parametrize("max_bin,bits", [(15, 4), (63, 6), (255, 8)])

@@ -164,36 +164,78 @@ def test_hist_back_to_back_calls_on_gpu(cuda):
                          <= 1e-5 * scale).all())
 
 
+def _words_abs_sums(g, h, beg, cnt):
+    """[S, 2] sum of |g| and |h| over each segment's rows (the scale of
+    B5's f32 tolerance); NaN and Inf add nothing."""
+    out = torch.zeros((beg.numel(), 2), dtype=torch.float32,
+                      device=g.device)
+    for i, (b, c) in enumerate(zip(beg.tolist(), cnt.tolist())):
+        v = torch.stack([g[b:b + c], h[b:b + c]], 1)
+        out[i] = torch.where(torch.isfinite(v), v.abs(), 0.0).sum(0)
+    return out
+
+
+def _check_words(got, ref, g, h, beg, cnt, precision):
+    """B5 against its twin: "f64" bit for bit; "f32" counts equal and
+    grad/hess within 1e-5 x the segment's sum of |g| (|h|)."""
+    if precision == "f64":
+        assert torch.equal(got, ref)
+        return
+    assert torch.equal(got[..., 2], ref[..., 2])
+    scale = _words_abs_sums(g, h, beg, cnt)[:, None, None, :]
+    assert bool(((got[..., :2] - ref[..., :2]).abs() <= 1e-5 * scale).all())
+
+
+def _words_segments(n, rng):
+    """Segment tables of one call each: the whole rows; segments of 0, 1,
+    16,383, 16,384, 16,385 and 20,000 rows; ~200 small segments."""
+    tables = [[(0, n)],
+              [(7, 20000), (20007, 0), (30000, 1), (40000, 16383),
+               (1, 5), (60000, 16384), (80000, 16385)]]
+    small, p = [], 0
+    for _ in range(200):
+        c = int(rng.randint(0, 400))
+        small.append((p, c))
+        p += c
+    tables.append(small)
+    return tables
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "f64"])
 @pytest.mark.parametrize("max_bin", [63, 255])
-def test_words_kernel_matches_plain_on_gpu(cuda, max_bin):
-    """Kernel B5 (63 bins: B5a's branch; 255: B5b's) equals its twin bit
-    for bit over the whole rows and over a batch of segments (an empty
-    one included): both sum in f64 and round once, and the level
-    builder's level run on the card launches it and grows the CPU's f64
-    trees."""
+def test_words_kernel_matches_plain_on_gpu(cuda, max_bin, precision):
+    """Kernel B5 (63 bins: B5a's branch; 255: B5b's) against its twin, one
+    launch a call: "f64" bit for bit (f64 shared sums rounded once, as
+    the twin), "f32" (fixed-point cells) counts equal and grad/hess
+    within 1e-5 x the segment's sum of |g|, over the whole rows, segments
+    of 0, 1, 16,383, 16,384, 16,385 and 20,000 rows, and ~200 small
+    segments; and the level run on the card launches it and, in f64,
+    grows the CPU's trees."""
     from lightgbm_tpu_torch.models.level_builder import pack_bin_words
-    bins, gh = _mk(60000, 28, max_bin, seed=8)
+    n = 100_000
+    bins, gh = _mk(n, 28, max_bin, seed=8)
     words = pack_bin_words(torch.tensor(bins, device=cuda))
     g = torch.tensor(gh[:, 0], device=cuda)
     h = torch.tensor(gh[:, 1], device=cuda)
+    tables = _words_segments(n, np.random.RandomState(max_bin))
     H.reset_launches()
-    for segs in ([(0, 60000)], [(7, 20000), (20007, 0), (30000, 1),
-                                (40000, 19999), (1, 5)]):
+    for segs in tables:
         beg = torch.tensor([s[0] for s in segs], dtype=torch.int32,
                            device=cuda)
         cnt = torch.tensor([s[1] for s in segs], dtype=torch.int32,
                            device=cuda)
-        got = H.histogram_from_words(words, g, h, beg, cnt, 28, max_bin)
+        got = H.histogram_from_words(words, g, h, beg, cnt, 28, max_bin,
+                                     precision=precision)
         ref = H.histogram_words_plain(words, g, h, beg, cnt, 28, max_bin)
-        assert torch.equal(got, ref)
-    assert H.WORDS_LAUNCHES["histogram_words"] == 2
+        _check_words(got, ref, g, h, beg, cnt, precision)
+    assert H.WORDS_LAUNCHES == {"f32": 0, "f64": 0, precision: len(tables)}
     rng = np.random.RandomState(2)
     X = rng.standard_normal((4000, 8))
     y = (X[:, 0] + X[:, 1] * X[:, 2] + rng.standard_normal(4000) > 0)
     params = {"objective": "binary", "num_leaves": 15, "max_bin": max_bin,
-              "tpu_use_f64_hist": True, "tpu_grow_mode": "level",
-              "verbosity": -1}
+              "tpu_use_f64_hist": precision == "f64",
+              "tpu_grow_mode": "level", "verbosity": -1}
     texts = {}
     for dev in ("cuda", "cpu"):
         H.reset_launches()
@@ -201,10 +243,92 @@ def test_words_kernel_matches_plain_on_gpu(cuda, max_bin):
                          tlgb.Dataset(X, label=y.astype(np.float64)),
                          num_boost_round=3, verbose_eval=False)
         assert bst._gbdt.train_path == "level"
-        assert (H.WORDS_LAUNCHES["histogram_words"] > 0) == (dev == "cuda")
+        assert (H.WORDS_LAUNCHES[precision] > 0) == (dev == "cuda")
         t = bst.model_to_string()
         texts[dev] = t[t.index("Tree=0"):t.index("end of trees")]
-    assert texts["cuda"] == texts["cpu"]
+    if precision == "f64":
+        assert texts["cuda"] == texts["cpu"]
+
+
+@pytest.mark.cuda
+def test_words_nonfinite_on_gpu(cuda):
+    """NaN, +Inf and -Inf written into g and h: B5 (f32 and f64) against
+    its twin cell by cell, NaN, Inf (of its sign) or finite where the
+    twin's is, finite cells within 1e-5 x the segment's finite sum of |g|
+    (|h|); over the whole rows and a table of segments, some of them
+    holding no non-finite value."""
+    from lightgbm_tpu_torch.models.level_builder import pack_bin_words
+    bins, gh = _mk(40000, 28, 63, seed=9)
+    rng = np.random.RandomState(10)
+    vals = [float("nan"), float("inf"), float("-inf")]
+    for i, r in enumerate(rng.choice(12000, 60, replace=False)):
+        gh[r, i % 2] = vals[i % 3]
+    words = pack_bin_words(torch.tensor(bins, device=cuda))
+    g = torch.tensor(gh[:, 0], device=cuda)
+    h = torch.tensor(gh[:, 1], device=cuda)
+    for segs in ([(0, 40000)], [(0, 5000), (5000, 20000), (25000, 15000),
+                                (11000, 1)]):
+        beg = torch.tensor([s[0] for s in segs], dtype=torch.int32,
+                           device=cuda)
+        cnt = torch.tensor([s[1] for s in segs], dtype=torch.int32,
+                           device=cuda)
+        ref = H.histogram_words_plain(words, g, h, beg, cnt, 28, 63)
+        assert bool(ref[..., :2].isnan().any())
+        assert bool(ref[..., :2].isinf().any())
+        scale = _words_abs_sums(g, h, beg, cnt)
+        for prec in ("f32", "f64"):
+            got = H.histogram_from_words(words, g, h, beg, cnt, 28, 63,
+                                         precision=prec)
+            _assert_hist_nonfinite(got, ref, scale)
+
+
+@pytest.mark.cuda
+def test_words_back_to_back_calls_on_gpu(cuda):
+    """Calls in a row on different segment tables, sizes and bin counts,
+    enqueued without a synchronize between them, each give the twin's
+    result: each segment's last CTA zeroes its part of the scratch and its
+    ticket for the next call."""
+    from lightgbm_tpu_torch.models.level_builder import pack_bin_words
+    bins, gh = _mk(60000, 28, 255, seed=12)
+    words = pack_bin_words(torch.tensor(bins, device=cuda))
+    g = torch.tensor(gh[:, 0], device=cuda)
+    h = torch.tensor(gh[:, 1], device=cuda)
+    tables = [([(0, 60000)], 255), ([(0, 30000), (30000, 30000)], 63),
+              ([(5, 1), (100, 20000), (40000, 0)], 255),
+              ([(i * 250, 250) for i in range(240)], 63),
+              ([(0, 60000)], 63), ([(17, 16385), (20000, 16383)], 255)]
+    for prec in ("f32", "f64"):
+        H.reset_launches()
+        calls = []
+        for segs, nb in tables:
+            beg = torch.tensor([s[0] for s in segs], dtype=torch.int32,
+                               device=cuda)
+            cnt = torch.tensor([s[1] for s in segs], dtype=torch.int32,
+                               device=cuda)
+            calls.append((beg, cnt, nb, H.histogram_from_words(
+                words, g, h, beg, cnt, 28, nb, precision=prec)))
+        assert H.WORDS_LAUNCHES[prec] == len(tables)
+        for beg, cnt, nb, out in calls:
+            ref = H.histogram_words_plain(words, g, h, beg, cnt, 28, nb)
+            _check_words(out, ref, g, h, beg, cnt, prec)
+
+
+@pytest.mark.cuda
+def test_words_ctas_per_sm_on_gpu(cuda):
+    """The occupancy calculator fits one 1,024-thread CTA of B5's f32 and
+    f64 kernels on an SM at the HIGGS shape (28 features, 63 and 255 bins,
+    one feature tile each) and at 137 x 255."""
+    ordinal = cuda.index or 0
+    num_sms, optin = H._device(ordinal, "histogram_words")
+    for F, B, tiles in ((28, 63, 1), (28, 255, 1), (137, 255, 4)):
+        for prec in ("f32", "f64"):
+            fpb = H.words_launch_shape(10_500_000, F, B, prec, num_sms,
+                                       optin)[0]
+            assert -(-F // fpb) == tiles
+            smem = H.hist_smem(fpb, B, prec)
+            assert smem <= optin
+            assert H.hist_ctas_per_sm(ordinal, prec, smem,
+                                      "histogram_words") == 1
 
 
 @pytest.mark.cuda

@@ -150,3 +150,52 @@ def test_launch_shape_rejects_what_does_not_fit():
         H.launch_shape(100, 28, 255, "f32", 132, 255 * 20)
     with pytest.raises(ValueError):
         H.launch_shape(100, 28, 255, "f32", 132, 232448, ctas_per_sm=0)
+
+
+# kernel B5's dynamic shared memory on an H100: the 227 KB opt-in less
+# about 12.6 KB of the kernels' static segment tables
+WORDS_OPTIN = 232448 - 12_800
+
+
+@pytest.mark.parametrize("features,bins,precision,tiles", [
+    (28, 63, "f32", 1), (28, 255, "f32", 1), (137, 255, "f32", 4),
+    (28, 63, "f64", 1), (28, 255, "f64", 1)])
+def test_words_launch_shape_fits_shared_memory(features, bins, precision,
+                                               tiles):
+    """Kernel B5's feature tiles: the fewest equal tiles of whole 4-feature
+    words whose 20-byte cells fit a CTA's dynamic shared memory (HIGGS's
+    28 features one tile at 63 and at 255 bins, MSLR's 137 at 255 four);
+    the 10.5M-row root on all 132 SMs."""
+    fpb, ctas = H.words_launch_shape(10_500_000, features, bins, precision,
+                                     num_sms=132, smem_optin=WORDS_OPTIN)
+    assert -(-features // fpb) == tiles
+    assert fpb % 4 == 0
+    assert H.hist_smem(fpb, bins, precision) <= WORDS_OPTIN
+    assert ctas * tiles <= 132 and ctas == 132 // tiles
+
+
+@pytest.mark.parametrize("rows,ctas_63,ctas_255", [
+    (1, 1, 1), (16_384, 44, 22), (16_385, 44, 22), (20_000, 48, 24),
+    (10_500_000, 132, 132)])
+def test_words_launch_shape_ctas(rows, ctas_63, ctas_255):
+    """A call's rows (all its segments together) are spread over about
+    sqrt(7.2 x rows / bins) CTAs, at most one an SM: 1 row one CTA,
+    20,000 rows 48 at 63 bins and 24 at 255, the 10.5M root all 132."""
+    for bins, want in ((63, ctas_63), (255, ctas_255)):
+        fpb, ctas = H.words_launch_shape(rows, 28, bins, "f32", 132,
+                                         WORDS_OPTIN)
+        assert fpb == 28 and ctas == want
+    assert H.words_launch_shape(20_000, 28, 63, "f32", 132, WORDS_OPTIN,
+                                ctas_per_sm=2)[1] == 48
+
+
+def test_words_launch_shape_rejects_what_does_not_fit():
+    """A word's four features of cells beyond the shared memory, or no
+    CTA an SM, raise (B1 would still take one feature a tile)."""
+    with pytest.raises(ValueError):
+        H.words_launch_shape(100, 28, 255, "f32", 132, 3 * 255 * 20 + 8)
+    assert H.launch_shape(100, 28, 255, "f32", 132, 3 * 255 * 20 + 8)[0] \
+        == 3
+    with pytest.raises(ValueError):
+        H.words_launch_shape(100, 28, 63, "f32", 132, WORDS_OPTIN,
+                             ctas_per_sm=0)

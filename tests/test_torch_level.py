@@ -191,6 +191,56 @@ def test_words_twin_segments_batch():
         np.testing.assert_array_equal(one.numpy(), exp.astype(np.float32))
 
 
+@pytest.mark.parametrize("precision", ["bf16x2", "pallas", "f16"])
+def test_words_rejects_unknown_precision(precision):
+    """`histogram_from_words` takes the level builder's precisions, "f32"
+    and "f64", and raises on any other (the JAX package's "bf16x2" and
+    "pallas" included), on the CPU as on the card."""
+    words = torch.zeros((1, 8), dtype=torch.int32)
+    g = torch.ones(8)
+    seg = torch.tensor([0], dtype=torch.int32)
+    with pytest.raises(ValueError, match="precision"):
+        H.histogram_from_words(words, g, g, seg, seg + 8, 4, 15,
+                               precision=precision)
+
+
+@pytest.mark.parametrize("max_bin", [63, 255])
+def test_words_twin_same_in_both_precisions(max_bin):
+    """On the CPU both precisions take the twin: f64 sums rounded to f32
+    once, the same tensor for "f32" and "f64"."""
+    n, f = 2500, 11
+    bins, g, h = _words_case(n, f, max_bin, 5, False)
+    args = (torch.as_tensor(JLB.pack_bin_words(bins)), torch.as_tensor(g),
+            torch.as_tensor(h),
+            torch.tensor([3, 900, 2000], dtype=torch.int32),
+            torch.tensor([800, 0, 499], dtype=torch.int32), f, max_bin)
+    ref = H.histogram_words_plain(*args)
+    for precision in ("f32", "f64"):
+        got = H.histogram_from_words(*args, precision=precision)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("f64", [False, True])
+def test_level_builder_passes_precision(monkeypatch, f64):
+    """The level builder hands its ``hist_precision`` to every B5 call,
+    the root's and each round's (the JAX level builder passes its own to
+    `histogram_from_words`): "f64" under tpu_use_f64_hist, else "f32"."""
+    seen = []
+    real = TLB.histogram_from_words
+
+    def record(*args, **kw):
+        seen.append((args[3].numel(), kw.get("precision")))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(TLB, "histogram_from_words", record)
+    X, y = _data(1500, 6, seed=3)
+    _port(X, y, rounds=2, max_bin=63, tpu_use_f64_hist=f64)
+    want = "f64" if f64 else "f32"
+    assert len(seen) > 2 and any(k > 1 for k, _ in seen)
+    assert {p for _, p in seen} == {want}
+
+
 # ---------------------------------------------------------------------------
 def test_one_level_build_matches_jax():
     """One speculative build on the same gradients in f64 mode: executed
