@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""A/B measurements of the port's histogram kernels on one NVIDIA GPU,
-each pair in one process on one card, in the order A, B, B, A: the
-aligned engine's slot histogram (kernel B4, and B2's smaller-child
-histograms: ``aligned.cu::slot_hist_kernel``), the leaf-wise builder's
-per-leaf histogram (kernel B1, ``histogram.cu``) and the level builder's
-histogram over packed bin words (kernel B5, ``histogram_words.cu``):
+"""A/B measurements of the port's kernels on one NVIDIA GPU, each pair in
+one process on one card, in the order A, B, B, A: the aligned engine's
+slot histogram (kernel B4, and B2's smaller-child histograms:
+``aligned.cu::slot_hist_kernel``) and B2's partition
+(``aligned.cu::partition_kernel``), the leaf-wise builder's per-leaf
+histogram (kernel B1, ``histogram.cu``), the level builder's histogram
+over packed bin words (kernel B5, ``histogram_words.cu``) and the
+lambdarank gradient (kernel B6, ``rank.cu``):
 
     python3 chip_ab.py engine --baseline DIR
         the engine end to end (``train`` under ``auto``) at the HIGGS
@@ -41,6 +43,33 @@ histogram over packed bin words (kernel B5, ``histogram_words.cu``):
         (``tpu_grow_mode=level``, ``max_depth`` 8, 63 and 255 bins):
         median iteration and level build ms, holdout AUC, and one
         profiled round's wall, busy and B5 device ms and launches;
+    python3 chip_ab.py move --baseline DIR
+        B2's partition of the checkout at DIR, an earlier design whose C
+        entry point takes (per-chunk count, prefix and scatter scratch,
+        the children's map filled by the caller) and launches a count, a
+        one-CTA scan and a scatter kernel, against this checkout's one
+        launch: alone on the root's and the widest round's moves of one
+        aligned tree at the HIGGS shape (COMPACT, 63 and 255 bins) and
+        the MSLR shape (EXT), each checked against the plain twin, the
+        partition and the whole ``move_pass`` timed; then the aligned
+        path end to end (``auto``; HIGGS 63 and 255 bins, MSLR): median
+        iteration ms, AUC or NDCG@10, and one profiled round's wall,
+        busy and partition device ms and launches;
+    python3 chip_ab.py rank --baseline DIR
+        B6 of the checkout at DIR, an earlier design whose C entry point
+        takes a (query, first document) block list and a discount
+        scratch and launches a rank and a pair kernel, against this
+        checkout's: alone on the MSLR queries and the long set of
+        chip_smoke.py's phase 9, with and without the sigmoid table,
+        each checked against the plain twin; then MSLR under ``auto``
+        end to end: median iteration ms, the gradient round trip, NDCG@10
+        and one profiled round's wall, busy and B6 device ms and
+        launches;
+    python3 chip_ab.py rank-sweep
+        where B6's time goes on the MSLR queries: this checkout's kernel
+        (B) against builds of it without the pair factor's arithmetic,
+        without the owners' folds, and without the rank count (A, each
+        wrong by design and checked against nothing), A, B, B, A;
     python3 chip_ab.py words-sweep
         this checkout's B5 on the calls of one level tree at the HIGGS
         shape (the root and the widest round at 255 leaves, the widest
@@ -62,6 +91,8 @@ import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 ORDER = ("A", "B", "B", "A")
 BUILD = os.path.join("build", "chip_ab")
@@ -524,6 +555,305 @@ def words_sweep(torch, CS, lt, H) -> dict:
     return res
 
 
+def baseline_partition(torch, A, lib):
+    """`_move_partition_cuda` for the earlier B2 design's entry point:
+    count, one-CTA scan and scatter kernels over [3, NC] scratch, the
+    children's map filled (nslot) and zeroed (ncnt) first."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lgbt_move_partition.argtypes = [p, i, i, i, i, i, p, p, p, p, p, p,
+                                        p, i, p, p, p, p, p, p, p]
+    lib.lgbt_move_partition.restype = i
+
+    def run(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
+            bits, w_used, out):
+        nc, W, C = records.shape
+        dev = records.device
+        scratch = torch.empty((3, nc), dtype=torch.int32, device=dev)
+        nslot = torch.full((nc,), num_slots, dtype=torch.int32, device=dev)
+        ncnt = torch.zeros(nc, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.lgbt_move_partition(
+                records.data_ptr(), nc, W, C, w_used, bits, r1.data_ptr(),
+                r2.data_ptr(), meta.data_ptr(), wsel.data_ptr(),
+                basel.data_ptr(), baser.data_ptr(), hslots.data_ptr(),
+                num_slots, scratch[0].data_ptr(), scratch[1].data_ptr(),
+                scratch[2].data_ptr(), nslot.data_ptr(), ncnt.data_ptr(),
+                out.data_ptr(), A._stream(dev))
+        A._raise_on(err, "baseline partition")
+        return nslot, ncnt
+    return run
+
+
+def move(torch, CS, lt, A, baseline: str) -> dict:
+    src = os.path.join(baseline, "lightgbm_tpu_torch", "ops", "csrc",
+                       "aligned.cu")
+    impl = {"A": baseline_partition(torch, A, nvcc_lib(
+                src, "baseline_move", os.path.dirname(src))),
+            "B": A._move_partition_cuda}
+    names = CS.ALIGNED_KERNELS + ("scan_kernel", "scatter_kernel")
+    res = {}
+
+    def alone(calls, what, gh):
+        for which in ORDER:
+            A._move_partition_cuda = impl[which]
+            r = {}
+            for key in ("move_root", "move_wide"):
+                args = calls[key]
+                CS.check_move(torch, A, args, f"chip_ab move {which} {key}, "
+                              f"{what}", gh)
+                buf = torch.empty_like(args[0])
+                part = (*args[:8], args[8], args[12], args[13], buf)
+                r[f"{key} partition ms"] = CS.cuda_ms(
+                    torch, lambda p=part: A._move_partition_cuda(*p),
+                    reps=20)
+                r[f"{key} move_pass ms"] = CS.cuda_ms(
+                    torch, lambda a=args, b=buf: A.move_pass(
+                        *a, out=b, gh_off=gh), reps=10)
+                del buf, part
+            res.setdefault(f"sizes {what} {which}", []).append(r)
+            CS.log(f"move sizes {what} {which}: {r}")
+
+    def partition_of(prof):
+        k = prof["aligned_kernels"]
+        mine = [n for n in ("partition_kernel", "count_kernel",
+                            "scan_kernel", "scatter_kernel") if n in k]
+        return (sum(k[n]["ms"] for n in mine),
+                sum(k[n]["launches"] for n in mine))
+
+    n, f = 10_500_000, 28
+    X, y = CS.synth_higgs(n + 500_000, f)
+    Xtr, ytr, Xte, yte = X[:n], y[:n], X[n:], y[n:]
+    for max_bin in (63, 255):
+        params = {"objective": "binary", "num_leaves": 255,
+                  "max_bin": max_bin, "learning_rate": 0.1,
+                  "min_data_in_leaf": 20, "feature_fraction": 1.0,
+                  "verbosity": -1}
+        ds = lt.Dataset(Xtr, label=ytr, params=params,
+                        free_raw_data=False).construct()
+        A._move_partition_cuda = impl["B"]
+        calls = CS.capture_kernel_calls(torch, lt, ds, params)
+        alone(calls, f"higgs{max_bin}", 2)
+        del calls
+        torch.cuda.empty_cache()
+        for which in ORDER:
+            A._move_partition_cuda = impl[which]
+            bst, r = CS.train_run(torch, lt, ds, params, CS.ROUNDS[max_bin],
+                                  Xte, yte, f"chip_ab move {which}")
+            if bst._gbdt.train_path != "aligned":
+                raise AssertionError("auto did not take the aligned engine")
+            prof = CS.profile_round(torch, bst, aligned_names=names)
+            ms, launches = partition_of(prof)
+            res.setdefault(f"higgs{max_bin} {which}", []).append({
+                "median_iter_ms": r["median_iter_ms"], "auc": r["auc"],
+                "wall_ms": prof["wall_ms"], "busy_ms": prof["busy_ms"],
+                "partition_ms": ms, "partition_launches": launches,
+                "move_calls": prof["move_calls"]})
+            CS.log(f"move higgs{max_bin} {which}: "
+                   f"{res[f'higgs{max_bin} {which}'][-1]}")
+            del bst
+        del ds
+        torch.cuda.empty_cache()
+    del X, y, Xtr, ytr, Xte, yte
+    Xm, ym, gm = CS.synth_mslr(CS.MSLR_ROWS, CS.MSLR_FEATURES)
+    params = {"objective": "lambdarank", "num_leaves": 255, "max_bin": 255,
+              "learning_rate": 0.1, "min_data_in_leaf": 50,
+              "metric": "none", "verbosity": -1}
+    ds = lt.Dataset(Xm, label=ym, group=gm, params=params,
+                    free_raw_data=False).construct()
+    A._move_partition_cuda = impl["B"]
+    calls = CS.capture_kernel_calls(torch, lt, ds, params)
+    alone(calls, "mslr_ext", 1)
+    del calls
+    torch.cuda.empty_cache()
+    for which in ORDER:
+        A._move_partition_cuda = impl[which]
+        r = CS.mslr_run(torch, lt, ds, params, CS.MSLR_ROUNDS, Xm, ym, gm,
+                        f"chip_ab move {which}", aligned_names=names)
+        if r["train_path"] != "aligned":
+            raise AssertionError("auto did not take the aligned engine")
+        prof = r["profile"]
+        ms, launches = partition_of(prof)
+        res.setdefault(f"mslr {which}", []).append({
+            "median_iter_ms": r["median_iter_ms"], "ndcg10": r["ndcg10"],
+            "wall_ms": prof["wall_ms"], "busy_ms": prof["busy_ms"],
+            "partition_ms": ms, "partition_launches": launches,
+            "move_calls": prof["move_calls"]})
+        CS.log(f"move mslr {which}: {res[f'mslr {which}'][-1]}")
+    A._move_partition_cuda = impl["B"]
+    return res
+
+
+def baseline_rank(torch, R, lib):
+    """`lambdarank_grad` for the earlier B6 design's entry point: blocks
+    of 64 documents (`query_blocks`, cached per offsets tensor), a rank
+    kernel writing a discount scratch and a pair kernel, g and h zeroed
+    first."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.lgbt_rank_grad.argtypes = [p, p, p, p, p, i, p, p, f, i, f, i, p, p,
+                                   p, p]
+    lib.lgbt_rank_grad.restype = i
+    blocks = {}
+
+    def run(score, qoff, label, gain, inv, disc, sigmoid, lut_bins=0,
+            lut_len=0, work=None):
+        dev = score.device
+        key = (qoff.data_ptr(), qoff.shape[0])
+        if key not in blocks:
+            blocks[key] = torch.as_tensor(R.query_blocks(
+                qoff.cpu().numpy()), device=dev)
+        bl = blocks[key]
+        n = score.shape[0]
+        g = torch.zeros(n, dtype=torch.float32, device=dev)
+        h = torch.zeros(n, dtype=torch.float32, device=dev)
+        scratch = torch.empty(n, dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.lgbt_rank_grad(
+                score.data_ptr(), label.data_ptr(), gain.data_ptr(),
+                qoff.data_ptr(), bl.data_ptr(), bl.shape[0], inv.data_ptr(),
+                disc.data_ptr(), float(np.float32(2.0 * sigmoid)),
+                int(lut_bins), float(np.float32(lut_bins / 100.0)),
+                int(lut_len) if lut_bins > 0 else 0, scratch.data_ptr(),
+                g.data_ptr(), h.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"baseline lambdarank_grad: CUDA error {err}")
+        R.LAUNCHES["lambdarank_grad"] += 1
+        return g, h
+    return run
+
+
+def rank(torch, CS, lt, R, baseline: str) -> dict:
+    from lightgbm_tpu_torch.io.dataset import Metadata
+    from lightgbm_tpu_torch.ops import objectives as O
+    src = os.path.join(baseline, "lightgbm_tpu_torch", "ops", "csrc",
+                       "rank.cu")
+    impl = {"A": baseline_rank(torch, R, nvcc_lib(
+                src, "baseline_rank", os.path.dirname(src))),
+            "B": R.lambdarank_grad}
+    dev = torch.device(CS.DEVICE)
+    names = CS.RANK_KERNELS + ("rank_disc_kernel", "rank_pair_kernel")
+    Xm, ym, gm = CS.synth_mslr(CS.MSLR_ROWS, CS.MSLR_FEATURES)
+    rng = np.random.default_rng(21)
+    long_counts = np.concatenate([[1, 2, 63, 64, 65, 129, 600, 2000, 5000,
+                                   4999, 777], rng.integers(1, 300, 40)])
+    long_y = rng.integers(0, 5, int(long_counts.sum())).astype(np.float32)
+    res = {}
+    for name, (lab, grp, lut) in {
+            "mslr": (ym, gm, 0), "long": (long_y, long_counts, 0),
+            "mslr_lut1024": (ym, gm, 1024),
+            "long_lut1024": (long_y, long_counts, 1024)}.items():
+        md = Metadata(len(lab))
+        md.set_label(lab)
+        md.set_group(grp)
+        obj = O.LambdarankNDCG(lt.Config.from_params(
+            {"objective": "lambdarank", "tpu_rank_sigmoid_bins": lut}))
+        obj.init(md, len(lab), dev)
+        score = torch.as_tensor(rng.standard_normal(len(lab))
+                                .astype(np.float32), device=dev)
+        args = (score, obj._qoff, obj._label_i, obj._gain, obj._inv,
+                obj._disc, 1.0, lut, obj._lut_len)
+        gp, hp = R.lambdarank_grad_plain(*args)
+        mg, mh = gp.abs().max().item(), hp.abs().max().item()
+        for which in ORDER:
+            fn = impl[which]
+            g, h = fn(*args, work=obj._work)
+            torch.cuda.synchronize()
+            eg, eh = (g - gp).abs().max().item(), (h - hp).abs().max().item()
+            if not (eg <= 1e-5 * mg and eh <= 1e-5 * mh):
+                raise AssertionError(f"chip_ab rank {which} {name}: max |dg| "
+                                     f"{eg} (max |g| {mg}), max |dh| {eh}")
+            res.setdefault(f"{name} {which}", []).append({
+                "ms": CS.cuda_ms(torch, lambda: fn(*args, work=obj._work),
+                                 reps=20),
+                "rel_err_g": eg / mg, "rel_err_h": eh / mh})
+            CS.log(f"rank {name} {which}: {res[f'{name} {which}'][-1]}")
+        del obj, args, g, h, gp, hp
+    params = {"objective": "lambdarank", "num_leaves": 255, "max_bin": 255,
+              "learning_rate": 0.1, "min_data_in_leaf": 50,
+              "metric": "none", "verbosity": -1}
+    ds = lt.Dataset(Xm, label=ym, group=gm, params=params,
+                    free_raw_data=False).construct()
+    for which in ORDER:
+        O.lambdarank_grad = impl[which]
+        r = CS.mslr_run(torch, lt, ds, params, CS.MSLR_ROUNDS, Xm, ym, gm,
+                        f"chip_ab rank {which}", rank_names=names)
+        if r["train_path"] != "aligned":
+            raise AssertionError("auto did not take the aligned engine")
+        prof = r["profile"]
+        res.setdefault(f"mslr {which}", []).append({
+            "median_iter_ms": r["median_iter_ms"], "ndcg10": r["ndcg10"],
+            "round_trip_ms": r["round_trip_ms"],
+            "wall_ms": prof["wall_ms"], "busy_ms": prof["busy_ms"],
+            "b6_ms": sum(k["ms"] for k in prof["rank_kernels"].values()),
+            "b6_launches": sum(k["launches"]
+                               for k in prof["rank_kernels"].values()),
+            "b6_calls": prof["rank_calls"]})
+        CS.log(f"rank mslr {which}: {res[f'mslr {which}'][-1]}")
+    O.lambdarank_grad = impl["B"]
+    return res
+
+
+def rank_sweep(torch, CS, lt, R) -> dict:
+    """B6 on the MSLR queries against builds of this checkout's
+    ``rank.cu`` with one part cut out: the pair factor's arithmetic (a
+    subtraction left), the owners' folds, the rank count. Each variant's
+    time beside the kernel's says what that part costs."""
+    from lightgbm_tpu_torch.io.dataset import Metadata
+    from lightgbm_tpu_torch.ops import objectives as O
+    from lightgbm_tpu_torch.utils import cuda_build
+    text = open(os.path.join(cuda_build.CSRC, "rank.cu")).read()
+    cuts = {
+        "no pair math": ("  const float ds = bf(__fsub_rn(s_hi, s_lo));",
+                         "  lam = __fsub_rn(s_hi, s_lo) + g_lo - d_lo;\n"
+                         "  hes = g_hi + d_hi;\n  return;\n"
+                         "  const float ds = bf(__fsub_rn(s_hi, s_lo));"),
+        "no folds": ("        if (pl >= c) continue;\n        const int a = "
+                     "grp[k]", "        if (pl >= 0) continue;\n        "
+                     "const int a = grp[k]"),
+        "no rank count": ("        rank += (sj > si || (sj == si && j < i)) "
+                          "? 1 : 0;\n        pos +=", "        pos +=")}
+    fns = R._lib()
+    os.makedirs(BUILD, exist_ok=True)
+    impl = {}
+    for name, (old, new) in cuts.items():
+        if text.count(old) != 1:
+            raise AssertionError(f"rank.cu's {name} cut is not where chip_ab "
+                                 "looks for it")
+        src = os.path.join(BUILD, f"rank_{name.replace(' ', '_')}.cu")
+        with open(src, "w") as fh:
+            fh.write(text.replace(old, new))
+        fn = nvcc_lib(src, f"rank_{name.replace(' ', '_')}",
+                      cuda_build.CSRC).lgbt_rank_grad
+        fn.argtypes = fns["lgbt_rank_grad"].argtypes
+        fn.restype = ctypes.c_int
+        impl[name] = fn
+    real = fns["lgbt_rank_grad"]
+    dev = torch.device(CS.DEVICE)
+    Xm, ym, gm = CS.synth_mslr(CS.MSLR_ROWS, CS.MSLR_FEATURES)
+    del Xm
+    md = Metadata(len(ym))
+    md.set_label(ym)
+    md.set_group(gm)
+    obj = O.LambdarankNDCG(lt.Config.from_params({"objective":
+                                                  "lambdarank"}))
+    obj.init(md, len(ym), dev)
+    score = torch.as_tensor(np.random.default_rng(21).standard_normal(
+        len(ym)).astype(np.float32), device=dev)
+    args = (score, obj._qoff, obj._label_i, obj._gain, obj._inv, obj._disc,
+            1.0, 0, 0)
+    res = {}
+    for name, fn in impl.items():
+        for which in ORDER:
+            fns["lgbt_rank_grad"] = fn if which == "A" else real
+            res.setdefault(f"{name} {which}", []).append(CS.cuda_ms(
+                torch, lambda: R.lambdarank_grad(*args, work=obj._work),
+                reps=20))
+        fns["lgbt_rank_grad"] = real
+        CS.log(f"rank-sweep {name}: A {res[f'{name} A']}, B "
+               f"{res[f'{name} B']}")
+    return res
+
+
 def scale(torch, CS, lt, A) -> dict:
     from lightgbm_tpu_torch.utils import cuda_build
     text = open(os.path.join(cuda_build.CSRC, "aligned.cu")).read()
@@ -585,9 +915,10 @@ def scale(torch, CS, lt, A) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("what", choices=("engine", "scale", "hist", "words",
-                                     "words-sweep"))
+                                     "words-sweep", "move", "rank",
+                                     "rank-sweep"))
     ap.add_argument("--baseline", help="checkout of the earlier design "
-                    "(engine, hist, words)")
+                    "(engine, hist, words, move, rank)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -605,13 +936,22 @@ def main() -> int:
         if not args.baseline:
             ap.error("engine needs --baseline DIR")
         res = engine(torch, CS, lt, A, args.baseline)
-    elif args.what in ("hist", "words"):
+    elif args.what in ("hist", "words", "move", "rank"):
         if not args.baseline:
             ap.error(f"{args.what} needs --baseline DIR")
-        res = (hist if args.what == "hist" else words)(torch, CS, lt, H,
-                                                       args.baseline)
+        if args.what == "move":
+            res = move(torch, CS, lt, A, args.baseline)
+        elif args.what == "rank":
+            from lightgbm_tpu_torch.ops import rank as R
+            res = rank(torch, CS, lt, R, args.baseline)
+        else:
+            res = (hist if args.what == "hist" else words)(
+                torch, CS, lt, H, args.baseline)
     elif args.what == "words-sweep":
         res = words_sweep(torch, CS, lt, H)
+    elif args.what == "rank-sweep":
+        from lightgbm_tpu_torch.ops import rank as R
+        res = rank_sweep(torch, CS, lt, R)
     else:
         res = scale(torch, CS, lt, A)
     CS.log(f"chip_ab {args.what}: {time.perf_counter() - t0:.1f} s")

@@ -12,7 +12,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``lightgbm_tpu_torch/ops/csrc/histogram.cu``; kernels B2-B4,
    ``lightgbm_tpu_torch/ops/csrc/aligned.cu``; B5,
    ``histogram_words.cu``; B6, ``rank.cu``; the prototypes P1-P3,
-   ``proto.cu``); then ``cuobjdump -sass`` of the aligned library's
+   ``proto.cu``), each kernel's registers, stack and spills from ptxas
+   printed by name; then ``cuobjdump -sass`` of the aligned library's
    histogram kernel (B4, B2's smaller children), printed whole, and the
    count of each atomic opcode in it and in B1's and B5's two kernels
    each: it fails on a compare-and-swap loop (``ATOMS.CAST.SPIN``, an
@@ -51,8 +52,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    tree and fallbacks; holdout AUC above 0.6 and within 2e-3 of the
    leaf-wise run's; one profiled round at each bin count, which also
    prints the device time and launches of each kernel of aligned.cu
-   (B2's count, scan, scatter and child histograms apart; so does the
-   MSLR aligned round of phase 10);
+   (B2's partition and child histograms apart; so does the MSLR aligned
+   round of phase 10) and B2's partition launches a ``move_pass`` call:
+   the partition kernel must launch once a call (one memset beside it);
 6. aligned kernels vs plain: one aligned tree at each bin count, in the
    COMPACT layout and in the STANDARD layout (``tpu_force_big_n``), with
    the engine's kernel calls recorded: the root's histogram pass, the
@@ -62,7 +64,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    new layout covers, histogram counts equal and g/h within 1e-5 x the
    slot's sum of |g| (|h|), the largest |difference| over that sum
    printed for each check (the fixed-point sums are not bit-equal to the
-   twins' f64 sums); on STANDARD records B4 once more with NaN, +Inf and
+   twins' f64 sums); B2's partition alone timed beside the twin's
+   partition and its byte bound, with its launches a call from phase
+   5's profiled round (a profiler window of a few calls alone loses
+   records); on
+   STANDARD records B4 once more with NaN, +Inf and
    -Inf written into the grad/hess lanes, cell by cell against the twin;
    each kernel timed beside its twin, its byte bound and, for B4, one
    ``index_add_``; then B2's smaller-child histograms of the widest round
@@ -81,7 +87,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    5,000 documents), and both under ``tpu_rank_sigmoid_bins=1024`` (on
    the card ``auto`` tables the queries of at most the tile's 512
    documents: every MSLR query, the long set's short ones): g and h
-   within 1e-5 x max|g| (max|h|), timed beside the twin;
+   within 1e-5 x max|g| (max|h|), timed beside the twin and the bound;
+   one launch a call, and two calls bit-equal;
 10. ranking path: lambdarank at the MSLR shape (2.27M x 137, 255 bins,
    255 leaves, ``min_data_in_leaf`` 50) through ``train`` under ``auto``
    (6 rounds; it must take the aligned engine on EXT records) and pinned
@@ -90,7 +97,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    call fails the run); NDCG@10 over the queries of the first 200,000
    rows (the protocol of ``bench.py::run_mslr``): the two runs' at 3
    rounds within 5e-3 of each other and both above an all-zero score's;
-   one profiled round each;
+   one profiled round each (the aligned one with phase 5's partition
+   launch check);
 11. EXT kernels vs plain: phase 6 on the inputs of one aligned
    lambdarank tree at the MSLR shape (255 bins, ``gh_off`` 1), the
    NaN/Inf check of B4 included;
@@ -160,11 +168,14 @@ SOURCES = {"histogram": KERNEL_SOURCE, "aligned": ALIGNED_SOURCE,
            "rank": RANK_SOURCE, "histogram_words": WORDS_SOURCE,
            "proto": PROTO_SOURCE}
 ROUNDS = {63: 10, 255: 5}
-# the kernels of aligned.cu: B2 move_pass launches count, scan, scatter and
-# the smaller children's slot_hist + hist_finalize; B4 slot_hist_pass (the
-# tree's root) slot_hist + hist_finalize; B3 count_pass count
-ALIGNED_KERNELS = ("count_kernel", "scan_kernel", "scatter_kernel",
-                   "slot_hist_kernel", "hist_finalize_kernel")
+# the kernels of aligned.cu: B2 move_pass launches the partition (after one
+# memset of its scratch) and the smaller children's slot_hist +
+# hist_finalize; B4 slot_hist_pass (the tree's root) slot_hist +
+# hist_finalize; B3 count_pass count
+ALIGNED_KERNELS = ("partition_kernel", "count_kernel", "slot_hist_kernel",
+                   "hist_finalize_kernel")
+# the kernel of rank.cu (B6): one launch a call
+RANK_KERNELS = ("rank_kernel",)
 # the kernels of histogram.cu (B1): one launch a call, f32 and f64
 HIST_KERNELS = ("hist_fixed_kernel", "hist_f64_kernel")
 # the kernels of histogram_words.cu (B5): one launch a call, f32 and f64
@@ -269,9 +280,14 @@ def phase_build() -> None:
     log(f"build: {time.perf_counter() - t0:.3f} s for "
         f"{', '.join(SOURCES.values())} (one nvcc each, in parallel)")
     for name, text in texts.items():
+        entry = "?"
         for line in text.splitlines():
+            # the kernel's name in its mangled entry: <length><name>E
+            m = re.search(r".*\d([a-z][a-z0-9_]*_kernel)[EI]", line)
+            if m:
+                entry = m.group(1)
             if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+                log(f"  ptxas {name} {entry}: {line.strip()}")
 
 
 def sass_atomics(library: str, kernel: str, whole: bool) -> dict:
@@ -814,11 +830,13 @@ def hist_library_ms(torch, A, rec, slot_of_chunk, meta, k, F, B, wcnt,
 
 
 def phase_aligned_parity(torch, lt, ds, params, max_bin: int,
-                         layout: str) -> dict:
+                         layout: str, path_profile: dict) -> dict:
     """B2/B3/B4 against their twins on the inputs of one real aligned tree
     (HIGGS shape: COMPACT, or STANDARD under ``tpu_force_big_n``; MSLR
     shape: EXT), timed beside the twin, the byte bound and (B4) one
-    ``index_add_``."""
+    ``index_add_``; B2's partition alone too, with its launches a call
+    from the path's profiled round (``path_profile``, which checked them;
+    a profiler window of a few calls alone loses records)."""
     from lightgbm_tpu_torch.ops import aligned as A
     calls = capture_kernel_calls(
         torch, lt, ds, {**params, "tpu_force_big_n": layout == "standard"})
@@ -869,6 +887,7 @@ def phase_aligned_parity(torch, lt, ds, params, max_bin: int,
     split_rows = int(cnt[~is_copy].sum())
     copy_chunks = int((is_copy & (cnt > 0)).sum())
     buf = torch.empty_like(rec)
+    moved = 2 * (split_rows * w_used * 4 + copy_chunks * w_used * C * 4)
     r = {"max_abs_err": err, "split_blocks": calls["wide_blocks"],
          "split_rows": split_rows, "copy_chunks": copy_chunks,
          "ms": cuda_ms(torch, lambda: A.move_pass(*args, out=buf,
@@ -877,12 +896,24 @@ def phase_aligned_parity(torch, lt, ds, params, max_bin: int,
              *args, out=buf, gh_off=gh), reps=2),
          "library_ms": None}
     r["bound_ms"], r["bound_by"] = bound(
-        2 * (split_rows * w_used * 4 + copy_chunks * W * C * 4)
-        + nc * 7 * 4 + k * F * B * 3 * 4, 3 * F * split_rows / 2)
+        moved + nc * 9 * 4 + k * F * B * 3 * 4, 3 * F * split_rows / 2)
     res["move_pass"] = r
+    # ---- B2's partition alone (the twin's: its histograms over no slot)
+    part = (*args[:8], k, bits, w_used, buf)
+    no_hist = (*args[:8], 0, *args[9:])
+    r = {"max_abs_err": 0.0, "split_blocks": calls["wide_blocks"],
+         "split_rows": split_rows, "copy_chunks": copy_chunks,
+         "launches_per_call": path_profile["partition_launches_per_call"],
+         "ms": cuda_ms(torch, lambda: A._move_partition_cuda(*part),
+                       reps=20),
+         "plain_ms": cuda_ms(torch, lambda: A.move_pass_plain(
+             *no_hist, out=buf, gh_off=gh), reps=2),
+         "library_ms": None}
+    r["bound_ms"], r["bound_by"] = bound(moved + nc * 9 * 4, 0)
+    res["partition"] = r
     # ---- B2's smaller-child histograms alone: the histogram kernel on
     # the widest round's moved records and its children's chunk map
-    nslot, ncnt = A._move_partition_cuda(*args[:8], k, bits, w_used, buf)
+    nslot, ncnt = A._move_partition_cuda(*part)
     child = (nslot, ncnt, k, F, B, wcnt, bits, grad)
     _, ref = A.move_pass_plain(*args, gh_off=gh)
     err = check_hist(torch, A._slot_hist_cuda(buf, *child, gh), ref,
@@ -890,9 +921,10 @@ def phase_aligned_parity(torch, lt, ds, params, max_bin: int,
                                    gh),
                      f"child histograms alone, wide, {what}")
     del ref
-    rows = int(ncnt[nslot < k].sum())
+    mapped = ncnt > 0
+    rows = int(ncnt[mapped].sum())
     r = {"max_abs_err": err, "rows": rows, "children": int(
-        torch.unique(nslot[nslot < k]).numel()),
+        torch.unique(nslot[mapped]).numel()),
         "ms": cuda_ms(torch, lambda: A._slot_hist_cuda(buf, *child, gh)),
         "plain_ms": cuda_ms(torch, lambda: A.slot_hist_pass_plain(
             buf, *child, gh_off=gh), reps=2),
@@ -920,7 +952,7 @@ def phase_aligned_parity(torch, lt, ds, params, max_bin: int,
                                              rows)
         res["count_pass"] = r
     sizes = ("rows", "children", "split_blocks", "split_rows",
-             "copy_chunks")
+             "copy_chunks", "launches_per_call")
     for name, r in res.items():
         lib = "none" if r["library_ms"] is None \
             else f"{r['library_ms']:.4f} ms"
@@ -948,22 +980,29 @@ def kernel_times(kernels, names) -> dict:
 
 
 def profile_round(torch, bst, hist_names=HIST_KERNELS,
-                  words_names=WORDS_KERNELS) -> dict:
+                  words_names=WORDS_KERNELS, aligned_names=ALIGNED_KERNELS,
+                  rank_names=RANK_KERNELS) -> dict:
     """One more boosting round under `torch.profiler`: wall time, the
     device's busy and idle share, host-device syncs, the kernels that
     take the most device time, and the device time and launches of each
-    kernel of aligned.cu, of B1 (``hist_names``) and of B5
-    (``words_names``) by name (read after the main path's counts). With
-    this checkout's B1 and B5, each kernel's launches must equal the
-    round's calls of `leaf_histogram` (`histogram_from_words`) on the
-    card in its precision (one launch a call), one lost profiler record
-    aside."""
+    kernel of aligned.cu (``aligned_names``), of B1 (``hist_names``), of
+    B5 (``words_names``) and of B6 (``rank_names``) by name (read after
+    the main path's counts), and the memsets. With this checkout's
+    kernels, each of B1's and B5's must launch as often as the round's
+    calls of `leaf_histogram` (`histogram_from_words`) on the card in its
+    precision, B2's partition kernel as often as `move_pass` (one memset
+    beside it: two launches a call) and B6's as `lambdarank_grad`, one
+    lost profiler record aside."""
     from torch.profiler import ProfilerActivity, profile
 
+    from lightgbm_tpu_torch.ops import aligned as A
     from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.ops import rank as R
     torch.cuda.synchronize()
     calls = dict(H.LAUNCHES)
     wcalls = dict(H.WORDS_LAUNCHES)
+    moves = A.LAUNCHES["move_pass"]
+    grads = R.LAUNCHES["lambdarank_grad"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -972,11 +1011,15 @@ def profile_round(torch, bst, hist_names=HIST_KERNELS,
         wall_ms = (time.perf_counter() - t0) * 1e3
     calls = {k: H.LAUNCHES[k] - v for k, v in calls.items()}
     wcalls = {k: H.WORDS_LAUNCHES[k] - v for k, v in wcalls.items()}
+    moves = A.LAUNCHES["move_pass"] - moves
+    grads = R.LAUNCHES["lambdarank_grad"] - grads
     cuda = torch.autograd.DeviceType.CUDA
-    kernels, syncs = [], 0
+    kernels, syncs, memsets = [], 0, 0
     for e in prof.key_averages():
         if e.device_type == cuda:
             kernels.append((e.self_device_time_total / 1e3, e.count, e.key))
+            if "Memset" in e.key:
+                memsets += e.count
         elif e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                        "cudaMemcpyAsync"):
             syncs += e.count
@@ -989,11 +1032,25 @@ def profile_round(torch, bst, hist_names=HIST_KERNELS,
         f"launches, {syncs} sync/copy calls")
     for ms, count, key in kernels[:10]:
         log(f"  {ms:9.3f} ms {count:6d}x {key[:90]}")
-    aligned = kernel_times(kernels, ALIGNED_KERNELS)
+    aligned = kernel_times(kernels, aligned_names)
     if aligned:
         log("  aligned.cu kernels: " + ", ".join(
             f"{name} {a['ms']:.3f} ms in {a['launches']} launches"
-            for name, a in aligned.items()))
+            for name, a in aligned.items()) + f"; move_pass calls {moves}, "
+            f"memsets in the round {memsets}")
+    part = aligned.get("partition_kernel", {"launches": 0, "ms": 0.0})
+    per_call = (part["launches"] + memsets) / moves if moves else None
+    if moves:
+        log(f"  B2 partition: {part['launches']} partition_kernel launches "
+            f"and {memsets} memsets for {moves} move_pass calls: "
+            f"{per_call:.2f} launches a call, {part['ms'] / moves:.4f} ms "
+            f"a call")
+    rank = kernel_times(kernels, rank_names)
+    if rank or grads:
+        log("  B6 kernels: " + ", ".join(
+            f"{name} {a['ms']:.3f} ms in {a['launches']} launches"
+            for name, a in rank.items()) + f"; lambdarank_grad calls "
+            f"{grads}")
     hist = kernel_times(kernels, hist_names)
     if hist or calls["f32"] or calls["f64"]:
         log("  B1 kernels: " + ", ".join(
@@ -1014,17 +1071,23 @@ def profile_round(torch, bst, hist_names=HIST_KERNELS,
         checks += [(hist, calls, HIST_KERNELS)]
     if words_names == WORDS_KERNELS:
         checks += [(words, wcalls, WORDS_KERNELS)]
+    if aligned_names == ALIGNED_KERNELS:
+        checks += [(aligned, {"one": moves}, ("partition_kernel",))]
+    if rank_names == RANK_KERNELS:
+        checks += [(rank, {"one": grads}, RANK_KERNELS)]
     for times, n_calls, names in checks:
-        for prec, name in zip(("f32", "f64"), names):
+        for prec, name in zip(n_calls, names):
             got = times.get(name, {"launches": 0})["launches"]
             if not n_calls[prec] - 1 <= got <= n_calls[prec]:
                 raise AssertionError(f"profiled round: {name} launched "
                                      f"{got} times for {n_calls[prec]} "
                                      f"{prec} calls")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "launches": launches,
-            "syncs": syncs, "aligned_kernels": aligned,
+            "syncs": syncs, "memsets": memsets, "aligned_kernels": aligned,
+            "move_calls": moves, "partition_launches_per_call": per_call,
             "hist_kernels": hist, "hist_calls": calls,
             "words_kernels": words, "words_calls": wcalls,
+            "rank_kernels": rank, "rank_calls": grads,
             "top": [[k[2][:90], k[0], k[1]] for k in kernels[:10]]}
 
 
@@ -1439,9 +1502,16 @@ def phase_rank_parity(torch, lt, y, group) -> dict:
             raise AssertionError(f"lambdarank under auto on the card tables "
                                  f"queries up to {obj._lut_len} documents, "
                                  "not the default tile's 512")
-        g, h = R.lambdarank_grad(*args, blocks=obj._blocks)
+        R.reset_launches()
+        g, h = R.lambdarank_grad(*args, work=obj._work)
+        g2, h2 = R.lambdarank_grad(*args, work=obj._work)
         gp, hp = R.lambdarank_grad_plain(*args)
         torch.cuda.synchronize()
+        if R.LAUNCHES["lambdarank_grad"] != 2 or not torch.equal(g, g2) \
+                or not torch.equal(h, h2):
+            raise AssertionError(f"lambdarank_grad ({name}): two calls made "
+                                 f"{R.LAUNCHES['lambdarank_grad']} launches "
+                                 "or differ")
         mg, mh = gp.abs().max().item(), hp.abs().max().item()
         eg, eh = (g - gp).abs().max().item(), (h - hp).abs().max().item()
         if not (eg <= 1e-5 * mg and eh <= 1e-5 * mh):
@@ -1452,7 +1522,7 @@ def phase_rank_parity(torch, lt, y, group) -> dict:
              "longest": int(np.max(grp)), "max_abs_err": max(eg, eh),
              "rel_err_g": eg / mg, "rel_err_h": eh / mh,
              "ms": cuda_ms(torch, lambda: R.lambdarank_grad(
-                 *args, blocks=obj._blocks)),
+                 *args, work=obj._work), reps=20),
              "tabled_up_to": obj._lut_len,
              "plain_ms": cuda_ms(torch, lambda: R.lambdarank_grad_plain(
                  *args), reps=2), "library_ms": None}
@@ -1466,17 +1536,19 @@ def phase_rank_parity(torch, lt, y, group) -> dict:
             f"{r['pairs_distinct']} pairs), max |dg|/max|g| "
             f"{r['rel_err_g']:.3e}, max |dh|/max|h| {r['rel_err_h']:.3e}")
         res[name] = r
-        del obj, args, g, h, gp, hp
+        del obj, args, g, h, g2, h2, gp, hp
     torch.cuda.empty_cache()
     return res
 
 
-def mslr_run(torch, lt, ds, params, rounds, X, y, group, what) -> tuple:
+def mslr_run(torch, lt, ds, params, rounds, X, y, group, what,
+             **profile_kw) -> tuple:
     """One lambdarank ``train`` at the MSLR shape, timed per iteration,
     with every kernel count zeroed just before and read just after, and
     the plain twins of B2, B4 and B6 counted (a call on this path fails
     the run); NDCG@10 over the queries of the first 200,000 rows at the
-    leaf-wise run's round count and at the end."""
+    leaf-wise run's round count and at the end; one round profiled
+    (`profile_round` with ``profile_kw``)."""
     from lightgbm_tpu_torch.ops import aligned as A
     from lightgbm_tpu_torch.ops import histogram as H
     from lightgbm_tpu_torch.ops import rank as R
@@ -1565,7 +1637,7 @@ def mslr_run(torch, lt, ds, params, rounds, X, y, group, what) -> tuple:
         del eng, rs, gd, hd
     r["path_logged"] = any(f"training path: {g.train_path}" in ln
                            for ln in lines)
-    r["profile"] = profile_round(torch, bst)
+    r["profile"] = profile_round(torch, bst, **profile_kw)
     del bst, g
     torch.cuda.empty_cache()
     return r
@@ -1939,7 +2011,8 @@ def main() -> int:
             big_n = phase_big_n(torch, lt, ds, params, X, y, args.rows)
         for layout in ("compact", "standard"):
             apar[(max_bin, layout)] = phase_aligned_parity(
-                torch, lt, ds, params, max_bin, layout)
+                torch, lt, ds, params, max_bin, layout,
+                aligned_r[max_bin]["profile"])
         level_r[max_bin] = phase_level_main(
             torch, lt, ds, params, X, y, args.rows, max_bin, main_r[max_bin])
         if max_bin == 63:
@@ -1958,7 +2031,8 @@ def main() -> int:
     rpar = phase_rank_parity(torch, lt, ym, gm)
     mds, mparams, mslr = phase_mslr(torch, lt, Xm, ym, gm)
     apar[(255, "ext")] = phase_aligned_parity(torch, lt, mds, mparams, 255,
-                                              "ext")
+                                              "ext",
+                                              mslr["aligned"]["profile"])
     del mds, Xm, ym, gm
     gc.collect()
     torch.cuda.empty_cache()
@@ -1998,9 +2072,10 @@ def main() -> int:
     ]
     for bins in (63, 255):
         launches = aligned_r[bins]["launches"]
-        kernels.append(aentry(f"move_pass_{bins}bin", "move_pass", 960,
-                              bins, "compact", launches["move_pass"],
-                              "widest round of tree 1"))
+        kernels.append(aentry(f"move_pass_partition_{bins}bin",
+                              "partition", 960, bins, "compact",
+                              launches["move_pass"],
+                              "partition of the widest round of tree 1"))
         kernels.append(aentry(f"move_pass_child_hist_{bins}bin",
                               "child_hist", 960, bins, "compact",
                               launches["move_pass"],
@@ -2014,9 +2089,9 @@ def main() -> int:
                           "widest round of tree 1"))
     launches = mslr["aligned"]["launches"]
     dims = f"{args.mslr_rows}x{MSLR_FEATURES}"
-    kernels.append(aentry("move_pass_ext_255bin", "move_pass", 960, 255,
-                          "ext", launches["move_pass"],
-                          "widest round of tree 1", dims))
+    kernels.append(aentry("move_pass_partition_ext_255bin", "partition",
+                          960, 255, "ext", launches["move_pass"],
+                          "partition of the widest round of tree 1", dims))
     kernels.append(aentry("move_pass_child_hist_ext_255bin", "child_hist",
                           960, 255, "ext", launches["move_pass"],
                           "smaller children of the widest round of tree 1",

@@ -386,6 +386,23 @@ class Config:
     # does not quantize, which is what the JAX package does under auto off
     # the TPU and under off, and raises on on (ROADMAP A.2)
     tpu_quant_hist: str = "auto"
+    # the JAX package's TPU knobs, kept with its defaults so that both
+    # packages write the same parameters block into the model text; the
+    # port accepts them and they change nothing here: the histogram
+    # chunk, the Pallas switch, the fused iteration program, the
+    # smallest padded leaf, the mesh axis name, the serving engine's
+    # predict policy, the sub-binned MXU accumulation, the VMEM budget of
+    # the aligned move's histogram store and the quantized histograms'
+    # width (lightgbm_tpu/config.py:364-515)
+    tpu_hist_chunk: int = 1 << 16
+    tpu_use_pallas: bool = True
+    tpu_fuse_iteration: bool = False
+    tpu_min_pad: int = 1024
+    tpu_mesh_axis: str = "data"
+    tpu_predict_device: str = "auto"
+    tpu_hist_subbin: str = "auto"
+    tpu_hist_spill_vmem_mb: float = 48.0
+    tpu_quant_hist_bits: int = 16
 
     # internal (set by trainer, reference config.h:832-833)
     is_parallel: bool = False

@@ -163,13 +163,15 @@ class DeviceTreeLearner:
                                device=self.device)
 
     # ------------------------------------------------------------------
-    def _eval_leaves(self, hist, sg, sh, cnt, minc, maxc, depth, fmask):
+    def _eval_leaves(self, hist, sg, sh, cnt, minc, maxc, depth, fmask,
+                     root=False):
         """Best split of each leaf in a batch, on the device: hist
         [K, F, B, 3] f32 and host per-leaf sums -> host arrays (f32 [K,
         BF_W] BF_* lanes, i64 [K, BI_W] BI_* lanes), the reference's
-        eval_leaf + pack_best_payload, read back in one copy."""
+        eval_leaf + pack_best_payload, read back in one copy. ``root``
+        marks the leaf-wise builder's root search (`make_split_finder`)."""
         return self._unpack_eval(self._eval_leaves_dev(
-            hist, sg, sh, cnt, minc, maxc, depth, fmask).cpu())
+            hist, sg, sh, cnt, minc, maxc, depth, fmask, root).cpu())
 
     @staticmethod
     def _unpack_eval(both: torch.Tensor):
@@ -179,8 +181,8 @@ class DeviceTreeLearner:
                 both[:, BF_W:].contiguous().view(torch.int32).numpy()
                 .astype(np.int64))
 
-    def _eval_leaves_dev(self, hist, sg, sh, cnt, minc, maxc, depth, fmask
-                         ) -> torch.Tensor:
+    def _eval_leaves_dev(self, hist, sg, sh, cnt, minc, maxc, depth, fmask,
+                         root=False) -> torch.Tensor:
         """`_eval_leaves` before the read: [K, BF_W + BI_W] f32 on the
         device, the BI_* lanes as int32 bits."""
         dev = self.device
@@ -190,7 +192,7 @@ class DeviceTreeLearner:
 
         out = self.finder(hist, t(sg, torch.float32), t(sh, torch.float32),
                           t(cnt, torch.int32), t(minc, torch.float32),
-                          t(maxc, torch.float32))
+                          t(maxc, torch.float32), root)
         gain = torch.where(fmask > 0, out["gain"], float("-inf"))
         deep = t(np.asarray(depth) >= self._depth_limit, torch.bool)
         gain = torch.where(deep[:, None], float("-inf"), gain)
@@ -264,7 +266,8 @@ class DeviceTreeLearner:
         rec_gain = np.zeros(Lm1, np.float32)
 
         vf, vi = self._eval_leaves(store[:1], [root_g], [root_h], [n],
-                                   [-np.inf], [np.inf], [0], fmask)
+                                   [-np.inf], [np.inf], [0], fmask,
+                                   root=True)
         best_f[0], best_i[0] = vf[0], vi[0]
 
         s = 0

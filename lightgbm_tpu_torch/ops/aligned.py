@@ -17,8 +17,9 @@ one block and the routing arrives as per-chunk int32 arrays (bit layouts
 below). Three kernels, in ``ops/csrc/aligned.cu``, work on the matrix:
 
 - B2 `move_pass`: a stable two-way partition of every split block into its
-  new chunk-aligned left and right ranges, whole-chunk copies of unsplit
-  blocks, and the smaller child's histogram per compact slot;
+  new chunk-aligned left and right ranges, copies of the used lanes of
+  unsplit blocks' chunks (one launch, a decoupled look-back over chunk
+  tickets), and the smaller child's histogram per compact slot;
 - B3 `count_pass`: exact i32 left counts per compact slot;
 - B4 `slot_hist_pass`: histograms of chunks mapped to slots.
 
@@ -68,6 +69,10 @@ _GRAD_KIND = {None: 0, "binary": 1, "l2": 2}
 SLOT_HIST_TILE_ROWS = 16384
 SLOT_HIST_MAX_TILE_CHUNKS = 256
 _SLOT_HIST_CELL_BYTES = 20
+# the partition (B2): a 16-byte mbarrier, the staged lanes (4 B a row and
+# lane), a u16 row permutation and two words a 32-row ballot; the
+# kernel's static shared memory stays under the slack
+_MOVE_STATIC_SLACK = 256
 _fns: Dict[str, object] = {}
 _ctas: Dict[Tuple[int, int], int] = {}
 
@@ -309,8 +314,8 @@ def move_pass_plain(records, r1, r2, basel, baser, meta, wsel, hslots,
                     grad=None, out=None, gh_off=2):
     """Plain twin of `move_pass`: block-segmented exclusive ranks of the
     left and right rows in (chunk, row) order, one scatter of the used
-    lanes, whole-chunk copies, and the smaller children's histograms from
-    the rows that go to the smaller side."""
+    lanes, copy chunks' used lanes moved whole, and the smaller children's
+    histograms from the rows that go to the smaller side."""
     nc, W, C = records.shape
     dev = records.device
     out = records.clone() if out is None else out
@@ -340,7 +345,7 @@ def move_pass_plain(records, r1, r2, basel, baser, meta, wsel, hslots,
         out[dc[:, None], lanes[None, :], (d % C)[:, None]] = \
             records[c[:, None], lanes[None, :], r[:, None]]
     cc = (copy & (cnt > 0)).nonzero()[:, 0]
-    out[basel.long()[cc]] = records[cc]
+    out[basel.long()[cc], :w_used] = records[cc, :w_used]
     hslot = hslots & 0xFFFFFF
     side_r = ((hslots >> 24) & 1) != 0
     take = torch.where(side_r[:, None], go_r, go_l) \
@@ -360,8 +365,8 @@ def _lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         sigs = {
             "lgbt_count_pass": [p, i, i, i, p, p, p, p, p, i, i, p, p],
-            "lgbt_move_partition": [p, i, i, i, i, i, p, p, p, p, p, p, p,
-                                    i, p, p, p, p, p, p, p],
+            "lgbt_move_partition": [p, i, i, i, i, i, i, i, p, p, p, p, p,
+                                    p, p, i, p, p, p],
             "lgbt_slot_hist": [p, i, i, i, i, i, i, i, i, i, i, i, i, p, p,
                                i, i, f, f, f, p, p, p, p],
             "lgbt_slot_hist_occupancy": [i],
@@ -423,6 +428,26 @@ def slot_hist_smem(C: int, num_features: int, num_bins: int,
                          f"exceed the {smem_optin} B of shared memory")
     fpb = -(-num_features // -(-num_features // fit))
     return tile_chunks, fpb, per_feature * fpb + meta
+
+
+def move_smem(C: int, w_used: int, smem_optin: int) -> Tuple[int, int]:
+    """(lanes a stage, dynamic shared bytes per CTA) of the partition
+    kernel: as many of the ``w_used`` lanes of a chunk of ``C`` rows as fit
+    ``smem_optin`` beside the mbarrier, the permutation and the ballots
+    (all of them at HIGGS 63 / 255 and MSLR EXT: 32, 36 and 78 KB of
+    stage); fewer lanes are staged and stored in turn. Chunks of more
+    than 65,535 rows, or of rows not a multiple of 4 (16-byte bulk
+    copies), are refused."""
+    if C > 65535 or C % 4:
+        raise ValueError(f"move_pass takes chunks of at most 65,535 rows, "
+                         f"a multiple of 4, got {C}")
+    fixed = 16 + -(-2 * C // 16) * 16 + 8 * -(-C // 32)
+    fit = (smem_optin - _MOVE_STATIC_SLACK - fixed) // (4 * C)
+    if fit < 1:
+        raise ValueError(f"a chunk of {C} rows does not fit the "
+                         f"{smem_optin} B of shared memory")
+    lanes = min(w_used, fit)
+    return lanes, fixed + 4 * lanes * C
 
 
 def slot_hist_launch_shape(nc: int, C: int, num_features: int,
@@ -551,9 +576,11 @@ def move_pass(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
     the left rows), ``num_slots`` skips. ``grad`` and ``gh_off`` as for
     `slot_hist_pass`.
 
-    Returns (records_out, hist[num_slots, F, num_bins, 3]). Rows outside
-    the new layout and lanes >= ``w_used`` of moved rows keep whatever
-    ``out`` held (a fresh copy of ``records`` on the CPU)."""
+    Returns (records_out, hist[num_slots, F, num_bins, 3]). Lanes >=
+    ``w_used`` of moved rows and of copy chunks, and rows outside the new
+    layout, keep whatever ``out`` held (a fresh copy of ``records`` on the
+    CPU). On the card the partition is one memset and one launch, then
+    the histogram's two."""
     if not records.is_cuda:
         return move_pass_plain(records, r1, r2, basel, baser, meta, wsel,
                                hslots, num_slots, num_features, num_bins,
@@ -578,21 +605,26 @@ def move_pass(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
 
 def _move_partition_cuda(records, r1, r2, basel, baser, meta, wsel, hslots,
                          num_slots, bits, w_used, out):
-    """`move_pass`'s partition into ``out`` (count, scan and scatter
-    kernels); returns the smaller children's chunk map (nslot, ncnt), the
-    slots and row counts its histogram takes."""
+    """`move_pass`'s partition into ``out`` (one memset of its scratch,
+    one launch of the partition kernel); returns the smaller children's
+    chunk map (nslot, ncnt), the slots and row counts its histogram takes
+    (ncnt 0 on every other chunk)."""
     nc, W, C = records.shape
     dev = records.device
-    scratch = torch.empty((3, nc), dtype=torch.int32, device=dev)
-    nslot = torch.full((nc,), num_slots, dtype=torch.int32, device=dev)
-    ncnt = torch.zeros(nc, dtype=torch.int32, device=dev)
+    if not 1 <= w_used <= W:
+        raise ValueError(f"w_used={w_used} outside [1, {W}]")
+    fns = _lib()
+    ordinal = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
+    lanes, smem = move_smem(C, w_used, fns["lgbt_aligned_smem_optin"](
+        ordinal))
+    # flag words (u64), the ticket and a pad word, nslot, ncnt
+    scratch = torch.empty(4 * nc + 2, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = _lib()["lgbt_move_partition"](
-            records.data_ptr(), nc, W, C, w_used, bits, r1.data_ptr(),
-            r2.data_ptr(), meta.data_ptr(), wsel.data_ptr(),
+        err = fns["lgbt_move_partition"](
+            records.data_ptr(), nc, W, C, w_used, lanes, smem, bits,
+            r1.data_ptr(), r2.data_ptr(), meta.data_ptr(), wsel.data_ptr(),
             basel.data_ptr(), baser.data_ptr(), hslots.data_ptr(), num_slots,
-            scratch[0].data_ptr(), scratch[1].data_ptr(),
-            scratch[2].data_ptr(), nslot.data_ptr(), ncnt.data_ptr(),
-            out.data_ptr(), _stream(dev))
+            scratch.data_ptr(), out.data_ptr(), _stream(dev))
     _raise_on(err, "move_pass")
-    return nslot, ncnt
+    return scratch[2 * nc + 2:3 * nc + 2], scratch[3 * nc + 2:]

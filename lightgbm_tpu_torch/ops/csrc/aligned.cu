@@ -20,17 +20,32 @@
 // in SMEM, ranks rows with a triangular MXU matmul, moves them with a
 // byte-plane one-hot matmul through a 4-chunk staging ring, and builds
 // histograms as bf16 hi/lo one-hot contractions. CUDA blocks run in no
-// order, so the move is three kernels instead:
-//   1. count_kernel: each chunk's left count (B3's work, one CTA a chunk);
-//   2. scan_kernel: one CTA, an exclusive scan of the counts within each
-//      block (a segmented scan over the [NC] chunk array), which also maps
-//      each block's smaller child to its new chunks;
-//   3. scatter_kernel: one CTA a chunk ranks its rows with warp ballots
-//      and writes each row's used lanes to new_begin * C + prefix + rank;
-//      chunks of unsplit blocks are copied whole.
-// The smaller child's histogram is then slot_hist_kernel over the child's
-// now contiguous chunks; the tree's root (B4) is the same kernel over
-// every chunk.
+// order, so the partition carries the fill with a decoupled look-back
+// instead, in one launch (partition_kernel, after one memset of its
+// scratch):
+//   - each CTA takes a chunk by an atomic ticket, not by blockIdx, so
+//     every chunk before it has a running CTA;
+//   - a split chunk's used lanes (one contiguous run of w_used x C words)
+//     come into shared memory by one bulk copy (cp.async.bulk, TMA's 1-D
+//     form, completing on an mbarrier); the CTA ranks its rows with warp
+//     ballots over the staged split word and publishes its (left, valid)
+//     aggregate in a 64-bit flag word, then walks back over its
+//     predecessors' flags one warp-wide window of 32 at a time until an
+//     inclusive prefix, which a block's first chunk publishes at once
+//     (the scan is segmented at the meta first bit), and publishes its
+//     own inclusive prefix;
+//   - meanwhile the CTA inverts its ranks into a row permutation (left
+//     rows, then right rows, each in row order), so each lane's left run
+//     and right run go out as contiguous, coalesced stores; a run of at
+//     most C rows spans at most two destination chunks;
+//   - a copy chunk moves its w_used lanes with 16-byte loads and stores;
+//   - a block's last chunk writes the smaller child's chunk map (nslot,
+//     ncnt), which slot_hist_kernel reads next.
+// No CTA waits on a chunk after its own, so the walk cannot deadlock, and
+// the result is the stable partition in (chunk, row) order whatever the
+// order the CTAs run in. The smaller child's histogram is then
+// slot_hist_kernel over the child's now contiguous chunks; the tree's
+// root (B4) is the same kernel over every chunk.
 //
 // slot_hist_kernel's design is P1's (proto.cu, redesigned for Hopper
 // first), carried over to the engine's records:
@@ -67,9 +82,10 @@
 //     to different cells, and the next bin word is loaded while the
 //     current one's sites are added.
 //
-// What bounds them on an H100: bytes. The move reads every row's used
-// lanes once and writes them once; the count reads one word a row; the
-// histogram reads the bin words and the two payload lanes of its rows.
+// What bounds them on an H100: bytes. The partition reads every row's
+// used lanes once and writes them once (the staged split word is ranked
+// from shared memory); the count reads one word a row; the histogram
+// reads the bin words and the two payload lanes of its rows.
 // The 3 adds per (row, feature) are far below the card's f32 rate.
 //
 // Records of the STANDARD and EXT layouts carry grad/hess lanes, at wcnt +
@@ -97,8 +113,8 @@ constexpr int kCntMask = (1 << 20) - 1;
 constexpr int kFirst = 20, kLast = 21;
 constexpr int kMetaLabel = 24, kMetaLabelMask = 127;
 constexpr int kGradLanes = 0, kGradBinary = 1, kGradL2 = 2;
-constexpr int kThreads = 256;      // count and scatter CTAs
-constexpr int kScanThreads = 1024;
+constexpr int kThreads = 256;      // count CTAs
+constexpr int kMoveThreads = 256;  // partition CTAs, 4 an SM
 constexpr int kHistThreads = 1024;  // slot_hist CTAs (ops/aligned.py)
 
 // reference DenseBin::Split numerical routing (dense_bin.hpp:195-283),
@@ -159,9 +175,8 @@ __device__ __forceinline__ int block_sum(int v) {
   return s;   // valid in thread 0
 }
 
-// Left rows per chunk. count_pass: chunks with kslots in [0, num_slots)
-// add their count to slot_out[kslots] (integer atomics: exact). move_pass:
-// every split chunk (copy bit clear) writes its own count to chunk_out.
+// Left rows per chunk (B3): chunks with kslots in [0, num_slots) add
+// their count to slot_out[kslots] (integer atomics: exact).
 __global__ void count_kernel(const int32_t* __restrict__ rec, int W, int C,
                              const int32_t* __restrict__ r1,
                              const int32_t* __restrict__ r2,
@@ -169,19 +184,12 @@ __global__ void count_kernel(const int32_t* __restrict__ rec, int W, int C,
                              const int32_t* __restrict__ wsel,
                              const int32_t* __restrict__ kslots,
                              int num_slots, int bits,
-                             int32_t* __restrict__ chunk_out,
                              int32_t* __restrict__ slot_out) {
   const long long c = blockIdx.x;
   const int cnt = meta[c] & kCntMask;
-  const int r1c = r1[c];
-  const int ks = kslots != nullptr ? kslots[c] : 0;
-  const bool active = kslots != nullptr
-      ? (ks >= 0 && ks < num_slots) : ((r1c >> kCopy) & 1) == 0;
-  if (!active || cnt == 0) {
-    if (chunk_out != nullptr && threadIdx.x == 0) chunk_out[c] = 0;
-    return;
-  }
-  const int r2c = r2[c];
+  const int ks = kslots[c];
+  if (ks < 0 || ks >= num_slots || cnt == 0) return;
+  const int r1c = r1[c], r2c = r2[c];
   const int shift = (r1c >> kShift) & 31, mask = (1 << bits) - 1;
   const int32_t* word = rec + (c * W + wsel[c]) * static_cast<long long>(C);
   int n = 0;
@@ -189,140 +197,280 @@ __global__ void count_kernel(const int32_t* __restrict__ rec, int W, int C,
     n += goes_left((word[r] >> shift) & mask, r1c, r2c) ? 1 : 0;
   }
   const int total = block_sum(n);
-  if (threadIdx.x == 0) {
-    if (chunk_out != nullptr) {
-      chunk_out[c] = total;
-    } else if (total != 0) {
-      atomicAdd(slot_out + ks, total);
-    }
+  if (threadIdx.x == 0 && total != 0) atomicAdd(slot_out + ks, total);
+}
+
+// ---------------------------------------------------------------------------
+// The partition (B2): one launch, decoupled look-back over chunk tickets
+// ---------------------------------------------------------------------------
+// A chunk's flag word: state << 62 | valid << 31 | left, state 0 while
+// nothing is published, kAggregate for the chunk's own (left, valid) and
+// kInclusive for the sums over its block up to and including it. A block
+// holds at most 2^31 - 1 rows.
+constexpr unsigned long long kAggregate = 1ull << 62;
+constexpr unsigned long long kInclusive = 2ull << 62;
+constexpr unsigned long long kField = (1ull << 31) - 1;
+
+__device__ __forceinline__ unsigned long long flag_word(
+    unsigned long long state, int left, int valid) {
+  return state | (static_cast<unsigned long long>(valid) << 31)
+      | static_cast<unsigned long long>(left);
+}
+
+__device__ __forceinline__ void publish(unsigned long long* flag,
+                                        unsigned long long v) {
+  *reinterpret_cast<volatile unsigned long long*>(flag) = v;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The staging mbarrier: one arrival (the issuing thread) plus the bulk
+// copy's transaction bytes complete a phase.
+__device__ __forceinline__ void stage_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+               :: "r"(smem_u32(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// src into shared dst by the bulk-copy engine, completing on bar
+__device__ __forceinline__ void stage_load(void* dst, const void* src,
+                                           unsigned bytes,
+                                           unsigned long long* bar) {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void stage_wait(unsigned long long* bar,
+                                           unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
   }
 }
 
-// One CTA: exclusive left/right prefixes of each split chunk within its
-// block (a block starts at a chunk with the first bit), and, at each
-// block's last chunk, the new chunks of its smaller child (hslots = slot |
-// side << 24, slot == num_slots skips) for the histogram pass.
-__global__ void scan_kernel(int nc, int C, const int32_t* __restrict__ r1,
-                            const int32_t* __restrict__ meta,
-                            const int32_t* __restrict__ lcnt,
-                            const int32_t* __restrict__ basel,
-                            const int32_t* __restrict__ baser,
-                            const int32_t* __restrict__ hslots,
-                            int num_slots, int32_t* __restrict__ pl,
-                            int32_t* __restrict__ pr,
-                            int32_t* __restrict__ nslot,
-                            int32_t* __restrict__ ncnt) {
-  __shared__ int tl[kScanThreads], tv[kScanThreads], th[kScanThreads];
-  const int t = threadIdx.x, T = blockDim.x;
-  const int per = (nc + T - 1) / T;
-  const int lo = min(nc, t * per), hi = min(nc, lo + per);
-  int sl = 0, sv = 0, has = 0;
-  for (int c = lo; c < hi; ++c) {
-    const int m = meta[c];
-    if ((m >> kFirst) & 1) { sl = 0; sv = 0; has = 1; }
-    if (((r1[c] >> kCopy) & 1) == 0) { sl += lcnt[c]; sv += m & kCntMask; }
-  }
-  tl[t] = sl; tv[t] = sv; th[t] = has;
-  __syncthreads();
-  if (t == 0) {       // carries between the threads' ranges, in order
-    int cl = 0, cv = 0;
-    for (int i = 0; i < T; ++i) {
-      const int a = tl[i], b = tv[i], h = th[i];
-      tl[i] = cl; tv[i] = cv;
-      if (h) { cl = a; cv = b; } else { cl += a; cv += b; }
+// Warp 0: the sums (left, valid) of the chunks of c's block before c,
+// from their flag words, a window of 32 predecessors at a time; stops at
+// the nearest inclusive prefix (a block's first chunk publishes one at
+// once). Valid in every lane.
+__device__ __forceinline__ void look_back(const unsigned long long* flags,
+                                          long long c, int lane,
+                                          int& ex_left, int& ex_valid) {
+  ex_left = 0;
+  ex_valid = 0;
+  for (long long j = c - 1;; j -= 32) {
+    const long long idx = j - lane;
+    unsigned long long f = flag_word(kInclusive, 0, 0);
+    if (idx >= 0) {
+      const volatile unsigned long long* p = flags + idx;
+      do {
+        f = *p;
+      } while ((f >> 62) == 0);
     }
-  }
-  __syncthreads();
-  int rl = tl[t], rv = tv[t];
-  for (int c = lo; c < hi; ++c) {
-    const int m = meta[c];
-    if ((m >> kFirst) & 1) { rl = 0; rv = 0; }
-    const bool split = ((r1[c] >> kCopy) & 1) == 0;
-    pl[c] = rl;
-    pr[c] = rv - rl;
-    if (!split) continue;
-    rl += lcnt[c];
-    rv += m & kCntMask;
-    if (!((m >> kLast) & 1)) continue;
-    const int hs = hslots[c], slot = hs & 0xFFFFFF;
-    if (slot >= num_slots) continue;
-    const int side = (hs >> 24) & 1;
-    const int tot = side ? rv - rl : rl;
-    const int base = side ? baser[c] : basel[c];
-    for (int j = 0; j * C < tot; ++j) {
-      nslot[base + j] = slot;
-      ncnt[base + j] = min(C, tot - j * C);
+    const unsigned incl = __ballot_sync(kFull, (f >> 62) == 2);
+    const int stop = incl != 0u ? __ffs(incl) - 1 : 31;
+    int l = lane <= stop ? static_cast<int>(f & kField) : 0;
+    int v = lane <= stop ? static_cast<int>((f >> 31) & kField) : 0;
+    for (int o = 16; o > 0; o >>= 1) {
+      l += __shfl_xor_sync(kFull, l, o);
+      v += __shfl_xor_sync(kFull, v, o);
     }
+    ex_left += l;
+    ex_valid += v;
+    if (incl != 0u) return;
   }
 }
 
-// One CTA a chunk: split chunks partition their rows stably (left rows to
-// basel's chunks, right rows to baser's, after the block's earlier rows);
-// copy chunks move whole to basel.
-__global__ void scatter_kernel(const int32_t* __restrict__ rec, int W, int C,
-                               int w_used, int bits,
-                               const int32_t* __restrict__ r1,
-                               const int32_t* __restrict__ r2,
-                               const int32_t* __restrict__ meta,
-                               const int32_t* __restrict__ wsel,
-                               const int32_t* __restrict__ basel,
-                               const int32_t* __restrict__ baser,
-                               const int32_t* __restrict__ pl,
-                               const int32_t* __restrict__ pr,
-                               int32_t* __restrict__ out) {
-  __shared__ int wl[kThreads / 32], wr[kThreads / 32];
-  const long long c = blockIdx.x;
-  const int cnt = meta[c] & kCntMask;
-  if (cnt == 0) return;
+// One CTA a chunk, by ticket. A split chunk (copy bit clear) sends its
+// valid rows to the left child's chunks from basel[c] or the right's from
+// baser[c], after the rows of its block's earlier chunks, in row order; a
+// copy chunk moves its w_used lanes whole to basel[c]. The block's last
+// chunk writes the smaller child's map: nslot = slot, ncnt = rows of each
+// of its new chunks (hslots = slot | side << 24, slot == num_slots skips).
+// flags [nc], *ticket and ncnt come in zeroed. Shared memory: the mbarrier
+// (16 B), the stage (lanes x C words), the permutation (C u16), the
+// ballots and their prefix (2 x ceil(C / 32) words).
+__global__ void __launch_bounds__(kMoveThreads, 4)
+partition_kernel(const int32_t* __restrict__ rec, int W, int C, int w_used,
+                 int lanes, int bits, const int32_t* __restrict__ r1,
+                 const int32_t* __restrict__ r2,
+                 const int32_t* __restrict__ meta,
+                 const int32_t* __restrict__ wsel,
+                 const int32_t* __restrict__ basel,
+                 const int32_t* __restrict__ baser,
+                 const int32_t* __restrict__ hslots, int num_slots,
+                 unsigned long long* __restrict__ flags,
+                 unsigned* __restrict__ ticket,
+                 int32_t* __restrict__ nslot, int32_t* __restrict__ ncnt,
+                 int32_t* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char part_smem[];
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(part_smem);
+  int32_t* stage = reinterpret_cast<int32_t*>(part_smem + 16);
+  unsigned short* perm = reinterpret_cast<unsigned short*>(
+      stage + static_cast<long long>(lanes) * C);
+  const int nw = (C + 31) >> 5;
+  unsigned* ballot = reinterpret_cast<unsigned*>(
+      part_smem + 16 + 4LL * lanes * C + ((2 * C + 15) & ~15));
+  int* prefix = reinterpret_cast<int*>(ballot + nw);
+  __shared__ long long s_chunk;
+  __shared__ int s_left, s_ex_left, s_ex_valid;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) s_chunk = atomicAdd(ticket, 1u);
+  __syncthreads();
+  const long long c = s_chunk;
+  const int m = meta[c];
+  const int cnt = m & kCntMask;
+  const bool first = (m >> kFirst) & 1, last = (m >> kLast) & 1;
   const int r1c = r1[c];
+  const bool split = ((r1c >> kCopy) & 1) == 0;
+  const bool moves = split && cnt > 0;
   const long long cw = static_cast<long long>(W) * C;
   const int32_t* src = rec + c * cw;
-  if ((r1c >> kCopy) & 1) {
-    int32_t* dst = out + static_cast<long long>(basel[c]) * cw;
-    for (long long i = threadIdx.x; i < cw; i += blockDim.x) dst[i] = src[i];
-    return;
+  const int groups = (w_used + lanes - 1) / lanes;
+
+  // 1. the first lane group of a split chunk into the stage
+  if (moves && tid == 0) {
+    stage_init(bar);
+    stage_load(stage, src,
+               4u * static_cast<unsigned>(min(lanes, w_used) * C), bar);
   }
-  const int r2c = r2[c];
-  const int shift = (r1c >> kShift) & 31, mask = (1 << bits) - 1;
-  const int32_t* word = src + static_cast<long long>(wsel[c]) * C;
+  // 2. rank: a ballot of left rows a word of 32 rows, their prefix
+  int agg_left = 0, agg_valid = 0;
+  if (moves) {
+    const int ws = wsel[c];
+    const bool staged = ws < lanes;
+    if (staged) {
+      __syncthreads();                 // the barrier's init is visible
+      stage_wait(bar, 0);
+    }
+    const int32_t* word = staged ? stage + static_cast<long long>(ws) * C
+                                 : src + static_cast<long long>(ws) * C;
+    const int r2c = r2[c];
+    const int shift = (r1c >> kShift) & 31, mask = (1 << bits) - 1;
+    for (int w = warp; w < nw; w += kMoveThreads / 32) {
+      const int r = (w << 5) + lane;
+      const bool left = r < cnt && goes_left((word[r < C ? r : 0] >> shift)
+                                             & mask, r1c, r2c);
+      const unsigned b = __ballot_sync(kFull, left);
+      if (lane == 0) ballot[w] = b;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      int carry = 0;
+      for (int w0 = 0; w0 < nw; w0 += 32) {
+        const int w = w0 + lane;
+        const int v = w < nw ? __popc(ballot[w]) : 0;
+        int incl = v;
+        for (int o = 1; o < 32; o <<= 1) {
+          const int t = __shfl_up_sync(kFull, incl, o);
+          if (lane >= o) incl += t;
+        }
+        if (w < nw) prefix[w] = carry + incl - v;
+        carry += __shfl_sync(kFull, incl, 31);
+      }
+      if (lane == 0) s_left = carry;
+    }
+    __syncthreads();
+    agg_left = s_left;
+    agg_valid = cnt;
+  }
+  // 3. publish the aggregate (a block's first chunk: its inclusive prefix)
+  if (tid == 0) {
+    publish(flags + c, flag_word(first ? kInclusive : kAggregate, agg_left,
+                                 agg_valid));
+  }
+  // 4. the work that needs no prefix: a copy chunk's lanes; a split
+  //    chunk's permutation (left rows at their rank, right rows after)
+  if (!split && cnt > 0) {
+    const int4* s4 = reinterpret_cast<const int4*>(src);
+    int4* d4 = reinterpret_cast<int4*>(out + basel[c] * cw);
+    const int n4 = w_used * C / 4;
+    for (int i = tid; i < n4; i += kMoveThreads) d4[i] = s4[i];
+  }
+  if (moves) {
+    for (int r = tid; r < cnt; r += kMoveThreads) {
+      const unsigned b = ballot[r >> 5];
+      const int bit = r & 31;
+      const int rank = prefix[r >> 5] + __popc(b & ((1u << bit) - 1u));
+      perm[(b >> bit) & 1u ? rank : agg_left + r - rank] =
+          static_cast<unsigned short>(r);
+    }
+  }
+  // 5. the block's rows before this chunk (warp 0), then the inclusive
+  //    prefix
+  if (warp == 0) {
+    int ex_left = 0, ex_valid = 0;
+    if (!first) {
+      look_back(flags, c, lane, ex_left, ex_valid);
+      if (lane == 0) {
+        publish(flags + c, flag_word(kInclusive, ex_left + agg_left,
+                                     ex_valid + agg_valid));
+      }
+    }
+    if (lane == 0) {
+      s_ex_left = ex_left;
+      s_ex_valid = ex_valid;
+    }
+  }
+  __syncthreads();
+  const int pl = s_ex_left, pr = s_ex_valid - s_ex_left;
+  // 6. the smaller child's chunk map, at the block's last chunk
+  if (split && last) {
+    const int hs = hslots[c], slot = hs & 0xFFFFFF;
+    if (slot < num_slots) {
+      const int rl = pl + agg_left;
+      const int rv = s_ex_valid + agg_valid;
+      const bool right = (hs >> 24) & 1;
+      const int tot = right ? rv - rl : rl;
+      const int base = right ? baser[c] : basel[c];
+      for (int j = tid; static_cast<long long>(j) * C < tot;
+           j += kMoveThreads) {
+        nslot[base + j] = slot;
+        ncnt[base + j] = min(C, tot - j * C);
+      }
+    }
+  }
+  if (!moves) return;
+  // 7. the stores, a lane group at a time: each lane's left run to
+  //    basel's chunks from row pl, its right run to baser's from pr
   const long long bl = basel[c], br = baser[c];
-  int run_l = pl[c], run_r = pr[c];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const unsigned below = (1u << lane) - 1u;
-  for (int t0 = 0; t0 < cnt; t0 += blockDim.x) {
-    const int r = t0 + threadIdx.x;
-    const bool valid = r < cnt;
-    const bool left = valid && goes_left((word[valid ? r : 0] >> shift)
-                                         & mask, r1c, r2c);
-    const unsigned ml = __ballot_sync(kFull, left);
-    const unsigned mr = __ballot_sync(kFull, valid && !left);
-    if (lane == 0) { wl[warp] = __popc(ml); wr[warp] = __popc(mr); }
-    __syncthreads();
-    int off_l = 0, off_r = 0, tot_l = 0, tot_r = 0;
-    for (int w = 0; w < nwarps; ++w) {
-      if (w < warp) { off_l += wl[w]; off_r += wr[w]; }
-      tot_l += wl[w];
-      tot_r += wr[w];
-    }
-    if (valid) {
-      long long d, base;
-      if (left) {
-        d = run_l + off_l + __popc(ml & below);
-        base = bl;
-      } else {
-        d = run_r + off_r + __popc(mr & below);
-        base = br;
-      }
-      int32_t* dst = out + (base + d / C) * cw + d % C;
-      for (int u = 0; u < w_used; ++u) {
-        dst[static_cast<long long>(u) * C] = src[static_cast<long long>(u) * C
-                                                 + r];
+  for (int g = 0; g < groups; ++g) {
+    const int u0 = g * lanes, nu = min(lanes, w_used - u0);
+    if (g > 0) {
+      __syncthreads();                 // the last group's readers are done
+      if (tid == 0) {
+        stage_load(stage, src + static_cast<long long>(u0) * C,
+                   4u * static_cast<unsigned>(nu * C), bar);
       }
     }
-    run_l += tot_l;
-    run_r += tot_r;
-    __syncthreads();
+    if (g > 0 || wsel[c] >= lanes) stage_wait(bar, g & 1);
+    for (int k = tid; k < cnt; k += kMoveThreads) {
+      const bool left = k < agg_left;
+      const int d = left ? pl + k : pr + (k - agg_left);
+      const int q = d / C;
+      int32_t* dst = out + ((left ? bl : br) + q) * cw + (d - q * C)
+          + static_cast<long long>(u0) * C;
+      const int32_t* from = stage + perm[k];
+      for (int u = 0; u < nu; ++u) {
+        dst[static_cast<long long>(u) * C] = from[static_cast<long long>(u)
+                                                  * C];
+      }
+    }
   }
 }
 
@@ -535,47 +683,42 @@ int lgbt_count_pass(const void* rec, int nc, int W, int C, const void* r1,
       static_cast<const int32_t*>(rec), W, C,
       static_cast<const int32_t*>(r1), static_cast<const int32_t*>(r2),
       static_cast<const int32_t*>(meta), static_cast<const int32_t*>(wsel),
-      static_cast<const int32_t*>(kslots), num_slots, bits, nullptr,
+      static_cast<const int32_t*>(kslots), num_slots, bits,
       static_cast<int32_t*>(slot_out));
   return check();
 }
 
-// B2, the partition: per-chunk left counts, the block scan and the
-// scatter into out ([NC, W, C], chunks outside the new layout untouched).
-// lcnt, pl, pr: [NC] scratch; nslot ([NC], filled with num_slots by the
-// caller) and ncnt ([NC], zeroed) receive the smaller children's map.
+// B2, the partition, into out ([NC, W, C], rows outside the new layout
+// untouched): one memset of scratch (int32 [4 NC + 2]: the flag words
+// [NC] u64, the ticket and a pad word, nslot [NC], ncnt [NC]), then one
+// launch of partition_kernel with `lanes` lanes a stage and `smem` bytes
+// of dynamic shared memory (ops/aligned.py::move_smem). nslot and ncnt
+// hold the smaller children's map (ncnt 0 elsewhere).
 int lgbt_move_partition(const void* rec, int nc, int W, int C, int w_used,
-                        int bits, const void* r1, const void* r2,
-                        const void* meta, const void* wsel,
+                        int lanes, int smem, int bits, const void* r1,
+                        const void* r2, const void* meta, const void* wsel,
                         const void* basel, const void* baser,
-                        const void* hslots, int num_slots, void* lcnt,
-                        void* pl, void* pr, void* nslot, void* ncnt,
+                        const void* hslots, int num_slots, void* scratch,
                         void* out, void* stream) {
   if (nc == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int32_t* rr = static_cast<const int32_t*>(rec);
-  const int32_t* a1 = static_cast<const int32_t*>(r1);
-  const int32_t* a2 = static_cast<const int32_t*>(r2);
-  const int32_t* am = static_cast<const int32_t*>(meta);
-  const int32_t* aw = static_cast<const int32_t*>(wsel);
-  const int32_t* bl = static_cast<const int32_t*>(basel);
-  const int32_t* br = static_cast<const int32_t*>(baser);
-  count_kernel<<<nc, kThreads, 0, s>>>(rr, W, C, a1, a2, am, aw, nullptr,
-                                       num_slots, bits,
-                                       static_cast<int32_t*>(lcnt), nullptr);
-  int err = check();
-  if (err != 0) return err;
-  scan_kernel<<<1, kScanThreads, 0, s>>>(
-      nc, C, a1, am, static_cast<const int32_t*>(lcnt), bl, br,
+  cudaError_t e = cudaMemsetAsync(
+      scratch, 0, sizeof(int32_t) * (4 * static_cast<size_t>(nc) + 2), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaFuncSetAttribute(partition_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int32_t* sc = static_cast<int32_t*>(scratch);
+  partition_kernel<<<nc, kMoveThreads, smem, s>>>(
+      static_cast<const int32_t*>(rec), W, C, w_used, lanes, bits,
+      static_cast<const int32_t*>(r1), static_cast<const int32_t*>(r2),
+      static_cast<const int32_t*>(meta), static_cast<const int32_t*>(wsel),
+      static_cast<const int32_t*>(basel), static_cast<const int32_t*>(baser),
       static_cast<const int32_t*>(hslots), num_slots,
-      static_cast<int32_t*>(pl), static_cast<int32_t*>(pr),
-      static_cast<int32_t*>(nslot), static_cast<int32_t*>(ncnt));
-  err = check();
-  if (err != 0) return err;
-  scatter_kernel<<<nc, kThreads, 0, s>>>(
-      rr, W, C, w_used, bits, a1, a2, am, aw, bl, br,
-      static_cast<const int32_t*>(pl), static_cast<const int32_t*>(pr),
-      static_cast<int32_t*>(out));
+      reinterpret_cast<unsigned long long*>(sc),
+      reinterpret_cast<unsigned*>(sc + 2 * nc), sc + 2 * nc + 2,
+      sc + 3 * nc + 2, static_cast<int32_t*>(out));
   return check();
 }
 

@@ -20,7 +20,7 @@ import torch
 from ..config import Config
 from ..io.dataset import Metadata
 from ..utils.xla_math import exp_f32
-from .rank import lambdarank_grad, query_blocks
+from .rank import lambdarank_grad, rank_work
 from .ranking import discount_table, max_dcg_at_k
 
 
@@ -245,7 +245,7 @@ class LambdarankNDCG(ObjectiveFunction):
         self._gain = t(label_gain[labels].astype(np.float32), np.float32)
         self._inv = t(inv.astype(np.float32), np.float32)
         self._disc = t(discount_table(max(longest, 1)), np.float32)
-        self._blocks = t(query_blocks(qb), np.int32)
+        self._work = rank_work(qb, labels).to(device)
         self._lut_len = self._tabled_length(torch.device(device))
 
     def _tabled_length(self, device: torch.device) -> int:
@@ -268,7 +268,7 @@ class LambdarankNDCG(ObjectiveFunction):
                                self._gain, self._inv, self._disc,
                                float(self.cfg.sigmoid),
                                int(self.cfg.tpu_rank_sigmoid_bins),
-                               self._lut_len, blocks=self._blocks)
+                               self._lut_len, work=self._work)
         if self.weight is not None:
             g = g * self.weight
             h = h * self.weight

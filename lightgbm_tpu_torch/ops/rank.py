@@ -25,7 +25,7 @@ query takes the exact sigmoid.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,8 +35,17 @@ from ..utils.xla_math import exp_f32
 # kernel launches by wrapper (a CPU call of the twin does not count)
 LAUNCHES: Dict[str, int] = {"lambdarank_grad": 0}
 
-# documents per CTA of the kernel (kThreads of ops/csrc/rank.cu)
+# the kernel's work list (ops/csrc/rank.cu): queries of at most SHORT_DOCS
+# documents with labels below MAX_LABELS are held whole in shared memory,
+# consecutive ones packed into an item of up to PACK_DOCS documents; every
+# other query is a long one, walked by at most LONG_CTAS CTAs that own row
+# blocks of BLOCK_DOCS documents
+SHORT_DOCS = 512
+MAX_LABELS = 32
+PACK_DOCS = 256
+LONG_CTAS = 128
 BLOCK_DOCS = 64
+KIND_SHORT, KIND_LONG = 0, 1
 # pair elements of one batch of the twin (bounds its temporaries)
 _PAIR_BATCH = 1 << 22
 _fns: Dict[str, object] = {}
@@ -48,15 +57,78 @@ def reset_launches() -> None:
 
 
 def query_blocks(qoff) -> np.ndarray:
-    """int32 [num_blocks, 2] work list of the kernel: (q, i0) for i0 =
-    0, BLOCK_DOCS, ... below the length of each query q (host numpy from
-    the host offsets)."""
+    """int32 [num_blocks, 2]: (q, i0) for the row blocks i0 = 0,
+    BLOCK_DOCS, ... below the length of each query q (host numpy from the
+    host offsets)."""
     counts = np.diff(np.asarray(qoff, np.int64))
     per = -(-np.maximum(counts, 0) // BLOCK_DOCS)
     q = np.repeat(np.arange(len(counts)), per)
     first = np.repeat(np.cumsum(per) - per, per)
     i0 = (np.arange(len(q)) - first) * BLOCK_DOCS
     return np.stack([q, i0], axis=1).astype(np.int32)
+
+
+class RankWork(NamedTuple):
+    """The kernel's work list: ``items`` int32 [n, 4], (KIND_SHORT, q0,
+    q1, 0) for the queries q0 .. q1 - 1 held one after the other, or
+    (KIND_LONG | slot << 1, q, k, m) for CTA k of the m that walk long
+    query q (its counters at ``slot``); ``sync`` int32 [1 + 2 x long
+    queries], the ticket and each long query's arrival and departure
+    counters, zero and left zero by every launch; ``covers``: the queries
+    cover every document, so g and h need no zero fill."""
+    items: np.ndarray
+    sync: np.ndarray
+    covers: bool
+
+    def to(self, device) -> "RankWork":
+        return RankWork(torch.as_tensor(self.items, device=device),
+                        torch.as_tensor(self.sync, device=device),
+                        self.covers)
+
+
+def rank_work(qoff, label) -> RankWork:
+    """The kernel's work list for the host offsets ``qoff`` and labels
+    (host numpy): first the long items, min(row blocks, LONG_CTAS) for
+    each query longer than SHORT_DOCS documents or with a label of
+    MAX_LABELS or more, taken from its `query_blocks` (the CTAs of one
+    query consecutive); then the short items, the other non-empty queries
+    packed in order up to PACK_DOCS documents an item (a longer one
+    alone; a long query between two ends the item). Empty queries take no
+    item."""
+    qb = np.asarray(qoff, np.int64)
+    lab = np.asarray(label, np.int64)
+    counts = np.diff(qb)
+    some = counts > 0
+    top = np.zeros(len(counts), np.int64)
+    if some.any():
+        if lab.min() < 0:
+            raise ValueError("lambdarank labels must be non-negative")
+        top[some] = np.maximum.reduceat(lab, qb[:-1][some])
+    short = some & (counts <= SHORT_DOCS) & (top < MAX_LABELS)
+    is_long = some & ~short
+    slot = np.cumsum(is_long) - 1
+    ctas = np.minimum(-(-counts // BLOCK_DOCS), LONG_CTAS)
+    blocks = query_blocks(qb)
+    q, k = blocks[:, 0], blocks[:, 1] // BLOCK_DOCS
+    take = is_long[q] & (k < ctas[q])
+    q, k = q[take], k[take]
+    items = [np.stack([KIND_LONG | slot[q] << 1, q, k, ctas[q]], axis=1)]
+    longs_before = np.concatenate([[0], np.cumsum(is_long)])
+    run, docs = [], 0
+    for qi in np.nonzero(short)[0]:
+        c = int(counts[qi])
+        if run and docs + c <= PACK_DOCS \
+                and longs_before[qi] == longs_before[run[-1][2]]:
+            run[-1][2] = qi + 1
+            docs += c
+        else:
+            run.append([KIND_SHORT, qi, qi + 1, 0])
+            docs = c
+    items.append(np.asarray(run, np.int64).reshape(-1, 4))
+    return RankWork(np.concatenate(items).astype(np.int32),
+                    np.zeros(1 + 2 * int(is_long.sum()), np.int32),
+                    bool(len(qb) and qb[0] == 0
+                         and qb[-1] == lab.shape[0]))
 
 
 def _bf(x: torch.Tensor) -> torch.Tensor:
@@ -162,19 +234,20 @@ def _lib():
         lib = cuda_build.load("rank")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn = lib.lgbt_rank_grad
-        fn.argtypes = [p, p, p, p, p, i, p, p, f, i, f, i, p, p, p, p]
+        fn.argtypes = [p, p, p, p, p, i, p, p, f, i, f, i, p, p, p, p, p]
         fn.restype = ctypes.c_int
         _fns["lgbt_rank_grad"] = fn
     return _fns
 
 
-def _check_cuda(score, qoff, label, gain, inv, disc, blocks) -> None:
+def _check_cuda(score, qoff, label, gain, inv, disc, work) -> None:
     n = score.shape[0]
     want = ((score, torch.float32, (n,)), (label, torch.int32, (n,)),
             (gain, torch.float32, (n,)), (qoff, torch.int32, None),
             (inv, torch.float32, (qoff.shape[0] - 1,)),
             (disc, torch.float32, None),
-            (blocks, torch.int32, (blocks.shape[0], 2)))
+            (work.items, torch.int32, (work.items.shape[0], 4)),
+            (work.sync, torch.int32, None))
     for t, dtype, shape in want:
         if t.dtype != dtype or not t.is_contiguous() \
                 or t.device != score.device \
@@ -183,14 +256,15 @@ def _check_cuda(score, qoff, label, gain, inv, disc, blocks) -> None:
             raise ValueError("lambdarank_grad takes contiguous tensors on "
                              "one device: score/gain f32 [N], label int32 "
                              "[N], qoff int32 [Q+1], inv f32 [Q], disc f32, "
-                             "blocks int32 [B, 2]")
+                             "the work list's items int32 [n, 4] and sync "
+                             "int32")
 
 
 def lambdarank_grad(score: torch.Tensor, qoff: torch.Tensor,
                     label: torch.Tensor, gain: torch.Tensor,
                     inv: torch.Tensor, disc: torch.Tensor, sigmoid: float,
                     lut_bins: int = 0, lut_len: int = 0,
-                    blocks: Optional[torch.Tensor] = None
+                    work: Optional[RankWork] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(g [N], h [N]) f32 of the documents of queries ``qoff[q] ..
     qoff[q + 1]``: ``score`` f32 [N] in row order, ``label`` int32 [N],
@@ -200,30 +274,31 @@ def lambdarank_grad(score: torch.Tensor, qoff: torch.Tensor,
     as the longest query), ``sigmoid`` the pair loss's slope, and
     ``lut_bins`` > 0 the cells of the reference's quantized sigmoid
     table, which the queries of at most ``lut_len`` documents take (0:
-    none). Documents outside every query get 0. ``blocks`` is the
-    kernel's work list (`query_blocks` of ``qoff``, on the device), made
-    from a host copy of ``qoff`` when not given."""
+    none). Documents outside every query get 0. ``work`` is the kernel's
+    work list (`rank_work` of ``qoff`` and the labels, on the device),
+    made from host copies when not given; one launch a call (and a zero
+    fill of g and h only where the queries leave documents out)."""
     if not score.is_cuda:
         return lambdarank_grad_plain(score, qoff, label, gain, inv, disc,
                                      sigmoid, lut_bins, lut_len)
     dev = score.device
-    if blocks is None:
-        blocks = torch.as_tensor(query_blocks(qoff.cpu().numpy()),
-                                 device=dev)
-    _check_cuda(score, qoff, label, gain, inv, disc, blocks)
+    if work is None:
+        work = rank_work(qoff.cpu().numpy(), label.cpu().numpy()).to(dev)
+    _check_cuda(score, qoff, label, gain, inv, disc, work)
     n = score.shape[0]
-    g = torch.zeros(n, dtype=torch.float32, device=dev)
-    h = torch.zeros(n, dtype=torch.float32, device=dev)
+    alloc = torch.empty if work.covers else torch.zeros
+    g = alloc(n, dtype=torch.float32, device=dev)
+    h = alloc(n, dtype=torch.float32, device=dev)
     scratch = torch.empty(n, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _lib()["lgbt_rank_grad"](
             score.data_ptr(), label.data_ptr(), gain.data_ptr(),
-            qoff.data_ptr(), blocks.data_ptr(), blocks.shape[0],
+            qoff.data_ptr(), work.items.data_ptr(), work.items.shape[0],
             inv.data_ptr(),
             disc.data_ptr(), float(np.float32(2.0 * sigmoid)),
             int(lut_bins), float(np.float32(lut_bins / 100.0)),
             int(lut_len) if lut_bins > 0 else 0, scratch.data_ptr(),
-            g.data_ptr(), h.data_ptr(),
+            work.sync.data_ptr(), g.data_ptr(), h.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lambdarank_grad kernel launch failed: CUDA "

@@ -63,9 +63,13 @@ def _leaf_output(sg, sh, l1, l2, mds):
     return ret
 
 
-def _leaf_gain_given_output(sg, sh, l1, l2, out):
-    """reference GetLeafSplitGainGivenOutput (feature_histogram.hpp:503)."""
+def _leaf_gain_given_output(sg, sh, l1, l2, out, fuse_hess=False):
+    """reference GetLeafSplitGainGivenOutput (feature_histogram.hpp:503).
+    ``fuse_hess`` contracts the other product, as XLA does in one root
+    search (`ROOT_FUSE_HESS_MAX_BIN`)."""
     reg = _threshold_l1(sg, l1)
+    if fuse_hess:
+        return -fma_f32((sh + l2) * out, out, 2.0 * reg * out)
     # the first product fused into the add, as XLA's CPU backend contracts
     # it: the two scan directions of a leaf whose missing bin is empty tie
     # up to rounding, and the winner must be the JAX package's
@@ -79,9 +83,9 @@ def _leaf_gain(sg, sh, l1, l2, mds):
     `(sh + l2) * out * out` is fused into the add of `2 * reg * out`.
     Unclamped, both forms round alike, which is why an uncontracted copy
     matched until a binding `max_delta_step` clamp."""
-    out = _leaf_output(sg, sh, l1, l2, mds)
-    reg = _threshold_l1(sg, l1)
-    return -fma_f32((sh + l2) * out, out, 2.0 * reg * out)
+    return _leaf_gain_given_output(sg, sh, l1, l2,
+                                   _leaf_output(sg, sh, l1, l2, mds),
+                                   fuse_hess=True)
 
 
 def _leaf_gain_tested(sg, sh, l1, l2, mds):
@@ -98,13 +102,15 @@ def _clip(x, lo, hi):
     return torch.minimum(torch.maximum(x, lo), hi)
 
 
-def _split_gains(lg, lh, rg, rh, l1, l2, mds, min_c, max_c, mono):
+def _split_gains(lg, lh, rg, rh, l1, l2, mds, min_c, max_c, mono,
+                 fuse_hess=(False, False)):
     """reference GetSplitGains (feature_histogram.hpp:461-473): clamped
-    outputs, monotone veto -> gain 0."""
+    outputs, monotone veto -> gain 0. ``fuse_hess`` (left, right) as for
+    `_leaf_gain_given_output`."""
     lo = _clip(_leaf_output(lg, lh, l1, l2, mds), min_c, max_c)
     ro = _clip(_leaf_output(rg, rh, l1, l2, mds), min_c, max_c)
-    gain = (_leaf_gain_given_output(lg, lh, l1, l2, lo)
-            + _leaf_gain_given_output(rg, rh, l1, l2, ro))
+    gain = (_leaf_gain_given_output(lg, lh, l1, l2, lo, fuse_hess[0])
+            + _leaf_gain_given_output(rg, rh, l1, l2, ro, fuse_hess[1]))
     veto = ((mono > 0) & (lo > ro)) | ((mono < 0) & (lo < ro))
     return torch.where(veto, torch.zeros_like(gain), gain)
 
@@ -121,6 +127,18 @@ def _last_argmax(values, dim=-1):
 
 
 _SCAN_BLOCK = 16
+# The JAX leaf-wise program's root search (`build_fresh`) at a bin axis of
+# at most one cumsum block: there each scan direction's prefix sums are one
+# reduce-window and its side gains a vectorized fusion of their own, in
+# which XLA's CPU backend contracts `(sh + l2) * out * out` into the add
+# where every other search contracts `2 * reg * out` (the operand order of
+# the two products in the optimised LLVM IR at 16 and 63 bins; ROADMAP
+# C.23). Which sides: both without L2 or with a monotone constraint; with
+# L2 alone the side whose sums are the direction's own prefix sums (dir
+# +1's left, dir -1's right); none under a binding `max_delta_step` clamp
+# (found against the JAX program on the CPU). The parent's two shifts keep
+# their forms throughout.
+ROOT_FUSE_HESS_MAX_BIN = _SCAN_BLOCK
 
 
 def _prefix_sum_f32(x: torch.Tensor) -> torch.Tensor:
@@ -160,9 +178,11 @@ def make_split_finder(hyper: SplitHyper, feature_meta: Dict[str, np.ndarray],
     monotone, penalty.
 
     Returns fn(hist[K,F,B,3] f32, sum_grad[K], sum_hess[K], num_data[K],
-    min_constr[K], max_constr[K]) -> dict of [K, F] arrays: one search
-    per leaf of the batch (the JAX finder's search, with a leading leaf
-    axis).
+    min_constr[K], max_constr[K], root=False) -> dict of [K, F] arrays:
+    one search per leaf of the batch (the JAX finder's search, with a
+    leading leaf axis). ``root`` marks the leaf-wise builder's root
+    search, whose side gains contract as the JAX program's root does
+    (`ROOT_FUSE_HESS_MAX_BIN`).
     """
     if (np.asarray(feature_meta["bin_type"]) == 1).any():
         raise NotImplementedError(
@@ -193,9 +213,17 @@ def make_split_finder(hyper: SplitHyper, feature_meta: Dict[str, np.ndarray],
     min_data_f = float(h.min_data_in_leaf)
     min_hess = float(h.min_sum_hessian_in_leaf)
     l1, l2, mds = h.lambda_l1, h.lambda_l2, h.max_delta_step
+    no_fuse = ((False, False), (False, False))
+    if max_bin > ROOT_FUSE_HESS_MAX_BIN or mds > 0.0:
+        root_fuse = no_fuse
+    elif l2 == 0.0 or (np.asarray(feature_meta["monotone"]) != 0).any():
+        root_fuse = ((True, True), (True, True))
+    else:
+        root_fuse = ((True, False), (False, True))
 
     def find_best_splits(hist, sum_grad, sum_hess, num_data, min_constraint,
-                         max_constraint):
+                         max_constraint, root=False):
+        fuse1, fuse2 = root_fuse if root else no_fuse
         hist = hist.to(torch.float32)
         k = hist.shape[0]
         sum_grad = sum_grad.to(torch.float32)[:, None, None]     # [K,1,1]
@@ -226,7 +254,7 @@ def make_split_finder(hyper: SplitHyper, feature_meta: Dict[str, np.ndarray],
         valid1 = (cand1 & (lc1 >= min_data_f) & (rc1 >= min_data_f)
                   & (lh1 >= min_hess) & (rh1 >= min_hess))
         gain1 = _split_gains(lg1, lh1, rg1, rh1, l1, l2, mds, min_c, max_c,
-                             mono)
+                             mono, fuse1)
         gain1 = torch.where(valid1 & (gain1 > tested_shift), gain1,
                             NEG_INF)
 
@@ -241,7 +269,7 @@ def make_split_finder(hyper: SplitHyper, feature_meta: Dict[str, np.ndarray],
         valid2 = (cand2 & (rc2 >= min_data_f) & (lc2 >= min_data_f)
                   & (rh2 >= min_hess) & (lh2 >= min_hess))
         gain2 = _split_gains(lg2, lh2, rg2, rh2, l1, l2, mds, min_c, max_c,
-                             mono)
+                             mono, fuse2)
         gain2 = torch.where(valid2 & (gain2 > tested_shift), gain2,
                             NEG_INF)
 

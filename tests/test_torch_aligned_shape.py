@@ -68,3 +68,39 @@ def test_slot_hist_launch_shape_small_and_odd():
     with pytest.raises(ValueError, match="no CTA"):
         A.slot_hist_launch_shape(100, 1024, 28, 255, 0, H100_SMS,
                                  H100_SMEM_OPTIN)
+
+
+# (rows per chunk, used lanes, the engine's lanes W) of the partition at
+# HIGGS 63 (COMPACT: 6 bin words + score + meta), HIGGS 255 (7 + 2) and
+# MSLR EXT (35 bin words + score, grad, hess, rid)
+MOVE_SHAPES = {"higgs63": (1024, 8, 8), "higgs255": (1024, 9, 16),
+               "mslr_ext": (512, 39, 40)}
+
+
+@pytest.mark.parametrize("shape", MOVE_SHAPES)
+def test_move_smem(shape):
+    """The partition stages every used lane of a chunk at once within an
+    H100's opt-in (32, 36 and 78 KB of lanes), beside a 16-byte mbarrier,
+    a u16 row permutation and two words a 32-row ballot."""
+    C, w_used, _ = MOVE_SHAPES[shape]
+    lanes, smem = A.move_smem(C, w_used, H100_SMEM_OPTIN)
+    assert lanes == w_used
+    assert smem == 16 + 4 * w_used * C + 2 * C + 8 * (C // 32)
+    assert smem <= H100_SMEM_OPTIN - 256
+    # two CTAs an SM at the widest (four of 256 threads at HIGGS)
+    assert 2 * smem <= 228 * 1024 - 2 * 1024
+
+
+def test_move_smem_small_optin_and_odd_chunks():
+    """Shared memory for fewer lanes stages them in turn; a chunk that does
+    not fit one lane, more than 65,535 rows (u16 permutation) or rows not
+    a multiple of 4 (16-byte bulk copies) raise."""
+    lanes, smem = A.move_smem(512, 39, 40 * 1024)
+    assert lanes == (40 * 1024 - 256 - 16 - 1024 - 128) // 2048 == 19
+    assert smem <= 40 * 1024 - 256
+    with pytest.raises(ValueError, match="does not fit"):
+        A.move_smem(1024, 8, 4096)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        A.move_smem(1022, 8, H100_SMEM_OPTIN)
+    with pytest.raises(ValueError, match="65,535"):
+        A.move_smem(65536, 8, H100_SMEM_OPTIN)

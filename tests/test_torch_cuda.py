@@ -635,6 +635,128 @@ def test_lambdarank_aligned_on_gpu(cuda):
     assert abs(ndcg["aligned"] - ndcg["leafwise"]) <= 5e-3
 
 
+def _partition_calls(monkeypatch, layout):
+    """The B2 calls of a real aligned tree on the card: COMPACT records
+    (binary, 63 bins) or EXT (lambdarank, 255 bins)."""
+    rng = np.random.default_rng(11)
+    if layout == "compact":
+        X = rng.standard_normal((60000, 28))
+        y = (X[:, 0] + X[:, 1] * X[:, 2] + rng.standard_normal(60000) > 0) \
+            .astype(np.float64)
+        params, group = {"objective": "binary", "num_leaves": 31,
+                         "max_bin": 63}, None
+    else:
+        group = rng.integers(80, 160, 300)
+        X = rng.standard_normal((int(group.sum()), 40))
+        y = np.clip(np.round(X[:, 0] + rng.standard_normal(len(X))), 0, 4)
+        params = {"objective": "lambdarank", "num_leaves": 31,
+                  "max_bin": 255}
+    calls = _record_aligned(monkeypatch, params, X, y, group, rounds=2)
+    return [(args, kw) for name, args, kw in calls if name == "move_pass"]
+
+
+def _check_partition(args):
+    """The partition alone against the twin: records bit-equal in the used
+    lanes of every row the new layout covers, every other word as the
+    buffer held it; each slot's children's map holds the rows the twin's
+    smaller-child histogram counts."""
+    rec, r1, r2, bl, br, meta, wsel, hs, k = args[:9]
+    bits, w_used = args[12], args[13]
+    out = torch.full_like(rec, -1)
+    nslot, ncnt = A._move_partition_cuda(rec, r1, r2, bl, br, meta, wsel,
+                                         hs, k, bits, w_used, out)
+    ref_a, ref_hist = A.move_pass_plain(*args, out=torch.full_like(rec, -1))
+    ref_b, _ = A.move_pass_plain(*args, out=torch.full_like(rec, -2))
+    torch.cuda.synchronize()
+    cov = ref_a[:, 0] == ref_b[:, 0]
+    for u in range(w_used):
+        assert torch.equal(out[:, u][cov], ref_a[:, u][cov])
+    assert bool((out[:, 0][~cov] == -1).all())
+    assert bool((out[:, w_used:] == -1).all())
+    rows = ref_hist[:, 0, :, 2].sum(1).long()
+    mapped = ncnt > 0
+    got = torch.zeros(k, dtype=torch.long, device=rec.device)
+    got.index_add_(0, nslot[mapped].long(), ncnt[mapped].long())
+    assert torch.equal(got, rows)
+    return out, nslot, ncnt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["compact", "ext"])
+def test_partition_matches_twin_on_gpu(cuda, monkeypatch, layout):
+    """B2's one-launch partition (ticket, staged lanes, look-back) against
+    the twin on every move of two aligned trees, COMPACT and EXT; a second
+    call on the same inputs gives the same bits (the ticket and flags
+    start from zero each call)."""
+    calls = _partition_calls(monkeypatch, layout)
+    assert len(calls) >= 4
+    for args, kw in calls:
+        first = _check_partition(args)
+        again = _check_partition(args)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_partition_lane_groups_on_gpu(cuda, monkeypatch):
+    """With room for only 3 lanes a stage the partition stages and stores
+    the used lanes in turn, and ranks from global memory when the split
+    word is not in the first group: the same records and map."""
+    calls = _partition_calls(monkeypatch, "compact")
+    real = A.move_smem
+
+    def three(C, w_used, optin):
+        lanes, smem = real(C, w_used, optin)
+        return 3, smem - 4 * (lanes - 3) * C
+
+    for args, kw in calls[:4]:
+        want = _check_partition(args)
+        monkeypatch.setattr(A, "move_smem", three)
+        got = _check_partition(args)
+        monkeypatch.setattr(A, "move_smem", real)
+        for a, b in zip(want, got):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lut_bins", [0, 1024])
+def test_rank_kernel_once_and_deterministic_on_gpu(cuda, lut_bins):
+    """B6 on MSLR-shaped queries (80-159 documents, packed into short
+    items), long ones (600, 5,000), a short query with a label of 40 (the
+    long walk) and offsets that leave documents out: within 1e-5 x
+    max|g| (max|h|) of the twin, documents outside every query 0, and
+    two calls bit-equal."""
+    rng = np.random.default_rng(9)
+    counts = np.concatenate([rng.integers(80, 160, 200), [600, 50, 5000],
+                             rng.integers(1, 40, 20)])
+    qb = np.concatenate([[7], 7 + np.cumsum(counts)])
+    n = int(qb[-1]) + 5
+    lab = rng.integers(0, 5, n)
+    lab[qb[201] + 3] = 40
+    gains = np.asarray([float((1 << min(i, 30)) - 1) for i in range(41)],
+                       np.float32)
+
+    def t(a, dtype):
+        return torch.as_tensor(np.asarray(a, dtype), device=cuda)
+
+    args = (t(rng.normal(size=n), np.float32), t(qb, np.int32),
+            t(lab, np.int32), t(gains[lab], np.float32),
+            t(rng.uniform(0.01, 0.2, len(counts)), np.float32),
+            t(discount_table(int(counts.max())), np.float32), 1.0, lut_bins,
+            512 if lut_bins else 0)
+    work = R.rank_work(qb, lab).to(cuda)
+    assert not work.covers
+    R.reset_launches()
+    g, h = R.lambdarank_grad(*args, work=work)
+    g2, h2 = R.lambdarank_grad(*args, work=work)
+    gp, hp = R.lambdarank_grad_plain(*args)
+    assert R.LAUNCHES["lambdarank_grad"] == 2
+    assert torch.equal(g, g2) and torch.equal(h, h2)
+    assert float((g - gp).abs().max()) <= 1e-5 * float(gp.abs().max())
+    assert float((h - hp).abs().max()) <= 1e-5 * float(hp.abs().max())
+    assert not g[:7].any() and not g[-5:].any() and not h[-5:].any()
+
+
 def _proto_records(nc, chunk, seed, cuda):
     rng = np.random.default_rng(seed)
     rec = rng.integers(0, 2**31 - 1, size=(nc, P.W, chunk), dtype=np.int32)

@@ -1,5 +1,5 @@
 """The port against the JAX package on the CPU where the port used to
-diverge without a word (ROADMAP C.17, C.18, C.20, C.21, C.22):
+diverge without a word (ROADMAP C.17, C.18, C.20-C.23, C.25):
 
 - ``feature_fraction < 1`` draws the JAX package's feature subsets, so
   the f64 leaf-wise model text is byte-equal and the aligned engine
@@ -9,7 +9,10 @@ diverge without a word (ROADMAP C.17, C.18, C.20, C.21, C.22):
 - under a binding ``max_delta_step`` clamp (with L1/L2, ``max_depth`` or
   a monotone constraint) the f64 tree sections, leaf-wise and level,
   are the JAX package's byte for byte: the parent's gain shift is
-  contracted as XLA contracts each of its two copies."""
+  contracted as XLA contracts each of its two copies;
+- at bin counts of at most 16 the root's side gains are contracted as
+  the JAX leaf-wise program's root search contracts them;
+- the whole model text is the JAX package's but for the device line."""
 import jax
 import jax.experimental
 import numpy as np
@@ -220,3 +223,49 @@ def test_monotone_clamped_matches_jax(x64, mds):
     assert _tree_sections(tb) == _tree_sections(jb)
     np.testing.assert_array_equal(tb.predict(Xte, raw_score=True),
                                   jb.predict(Xte, raw_score=True))
+
+
+@pytest.mark.parametrize("max_bin", [10, 12, 13, 16])
+def test_small_bin_root_gain_matches_jax(x64, max_bin):
+    """C.23: at 16 bins or fewer the JAX leaf-wise program's root search
+    contracts `(sh + l2) * out * out` into the side gains' add, where
+    every other search contracts `2 * reg * out`; the root's reported
+    gain used to differ by 1-2 f32 ulps (at 16 bins tree 0's first gain
+    216.04180908203125 against 216.0417938232422). The f64 tree sections
+    are the JAX package's byte for byte, beside test_torch_slice.py's 63
+    bins."""
+    jb, tb, Xte = _leafwise_pair({**SLICE, "max_bin": max_bin})
+    assert tb.num_trees() == jb.num_trees() == ROUNDS
+    assert _tree_sections(tb) == _tree_sections(jb)
+    np.testing.assert_array_equal(tb.predict(Xte, raw_score=True),
+                                  jb.predict(Xte, raw_score=True))
+
+
+@pytest.mark.parametrize("extra", [
+    {"lambda_l2": 1.0},
+    {"lambda_l2": 1.0, "monotone_constraints": [1] + [0] * 9},
+    {"max_delta_step": 0.3, "lambda_l2": 1.0},
+], ids=["l2", "l2_mono", "mds_l2"])
+def test_small_bin_root_gain_regularized_matches_jax(x64, extra):
+    """C.23's rule under regularization at 13 bins: with L2 alone XLA
+    contracts the Hessian product on each direction's own prefix side
+    only, with a monotone constraint on both sides, and under a binding
+    clamp on neither; each form alone would differ in the last bits of
+    some root gain."""
+    jb, tb, _ = _leafwise_pair({**SLICE, "max_bin": 13, **extra})
+    assert tb.num_trees() == jb.num_trees() == ROUNDS
+    assert _tree_sections(tb) == _tree_sections(jb)
+
+
+def test_whole_model_text_matches_jax(x64):
+    """C.25: the whole f64 leaf-wise model text, header, trees, feature
+    importances and parameters block, is the JAX package's line for line
+    but for `[device_type: tpu]`, which the port leaves out so that a
+    CUDA run and a CPU run write the same text. The port keeps the JAX
+    package's nine TPU knobs at their defaults (config.py) to write them
+    as it does."""
+    jb, tb, _ = _leafwise_pair(SLICE)
+    jlines = jb.model_to_string().splitlines()
+    tlines = tb.model_to_string().splitlines()
+    assert "[device_type: tpu]" in jlines
+    assert [ln for ln in jlines if ln != "[device_type: tpu]"] == tlines
