@@ -2,11 +2,13 @@
 """A/B measurements of the port's kernels on one NVIDIA GPU, each pair in
 one process on one card, in the order A, B, B, A: the aligned engine's
 slot histogram (kernel B4, and B2's smaller-child histograms:
-``aligned.cu::slot_hist_kernel``) and B2's partition
-(``aligned.cu::partition_kernel``), the leaf-wise builder's per-leaf
+``aligned.cu::slot_hist_kernel``), B2's partition
+(``aligned.cu::partition_kernel``) and B3's count pass
+(``aligned.cu::count_kernel``), the leaf-wise builder's per-leaf
 histogram (kernel B1, ``histogram.cu``), the level builder's histogram
-over packed bin words (kernel B5, ``histogram_words.cu``) and the
-lambdarank gradient (kernel B6, ``rank.cu``):
+over packed bin words (kernel B5, ``histogram_words.cu``), the
+lambdarank gradient (kernel B6, ``rank.cu``) and the prototype move (P2,
+``proto.cu::move_kernel``):
 
     python3 chip_ab.py engine --baseline DIR
         the engine end to end (``train`` under ``auto``) at the HIGGS
@@ -70,6 +72,32 @@ lambdarank gradient (kernel B6, ``rank.cu``):
         (B) against builds of it without the pair factor's arithmetic,
         without the owners' folds, and without the rank count (A, each
         wrong by design and checked against nothing), A, B, B, A;
+    python3 chip_ab.py proto-move --baseline DIR
+        P2, the prototype move (``proto.cu``), of the checkout at DIR, an
+        earlier design whose C entry point takes [3, nc] count, prefix and
+        scatter scratch, against this checkout's: at the harness's size
+        (10,485,760 rows, one block, chunks of 256 and 512), each
+        bit-equal to the plain twin, the launch alone, the wrapper and
+        one call's graph nodes (kernels and memsets);
+    python3 chip_ab.py count --baseline DIR
+        B3, the aligned engine's count pass (``aligned.cu``), of the
+        checkout at DIR, an earlier design whose C entry point adds into
+        an output the caller zeroes, against this checkout's: alone on
+        the widest round of one big-n tree (``tpu_force_big_n``, HIGGS
+        shape, 63 bins), equal to the twin, the launch alone, the wrapper
+        and one call's graph nodes; then the big-n path end to end (3
+        rounds): median iteration ms, AUC, the model text, one profiled
+        round's B3 device ms and launches;
+    python3 chip_ab.py proto-move-sweep
+        where P2's time goes at the harness's size: this checkout's
+        kernel (B) against builds with streaming stores, without the
+        permutation's gather and without the stores (the last two wrong
+        by design), and against this build with one stage and with tiles
+        of 1,024 and 4,096 rows (A), A, B, B, A;
+    python3 chip_ab.py count-sweep
+        B3 on the widest round of one big-n tree: this checkout's kernel
+        (B) against builds held to 32 registers and with 8 loads in
+        flight a thread (A), A, B, B, A;
     python3 chip_ab.py words-sweep
         this checkout's B5 on the calls of one level tree at the HIGGS
         shape (the root and the widest round at 255 leaves, the widest
@@ -683,6 +711,188 @@ def move(torch, CS, lt, A, baseline: str) -> dict:
     return res
 
 
+def baseline_proto_move(torch, P, lib):
+    """(launch alone, its scratch, wrapper) of P2 for the earlier design's
+    entry point in ``lib``: a count, a one-CTA scan and a scatter kernel
+    over [3, nc] scratch; the wrapper checks the params (a host read) and
+    the output and takes its scratch from ``torch.empty``."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lgbt_proto_move.argtypes = [p, i, i, p, i, p, p, p, p, p]
+    lib.lgbt_proto_move.restype = i
+
+    def scratch(records):
+        return torch.empty((3, records.shape[0]), dtype=torch.int32,
+                           device=records.device)
+
+    def launch(records, params, nc_out, out, sc):
+        nc, _, C = records.shape
+        dev = records.device
+        with torch.cuda.device(dev):
+            err = lib.lgbt_proto_move(
+                records.data_ptr(), nc, C, params.data_ptr(), nc_out,
+                sc[0].data_ptr(), sc[1].data_ptr(), sc[2].data_ptr(),
+                out.data_ptr(), P._stream(dev))
+        P._raise_on(err, "baseline move")
+
+    def wrapper(records, params, nc_out, out):
+        P._check_move_params(records, params)
+        P._check_out(out, records, nc_out)
+        launch(records, params, nc_out, out, scratch(records))
+        return out
+    return launch, scratch, wrapper
+
+
+def proto_move(torch, CS, P, baseline: str) -> dict:
+    """P2 of the checkout at DIR (A) against this checkout's (B) at the
+    harness's size (10,485,760 rows, one block of every chunk, chunks of
+    256 and 512), each bit-equal to the plain twin in an output filled
+    with -1: the launch alone (scratch allocated and params checked once,
+    20 launches between CUDA events), the wrapper as the smoke times it,
+    and one call's kernel and memset nodes in a captured CUDA graph."""
+    from lightgbm_tpu_torch.tools import proto_aligned as HA
+    from lightgbm_tpu_torch.utils.launches import graph_launches
+    src = os.path.join(baseline, "lightgbm_tpu_torch", "ops", "csrc",
+                       "proto.cu")
+    impl = {"A": baseline_proto_move(torch, P, nvcc_lib(
+                src, "baseline_proto", os.path.dirname(src))),
+            "B": (P._move_cuda, P.move_scratch,
+                  lambda r, p, n, o: P.move(r, p, n, out=o))}
+    res = {}
+    for chunk in HA.CHUNKS:
+        nc = HA.N_ROWS // chunk
+        rec, cnts = CS.proto_records(torch, nc, chunk, 31 + chunk)
+        params, nc_out, rows, n_l = CS.proto_move_params(torch, rec, cnts)
+        ref = P.move_plain(rec, params, nc_out, out=torch.full(
+            (nc_out, P.W, chunk), -1, dtype=torch.int32, device=CS.DEVICE))
+        out = torch.empty_like(ref)
+        bound_ms, _ = CS.bound(rows * P.W * 4 * 2 + nc * 8 * 4, rows)
+        for which in ORDER:
+            launch, scratch_of, wrapper = impl[which]
+            sc = scratch_of(rec)
+            out.fill_(-1)
+            launch(rec, params, nc_out, out, sc)
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                raise AssertionError(f"chip_ab proto-move {which} C={chunk} "
+                                     "differs from the twin")
+            r = {"launch_ms": CS.cuda_ms(
+                     torch, lambda: launch(rec, params, nc_out, out, sc),
+                     reps=20),
+                 "wrapper_ms": CS.cuda_ms(
+                     torch, lambda: wrapper(rec, params, nc_out, out)),
+                 "graph": graph_launches(
+                     lambda: launch(rec, params, nc_out, out, sc)),
+                 "bound_ms": bound_ms, "rows": rows, "left_rows": n_l}
+            res.setdefault(f"C={chunk} {which}", []).append(r)
+            CS.log(f"proto-move C={chunk} {which}: {r}")
+        del rec, cnts, params, ref, out
+        torch.cuda.empty_cache()
+    return res
+
+
+def baseline_count(torch, A, lib):
+    """(launch alone, wrapper) of B3 for the earlier design's entry point
+    in ``lib``: one CTA of 256 threads a chunk adding its left rows to
+    ``out`` with a global atomic; the wrapper zeroes ``out`` first
+    (``torch.zeros``)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lgbt_count_pass.argtypes = [p, i, i, i, p, p, p, p, p, i, i, p, p]
+    lib.lgbt_count_pass.restype = i
+
+    def launch(records, r1, r2, meta, wsel, kslots, num_slots, bits, out):
+        nc, W, C = records.shape
+        dev = records.device
+        with torch.cuda.device(dev):
+            err = lib.lgbt_count_pass(
+                records.data_ptr(), nc, W, C, r1.data_ptr(), r2.data_ptr(),
+                meta.data_ptr(), wsel.data_ptr(), kslots.data_ptr(),
+                num_slots, bits, out.data_ptr(), A._stream(dev))
+        A._raise_on(err, "baseline count_pass")
+
+    def wrapper(records, r1, r2, meta, wsel, kslots, num_slots, bits):
+        A._check_cuda(records, r1, r2, meta, wsel, kslots)
+        out = torch.zeros(num_slots, dtype=torch.int32,
+                          device=records.device)
+        launch(records, r1, r2, meta, wsel, kslots, num_slots, bits, out)
+        A.LAUNCHES["count_pass"] += 1
+        return out
+    return launch, wrapper
+
+
+def count(torch, CS, lt, A, baseline: str) -> dict:
+    """B3 of the checkout at DIR (A) against this checkout's (B): alone on
+    the count pass of the widest round of one big-n tree
+    (``tpu_force_big_n``, STANDARD records, HIGGS shape at 63 bins),
+    counts equal to the twin's: the launch alone (20 launches between
+    CUDA events), the wrapper, and one wrapper call's kernel and memset
+    nodes in a captured CUDA graph; then the big-n path end to end (3
+    rounds): median iteration ms, holdout AUC, the model text against
+    the first run's, and one profiled round's B3 device ms and
+    launches."""
+    from lightgbm_tpu_torch.models import aligned_builder as AB
+    from lightgbm_tpu_torch.utils.launches import graph_launches
+    src = os.path.join(baseline, "lightgbm_tpu_torch", "ops", "csrc",
+                       "aligned.cu")
+    impl = {"A": baseline_count(torch, A, nvcc_lib(
+                src, "baseline_count", os.path.dirname(src))),
+            "B": (A._count_cuda, A.count_pass)}
+    n, f = 10_500_000, 28
+    X, y = CS.synth_higgs(n + 500_000, f)
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": 63,
+              "learning_rate": 0.1, "min_data_in_leaf": 20,
+              "feature_fraction": 1.0, "verbosity": -1,
+              "tpu_force_big_n": True}
+    ds = lt.Dataset(X[:n], label=y[:n], params=params,
+                    free_raw_data=False).construct()
+    calls = CS.capture_kernel_calls(torch, lt, ds, params)
+    args = calls["count_wide"]
+    ref = A.count_pass_plain(*args)
+    meta, ks, k = args[3], args[5], args[6]
+    rows = int((meta & 0xFFFFF)[(ks >= 0) & (ks < k)].sum())
+    nc = args[0].shape[0]
+    bound_ms, _ = CS.bound(rows * 4 + nc * 5 * 4 + k * 4, rows)
+    res = {}
+    for which in ORDER:
+        launch, wrapper = impl[which]
+        if not torch.equal(wrapper(*args), ref):
+            raise AssertionError(f"chip_ab count {which} differs from the "
+                                 "twin")
+        out = torch.zeros(k, dtype=torch.int32, device=CS.DEVICE)
+        r = {"launch_ms": CS.cuda_ms(torch, lambda: launch(*args, out),
+                                     reps=20),
+             "wrapper_ms": CS.cuda_ms(torch, lambda: wrapper(*args),
+                                      reps=20),
+             "graph": graph_launches(lambda: wrapper(*args)),
+             "bound_ms": bound_ms, "rows": rows, "chunks": nc,
+             "slots": k}
+        res.setdefault(f"widest round {which}", []).append(r)
+        CS.log(f"count widest round {which}: {r}")
+    del calls, args, ref
+    torch.cuda.empty_cache()
+    first = None
+    for which in ORDER:
+        AB.count_pass = impl[which][1]
+        try:
+            bst, r = CS.train_run(torch, lt, ds, params, 3, X[n:], y[n:],
+                                  f"chip_ab count {which}")
+            prof = CS.profile_round(torch, bst)
+        finally:
+            AB.count_pass = A.count_pass
+        text = bst.model_to_string()
+        first = text if first is None else first
+        b3 = prof["aligned_kernels"].get("count_kernel",
+                                         {"ms": 0.0, "launches": 0})
+        res.setdefault(f"big-n {which}", []).append({
+            "median_iter_ms": r["median_iter_ms"], "auc": r["auc"],
+            "same_model": text == first, "wall_ms": prof["wall_ms"],
+            "busy_ms": prof["busy_ms"], "count_ms": b3["ms"],
+            "count_launches": b3["launches"],
+            "count_calls": prof["count_calls"]})
+        CS.log(f"count big-n {which}: {res[f'big-n {which}'][-1]}")
+        del bst
+    return res
+
+
 def baseline_rank(torch, R, lib):
     """`lambdarank_grad` for the earlier B6 design's entry point: blocks
     of 64 documents (`query_blocks`, cached per offsets tensor), a rank
@@ -854,6 +1064,152 @@ def rank_sweep(torch, CS, lt, R) -> dict:
     return res
 
 
+def variants(source: str, entries: dict, cuts: dict) -> dict:
+    """{name: {entry: C function}} of builds of this checkout's ``source``
+    with each of ``cuts``' (old, new) text replacements made (every old
+    text must occur once); ``entries`` maps each entry point to the
+    argtypes it takes."""
+    from lightgbm_tpu_torch.utils import cuda_build
+    text = open(os.path.join(cuda_build.CSRC, source)).read()
+    os.makedirs(BUILD, exist_ok=True)
+    out = {}
+    for name, pairs in cuts.items():
+        v = text
+        for old, new in pairs:
+            if v.count(old) != 1:
+                raise AssertionError(f"{source}: the {name} cut is not where "
+                                     "chip_ab looks for it")
+            v = v.replace(old, new)
+        tag = f"{source.split('.')[0]}_{name.replace(' ', '_')}"
+        src = os.path.join(BUILD, f"{tag}.cu")
+        with open(src, "w") as fh:
+            fh.write(v)
+        lib = nvcc_lib(src, tag, cuda_build.CSRC)
+        out[name] = {}
+        for entry, argtypes in entries.items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            out[name][entry] = fn
+    return out
+
+
+def proto_move_sweep(torch, CS, P) -> dict:
+    """Where P2's time goes, at the harness's size (chunks of 256 and
+    512): this checkout's kernel (B) against variants (A): builds of it
+    with streaming stores (evict-first), with each row stored from its
+    own staged row instead of the permutation's (no gather; wrong by
+    design), and without the stores (wrong by design); and this build
+    with one stage (a chunk copied in after the last one's stores), and
+    with tiles of 1,024 and 4,096 rows. A, B, B, A, the launch alone,
+    and whether A's output equals the twin's."""
+    from lightgbm_tpu_torch.tools import proto_aligned as HA
+    store = ("        dst[static_cast<long long>(u) * C] =\n"
+             "            from[static_cast<long long>(u) * C];\n")
+    cuts = {
+        "streaming stores": [(store, "        __stcs(dst + static_cast<long "
+                              "long>(u) * C,\n               from["
+                              "static_cast<long long>(u) * C]);\n")],
+        "no gather": [("      const int32_t* from = stage + (all_left ? k : "
+                       "pj[k]);\n", "      const int32_t* from = stage + "
+                       "k;\n")],
+        "no stores": [("    const int cnt = s_cnt[j], agg_left = "
+                       "s_left[j];\n", "    const int cnt = 0, "
+                       "agg_left = 0;\n")]}
+    fns = P._lib()
+    real = fns["lgbt_proto_move"]
+    impl = {name: v["lgbt_proto_move"] for name, v in variants(
+        "proto.cu", {"lgbt_proto_move": real.argtypes}, cuts).items()}
+    smem_of, rows = P.move_smem, P.MOVE_TILE_ROWS
+
+    def one_stage(C, optin):
+        tile, stages, smem = smem_of(C, optin)
+        return tile, 1, smem - (stages - 1) * 4 * P.W * C
+
+    shapes = {"one stage": (one_stage, rows), "tiles of 1024": (
+        smem_of, 1024), "tiles of 4096": (smem_of, 4096)}
+    res = {}
+    for chunk in HA.CHUNKS:
+        nc = HA.N_ROWS // chunk
+        rec, cnts = CS.proto_records(torch, nc, chunk, 31 + chunk)
+        params, nc_out, _, _ = CS.proto_move_params(torch, rec, cnts)
+        ref = P.move_plain(rec, params, nc_out, out=torch.full(
+            (nc_out, P.W, chunk), -1, dtype=torch.int32, device=CS.DEVICE))
+        out = torch.empty_like(ref)
+        sc = P.move_scratch(rec)
+        for name in (*impl, *shapes):
+            for which in ORDER:
+                a = which == "A"
+                fns["lgbt_proto_move"] = impl[name] if a and name in impl \
+                    else real
+                P.move_smem, P.MOVE_TILE_ROWS = shapes[name] \
+                    if a and name in shapes else (smem_of, rows)
+                out.fill_(-1)
+                P._move_cuda(rec, params, nc_out, out, sc)
+                torch.cuda.synchronize()
+                r = {"equal": bool(torch.equal(out, ref)),
+                     "shape": P.move_smem(chunk, P._optin[0]),
+                     "launch_ms": CS.cuda_ms(torch, lambda: P._move_cuda(
+                         rec, params, nc_out, out, sc), reps=20)}
+                res.setdefault(f"C={chunk} {name} {which}", []).append(r)
+            fns["lgbt_proto_move"] = real
+            P.move_smem, P.MOVE_TILE_ROWS = smem_of, rows
+            CS.log(f"proto-move-sweep C={chunk} {name}: A "
+                   f"{res[f'C={chunk} {name} A']}, B "
+                   f"{res[f'C={chunk} {name} B']}")
+        del rec, cnts, params, ref, out, sc
+        torch.cuda.empty_cache()
+    return res
+
+
+def count_sweep(torch, CS, lt, A) -> dict:
+    """B3 on the widest round of one big-n tree (HIGGS shape, 63 bins):
+    this checkout's kernel (B) against builds of it (A) held to 32
+    registers (8 CTAs an SM) and with 8 of a thread's 16-byte loads in
+    flight (4 in this checkout's); A, B, B, A, the launch alone, counts
+    against the twin."""
+    bounds = ("__global__ void __launch_bounds__(kCountThreads, 4)\n"
+              "count_kernel")
+    cuts = {
+        "32 registers": [(bounds, bounds.replace("4)", "8)"))],
+        "8 loads": [("i0 < n4; i0 += 4 * 32) {\n      int4 v[4];",
+                     "i0 < n4; i0 += 8 * 32) {\n      int4 v[8];"),
+                    ("      for (int j = 0; j < 4; ++j) {\n        const int "
+                     "i = i0", "      for (int j = 0; j < 8; ++j) {\n"
+                     "        const int i = i0"),
+                    ("      for (int j = 0; j < 4; ++j) {\n        const int "
+                     "r = 4 *", "      for (int j = 0; j < 8; ++j) {\n"
+                     "        const int r = 4 *")]}
+    fns = A._lib()
+    names = ("lgbt_count_pass", "lgbt_count_occupancy")
+    real = {e: fns[e] for e in names}
+    impl = variants("aligned.cu", {e: fns[e].argtypes for e in names}, cuts)
+    n, f = 10_500_000, 28
+    X, y = CS.synth_higgs(n, f)
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": 63,
+              "learning_rate": 0.1, "min_data_in_leaf": 20,
+              "verbosity": -1, "tpu_force_big_n": True}
+    ds = lt.Dataset(X, label=y, params=params).construct()
+    args = CS.capture_kernel_calls(torch, lt, ds, params)["count_wide"]
+    ref = A.count_pass_plain(*args)
+    out = torch.empty_like(ref)
+    res = {}
+    for name, fn in impl.items():
+        for which in ORDER:
+            fns.update(fn if which == "A" else real)
+            # the occupancy of the build that launches
+            A._count_shapes.clear()
+            r = {"equal": bool(torch.equal(A.count_pass(*args), ref)),
+                 "launch_ms": CS.cuda_ms(
+                     torch, lambda: A._count_cuda(*args, out), reps=20)}
+            res.setdefault(f"{name} {which}", []).append(r)
+        fns.update(real)
+        A._count_shapes.clear()
+        CS.log(f"count-sweep {name}: A {res[f'{name} A']}, B "
+               f"{res[f'{name} B']}")
+    return res
+
+
 def scale(torch, CS, lt, A) -> dict:
     from lightgbm_tpu_torch.utils import cuda_build
     text = open(os.path.join(cuda_build.CSRC, "aligned.cu")).read()
@@ -916,9 +1272,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("what", choices=("engine", "scale", "hist", "words",
                                      "words-sweep", "move", "rank",
-                                     "rank-sweep"))
+                                     "rank-sweep", "proto-move", "count",
+                                     "proto-move-sweep", "count-sweep"))
     ap.add_argument("--baseline", help="checkout of the earlier design "
-                    "(engine, hist, words, move, rank)")
+                    "(engine, hist, words, move, rank, proto-move, count)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -936,10 +1293,16 @@ def main() -> int:
         if not args.baseline:
             ap.error("engine needs --baseline DIR")
         res = engine(torch, CS, lt, A, args.baseline)
-    elif args.what in ("hist", "words", "move", "rank"):
+    elif args.what in ("hist", "words", "move", "rank", "proto-move",
+                       "count"):
         if not args.baseline:
             ap.error(f"{args.what} needs --baseline DIR")
-        if args.what == "move":
+        if args.what == "proto-move":
+            from lightgbm_tpu_torch.ops import proto as P
+            res = proto_move(torch, CS, P, args.baseline)
+        elif args.what == "count":
+            res = count(torch, CS, lt, A, args.baseline)
+        elif args.what == "move":
             res = move(torch, CS, lt, A, args.baseline)
         elif args.what == "rank":
             from lightgbm_tpu_torch.ops import rank as R
@@ -949,6 +1312,11 @@ def main() -> int:
                 torch, CS, lt, H, args.baseline)
     elif args.what == "words-sweep":
         res = words_sweep(torch, CS, lt, H)
+    elif args.what == "proto-move-sweep":
+        from lightgbm_tpu_torch.ops import proto as P
+        res = proto_move_sweep(torch, CS, P)
+    elif args.what == "count-sweep":
+        res = count_sweep(torch, CS, lt, A)
     elif args.what == "rank-sweep":
         from lightgbm_tpu_torch.ops import rank as R
         res = rank_sweep(torch, CS, lt, R)

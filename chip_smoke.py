@@ -74,9 +74,12 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``index_add_``; then B2's smaller-child histograms of the widest round
    alone (the histogram kernel over the moved records and the children's
    chunk map), checked, timed beside the twin, the bound and one
-   ``index_add_``;
+   ``index_add_``; B3 (STANDARD) timed as its launch alone and as its
+   wrapper, and one kernel a call (no zeroing) counted in a captured CUDA
+   graph of the wrapper;
 7. big-n path: an aligned run with ``tpu_force_big_n`` (STANDARD records,
-   the exact i32 count pass, kernel B3) at max_bin 63, 3 rounds;
+   the exact i32 count pass, kernel B3) at max_bin 63, 3 rounds, and one
+   profiled round (B3's launches must equal its calls);
 8. f64 determinism: small f64-histogram leaf-wise and level
    (``tpu_grow_mode=level``) runs on the card and on the CPU must write
    the same trees;
@@ -135,8 +138,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    the four kernel functions against its twin at those sizes (P1: counts
    equal, g/h within 1e-5 x the slot's sum of |g|; P2 and P3
    bit-equal), timed beside the twin, the bound and, for P1, one
-   ``index_add_``; P1 once more at (256, 4) on payloads of random bits
-   (NaN and Inf among them), held against its twin cell by cell.
+   ``index_add_``; P2 timed as its launch alone and as its wrapper (with
+   the params' host check), one memset and one kernel a call counted in
+   a captured CUDA graph; P1 once more at (256, 4) on payloads of random
+   bits (NaN and Inf among them), held against its twin cell by cell.
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -267,7 +272,22 @@ def phase_device(torch) -> dict:
         f"{torch.cuda.get_device_name(0)}, "
         f"{torch.cuda.device_count()} visible")
     log(smi.splitlines()[0])
-    return {"smi": smi.splitlines()[0]}
+    return {"smi": smi.splitlines()[0], "state": card_state("start")}
+
+
+def card_state(what: str) -> str:
+    """The card's SM and memory clocks, power draw and temperature now
+    (``nvidia-smi``), logged: a phase that runs slower on a card that
+    clocks lower is told apart from a slower kernel."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True)
+    state = (out.stdout.strip().splitlines() or ["not read"])[0] \
+        if out.returncode == 0 else f"not read ({out.stderr.strip()})"
+    log(f"card at {what}: SM clock, memory clock, power draw, "
+        f"temperature: {state}")
+    return state
 
 
 def phase_build() -> None:
@@ -637,6 +657,10 @@ def phase_big_n(torch, lt, ds, params, X, y, rows: int) -> dict:
         f"{r['first_round_s']:.3f} s, median iteration "
         f"{r['median_iter_ms']:.1f} ms, launches {r['launches']}, rounds "
         f"per tree {r['rounds_per_tree']}, holdout AUC {r['auc']:.6f}")
+    # B3's launches a call from a profiled round (checked there)
+    r["profile"] = profile_round(torch, bst)
+    if r["profile"]["count_calls"] == 0:
+        raise AssertionError("the big-n profiled round made no count pass")
     del bst, eng
     torch.cuda.empty_cache()
     return r
@@ -943,16 +967,28 @@ def phase_aligned_parity(torch, lt, ds, params, max_bin: int,
             raise AssertionError(f"count_pass differs from its twin, {what}")
         meta, ks, k = args[3], args[5], args[6]
         rows = int((meta & 0xFFFFF)[(ks >= 0) & (ks < k)].sum())
-        r = {"max_abs_err": 0.0, "rows": rows,
-             "ms": cuda_ms(torch, lambda: A.count_pass(*args)),
+        # the launch alone (its shape and scratch looked up once) and the
+        # wrapper; then the work one call enqueues, from a captured graph
+        from lightgbm_tpu_torch.utils.launches import graph_launches
+        alone = torch.empty(k, dtype=torch.int32, device=DEVICE)
+        r = {"max_abs_err": 0.0, "rows": rows, "chunks": nc,
+             "ms": cuda_ms(torch, lambda: A._count_cuda(*args, alone),
+                           reps=20),
+             "wrapper_ms": cuda_ms(torch, lambda: A.count_pass(*args),
+                                   reps=20),
              "plain_ms": cuda_ms(torch, lambda: A.count_pass_plain(*args),
                                  reps=2),
              "library_ms": None}
+        graph = graph_launches(lambda: A.count_pass(*args))
+        if graph != {"kernels": 1, "memsets": 0, "other": 0}:
+            raise AssertionError(f"count_pass enqueued {graph}, not one "
+                                 "kernel")
+        r["launches_per_call"] = graph["kernels"] + graph["memsets"]
         r["bound_ms"], r["bound_by"] = bound(rows * 4 + nc * 5 * 4 + k * 4,
                                              rows)
         res["count_pass"] = r
-    sizes = ("rows", "children", "split_blocks", "split_rows",
-             "copy_chunks", "launches_per_call")
+    sizes = ("rows", "chunks", "children", "split_blocks", "split_rows",
+             "copy_chunks", "launches_per_call", "wrapper_ms")
     for name, r in res.items():
         lib = "none" if r["library_ms"] is None \
             else f"{r['library_ms']:.4f} ms"
@@ -991,8 +1027,8 @@ def profile_round(torch, bst, hist_names=HIST_KERNELS,
     kernels, each of B1's and B5's must launch as often as the round's
     calls of `leaf_histogram` (`histogram_from_words`) on the card in its
     precision, B2's partition kernel as often as `move_pass` (one memset
-    beside it: two launches a call) and B6's as `lambdarank_grad`, one
-    lost profiler record aside."""
+    beside it: two launches a call), B3's count kernel as `count_pass`
+    and B6's as `lambdarank_grad`, one lost profiler record aside."""
     from torch.profiler import ProfilerActivity, profile
 
     from lightgbm_tpu_torch.ops import aligned as A
@@ -1002,6 +1038,7 @@ def profile_round(torch, bst, hist_names=HIST_KERNELS,
     calls = dict(H.LAUNCHES)
     wcalls = dict(H.WORDS_LAUNCHES)
     moves = A.LAUNCHES["move_pass"]
+    counts = A.LAUNCHES["count_pass"]
     grads = R.LAUNCHES["lambdarank_grad"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1012,6 +1049,7 @@ def profile_round(torch, bst, hist_names=HIST_KERNELS,
     calls = {k: H.LAUNCHES[k] - v for k, v in calls.items()}
     wcalls = {k: H.WORDS_LAUNCHES[k] - v for k, v in wcalls.items()}
     moves = A.LAUNCHES["move_pass"] - moves
+    counts = A.LAUNCHES["count_pass"] - counts
     grads = R.LAUNCHES["lambdarank_grad"] - grads
     cuda = torch.autograd.DeviceType.CUDA
     kernels, syncs, memsets = [], 0, 0
@@ -1045,6 +1083,11 @@ def profile_round(torch, bst, hist_names=HIST_KERNELS,
             f"and {memsets} memsets for {moves} move_pass calls: "
             f"{per_call:.2f} launches a call, {part['ms'] / moves:.4f} ms "
             f"a call")
+    count = aligned.get("count_kernel", {"launches": 0, "ms": 0.0})
+    if counts:
+        log(f"  B3 count: {count['launches']} count_kernel launches for "
+            f"{counts} count_pass calls, {count['ms'] / counts:.4f} ms a "
+            f"call")
     rank = kernel_times(kernels, rank_names)
     if rank or grads:
         log("  B6 kernels: " + ", ".join(
@@ -1072,7 +1115,8 @@ def profile_round(torch, bst, hist_names=HIST_KERNELS,
     if words_names == WORDS_KERNELS:
         checks += [(words, wcalls, WORDS_KERNELS)]
     if aligned_names == ALIGNED_KERNELS:
-        checks += [(aligned, {"one": moves}, ("partition_kernel",))]
+        checks += [(aligned, {"one": moves}, ("partition_kernel",)),
+                   (aligned, {"one": counts}, ("count_kernel",))]
     if rank_names == RANK_KERNELS:
         checks += [(rank, {"one": grads}, RANK_KERNELS)]
     for times, n_calls, names in checks:
@@ -1085,6 +1129,7 @@ def profile_round(torch, bst, hist_names=HIST_KERNELS,
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "launches": launches,
             "syncs": syncs, "memsets": memsets, "aligned_kernels": aligned,
             "move_calls": moves, "partition_launches_per_call": per_call,
+            "count_calls": counts,
             "hist_kernels": hist, "hist_calls": calls,
             "words_kernels": words, "words_calls": wcalls,
             "rank_kernels": rank, "rank_calls": grads,
@@ -1766,6 +1811,28 @@ def proto_records(torch, nc: int, chunk: int, seed: int):
     return rec, cnts
 
 
+def proto_move_params(torch, rec, cnts):
+    """(params, nc_out, valid rows, left rows) of P2 over one block of
+    every chunk of ``rec``, split on byte 1 of word 1 at 127 as the
+    harness does, left rows from chunk 0 and right rows after them."""
+    from lightgbm_tpu_torch.ops import proto as P
+    nc, _, chunk = rec.shape
+    valid = torch.arange(chunk, device=DEVICE)[None, :] < cnts[:, None]
+    rows = int(valid.sum())
+    n_l = int(((((rec[:, 1] >> 8) & 255) <= 127) & valid).sum())
+    base_r = -(-n_l // chunk)
+    nc_out = base_r + -(-(rows - n_l) // chunk) + 1
+    params = torch.zeros((nc, 8), dtype=torch.int32, device=DEVICE)
+    params[:, P.P_WSEL] = 1
+    params[:, P.P_SHIFT] = 8
+    params[:, P.P_THR] = 127
+    params[:, P.P_BASER] = base_r
+    params[0, P.P_FIRST] = 1
+    params[-1, P.P_LAST] = 1
+    params[:, P.P_CNT] = cnts
+    return params, nc_out, rows, n_l
+
+
 def proto_slot_hist_library_ms(torch, words, slot, gh, num_slots: int,
                                num_features: int, b_pad: int) -> float:
     """One ``index_add_`` over a prebuilt flat index (slot, feature, bin)
@@ -1904,18 +1971,7 @@ def phase_proto_parity(torch) -> dict:
             res["slot_hist_nonfinite"] = proto_slot_hist_nonfinite(
                 torch, rec, slots, cnts)
         # ---- P2: one block of every chunk
-        key = ((rec[:, 1] >> 8) & 255) <= 127
-        n_l = int((key & valid).sum())
-        base_r = -(-n_l // chunk)
-        nc_out = base_r + -(-(rows - n_l) // chunk) + 1
-        params = torch.zeros((nc, 8), dtype=torch.int32, device=DEVICE)
-        params[:, P.P_WSEL] = 1
-        params[:, P.P_SHIFT] = 8
-        params[:, P.P_THR] = 127
-        params[:, P.P_BASER] = base_r
-        params[0, P.P_FIRST] = 1
-        params[-1, P.P_LAST] = 1
-        params[:, P.P_CNT] = cnts
+        params, nc_out, _, n_l = proto_move_params(torch, rec, cnts)
         got = P.move(rec, params, nc_out,
                      out=torch.full((nc_out, P.W, chunk), -1,
                                     dtype=torch.int32, device=DEVICE))
@@ -1925,20 +1981,35 @@ def phase_proto_parity(torch) -> dict:
         if not torch.equal(got, ref):
             raise AssertionError(f"move C={chunk} differs from its twin")
         del ref
+        # the launch alone (scratch allocated and params checked once),
+        # the wrapper (with its host read of the params), then the work
+        # one launch enqueues, from a captured graph
+        from lightgbm_tpu_torch.utils.launches import graph_launches
+        sc = P.move_scratch(rec)
         r = {"max_abs_err": 0.0, "rows": rows, "left_rows": n_l,
-             "ms": cuda_ms(torch, lambda: P.move(rec, params, nc_out,
-                                                 out=got)),
+             "ms": cuda_ms(torch, lambda: P._move_cuda(
+                 rec, params, nc_out, got, sc), reps=20),
+             "wrapper_ms": cuda_ms(torch, lambda: P.move(
+                 rec, params, nc_out, out=got)),
              "plain_ms": cuda_ms(torch, lambda: P.move_plain(
                  rec, params, nc_out, out=got), reps=1),
              "library_ms": None}
+        graph = graph_launches(lambda: P._move_cuda(
+            rec, params, nc_out, got, sc))
+        if graph != {"kernels": 1, "memsets": 1, "other": 0}:
+            raise AssertionError(f"move enqueued {graph}, not one memset "
+                                 "and one kernel")
+        r["launches_per_call"] = graph["kernels"] + graph["memsets"]
         r["bound_ms"], r["bound_by"] = bound(rows * P.W * 4 * 2
                                              + nc * 8 * 4, rows)
         res["move"][f"C={chunk}"] = r
         log(f"kernel proto move (C={chunk}, {rows} rows, {n_l} left, one "
-            f"block): kernel {r['ms']:.4f} ms (with the wrapper's params "
+            f"block): launch alone {r['ms']:.4f} ms (one memset, one "
+            f"kernel), wrapper {r['wrapper_ms']:.4f} ms (with its params "
             f"check), plain {r['plain_ms']:.4f} ms, library none, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), bit-equal")
-        del rec, cnts, valid, got, params, key
+        del sc
+        del rec, cnts, valid, got, params
         torch.cuda.empty_cache()
     # ---- P3
     gen = torch.Generator(device=DEVICE).manual_seed(41)
@@ -2036,6 +2107,7 @@ def main() -> int:
     del mds, Xm, ym, gm
     gc.collect()
     torch.cuda.empty_cache()
+    info["state_phase14"] = card_state("phase 14")
     proto_path = phase_proto_path(torch)
     ppar = phase_proto_parity(torch)
 
@@ -2060,6 +2132,8 @@ def main() -> int:
                 "ms": p["ms"], "plain_ms": p["plain_ms"],
                 "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
                 "library_ms": p["library_ms"],
+                **{k: p[k] for k in ("wrapper_ms", "launches_per_call")
+                   if k in p},
                 "shape": f"{shape}, {dims}, {bins} bins, {layout}"}
 
     kernels = [
@@ -2146,7 +2220,9 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in table.values()),
             "ms": p["ms"], "plain_ms": p["plain_ms"],
             "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
-            "library_ms": p["library_ms"], "shape": shape})
+            "library_ms": p["library_ms"],
+            **{k: p[k] for k in ("wrapper_ms", "launches_per_call")
+               if k in p}, "shape": shape})
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was never launched on its "
@@ -2162,7 +2238,9 @@ def main() -> int:
                     "mslr": mslr, "rank_kernel": rpar,
                     "proto_path": proto_path, "proto_kernels": ppar,
                     "sass_atomics": sass,
-                    "power": info["smi"]}))
+                    "power": info["smi"],
+                    "card": {k: info[k] for k in ("state",
+                                                  "state_phase14")}}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,8 @@ below). Three kernels, in ``ops/csrc/aligned.cu``, work on the matrix:
   new chunk-aligned left and right ranges, copies of the used lanes of
   unsplit blocks' chunks (one launch, a decoupled look-back over chunk
   tickets), and the smaller child's histogram per compact slot;
-- B3 `count_pass`: exact i32 left counts per compact slot;
+- B3 `count_pass`: exact i32 left counts per compact slot (one
+  launch: a persistent grid, warps over whole chunks, one last CTA);
 - B4 `slot_hist_pass`: histograms of chunks mapped to slots.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
@@ -73,8 +74,17 @@ _SLOT_HIST_CELL_BYTES = 20
 # lane), a u16 row permutation and two words a 32-row ballot; the
 # kernel's static shared memory stays under the slack
 _MOVE_STATIC_SLACK = 256
+# the count pass (B3): a persistent grid of CTAs of 256 threads, 8 warps
+# each taking whole chunks; a u32 counter a slot in shared memory
+COUNT_THREADS = 256
+_COUNT_WARPS = COUNT_THREADS // 32
 _fns: Dict[str, object] = {}
 _ctas: Dict[Tuple[int, int], int] = {}
+# (ordinal, num_slots) -> (CTAs an SM, SMs, shared-memory opt-in) of the
+# count pass; (ordinal, stream) -> its scratch: u32 [slots] then the ticket,
+# zero between calls
+_count_shapes: Dict[Tuple[int, int], Tuple[int, int, int]] = {}
+_count_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def reset_launches() -> None:
@@ -364,7 +374,9 @@ def _lib():
         lib = cuda_build.load("aligned")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         sigs = {
-            "lgbt_count_pass": [p, i, i, i, p, p, p, p, p, i, i, p, p],
+            "lgbt_count_pass": [p, ctypes.c_longlong, i, i, p, p, p, p, p,
+                                i, i, i, i, p, p, p, p],
+            "lgbt_count_occupancy": [i],
             "lgbt_move_partition": [p, i, i, i, i, i, i, i, p, p, p, p, p,
                                     p, p, i, p, p, p],
             "lgbt_slot_hist": [p, i, i, i, i, i, i, i, i, i, i, i, i, p, p,
@@ -540,25 +552,96 @@ def slot_hist_pass(records, slots, meta, num_slots, num_features, num_bins,
     return out
 
 
+def count_launch_shape(nc: int, num_slots: int, ctas_per_sm: int,
+                       num_sms: int, smem_optin: int) -> Tuple[int, int]:
+    """(dynamic shared bytes per CTA, CTAs) of the count pass: a u32
+    counter a slot, within ``smem_optin``; the CTAs the SMs hold
+    (``ctas_per_sm`` from the occupancy calculator on the card), or
+    fewer when the chunks give fewer than one a warp, at least one (with
+    no chunk it still writes the zero counts)."""
+    smem = 4 * num_slots
+    if smem > smem_optin - _MOVE_STATIC_SLACK:
+        raise ValueError(f"{num_slots} slots ({smem} B of counters) exceed "
+                         f"the {smem_optin} B of shared memory")
+    if ctas_per_sm < 1:
+        raise ValueError(f"{num_slots} slots' counters fit no CTA on an SM")
+    return smem, max(1, min(ctas_per_sm * num_sms,
+                            -(-nc // _COUNT_WARPS)))
+
+
+def _count_shape(ordinal: int, num_slots: int) -> Tuple[int, int, int]:
+    """(CTAs an SM, SMs, shared-memory opt-in) of the count pass at
+    ``num_slots`` on device ``ordinal``, queried once."""
+    key = (ordinal, num_slots)
+    st = _count_shapes.get(key)
+    if st is None:
+        fns = _lib()
+        optin = fns["lgbt_aligned_smem_optin"](ordinal)
+        smem, _ = count_launch_shape(1, num_slots, 1, 1, optin)
+        with torch.cuda.device(ordinal):
+            n = fns["lgbt_count_occupancy"](smem)
+        if n < 0:
+            raise RuntimeError("count_pass: the CUDA occupancy query failed")
+        st = (n, torch.cuda.get_device_properties(
+            ordinal).multi_processor_count, optin)
+        _count_shapes[key] = st
+    return st
+
+
+def _count_scratch_for(dev: torch.device, ordinal: int, stream: int,
+                       num_slots: int) -> torch.Tensor:
+    """The zeroed scratch of the count passes on ``stream``: int32 [cap +
+    1], cap >= ``num_slots`` counters, then the ticket."""
+    key = (ordinal, stream)
+    s = _count_scratch.get(key)
+    if s is None or s.numel() - 1 < num_slots:
+        cap = max(num_slots, 0 if s is None else s.numel() - 1)
+        s = torch.zeros(cap + 1, dtype=torch.int32, device=dev)
+        _count_scratch[key] = s
+    return s
+
+
 def count_pass(records, r1, r2, meta, wsel, kslots, num_slots, bits):
     """[num_slots] int32 left rows per compact slot: kslots[i] is the slot
     of chunk i's split (``num_slots`` skips); r1/r2/meta/wsel as for
-    `move_pass` (copy bit clear on counted chunks)."""
+    `move_pass` (copy bit clear on counted chunks); a chunk's rows r <
+    min(meta count, C). On the card one launch a call (no zeroing): the
+    output comes from ``torch.empty``."""
     if not records.is_cuda:
         return count_pass_plain(records, r1, r2, meta, wsel, kslots,
                                 num_slots, bits)
     _check_cuda(records, r1, r2, meta, wsel, kslots)
+    out = torch.empty(num_slots, dtype=torch.int32, device=records.device)
+    if num_slots == 0:
+        return out
+    _count_cuda(records, r1, r2, meta, wsel, kslots, num_slots, bits, out)
+    LAUNCHES["count_pass"] += 1
+    return out
+
+
+def _count_cuda(records, r1, r2, meta, wsel, kslots, num_slots, bits,
+                out) -> None:
+    """`count_pass`'s launch alone, on checked arguments, into ``out``
+    [num_slots] (num_slots >= 1)."""
     nc, W, C = records.shape
     dev = records.device
-    out = torch.zeros(num_slots, dtype=torch.int32, device=dev)
+    ordinal = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
+    _, grid = count_launch_shape(nc, num_slots,
+                                 *_count_shape(ordinal, num_slots))
+    vec = int(C % 4 == 0 and records.data_ptr() % 16 == 0)
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        sc = _count_scratch_for(dev, ordinal, stream, num_slots)
         err = _lib()["lgbt_count_pass"](
             records.data_ptr(), nc, W, C, r1.data_ptr(), r2.data_ptr(),
             meta.data_ptr(), wsel.data_ptr(), kslots.data_ptr(), num_slots,
-            bits, out.data_ptr(), _stream(dev))
-    _raise_on(err, "count_pass")
-    LAUNCHES["count_pass"] += 1
-    return out
+            bits, vec, grid, sc.data_ptr(),
+            sc.data_ptr() + 4 * (sc.numel() - 1), out.data_ptr(), stream)
+    if err != 0:
+        _count_scratch.pop((ordinal, stream), None)
+        raise RuntimeError(f"count_pass kernel launch failed: CUDA error "
+                           f"{err} (CTAs={grid}, slots={num_slots})")
 
 
 def move_pass(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,

@@ -43,9 +43,22 @@
 //     ncnt), which slot_hist_kernel reads next.
 // No CTA waits on a chunk after its own, so the walk cannot deadlock, and
 // the result is the stable partition in (chunk, row) order whatever the
-// order the CTAs run in. The smaller child's histogram is then
+// order the CTAs run in (the helpers are in partition.cuh, shared with
+// P2's move in proto.cu). The smaller child's histogram is then
 // slot_hist_kernel over the child's now contiguous chunks; the tree's
 // root (B4) is the same kernel over every chunk.
+//
+// The count pass (B3, count_kernel) replaces _count_kernel
+// (lightgbm_tpu/ops/aligned.py:986, pallas_call at :1056), which walks the
+// chunks in grid order and adds each one's left rows to its slot's SMEM
+// cell. It reads one word a counted row (~42 MB, 12.6 us at the widest
+// big-n round of HIGGS), so a CTA a chunk spent more on scheduling and a
+// block-wide reduction than on its 4 KB: one launch of a persistent grid
+// (the CTAs an SM the occupancy calculator fits), each warp taking whole
+// chunks with four 16-byte loads in flight a thread, shared u32 counters
+// a slot, one red a touched slot into a per-stream scratch, and the last
+// CTA by ticket writing the output and zeroing the scratch (fixed_point.cuh's
+// last_to_arrive), so the output needs no memset.
 //
 // slot_hist_kernel's design is P1's (proto.cu, redesigned for Hopper
 // first), carried over to the engine's records:
@@ -84,7 +97,8 @@
 //
 // What bounds them on an H100: bytes. The partition reads every row's
 // used lanes once and writes them once (the staged split word is ranked
-// from shared memory); the count reads one word a row; the histogram
+// from shared memory); the count reads one word a counted row; the
+// histogram
 // reads the bin words and the two payload lanes of its rows.
 // The 3 adds per (row, feature) are far below the card's f32 rate.
 //
@@ -102,18 +116,18 @@
 #include <cuda_runtime.h>
 
 #include "fixed_point.cuh"
+#include "partition.cuh"
 #include "xla_math.cuh"
 
 namespace {
 
 constexpr int kStats = 3;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kShift = 8, kDefLeft = 13, kMissing = 14, kCopy = 16;
 constexpr int kCntMask = (1 << 20) - 1;
 constexpr int kFirst = 20, kLast = 21;
 constexpr int kMetaLabel = 24, kMetaLabelMask = 127;
 constexpr int kGradLanes = 0, kGradBinary = 1, kGradL2 = 2;
-constexpr int kThreads = 256;      // count CTAs
+constexpr int kCountThreads = 256;  // count CTAs, 4 an SM
 constexpr int kMoveThreads = 256;  // partition CTAs, 4 an SM
 constexpr int kHistThreads = 1024;  // slot_hist CTAs (ops/aligned.py)
 
@@ -162,139 +176,102 @@ __device__ __forceinline__ void payload(const int32_t* chunk, int C, int r,
   h = __fmul_rn(__fmul_rn(absr, __fsub_rn(sig, absr)), lw);
 }
 
-__device__ __forceinline__ int block_sum(int v) {
-  __shared__ int part[32];
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) part[warp] = v;
-  __syncthreads();
-  int s = 0;
-  if (threadIdx.x == 0) {
-    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) s += part[w];
+// The left rows of one chunk's rows r < cnt, one warp: the split word's
+// lane read with 16-byte loads (vec: C % 4 == 0 and the records 16-byte
+// aligned, so every lane of every chunk is), four in flight a thread, or
+// one word at a time; each thread counts its rows, one warp sum. Valid in
+// every lane.
+__device__ __forceinline__ int warp_left_rows(const int32_t* word, int cnt,
+                                              bool vec, int shift, int mask,
+                                              int r1c, int r2c, int lane) {
+  int n = 0;
+  if (vec) {
+    const int4* w4 = reinterpret_cast<const int4*>(word);
+    const int n4 = (cnt + 3) >> 2;     // 4 n4 <= C: within the lane
+    for (int i0 = lane; i0 < n4; i0 += 4 * 32) {
+      int4 v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = i0 + 32 * j;
+        v[j] = i < n4 ? __ldg(w4 + i) : make_int4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = 4 * (i0 + 32 * j);
+        n += (r < cnt && goes_left((v[j].x >> shift) & mask, r1c, r2c))
+            + (r + 1 < cnt && goes_left((v[j].y >> shift) & mask, r1c, r2c))
+            + (r + 2 < cnt && goes_left((v[j].z >> shift) & mask, r1c, r2c))
+            + (r + 3 < cnt && goes_left((v[j].w >> shift) & mask, r1c, r2c));
+      }
+    }
+  } else {
+    for (int r = lane; r < cnt; r += 32) {
+      n += goes_left((__ldg(word + r) >> shift) & mask, r1c, r2c);
+    }
   }
-  return s;   // valid in thread 0
+  return __reduce_add_sync(kFull, n);
 }
 
-// Left rows per chunk (B3): chunks with kslots in [0, num_slots) add
-// their count to slot_out[kslots] (integer atomics: exact).
-__global__ void count_kernel(const int32_t* __restrict__ rec, int W, int C,
-                             const int32_t* __restrict__ r1,
-                             const int32_t* __restrict__ r2,
-                             const int32_t* __restrict__ meta,
-                             const int32_t* __restrict__ wsel,
-                             const int32_t* __restrict__ kslots,
-                             int num_slots, int bits,
-                             int32_t* __restrict__ slot_out) {
-  const long long c = blockIdx.x;
-  const int cnt = meta[c] & kCntMask;
-  const int ks = kslots[c];
-  if (ks < 0 || ks >= num_slots || cnt == 0) return;
-  const int r1c = r1[c], r2c = r2[c];
-  const int shift = (r1c >> kShift) & 31, mask = (1 << bits) - 1;
-  const int32_t* word = rec + (c * W + wsel[c]) * static_cast<long long>(C);
-  int n = 0;
-  for (int r = threadIdx.x; r < cnt; r += blockDim.x) {
-    n += goes_left((word[r] >> shift) & mask, r1c, r2c) ? 1 : 0;
+// Left rows per slot (B3), one launch: the chunks with kslots in
+// [0, num_slots) add their left rows r < min(meta count, C) to
+// out[kslots]; every other slot is 0. A persistent grid of CTAs of
+// kCountThreads; each warp takes every (grid warps)-th chunk, counts it
+// alone and adds it to the CTA's u32 counter of its slot in shared memory
+// (a slot's chunks need not be neighbours). The CTA adds each of its
+// non-zero counters to the scratch (u32 [num_slots], zero between calls)
+// with one red, takes the ticket, and the last CTA writes out and zeroes
+// the scratch and the ticket for the next call on the stream. Integer
+// adds: exact, in any order.
+__global__ void __launch_bounds__(kCountThreads, 4)
+count_kernel(const int32_t* __restrict__ rec, long long nc, int W, int C,
+             const int32_t* __restrict__ r1, const int32_t* __restrict__ r2,
+             const int32_t* __restrict__ meta,
+             const int32_t* __restrict__ wsel,
+             const int32_t* __restrict__ kslots, int num_slots, int bits,
+             int vec, unsigned* __restrict__ scratch,
+             unsigned* __restrict__ ticket, int32_t* __restrict__ out) {
+  extern __shared__ unsigned slot_left[];        // [num_slots]
+  for (int i = threadIdx.x; i < num_slots; i += kCountThreads) {
+    slot_left[i] = 0u;
   }
-  const int total = block_sum(n);
-  if (threadIdx.x == 0 && total != 0) atomicAdd(slot_out + ks, total);
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const long long warps = static_cast<long long>(gridDim.x)
+      * (kCountThreads / 32);
+  const int mask = (1 << bits) - 1;
+  for (long long c = static_cast<long long>(blockIdx.x)
+           * (kCountThreads / 32) + (threadIdx.x >> 5);
+       c < nc; c += warps) {
+    const int ks = kslots[c];
+    const int cnt = min(meta[c] & kCntMask, C);
+    if (ks < 0 || ks >= num_slots || cnt == 0) continue;   // warp-uniform
+    const int r1c = r1[c];
+    const int32_t* word =
+        rec + (c * W + wsel[c]) * static_cast<long long>(C);
+    const int n = warp_left_rows(word, cnt, vec != 0, (r1c >> kShift) & 31,
+                                 mask, r1c, r2[c], lane);
+    if (lane == 0 && n != 0) {
+      atomicAdd(slot_left + ks, static_cast<unsigned>(n));
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < num_slots; i += kCountThreads) {
+    if (slot_left[i] != 0u) red_add(scratch + i, slot_left[i]);
+  }
+  if (last_to_arrive(ticket, gridDim.x)) {
+    __threadfence();
+    for (int i = threadIdx.x; i < num_slots; i += kCountThreads) {
+      out[i] = static_cast<int32_t>(__ldcg(scratch + i));
+      scratch[i] = 0u;
+    }
+    if (threadIdx.x == 0) *ticket = 0u;
+  }
 }
 
 // ---------------------------------------------------------------------------
 // The partition (B2): one launch, decoupled look-back over chunk tickets
+// (the flag words, stage and ranking helpers are in partition.cuh)
 // ---------------------------------------------------------------------------
-// A chunk's flag word: state << 62 | valid << 31 | left, state 0 while
-// nothing is published, kAggregate for the chunk's own (left, valid) and
-// kInclusive for the sums over its block up to and including it. A block
-// holds at most 2^31 - 1 rows.
-constexpr unsigned long long kAggregate = 1ull << 62;
-constexpr unsigned long long kInclusive = 2ull << 62;
-constexpr unsigned long long kField = (1ull << 31) - 1;
-
-__device__ __forceinline__ unsigned long long flag_word(
-    unsigned long long state, int left, int valid) {
-  return state | (static_cast<unsigned long long>(valid) << 31)
-      | static_cast<unsigned long long>(left);
-}
-
-__device__ __forceinline__ void publish(unsigned long long* flag,
-                                        unsigned long long v) {
-  *reinterpret_cast<volatile unsigned long long*>(flag) = v;
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// The staging mbarrier: one arrival (the issuing thread) plus the bulk
-// copy's transaction bytes complete a phase.
-__device__ __forceinline__ void stage_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
-               :: "r"(smem_u32(bar)) : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
-// src into shared dst by the bulk-copy engine, completing on bar
-__device__ __forceinline__ void stage_load(void* dst, const void* src,
-                                           unsigned bytes,
-                                           unsigned long long* bar) {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];"
-      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void stage_wait(unsigned long long* bar,
-                                           unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  }
-}
-
-// Warp 0: the sums (left, valid) of the chunks of c's block before c,
-// from their flag words, a window of 32 predecessors at a time; stops at
-// the nearest inclusive prefix (a block's first chunk publishes one at
-// once). Valid in every lane.
-__device__ __forceinline__ void look_back(const unsigned long long* flags,
-                                          long long c, int lane,
-                                          int& ex_left, int& ex_valid) {
-  ex_left = 0;
-  ex_valid = 0;
-  for (long long j = c - 1;; j -= 32) {
-    const long long idx = j - lane;
-    unsigned long long f = flag_word(kInclusive, 0, 0);
-    if (idx >= 0) {
-      const volatile unsigned long long* p = flags + idx;
-      do {
-        f = *p;
-      } while ((f >> 62) == 0);
-    }
-    const unsigned incl = __ballot_sync(kFull, (f >> 62) == 2);
-    const int stop = incl != 0u ? __ffs(incl) - 1 : 31;
-    int l = lane <= stop ? static_cast<int>(f & kField) : 0;
-    int v = lane <= stop ? static_cast<int>((f >> 31) & kField) : 0;
-    for (int o = 16; o > 0; o >>= 1) {
-      l += __shfl_xor_sync(kFull, l, o);
-      v += __shfl_xor_sync(kFull, v, o);
-    }
-    ex_left += l;
-    ex_valid += v;
-    if (incl != 0u) return;
-  }
-}
-
 // One CTA a chunk, by ticket. A split chunk (copy bit clear) sends its
 // valid rows to the left child's chunks from basel[c] or the right's from
 // baser[c], after the rows of its block's earlier chunks, in row order; a
@@ -327,7 +304,7 @@ partition_kernel(const int32_t* __restrict__ rec, int W, int C, int w_used,
       part_smem + 16 + 4LL * lanes * C + ((2 * C + 15) & ~15));
   int* prefix = reinterpret_cast<int*>(ballot + nw);
   __shared__ long long s_chunk;
-  __shared__ int s_left, s_ex_left, s_ex_valid;
+  __shared__ int s_ex_left, s_ex_valid;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (tid == 0) s_chunk = atomicAdd(ticket, 1u);
@@ -362,31 +339,9 @@ partition_kernel(const int32_t* __restrict__ rec, int W, int C, int w_used,
                                  : src + static_cast<long long>(ws) * C;
     const int r2c = r2[c];
     const int shift = (r1c >> kShift) & 31, mask = (1 << bits) - 1;
-    for (int w = warp; w < nw; w += kMoveThreads / 32) {
-      const int r = (w << 5) + lane;
-      const bool left = r < cnt && goes_left((word[r < C ? r : 0] >> shift)
-                                             & mask, r1c, r2c);
-      const unsigned b = __ballot_sync(kFull, left);
-      if (lane == 0) ballot[w] = b;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      int carry = 0;
-      for (int w0 = 0; w0 < nw; w0 += 32) {
-        const int w = w0 + lane;
-        const int v = w < nw ? __popc(ballot[w]) : 0;
-        int incl = v;
-        for (int o = 1; o < 32; o <<= 1) {
-          const int t = __shfl_up_sync(kFull, incl, o);
-          if (lane >= o) incl += t;
-        }
-        if (w < nw) prefix[w] = carry + incl - v;
-        carry += __shfl_sync(kFull, incl, 31);
-      }
-      if (lane == 0) s_left = carry;
-    }
-    __syncthreads();
-    agg_left = s_left;
+    agg_left = rank_rows(cnt, nw, kMoveThreads, ballot, prefix, [&](int r) {
+      return goes_left((word[r < C ? r : 0] >> shift) & mask, r1c, r2c);
+    });
     agg_valid = cnt;
   }
   // 3. publish the aggregate (a block's first chunk: its inclusive prefix)
@@ -403,13 +358,7 @@ partition_kernel(const int32_t* __restrict__ rec, int W, int C, int w_used,
     for (int i = tid; i < n4; i += kMoveThreads) d4[i] = s4[i];
   }
   if (moves) {
-    for (int r = tid; r < cnt; r += kMoveThreads) {
-      const unsigned b = ballot[r >> 5];
-      const int bit = r & 31;
-      const int rank = prefix[r >> 5] + __popc(b & ((1u << bit) - 1u));
-      perm[(b >> bit) & 1u ? rank : agg_left + r - rank] =
-          static_cast<unsigned short>(r);
-    }
+    invert_ranks(cnt, agg_left, tid, kMoveThreads, ballot, prefix, perm);
   }
   // 5. the block's rows before this chunk (warp 0), then the inclusive
   //    prefix
@@ -672,20 +621,52 @@ int check() { return static_cast<int>(cudaGetLastError()); }
 
 extern "C" {
 
-// B3: slot_out[num_slots] (zeroed by the caller) += left rows of each chunk
-// whose kslots entry is a slot. Returns the CUDA error code (0 = ok).
-int lgbt_count_pass(const void* rec, int nc, int W, int C, const void* r1,
-                    const void* r2, const void* meta, const void* wsel,
-                    const void* kslots, int num_slots, int bits,
-                    void* slot_out, void* stream) {
-  if (nc == 0) return 0;
-  count_kernel<<<nc, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(rec), W, C,
+// B3: out[num_slots] = left rows of the chunks whose kslots entry is that
+// slot, in one launch of `grid` CTAs with num_slots u32 of dynamic shared
+// memory (ops/aligned.py::count_launch_shape); scratch (u32 [num_slots])
+// and ticket are zero before and after the call. vec: C % 4 == 0 and rec
+// 16-byte aligned. Returns the CUDA error code (0 = ok).
+int lgbt_count_pass(const void* rec, long long nc, int W, int C,
+                    const void* r1, const void* r2, const void* meta,
+                    const void* wsel, const void* kslots, int num_slots,
+                    int bits, int vec, int grid, void* scratch,
+                    void* ticket, void* out, void* stream) {
+  const int smem = static_cast<int>(sizeof(unsigned)) * num_slots;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  count_kernel<<<grid, kCountThreads, smem,
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(rec), nc, W, C,
       static_cast<const int32_t*>(r1), static_cast<const int32_t*>(r2),
       static_cast<const int32_t*>(meta), static_cast<const int32_t*>(wsel),
-      static_cast<const int32_t*>(kslots), num_slots, bits,
-      static_cast<int32_t*>(slot_out));
+      static_cast<const int32_t*>(kslots), num_slots, bits, vec,
+      static_cast<unsigned*>(scratch), static_cast<unsigned*>(ticket),
+      static_cast<int32_t*>(out));
   return check();
+}
+
+// CTAs of count_kernel that the CUDA occupancy calculator fits on an SM
+// of the current device with `smem` bytes of dynamic shared memory each;
+// 0 where they do not fit, -1 on a CUDA error. The kernel's opt-in is
+// raised only above the default 48 KB, never lowered (a later call with
+// more slots launches within it).
+int lgbt_count_occupancy(int smem) {
+  int n = -1;
+  if (smem > 48 * 1024
+      && cudaFuncSetAttribute(count_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem) != cudaSuccess) {
+    cudaGetLastError();                  // too much: clear the error
+    return 0;
+  }
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, count_kernel, kCountThreads, smem) != cudaSuccess) {
+    return -1;
+  }
+  return n;
 }
 
 // B2, the partition, into out ([NC, W, C], rows outside the new layout

@@ -25,11 +25,24 @@
 //      block at each run's first chunk, so only the last run survives);
 //      slot_hist_kernel then sums the chunks of those runs into f64 (its
 //      design is below) and hist_finalize_kernel rounds them to f32 once;
-//   P2 move_count_kernel counts each chunk's left rows, move_scan_kernel
-//      (one CTA) scans them within each block, move_scatter_kernel ranks
-//      each chunk's rows with warp ballots and writes all 16 lanes of a
-//      row to its destination: B2's design without the histogram; no
-//      staging ring is needed;
+//   P2 move_kernel is B2's one-launch partition (aligned.cu; helpers in
+//      partition.cuh) over all 16 lanes, after one memset of its flag
+//      words and ticket, with one change: a CTA takes a tile of chunks
+//      (2,048 rows) by ticket, ranks the whole tile from the chunks'
+//      split words read straight from global memory, publishes one flag
+//      a tile and walks back over the tiles before it (segmented at the
+//      first bit and after the last bit) while the bulk copies of its
+//      first two chunks land, then stores the chunks in turn, each
+//      lane's left and right runs contiguous, each stage refilled two
+//      chunks ahead; rows whose destination chunk lies outside
+//      [0, nc_out) are dropped. B2's chunk a CTA (each CTA's ticket,
+//      copy, rank, walk and stores in series) ran at 0.76 ms on an
+//      H100 at the harness's C = 256, a persistent grid that took its
+//      next chunk before finishing the current one at 1.02 (the early
+//      ticket's flag waited for that CTA, and the next walks with it),
+//      the tiles at 0.52; 16-byte stores of four rows, streaming
+//      stores and more CTAs an SM did not help (PERF.md). It replaced a
+//      count, a one-CTA scan and a scatter;
 //   P3 ring_count_kernel counts each chunk's left rows, ring_scan_kernel
 //      (one CTA) gives every row its index among its side's rows (left
 //      row L sits at ring position L mod 2C of its lap L / 2C), and
@@ -44,7 +57,8 @@
 //
 // What bounds them on an H100: bytes. P1 reads the seven bin words and
 // the two payload lanes of every valid row (36 B) and writes the slots'
-// histograms; P2 reads and writes every valid row (64 B each way); P3
+// histograms; P2 reads and writes every valid row (64 B each way: 0.30 ms
+// at the harness's 7.9M valid rows), and the split word once more; P3
 // reads lane 0 of every row. The arithmetic is a few integer operations a
 // row (P1: 3 adds a row and feature) and far below the card's rates. What
 // holds P1 back in practice is its shared-memory atomics: five for every
@@ -88,14 +102,17 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "partition.cuh"
+
 namespace {
 
 constexpr int kW = 16;                 // record lanes
 constexpr int kWords = 7;              // packed bin words (28 features)
 constexpr int kLaneG = kWords, kLaneH = kWords + 1;
 constexpr int kStats = 3;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kThreads = 256;          // move count/scatter CTAs
+constexpr int kThreads = 256;          // P3 count/resolve CTAs
+constexpr int kMoveThreads = 256;      // P2 CTAs, 4 an SM
+constexpr int kMaxTile = 32;           // P2 chunks a tile (warp 0's scan)
 constexpr int kHistThreads = 1024;     // P1 slot_hist CTAs (ops/proto.py)
 constexpr int kScanThreads = 1024;
 constexpr int kRollThreshold = 31;     // P3: left iff (lane 0 & 255) <= 31
@@ -104,19 +121,6 @@ constexpr int kWsel = 0, kShift = 1, kThr = 2, kBaseL = 3, kBaseR = 4;
 constexpr int kFirst = 5, kLast = 6, kCnt = 7, kParams = 8;
 
 int check() { return static_cast<int>(cudaGetLastError()); }
-
-__device__ __forceinline__ int block_sum(int v) {
-  __shared__ int part[32];
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) part[warp] = v;
-  __syncthreads();
-  int s = 0;
-  if (threadIdx.x == 0) {
-    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) s += part[w];
-  }
-  return s;   // valid in thread 0
-}
 
 // ---------------------------------------------------------------------------
 // P1: slot-mapped histogram
@@ -373,141 +377,200 @@ __global__ void hist_finalize_kernel(const double* __restrict__ gh,
 }
 
 // ---------------------------------------------------------------------------
-// P2: move
+// P2: move, B2's one-launch partition (the helpers are in partition.cuh)
 // ---------------------------------------------------------------------------
-// the rows of chunk c: (wsel, shift, thr) of its params, valid rows
-// min(cnt, C)
-struct MoveChunk {
-  const int32_t* word;   // nullptr: word 0 (wsel >= 7)
-  int shift, thr, cnt;
-};
-
-__device__ __forceinline__ MoveChunk move_chunk(const int32_t* rec, int C,
-                                                const int32_t* p,
-                                                long long c) {
-  MoveChunk m;
-  const int wsel = p[kWsel];
-  m.word = wsel < kWords
-      ? rec + (c * kW + wsel) * static_cast<long long>(C) : nullptr;
-  m.shift = p[kShift];
-  m.thr = p[kThr];
-  m.cnt = min(p[kCnt], C);
-  return m;
-}
-
-__device__ __forceinline__ bool move_left(const MoveChunk& m, int r) {
-  const int word = m.word != nullptr ? m.word[r] : 0;
-  return ((word >> m.shift) & 255) <= m.thr;      // arithmetic shift
-}
-
+// Whether chunk c starts a block: chunk 0, a chunk with the first bit, or
+// one after a chunk with the last bit.
 __device__ __forceinline__ bool move_block_start(const int32_t* params,
-                                                 int c) {
+                                                 long long c) {
   return c == 0 || params[c * kParams + kFirst] != 0
       || params[(c - 1) * kParams + kLast] != 0;
 }
 
-// left rows per chunk, one CTA a chunk
-__global__ void move_count_kernel(const int32_t* __restrict__ rec, int C,
-                                  const int32_t* __restrict__ params,
-                                  int32_t* __restrict__ lcnt) {
-  const long long c = blockIdx.x;
-  const MoveChunk m = move_chunk(rec, C, params + c * kParams, c);
-  int n = 0;
-  for (int r = threadIdx.x; r < m.cnt; r += blockDim.x) {
-    n += move_left(m, r) ? 1 : 0;
-  }
-  const int total = block_sum(n);
-  if (threadIdx.x == 0) lcnt[c] = total;
-}
-
-// One CTA: exclusive left/right prefixes of each chunk within its block.
-__global__ void move_scan_kernel(int nc, int C,
-                                 const int32_t* __restrict__ params,
-                                 const int32_t* __restrict__ lcnt,
-                                 int32_t* __restrict__ pl,
-                                 int32_t* __restrict__ pr) {
-  __shared__ int tl[kScanThreads], tv[kScanThreads], th[kScanThreads];
-  const int t = threadIdx.x, T = blockDim.x;
-  const int per = (nc + T - 1) / T;
-  const int lo = min(nc, t * per), hi = min(nc, lo + per);
-  int sl = 0, sv = 0, has = 0;
-  for (int c = lo; c < hi; ++c) {
-    if (move_block_start(params, c)) { sl = 0; sv = 0; has = 1; }
-    sl += lcnt[c];
-    sv += min(params[c * kParams + kCnt], C);
-  }
-  tl[t] = sl; tv[t] = sv; th[t] = has;
-  __syncthreads();
-  if (t == 0) {       // carries between the threads' ranges, in order
-    int cl = 0, cv = 0;
-    for (int i = 0; i < T; ++i) {
-      const int a = tl[i], b = tv[i], h = th[i];
-      tl[i] = cl; tv[i] = cv;
-      if (h) { cl = a; cv = b; } else { cl += a; cv += b; }
-    }
-  }
-  __syncthreads();
-  int rl = tl[t], rv = tv[t];
-  for (int c = lo; c < hi; ++c) {
-    if (move_block_start(params, c)) { rl = 0; rv = 0; }
-    pl[c] = rl;
-    pr[c] = rv - rl;
-    rl += lcnt[c];
-    rv += min(params[c * kParams + kCnt], C);
-  }
-}
-
-// One CTA a chunk: its valid rows go, in row order, to the left rows'
-// chunks from baseL or the right rows' from baseR, after the block's
-// earlier rows; every lane moves, and a destination chunk outside
-// [0, nc_out) drops the row.
-__global__ void move_scatter_kernel(const int32_t* __restrict__ rec, int C,
-                                    int nc_out,
-                                    const int32_t* __restrict__ params,
-                                    const int32_t* __restrict__ pl,
-                                    const int32_t* __restrict__ pr,
-                                    int32_t* __restrict__ out) {
-  __shared__ int wl[kThreads / 32], wr[kThreads / 32];
-  const long long c = blockIdx.x;
-  const int32_t* p = params + c * kParams;
-  const MoveChunk m = move_chunk(rec, C, p, c);
-  if (m.cnt <= 0) return;
+// One CTA a tile of `tile` consecutive chunks (at most kMaxTile), tiles
+// taken by ticket. Chunk c's rows r < min(cnt, C) go left when ((word >>
+// shift) & 255) <= thr (word: lane wsel of the chunk, 0 from lane 7 on;
+// the shift arithmetic), the left rows to the chunks from baseL and the
+// right rows to the chunks from baseR (its own params), after the rows
+// of its block's earlier chunks, all 16 lanes, each lane's left and right
+// runs contiguous; a row whose destination chunk lies outside
+// [0, nc_out) is dropped.
+//
+// Only the split words are on the look-back's path: the CTA starts the
+// bulk copies of its first chunks, ranks every chunk of the tile from its
+// split word read straight from global memory (4 B a row), publishes the
+// tile's flag (a segmented sum: inclusive from the tile's last block
+// start, if it holds one) and walks back over the tiles before it, while
+// the copies land; it then stores the chunks one after another, each
+// stage refilled with the chunk `stages` ahead as soon as its stores are
+// issued. flags [tiles] and *ticket come in zeroed. Shared memory: two
+// mbarriers (16 B), the stages (stages x 16 x C words), the permutations
+// (tile x C u16, padded to 16 B), the ballots and their prefix (2 x tile x
+// ceil(C / 32) words).
+__global__ void __launch_bounds__(kMoveThreads, 4)
+move_kernel(const int32_t* __restrict__ rec, long long nc, int C, int tile,
+            int stages, int nc_out, const int32_t* __restrict__ params,
+            unsigned long long* __restrict__ flags,
+            unsigned* __restrict__ ticket, int32_t* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char move_smem[];
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(move_smem);
   const long long cw = static_cast<long long>(kW) * C;
-  const int32_t* src = rec + c * cw;
-  const long long bl = p[kBaseL], br = p[kBaseR];
-  int run_l = pl[c], run_r = pr[c];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const unsigned below = (1u << lane) - 1u;
-  for (int t0 = 0; t0 < m.cnt; t0 += blockDim.x) {
-    const int r = t0 + threadIdx.x;
-    const bool valid = r < m.cnt;
-    const bool left = valid && move_left(m, r);
-    const unsigned ml = __ballot_sync(kFull, left);
-    const unsigned mr = __ballot_sync(kFull, valid && !left);
-    if (lane == 0) { wl[warp] = __popc(ml); wr[warp] = __popc(mr); }
-    __syncthreads();
-    int off_l = 0, off_r = 0, tot_l = 0, tot_r = 0;
-    for (int w = 0; w < nwarps; ++w) {
-      if (w < warp) { off_l += wl[w]; off_r += wr[w]; }
-      tot_l += wl[w];
-      tot_r += wr[w];
+  int32_t* stage0 = reinterpret_cast<int32_t*>(move_smem + 16);
+  unsigned short* perm =
+      reinterpret_cast<unsigned short*>(stage0 + stages * cw);
+  const int nw = (C + 31) >> 5;
+  unsigned* ballot = reinterpret_cast<unsigned*>(
+      reinterpret_cast<unsigned char*>(perm) + ((2 * tile * C + 15) & ~15));
+  int* prefix = reinterpret_cast<int*>(ballot + tile * nw);
+  __shared__ long long s_tile;
+  // each chunk of the tile: valid and left rows, the rows of its block
+  // before it (left, valid), split word lane, shift, threshold, block start
+  __shared__ int s_cnt[kMaxTile], s_left[kMaxTile], s_pl[kMaxTile],
+      s_pv[kMaxTile], s_wsel[kMaxTile], s_shift[kMaxTile], s_thr[kMaxTile];
+  __shared__ bool s_start[kMaxTile];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int kWarps = kMoveThreads / 32;
+  if (tid == 0) {
+    const long long t = atomicAdd(ticket, 1u);
+    s_tile = t;
+    stage_init(bar);
+    if (stages == 2) stage_init(bar + 1);
+    const long long c0 = t * tile;
+    const int n = static_cast<int>(min(static_cast<long long>(tile),
+                                       nc - c0));
+    for (int j = 0; j < min(stages, n); ++j) {
+      stage_load(stage0 + j * cw, rec + (c0 + j) * cw,
+                 4u * static_cast<unsigned>(cw), bar + j);
     }
-    if (valid) {
-      const long long d = left ? run_l + off_l + __popc(ml & below)
-                               : run_r + off_r + __popc(mr & below);
-      const long long dc = (left ? bl : br) + d / C;
-      if (dc >= 0 && dc < nc_out) {
-        int32_t* dst = out + dc * cw + d % C;
-        for (int u = 0; u < kW; ++u) {
-          dst[static_cast<long long>(u) * C] =
-              src[static_cast<long long>(u) * C + r];
-        }
+  }
+  __syncthreads();
+  const long long t = s_tile;
+  const long long c0 = t * tile;
+  const int n = static_cast<int>(min(static_cast<long long>(tile),
+                                     nc - c0));
+  if (tid < n) {
+    const int32_t* p = params + (c0 + tid) * kParams;
+    s_cnt[tid] = min(p[kCnt], C);
+    s_wsel[tid] = p[kWsel];
+    s_shift[tid] = p[kShift];
+    s_thr[tid] = p[kThr];
+    s_start[tid] = move_block_start(params, c0 + tid);
+  }
+  __syncthreads();
+  // 1. a ballot a word of 32 rows of every chunk of the tile, four words
+  //    of a warp's loads in flight at a time
+  const int words = n * nw;
+  for (int g0 = warp; g0 < words; g0 += 4 * kWarps) {
+    int v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int g = g0 + u * kWarps;
+      const int j = g / nw, r = (g - j * nw) * 32 + lane;
+      v[u] = g < words && r < s_cnt[j] && s_wsel[j] < kWords
+          ? __ldg(rec + ((c0 + j) * kW + s_wsel[j]) * C + r) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int g = g0 + u * kWarps;
+      if (g >= words) break;                       // uniform over the warp
+      const int j = g / nw, r = (g - j * nw) * 32 + lane;
+      const bool left = r < s_cnt[j]
+          && (s_wsel[j] >= kWords
+              || ((v[u] >> s_shift[j]) & 255) <= s_thr[j]);
+      const unsigned b = __ballot_sync(kFull, left);
+      if (lane == 0) ballot[g] = b;
+    }
+  }
+  __syncthreads();
+  // 2. each chunk's left rows before each of its words
+  for (int j = warp; j < n; j += kWarps) {
+    const int left = ballot_prefix(ballot + j * nw, prefix + j * nw, nw,
+                                   lane);
+    if (lane == 0) s_left[j] = left;
+  }
+  __syncthreads();
+  // 3. warp 0: the tile's segmented sums, its flag, the walk back over
+  //    earlier tiles and each chunk's rows of its block before it; the
+  //    other warps invert the ranks meanwhile
+  if (warp == 0) {
+    const bool in = lane < n;
+    const int own_l = in ? s_left[lane] : 0, own_v = in ? s_cnt[lane] : 0;
+    int l = own_l, v = own_v;
+    bool f = in && s_start[lane];                  // a start at or before
+    for (int o = 1; o < 32; o <<= 1) {
+      const int yl = __shfl_up_sync(kFull, l, o);
+      const int yv = __shfl_up_sync(kFull, v, o);
+      const bool yf = __shfl_up_sync(kFull, f, o);
+      if (lane >= o && !f) {
+        l += yl;
+        v += yv;
+      }
+      if (lane >= o) f = f || yf;
+    }
+    const int tot_l = __shfl_sync(kFull, l, n - 1);
+    const int tot_v = __shfl_sync(kFull, v, n - 1);
+    const bool cut = __shfl_sync(kFull, f, n - 1); // a start in the tile
+    if (lane == 0) {
+      publish(flags + t, flag_word(cut ? kInclusive : kAggregate, tot_l,
+                                   tot_v));
+    }
+    int ex_left = 0, ex_valid = 0;
+    if (!s_start[0]) {
+      look_back(flags, t, lane, ex_left, ex_valid);
+      if (lane == 0 && !cut) {
+        publish(flags + t, flag_word(kInclusive, ex_left + tot_l,
+                                     ex_valid + tot_v));
       }
     }
-    run_l += tot_l;
-    run_r += tot_r;
-    __syncthreads();
+    if (in) {
+      s_pl[lane] = l - own_l + (f ? 0 : ex_left);
+      s_pv[lane] = v - own_v + (f ? 0 : ex_valid);
+    }
+  } else {
+    for (int j = 0; j < n; ++j) {
+      if (s_wsel[j] < kWords) {
+        invert_ranks(s_cnt[j], s_left[j], tid - 32, kMoveThreads - 32,
+                     ballot + j * nw, prefix + j * nw, perm + j * C);
+      }
+    }
+  }
+  __syncthreads();
+  // 4. the chunks in turn: each lane's left run to baseL's chunks from
+  //    the block's left rows before it, its right run to baseR's;
+  //    destinations outside [0, nc_out) dropped; a block's rows, and so
+  //    d, stay below 2^31 (the flag words' fields)
+  for (int j = 0; j < n; ++j) {
+    const int si = j % stages;
+    stage_wait(bar + si, (j / stages) & 1);
+    const int32_t* stage = stage0 + si * cw;
+    const int32_t* p = params + (c0 + j) * kParams;
+    const long long bl = p[kBaseL], br = p[kBaseR];
+    const int cnt = s_cnt[j], agg_left = s_left[j];
+    const int pl = s_pl[j], pr = s_pv[j] - s_pl[j];
+    const bool all_left = s_wsel[j] >= kWords;
+    const unsigned short* pj = perm + j * C;
+    for (int k = tid; k < cnt; k += kMoveThreads) {
+      const bool left = k < agg_left;
+      const int d = left ? pl + k : pr + (k - agg_left);
+      const int q = d / C;
+      const long long dc = (left ? bl : br) + q;
+      if (dc < 0 || dc >= nc_out) continue;
+      int32_t* dst = out + dc * cw + (d - q * C);
+      const int32_t* from = stage + (all_left ? k : pj[k]);
+#pragma unroll
+      for (int u = 0; u < kW; ++u) {
+        dst[static_cast<long long>(u) * C] =
+            from[static_cast<long long>(u) * C];
+      }
+    }
+    if (j + stages < n) {
+      __syncthreads();                 // the stage's readers are done
+      if (tid == 0) {
+        stage_load(stage0 + si * cw, rec + (c0 + j + stages) * cw,
+                   4u * static_cast<unsigned>(cw), bar + si);
+      }
+    }
   }
 }
 
@@ -705,26 +768,33 @@ int lgbt_proto_slot_hist(const void* rec, int nc, int C, const void* slots,
 
 // P2: out [nc_out, 16, C]; params [nc, 8] int32 (wsel, shift, thr,
 // baseL, baseR, first, last, cnt), checked by the caller (shift in
-// [0, 32), cnt >= 0); lcnt, pl, pr: [nc] scratch.
-int lgbt_proto_move(const void* rec, int nc, int C, const void* params,
-                    int nc_out, void* lcnt, void* pl, void* pr, void* out,
-                    void* stream) {
+// [0, 32), cnt >= 0); rec 16-byte aligned. One memset of scratch (the
+// flag words of the ceil(nc / tile) tiles, u64, then the ticket), then
+// one launch of move_kernel, a CTA a tile of `tile` chunks with `stages`
+// chunk stages and `smem` bytes of dynamic shared memory
+// (ops/proto.py::move_smem).
+int lgbt_proto_move(const void* rec, int nc, int C, int tile, int stages,
+                    int smem, const void* params, int nc_out, void* scratch,
+                    void* out, void* stream) {
   if (nc == 0) return 0;
+  if (tile < 1 || tile > kMaxTile) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int32_t* rr = static_cast<const int32_t*>(rec);
-  const int32_t* pa = static_cast<const int32_t*>(params);
-  move_count_kernel<<<nc, kThreads, 0, s>>>(rr, C, pa,
-                                            static_cast<int32_t*>(lcnt));
-  int err = check();
-  if (err != 0) return err;
-  move_scan_kernel<<<1, kScanThreads, 0, s>>>(
-      nc, C, pa, static_cast<const int32_t*>(lcnt),
-      static_cast<int32_t*>(pl), static_cast<int32_t*>(pr));
-  err = check();
-  if (err != 0) return err;
-  move_scatter_kernel<<<nc, kThreads, 0, s>>>(
-      rr, C, nc_out, pa, static_cast<const int32_t*>(pl),
-      static_cast<const int32_t*>(pr), static_cast<int32_t*>(out));
+  const int tiles = (nc + tile - 1) / tile;
+  cudaError_t e = cudaMemsetAsync(
+      scratch, 0,
+      sizeof(unsigned long long) * (static_cast<size_t>(tiles) + 1), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaFuncSetAttribute(move_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  unsigned long long* flags = static_cast<unsigned long long*>(scratch);
+  move_kernel<<<tiles, kMoveThreads, smem, s>>>(
+      static_cast<const int32_t*>(rec), nc, C, tile, stages, nc_out,
+      static_cast<const int32_t*>(params), flags,
+      reinterpret_cast<unsigned*>(flags + tiles),
+      static_cast<int32_t*>(out));
   return check();
 }
 
@@ -784,6 +854,16 @@ int lgbt_proto_slot_hist_occupancy(int smem) {
     return -1;
   }
   return n;
+}
+
+// Largest dynamic shared memory a block may opt in to on `device`.
+int lgbt_proto_smem_optin(int device) {
+  int v = 0;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess) {
+    return -1;
+  }
+  return v;
 }
 
 }  // extern "C"

@@ -59,8 +59,18 @@ _SLOT_HIST_CELL_BYTES = 20         # hi/lo int32 of g and of h, u32 count
 LAUNCHES: Dict[str, int] = {"slot_hist": 0, "move": 0, "route4c": 0,
                             "compact_roll": 0}
 
+# P2's CTA (proto.cu) takes a tile of chunks, about MOVE_TILE_ROWS rows
+# (at most 32 chunks); shared memory: two mbarriers (16 B), one or two
+# stages of a whole chunk (4 B a row and lane), a u16 row permutation a
+# tile row and two words a 32-row ballot; the kernel's static shared
+# memory (the tile's per-chunk fields) stays under the slack
+MOVE_TILE_ROWS = 2048
+MOVE_MAX_TILE = 32
+_MOVE_STATIC_SLACK = 1024
+
 _fns: Dict[str, object] = {}
 _ctas: Dict[Tuple[int, int], int] = {}
+_optin: Dict[int, int] = {}            # ordinal -> shared-memory opt-in
 
 
 def reset_launches() -> None:
@@ -318,9 +328,10 @@ def _lib():
         sigs = {
             "lgbt_proto_slot_hist": [p, i, i, p, p, i, i, i, i, i, i,
                                      p, p, p, p, p],
-            "lgbt_proto_move": [p, i, i, p, i, p, p, p, p, p],
+            "lgbt_proto_move": [p, i, i, i, i, i, p, i, p, p, p],
             "lgbt_proto_ring_stage": [p, i, i, i, p, p, p, p, p, p],
             "lgbt_proto_slot_hist_occupancy": [i],
+            "lgbt_proto_smem_optin": [i],
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)
@@ -442,25 +453,77 @@ def move(records, params, nc_out=None, out: Optional[torch.Tensor] = None):
     Returns out [nc_out, W, C] (a new tensor when ``out`` is None): the
     rows the Pallas kernel flushes are exact; every other position is
     unspecified (here: what ``out`` held, except that the rows of a
-    block's last partial chunk are written even without its last bit)."""
+    block's last partial chunk are written even without its last bit).
+    On the card the params are checked on the host (one read), then the
+    move is one memset of its scratch and one launch: CTAs take tiles of
+    chunks by ticket, rank them from their split words, find their
+    block's earlier rows by a look-back over the tiles (as B2's partition,
+    `ops.aligned.move_pass`, does over chunks) while the chunks' bulk
+    copies land, and store the chunks in turn."""
     if not records.is_cuda:
         return move_plain(records, params, nc_out, out)
     _check_move_params(records, params)
     nc, _, C = records.shape
-    dev = records.device
     nc_out = nc if nc_out is None else nc_out
     if out is None:
-        out = torch.empty((nc_out, W, C), dtype=torch.int32, device=dev)
+        out = torch.empty((nc_out, W, C), dtype=torch.int32,
+                          device=records.device)
     _check_out(out, records, nc_out)
-    scratch = torch.empty((3, nc), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = _lib()["lgbt_proto_move"](
-            records.data_ptr(), nc, C, params.data_ptr(), nc_out,
-            scratch[0].data_ptr(), scratch[1].data_ptr(),
-            scratch[2].data_ptr(), out.data_ptr(), _stream(dev))
-    _raise_on(err, "move")
+    _move_cuda(records, params, nc_out, out, move_scratch(records))
     LAUNCHES["move"] += 1
     return out
+
+
+def move_smem(C: int, smem_optin: int) -> Tuple[int, int, int]:
+    """(chunks a tile, stages, dynamic shared bytes per CTA) of P2's
+    kernel: a tile of `MOVE_TILE_ROWS` // C chunks (1 to
+    `MOVE_MAX_TILE`: 8 at chunks of 256, 4 at 512); two stages of a
+    whole chunk (`W` lanes of ``C`` rows, 64 C bytes, always a multiple
+    of 16 for the bulk copy) where they fit ``smem_optin`` beside the
+    mbarriers, the tile's permutations and its ballots (16 and 32 KB a
+    stage at 256 and 512), else one. Chunks that do not fit one stage,
+    or of more than 65,535 rows (u16 permutation), are refused."""
+    if not 1 <= C <= 65535:
+        raise ValueError(f"move takes chunks of 1 to 65,535 rows, got {C}")
+    tile = max(1, min(MOVE_MAX_TILE, MOVE_TILE_ROWS // C))
+    fixed = 16 + -(-2 * tile * C // 16) * 16 + 8 * tile * -(-C // 32)
+    room = smem_optin - _MOVE_STATIC_SLACK - fixed
+    stages = min(2, room // (4 * W * C))
+    if stages < 1:
+        raise ValueError(f"a chunk of {C} rows does not fit the "
+                         f"{smem_optin} B of shared memory")
+    return tile, stages, fixed + stages * 4 * W * C
+
+
+def move_scratch(records: torch.Tensor) -> torch.Tensor:
+    """The scratch of one `move` call on the card over ``records``: a flag
+    word (u64) a tile and the ticket, as int32 [2 nc + 2] (enough for
+    tiles of one chunk)."""
+    return torch.empty(2 * records.shape[0] + 2, dtype=torch.int32,
+                       device=records.device)
+
+
+def _move_cuda(records, params, nc_out: int, out, scratch) -> None:
+    """`move`'s launch alone, on arguments `move` has checked and a
+    `move_scratch`: one memset of the scratch, one launch."""
+    nc, _, C = records.shape
+    dev = records.device
+    if records.data_ptr() % 16:
+        raise ValueError("move's bulk copies need 16-byte aligned records")
+    ordinal = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
+    if ordinal not in _optin:
+        optin = _lib()["lgbt_proto_smem_optin"](ordinal)
+        if optin < 0:
+            raise RuntimeError("move: the shared-memory opt-in query failed")
+        _optin[ordinal] = optin
+    tile, stages, smem = move_smem(C, _optin[ordinal])
+    with torch.cuda.device(dev):
+        err = _lib()["lgbt_proto_move"](
+            records.data_ptr(), nc, C, tile, stages, smem,
+            params.data_ptr(), nc_out, scratch.data_ptr(), out.data_ptr(),
+            _stream(dev))
+    _raise_on(err, "move")
 
 
 def ring_stage(records, wrap: bool):

@@ -104,3 +104,31 @@ def test_move_smem_small_optin_and_odd_chunks():
         A.move_smem(1022, 8, H100_SMEM_OPTIN)
     with pytest.raises(ValueError, match="65,535"):
         A.move_smem(65536, 8, H100_SMEM_OPTIN)
+
+
+@pytest.mark.parametrize("ctas", [4, 8])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_count_launch_shape(shape, ctas):
+    """B3's persistent grid: the given CTAs on every SM when the chunks
+    give every warp one, a u32 counter a slot (the engine's 256 at most)
+    in shared memory."""
+    _, _, _, nc, _ = SHAPES[shape]
+    smem, grid = A.count_launch_shape(nc, 256, ctas, H100_SMS,
+                                      H100_SMEM_OPTIN)
+    assert smem == 4 * 256
+    assert grid == min(ctas * H100_SMS, -(-nc // (A.COUNT_THREADS // 32)))
+
+
+def test_count_launch_shape_small_and_odd():
+    """Few chunks take one CTA for every 8 (a chunk a warp), no chunk one
+    CTA (it writes the zero counts); counters beyond the opt-in, or no
+    CTA fitting an SM, raise."""
+    assert A.count_launch_shape(17, 1, 8, H100_SMS, H100_SMEM_OPTIN) \
+        == (4, 3)
+    assert A.count_launch_shape(0, 200, 8, H100_SMS, H100_SMEM_OPTIN) \
+        == (800, 1)
+    with pytest.raises(ValueError, match="exceed"):
+        A.count_launch_shape(100, H100_SMEM_OPTIN // 4, 8, H100_SMS,
+                             H100_SMEM_OPTIN)
+    with pytest.raises(ValueError, match="no CTA"):
+        A.count_launch_shape(100, 256, 0, H100_SMS, H100_SMEM_OPTIN)

@@ -21,6 +21,7 @@ from lightgbm_tpu_torch.ops import histogram as H
 from lightgbm_tpu_torch.ops import proto as P
 from lightgbm_tpu_torch.ops import rank as R
 from lightgbm_tpu_torch.ops.ranking import discount_table
+from lightgbm_tpu_torch.utils.launches import graph_launches
 
 
 @pytest.fixture
@@ -635,6 +636,79 @@ def test_lambdarank_aligned_on_gpu(cuda):
     assert abs(ndcg["aligned"] - ndcg["leafwise"]) <= 5e-3
 
 
+def _count_inputs(nc, chunk, num_slots, seed, cuda, W=8, bits=8):
+    """Hand-built count pass inputs: random words, routing of every kind
+    (missing none / zero / NaN, default left or right, a few copy
+    chunks), valid rows from 0 to above the chunk, slots in no order
+    (a slot's chunks apart) and out of range on either side."""
+    rng = np.random.default_rng(seed)
+    rec = rng.integers(-2**31, 2**31 - 1, size=(nc, W, chunk),
+                       dtype=np.int64).astype(np.int32)
+    bpw = 32 // bits
+    shift = bits * rng.integers(0, bpw, nc)
+    r1 = (rng.integers(0, 1 << bits, nc) | (shift << A.R_SHIFT)
+          | (rng.integers(0, 2, nc) << A.R_DL)
+          | (rng.integers(0, 3, nc) << A.R_MT)
+          | ((rng.random(nc) < 0.05).astype(np.int64) << A.R_COPY))
+    r2 = A.pack_route2(rng.integers(0, 1 << bits, nc),
+                       rng.integers(2, (1 << bits) + 1, nc))
+    cnt = rng.integers(0, chunk + 1, nc)
+    cnt[rng.random(nc) < 0.1] = 0
+    cnt[rng.random(nc) < 0.05] = chunk + 9       # clamped to the chunk
+    meta = cnt | (rng.integers(0, 2, nc) << A.META_FIRST)
+    kslots = rng.integers(-3, num_slots + 3, nc)
+    wsel = rng.integers(0, W, nc)
+    t = [torch.tensor(a.astype(np.int32), device=cuda)
+         for a in (r1, r2, meta, wsel, kslots)]
+    return (torch.tensor(rec, device=cuda), *t, num_slots, bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_slots", [1, 200])
+@pytest.mark.parametrize("chunk", [256, 1024, 250])
+def test_count_pass_matches_twin_on_gpu(cuda, chunk, num_slots):
+    """B3's one launch (persistent grid, warps over whole chunks, shared
+    counters, the last CTA writes) against its twin on hand-built inputs:
+    chunks skipped by kslots out of range, empty chunks, slots whose
+    chunks are not neighbours, chunks of 256 and 1,024 rows (16-byte
+    loads) and 250 (word loads); equal after a first call on other shapes
+    left its scratch, and two calls in a row bit-equal."""
+    A.count_pass(*_count_inputs(57, 512, 300, 5, cuda))      # other shapes
+    args = _count_inputs(900, chunk, num_slots, chunk + num_slots, cuda)
+    A.reset_launches()
+    got = A.count_pass(*args)
+    again = A.count_pass(*args)
+    ref = A.count_pass_plain(*args)
+    assert A.LAUNCHES["count_pass"] == 2
+    assert got.shape == (num_slots,) and int(ref.sum()) > 0
+    assert torch.equal(got, ref) and torch.equal(again, ref)
+
+
+@pytest.mark.cuda
+def test_count_pass_edges_on_gpu(cuda):
+    """No chunk: zero counts; no slot: an empty result and no launch;
+    a scratch left by a call with more slots serves one with fewer."""
+    args = _count_inputs(40, 256, 7, 3, cuda)
+    A.reset_launches()
+    empty = (args[0][:0], *(a[:0] for a in args[1:6]), 7, 8)
+    assert torch.equal(A.count_pass(*empty),
+                       torch.zeros(7, dtype=torch.int32, device=cuda))
+    assert A.count_pass(*args[:6], 0, 8).shape == (0,)
+    assert A.LAUNCHES["count_pass"] == 1
+    for k in (300, 7, 1):
+        a = (*args[:6], k, 8)
+        assert torch.equal(A.count_pass(*a), A.count_pass_plain(*a))
+
+
+@pytest.mark.cuda
+def test_count_pass_one_launch_on_gpu(cuda):
+    """A count pass call puts one kernel on its stream and nothing else
+    (no zeroing): the nodes of a captured CUDA graph of the wrapper."""
+    args = _count_inputs(300, 1024, 64, 9, cuda)
+    assert graph_launches(lambda: A.count_pass(*args)) == {
+        "kernels": 1, "memsets": 0, "other": 0}
+
+
 def _partition_calls(monkeypatch, layout):
     """The B2 calls of a real aligned tree on the card: COMPACT records
     (binary, 63 bins) or EXT (lambdarank, 255 bins)."""
@@ -877,6 +951,87 @@ def test_proto_move_matches_plain_on_gpu(cuda, chunk):
     ref = P.move_plain(rec, pt, dest, out=torch.full_like(got, -1))
     assert P.LAUNCHES["move"] == 1
     assert torch.equal(got, ref)
+
+
+def _move_dropped_case(chunk, cuda):
+    """(records, params, nc_out) of 60 chunks in three blocks split by a
+    last bit alone, counts above the chunk (clamped) among them: a block
+    whose right rows start at chunk -2 (its first two right chunks
+    dropped), one whose right rows pass nc_out and one whose left rows
+    lie past it. A block of n chunks fills at most n chunks a side, so
+    the ranges are apart: right from -2, left from 18; 38 and 63; right
+    from 88 (past nc_out from 89 on), left from 103."""
+    nc = 60
+    rec, rng = _proto_records(nc, chunk, 13 + chunk, cuda)
+    params = np.zeros((nc, 8), np.int32)
+    params[:, P.P_CNT] = rng.integers(0, chunk + 1, nc)
+    params[::7, P.P_CNT] = chunk + 3
+    params[:, P.P_WSEL] = rng.integers(0, P.NWORDS, nc)
+    params[:, P.P_SHIFT] = rng.integers(0, 32, nc)
+    params[:, P.P_THR] = rng.integers(0, 256, nc)
+    for c0, c1, bl, br in ((0, 20, 18, -2), (20, 45, 38, 63),
+                           (45, 60, 103, 88)):
+        params[c0:c1, P.P_BASEL] = bl
+        params[c0:c1, P.P_BASER] = br
+        params[c1 - 1, P.P_LAST] = 1
+    return rec, torch.tensor(params, device=cuda), 89
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [256, 512, 250])
+def test_proto_move_dropped_destinations_on_gpu(cuda, chunk):
+    """P2 where destinations leave [0, nc_out) (`_move_dropped_case`),
+    with 16-byte stores of four rows (chunks of 256 and 512) and with a
+    word a row and lane (250): bit-equal to the twin in an output filled
+    with -1."""
+    rec, pt, nc_out = _move_dropped_case(chunk, cuda)
+    P.reset_launches()
+    got = P.move(rec, pt, nc_out, out=torch.full(
+        (nc_out, P.W, chunk), -1, dtype=torch.int32, device=cuda))
+    ref = P.move_plain(rec, pt, nc_out, out=torch.full_like(got, -1))
+    assert P.LAUNCHES["move"] == 1
+    assert torch.equal(got, ref)
+    assert bool((ref == -1).any()) and bool((ref != -1).any())
+
+
+@pytest.mark.cuda
+def test_proto_move_one_stage_on_gpu(cuda, monkeypatch):
+    """With room for one stage only, P2 copies each chunk in after the
+    last one's stores: the same bits as the twin, and as two stages."""
+    rec, pt, nc_out = _move_dropped_case(512, cuda)
+    want = P.move(rec, pt, nc_out, out=torch.full(
+        (nc_out, P.W, 512), -1, dtype=torch.int32, device=cuda))
+    real = P.move_smem
+
+    def one(C, optin):
+        tile, stages, smem = real(C, optin)
+        return tile, 1, smem - (stages - 1) * 4 * P.W * C
+
+    monkeypatch.setattr(P, "move_smem", one)
+    got = P.move(rec, pt, nc_out, out=torch.full_like(want, -1))
+    assert torch.equal(got, want)
+    assert torch.equal(got, P.move_plain(rec, pt, nc_out,
+                                         out=torch.full_like(want, -1)))
+
+
+@pytest.mark.cuda
+def test_proto_move_one_memset_one_launch_on_gpu(cuda):
+    """P2's launch alone puts one memset of its scratch and one kernel on
+    its stream: the nodes of a captured CUDA graph; the twin's output."""
+    rec, rng = _proto_records(64, 256, 17, cuda)
+    params = np.zeros((64, 8), np.int32)
+    params[:, P.P_CNT] = 256
+    params[:, P.P_WSEL] = 1
+    params[:, P.P_SHIFT] = 8
+    params[:, P.P_THR] = 127
+    params[:, P.P_BASER] = 64
+    pt = torch.tensor(params, device=cuda)
+    out = torch.full((129, P.W, 256), -1, dtype=torch.int32, device=cuda)
+    sc = P.move_scratch(rec)
+    assert graph_launches(lambda: P._move_cuda(rec, pt, 129, out, sc)) \
+        == {"kernels": 1, "memsets": 1, "other": 0}
+    assert torch.equal(out, P.move_plain(rec, pt, 129,
+                                         out=torch.full_like(out, -1)))
 
 
 @pytest.mark.cuda
