@@ -79,6 +79,15 @@ lambdarank gradient (kernel B6, ``rank.cu``) and the prototype move (P2,
         (10,485,760 rows, one block, chunks of 256 and 512), each
         bit-equal to the plain twin, the launch alone, the wrapper and
         one call's graph nodes (kernels and memsets);
+    python3 chip_ab.py proto-ring --baseline DIR
+        P3, the prototype ring staging (``proto.cu``), of the checkout at
+        DIR, the first design whose C entry point takes kl, prefix and
+        two lap scratch arrays, against this checkout's: at the
+        harness's size (20,000 chunks of 512, both variants) on its
+        random records and on three kinds that stress the walk back from
+        the last chunk, each bit-equal to the plain twin, the launch
+        alone and the wrapper with a warm and a cold L2, and one call's
+        graph nodes;
     python3 chip_ab.py count --baseline DIR
         B3, the aligned engine's count pass (``aligned.cu``), of the
         checkout at DIR, an earlier design whose C entry point adds into
@@ -94,6 +103,16 @@ lambdarank gradient (kernel B6, ``rank.cu``) and the prototype move (P2,
         permutation's gather and without the stores (the last two wrong
         by design), and against this build with one stage and with tiles
         of 1,024 and 4,096 rows (A), A, B, B, A;
+    python3 chip_ab.py proto-ring-sweep
+        where P3's time goes at the harness's size: this checkout's
+        kernel (B) against builds with the last CTA finishing alone (not
+        a CTA an SM after a grid barrier), without the finish and without
+        the copies (both wrong by design), with 4-byte loads in the
+        count, the other walk window a variant, 64 and 32 registers, and
+        against this build with every CTA finishing (A),
+        A, B, B, A, the launch
+        alone warm and cold; the two finishes also on
+        ``proto-ring``'s three skewed kinds;
     python3 chip_ab.py count-sweep
         B3 on the widest round of one big-n tree: this checkout's kernel
         (B) against builds held to 32 registers and with 8 loads in
@@ -790,6 +809,108 @@ def proto_move(torch, CS, P, baseline: str) -> dict:
     return res
 
 
+def baseline_proto_ring(torch, P, lib):
+    """(launch alone, wrapper) of P3 for the first design's entry point
+    in ``lib``: a count, a one-CTA scan, for route4c two memsets and a
+    lap kernel, and a resolve kernel, over kl [n], prefix [n + 1] and
+    laps [2, n + 2] scratch; the launch alone takes the scratch made
+    once, the wrapper makes it and the output with ``torch.empty``."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lgbt_proto_ring_stage.argtypes = [p, i, i, i, p, p, p, p, p, p]
+    lib.lgbt_proto_ring_stage.restype = i
+    made = {}
+
+    def run(records, wrap, stag, sc):
+        n, _, C = records.shape
+        dev = records.device
+        with torch.cuda.device(dev):
+            err = lib.lgbt_proto_ring_stage(
+                records.data_ptr(), n, C, int(wrap), sc[0].data_ptr(),
+                sc[1].data_ptr(), sc[2].data_ptr(), sc[3].data_ptr(),
+                stag.data_ptr(), P._stream(dev))
+        P._raise_on(err, "baseline ring_stage")
+
+    def scratch(records):
+        n = records.shape[0]
+        return [torch.empty(m, dtype=torch.int32, device=records.device)
+                for m in (n, n + 1, n + 2, n + 2)]
+
+    def launch(records, wrap, stag):
+        key = (records.data_ptr(), records.shape[0])
+        if key not in made:
+            made.clear()
+            made[key] = scratch(records)
+        run(records, wrap, stag, made[key])
+
+    def wrapper(records, wrap):
+        P._check_records(records)
+        stag = torch.empty((P.W, 4 * records.shape[2]), dtype=torch.int32,
+                           device=records.device)
+        run(records, wrap, stag, scratch(records))
+        return stag
+    return launch, wrapper
+
+
+RING_KINDS = ("random", "no left", "C-1 left", "sparse left")
+
+
+def proto_ring(torch, CS, P, baseline: str) -> dict:
+    """P3 of the checkout at DIR (A) against this checkout's (B) at the
+    harness's size (20,000 chunks of 512), both variants, on the
+    harness's random records and on three kinds that stress a design
+    which walks back from the last chunk (``chip_smoke.ring_records``:
+    no left row, C - 1 left rows a chunk, a left row in ~8 chunks),
+    each bit-equal to the plain twin: the launch alone with a warm L2
+    (20 launches between CUDA events) and with a cold one (events around
+    each launch after a 256 MB read, the median of 20), the wrapper
+    likewise, then one call's kernel and memset nodes in a captured CUDA
+    graph (after the timing)."""
+    from lightgbm_tpu_torch.tools import proto_roll as HR
+    from lightgbm_tpu_torch.utils.launches import graph_launches
+    src = os.path.join(baseline, "lightgbm_tpu_torch", "ops", "csrc",
+                       "proto.cu")
+    impl = {"A": baseline_proto_ring(torch, P, nvcc_lib(
+                src, "baseline_proto", os.path.dirname(src))),
+            "B": (P._ring_cuda, P.ring_stage)}
+    res = {}
+    for kind in RING_KINDS:
+        rec = CS.ring_records(torch, kind, HR.N_CHUNKS, HR.C)
+        left = int(((rec[:, 0] & 255) <= P.ROLL_THRESHOLD).sum())
+        for variant in HR.VARIANTS:
+            wrap = variant == "compact_roll"
+            ref = P.ring_stage_plain(rec, wrap)
+            written = int((P.ring_stage_plain(rec, wrap, fill=1) == ref)
+                          .all(0).sum())
+            rows = HR.N_CHUNKS * HR.C
+            bound_ms, _ = CS.bound(rows * 4 + written * P.W * 4
+                                   + P.W * 4 * HR.C * 4, rows)
+            stag = torch.empty_like(ref)
+            for which in ORDER:
+                launch, wrapper = impl[which]
+                stag.fill_(-1)
+                launch(rec, wrap, stag)
+                if not (torch.equal(stag, ref)
+                        and torch.equal(wrapper(rec, wrap), ref)):
+                    raise AssertionError(f"chip_ab proto-ring {which} "
+                                         f"{variant} {kind} differs from "
+                                         "the twin")
+                r = {"launch_ms": CS.cuda_ms(
+                         torch, lambda: launch(rec, wrap, stag), reps=20),
+                     "launch_cold_ms": CS.cold_ms(
+                         torch, lambda: launch(rec, wrap, stag)),
+                     "wrapper_ms": CS.cuda_ms(
+                         torch, lambda: wrapper(rec, wrap), reps=20),
+                     "wrapper_cold_ms": CS.cold_ms(
+                         torch, lambda: wrapper(rec, wrap))}
+                r["graph"] = graph_launches(lambda: launch(rec, wrap, stag))
+                r.update(bound_ms=bound_ms, left_rows=left, written=written)
+                res.setdefault(f"{kind} {variant} {which}", []).append(r)
+                CS.log(f"proto-ring {kind} {variant} {which}: {r}")
+        del rec
+        torch.cuda.empty_cache()
+    return res
+
+
 def baseline_count(torch, A, lib):
     """(launch alone, wrapper) of B3 for the earlier design's entry point
     in ``lib``: one CTA of 256 threads a chunk adding its left rows to
@@ -1069,10 +1190,12 @@ def variants(source: str, entries: dict, cuts: dict) -> dict:
     with each of ``cuts``' (old, new) text replacements made (every old
     text must occur once); ``entries`` maps each entry point to the
     argtypes it takes."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from lightgbm_tpu_torch.utils import cuda_build
     text = open(os.path.join(cuda_build.CSRC, source)).read()
     os.makedirs(BUILD, exist_ok=True)
-    out = {}
+    jobs = {}
     for name, pairs in cuts.items():
         v = text
         for old, new in pairs:
@@ -1084,7 +1207,12 @@ def variants(source: str, entries: dict, cuts: dict) -> dict:
         src = os.path.join(BUILD, f"{tag}.cu")
         with open(src, "w") as fh:
             fh.write(v)
-        lib = nvcc_lib(src, tag, cuda_build.CSRC)
+        jobs[name] = (src, tag)
+    with ThreadPoolExecutor(len(jobs)) as pool:   # one nvcc a variant
+        libs = dict(zip(jobs, pool.map(
+            lambda job: nvcc_lib(*job, cuda_build.CSRC), jobs.values())))
+    out = {}
+    for name, lib in libs.items():
         out[name] = {}
         for entry, argtypes in entries.items():
             fn = getattr(lib, entry)
@@ -1158,6 +1286,112 @@ def proto_move_sweep(torch, CS, P) -> dict:
                    f"{res[f'C={chunk} {name} A']}, B "
                    f"{res[f'C={chunk} {name} B']}")
         del rec, cnts, params, ref, out, sc
+        torch.cuda.empty_cache()
+    return res
+
+
+def proto_ring_sweep(torch, CS, P) -> dict:
+    """Where P3's time goes at the harness's size (20,000 chunks of 512,
+    both variants): this checkout's kernel (B) against variants (A):
+    builds of it with the last CTA to take a ticket finishing alone in
+    place of a CTA an SM after the grid barrier, without the finish (the
+    count and the barrier alone) and without the copies (the walk kept),
+    with 4-byte loads in the count, with route4c's walk windows of 1,024
+    chunks and compact_roll's of 2,048 (not 2,048 and 1,024), held to 64
+    and 32 registers (4 and 8 CTAs an SM, not 2); and this build with
+    every CTA finishing (walking and copying), not one an SM. A, B, B, A,
+    the launch alone with a warm and a cold L2, and whether A's output
+    equals the twin's (the cuts without the finish or the copies are
+    wrong by design); the other finishes (the last CTA, every CTA) also
+    on the three kinds of ``proto-ring``."""
+    from lightgbm_tpu_torch.tools import proto_roll as HR
+    # the last CTA to take a ticket (a device word, zero at load, reset
+    # by that CTA) finishes alone, in place of the grid barrier
+    meet = ("  __threadfence();\n  cg::this_grid().sync();\n"
+            "  if (static_cast<int>(blockIdx.x) >= fin) return;\n"
+            "  ring_finish<kPer>(rec, n, C, wrap, vec, kl, part, gridDim.x, "
+            "stag,\n                    blockIdx.x, fin, st);\n")
+    last = ("  __shared__ bool last;\n  __syncthreads();\n"
+            "  if (threadIdx.x == 0) {\n    __threadfence();\n"
+            "    last = atomicAdd(&ring_ticket, 1u) == gridDim.x - 1u;\n"
+            "  }\n  __syncthreads();\n  if (!last) return;\n"
+            "  __threadfence();\n"
+            "  ring_finish<kPer>(rec, n, C, wrap, vec, kl, part, gridDim.x, "
+            "stag, 0, 1, st);\n"
+            "  if (threadIdx.x == 0) ring_ticket = 0u;\n")
+    kernel = ("template <int kPer>\n__global__ void __launch_bounds__("
+              "kRingThreads, kRingMinCtas)")
+    cuts = {
+        "last CTA": [(meet, last), (kernel, "__device__ unsigned "
+                                            "ring_ticket;\n" + kernel)],
+        "count only": [("  int s = 0;\n  for (int i = tid; i < nparts;",
+                        "  return;\n  int s = 0;\n"
+                        "  for (int i = tid; i < nparts;")],
+        "no copies": [("      ring_copy(rec, C, vec, wrap, st.side, "
+                       "st.ent[i / kW], i % kW, stag);\n",
+                       "      if (0) ring_copy(rec, C, vec, wrap, st.side, "
+                       "st.ent[i / kW], i % kW, stag);\n")],
+        "4-byte loads": [("ring_left_rows(rec + c * kW * C, C, vec != 0, "
+                          "lane)", "ring_left_rows(rec + c * kW * C, C, "
+                          "false, lane)")],
+        "4 CTAs an SM": [("constexpr int kRingMinCtas = 2;",
+                          "constexpr int kRingMinCtas = 4;")],
+        "8 CTAs an SM": [("constexpr int kRingMinCtas = 2;",
+                          "constexpr int kRingMinCtas = 8;")],
+        "route4c windows of 1024": [(
+            "constexpr int kRingPerWrap = 4, kRingPerDrop = 8;",
+            "constexpr int kRingPerWrap = 4, kRingPerDrop = 4;")],
+        "compact_roll windows of 2048": [(
+            "constexpr int kRingPerWrap = 4, kRingPerDrop = 8;",
+            "constexpr int kRingPerWrap = 8, kRingPerDrop = 8;")]}
+    fns = P._lib()
+    names = ("lgbt_proto_ring_stage", "lgbt_proto_ring_occupancy")
+    real = {e: fns[e] for e in names}
+    impl = variants("proto.cu", {e: fns[e].argtypes for e in names}, cuts)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = {"every CTA finishes": 0}
+    launch_shape = P.ring_launch_shape
+
+    def every(n, ctas, sms):          # the grid's CTAs all finish
+        grid, _, most = launch_shape(n, ctas, sms)
+        return grid, grid, most
+    res = {}
+    for kind in RING_KINDS:
+        rec = CS.ring_records(torch, kind, HR.N_CHUNKS, HR.C)
+        for variant in HR.VARIANTS:
+            wrap = variant == "compact_roll"
+            ref = P.ring_stage_plain(rec, wrap)
+            stag = torch.empty_like(ref)
+            todo = (*impl, *shapes) if kind == "random" else \
+                [n for n in (*impl, *shapes) if n in (
+                    "last CTA", "every CTA finishes")]
+            for name in todo:
+                for which in ORDER:
+                    a = which == "A"
+                    fns.update(impl[name] if a and name in impl else real)
+                    P._ring_shapes.clear()
+                    P.ring_launch_shape = every if a and name == \
+                        "every CTA finishes" else launch_shape
+                    if a and shapes.get(name):
+                        P._ring_shapes[0] = (shapes[name], sms)
+                    stag.fill_(-1)
+                    P._ring_cuda(rec, wrap, stag)
+                    r = {"equal": bool(torch.equal(stag, ref)),
+                         "shape": P._ring_shape(0),
+                         "launch_ms": CS.cuda_ms(torch, lambda: P._ring_cuda(
+                             rec, wrap, stag), reps=20),
+                         "launch_cold_ms": CS.cold_ms(
+                             torch, lambda: P._ring_cuda(rec, wrap, stag))}
+                    res.setdefault(f"{kind} {variant} {name} {which}",
+                                   []).append(r)
+                fns.update(real)
+                P._ring_shapes.clear()
+                P.ring_launch_shape = launch_shape
+                CS.log(f"proto-ring-sweep {kind} {variant} {name}: A "
+                       f"{res[f'{kind} {variant} {name} A']}, B "
+                       f"{res[f'{kind} {variant} {name} B']}")
+            del ref, stag
+        del rec
         torch.cuda.empty_cache()
     return res
 
@@ -1273,9 +1507,11 @@ def main() -> int:
     ap.add_argument("what", choices=("engine", "scale", "hist", "words",
                                      "words-sweep", "move", "rank",
                                      "rank-sweep", "proto-move", "count",
-                                     "proto-move-sweep", "count-sweep"))
+                                     "proto-ring", "proto-move-sweep",
+                                     "proto-ring-sweep", "count-sweep"))
     ap.add_argument("--baseline", help="checkout of the earlier design "
-                    "(engine, hist, words, move, rank, proto-move, count)")
+                    "(engine, hist, words, move, rank, proto-move, count, "
+                    "proto-ring)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1294,12 +1530,13 @@ def main() -> int:
             ap.error("engine needs --baseline DIR")
         res = engine(torch, CS, lt, A, args.baseline)
     elif args.what in ("hist", "words", "move", "rank", "proto-move",
-                       "count"):
+                       "count", "proto-ring"):
         if not args.baseline:
             ap.error(f"{args.what} needs --baseline DIR")
-        if args.what == "proto-move":
+        if args.what in ("proto-move", "proto-ring"):
             from lightgbm_tpu_torch.ops import proto as P
-            res = proto_move(torch, CS, P, args.baseline)
+            res = (proto_move if args.what == "proto-move" else proto_ring)(
+                torch, CS, P, args.baseline)
         elif args.what == "count":
             res = count(torch, CS, lt, A, args.baseline)
         elif args.what == "move":
@@ -1315,6 +1552,9 @@ def main() -> int:
     elif args.what == "proto-move-sweep":
         from lightgbm_tpu_torch.ops import proto as P
         res = proto_move_sweep(torch, CS, P)
+    elif args.what == "proto-ring-sweep":
+        from lightgbm_tpu_torch.ops import proto as P
+        res = proto_ring_sweep(torch, CS, P)
     elif args.what == "count-sweep":
         res = count_sweep(torch, CS, lt, A)
     elif args.what == "rank-sweep":

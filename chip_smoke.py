@@ -74,7 +74,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``index_add_``; then B2's smaller-child histograms of the widest round
    alone (the histogram kernel over the moved records and the children's
    chunk map), checked, timed beside the twin, the bound and one
-   ``index_add_``; B3 (STANDARD) timed as its launch alone and as its
+   ``index_add_``; B3 (STANDARD) timed as its launch alone (with a warm
+   and a cold L2: ``cold_ms`` reads 256 MB before each launch) and as its
    wrapper, and one kernel a call (no zeroing) counted in a captured CUDA
    graph of the wrapper;
 7. big-n path: an aligned run with ``tpu_force_big_n`` (STANDARD records,
@@ -140,8 +141,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    bit-equal), timed beside the twin, the bound and, for P1, one
    ``index_add_``; P2 timed as its launch alone and as its wrapper (with
    the params' host check), one memset and one kernel a call counted in
-   a captured CUDA graph; P1 once more at (256, 4) on payloads of random
-   bits (NaN and Inf among them), held against its twin cell by cell.
+   a captured CUDA graph; P3 timed as its launch alone with a warm and a
+   cold L2 and as its wrapper, one kernel and no memset a call counted
+   in a captured CUDA graph (after the timing); P1 once more at (256, 4)
+   on payloads of random bits (NaN and Inf among them), held against its
+   twin cell by cell.
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -230,6 +234,27 @@ def cuda_ms(torch, fn, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cold_ms(torch, fn, reps: int = 20) -> float:
+    """Median device time of one call of ``fn`` in ms with a cold L2:
+    before each call a read of 256 MB (five times the H100's 50 MB L2)
+    evicts what the last call left there, and CUDA events stand around
+    the call alone. A read and not a fill: a fill would leave ~50 MB of
+    dirty lines, whose write-back the timed call would pay."""
+    flush = torch.ones(1 << 26, dtype=torch.int32, device=DEVICE)
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, end in events:
+        flush.sum()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    del flush
+    return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
 def hist_bound_ms(count: int, f: int, bins: int, itemsize: int,
@@ -974,6 +999,7 @@ def phase_aligned_parity(torch, lt, ds, params, max_bin: int,
         r = {"max_abs_err": 0.0, "rows": rows, "chunks": nc,
              "ms": cuda_ms(torch, lambda: A._count_cuda(*args, alone),
                            reps=20),
+             "cold_ms": cold_ms(torch, lambda: A._count_cuda(*args, alone)),
              "wrapper_ms": cuda_ms(torch, lambda: A.count_pass(*args),
                                    reps=20),
              "plain_ms": cuda_ms(torch, lambda: A.count_pass_plain(*args),
@@ -988,7 +1014,7 @@ def phase_aligned_parity(torch, lt, ds, params, max_bin: int,
                                              rows)
         res["count_pass"] = r
     sizes = ("rows", "chunks", "children", "split_blocks", "split_rows",
-             "copy_chunks", "launches_per_call", "wrapper_ms")
+             "copy_chunks", "launches_per_call", "wrapper_ms", "cold_ms")
     for name, r in res.items():
         lib = "none" if r["library_ms"] is None \
             else f"{r['library_ms']:.4f} ms"
@@ -1899,6 +1925,36 @@ def proto_slot_hist_nonfinite(torch, rec, slots, cnts) -> dict:
     return r
 
 
+def ring_records(torch, kind: str, n: int = 20000, chunk: int = 512,
+                 seed: int = 41):
+    """P3's records on the card, [n, 16, chunk] random words (the
+    harness's), or with lane 0's low byte set so that every chunk has
+    no left row (``"no left"``), all but one (``"C-1 left"``: route4c
+    skips positions below C lap after lap), or a row goes left with
+    probability 1 / (8 chunk) (``"sparse left"``: the last 2C left rows
+    span ~16 chunk chunks)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    rec = torch.randint(0, 2**31 - 1, (n, 16, chunk), generator=gen,
+                        device=DEVICE, dtype=torch.int32)
+    if kind == "random":
+        return rec
+    if kind == "no left":
+        left = torch.zeros((n, chunk), dtype=torch.bool, device=DEVICE)
+    elif kind == "C-1 left":
+        left = torch.ones((n, chunk), dtype=torch.bool, device=DEVICE)
+        left[torch.arange(n, device=DEVICE), torch.randint(
+            0, chunk, (n,), generator=gen, device=DEVICE)] = False
+    elif kind == "sparse left":
+        left = torch.rand((n, chunk), generator=gen, device=DEVICE) \
+            < 1.0 / (8 * chunk)
+    else:
+        raise ValueError(kind)
+    key = rec[:, 0] & 255
+    rec[:, 0] = (rec[:, 0] & ~255) | torch.where(left, key & 31,
+                                                 32 + key % 224)
+    return rec
+
+
 def phase_proto_parity(torch) -> dict:
     """P1-P3 against their plain twins on the card at the harnesses'
     sizes, each timed beside the twin and its bound:
@@ -1912,7 +1968,8 @@ def phase_proto_parity(torch) -> dict:
       into an output filled with -1, bit-equal everywhere (the covered
       rows, and the fill where neither writes);
     - P3 ``ring_stage`` at 20,000 x 512, both variants: the whole final
-      staging bit-equal (both start from zeros)."""
+      staging bit-equal (both start from zeros); the launch alone with a
+      warm and a cold L2, the wrapper, one kernel and no memset a call."""
     from lightgbm_tpu_torch.ops import proto as P
     from lightgbm_tpu_torch.tools import proto_aligned as HA
     from lightgbm_tpu_torch.tools import proto_roll as HR
@@ -2012,9 +2069,8 @@ def phase_proto_parity(torch) -> dict:
         del rec, cnts, valid, got, params
         torch.cuda.empty_cache()
     # ---- P3
-    gen = torch.Generator(device=DEVICE).manual_seed(41)
-    rec = torch.randint(0, 2**31 - 1, (HR.N_CHUNKS, P.W, HR.C),
-                        generator=gen, device=DEVICE, dtype=torch.int32)
+    from lightgbm_tpu_torch.utils.launches import graph_launches
+    rec = ring_records(torch, "random", HR.N_CHUNKS, HR.C)
     rows = HR.N_CHUNKS * HR.C
     for variant in HR.VARIANTS:
         wrap = variant == "compact_roll"
@@ -2027,19 +2083,33 @@ def phase_proto_parity(torch) -> dict:
                                  f"twin in {d} of {got.shape[1]} positions")
         written = int((P.ring_stage_plain(rec, wrap, fill=1) == ref)
                       .all(0).sum())
+        # the launch alone with a warm and with a cold L2, the wrapper;
+        # then the work one call enqueues, from a captured graph (after
+        # the timing: a capture empties the allocator's cache)
         r = {"max_abs_err": 0.0, "rows": rows, "written": written,
-             "ms": cuda_ms(torch, lambda: P.ring_stage(rec, wrap), reps=10),
+             "ms": cuda_ms(torch, lambda: P._ring_cuda(rec, wrap, got),
+                           reps=20),
+             "cold_ms": cold_ms(torch, lambda: P._ring_cuda(rec, wrap, got)),
+             "wrapper_ms": cuda_ms(torch, lambda: P.ring_stage(rec, wrap),
+                                   reps=20),
              "plain_ms": cuda_ms(torch, lambda: P.ring_stage_plain(
                  rec, wrap), reps=2), "library_ms": None}
+        graph = graph_launches(lambda: P._ring_cuda(rec, wrap, got))
+        if graph != {"kernels": 1, "memsets": 0, "other": 0}:
+            raise AssertionError(f"ring_stage {variant} enqueued {graph}, "
+                                 "not one kernel")
+        r["launches_per_call"] = graph["kernels"] + graph["memsets"]
         # the output depends on lane 0 of every row and on the whole of
         # the rows that end in the staging, which is all a kernel must read
         r["bound_ms"], r["bound_by"] = bound(
             rows * 4 + written * P.W * 4 + P.W * 4 * HR.C * 4, rows)
         res["ring"][variant] = r
         log(f"kernel proto ring_stage ({variant}, {HR.N_CHUNKS} x {HR.C}, "
-            f"{written} of {4 * HR.C} positions written): kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library none, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; every lane of "
+            f"{written} of {4 * HR.C} positions written): launch alone "
+            f"{r['ms']:.4f} ms warm, {r['cold_ms']:.4f} cold, wrapper "
+            f"{r['wrapper_ms']:.4f}, one kernel a call, plain "
+            f"{r['plain_ms']:.4f} ms, library none, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; every lane of "
             f"every row would be {bound(rows * P.W * 4, rows)[0]:.4f} ms), "
             f"bit-equal")
         del got, ref
@@ -2132,8 +2202,8 @@ def main() -> int:
                 "ms": p["ms"], "plain_ms": p["plain_ms"],
                 "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
                 "library_ms": p["library_ms"],
-                **{k: p[k] for k in ("wrapper_ms", "launches_per_call")
-                   if k in p},
+                **{k: p[k] for k in ("wrapper_ms", "cold_ms",
+                                     "launches_per_call") if k in p},
                 "shape": f"{shape}, {dims}, {bins} bins, {layout}"}
 
     kernels = [
@@ -2221,8 +2291,9 @@ def main() -> int:
             "ms": p["ms"], "plain_ms": p["plain_ms"],
             "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
             "library_ms": p["library_ms"],
-            **{k: p[k] for k in ("wrapper_ms", "launches_per_call")
-               if k in p}, "shape": shape})
+            **{k: p[k] for k in ("wrapper_ms", "cold_ms",
+                                 "launches_per_call") if k in p},
+            "shape": shape})
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was never launched on its "

@@ -43,17 +43,29 @@
 //      the tiles at 0.52; 16-byte stores of four rows, streaming
 //      stores and more CTAs an SM did not help (PERF.md). It replaced a
 //      count, a one-CTA scan and a scatter;
-//   P3 ring_count_kernel counts each chunk's left rows, ring_scan_kernel
-//      (one CTA) gives every row its index among its side's rows (left
-//      row L sits at ring position L mod 2C of its lap L / 2C), and
-//      ring_laps_kernel finds, for each lap, the first position the
-//      non-wrapping variant writes (the rows of a chunk that began in the
-//      lap before pass the ring's end and are dropped). ring_resolve_
-//      kernel then gives each of the 4C ring positions one warp, which
-//      finds the last row written there (the last lap that reaches it,
-//      the chunk by binary search, the row by ballots over its lane 0) and
-//      copies that row's 16 lanes. Only lane 0 of every row is read, and
-//      whole rows only for the 4C rows that end in the staging.
+//   P3 ring_kernel is one launch and no memset (it replaced a count, a
+//      one-CTA scan, two memsets and a lap kernel, and a resolve), after
+//      B3's count pass (aligned.cu::count_kernel): a persistent grid
+//      whose warps count each chunk's left rows from lane 0 (16-byte
+//      loads) into kl, each CTA adding its total into part. The staging
+//      depends only on each side's total and on a tail of chunks, so
+//      after a grid barrier (a cooperative launch) the first CTA of each
+//      SM walks back from the last chunk over kl in windows of 1,024
+//      chunks (route4c 2,048; a chunk's start is the total less a suffix
+//      sum), finds the chunks whose rows end in the staging and takes
+//      its share of their copies, a lane of a chunk a warp
+//      (ring_finish). With wrap the tail holds each side's last 2C rows;
+//      in route4c a position keeps the last lap whose first chunk
+//      started at or below it, which may lie hundreds of laps back. On
+//      an H100 at the harness's 20,000 chunks of 512 (PERF.md): 0.033 /
+//      0.028 ms with a cold L2 (route4c / compact_roll), of which the
+//      count and the barrier take 0.022 (lane 0 is 2 KB of every 32 KB),
+//      route4c's walk ~0.008 (windows of 1,024 chunks cost it 0.002
+//      more, and compact_roll 0.002 if it took 2,048) and the copies
+//      ~0.003. Every CTA repeating the walk (an SM shared by four) took
+//      0.049, the last CTA alone copying 0.17. Skewed chunks cost more:
+//      a left row in 8 chunks walks ~10,000 chunks (0.10 / 0.09 ms),
+//      C - 1 left rows a chunk copy from ~1,000 chunks (0.08 / 0.07).
 //
 // What bounds them on an H100: bytes. P1 reads the seven bin words and
 // the two payload lanes of every valid row (36 B) and writes the slots'
@@ -99,10 +111,13 @@
 //     lane has more than two of them in a bin, else in a loop over each
 //     lane's sites that are, which issues as many atomics as the busiest
 //     lane has sites: at a small b_pad most bins fall outside it.
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "partition.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -110,12 +125,18 @@ constexpr int kW = 16;                 // record lanes
 constexpr int kWords = 7;              // packed bin words (28 features)
 constexpr int kLaneG = kWords, kLaneH = kWords + 1;
 constexpr int kStats = 3;
-constexpr int kThreads = 256;          // P3 count/resolve CTAs
 constexpr int kMoveThreads = 256;      // P2 CTAs, 4 an SM
 constexpr int kMaxTile = 32;           // P2 chunks a tile (warp 0's scan)
 constexpr int kHistThreads = 1024;     // P1 slot_hist CTAs (ops/proto.py)
-constexpr int kScanThreads = 1024;
 constexpr int kRollThreshold = 31;     // P3: left iff (lane 0 & 255) <= 31
+constexpr int kRingThreads = 256;      // P3 CTAs (ops/proto.py)
+constexpr int kRingWarps = kRingThreads / 32;
+// P3 chunks a thread a walk window: compact_roll's walk stops within
+// its last 2C rows a side, route4c's reaches further back (a lap must
+// start at position 0), so it takes wider windows
+constexpr int kRingPerWrap = 4, kRingPerDrop = 8;
+constexpr int kRingRows = 16;          // P3 rows a lane a copy segment
+constexpr int kRingMinCtas = 2;        // P3 CTAs an SM (128 registers)
 // move params columns
 constexpr int kWsel = 0, kShift = 1, kThr = 2, kBaseL = 3, kBaseR = 4;
 constexpr int kFirst = 5, kLast = 6, kCnt = 7, kParams = 8;
@@ -575,142 +596,489 @@ move_kernel(const int32_t* __restrict__ rec, long long nc, int C, int tile,
 }
 
 // ---------------------------------------------------------------------------
-// P3: ring staging
+// P3: ring staging, one launch
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ bool roll_left(int key) {
   return (key & 255) <= kRollThreshold;
 }
 
-// left rows per chunk, one warp a chunk (lane 0 of its record)
-__global__ void ring_count_kernel(const int32_t* __restrict__ rec, int n,
-                                  int C, int32_t* __restrict__ kl) {
-  const long long c =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (c >= n) return;                   // whole warps
-  const int32_t* key = rec + c * kW * C;
+// Left rows of one chunk (lane 0 of its record), one warp: 16-byte loads
+// (vec: C % 4 == 0 and the records 16-byte aligned, so every lane of
+// every chunk is), four in flight a thread, or one word at a time. Valid
+// in every lane.
+__device__ __forceinline__ int ring_left_rows(const int32_t* key, int C,
+                                              bool vec, int lane) {
   int k = 0;
-  for (int r = lane; r < C; r += 32) k += roll_left(key[r]) ? 1 : 0;
-  for (int o = 16; o > 0; o >>= 1) k += __shfl_down_sync(kFull, k, o);
-  if (lane == 0) kl[c] = k;
-}
-
-// One CTA: prefix[c] = left rows of the chunks before c, prefix[n] = all.
-__global__ void ring_scan_kernel(int n, const int32_t* __restrict__ kl,
-                                 int32_t* __restrict__ prefix) {
-  __shared__ int part[kScanThreads];
-  const int t = threadIdx.x, T = blockDim.x;
-  const int per = (n + T - 1) / T;
-  const int lo = min(n, t * per), hi = min(n, lo + per);
-  int s = 0;
-  for (int c = lo; c < hi; ++c) s += kl[c];
-  part[t] = s;
-  __syncthreads();
-  if (t == 0) {
-    int run = 0;
-    for (int i = 0; i < T; ++i) {
-      const int a = part[i];
-      part[i] = run;
-      run += a;
-    }
-  }
-  __syncthreads();
-  int run = part[t];
-  for (int c = lo; c < hi; ++c) {
-    prefix[c] = run;
-    run += kl[c];
-  }
-  if (lo < hi && hi == n) prefix[n] = run;
-}
-
-// the side's rows before chunk c (left: the scan; right: the rest)
-__device__ __forceinline__ int side_prefix(const int32_t* prefix, int C,
-                                           int side, int c) {
-  return side ? c * C - prefix[c] : prefix[c];
-}
-
-// laps[side][m] (0x7f7f7f7f, above any position, where set by the
-// memset) = the first ring position written in lap m: prefix - m * 2C of
-// the first chunk that starts in the lap; the side's rows m * 2C .. before
-// it belong to a chunk that began in lap m - 1, whose non-wrapping cursor
-// passes the ring's end there.
-__global__ void ring_laps_kernel(int n, int C,
-                                 const int32_t* __restrict__ prefix,
-                                 int32_t* __restrict__ laps_l,
-                                 int32_t* __restrict__ laps_r) {
-  const int C2 = 2 * C;
-  for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < n;
-       c += gridDim.x * blockDim.x) {
-    for (int side = 0; side < 2; ++side) {
-      const int pc = side_prefix(prefix, C, side, c);
-      const int pp = c == 0 ? -1 : side_prefix(prefix, C, side, c - 1);
-      const int m = pc / C2;
-      if (static_cast<long long>(m) * C2 > pp) {
-        (side ? laps_r : laps_l)[m] = pc - m * C2;
+  if (vec) {
+    const int4* k4 = reinterpret_cast<const int4*>(key);
+    const int n4 = C >> 2;
+    for (int i0 = lane; i0 < n4; i0 += 4 * 32) {
+      int4 v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = i0 + 32 * j;
+        v[j] = i < n4 ? __ldg(k4 + i) : make_int4(255, 255, 255, 255);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        k += roll_left(v[j].x) + roll_left(v[j].y) + roll_left(v[j].z)
+            + roll_left(v[j].w);
       }
     }
+  } else {
+    for (int r = lane; r < C; r += 32) k += roll_left(__ldg(key + r));
   }
+  return __reduce_add_sync(kFull, k);
 }
 
-// One warp a ring position q of the staging [16, 4C] (left ring [0, 2C),
-// right ring [2C, 4C)): the side's row L that was written there last, its
-// 16 lanes; 0 where no row was. A row L (the L-th of its side, in chunk
-// and row order) goes to position L mod 2C in lap L / 2C; with wrap every
-// row is written, without wrap only from the lap's first position on.
-__global__ void ring_resolve_kernel(const int32_t* __restrict__ rec, int n,
-                                    int C, int wrap,
-                                    const int32_t* __restrict__ prefix,
-                                    const int32_t* __restrict__ laps_l,
-                                    const int32_t* __restrict__ laps_r,
-                                    int32_t* __restrict__ stag) {
-  const int q = static_cast<int>(
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5);
+// n / d for 0 <= n < 2^31 by a multiply and a shift (Granlund and
+// Montgomery: l = ceil(log2 d), m = 2^32 (2^l - d) / d + 1), for the
+// ring's 2C, which the walk divides by some 20 times a chunk.
+struct FastDiv {
+  int d, l;
+  unsigned m;
+  __device__ explicit FastDiv(int d_) : d(d_), l(0) {
+    while ((1u << l) < static_cast<unsigned>(d)) ++l;
+    m = static_cast<unsigned>((1ull << 32) * ((1ull << l) - d) / d) + 1u;
+  }
+  __device__ int div(int n) const {
+    const unsigned t = __umulhi(m, static_cast<unsigned>(n));
+    return static_cast<int>((t + static_cast<unsigned>(n)) >> l);
+  }
+};
+
+// A side (left or right ring) over the whole call: T its rows; mlast the
+// lap (T / 2C rounded down, of the side's last row) of its last row, -1
+// when T = 0; tlast = T - mlast 2C, the positions that lap reaches; a the
+// first position written in lap mlast (its first chunk's start, tlast
+// while that chunk is not found).
+struct RingSide {
+  int T, mlast, tlast, a;
+};
+
+// The rows of one side of one chunk that end in the staging: the chunk's
+// rows j of that side (in row order) in [j0, j1) of either run go to
+// position p0 + j - j0, mod 2C.
+struct RingRuns {
+  int j0[2], j1[2], p0[2];
+};
+
+// The side's rows j < k of the chunk that starts at side row P are the
+// rows P + j, at position (P + j) mod 2C of lap (P + j) / 2C.
+//   wrap: a position keeps the largest row that reaches it, so the
+//     side's last 2C rows, L >= T - 2C, end in the staging;
+//   route4c: the chunk writes positions [lo, min(lo + k, 2C)) of lap m
+//     (P = m 2C + lo), and a later lap m' < mlast writes [g(m'), 2C),
+//     g(m') the first position written in it, lap mlast [a, tlast). A
+//     row is final unless a later lap writes its position: below G, the
+//     least g(m') over the laps m < m' < mlast, and outside [a, tlast).
+__device__ __forceinline__ RingRuns ring_runs(int wrap, const FastDiv& c2,
+                                              const RingSide& s, int P,
+                                              int k, int G) {
+  const int C2 = c2.d;
+  RingRuns r = {{0, 0}, {0, 0}, {0, 0}};
+  if (wrap) {
+    r.j0[0] = max(0, s.T - C2 - P);
+    r.j1[0] = k;
+    r.p0[0] = P + r.j0[0] - c2.div(P + r.j0[0]) * C2;
+    return r;
+  }
+  const int m = c2.div(P), lo = P - m * C2;
+  r.p0[0] = lo;
+  if (m > s.mlast) return r;                       // no row (P = T)
+  if (m == s.mlast) {
+    r.j1[0] = min(k, C2 - lo);
+    return r;
+  }
+  const int hi = min(min(lo + k, C2), G);
+  r.j1[0] = max(0, min(hi, s.a) - lo);
+  const int b = max(lo, s.tlast);
+  r.j0[1] = b - lo;
+  r.j1[1] = max(b, hi) - lo;
+  r.p0[1] = b;
+  return r;
+}
+
+// Exclusive sum of v over the CTA's threads in thread order; *total gets
+// the whole CTA's. Every thread calls it; part holds a word a warp.
+__device__ __forceinline__ int block_scan(int v, int* part, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) part[warp] = x;
+  __syncthreads();
+  int pre = 0, all = 0;
+#pragma unroll
+  for (int w = 0; w < kRingWarps; ++w) {
+    const int p = part[w];
+    if (w < warp) pre += p;
+    all += p;
+  }
+  __syncthreads();
+  *total = all;
+  return pre + x - v;
+}
+
+// The exclusive minimum of two values at once over the CTA's threads in
+// thread order (identity id), as block_scan; part2 holds two words a warp.
+__device__ __forceinline__ void block_scan_min2(const int* v, int id,
+                                                int* part2, int* ex,
+                                                int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x0 = v[0], x1 = v[1];
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y0 = __shfl_up_sync(kFull, x0, o);
+    const int y1 = __shfl_up_sync(kFull, x1, o);
+    if (lane >= o) {
+      x0 = min(x0, y0);
+      x1 = min(x1, y1);
+    }
+  }
+  if (lane == 31) {
+    part2[2 * warp] = x0;
+    part2[2 * warp + 1] = x1;
+  }
+  __syncthreads();
+  int p0 = id, p1 = id, a0 = id, a1 = id;
+#pragma unroll
+  for (int w = 0; w < kRingWarps; ++w) {
+    const int q0 = part2[2 * w], q1 = part2[2 * w + 1];
+    if (w < warp) {
+      p0 = min(p0, q0);
+      p1 = min(p1, q1);
+    }
+    a0 = min(a0, q0);
+    a1 = min(a1, q1);
+  }
+  __syncthreads();
+  const int y0 = __shfl_up_sync(kFull, x0, 1);
+  const int y1 = __shfl_up_sync(kFull, x1, 1);
+  ex[0] = lane == 0 ? p0 : min(p0, y0);
+  ex[1] = lane == 0 ? p1 : min(p1, y1);
+  total[0] = a0;
+  total[1] = a1;
+}
+
+// A chunk of the walk's window with rows that end in the staging: its
+// index, its left rows before it, and G of each side (ring_runs).
+struct RingEntry {
+  int c, pl, g0, g1;
+};
+
+struct RingShared {
+  RingEntry ent[kRingThreads * kRingPerDrop];
+  int part[kRingWarps];
+  int part2[2 * kRingWarps];
+  RingSide side[2];
+  int S;          // left rows of the chunks above the window
+  int G[2];       // least g(m) over the laps below mlast walked
+  int n_ent;
+  int done;       // bit s: side s has every position's row
+};
+
+// One warp: lane u of the rows of chunk e that end in the staging. The
+// warp reads the chunk's lane 0 and lane u together, 16 rows a thread
+// (16-byte loads where vec), ranks each side's rows with a scan over the
+// warp and stores the final ones.
+__device__ void ring_copy(const int32_t* __restrict__ rec, int C, int vec,
+                          int wrap, const RingSide* sides, RingEntry e,
+                          int u, int32_t* __restrict__ stag) {
   const int lane = threadIdx.x & 31;
-  const int C2 = 2 * C;
-  if (q >= 2 * C2) return;              // whole warps
-  const int side = q >= C2 ? 1 : 0;
-  const int p = q - side * C2;
-  const int total = side ? n * C - prefix[n] : prefix[n];
-  int m = total > p ? (total - 1 - p) / C2 : -1;   // last lap reaching p
-  if (!wrap) {
-    const int32_t* laps = side ? laps_r : laps_l;
-    while (m >= 0) {                    // uniform over the warp
-      const int mm = m - lane;
-      const unsigned hit = __ballot_sync(kFull, mm >= 0 && laps[mm] <= p);
-      if (hit != 0u) {
-        m -= __ffs(hit) - 1;
-        break;
+  const FastDiv c2(2 * C);
+  const int C2 = c2.d;
+  // k = C bounds the rows: a chunk's rows j >= its k do not exist
+  const RingRuns rl = ring_runs(wrap, c2, sides[0], e.pl, C, e.g0);
+  const RingRuns rr = ring_runs(wrap, c2, sides[1], e.c * C - e.pl, C,
+                                e.g1);
+  const int32_t* key = rec + static_cast<long long>(e.c) * kW * C;
+  const int32_t* src = key + static_cast<long long>(u) * C;
+  int32_t* dst = stag + static_cast<long long>(u) * 2 * C2;
+  int cl = 0, cr = 0;                   // each side's rows before r0
+  for (int r0 = 0; r0 < C; r0 += 32 * kRingRows) {
+    const int base = r0 + lane * kRingRows;
+    int w0[kRingRows], wu[kRingRows];
+    if (vec && base + kRingRows <= C) {
+#pragma unroll
+      for (int q = 0; q < kRingRows / 4; ++q) {
+        const int4 x = __ldg(reinterpret_cast<const int4*>(key + base) + q);
+        const int4 y = __ldg(reinterpret_cast<const int4*>(src + base) + q);
+        w0[4 * q] = x.x;
+        w0[4 * q + 1] = x.y;
+        w0[4 * q + 2] = x.z;
+        w0[4 * q + 3] = x.w;
+        wu[4 * q] = y.x;
+        wu[4 * q + 1] = y.y;
+        wu[4 * q + 2] = y.z;
+        wu[4 * q + 3] = y.w;
       }
-      m -= 32;
+    } else {
+#pragma unroll
+      for (int v = 0; v < kRingRows; ++v) {
+        const bool in = base + v < C;
+        w0[v] = in ? __ldg(key + base + v) : 0;
+        wu[v] = in ? __ldg(src + base + v) : 0;
+      }
+    }
+    unsigned lm = 0u, rm = 0u;
+#pragma unroll
+    for (int v = 0; v < kRingRows; ++v) {
+      if (base + v < C) {
+        if (roll_left(w0[v])) lm |= 1u << v; else rm |= 1u << v;
+      }
+    }
+    // each side's rows of the lanes before: left | right << 16 (a side
+    // has at most 32 x 16 rows in a segment)
+    const int cnt = __popc(lm) | (__popc(rm) << 16);
+    int x = cnt;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, x, o);
+      if (lane >= o) x += y;
+    }
+    const int tot = __shfl_sync(kFull, x, 31);
+    int jl = cl + ((x - cnt) & 0xffff), jr = cr + ((x - cnt) >> 16);
+#pragma unroll
+    for (int v = 0; v < kRingRows; ++v) {
+      const bool isl = (lm >> v) & 1u, isr = (rm >> v) & 1u;
+      if (!isl && !isr) continue;
+      const int j = isl ? jl++ : jr++;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int j0 = isl ? rl.j0[q] : rr.j0[q];
+        const int j1 = isl ? rl.j1[q] : rr.j1[q];
+        if (j >= j0 && j < j1) {
+          int p = (isl ? rl.p0[q] : rr.p0[q]) + j - j0;
+          if (p >= C2) p -= C2;
+          dst[(isl ? 0 : C2) + p] = wu[v];
+        }
+      }
+    }
+    cl += tot & 0xffff;
+    cr += tot >> 16;
+  }
+}
+
+// The finish, from each chunk's left rows kl [n] and the counting CTAs'
+// left totals part [nparts], by `ctas` CTAs, this one the cta-th: each
+// walks, and takes its share of the zeroing and the copies.
+//   1. The totals; the positions no row reaches, [min(T, 2C), 2C) of each
+//      side, are zeroed.
+//   2. A walk back from the last chunk in windows of kRingThreads x kPer
+//      chunks (the first window's counts load beside the totals):
+//      each chunk's left rows before it (the total less a suffix sum
+//      scanned over the window), the chunks that start a lap (route4c:
+//      g(m) and a, then G by a suffix minimum), and the chunks with rows
+//      that end in the staging (entries). The walk stops when each side
+//      has every position's row: wrap, when the chunks walked hold the
+//      side's last 2C rows; route4c, when the positions below G left to
+//      find lie in [a, tlast) (G = 0, or a = 0 and G <= tlast), at the
+//      latest at chunk 0 (lap 0 starts there: g = 0).
+//   3. Each window's entries are copied by warps, a lane each.
+template <int kPer>
+__device__ __forceinline__ void ring_window(const int32_t* __restrict__ kl,
+                                            int whi, int* k) {
+  // this thread's chunks whi - 1 - (tid kPer + i), downwards, and the
+  // one below them (whether the lowest starts a lap)
+#pragma unroll
+  for (int i = 0; i <= kPer; ++i) {
+    const int c = whi - 1 - (static_cast<int>(threadIdx.x) * kPer + i);
+    k[i] = c >= 0 ? __ldcg(kl + c) : 0;
+  }
+}
+
+template <int kPer>
+__device__ void ring_finish(const int32_t* __restrict__ rec, int n, int C,
+                            int wrap, int vec,
+                            const int32_t* __restrict__ kl,
+                            const int32_t* __restrict__ part, int nparts,
+                            int32_t* __restrict__ stag, int cta, int ctas,
+                            RingShared& st) {
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const FastDiv c2(2 * C);
+  const int C2 = c2.d;
+  int k[kPer + 1];
+  ring_window<kPer>(kl, n, k);
+  int s = 0;
+  for (int i = tid; i < nparts; i += kRingThreads) s += __ldcg(part + i);
+  int T0;
+  block_scan(s, st.part, &T0);
+  if (tid == 0) {
+    for (int side = 0; side < 2; ++side) {
+      RingSide& sd = st.side[side];
+      sd.T = side ? n * C - T0 : T0;
+      sd.mlast = sd.T > 0 ? (sd.T - 1) / C2 : -1;
+      sd.tlast = sd.T > 0 ? sd.T - sd.mlast * C2 : 0;
+      sd.a = sd.tlast;
+      st.G[side] = C2;
+    }
+    st.S = 0;
+    st.done = (st.side[0].T == 0 ? 1 : 0) | (st.side[1].T == 0 ? 2 : 0);
+  }
+  __syncthreads();
+  {
+    const long long t0 = static_cast<long long>(cta) * kRingThreads + tid;
+    const long long step = static_cast<long long>(ctas) * kRingThreads;
+    for (int side = 0; side < 2; ++side) {
+      const int z0 = min(st.side[side].T, C2), z = C2 - z0;
+      for (long long i = t0; i < static_cast<long long>(kW) * z; i += step) {
+        const long long u = i / z;
+        stag[u * 2 * C2 + side * C2 + z0 + (i - u * z)] = 0;
+      }
     }
   }
-  int32_t val = 0;
-  if (m >= 0) {
-    const int L = m * C2 + p;
-    int lo = 0, hi = n - 1;             // last chunk with prefix <= L
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (side_prefix(prefix, C, side, mid) <= L) lo = mid; else hi = mid - 1;
+  for (int whi = n; whi > 0 && st.done != 3;) {
+    const int wlo = max(0, whi - kRingThreads * kPer);
+    const RingSide s0 = st.side[0], s1 = st.side[1];
+    const int S = st.S, G0 = st.G[0], G1 = st.G[1];
+    if (whi < n) ring_window<kPer>(kl, whi, k);
+    int loc = 0, incl[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      if (whi - 1 - (tid * kPer + i) >= wlo) loc += k[i];
+      incl[i] = loc;
     }
-    const int32_t* chunk = rec + static_cast<long long>(lo) * kW * C;
-    int j = L - side_prefix(prefix, C, side, lo);
-    int r = -1;
-    for (int r0 = 0; r0 < C; r0 += 32) {
-      const int rr = r0 + lane;
-      const bool mine = rr < C && (roll_left(chunk[rr]) != (side != 0));
-      const unsigned b = __ballot_sync(kFull, mine);
-      const int k = __popc(b);
-      if (j < k) {
-        const unsigned me = __ballot_sync(
-            kFull, mine && __popc(b & ((1u << lane) - 1u)) == j);
-        r = r0 + __ffs(me) - 1;
-        break;
+    int wtot;
+    const int ex = block_scan(loc, st.part, &wtot);
+    int pl[kPer], g[2][kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int c = whi - 1 - (tid * kPer + i);
+      pl[i] = s0.T - (S + ex + incl[i]);
+      g[0][i] = g[1][i] = C2;
+      if (c < wlo || wrap) continue;
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        const RingSide& sd = side ? s1 : s0;
+        const int P = side ? c * C - pl[i] : pl[i];
+        const int kp = side ? C - k[i + 1] : k[i + 1];
+        const int m = c2.div(P);
+        if (c > 0 && c2.div(P - kp) == m) continue;   // not a lap's first
+        if (m == sd.mlast) {
+          st.side[side].a = P - m * C2;     // one chunk in the whole walk
+        } else if (m < sd.mlast) {
+          g[side][i] = P - m * C2;
+        }
       }
-      j -= k;
     }
-    if (lane < kW && r >= 0) val = chunk[static_cast<long long>(lane) * C + r];
+    int gx[2][kPer], gtot[2] = {C2, C2};
+    if (!wrap) {
+      int run[2] = {C2, C2};
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+#pragma unroll
+        for (int side = 0; side < 2; ++side) {
+          gx[side][i] = run[side];
+          run[side] = min(run[side], g[side][i]);
+        }
+      }
+      int exm[2];
+      block_scan_min2(run, C2, st.part2, exm, gtot);
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        gx[0][i] = min(min(gx[0][i], exm[0]), G0);
+        gx[1][i] = min(min(gx[1][i], exm[1]), G1);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) gx[0][i] = gx[1][i] = C2;
+    }
+    // st.side[].a is final here: its chunk lies above every chunk of an
+    // earlier lap, in this window or an earlier one (a scan's barriers
+    // stand between its store and these loads)
+    RingSide a0 = s0, a1 = s1;
+    a0.a = st.side[0].a;
+    a1.a = st.side[1].a;
+    unsigned has = 0u;
+    int ne = 0;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int c = whi - 1 - (tid * kPer + i);
+      if (c < wlo) continue;
+      const RingRuns rl = ring_runs(wrap, c2, a0, pl[i], k[i], gx[0][i]);
+      const RingRuns rr = ring_runs(wrap, c2, a1, c * C - pl[i], C - k[i],
+                                    gx[1][i]);
+      if (rl.j1[0] > rl.j0[0] || rl.j1[1] > rl.j0[1]
+          || rr.j1[0] > rr.j0[0] || rr.j1[1] > rr.j0[1]) {
+        has |= 1u << i;
+        ++ne;
+      }
+    }
+    int ntot;
+    int e = block_scan(ne, st.part, &ntot);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      if ((has >> i) & 1u) {
+        st.ent[e++] = {whi - 1 - (tid * kPer + i), pl[i], gx[0][i],
+                       gx[1][i]};
+      }
+    }
+    if (tid == 0) {
+      st.S = S + wtot;
+      st.G[0] = min(G0, gtot[0]);
+      st.G[1] = min(G1, gtot[1]);
+      st.n_ent = ntot;
+      int done = st.done;
+      for (int side = 0; side < 2; ++side) {
+        const RingSide& sd = side ? a1 : a0;
+        bool fin;
+        if (wrap) {   // the side's rows in the chunks from wlo on
+          const int rows = side ? (n - wlo) * C - st.S : st.S;
+          fin = rows >= min(sd.T, C2);
+        } else {
+          const int G = st.G[side];
+          fin = G == 0 || (sd.a == 0 && G <= sd.tlast);
+        }
+        if (fin) done |= 1 << side;
+      }
+      st.done = done;
+    }
+    __syncthreads();
+    const int units = st.n_ent * kW;
+    for (int i = cta + warp * ctas; i < units; i += kRingWarps * ctas) {
+      ring_copy(rec, C, vec, wrap, st.side, st.ent[i / kW], i % kW, stag);
+    }
+    __syncthreads();                 // entries read before the next window
+    whi = wlo;
   }
-  if (lane < kW) stag[static_cast<long long>(lane) * 2 * C2 + q] = val;
+}
+
+// P3, one launch: a persistent grid of kRingThreads-thread CTAs, all on
+// the card at once (a cooperative launch); each warp counts every (grid
+// warps)-th chunk's left rows into kl, each CTA its left total into
+// part[blockIdx.x]; after a grid barrier the first `fin` CTAs, one an SM
+// (the walk each of them repeats then shares no SM), finish
+// (ring_finish).
+template <int kPer>
+__global__ void __launch_bounds__(kRingThreads, kRingMinCtas)
+ring_kernel(const int32_t* __restrict__ rec, int n, int C, int wrap,
+            int vec, int fin, int32_t* __restrict__ kl,
+            int32_t* __restrict__ part, int32_t* __restrict__ stag) {
+  __shared__ RingShared st;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int mine = 0;
+  for (long long c = static_cast<long long>(blockIdx.x) * kRingWarps + warp;
+       c < n; c += static_cast<long long>(gridDim.x) * kRingWarps) {
+    const int k = ring_left_rows(rec + c * kW * C, C, vec != 0, lane);
+    if (lane == 0) kl[c] = k;
+    mine += k;
+  }
+  if (lane == 0) st.part[warp] = mine;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int s = 0;
+    for (int w = 0; w < kRingWarps; ++w) s += st.part[w];
+    part[blockIdx.x] = s;
+  }
+  __threadfence();
+  cg::this_grid().sync();
+  if (static_cast<int>(blockIdx.x) >= fin) return;
+  ring_finish<kPer>(rec, n, C, wrap, vec, kl, part, gridDim.x, stag,
+                    blockIdx.x, fin, st);
 }
 
 }  // namespace
@@ -799,43 +1167,39 @@ int lgbt_proto_move(const void* rec, int nc, int C, int tile, int stages,
 }
 
 // P3: stag [16, 4C] = the two rings after every chunk of rec [n, 16, C]
-// (wrap 0: kernel_route4c, 1: kernel_compact_roll); kl [n], prefix
-// [n + 1], laps_l and laps_r [n + 2] int32 scratch (set here).
-int lgbt_proto_ring_stage(const void* rec, int n, int C, int wrap, void* kl,
-                          void* prefix, void* laps_l, void* laps_r,
+// (wrap 0: kernel_route4c, 1: kernel_compact_roll): one cooperative
+// launch of `grid` CTAs (ops/proto.py::ring_launch_shape), no memset, of
+// which `fin` finish; part [grid] and kl [n] are scratch. vec: C % 4 ==
+// 0 and rec 16-byte aligned.
+int lgbt_proto_ring_stage(const void* rec, int n, int C, int wrap, int vec,
+                          int grid, int fin, void* part, void* kl,
                           void* stag, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n == 0) {
-    return static_cast<int>(cudaMemsetAsync(
-        stag, 0, sizeof(int32_t) * kW * 4 * static_cast<size_t>(C), s));
+  const int32_t* r = static_cast<const int32_t*>(rec);
+  int32_t* k = static_cast<int32_t*>(kl);
+  int32_t* p = static_cast<int32_t*>(part);
+  int32_t* out = static_cast<int32_t*>(stag);
+  void* args[] = {&r, &n, &C, &wrap, &vec, &fin, &k, &p, &out};
+  const void* fn =
+      wrap ? reinterpret_cast<const void*>(&ring_kernel<kRingPerWrap>)
+           : reinterpret_cast<const void*>(&ring_kernel<kRingPerDrop>);
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      fn, dim3(grid), dim3(kRingThreads), args, 0,
+      static_cast<cudaStream_t>(stream));
+  return e != cudaSuccess ? static_cast<int>(e) : check();
+}
+
+// CTAs of P3's kernels (both variants) that the CUDA occupancy
+// calculator fits on an SM of the current device (a cooperative launch
+// takes at most that many an SM); -1 on a CUDA error.
+int lgbt_proto_ring_occupancy() {
+  int a = -1, b = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &a, ring_kernel<kRingPerWrap>, kRingThreads, 0) != cudaSuccess
+      || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &b, ring_kernel<kRingPerDrop>, kRingThreads, 0) != cudaSuccess) {
+    return -1;
   }
-  const int32_t* rr = static_cast<const int32_t*>(rec);
-  int32_t* pk = static_cast<int32_t*>(kl);
-  int32_t* pp = static_cast<int32_t*>(prefix);
-  int32_t* ll = static_cast<int32_t*>(laps_l);
-  int32_t* lr = static_cast<int32_t*>(laps_r);
-  const int warps_per_cta = kThreads / 32;
-  ring_count_kernel<<<(n + warps_per_cta - 1) / warps_per_cta, kThreads, 0,
-                      s>>>(rr, n, C, pk);
-  int err = check();
-  if (err != 0) return err;
-  ring_scan_kernel<<<1, kScanThreads, 0, s>>>(n, pk, pp);
-  err = check();
-  if (err != 0) return err;
-  if (!wrap) {
-    const size_t laps_bytes = sizeof(int32_t) * (static_cast<size_t>(n) + 2);
-    cudaError_t e = cudaMemsetAsync(ll, 0x7f, laps_bytes, s);  // > any p
-    if (e == cudaSuccess) e = cudaMemsetAsync(lr, 0x7f, laps_bytes, s);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    ring_laps_kernel<<<(n + 255) / 256, 256, 0, s>>>(n, C, pp, ll, lr);
-    err = check();
-    if (err != 0) return err;
-  }
-  const int positions = 4 * C;
-  ring_resolve_kernel<<<(positions + warps_per_cta - 1) / warps_per_cta,
-                        kThreads, 0, s>>>(rr, n, C, wrap, pp, ll, lr,
-                                          static_cast<int32_t*>(stag));
-  return check();
+  return min(a, b);
 }
 
 // CTAs of slot_hist_kernel that the CUDA occupancy calculator fits on an

@@ -68,9 +68,15 @@ MOVE_TILE_ROWS = 2048
 MOVE_MAX_TILE = 32
 _MOVE_STATIC_SLACK = 1024
 
+# P3's CTA (proto.cu kRingThreads): a warp counts a chunk at a time
+RING_THREADS = 256
+_RING_WARPS = RING_THREADS // 32
+
 _fns: Dict[str, object] = {}
 _ctas: Dict[Tuple[int, int], int] = {}
 _optin: Dict[int, int] = {}            # ordinal -> shared-memory opt-in
+_ring_shapes: Dict[int, Tuple[int, int]] = {}  # ordinal -> (CTAs an SM, SMs)
+_ring_scratch: Dict[Tuple[int, int], torch.Tensor] = {}  # (ordinal, stream)
 
 
 def reset_launches() -> None:
@@ -329,7 +335,8 @@ def _lib():
             "lgbt_proto_slot_hist": [p, i, i, p, p, i, i, i, i, i, i,
                                      p, p, p, p, p],
             "lgbt_proto_move": [p, i, i, i, i, i, p, i, p, p, p],
-            "lgbt_proto_ring_stage": [p, i, i, i, p, p, p, p, p, p],
+            "lgbt_proto_ring_stage": [p, i, i, i, i, i, i, p, p, p, p],
+            "lgbt_proto_ring_occupancy": [],
             "lgbt_proto_slot_hist_occupancy": [i],
             "lgbt_proto_smem_optin": [i],
         }
@@ -534,23 +541,81 @@ def ring_stage(records, wrap: bool):
     there, mod 2C. ``wrap=False`` is ``kernel_route4c``: a row whose
     position passes the ring's end is dropped; ``wrap=True`` is
     ``kernel_compact_roll``: it wraps to the ring's start. Positions no
-    row reaches are 0. The Pallas kernels' output is ``[:, :C]``."""
+    row reaches are 0. The Pallas kernels' output is ``[:, :C]``. On the
+    card one launch a call and no memset: a persistent grid counts each
+    chunk's left rows, then the finish walks back from the last chunk to
+    the rows that end in the staging and copies them."""
     if not records.is_cuda:
         return ring_stage_plain(records, wrap)
     _check_records(records)
     n, _, C = records.shape
-    if n * C >= 1 << 31:
-        raise ValueError("ring_stage takes fewer than 2^31 rows")
-    dev = records.device
-    stag = torch.empty((W, 4 * C), dtype=torch.int32, device=dev)
-    kl = torch.empty(n, dtype=torch.int32, device=dev)
-    prefix = torch.empty(n + 1, dtype=torch.int32, device=dev)
-    laps = torch.empty((2, n + 2), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = _lib()["lgbt_proto_ring_stage"](
-            records.data_ptr(), n, C, int(bool(wrap)), kl.data_ptr(),
-            prefix.data_ptr(), laps[0].data_ptr(), laps[1].data_ptr(),
-            stag.data_ptr(), _stream(dev))
-    _raise_on(err, "ring_stage")
+    if n * C >= 1 << 31 or 4 * C >= 1 << 31:
+        raise ValueError("ring_stage takes fewer than 2^31 rows and a "
+                         "staging of fewer than 2^31 columns")
+    stag = torch.empty((W, 4 * C), dtype=torch.int32, device=records.device)
+    _ring_cuda(records, wrap, stag)
     LAUNCHES["compact_roll" if wrap else "route4c"] += 1
     return stag
+
+
+def ring_launch_shape(n: int, ctas_per_sm: int,
+                      num_sms: int) -> Tuple[int, int, int]:
+    """(CTAs, finishing CTAs, most CTAs) of P3's launch: the CTAs of
+    `RING_THREADS` threads the SMs hold (``ctas_per_sm`` from the
+    occupancy calculator on the card), or fewer when the chunks give
+    fewer than one a warp, at least one (with no chunk it still zeroes
+    the staging); the first of them, one an SM, finish."""
+    if ctas_per_sm < 1:
+        raise ValueError("ring_stage's kernel fits no CTA on an SM")
+    most = ctas_per_sm * num_sms
+    grid = max(1, min(most, -(-n // _RING_WARPS)))
+    return grid, min(grid, num_sms), most
+
+
+def ring_scratch_words(n: int, most: int) -> int:
+    """int32 words of P3's scratch: a left total a CTA, a left count a
+    chunk."""
+    return most + n
+
+
+def _ring_shape(ordinal: int) -> Tuple[int, int]:
+    """(CTAs an SM, SMs) of P3's kernel on device ``ordinal``, queried
+    once."""
+    st = _ring_shapes.get(ordinal)
+    if st is None:
+        with torch.cuda.device(ordinal):
+            ctas = _lib()["lgbt_proto_ring_occupancy"]()
+        if ctas < 0:
+            raise RuntimeError("ring_stage: the CUDA occupancy query failed")
+        st = (ctas, torch.cuda.get_device_properties(
+            ordinal).multi_processor_count)
+        _ring_shapes[ordinal] = st
+    return st
+
+
+def _ring_cuda(records, wrap: bool, stag) -> None:
+    """`ring_stage`'s launch alone, on checked records, into ``stag``
+    [W, 4C]: its scratch (each call writes before it reads) is kept per
+    (device, stream) and grows with n; a launch that fails drops it."""
+    n, _, C = records.shape
+    dev = records.device
+    ordinal = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
+    grid, fin, most = ring_launch_shape(n, *_ring_shape(ordinal))
+    vec = int(C % 4 == 0 and records.data_ptr() % 16 == 0)
+    words = ring_scratch_words(n, most)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        key = (ordinal, stream)
+        sc = _ring_scratch.get(key)
+        if sc is None or sc.numel() < words:
+            sc = torch.empty(words, dtype=torch.int32, device=dev)
+            _ring_scratch[key] = sc
+        err = _lib()["lgbt_proto_ring_stage"](
+            records.data_ptr(), n, C, int(bool(wrap)), vec, grid, fin,
+            sc.data_ptr(), sc.data_ptr() + 4 * most, stag.data_ptr(),
+            stream)
+    if err != 0:
+        _ring_scratch.pop(key, None)
+        raise RuntimeError(f"ring_stage kernel launch failed: CUDA error "
+                           f"{err} (CTAs={grid}, chunks={n})")

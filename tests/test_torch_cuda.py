@@ -1034,23 +1034,85 @@ def test_proto_move_one_memset_one_launch_on_gpu(cuda):
                                          out=torch.full_like(out, -1)))
 
 
+def _ring_records(n, chunk, left_share, seed, cuda):
+    """P3's records: random words (one row in eight goes left), or lane
+    0's low byte set so that a row goes left with probability
+    ``left_share``, or each chunk has no left row (``"no left"``), all
+    but one (``"C-1 left"``: route4c skips positions below C lap after
+    lap) or a left row in 8 chunks on average (``"sparse left"``: the
+    last 2C left rows span thousands of chunks)."""
+    rng = np.random.default_rng(seed)
+    rec = rng.integers(0, 2**31 - 1, size=(n, P.W, chunk), dtype=np.int32)
+    if left_share is not None:
+        if left_share == "no left":
+            left = np.zeros((n, chunk), bool)
+        elif left_share == "C-1 left":
+            left = np.ones((n, chunk), bool)
+            left[np.arange(n), rng.integers(0, chunk, n)] = False
+        elif left_share == "sparse left":
+            left = rng.random((n, chunk)) < 1 / (8 * chunk)
+        else:
+            left = rng.random((n, chunk)) < left_share
+        key = rec[:, 0] & 255
+        rec[:, 0] = (rec[:, 0] & ~255) | np.where(left, key & 31,
+                                                   32 + key % 224)
+    return torch.tensor(rec, device=cuda)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("left_share", [None, 0.9])
-@pytest.mark.parametrize("n", [1, 2, 24, 777])
+@pytest.mark.parametrize("left_share", [None, 0.9, "no left", "C-1 left",
+                                        "sparse left"])
+@pytest.mark.parametrize("n", [1, 2, 24, 777, 20000])
 @pytest.mark.parametrize("wrap", [False, True])
 def test_proto_ring_stage_matches_plain_on_gpu(cuda, wrap, n, left_share):
-    """P3 against its twin, both variants, over random chunks of 512 rows
-    (one row in eight goes left) and chunks where nine in ten do: the
-    whole staging equal."""
-    rng = np.random.default_rng(n)
-    rec = rng.integers(0, 2**31 - 1, size=(n, P.W, 512), dtype=np.int32)
-    if left_share is not None:
-        key = np.where(rng.random((n, 512)) < left_share,
-                       rng.integers(0, 32, (n, 512)),
-                       rng.integers(32, 256, (n, 512)))
-        rec[:, 0] = (rec[:, 0] & ~255) | key
-    rec = torch.tensor(rec, device=cuda)
+    """P3's one launch against its twin, both variants, over chunks of 512
+    rows: random (one row in eight goes left), nine in ten left, and the
+    chunks that stress the walk back from the last chunk (none left, all
+    but one, a left row in 8 chunks): the whole staging equal."""
+    rec = _ring_records(n, 512, left_share, n, cuda)
     P.reset_launches()
     got = P.ring_stage(rec, wrap)
     assert P.LAUNCHES["compact_roll" if wrap else "route4c"] == 1
     assert torch.equal(got, P.ring_stage_plain(rec, wrap))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [512, 250, 8, 1])
+def test_proto_ring_stage_odd_chunks_on_gpu(cuda, chunk):
+    """Chunks of 250 and 1 row (word loads), 8 (a warp's segment past the
+    chunk's end) and 512; no chunk at all (a zero staging); both
+    variants equal to the twin."""
+    for n in (0, 3, 5000):
+        rec = _ring_records(n, chunk, 0.5 if chunk < 32 else None, chunk,
+                            cuda)
+        for wrap in (False, True):
+            assert torch.equal(P.ring_stage(rec, wrap),
+                               P.ring_stage_plain(rec, wrap))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrap", [False, True])
+def test_proto_ring_stage_one_launch_on_gpu(cuda, wrap):
+    """A `ring_stage` call puts one kernel on its stream and nothing else
+    (no memset): the nodes of a captured CUDA graph of the wrapper."""
+    rec = _ring_records(3000, 512, None, 3, cuda)
+    assert graph_launches(lambda: P.ring_stage(rec, wrap)) == {
+        "kernels": 1, "memsets": 0, "other": 0}
+
+
+@pytest.mark.cuda
+def test_proto_ring_stage_back_to_back_on_gpu(cuda):
+    """Calls of other sizes and both variants one after another on one
+    stream, read only at the end: each equal to its twin (the scratch
+    kept for the stream serves every size, growing with it)."""
+    cases = [(n, kind, wrap) for n, kind in ((20000, None), (5, 0.9),
+                                             (777, "C-1 left"),
+                                             (3000, "sparse left"),
+                                             (1, None), (20000, "no left"))
+             for wrap in (False, True)]
+    recs = {(n, kind): _ring_records(n, 512, kind, n, cuda)
+            for n, kind, _ in cases}
+    got = [P.ring_stage(recs[(n, kind)], wrap) for n, kind, wrap in cases]
+    for (n, kind, wrap), g in zip(cases, got):
+        assert torch.equal(g, P.ring_stage_plain(recs[(n, kind)], wrap)), \
+            (n, kind, wrap)

@@ -249,6 +249,52 @@ def test_ring_stage_matches_pallas(ring_records, n, wrap):
     assert (0 < (~cols).sum() < TR.C) if n == 2 else cols.all()
 
 
+def _ring_kind(rec, kind, seed):
+    """rec with lane 0's low byte set so that each chunk has no left row,
+    all but one (route4c then skips positions below C lap after lap), or
+    a left row in 64 on average."""
+    rng = np.random.default_rng(seed)
+    n, _, C = rec.shape
+    if kind == "no left":
+        left = np.zeros((n, C), bool)
+    elif kind == "C-1 left":
+        left = np.ones((n, C), bool)
+        left[np.arange(n), rng.integers(0, C, n)] = False
+    else:
+        left = rng.random((n, C)) < 1 / 64
+    key = rec[:, 0] & 255
+    out = rec.copy()
+    out[:, 0] = (rec[:, 0] & ~255) | np.where(left, key & 31,
+                                               32 + key % 224)
+    return out
+
+
+@pytest.mark.parametrize("kind", ["no left", "C-1 left", "sparse left"])
+@pytest.mark.parametrize("wrap", [False, True], ids=["route4c",
+                                                     "compact_roll"])
+def test_ring_stage_matches_pallas_on_skewed_chunks(ring_records, kind,
+                                                    wrap):
+    """24 chunks whose left rows stress a walk back from the last chunk:
+    none (the left ring stays empty: zero), C - 1 a chunk (route4c drops
+    each lap's first positions and keeps an earlier lap's there), and
+    sparse (every row in lap 0). The twin is bit-equal to the Pallas
+    kernel on every position it writes, and 0 elsewhere."""
+    rec = _ring_kind(ring_records[24], kind, len(kind))
+    kernel = TR.kernel_compact_roll if wrap else TR.kernel_route4c
+    want = _pallas_ring(kernel, rec)
+    got = P.ring_stage(_t(rec), wrap).numpy()
+    written = got == P.ring_stage_plain(_t(rec), wrap, fill=1).numpy()
+    cols = written[:, :TR.C].all(0)
+    assert np.array_equal(got[:, :TR.C][:, cols], want[:, cols])
+    assert not got[~written].any()
+    n_left = int(((rec[:, 0] & 255) <= P.ROLL_THRESHOLD).sum())
+    n_right = rec.shape[0] * TR.C - n_left
+    assert cols.sum() == min(n_left, TR.C)
+    # lap 0 reaches every position up to the side's rows
+    assert written[:, :2 * TR.C].all(0).sum() == min(n_left, 2 * TR.C)
+    assert written[:, 2 * TR.C:].all(0).sum() == min(n_right, 2 * TR.C)
+
+
 def test_ring_variants_differ_at_24_chunks(ring_records):
     """route4c drops the rows whose position passes the ring's end, and
     compact_roll wraps them: the Pallas outputs differ, and so do the

@@ -1,12 +1,15 @@
-"""P1 `slot_hist`'s launch shape (ops/proto.py::slot_hist_smem and
-slot_hist_launch_shape) on the CPU: shared memory within an H100's
-opt-in limit, tiles within the rows that bound the fixed-point rounding,
-and a grid of the given CTAs per SM. The CTAs per SM themselves come
-from the CUDA occupancy calculator on the card (tests/test_torch_cuda.py)."""
+"""The prototype kernels' launch shapes (ops/proto.py) on the CPU: P1
+`slot_hist`'s (slot_hist_smem and slot_hist_launch_shape: shared memory
+within an H100's opt-in limit, tiles within the rows that bound the
+fixed-point rounding, a grid of the given CTAs per SM), P2 `move`'s
+(move_smem) and P3 `ring_stage`'s (ring_launch_shape and its scratch).
+The CTAs per SM themselves come from the CUDA occupancy calculator on
+the card (tests/test_torch_cuda.py)."""
 import pytest
 
 from lightgbm_tpu_torch.ops import proto as P
 from lightgbm_tpu_torch.tools import proto_aligned as HA
+from lightgbm_tpu_torch.tools import proto_roll as HR
 
 # cudaDevAttrMaxSharedMemoryPerBlockOptin and the SMs of an H100 80GB HBM3
 H100_SMEM_OPTIN, H100_SMS = 232448, 132
@@ -89,3 +92,31 @@ def test_move_smem_tiles_stages_and_odd_chunks():
         P.move_smem(4096, H100_SMEM_OPTIN)
     with pytest.raises(ValueError, match="65,535"):
         P.move_smem(65536, H100_SMEM_OPTIN)
+
+
+@pytest.mark.parametrize("ctas", [1, 4, 8])
+def test_ring_launch_shape_at_the_harness_size(ctas):
+    """P3 at the harness's 20,000 chunks on an H100's 132 SMs: as many
+    CTAs of 256 threads as the SMs hold (a warp counts a chunk at a
+    time, so 2,500 CTAs would give every warp one), and a scratch of a
+    total a CTA and a count a chunk, under 90 KB; one CTA an SM
+    finishes."""
+    grid, fin, most = P.ring_launch_shape(HR.N_CHUNKS, ctas, H100_SMS)
+    assert most == ctas * H100_SMS
+    assert grid == min(most, HR.N_CHUNKS // (P.RING_THREADS // 32))
+    assert fin == H100_SMS                   # one finishing CTA an SM
+    words = P.ring_scratch_words(HR.N_CHUNKS, most)
+    assert words == most + HR.N_CHUNKS
+    assert 4 * words < 90 * 1024
+
+
+def test_ring_launch_shape_small_and_refused():
+    """Fewer CTAs when the chunks give fewer than one a warp, one with no
+    chunk at all (it still zeroes the staging), and as many finishing;
+    no CTA on an SM raises."""
+    assert P.ring_launch_shape(0, 8, H100_SMS) == (1, 1, 8 * H100_SMS)
+    assert P.ring_launch_shape(1, 8, H100_SMS)[:2] == (1, 1)
+    assert P.ring_launch_shape(17, 8, H100_SMS)[:2] == (3, 3)
+    assert P.ring_launch_shape(10 ** 6, 2, H100_SMS)[0] == 2 * H100_SMS
+    with pytest.raises(ValueError, match="no CTA"):
+        P.ring_launch_shape(100, 0, H100_SMS)
