@@ -45,18 +45,20 @@ lambdarank gradient (kernel B6, ``rank.cu``) and the prototype move (P2,
         (``tpu_grow_mode=level``, ``max_depth`` 8, 63 and 255 bins):
         median iteration and level build ms, holdout AUC, and one
         profiled round's wall, busy and B5 device ms and launches;
-    python3 chip_ab.py move --baseline DIR
-        B2's partition of the checkout at DIR, an earlier design whose C
-        entry point takes (per-chunk count, prefix and scatter scratch,
-        the children's map filled by the caller) and launches a count, a
-        one-CTA scan and a scatter kernel, against this checkout's one
-        launch: alone on the root's and the widest round's moves of one
-        aligned tree at the HIGGS shape (COMPACT, 63 and 255 bins) and
-        the MSLR shape (EXT), each checked against the plain twin, the
-        partition and the whole ``move_pass`` timed; then the aligned
-        path end to end (``auto``; HIGGS 63 and 255 bins, MSLR): median
-        iteration ms, AUC or NDCG@10, and one profiled round's wall,
-        busy and partition device ms and launches;
+    python3 chip_ab.py move --baseline DIR [--cat]
+        B2's partition of the checkout at DIR, the one-launch design
+        before the categorical route (its C entry point takes no bitset
+        table), against this checkout's: alone on the root's and the
+        widest round's moves of one aligned tree at the HIGGS shape
+        (COMPACT, 63 and 255 bins) and the MSLR shape (EXT), each checked
+        against the plain twin, the partition and the whole
+        ``move_pass`` timed; then the aligned path end to end (``auto``;
+        HIGGS 63 and 255 bins, MSLR): median iteration ms, AUC or
+        NDCG@10, and one profiled round's wall, busy and partition device
+        ms and launches. ``--cat``: alone only, at HIGGS 63 and 255 and
+        at the airline shape (``chip_smoke.synth_airline``, 255 bins)
+        with the columns binned as numbers (A and B), then B on the
+        airline tree with the columns categorical (the bitset route);
     python3 chip_ab.py rank --baseline DIR
         B6 of the checkout at DIR, an earlier design whose C entry point
         takes a (query, first document) block list and a discount
@@ -88,15 +90,19 @@ lambdarank gradient (kernel B6, ``rank.cu``) and the prototype move (P2,
         the last chunk, each bit-equal to the plain twin, the launch
         alone and the wrapper with a warm and a cold L2, and one call's
         graph nodes;
-    python3 chip_ab.py count --baseline DIR
+    python3 chip_ab.py count --baseline DIR [--cat]
         B3, the aligned engine's count pass (``aligned.cu``), of the
-        checkout at DIR, an earlier design whose C entry point adds into
-        an output the caller zeroes, against this checkout's: alone on
-        the widest round of one big-n tree (``tpu_force_big_n``, HIGGS
-        shape, 63 bins), equal to the twin, the launch alone, the wrapper
-        and one call's graph nodes; then the big-n path end to end (3
-        rounds): median iteration ms, AUC, the model text, one profiled
-        round's B3 device ms and launches;
+        checkout at DIR, the one-launch design before the categorical
+        route (its C entry point takes no bitset table), against this
+        checkout's: alone on the widest round of one big-n tree
+        (``tpu_force_big_n``, HIGGS shape, 63 bins), equal to the twin,
+        the launch alone, the wrapper and one call's graph nodes; then
+        the big-n path end to end (3 rounds): median iteration ms, AUC,
+        the model text, one profiled round's B3 device ms and launches.
+        ``--cat``: alone only, at HIGGS 63 and at the airline shape (255
+        bins), the launch alone with a warm and a cold L2, where A and B
+        take the round with its categorical bits cleared and B also the
+        round as it is;
     python3 chip_ab.py proto-move-sweep
         where P2's time goes at the harness's size: this checkout's
         kernel (B) against builds with streaming stores, without the
@@ -603,40 +609,104 @@ def words_sweep(torch, CS, lt, H) -> dict:
 
 
 def baseline_partition(torch, A, lib):
-    """`_move_partition_cuda` for the earlier B2 design's entry point:
-    count, one-CTA scan and scatter kernels over [3, NC] scratch, the
-    children's map filled (nslot) and zeroed (ncnt) first."""
+    """`_move_partition_cuda` for the entry point of B2's one-launch
+    partition before the categorical route (no bitset table; the same
+    lanes a stage and 32 bytes less shared memory: no bitset words)."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lgbt_move_partition.argtypes = [p, i, i, i, i, i, p, p, p, p, p, p,
-                                        p, i, p, p, p, p, p, p, p]
+    lib.lgbt_move_partition.argtypes = [p, i, i, i, i, i, i, i, p, p, p, p,
+                                        p, p, p, i, p, p, p]
     lib.lgbt_move_partition.restype = i
 
     def run(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
-            bits, w_used, out):
+            bits, w_used, out, cptr=0):
+        if cptr:
+            raise ValueError("the baseline partition has no categorical "
+                             "route")
         nc, W, C = records.shape
         dev = records.device
-        scratch = torch.empty((3, nc), dtype=torch.int32, device=dev)
-        nslot = torch.full((nc,), num_slots, dtype=torch.int32, device=dev)
-        ncnt = torch.zeros(nc, dtype=torch.int32, device=dev)
+        lanes, smem = A.move_smem(C, w_used, A._lib()[
+            "lgbt_aligned_smem_optin"](dev.index or 0))
+        scratch = torch.empty(4 * nc + 2, dtype=torch.int32, device=dev)
         with torch.cuda.device(dev):
             err = lib.lgbt_move_partition(
-                records.data_ptr(), nc, W, C, w_used, bits, r1.data_ptr(),
-                r2.data_ptr(), meta.data_ptr(), wsel.data_ptr(),
-                basel.data_ptr(), baser.data_ptr(), hslots.data_ptr(),
-                num_slots, scratch[0].data_ptr(), scratch[1].data_ptr(),
-                scratch[2].data_ptr(), nslot.data_ptr(), ncnt.data_ptr(),
+                records.data_ptr(), nc, W, C, w_used, lanes, smem - 32, bits,
+                r1.data_ptr(), r2.data_ptr(), meta.data_ptr(),
+                wsel.data_ptr(), basel.data_ptr(), baser.data_ptr(),
+                hslots.data_ptr(), num_slots, scratch.data_ptr(),
                 out.data_ptr(), A._stream(dev))
         A._raise_on(err, "baseline partition")
-        return nslot, ncnt
+        return scratch[2 * nc + 2:3 * nc + 2], scratch[3 * nc + 2:]
     return run
 
 
-def move(torch, CS, lt, A, baseline: str) -> dict:
+def move_cat(torch, CS, lt, A, impl) -> dict:
+    """`move --cat`: B2's partition alone (and the whole ``move_pass``)
+    A, B, B, A on the root's and the widest round's moves of one aligned
+    tree at the HIGGS shape (COMPACT, 63 and 255 bins) and at the
+    airline shape (``synth_airline``, 255 bins) with the six columns
+    binned as numbers, both designs on the numerical route; then this
+    checkout's (B, twice) on the airline tree with the columns
+    categorical, routed by the bitset table. Each B checked against the
+    plain twin. (A round's categorical bits cannot just be cleared: its
+    destinations come from its categorical left counts.)"""
+    res = {}
+
+    def sizes(calls, what, order):
+        for which in order:
+            A._move_partition_cuda = impl[which]
+            r = {}
+            for key in ("move_root", "move_wide"):
+                args, cbits = calls[key], calls[f"{key}_cbits"]
+                if which == "B":
+                    CS.check_move(torch, A, args, f"chip_ab move {key} "
+                                  f"{what}", cbits=cbits)
+                buf = torch.empty_like(args[0])
+                part = (*args[:8], args[8], args[12], args[13], buf,
+                        0 if cbits is None else cbits.data_ptr())
+                r[f"{key} partition ms"] = CS.cuda_ms(
+                    torch, lambda p=part: A._move_partition_cuda(*p),
+                    reps=20)
+                r[f"{key} move_pass ms"] = CS.cuda_ms(
+                    torch, lambda a=args, b=buf, c=cbits: A.move_pass(
+                        *a, out=b, cbits=c), reps=10)
+                del buf, part
+            res.setdefault(f"sizes {what} {which}", []).append(r)
+            CS.log(f"move sizes {what} {which}: {r}")
+        A._move_partition_cuda = impl["B"]
+
+    params = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
+              "min_data_in_leaf": 20, "feature_fraction": 1.0,
+              "verbosity": -1}
+    X, y = CS.synth_higgs(10_500_000, 28)
+    for max_bin in (63, 255):
+        p = {**params, "max_bin": max_bin}
+        ds = lt.Dataset(X, label=y, params=p, free_raw_data=False).construct()
+        sizes(CS.capture_kernel_calls(torch, lt, ds, p), f"higgs{max_bin}",
+              ORDER)
+        del ds
+        torch.cuda.empty_cache()
+    del X, y
+    X, y = CS.synth_airline(10_000_000)
+    p = {**params, "max_bin": 255}
+    for kind, cats, order in (("numerical", None, ORDER),
+                              ("categorical", CS.AIRLINE_CATS, ("B", "B"))):
+        ds = lt.Dataset(X, label=y, params=p, categorical_feature=cats,
+                        free_raw_data=False).construct()
+        sizes(CS.capture_kernel_calls(torch, lt, ds, p), f"airline {kind}",
+              order)
+        del ds
+        torch.cuda.empty_cache()
+    return res
+
+
+def move(torch, CS, lt, A, baseline: str, cat: bool = False) -> dict:
     src = os.path.join(baseline, "lightgbm_tpu_torch", "ops", "csrc",
                        "aligned.cu")
     impl = {"A": baseline_partition(torch, A, nvcc_lib(
                 src, "baseline_move", os.path.dirname(src))),
             "B": A._move_partition_cuda}
+    if cat:
+        return move_cat(torch, CS, lt, A, impl)
     names = CS.ALIGNED_KERNELS + ("scan_kernel", "scatter_kernel")
     res = {}
 
@@ -912,35 +982,129 @@ def proto_ring(torch, CS, P, baseline: str) -> dict:
 
 
 def baseline_count(torch, A, lib):
-    """(launch alone, wrapper) of B3 for the earlier design's entry point
-    in ``lib``: one CTA of 256 threads a chunk adding its left rows to
-    ``out`` with a global atomic; the wrapper zeroes ``out`` first
-    (``torch.zeros``)."""
+    """(launch alone, wrapper) of B3 for the entry point of its
+    one-launch design before the categorical route (no bitset table): the
+    same launch shape and a scratch of its own, zero before and after
+    each call; the wrapper's output from ``torch.empty``."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lgbt_count_pass.argtypes = [p, i, i, i, p, p, p, p, p, i, i, p, p]
+    lib.lgbt_count_pass.argtypes = [p, ctypes.c_longlong, i, i, p, p, p, p,
+                                    p, i, i, i, i, p, p, p, p]
     lib.lgbt_count_pass.restype = i
+    lib.lgbt_count_occupancy.argtypes = [i]
+    lib.lgbt_count_occupancy.restype = i
+    scratch = {}
 
-    def launch(records, r1, r2, meta, wsel, kslots, num_slots, bits, out):
+    def launch(records, r1, r2, meta, wsel, kslots, num_slots, bits, out,
+               cptr=0):
+        if cptr:
+            raise ValueError("the baseline count pass has no categorical "
+                             "route")
         nc, W, C = records.shape
         dev = records.device
+        if num_slots not in scratch:
+            smem, _ = A.count_launch_shape(1, num_slots, 1, 1, 1 << 30)
+            with torch.cuda.device(dev):
+                per_sm = lib.lgbt_count_occupancy(smem)
+            sc = scratch.get("buf")
+            if sc is None or sc.numel() - 1 < num_slots:
+                scratch["buf"] = torch.zeros(num_slots + 1, dtype=torch.int32,
+                                             device=dev)
+            scratch[num_slots] = per_sm
+        _, grid = A.count_launch_shape(
+            nc, num_slots, scratch[num_slots],
+            torch.cuda.get_device_properties(dev).multi_processor_count,
+            1 << 30)
+        sc = scratch["buf"]
+        vec = int(C % 4 == 0 and records.data_ptr() % 16 == 0)
         with torch.cuda.device(dev):
             err = lib.lgbt_count_pass(
                 records.data_ptr(), nc, W, C, r1.data_ptr(), r2.data_ptr(),
                 meta.data_ptr(), wsel.data_ptr(), kslots.data_ptr(),
-                num_slots, bits, out.data_ptr(), A._stream(dev))
+                num_slots, bits, vec, grid, sc.data_ptr(),
+                sc.data_ptr() + 4 * (sc.numel() - 1), out.data_ptr(),
+                A._stream(dev))
         A._raise_on(err, "baseline count_pass")
 
-    def wrapper(records, r1, r2, meta, wsel, kslots, num_slots, bits):
+    def wrapper(records, r1, r2, meta, wsel, kslots, num_slots, bits,
+                cbits=None):
         A._check_cuda(records, r1, r2, meta, wsel, kslots)
-        out = torch.zeros(num_slots, dtype=torch.int32,
+        out = torch.empty(num_slots, dtype=torch.int32,
                           device=records.device)
-        launch(records, r1, r2, meta, wsel, kslots, num_slots, bits, out)
+        launch(records, r1, r2, meta, wsel, kslots, num_slots, bits, out,
+               0 if cbits is None else cbits.data_ptr())
         A.LAUNCHES["count_pass"] += 1
         return out
     return launch, wrapper
 
 
-def count(torch, CS, lt, A, baseline: str) -> dict:
+def cleared(args):
+    """Count pass ``args`` with the categorical bit of every route word
+    (r1, the second) cleared: the same chunks routed by their numerical
+    fields."""
+    return (args[0], args[1] & ~(1 << 25), *args[2:])
+
+
+def count_cat(torch, CS, lt, A, impl) -> dict:
+    """`count --cat`: B3 A, B, B, A on the count pass of the widest round
+    of one big-n tree (``tpu_force_big_n``, STANDARD) at the HIGGS shape
+    (63 bins, numerical) and the airline shape (255 bins): there A and B
+    on the round with its categorical bits cleared and B on the round as
+    it is, routed by the bitset table; each equal to the twin; the launch
+    alone with a warm and a cold L2, and the wrapper."""
+    from lightgbm_tpu_torch.utils.launches import graph_launches
+    res = {}
+    params = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
+              "min_data_in_leaf": 20, "feature_fraction": 1.0,
+              "verbosity": -1, "tpu_force_big_n": True}
+    shapes = (("higgs63", 10_500_000, 63), ("airline", 10_000_000, 255))
+    for what, n, max_bin in shapes:
+        if what == "higgs63":
+            X, y = CS.synth_higgs(n, 28)
+            cats = None
+        else:
+            X, y = CS.synth_airline(n)
+            cats = CS.AIRLINE_CATS
+        p = {**params, "max_bin": max_bin}
+        ds = lt.Dataset(X, label=y, params=p, categorical_feature=cats,
+                        free_raw_data=False).construct()
+        del X, y
+        calls = CS.capture_kernel_calls(torch, lt, ds, p)
+        args, cbits = calls["count_wide"], calls["count_wide_cbits"]
+        del calls, ds
+        runs = [("", args, None)]
+        if cbits is not None:
+            runs = [("numerical route", cleared(args), None),
+                    ("categorical route", args, cbits)]
+        for which in ORDER:
+            launch, wrapper = impl[which]
+            r = {}
+            for label, a, cb in runs:
+                if cb is not None and which == "A":
+                    continue
+                ref = A.count_pass_plain(*a, cbits=cb)
+                if not torch.equal(wrapper(*a, cbits=cb), ref):
+                    raise AssertionError(f"chip_ab count {which} {label} "
+                                         f"differs from the twin, {what}")
+                out = torch.empty(a[6], dtype=torch.int32, device=CS.DEVICE)
+                cptr = 0 if cb is None else cb.data_ptr()
+                key = f"{label} " if label else ""
+                r[f"{key}launch_ms"] = CS.cuda_ms(
+                    torch, lambda a=a, o=out, c=cptr: launch(*a, o, c),
+                    reps=20)
+                r[f"{key}cold_ms"] = CS.cold_ms(
+                    torch, lambda a=a, o=out, c=cptr: launch(*a, o, c))
+                r[f"{key}wrapper_ms"] = CS.cuda_ms(
+                    torch, lambda a=a, c=cb: wrapper(*a, cbits=c), reps=20)
+                r[f"{key}graph"] = graph_launches(
+                    lambda a=a, c=cb: wrapper(*a, cbits=c))
+            res.setdefault(f"widest round {what} {which}", []).append(r)
+            CS.log(f"count widest round {what} {which}: {r}")
+        del args, cbits, runs
+        torch.cuda.empty_cache()
+    return res
+
+
+def count(torch, CS, lt, A, baseline: str, cat: bool = False) -> dict:
     """B3 of the checkout at DIR (A) against this checkout's (B): alone on
     the count pass of the widest round of one big-n tree
     (``tpu_force_big_n``, STANDARD records, HIGGS shape at 63 bins),
@@ -957,6 +1121,8 @@ def count(torch, CS, lt, A, baseline: str) -> dict:
     impl = {"A": baseline_count(torch, A, nvcc_lib(
                 src, "baseline_count", os.path.dirname(src))),
             "B": (A._count_cuda, A.count_pass)}
+    if cat:
+        return count_cat(torch, CS, lt, A, impl)
     n, f = 10_500_000, 28
     X, y = CS.synth_higgs(n + 500_000, f)
     params = {"objective": "binary", "num_leaves": 255, "max_bin": 63,
@@ -1512,6 +1678,9 @@ def main() -> int:
     ap.add_argument("--baseline", help="checkout of the earlier design "
                     "(engine, hist, words, move, rank, proto-move, count, "
                     "proto-ring)")
+    ap.add_argument("--cat", action="store_true", help="move, count: the "
+                    "kernel alone on numerical (HIGGS) and categorical "
+                    "(airline) rounds")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1538,9 +1707,9 @@ def main() -> int:
             res = (proto_move if args.what == "proto-move" else proto_ring)(
                 torch, CS, P, args.baseline)
         elif args.what == "count":
-            res = count(torch, CS, lt, A, args.baseline)
+            res = count(torch, CS, lt, A, args.baseline, args.cat)
         elif args.what == "move":
-            res = move(torch, CS, lt, A, args.baseline)
+            res = move(torch, CS, lt, A, args.baseline, args.cat)
         elif args.what == "rank":
             from lightgbm_tpu_torch.ops import rank as R
             res = rank(torch, CS, lt, R, args.baseline)

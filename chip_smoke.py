@@ -145,7 +145,33 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    cold L2 and as its wrapper, one kernel and no memset a call counted
    in a captured CUDA graph (after the timing); P1 once more at (256, 4)
    on payloads of random bits (NaN and Inf among them), held against its
-   twin cell by cell.
+   twin cell by cell;
+15. categorical splits at the airline-delay shape of szilard/benchm-ml
+   (`synth_airline`: 10,000,000 + 500,000 holdout rows, Month,
+   DayofMonth, DayOfWeek, UniqueCarrier, Origin and Dest categorical,
+   DepTime and Distance numerical; 255 leaves, max_bin 255, the default
+   categorical parameters), the binning timed with the six columns
+   categorical and all numerical, every run with the plain twins of
+   B1-B5 counted (a call fails it) and its categorical nodes, rounds,
+   executed splits and fallbacks per tree printed: (a) ``train`` under
+   ``auto`` (10 rounds), which must take the aligned engine, say so in
+   the log, grow categorical nodes and route by a bitset in B2, with a
+   holdout AUC above 0.6 and above the same run's on the columns as
+   numbers, the card's predictions against a CPU predict, one profiled
+   round (B2's partition one launch a call); (b) leaf-wise, 5 rounds,
+   AUC within 2e-3 of (a)'s at 5 rounds; (c) level at ``max_depth`` 8,
+   10 rounds, no fallback, AUC within 2e-3 of ``auto``'s at
+   ``max_depth`` 8 (both grow the same leaf-wise trees; (a)'s deeper
+   trees reach another AUC); (d)
+   ``tpu_force_big_n``, 3 rounds, B3 counting by a bitset, its launches
+   equal to its calls in a profiled round; (e) phase 6's replay on one
+   airline tree, COMPACT (the root's and the widest round's moves) and
+   STANDARD (the widest round's move and count pass), through the
+   kernels and their twins: counts equal, moved records equal, the
+   children's histograms within 1e-5 x sum |g|; B2's partition alone and
+   B3's launch alone (warm and cold L2) and wrapper timed beside the
+   twin and the byte bound, one memset and one kernel (B2) and one
+   kernel (B3) a call from a captured CUDA graph.
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -696,7 +722,9 @@ def capture_kernel_calls(torch, lt, ds, params) -> dict:
     their inputs): the root's histogram pass, the root's move, and the
     move of the round with the most split blocks among those that also
     copy unsplit blocks, with that round's count pass (STANDARD only);
-    ``gh_off`` is the grad lane offset the engine passed (EXT: 1)."""
+    ``gh_off`` is the grad lane offset the engine passed (EXT: 1), and
+    ``<call>_cbits`` each move's and count's bitset table (None without
+    a categorical feature)."""
     from lightgbm_tpu_torch.models import aligned_builder as AB
     names = ("move_pass", "count_pass", "slot_hist_pass")
     real = {n: getattr(AB, n) for n in names}
@@ -710,21 +738,26 @@ def capture_kernel_calls(torch, lt, ds, params) -> dict:
         keep.setdefault("gh_off", kw.get("gh_off", 2))
         return real["slot_hist_pass"](*args, **kw)
 
-    def count(*args):
+    def count(*args, **kw):
         state["count"] = clone(args)
-        return real["count_pass"](*args)
+        state["count_cbits"] = clone((kw.get("cbits"),))[0]
+        return real["count_pass"](*args, **kw)
 
     def move(*args, out=None, **kw):
         r1, meta, hs, k = args[1], args[5], args[7], args[8]
         blocks = int(torch.unique(hs[(hs & 0xFFFFFF) < k]).numel())
         copies = int(((((r1 >> 16) & 1) == 1)
                       & ((meta & 0xFFFFF) > 0)).sum())
+        cbits = clone((kw.get("cbits"),))[0]
         if "move_root" not in keep:
             keep["move_root"] = clone(args)
+            keep["move_root_cbits"] = cbits
         elif copies > 0 and blocks >= state["blocks"]:
             keep.pop("move_wide", None)
             keep["move_wide"] = clone(args)
+            keep["move_wide_cbits"] = cbits
             keep["count_wide"] = state["count"]
+            keep["count_wide_cbits"] = state.get("count_cbits")
             state["blocks"] = blocks
         state["count"] = None
         return real["move_pass"](*args, out=out, **kw)
@@ -831,17 +864,19 @@ def bound(nbytes: float, ops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_move(torch, A, args, what, gh_off=2) -> float:
+def check_move(torch, A, args, what, gh_off=2, cbits=None) -> float:
     """The move kernel against its twin: records equal on the rows the new
     layout covers (the twin run into two fills marks them) in the used
-    lanes; the smaller children's histograms by `check_hist`."""
+    lanes; the smaller children's histograms by `check_hist`. ``cbits``:
+    the round's bitset table."""
     rec, meta, hs, k = args[0], args[5], args[7], args[8]
     wcnt, w_used, grad = args[11], args[13], args[14]
-    out, hist = A.move_pass(*args, gh_off=gh_off)
+    out, hist = A.move_pass(*args, gh_off=gh_off, cbits=cbits)
     ref_a, ref_hist = A.move_pass_plain(*args, out=torch.full_like(rec, -1),
-                                        gh_off=gh_off)
+                                        gh_off=gh_off, cbits=cbits)
     cov = ref_a[:, 0] == A.move_pass_plain(
-        *args, out=torch.full_like(rec, -2), gh_off=gh_off)[0][:, 0]
+        *args, out=torch.full_like(rec, -2), gh_off=gh_off,
+        cbits=cbits)[0][:, 0]
     for u in range(w_used):
         if not torch.equal(out[:, u][cov], ref_a[:, u][cov]):
             raise AssertionError(f"{what}: moved records differ in lane {u}")
@@ -1485,6 +1520,333 @@ def synth_mslr(n: int, f: int, seed: int = 11):
     return X, y, group
 
 
+# ---------------------------------------------------------------------------
+# categorical splits: the airline-delay shape
+# ---------------------------------------------------------------------------
+# the airline table of szilard/benchm-ml (the data of LightGBM's
+# categorical experiment): Month, DayofMonth, DayOfWeek, UniqueCarrier,
+# Origin, Dest (categorical), DepTime, Distance (numerical)
+AIRLINE_CODES = (12, 31, 7, 22, 300, 300)
+AIRLINE_CATS = list(range(len(AIRLINE_CODES)))
+AIRLINE_ROUNDS = {"auto": 10, "leafwise": 5, "level": 10, "big_n": 3}
+AIRLINE_ZIPF = 1.3           # Origin and Dest: a few hub airports
+
+
+def synth_airline(n: int, seed: int = 13):
+    """Airline-delay-shaped rows (float32 [n, 8]) and the
+    ``dep_delayed_15min`` label: Month 1-12, DayofMonth 1-31, DayOfWeek
+    1-7, UniqueCarrier 0-21 uniform; Origin and Dest Zipf-skewed (s 1.1)
+    over 300 airports whose ranks are shuffled against their codes;
+    DepTime as hhmm (0-2359, most departures by day) and Distance 30-5000
+    miles (log-normal). The label (about 19% positive) is drawn from a
+    logistic model with a random effect per category of each categorical
+    column, random in the code (no threshold on a code stands in for a
+    set of categories), a rising DepTime term and noise."""
+    rng = np.random.default_rng(seed)
+    # the model (effects, airport ranks) from a generator of its own, so
+    # that it does not change with n
+    model = np.random.default_rng(seed + 1)
+    X = np.empty((n, 8), np.float32)
+    logit = np.full(n, -1.85, np.float32)
+    for j, codes in enumerate(AIRLINE_CODES):
+        effect = model.normal(0.0, 0.35, codes).astype(np.float32)
+        if codes == 300:
+            p = 1.0 / np.arange(1, codes + 1) ** AIRLINE_ZIPF
+            c = np.searchsorted(np.cumsum(p / p.sum()), rng.random(n))
+            code = model.permutation(codes)[np.minimum(c, codes - 1)]
+        else:
+            code = rng.integers(0, codes, n)
+        X[:, j] = code + (1 if j < 3 else 0)       # Month, days from 1
+        logit += effect[code]
+    hour = np.clip(rng.normal(13.5, 4.5, n), 0, 23.99)
+    X[:, 6] = np.floor(hour) * 100 + np.floor((hour % 1) * 60)
+    X[:, 7] = np.clip(np.exp(rng.normal(6.4, 0.7, n)), 30, 5000).round()
+    logit += 0.08 * (hour - 13.5) + 0.2 * rng.standard_normal(n)
+    y = (rng.random(n) < 1.0 / (1.0 + np.exp(-logit))).astype(np.int8)
+    return X, y
+
+
+TWINS = (("aligned", "move_pass_plain"), ("aligned", "count_pass_plain"),
+         ("aligned", "slot_hist_pass_plain"), ("histogram", "histogram_plain"),
+         ("histogram", "histogram_words_plain"))
+
+
+def airline_run(torch, lt, ds, params, rounds, Xte, yte, what) -> tuple:
+    """`train_run` with the plain twins of B1-B5 counted (a call on the
+    card's path fails the run) and the port's log kept: the path taken
+    and logged, categorical nodes per tree (a run without one fails),
+    rounds, executed splits and fallbacks per tree."""
+    from lightgbm_tpu_torch.ops import aligned as A
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.utils import log as port_log
+    mods = {"aligned": A, "histogram": H}
+    plain = {key: 0 for key in TWINS}
+    real = {key: getattr(mods[key[0]], key[1]) for key in TWINS}
+
+    def counting(key):
+        def fn(*args, **kw):
+            plain[key] += 1
+            return real[key](*args, **kw)
+        return fn
+
+    lines = []
+    for key in TWINS:
+        setattr(mods[key[0]], key[1], counting(key))
+    port_log.register_callback(lines.append)
+    try:
+        bst, r = train_run(torch, lt, ds, {**params, "verbosity": 1},
+                           rounds, Xte, yte, what)
+    finally:
+        port_log.register_callback(None)
+        for key in TWINS:
+            setattr(mods[key[0]], key[1], real[key])
+    if any(plain.values()):
+        raise AssertionError(f"{what}: plain twins ran on the card's path: "
+                             f"{ {k[1]: v for k, v in plain.items()} }")
+    g = bst._gbdt
+    r["train_path"] = g.train_path
+    if not any(f"training path: {g.train_path}" in ln for ln in lines):
+        raise AssertionError(f"{what}: the log does not name the "
+                             f"{g.train_path} path: {lines[:3]}")
+    r["cat_nodes_per_tree"] = [int(t.num_cat) for t in bst.trees]
+    stats = g.aligned_stats if g.train_path == "aligned" \
+        else g.level_stats if g.train_path == "level" else []
+    r["rounds_per_tree"] = [st[0] for st in stats]
+    r["splits_executed_per_tree"] = [st[1] for st in stats]
+    r["fallbacks"] = (g._aligned_eng.fallbacks if g.train_path == "aligned"
+                      else g.learner.level_fallbacks)
+    log(f"airline {what}: path {g.train_path}, first round "
+        f"{r['first_round_s']:.3f} s, median iteration "
+        f"{r['median_iter_ms']:.1f} ms, categorical nodes per tree "
+        f"{r['cat_nodes_per_tree']}, rounds per tree "
+        f"{r['rounds_per_tree']}, executed splits per tree "
+        f"{r['splits_executed_per_tree']}, fallbacks {r['fallbacks']}, "
+        f"launches {r['launches']}, holdout AUC {r['auc']:.6f}, predict "
+        f"{r['predict_s']:.3f} s, peak device memory "
+        f"{r['peak_bytes'] / 2**30:.3f} GiB")
+    return bst, r
+
+
+def phase_airline(torch, lt, rows: int, holdout: int) -> dict:
+    """Categorical splits at the airline shape (`synth_airline`, 255
+    leaves, max_bin 255, the default categorical parameters): (a)
+    ``auto``, which must take the aligned engine, against the same run
+    with the six columns passed as numerical; (b) leaf-wise; (c) level at
+    ``max_depth`` 8, against ``auto`` at ``max_depth`` 8; (d)
+    ``tpu_force_big_n`` (the count pass); (e) B2's
+    and B3's categorical route against their twins on one tree's calls
+    (`phase_airline_parity`)."""
+    from lightgbm_tpu_torch.ops import aligned as A
+    t_phase = t0 = time.perf_counter()
+    X, y = synth_airline(rows + holdout)
+    Xtr, ytr, Xte, yte = X[:rows], y[:rows], X[rows:], y[rows:]
+    log(f"data: {rows}+{holdout} x 8 synthetic airline rows in "
+        f"{time.perf_counter() - t0:.3f} s, {y.mean():.4f} positive")
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+              "learning_rate": 0.1, "min_data_in_leaf": 20,
+              "feature_fraction": 1.0, "verbosity": -1}
+    res = {"positive_rate": float(y.mean())}
+    dss = {}
+    for kind, cats in (("categorical", AIRLINE_CATS), ("numerical", None)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dss[kind] = lt.Dataset(Xtr, label=ytr, params=params,
+                               categorical_feature=cats,
+                               free_raw_data=False).construct()
+        torch.cuda.synchronize()
+        res[f"binning_s_{kind}"] = time.perf_counter() - t0
+    ds = dss["categorical"]
+    bins = [m.num_bin for m in ds._handle.used_mappers()]
+    res["num_bin"] = bins
+    log(f"airline binning: {res['binning_s_categorical']:.3f} s with six "
+        f"categorical columns, {res['binning_s_numerical']:.3f} s all "
+        f"numerical; bins per column {bins}")
+    # (a) auto, and the same run on the numerical columns
+    n_auto = AIRLINE_ROUNDS["auto"]
+    bst, a = airline_run(torch, lt, ds, params, n_auto, Xte, yte, "auto")
+    if a["train_path"] != "aligned":
+        raise AssertionError(f"airline auto took {a['train_path']}")
+    if not any(a["cat_nodes_per_tree"]):
+        raise AssertionError("airline auto grew no categorical node")
+    if a["launches"]["move_pass_cat"] == 0:
+        raise AssertionError("airline auto never routed by a bitset in B2")
+    n_leaf = AIRLINE_ROUNDS["leafwise"]
+    a[f"auc_at_{n_leaf}"] = holdout_auc(lt, bst.predict(
+        Xte, raw_score=True, num_iteration=n_leaf), yte)
+    a["profile"] = profile_round(torch, bst)
+    del bst
+    torch.cuda.empty_cache()
+    bst, num = airline_run(torch, lt, dss["numerical"], params, n_auto, Xte,
+                           yte, "auto, categories as numbers")
+    del bst, dss
+    torch.cuda.empty_cache()
+    log(f"airline holdout AUC after {n_auto} rounds: categorical "
+        f"{a['auc']:.6f}, the same columns as numbers {num['auc']:.6f}")
+    if not a["auc"] > num["auc"]:
+        raise AssertionError(f"airline categorical AUC {a['auc']} is not "
+                             f"above the numerical run's {num['auc']}")
+    res["auto"] = a
+    res["auto_numerical"] = {k: num[k] for k in (
+        "auc", "median_iter_ms", "first_round_s", "launches")}
+    # (b) leaf-wise
+    bst, lw = airline_run(torch, lt, ds, {**params,
+                                          "tpu_grow_mode": "leafwise"},
+                          n_leaf, Xte, yte, "leafwise")
+    del bst
+    if abs(lw["auc"] - a[f"auc_at_{n_leaf}"]) > 2e-3:
+        raise AssertionError(f"airline leaf-wise AUC {lw['auc']} is not "
+                             f"within 2e-3 of auto's at {n_leaf} rounds "
+                             f"{a[f'auc_at_{n_leaf}']}")
+    res["leafwise"] = lw
+    # (c) level at max_depth 8, against auto on the same params (both
+    # grow the leaf-wise trees; capped at depth 8 they are not (a)'s)
+    n_level = AIRLINE_ROUNDS["level"]
+    depth8 = {**params, "max_depth": 8}
+    bst, a8 = airline_run(torch, lt, ds, depth8, n_level, Xte, yte,
+                          "auto depth 8")
+    del bst
+    bst, lv = airline_run(torch, lt, ds, {**depth8, "tpu_grow_mode": "level"},
+                          n_level, Xte, yte, "level depth 8")
+    del bst
+    if lv["train_path"] != "level" or lv["fallbacks"] \
+            or lv["launches"]["B1"]:
+        raise AssertionError(f"airline level max_depth 8 fell back "
+                             f"{lv['fallbacks']} times")
+    lv["auc_auto_depth8"] = a8["auc"]
+    lv["auto_depth8_median_iter_ms"] = a8["median_iter_ms"]
+    log(f"airline holdout AUC after {n_level} rounds: level depth 8 "
+        f"{lv['auc']:.6f}, auto depth 8 {a8['auc']:.6f}, auto "
+        f"{a['auc']:.6f}")
+    if abs(lv["auc"] - a8["auc"]) > 2e-3:
+        raise AssertionError(f"airline level AUC {lv['auc']} is not within "
+                             f"2e-3 of auto's at max_depth 8 {a8['auc']}")
+    res["level"] = lv
+    # (d) big-n: the count pass on every round
+    bst, bn = airline_run(torch, lt, ds, {**params, "tpu_force_big_n": True},
+                          AIRLINE_ROUNDS["big_n"], Xte, yte, "big-n")
+    if bst._gbdt._aligned_eng.compact or bn["launches"]["count_pass_cat"] \
+            == 0:
+        raise AssertionError("airline big-n left the STANDARD layout or "
+                             "never counted by a bitset")
+    bn["profile"] = profile_round(torch, bst)
+    if bn["profile"]["count_calls"] == 0:
+        raise AssertionError("the airline big-n profiled round made no "
+                             "count pass")
+    del bst
+    torch.cuda.empty_cache()
+    res["big_n"] = bn
+    # (e) the kernels against their twins on one tree's calls
+    res["kernels"] = phase_airline_parity(torch, lt, ds, params, A)
+    del ds
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"airline phase: {res['phase_s']:.1f} s")
+    return res
+
+
+def phase_airline_parity(torch, lt, ds, params, A) -> dict:
+    """B2's and B3's categorical route on the calls of one airline tree:
+    the root's move and the widest round's (COMPACT), and the widest
+    round's move and count pass of a big-n tree (STANDARD), through the
+    kernels and their twins on the card: counts equal, moved records
+    equal, the children's histograms by `check_hist`; then B2's partition
+    alone and B3's launch alone (warm and cold L2) timed beside the twin
+    and the byte bound, one call's nodes from a captured CUDA graph."""
+    from lightgbm_tpu_torch.utils.launches import graph_launches
+    res = {}
+    calls = capture_kernel_calls(torch, lt, ds, params)
+    err = 0.0
+    for key in ("move_root", "move_wide"):
+        if calls[f"{key}_cbits"] is None:
+            raise AssertionError(f"airline {key} came without a bitset table")
+        err = max(err, check_move(torch, A, calls[key], f"airline {key}",
+                                  cbits=calls[f"{key}_cbits"]))
+    args, cbits = calls["move_wide"], calls["move_wide_cbits"]
+    rec, r1, meta, k, bits, w_used = (args[0], args[1], args[5], args[8],
+                                      args[12], args[13])
+    nc, W, C = rec.shape
+    cnt = meta & 0xFFFFF
+    is_copy = ((r1 >> 16) & 1) == 1
+    is_cat = (((r1 >> A.R_CAT) & 1) == 1) & ~is_copy & (cnt > 0)
+    if not bool(is_cat.any()):
+        raise AssertionError("the widest airline round has no categorical "
+                             "chunk")
+    split_rows = int(cnt[~is_copy].sum())
+    copy_chunks = int((is_copy & (cnt > 0)).sum())
+    buf = torch.empty_like(rec)
+    part = (*args[:8], k, bits, w_used, buf, cbits.data_ptr())
+    no_hist = (*args[:8], 0, *args[9:])
+    moved = 2 * (split_rows * w_used * 4 + copy_chunks * w_used * C * 4)
+    r = {"max_abs_err": 0.0, "moves_max_abs_err": err,
+         "split_blocks": calls["wide_blocks"], "split_rows": split_rows,
+         "cat_rows": int(cnt[is_cat].sum()), "copy_chunks": copy_chunks,
+         "ms": cuda_ms(torch, lambda: A._move_partition_cuda(*part),
+                       reps=20),
+         "plain_ms": cuda_ms(torch, lambda: A.move_pass_plain(
+             *no_hist, out=buf, cbits=cbits), reps=2),
+         "library_ms": None,
+         "graph": graph_launches(lambda: A._move_partition_cuda(*part))}
+    if r["graph"] != {"kernels": 1, "memsets": 1, "other": 0}:
+        raise AssertionError(f"B2's categorical partition enqueued "
+                             f"{r['graph']}, not one memset and one kernel")
+    r["launches_per_call"] = r["graph"]["kernels"] + r["graph"]["memsets"]
+    r["bound_ms"], r["bound_by"] = bound(
+        moved + nc * 9 * 4 + (k + 1) * 8 * 4, 0)
+    res["partition_cat"] = r
+    del buf, part, calls
+    torch.cuda.empty_cache()
+    # STANDARD: the count pass of a big-n tree's widest round
+    calls = capture_kernel_calls(torch, lt, ds,
+                                 {**params, "tpu_force_big_n": True})
+    err = check_move(torch, A, calls["move_wide"],
+                     "airline move_wide, STANDARD",
+                     cbits=calls["move_wide_cbits"])
+    args, cbits = calls["count_wide"], calls["count_wide_cbits"]
+    if args is None or cbits is None:
+        raise AssertionError("the airline big-n tree made no categorical "
+                             "count pass")
+    got = A.count_pass(*args, cbits=cbits)
+    if not torch.equal(got, A.count_pass_plain(*args, cbits=cbits)):
+        raise AssertionError("count_pass differs from its twin on the "
+                             "airline round")
+    meta, ks, k = args[3], args[5], args[6]
+    nc = args[0].shape[0]
+    rows = int((meta & 0xFFFFF)[(ks >= 0) & (ks < k)].sum())
+    is_cat = ((args[1] >> A.R_CAT) & 1) == 1
+    alone = torch.empty(k, dtype=torch.int32, device=DEVICE)
+    cptr = cbits.data_ptr()
+    r = {"max_abs_err": 0.0, "moves_max_abs_err": err, "rows": rows,
+         "cat_rows": int((meta & 0xFFFFF)[(ks >= 0) & (ks < k)
+                                          & is_cat].sum()),
+         "chunks": nc,
+         "ms": cuda_ms(torch, lambda: A._count_cuda(*args, alone, cptr),
+                       reps=20),
+         "cold_ms": cold_ms(torch, lambda: A._count_cuda(*args, alone,
+                                                          cptr)),
+         "wrapper_ms": cuda_ms(torch, lambda: A.count_pass(
+             *args, cbits=cbits), reps=20),
+         "plain_ms": cuda_ms(torch, lambda: A.count_pass_plain(
+             *args, cbits=cbits), reps=2),
+         "library_ms": None,
+         "graph": graph_launches(lambda: A.count_pass(*args, cbits=cbits))}
+    if r["graph"] != {"kernels": 1, "memsets": 0, "other": 0}:
+        raise AssertionError(f"B3's categorical count enqueued "
+                             f"{r['graph']}, not one kernel")
+    r["launches_per_call"] = r["graph"]["kernels"]
+    r["bound_ms"], r["bound_by"] = bound(
+        rows * 4 + nc * 5 * 4 + k * 4 + (k + 1) * 8 * 4, rows)
+    res["count_cat"] = r
+    shown = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    for name, r in res.items():
+        log(f"kernel {name} (airline): kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library none, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{ {k: v for k, v in r.items() if k not in shown} }")
+    del calls, args, alone
+    torch.cuda.empty_cache()
+    return res
+
+
 def ndcg_at(preds, y, group, k=10) -> float:
     """Mean NDCG@k over the queries with a positive ideal DCG (a copy of
     bench.py::ndcg_at)."""
@@ -2123,7 +2485,9 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=10_500_000)
     ap.add_argument("--holdout", type=int, default=500_000)
     ap.add_argument("--mslr-rows", type=int, default=MSLR_ROWS)
+    ap.add_argument("--airline-rows", type=int, default=10_000_000)
     args = ap.parse_args()
+    t_main = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2180,6 +2544,9 @@ def main() -> int:
     info["state_phase14"] = card_state("phase 14")
     proto_path = phase_proto_path(torch)
     ppar = phase_proto_parity(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    airline = phase_airline(torch, lt, args.airline_rows, args.holdout)
 
     def entry(name, replaces, bins, prec, launches):
         p = par[bins]
@@ -2270,6 +2637,25 @@ def main() -> int:
         "plain_ms": rp["plain_ms"], "bound_ms": rp["bound_ms"],
         "bound_by": rp["bound_by"], "library_ms": None,
         "shape": f"{rp['docs']} docs in {rp['queries']} queries (MSLR)"})
+    for name, key, line, launches, shape in (
+            ("move_pass_partition_cat_255bin", "partition_cat", 960,
+             airline["auto"]["launches"]["move_pass_cat"],
+             "partition of the widest round of tree 1, COMPACT"),
+            ("count_pass_cat", "count_cat", 1056,
+             airline["big_n"]["launches"]["count_pass_cat"],
+             "count pass of the widest round of tree 1, STANDARD")):
+        p = airline["kernels"][key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": ALIGNED_SOURCE,
+            "replaces": f"lightgbm_tpu/ops/aligned.py:{line}",
+            "launches": launches, "max_abs_err": p["max_abs_err"],
+            "ms": p["ms"], "plain_ms": p["plain_ms"],
+            "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
+            "library_ms": p["library_ms"],
+            **{k: p[k] for k in ("wrapper_ms", "cold_ms",
+                                 "launches_per_call") if k in p},
+            "shape": f"{shape}, airline {args.airline_rows}x8, 255 bins, "
+                     "categorical"})
     plaunch = proto_path["launches"]
     rows = proto_path["aligned"]["rows"]
     proto_entries = (
@@ -2298,6 +2684,7 @@ def main() -> int:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was never launched on its "
                                  "main path")
+    log(f"chip_smoke: {time.perf_counter() - t_main:.1f} s")
     log(json.dumps({"hist_kernel": {str(k): v for k, v in par.items()},
                     "main": {str(k): v for k, v in main_r.items()},
                     "aligned": {str(k): v for k, v in aligned_r.items()},
@@ -2307,6 +2694,7 @@ def main() -> int:
                     "level": {str(k): v for k, v in level_r.items()},
                     "level_kernel": {str(k): v for k, v in lpar.items()},
                     "mslr": mslr, "rank_kernel": rpar,
+                    "airline": airline,
                     "proto_path": proto_path, "proto_kernels": ppar,
                     "sass_atomics": sass,
                     "power": info["smi"],

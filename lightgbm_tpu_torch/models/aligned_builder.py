@@ -1,6 +1,6 @@
 """Aligned tree builder: speculative level growth over the chunk-aligned
 record matrix (`ops/aligned.py`), with exact leaf-wise replay (port of
-lightgbm_tpu/models/aligned_builder.py, serial numerical path).
+lightgbm_tpu/models/aligned_builder.py, serial path).
 
 A tree grows in a handful of speculative rounds. Each round splits up to
 K = min(S - 1, 256) leaves at once in one pass over the rows:
@@ -13,7 +13,10 @@ K = min(S - 1, 256) leaves at once in one pass over the rows:
    child at a fresh slot, every block's begin rounded up to a chunk;
 3. kernel B2 partitions every split block into the new layout, copies
    unsplit blocks whole, and histograms each split's smaller child; the
-   larger child is parent minus sibling (`FeatureHistogram::Subtract`);
+   larger child is parent minus sibling (`FeatureHistogram::Subtract`).
+   A categorical split routes by its bitset: the round's selected splits'
+   bitsets form one compact table (8 words a selection rank, the JAX
+   package's ``cbits``) that B3 and B2 read;
 4. the split finder evaluates the 2k children, and the reference's
    priority queue (`serial_tree_learner.cpp:173-237`) is replayed over the
    executed splits to flag the next frontier.
@@ -42,20 +45,20 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..ops.aligned import (META_FIRST, META_LAST, META_RID_MASK, R_COPY,
-                           R_DL, R_MT, R_SHIFT, _bpw_for_bits, chunk_for,
-                           count_pass, lane_layout, move_pass, pack_records,
-                           pack_route2, slot_hist_pass)
+from ..ops.aligned import (META_FIRST, META_LAST, META_RID_MASK, R_CAT,
+                           R_COPY, R_DL, R_MT, R_SHIFT, _bpw_for_bits,
+                           chunk_for, count_pass, lane_layout, move_pass,
+                           pack_records, pack_route2, slot_hist_pass)
 from ..utils.xla_math import fma_f32
 from .device_learner import (BF_GAIN, BF_LG, BF_LH, BF_LOUT, BF_RG, BF_RH,
-                             BF_ROUT, BF_W, BI_DEFLEFT, BI_FEAT, BI_LC, BI_RC,
-                             BI_THR, BI_W, LF_MAXC, LF_MINC, LF_SG, LF_SH,
-                             LF_VALUE, LF_W, LI_BEGIN, LI_COUNT, LI_COUNTG,
-                             LI_DEPTH, LI_W)
+                             BF_ROUT, BF_W, BI_CAT0, BI_DEFLEFT, BI_FEAT,
+                             BI_ISCAT, BI_LC, BI_RC, BI_THR, BI_W, LF_MAXC,
+                             LF_MINC, LF_SG, LF_SH, LF_VALUE, LF_W, LI_BEGIN,
+                             LI_COUNT, LI_COUNTG, LI_DEPTH, LI_W)
 from .level_builder import (SF_GAIN, SF_IVAL, SF_LOUT, SF_ROUT, SF_W,
-                            SI_DEFLEFT, SI_FEAT, SI_LC, SI_RC, SI_SLOT,
-                            SI_THR, SI_W, cover_values, replay_leafwise,
-                            spec_slots)
+                            SI_DEFLEFT, SI_FEAT, SI_ISCAT, SI_LC, SI_RC,
+                            SI_SLOT, SI_THR, SI_W, cover_values,
+                            replay_leafwise, spec_slots)
 
 K_CAP = 256      # splits per round at most (the JAX package's K)
 
@@ -67,6 +70,7 @@ class AlignedSpec(NamedTuple):
     n_exec: int
     execF: np.ndarray      # f32[Sm1, SF_W]
     execI: np.ndarray      # i64[Sm1, SI_W]
+    execB: np.ndarray      # i64[Sm1, 8] categorical splits' bitsets
     bestF: np.ndarray      # f32[S, BF_W]
     leafI: np.ndarray      # i64[S, LI_W] (LI_BEGIN in chunk units)
 
@@ -112,15 +116,17 @@ def chunk_maps(begin, count, exists, nc: int, chunk: int, cnts_pc=None,
     return slot_of, cnt_of, first, last, in_any
 
 
-def route_words(feat, thr, default_left, split, meta, bits: int):
+def route_words(feat, thr, default_left, split, meta, bits: int, is_cat):
     """Per-slot route words (r1, r2, wsel) of the slots' best splits; r1's
-    copy bit is set where ``split`` is False."""
+    copy bit is set where ``split`` is False, its categorical bit where
+    ``is_cat`` is 1."""
     bpw = _bpw_for_bits(bits)
     r1 = (np.clip(thr, 0, 255)
           | (((feat % bpw) * bits) << R_SHIFT)
           | (default_left << R_DL)
           | (meta["missing_type"][feat].astype(np.int64) << R_MT)
-          | ((1 - split.astype(np.int64)) << R_COPY))
+          | ((1 - split.astype(np.int64)) << R_COPY)
+          | (np.asarray(is_cat, np.int64) << R_CAT))
     r2 = pack_route2(np.clip(meta["default_bin"][feat], 0, 255)
                      .astype(np.int64),
                      np.clip(meta["num_bin"][feat], 1, 256).astype(np.int64))
@@ -351,6 +357,7 @@ class AlignedEngine:
         leafI[0, LI_COUNTG] = root_cnt_g
         execF = np.zeros((Sm1 + 1, SF_W), np.float32)
         execI = np.zeros((Sm1 + 1, SI_W), np.int64)
+        execB = np.zeros((Sm1 + 1, 8), np.int64)
         bestF = np.full((S + 1, BF_W), -np.inf, np.float32)
         bestI = np.zeros((S + 1, BI_W), np.int64)
         vf, vi = lr._eval_leaves(root[None], [root_g], [root_h],
@@ -393,6 +400,8 @@ class AlignedEngine:
             execI[e_sel, SI_DEFLEFT] = bestI[sl_sel, BI_DEFLEFT]
             execI[e_sel, SI_LC] = bestI[sl_sel, BI_LC]
             execI[e_sel, SI_RC] = bestI[sl_sel, BI_RC]
+            execI[e_sel, SI_ISCAT] = bestI[sl_sel, BI_ISCAT]
+            execB[e_sel] = bestI[sl_sel, BI_CAT0:BI_CAT0 + 8]
 
             exists = s_ids <= done
             slot_of, cnt_of, first, last, in_any = chunk_maps(
@@ -400,7 +409,16 @@ class AlignedEngine:
                 cnts_pc=cnts_pc, root_span=done == 0)
             r1_s, r2_s, wsel_s = route_words(
                 bestI[:, BI_FEAT], bestI[:, BI_THR], bestI[:, BI_DEFLEFT],
-                sel, meta, bits)
+                sel, meta, bits, bestI[:, BI_ISCAT])
+            # the round's compact bitset table, a row a selection rank
+            # (row K the pad row; JAX package: aligned_builder.py:821-826)
+            cbits = None
+            if lr.has_cat:
+                tab = np.zeros((K + 1, 8), np.int64)
+                tab[selrank[sl_sel]] = bestI[sl_sel, BI_CAT0:BI_CAT0 + 8]
+                cbits = torch.as_tensor(
+                    tab.astype(np.uint32).view(np.int32).reshape(-1),
+                    device=dev)
             meta_pc = (cnt_of | (first.astype(np.int64) << META_FIRST)
                        | (last.astype(np.int64) << META_LAST))
 
@@ -412,7 +430,8 @@ class AlignedEngine:
                 up = self._upload(r1_s[slot_of], r2_s[slot_of], meta_pc,
                                   wsel_s[slot_of], ks_pc)
                 phys = count_pass(self.rec, up[0], up[1], up[2], up[3],
-                                  up[4], K, bits).cpu().numpy()
+                                  up[4], K, bits,
+                                  cbits=cbits).cpu().numpy()
                 left_local = np.where(sel, phys[np.clip(selrank, 0, K - 1)],
                                       leafI[:, LI_COUNT])
             else:
@@ -439,7 +458,7 @@ class AlignedEngine:
                                   up[4], up[5], up[6], K, F, B, wcnt, bits,
                                   self.w_used, grad,
                                   out=self._spare if self.rec.is_cuda
-                                  else None, gh_off=gh_off)
+                                  else None, gh_off=gh_off, cbits=cbits)
             self._spare, self.rec = self.rec, out
 
             # ---- tables: children of the selected slots
@@ -532,6 +551,6 @@ class AlignedEngine:
                 valmap[:, None], float(np.float32(scale)), sc) \
                 .view(torch.int32)
         spec = AlignedSpec(rounds=rounds, n_exec=n_exec, execF=execF[:Sm1],
-                           execI=execI[:Sm1], bestF=bestF[:S],
-                           leafI=leafI[:S])
+                           execI=execI[:Sm1], execB=execB[:Sm1],
+                           bestF=bestF[:S], leafI=leafI[:S])
         return spec, exact

@@ -29,7 +29,8 @@ import torch
 from ..config import Config
 from ..io.dataset import Dataset
 from ..ops.histogram import leaf_histogram, subtract_histogram
-from ..ops.partition import (MISSING_NAN_C, MISSING_ZERO_C, leaf_value_fill,
+from ..ops.partition import (MISSING_NAN_C, MISSING_ZERO_C,
+                             categorical_goes_left, leaf_value_fill,
                              split_partition, unpermute_to_rows)
 from ..ops.split import SplitHyper, make_split_finder
 from ..utils.xla_math import fma_f32
@@ -38,9 +39,11 @@ from .tree import Tree
 # packed per-leaf "best split" float lanes (`pack_best_payload`)
 BF_GAIN, BF_LG, BF_LH, BF_RG, BF_RH, BF_LOUT, BF_ROUT = range(7)
 BF_W = 8
-# packed per-leaf "best split" int lanes
+# packed per-leaf "best split" int lanes; a categorical split's bitset
+# (8 words over bins, values in [0, 2^32)) in lanes BI_CAT0 .. BI_CAT0 + 7
 BI_FEAT, BI_THR, BI_LC, BI_RC, BI_DEFLEFT, BI_ISCAT = range(6)
-BI_W = 8
+BI_CAT0 = 8
+BI_W = 16
 # packed per-leaf float / int state lanes of the aligned engine
 LF_SG, LF_SH, LF_MINC, LF_MAXC, LF_VALUE = range(5)
 LF_W = 8
@@ -66,6 +69,8 @@ class TreeRecord(NamedTuple):
     leaf_value: np.ndarray         # f32[L] final leaf outputs
     leaf_begin: np.ndarray         # i32[L] partition begins
     leaf_count: np.ndarray         # i32[L] partition counts
+    is_cat: np.ndarray             # bool[L-1] categorical split
+    cat_bitset: np.ndarray         # i64[L-1, 8] its left bins' bitset
     # a level build's physical partition is finer than its tree: the
     # score update runs over these blocks instead of the leaves
     block_begin: Optional[np.ndarray] = None   # i32[S] block starts
@@ -110,11 +115,7 @@ class DeviceTreeLearner:
         self.n = dataset.num_data
         self.num_features = dataset.num_features
         self.meta = dataset.feature_meta_arrays()
-        if cfg.tpu_grow_mode == "level" and (self.meta["bin_type"] == 1).any():
-            raise NotImplementedError(
-                "tpu_grow_mode=level with categorical features: the "
-                "categorical routing of the level builder waits for "
-                "categorical splits (ROADMAP A.1)")
+        self.has_cat = bool((self.meta["bin_type"] == 1).any())
         self.max_bin_global = int(self.meta["num_bin"].max()) \
             if self.num_features else 2
         self.bins = dataset.bins.to(device).contiguous()
@@ -177,9 +178,10 @@ class DeviceTreeLearner:
     def _unpack_eval(both: torch.Tensor):
         """(f32 [K, BF_W], i64 [K, BI_W]) from the read-back
         [K, BF_W + BI_W] f32 tensor (int lanes as f32 bits)."""
-        return (both[:, :BF_W].numpy(),
-                both[:, BF_W:].contiguous().view(torch.int32).numpy()
-                .astype(np.int64))
+        vi = both[:, BF_W:].contiguous().view(torch.int32).numpy() \
+            .astype(np.int64)
+        vi[:, BI_CAT0:] &= 0xFFFFFFFF
+        return both[:, :BF_W].numpy(), vi
 
     def _eval_leaves_dev(self, hist, sg, sh, cnt, minc, maxc, depth, fmask,
                          root=False) -> torch.Tensor:
@@ -208,12 +210,20 @@ class DeviceTreeLearner:
                              at(out["left_output"]),
                              at(out["right_output"]), zf], dim=1)
         zi = torch.zeros(k, dtype=torch.int32, device=dev)
-        vec_i = torch.stack([f[:, 0].to(torch.int32),
-                             at(out["threshold"]).to(torch.int32),
-                             at(out["left_c"]).to(torch.int32),
-                             at(out["right_c"]).to(torch.int32),
-                             at(out["default_left"]).to(torch.int32),
-                             zi, zi, zi], dim=1)
+        cols = [f[:, 0].to(torch.int32), at(out["threshold"]).to(torch.int32),
+                at(out["left_c"]).to(torch.int32),
+                at(out["right_c"]).to(torch.int32),
+                at(out["default_left"]).to(torch.int32)]
+        if self.has_cat:
+            # the winner's bitset words as int32 bits in BI_CAT0 on
+            words = torch.gather(out["cat_bitset"], 1,
+                                 f[:, :, None].expand(-1, -1, 8))[:, 0]
+            words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+            vec_i = torch.cat([torch.stack(
+                cols + [at(out["is_cat"]).to(torch.int32), zi, zi], dim=1),
+                words.to(torch.int32)], dim=1)
+        else:
+            vec_i = torch.stack(cols + [zi] * (BI_W - len(cols)), dim=1)
         return torch.cat([vec_f, vec_i.view(torch.float32)], dim=1)
 
     def train_fresh(self, grad: torch.Tensor, hess: torch.Tensor,
@@ -264,6 +274,8 @@ class DeviceTreeLearner:
         rec_lc = np.zeros(Lm1, np.int32)
         rec_rc = np.zeros(Lm1, np.int32)
         rec_gain = np.zeros(Lm1, np.float32)
+        rec_iscat = np.zeros(Lm1, bool)
+        rec_bits = np.zeros((Lm1, 8), np.int64)
 
         vf, vi = self._eval_leaves(store[:1], [root_g], [root_h], [n],
                                    [-np.inf], [np.inf], [0], fmask,
@@ -279,10 +291,15 @@ class DeviceTreeLearner:
             dleft = bool(bi[BI_DEFLEFT])
             left_cnt_g, right_cnt_g = int(bi[BI_LC]), int(bi[BI_RC])
             begin, count = int(leaf_begin[bl]), int(leaf_count[bl])
-            left_cnt = split_partition(indices, self.bins_T[f], begin, count,
-                                       thr, dleft, int(mt[f]), int(db[f]),
-                                       int(nb[f]))
+            iscat = bool(bi[BI_ISCAT])
+            words = bi[BI_CAT0:BI_CAT0 + 8]
+            left_cnt = split_partition(
+                indices, self.bins_T[f], begin, count, thr, dleft,
+                int(mt[f]), int(db[f]), int(nb[f]),
+                torch.as_tensor(words, device=dev) if iscat else None)
             right_cnt = count - left_cnt
+            rec_iscat[s] = iscat
+            rec_bits[s] = words
 
             rec_leaf[s], rec_feat[s], rec_thr[s] = bl, f, thr
             rec_dl[s] = dleft
@@ -336,7 +353,8 @@ class DeviceTreeLearner:
             left_count=rec_lc, right_count=rec_rc, gain=rec_gain,
             leaf_value=leaf_value,
             leaf_begin=leaf_begin.astype(np.int32),
-            leaf_count=leaf_count.astype(np.int32))
+            leaf_count=leaf_count.astype(np.int32),
+            is_cat=rec_iscat, cat_bitset=rec_bits)
         return indices, record
 
     # ------------------------------------------------------------------
@@ -382,6 +400,23 @@ class DeviceTreeLearner:
         for s in range(int(rec.num_splits)):
             f = int(rec.feature[s])
             mapper = self.mappers[f]
+            if rec.is_cat[s]:
+                # bins below min(num_bin, 256) whose bit is set; their
+                # categories where the bin holds one (JAX package:
+                # device_learner.py:1611-1625)
+                words = rec.cat_bitset[s]
+                bins_list = [b for b in range(min(mapper.num_bin, 256))
+                             if (int(words[b // 32]) >> (b % 32)) & 1]
+                cats = [mapper.bin_2_categorical[b] for b in bins_list
+                        if b < len(mapper.bin_2_categorical)]
+                tree.split_categorical(
+                    int(rec.leaf[s]), f, int(self.ds.real_feature_idx[f]),
+                    bins_list, cats, float(rec.left_output[s]),
+                    float(rec.right_output[s]), int(rec.left_count[s]),
+                    int(rec.right_count[s]), float(rec.gain[s]),
+                    mt_code[mapper.missing_type],
+                    default_bin=mapper.default_bin, num_bin=mapper.num_bin)
+                continue
             thr_bin = int(rec.threshold_bin[s])
             tree.split(
                 int(rec.leaf[s]), f, int(self.ds.real_feature_idx[f]),
@@ -418,8 +453,6 @@ class DeviceTreeLearner:
                                      or cfg.pos_bagging_fraction < 1.0
                                      or cfg.neg_bagging_fraction < 1.0):
             return "bagging (bag lane not ported)"
-        if (np.asarray(self.meta["bin_type"]) == 1).any():
-            return "categorical features (bitset routing not ported)"
         if objective is None:
             return "no objective"
         if objective.num_model_per_iteration != 1:
@@ -525,6 +558,10 @@ def traverse_record(bins: torch.Tensor, rec: TreeRecord, meta
     db_t = t(meta["default_bin"][feat])
     nb_t = t(meta["num_bin"][feat])
     l_t, r_t = t(left.astype(np.int64)), t(right.astype(np.int64))
+    has_cat = bool(rec.is_cat[:ns].any())
+    if has_cat:
+        cat_t = t(rec.is_cat[:ns])
+        bits_t = t(np.asarray(rec.cat_bitset[:ns], np.int64))     # [ns, 8]
     rows = torch.arange(n, device=dev)
     node = torch.zeros(n, dtype=torch.int64, device=dev)
     for _ in range(int(depth.max()) + 1):
@@ -536,6 +573,11 @@ def traverse_record(bins: torch.Tensor, rec: TreeRecord, meta
                                  (m == MISSING_NAN_C)
                                  & (fval == nb_t[safe] - 1))
         goes_left = torch.where(is_default, dl_t[safe], base)
+        if has_cat:
+            # a categorical node routes by its bitset over bins alone
+            goes_left = torch.where(
+                cat_t[safe], categorical_goes_left(fval, bits_t[safe]),
+                goes_left)
         nxt = torch.where(goes_left, l_t[safe], r_t[safe])
         node = torch.where(node >= 0, nxt, node)
     return ~node

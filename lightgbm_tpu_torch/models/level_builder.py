@@ -1,5 +1,5 @@
 """Speculative level builder with exact leaf-wise replay (port of
-lightgbm_tpu/models/level_builder.py, serial numerical path), selected by
+lightgbm_tpu/models/level_builder.py, serial path), selected by
 ``tpu_grow_mode=level``.
 
 The rows stay in one word-major record ``[wcnt + 3, N]`` int32 per tree:
@@ -11,7 +11,8 @@ each round
    so equal gains go in slot order), up to the budget of S - 1 executed
    splits (S = `spec_slots`);
 2. routes every row by its block's split (unselected blocks copy their
-   rows through) and partitions every selected block stably, left rows
+   rows through; a categorical split by its bitset, whose 8 words ride
+   in the slot table) and partitions every selected block stably, left rows
    first, with one scatter of the whole record: the destination of a row
    is its block's begin plus its rank among the block's left (or right)
    rows, from one exact prefix count. The JAX package does the same with
@@ -43,13 +44,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.aligned import R_COPY, R_DL, R_MT, R_SHIFT, goes_left, pack_route2
+from ..ops.aligned import (R_CAT, R_COPY, R_DL, R_MT, R_SHIFT, cat_word,
+                           goes_left, pack_route2)
 from ..ops.histogram import histogram_from_words
 from .device_learner import (BF_GAIN, BF_LG, BF_LH, BF_LOUT, BF_RG, BF_RH,
-                             BF_ROUT, BF_W, BI_DEFLEFT, BI_FEAT, BI_LC, BI_RC,
-                             BI_THR, BI_W, LF_MAXC, LF_MINC, LF_SG, LF_SH,
-                             LF_VALUE, LF_W, LI_BEGIN, LI_COUNT, LI_COUNTG,
-                             LI_DEPTH, LI_W, TreeRecord)
+                             BF_ROUT, BF_W, BI_CAT0, BI_DEFLEFT, BI_FEAT,
+                             BI_ISCAT, BI_LC, BI_RC, BI_THR, BI_W, LF_MAXC,
+                             LF_MINC, LF_SG, LF_SH, LF_VALUE, LF_W, LI_BEGIN,
+                             LI_COUNT, LI_COUNTG, LI_DEPTH, LI_W, TreeRecord)
 
 # speculated-split record lanes (execution order e; right child slot e+1)
 SF_GAIN, SF_LOUT, SF_ROUT, SF_IVAL = range(4)
@@ -60,13 +62,13 @@ SI_W = 8
 
 class SpecResult(NamedTuple):
     """One speculative level build: the final row-id permutation on the
-    device, the rest host tables (JAX package: `SpecResult`; categorical
-    bitsets are not ported)."""
+    device, the rest host tables (JAX package: `SpecResult`)."""
     rid: torch.Tensor          # i32[N] row id at each position
     rounds: int
     n_exec: int                # executed speculative splits
     execF: np.ndarray          # f32[S-1, SF_W]
     execI: np.ndarray          # i64[S-1, SI_W]
+    execB: np.ndarray          # i64[S-1, 8] categorical splits' bitsets
     bestF: np.ndarray          # f32[S, BF_W] frontier candidates
     leafF: np.ndarray          # f32[S, LF_W]
     leafI: np.ndarray          # i64[S, LI_W]
@@ -156,6 +158,7 @@ def make_level_build_fn(learner):
         leafI[0, LI_COUNT] = leafI[0, LI_COUNTG] = n
         execF = np.zeros((Sm1 + 1, SF_W), np.float32)
         execI = np.zeros((Sm1 + 1, SI_W), np.int64)
+        execB = np.zeros((Sm1 + 1, 8), np.int64)
         bestF = np.full((S + 1, BF_W), -np.inf, np.float32)
         bestI = np.zeros((S + 1, BI_W), np.int64)
         bestF[:1], bestI[:1] = learner._eval_leaves(
@@ -182,11 +185,15 @@ def make_level_build_fn(learner):
             execI[e, SI_DEFLEFT] = bi[:, BI_DEFLEFT]
             execI[e, SI_LC] = bi[:, BI_LC]
             execI[e, SI_RC] = bi[:, BI_RC]
+            execI[e, SI_ISCAT] = bi[:, BI_ISCAT]
+            execB[e] = bi[:, BI_CAT0:BI_CAT0 + 8]
 
             # ---- routing (JAX :289-352): per existing slot a route word
             # (r1: threshold, shift, default-left, missing type, copy for
-            # unselected blocks) and r2 | word index << 16; blocks in
-            # position order for the per-row slot map
+            # unselected blocks, categorical) and r2 | word index << 16,
+            # and with a categorical split selected the slots' bitset
+            # words (JAX `with_cat`); blocks in position order for the
+            # per-row slot map
             ex = np.arange(done + 1)
             feat = bestI[ex, BI_FEAT]
             sel = np.zeros(done + 1, bool)
@@ -194,18 +201,25 @@ def make_level_build_fn(learner):
             r1 = (np.clip(bestI[ex, BI_THR], 0, 255)
                   | (((feat & 3) * 8) << R_SHIFT)
                   | (bestI[ex, BI_DEFLEFT] << R_DL) | (mt[feat] << R_MT)
-                  | ((~sel).astype(np.int64) << R_COPY))
+                  | ((~sel).astype(np.int64) << R_COPY)
+                  | (bestI[ex, BI_ISCAT] << R_CAT))
             r2 = pack_route2(db[feat], nb[feat]) | ((feat >> 2) << 16)
             beg = leafI[ex, LI_BEGIN]
             cnt = leafI[ex, LI_COUNT]
             ob = np.argsort(beg, kind="stable")
-            tab = torch.as_tensor(np.stack([ob, cnt[ob], r1, r2, beg, cnt])
-                                  .astype(np.int32), device=dev)
+            rows = [ob, cnt[ob], r1, r2, beg, cnt]
+            with_cat = bool((bestI[slot_l, BI_ISCAT] != 0).any())
+            if with_cat:
+                rows.extend(bestI[ex, BI_CAT0:BI_CAT0 + 8].T)
+            tab = torch.as_tensor(np.stack(rows).astype(np.uint32)
+                                  .view(np.int32), device=dev)
             slot_row = torch.repeat_interleave(tab[0].long(), tab[1].long(),
                                                output_size=n)
             r1p, r2p = tab[2][slot_row], tab[3][slot_row]
             binv = extract_bin(cur[:wcnt], r2p >> 16, (r1p >> R_SHIFT) & 31)
-            gl = goes_left(binv, r1p, r2p, True)
+            catw = cat_word(tab[6:].t().reshape(-1), slot_row, binv) \
+                if with_cat else None
+            gl = goes_left(binv, r1p, r2p, True, catw)
 
             # ---- stable partition of every selected block: left rows from
             # the block's begin, right rows after its left count
@@ -294,8 +308,8 @@ def make_level_build_fn(learner):
 
         return SpecResult(
             rid=cur[RID].clone(), rounds=rounds, n_exec=done,
-            execF=execF[:Sm1], execI=execI[:Sm1], bestF=bestF[:S],
-            leafF=leafF[:S], leafI=leafI[:S],
+            execF=execF[:Sm1], execI=execI[:Sm1], execB=execB[:Sm1],
+            bestF=bestF[:S], leafF=leafF[:S], leafI=leafI[:S],
             block_begin=leafI[:S, LI_BEGIN].copy(),
             block_cnt=leafI[:S, LI_COUNT].copy())
 
@@ -335,6 +349,7 @@ def replay_leafwise(spec, num_leaves: int):
     n_exec = int(spec.n_exec)
     execF = np.asarray(spec.execF)
     execI = np.asarray(spec.execI)
+    execB = np.asarray(spec.execB)
     bestF = np.asarray(spec.bestF)
     leafI = np.asarray(spec.leafI)
     S = bestF.shape[0]
@@ -378,7 +393,8 @@ def replay_leafwise(spec, num_leaves: int):
     L = max(num_leaves, 1)
     rec_leaf = np.zeros(Lm1, np.int32)
     recF = np.zeros((Lm1, 3), np.float32)         # lout, rout, gain
-    recI = np.zeros((Lm1, 5), np.int32)           # feat, thr, dl, lc, rc
+    recI = np.zeros((Lm1, 6), np.int32)     # feat, thr, dl, lc, rc, iscat
+    recB = np.zeros((Lm1, 8), np.int64)           # bitset words
     leaf_value = np.zeros(L, np.float32)
     committed = np.zeros(max(n_exec, 1), bool)
     final_of_slot = np.full(S, -1, np.int64)
@@ -392,7 +408,8 @@ def replay_leafwise(spec, num_leaves: int):
                        execF[e, SF_GAIN])
         recI[s_idx] = (execI[e, SI_FEAT], execI[e, SI_THR],
                        execI[e, SI_DEFLEFT], execI[e, SI_LC],
-                       execI[e, SI_RC])
+                       execI[e, SI_RC], execI[e, SI_ISCAT])
+        recB[s_idx] = execB[e]
         leaf_value[fl] = execF[e, SF_LOUT]
         leaf_value[s_idx + 1] = execF[e, SF_ROUT]
 
@@ -406,5 +423,6 @@ def replay_leafwise(spec, num_leaves: int):
         leaf_count=leafI[:L, LI_COUNT].astype(np.int32),
         block_begin=leafI[:, LI_BEGIN].astype(np.int32),
         block_cnt=leafI[:, LI_COUNT].astype(np.int32),
-        block_value=cover_values(execF, execI, committed, n_exec, S))
+        block_value=cover_values(execF, execI, committed, n_exec, S),
+        is_cat=recI[:, 5] != 0, cat_bitset=recB)
     return record, exact

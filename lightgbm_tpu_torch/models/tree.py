@@ -15,7 +15,7 @@ stacked tree arrays.
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import numpy as np
 
@@ -32,6 +32,25 @@ def _avoid_inf(x: float) -> float:
     if x <= -1e300:
         return -1e300
     return float(x)
+
+
+def construct_bitset(values: Sequence[int]) -> np.ndarray:
+    """reference Common::ConstructBitset."""
+    if len(values) == 0:
+        return np.zeros(1, dtype=np.uint32)
+    n_words = (max(values) // 32) + 1
+    out = np.zeros(n_words, dtype=np.uint32)
+    for v in values:
+        out[v // 32] |= np.uint32(1) << np.uint32(v % 32)
+    return out
+
+
+def find_in_bitset(bitset: np.ndarray, val: int) -> bool:
+    """reference Common::FindInBitset."""
+    w = val // 32
+    if w >= len(bitset) or val < 0:
+        return False
+    return bool((int(bitset[w]) >> (val % 32)) & 1)
 
 
 class Tree:
@@ -119,6 +138,33 @@ class Tree:
         self.threshold[node] = _avoid_inf(threshold_double)
         self.node_default_bin[node] = default_bin
         self.node_num_bin[node] = num_bin
+        self.num_leaves += 1
+        return self.num_leaves - 1
+
+    def split_categorical(self, leaf: int, feature: int, real_feature: int,
+                          threshold_bins: Sequence[int],
+                          threshold_cats: Sequence[int], left_value: float,
+                          right_value: float, left_cnt: int, right_cnt: int,
+                          gain: float, missing_type: int,
+                          default_bin: int = 0, num_bin: int = 0) -> int:
+        """Categorical split (reference tree.cpp:69-96): thresholds stored as
+        bitsets over category values (outer) and bins (inner)."""
+        node = self._split_common(leaf, feature, real_feature, left_value,
+                                  right_value, left_cnt, right_cnt, gain)
+        self.decision_type[node] = K_CATEGORICAL_MASK \
+            | ((missing_type & 3) << 2)
+        self.threshold_in_bin[node] = self.num_cat
+        self.threshold[node] = self.num_cat
+        self.node_default_bin[node] = default_bin
+        self.node_num_bin[node] = num_bin
+        self.num_cat += 1
+        outer = construct_bitset([int(c) for c in threshold_cats])
+        inner = construct_bitset([int(b) for b in threshold_bins])
+        self.cat_boundaries.append(self.cat_boundaries[-1] + len(outer))
+        self.cat_threshold.extend(int(w) for w in outer)
+        self.cat_boundaries_inner.append(
+            self.cat_boundaries_inner[-1] + len(inner))
+        self.cat_threshold_inner.extend(int(w) for w in inner)
         self.num_leaves += 1
         return self.num_leaves - 1
 

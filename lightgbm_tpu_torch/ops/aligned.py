@@ -1,5 +1,5 @@
 """Chunk-aligned records and the aligned engine's kernels (port of
-lightgbm_tpu/ops/aligned.py, serial numerical path).
+lightgbm_tpu/ops/aligned.py, serial path).
 
 One persistent ``[NC, W, C]`` int32 record matrix holds the training rows,
 chunk-blocked and transposed: within a chunk each lane is a contiguous run
@@ -14,7 +14,10 @@ lanes by rid.
 
 Tree blocks own disjoint chunk-aligned ranges, so every chunk belongs to
 one block and the routing arrives as per-chunk int32 arrays (bit layouts
-below). Three kernels, in ``ops/csrc/aligned.cu``, work on the matrix:
+below); a categorical split routes by its bitset, 8 words a split in the
+round's compact table ``cbits`` (int32 [(K + 1) * 8], row K the pad row;
+None: no categorical chunk). Three kernels, in ``ops/csrc/aligned.cu``,
+work on the matrix:
 
 - B2 `move_pass`: a stable two-way partition of every split block into its
   new chunk-aligned left and right ranges, copies of the used lanes of
@@ -42,12 +45,15 @@ NUM_STATS = 3
 MISSING_NONE_C, MISSING_ZERO_C, MISSING_NAN_C = 0, 1, 2
 
 # route word 1 (per chunk): threshold bin | shift within the split word
-# << 8 | default_left << 13 | missing type << 14 | copy-through << 16
+# << 8 | default_left << 13 | missing type << 14 | copy-through << 16 |
+# categorical << 25 (the JAX package's bit; its wsel bits 17-24 travel in
+# their own array here)
 R_THR = 0
 R_SHIFT = 8
 R_DL = 13
 R_MT = 14
 R_COPY = 16
+R_CAT = 25
 # route word 2: default_bin | (num_bin - 1) << 8 (`pack_route2`)
 # chunk meta word: valid rows | first chunk of block << 20 | last << 21
 META_CNT_MASK = (1 << 20) - 1
@@ -61,7 +67,8 @@ META_BAG = 31
 
 # kernel launches by wrapper (a CPU call of a twin does not count)
 LAUNCHES: Dict[str, int] = {"move_pass": 0, "count_pass": 0,
-                            "slot_hist_pass": 0}
+                            "slot_hist_pass": 0, "move_pass_cat": 0,
+                            "count_pass_cat": 0}
 
 _GRAD_KIND = {None: 0, "binary": 1, "l2": 2}
 # the slot histogram (B4, B2's smaller children; CTAs of 1024 threads):
@@ -71,8 +78,9 @@ SLOT_HIST_TILE_ROWS = 16384
 SLOT_HIST_MAX_TILE_CHUNKS = 256
 _SLOT_HIST_CELL_BYTES = 20
 # the partition (B2): a 16-byte mbarrier, the staged lanes (4 B a row and
-# lane), a u16 row permutation and two words a 32-row ballot; the
-# kernel's static shared memory stays under the slack
+# lane), a u16 row permutation, two words a 32-row ballot and a
+# categorical split's 8 bitset words; the kernel's static shared memory
+# stays under the slack
 _MOVE_STATIC_SLACK = 256
 # the count pass (B3): a persistent grid of CTAs of 256 threads, 8 warps
 # each taking whole chunks; a u32 counter a slot in shared memory
@@ -215,10 +223,14 @@ def pack_route2(db, nb):
 
 
 def goes_left(binv: torch.Tensor, r1: torch.Tensor, r2: torch.Tensor,
-              valid: torch.Tensor) -> torch.Tensor:
-    """Reference DenseBin::Split routing (dense_bin.hpp:195-283),
-    numerical with missing None/Zero/NaN; copy-through routes every valid
-    row left. ``r1``/``r2`` broadcast against ``binv``."""
+              valid: torch.Tensor,
+              catw: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Reference DenseBin::Split routing (dense_bin.hpp:195-283):
+    numerical with missing None/Zero/NaN; with ``catw`` (each row's word
+    ``binv >> 5`` of its split's bitset, `cat_word`) a categorical split
+    (r1's R_CAT bit) sends a row left iff its bin's bit is set, the
+    missing logic bypassed; copy-through routes every valid row left.
+    ``r1``/``r2`` broadcast against ``binv``."""
     thr = r1 & 255
     dl = ((r1 >> R_DL) & 1) != 0
     mt = (r1 >> R_MT) & 3
@@ -228,7 +240,21 @@ def goes_left(binv: torch.Tensor, r1: torch.Tensor, r2: torch.Tensor,
     is_def = (((mt == MISSING_ZERO_C) & (binv == db))
               | ((mt == MISSING_NAN_C) & (binv == nb - 1)))
     left = torch.where(is_def, dl, binv <= thr)
+    if catw is not None:
+        left = torch.where(((r1 >> R_CAT) & 1) != 0,
+                           ((catw >> (binv & 31)) & 1) != 0, left)
     return (copy | left) & valid
+
+
+def cat_word(cbits: torch.Tensor, ks: torch.Tensor,
+             binv: torch.Tensor) -> torch.Tensor:
+    """Each row's bitset word: ``cbits`` is the round's flat compact table
+    (int32 [(K + 1) * 8], 8 words a split, row K the pad row), ``ks`` the
+    split id of each row's chunk (broadcast against ``binv``); word
+    ``binv >> 5``, 0 from word 8 on (JAX package: `_cat_word`)."""
+    bw = binv >> 5
+    w = cbits[(ks.long() * 8 + bw.clamp(max=7)).clamp(max=cbits.numel() - 1)]
+    return torch.where(bw < 8, w, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -307,11 +333,21 @@ def slot_hist_pass_plain(records, slots, meta, num_slots, num_features,
                             num_bins, wcnt, bits, grad, gh_off)
 
 
-def count_pass_plain(records, r1, r2, meta, wsel, kslots, num_slots, bits):
+def _cat_words(cbits, ks, binv):
+    """`cat_word` of every row, from an all-zero table when ``cbits`` is
+    None (as the kernels read a missing table)."""
+    if cbits is None:
+        return torch.zeros_like(binv)
+    return cat_word(cbits, ks[:, None], binv)
+
+
+def count_pass_plain(records, r1, r2, meta, wsel, kslots, num_slots, bits,
+                     cbits=None):
     """Plain twin of `count_pass`."""
     nc, _, C = records.shape
-    left = goes_left(_split_bins(records, r1, wsel, bits), r1[:, None],
-                     r2[:, None], _valid_rows(meta, C))
+    binv = _split_bins(records, r1, wsel, bits)
+    left = goes_left(binv, r1[:, None], r2[:, None], _valid_rows(meta, C),
+                     _cat_words(cbits, kslots, binv))
     per_chunk = left.sum(dim=1).to(torch.int32)
     ok = (kslots >= 0) & (kslots < num_slots)
     out = torch.zeros(num_slots, dtype=torch.int32, device=records.device)
@@ -321,7 +357,7 @@ def count_pass_plain(records, r1, r2, meta, wsel, kslots, num_slots, bits):
 
 def move_pass_plain(records, r1, r2, basel, baser, meta, wsel, hslots,
                     num_slots, num_features, num_bins, wcnt, bits, w_used,
-                    grad=None, out=None, gh_off=2):
+                    grad=None, out=None, gh_off=2, cbits=None):
     """Plain twin of `move_pass`: block-segmented exclusive ranks of the
     left and right rows in (chunk, row) order, one scatter of the used
     lanes, copy chunks' used lanes moved whole, and the smaller children's
@@ -332,8 +368,10 @@ def move_pass_plain(records, r1, r2, basel, baser, meta, wsel, hslots,
     valid = _valid_rows(meta, C)
     cnt = meta & META_CNT_MASK
     copy = ((r1 >> R_COPY) & 1) != 0
-    left = goes_left(_split_bins(records, r1, wsel, bits), r1[:, None],
-                     r2[:, None], valid)
+    hslot = hslots & 0xFFFFFF
+    binv = _split_bins(records, r1, wsel, bits)
+    left = goes_left(binv, r1[:, None], r2[:, None], valid,
+                     _cat_words(cbits, hslot, binv))
     split = valid & ~copy[:, None]
     go_l = split & left
     go_r = split & ~left
@@ -356,7 +394,6 @@ def move_pass_plain(records, r1, r2, basel, baser, meta, wsel, hslots,
             records[c[:, None], lanes[None, :], r[:, None]]
     cc = (copy & (cnt > 0)).nonzero()[:, 0]
     out[basel.long()[cc], :w_used] = records[cc, :w_used]
-    hslot = hslots & 0xFFFFFF
     side_r = ((hslots >> 24) & 1) != 0
     take = torch.where(side_r[:, None], go_r, go_l) \
         & (hslot < num_slots)[:, None]
@@ -375,10 +412,10 @@ def _lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         sigs = {
             "lgbt_count_pass": [p, ctypes.c_longlong, i, i, p, p, p, p, p,
-                                i, i, i, i, p, p, p, p],
+                                p, i, i, i, i, p, p, p, p],
             "lgbt_count_occupancy": [i],
             "lgbt_move_partition": [p, i, i, i, i, i, i, i, p, p, p, p, p,
-                                    p, p, i, p, p, p],
+                                    p, p, p, i, p, p, p],
             "lgbt_slot_hist": [p, i, i, i, i, i, i, i, i, i, i, i, i, p, p,
                                i, i, f, f, f, p, p, p, p],
             "lgbt_slot_hist_occupancy": [i],
@@ -403,6 +440,22 @@ def _check_cuda(records: torch.Tensor, *arrays: torch.Tensor) -> None:
                 or not a.is_contiguous() or a.device != records.device:
             raise ValueError("per-chunk arrays must be contiguous int32 [NC] "
                              "tensors on the device of records")
+
+
+def _cbits_ptr(cbits: Optional[torch.Tensor], records: torch.Tensor,
+               num_slots: int) -> int:
+    """The device address of the round's bitset table (0 for None),
+    checked: contiguous int32 on the device of records, at least
+    (num_slots + 1) * 8 words."""
+    if cbits is None:
+        return 0
+    if cbits.dtype != torch.int32 or cbits.dim() != 1 \
+            or not cbits.is_contiguous() or cbits.device != records.device \
+            or cbits.numel() < (num_slots + 1) * 8:
+        raise ValueError("cbits must be a contiguous int32 tensor of at "
+                         "least (num_slots + 1) * 8 words on the device of "
+                         "records")
+    return cbits.data_ptr()
 
 
 def _stream(dev: torch.device) -> int:
@@ -445,15 +498,15 @@ def slot_hist_smem(C: int, num_features: int, num_bins: int,
 def move_smem(C: int, w_used: int, smem_optin: int) -> Tuple[int, int]:
     """(lanes a stage, dynamic shared bytes per CTA) of the partition
     kernel: as many of the ``w_used`` lanes of a chunk of ``C`` rows as fit
-    ``smem_optin`` beside the mbarrier, the permutation and the ballots
-    (all of them at HIGGS 63 / 255 and MSLR EXT: 32, 36 and 78 KB of
-    stage); fewer lanes are staged and stored in turn. Chunks of more
-    than 65,535 rows, or of rows not a multiple of 4 (16-byte bulk
-    copies), are refused."""
+    ``smem_optin`` beside the mbarrier, the permutation, the ballots and
+    the 8 bitset words (all of them at HIGGS 63 / 255 and MSLR EXT: 32,
+    36 and 78 KB of stage); fewer lanes are staged and stored in turn.
+    Chunks of more than 65,535 rows, or of rows not a multiple of 4
+    (16-byte bulk copies), are refused."""
     if C > 65535 or C % 4:
         raise ValueError(f"move_pass takes chunks of at most 65,535 rows, "
                          f"a multiple of 4, got {C}")
-    fixed = 16 + -(-2 * C // 16) * 16 + 8 * -(-C // 32)
+    fixed = 16 + -(-2 * C // 16) * 16 + 8 * -(-C // 32) + 32
     fit = (smem_optin - _MOVE_STATIC_SLACK - fixed) // (4 * C)
     if fit < 1:
         raise ValueError(f"a chunk of {C} rows does not fit the "
@@ -601,28 +654,34 @@ def _count_scratch_for(dev: torch.device, ordinal: int, stream: int,
     return s
 
 
-def count_pass(records, r1, r2, meta, wsel, kslots, num_slots, bits):
+def count_pass(records, r1, r2, meta, wsel, kslots, num_slots, bits,
+               cbits=None):
     """[num_slots] int32 left rows per compact slot: kslots[i] is the slot
-    of chunk i's split (``num_slots`` skips); r1/r2/meta/wsel as for
-    `move_pass` (copy bit clear on counted chunks); a chunk's rows r <
-    min(meta count, C). On the card one launch a call (no zeroing): the
-    output comes from ``torch.empty``."""
+    of chunk i's split (``num_slots`` skips); r1/r2/meta/wsel/cbits as for
+    `move_pass` (copy bit clear on counted chunks; a chunk's bitset is
+    row kslots[i] of cbits); a chunk's rows r < min(meta count, C). On
+    the card one launch a call (no zeroing): the output comes from
+    ``torch.empty``."""
     if not records.is_cuda:
         return count_pass_plain(records, r1, r2, meta, wsel, kslots,
-                                num_slots, bits)
+                                num_slots, bits, cbits)
     _check_cuda(records, r1, r2, meta, wsel, kslots)
+    cptr = _cbits_ptr(cbits, records, num_slots)
     out = torch.empty(num_slots, dtype=torch.int32, device=records.device)
     if num_slots == 0:
         return out
-    _count_cuda(records, r1, r2, meta, wsel, kslots, num_slots, bits, out)
+    _count_cuda(records, r1, r2, meta, wsel, kslots, num_slots, bits, out,
+                cptr)
     LAUNCHES["count_pass"] += 1
+    if cbits is not None:
+        LAUNCHES["count_pass_cat"] += 1
     return out
 
 
 def _count_cuda(records, r1, r2, meta, wsel, kslots, num_slots, bits,
-                out) -> None:
+                out, cptr: int = 0) -> None:
     """`count_pass`'s launch alone, on checked arguments, into ``out``
-    [num_slots] (num_slots >= 1)."""
+    [num_slots] (num_slots >= 1); ``cptr`` the bitset table's address."""
     nc, W, C = records.shape
     dev = records.device
     ordinal = dev.index if dev.index is not None \
@@ -635,8 +694,8 @@ def _count_cuda(records, r1, r2, meta, wsel, kslots, num_slots, bits,
         sc = _count_scratch_for(dev, ordinal, stream, num_slots)
         err = _lib()["lgbt_count_pass"](
             records.data_ptr(), nc, W, C, r1.data_ptr(), r2.data_ptr(),
-            meta.data_ptr(), wsel.data_ptr(), kslots.data_ptr(), num_slots,
-            bits, vec, grid, sc.data_ptr(),
+            meta.data_ptr(), wsel.data_ptr(), kslots.data_ptr(), cptr,
+            num_slots, bits, vec, grid, sc.data_ptr(),
             sc.data_ptr() + 4 * (sc.numel() - 1), out.data_ptr(), stream)
     if err != 0:
         _count_scratch.pop((ordinal, stream), None)
@@ -646,7 +705,8 @@ def _count_cuda(records, r1, r2, meta, wsel, kslots, num_slots, bits,
 
 def move_pass(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
               num_features, num_bins, wcnt, bits, w_used, grad=None,
-              out: Optional[torch.Tensor] = None, gh_off: int = 2):
+              out: Optional[torch.Tensor] = None, gh_off: int = 2,
+              cbits: Optional[torch.Tensor] = None):
     """Stable two-way partition of every block in one pass, plus the
     smaller children's histograms.
 
@@ -656,7 +716,9 @@ def move_pass(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
     from baser[i], after the rows of the block's earlier chunks, in row
     order; a copy chunk moves whole to basel[i]. hslots[i] = slot | side
     << 24 names the compact slot of the block's smaller child (side 0:
-    the left rows), ``num_slots`` skips. ``grad`` and ``gh_off`` as for
+    the left rows), ``num_slots`` skips. A categorical split (r1's R_CAT
+    bit) routes by row ``slot`` of ``cbits`` (int32 [(num_slots + 1) *
+    8]; None reads as all zero). ``grad`` and ``gh_off`` as for
     `slot_hist_pass`.
 
     Returns (records_out, hist[num_slots, F, num_bins, 3]). Lanes >=
@@ -667,8 +729,9 @@ def move_pass(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
     if not records.is_cuda:
         return move_pass_plain(records, r1, r2, basel, baser, meta, wsel,
                                hslots, num_slots, num_features, num_bins,
-                               wcnt, bits, w_used, grad, out, gh_off)
+                               wcnt, bits, w_used, grad, out, gh_off, cbits)
     _check_cuda(records, r1, r2, basel, baser, meta, wsel, hslots)
+    cptr = _cbits_ptr(cbits, records, num_slots)
     dev = records.device
     if out is None:
         out = torch.empty_like(records)
@@ -679,19 +742,22 @@ def move_pass(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
                          "the shape of records")
     nslot, ncnt = _move_partition_cuda(records, r1, r2, basel, baser, meta,
                                        wsel, hslots, num_slots, bits,
-                                       w_used, out)
+                                       w_used, out, cptr)
     hist = _slot_hist_cuda(out, nslot, ncnt, num_slots, num_features,
                            num_bins, wcnt, bits, grad, gh_off)
     LAUNCHES["move_pass"] += 1
+    if cbits is not None:
+        LAUNCHES["move_pass_cat"] += 1
     return out, hist
 
 
 def _move_partition_cuda(records, r1, r2, basel, baser, meta, wsel, hslots,
-                         num_slots, bits, w_used, out):
+                         num_slots, bits, w_used, out, cptr: int = 0):
     """`move_pass`'s partition into ``out`` (one memset of its scratch,
-    one launch of the partition kernel); returns the smaller children's
-    chunk map (nslot, ncnt), the slots and row counts its histogram takes
-    (ncnt 0 on every other chunk)."""
+    one launch of the partition kernel); ``cptr`` the bitset table's
+    address (0: none). Returns the smaller children's chunk map (nslot,
+    ncnt), the slots and row counts its histogram takes (ncnt 0 on every
+    other chunk)."""
     nc, W, C = records.shape
     dev = records.device
     if not 1 <= w_used <= W:
@@ -707,7 +773,7 @@ def _move_partition_cuda(records, r1, r2, basel, baser, meta, wsel, hslots,
         err = fns["lgbt_move_partition"](
             records.data_ptr(), nc, W, C, w_used, lanes, smem, bits,
             r1.data_ptr(), r2.data_ptr(), meta.data_ptr(), wsel.data_ptr(),
-            basel.data_ptr(), baser.data_ptr(), hslots.data_ptr(), num_slots,
-            scratch.data_ptr(), out.data_ptr(), _stream(dev))
+            basel.data_ptr(), baser.data_ptr(), hslots.data_ptr(), cptr,
+            num_slots, scratch.data_ptr(), out.data_ptr(), _stream(dev))
     _raise_on(err, "move_pass")
     return scratch[2 * nc + 2:3 * nc + 2], scratch[3 * nc + 2:]

@@ -12,8 +12,16 @@
 // C words, so thread r reading row r of a lane is a coalesced load. Tree
 // blocks own disjoint chunk-aligned ranges; per-chunk int32 arrays carry
 // the routing (r1: threshold | shift << 8 | default_left << 13 |
-// missing_type << 14 | copy << 16; r2: default_bin | (num_bin - 1) << 8;
-// wsel: the split word lane; meta: count | first << 20 | last << 21).
+// missing_type << 14 | copy << 16 | categorical << 25; r2: default_bin |
+// (num_bin - 1) << 8; wsel: the split word lane; meta: count | first << 20
+// | last << 21). A categorical split routes a row left iff its bin's bit
+// is set in the split's bitset: 8 words over bins, row k of the round's
+// compact table cbits (int32 [(K + 1) * 8]; a null table reads as zeros),
+// k the chunk's kslots entry (B3) or its hslots slot (B2). A chunk is
+// categorical or not as a whole, so the numerical chunks' predicate stays
+// free of the table: B3's warp takes the chunk's 8 words into lanes 0-7
+// and gives each row its word by a shuffle, B2's CTA puts them into
+// shared memory beside the ballots.
 //
 // What the TPU kernels do that has no counterpart here: the Pallas move
 // kernel carries each block's left/right fill from grid step to grid step
@@ -123,6 +131,7 @@ namespace {
 
 constexpr int kStats = 3;
 constexpr int kShift = 8, kDefLeft = 13, kMissing = 14, kCopy = 16;
+constexpr int kCat = 25;
 constexpr int kCntMask = (1 << 20) - 1;
 constexpr int kFirst = 20, kLast = 21;
 constexpr int kMetaLabel = 24, kMetaLabelMask = 127;
@@ -176,37 +185,64 @@ __device__ __forceinline__ void payload(const int32_t* chunk, int C, int r,
   h = __fmul_rn(__fmul_rn(absr, __fsub_rn(sig, absr)), lw);
 }
 
+// Row r (of a chunk's cnt valid rows) with split word v goes left: a
+// numerical split by goes_left; a categorical one (Cat) by bit b & 31 of
+// its bitset's word b >> 5, which lane b >> 5 of the warp holds in cw
+// (every lane of the warp must call it).
+template <bool Cat>
+__device__ __forceinline__ int row_left(int v, int r, int cnt, int shift,
+                                        int mask, int r1c, int r2c,
+                                        unsigned cw) {
+  const int b = (v >> shift) & mask;
+  if (Cat) {
+    const unsigned w = __shfl_sync(kFull, cw, b >> 5);
+    return (r < cnt) & static_cast<int>((w >> (b & 31)) & 1u);
+  }
+  return r < cnt && goes_left(b, r1c, r2c);
+}
+
 // The left rows of one chunk's rows r < cnt, one warp: the split word's
 // lane read with 16-byte loads (vec: C % 4 == 0 and the records 16-byte
 // aligned, so every lane of every chunk is), four in flight a thread, or
-// one word at a time; each thread counts its rows, one warp sum. Valid in
-// every lane.
+// one word at a time; each thread counts its rows, one warp sum. A
+// categorical chunk (Cat, its bitset word j in lane j's cw) walks the rows
+// in warp-uniform steps, since each row's word comes by a shuffle, with
+// two loads in flight (the shuffles' operands would otherwise raise the
+// kernel's registers). Valid in every lane.
+template <bool Cat>
 __device__ __forceinline__ int warp_left_rows(const int32_t* word, int cnt,
                                               bool vec, int shift, int mask,
-                                              int r1c, int r2c, int lane) {
+                                              int r1c, int r2c, unsigned cw,
+                                              int lane) {
+  constexpr int kLoads = Cat ? 2 : 4;
+  // the numerical walk starts each lane at its own row, the categorical
+  // one every lane at row 0 of the step (then offset by the lane)
+  const int off = Cat ? lane : 0;
   int n = 0;
   if (vec) {
     const int4* w4 = reinterpret_cast<const int4*>(word);
     const int n4 = (cnt + 3) >> 2;     // 4 n4 <= C: within the lane
-    for (int i0 = lane; i0 < n4; i0 += 4 * 32) {
-      int4 v[4];
+    for (int i0 = lane - off; i0 < n4; i0 += kLoads * 32) {
+      int4 v[kLoads];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int i = i0 + 32 * j;
+      for (int j = 0; j < kLoads; ++j) {
+        const int i = i0 + off + 32 * j;
         v[j] = i < n4 ? __ldg(w4 + i) : make_int4(0, 0, 0, 0);
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = 4 * (i0 + 32 * j);
-        n += (r < cnt && goes_left((v[j].x >> shift) & mask, r1c, r2c))
-            + (r + 1 < cnt && goes_left((v[j].y >> shift) & mask, r1c, r2c))
-            + (r + 2 < cnt && goes_left((v[j].z >> shift) & mask, r1c, r2c))
-            + (r + 3 < cnt && goes_left((v[j].w >> shift) & mask, r1c, r2c));
+      for (int j = 0; j < kLoads; ++j) {
+        const int r = 4 * (i0 + off + 32 * j);
+        n += row_left<Cat>(v[j].x, r, cnt, shift, mask, r1c, r2c, cw)
+            + row_left<Cat>(v[j].y, r + 1, cnt, shift, mask, r1c, r2c, cw)
+            + row_left<Cat>(v[j].z, r + 2, cnt, shift, mask, r1c, r2c, cw)
+            + row_left<Cat>(v[j].w, r + 3, cnt, shift, mask, r1c, r2c, cw);
       }
     }
   } else {
-    for (int r = lane; r < cnt; r += 32) {
-      n += goes_left((__ldg(word + r) >> shift) & mask, r1c, r2c);
+    for (int r0 = lane - off; r0 < cnt; r0 += 32) {
+      const int r = r0 + off;
+      n += row_left<Cat>(r < cnt ? __ldg(word + r) : 0, r, cnt, shift, mask,
+                         r1c, r2c, cw);
     }
   }
   return __reduce_add_sync(kFull, n);
@@ -214,7 +250,8 @@ __device__ __forceinline__ int warp_left_rows(const int32_t* word, int cnt,
 
 // Left rows per slot (B3), one launch: the chunks with kslots in
 // [0, num_slots) add their left rows r < min(meta count, C) to
-// out[kslots]; every other slot is 0. A persistent grid of CTAs of
+// out[kslots] (a categorical chunk by row kslots of cbits); every other
+// slot is 0. A persistent grid of CTAs of
 // kCountThreads; each warp takes every (grid warps)-th chunk, counts it
 // alone and adds it to the CTA's u32 counter of its slot in shared memory
 // (a slot's chunks need not be neighbours). The CTA adds each of its
@@ -227,7 +264,8 @@ count_kernel(const int32_t* __restrict__ rec, long long nc, int W, int C,
              const int32_t* __restrict__ r1, const int32_t* __restrict__ r2,
              const int32_t* __restrict__ meta,
              const int32_t* __restrict__ wsel,
-             const int32_t* __restrict__ kslots, int num_slots, int bits,
+             const int32_t* __restrict__ kslots,
+             const unsigned* __restrict__ cbits, int num_slots, int bits,
              int vec, unsigned* __restrict__ scratch,
              unsigned* __restrict__ ticket, int32_t* __restrict__ out) {
   extern __shared__ unsigned slot_left[];        // [num_slots]
@@ -248,8 +286,19 @@ count_kernel(const int32_t* __restrict__ rec, long long nc, int W, int C,
     const int r1c = r1[c];
     const int32_t* word =
         rec + (c * W + wsel[c]) * static_cast<long long>(C);
-    const int n = warp_left_rows(word, cnt, vec != 0, (r1c >> kShift) & 31,
-                                 mask, r1c, r2[c], lane);
+    const int shift = (r1c >> kShift) & 31;
+    int n;
+    // warp-uniform; a copy chunk (never counted by the engine) routes
+    // every row left whatever its categorical bit
+    if (((r1c >> kCat) & 1) && !((r1c >> kCopy) & 1)) {
+      const unsigned cw = lane < 8 && cbits != nullptr
+          ? __ldg(cbits + 8LL * ks + lane) : 0u;
+      n = warp_left_rows<true>(word, cnt, vec != 0, shift, mask, r1c, r2[c],
+                               cw, lane);
+    } else {
+      n = warp_left_rows<false>(word, cnt, vec != 0, shift, mask, r1c,
+                                r2[c], 0u, lane);
+    }
     if (lane == 0 && n != 0) {
       atomicAdd(slot_left + ks, static_cast<unsigned>(n));
     }
@@ -278,9 +327,11 @@ count_kernel(const int32_t* __restrict__ rec, long long nc, int W, int C,
 // copy chunk moves its w_used lanes whole to basel[c]. The block's last
 // chunk writes the smaller child's map: nslot = slot, ncnt = rows of each
 // of its new chunks (hslots = slot | side << 24, slot == num_slots skips).
+// A categorical split chunk ranks its rows by row `slot` of cbits.
 // flags [nc], *ticket and ncnt come in zeroed. Shared memory: the mbarrier
 // (16 B), the stage (lanes x C words), the permutation (C u16), the
-// ballots and their prefix (2 x ceil(C / 32) words).
+// ballots and their prefix (2 x ceil(C / 32) words) and the 8 bitset
+// words.
 __global__ void __launch_bounds__(kMoveThreads, 4)
 partition_kernel(const int32_t* __restrict__ rec, int W, int C, int w_used,
                  int lanes, int bits, const int32_t* __restrict__ r1,
@@ -289,7 +340,8 @@ partition_kernel(const int32_t* __restrict__ rec, int W, int C, int w_used,
                  const int32_t* __restrict__ wsel,
                  const int32_t* __restrict__ basel,
                  const int32_t* __restrict__ baser,
-                 const int32_t* __restrict__ hslots, int num_slots,
+                 const int32_t* __restrict__ hslots,
+                 const unsigned* __restrict__ cbits, int num_slots,
                  unsigned long long* __restrict__ flags,
                  unsigned* __restrict__ ticket,
                  int32_t* __restrict__ nslot, int32_t* __restrict__ ncnt,
@@ -303,6 +355,7 @@ partition_kernel(const int32_t* __restrict__ rec, int W, int C, int w_used,
   unsigned* ballot = reinterpret_cast<unsigned*>(
       part_smem + 16 + 4LL * lanes * C + ((2 * C + 15) & ~15));
   int* prefix = reinterpret_cast<int*>(ballot + nw);
+  unsigned* cat_words = reinterpret_cast<unsigned*>(prefix + nw);   // [8]
   __shared__ long long s_chunk;
   __shared__ int s_ex_left, s_ex_valid;
 
@@ -316,6 +369,7 @@ partition_kernel(const int32_t* __restrict__ rec, int W, int C, int w_used,
   const int r1c = r1[c];
   const bool split = ((r1c >> kCopy) & 1) == 0;
   const bool moves = split && cnt > 0;
+  const bool cat = moves && ((r1c >> kCat) & 1);
   const long long cw = static_cast<long long>(W) * C;
   const int32_t* src = rec + c * cw;
   const int groups = (w_used + lanes - 1) / lanes;
@@ -326,22 +380,36 @@ partition_kernel(const int32_t* __restrict__ rec, int W, int C, int w_used,
     stage_load(stage, src,
                4u * static_cast<unsigned>(min(lanes, w_used) * C), bar);
   }
+  // a categorical split's 8 bitset words
+  if (cat && tid < 8) {
+    cat_words[tid] = cbits != nullptr
+        ? __ldg(cbits + 8LL * (hslots[c] & 0xFFFFFF) + tid) : 0u;
+  }
   // 2. rank: a ballot of left rows a word of 32 rows, their prefix
   int agg_left = 0, agg_valid = 0;
   if (moves) {
     const int ws = wsel[c];
     const bool staged = ws < lanes;
-    if (staged) {
-      __syncthreads();                 // the barrier's init is visible
-      stage_wait(bar, 0);
+    if (staged || cat) {
+      __syncthreads();         // the barrier's init and the words are seen
     }
+    if (staged) stage_wait(bar, 0);
     const int32_t* word = staged ? stage + static_cast<long long>(ws) * C
                                  : src + static_cast<long long>(ws) * C;
     const int r2c = r2[c];
     const int shift = (r1c >> kShift) & 31, mask = (1 << bits) - 1;
-    agg_left = rank_rows(cnt, nw, kMoveThreads, ballot, prefix, [&](int r) {
-      return goes_left((word[r < C ? r : 0] >> shift) & mask, r1c, r2c);
-    });
+    if (cat) {
+      agg_left = rank_rows(cnt, nw, kMoveThreads, ballot, prefix,
+                           [&](int r) {
+        const int b = (word[r < C ? r : 0] >> shift) & mask;
+        return ((cat_words[b >> 5] >> (b & 31)) & 1u) != 0u;
+      });
+    } else {
+      agg_left = rank_rows(cnt, nw, kMoveThreads, ballot, prefix,
+                           [&](int r) {
+        return goes_left((word[r < C ? r : 0] >> shift) & mask, r1c, r2c);
+      });
+    }
     agg_valid = cnt;
   }
   // 3. publish the aggregate (a block's first chunk: its inclusive prefix)
@@ -623,13 +691,14 @@ extern "C" {
 
 // B3: out[num_slots] = left rows of the chunks whose kslots entry is that
 // slot, in one launch of `grid` CTAs with num_slots u32 of dynamic shared
-// memory (ops/aligned.py::count_launch_shape); scratch (u32 [num_slots])
-// and ticket are zero before and after the call. vec: C % 4 == 0 and rec
-// 16-byte aligned. Returns the CUDA error code (0 = ok).
+// memory (ops/aligned.py::count_launch_shape); cbits the round's bitset
+// table (null: none); scratch (u32 [num_slots]) and ticket are zero
+// before and after the call. vec: C % 4 == 0 and rec 16-byte aligned.
+// Returns the CUDA error code (0 = ok).
 int lgbt_count_pass(const void* rec, long long nc, int W, int C,
                     const void* r1, const void* r2, const void* meta,
-                    const void* wsel, const void* kslots, int num_slots,
-                    int bits, int vec, int grid, void* scratch,
+                    const void* wsel, const void* kslots, const void* cbits,
+                    int num_slots, int bits, int vec, int grid, void* scratch,
                     void* ticket, void* out, void* stream) {
   const int smem = static_cast<int>(sizeof(unsigned)) * num_slots;
   if (smem > 48 * 1024) {
@@ -642,7 +711,8 @@ int lgbt_count_pass(const void* rec, long long nc, int W, int C,
       static_cast<const int32_t*>(rec), nc, W, C,
       static_cast<const int32_t*>(r1), static_cast<const int32_t*>(r2),
       static_cast<const int32_t*>(meta), static_cast<const int32_t*>(wsel),
-      static_cast<const int32_t*>(kslots), num_slots, bits, vec,
+      static_cast<const int32_t*>(kslots),
+      static_cast<const unsigned*>(cbits), num_slots, bits, vec,
       static_cast<unsigned*>(scratch), static_cast<unsigned*>(ticket),
       static_cast<int32_t*>(out));
   return check();
@@ -673,14 +743,15 @@ int lgbt_count_occupancy(int smem) {
 // untouched): one memset of scratch (int32 [4 NC + 2]: the flag words
 // [NC] u64, the ticket and a pad word, nslot [NC], ncnt [NC]), then one
 // launch of partition_kernel with `lanes` lanes a stage and `smem` bytes
-// of dynamic shared memory (ops/aligned.py::move_smem). nslot and ncnt
-// hold the smaller children's map (ncnt 0 elsewhere).
+// of dynamic shared memory (ops/aligned.py::move_smem); cbits the round's
+// bitset table (null: none). nslot and ncnt hold the smaller children's
+// map (ncnt 0 elsewhere).
 int lgbt_move_partition(const void* rec, int nc, int W, int C, int w_used,
                         int lanes, int smem, int bits, const void* r1,
                         const void* r2, const void* meta, const void* wsel,
                         const void* basel, const void* baser,
-                        const void* hslots, int num_slots, void* scratch,
-                        void* out, void* stream) {
+                        const void* hslots, const void* cbits, int num_slots,
+                        void* scratch, void* out, void* stream) {
   if (nc == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(
@@ -696,7 +767,8 @@ int lgbt_move_partition(const void* rec, int nc, int W, int C, int w_used,
       static_cast<const int32_t*>(r1), static_cast<const int32_t*>(r2),
       static_cast<const int32_t*>(meta), static_cast<const int32_t*>(wsel),
       static_cast<const int32_t*>(basel), static_cast<const int32_t*>(baser),
-      static_cast<const int32_t*>(hslots), num_slots,
+      static_cast<const int32_t*>(hslots),
+      static_cast<const unsigned*>(cbits), num_slots,
       reinterpret_cast<unsigned long long*>(sc),
       reinterpret_cast<unsigned*>(sc + 2 * nc), sc + 2 * nc + 2,
       sc + 3 * nc + 2, static_cast<int32_t*>(out));

@@ -7,12 +7,17 @@ row-index array where each leaf's rows are contiguous. A split stably
 partitions one leaf's slice in place — left rows first, then right rows,
 each in their previous order.
 
-Routing semantics (numerical features):
-- missing None : bin <= threshold -> left
-- missing Zero : bin == default_bin -> default side; else <= thr
-- missing NaN  : bin == num_bin-1 (NaN bin) -> default side; else <= thr
+Routing semantics:
+- numerical, missing None : bin <= threshold -> left
+- numerical, missing Zero : bin == default_bin -> default side; else <= thr
+- numerical, missing NaN  : bin == num_bin-1 (NaN bin) -> default side;
+                            else <= thr
+- categorical             : bin in the split's bitset -> left
+                            (`SplitCategorical`, dense_bin.hpp:256-283)
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -32,17 +37,35 @@ def numerical_goes_left(binvals: torch.Tensor, threshold: int,
     return torch.where(is_default, default_left, base)
 
 
+def categorical_goes_left(binvals: torch.Tensor,
+                          bitset: torch.Tensor) -> torch.Tensor:
+    """Left iff bit ``bin`` of ``bitset`` is set: words [..., W] with
+    values in [0, 2^32), one set for all rows ([W]) or one a row; bins
+    past the words go right (reference Common::FindInBitset,
+    utils/common.h)."""
+    nw = bitset.shape[-1]
+    word = (binvals >> 5).long()
+    w = torch.gather(bitset.to(torch.int64).expand(*binvals.shape, nw), -1,
+                     word.clamp(0, nw - 1)[..., None])[..., 0]
+    return (((w >> (binvals & 31).long()) & 1) != 0) & (word < nw)
+
+
 def split_partition(indices: torch.Tensor, bins_col: torch.Tensor,
                     begin: int, count: int, threshold: int,
                     default_left: bool, missing_type: int, default_bin: int,
-                    num_bin: int) -> int:
+                    num_bin: int,
+                    cat_bitset: Optional[torch.Tensor] = None) -> int:
     """Stable-partition one leaf's slice ``indices[begin:begin+count]`` in
     place by the split feature's bin column ``bins_col`` [N]; returns the
-    left count (one host read)."""
+    left count (one host read). A categorical split passes its bitset
+    (``cat_bitset``, words [8]) and routes by it alone."""
     idx = indices[begin:begin + count]
     b = bins_col[idx.long()].to(torch.int32)
-    goes_left = numerical_goes_left(b, threshold, default_left, missing_type,
-                                    default_bin, num_bin)
+    if cat_bitset is not None:
+        goes_left = categorical_goes_left(b, cat_bitset)
+    else:
+        goes_left = numerical_goes_left(b, threshold, default_left,
+                                        missing_type, default_bin, num_bin)
     left = idx[goes_left]
     right = idx[~goes_left]
     indices[begin:begin + count] = torch.cat([left, right])

@@ -1,5 +1,5 @@
 """Vectorized best-split search over per-feature histograms (port of
-lightgbm_tpu/ops/split.py, numerical features).
+lightgbm_tpu/ops/split.py).
 
 The reference `FeatureHistogram` scans (`feature_histogram.hpp:91-644`)
 become masked prefix sums over the bin axis for all features — and here
@@ -12,8 +12,13 @@ for a batch of leaves — at once, with the JAX package's f32 op order:
   winner the last (`_first_argmax` / `_last_argmax`), and dir=-1 wins
   ties between the two.
 
-Categorical features raise `NotImplementedError`: the categorical scan
-(`ops/split.py:242` in the JAX package) is a later slice.
+Categorical features take the JAX package's one-hot and CTR-sorted scans
+(`_categorical`, `feature_histogram.hpp:118-240`): the sort is stable, the
+sorted prefix sums add as the numerical ones do (in the same fold), and
+`min_data_per_group`'s sequential grouping runs only over the first
+``max_cat_threshold`` positions, where it can act. A categorical winner
+carries the bins that go left as an ``[8]`` word bitset over the first
+`CAT_BITSET_BINS` bins.
 """
 from __future__ import annotations
 
@@ -26,6 +31,9 @@ from ..utils.xla_math import fma_f32
 
 K_EPSILON = 1e-15
 NEG_INF = float("-inf")
+# a categorical split's bitset is 8 32-bit words: only the first (most
+# frequent) 256 category bins are candidates
+CAT_BITSET_BINS = 256
 
 
 class SplitHyper(NamedTuple):
@@ -36,6 +44,14 @@ class SplitHyper(NamedTuple):
     min_data_in_leaf: int
     min_sum_hessian_in_leaf: float
     min_gain_to_split: float
+    cat_smooth: float = 10.0
+    cat_l2: float = 10.0
+    max_cat_threshold: int = 32
+    max_cat_to_onehot: int = 4
+    min_data_per_group: int = 100
+    # lambda_l2 + cat_l2 in Python's double precision, as the JAX package
+    # computes it, rounded to f32 where the sorted scan adds it
+    lambda_l2_cat: float = 10.0
 
     @classmethod
     def from_config(cls, cfg) -> "SplitHyper":
@@ -46,11 +62,22 @@ class SplitHyper(NamedTuple):
             min_data_in_leaf=int(cfg.min_data_in_leaf),
             min_sum_hessian_in_leaf=float(cfg.min_sum_hessian_in_leaf),
             min_gain_to_split=float(cfg.min_gain_to_split),
+            cat_smooth=float(cfg.cat_smooth),
+            cat_l2=float(cfg.cat_l2),
+            max_cat_threshold=int(cfg.max_cat_threshold),
+            max_cat_to_onehot=int(cfg.max_cat_to_onehot),
+            min_data_per_group=int(cfg.min_data_per_group),
+            lambda_l2_cat=float(cfg.lambda_l2) + float(cfg.cat_l2),
         )
 
 
 def _threshold_l1(s, l1):
-    """reference ThresholdL1 (feature_histogram.hpp:446)."""
+    """reference ThresholdL1 (feature_histogram.hpp:446). Without L1 it is
+    ``s`` itself, bit for bit (sign(s) * |s|, NaN and -0.0 included), so
+    the five ops a call are skipped: they are a large share of a split
+    evaluation's launches."""
+    if l1 == 0.0:
+        return s
     reg = torch.clamp(torch.abs(s) - l1, min=0.0)
     return torch.sign(s) * reg
 
@@ -105,12 +132,15 @@ def _clip(x, lo, hi):
 def _split_gains(lg, lh, rg, rh, l1, l2, mds, min_c, max_c, mono,
                  fuse_hess=(False, False)):
     """reference GetSplitGains (feature_histogram.hpp:461-473): clamped
-    outputs, monotone veto -> gain 0. ``fuse_hess`` (left, right) as for
+    outputs, monotone veto -> gain 0 (``mono`` None: no constraint, as
+    for categorical splits). ``fuse_hess`` (left, right) as for
     `_leaf_gain_given_output`."""
     lo = _clip(_leaf_output(lg, lh, l1, l2, mds), min_c, max_c)
     ro = _clip(_leaf_output(rg, rh, l1, l2, mds), min_c, max_c)
     gain = (_leaf_gain_given_output(lg, lh, l1, l2, lo, fuse_hess[0])
             + _leaf_gain_given_output(rg, rh, l1, l2, ro, fuse_hess[1]))
+    if mono is None:
+        return gain
     veto = ((mono > 0) & (lo > ro)) | ((mono < 0) & (lo < ro))
     return torch.where(veto, torch.zeros_like(gain), gain)
 
@@ -139,6 +169,11 @@ _SCAN_BLOCK = 16
 # (found against the JAX program on the CPU). The parent's two shifts keep
 # their forms throughout.
 ROOT_FUSE_HESS_MAX_BIN = _SCAN_BLOCK
+# In that root search the categorical scans' side gains (one-hot and
+# sorted, both sides) contract `(sh + l2) * out * out` at every bin count,
+# unless a `max_delta_step` clamp is set (found against the JAX program on
+# the CPU at 15, 63 and 255 bins, with and without L1/L2 and cat_l2;
+# ROADMAP C.26).
 
 
 def _prefix_sum_f32(x: torch.Tensor) -> torch.Tensor:
@@ -169,6 +204,19 @@ def _take(arr, idx):
     return torch.gather(arr, -1, idx.unsqueeze(-1)).squeeze(-1)
 
 
+def _bitset_words(sel_bins: torch.Tensor) -> torch.Tensor:
+    """[..., 8] int64 words (values in [0, 2^32)) of the bitset whose bits
+    are the non-negative entries of ``sel_bins`` [..., B] (unique bins
+    below 256; -1 entries set nothing): one scatter, the sum of distinct
+    bits being their OR."""
+    on = sel_bins >= 0
+    b = torch.where(on, sel_bins, 0).to(torch.int64)
+    bit = torch.where(on, torch.ones_like(b) << (b & 31), 0)
+    words = torch.zeros(sel_bins.shape[:-1] + (8,), dtype=torch.int64,
+                        device=sel_bins.device)
+    return words.scatter_add_(-1, b >> 5, bit)
+
+
 def make_split_finder(hyper: SplitHyper, feature_meta: Dict[str, np.ndarray],
                       max_bin: int, device=torch.device("cpu")):
     """Build the split finder for a fixed dataset + config.
@@ -182,13 +230,13 @@ def make_split_finder(hyper: SplitHyper, feature_meta: Dict[str, np.ndarray],
     one search per leaf of the batch (the JAX finder's search, with a
     leading leaf axis). ``root`` marks the leaf-wise builder's root
     search, whose side gains contract as the JAX program's root does
-    (`ROOT_FUSE_HESS_MAX_BIN`).
+    (`ROOT_FUSE_HESS_MAX_BIN`). ``is_cat`` [K, F] and ``cat_bitset``
+    [K, F, 8] (int64 words in [0, 2^32), the bins the categorical scan
+    sends left; zero without a categorical feature) come with every
+    search; with a categorical feature also ``cat_dir``, ``n_elig`` and
+    ``use_onehot`` [K, F] and ``sort_order`` [K, F, B], as the JAX
+    finder returns them.
     """
-    if (np.asarray(feature_meta["bin_type"]) == 1).any():
-        raise NotImplementedError(
-            "categorical splits are not ported yet (the categorical scan "
-            "of lightgbm_tpu/ops/split.py:242 is queued in ROADMAP.md)")
-
     def dev(a, dtype):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
@@ -197,6 +245,9 @@ def make_split_finder(hyper: SplitHyper, feature_meta: Dict[str, np.ndarray],
     mt = dev(feature_meta["missing_type"], torch.int32)[:, None]
     mono = dev(feature_meta["monotone"], torch.int32)[:, None]
     penalty = dev(feature_meta["penalty"], torch.float32)
+    is_cat = dev(np.asarray(feature_meta["bin_type"]) == 1, torch.bool)
+    has_cat = bool(is_cat.any())
+    F = int(nb.shape[0])
     h = hyper
     bins = torch.arange(max_bin, dtype=torch.int32, device=device)[None, :]
     in_range = bins < nb
@@ -220,6 +271,125 @@ def make_split_finder(hyper: SplitHyper, feature_meta: Dict[str, np.ndarray],
         root_fuse = ((True, True), (True, True))
     else:
         root_fuse = ((True, False), (False, True))
+    # categorical (feature_histogram.hpp:118-240): used_bin = num_bin - 1
+    # + (missing == none) candidates, within the bitset's 256 bins
+    cat_cand = (bins < nb - 1 + (mt == 0).to(torch.int32)) \
+        & (bins < CAT_BITSET_BINS)
+    use_onehot = nb[:, 0] <= h.max_cat_to_onehot                  # [F]
+    # the grouping scan is a no-op from position max_cat_threshold on
+    n_group = max(0, min(max_bin, h.max_cat_threshold))
+    pos = bins.to(torch.int64)
+    l2_eff = torch.where(use_onehot, torch.tensor(l2, device=device),
+                         torch.tensor(h.lambda_l2_cat, device=device)) \
+        .to(torch.float32)
+    no_bitset = torch.zeros((1, F, 8), dtype=torch.int64, device=device)
+
+    def sorted_inputs(g, hs, c):
+        """The CTR order of every feature's eligible bins and the two
+        scan directions' inputs, [K, 2, F, B] each (forward, backward)."""
+        elig = cat_cand & (c >= h.cat_smooth)
+        ctr = g / (hs + h.cat_smooth)
+        order = torch.argsort(torch.where(elig, ctr, float("inf")), dim=-1,
+                              stable=True)
+        n_elig = elig.sum(-1)                                     # [K,F]
+        ridx = (n_elig[..., None] - 1 - pos).clamp(0, max_bin - 1)
+        both = torch.stack([order, torch.gather(order, -1, ridx)], dim=1)
+        step_ok = (pos < n_elig[..., None]) & (pos < torch.clamp(
+            (n_elig[..., None] + 1) // 2, max=h.max_cat_threshold))
+        step_ok = step_ok[:, None]                                # [K,1,F,B]
+        zero = torch.zeros((), dtype=torch.float32, device=g.device)
+
+        def take(a):
+            return torch.where(step_ok, torch.gather(
+                a[:, None].expand(-1, 2, -1, -1), -1, both), zero)
+
+        return order, n_elig, step_ok, take(g), take(hs), take(c)
+
+    def group_eval(cc, evalable):
+        """`min_data_per_group`'s sequential grouping (hpp:198-222): a
+        candidate is evaluated only where the rows counted since the last
+        evaluated one reach min_data_per_group; [K, 2, F, B] bool. Three
+        ops a step: a position that cannot be evaluated gets an infinite
+        threshold, so one comparison decides it."""
+        do_eval = torch.zeros_like(evalable)
+        if n_group == 0:
+            return do_eval
+        cc_t = cc[..., :n_group].movedim(-1, 0).contiguous()
+        thr_t = torch.where(evalable[..., :n_group],
+                            float(h.min_data_per_group),
+                            float("inf")).movedim(-1, 0).contiguous()
+        out_t = torch.empty(thr_t.shape, dtype=torch.bool,
+                            device=thr_t.device)
+        cnt = torch.zeros_like(cc_t[0])
+        for i in range(n_group):
+            cnt.add_(cc_t[i])
+            torch.ge(cnt, thr_t[i], out=out_t[i])
+            cnt.masked_fill_(out_t[i], 0.0)
+        do_eval[..., :n_group] = out_t.movedim(0, -1)
+        return do_eval
+
+    cat_root_fuse = (False, False) if mds > 0.0 else (True, True)
+
+    def categorical(g, hs, c, pre_cat, order, n_elig, step_ok, cc,
+                    sum_grad, sum_hess, num_data_f, min_c, max_c, shift,
+                    fuse):
+        """The one-hot and CTR-sorted scans: dict of [K, F] winners;
+        ``fuse`` (left, right) as for `_split_gains`."""
+        # ---- one-hot: left = single bin t (hpp:138-169); plain lambda_l2
+        lh_oh = hs + K_EPSILON
+        rh_oh = sum_hess - hs - K_EPSILON
+        rc_oh = num_data_f - c
+        valid_oh = (cat_cand & (c >= min_data_f) & (hs >= min_hess)
+                    & (rc_oh >= min_data_f) & (rh_oh >= min_hess))
+        # the sides swapped, as the JAX package computes it
+        gain_oh = _split_gains(sum_grad - g, rh_oh, g, lh_oh, l1, l2, mds,
+                               min_c, max_c, None, fuse)
+        gain_oh = torch.where(valid_oh & (gain_oh > shift), gain_oh,
+                              NEG_INF)
+        t_oh = _first_argmax(gain_oh)
+
+        # ---- CTR-sorted many-vs-many (hpp:170-240): l2 + cat_l2
+        l2c = h.lambda_l2_cat
+        lg, lh, lc = pre_cat[0], pre_cat[1] + K_EPSILON, pre_cat[2]
+        rg = sum_grad[:, None] - lg
+        rh = sum_hess[:, None] - lh
+        rc = num_data_f[:, None] - lc
+        evalable = ((lc >= min_data_f) & (lh >= min_hess)
+                    & (rc >= min_data_f) & (rc >= h.min_data_per_group)
+                    & (rh >= min_hess) & step_ok)
+        do_eval = group_eval(cc, evalable)
+        gain = _split_gains(lg, lh, rg, rh, l1, l2c, mds, min_c[:, None],
+                            max_c[:, None], None, fuse)
+        gain = torch.where(do_eval & (gain > shift[:, None]), gain, NEG_INF)
+        t = _first_argmax(gain)                                   # [K,2,F]
+        gb = _take(gain, t)
+        use_bw = gb[:, 1] > gb[:, 0]       # forward evaluated first
+        t_sorted = torch.where(use_bw, t[:, 1], t[:, 0])
+
+        def pick(oh, srt):
+            s2 = _take(srt, t)
+            return torch.where(use_onehot, _take(oh, t_oh),
+                               torch.where(use_bw, s2[:, 1], s2[:, 0]))
+
+        out = dict(
+            gain=torch.where(use_onehot, _take(gain_oh, t_oh),
+                             torch.where(use_bw, gb[:, 1], gb[:, 0])),
+            threshold=torch.where(use_onehot, t_oh, t_sorted).to(
+                torch.int32),
+            left_g=pick(g, lg), left_h=pick(lh_oh, lh), left_c=pick(c, lc))
+        # the left bins as a bitset over bins
+        k_sel = torch.where(use_onehot, 1, t_sorted + 1)[..., None]
+        ne = n_elig[..., None]
+        sorted_sel = torch.where(use_bw[..., None],
+                                 (pos >= ne - k_sel) & (pos < ne),
+                                 pos < k_sel)
+        sel_bins = torch.where(
+            use_onehot[:, None],
+            torch.where(pos == t_oh[..., None], pos, -1),
+            torch.where(sorted_sel, order, -1))
+        out["cat_bitset"] = _bitset_words(sel_bins)
+        out["cat_dir"] = torch.where(use_bw, -1, 1).to(torch.int32)
+        return out
 
     def find_best_splits(hist, sum_grad, sum_hess, num_data, min_constraint,
                          max_constraint, root=False):
@@ -238,12 +408,19 @@ def make_split_finder(hyper: SplitHyper, feature_meta: Dict[str, np.ndarray],
 
         g, hs, c = hist[..., 0], hist[..., 1], hist[..., 2]      # [K,F,B]
         zero = torch.zeros((), dtype=torch.float32, device=hist.device)
-        # both scans' prefix sums in one sequential fold: [K, 6, F, B]
-        pre = _prefix_sum_f32(torch.stack(
-            [torch.where(inc1, g, zero), torch.where(inc1, hs, zero),
-             torch.where(inc1, c, zero), torch.where(inc2, g, zero),
-             torch.where(inc2, hs, zero), torch.where(inc2, c, zero)],
-            dim=1))
+        # both scans' prefix sums, and the sorted categorical scans', in
+        # one sequential fold: [K, 6 (+ 6), F, B]
+        chans = [torch.where(inc1, g, zero), torch.where(inc1, hs, zero),
+                 torch.where(inc1, c, zero), torch.where(inc2, g, zero),
+                 torch.where(inc2, hs, zero), torch.where(inc2, c, zero)]
+        if has_cat:
+            order, n_elig, step_ok, sg, sh_, cc = sorted_inputs(g, hs, c)
+            pre = _prefix_sum_f32(torch.cat(
+                [torch.stack(chans, dim=1), sg, sh_, cc], dim=1))
+            pre, pre_cat = pre[:, :6], pre[:, 6:].reshape(
+                k, 3, 2, F, max_bin).unbind(dim=1)
+        else:
+            pre = _prefix_sum_f32(torch.stack(chans, dim=1))
         pg, ph, pc, pg2, ph2, pc2 = pre.unbind(dim=1)
 
         # ---- dir = +1: accumulate from the left; missing/default -> right
@@ -287,13 +464,35 @@ def make_split_finder(hyper: SplitHyper, feature_meta: Dict[str, np.ndarray],
         def pick(a1, a2):
             return torch.where(use1, _take(a1, t1), _take(a2, t2))
 
-        sg0, sh0 = sum_grad[..., 0], sum_hess[..., 0]             # [K,1]
         lg = pick(lg1, lg2)
         lh = pick(lh1, lh2)
         lc = pick(lc1, lc2)
+        extra = {}
+        if has_cat:
+            cat = categorical(g, hs, c, pre_cat, order, n_elig, step_ok, cc,
+                              sum_grad, sum_hess, num_data_f, min_c, max_c,
+                              tested_shift,
+                              cat_root_fuse if root else (False, False))
+            best_gain = torch.where(is_cat, cat["gain"], best_gain)
+            thr = torch.where(is_cat, cat["threshold"], thr)
+            default_left = default_left & ~is_cat
+            lg = torch.where(is_cat, cat["left_g"], lg)
+            lh = torch.where(is_cat, cat["left_h"], lh)
+            lc = torch.where(is_cat, cat["left_c"], lc)
+            bitset = cat["cat_bitset"]
+            extra = dict(cat_dir=cat["cat_dir"], sort_order=order,
+                         n_elig=n_elig.to(torch.int32),
+                         use_onehot=use_onehot.expand(k, -1))
+            l2_out = torch.where(is_cat, l2_eff, l2)
+        else:
+            bitset = no_bitset.expand(k, -1, -1)
+            l2_out = l2
+
+        sg0, sh0 = sum_grad[..., 0], sum_hess[..., 0]             # [K,1]
         mc, xc = min_c[..., 0], max_c[..., 0]
-        lo = _clip(_leaf_output(lg, lh, l1, l2, mds), mc, xc)
-        ro = _clip(_leaf_output(sg0 - lg, sh0 - lh, l1, l2, mds), mc, xc)
+        lo = _clip(_leaf_output(lg, lh, l1, l2_out, mds), mc, xc)
+        ro = _clip(_leaf_output(sg0 - lg, sh0 - lh, l1, l2_out, mds), mc,
+                   xc)
 
         mgs = min_gain_shift[..., 0]
         left_c = lc.to(torch.int32)
@@ -310,6 +509,9 @@ def make_split_finder(hyper: SplitHyper, feature_meta: Dict[str, np.ndarray],
             "right_c": num_data.to(torch.int32)[:, None] - left_c,
             "left_output": lo,
             "right_output": ro,
+            "is_cat": is_cat.expand(k, -1),
+            "cat_bitset": bitset,
+            **extra,
         }
 
     return find_best_splits

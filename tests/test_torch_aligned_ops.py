@@ -202,7 +202,8 @@ def test_wrappers_take_the_twins_on_cpu(rounds):
     ref_out, ref_hist = TA.move_pass_plain(*args)
     assert torch.equal(out, ref_out) and torch.equal(hist, ref_hist)
     assert TA.LAUNCHES == {"move_pass": 0, "count_pass": 0,
-                           "slot_hist_pass": 0}
+                           "slot_hist_pass": 0, "move_pass_cat": 0,
+                           "count_pass_cat": 0}
 
 
 @pytest.mark.parametrize("max_bin,bits", [(15, 4), (63, 6), (255, 8)])

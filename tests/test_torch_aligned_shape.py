@@ -81,11 +81,12 @@ MOVE_SHAPES = {"higgs63": (1024, 8, 8), "higgs255": (1024, 9, 16),
 def test_move_smem(shape):
     """The partition stages every used lane of a chunk at once within an
     H100's opt-in (32, 36 and 78 KB of lanes), beside a 16-byte mbarrier,
-    a u16 row permutation and two words a 32-row ballot."""
+    a u16 row permutation, two words a 32-row ballot and a categorical
+    split's 8 bitset words."""
     C, w_used, _ = MOVE_SHAPES[shape]
     lanes, smem = A.move_smem(C, w_used, H100_SMEM_OPTIN)
     assert lanes == w_used
-    assert smem == 16 + 4 * w_used * C + 2 * C + 8 * (C // 32)
+    assert smem == 16 + 4 * w_used * C + 2 * C + 8 * (C // 32) + 32
     assert smem <= H100_SMEM_OPTIN - 256
     # two CTAs an SM at the widest (four of 256 threads at HIGGS)
     assert 2 * smem <= 228 * 1024 - 2 * 1024
@@ -96,7 +97,7 @@ def test_move_smem_small_optin_and_odd_chunks():
     not fit one lane, more than 65,535 rows (u16 permutation) or rows not
     a multiple of 4 (16-byte bulk copies) raise."""
     lanes, smem = A.move_smem(512, 39, 40 * 1024)
-    assert lanes == (40 * 1024 - 256 - 16 - 1024 - 128) // 2048 == 19
+    assert lanes == (40 * 1024 - 256 - 16 - 1024 - 128 - 32) // 2048 == 19
     assert smem <= 40 * 1024 - 256
     with pytest.raises(ValueError, match="does not fit"):
         A.move_smem(1024, 8, 4096)

@@ -2,8 +2,9 @@
 and the level builder's B5), the aligned engine's kernels and the
 lambdarank kernel against their plain twins, f64 training on the card
 against the CPU (leaf-wise and level), the aligned engine on the card
-(binary, and lambdarank on EXT records), and the prototype kernels P1-P3
-against their twins. They import
+(binary, and lambdarank on EXT records), the categorical route of B2 and
+B3 and categorical f64 training against the CPU, and the prototype
+kernels P1-P3 against their twins. They import
 neither JAX nor the JAX package, so they run where only PyTorch is
 installed:
 
@@ -729,18 +730,21 @@ def _partition_calls(monkeypatch, layout):
     return [(args, kw) for name, args, kw in calls if name == "move_pass"]
 
 
-def _check_partition(args):
+def _check_partition(args, cbits=None):
     """The partition alone against the twin: records bit-equal in the used
     lanes of every row the new layout covers, every other word as the
     buffer held it; each slot's children's map holds the rows the twin's
-    smaller-child histogram counts."""
+    smaller-child histogram counts. ``cbits``: the round's bitset table."""
     rec, r1, r2, bl, br, meta, wsel, hs, k = args[:9]
     bits, w_used = args[12], args[13]
     out = torch.full_like(rec, -1)
-    nslot, ncnt = A._move_partition_cuda(rec, r1, r2, bl, br, meta, wsel,
-                                         hs, k, bits, w_used, out)
-    ref_a, ref_hist = A.move_pass_plain(*args, out=torch.full_like(rec, -1))
-    ref_b, _ = A.move_pass_plain(*args, out=torch.full_like(rec, -2))
+    nslot, ncnt = A._move_partition_cuda(
+        rec, r1, r2, bl, br, meta, wsel, hs, k, bits, w_used, out,
+        0 if cbits is None else cbits.data_ptr())
+    ref_a, ref_hist = A.move_pass_plain(*args, out=torch.full_like(rec, -1),
+                                        cbits=cbits)
+    ref_b, _ = A.move_pass_plain(*args, out=torch.full_like(rec, -2),
+                                 cbits=cbits)
     torch.cuda.synchronize()
     cov = ref_a[:, 0] == ref_b[:, 0]
     for u in range(w_used):
@@ -790,6 +794,212 @@ def test_partition_lane_groups_on_gpu(cuda, monkeypatch):
         monkeypatch.setattr(A, "move_smem", real)
         for a, b in zip(want, got):
             assert torch.equal(a, b)
+
+
+def _cat_data(n, seed):
+    """Three categorical columns (200, 7 and 40 codes, effects random in
+    the code) beside seven numerical ones: at 255 bins the bitsets reach
+    every word."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, 10))
+    codes = [200, 7, 40]
+    for j, nc in enumerate(codes):
+        X[:, j] = rng.integers(0, nc, n)
+    m = sum(rng.standard_normal(nc)[X[:, j].astype(int)]
+            for j, nc in enumerate(codes)) + X[:, 3]
+    y = (m + rng.standard_normal(n) > 0).astype(np.float64)
+    return X, y
+
+
+def _cat_count_inputs(nc, chunk, num_slots, seed, cuda, bits):
+    """`_count_inputs` with about two in five chunks categorical (the
+    R_CAT bit of the route word; copy chunks among them) and a random
+    bitset table of num_slots + 1 rows, every word of it set at random."""
+    args = _count_inputs(nc, chunk, num_slots, seed, cuda, bits=bits)
+    rng = np.random.default_rng(seed + 1)
+    cat = torch.tensor((rng.random(nc) < 0.4).astype(np.int32) << A.R_CAT,
+                       device=cuda)
+    cbits = torch.tensor(rng.integers(-2**31, 2**31 - 1, (num_slots + 1) * 8,
+                                      dtype=np.int64).astype(np.int32),
+                         device=cuda)
+    return (args[0], args[1] | cat, *args[2:]), cbits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 6, 8])
+@pytest.mark.parametrize("chunk", [256, 1024, 250])
+def test_count_pass_cat_matches_twin_on_gpu(cuda, chunk, bits):
+    """B3 routes categorical chunks by their row of the bitset table (the
+    chunk's 8 words shuffled from lanes 0-7), numerical and copy chunks
+    as before, bit-equal to its twin, at 4-, 6- and 8-bit bins and with
+    16-byte and word loads; one kernel a call, nothing else."""
+    args, cbits = _cat_count_inputs(900, chunk, 200, chunk + bits, cuda,
+                                    bits)
+    A.reset_launches()
+    got = A.count_pass(*args, cbits=cbits)
+    ref = A.count_pass_plain(*args, cbits=cbits)
+    assert A.LAUNCHES["count_pass"] == A.LAUNCHES["count_pass_cat"] == 1
+    assert torch.equal(got, ref)
+    assert not torch.equal(ref, A.count_pass_plain(*args))
+    assert torch.equal(A.count_pass(*args), A.count_pass_plain(*args))
+    assert graph_launches(lambda: A.count_pass(*args, cbits=cbits)) == {
+        "kernels": 1, "memsets": 0, "other": 0}
+
+
+def _cat_partition_calls(monkeypatch, layout):
+    """The B2 calls (args, round's bitset table) of two aligned trees on
+    the card, on categorical data at 255 bins: COMPACT records, or
+    STANDARD under tpu_force_big_n."""
+    X, y = _cat_data(60000, 12)
+    calls = []
+
+    def recorder(fn):
+        def wrapped(*args, **kw):
+            calls.append((tuple(a.clone() if torch.is_tensor(a) else a
+                                for a in args), kw["cbits"].clone()))
+            return fn(*args, **kw)
+        return wrapped
+
+    monkeypatch.setattr(AB, "move_pass", recorder(AB.move_pass))
+    bst = tlgb.train({"objective": "binary", "num_leaves": 31,
+                      "max_bin": 255, "verbosity": -1,
+                      "categorical_feature": "0,1,2",
+                      "tpu_force_big_n": layout == "standard"},
+                     tlgb.Dataset(X, label=y), num_boost_round=2,
+                     verbose_eval=False)
+    assert bst._gbdt.train_path == "aligned"
+    assert bst._gbdt._aligned_eng.compact == (layout == "compact")
+    assert sum(t.num_cat for t in bst.trees) > 0
+    return calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["compact", "standard"])
+def test_partition_cat_matches_twin_on_gpu(cuda, monkeypatch, layout):
+    """B2's partition routes categorical chunks by their split's row of the
+    bitset table (8 words in shared memory): bit-equal to the twin on
+    every move of two categorical trees, COMPACT and STANDARD; one memset
+    and one kernel a call."""
+    calls = _cat_partition_calls(monkeypatch, layout)
+    assert any(bool(((args[1] >> A.R_CAT) & 1).any()) for args, _ in calls)
+    for args, cbits in calls:
+        _check_partition(args, cbits)
+    args, cbits = calls[-1]
+    rec, r1, r2, bl, br, meta, wsel, hs, k = args[:9]
+    out = torch.empty_like(rec)
+    assert graph_launches(lambda: A._move_partition_cuda(
+        rec, r1, r2, bl, br, meta, wsel, hs, k, args[12], args[13], out,
+        cbits.data_ptr())) == {"kernels": 1, "memsets": 1, "other": 0}
+
+
+def _cat_move_inputs(seed, chunk, cuda, nblocks=60):
+    """Hand-built move inputs over random 8-bit bin words: blocks of 1 to
+    4 chunks (the last one partial), each categorical (the R_CAT bit; its
+    row of a random bitset table whose 8 words all hold bits),
+    numerical (every missing type, either default side) or unsplit
+    (copy), the smaller side random; the new layout from the twin's own
+    left counts of each block, so that every destination is the one the
+    engine would give."""
+    rng = np.random.default_rng(seed)
+    W, wcnt, bits = 8, 4, 8
+    sizes = rng.integers(1, 5, nblocks)
+    n_in = int(sizes.sum())
+    nc = n_in + 2 * nblocks + 2
+    rec = rng.integers(-2**31, 2**31 - 1, (nc, W, chunk),
+                       dtype=np.int64).astype(np.int32)
+    r1 = np.full(nc, 1 << A.R_COPY, np.int64)
+    r2 = np.zeros(nc, np.int64)
+    meta = np.zeros(nc, np.int64)
+    wsel = np.zeros(nc, np.int64)
+    hs = np.full(nc, nblocks, np.int64)
+    kind = rng.integers(0, 3, nblocks)      # numerical, categorical, copy
+    blocks, c = [], 0
+    for b, (size, kd) in enumerate(zip(sizes, kind)):
+        cnt = np.full(size, chunk)
+        cnt[-1] = rng.integers(1, chunk + 1)
+        word = (int(rng.integers(0, 256)) | (8 * int(rng.integers(0, 4))
+                                             << A.R_SHIFT)
+                | int(rng.integers(0, 2)) << A.R_DL
+                | int(rng.integers(0, 3)) << A.R_MT)
+        word |= {1: 1 << A.R_CAT, 2: 1 << A.R_COPY}.get(int(kd), 0)
+        for i in range(size):
+            r1[c + i] = word
+            meta[c + i] = (cnt[i] | (i == 0) << A.META_FIRST
+                           | (i == size - 1) << A.META_LAST)
+        r2[c:c + size] = A.pack_route2(int(rng.integers(0, 256)),
+                                       int(rng.integers(2, 257)))
+        wsel[c:c + size] = rng.integers(0, wcnt)
+        if kd != 2:
+            hs[c:c + size] = b | int(rng.integers(0, 2)) << 24
+        blocks.append((c, size, kd))
+        c += size
+    cbits = torch.tensor(rng.integers(-2**31, 2**31 - 1, (nblocks + 1) * 8,
+                                      dtype=np.int64).astype(np.int32))
+    t = {k: torch.tensor(v.astype(np.int32)) for k, v in dict(
+        r1=r1, r2=r2, meta=meta, wsel=wsel, hs=hs).items()}
+    rec_t = torch.tensor(rec)
+    binv = A._split_bins(rec_t, t["r1"], t["wsel"], bits)
+    valid = A._valid_rows(t["meta"], chunk)
+    left = A.goes_left(binv, t["r1"][:, None], t["r2"][:, None], valid,
+                       A._cat_words(cbits, t["hs"] & 0xFFFFFF, binv))
+    lcnt = left.sum(1).numpy()
+    basel = np.zeros(nc, np.int64)
+    baser = np.zeros(nc, np.int64)
+    nxt = 0
+    for c, size, kd in blocks:
+        if kd == 2:
+            basel[c:c + size] = nxt + np.arange(size)
+            nxt += size
+            continue
+        nl = int(lcnt[c:c + size].sum())
+        nv = int((meta[c:c + size] & A.META_CNT_MASK).sum())
+        basel[c:c + size] = nxt
+        nxt += -(-nl // chunk)
+        baser[c:c + size] = nxt
+        nxt += -(-(nv - nl) // chunk)
+    assert nxt <= nc
+    dev = [torch.tensor(a.astype(np.int32), device=cuda)
+           for a in (r1, r2, basel, baser, meta, wsel, hs)]
+    args = (torch.tensor(rec, device=cuda), *dev, nblocks, 4 * wcnt,
+            1 << bits, wcnt, bits, W, None)
+    return args, cbits.to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [256, 1024])
+def test_partition_cat_random_on_gpu(cuda, chunk):
+    """B2's partition on hand-built blocks of random words with random
+    bitsets that use all 8 words, categorical, numerical and copy chunks
+    mixed: bit-equal to the twin, the children's map as the twin's."""
+    for seed in range(3):
+        args, cbits = _cat_move_inputs(seed, chunk, cuda)
+        assert bool(((args[1] >> A.R_CAT) & 1).any())
+        _check_partition(args, cbits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["leafwise", "level"])
+def test_f64_categorical_training_on_gpu_equals_cpu(cuda, mode):
+    """tpu_use_f64_hist with categorical features: the trees grown on the
+    card (the categorical scan in torch ops on the card, the bitset
+    routing of the leaf-wise partition and of the level builder) are the
+    CPU's."""
+    X, y = _cat_data(4000, 2)
+    texts = {}
+    for dev in ("cuda", "cpu"):
+        bst = tlgb.train({"objective": "binary", "num_leaves": 15,
+                          "max_bin": 255, "tpu_use_f64_hist": True,
+                          "tpu_grow_mode": mode, "verbosity": -1,
+                          "categorical_feature": "0,1,2",
+                          "cat_smooth": 1.0, "min_data_per_group": 10,
+                          "device_type": dev},
+                         tlgb.Dataset(X, label=y), num_boost_round=3,
+                         verbose_eval=False)
+        assert bst._gbdt.train_path == mode
+        assert sum(t.num_cat for t in bst.trees) > 0
+        t = bst.model_to_string()
+        texts[dev] = t[t.index("Tree=0"):t.index("end of trees")]
+    assert texts["cuda"] == texts["cpu"]
 
 
 @pytest.mark.cuda

@@ -380,16 +380,17 @@ def _real_splits(tree, floor=1e-3):
                       gain[keep].tolist()))
 
 
-# the JAX package's tests/test_level.py::test_level_matches_leafwise cases
-# the port supports (categorical waits for ROADMAP A.1), on that test's
-# data at 10,000 rows
+# the JAX package's tests/test_level.py::test_level_matches_leafwise cases,
+# on that test's data at 10,000 rows
 @pytest.mark.parametrize("extra", [
     {},                                             # budget-bound
     {"num_leaves": 255, "min_data_in_leaf": 50},    # unconstrained
     {"num_leaves": 7, "min_data_in_leaf": 5},       # tiny budget
+    {"categorical_feature": "3"},                   # categorical splits
     {"monotone_constraints": "1,0,0,0,0,0,0,0,0,0"},
     {"max_depth": 4},
-], ids=["budget", "255_leaves", "tiny", "monotone", "max_depth"])
+], ids=["budget", "255_leaves", "tiny", "categorical", "monotone",
+        "max_depth"])
 def test_level_matches_leafwise(extra):
     """f64 mode, 31 leaves unless the case says otherwise: the level
     run's model text equals the leaf-wise run's, and its training score
@@ -491,8 +492,9 @@ def test_lambdarank_level_matches_leafwise():
 
 
 def test_gate_and_log():
-    """The log names the level path; a categorical feature raises, naming
-    ROADMAP A.1."""
+    """The log names the level path; a categorical feature (which used to
+    raise) trains on the level builder too, with categorical nodes, and
+    the run's training score is its model's prediction."""
     X, y = _data(1000)
     lines = []
     log.register_callback(lines.append)
@@ -503,5 +505,12 @@ def test_gate_and_log():
     assert any("training path: level" in ln for ln in lines)
     Xc = np.nan_to_num(X)
     Xc[:, 3] = np.arange(len(Xc)) % 6
-    with pytest.raises(NotImplementedError, match="A.1"):
-        _port(Xc, y, rounds=1, categorical_feature="3")
+    y = (np.isin(Xc[:, 3], [1, 4]) ^ (Xc[:, 0] > 0.5)).astype(np.float64)
+    bst = _port(Xc, y, rounds=2, categorical_feature="3",
+                max_cat_to_onehot=1, cat_smooth=1.0, min_data_per_group=5)
+    g = bst._gbdt
+    assert g.train_path == "level" and len(g.level_stats) == 2
+    assert any(t.num_cat > 0 for t in bst.trees)
+    np.testing.assert_allclose(g.train_score.score[0].numpy(),
+                               bst.predict(Xc, raw_score=True), rtol=1e-5,
+                               atol=1e-6)

@@ -96,12 +96,55 @@ def test_split_finder_batches_leaves():
 
 
 def test_categorical_raises():
+    """A categorical feature yields a categorical split (the finder used
+    to raise here): its winner is flagged ``is_cat``, goes left by a
+    bitset of the bins it chose (one bin on the one-hot path), never by
+    default, and is the JAX finder's."""
     meta = _meta()
     meta["bin_type"] = meta["bin_type"].copy()
     meta["bin_type"][3] = 1
-    cfg = Config.from_params({"device_type": "cpu"})
-    with pytest.raises(NotImplementedError, match="categorical"):
-        tsplit.make_split_finder(tsplit.SplitHyper.from_config(cfg), meta, B)
+    meta["num_bin"] = meta["num_bin"].copy()
+    meta["num_bin"][4] = 3
+    meta["bin_type"][4] = 1
+    cfg = Config.from_params({"device_type": "cpu", "cat_smooth": 1.0,
+                              "min_data_per_group": 5})
+    # rows whose gradient follows the categorical bins (alternate bins of
+    # feature 3 push left and right, bin 1 of feature 4 apart)
+    rng = np.random.RandomState(7)
+    rows = 3000
+    binm = np.stack([rng.randint(0, nb - 1, rows)
+                     for nb in meta["num_bin"]], 1)
+    g = (np.where(binm[:, 3] % 2 == 0, 0.4, -0.4)
+         + np.where(binm[:, 4] == 1, 0.3, -0.1)
+         + 0.1 * rng.standard_normal(rows)).astype(np.float32)
+    h = rng.uniform(0.1, 0.25, rows).astype(np.float32)
+    hist = np.zeros((F, B, 3), np.float32)
+    for f in range(F):
+        for j, v in enumerate((g, h, np.ones(rows, np.float32))):
+            np.add.at(hist[f, :, j], binm[:, f], v)
+    sg, sh = hist[0, :, 0].sum(), hist[0, :, 1].sum()
+    n = rows
+    tf = tsplit.make_split_finder(tsplit.SplitHyper.from_config(cfg), meta, B)
+    to = tf(torch.tensor(hist)[None], torch.tensor([sg]), torch.tensor([sh]),
+            torch.tensor([n]), torch.tensor([-np.inf]),
+            torch.tensor([np.inf]))
+    jf = jsplit.make_split_finder(jsplit.SplitHyper.from_config(cfg), meta, B)
+    jo = jf(jnp.asarray(hist), jnp.float32(sg), jnp.float32(sh),
+            jnp.int32(n), jnp.float32(-np.inf), jnp.float32(np.inf))
+    assert to["is_cat"][0].tolist() == [f in (3, 4) for f in range(F)]
+    for f in (3, 4):
+        assert np.isfinite(float(to["gain"][0, f]))
+        assert not bool(to["default_left"][0, f])
+        words = to["cat_bitset"][0, f].numpy()
+        left = [b for b in range(256) if (words[b // 32] >> (b % 32)) & 1]
+        assert left and int(to["left_c"][0, f]) == int(hist[f, left, 2].sum())
+    assert int(to["cat_bitset"][0, 4].numpy().astype(bool).sum()) == 1
+    for key in ("gain", "threshold", "left_c", "left_g", "left_output",
+                "right_output", "is_cat"):
+        np.testing.assert_array_equal(to[key][0].numpy(),
+                                      np.asarray(jo[key]), err_msg=key)
+    np.testing.assert_array_equal(to["cat_bitset"][0].numpy(),
+                                  np.asarray(jo["cat_bitset"], np.int64))
 
 
 @pytest.mark.parametrize("missing_type,default_left", [
