@@ -34,6 +34,14 @@ lambdarank gradient (kernel B6, ``rank.cu``) and the prototype move (P2,
         (``tpu_grow_mode=leafwise``, HIGGS shape, 63 and 255 bins): median
         iteration ms, holdout AUC, and one profiled round's wall, busy and
         B1 device ms and launches;
+    python3 chip_ab.py hist --baseline DIR --bag
+        the slot histogram (B4 and B2's smaller children,
+        ``aligned.cu::slot_hist_kernel``) of the checkout at DIR, the
+        design before the bag branch, against this checkout's unbagged
+        route on the same records, and this checkout's bag branch on
+        them: the root pass and the widest round's children of one
+        bagged tree at the HIGGS shape (COMPACT at 63 and 255 bins,
+        STANDARD at 63), each checked against the plain twin;
     python3 chip_ab.py words --baseline DIR
         B5 of the checkout at DIR, an earlier design whose C entry point
         takes (segment prefix, features per block, blocks, threads,
@@ -102,7 +110,9 @@ lambdarank gradient (kernel B6, ``rank.cu``) and the prototype move (P2,
         ``--cat``: alone only, at HIGGS 63 and at the airline shape (255
         bins), the launch alone with a warm and a cold L2, where A and B
         take the round with its categorical bits cleared and B also the
-        round as it is;
+        round as it is. ``--compact``: alone only, on the COMPACT records
+        of one bagged tree under ``auto`` (HIGGS, 63 and 255 bins), the
+        launch alone warm and cold and the wrapper;
     python3 chip_ab.py proto-move-sweep
         where P2's time goes at the harness's size: this checkout's
         kernel (B) against builds with streaming stores, without the
@@ -981,14 +991,16 @@ def proto_ring(torch, CS, P, baseline: str) -> dict:
     return res
 
 
-def baseline_count(torch, A, lib):
+def baseline_count(torch, A, lib, with_cbits: bool = False):
     """(launch alone, wrapper) of B3 for the entry point of its
-    one-launch design before the categorical route (no bitset table): the
-    same launch shape and a scratch of its own, zero before and after
+    one-launch design before the categorical route (no bitset table), or
+    with ``with_cbits`` of a design that takes one (a null table here):
+    the same launch shape and a scratch of its own, zero before and after
     each call; the wrapper's output from ``torch.empty``."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.lgbt_count_pass.argtypes = [p, ctypes.c_longlong, i, i, p, p, p, p,
-                                    p, i, i, i, i, p, p, p, p]
+                                    p] + [p] * with_cbits + [i, i, i, i, p,
+                                                             p, p, p]
     lib.lgbt_count_pass.restype = i
     lib.lgbt_count_occupancy.argtypes = [i]
     lib.lgbt_count_occupancy.restype = i
@@ -1016,10 +1028,11 @@ def baseline_count(torch, A, lib):
             1 << 30)
         sc = scratch["buf"]
         vec = int(C % 4 == 0 and records.data_ptr() % 16 == 0)
+        table = [None] * with_cbits
         with torch.cuda.device(dev):
             err = lib.lgbt_count_pass(
                 records.data_ptr(), nc, W, C, r1.data_ptr(), r2.data_ptr(),
-                meta.data_ptr(), wsel.data_ptr(), kslots.data_ptr(),
+                meta.data_ptr(), wsel.data_ptr(), kslots.data_ptr(), *table,
                 num_slots, bits, vec, grid, sc.data_ptr(),
                 sc.data_ptr() + 4 * (sc.numel() - 1), out.data_ptr(),
                 A._stream(dev))
@@ -1104,7 +1117,8 @@ def count_cat(torch, CS, lt, A, impl) -> dict:
     return res
 
 
-def count(torch, CS, lt, A, baseline: str, cat: bool = False) -> dict:
+def count(torch, CS, lt, A, baseline: str, cat: bool = False,
+          compact: bool = False) -> dict:
     """B3 of the checkout at DIR (A) against this checkout's (B): alone on
     the count pass of the widest round of one big-n tree
     (``tpu_force_big_n``, STANDARD records, HIGGS shape at 63 bins),
@@ -1119,10 +1133,13 @@ def count(torch, CS, lt, A, baseline: str, cat: bool = False) -> dict:
     src = os.path.join(baseline, "lightgbm_tpu_torch", "ops", "csrc",
                        "aligned.cu")
     impl = {"A": baseline_count(torch, A, nvcc_lib(
-                src, "baseline_count", os.path.dirname(src))),
+                src, "baseline_count", os.path.dirname(src)),
+                with_cbits=compact),
             "B": (A._count_cuda, A.count_pass)}
     if cat:
         return count_cat(torch, CS, lt, A, impl)
+    if compact:
+        return count_compact(torch, CS, lt, A, impl)
     n, f = 10_500_000, 28
     X, y = CS.synth_higgs(n + 500_000, f)
     params = {"objective": "binary", "num_leaves": 255, "max_bin": 63,
@@ -1177,6 +1194,153 @@ def count(torch, CS, lt, A, baseline: str, cat: bool = False) -> dict:
             "count_calls": prof["count_calls"]})
         CS.log(f"count big-n {which}: {res[f'big-n {which}'][-1]}")
         del bst
+    return res
+
+
+def baseline_slot_hist_nobag(torch, A, lib):
+    """`_slot_hist_cuda` for the fixed-point design before the bag branch
+    (its C entry point takes no bag_lane): this checkout's launch shape
+    from that build's occupancy query."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.lgbt_slot_hist.argtypes = [p, i, i, i, i, i, i, i, i, i, i, i, i, p,
+                                   p, i, i, f, f, f, p, p, p, p]
+    lib.lgbt_slot_hist.restype = i
+    lib.lgbt_slot_hist_occupancy.argtypes = [i]
+    lib.lgbt_slot_hist_occupancy.restype = i
+    lib.lgbt_aligned_smem_optin.argtypes = [i]
+    ctas = {}
+
+    def run(records, slots, meta, num_slots, num_features, num_bins, wcnt,
+            bits, grad, gh_off, bag_lane=-1):
+        if bag_lane != -1:
+            raise ValueError("the baseline slot histogram has no bag branch")
+        dev = records.device
+        nc, W, C = records.shape
+        ordinal = dev.index if dev.index is not None \
+            else torch.cuda.current_device()
+        optin = lib.lgbt_aligned_smem_optin(ordinal)
+        _, _, smem = A.slot_hist_smem(C, num_features, num_bins, optin)
+        if smem not in ctas:
+            with torch.cuda.device(dev):
+                ctas[smem] = lib.lgbt_slot_hist_occupancy(smem)
+        tile_chunks, fpb, smem, grid_x, _ = A.slot_hist_launch_shape(
+            nc, C, num_features, num_bins, ctas[smem],
+            torch.cuda.get_device_properties(ordinal).multi_processor_count,
+            optin)
+        cells = (num_slots, num_features, num_bins)
+        out = torch.empty(cells + (3,), dtype=torch.float32, device=dev)
+        gh = torch.zeros(cells + (2,), dtype=torch.float64, device=dev)
+        cnt = torch.zeros(cells, dtype=torch.int32, device=dev)
+        kind, sig, wp, wn = A._grad_args(grad)
+        with torch.cuda.device(dev):
+            err = lib.lgbt_slot_hist(
+                records.data_ptr(), nc, W, C, wcnt, gh_off, bits,
+                num_features, num_bins, fpb, tile_chunks, grid_x, smem,
+                slots.data_ptr(), meta.data_ptr(), num_slots, kind, sig, wp,
+                wn, gh.data_ptr(), cnt.data_ptr(), out.data_ptr(),
+                A._stream(dev))
+        A._raise_on(err, "baseline slot_hist")
+        return out
+    return run
+
+
+def hist_bag(torch, CS, lt, A, baseline: str) -> dict:
+    """`hist --bag`: the slot histogram (B4, and B2's smaller-child
+    histograms) of the checkout at DIR, the design before the bag branch
+    (A), against this checkout's unbagged route (B) on the same records,
+    A, B, B, A, and this checkout's bag branch on them: the root pass and
+    the widest round's children of one bagged tree at the HIGGS shape
+    (COMPACT at 63 and 255 bins, bag bit 31; STANDARD at 63, the f32
+    lane), each checked against the plain twin of its route."""
+    src = os.path.join(baseline, "lightgbm_tpu_torch", "ops", "csrc",
+                       "aligned.cu")
+    impl = {"A": baseline_slot_hist_nobag(torch, A, nvcc_lib(
+                src, "baseline_nobag", os.path.dirname(src))),
+            "B": A._slot_hist_cuda}
+    n = 10_500_000
+    X, y = CS.synth_higgs(n, 28)
+    res = {}
+    for max_bin, layout in ((63, "compact"), (63, "standard"),
+                            (255, "compact")):
+        params = {"objective": "binary", "num_leaves": 255,
+                  "max_bin": max_bin, "learning_rate": 0.1,
+                  "min_data_in_leaf": 20, "feature_fraction": 1.0,
+                  "verbosity": -1, **CS.BAG,
+                  "tpu_force_big_n": layout == "standard"}
+        ds = lt.Dataset(X, label=y, params=params,
+                        free_raw_data=False).construct()
+        calls = CS.capture_kernel_calls(torch, lt, ds, params)
+        del ds
+        gh, bl = calls["gh_off"], calls["bag_lane"]
+        root = calls["slot_hist_pass"]
+        move = calls["move_wide"]
+        buf = torch.empty_like(move[0])
+        nslot, ncnt = A._move_partition_cuda(
+            *move[:9], move[12], move[13], buf)
+        rec, _, _, k, F, B, wcnt, bits, grad = root
+        cases = {"root": (rec, *root[1:]),
+                 "children": (buf, nslot, ncnt, move[8], F, B, wcnt, bits,
+                              grad)}
+        for case, args in cases.items():
+            ref = A.slot_hist_pass_plain(*args, gh_off=gh)
+            ref_bag = A.slot_hist_pass_plain(*args, gh_off=gh, bag_lane=bl)
+            scale = CS.slot_abs_sums(torch, A, args[0], args[1], args[2],
+                                     args[3], wcnt, grad, gh)
+            what = f"{case} {max_bin} {layout}"
+            for which in ORDER:
+                fn = impl[which]
+                CS.check_hist(torch, fn(*args, gh), ref, scale,
+                              f"chip_ab hist {which} unbagged, {what}")
+                r = {"unbagged_ms": CS.cuda_ms(
+                    torch, lambda a=args, f=fn: f(*a, gh))}
+                if which == "B":
+                    CS.check_hist(torch, fn(*args, gh, bl), ref_bag, scale,
+                                  f"chip_ab hist B bagged, {what}")
+                    r["bagged_ms"] = CS.cuda_ms(
+                        torch, lambda a=args, f=fn: f(*a, gh, bl))
+                res.setdefault(f"{what} {which}", []).append(r)
+                CS.log(f"hist {what} {which}: {r}")
+            del ref, ref_bag
+        del calls, buf, nslot, ncnt, cases
+        torch.cuda.empty_cache()
+    return res
+
+
+def count_compact(torch, CS, lt, A, impl) -> dict:
+    """`count --compact`: B3 of the checkout at DIR (A, whose entry point
+    takes the bitset table, passed none) against this checkout's (B), A,
+    B, B, A, on COMPACT records, as bagging runs it: the count pass of the widest round of one bagged tree under
+    ``auto`` at the HIGGS shape (63 and 255 bins), equal to the twin; the
+    launch alone with a warm and a cold L2, and the wrapper."""
+    X, y = CS.synth_higgs(10_500_000, 28)
+    res = {}
+    for max_bin in (63, 255):
+        params = {"objective": "binary", "num_leaves": 255,
+                  "max_bin": max_bin, "learning_rate": 0.1,
+                  "min_data_in_leaf": 20, "feature_fraction": 1.0,
+                  "verbosity": -1, **CS.BAG}
+        ds = lt.Dataset(X, label=y, params=params,
+                        free_raw_data=False).construct()
+        calls = CS.capture_kernel_calls(torch, lt, ds, params)
+        args = calls["count_wide"]
+        del calls, ds
+        ref = A.count_pass_plain(*args)
+        for which in ORDER:
+            launch, wrapper = impl[which]
+            if not torch.equal(wrapper(*args), ref):
+                raise AssertionError(f"chip_ab count {which} differs from "
+                                     f"the twin, COMPACT {max_bin}")
+            out = torch.empty(args[6], dtype=torch.int32, device=CS.DEVICE)
+            r = {"launch_ms": CS.cuda_ms(torch, lambda: launch(*args, out),
+                                         reps=20),
+                 "cold_ms": CS.cold_ms(torch, lambda: launch(*args, out)),
+                 "wrapper_ms": CS.cuda_ms(torch, lambda: wrapper(*args),
+                                          reps=20),
+                 "W": args[0].shape[1], "bits": args[7]}
+            res.setdefault(f"compact {max_bin} {which}", []).append(r)
+            CS.log(f"count compact {max_bin} {which}: {r}")
+        del args, ref
+        torch.cuda.empty_cache()
     return res
 
 
@@ -1681,6 +1845,11 @@ def main() -> int:
     ap.add_argument("--cat", action="store_true", help="move, count: the "
                     "kernel alone on numerical (HIGGS) and categorical "
                     "(airline) rounds")
+    ap.add_argument("--bag", action="store_true", help="hist: the slot "
+                    "histogram's unbagged route against DIR's and its bag "
+                    "branch, on the records of a bagged tree")
+    ap.add_argument("--compact", action="store_true", help="count: B3 on "
+                    "the COMPACT records of a bagged tree")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1707,7 +1876,10 @@ def main() -> int:
             res = (proto_move if args.what == "proto-move" else proto_ring)(
                 torch, CS, P, args.baseline)
         elif args.what == "count":
-            res = count(torch, CS, lt, A, args.baseline, args.cat)
+            res = count(torch, CS, lt, A, args.baseline, args.cat,
+                        args.compact)
+        elif args.what == "hist" and args.bag:
+            res = hist_bag(torch, CS, lt, A, args.baseline)
         elif args.what == "move":
             res = move(torch, CS, lt, A, args.baseline, args.cat)
         elif args.what == "rank":

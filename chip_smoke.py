@@ -171,7 +171,34 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    children's histograms within 1e-5 x sum |g|; B2's partition alone and
    B3's launch alone (warm and cold L2) and wrapper timed beside the
    twin and the byte bound, one memset and one kernel (B2) and one
-   kernel (B3) a call from a captured CUDA graph.
+   kernel (B3) a call from a captured CUDA graph;
+16. bagging and the boosting variants on phase 4's data (HIGGS 10.5M x
+   28, 500k holdout, 255 leaves, max_bin 63), every run with the kernel
+   counts zeroed just before and read just after, its card predictions
+   against a CPU predict of its model text, holdout AUC above 0.6: (a)
+   ``auto`` with ``bagging_fraction`` 0.8, ``bagging_freq`` 1, 10 rounds,
+   which must take the aligned engine (COMPACT, the bag in meta bit 31,
+   B3 driving the layout) and say so; rounds, executed splits and
+   fallbacks per tree, B3 launches per tree, the median iteration; one
+   profiled round (busy share, launches, syncs), the host's bag draw and
+   `set_bag` timed; AUC at 5 rounds within 2e-3 of a leaf-wise bagged run
+   of 5 rounds; (b) balanced bagging (0.6 / 0.8), 5 rounds, aligned; (c)
+   ``tpu_force_big_n`` with bagging, 3 rounds (STANDARD, the f32 bag
+   lane); (d) GOSS, 12 rounds at ``learning_rate`` 0.1 (iterations 10-11
+   sample), (e) DART, 10 rounds, (f) RF (``bagging_fraction`` 0.632), 5
+   rounds, each on the leaf-wise path, RF's model text with
+   ``average_output``; at max_bin 255 a bagged ``auto`` run of 3 rounds.
+   Then the bag branch of B4 (the root) and of B2's smaller-child
+   histograms (the widest round) against their twins on one bagged tree,
+   COMPACT at 63 and 255 bins, STANDARD at 63, and EXT (a bagged
+   lambdarank tree at the MSLR shape, after phase 11): counts equal, g/h
+   within 1e-5 x the slot's in-bag sum of |g| (|h|); B4 again over three
+   slots with one slot's rows all out of the bag and, on lane payloads,
+   NaN and Inf in out-of-bag rows (skipped, as by the twin); each timed
+   beside the unbagged route on the same records, the twin, the byte
+   bound and one ``index_add_`` over the in-bag rows; B3 on COMPACT
+   records (63 and 255 bins) against its twin, its launch alone (warm and
+   cold L2) and wrapper timed.
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -372,19 +399,23 @@ def sass_atomics(library: str, kernel: str, whole: bool) -> dict:
         library)], capture_output=True, text=True, check=True).stdout
     funcs = re.split(r"\n\s*Function : ", text)
     body = [f for f in funcs[1:] if kernel in f.split()[0]]
-    if len(body) != 1:
-        raise AssertionError(f"sass: {kernel} not found once in the "
-                             f"{library} library")
+    if not body:
+        raise AssertionError(f"sass: {kernel} not found in the {library} "
+                             "library")
     lines = body[0].splitlines()
     if whole:
         log(f"sass of {lines[0].strip()} ({len(lines)} lines):")
         for line in lines:
             log(f"  {line.rstrip()}")
+    # every instantiation of a templated kernel (slot_hist_kernel's three
+    # bag modes) counts
     ops: dict = {}
-    for op in re.findall(r"\b((?:ATOMS|ATOMG|ATOM|RED|REDG)\.[A-Z0-9_.]+)",
-                         body[0]):
-        ops[op] = ops.get(op, 0) + 1
-    log(f"sass {kernel} atomics ({len(lines)} lines): {ops}")
+    for b in body:
+        for op in re.findall(
+                r"\b((?:ATOMS|ATOMG|ATOM|RED|REDG)\.[A-Z0-9_.]+)", b):
+            ops[op] = ops.get(op, 0) + 1
+    log(f"sass {kernel} atomics ({len(body)} instantiation(s), "
+        f"{sum(len(b.splitlines()) for b in body)} lines): {ops}")
     return ops
 
 
@@ -717,6 +748,308 @@ def phase_big_n(torch, lt, ds, params, X, y, rows: int) -> dict:
     return r
 
 
+# ---------------------------------------------------------------------------
+# bagging and the boosting variants
+# ---------------------------------------------------------------------------
+BAG = {"bagging_fraction": 0.8, "bagging_freq": 1}
+
+
+def log_run(what, r) -> None:
+    lp = r["launches_per_tree"]
+    log(f"{what}: first round {r['first_round_s']:.3f} s, median iteration "
+        f"{r['median_iter_ms']:.1f} ms, launches per tree B1 {lp['B1']:.1f} "
+        f"B2 {lp['move_pass']:.1f} (bag {lp['move_pass_bag']:.1f}) B3 "
+        f"{lp['count_pass']:.1f} B4 {lp['slot_hist_pass']:.1f} (bag "
+        f"{lp['slot_hist_pass_bag']:.1f}), holdout AUC {r['auc']:.6f}, "
+        f"predict {r['predict_s']:.3f} s, peak device memory "
+        f"{r['peak_bytes'] / 2**30:.3f} GiB")
+
+
+def bagged_aligned_run(torch, lt, ds, params, rounds, Xte, yte, what,
+                       compact: bool) -> tuple:
+    """A bagged run under ``auto``: it must take the aligned engine with a
+    bag (``compact``: COMPACT's meta bit, else STANDARD's f32 lane), say
+    so in the log, and launch the bag branch of B2 and B4 and the count
+    pass (B3) on every round; rounds, executed splits and fallbacks per
+    tree recorded."""
+    from lightgbm_tpu_torch.utils import log as port_log
+    lines = []
+    port_log.register_callback(lines.append)
+    try:
+        bst, r = train_run(torch, lt, ds, {**params, "verbosity": 1},
+                           rounds, Xte, yte, what)
+    finally:
+        port_log.register_callback(None)
+    g = bst._gbdt
+    eng = g._aligned_eng
+    if not any("training path: aligned" in ln for ln in lines) \
+            or g.train_path != "aligned" or not eng.bagged \
+            or eng.compact != compact \
+            or eng.bag_lane != (-2 if compact else eng.lanes["bag"]):
+        raise AssertionError(f"{what}: took {g.train_path}, not the "
+                             "bagged aligned engine of its layout")
+    la = r["launches"]
+    if not (la["move_pass_bag"] == la["move_pass"] > 0
+            and la["slot_hist_pass_bag"] == la["slot_hist_pass"] > 0
+            and la["count_pass"] > 0):
+        raise AssertionError(f"{what}: launches {la}")
+    stats = g.aligned_stats
+    r["rounds_per_tree"] = [s[0] for s in stats]
+    r["splits_executed_per_tree"] = [s[1] for s in stats]
+    r["fallbacks"] = eng.fallbacks
+    r["bag_cnt"] = int(g.bag_data_cnt)
+    log_run(what, r)
+    log(f"  {what}: rounds per tree {r['rounds_per_tree']}, executed "
+        f"splits {r['splits_executed_per_tree']}, fallbacks "
+        f"{r['fallbacks']}, B3 launches per tree "
+        f"{r['launches_per_tree']['count_pass']:.1f}, in-bag rows "
+        f"{r['bag_cnt']}")
+    return bst, r
+
+
+def phase_bagging(torch, lt, ds, params, X, y, rows: int) -> dict:
+    """Phase 16's runs (a)-(f) on phase 4's data at max_bin 63."""
+    Xte, yte = X[rows:], y[rows:]
+    t_phase = time.perf_counter()
+    res = {}
+    # (a) plain bagging under auto: the aligned engine, COMPACT
+    bst, a = bagged_aligned_run(torch, lt, ds, {**params, **BAG}, 10, Xte,
+                                yte, "bagged auto (a)", compact=True)
+    a["auc_at_5"] = holdout_auc(lt, bst.predict(Xte, raw_score=True,
+                                                num_iteration=5), yte)
+    g = bst._gbdt
+    eng = g._aligned_eng
+    a["profile"] = profile_round(torch, bst)
+    # the bag of one iteration: the host's numpy draw alone, then all of
+    # `_bagging` (the draw, the mask and the sorted row ids on the card)
+    t0 = time.perf_counter()
+    np.random.RandomState(0).choice(rows, int(0.8 * rows), replace=False)
+    a["host_choice_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g._bagging(0)
+    torch.cuda.synchronize()
+    a["bag_draw_s"] = time.perf_counter() - t0
+    a["set_bag_ms"] = cuda_ms(torch, lambda: eng.set_bag(g._bag_mask))
+    del bst, g, eng
+    wb, w = train_run(torch, lt, ds, {**params, **BAG,
+                                      "tpu_grow_mode": "leafwise"}, 5, Xte,
+                      yte, "bagged leaf-wise")
+    if wb._gbdt.train_path != "leafwise":
+        raise AssertionError("the bagged leaf-wise run left its path")
+    del wb
+    log_run("bagged leaf-wise", w)
+    a["auc_leafwise_at_5"] = w["auc"]
+    if abs(a["auc_at_5"] - w["auc"]) > 2e-3:
+        raise AssertionError(f"bagged aligned AUC at 5 rounds "
+                             f"{a['auc_at_5']} is not within 2e-3 of the "
+                             f"bagged leaf-wise {w['auc']}")
+    log(f"  bagged auto (a): AUC at 5 rounds {a['auc_at_5']:.6f} against "
+        f"leaf-wise {w['auc']:.6f} (median {w['median_iter_ms']:.1f} ms); "
+        f"bag of an iteration {a['bag_draw_s']:.3f} s (numpy's choice "
+        f"alone {a['host_choice_s']:.3f} s), set_bag "
+        f"{a['set_bag_ms']:.4f} ms on the card")
+    res["auto"], res["leafwise"] = a, w
+    # (b) balanced bagging; (c) the STANDARD bag lane
+    bst, res["balanced"] = bagged_aligned_run(
+        torch, lt, ds, {**params, "pos_bagging_fraction": 0.6,
+                        "neg_bagging_fraction": 0.8, "bagging_freq": 1}, 5,
+        Xte, yte, "balanced bagged auto (b)", compact=True)
+    del bst
+    bst, res["big_n"] = bagged_aligned_run(
+        torch, lt, ds, {**params, **BAG, "tpu_force_big_n": True}, 3, Xte,
+        yte, "bagged big-n (c)", compact=False)
+    del bst
+    # (d)-(f) the variants, leaf-wise
+    for key, extra, rounds, cls in (
+            ("goss", {"boosting": "goss"}, 12, "GOSS"),
+            ("dart", {"boosting": "dart"}, 10, "DART"),
+            ("rf", {"boosting": "rf", "bagging_fraction": 0.632,
+                    "bagging_freq": 1}, 5, "RF")):
+        bst, r = train_run(torch, lt, ds, {**params, **extra}, rounds, Xte,
+                           yte, key)
+        g = bst._gbdt
+        if type(g).__name__ != cls or g.train_path != "leafwise":
+            raise AssertionError(f"{key}: {type(g).__name__} took "
+                                 f"{g.train_path}")
+        if key == "goss" and g.bag_data_indices is None:
+            raise AssertionError("GOSS never sampled")
+        if key == "rf" and "\naverage_output\n" not in \
+                bst.model_to_string():
+            raise AssertionError("RF's model text lacks average_output")
+        r["bag_cnt"] = int(g.bag_data_cnt)
+        if key == "dart":
+            r["drops_last"] = len(g.drop_index)
+        log_run(f"{key} (leaf-wise)", r)
+        res[key] = r
+        del bst, g
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"bagging phase (63 bins): {res['phase_s']:.1f} s")
+    return res
+
+
+def phase_bag_parity(torch, lt, ds, params, bag_params: dict, max_bin: int,
+                     layout: str) -> dict:
+    """The bag branch of B4 and B2's smaller-child histograms, and on
+    COMPACT records B3, against their twins on one bagged aligned tree
+    (phase 16); each timed beside the unbagged route on the same records,
+    the twin, the byte bound and one ``index_add_``."""
+    from lightgbm_tpu_torch.ops import aligned as A
+    calls = capture_kernel_calls(
+        torch, lt, ds, {**params, **bag_params,
+                        "tpu_force_big_n": layout == "standard"})
+    what = f"bagged, {max_bin} bins, {layout}"
+    gh, bl = calls["gh_off"], calls["bag_lane"]
+    if (bl == -2) != (layout == "compact") or bl == -1:
+        raise AssertionError(f"{what}: the engine passed bag_lane={bl}")
+    res = {}
+    # ---- B4 with its bag: the root pass
+    args = calls["slot_hist_pass"]
+    rec, slots, meta, k, F, B, wcnt, bits, grad = args
+    nc, W, C = rec.shape
+    kw = {"gh_off": gh, "bag_lane": bl}
+    err = check_hist(torch, A.slot_hist_pass(*args, **kw),
+                     A.slot_hist_pass_plain(*args, **kw),
+                     slot_abs_sums(torch, A, rec, slots, meta, k, wcnt, grad,
+                                   gh, bl), f"slot_hist_pass root, {what}")
+    valid = A._valid_rows(meta, C)
+    rows = int(valid.sum())
+    inbag = int((valid & A._in_bag(rec, wcnt, bl)).sum())
+    # three slots, the third's rows all out of the bag, NaN and Inf in
+    # out-of-bag rows of lane payloads: skipped by the kernel and the twin
+    three = (torch.arange(nc, device=DEVICE) * 4 // nc).to(torch.int32)
+    bad = rec.clone()
+    last = (three == 2).nonzero()[:, 0]
+    if bl == -2:
+        bad[last, wcnt + 1] &= 0x7FFFFFFF
+    else:
+        bad[last, bl] = 0
+    if grad is None:
+        oob = valid & ~A._in_bag(bad, wcnt, bl)
+        poisoned = poison_gh(torch, bad, wcnt, gh, meta, every=97)
+        pay = slice(wcnt + gh, wcnt + gh + 2)
+        bad[:, pay] = torch.where(oob[:, None], poisoned[:, pay],
+                                  bad[:, pay])
+        del poisoned
+    got = A.slot_hist_pass(bad, three, meta, 3, F, B, wcnt, bits, grad, **kw)
+    check_hist(torch, got, A.slot_hist_pass_plain(
+        bad, three, meta, 3, F, B, wcnt, bits, grad, **kw),
+        slot_abs_sums(torch, A, bad, three, meta, 3, wcnt, grad, gh, bl),
+        f"slot_hist_pass, three slots, one out of the bag, {what}")
+    if float(got[2, ..., 2].sum()) != 0.0 or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: an out-of-bag row reached a sum")
+    del bad, got
+    r = {"max_abs_err": err, "rows": rows, "in_bag_rows": inbag,
+         "ms": cuda_ms(torch, lambda: A.slot_hist_pass(*args, **kw)),
+         "unbagged_ms": cuda_ms(torch, lambda: A.slot_hist_pass(
+             *args, gh_off=gh)),
+         "plain_ms": cuda_ms(
+             torch, lambda: A.slot_hist_pass_plain(*args, **kw), reps=2),
+         "library_ms": hist_library_ms(torch, A, rec, slots, meta, k, F, B,
+                                       wcnt, bits, grad, gh, bl)}
+    # every valid row's bag word, the in-bag rows' bins and payload (the
+    # COMPACT meta word is both)
+    pay_lanes = 1 if bl == -2 else 2
+    r["bound_ms"], r["bound_by"] = bound(
+        rows * 4 + inbag * (wcnt + pay_lanes) * 4 + nc * 2 * 4
+        + k * F * B * 3 * 4, 3 * F * inbag)
+    res["slot_hist_bag"] = r
+    # ---- B2 with its bag: the widest round's move, its children alone
+    args = calls["move_wide"]
+    err = check_move(torch, A, args, f"move_pass wide, {what}", gh,
+                     bag_lane=bl)
+    rec, meta, k, w_used = args[0], args[5], args[8], args[13]
+    buf = torch.empty_like(rec)
+    part = (*args[:8], k, bits, w_used, buf)
+    nslot, ncnt = A._move_partition_cuda(*part)
+    child = (nslot, ncnt, k, F, B, wcnt, bits, grad)
+    _, ref = A.move_pass_plain(*args, gh_off=gh, bag_lane=bl)
+    err = max(err, check_hist(
+        torch, A._slot_hist_cuda(buf, *child, gh, bl), ref,
+        slot_abs_sums(torch, A, buf, nslot, ncnt, k, wcnt, grad, gh, bl),
+        f"child histograms alone, wide, {what}"))
+    del ref
+    mapped = ncnt > 0
+    crows = int(ncnt[mapped].sum())
+    cvalid = A._valid_rows(ncnt, C) & mapped[:, None]
+    cinbag = int((cvalid & A._in_bag(buf, wcnt, bl)).sum())
+    r = {"max_abs_err": err, "rows": crows, "in_bag_rows": cinbag,
+         "children": int(torch.unique(nslot[mapped]).numel()),
+         "ms": cuda_ms(torch, lambda: A._slot_hist_cuda(buf, *child, gh,
+                                                        bl)),
+         "unbagged_ms": cuda_ms(torch, lambda: A._slot_hist_cuda(
+             buf, *child, gh)),
+         "plain_ms": cuda_ms(torch, lambda: A.slot_hist_pass_plain(
+             buf, *child, gh_off=gh, bag_lane=bl), reps=2),
+         "library_ms": hist_library_ms(torch, A, buf, nslot, ncnt, k, F, B,
+                                       wcnt, bits, grad, gh, bl)}
+    r["bound_ms"], r["bound_by"] = bound(
+        crows * 4 + cinbag * (wcnt + pay_lanes) * 4 + nc * 2 * 4
+        + k * F * B * 3 * 4, 3 * F * cinbag)
+    res["child_hist_bag"] = r
+    del buf, nslot, ncnt, child
+    # ---- B3 on COMPACT records: the widest round's count pass
+    if layout == "compact":
+        args = calls["count_wide"]
+        got, ref = A.count_pass(*args), A.count_pass_plain(*args)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"count_pass differs from its twin, {what}")
+        meta, ks, k = args[3], args[5], args[6]
+        crows = int((meta & 0xFFFFF)[(ks >= 0) & (ks < k)].sum())
+        alone = torch.empty(k, dtype=torch.int32, device=DEVICE)
+        r = {"max_abs_err": 0.0, "rows": crows, "chunks": nc,
+             "ms": cuda_ms(torch, lambda: A._count_cuda(*args, alone),
+                           reps=20),
+             "cold_ms": cold_ms(torch, lambda: A._count_cuda(*args, alone)),
+             "wrapper_ms": cuda_ms(torch, lambda: A.count_pass(*args),
+                                   reps=20),
+             "plain_ms": cuda_ms(torch, lambda: A.count_pass_plain(*args),
+                                 reps=2),
+             "library_ms": None}
+        r["bound_ms"], r["bound_by"] = bound(crows * 4 + nc * 5 * 4 + k * 4,
+                                             crows)
+        res["count_compact"] = r
+    for name, r in res.items():
+        extra = {key: v for key, v in r.items() if key in (
+            "rows", "in_bag_rows", "children", "chunks", "unbagged_ms",
+            "cold_ms", "wrapper_ms")}
+        lib = "none" if r["library_ms"] is None \
+            else f"{r['library_ms']:.4f} ms"
+        log(f"kernel {name} ({what}): kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {lib}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max |d| "
+            f"{r['max_abs_err']:.3e}, {extra}")
+    del calls
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_ext_bag(torch, lt, ds, params) -> dict:
+    """Phase 16 on EXT records: a bagged lambdarank run under ``auto`` at
+    the MSLR shape (2 rounds; the aligned engine with the f32 bag lane),
+    then the bag branch of B4 and B2's children on one bagged tree."""
+    from lightgbm_tpu_torch.ops import aligned as A
+    p = {**params, **BAG, "verbosity": -1}
+    A.reset_launches()
+    bst = lt.train(p, ds, num_boost_round=2, verbose_eval=False)
+    launches = dict(A.LAUNCHES)
+    eng = bst._gbdt._aligned_eng
+    if bst._gbdt.train_path != "aligned" or not eng.ext \
+            or eng.bag_lane != eng.lanes["bag"] \
+            or launches["slot_hist_pass_bag"] == 0 \
+            or launches["move_pass_bag"] == 0:
+        raise AssertionError(f"the bagged MSLR run took "
+                             f"{bst._gbdt.train_path}, launches {launches}")
+    log(f"bagged MSLR auto (EXT, bag lane {eng.bag_lane} of W {eng.W}): "
+        f"launches {launches}")
+    del bst, eng
+    return {"launches": launches,
+            "kernels": phase_bag_parity(torch, lt, ds, params, BAG, 255,
+                                        "ext")}
+
+
 def capture_kernel_calls(torch, lt, ds, params) -> dict:
     """One aligned tree with the engine's kernel calls recorded (clones of
     their inputs): the root's histogram pass, the root's move, and the
@@ -736,6 +1069,7 @@ def capture_kernel_calls(torch, lt, ds, params) -> dict:
     def slot_hist(*args, **kw):
         keep.setdefault("slot_hist_pass", clone(args))
         keep.setdefault("gh_off", kw.get("gh_off", 2))
+        keep.setdefault("bag_lane", kw.get("bag_lane", -1))
         return real["slot_hist_pass"](*args, **kw)
 
     def count(*args, **kw):
@@ -774,11 +1108,14 @@ def capture_kernel_calls(torch, lt, ds, params) -> dict:
 
 
 def slot_abs_sums(torch, A, rec, slot_of_chunk, meta, k, wcnt, grad,
-                  gh_off=2):
-    """[k, 2] sum of |g| and |h| over the valid rows of each slot's chunks
-    (the scale of the histogram tolerance); NaN and Inf add nothing."""
+                  gh_off=2, bag_lane=-1):
+    """[k, 2] sum of |g| and |h| over the valid (in-bag) rows of each
+    slot's chunks (the scale of the histogram tolerance); NaN and Inf add
+    nothing."""
     g, h = A._payload(rec, wcnt, grad, gh_off)
     valid = A._valid_rows(meta, rec.shape[2])
+    if bag_lane != -1:
+        valid = valid & A._in_bag(rec, wcnt, bag_lane)
 
     def fin(x):
         return torch.where(valid & torch.isfinite(x), x.abs(), 0.0)
@@ -864,37 +1201,42 @@ def bound(nbytes: float, ops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_move(torch, A, args, what, gh_off=2, cbits=None) -> float:
+def check_move(torch, A, args, what, gh_off=2, cbits=None,
+               bag_lane=-1) -> float:
     """The move kernel against its twin: records equal on the rows the new
     layout covers (the twin run into two fills marks them) in the used
     lanes; the smaller children's histograms by `check_hist`. ``cbits``:
-    the round's bitset table."""
+    the round's bitset table; ``bag_lane``: the bag mode."""
     rec, meta, hs, k = args[0], args[5], args[7], args[8]
     wcnt, w_used, grad = args[11], args[13], args[14]
-    out, hist = A.move_pass(*args, gh_off=gh_off, cbits=cbits)
+    kw = {"gh_off": gh_off, "cbits": cbits, "bag_lane": bag_lane}
+    out, hist = A.move_pass(*args, **kw)
     ref_a, ref_hist = A.move_pass_plain(*args, out=torch.full_like(rec, -1),
-                                        gh_off=gh_off, cbits=cbits)
+                                        **kw)
     cov = ref_a[:, 0] == A.move_pass_plain(
-        *args, out=torch.full_like(rec, -2), gh_off=gh_off,
-        cbits=cbits)[0][:, 0]
+        *args, out=torch.full_like(rec, -2), **kw)[0][:, 0]
     for u in range(w_used):
         if not torch.equal(out[:, u][cov], ref_a[:, u][cov]):
             raise AssertionError(f"{what}: moved records differ in lane {u}")
     err = check_hist(torch, hist, ref_hist, slot_abs_sums(
-        torch, A, rec, hs & 0xFFFFFF, meta, k, wcnt, grad, gh_off), what)
+        torch, A, rec, hs & 0xFFFFFF, meta, k, wcnt, grad, gh_off,
+        bag_lane), what)
     del out, hist, ref_a, ref_hist, cov
     return err
 
 
 def hist_library_ms(torch, A, rec, slot_of_chunk, meta, k, F, B, wcnt,
-                    bits, grad, gh_off) -> float:
+                    bits, grad, gh_off, bag_lane=-1) -> float:
     """One ``index_add_`` of (g, h, 1) into [k * F * B, 3] f32 over a
-    prebuilt flat index of every (valid row of a slot's chunk, feature):
-    the yardstick of the slot histogram, never called by the port."""
+    prebuilt flat index of every (valid, in-bag row of a slot's chunk,
+    feature): the yardstick of the slot histogram, never called by the
+    port."""
     nc, _, C = rec.shape
     g, h = A._payload(rec, wcnt, grad, gh_off)
     take = A._valid_rows(meta, C) \
         & ((slot_of_chunk >= 0) & (slot_of_chunk < k))[:, None]
+    if bag_lane != -1:
+        take = take & A._in_bag(rec, wcnt, bag_lane)
     sel = take.reshape(-1).nonzero()[:, 0]
     pay = torch.stack([g.reshape(-1)[sel], h.reshape(-1)[sel],
                        torch.ones_like(sel, dtype=torch.float32)], dim=1)
@@ -2507,6 +2849,7 @@ def main() -> int:
     log(f"data: {args.rows}+{args.holdout} x 28 synthetic rows in "
         f"{time.perf_counter() - t0:.3f} s")
     main_r, aligned_r, apar, level_r, lpar = {}, {}, {}, {}, {}
+    bpar = {}
     for max_bin in (63, 255):
         ds, params, main_r[max_bin] = phase_main(torch, lt, X, y, args.rows,
                                                  max_bin)
@@ -2514,6 +2857,16 @@ def main() -> int:
             torch, lt, ds, params, X, y, args.rows, max_bin, main_r[max_bin])
         if max_bin == 63:
             big_n = phase_big_n(torch, lt, ds, params, X, y, args.rows)
+            bagging = phase_bagging(torch, lt, ds, params, X, y, args.rows)
+            bpar[(63, "standard")] = phase_bag_parity(
+                torch, lt, ds, params, BAG, 63, "standard")
+        else:
+            bst, bagging["auto_255"] = bagged_aligned_run(
+                torch, lt, ds, {**params, **BAG}, 3, X[args.rows:],
+                y[args.rows:], "bagged auto 255", compact=True)
+            del bst
+        bpar[(max_bin, "compact")] = phase_bag_parity(
+            torch, lt, ds, params, BAG, max_bin, "compact")
         for layout in ("compact", "standard"):
             apar[(max_bin, layout)] = phase_aligned_parity(
                 torch, lt, ds, params, max_bin, layout,
@@ -2538,6 +2891,8 @@ def main() -> int:
     apar[(255, "ext")] = phase_aligned_parity(torch, lt, mds, mparams, 255,
                                               "ext",
                                               mslr["aligned"]["profile"])
+    ext_bag = phase_ext_bag(torch, lt, mds, mparams)
+    bpar[(255, "ext")] = ext_bag["kernels"]
     del mds, Xm, ym, gm
     gc.collect()
     torch.cuda.empty_cache()
@@ -2656,6 +3011,35 @@ def main() -> int:
                                  "launches_per_call") if k in p},
             "shape": f"{shape}, airline {args.airline_rows}x8, 255 bins, "
                      "categorical"})
+    # the bag branch of B4 and B2's children, B3 on COMPACT records
+    for bins, layout, run, dims in (
+            (63, "compact", bagging["auto"], f"{args.rows}x28"),
+            (255, "compact", bagging["auto_255"], f"{args.rows}x28"),
+            (63, "standard", bagging["big_n"], f"{args.rows}x28"),
+            (255, "ext", ext_bag, f"{args.mslr_rows}x{MSLR_FEATURES}")):
+        tag = f"{bins}bin" if layout == "compact" else f"{layout}_{bins}bin"
+        for name, key, line, launch_key, shape in (
+                (f"slot_hist_pass_bag_{tag}", "slot_hist_bag", 1141,
+                 "slot_hist_pass_bag", "root pass of a bagged tree"),
+                (f"move_pass_child_hist_bag_{tag}", "child_hist_bag", 960,
+                 "move_pass_bag", "smaller children of the widest round "
+                 "of a bagged tree"),
+                (f"count_pass_compact_{bins}bin", "count_compact", 1056,
+                 "count_pass", "count pass of the widest round of a "
+                 "bagged tree")):
+            p = bpar[(bins, layout)].get(key)
+            if p is None:
+                continue
+            kernels.append({
+                "name": name, "route": "cuda", "source": ALIGNED_SOURCE,
+                "replaces": f"lightgbm_tpu/ops/aligned.py:{line}",
+                "launches": run["launches"][launch_key],
+                "max_abs_err": p["max_abs_err"], "ms": p["ms"],
+                "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
+                "bound_by": p["bound_by"], "library_ms": p["library_ms"],
+                **{k: p[k] for k in ("unbagged_ms", "wrapper_ms",
+                                     "cold_ms") if k in p},
+                "shape": f"{shape}, {dims}, {bins} bins, {layout}"})
     plaunch = proto_path["launches"]
     rows = proto_path["aligned"]["rows"]
     proto_entries = (
@@ -2694,7 +3078,9 @@ def main() -> int:
                     "level": {str(k): v for k, v in level_r.items()},
                     "level_kernel": {str(k): v for k, v in lpar.items()},
                     "mslr": mslr, "rank_kernel": rpar,
-                    "airline": airline,
+                    "airline": airline, "bagging": bagging,
+                    "bag_kernels": {f"{b} {lay}": v for (b, lay), v
+                                    in bpar.items()},
                     "proto_path": proto_path, "proto_kernels": ppar,
                     "sass_atomics": sass,
                     "power": info["smi"],

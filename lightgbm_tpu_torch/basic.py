@@ -1,5 +1,5 @@
 """Public Dataset / Booster (port of lightgbm_tpu/basic.py, dense input,
-binary, L2 and lambdarank objectives).
+binary, L2 and lambdarank objectives; gbdt, goss, dart and rf boosting).
 
 `Booster.predict` walks the trees on the run's device (``cuda`` unless
 the params ask for ``device_type=cpu``); `model_to_string` writes the
@@ -14,6 +14,7 @@ import numpy as np
 
 from .config import Config, resolve_device
 from .io.dataset import Dataset as _CoreDataset
+from .models.boosting_variants import create_boosting
 from .models.gbdt import GBDT
 from .models.model_text import (_feature_infos, load_model_from_string,
                                 save_model_to_string)
@@ -133,7 +134,8 @@ class Booster:
             train_set.construct()
             self._cfg = Config.from_params(self.params)
             self.device = resolve_device(self._cfg)
-            self._gbdt = GBDT(self._cfg, train_set._handle, self.device)
+            self._gbdt = create_boosting(self._cfg, train_set._handle,
+                                         self.device)
         else:
             raise LightGBMError(
                 "need at least one of train_set/model_file/model_str")
@@ -216,7 +218,7 @@ class Booster:
             return predict_raw_values(trees, X, leaf_index=True,
                                       device=self.device)
         raw = predict_raw_values(trees, X, device=self.device)
-        if self._loaded is not None and self._loaded.get("average_output"):
+        if self._is_average_output():
             raw = raw / max(1, len(trees) // k)
         if raw_score:
             return raw
@@ -225,6 +227,13 @@ class Booster:
         objective = (self._gbdt.objective if self._gbdt is not None
                      else create_objective(self._cfg))
         return raw if objective is None else objective.convert_output(raw)
+
+    def _is_average_output(self) -> bool:
+        """An RF model averages its trees: one this booster trained, or
+        one whose model text says ``average_output``."""
+        if self._loaded is not None:
+            return bool(self._loaded.get("average_output"))
+        return self._cfg.boosting == "rf"
 
     # ------------------------------------------------------------------
     def model_to_string(self, num_iteration: int = -1) -> str:

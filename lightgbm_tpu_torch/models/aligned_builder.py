@@ -7,10 +7,11 @@ K = min(S - 1, 256) leaves at once in one pass over the rows:
 
 1. need-driven selection: the leaves the leaf-wise replay flagged as its
    frontier, best gain first;
-2. left counts (the split finder's exact left count, or kernel B3 for the
-   STANDARD layout of ``tpu_force_big_n`` and n > 2^24) give the new
-   chunk-aligned layout: the left child at the parent's slot, the right
-   child at a fresh slot, every block's begin rounded up to a chunk;
+2. left counts (the split finder's exact left count, or kernel B3 under
+   bagging and for the STANDARD layout of ``tpu_force_big_n`` and n >
+   2^24) give the new chunk-aligned layout: the left child at the
+   parent's slot, the right child at a fresh slot, every block's begin
+   rounded up to a chunk;
 3. kernel B2 partitions every split block into the new layout, copies
    unsplit blocks whole, and histograms each split's smaller child; the
    larger child is parent minus sibling (`FeatureHistogram::Subtract`).
@@ -20,6 +21,13 @@ K = min(S - 1, 256) leaves at once in one pass over the rows:
 4. the split finder evaluates the 2k children, and the reference's
    priority queue (`serial_tree_learner.cpp:173-237`) is replayed over the
    executed splits to flag the next frontier.
+
+Under bagging the records keep every row: a bag (COMPACT's meta bit 31,
+else an f32 lane, re-written by `AlignedEngine.set_bag` on bagging_freq
+boundaries) keeps the out-of-bag rows out of the histograms, so the
+finder's counts (LI_COUNTG, the tree's leaf counts) are in-bag counts,
+while the layout's counts (LI_COUNT) are physical and come from B3; the
+score update reaches every row, in the bag or not.
 
 The records stay permuted across iterations. Pointwise gradients are
 computed in the records' permuted order, so nothing is unpermuted on the
@@ -207,7 +215,8 @@ class AlignedEngine:
     [NC, W, C] record matrix (two buffers the move pass ping-pongs), the
     per-chunk valid counts and the per-slot histogram store."""
 
-    def __init__(self, learner, objective, init_row_scores=None) -> None:
+    def __init__(self, learner, objective, init_row_scores=None,
+                 bagged: bool = False) -> None:
         self.learner = learner
         self.objective = objective
         self.cfg = cfg = learner.cfg
@@ -228,14 +237,20 @@ class AlignedEngine:
         self.ext = pg is None
         self.gh_off = 1 if self.ext else 2
         self.big_n = n > (1 << 24) or bool(cfg.tpu_force_big_n)
+        self.bagged = bagged
         self.pgrad = pg
         self.grad = pg if self.compact else None
         rec, self.wcnt, self.W, cnts, self.bits = pack_records(
             learner.bins, label, weight, C, compact=self.compact,
-            max_bin=learner.max_bin_global, ext=self.ext)
+            max_bin=learner.max_bin_global, ext=self.ext, with_bag=bagged)
         nc_data = rec.shape[0]
         self.NC = NC = nc_data + S + 2
-        self.lanes, _ = lane_layout(self.wcnt, self.compact, self.ext)
+        self.lanes, _ = lane_layout(self.wcnt, self.compact, self.ext,
+                                    bagged)
+        # the kernels' bag mode: -1 none, -2 COMPACT's meta bit, else the
+        # f32 lane
+        self.bag_lane = -1 if not bagged else (
+            -2 if self.compact else self.lanes["bag"])
         self.w_used = max(self.lanes.values()) + 1
         self.rec = torch.zeros((NC, self.W, C), dtype=torch.int32,
                                device=dev)
@@ -269,16 +284,40 @@ class AlignedEngine:
             else None
         g, h = self.pgrad(self._lane_f32("score"), self._lane_f32("label"),
                           w)
-        self.rec[:, self.lanes["grad"]] = g.view(torch.int32)
-        self.rec[:, self.lanes["hess"]] = h.view(torch.int32)
+        self._set_grad_lanes(g, h)
 
     def _gather_grad_lanes(self, g_rows: torch.Tensor,
                            h_rows: torch.Tensor) -> None:
         """EXT records: the grad/hess lanes from row-order (g, h), by the
         rid lane (pad rows read the last row's, and no pass reads them)."""
         rid = self._rid().long().clamp(0, self.n - 1)
-        self.rec[:, self.lanes["grad"]] = g_rows[rid].view(torch.int32)
-        self.rec[:, self.lanes["hess"]] = h_rows[rid].view(torch.int32)
+        self._set_grad_lanes(g_rows[rid], h_rows[rid])
+
+    def _set_grad_lanes(self, g: torch.Tensor, h: torch.Tensor) -> None:
+        """Write [NC, C] (g, h) into the grad/hess lanes; under bagging
+        multiplied by the bag lane, so out-of-bag rows carry zeros (JAX
+        package: aligned_builder.py:353-357, :682-685)."""
+        if self.bagged:
+            bag = self._lane_f32("bag")
+            g, h = g * bag, h * bag
+        self.rec[:, self.lanes["grad"]] = g.view(torch.int32)
+        self.rec[:, self.lanes["hess"]] = h.view(torch.int32)
+
+    def set_bag(self, mask_rows) -> None:
+        """Re-ingest a row-order 0/1 bag mask ([N], host or device) by rid
+        (JAX package: `AlignedEngine.set_bag`): COMPACT's meta bit 31
+        cleared and set (int32-safe), else the f32 bag lane written; pad
+        rows (rid n) leave the bag."""
+        mask = torch.as_tensor(mask_rows, device=self.device).float()
+        vals = torch.cat([mask, mask.new_zeros(1)])
+        if self.compact:
+            meta = self.rec[:, self.lanes["meta"]]
+            rid = (meta & META_RID_MASK).long().clamp(0, self.n)
+            self.rec[:, self.lanes["meta"]] = (meta & 0x7FFFFFFF) | \
+                torch.where(vals[rid] > 0.5, -(1 << 31), 0).to(torch.int32)
+        else:
+            rid = self.rec[:, self.lanes["rid"]].long().clamp(0, self.n)
+            self.rec[:, self.lanes["bag"]] = vals[rid].view(torch.int32)
 
     def row_scores(self) -> torch.Tensor:
         """Training scores in row order ([N] f32 on the device; nothing
@@ -340,7 +379,8 @@ class AlignedEngine:
         cnts_pc = self.cnts
         cm = self._upload(np.zeros(NC), cnts_pc)
         root = slot_hist_pass(self.rec, cm[0], cm[1], 1, F, B, wcnt, bits,
-                              grad, gh_off=gh_off)[0]
+                              grad, gh_off=gh_off,
+                              bag_lane=self.bag_lane)[0]
         store[0] = root
         tot = root[0].sum(0).cpu().numpy()           # feature 0's bins
         root_g, root_h = np.float32(tot[0]), np.float32(tot[1])
@@ -423,8 +463,9 @@ class AlignedEngine:
                        | (last.astype(np.int64) << META_LAST))
 
             # ---- left counts: the finder's exact count, or the i32 count
-            # pass when the f32 count channel cannot be trusted (n > 2^24)
-            if self.big_n:
+            # pass of the physical rows when the count channel is in-bag
+            # only (bagging) or cannot be trusted (f32 counts, n > 2^24)
+            if self.big_n or self.bagged:
                 ks_s = np.where(sel, np.clip(selrank, 0, K - 1), K)
                 ks_pc = np.where(in_any & sel[slot_of], ks_s[slot_of], K)
                 up = self._upload(r1_s[slot_of], r2_s[slot_of], meta_pc,
@@ -458,7 +499,8 @@ class AlignedEngine:
                                   up[4], up[5], up[6], K, F, B, wcnt, bits,
                                   self.w_used, grad,
                                   out=self._spare if self.rec.is_cuda
-                                  else None, gh_off=gh_off, cbits=cbits)
+                                  else None, gh_off=gh_off, cbits=cbits,
+                                  bag_lane=self.bag_lane)
             self._spare, self.rec = self.rec, out
 
             # ---- tables: children of the selected slots

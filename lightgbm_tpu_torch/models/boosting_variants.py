@@ -1,0 +1,266 @@
+"""Boosting variants: GOSS, DART, RF and the boosting factory (port of
+lightgbm_tpu/models/boosting_variants.py).
+
+Re-creates `src/boosting/goss.hpp`, `src/boosting/dart.hpp`,
+`src/boosting/rf.hpp` and `Boosting::CreateBoosting`
+(`src/boosting/boosting.cpp:35-69`). Each variant changes a hook of
+`GBDT` (`get_training_score`, `_bagging`, `_post_bagging_gradients`) or,
+for RF, the iteration itself, and trains leaf-wise: the aligned engine's
+score lane cannot follow dropped scores or re-weighted gradients, as in
+the JAX package. Every random draw is the JAX package's: GOSS's keys by
+the port's Threefry (`utils/prng.py`) from a seed of ``_bag_rng``, DART's
+drops from ``RandomState(drop_seed)`` in the same order of calls.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..io.dataset import Dataset
+from ..utils import prng
+from .gbdt import GBDT, K_EPSILON
+from .tree import Tree
+
+
+def goss_select_body(g: torch.Tensor, h: torch.Tensor, seed: int, n: int,
+                     top_k: int, other_k: int):
+    """The GOSS selection (goss.hpp:96-134; JAX package:
+    `goss_select_body`) on the device of ``g`` ([K, N] f32): |g * h|
+    summed over classes, the threshold at the top_k'th value, and of the
+    rest the other_k rows with the smallest uniform keys under
+    ``PRNGKey(seed)``, ties broken by row index (a stable argsort).
+    Returns the [N] keep-mask and the [N] f32 re-weight of the sampled
+    small-gradient rows."""
+    multiply = (n - top_k) / other_k
+    a = (g * h).abs().sum(dim=0)
+    threshold = torch.sort(a).values[n - top_k]
+    big = a >= threshold
+    u = prng.uniform(seed, n, device=g.device)
+    order = torch.argsort(torch.where(big, 2.0, u), stable=True)
+    rank = torch.empty(n, dtype=torch.int64, device=g.device)
+    rank[order] = torch.arange(n, device=g.device)
+    sampled = ~big & (rank < other_k)
+    mult = torch.where(sampled, torch.tensor(multiply, dtype=torch.float32,
+                                             device=g.device), 1.0)
+    return big | sampled, mult
+
+
+class GOSS(GBDT):
+    """Gradient-based one-side sampling (goss.hpp:25-160): keep the
+    top_rate fraction by |g*h|, sample other_rate of the rest and
+    up-weight their gradients by (1 - top_rate) / other_rate."""
+
+    def __init__(self, cfg: Config, train_data: Dataset,
+                 device: torch.device) -> None:
+        super().__init__(cfg, train_data, device)
+        if not (cfg.top_rate + cfg.other_rate <= 1.0):
+            raise ValueError("top_rate + other_rate must be <= 1.0")
+        if cfg.top_rate <= 0.0 or cfg.other_rate <= 0.0:
+            raise ValueError("top_rate and other_rate must be positive")
+        self._goss_multiplier = None
+
+    def _bagging(self, iter_idx: int) -> None:
+        """goss.hpp:141-160: no sampling during the first
+        1 / learning_rate iterations; then the selection on the device,
+        the bag's row ids its keep-mask's nonzeros."""
+        cfg = self.cfg
+        self._goss_multiplier = None
+        if iter_idx < int(1.0 / cfg.learning_rate):
+            self.bag_data_indices = None
+            self.bag_data_cnt = self.num_data
+            return
+        n = self.num_data
+        top_k = max(1, int(n * cfg.top_rate))
+        other_k = max(1, int(n * cfg.other_rate))
+        seed = int(self._bag_rng.randint(0, 2**31 - 1))
+        mask, self._goss_multiplier = goss_select_body(
+            self._cur_grad, self._cur_hess, seed, n, top_k, other_k)
+        self.bag_data_indices = mask.nonzero()[:, 0].to(torch.int32)
+        self.bag_data_cnt = int(self.bag_data_indices.numel())
+
+    def _post_bagging_gradients(self, g, h):
+        if self._goss_multiplier is None:
+            return g, h
+        m = self._goss_multiplier[None, :]
+        return g * m, h * m
+
+
+class DART(GBDT):
+    """Dropouts meet Multiple Additive Regression Trees (dart.hpp:25-209):
+    each iteration drops a random subset of the trees from the training
+    scores before the gradients, then shrinks the new tree and renormalizes
+    the dropped ones. Drops and renormalization act on the scores by
+    binned traversal of the host trees."""
+
+    def __init__(self, cfg: Config, train_data: Dataset,
+                 device: torch.device) -> None:
+        super().__init__(cfg, train_data, device)
+        self.tree_weight: List[float] = []
+        self.sum_weight = 0.0
+        self.drop_index: List[int] = []
+        self._drop_rng = np.random.RandomState(cfg.drop_seed)
+        self._dropped_this_iter = False
+        self.num_init_iteration = 0
+
+    def get_training_score(self) -> torch.Tensor:
+        if not self._dropped_this_iter:
+            self._dropping_trees()
+            self._dropped_this_iter = True
+        return self.train_score.score
+
+    def train_one_iter(self) -> bool:
+        self._dropped_this_iter = False
+        if super().train_one_iter():
+            return True
+        # the tree_weight / sum_weight bookkeeping must stay aligned with
+        # the models: stop at the first tree without a split, at once
+        if self._pending_numsplits and len(self.models) > 1 \
+                and self._pending_numsplits[-1] == 0:
+            del self.models[-1]
+            del self._pending_numsplits[-1]
+            self.iter -= 1
+            return True
+        self._normalize()
+        if not self.cfg.uniform_drop:
+            self.tree_weight.append(self.shrinkage_rate)
+            self.sum_weight += self.shrinkage_rate
+        return False
+
+    def _dropping_trees(self) -> None:
+        """dart.hpp:97-146: draw the dropped trees, negate each stored
+        tree (the reference's Shrinkage(-1)) and add it, which takes it out
+        of the training scores, then set this iteration's shrinkage."""
+        cfg = self.cfg
+        self.drop_index = []
+        is_skip = self._drop_rng.rand() < cfg.skip_drop
+        if not is_skip:
+            drop_rate = cfg.drop_rate
+            if not cfg.uniform_drop:
+                inv_avg = (len(self.tree_weight) / self.sum_weight
+                           if self.tree_weight else 1.0)
+                if cfg.max_drop > 0 and self.sum_weight > 0:
+                    drop_rate = min(drop_rate,
+                                    cfg.max_drop * inv_avg / self.sum_weight)
+                for i in range(self.iter):
+                    if self._drop_rng.rand() < drop_rate \
+                            * self.tree_weight[i] * inv_avg:
+                        self.drop_index.append(self.num_init_iteration + i)
+                        if len(self.drop_index) >= cfg.max_drop > 0:
+                            break
+            else:
+                if cfg.max_drop > 0 and self.iter > 0:
+                    drop_rate = min(drop_rate, cfg.max_drop / self.iter)
+                for i in range(self.iter):
+                    if self._drop_rng.rand() < drop_rate:
+                        self.drop_index.append(self.num_init_iteration + i)
+                        if len(self.drop_index) >= cfg.max_drop > 0:
+                            break
+        # the stored sign matters: _normalize's two shrinkage steps go on
+        # from -1 and must end at +k/(k+1)
+        for i in self.drop_index:
+            t = self.models[i]
+            if t.num_leaves > 1:
+                t.apply_shrinkage(-1.0)
+                self.apply_tree_to_score(self.train_score,
+                                         self.learner.bins, t, 0)
+        k = len(self.drop_index)
+        if not cfg.xgboost_dart_mode:
+            self.shrinkage_rate = cfg.learning_rate / (1.0 + k)
+        elif k == 0:
+            self.shrinkage_rate = cfg.learning_rate
+        else:
+            self.shrinkage_rate = cfg.learning_rate \
+                / (cfg.learning_rate + k)
+
+    def _normalize(self) -> None:
+        """dart.hpp:148-196: renormalize the dropped trees and patch the
+        training and validation scores."""
+        cfg = self.cfg
+        k = float(len(self.drop_index))
+        for i in self.drop_index:
+            t = self.models[i]
+            if t.num_leaves > 1:
+                if not cfg.xgboost_dart_mode:
+                    t.apply_shrinkage(1.0 / (k + 1.0))
+                    for ds, su in zip(self.valid_sets, self.valid_scores):
+                        self.apply_tree_to_score(su, ds.bins, t, 0)
+                    t.apply_shrinkage(-k)
+                else:
+                    t.apply_shrinkage(self.shrinkage_rate)
+                    for ds, su in zip(self.valid_sets, self.valid_scores):
+                        self.apply_tree_to_score(su, ds.bins, t, 0)
+                    t.apply_shrinkage(-k / cfg.learning_rate)
+                self.apply_tree_to_score(self.train_score,
+                                         self.learner.bins, t, 0)
+            if not cfg.uniform_drop:
+                if not cfg.xgboost_dart_mode:
+                    self.sum_weight -= self.tree_weight[i] * (1.0 / (k + 1.0))
+                    self.tree_weight[i] *= k / (k + 1.0)
+                else:
+                    self.sum_weight -= self.tree_weight[i] \
+                        * (1.0 / (k + cfg.learning_rate))
+                    self.tree_weight[i] *= k / (k + cfg.learning_rate)
+
+
+class RF(GBDT):
+    """Random forest mode (rf.hpp:25-194): mandatory bagging, no
+    shrinkage, one-time gradients from the constant init scores, and the
+    running average of the trees as the output."""
+
+    def __init__(self, cfg: Config, train_data: Dataset,
+                 device: torch.device) -> None:
+        super().__init__(cfg, train_data, device)
+        if not (cfg.bagging_freq > 0 and 0.0 < cfg.bagging_fraction < 1.0):
+            raise ValueError("RF needs bagging (bagging_freq > 0 and "
+                             "0 < bagging_fraction < 1)")
+        self.shrinkage_rate = 1.0
+        self.average_output = True
+        self.init_score = (self.objective.boost_from_score(0)
+                           if cfg.boost_from_average else 0.0)
+        # rf.hpp:82-101: the gradients of the constant init score, once
+        const = torch.full((1, self.num_data), self.init_score,
+                           dtype=torch.float32, device=device)
+        self._rf_grad, self._rf_hess = self.objective.get_gradients(const)
+
+    def aligned_gate(self) -> str:
+        return "boosting=rf (one-time gradients, its own iteration)"
+
+    def train_one_iter(self) -> bool:
+        """rf.hpp:103-166: a leaf-wise tree on the bag, its bias the init
+        score, folded into the running average of the scores."""
+        self._bagging(self.iter)
+        tree = Tree(2)
+        if self.objective.need_train and self.train_data.num_features > 0:
+            self._log_train_path("leafwise")
+            fmask = self.learner.feature_mask()
+            root, count = self.learner.init_root_partition(
+                self.bag_data_indices, self.bag_data_cnt)
+            _, rec = self.learner.train(self._rf_grad[0], self._rf_hess[0],
+                                        root, count, fmask)
+            tree = self.learner.record_to_tree(rec, 1.0)
+        if tree.num_leaves > 1:
+            if abs(self.init_score) > K_EPSILON:
+                tree.add_bias(self.init_score)
+            for su in [self.train_score] + self.valid_scores:
+                su.multiply_score(self.iter, 0)
+            self._update_score(tree, 0)
+            for su in [self.train_score] + self.valid_scores:
+                su.multiply_score(1.0 / (self.iter + 1), 0)
+        elif not self.models:
+            tree.as_constant_tree(0.0 if self.objective.need_train
+                                  else self.objective.boost_from_score(0))
+        self.models.append(tree)
+        self.iter += 1
+        return False
+
+
+def create_boosting(cfg: Config, train_data: Dataset,
+                    device: torch.device) -> GBDT:
+    """reference Boosting::CreateBoosting (boosting.cpp:35-69)."""
+    variants = {"gbdt": GBDT, "goss": GOSS, "dart": DART, "rf": RF}
+    if cfg.boosting not in variants:
+        raise ValueError(f"Unknown boosting type: {cfg.boosting}")
+    return variants[cfg.boosting](cfg, train_data, device)

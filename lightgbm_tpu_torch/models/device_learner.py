@@ -6,7 +6,9 @@ same loop runs on the host as a sequence of launches, with one small host
 read per split (the chosen leaf's split and the children's best splits):
 
 - root: the identity partition, so the root histogram reads the head of
-  ``bins`` contiguously (kernel B1 with no index slice);
+  ``bins`` contiguously (kernel B1 with no index slice); a bagged tree
+  (`train`) starts from the bag's sorted row ids instead, and its root
+  histogram is B1 over those gathered rows;
 - each split: stable partition of the chosen leaf's slice, the smaller
   child's histogram (B1 over its slice of the partition), the larger
   child's by subtraction from the parent's stored histogram
@@ -226,28 +228,67 @@ class DeviceTreeLearner:
             vec_i = torch.stack(cols + [zi] * (BI_W - len(cols)), dim=1)
         return torch.cat([vec_f, vec_i.view(torch.float32)], dim=1)
 
+    def init_root_partition(self, bag_indices: Optional[torch.Tensor],
+                            bag_cnt: int) -> Tuple[torch.Tensor, int]:
+        """(row ids [count] int32 on the device, count) of one iteration's
+        root (`DataPartition::Init`, data_partition.hpp:59): the bag's
+        sorted row ids (a copy: `train` permutes it), or every row."""
+        if bag_indices is None:
+            return torch.arange(self.n, dtype=torch.int32,
+                                device=self.device), self.n
+        return bag_indices.to(device=self.device, dtype=torch.int32,
+                              copy=True), int(bag_cnt)
+
+    def train(self, grad: torch.Tensor, hess: torch.Tensor,
+              indices: torch.Tensor, root_count: int,
+              feature_mask: Optional[np.ndarray] = None
+              ) -> Tuple[torch.Tensor, TreeRecord]:
+        """Grow one tree on an explicit (bagged) root partition, the
+        first ``root_count`` entries of ``indices``, which it permutes in
+        place; returns (indices, TreeRecord). Its partition covers the
+        bag alone, so the caller scores by traversal
+        (`add_record_score`)."""
+        return self._grow(grad, hess, feature_mask, indices, root_count)
+
     def train_fresh(self, grad: torch.Tensor, hess: torch.Tensor,
                     feature_mask: Optional[np.ndarray] = None
                     ) -> Tuple[torch.Tensor, TreeRecord]:
         """Grow one tree on the full data from the identity partition;
         returns (final partition indices [N] int32, TreeRecord)."""
+        return self._grow(grad, hess, feature_mask)
+
+    def _grow(self, grad: torch.Tensor, hess: torch.Tensor,
+              feature_mask: Optional[np.ndarray],
+              indices: Optional[torch.Tensor] = None,
+              root_count: int = 0) -> Tuple[torch.Tensor, TreeRecord]:
+        """The leaf-wise loop from the identity partition (``indices``
+        None, the root read contiguously) or from the first
+        ``root_count`` row ids of ``indices``."""
         cfg = self.cfg
         dev = self.device
         L = cfg.num_leaves
         Lm1 = max(L - 1, 1)
-        n = self.n
         B = self.max_bin_global
         prec = self.hist_precision
         nb, db, mt = (self.meta["num_bin"], self.meta["default_bin"],
                       self.meta["missing_type"])
         mono = self.meta["monotone"]
         gh = torch.stack([grad, hess], dim=1).to(torch.float32).contiguous()
-        indices = torch.arange(n, dtype=torch.int32, device=dev)
         fmask = self.fmask_tensor(feature_mask)
 
-        # ---------- root: contiguous rows, no index slice
-        root_hist = leaf_histogram(self.bins, gh, None, 0, n, B, prec)
-        sums = gh.double().sum(0) if prec == "f64" else gh.sum(0)
+        if indices is None:
+            # ---------- root: contiguous rows, no index slice
+            n = self.n
+            indices = torch.arange(n, dtype=torch.int32, device=dev)
+            root_hist = leaf_histogram(self.bins, gh, None, 0, n, B, prec)
+            root_gh = gh
+        else:
+            # ---------- root: the bag's rows, gathered
+            n = root_count
+            root_hist = leaf_histogram(self.bins, gh, indices, 0, n, B,
+                                       prec)
+            root_gh = gh[indices[:n].long()]
+        sums = root_gh.double().sum(0) if prec == "f64" else root_gh.sum(0)
         root_g, root_h = sums.to(torch.float32).cpu().numpy()
         store = torch.zeros((L, self.num_features, B, 3), dtype=torch.float32,
                             device=dev)
@@ -384,8 +425,9 @@ class DeviceTreeLearner:
 
     def add_record_score(self, score_row: torch.Tensor, bins: torch.Tensor,
                          record: TreeRecord, scale: float) -> None:
-        """score_row += scale * tree(x) over another binned matrix (a
-        validation set), by traversal of the record's tree."""
+        """score_row += scale * tree(x) over a binned matrix (a validation
+        set, or the training bins after a bagged tree, whose partition
+        misses the out-of-bag rows), by traversal of the record's tree."""
         leaves = traverse_record(bins, record, self.meta)
         lv = torch.as_tensor(record.leaf_value, device=bins.device)
         score_row.copy_(fma_f32(lv[leaves], float(np.float32(scale)),
@@ -449,10 +491,6 @@ class DeviceTreeLearner:
         if cfg.tree_learner != "serial":
             return f"tree_learner={cfg.tree_learner} (data-parallel " \
                 "aligned engine not ported)"
-        if cfg.bagging_freq > 0 and (cfg.bagging_fraction < 1.0
-                                     or cfg.pos_bagging_fraction < 1.0
-                                     or cfg.neg_bagging_fraction < 1.0):
-            return "bagging (bag lane not ported)"
         if objective is None:
             return "no objective"
         if objective.num_model_per_iteration != 1:
@@ -487,10 +525,11 @@ class DeviceTreeLearner:
     # ------------------------------------------------------------------
     def level_mode_ok(self) -> bool:
         """True when the level builder (`level_builder.py`) grows this
-        learner's trees (JAX package: `level_mode_ok`, serial only): the
-        grow mode asks for it, the bins are uint8, and there is a feature
-        and a split to make. Bagging, multiclass and data-parallel
-        training raise before a learner is built."""
+        learner's unbagged trees (JAX package: `level_mode_ok`, serial
+        only): the grow mode asks for it, the bins are uint8, and there is
+        a feature and a split to make. A bagged iteration grows leaf-wise
+        (`train`: the level records assume a full fresh root); multiclass
+        and data-parallel training raise before a learner is built."""
         return (self.cfg.tpu_grow_mode == "level"
                 and self.bins.dtype == torch.uint8
                 and self.num_features > 0
@@ -523,45 +562,87 @@ class DeviceTreeLearner:
             return None
         return spec.rid, rec
 
-    def aligned_engine(self, objective, init_row_scores=None):
-        """A new AlignedEngine over this learner's data. The caller keeps
-        it: the engine refers to the learner, and a reference back from
-        the learner would hold its device buffers until the next cyclic
-        garbage collection."""
+    def aligned_engine(self, objective, init_row_scores=None,
+                       bagged: bool = False):
+        """A new AlignedEngine over this learner's data (``bagged``: with
+        a bag lane). The caller keeps it: the engine refers to the
+        learner, and a reference back from the learner would hold its
+        device buffers until the next cyclic garbage collection."""
         from .aligned_builder import AlignedEngine
-        return AlignedEngine(self, objective, init_row_scores=init_row_scores)
+        return AlignedEngine(self, objective, init_row_scores=init_row_scores,
+                             bagged=bagged)
 
 
 def traverse_record(bins: torch.Tensor, rec: TreeRecord, meta
                     ) -> torch.Tensor:
     """[N] leaf index per row of one record's tree over binned data
     (reference `traverse_record`, device_learner.py:1693)."""
-    n = bins.shape[0]
-    dev = bins.device
     ns = int(rec.num_splits)
     if ns == 0:
-        return torch.zeros(n, dtype=torch.int64, device=dev)
+        return torch.zeros(bins.shape[0], dtype=torch.int64,
+                           device=bins.device)
     left, right = record_to_children(rec.leaf, ns)
+    feat = rec.feature[:ns].astype(np.int64)
+    return _walk_binned(bins, left, right, feat,
+                        rec.threshold_bin[:ns].astype(np.int32),
+                        rec.default_left[:ns], meta["missing_type"][feat],
+                        meta["default_bin"][feat], meta["num_bin"][feat],
+                        rec.is_cat[:ns],
+                        np.asarray(rec.cat_bitset[:ns], np.int64))
+
+
+def traverse_tree(bins: torch.Tensor, tree: Tree) -> torch.Tensor:
+    """[N] leaf index per row of a host `Tree` over binned data, from its
+    bin thresholds and per-node bin metadata (JAX package:
+    `TreePredictor.predict_binned_leaves`); a leaf's index is the one its
+    value has in ``tree.leaf_value``."""
+    ns = tree.num_leaves - 1
+    if ns <= 0:
+        return torch.zeros(bins.shape[0], dtype=torch.int64,
+                           device=bins.device)
+    dt = tree.decision_type[:ns].astype(np.int64)
+    is_cat = (dt & 1) != 0
+    bits = np.zeros((ns, 8), np.int64)
+    cb, words = tree.cat_boundaries_inner, tree.cat_threshold_inner
+    for s in np.nonzero(is_cat)[0]:
+        c = int(tree.threshold_in_bin[s])
+        w = words[cb[c]:cb[c + 1]][:8]
+        bits[s, :len(w)] = w
+    return _walk_binned(bins, tree.left_child[:ns], tree.right_child[:ns],
+                        tree.split_feature_inner[:ns].astype(np.int64),
+                        tree.threshold_in_bin[:ns].astype(np.int32),
+                        (dt & 2) != 0, (dt >> 2) & 3,
+                        tree.node_default_bin[:ns], tree.node_num_bin[:ns],
+                        is_cat, bits)
+
+
+def _walk_binned(bins, left, right, feat, thr, default_left, missing_type,
+                 default_bin, num_bin, is_cat, cat_bits) -> torch.Tensor:
+    """[N] leaf index per row of the tree whose nodes (split order,
+    parents first) the per-node host arrays describe; ``left``/``right``
+    hold a child node or ``~leaf``."""
+    n = bins.shape[0]
+    dev = bins.device
+    ns = len(feat)
     depth = np.zeros(ns, np.int64)
     for s in range(ns):          # parents precede children in split order
         for c in (left[s], right[s]):
             if c >= 0:
                 depth[c] = depth[s] + 1
-    feat = rec.feature[:ns].astype(np.int64)
 
     def t(a):
         return torch.as_tensor(np.asarray(a), device=dev)
 
-    f_t, thr_t = t(feat), t(rec.threshold_bin[:ns].astype(np.int32))
-    dl_t = t(rec.default_left[:ns])
-    mt_t = t(meta["missing_type"][feat])
-    db_t = t(meta["default_bin"][feat])
-    nb_t = t(meta["num_bin"][feat])
-    l_t, r_t = t(left.astype(np.int64)), t(right.astype(np.int64))
-    has_cat = bool(rec.is_cat[:ns].any())
+    f_t, thr_t = t(feat), t(thr)
+    dl_t = t(np.asarray(default_left, bool))
+    mt_t = t(np.asarray(missing_type, np.int64))
+    db_t = t(np.asarray(default_bin, np.int64))
+    nb_t = t(np.asarray(num_bin, np.int64))
+    l_t, r_t = t(np.asarray(left, np.int64)), t(np.asarray(right, np.int64))
+    has_cat = bool(np.any(is_cat))
     if has_cat:
-        cat_t = t(rec.is_cat[:ns])
-        bits_t = t(np.asarray(rec.cat_bitset[:ns], np.int64))     # [ns, 8]
+        cat_t = t(np.asarray(is_cat, bool))
+        bits_t = t(cat_bits)                                      # [ns, 8]
     rows = torch.arange(n, device=dev)
     node = torch.zeros(n, dtype=torch.int64, device=dev)
     for _ in range(int(depth.max()) + 1):

@@ -10,7 +10,11 @@ score/meta, where meta packs rid | label << 24 | bag << 31 and gradients
 are recomputed inside the kernels from the score and the label bit; or
 EXT score/grad/hess/rid for objectives whose gradients are not pointwise
 (ranking), which arrive in row order and are gathered into the grad/hess
-lanes by rid.
+lanes by rid. Under bagging STANDARD and EXT records carry an f32 0/1
+``bag`` lane; a histogram takes a row only where it is in the bag (the
+kernels' ``bag_lane``: -1 none, -2 COMPACT's meta bit 31, >= 0 the f32
+lane), while the partition and the count pass move and count every
+physical row.
 
 Tree blocks own disjoint chunk-aligned ranges, so every chunk belongs to
 one block and the routing arrives as per-chunk int32 arrays (bit layouts
@@ -68,7 +72,8 @@ META_BAG = 31
 # kernel launches by wrapper (a CPU call of a twin does not count)
 LAUNCHES: Dict[str, int] = {"move_pass": 0, "count_pass": 0,
                             "slot_hist_pass": 0, "move_pass_cat": 0,
-                            "count_pass_cat": 0}
+                            "count_pass_cat": 0, "move_pass_bag": 0,
+                            "slot_hist_pass_bag": 0}
 
 _GRAD_KIND = {None: 0, "binary": 1, "l2": 2}
 # the slot histogram (B4, B2's smaller children; CTAs of 1024 threads):
@@ -140,10 +145,13 @@ def _bpw_for_bits(bits: int) -> int:
     return {4: 8, 6: 5, 8: 4}[bits]
 
 
-def lane_layout(wcnt: int, compact: bool = False, ext: bool = False):
+def lane_layout(wcnt: int, compact: bool = False, ext: bool = False,
+                with_bag: bool = False):
     """(lane indices, W padded to a multiple of 8) of a record with
     ``wcnt`` bin words: EXT score, grad, hess and rid; COMPACT score +
-    meta; or STANDARD score, label, grad, hess, rid and weight."""
+    meta (its bag is meta bit 31); or STANDARD score, label, grad, hess,
+    rid and weight. ``with_bag`` adds EXT's and STANDARD's f32 bag lane
+    last."""
     ls = wcnt
     if ext:
         lanes = dict(score=ls, grad=ls + 1, hess=ls + 2, rid=ls + 3)
@@ -155,6 +163,9 @@ def lane_layout(wcnt: int, compact: bool = False, ext: bool = False):
         lanes = dict(score=ls, label=ls + 1, grad=ls + 2, hess=ls + 3,
                      rid=ls + 4, weight=ls + 5)
         w = wcnt + 6
+    if with_bag and not compact:
+        lanes["bag"] = w
+        w += 1
     return lanes, ((w + 7) // 8) * 8
 
 
@@ -165,19 +176,22 @@ def _as_int32(x: torch.Tensor) -> torch.Tensor:
 
 def pack_records(bins: torch.Tensor, label, weight, chunk: int,
                  compact: bool = False, max_bin: int = 0,
-                 rid_base: int = 0, ext: bool = False):
+                 rid_base: int = 0, ext: bool = False,
+                 with_bag: bool = False):
     """[N, F] uint8 bins -> ([NC, W, C] int32 records on the device of
     ``bins``, wcnt, W, cnts, bits); cnts[i] (numpy) is the number of valid
     rows of chunk i. Bits equal the JAX package's ``pack_records``: bin
     words at the narrowest width the bin range allows (4 bits under 16
-    bins, 6 under 64, else 8), pad rows zero, rids from ``rid_base``."""
+    bins, 6 under 64, else 8), pad rows zero, rids from ``rid_base``;
+    every row in the bag at first (``with_bag``: the bag lane 1.0; COMPACT
+    sets its meta bag bit always)."""
     n, f = bins.shape
     dev = bins.device
     bmax = max(int(bins.max()) if n * f else 0, max_bin - 1)
     bits = 4 if bmax < 16 else (6 if bmax < 64 else 8)
     bpw = _bpw_for_bits(bits)
     wcnt = (f + bpw - 1) // bpw
-    lanes, w_pad = lane_layout(wcnt, compact, ext)
+    lanes, w_pad = lane_layout(wcnt, compact, ext, with_bag)
     nc = (n + chunk - 1) // chunk
     n_pad = nc * chunk
     rec = torch.zeros((nc, w_pad, chunk), dtype=torch.int32, device=dev)
@@ -210,6 +224,10 @@ def pack_records(bins: torch.Tensor, label, weight, chunk: int,
         wv[:n] = 1.0 if weight is None else torch.as_tensor(
             np.asarray(weight, np.float32), device=dev)
         rec[:, lanes["weight"], :] = lane(wv.view(torch.int32))
+    if "bag" in lanes:
+        bag = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+        bag[:n] = 1.0
+        rec[:, lanes["bag"], :] = lane(bag.view(torch.int32))
     cnts = np.full(nc, chunk, np.int32)
     if nc:
         cnts[-1] = n - (nc - 1) * chunk
@@ -288,16 +306,31 @@ def _payload(records: torch.Tensor, wcnt: int, grad, gh_off: int = 2):
     return grad(score, label)
 
 
+def _in_bag(records: torch.Tensor, wcnt: int, bag_lane: int):
+    """[NC, C] rows in the bag (JAX package: `_payload_gh`'s rule), or
+    None for ``bag_lane`` -1: -2 reads COMPACT's meta bit 31, >= 0 the
+    f32 lane ``bag_lane`` (> 0.5)."""
+    if bag_lane == -2:
+        return records[:, wcnt + 1] < 0
+    if bag_lane >= 0:
+        return records[:, bag_lane].view(torch.float32) > 0.5
+    return None
+
+
 def _slot_histograms(records, take, slot_of_chunk, num_slots, num_features,
-                     num_bins, wcnt, bits, grad, gh_off) -> torch.Tensor:
+                     num_bins, wcnt, bits, grad, gh_off,
+                     bag_lane=-1) -> torch.Tensor:
     """hist[num_slots, F, B, 3]: (g, h, 1) of the rows where ``take``
     [NC, C] is set, into the slot of their chunk; one ``index_add_`` per
     feature. The sums run in f64 and round to f32 once: a plain f32
     accumulator drifts when a cell sums millions of equal gradients (the
     first tree's, from a constant score), by far more than the kernel's
-    blocked f32 sums do."""
+    blocked f32 sums do. Rows out of the bag (`_in_bag`) add nothing."""
     nc, _, C = records.shape
     dev = records.device
+    bag = _in_bag(records, wcnt, bag_lane)
+    if bag is not None:
+        take = take & bag
     out = torch.zeros((num_slots, num_features, num_bins, NUM_STATS),
                       dtype=torch.float32, device=dev)
     sel = take.reshape(-1).nonzero()[:, 0]
@@ -324,13 +357,14 @@ def _slot_histograms(records, take, slot_of_chunk, num_slots, num_features,
 
 
 def slot_hist_pass_plain(records, slots, meta, num_slots, num_features,
-                         num_bins, wcnt, bits, grad=None, gh_off=2):
+                         num_bins, wcnt, bits, grad=None, gh_off=2,
+                         bag_lane=-1):
     """Plain twin of `slot_hist_pass`."""
     nc, _, C = records.shape
     in_slot = (slots >= 0) & (slots < num_slots)
     take = _valid_rows(meta, C) & in_slot[:, None]
     return _slot_histograms(records, take, slots, num_slots, num_features,
-                            num_bins, wcnt, bits, grad, gh_off)
+                            num_bins, wcnt, bits, grad, gh_off, bag_lane)
 
 
 def _cat_words(cbits, ks, binv):
@@ -357,11 +391,11 @@ def count_pass_plain(records, r1, r2, meta, wsel, kslots, num_slots, bits,
 
 def move_pass_plain(records, r1, r2, basel, baser, meta, wsel, hslots,
                     num_slots, num_features, num_bins, wcnt, bits, w_used,
-                    grad=None, out=None, gh_off=2, cbits=None):
+                    grad=None, out=None, gh_off=2, cbits=None, bag_lane=-1):
     """Plain twin of `move_pass`: block-segmented exclusive ranks of the
     left and right rows in (chunk, row) order, one scatter of the used
     lanes, copy chunks' used lanes moved whole, and the smaller children's
-    histograms from the rows that go to the smaller side."""
+    histograms from the in-bag rows that go to the smaller side."""
     nc, W, C = records.shape
     dev = records.device
     out = records.clone() if out is None else out
@@ -398,7 +432,7 @@ def move_pass_plain(records, r1, r2, basel, baser, meta, wsel, hslots,
     take = torch.where(side_r[:, None], go_r, go_l) \
         & (hslot < num_slots)[:, None]
     hist = _slot_histograms(records, take, hslot, num_slots, num_features,
-                            num_bins, wcnt, bits, grad, gh_off)
+                            num_bins, wcnt, bits, grad, gh_off, bag_lane)
     return out, hist
 
 
@@ -417,7 +451,7 @@ def _lib():
             "lgbt_move_partition": [p, i, i, i, i, i, i, i, p, p, p, p, p,
                                     p, p, p, i, p, p, p],
             "lgbt_slot_hist": [p, i, i, i, i, i, i, i, i, i, i, i, i, p, p,
-                               i, i, f, f, f, p, p, p, p],
+                               i, i, f, f, f, i, p, p, p, p],
             "lgbt_slot_hist_occupancy": [i],
             "lgbt_aligned_smem_optin": [i],
         }
@@ -550,12 +584,22 @@ def slot_hist_ctas_per_sm(ordinal: int, smem: int) -> int:
     return _ctas[key]
 
 
+def _check_bag_lane(bag_lane: int, W: int, wcnt: int, grad) -> None:
+    """-1; -2 with a COMPACT ``grad``; or a lane past the bin words."""
+    if bag_lane == -1 or (bag_lane == -2 and grad is not None) \
+            or wcnt <= bag_lane < W:
+        return
+    raise ValueError(f"bag_lane={bag_lane} is none of -1, -2 (COMPACT "
+                     f"records) or a value lane in [{wcnt}, {W})")
+
+
 def _slot_hist_cuda(records, slots, meta, num_slots, num_features,
-                    num_bins, wcnt, bits, grad, gh_off):
+                    num_bins, wcnt, bits, grad, gh_off, bag_lane=-1):
     dev = records.device
     nc, W, C = records.shape
     if not 1 <= num_bins <= 256:
         raise ValueError(f"num_bins={num_bins} outside [1, 256]")
+    _check_bag_lane(bag_lane, W, wcnt, grad)
     fns = _lib()
     ordinal = dev.index if dev.index is not None \
         else torch.cuda.current_device()
@@ -574,14 +618,14 @@ def _slot_hist_cuda(records, slots, meta, num_slots, num_features,
         err = fns["lgbt_slot_hist"](
             records.data_ptr(), nc, W, C, wcnt, gh_off, bits, num_features,
             num_bins, fpb, tile_chunks, grid_x, smem, slots.data_ptr(),
-            meta.data_ptr(), num_slots, kind, sig, wp, wn, gh.data_ptr(),
-            cnt.data_ptr(), out.data_ptr(), _stream(dev))
+            meta.data_ptr(), num_slots, kind, sig, wp, wn, bag_lane,
+            gh.data_ptr(), cnt.data_ptr(), out.data_ptr(), _stream(dev))
     _raise_on(err, "slot_hist_pass")
     return out
 
 
 def slot_hist_pass(records, slots, meta, num_slots, num_features, num_bins,
-                   wcnt, bits, grad=None, gh_off=2):
+                   wcnt, bits, grad=None, gh_off=2, bag_lane=-1):
     """hist[num_slots, F, num_bins, 3] over the valid rows (``meta &
     META_CNT_MASK``) of every chunk whose ``slots`` entry is in
     [0, num_slots); chunks mapped to ``num_slots`` (the dummy) are
@@ -593,15 +637,21 @@ def slot_hist_pass(records, slots, meta, num_slots, num_features, num_bins,
     once: within 2e-6 x the slot's sum of |g| (|h|) of the twin's f64
     sums, not bit-equal to them; counts are exact. A tile's run of one
     slot that holds a non-finite g (h) sums that stat in f64
-    throughout, so NaN and Inf come out as the twin's."""
+    throughout, so NaN and Inf come out as the twin's. ``bag_lane`` -1
+    takes every valid row; -2 (COMPACT) only rows whose meta bit 31 is
+    set, >= 0 (STANDARD, EXT) only rows whose f32 lane ``bag_lane`` is
+    above 0.5: the kernel's bag branch, chosen by the launch, skips the
+    others in the scale pass and the sums alike."""
     if not records.is_cuda:
         return slot_hist_pass_plain(records, slots, meta, num_slots,
                                     num_features, num_bins, wcnt, bits, grad,
-                                    gh_off)
+                                    gh_off, bag_lane)
     _check_cuda(records, slots, meta)
     out = _slot_hist_cuda(records, slots, meta, num_slots, num_features,
-                          num_bins, wcnt, bits, grad, gh_off)
+                          num_bins, wcnt, bits, grad, gh_off, bag_lane)
     LAUNCHES["slot_hist_pass"] += 1
+    if bag_lane != -1:
+        LAUNCHES["slot_hist_pass_bag"] += 1
     return out
 
 
@@ -706,7 +756,7 @@ def _count_cuda(records, r1, r2, meta, wsel, kslots, num_slots, bits,
 def move_pass(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
               num_features, num_bins, wcnt, bits, w_used, grad=None,
               out: Optional[torch.Tensor] = None, gh_off: int = 2,
-              cbits: Optional[torch.Tensor] = None):
+              cbits: Optional[torch.Tensor] = None, bag_lane: int = -1):
     """Stable two-way partition of every block in one pass, plus the
     smaller children's histograms.
 
@@ -718,8 +768,9 @@ def move_pass(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
     << 24 names the compact slot of the block's smaller child (side 0:
     the left rows), ``num_slots`` skips. A categorical split (r1's R_CAT
     bit) routes by row ``slot`` of ``cbits`` (int32 [(num_slots + 1) *
-    8]; None reads as all zero). ``grad`` and ``gh_off`` as for
-    `slot_hist_pass`.
+    8]; None reads as all zero). ``grad``, ``gh_off`` and ``bag_lane`` as
+    for `slot_hist_pass`: every row moves, in the bag or not (its meta
+    word or bag lane with it), and the histograms take the in-bag rows.
 
     Returns (records_out, hist[num_slots, F, num_bins, 3]). Lanes >=
     ``w_used`` of moved rows and of copy chunks, and rows outside the new
@@ -729,7 +780,8 @@ def move_pass(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
     if not records.is_cuda:
         return move_pass_plain(records, r1, r2, basel, baser, meta, wsel,
                                hslots, num_slots, num_features, num_bins,
-                               wcnt, bits, w_used, grad, out, gh_off, cbits)
+                               wcnt, bits, w_used, grad, out, gh_off, cbits,
+                               bag_lane)
     _check_cuda(records, r1, r2, basel, baser, meta, wsel, hslots)
     cptr = _cbits_ptr(cbits, records, num_slots)
     dev = records.device
@@ -744,10 +796,12 @@ def move_pass(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
                                        wsel, hslots, num_slots, bits,
                                        w_used, out, cptr)
     hist = _slot_hist_cuda(out, nslot, ncnt, num_slots, num_features,
-                           num_bins, wcnt, bits, grad, gh_off)
+                           num_bins, wcnt, bits, grad, gh_off, bag_lane)
     LAUNCHES["move_pass"] += 1
     if cbits is not None:
         LAUNCHES["move_pass_cat"] += 1
+    if bag_lane != -1:
+        LAUNCHES["move_pass_bag"] += 1
     return out, hist
 
 

@@ -113,6 +113,17 @@
 // Records of the STANDARD and EXT layouts carry grad/hess lanes, at wcnt +
 // gh_off and the lane after (STANDARD: gh_off 2, after score and label;
 // EXT, for ranking: gh_off 1, after the score); the kernels read them.
+//
+// Bagging (the JAX package's bag_lane, lightgbm_tpu/ops/aligned.py:350):
+// the histogram takes only the rows in the bag, in its scale pass and
+// its sums alike, so the scale is the in-bag rows' largest |g|; COMPACT
+// records mark them by bit 31 of the meta word (bag_lane -2), STANDARD
+// and EXT by an f32 0/1 lane (bag_lane >= 0). slot_hist_kernel is
+// instantiated once a mode (kBagNone, kBagMeta, kBagLane), chosen at the
+// launch, so the unbagged route is the code it was. The partition moves
+// every row with its meta word or bag lane, and the count pass counts
+// every physical row: under bagging it drives the layout, since the
+// histogram counts are in-bag counts.
 // Gradients of the COMPACT layout are computed in the histogram kernel
 // from the score lane and the label bits of the meta lane, with the
 // JAX package's f32 op order pinned by __fmul_rn/__fadd_rn/__fdiv_rn (so
@@ -121,6 +132,7 @@
 // rounds twice, so a row's gradient may differ in its last bit in rare
 // cases; histograms are held to 1e-5 x sum |g| of the slot.
 #include <cstdint>
+#include <initializer_list>
 #include <cuda_runtime.h>
 
 #include "fixed_point.cuh"
@@ -139,6 +151,7 @@ constexpr int kGradLanes = 0, kGradBinary = 1, kGradL2 = 2;
 constexpr int kCountThreads = 256;  // count CTAs, 4 an SM
 constexpr int kMoveThreads = 256;  // partition CTAs, 4 an SM
 constexpr int kHistThreads = 1024;  // slot_hist CTAs (ops/aligned.py)
+constexpr int kBagNone = 0, kBagMeta = 1, kBagLane = 2;
 
 // reference DenseBin::Split numerical routing (dense_bin.hpp:195-283),
 // as ops/aligned.py::_goes_left: missing None / Zero / NaN
@@ -183,6 +196,22 @@ __device__ __forceinline__ void payload(const int32_t* chunk, int C, int r,
   const float absr = fabsf(resp);
   g = __fmul_rn(resp, lw);
   h = __fmul_rn(__fmul_rn(absr, __fsub_rn(sig, absr)), lw);
+}
+
+// Row r of a chunk is in the bag: every row (kBagNone), bit 31 of the
+// COMPACT meta word at lane wcnt + 1 (kBagMeta), or the f32 lane bag_lane
+// above 0.5 (kBagLane)
+template <int Bag>
+__device__ __forceinline__ bool in_bag(const int32_t* chunk, int C, int r,
+                                       int wcnt, int bag_lane) {
+  if (Bag == kBagMeta) {
+    return chunk[static_cast<long long>(wcnt + 1) * C + r] < 0;
+  }
+  if (Bag == kBagLane) {
+    return __int_as_float(chunk[static_cast<long long>(bag_lane) * C + r])
+        > 0.5f;
+  }
+  return true;
 }
 
 // Row r (of a chunk's cnt valid rows) with split word v goes left: a
@@ -564,14 +593,16 @@ __device__ __forceinline__ void add_row(const int32_t* chunk, int C, int r,
 // slot's chunks within a tile is scaled to its largest |g| and |h| (a
 // first pass over the run's payloads), summed in the shared cells and
 // added to the f64 sums (a stat with a non-finite value straight into
-// them).
+// them). A row out of the bag (in_bag<Bag>) is skipped in both passes.
+template <int Bag>
 __global__ void __launch_bounds__(kHistThreads, 1)
 slot_hist_kernel(const int32_t* __restrict__ rec, int W, int C, int wcnt,
                  int gh_off, int bits, int num_features, int num_bins,
                  int feat_per_block, int tile_chunks, int nc,
                  const int32_t* __restrict__ slots,
                  const int32_t* __restrict__ meta, int num_slots, int kind,
-                 float sig, float wp, float wn, double* __restrict__ gh_out,
+                 float sig, float wp, float wn, int bag_lane,
+                 double* __restrict__ gh_out,
                  unsigned* __restrict__ cnt_out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int f0 = blockIdx.y * feat_per_block;
@@ -611,7 +642,8 @@ slot_hist_kernel(const int32_t* __restrict__ rec, int W, int C, int wcnt,
         unsigned mg = 0u, mh = 0u;
         for (int q = threadIdx.x; q < nq; q += blockDim.x) {
           const int ci = q / C, r = q - ci * C;
-          if (r < tcnt[i + ci]) {
+          if (r < tcnt[i + ci]
+              && in_bag<Bag>(run + ci * cw, C, r, wcnt, bag_lane)) {
             float g, h;
             payload(run + ci * cw, C, r, wcnt, gh_off, kind, sig, wp, wn, g,
                     h);
@@ -638,6 +670,7 @@ slot_hist_kernel(const int32_t* __restrict__ rec, int W, int C, int wcnt,
           const int ci = q / C, r = q - ci * C;
           if (r >= tcnt[i + ci]) continue;
           const int32_t* chunk = run + ci * cw;
+          if (!in_bag<Bag>(chunk, C, r, wcnt, bag_lane)) continue;
           float g, h;
           payload(chunk, C, r, wcnt, gh_off, kind, sig, wp, wn, g, h);
           unsigned gh, gl, hh, hl;
@@ -779,26 +812,31 @@ int lgbt_move_partition(const void* rec, int nc, int W, int C, int w_used,
 // gh ([num_slots, F, B, 2] f64) and cnt ([num_slots, F, B] u32) are
 // accumulators zeroed by the caller. kind 0 reads the grad/hess lanes at
 // wcnt + gh_off; 1 (binary logloss) and 2 (l2) recompute them from the
-// score and meta lanes. feat_per_block, tile_chunks, grid_x and smem are
-// the launch shape of ops/aligned.py::slot_hist_launch_shape.
+// score and meta lanes. bag_lane -1 takes every valid row, -2 the rows
+// with COMPACT's meta bit 31 set, >= 0 those whose f32 lane bag_lane is
+// above 0.5. feat_per_block, tile_chunks, grid_x and smem are the launch
+// shape of ops/aligned.py::slot_hist_launch_shape.
 int lgbt_slot_hist(const void* rec, int nc, int W, int C, int wcnt,
                    int gh_off, int bits, int num_features, int num_bins,
                    int feat_per_block, int tile_chunks, int grid_x, int smem,
                    const void* slots, const void* meta, int num_slots,
-                   int kind, float sig, float wp, float wn, void* gh,
-                   void* cnt, void* out, void* stream) {
+                   int kind, float sig, float wp, float wn, int bag_lane,
+                   void* gh, void* cnt, void* out, void* stream) {
   if (nc == 0 || num_features == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto kernel = bag_lane == -1   ? slot_hist_kernel<kBagNone>
+                      : bag_lane == -2 ? slot_hist_kernel<kBagMeta>
+                                       : slot_hist_kernel<kBagLane>;
   cudaError_t e = cudaFuncSetAttribute(
-      slot_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int grid_y = (num_features + feat_per_block - 1) / feat_per_block;
-  slot_hist_kernel<<<dim3(grid_x, grid_y), kHistThreads, smem, s>>>(
+  kernel<<<dim3(grid_x, grid_y), kHistThreads, smem, s>>>(
       static_cast<const int32_t*>(rec), W, C, wcnt, gh_off, bits,
       num_features, num_bins, feat_per_block, tile_chunks, nc,
       static_cast<const int32_t*>(slots),
       static_cast<const int32_t*>(meta), num_slots, kind, sig, wp, wn,
-      static_cast<double*>(gh), static_cast<unsigned*>(cnt));
+      bag_lane, static_cast<double*>(gh), static_cast<unsigned*>(cnt));
   const int err = check();
   if (err != 0) return err;
   const long long cells =
@@ -814,20 +852,27 @@ int lgbt_slot_hist(const void* rec, int nc, int W, int C, int wcnt,
 
 // CTAs of slot_hist_kernel that the CUDA occupancy calculator fits on an
 // SM of the current device with `smem` bytes of dynamic shared memory
-// each; 0 where they do not fit, -1 on a CUDA error.
+// each, the fewest of its three instantiations; 0 where they do not fit,
+// -1 on a CUDA error.
 int lgbt_slot_hist_occupancy(int smem) {
-  int n = -1;
-  if (cudaFuncSetAttribute(slot_hist_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem) != cudaSuccess) {
-    cudaGetLastError();                  // too much: clear the error
-    return 0;
+  int fewest = -1;
+  for (const auto kernel : {slot_hist_kernel<kBagNone>,
+                            slot_hist_kernel<kBagMeta>,
+                            slot_hist_kernel<kBagLane>}) {
+    int n = -1;
+    if (cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem) != cudaSuccess) {
+      cudaGetLastError();                // too much: clear the error
+      return 0;
+    }
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, kernel, kHistThreads, smem) != cudaSuccess) {
+      return -1;
+    }
+    if (fewest < 0 || n < fewest) fewest = n;
   }
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, slot_hist_kernel, kHistThreads, smem) != cudaSuccess) {
-    return -1;
-  }
-  return n;
+  return fewest;
 }
 
 // Largest dynamic shared memory a block may opt in to on `device`.

@@ -151,7 +151,7 @@ def test_gate_names_what_the_slice_leaves_out(runs):
     """Under auto a params set the engine leaves out trains leaf-wise and
     the log names the gate; under tpu_grow_mode=aligned it raises. A
     non-pointwise objective (lambdarank) passes from 1M rows under auto,
-    at any size when forced."""
+    at any size when forced; a bagged config passes."""
     X, y, _ = runs["data"]
     lines = []
     log.register_callback(lines.append)
@@ -167,15 +167,17 @@ def test_gate_names_what_the_slice_leaves_out(runs):
                for ln in lines)
     ds = tlgb.Dataset(X, label=y,
                       params={"device_type": "cpu"}).construct()._handle
-    for extra, why in (({"bagging_freq": 1, "bagging_fraction": 0.5},
-                        "bagging"),
+    for extra, why in (({"tpu_grow_mode": "leafwise"},
+                        "tpu_grow_mode=leafwise"),
                        ({"tree_learner": "data"}, "tree_learner=data"),
-                       ({"num_leaves": 1}, "num_leaves < 2")):
+                       ({"num_leaves": 1}, "num_leaves < 2"),
+                       ({"bagging_freq": 1, "bagging_fraction": 0.5}, None)):
         cfg = Config.from_params({**_params("aligned"), **extra})
         obj = create_objective(cfg)
         obj.init(ds.metadata, ds.num_data)
         learner = DeviceTreeLearner(cfg, ds, ds.bins.device)
-        assert learner.aligned_mode_gate(obj).startswith(why)
+        gate = learner.aligned_mode_gate(obj)
+        assert gate == why if why is None else gate.startswith(why)
     ds.metadata.set_group([ds.num_data // 2, ds.num_data - ds.num_data // 2])
     for mode, why in (("auto", "non-pointwise objective below the row "
                                f"floor ({ds.num_data} < 1000000 rows)"),

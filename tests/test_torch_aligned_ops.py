@@ -203,7 +203,8 @@ def test_wrappers_take_the_twins_on_cpu(rounds):
     assert torch.equal(out, ref_out) and torch.equal(hist, ref_hist)
     assert TA.LAUNCHES == {"move_pass": 0, "count_pass": 0,
                            "slot_hist_pass": 0, "move_pass_cat": 0,
-                           "count_pass_cat": 0}
+                           "count_pass_cat": 0, "move_pass_bag": 0,
+                           "slot_hist_pass_bag": 0}
 
 
 @pytest.mark.parametrize("max_bin,bits", [(15, 4), (63, 6), (255, 8)])

@@ -1326,3 +1326,152 @@ def test_proto_ring_stage_back_to_back_on_gpu(cuda):
     for (n, kind, wrap), g in zip(cases, got):
         assert torch.equal(g, P.ring_stage_plain(recs[(n, kind)], wrap)), \
             (n, kind, wrap)
+
+
+def _bag_calls(monkeypatch, layout, max_bin=63):
+    """Clones of the (args, kwargs) of every B2, B3 and B4 call of two
+    bagged aligned trees on the card (bagging_fraction 0.7): COMPACT
+    (binary), STANDARD (binary, tpu_force_big_n) or EXT (lambdarank)."""
+    rng = np.random.default_rng(13)
+    group = None
+    params = {"objective": "binary", "num_leaves": 31, "max_bin": max_bin,
+              "bagging_fraction": 0.7, "bagging_freq": 1,
+              "tpu_force_big_n": layout == "standard"}
+    if layout == "ext":
+        group = rng.integers(80, 160, 300)
+        X = rng.standard_normal((int(group.sum()), 40))
+        y = np.clip(np.round(X[:, 0] + rng.standard_normal(len(X))), 0, 4)
+        params.update(objective="lambdarank", max_bin=255)
+    else:
+        X = rng.standard_normal((60000, 28))
+        y = (X[:, 0] + X[:, 1] * X[:, 2] + rng.standard_normal(60000) > 0) \
+            .astype(np.float64)
+    calls = []
+
+    def recorder(name, fn):
+        def wrapped(*args, **kw):
+            calls.append((name, tuple(a.clone() if torch.is_tensor(a)
+                                      else a for a in args), dict(kw)))
+            return fn(*args, **kw)
+        return wrapped
+
+    for name in ("move_pass", "count_pass", "slot_hist_pass"):
+        monkeypatch.setattr(AB, name, recorder(name, getattr(AB, name)))
+    A.reset_launches()
+    bst = tlgb.train({**params, "tpu_grow_mode": "aligned", "verbosity": -1},
+                     tlgb.Dataset(X, label=y, group=group),
+                     num_boost_round=2, verbose_eval=False)
+    eng = bst._gbdt._aligned_eng
+    assert bst._gbdt.train_path == "aligned" and eng.bagged
+    assert eng.bag_lane == (-2 if layout == "compact" else eng.lanes["bag"])
+    assert A.LAUNCHES["slot_hist_pass_bag"] == A.LAUNCHES["slot_hist_pass"]
+    assert A.LAUNCHES["move_pass_bag"] == A.LAUNCHES["move_pass"] > 0
+    assert A.LAUNCHES["count_pass"] == A.LAUNCHES["move_pass"]
+    for _, _, kw in calls:
+        kw.pop("out", None)
+    return eng, calls
+
+
+def _bag_abs_sums(rec, slot_of_chunk, meta, k, wcnt, grad, gh_off,
+                  bag_lane):
+    """`_slot_abs_sums` over the in-bag rows."""
+    g, h = A._payload(rec, wcnt, grad, gh_off)
+    take = A._valid_rows(meta, rec.shape[2]) & A._in_bag(rec, wcnt,
+                                                         bag_lane)
+
+    def fin(x):
+        return torch.where(take & torch.isfinite(x), x.abs(), 0.0)
+
+    per_chunk = torch.stack([fin(g).sum(1), fin(h).sum(1)], dim=1)
+    ok = (slot_of_chunk >= 0) & (slot_of_chunk < k)
+    out = torch.zeros((k, 2), dtype=torch.float32, device=rec.device)
+    out.index_add_(0, slot_of_chunk[ok].long(), per_chunk[ok])
+    return out
+
+
+def _empty_a_slot(rec, slot_of_chunk, wcnt, bag_lane, k):
+    """Take every row of the chunks of slot k - 1 out of the bag."""
+    chunks = (slot_of_chunk == k - 1).nonzero()[:, 0]
+    if bag_lane == -2:
+        rec[chunks, wcnt + 1] &= 0x7FFFFFFF
+    else:
+        rec[chunks, bag_lane] = 0
+
+
+def _poison_out_of_bag(rec, wcnt, gh_off, meta, bag_lane, rng):
+    """NaN, +Inf and -Inf into the g/h lanes of out-of-bag rows, which
+    neither the kernel nor the twin reads."""
+    oob = (A._valid_rows(meta, rec.shape[2])
+           & ~A._in_bag(rec, wcnt, bag_lane)).nonzero().cpu().numpy()
+    pay = rec[:, wcnt + gh_off:wcnt + gh_off + 2].view(torch.float32)
+    vals = [float("nan"), float("inf"), float("-inf")]
+    for i, (c, r) in enumerate(oob[rng.choice(len(oob), 200,
+                                              replace=False)]):
+        pay[int(c), i % 2, int(r)] = vals[i % 3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["compact", "standard", "ext"])
+def test_aligned_bag_kernels_match_twins_on_gpu(cuda, monkeypatch, layout):
+    """The bag branch of B4 (the root) and of B2's smaller-child
+    histograms against their twins on every call of two bagged trees on
+    the card, COMPACT (meta bit 31), STANDARD and EXT (the f32 lane):
+    counts equal (the bag's), g/h within 1e-5 x the slot's in-bag sum of
+    |g| (|h|); then with the last slot's rows all out of the bag (a slot
+    of zeros) and, with lane-resident payloads, NaN and Inf in
+    out-of-bag rows (skipped by both); moved records equal on the rows
+    they cover, the bag with its rows; B3 counts every physical row."""
+    eng, calls = _bag_calls(monkeypatch, layout)
+    gh_off = eng.gh_off
+    rng = np.random.default_rng(3)
+    for name, args, kw in calls:
+        if name == "count_pass":
+            assert torch.equal(A.count_pass(*args, **kw),
+                               A.count_pass_plain(*args, **kw))
+            continue
+        bl = kw["bag_lane"]
+        if name == "move_pass":
+            rec, meta, hs, k = args[0], args[5], args[7], args[8]
+            wcnt, w_used, grad = args[11], args[13], args[14]
+            out, got = A.move_pass(*args, **kw)
+            ref_a, ref = A.move_pass_plain(
+                *args, out=torch.full_like(rec, -1), **kw)
+            ref_b, _ = A.move_pass_plain(
+                *args, out=torch.full_like(rec, -2), **kw)
+            cov = ref_a[:, 0] == ref_b[:, 0]
+            for u in range(w_used):
+                assert torch.equal(out[:, u][cov], ref_a[:, u][cov])
+            _assert_hist_close(got, ref, _bag_abs_sums(
+                rec, hs & 0xFFFFFF, meta, k, wcnt, grad, gh_off, bl))
+            continue
+        rec, slots, meta, k, _, _, wcnt, _, grad = args
+        for variant in ("as run", "empty slot"):
+            if variant == "empty slot":
+                _empty_a_slot(rec, slots, wcnt, bl, k)
+                if grad is None:
+                    _poison_out_of_bag(rec, wcnt, gh_off, meta, bl, rng)
+            got = A.slot_hist_pass(*args, **kw)
+            _assert_hist_close(got, A.slot_hist_pass_plain(*args, **kw),
+                               _bag_abs_sums(rec, slots, meta, k, wcnt,
+                                             grad, gh_off, bl))
+        assert float(got[k - 1, ..., 2].sum()) == 0.0
+        assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_bin", [63, 255])
+def test_count_pass_compact_on_gpu(cuda, monkeypatch, max_bin):
+    """B3 on COMPACT records (6-bit and 8-bit bin words), as bagging runs
+    it: the physical left counts of every round equal the twin's, and
+    the bag bits travel with the rows through each move."""
+    eng, calls = _bag_calls(monkeypatch, "compact", max_bin)
+    assert eng.bits == (6 if max_bin == 63 else 8)
+    counts = [(a, kw) for name, a, kw in calls if name == "count_pass"]
+    assert counts
+    for args, kw in counts:
+        assert torch.equal(A.count_pass(*args, **kw),
+                           A.count_pass_plain(*args, **kw))
+    in_bag = [int((A._in_bag(a[0], eng.wcnt, -2)
+                   & A._valid_rows(a[5], a[0].shape[2])).sum())
+              for name, a, _ in calls if name == "move_pass"]
+    assert len(set(in_bag)) == 1 and in_bag[0] == int(0.7 * eng.n)
