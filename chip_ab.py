@@ -42,6 +42,10 @@ lambdarank gradient (kernel B6, ``rank.cu``) and the prototype move (P2,
         them: the root pass and the widest round's children of one
         bagged tree at the HIGGS shape (COMPACT at 63 and 255 bins,
         STANDARD at 63), each checked against the plain twin;
+    python3 chip_ab.py hist --baseline DIR --mc
+        as ``--bag``, with DIR's slot histogram the design before the
+        class kinds (its C entry point takes a bag_lane and no class
+        lanes): A and B both on the unbagged and the bagged route;
     python3 chip_ab.py words --baseline DIR
         B5 of the checkout at DIR, an earlier design whose C entry point
         takes (segment prefix, features per block, blocks, threads,
@@ -1197,13 +1201,15 @@ def count(torch, CS, lt, A, baseline: str, cat: bool = False,
     return res
 
 
-def baseline_slot_hist_nobag(torch, A, lib):
+def baseline_slot_hist_nobag(torch, A, lib, bagged: bool = False):
     """`_slot_hist_cuda` for the fixed-point design before the bag branch
-    (its C entry point takes no bag_lane): this checkout's launch shape
-    from that build's occupancy query."""
+    (its C entry point takes no bag_lane) or, ``bagged``, before the class
+    kinds (it takes a bag_lane, no class, value lane or meta lane): this
+    checkout's launch shape from that build's occupancy query."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.lgbt_slot_hist.argtypes = [p, i, i, i, i, i, i, i, i, i, i, i, i, p,
-                                   p, i, i, f, f, f, p, p, p, p]
+                                   p, i, i, f, f, f] + [i] * bagged \
+        + [p, p, p, p]
     lib.lgbt_slot_hist.restype = i
     lib.lgbt_slot_hist_occupancy.argtypes = [i]
     lib.lgbt_slot_hist_occupancy.restype = i
@@ -1212,8 +1218,11 @@ def baseline_slot_hist_nobag(torch, A, lib):
 
     def run(records, slots, meta, num_slots, num_features, num_bins, wcnt,
             bits, grad, gh_off, bag_lane=-1):
-        if bag_lane != -1:
+        if bag_lane != -1 and not bagged:
             raise ValueError("the baseline slot histogram has no bag branch")
+        if isinstance(grad, A.ClassGrad):
+            raise ValueError("the baseline slot histogram has no class "
+                             "kinds")
         dev = records.device
         nc, W, C = records.shape
         ordinal = dev.index if dev.index is not None \
@@ -1231,31 +1240,34 @@ def baseline_slot_hist_nobag(torch, A, lib):
         out = torch.empty(cells + (3,), dtype=torch.float32, device=dev)
         gh = torch.zeros(cells + (2,), dtype=torch.float64, device=dev)
         cnt = torch.zeros(cells, dtype=torch.int32, device=dev)
-        kind, sig, wp, wn = A._grad_args(grad)
+        kind, sig, wp, wn = A._grad_args(grad, wcnt)[:4]
         with torch.cuda.device(dev):
             err = lib.lgbt_slot_hist(
                 records.data_ptr(), nc, W, C, wcnt, gh_off, bits,
                 num_features, num_bins, fpb, tile_chunks, grid_x, smem,
                 slots.data_ptr(), meta.data_ptr(), num_slots, kind, sig, wp,
-                wn, gh.data_ptr(), cnt.data_ptr(), out.data_ptr(),
-                A._stream(dev))
+                wn, *((bag_lane,) if bagged else ()), gh.data_ptr(),
+                cnt.data_ptr(), out.data_ptr(), A._stream(dev))
         A._raise_on(err, "baseline slot_hist")
         return out
     return run
 
 
-def hist_bag(torch, CS, lt, A, baseline: str) -> dict:
+def hist_bag(torch, CS, lt, A, baseline: str, mc: bool = False) -> dict:
     """`hist --bag`: the slot histogram (B4, and B2's smaller-child
     histograms) of the checkout at DIR, the design before the bag branch
     (A), against this checkout's unbagged route (B) on the same records,
     A, B, B, A, and this checkout's bag branch on them: the root pass and
     the widest round's children of one bagged tree at the HIGGS shape
     (COMPACT at 63 and 255 bins, bag bit 31; STANDARD at 63, the f32
-    lane), each checked against the plain twin of its route."""
+    lane), each checked against the plain twin of its route. ``mc``
+    (`hist --mc`): DIR's design is the one before the class kinds, with
+    a bag branch, and A and B are timed on both routes."""
     src = os.path.join(baseline, "lightgbm_tpu_torch", "ops", "csrc",
                        "aligned.cu")
     impl = {"A": baseline_slot_hist_nobag(torch, A, nvcc_lib(
-                src, "baseline_nobag", os.path.dirname(src))),
+                src, "baseline_mc" if mc else "baseline_nobag",
+                os.path.dirname(src)), bagged=mc),
             "B": A._slot_hist_cuda}
     n = 10_500_000
     X, y = CS.synth_higgs(n, 28)
@@ -1293,9 +1305,9 @@ def hist_bag(torch, CS, lt, A, baseline: str) -> dict:
                               f"chip_ab hist {which} unbagged, {what}")
                 r = {"unbagged_ms": CS.cuda_ms(
                     torch, lambda a=args, f=fn: f(*a, gh))}
-                if which == "B":
+                if which == "B" or mc:
                     CS.check_hist(torch, fn(*args, gh, bl), ref_bag, scale,
-                                  f"chip_ab hist B bagged, {what}")
+                                  f"chip_ab hist {which} bagged, {what}")
                     r["bagged_ms"] = CS.cuda_ms(
                         torch, lambda a=args, f=fn: f(*a, gh, bl))
                 res.setdefault(f"{what} {which}", []).append(r)
@@ -1848,6 +1860,9 @@ def main() -> int:
     ap.add_argument("--bag", action="store_true", help="hist: the slot "
                     "histogram's unbagged route against DIR's and its bag "
                     "branch, on the records of a bagged tree")
+    ap.add_argument("--mc", action="store_true", help="hist: the slot "
+                    "histogram's single-class routes, unbagged and bagged, "
+                    "against DIR's design before the class kinds")
     ap.add_argument("--compact", action="store_true", help="count: B3 on "
                     "the COMPACT records of a bagged tree")
     args = ap.parse_args()
@@ -1878,8 +1893,8 @@ def main() -> int:
         elif args.what == "count":
             res = count(torch, CS, lt, A, args.baseline, args.cat,
                         args.compact)
-        elif args.what == "hist" and args.bag:
-            res = hist_bag(torch, CS, lt, A, args.baseline)
+        elif args.what == "hist" and (args.bag or args.mc):
+            res = hist_bag(torch, CS, lt, A, args.baseline, args.mc)
         elif args.what == "move":
             res = move(torch, CS, lt, A, args.baseline, args.cat)
         elif args.what == "rank":

@@ -185,7 +185,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    of 5 rounds; (b) balanced bagging (0.6 / 0.8), 5 rounds, aligned; (c)
    ``tpu_force_big_n`` with bagging, 3 rounds (STANDARD, the f32 bag
    lane); (d) GOSS, 12 rounds at ``learning_rate`` 0.1 (iterations 10-11
-   sample), (e) DART, 10 rounds, (f) RF (``bagging_fraction`` 0.632), 5
+   sample), (e) DART, 5 rounds, (f) RF (``bagging_fraction`` 0.632), 5
    rounds, each on the leaf-wise path, RF's model text with
    ``average_output``; at max_bin 255 a bagged ``auto`` run of 3 rounds.
    Then the bag branch of B4 (the root) and of B2's smaller-child
@@ -198,7 +198,36 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    beside the unbagged route on the same records, the twin, the byte
    bound and one ``index_add_`` over the in-bag rows; B3 on COMPACT
    records (63 and 255 bins) against its twin, its launch alone (warm and
-   cold L2) and wrapper timed.
+   cold L2) and wrapper timed;
+17. multiclass at the shape of UCI Covertype (`synth_covtype`, seed 17:
+   581,012 rows, a 10% holdout, 7 cover types at their published shares,
+   ten numerical columns in their published ranges, Wilderness_Area (4
+   codes) and Soil_Type (40) categorical; 255 leaves, learning rate 0.1,
+   ``min_data_in_leaf`` 20), every run with the kernel counts (and the
+   class kinds' apart) zeroed just before and read just after, its path
+   read from the log, [N, 7] finite predictions (softmax rows summing to
+   1), the card's against a CPU predict of its model text, holdout
+   multi_logloss and multi_error: (a) softmax under ``auto`` at 63 bins,
+   10 rounds, which must take the aligned engine in its "prob" lanes
+   with 7 builds an iteration, every B2 and B4 launch a class kind;
+   rounds per tree and fallbacks, the median iteration and one profiled
+   round (busy share, launches, syncs); (b) the same at 255 bins, 5
+   rounds; (c) leaf-wise, 5 rounds: (a)'s metrics at 5 rounds within
+   2e-3 of (c)'s; (d) one-vs-all under ``auto`` ("score" lanes), 5
+   rounds; (e) softmax with ``bagging_fraction`` 0.8 every round, 5
+   rounds, and one-vs-all so, 3 rounds: the bag bit and B3 driving the
+   layout; (f) ``tpu_grow_mode=level`` at ``max_depth`` 8, 5 rounds; (g)
+   f64 leaf-wise at 20,000 rows, 3 rounds: the card's tree sections are
+   the CPU's. Then, on the same table drawn at 10,485,760 rows (63
+   bins), one iteration of each of softmax and one-vs-all, unbagged and
+   bagged, with the engine's kernel calls recorded: B4's class-lane root
+   pass and B2's smaller-child class-lane histograms of the widest round
+   against their twins (counts equal, g/h within 1e-5 x the slot's sum
+   of |g|), B2's partition of that round at W = 24 (K = 7) and of the
+   root on K = 31 records of the same rows (W = 72, its lanes staged in
+   turns), the moved records equal the twin's, and B3 on the bagged
+   K-class records against its twin; each timed beside the twin, the
+   byte bound and, for the histograms, one ``index_add_``.
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -863,7 +892,7 @@ def phase_bagging(torch, lt, ds, params, X, y, rows: int) -> dict:
     # (d)-(f) the variants, leaf-wise
     for key, extra, rounds, cls in (
             ("goss", {"boosting": "goss"}, 12, "GOSS"),
-            ("dart", {"boosting": "dart"}, 10, "DART"),
+            ("dart", {"boosting": "dart"}, 5, "DART"),
             ("rf", {"boosting": "rf", "bagging_fraction": 0.632,
                     "bagging_freq": 1}, 5, "RF")):
         bst, r = train_run(torch, lt, ds, {**params, **extra}, rounds, Xte,
@@ -1050,34 +1079,45 @@ def phase_ext_bag(torch, lt, ds, params) -> dict:
                                         "ext")}
 
 
-def capture_kernel_calls(torch, lt, ds, params) -> dict:
-    """One aligned tree with the engine's kernel calls recorded (clones of
-    their inputs): the root's histogram pass, the root's move, and the
-    move of the round with the most split blocks among those that also
-    copy unsplit blocks, with that round's count pass (STANDARD only);
-    ``gh_off`` is the grad lane offset the engine passed (EXT: 1), and
-    ``<call>_cbits`` each move's and count's bitset table (None without
-    a categorical feature)."""
+def capture_kernel_calls(torch, lt, ds, params, skip: int = 0) -> dict:
+    """One aligned iteration with the engine's kernel calls recorded
+    (clones of their inputs): the root's histogram pass, the root's
+    move, and the move of the round with the most split blocks among
+    those that also copy unsplit blocks, with that round's count pass
+    (STANDARD only); ``gh_off`` is the grad lane offset the engine passed
+    (EXT: 1), and ``<call>_cbits`` each move's and count's bitset table
+    (None without a categorical feature). ``skip`` iterations run first,
+    unrecorded (their scores give the recorded one's payloads more than
+    the first iteration's few distinct values)."""
     from lightgbm_tpu_torch.models import aligned_builder as AB
     names = ("move_pass", "count_pass", "slot_hist_pass")
     real = {n: getattr(AB, n) for n in names}
-    keep, state = {}, {"count": None, "blocks": -1}
+    keep, state = {}, {"count": None, "blocks": -1, "on": skip == 0}
+
+    def start(env):
+        state["on"] = env.iteration + 1 >= skip
 
     def clone(args):
         return tuple(a.clone() if torch.is_tensor(a) else a for a in args)
 
     def slot_hist(*args, **kw):
+        if not state["on"]:
+            return real["slot_hist_pass"](*args, **kw)
         keep.setdefault("slot_hist_pass", clone(args))
         keep.setdefault("gh_off", kw.get("gh_off", 2))
         keep.setdefault("bag_lane", kw.get("bag_lane", -1))
         return real["slot_hist_pass"](*args, **kw)
 
     def count(*args, **kw):
+        if not state["on"]:
+            return real["count_pass"](*args, **kw)
         state["count"] = clone(args)
         state["count_cbits"] = clone((kw.get("cbits"),))[0]
         return real["count_pass"](*args, **kw)
 
     def move(*args, out=None, **kw):
+        if not state["on"]:
+            return real["move_pass"](*args, out=out, **kw)
         r1, meta, hs, k = args[1], args[5], args[7], args[8]
         blocks = int(torch.unique(hs[(hs & 0xFFFFFF) < k]).numel())
         copies = int(((((r1 >> 16) & 1) == 1)
@@ -1099,7 +1139,8 @@ def capture_kernel_calls(torch, lt, ds, params) -> dict:
     for n, fn in zip(names, (move, count, slot_hist)):
         setattr(AB, n, fn)
     try:
-        lt.train(params, ds, num_boost_round=1, verbose_eval=False)
+        lt.train(params, ds, num_boost_round=skip + 1, verbose_eval=False,
+                 callbacks=[start])
     finally:
         for n in names:
             setattr(AB, n, real[n])
@@ -1115,7 +1156,8 @@ def slot_abs_sums(torch, A, rec, slot_of_chunk, meta, k, wcnt, grad,
     g, h = A._payload(rec, wcnt, grad, gh_off)
     valid = A._valid_rows(meta, rec.shape[2])
     if bag_lane != -1:
-        valid = valid & A._in_bag(rec, wcnt, bag_lane)
+        valid = valid & A._in_bag(rec, wcnt, bag_lane,
+                                  A._meta_lane(grad, wcnt))
 
     def fin(x):
         return torch.where(valid & torch.isfinite(x), x.abs(), 0.0)
@@ -1236,7 +1278,8 @@ def hist_library_ms(torch, A, rec, slot_of_chunk, meta, k, F, B, wcnt,
     take = A._valid_rows(meta, C) \
         & ((slot_of_chunk >= 0) & (slot_of_chunk < k))[:, None]
     if bag_lane != -1:
-        take = take & A._in_bag(rec, wcnt, bag_lane)
+        take = take & A._in_bag(rec, wcnt, bag_lane,
+                                A._meta_lane(grad, wcnt))
     sel = take.reshape(-1).nonzero()[:, 0]
     pay = torch.stack([g.reshape(-1)[sel], h.reshape(-1)[sel],
                        torch.ones_like(sel, dtype=torch.float32)], dim=1)
@@ -2822,6 +2865,453 @@ def phase_proto_parity(torch) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# multiclass: softmax and one-vs-all at the Covertype shape
+# ---------------------------------------------------------------------------
+# UCI Covertype (Blackard 1998; the multiclass table of the GPU GBDT
+# papers): 581,012 rows, 7 cover types at their published shares, ten
+# numerical columns in their published ranges, and the 4 Wilderness_Area
+# and 40 Soil_Type one-hot columns folded back into two categorical ones
+COVTYPE_ROWS = 581_012
+COVTYPE_SHARES = (0.36461, 0.48760, 0.06154, 0.00473, 0.01634, 0.02989,
+                  0.03530)
+COVTYPE_RANGES = ((1859, 3858), (0, 360), (0, 66), (0, 1397), (-173, 601),
+                  (0, 7117), (0, 254), (0, 254), (0, 254), (0, 7173))
+COVTYPE_CODES = (4, 40)
+COVTYPE_CATS = [10, 11]
+MC_ROUNDS = {"auto": 10, "auto_255": 5, "leafwise": 5, "ova": 5, "bag": 5,
+             "ova_bag": 3, "level": 5}
+MC_KERNEL_ROWS = 10_485_760
+MC_PARAMS = {"objective": "multiclass", "num_class": 7, "num_leaves": 255,
+             "learning_rate": 0.1, "min_data_in_leaf": 20,
+             "feature_fraction": 1.0, "verbosity": -1}
+
+
+def synth_covtype(n: int, seed: int = 17):
+    """A Covertype-shaped table: the cover type drawn at the published
+    shares, each numerical column a class-dependent draw clipped to its
+    published range and rounded to an integer (the table's columns are
+    integers), Wilderness_Area and Soil_Type drawn from class-dependent
+    Dirichlet shares; Elevation, the table's strongest column, the most
+    class-dependent. Returns (X f32 [n, 12], y f64 [n])."""
+    rng = np.random.default_rng(seed)
+    shares = np.asarray(COVTYPE_SHARES) / sum(COVTYPE_SHARES)
+    cls = rng.choice(len(shares), n, p=shares)
+    X = np.empty((n, 12), np.float32)
+    centers = rng.uniform(0.2, 0.8, (len(shares), len(COVTYPE_RANGES)))
+    for j, (lo, hi) in enumerate(COVTYPE_RANGES):
+        sd = 0.06 if j == 0 else 0.2
+        v = np.clip(centers[cls, j] + sd * rng.standard_normal(n), 0, 1)
+        X[:, j] = np.round(lo + (hi - lo) * v)
+    for j, codes in zip(COVTYPE_CATS, COVTYPE_CODES):
+        p = rng.dirichlet(np.full(codes, 0.5), len(shares))
+        for k in range(len(shares)):
+            idx = np.nonzero(cls == k)[0]
+            X[idx, j] = rng.choice(codes, idx.size, p=p[k])
+    return X, cls.astype(np.float64)
+
+
+def mc_metrics(lt, raw, yte, objective) -> dict:
+    """Holdout multi_logloss and multi_error of [N, K] raw scores, by the
+    port's metrics (the objective's output transform)."""
+    from lightgbm_tpu_torch.io.dataset import Metadata
+    from lightgbm_tpu_torch.ops.metrics import create_metrics
+    md = Metadata(len(yte))
+    md.set_label(yte)
+    out = {}
+    for m in create_metrics(objective.cfg, ["multi_logloss", "multi_error"]):
+        m.init(md, len(yte))
+        out[m.name] = m.eval(np.ascontiguousarray(raw.T), objective)[0][1]
+    return out
+
+
+def mc_run(torch, lt, ds, params, rounds, Xte, yte, what, path,
+           mode=None, bagged=False) -> tuple:
+    """One multiclass ``train`` on the card, timed per iteration, the
+    kernel counts (and the class kinds' apart) zeroed just before and read
+    just after, the log's training path read: it must take ``path``
+    (aligned: K builds an iteration, in lane ``mode``, the bag as asked);
+    holdout metrics; [N, K] finite predictions (softmax rows summing to
+    1) and the card's against a CPU predict of the model text."""
+    from lightgbm_tpu_torch.ops import aligned as A
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.utils import log as port_log
+    K = params["num_class"]
+    stamps, lines = [], []
+
+    def stamp(env):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    H.reset_launches()
+    A.reset_launches()
+    port_log.register_callback(lines.append)
+    try:
+        t_start = time.perf_counter()
+        bst = lt.train({**params, "verbosity": 1}, ds,
+                       num_boost_round=rounds, callbacks=[stamp],
+                       verbose_eval=False)
+    finally:
+        port_log.register_callback(None)
+    launches = {"B1": H.LAUNCHES["f32"], **A.LAUNCHES,
+                "B5": sum(H.WORDS_LAUNCHES.values()),
+                **{f"{k}_class": v for k, v in A.CLASS_LAUNCHES.items()}}
+    g = bst._gbdt
+    if g.train_path != path or not any(f"training path: {path}" in ln
+                                       for ln in lines):
+        raise AssertionError(f"{what}: took {g.train_path}, not {path}")
+    if bst.num_trees() != rounds * K:
+        raise AssertionError(f"{what}: {bst.num_trees()} trees after "
+                             f"{rounds} rounds of {K} classes")
+    iters = np.diff([t_start] + stamps)
+    r = {"first_round_s": float(iters[0]),
+         "median_iter_ms": statistics.median(iters[1:]) * 1e3,
+         "launches": launches, "peak_bytes": torch.cuda.max_memory_allocated()}
+    if path == "aligned":
+        eng = g._aligned_eng
+        if eng.num_class != K or eng.mc_mode != mode \
+                or eng.bagged != bagged:
+            raise AssertionError(f"{what}: the engine has {eng.num_class} "
+                                 f"classes in mode {eng.mc_mode}, bagged "
+                                 f"{eng.bagged}")
+        stats = g.aligned_stats
+        r["builds_per_iteration"] = len(stats) / rounds
+        r["rounds_per_tree"] = [s[0] for s in stats]
+        r["fallbacks"] = eng.fallbacks
+        if not (launches["slot_hist_pass_class"]
+                == launches["slot_hist_pass"] > 0
+                and launches["move_pass_class"] == launches["move_pass"] > 0):
+            raise AssertionError(f"{what}: launches {launches}")
+        if bagged and not (launches["slot_hist_pass_bag"]
+                           == launches["slot_hist_pass"]
+                           and launches["count_pass"] > 0):
+            raise AssertionError(f"{what}: the bag branch and B3 did not "
+                                 f"run: {launches}")
+    elif path == "level":
+        r["fallbacks"] = g.learner.level_fallbacks
+        if launches["B5"] == 0:
+            raise AssertionError(f"{what}: B5 never launched")
+    elif launches["B1"] == 0:
+        raise AssertionError(f"{what}: B1 never launched")
+    t0 = time.perf_counter()
+    raw = bst.predict(Xte, raw_score=True)
+    r["predict_s"] = time.perf_counter() - t0
+    prob = bst.predict(Xte[:4000])
+    if raw.shape != (len(yte), K) or not np.all(np.isfinite(raw)) \
+            or not np.all(np.isfinite(prob)):
+        raise AssertionError(f"{what}: predictions not finite of shape "
+                             f"({len(yte)}, {K})")
+    if params["objective"] == "multiclass" and not np.allclose(
+            prob.sum(1), 1.0, atol=1e-6):
+        raise AssertionError(f"{what}: softmax rows do not sum to 1")
+    cpu = lt.Booster(model_str=bst.model_to_string(),
+                     params={"device_type": "cpu"})
+    np.testing.assert_allclose(bst.predict(Xte[:4000], raw_score=True),
+                               cpu.predict(Xte[:4000], raw_score=True),
+                               rtol=1e-5, atol=1e-7)
+    r.update(mc_metrics(lt, raw, yte, g.objective))
+    if rounds >= 5:
+        r["at_5"] = mc_metrics(lt, bst.predict(Xte, raw_score=True,
+                                               num_iteration=5), yte,
+                               g.objective)
+    lp = {k: v / bst.num_trees() for k, v in launches.items()}
+    log(f"{what}: first round {r['first_round_s']:.3f} s, median iteration "
+        f"{r['median_iter_ms']:.1f} ms over {rounds - 1}, "
+        + (f"{r['builds_per_iteration']:.0f} builds an iteration, rounds "
+           f"per tree {r['rounds_per_tree']}, " if path == "aligned"
+           else "")
+        + f"fallbacks {r.get('fallbacks', 0)}, launches per tree B2 "
+        f"{lp['move_pass']:.1f} B3 {lp['count_pass']:.1f} B4 "
+        f"{lp['slot_hist_pass']:.1f} B1 {lp['B1']:.1f} B5 {lp['B5']:.1f}, "
+        f"holdout multi_logloss {r['multi_logloss']:.6f} multi_error "
+        f"{r['multi_error']:.6f}, predict {r['predict_s']:.3f} s, peak "
+        f"device memory {r['peak_bytes'] / 2**30:.3f} GiB")
+    return bst, r
+
+
+def phase_multiclass(torch, lt, holdout_share: float = 0.1) -> dict:
+    """Phase 17's runs (a)-(g) at the Covertype shape."""
+    t_phase = time.perf_counter()
+    X, y = synth_covtype(COVTYPE_ROWS)
+    n_tr = COVTYPE_ROWS - int(holdout_share * COVTYPE_ROWS)
+    Xtr, ytr, Xte, yte = X[:n_tr], y[:n_tr], X[n_tr:], y[n_tr:]
+    res = {"rows": n_tr, "holdout": len(yte),
+           "shares": np.bincount(ytr.astype(int), minlength=7).tolist()}
+    for max_bin, key in ((63, "auto"), (255, "auto_255")):
+        params = {**MC_PARAMS, "max_bin": max_bin}
+        t0 = time.perf_counter()
+        ds = lt.Dataset(Xtr, label=ytr, params=params,
+                        categorical_feature=COVTYPE_CATS,
+                        free_raw_data=False).construct()
+        torch.cuda.synchronize()
+        bin_s = time.perf_counter() - t0
+        bst, r = mc_run(torch, lt, ds, params, MC_ROUNDS[key], Xte, yte,
+                        f"multiclass auto {max_bin} ({'ab'[key != 'auto']})",
+                        "aligned", "prob")
+        r["binning_s"] = bin_s
+        r["profile"] = profile_round(torch, bst)
+        res[key] = r
+        del bst
+        if max_bin == 255:
+            break
+        # (c) leaf-wise; (d) one-vs-all; (e) bagged; (f) level
+        for key2, extra, path, mode, bagged in (
+                ("leafwise", {"tpu_grow_mode": "leafwise"}, "leafwise",
+                 None, False),
+                ("ova", {"objective": "multiclassova"}, "aligned", "score",
+                 False),
+                ("bag", BAG, "aligned", "prob", True),
+                ("ova_bag", {"objective": "multiclassova", **BAG},
+                 "aligned", "score", True),
+                ("level", {"tpu_grow_mode": "level", "max_depth": 8},
+                 "level", None, False)):
+            bst, res[key2] = mc_run(
+                torch, lt, ds, {**params, **extra}, MC_ROUNDS[key2], Xte,
+                yte, f"multiclass {key2} 63", path, mode, bagged)
+            del bst
+        a5, c5 = res["auto"]["at_5"], res["leafwise"]["at_5"]
+        for m in ("multi_logloss", "multi_error"):
+            if abs(a5[m] - c5[m]) > 2e-3:
+                raise AssertionError(f"multiclass auto {m} at 5 rounds "
+                                     f"{a5[m]} is not within 2e-3 of "
+                                     f"leaf-wise {c5[m]}")
+        log(f"  multiclass auto (a) at 5 rounds: {a5} against leaf-wise "
+            f"{c5}")
+        del ds
+        torch.cuda.empty_cache()
+    # (g) f64 leaf-wise at 20,000 rows: the card's trees are the CPU's
+    texts = {}
+    for dev in ("cuda", "cpu"):
+        bst = lt.train({**MC_PARAMS, "num_leaves": 31, "max_bin": 63,
+                        "tpu_use_f64_hist": True,
+                        "tpu_grow_mode": "leafwise", "device_type": dev},
+                       lt.Dataset(X[:20000], label=y[:20000],
+                                  categorical_feature=COVTYPE_CATS),
+                       num_boost_round=3, verbose_eval=False)
+        t = bst.model_to_string()
+        texts[dev] = t[t.index("Tree=0"):t.index("end of trees")]
+    if texts["cuda"] != texts["cpu"]:
+        raise AssertionError("multiclass f64 trees differ between cuda and "
+                             "cpu")
+    log("  multiclass f64 (g): cuda and cpu trees equal (20,000 rows, 3 "
+        "rounds of 7 trees)")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"multiclass phase (Covertype shape): {res['phase_s']:.1f} s")
+    return res
+
+
+def phase_mc_parity(torch, lt) -> dict:
+    """The class-lane kinds of B4 (the root) and of B2's smaller-child
+    histograms, softmax ("prob") and one-vs-all ("score"), unbagged and
+    with the bag bit, against their twins on one iteration of the
+    Covertype-shaped table drawn at 10,485,760 rows (63 bins), its second
+    iteration (the first's scores give the payloads many values); B2's
+    partition at W = 24 (K = 7) and on K = 31 records; B3 on the bagged
+    K-class COMPACT records. Each timed beside the twin, the byte bound
+    and one ``index_add_``."""
+    from lightgbm_tpu_torch.ops import aligned as A
+    t_phase = time.perf_counter()
+    X, y = synth_covtype(MC_KERNEL_ROWS)
+    params = {**MC_PARAMS, "max_bin": 63}
+    ds = lt.Dataset(X, label=y, params=params,
+                    categorical_feature=COVTYPE_CATS).construct()
+    del X
+    res = {}
+    for obj, kind in (("multiclass", "prob"), ("multiclassova", "score")):
+        for bagged in (False, True):
+            tag = kind + ("_bag" if bagged else "")
+            what = f"{tag}, {MC_KERNEL_ROWS}x12, 63 bins"
+            calls = capture_kernel_calls(
+                torch, lt, ds, {**params, "objective": obj,
+                                **(BAG if bagged else {})}, skip=1)
+            gh, bl = calls["gh_off"], calls["bag_lane"]
+            if bl != (-2 if bagged else -1):
+                raise AssertionError(f"{what}: bag_lane {bl}")
+            # ---- B4's class lanes: the root pass of class 0
+            args = calls["slot_hist_pass"]
+            rec, slots, meta, k, F, B, wcnt, bits, grad = args
+            if not isinstance(grad, A.ClassGrad) or grad.kind != kind:
+                raise AssertionError(f"{what}: the engine passed {grad}")
+            nc, W, C = rec.shape
+            kw = {"gh_off": gh, "bag_lane": bl}
+            err = check_hist(torch, A.slot_hist_pass(*args, **kw),
+                             A.slot_hist_pass_plain(*args, **kw),
+                             slot_abs_sums(torch, A, rec, slots, meta, k,
+                                           wcnt, grad, gh, bl),
+                             f"slot_hist_pass root, {what}")
+            valid = A._valid_rows(meta, C)
+            rows = int(valid.sum())
+            inbag = int((valid & A._in_bag(rec, wcnt, bl, grad.meta_lane)
+                         ).sum()) if bagged else rows
+            r = {"max_abs_err": err, "rows": rows, "in_bag_rows": inbag,
+                 "W": W, "ms": cuda_ms(torch, lambda: A.slot_hist_pass(
+                     *args, **kw)),
+                 "plain_ms": cuda_ms(torch, lambda: A.slot_hist_pass_plain(
+                     *args, **kw), reps=2),
+                 "library_ms": hist_library_ms(torch, A, rec, slots, meta, k,
+                                               F, B, wcnt, bits, grad, gh,
+                                               bl)}
+            # every valid row's meta word (label and bag), the in-bag
+            # rows' bin words and class lane
+            r["bound_ms"], r["bound_by"] = bound(
+                rows * 4 + inbag * (wcnt + 1) * 4 + nc * 2 * 4
+                + k * F * B * 3 * 4, 3 * F * inbag)
+            res[f"slot_hist_{tag}"] = r
+            # ---- B2: the widest round's move (of any class's tree), its
+            # children alone with that class's payload
+            args = calls["move_wide"]
+            err = check_move(torch, A, args, f"move_pass wide, {what}", gh,
+                             cbits=calls["move_wide_cbits"], bag_lane=bl)
+            rec, meta, k, w_used = args[0], args[5], args[8], args[13]
+            grad = args[14]
+            buf = torch.empty_like(rec)
+            part = (*args[:8], k, bits, w_used, buf)
+            cb = calls["move_wide_cbits"]
+            cptr = A._cbits_ptr(cb, rec, k)
+            nslot, ncnt = A._move_partition_cuda(*part, cptr)
+            child = (nslot, ncnt, k, F, B, wcnt, bits, grad)
+            _, ref = A.move_pass_plain(*args, gh_off=gh, bag_lane=bl,
+                                       cbits=cb)
+            err = max(err, check_hist(
+                torch, A._slot_hist_cuda(buf, *child, gh, bl), ref,
+                slot_abs_sums(torch, A, buf, nslot, ncnt, k, wcnt, grad, gh,
+                              bl), f"child histograms alone, wide, {what}"))
+            del ref
+            mapped = ncnt > 0
+            crows = int(ncnt[mapped].sum())
+            cvalid = A._valid_rows(ncnt, C) & mapped[:, None]
+            cinbag = int((cvalid & A._in_bag(buf, wcnt, bl, grad.meta_lane)
+                          ).sum()) if bagged else crows
+            r = {"max_abs_err": err, "rows": crows, "in_bag_rows": cinbag,
+                 "children": int(torch.unique(nslot[mapped]).numel()),
+                 "ms": cuda_ms(torch, lambda: A._slot_hist_cuda(
+                     buf, *child, gh, bl)),
+                 "plain_ms": cuda_ms(torch, lambda: A.slot_hist_pass_plain(
+                     buf, *child, gh_off=gh, bag_lane=bl), reps=2),
+                 "library_ms": hist_library_ms(torch, A, buf, nslot, ncnt,
+                                               k, F, B, wcnt, bits, grad, gh,
+                                               bl)}
+            r["bound_ms"], r["bound_by"] = bound(
+                crows * 4 + cinbag * (wcnt + 1) * 4 + nc * 2 * 4
+                + k * F * B * 3 * 4, 3 * F * cinbag)
+            res[f"child_hist_{tag}"] = r
+            if tag == "prob":
+                # ---- B2's partition at W = 24 (K = 7) on the widest
+                # round, then on K = 31 records of the same rows
+                r1 = args[1]
+                cnt = meta & 0xFFFFF
+                is_copy = ((r1 >> 16) & 1) == 1
+                split_rows = int(cnt[~is_copy].sum())
+                copy_chunks = int((is_copy & (cnt > 0)).sum())
+                no_hist = (*args[:8], 0, *args[9:])
+                r = {"max_abs_err": 0.0, "split_rows": split_rows,
+                     "copy_chunks": copy_chunks, "W": W, "w_used": w_used,
+                     "ms": cuda_ms(torch, lambda: A._move_partition_cuda(
+                         *part, cptr), reps=20),
+                     "plain_ms": cuda_ms(torch, lambda: A.move_pass_plain(
+                         *no_hist, out=buf, gh_off=gh, cbits=cb), reps=2),
+                     "library_ms": None}
+                r["bound_ms"], r["bound_by"] = bound(
+                    2 * (split_rows + copy_chunks * C) * w_used * 4
+                    + nc * 9 * 4, 0)
+                res["partition"] = r
+                r.update(mc_partition_k31(torch, A, calls, gh))
+            del buf, nslot, ncnt, child
+            # ---- B3 on bagged K-class COMPACT records
+            if tag == "prob_bag":
+                args = calls["count_wide"]
+                cb = calls["count_wide_cbits"]
+                got = A.count_pass(*args, cbits=cb)
+                if not torch.equal(got, A.count_pass_plain(*args, cbits=cb)):
+                    raise AssertionError(f"count_pass differs from its "
+                                         f"twin, {what}")
+                cmeta, ks, k = args[3], args[5], args[6]
+                crows = int((cmeta & 0xFFFFF)[(ks >= 0) & (ks < k)].sum())
+                alone = torch.empty(k, dtype=torch.int32, device=DEVICE)
+                cptr = A._cbits_ptr(cb, args[0], k)
+                r = {"max_abs_err": 0.0, "rows": crows,
+                     "ms": cuda_ms(torch, lambda: A._count_cuda(
+                         *args, alone, cptr), reps=20),
+                     "cold_ms": cold_ms(torch, lambda: A._count_cuda(
+                         *args, alone, cptr)),
+                     "wrapper_ms": cuda_ms(torch, lambda: A.count_pass(
+                         *args, cbits=cb), reps=20),
+                     "plain_ms": cuda_ms(torch, lambda: A.count_pass_plain(
+                         *args, cbits=cb), reps=2),
+                     "library_ms": None}
+                r["bound_ms"], r["bound_by"] = bound(
+                    crows * 4 + nc * 5 * 4 + k * 4, crows)
+                res["count_bag"] = r
+            del calls
+            torch.cuda.empty_cache()
+    for name, r in res.items():
+        extra = {key: v for key, v in r.items() if key not in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err")}
+        lib = "none" if r["library_ms"] is None \
+            else f"{r['library_ms']:.4f} ms"
+        log(f"kernel {name} (multiclass, {MC_KERNEL_ROWS}x12, 63 bins): "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {lib}, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), max |d| {r['max_abs_err']:.3e}, {extra}")
+    del ds
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"multiclass kernel phase: {res['phase_s']:.1f} s")
+    return res
+
+
+def mc_partition_k31(torch, A, calls, gh) -> dict:
+    """B2's partition on K = 31 softmax records of the same rows in the
+    same layout as the K = 7 root move (W = 72: 3 bin words, 31 score,
+    31 probability and 1 meta lane; more than a stage of a CTA holds, so
+    the lanes go in turns; the K = 7 records' bin words and meta lane,
+    their 14 score and probability lanes repeated), with that move's
+    route words: the moved records equal the twin's on the rows the
+    layout covers."""
+    K = 31
+    args = calls["move_root"]
+    rec7, wcnt, bits, grad7 = args[0], args[11], args[12], args[14]
+    nc, _, C = rec7.shape
+    lanes, W = A.lane_layout(wcnt, compact=True, num_class=K, with_prob=True)
+    full = torch.zeros((nc, W, C), dtype=torch.int32, device=DEVICE)
+    full[:, :wcnt] = rec7[:, :wcnt]
+    full[:, lanes["meta"]] = rec7[:, grad7.meta_lane]
+    src = rec7[:, wcnt:grad7.meta_lane]
+    for j in range(2 * K):
+        full[:, wcnt + j] = src[:, j % src.shape[1]]
+    w_used = lanes["meta"] + 1
+    grad = A.ClassGrad("prob", 0, lanes["prob"], lanes["meta"])
+    a31 = (full, *args[1:11], wcnt, bits, w_used, grad)
+    cb = calls["move_root_cbits"]
+    err = check_move(torch, A, a31, f"move_pass root, K = {K} records", gh,
+                     cbits=cb)
+    buf = torch.empty_like(full)
+    k = args[8]
+    part = (*a31[:8], k, bits, w_used, buf, A._cbits_ptr(cb, full, k))
+    meta, r1 = args[5], args[1]
+    cnt = meta & 0xFFFFF
+    is_copy = ((r1 >> 16) & 1) == 1
+    rows = int(cnt[~is_copy].sum())
+    copies = int((is_copy & (cnt > 0)).sum())
+    ms = cuda_ms(torch, lambda: A._move_partition_cuda(*part), reps=20)
+    lanes_stage, smem = A.move_smem(full.shape[2], w_used,
+                                    A._lib()["lgbt_aligned_smem_optin"](0))
+    b_ms, _ = bound(2 * (rows + copies * full.shape[2]) * w_used * 4
+                    + meta.numel() * 9 * 4, 0)
+    del full, buf
+    log(f"  B2 partition, K = {K}: W {W}, {w_used} lanes used, "
+        f"{lanes_stage} lanes a stage ({smem} B), kernel {ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms, {rows} rows")
+    return {"k31_W": W, "k31_w_used": w_used, "k31_lanes_a_stage":
+            lanes_stage, "k31_ms": ms, "k31_bound_ms": b_ms,
+            "k31_max_abs_err": err}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=10_500_000)
@@ -2902,6 +3392,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     airline = phase_airline(torch, lt, args.airline_rows, args.holdout)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mc = phase_multiclass(torch, lt)
+    mpar = phase_mc_parity(torch, lt)
 
     def entry(name, replaces, bins, prec, launches):
         p = par[bins]
@@ -3040,6 +3534,46 @@ def main() -> int:
                 **{k: p[k] for k in ("unbagged_ms", "wrapper_ms",
                                      "cold_ms") if k in p},
                 "shape": f"{shape}, {dims}, {bins} bins, {layout}"})
+    # the class kinds of B4 and B2's children, B2 and B3 on K-class records
+    mc_dims = f"Covertype {MC_KERNEL_ROWS}x12, 63 bins, COMPACT, K = 7"
+    for name, key, line, run, launch_key, shape in (
+            ("slot_hist_pass_mc_prob", "slot_hist_prob", 1141, mc["auto"],
+             "slot_hist_pass_class", "root pass, softmax"),
+            ("slot_hist_pass_mc_prob_bag", "slot_hist_prob_bag", 1141,
+             mc["bag"], "slot_hist_pass_class", "root pass, softmax, bagged"),
+            ("slot_hist_pass_mc_score", "slot_hist_score", 1141, mc["ova"],
+             "slot_hist_pass_class", "root pass, one-vs-all"),
+            ("slot_hist_pass_mc_score_bag", "slot_hist_score_bag", 1141,
+             mc["ova_bag"], "slot_hist_pass_class",
+             "root pass, one-vs-all, bagged"),
+            ("move_pass_child_hist_mc_prob", "child_hist_prob", 960,
+             mc["auto"], "move_pass_class",
+             "smaller children of the widest round, softmax"),
+            ("move_pass_child_hist_mc_prob_bag", "child_hist_prob_bag", 960,
+             mc["bag"], "move_pass_class",
+             "smaller children of the widest round, softmax, bagged"),
+            ("move_pass_child_hist_mc_score", "child_hist_score", 960,
+             mc["ova"], "move_pass_class",
+             "smaller children of the widest round, one-vs-all"),
+            ("move_pass_child_hist_mc_score_bag", "child_hist_score_bag",
+             960, mc["ova_bag"], "move_pass_class",
+             "smaller children of the widest round, one-vs-all, bagged"),
+            ("move_pass_partition_mc", "partition", 960, mc["auto"],
+             "move_pass", "partition of the widest round, W = 24 (and of "
+             "the root on K = 31 records, W = 72: k31_*)"),
+            ("count_pass_mc_bag", "count_bag", 1056, mc["bag"],
+             "count_pass", "count pass of the widest round, bagged")):
+        p = mpar[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": ALIGNED_SOURCE,
+            "replaces": f"lightgbm_tpu/ops/aligned.py:{line}",
+            "launches": run["launches"][launch_key],
+            "max_abs_err": p["max_abs_err"], "ms": p["ms"],
+            "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
+            "bound_by": p["bound_by"], "library_ms": p["library_ms"],
+            **{k: v for k, v in p.items() if k.startswith("k31_")
+               or k in ("cold_ms", "wrapper_ms")},
+            "shape": f"{shape}, {mc_dims}"})
     plaunch = proto_path["launches"]
     rows = proto_path["aligned"]["rows"]
     proto_entries = (
@@ -3079,6 +3613,7 @@ def main() -> int:
                     "level_kernel": {str(k): v for k, v in lpar.items()},
                     "mslr": mslr, "rank_kernel": rpar,
                     "airline": airline, "bagging": bagging,
+                    "multiclass": mc, "mc_kernels": mpar,
                     "bag_kernels": {f"{b} {lay}": v for (b, lay), v
                                     in bpar.items()},
                     "proto_path": proto_path, "proto_kernels": ppar,

@@ -1,5 +1,6 @@
 """Public Dataset / Booster (port of lightgbm_tpu/basic.py, dense input,
-binary, L2 and lambdarank objectives; gbdt, goss, dart and rf boosting).
+binary, L2, multiclass (softmax and one-vs-all) and lambdarank
+objectives; gbdt, goss, dart and rf boosting).
 
 `Booster.predict` walks the trees on the run's device (``cuda`` unless
 the params ask for ``device_type=cpu``); `model_to_string` writes the
@@ -122,6 +123,7 @@ class Booster:
         self._gbdt: Optional[GBDT] = None
         self._loaded: Optional[Dict] = None
         self._name_valid_sets: List[str] = []
+        self.name_train_set = "training"
         if model_file is not None:
             with open(model_file) as fh:
                 self._init_from_string(fh.read())
@@ -204,8 +206,10 @@ class Booster:
                 raw_score: bool = False, pred_leaf: bool = False,
                 start_iteration: int = 0) -> np.ndarray:
         """Predictions for a dense matrix [N, F_total]: probabilities (or
-        the objective's output transform) unless ``raw_score``; leaf
-        indices [N, T] with ``pred_leaf``."""
+        the objective's output transform) unless ``raw_score``, [N] for
+        one class and [N, K] for K; leaf indices [N, T] with
+        ``pred_leaf``. ``start_iteration`` and ``num_iteration`` count
+        iterations of K trees."""
         X = _to_matrix(data)
         k = self.num_tree_per_iteration
         if num_iteration is None or num_iteration <= 0:
@@ -217,7 +221,12 @@ class Booster:
         if pred_leaf:
             return predict_raw_values(trees, X, leaf_index=True,
                                       device=self.device)
-        raw = predict_raw_values(trees, X, device=self.device)
+        if k == 1:
+            raw = predict_raw_values(trees, X, device=self.device)
+        else:
+            raw = np.stack([predict_raw_values(trees[c::k], X,
+                                               device=self.device)
+                            for c in range(k)], axis=1)
         if self._is_average_output():
             raw = raw / max(1, len(trees) // k)
         if raw_score:
@@ -226,7 +235,12 @@ class Booster:
         # raw margins in place of its transformed output
         objective = (self._gbdt.objective if self._gbdt is not None
                      else create_objective(self._cfg))
-        return raw if objective is None else objective.convert_output(raw)
+        if objective is None:
+            return raw
+        if k > 1 and objective.name != "multiclass":
+            return np.stack([objective.convert_output(raw[:, c])
+                             for c in range(k)], axis=1)
+        return objective.convert_output(raw)
 
     def _is_average_output(self) -> bool:
         """An RF model averages its trees: one this booster trained, or
@@ -254,11 +268,17 @@ class Booster:
 
     @staticmethod
     def _objective_string(obj) -> str:
+        """The model text's objective line (JAX package:
+        basic.py:853-863)."""
         if obj is None:
             return ""
-        if obj.name == "binary":
-            return f"binary sigmoid:{obj.cfg.sigmoid}"
-        return obj.name
+        extras = {
+            "binary": lambda o: f" sigmoid:{o.cfg.sigmoid}",
+            "multiclass": lambda o: f" num_class:{o.num_class}",
+            "multiclassova": lambda o:
+                f" num_class:{o.num_class} sigmoid:{o.cfg.sigmoid}",
+        }
+        return obj.name + extras.get(obj.name, lambda o: "")(obj)
 
     def save_model(self, filename: str, num_iteration: int = -1) -> "Booster":
         with open(filename, "w") as fh:

@@ -79,7 +79,9 @@ def from_reference(model_str: Optional[str] = None,
     model_str: the text of ``lightgbm_tpu.Booster.model_to_string()``.
     arrays: ``{"trees": [tree_arrays(t) for t in booster.trees],
     "objective": "binary sigmoid:1", "num_tree_per_iteration": 1,
-    "feature_names": [...]}`` (objective defaults to ``regression``).
+    "feature_names": [...]}`` (objective defaults to ``regression``; a
+    K-class model's ``num_tree_per_iteration`` is K, its trees in
+    iteration order, class by class).
     params: runtime params of the port Booster, e.g.
     ``{"device_type": "cpu"}``.
     """
@@ -94,9 +96,9 @@ def from_reference(model_str: Optional[str] = None,
                   + [int(np.max(t.split_feature[:t.num_leaves - 1]))
                      for t in trees if t.num_leaves > 1])
     names = names or [f"Column_{i}" for i in range(max_idx + 1)]
+    ntpi = int(arrays.get("num_tree_per_iteration", 1))
     cfg = Config.from_params({"objective": objective.split(" ")[0],
-                              "device_type": "cpu"})
-    text = save_model_to_string(
-        trees, cfg, int(arrays.get("num_tree_per_iteration", 1)), max_idx,
-        names, objective_string=objective)
+                              "num_class": ntpi, "device_type": "cpu"})
+    text = save_model_to_string(trees, cfg, ntpi, max_idx, names,
+                                objective_string=objective)
     return Booster(params=params, model_str=text)

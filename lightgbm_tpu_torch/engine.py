@@ -53,20 +53,29 @@ def train(params: Dict[str, Any], train_set: Dataset,
         raise TypeError("Training only accepts Dataset object")
     booster = Booster(params=params, train_set=train_set)
     valid_sets = valid_sets or []
+    # the train set, when listed, takes the user's name for it (JAX
+    # package: engine.py:83-101)
+    train_data_name = "training"
+    user_named = valid_names is not None
     if valid_names is None:
         valid_names = [f"valid_{i}" for i in range(len(valid_sets))]
     eval_train = False
     for vs, name in zip(valid_sets, valid_names):
         if vs is train_set:
             eval_train = True
+            if user_named:
+                train_data_name = name
             continue
         booster.add_valid(vs, name)
+    booster.name_train_set = train_data_name
     if evals_result is not None:
         evals_result.clear()
     results = []
     for i in range(num_boost_round):
         booster.update()
-        results = booster.eval_train() if eval_train else []
+        results = [(train_data_name, m, v, b)
+                   for _, m, v, b in booster.eval_train()] \
+            if eval_train else []
         if len(valid_sets) > int(eval_train):
             results = results + booster.eval_valid()
         if evals_result is not None:

@@ -29,6 +29,13 @@ finder's counts (LI_COUNTG, the tree's leaf counts) are in-bag counts,
 while the layout's counts (LI_COUNT) are physical and come from B3; the
 score update reaches every row, in the bag or not.
 
+A K-class objective (softmax or one-vs-all) takes COMPACT records with K
+score lanes, under softmax K probability lanes too, and the integer class
+in the meta lane; each class's tree is a `train_iter` whose kernels read
+that class's lane (`ClassGrad`), and whose leaf values go to that class's
+score lane. `begin_iter_mc` writes the probability lanes from the
+pre-iteration scores and keeps a copy of the score lanes for a fallback.
+
 The records stay permuted across iterations. Pointwise gradients are
 computed in the records' permuted order, so nothing is unpermuted on the
 hot path; row-order scores are materialized lazily through the rid lane.
@@ -54,9 +61,11 @@ import numpy as np
 import torch
 
 from ..ops.aligned import (META_FIRST, META_LAST, META_RID_MASK, R_CAT,
-                           R_COPY, R_DL, R_MT, R_SHIFT, _bpw_for_bits,
-                           chunk_for, count_pass, lane_layout, move_pass,
-                           pack_records, pack_route2, slot_hist_pass)
+                           R_COPY, R_DL, R_MT, R_SHIFT, ClassGrad,
+                           _bpw_for_bits, chunk_for, count_pass, lane_layout,
+                           move_pass, pack_records, pack_route2,
+                           slot_hist_pass)
+from ..ops.objectives import softmax_rows
 from ..utils.xla_math import fma_f32
 from .device_learner import (BF_GAIN, BF_LG, BF_LH, BF_LOUT, BF_RG, BF_RH,
                              BF_ROUT, BF_W, BI_CAT0, BI_DEFLEFT, BI_FEAT,
@@ -216,7 +225,7 @@ class AlignedEngine:
     per-chunk valid counts and the per-slot histogram store."""
 
     def __init__(self, learner, objective, init_row_scores=None,
-                 bagged: bool = False) -> None:
+                 bagged: bool = False, num_class: int = 1) -> None:
         self.learner = learner
         self.objective = objective
         self.cfg = cfg = learner.cfg
@@ -229,24 +238,37 @@ class AlignedEngine:
         label = objective._label_np
         weight = objective._weight_np
         lab01 = bool(np.all((label == 0) | (label == 1)))
+        self.num_class = num_class
+        # K classes: COMPACT always (K score lanes, the class in the meta
+        # lane), gradients from a class's probability or score lane
+        self.mc_mode = objective.mc_lane_mode() if num_class > 1 else None
+        if num_class > 1 and not (self.mc_mode in ("prob", "score")
+                                  and weight is None and n <= (1 << 24)
+                                  and num_class <= 127):
+            raise ValueError("a K-class engine needs an unweighted "
+                             "softmax or one-vs-all objective, K <= 127 "
+                             "and n <= 2^24")
         # COMPACT: gradients recomputed in the kernels from score + label
         # bit; EXT: gradients from the objective in row order (ranking);
         # STANDARD otherwise, and for the big-n layout
-        self.compact = (pg is not None and weight is None and lab01
-                        and n <= (1 << 24) and not cfg.tpu_force_big_n)
-        self.ext = pg is None
+        self.compact = num_class > 1 or (
+            pg is not None and weight is None and lab01
+            and n <= (1 << 24) and not cfg.tpu_force_big_n)
+        self.ext = pg is None and num_class == 1
         self.gh_off = 1 if self.ext else 2
         self.big_n = n > (1 << 24) or bool(cfg.tpu_force_big_n)
         self.bagged = bagged
         self.pgrad = pg
         self.grad = pg if self.compact else None
+        with_prob = self.mc_mode == "prob"
         rec, self.wcnt, self.W, cnts, self.bits = pack_records(
             learner.bins, label, weight, C, compact=self.compact,
-            max_bin=learner.max_bin_global, ext=self.ext, with_bag=bagged)
+            max_bin=learner.max_bin_global, ext=self.ext, with_bag=bagged,
+            num_class=num_class, with_prob=with_prob)
         nc_data = rec.shape[0]
         self.NC = NC = nc_data + S + 2
         self.lanes, _ = lane_layout(self.wcnt, self.compact, self.ext,
-                                    bagged)
+                                    bagged, num_class, with_prob)
         # the kernels' bag mode: -1 none, -2 COMPACT's meta bit, else the
         # f32 lane
         self.bag_lane = -1 if not bagged else (
@@ -260,12 +282,16 @@ class AlignedEngine:
         self.cnts = np.zeros(NC, np.int64)
         self.cnts[:nc_data] = cnts
         if init_row_scores is not None:
-            sc = torch.zeros(nc_data * C, dtype=torch.float32, device=dev)
-            sc[:n] = torch.as_tensor(init_row_scores, dtype=torch.float32,
-                                     device=dev)
-            self.rec[:nc_data, self.lanes["score"]] = \
-                sc.view(nc_data, C).view(torch.int32)
+            isc = torch.as_tensor(init_row_scores, dtype=torch.float32,
+                                  device=dev).reshape(-1, n)
+            for k in range(num_class):
+                sc = torch.zeros(nc_data * C, dtype=torch.float32,
+                                 device=dev)
+                sc[:n] = isc[k]
+                self.rec[:nc_data, self.lanes["score"] + k] = \
+                    sc.view(nc_data, C).view(torch.int32)
         self._hist_store = None
+        self._saved = None
         self.fallbacks = 0
 
     # ------------------------------------------------------------------
@@ -319,25 +345,64 @@ class AlignedEngine:
             rid = self.rec[:, self.lanes["rid"]].long().clamp(0, self.n)
             self.rec[:, self.lanes["bag"]] = vals[rid].view(torch.int32)
 
-    def row_scores(self) -> torch.Tensor:
-        """Training scores in row order ([N] f32 on the device; nothing
-        is read back to the host)."""
+    def _to_rows(self, lanes: torch.Tensor, rid: torch.Tensor,
+                  cnts: np.ndarray) -> torch.Tensor:
+        """[K, N] row-order values of f32 lanes [NC, K, C] whose rows the
+        rid lane [NC, C] names, the chunks' valid counts ``cnts``."""
         C, n = self.C, self.n
         pos = torch.arange(C, device=self.device)
-        cnts = torch.as_tensor(self.cnts, device=self.device)
-        valid = (pos[None, :] < cnts[:, None]).reshape(-1)
-        rid = self._rid().reshape(-1).long()
-        rid = torch.where(valid & (rid < n), rid, n)
-        out = torch.zeros(n + 1, dtype=torch.float32, device=self.device)
-        out[rid] = self._lane_f32("score").reshape(-1)
-        return out[:n]
+        cnt = torch.as_tensor(cnts, device=self.device)
+        valid = (pos[None, :] < cnt[:, None]).reshape(-1)
+        r = rid.reshape(-1).long()
+        r = torch.where(valid & (r < n), r, n)
+        K = lanes.shape[1]
+        out = torch.zeros((K, n + 1), dtype=torch.float32,
+                          device=self.device)
+        out[:, r] = lanes.transpose(0, 1).reshape(K, -1)
+        return out[:, :n]
+
+    def _score_lanes(self) -> torch.Tensor:
+        """The K score lanes, f32 [NC, K, C]."""
+        sl = self.lanes["score"]
+        return self.rec[:, sl:sl + self.num_class].view(torch.float32)
+
+    def row_scores(self) -> torch.Tensor:
+        """Training scores of class 0 in row order ([N] f32 on the
+        device; nothing is read back to the host)."""
+        return self.row_scores_all()[0]
+
+    def row_scores_all(self) -> torch.Tensor:
+        """Training scores of every class in row order ([K, N] f32 on the
+        device)."""
+        return self._to_rows(self._score_lanes(), self._rid(), self.cnts)
 
     def set_row_scores(self, row_scores: torch.Tensor) -> None:
-        """Re-ingest row-order scores into the score lane (after a
-        leaf-wise fallback tree updated them in row order)."""
+        """Re-ingest row-order scores ([N] or [K, N]) into the score lanes
+        (after a leaf-wise fallback updated them in row order)."""
         rid = self._rid().long().clamp(0, self.n - 1)
-        vals = row_scores.to(torch.float32)[rid]
-        self.rec[:, self.lanes["score"]] = vals.view(torch.int32)
+        sc = row_scores.to(torch.float32).reshape(-1, self.n)
+        for k in range(sc.shape[0]):
+            self.rec[:, self.lanes["score"] + k] = sc[k][rid] \
+                .view(torch.int32)
+
+    def begin_iter_mc(self) -> None:
+        """Start a K-class iteration: under softmax, the probability lanes
+        from the score lanes (the JAX program's order: the max by
+        successive maximums, XLA's ``exp``, the sum class by class, each
+        quotient; lightgbm_tpu/models/aligned_builder.py:655-677), and a
+        copy of the score lanes with the rows they belong to, which
+        `saved_row_scores` turns back into row order."""
+        sc = self._score_lanes()
+        if self.mc_mode == "prob":
+            pl = self.lanes["prob"]
+            p = softmax_rows(sc.transpose(0, 1))
+            self.rec[:, pl:pl + self.num_class] = \
+                p.transpose(0, 1).contiguous().view(torch.int32)
+        self._saved = (sc.clone(), self._rid().clone(), self.cnts.copy())
+
+    def saved_row_scores(self) -> torch.Tensor:
+        """[K, N] row-order scores of the copy `begin_iter_mc` kept."""
+        return self._to_rows(*self._saved)
 
     # ------------------------------------------------------------------
     def _upload(self, *arrays) -> torch.Tensor:
@@ -345,12 +410,23 @@ class AlignedEngine:
         host = np.stack([np.asarray(a, np.int64) for a in arrays])
         return torch.as_tensor(host.astype(np.int32), device=self.device)
 
+    def _class_grad(self, k: int) -> ClassGrad:
+        """Class k's gradient of these records (JAX package:
+        `_mc_payload_fn`)."""
+        ln = self.lanes
+        if self.mc_mode == "prob":
+            return ClassGrad("prob", k, ln["prob"] + k, ln["meta"])
+        pg = self.objective.score_point_grad(k)
+        return ClassGrad("score", k, ln["score"] + k, ln["meta"],
+                         pg.sigmoid, pg.w_pos, pg.w_neg)
+
     def train_iter(self, scale: float, fmask: Optional[np.ndarray] = None,
-                   grads=None):
+                   grads=None, class_k: int = 0):
         """One tree: gradients, speculative build, and (when the replay is
         exact) the score-lane update. EXT records take ``grads``, the
-        objective's row-order (g [N], h [N]) on the device. Returns
-        (AlignedSpec, exact)."""
+        objective's row-order (g [N], h [N]) on the device; K-class
+        records build class ``class_k``'s tree (after `begin_iter_mc`).
+        Returns (AlignedSpec, exact)."""
         lr = self.learner
         cfg = self.cfg
         dev = self.device
@@ -361,6 +437,8 @@ class AlignedEngine:
         F, B = lr.num_features, lr.max_bin_global
         bits, wcnt, grad, gh_off = self.bits, self.wcnt, self.grad, \
             self.gh_off
+        if self.num_class > 1:
+            grad = self._class_grad(class_k)
         meta = lr.meta
         mono = meta["monotone"].astype(np.int64)
         fmask_t = lr.fmask_tensor(fmask)
@@ -588,8 +666,9 @@ class AlignedEngine:
             valmap = torch.as_tensor(
                 np.where(in_any_f, cover[slot_f], 0.0).astype(np.float32),
                 device=dev)
-            sc = self._lane_f32("score")
-            self.rec[:, self.lanes["score"]] = fma_f32(
+            lane = self.lanes["score"] + class_k
+            sc = self.rec[:, lane].view(torch.float32)
+            self.rec[:, lane] = fma_f32(
                 valmap[:, None], float(np.float32(scale)), sc) \
                 .view(torch.int32)
         spec = AlignedSpec(rounds=rounds, n_exec=n_exec, execF=execF[:Sm1],

@@ -9,7 +9,9 @@ for RF, the iteration itself, and trains leaf-wise: the aligned engine's
 score lane cannot follow dropped scores or re-weighted gradients, as in
 the JAX package. Every random draw is the JAX package's: GOSS's keys by
 the port's Threefry (`utils/prng.py`) from a seed of ``_bag_rng``, DART's
-drops from ``RandomState(drop_seed)`` in the same order of calls.
+drops from ``RandomState(drop_seed)`` in the same order of calls. A
+K-class model drops, renormalizes and averages its K trees of an
+iteration together, class by class (the JAX package's K loops).
 """
 from __future__ import annotations
 
@@ -116,11 +118,12 @@ class DART(GBDT):
         if super().train_one_iter():
             return True
         # the tree_weight / sum_weight bookkeeping must stay aligned with
-        # the models: stop at the first tree without a split, at once
-        if self._pending_numsplits and len(self.models) > 1 \
-                and self._pending_numsplits[-1] == 0:
-            del self.models[-1]
-            del self._pending_numsplits[-1]
+        # the models: stop at the first iteration without a split, at once
+        K = self.num_tree_per_iteration
+        if self._pending_numsplits and len(self.models) > K \
+                and max(self._pending_numsplits[-K:]) == 0:
+            del self.models[-K:]
+            del self._pending_numsplits[-K:]
             self.iter -= 1
             return True
         self._normalize()
@@ -160,12 +163,14 @@ class DART(GBDT):
                             break
         # the stored sign matters: _normalize's two shrinkage steps go on
         # from -1 and must end at +k/(k+1)
+        K = self.num_tree_per_iteration
         for i in self.drop_index:
-            t = self.models[i]
-            if t.num_leaves > 1:
-                t.apply_shrinkage(-1.0)
-                self.apply_tree_to_score(self.train_score,
-                                         self.learner.bins, t, 0)
+            for c in range(K):
+                t = self.models[i * K + c]
+                if t.num_leaves > 1:
+                    t.apply_shrinkage(-1.0)
+                    self.apply_tree_to_score(self.train_score,
+                                             self.learner.bins, t, c)
         k = len(self.drop_index)
         if not cfg.xgboost_dart_mode:
             self.shrinkage_rate = cfg.learning_rate / (1.0 + k)
@@ -180,21 +185,24 @@ class DART(GBDT):
         training and validation scores."""
         cfg = self.cfg
         k = float(len(self.drop_index))
+        K = self.num_tree_per_iteration
         for i in self.drop_index:
-            t = self.models[i]
-            if t.num_leaves > 1:
+            for c in range(K):
+                t = self.models[i * K + c]
+                if t.num_leaves <= 1:
+                    continue
                 if not cfg.xgboost_dart_mode:
                     t.apply_shrinkage(1.0 / (k + 1.0))
                     for ds, su in zip(self.valid_sets, self.valid_scores):
-                        self.apply_tree_to_score(su, ds.bins, t, 0)
+                        self.apply_tree_to_score(su, ds.bins, t, c)
                     t.apply_shrinkage(-k)
                 else:
                     t.apply_shrinkage(self.shrinkage_rate)
                     for ds, su in zip(self.valid_sets, self.valid_scores):
-                        self.apply_tree_to_score(su, ds.bins, t, 0)
+                        self.apply_tree_to_score(su, ds.bins, t, c)
                     t.apply_shrinkage(-k / cfg.learning_rate)
                 self.apply_tree_to_score(self.train_score,
-                                         self.learner.bins, t, 0)
+                                         self.learner.bins, t, c)
             if not cfg.uniform_drop:
                 if not cfg.xgboost_dart_mode:
                     self.sum_weight -= self.tree_weight[i] * (1.0 / (k + 1.0))
@@ -218,41 +226,49 @@ class RF(GBDT):
                              "0 < bagging_fraction < 1)")
         self.shrinkage_rate = 1.0
         self.average_output = True
-        self.init_score = (self.objective.boost_from_score(0)
-                           if cfg.boost_from_average else 0.0)
-        # rf.hpp:82-101: the gradients of the constant init score, once
-        const = torch.full((1, self.num_data), self.init_score,
-                           dtype=torch.float32, device=device)
+        K = self.num_tree_per_iteration
+        self.init_scores = [self.objective.boost_from_score(k)
+                            if cfg.boost_from_average else 0.0
+                            for k in range(K)]
+        # rf.hpp:82-101: the gradients of the constant init scores, once
+        const = torch.tensor(self.init_scores, dtype=torch.float32,
+                             device=device)[:, None].expand(
+                                 K, self.num_data).contiguous()
         self._rf_grad, self._rf_hess = self.objective.get_gradients(const)
 
     def aligned_gate(self) -> str:
         return "boosting=rf (one-time gradients, its own iteration)"
 
     def train_one_iter(self) -> bool:
-        """rf.hpp:103-166: a leaf-wise tree on the bag, its bias the init
-        score, folded into the running average of the scores."""
+        """rf.hpp:103-166: a leaf-wise tree a class on the bag, its bias
+        the class's init score, folded into the running average of that
+        class's scores."""
         self._bagging(self.iter)
-        tree = Tree(2)
-        if self.objective.need_train and self.train_data.num_features > 0:
-            self._log_train_path("leafwise")
-            fmask = self.learner.feature_mask()
-            root, count = self.learner.init_root_partition(
-                self.bag_data_indices, self.bag_data_cnt)
-            _, rec = self.learner.train(self._rf_grad[0], self._rf_hess[0],
-                                        root, count, fmask)
-            tree = self.learner.record_to_tree(rec, 1.0)
-        if tree.num_leaves > 1:
-            if abs(self.init_score) > K_EPSILON:
-                tree.add_bias(self.init_score)
-            for su in [self.train_score] + self.valid_scores:
-                su.multiply_score(self.iter, 0)
-            self._update_score(tree, 0)
-            for su in [self.train_score] + self.valid_scores:
-                su.multiply_score(1.0 / (self.iter + 1), 0)
-        elif not self.models:
-            tree.as_constant_tree(0.0 if self.objective.need_train
-                                  else self.objective.boost_from_score(0))
-        self.models.append(tree)
+        K = self.num_tree_per_iteration
+        for k in range(K):
+            tree = Tree(2)
+            if self.objective.need_train \
+                    and self.train_data.num_features > 0:
+                self._log_train_path("leafwise")
+                fmask = self.learner.feature_mask()
+                root, count = self.learner.init_root_partition(
+                    self.bag_data_indices, self.bag_data_cnt)
+                _, rec = self.learner.train(self._rf_grad[k],
+                                            self._rf_hess[k], root, count,
+                                            fmask)
+                tree = self.learner.record_to_tree(rec, 1.0)
+            if tree.num_leaves > 1:
+                if abs(self.init_scores[k]) > K_EPSILON:
+                    tree.add_bias(self.init_scores[k])
+                for su in [self.train_score] + self.valid_scores:
+                    su.multiply_score(self.iter, k)
+                self._update_score(tree, k)
+                for su in [self.train_score] + self.valid_scores:
+                    su.multiply_score(1.0 / (self.iter + 1), k)
+            elif len(self.models) < K:
+                tree.as_constant_tree(0.0 if self.objective.need_train
+                                      else self.objective.boost_from_score(k))
+            self.models.append(tree)
         self.iter += 1
         return False
 

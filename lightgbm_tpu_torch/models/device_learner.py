@@ -493,8 +493,6 @@ class DeviceTreeLearner:
                 "aligned engine not ported)"
         if objective is None:
             return "no objective"
-        if objective.num_model_per_iteration != 1:
-            return "multiclass (class lanes not ported)"
         S = spec_slots(cfg.num_leaves, float(cfg.tpu_level_spec))
         nc = aligned_num_chunks(self.n, cfg, S, self.num_features)
         if nc > 65535:
@@ -509,10 +507,20 @@ class DeviceTreeLearner:
             return "num_leaves < 2"
         if self.max_bin_global > 256:
             return "max_bin > 256"
+        if objective.num_model_per_iteration != 1:
+            # K score lanes and the class in the COMPACT meta lane: its
+            # 7 label bits and 24 rid bits bound K and n
+            if objective.num_model_per_iteration > 127:
+                return "num_class > 127"
+            if objective.mc_lane_mode() is None:
+                return "objective lacks a multiclass lane mode"
+            if self.n > (1 << 24):
+                return "multiclass above 2^24 rows"
         # an objective whose gradients are not pointwise (ranking) pays a
         # row-order gradient round trip each iteration (EXT records); the
         # JAX package takes the engine for it from 1M rows, or when forced
         if not (objective.point_grad_fn() is not None
+                or objective.num_model_per_iteration > 1
                 or self.n >= NON_POINTWISE_ROW_FLOOR
                 or cfg.tpu_grow_mode == "aligned"):
             return ("non-pointwise objective below the row floor "
@@ -528,8 +536,9 @@ class DeviceTreeLearner:
         learner's unbagged trees (JAX package: `level_mode_ok`, serial
         only): the grow mode asks for it, the bins are uint8, and there is
         a feature and a split to make. A bagged iteration grows leaf-wise
-        (`train`: the level records assume a full fresh root); multiclass
-        and data-parallel training raise before a learner is built."""
+        (`train`: the level records assume a full fresh root); a K-class
+        iteration grows its trees here one by one; data-parallel training
+        raises before a learner is built."""
         return (self.cfg.tpu_grow_mode == "level"
                 and self.bins.dtype == torch.uint8
                 and self.num_features > 0
@@ -563,14 +572,15 @@ class DeviceTreeLearner:
         return spec.rid, rec
 
     def aligned_engine(self, objective, init_row_scores=None,
-                       bagged: bool = False):
+                       bagged: bool = False, num_class: int = 1):
         """A new AlignedEngine over this learner's data (``bagged``: with
-        a bag lane). The caller keeps it: the engine refers to the
-        learner, and a reference back from the learner would hold its
-        device buffers until the next cyclic garbage collection."""
+        a bag lane; ``num_class`` score lanes). The caller keeps it: the
+        engine refers to the learner, and a reference back from the
+        learner would hold its device buffers until the next cyclic
+        garbage collection."""
         from .aligned_builder import AlignedEngine
         return AlignedEngine(self, objective, init_row_scores=init_row_scores,
-                             bagged=bagged)
+                             bagged=bagged, num_class=num_class)
 
 
 def traverse_record(bins: torch.Tensor, rec: TreeRecord, meta

@@ -14,7 +14,10 @@ lanes by rid. Under bagging STANDARD and EXT records carry an f32 0/1
 ``bag`` lane; a histogram takes a row only where it is in the bag (the
 kernels' ``bag_lane``: -1 none, -2 COMPACT's meta bit 31, >= 0 the f32
 lane), while the partition and the count pass move and count every
-physical row.
+physical row. A K-class objective takes COMPACT records with K score
+lanes (softmax: K probability lanes after them) and the integer class in
+meta bits 24-30; the histogram of class k reads its class's lane
+(`ClassGrad`), so the meta lane is not always the one after the score.
 
 Tree blocks own disjoint chunk-aligned ranges, so every chunk belongs to
 one block and the routing arrives as per-chunk int32 arrays (bit layouts
@@ -38,12 +41,13 @@ also what the card's kernels are held against.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..utils import log
+from .objectives import PointGrad
 
 NUM_STATS = 3
 MISSING_NONE_C, MISSING_ZERO_C, MISSING_NAN_C = 0, 1, 2
@@ -74,8 +78,10 @@ LAUNCHES: Dict[str, int] = {"move_pass": 0, "count_pass": 0,
                             "slot_hist_pass": 0, "move_pass_cat": 0,
                             "count_pass_cat": 0, "move_pass_bag": 0,
                             "slot_hist_pass_bag": 0}
+# of those, the launches of a `ClassGrad`'s kinds (a K-class objective)
+CLASS_LAUNCHES: Dict[str, int] = {"move_pass": 0, "slot_hist_pass": 0}
 
-_GRAD_KIND = {None: 0, "binary": 1, "l2": 2}
+_GRAD_KIND = {None: 0, "binary": 1, "l2": 2, "prob": 3, "score": 4}
 # the slot histogram (B4, B2's smaller children; CTAs of 1024 threads):
 # tiles of at most 16,384 rows (the bound of the fixed-point rounding,
 # ops/csrc/aligned.cu), hi/lo int32 of g and of h and a u32 count a cell
@@ -101,8 +107,9 @@ _count_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for d in (LAUNCHES, CLASS_LAUNCHES):
+        for k in d:
+            d[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -146,9 +153,12 @@ def _bpw_for_bits(bits: int) -> int:
 
 
 def lane_layout(wcnt: int, compact: bool = False, ext: bool = False,
-                with_bag: bool = False):
+                with_bag: bool = False, num_class: int = 1,
+                with_prob: bool = False):
     """(lane indices, W padded to a multiple of 8) of a record with
-    ``wcnt`` bin words: EXT score, grad, hess and rid; COMPACT score +
+    ``wcnt`` bin words: EXT score, grad, hess and rid; COMPACT
+    ``num_class`` score lanes (``score`` the first, class k at score +
+    k), with ``with_prob`` as many probability lanes (``prob``), then
     meta (its bag is meta bit 31); or STANDARD score, label, grad, hess,
     rid and weight. ``with_bag`` adds EXT's and STANDARD's f32 bag lane
     last."""
@@ -157,8 +167,13 @@ def lane_layout(wcnt: int, compact: bool = False, ext: bool = False,
         lanes = dict(score=ls, grad=ls + 1, hess=ls + 2, rid=ls + 3)
         w = wcnt + 4
     elif compact:
-        lanes = dict(score=ls, meta=ls + 1)
-        w = wcnt + 2
+        lanes = dict(score=ls)
+        w = wcnt + num_class
+        if with_prob:
+            lanes["prob"] = w
+            w += num_class
+        lanes["meta"] = w
+        w += 1
     else:
         lanes = dict(score=ls, label=ls + 1, grad=ls + 2, hess=ls + 3,
                      rid=ls + 4, weight=ls + 5)
@@ -177,21 +192,25 @@ def _as_int32(x: torch.Tensor) -> torch.Tensor:
 def pack_records(bins: torch.Tensor, label, weight, chunk: int,
                  compact: bool = False, max_bin: int = 0,
                  rid_base: int = 0, ext: bool = False,
-                 with_bag: bool = False):
+                 with_bag: bool = False, num_class: int = 1,
+                 with_prob: bool = False):
     """[N, F] uint8 bins -> ([NC, W, C] int32 records on the device of
     ``bins``, wcnt, W, cnts, bits); cnts[i] (numpy) is the number of valid
     rows of chunk i. Bits equal the JAX package's ``pack_records``: bin
     words at the narrowest width the bin range allows (4 bits under 16
     bins, 6 under 64, else 8), pad rows zero, rids from ``rid_base``;
     every row in the bag at first (``with_bag``: the bag lane 1.0; COMPACT
-    sets its meta bag bit always)."""
+    sets its meta bag bit always). COMPACT's meta label is the label bit,
+    or with ``num_class`` > 1 the integer class (& 127); its score and
+    probability lanes start at zero."""
     n, f = bins.shape
     dev = bins.device
     bmax = max(int(bins.max()) if n * f else 0, max_bin - 1)
     bits = 4 if bmax < 16 else (6 if bmax < 64 else 8)
     bpw = _bpw_for_bits(bits)
     wcnt = (f + bpw - 1) // bpw
-    lanes, w_pad = lane_layout(wcnt, compact, ext, with_bag)
+    lanes, w_pad = lane_layout(wcnt, compact, ext, with_bag, num_class,
+                               with_prob)
     nc = (n + chunk - 1) // chunk
     n_pad = nc * chunk
     rec = torch.zeros((nc, w_pad, chunk), dtype=torch.int32, device=dev)
@@ -210,8 +229,9 @@ def pack_records(bins: torch.Tensor, label, weight, chunk: int,
     if ext:
         rec[:, lanes["rid"], :] = lane(rid.to(torch.int32))
     elif compact:
-        lab = (torch.as_tensor(np.asarray(label), device=dev) > 0) \
-            .to(torch.int64)
+        lab = torch.as_tensor(np.asarray(label), device=dev)
+        lab = (lab.to(torch.int64) & META_LABEL_MASK) if num_class > 1 \
+            else (lab > 0).to(torch.int64)
         meta = rid & META_RID_MASK
         meta[:n] |= (lab << META_LABEL) | (1 << META_BAG)
         rec[:, lanes["meta"], :] = lane(_as_int32(meta))
@@ -293,25 +313,59 @@ def _valid_rows(meta: torch.Tensor, C: int) -> torch.Tensor:
     return pos[None, :] < (meta & META_CNT_MASK)[:, None]
 
 
+class ClassGrad(NamedTuple):
+    """Class ``cls``'s gradient of a K-class COMPACT record (JAX package:
+    the engine's `_mc_payload_fn`): ``kind`` "prob" reads the f32
+    probability ``lane`` and gives g = p - [label == cls], h = (2 p)(1 -
+    p) (softmax); "score" reads the class's score ``lane`` and gives the
+    logistic loss of label ``label == cls`` with ``sigmoid``, ``w_pos``
+    and ``w_neg`` (one-vs-all). The label is meta bits 24-30 of lane
+    ``meta_lane``, whose bit 31 is the bag bit."""
+    kind: str
+    cls: int
+    lane: int
+    meta_lane: int
+    sigmoid: float = 1.0
+    w_pos: float = 1.0
+    w_neg: float = 1.0
+
+
+def _meta_lane(grad, wcnt: int) -> int:
+    """The COMPACT meta lane: a class gradient's own, else the lane after
+    the score."""
+    return grad.meta_lane if isinstance(grad, ClassGrad) else wcnt + 1
+
+
 def _payload(records: torch.Tensor, wcnt: int, grad, gh_off: int = 2):
     """[NC, C] (g, h): the grad/hess lanes at ``wcnt + gh_off`` (grad
-    None; STANDARD: 2, EXT: 1) or recomputed from the score lane and the
-    meta label bits by ``grad`` (COMPACT)."""
+    None; STANDARD: 2, EXT: 1), or recomputed by ``grad`` from a COMPACT
+    record: a `PointGrad` from the score lane and the meta label bits, a
+    `ClassGrad` from its class's lane and whether the meta label is its
+    class."""
     if grad is None:
         return (records[:, wcnt + gh_off].view(torch.float32),
                 records[:, wcnt + gh_off + 1].view(torch.float32))
+    label = (records[:, _meta_lane(grad, wcnt)] >> META_LABEL) \
+        & META_LABEL_MASK
+    if isinstance(grad, ClassGrad):
+        v = records[:, grad.lane].view(torch.float32)
+        is_lab = (label == grad.cls).to(torch.float32)
+        if grad.kind == "prob":
+            return v - is_lab, 2.0 * v * (1.0 - v)
+        return PointGrad("binary", grad.sigmoid, grad.w_pos,
+                         grad.w_neg)(v, is_lab)
     score = records[:, wcnt].view(torch.float32)
-    label = ((records[:, wcnt + 1] >> META_LABEL) & META_LABEL_MASK) \
-        .to(torch.float32)
-    return grad(score, label)
+    return grad(score, label.to(torch.float32))
 
 
-def _in_bag(records: torch.Tensor, wcnt: int, bag_lane: int):
+def _in_bag(records: torch.Tensor, wcnt: int, bag_lane: int,
+            meta_lane: Optional[int] = None):
     """[NC, C] rows in the bag (JAX package: `_payload_gh`'s rule), or
-    None for ``bag_lane`` -1: -2 reads COMPACT's meta bit 31, >= 0 the
-    f32 lane ``bag_lane`` (> 0.5)."""
+    None for ``bag_lane`` -1: -2 reads COMPACT's meta bit 31 (of lane
+    ``meta_lane``, by default ``wcnt + 1``), >= 0 the f32 lane
+    ``bag_lane`` (> 0.5)."""
     if bag_lane == -2:
-        return records[:, wcnt + 1] < 0
+        return records[:, wcnt + 1 if meta_lane is None else meta_lane] < 0
     if bag_lane >= 0:
         return records[:, bag_lane].view(torch.float32) > 0.5
     return None
@@ -328,7 +382,7 @@ def _slot_histograms(records, take, slot_of_chunk, num_slots, num_features,
     blocked f32 sums do. Rows out of the bag (`_in_bag`) add nothing."""
     nc, _, C = records.shape
     dev = records.device
-    bag = _in_bag(records, wcnt, bag_lane)
+    bag = _in_bag(records, wcnt, bag_lane, _meta_lane(grad, wcnt))
     if bag is not None:
         take = take & bag
     out = torch.zeros((num_slots, num_features, num_bins, NUM_STATS),
@@ -451,7 +505,7 @@ def _lib():
             "lgbt_move_partition": [p, i, i, i, i, i, i, i, p, p, p, p, p,
                                     p, p, p, i, p, p, p],
             "lgbt_slot_hist": [p, i, i, i, i, i, i, i, i, i, i, i, i, p, p,
-                               i, i, f, f, f, i, p, p, p, p],
+                               i, i, f, f, f, i, i, i, i, p, p, p, p],
             "lgbt_slot_hist_occupancy": [i],
             "lgbt_aligned_smem_optin": [i],
         }
@@ -501,11 +555,15 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-def _grad_args(grad):
+def _grad_args(grad, wcnt: int):
+    """(kind, sigmoid, w_pos, w_neg, class, value lane, meta lane) of the
+    kernels' payload."""
     if grad is None:
-        return 0, 0.0, 0.0, 0.0
+        return 0, 0.0, 0.0, 0.0, 0, 0, wcnt + 1
+    lane, cls = (grad.lane, grad.cls) if isinstance(grad, ClassGrad) \
+        else (wcnt, 0)
     return (_GRAD_KIND[grad.kind], float(grad.sigmoid), float(grad.w_pos),
-            float(grad.w_neg))
+            float(grad.w_neg), cls, lane, _meta_lane(grad, wcnt))
 
 
 def slot_hist_smem(C: int, num_features: int, num_bins: int,
@@ -585,7 +643,12 @@ def slot_hist_ctas_per_sm(ordinal: int, smem: int) -> int:
 
 
 def _check_bag_lane(bag_lane: int, W: int, wcnt: int, grad) -> None:
-    """-1; -2 with a COMPACT ``grad``; or a lane past the bin words."""
+    """-1; -2 with a COMPACT ``grad``; or a lane past the bin words; and
+    a `ClassGrad`'s lanes among the value lanes."""
+    if isinstance(grad, ClassGrad) and not (
+            wcnt <= grad.lane < W and wcnt <= grad.meta_lane < W):
+        raise ValueError(f"class lanes {grad.lane}, {grad.meta_lane} "
+                         f"outside the value lanes [{wcnt}, {W})")
     if bag_lane == -1 or (bag_lane == -2 and grad is not None) \
             or wcnt <= bag_lane < W:
         return
@@ -613,13 +676,14 @@ def _slot_hist_cuda(records, slots, meta, num_slots, num_features,
     out = torch.empty(cells + (NUM_STATS,), dtype=torch.float32, device=dev)
     gh = torch.zeros(cells + (2,), dtype=torch.float64, device=dev)
     cnt = torch.zeros(cells, dtype=torch.int32, device=dev)
-    kind, sig, wp, wn = _grad_args(grad)
+    kind, sig, wp, wn, cls, vlane, mlane = _grad_args(grad, wcnt)
     with torch.cuda.device(dev):
         err = fns["lgbt_slot_hist"](
             records.data_ptr(), nc, W, C, wcnt, gh_off, bits, num_features,
             num_bins, fpb, tile_chunks, grid_x, smem, slots.data_ptr(),
-            meta.data_ptr(), num_slots, kind, sig, wp, wn, bag_lane,
-            gh.data_ptr(), cnt.data_ptr(), out.data_ptr(), _stream(dev))
+            meta.data_ptr(), num_slots, kind, sig, wp, wn, cls, vlane,
+            mlane, bag_lane, gh.data_ptr(), cnt.data_ptr(), out.data_ptr(),
+            _stream(dev))
     _raise_on(err, "slot_hist_pass")
     return out
 
@@ -652,6 +716,8 @@ def slot_hist_pass(records, slots, meta, num_slots, num_features, num_bins,
     LAUNCHES["slot_hist_pass"] += 1
     if bag_lane != -1:
         LAUNCHES["slot_hist_pass_bag"] += 1
+    if isinstance(grad, ClassGrad):
+        CLASS_LAUNCHES["slot_hist_pass"] += 1
     return out
 
 
@@ -802,6 +868,8 @@ def move_pass(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
         LAUNCHES["move_pass_cat"] += 1
     if bag_lane != -1:
         LAUNCHES["move_pass_bag"] += 1
+    if isinstance(grad, ClassGrad):
+        CLASS_LAUNCHES["move_pass"] += 1
     return out, hist
 
 

@@ -124,6 +124,18 @@
 // every row with its meta word or bag lane, and the count pass counts
 // every physical row: under bagging it drives the layout, since the
 // histogram counts are in-bag counts.
+// Multiclass (the JAX package's _payload_gh with num_class > 1,
+// lightgbm_tpu/ops/aligned.py:361-367, and its engine's _mc_payload_fn):
+// K-class COMPACT records hold K score lanes, under softmax K probability
+// lanes after them, then the meta lane, whose bits 24-30 are the integer
+// class. Class k's histogram reads one lane, val_lane, and the meta lane,
+// meta_lane (an argument, no longer the lane after the score): softmax
+// (kMcProb) g = p - [label == k], h = (2 p)(1 - p); one-vs-all (kMcScore)
+// the logistic loss of class k's score with the label [label == k] and
+// that class's sigmoid and weights. The class kinds are a template
+// parameter chosen at the launch, as the bag mode is, so the single-class
+// routes keep their code; multiclass is COMPACT only, bagged by the meta
+// bit.
 // Gradients of the COMPACT layout are computed in the histogram kernel
 // from the score lane and the label bits of the meta lane, with the
 // JAX package's f32 op order pinned by __fmul_rn/__fadd_rn/__fdiv_rn (so
@@ -147,7 +159,9 @@ constexpr int kCat = 25;
 constexpr int kCntMask = (1 << 20) - 1;
 constexpr int kFirst = 20, kLast = 21;
 constexpr int kMetaLabel = 24, kMetaLabelMask = 127;
-constexpr int kGradLanes = 0, kGradBinary = 1, kGradL2 = 2;
+constexpr int kGradLanes = 0, kGradBinary = 1, kGradL2 = 2, kGradProb = 3,
+              kGradScore = 4;
+constexpr int kMcNone = 0, kMcProb = 1, kMcScore = 2;
 constexpr int kCountThreads = 256;  // count CTAs, 4 an SM
 constexpr int kMoveThreads = 256;  // partition CTAs, 4 an SM
 constexpr int kHistThreads = 1024;  // slot_hist CTAs (ops/aligned.py)
@@ -164,30 +178,11 @@ __device__ __forceinline__ bool goes_left(int binv, int r1, int r2) {
   return is_def ? dl != 0 : binv <= thr;
 }
 
-// (g, h) of one row: from the grad/hess lanes at wcnt + gh_off (STANDARD:
-// 2, EXT: 1) or recomputed from the score lane and the meta label
-// (COMPACT)
-__device__ __forceinline__ void payload(const int32_t* chunk, int C, int r,
-                                        int wcnt, int gh_off, int kind,
-                                        float sig, float wp, float wn,
-                                        float& g, float& h) {
-  if (kind == kGradLanes) {
-    g = __int_as_float(chunk[static_cast<long long>(wcnt + gh_off) * C + r]);
-    h = __int_as_float(
-        chunk[static_cast<long long>(wcnt + gh_off + 1) * C + r]);
-    return;
-  }
-  const float score = __int_as_float(chunk[static_cast<long long>(wcnt) * C
-                                           + r]);
-  const int meta = chunk[static_cast<long long>(wcnt + 1) * C + r];
-  const float label = static_cast<float>((meta >> kMetaLabel)
-                                         & kMetaLabelMask);
-  if (kind == kGradL2) {
-    g = __fsub_rn(score, label);
-    h = 1.0f;
-    return;
-  }
-  const bool pos = label > 0.0f;
+// The logistic loss's (g, h) of one score with label pos
+// (binary_objective.hpp, in the JAX package's f32 op order)
+__device__ __forceinline__ void logistic(float score, bool pos, float sig,
+                                         float wp, float wn, float& g,
+                                         float& h) {
   const float sl = pos ? 1.0f : -1.0f;
   const float lw = pos ? wp : wn;
   const float resp = __fdiv_rn(
@@ -198,14 +193,56 @@ __device__ __forceinline__ void payload(const int32_t* chunk, int C, int r,
   h = __fmul_rn(__fmul_rn(absr, __fsub_rn(sig, absr)), lw);
 }
 
+// (g, h) of one row: from the grad/hess lanes at wcnt + gh_off (STANDARD:
+// 2, EXT: 1), recomputed from the score lane and the meta label (COMPACT),
+// or for class cls (Mc) from its lane val_lane and whether the label of
+// the meta lane is cls
+template <int Mc>
+__device__ __forceinline__ void payload(const int32_t* chunk, int C, int r,
+                                        int wcnt, int gh_off, int kind,
+                                        float sig, float wp, float wn,
+                                        int cls, int val_lane, int meta_lane,
+                                        float& g, float& h) {
+  if (Mc != kMcNone) {
+    const float v =
+        __int_as_float(chunk[static_cast<long long>(val_lane) * C + r]);
+    const int meta = chunk[static_cast<long long>(meta_lane) * C + r];
+    const bool lab = ((meta >> kMetaLabel) & kMetaLabelMask) == cls;
+    if (Mc == kMcProb) {
+      g = __fsub_rn(v, lab ? 1.0f : 0.0f);
+      h = __fmul_rn(__fmul_rn(2.0f, v), __fsub_rn(1.0f, v));
+    } else {
+      logistic(v, lab, sig, wp, wn, g, h);
+    }
+    return;
+  }
+  if (kind == kGradLanes) {
+    g = __int_as_float(chunk[static_cast<long long>(wcnt + gh_off) * C + r]);
+    h = __int_as_float(
+        chunk[static_cast<long long>(wcnt + gh_off + 1) * C + r]);
+    return;
+  }
+  const float score = __int_as_float(chunk[static_cast<long long>(wcnt) * C
+                                           + r]);
+  const int meta = chunk[static_cast<long long>(meta_lane) * C + r];
+  const float label = static_cast<float>((meta >> kMetaLabel)
+                                         & kMetaLabelMask);
+  if (kind == kGradL2) {
+    g = __fsub_rn(score, label);
+    h = 1.0f;
+    return;
+  }
+  logistic(score, label > 0.0f, sig, wp, wn, g, h);
+}
+
 // Row r of a chunk is in the bag: every row (kBagNone), bit 31 of the
-// COMPACT meta word at lane wcnt + 1 (kBagMeta), or the f32 lane bag_lane
+// COMPACT meta word at lane meta_lane (kBagMeta), or the f32 lane bag_lane
 // above 0.5 (kBagLane)
 template <int Bag>
 __device__ __forceinline__ bool in_bag(const int32_t* chunk, int C, int r,
-                                       int wcnt, int bag_lane) {
+                                       int meta_lane, int bag_lane) {
   if (Bag == kBagMeta) {
-    return chunk[static_cast<long long>(wcnt + 1) * C + r] < 0;
+    return chunk[static_cast<long long>(meta_lane) * C + r] < 0;
   }
   if (Bag == kBagLane) {
     return __int_as_float(chunk[static_cast<long long>(bag_lane) * C + r])
@@ -593,16 +630,17 @@ __device__ __forceinline__ void add_row(const int32_t* chunk, int C, int r,
 // slot's chunks within a tile is scaled to its largest |g| and |h| (a
 // first pass over the run's payloads), summed in the shared cells and
 // added to the f64 sums (a stat with a non-finite value straight into
-// them). A row out of the bag (in_bag<Bag>) is skipped in both passes.
-template <int Bag>
+// them). A row out of the bag (in_bag<Bag>) is skipped in both passes;
+// Mc picks class cls's payload (payload<Mc>).
+template <int Bag, int Mc>
 __global__ void __launch_bounds__(kHistThreads, 1)
 slot_hist_kernel(const int32_t* __restrict__ rec, int W, int C, int wcnt,
                  int gh_off, int bits, int num_features, int num_bins,
                  int feat_per_block, int tile_chunks, int nc,
                  const int32_t* __restrict__ slots,
                  const int32_t* __restrict__ meta, int num_slots, int kind,
-                 float sig, float wp, float wn, int bag_lane,
-                 double* __restrict__ gh_out,
+                 float sig, float wp, float wn, int cls, int val_lane,
+                 int meta_lane, int bag_lane, double* __restrict__ gh_out,
                  unsigned* __restrict__ cnt_out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int f0 = blockIdx.y * feat_per_block;
@@ -643,10 +681,10 @@ slot_hist_kernel(const int32_t* __restrict__ rec, int W, int C, int wcnt,
         for (int q = threadIdx.x; q < nq; q += blockDim.x) {
           const int ci = q / C, r = q - ci * C;
           if (r < tcnt[i + ci]
-              && in_bag<Bag>(run + ci * cw, C, r, wcnt, bag_lane)) {
+              && in_bag<Bag>(run + ci * cw, C, r, meta_lane, bag_lane)) {
             float g, h;
-            payload(run + ci * cw, C, r, wcnt, gh_off, kind, sig, wp, wn, g,
-                    h);
+            payload<Mc>(run + ci * cw, C, r, wcnt, gh_off, kind, sig, wp, wn,
+                        cls, val_lane, meta_lane, g, h);
             mg = max(mg, __float_as_uint(g) & 0x7fffffffu);
             mh = max(mh, __float_as_uint(h) & 0x7fffffffu);
           }
@@ -670,9 +708,10 @@ slot_hist_kernel(const int32_t* __restrict__ rec, int W, int C, int wcnt,
           const int ci = q / C, r = q - ci * C;
           if (r >= tcnt[i + ci]) continue;
           const int32_t* chunk = run + ci * cw;
-          if (!in_bag<Bag>(chunk, C, r, wcnt, bag_lane)) continue;
+          if (!in_bag<Bag>(chunk, C, r, meta_lane, bag_lane)) continue;
           float g, h;
-          payload(chunk, C, r, wcnt, gh_off, kind, sig, wp, wn, g, h);
+          payload<Mc>(chunk, C, r, wcnt, gh_off, kind, sig, wp, wn, cls,
+                      val_lane, meta_lane, g, h);
           unsigned gh, gl, hh, hl;
           fg.split(g, gh, gl);
           fh.split(h, hh, hl);
@@ -717,6 +756,28 @@ __global__ void hist_finalize_kernel(const double* __restrict__ gh,
 }
 
 int check() { return static_cast<int>(cudaGetLastError()); }
+
+using SlotHistFn = void (*)(const int32_t*, int, int, int, int, int, int,
+                            int, int, int, int, const int32_t*,
+                            const int32_t*, int, int, float, float, float,
+                            int, int, int, int, double*, unsigned*);
+
+// The instantiations: the single-class routes in each bag mode, the class
+// kinds unbagged and with COMPACT's meta bit
+const SlotHistFn kSlotHist[] = {
+    slot_hist_kernel<kBagNone, kMcNone>, slot_hist_kernel<kBagMeta, kMcNone>,
+    slot_hist_kernel<kBagLane, kMcNone>, slot_hist_kernel<kBagNone, kMcProb>,
+    slot_hist_kernel<kBagMeta, kMcProb>, slot_hist_kernel<kBagNone, kMcScore>,
+    slot_hist_kernel<kBagMeta, kMcScore>};
+
+// The instantiation of a launch: its bag mode and payload kind, or null
+// for a pair no route takes (a class kind with an f32 bag lane)
+SlotHistFn slot_hist_for(int kind, int bag_lane) {
+  const int bag = bag_lane == -1 ? 0 : bag_lane == -2 ? 1 : 2;
+  if (kind == kGradProb) return bag == 2 ? nullptr : kSlotHist[3 + bag];
+  if (kind == kGradScore) return bag == 2 ? nullptr : kSlotHist[5 + bag];
+  return kSlotHist[bag];
+}
 
 }  // namespace
 
@@ -812,21 +873,23 @@ int lgbt_move_partition(const void* rec, int nc, int W, int C, int w_used,
 // gh ([num_slots, F, B, 2] f64) and cnt ([num_slots, F, B] u32) are
 // accumulators zeroed by the caller. kind 0 reads the grad/hess lanes at
 // wcnt + gh_off; 1 (binary logloss) and 2 (l2) recompute them from the
-// score and meta lanes. bag_lane -1 takes every valid row, -2 the rows
-// with COMPACT's meta bit 31 set, >= 0 those whose f32 lane bag_lane is
-// above 0.5. feat_per_block, tile_chunks, grid_x and smem are the launch
-// shape of ops/aligned.py::slot_hist_launch_shape.
+// score lane and the meta lane meta_lane; 3 (softmax) and 4 (one-vs-all)
+// class cls's from lane val_lane and the meta lane. bag_lane -1 takes
+// every valid row, -2 the rows with COMPACT's meta bit 31 set, >= 0
+// those whose f32 lane bag_lane is above 0.5 (not with kinds 3 and 4).
+// feat_per_block, tile_chunks, grid_x and smem are the launch shape of
+// ops/aligned.py::slot_hist_launch_shape.
 int lgbt_slot_hist(const void* rec, int nc, int W, int C, int wcnt,
                    int gh_off, int bits, int num_features, int num_bins,
                    int feat_per_block, int tile_chunks, int grid_x, int smem,
                    const void* slots, const void* meta, int num_slots,
-                   int kind, float sig, float wp, float wn, int bag_lane,
-                   void* gh, void* cnt, void* out, void* stream) {
+                   int kind, float sig, float wp, float wn, int cls,
+                   int val_lane, int meta_lane, int bag_lane, void* gh,
+                   void* cnt, void* out, void* stream) {
   if (nc == 0 || num_features == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto kernel = bag_lane == -1   ? slot_hist_kernel<kBagNone>
-                      : bag_lane == -2 ? slot_hist_kernel<kBagMeta>
-                                       : slot_hist_kernel<kBagLane>;
+  const SlotHistFn kernel = slot_hist_for(kind, bag_lane);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -835,8 +898,9 @@ int lgbt_slot_hist(const void* rec, int nc, int W, int C, int wcnt,
       static_cast<const int32_t*>(rec), W, C, wcnt, gh_off, bits,
       num_features, num_bins, feat_per_block, tile_chunks, nc,
       static_cast<const int32_t*>(slots),
-      static_cast<const int32_t*>(meta), num_slots, kind, sig, wp, wn,
-      bag_lane, static_cast<double*>(gh), static_cast<unsigned*>(cnt));
+      static_cast<const int32_t*>(meta), num_slots, kind, sig, wp, wn, cls,
+      val_lane, meta_lane, bag_lane, static_cast<double*>(gh),
+      static_cast<unsigned*>(cnt));
   const int err = check();
   if (err != 0) return err;
   const long long cells =
@@ -852,13 +916,11 @@ int lgbt_slot_hist(const void* rec, int nc, int W, int C, int wcnt,
 
 // CTAs of slot_hist_kernel that the CUDA occupancy calculator fits on an
 // SM of the current device with `smem` bytes of dynamic shared memory
-// each, the fewest of its three instantiations; 0 where they do not fit,
-// -1 on a CUDA error.
+// each, the fewest of its instantiations; 0 where they do not fit, -1 on
+// a CUDA error.
 int lgbt_slot_hist_occupancy(int smem) {
   int fewest = -1;
-  for (const auto kernel : {slot_hist_kernel<kBagNone>,
-                            slot_hist_kernel<kBagMeta>,
-                            slot_hist_kernel<kBagLane>}) {
+  for (const SlotHistFn kernel : kSlotHist) {
     int n = -1;
     if (cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,11 +1,13 @@
 """Evaluation metrics (copied from lightgbm_tpu/ops/metrics.py: l2, rmse,
-binary logloss, binary error, AUC and NDCG).
+binary logloss, binary error, AUC, multi_logloss, multi_error and NDCG).
 
 Re-creates the reference metric interface (`src/metric/*.hpp`, factory
 `src/metric/metric.cpp:16-60`): `eval(raw_scores, objective)` applying
 the objective's `ConvertOutput`, returning named values plus
 `bigger_is_better` for early stopping (`include/LightGBM/metric.h`).
 Host NumPy (f64): metrics run once per iteration over the label vector.
+A metric with an `eval_dev` (AUC) evaluates the device scores instead,
+and the training loop prefers it, as the JAX package's `GBDT._eval` does.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import math
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..config import Config
 from .ranking import dcg_at_k, max_dcg_at_k
@@ -38,6 +41,11 @@ class Metric:
 
     def eval(self, scores: np.ndarray, objective) -> List[Tuple[str, float]]:
         raise NotImplementedError
+
+    def eval_dev(self, scores_dev, objective):
+        """The metric over the [K, N] device scores, or None where it has
+        only the host form."""
+        return None
 
 
 class _PointwiseMetric(Metric):
@@ -128,6 +136,82 @@ class AUCMetric(Metric):
             return [(self.name, 1.0)]
         return [(self.name, acc / (total_pos * total_neg))]
 
+    def eval_dev(self, scores_dev, objective):
+        """The JAX package's device AUC (`AUCMetric.eval_dev`) in f32 on
+        the device of the scores: unweighted, integer counts a tie group,
+        then f32 products and one f32 sum; weighted, f32 sums throughout
+        (its ~1e-6 relative form). Sorted by score, ties grouped."""
+        score = scores_dev[0]
+        dev = score.device
+        if getattr(self, "_y_dev", None) is None \
+                or self._y_dev.device != dev:
+            self._y_dev = torch.as_tensor(self.label > 0, device=dev)
+            self._w_dev = (torch.as_tensor(self.weight, dtype=torch.float32,
+                                           device=dev)
+                           if self.weight is not None else None)
+        n = score.shape[0]
+        order = torch.argsort(score, stable=True)
+        s = score[order]
+        yo = self._y_dev[order]
+        gid = torch.zeros(n, dtype=torch.int64, device=dev)
+        gid[1:] = torch.cumsum((s[1:] != s[:-1]).long(), 0)
+        if self._w_dev is not None:
+            wo = self._w_dev[order]
+            pos_w = wo * yo.float()
+            neg_w = wo * (1.0 - yo.float())
+            gneg = torch.zeros(n, dtype=torch.float32,
+                               device=dev).index_add_(0, gid, neg_w)
+            gpos = torch.zeros(n, dtype=torch.float32,
+                               device=dev).index_add_(0, gid, pos_w)
+        else:
+            yi = yo.int()
+            gpos = torch.zeros(n, dtype=torch.int32,
+                               device=dev).index_add_(0, gid, yi)
+            gneg = torch.zeros(n, dtype=torch.int32,
+                               device=dev).index_add_(0, gid, 1 - yi)
+        cumneg = torch.cumsum(gneg, 0, dtype=gneg.dtype)
+        before = (cumneg - gneg).float()
+        acc = torch.sum(gpos.float() * (before + 0.5 * gneg.float()))
+        tp = gpos.sum().float()
+        tn = gneg.sum().float()
+        if float(tp) <= 0 or float(tn) <= 0:
+            return [(self.name, 1.0)]
+        return [(self.name, float(acc / torch.clamp(tp * tn, min=1e-30)))]
+
+
+class MultiLoglossMetric(Metric):
+    """reference multiclass_metric.hpp (MultiLogloss): the mean of
+    -log p of the true class, p the objective's converted output."""
+    name = "multi_logloss"
+
+    def eval(self, scores, objective):
+        k, n = scores.shape
+        raw = scores.astype(np.float64).T
+        p = objective.convert_output(raw) if objective is not None else raw
+        li = self.label.astype(np.int64)
+        pt = -np.log(np.maximum(p[np.arange(n), li], K_EPSILON))
+        s = float(np.sum(pt * self.weight)) if self.weight is not None \
+            else float(np.sum(pt))
+        return [(self.name, s / self.sum_weights)]
+
+
+class MultiErrorMetric(Metric):
+    """reference multiclass_metric.hpp (MultiError): a row is an error
+    when at least ``multi_error_top_k`` classes score above its true
+    class's raw score."""
+    name = "multi_error"
+
+    def eval(self, scores, objective):
+        k, n = scores.shape
+        raw = scores.astype(np.float64).T
+        li = self.label.astype(np.int64)
+        true_score = raw[np.arange(n), li]
+        rank = np.sum(raw > true_score[:, None], axis=1)
+        pt = (rank >= self.cfg.multi_error_top_k).astype(np.float64)
+        s = float(np.sum(pt * self.weight)) if self.weight is not None \
+            else float(np.sum(pt))
+        return [(self.name, s / self.sum_weights)]
+
 
 class _RankMetric(Metric):
     bigger_is_better = True
@@ -179,11 +263,14 @@ class NDCGMetric(_RankMetric):
 _METRICS = {
     "l2": L2Metric, "rmse": RMSEMetric,
     "binary_logloss": BinaryLoglossMetric, "binary_error": BinaryErrorMetric,
-    "auc": AUCMetric, "ndcg": NDCGMetric,
+    "auc": AUCMetric, "multi_logloss": MultiLoglossMetric,
+    "multi_error": MultiErrorMetric, "ndcg": NDCGMetric,
 }
 
 _DEFAULT_METRIC_FOR_OBJECTIVE = {
-    "regression": "l2", "binary": "binary_logloss", "lambdarank": "ndcg",
+    "regression": "l2", "binary": "binary_logloss",
+    "multiclass": "multi_logloss", "multiclassova": "multi_logloss",
+    "lambdarank": "ndcg",
 }
 
 

@@ -1,5 +1,6 @@
 """Objective functions (port of lightgbm_tpu/ops/objectives.py: the base
-class, `RegressionL2`, `BinaryLogloss` and `LambdarankNDCG`).
+class, `RegressionL2`, `BinaryLogloss`, `MulticlassSoftmax`,
+`MulticlassOVA` and `LambdarankNDCG`).
 
 Gradients are f32 torch tensors on the device of the scores, computed
 with the JAX package's f32 op order. Its ``exp`` is XLA's, which is not
@@ -101,6 +102,13 @@ class ObjectiveFunction:
         """The objective's gradient as a pure function of one row's
         values, or None when it is not pointwise: the aligned engine
         evaluates it in the records' permuted row order."""
+        return None
+
+    def mc_lane_mode(self) -> Optional[str]:
+        """How a K-class objective's gradients read the aligned records:
+        "prob" from a class's probability lane (softmax), "score" from its
+        score lane (one-vs-all), None not lane-wise (single class,
+        weighted)."""
         return None
 
     def boost_from_score(self, class_id: int) -> float:
@@ -206,6 +214,116 @@ class BinaryLogloss(ObjectiveFunction):
         return 1.0 / (1.0 + np.exp(-self.cfg.sigmoid * raw))
 
 
+def softmax_rows(scores: torch.Tensor) -> torch.Tensor:
+    """[K, N] f32 softmax over the classes, in `jax.nn.softmax`'s order:
+    the max by successive maximums, ``exp`` of the shifted scores, their
+    sum class by class, then each quotient."""
+    m = scores[0]
+    for j in range(1, scores.shape[0]):
+        m = torch.maximum(m, scores[j])
+    e = exp_f32(scores - m[None, :])
+    tot = e[0]
+    for j in range(1, scores.shape[0]):
+        tot = tot + e[j]
+    return e / tot[None, :]
+
+
+class MulticlassSoftmax(ObjectiveFunction):
+    """reference multiclass_objective.hpp (softmax): p = softmax(scores),
+    g = p - [label == k], h = 2 p (1 - p)."""
+    name = "multiclass"
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self.num_class = cfg.num_class
+
+    @property
+    def num_model_per_iteration(self):
+        return self.num_class
+
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        super().init(metadata, num_data, device)
+        li = self._label_np.astype(np.int32)
+        if num_data and (li.min() < 0 or li.max() >= self.num_class):
+            raise ValueError(f"Label must be in [0, {self.num_class})")
+        self._label_int = torch.as_tensor(li.astype(np.int64),
+                                          device=device)
+        probs = np.zeros(self.num_class)
+        w = (self._weight_np if self._weight_np is not None
+             else np.ones(num_data, np.float32))
+        np.add.at(probs, li, w)
+        self._class_init_probs = probs / probs.sum()
+
+    def get_gradients(self, scores):
+        p = softmax_rows(scores)
+        onehot = torch.arange(self.num_class, device=scores.device)[:, None] \
+            == self._label_int[None, :]
+        g = p - onehot.to(p.dtype)
+        h = 2.0 * p * (1.0 - p)
+        if self.weight is not None:
+            g = g * self.weight[None, :]
+            h = h * self.weight[None, :]
+        return g, h
+
+    def mc_lane_mode(self):
+        return None if self.weight is not None else "prob"
+
+    def boost_from_score(self, class_id):
+        # avg_output = log(class prob) (multiclass_objective.hpp:118-126)
+        return math.log(max(self._class_init_probs[class_id], 1e-300))
+
+    def convert_output(self, raw):
+        e = np.exp(raw - raw.max(axis=-1, keepdims=True))
+        return e / e.sum(axis=-1, keepdims=True)
+
+
+class MulticlassOVA(ObjectiveFunction):
+    """reference multiclass_objective.hpp (one-vs-all): class k is a
+    `BinaryLogloss` of the label ``label == k``, with its own label
+    weights."""
+    name = "multiclassova"
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self.num_class = cfg.num_class
+        self._binary = [BinaryLogloss(cfg) for _ in range(cfg.num_class)]
+
+    @property
+    def num_model_per_iteration(self):
+        return self.num_class
+
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        super().init(metadata, num_data, device)
+        li = self._label_np.astype(np.int32)
+        for k, b in enumerate(self._binary):
+            md = Metadata(num_data)
+            md.set_label((li == k).astype(np.float32))
+            md.weight = metadata.weight
+            b.init(md, num_data, device)
+
+    def get_gradients(self, scores):
+        gs, hs = [], []
+        for k, b in enumerate(self._binary):
+            g, h = b.get_gradients(scores[k:k + 1])
+            gs.append(g[0])
+            hs.append(h[0])
+        return torch.stack(gs), torch.stack(hs)
+
+    def mc_lane_mode(self):
+        return None if self.weight is not None else "score"
+
+    def score_point_grad(self, k: int) -> PointGrad:
+        """Class k's logistic gradient of its own score lane, its label
+        ``label == k``."""
+        return self._binary[k].point_grad_fn()
+
+    def boost_from_score(self, class_id):
+        return self._binary[class_id].boost_from_score(0)
+
+    def convert_output(self, raw):
+        return 1.0 / (1.0 + np.exp(-self.cfg.sigmoid * raw))
+
+
 # the JAX package's fused lambdarank kernel packs queries into tiles of
 # 128-document subtiles (lightgbm_tpu/ops/pallas_rank.py:68)
 RANK_SUBTILE = 128
@@ -276,7 +394,8 @@ class LambdarankNDCG(ObjectiveFunction):
 
 
 _OBJECTIVES = {"regression": RegressionL2, "binary": BinaryLogloss,
-               "lambdarank": LambdarankNDCG}
+               "multiclass": MulticlassSoftmax,
+               "multiclassova": MulticlassOVA, "lambdarank": LambdarankNDCG}
 
 
 def create_objective(cfg: Config) -> Optional[ObjectiveFunction]:

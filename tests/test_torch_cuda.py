@@ -1475,3 +1475,206 @@ def test_count_pass_compact_on_gpu(cuda, monkeypatch, max_bin):
                    & A._valid_rows(a[5], a[0].shape[2])).sum())
               for name, a, _ in calls if name == "move_pass"]
     assert len(set(in_bag)) == 1 and in_bag[0] == int(0.7 * eng.n)
+
+
+def _mc_data(n, K, seed):
+    """n rows of 12 columns (two categorical: 4 and 40 codes) and a label
+    of K classes that the columns move."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, 12))
+    X[:, 10] = rng.integers(0, 4, n)
+    X[:, 11] = rng.integers(0, 40, n)
+    y = (np.floor((X[:, 0] + 2.5) * K / 5) + X[:, 11] % 2).clip(0, K - 1)
+    return X, y
+
+
+def _mc_calls(monkeypatch, objective, K, bagged, rounds=1, n=60000):
+    """Clones of the (args, kwargs) of every B2, B3 and B4 call of a
+    K-class aligned run on the card (``auto``, 63 bins, the two
+    categorical columns)."""
+    X, y = _mc_data(n, K, seed=K)
+    params = {"objective": objective, "num_class": K, "num_leaves": 31,
+              "max_bin": 63, "verbosity": -1,
+              "categorical_feature": "10,11"}
+    if bagged:
+        params.update(bagging_fraction=0.7, bagging_freq=1)
+    calls = []
+
+    def recorder(name, fn):
+        def wrapped(*args, **kw):
+            calls.append((name, tuple(a.clone() if torch.is_tensor(a)
+                                      else a for a in args), dict(kw)))
+            return fn(*args, **kw)
+        return wrapped
+
+    for name in ("move_pass", "count_pass", "slot_hist_pass"):
+        monkeypatch.setattr(AB, name, recorder(name, getattr(AB, name)))
+    A.reset_launches()
+    bst = tlgb.train(params, tlgb.Dataset(X, label=y),
+                     num_boost_round=rounds, verbose_eval=False)
+    eng = bst._gbdt._aligned_eng
+    assert bst._gbdt.train_path == "aligned" and eng.num_class == K
+    assert A.CLASS_LAUNCHES["slot_hist_pass"] \
+        == A.LAUNCHES["slot_hist_pass"] == rounds * K
+    assert A.CLASS_LAUNCHES["move_pass"] == A.LAUNCHES["move_pass"] > 0
+    for _, _, kw in calls:
+        kw.pop("out", None)
+    return bst, eng, calls
+
+
+def _mc_abs_sums(rec, slot_of_chunk, meta, k, wcnt, grad, bag_lane):
+    """`_slot_abs_sums` of a class's payload over the valid (in-bag)
+    rows."""
+    g, h = A._payload(rec, wcnt, grad)
+    take = A._valid_rows(meta, rec.shape[2])
+    if bag_lane != -1:
+        take = take & A._in_bag(rec, wcnt, bag_lane, grad.meta_lane)
+    per_chunk = torch.stack([torch.where(take, g.abs(), 0.0).sum(1),
+                             torch.where(take, h.abs(), 0.0).sum(1)], dim=1)
+    ok = (slot_of_chunk >= 0) & (slot_of_chunk < k)
+    out = torch.zeros((k, 2), dtype=torch.float32, device=rec.device)
+    out.index_add_(0, slot_of_chunk[ok].long(), per_chunk[ok])
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective", ["multiclass", "multiclassova"])
+@pytest.mark.parametrize("bagged", [False, True])
+def test_class_lane_kernels_match_twins_on_gpu(cuda, monkeypatch, objective,
+                                               bagged):
+    """The class-lane kinds of B4 and of B2's smaller-child histograms
+    (softmax reads the probability lanes, one-vs-all the score lanes;
+    with the meta bag bit or not) against their twins on every call of a
+    7-class iteration on the card: counts equal, g/h within 1e-5 x the
+    slot's sum of |g| (|h|); B2's moved records (W = 24 or 16) equal on
+    the rows they cover; B3 on the bagged K-class records equal. Two
+    iterations: the second's payloads take many values."""
+    _, eng, calls = _mc_calls(monkeypatch, objective, 7, bagged, rounds=2)
+    kind = "prob" if objective == "multiclass" else "score"
+    assert eng.mc_mode == kind and eng.W == (24 if kind == "prob" else 16)
+    classes = set()
+    for name, args, kw in calls:
+        if name == "count_pass":
+            assert bagged
+            assert torch.equal(A.count_pass(*args, **kw),
+                               A.count_pass_plain(*args, **kw))
+            continue
+        bl = kw["bag_lane"]
+        assert bl == (-2 if bagged else -1)
+        if name == "move_pass":
+            rec, meta, hs, k = args[0], args[5], args[7], args[8]
+            wcnt, w_used, grad = args[11], args[13], args[14]
+            out, got = A.move_pass(*args, **kw)
+            ref_a, ref = A.move_pass_plain(
+                *args, out=torch.full_like(rec, -1), **kw)
+            ref_b, _ = A.move_pass_plain(
+                *args, out=torch.full_like(rec, -2), **kw)
+            cov = ref_a[:, 0] == ref_b[:, 0]
+            for u in range(w_used):
+                assert torch.equal(out[:, u][cov], ref_a[:, u][cov])
+            _assert_hist_close(got, ref, _mc_abs_sums(
+                rec, hs & 0xFFFFFF, meta, k, wcnt, grad, bl))
+            continue
+        rec, slots, meta, k, _, _, wcnt, _, grad = args
+        assert grad.kind == kind
+        classes.add(grad.cls)
+        _assert_hist_close(A.slot_hist_pass(*args, **kw),
+                           A.slot_hist_pass_plain(*args, **kw),
+                           _mc_abs_sums(rec, slots, meta, k, wcnt, grad, bl))
+    assert classes == set(range(7))
+
+
+@pytest.mark.cuda
+def test_class_lane_kernel_rejects_bag_lane_on_gpu(cuda):
+    """A class kind with an f32 bag lane (no route takes it) is refused
+    by the launch, not run."""
+    bins = torch.randint(0, 60, (4096, 12), dtype=torch.uint8)
+    rec, wcnt, W, cnts, bits = A.pack_records(
+        bins.to(cuda), np.zeros(4096), None, 512, compact=True, max_bin=63,
+        num_class=3, with_prob=True)
+    grad = A.ClassGrad("prob", 0, wcnt + 3, wcnt + 6)
+    meta = torch.tensor(cnts, dtype=torch.int32, device=cuda)
+    slots = torch.zeros_like(meta)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        A.slot_hist_pass(rec, slots, meta, 1, 12, 64, wcnt, bits, grad,
+                         bag_lane=wcnt + 3)
+
+
+@pytest.mark.cuda
+def test_partition_of_31_classes_on_gpu(cuda, monkeypatch):
+    """31-class softmax records (W = 72, 66 lanes used: more than a stage
+    of the partition holds at a chunk of 1,024 rows, so the lanes go in
+    turns): every move of an iteration equal to the twin's on the rows it
+    covers, the class-lane histograms within the bound."""
+    _, eng, calls = _mc_calls(monkeypatch, "multiclass", 31, False,
+                              n=40000)
+    assert eng.W == 72 and eng.w_used == 66
+    lanes, _ = A.move_smem(eng.C, eng.w_used,
+                           A._lib()["lgbt_aligned_smem_optin"](0))
+    assert lanes < eng.w_used
+    moves = [(a, kw) for name, a, kw in calls if name == "move_pass"]
+    for args, kw in moves[:40]:
+        rec, meta, hs, k = args[0], args[5], args[7], args[8]
+        wcnt, w_used, grad = args[11], args[13], args[14]
+        out, got = A.move_pass(*args, **kw)
+        ref_a, ref = A.move_pass_plain(*args, out=torch.full_like(rec, -1),
+                                       **kw)
+        ref_b, _ = A.move_pass_plain(*args, out=torch.full_like(rec, -2),
+                                     **kw)
+        cov = ref_a[:, 0] == ref_b[:, 0]
+        for u in range(w_used):
+            assert torch.equal(out[:, u][cov], ref_a[:, u][cov])
+        _assert_hist_close(got, ref, _mc_abs_sums(
+            rec, hs & 0xFFFFFF, meta, k, wcnt, grad, -1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective", ["multiclass", "multiclassova"])
+@pytest.mark.parametrize("mode", ["leafwise", "level"])
+def test_multiclass_f64_matches_cpu_on_gpu(cuda, objective, mode):
+    """f64 histograms: 3-class trees on the card (leaf-wise, and the
+    level builder at max_depth 4) are the CPU's, with both categorical
+    columns, bagged on the leaf-wise builder."""
+    X, y = _mc_data(20000, 3, seed=5)
+    params = {"objective": objective, "num_class": 3, "num_leaves": 15,
+              "max_bin": 63, "tpu_use_f64_hist": True, "verbosity": -1,
+              "tpu_grow_mode": mode, "categorical_feature": "10,11"}
+    if mode == "level":
+        params["max_depth"] = 4
+    else:
+        params.update(bagging_fraction=0.8, bagging_freq=1)
+    texts = []
+    for dev in ("cuda", "cpu"):
+        bst = tlgb.train({**params, "device_type": dev},
+                         tlgb.Dataset(X, label=y), num_boost_round=3,
+                         verbose_eval=False)
+        t = bst.model_to_string()
+        texts.append(t[t.index("Tree=0"):t.index("end of trees")])
+    assert texts[0] == texts[1]
+
+
+@pytest.mark.cuda
+def test_multiclass_aligned_on_gpu(cuda):
+    """7-class softmax under ``auto`` on the card: the aligned engine, 7
+    builds an iteration, no fallback; [N, 7] predictions whose rows sum
+    to 1, the card's equal to a CPU predict of the model text; the
+    training scores the engine holds are the model's raw predictions."""
+    X, y = _mc_data(60000, 7, seed=9)
+    bst = tlgb.train({"objective": "multiclass", "num_class": 7,
+                      "num_leaves": 31, "max_bin": 63, "verbosity": -1,
+                      "categorical_feature": "10,11"},
+                     tlgb.Dataset(X, label=y), num_boost_round=4,
+                     verbose_eval=False)
+    g = bst._gbdt
+    assert g.train_path == "aligned" and g._aligned_eng.fallbacks == 0
+    assert len(g.aligned_stats) == 28
+    p = bst.predict(X[:5000])
+    assert p.shape == (5000, 7) and np.allclose(p.sum(1), 1.0, atol=1e-6)
+    cpu = tlgb.Booster(model_str=bst.model_to_string(),
+                       params={"device_type": "cpu"})
+    np.testing.assert_allclose(bst.predict(X[:5000], raw_score=True),
+                               cpu.predict(X[:5000], raw_score=True),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(
+        g._aligned_eng.row_scores_all()[:, :5000].t().cpu().numpy(),
+        bst.predict(X[:5000], raw_score=True), rtol=1e-5, atol=1e-5)
