@@ -185,7 +185,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    of 5 rounds; (b) balanced bagging (0.6 / 0.8), 5 rounds, aligned; (c)
    ``tpu_force_big_n`` with bagging, 3 rounds (STANDARD, the f32 bag
    lane); (d) GOSS, 12 rounds at ``learning_rate`` 0.1 (iterations 10-11
-   sample), (e) DART, 5 rounds, (f) RF (``bagging_fraction`` 0.632), 5
+   sample), (e) DART, 3 rounds, (f) RF (``bagging_fraction`` 0.632), 3
    rounds, each on the leaf-wise path, RF's model text with
    ``average_output``; at max_bin 255 a bagged ``auto`` run of 3 rounds.
    Then the bag branch of B4 (the root) and of B2's smaller-child
@@ -208,15 +208,15 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    read from the log, [N, 7] finite predictions (softmax rows summing to
    1), the card's against a CPU predict of its model text, holdout
    multi_logloss and multi_error: (a) softmax under ``auto`` at 63 bins,
-   10 rounds, which must take the aligned engine in its "prob" lanes
+   5 rounds, which must take the aligned engine in its "prob" lanes
    with 7 builds an iteration, every B2 and B4 launch a class kind;
    rounds per tree and fallbacks, the median iteration and one profiled
-   round (busy share, launches, syncs); (b) the same at 255 bins, 5
-   rounds; (c) leaf-wise, 5 rounds: (a)'s metrics at 5 rounds within
-   2e-3 of (c)'s; (d) one-vs-all under ``auto`` ("score" lanes), 5
-   rounds; (e) softmax with ``bagging_fraction`` 0.8 every round, 5
+   round (busy share, launches, syncs); (b) the same at 255 bins, 3
+   rounds; (c) leaf-wise, 2 rounds: (a)'s metrics at 2 rounds within
+   2e-3 of (c)'s; (d) one-vs-all under ``auto`` ("score" lanes), 3
+   rounds; (e) softmax with ``bagging_fraction`` 0.8 every round, 3
    rounds, and one-vs-all so, 3 rounds: the bag bit and B3 driving the
-   layout; (f) ``tpu_grow_mode=level`` at ``max_depth`` 8, 5 rounds; (g)
+   layout; (f) ``tpu_grow_mode=level`` at ``max_depth`` 8, 3 rounds; (g)
    f64 leaf-wise at 20,000 rows, 3 rounds: the card's tree sections are
    the CPU's. Then, on the same table drawn at 10,485,760 rows (63
    bins), one iteration of each of softmax and one-vs-all, unbagged and
@@ -227,7 +227,33 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    root on K = 31 records of the same rows (W = 72, its lanes staged in
    turns), the moved records equal the twin's, and B3 on the bagged
    K-class records against its twin; each timed beside the twin, the
-   byte bound and, for the histograms, one ``index_add_``.
+   byte bound and, for the histograms, one ``index_add_``;
+18. quantized histograms, forced splits, CEGB and early stopping (run
+   where their data is: (a) after phase 3, (b) and (c) beside phase 4 at
+   63 bins, (d) after phase 8): (a) B1's integer branch
+   (``hist_int_kernel<int8_t>``, ``<int16_t>``) against its twin at the
+   HIGGS shape (10,485,760 x 28), 63 and 255 bins, int8 and int16
+   payloads of ``quantize_gh``, over the root and a gathered leaf of
+   20,000 rows: bit-equal; warm and cold ms, one kernel and no memset a
+   call (a captured CUDA graph), the twin, one int64 ``index_add_`` and
+   the byte bound; the kernel's SASS atomics, which must hold no
+   compare-and-swap loop; (b) ``tpu_quant_hist=on`` at 16 and 8 bits,
+   leaf-wise on phase 4's data (255 leaves, 63 bins), 5 rounds each, the
+   counts zeroed just before and read just after: B1's integer launches,
+   no f32 one, the median iteration, holdout AUC within 2e-3 of phase
+   4's f32 run at 5 rounds, one profiled round of the 8-bit run (B1's
+   integer kernel once an integer call); a 20,000-row cut whose card predictions match
+   the CPU port's within 1e-5 with the same leaf counts, and whether the
+   tree sections are equal; (c) a three-level forced-splits JSON on
+   HIGGS features with the CEGB split penalty and a coupled penalty a
+   feature, leaf-wise on phase 4's data, 5 rounds: every tree starts
+   with the forced splits in BFS order; then a 20,000-row f64 cut whose
+   card tree sections equal the CPU port's, each tree charging the
+   coupled penalty only of the features no earlier tree used; (d) early
+   stopping on a 20,000-row cut with a 10,000-row validation set (AUC
+   and logloss, ``early_stopping_rounds`` 3, f64 histograms), with and
+   without ``first_metric_only``: ``best_iteration`` and ``best_score``
+   on the card equal the CPU port's.
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -267,8 +293,9 @@ ALIGNED_KERNELS = ("partition_kernel", "count_kernel", "slot_hist_kernel",
                    "hist_finalize_kernel")
 # the kernel of rank.cu (B6): one launch a call
 RANK_KERNELS = ("rank_kernel",)
-# the kernels of histogram.cu (B1): one launch a call, f32 and f64
-HIST_KERNELS = ("hist_fixed_kernel", "hist_f64_kernel")
+# the kernels of histogram.cu (B1): one launch a call, f32, f64 and the
+# integer branch of quantized payloads (int8 and int16 instantiations)
+HIST_KERNELS = ("hist_fixed_kernel", "hist_f64_kernel", "hist_int_kernel")
 # the kernels of histogram_words.cu (B5): one launch a call, f32 and f64
 WORDS_KERNELS = ("words_fixed_kernel", "words_f64_kernel")
 MSLR_ROWS, MSLR_FEATURES = 2_270_000, 137     # bench.py stage 3
@@ -700,6 +727,9 @@ def phase_main(torch, lt, X, y, rows: int, max_bin: int) -> tuple:
         f"{r['peak_bytes'] / 2**30:.3f} GiB, model text "
         f"{r['model_chars']} chars")
     if max_bin == 63:
+        # phase 18 (b) holds the quantized runs of 5 rounds to this
+        r["auc_at_5"] = holdout_auc(lt, bst.predict(
+            Xte, raw_score=True, num_iteration=5), yte)
         r["profile"] = profile_round(torch, bst)
     del bst
     torch.cuda.empty_cache()
@@ -892,9 +922,9 @@ def phase_bagging(torch, lt, ds, params, X, y, rows: int) -> dict:
     # (d)-(f) the variants, leaf-wise
     for key, extra, rounds, cls in (
             ("goss", {"boosting": "goss"}, 12, "GOSS"),
-            ("dart", {"boosting": "dart"}, 5, "DART"),
+            ("dart", {"boosting": "dart"}, 3, "DART"),
             ("rf", {"boosting": "rf", "bagging_fraction": 0.632,
-                    "bagging_freq": 1}, 5, "RF")):
+                    "bagging_freq": 1}, 3, "RF")):
         bst, r = train_run(torch, lt, ds, {**params, **extra}, rounds, Xte,
                            yte, key)
         g = bst._gbdt
@@ -1472,7 +1502,8 @@ def profile_round(torch, bst, hist_names=HIST_KERNELS,
     the main path's counts), and the memsets. With this checkout's
     kernels, each of B1's and B5's must launch as often as the round's
     calls of `leaf_histogram` (`histogram_from_words`) on the card in its
-    precision, B2's partition kernel as often as `move_pass` (one memset
+    precision (B1's integer kernel as its integer calls), B2's partition
+    kernel as often as `move_pass` (one memset
     beside it: two launches a call), B3's count kernel as `count_pass`
     and B6's as `lambdarank_grad`, one lost profiler record aside."""
     from torch.profiler import ProfilerActivity, profile
@@ -1482,6 +1513,7 @@ def profile_round(torch, bst, hist_names=HIST_KERNELS,
     from lightgbm_tpu_torch.ops import rank as R
     torch.cuda.synchronize()
     calls = dict(H.LAUNCHES)
+    icalls = sum(H.INT_LAUNCHES.values())
     wcalls = dict(H.WORDS_LAUNCHES)
     moves = A.LAUNCHES["move_pass"]
     counts = A.LAUNCHES["count_pass"]
@@ -1493,6 +1525,7 @@ def profile_round(torch, bst, hist_names=HIST_KERNELS,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     calls = {k: H.LAUNCHES[k] - v for k, v in calls.items()}
+    calls["int"] = sum(H.INT_LAUNCHES.values()) - icalls
     wcalls = {k: H.WORDS_LAUNCHES[k] - v for k, v in wcalls.items()}
     moves = A.LAUNCHES["move_pass"] - moves
     counts = A.LAUNCHES["count_pass"] - counts
@@ -1541,11 +1574,12 @@ def profile_round(torch, bst, hist_names=HIST_KERNELS,
             for name, a in rank.items()) + f"; lambdarank_grad calls "
             f"{grads}")
     hist = kernel_times(kernels, hist_names)
-    if hist or calls["f32"] or calls["f64"]:
+    if hist or any(calls.values()):
         log("  B1 kernels: " + ", ".join(
             f"{name} {a['ms']:.3f} ms in {a['launches']} launches"
             for name, a in hist.items()) + f"; leaf_histogram calls "
-            f"{calls['f32']} f32, {calls['f64']} f64")
+            f"{calls['f32']} f32, {calls['f64']} f64, {calls['int']} "
+            "integer")
     words = kernel_times(kernels, words_names)
     if words or any(wcalls.values()):
         log("  B5 kernels: " + ", ".join(
@@ -2879,8 +2913,13 @@ COVTYPE_RANGES = ((1859, 3858), (0, 360), (0, 66), (0, 1397), (-173, 601),
                   (0, 7117), (0, 254), (0, 254), (0, 254), (0, 7173))
 COVTYPE_CODES = (4, 40)
 COVTYPE_CATS = [10, 11]
-MC_ROUNDS = {"auto": 10, "auto_255": 5, "leafwise": 5, "ova": 5, "bag": 5,
-             "ova_bag": 3, "level": 5}
+# rounds of each run; cut (from 10, 5, 5, 5, 5, 3 and 5) to make room for
+# phase 18 in the run's time limit: the leaf-wise run takes 20-29 s an
+# iteration at this shape on an H100 80GB HBM3 at 700 W, so (a) and (c)
+# are compared at MC_COMPARE rounds
+MC_ROUNDS = {"auto": 5, "auto_255": 3, "leafwise": 2, "ova": 3, "bag": 3,
+             "ova_bag": 3, "level": 3}
+MC_COMPARE = 2
 MC_KERNEL_ROWS = 10_485_760
 MC_PARAMS = {"objective": "multiclass", "num_class": 7, "num_leaves": 255,
              "learning_rate": 0.1, "min_data_in_leaf": 20,
@@ -3013,10 +3052,10 @@ def mc_run(torch, lt, ds, params, rounds, Xte, yte, what, path,
                                cpu.predict(Xte[:4000], raw_score=True),
                                rtol=1e-5, atol=1e-7)
     r.update(mc_metrics(lt, raw, yte, g.objective))
-    if rounds >= 5:
-        r["at_5"] = mc_metrics(lt, bst.predict(Xte, raw_score=True,
-                                               num_iteration=5), yte,
-                               g.objective)
+    if rounds >= MC_COMPARE:
+        r["at_compare"] = mc_metrics(lt, bst.predict(
+            Xte, raw_score=True, num_iteration=MC_COMPARE), yte,
+            g.objective)
     lp = {k: v / bst.num_trees() for k, v in launches.items()}
     log(f"{what}: first round {r['first_round_s']:.3f} s, median iteration "
         f"{r['median_iter_ms']:.1f} ms over {rounds - 1}, "
@@ -3072,14 +3111,14 @@ def phase_multiclass(torch, lt, holdout_share: float = 0.1) -> dict:
                 torch, lt, ds, {**params, **extra}, MC_ROUNDS[key2], Xte,
                 yte, f"multiclass {key2} 63", path, mode, bagged)
             del bst
-        a5, c5 = res["auto"]["at_5"], res["leafwise"]["at_5"]
+        a5, c5 = res["auto"]["at_compare"], res["leafwise"]["at_compare"]
         for m in ("multi_logloss", "multi_error"):
             if abs(a5[m] - c5[m]) > 2e-3:
-                raise AssertionError(f"multiclass auto {m} at 5 rounds "
-                                     f"{a5[m]} is not within 2e-3 of "
+                raise AssertionError(f"multiclass auto {m} at {MC_COMPARE} "
+                                     f"rounds {a5[m]} is not within 2e-3 of "
                                      f"leaf-wise {c5[m]}")
-        log(f"  multiclass auto (a) at 5 rounds: {a5} against leaf-wise "
-            f"{c5}")
+        log(f"  multiclass auto (a) at {MC_COMPARE} rounds: {a5} against "
+            f"leaf-wise {c5}")
         del ds
         torch.cuda.empty_cache()
     # (g) f64 leaf-wise at 20,000 rows: the card's trees are the CPU's
@@ -3311,6 +3350,343 @@ def mc_partition_k31(torch, A, calls, gh) -> dict:
             lanes_stage, "k31_ms": ms, "k31_bound_ms": b_ms,
             "k31_max_abs_err": err}
 
+# ---------------------------------------------------------------------------
+# phase 18: B1's integer branch, quantized training, forced splits and
+# CEGB, early stopping
+# ---------------------------------------------------------------------------
+# a three-level forced-splits JSON on HIGGS features (its thresholds in the
+# features' own units: the first 21 columns are standard normal)
+FORCED_HIGGS = {
+    "feature": 0, "threshold": 0.0,
+    "left": {"feature": 1, "threshold": -0.5,
+             "left": {"feature": 5, "threshold": 0.3}},
+    "right": {"feature": 2, "threshold": 0.5,
+              "right": {"feature": 3, "threshold": -0.2}}}
+# the CEGB options of phase 18 (c): a split penalty and a coupled penalty a
+# feature, the last seven features (the |products|) the dearest
+CEGB_HIGGS = {"cegb_penalty_split": 1e-6, "cegb_tradeoff": 1.0,
+              "cegb_penalty_feature_coupled": [0.5] * 21 + [4.0] * 7}
+Q_ROUNDS = 5
+CUT_ROUNDS = 3     # the 20,000-row cuts' rounds (31 leaves), CPU beside
+
+
+def int_bound_ms(count: int, f: int, bins: int, itemsize: int,
+                 indexed: bool):
+    """Least time for one call of B1's integer branch on this card: the
+    leaf's bins rows, its int8/int16 (g, h) pairs and its indices read
+    once, the f32 output written once, against 3 adds a (row, feature)
+    at the f32 rate outside the tensor cores."""
+    nbytes = count * (f + 2 * itemsize + (4 if indexed else 0)) \
+        + f * bins * 3 * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 3 * f * count / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_quant_parity(torch, dev, rows: int) -> dict:
+    """Phase 18 (a): B1's integer branch against its twin at the HIGGS
+    shape (``rows`` x 28), 63 and 255 bins, int8 and int16, over the
+    contiguous root and a gathered leaf of 20,000 rows: bit-equal; warm
+    and cold ms, the kernels and memsets one call enqueues (a captured
+    CUDA graph), the twin's ms, one int64 ``index_add_`` over a prebuilt
+    flat index (the yardstick) and the byte bound; the SASS atomics of
+    ``hist_int_kernel``, which must hold no compare-and-swap loop."""
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.utils import prng
+    from lightgbm_tpu_torch.utils.launches import graph_launches
+    t_phase = time.perf_counter()
+    f, n = 28, rows
+    gen = torch.Generator(device=dev).manual_seed(18)
+    res = {}
+    for bins in (63, 255):
+        binm = torch.randint(0, bins, (n, f), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        gh = leaf_gh(torch, n, 18 + bins, dev)
+        perm = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+        for bits in (8, 16):
+            q, _ = H.quantize_gh(gh, bits, prng.fold_in(prng.key(1), 1))
+            for what, idx, begin, count in (("root", None, 0, n),
+                                            ("leaf", perm, n // 16 + 7,
+                                             min(20_000, n // 4))):
+                def kern():
+                    return H.leaf_histogram(binm, q, idx, begin, count,
+                                            bins)
+
+                got = kern()
+                ref = H.histogram_plain(binm, q, idx, begin, count, bins)
+                torch.cuda.synchronize()
+                if not torch.equal(got, ref):
+                    d = (got - ref).abs().max().item()
+                    raise AssertionError(f"B1 int{bits} {what}, {bins} "
+                                         f"bins, differs from its twin: "
+                                         f"max |d| {d}")
+                rows_ = (idx[begin:begin + count].long() if idx is not None
+                         else torch.arange(count, device=dev))
+                cell = (binm[rows_].long() + torch.arange(f, device=dev)
+                        * bins).reshape(-1)
+                pay = torch.cat([q[rows_].long(), torch.ones(
+                    (count, 1), dtype=torch.int64, device=dev)], 1)
+                pay = pay[:, None, :].expand(-1, f, -1).reshape(-1, 3)
+                acc = torch.zeros((f * bins, 3), dtype=torch.int64,
+                                  device=dev)
+                b_ms, b_by = int_bound_ms(count, f, bins, bits // 8,
+                                          idx is not None)
+                r = {"rows": count, "max_abs_err": 0.0,
+                     "ms": cuda_ms(torch, kern, reps=10),
+                     "cold_ms": cold_ms(torch, kern),
+                     "plain_ms": cuda_ms(torch, lambda: H.histogram_plain(
+                         binm, q, idx, begin, count, bins), reps=2),
+                     "library_ms": cuda_ms(
+                         torch, lambda: acc.index_add_(0, cell, pay),
+                         reps=2),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "graph": graph_launches(kern)}
+                del cell, pay, acc, rows_
+                res[f"{bins} int{bits} {what}"] = r
+                log(f"kernel B1 int{bits} {what} {count}x{f}, {bins} bins: "
+                    f"equal to the twin, warm {r['ms']:.4f} ms, cold "
+                    f"{r['cold_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                    f"index_add_ {r['library_ms']:.4f} ms, bound "
+                    f"{b_ms:.4f} ms ({b_by}), a call {r['graph']}")
+                if r["graph"] != {"kernels": 1, "memsets": 0, "other": 0}:
+                    raise AssertionError(f"B1 int{bits}: one call enqueued "
+                                         f"{r['graph']}")
+            del q
+        del binm, gh, perm
+        torch.cuda.empty_cache()
+    res["sass"] = sass_atomics("histogram", "hist_int_kernel", whole=False)
+    if any("CAS" in op or "CAST" in op for op in res["sass"]):
+        raise AssertionError("sass: hist_int_kernel holds a "
+                             "compare-and-swap loop")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 18 (a): {res['phase_s']:.1f} s")
+    return res
+
+
+def tree_sections(bst) -> str:
+    t = bst.model_to_string()
+    return t[t.index("Tree=0"):t.index("end of trees")]
+
+
+def phase_quant_train(torch, lt, ds, params, X, y, rows: int,
+                      leaf: dict) -> dict:
+    """Phase 18 (b): ``tpu_quant_hist=on`` at 16 and 8 bits, leaf-wise at
+    the HIGGS shape (255 leaves, 63 bins), 5 rounds each, the B1 counts
+    zeroed just before and read just after; holdout AUC within 2e-3 of
+    the f32 leaf-wise run's at 5 rounds (phase 4); one profiled round of
+    the 8-bit run (B1's integer kernel launched once an integer call);
+    then on a 20,000-row cut the card's predictions against the CPU port's, the
+    same leaves, and whether the tree sections are equal."""
+    from lightgbm_tpu_torch.ops import histogram as H
+    t_phase = time.perf_counter()
+    Xte, yte = X[rows:], y[rows:]
+    res = {}
+    for bits in (16, 8):
+        qp = {**params, "tpu_grow_mode": "leafwise", "tpu_quant_hist": "on",
+              "tpu_quant_hist_bits": bits}
+        bst, r = train_run(torch, lt, ds, qp, Q_ROUNDS, Xte, yte,
+                           f"quantized {bits}")
+        r["launches"][f"B1_i{bits}"] = H.INT_LAUNCHES[f"i{bits}"]
+        if r["launches"][f"B1_i{bits}"] == 0 or r["launches"]["B1"]:
+            raise AssertionError(f"quantized {bits}: B1 launches "
+                                 f"{r['launches']}")
+        if bst._gbdt.learner.quant_bits != bits:
+            raise AssertionError(f"quantized {bits}: the learner did not "
+                                 "quantize")
+        r["auc_f32_at_5"] = leaf["auc_at_5"]
+        if abs(r["auc"] - leaf["auc_at_5"]) > 2e-3:
+            raise AssertionError(f"quantized {bits}: holdout AUC {r['auc']} "
+                                 f"not within 2e-3 of the f32 run's "
+                                 f"{leaf['auc_at_5']}")
+        prof = ""
+        if bits == 8:
+            # one profiled round (~70,000 launches: the profiler's own
+            # cost is tens of seconds a round)
+            r["profile"] = profile_round(torch, bst)
+            hk = r["profile"]["hist_kernels"].get(
+                "hist_int_kernel", {"ms": 0.0, "launches": 0})
+            prof = (f", profiled round B1 {hk['ms']:.3f} ms in "
+                    f"{hk['launches']} launches")
+        log(f"phase 18 (b) int{bits}: median iteration "
+            f"{r['median_iter_ms']:.1f} ms, first round "
+            f"{r['first_round_s']:.3f} s, B1 launches "
+            f"{r['launches'][f'B1_i{bits}']}, holdout AUC {r['auc']:.6f} "
+            f"(f32 at 5 rounds {leaf['auc_at_5']:.6f}){prof}")
+        res[bits] = r
+        del bst
+        torch.cuda.empty_cache()
+    # the 20,000-row cut: the card against the CPU port
+    cut = {}
+    for bits in (16, 8):
+        p = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+             "tpu_grow_mode": "leafwise", "tpu_quant_hist": "on",
+             "tpu_quant_hist_bits": bits, "verbosity": -1}
+        out = {}
+        for dev_t in ("cuda", "cpu"):
+            out[dev_t] = lt.train({**p, "device_type": dev_t},
+                                  lt.Dataset(X[:20000], label=y[:20000]),
+                                  num_boost_round=CUT_ROUNDS,
+                                  verbose_eval=False)
+        a, b = out["cuda"], out["cpu"]
+        pa = a.predict(Xte[:4000], raw_score=True)
+        pb = b.predict(Xte[:4000], raw_score=True)
+        leaves = [t.num_leaves for t in a.trees]
+        if leaves != [t.num_leaves for t in b.trees]:
+            raise AssertionError(f"quantized cut {bits}: leaf counts differ")
+        np.testing.assert_allclose(pa, pb, rtol=1e-5, atol=1e-5)
+        cut[bits] = {"leaves": leaves,
+                     "max_abs_pred_diff": float(np.abs(pa - pb).max()),
+                     "sections_equal": tree_sections(a) == tree_sections(b)}
+        log(f"phase 18 (b) cut int{bits}: 20,000 rows, card against CPU: "
+            f"leaves {leaves} equal, max |d| of predictions "
+            f"{cut[bits]['max_abs_pred_diff']:.3e}, tree sections equal "
+            f"{cut[bits]['sections_equal']}")
+    res["cut"] = cut
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 18 (b): {res['phase_s']:.1f} s")
+    return res
+
+
+def phase_forced_cegb(torch, lt, ds, params, X, y, rows: int) -> dict:
+    """Phase 18 (c): forced splits (`FORCED_HIGGS`) and the CEGB split and
+    coupled penalties (`CEGB_HIGGS`), leaf-wise at the HIGGS shape, 5
+    rounds: every tree starts with the forced splits in BFS order, the
+    holdout AUC above 0.6; then a 20,000-row f64 cut whose card tree
+    sections equal the CPU port's, each tree starting with the forced
+    splits, each coupled feature paid in no tree after the first that
+    uses it."""
+    import tempfile
+    t_phase = time.perf_counter()
+    Xte, yte = X[rows:], y[rows:]
+    with tempfile.NamedTemporaryFile("w", suffix=".json",
+                                     delete=False) as fh:
+        json.dump(FORCED_HIGGS, fh)
+        path = fh.name
+    try:
+        extra = {"forcedsplits_filename": path, **CEGB_HIGGS}
+        fp = {**params, **extra, "tpu_grow_mode": "leafwise"}
+        bst, r = train_run(torch, lt, ds, fp, Q_ROUNDS, Xte, yte,
+                           "forced + CEGB")
+        lr = bst._gbdt.learner
+        first = forced_bfs(lr.forced)
+        for t in bst.trees:
+            if split_nodes(t)[:len(first)] != first:
+                raise AssertionError("forced + CEGB: a tree does not start "
+                                     "with the forced splits")
+        r["forced_nodes"] = len(first)
+        r["coupled_used"] = int(lr._cegb_used.sum())
+        log(f"phase 18 (c) forced + CEGB: median iteration "
+            f"{r['median_iter_ms']:.1f} ms, B1 launches "
+            f"{r['launches']['B1']}, holdout AUC {r['auc']:.6f}, every tree "
+            f"starts with the {len(first)} forced splits, "
+            f"{r['coupled_used']} features paid")
+        del bst
+        torch.cuda.empty_cache()
+        # the 20,000-row f64 cut: card against CPU, the coupled charges
+        p = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+             "tpu_use_f64_hist": True, "tpu_grow_mode": "leafwise",
+             "verbosity": -1, **extra}
+        texts, charges = {}, {}
+        for dev_t in ("cuda", "cpu"):
+            b = lt.Booster({**p, "device_type": dev_t},
+                           lt.Dataset(X[:20000], label=y[:20000]))
+            lr = b._gbdt.learner
+            effs = []
+            orig = lr._cegb_coupled_eff
+
+            def record(orig=orig, effs=effs):
+                e = orig()
+                effs.append(e.copy())
+                return e
+
+            lr._cegb_coupled_eff = record
+            for _ in range(CUT_ROUNDS):
+                b.update()
+            texts[dev_t] = tree_sections(b)
+            charges[dev_t] = (effs, [t.split_feature_inner[
+                :t.num_leaves - 1].tolist() for t in b.trees])
+            first_cut = forced_bfs(lr.forced)    # the cut's own bins
+            for t in b.trees:
+                if split_nodes(t)[:len(first_cut)] != first_cut:
+                    raise AssertionError("forced + CEGB cut: a tree does "
+                                         "not start with the forced splits")
+        if texts["cuda"] != texts["cpu"]:
+            raise AssertionError("forced + CEGB f64 cut: card and CPU trees "
+                                 "differ")
+        effs, feats = charges["cuda"]
+        used = set()
+        for e, fs in zip(effs, feats):
+            paid = {f for f in range(len(e)) if e[f] == 0}
+            if paid != used:
+                raise AssertionError("CEGB: a coupled feature was charged "
+                                     "after the tree that first used it, or "
+                                     "not before")
+            used |= set(fs)
+        log(f"phase 18 (c) f64 cut: 20,000 rows, card and CPU tree sections "
+            f"equal, each of {len(effs)} trees charged only the features no "
+            f"earlier tree used ({len(used)} used in all)")
+        r["cut_features_used"] = len(used)
+    finally:
+        os.unlink(path)
+    r["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 18 (c): {r['phase_s']:.1f} s")
+    return r
+
+
+def forced_bfs(nodes) -> list:
+    """(feature, threshold bin) of the forced nodes in BFS order."""
+    first, queue = [], [0] if nodes else []
+    while queue:
+        f, t, left, right = nodes[queue.pop(0)]
+        first.append((f, t))
+        queue += [c for c in (left, right) if c >= 0]
+    return first
+
+
+def split_nodes(tree) -> list:
+    k = tree.num_leaves - 1
+    return list(zip(tree.split_feature_inner[:k].tolist(),
+                    tree.threshold_in_bin[:k].tolist()))
+
+
+def phase_early_stopping(torch, lt, X, y) -> dict:
+    """Phase 18 (d): early stopping on a 20,000-row cut with a 10,000-row
+    validation set, AUC and logloss, ``early_stopping_rounds`` 3, with and
+    without ``first_metric_only`` (f64 histograms, 15 leaves, learning
+    rate 0.5, up to 40 rounds): ``best_iteration`` and ``best_score`` on the card
+    equal the CPU port's."""
+    t_phase = time.perf_counter()
+    res = {}
+    for fmo in (False, True):
+        p = {"objective": "binary", "num_leaves": 15, "max_bin": 63,
+             "learning_rate": 0.5, "tpu_use_f64_hist": True,
+             "tpu_grow_mode": "leafwise", "verbosity": -1,
+             "metric": ["auc", "binary_logloss"], "first_metric_only": fmo}
+        out = {}
+        for dev_t in ("cuda", "cpu"):
+            tr = lt.Dataset(X[:20000], label=y[:20000])
+            va = tr.create_valid(X[20000:30000], label=y[20000:30000])
+            b = lt.train({**p, "device_type": dev_t}, tr,
+                         num_boost_round=40, valid_sets=[va],
+                         early_stopping_rounds=3, verbose_eval=False)
+            out[dev_t] = (b.best_iteration, {
+                k: dict(v) for k, v in b.best_score.items()}, b.num_trees())
+        if out["cuda"] != out["cpu"]:
+            raise AssertionError(f"early stopping (first_metric_only={fmo}): "
+                                 f"card {out['cuda']} != CPU {out['cpu']}")
+        if not 0 < out["cuda"][0] < 40:
+            raise AssertionError(f"early stopping did not stop: {out}")
+        res[str(fmo)] = {"best_iteration": out["cuda"][0],
+                         "best_score": out["cuda"][1],
+                         "trees": out["cuda"][2]}
+        log(f"phase 18 (d) early stopping, first_metric_only={fmo}: best "
+            f"iteration {out['cuda'][0]} of {out['cuda'][2]} trees, best "
+            f"score {out['cuda'][1]}, card = CPU")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 18 (d): {res['phase_s']:.1f} s")
+    return res
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3334,6 +3710,7 @@ def main() -> int:
     phase_build()
     sass = phase_sass()
     par = phase_parity(torch, dev, args.rows)
+    qpar = phase_quant_parity(torch, dev, args.rows)
     t0 = time.perf_counter()
     X, y = synth_higgs(args.rows + args.holdout, 28)
     log(f"data: {args.rows}+{args.holdout} x 28 synthetic rows in "
@@ -3346,6 +3723,10 @@ def main() -> int:
         aligned_r[max_bin] = phase_aligned_main(
             torch, lt, ds, params, X, y, args.rows, max_bin, main_r[max_bin])
         if max_bin == 63:
+            quant = phase_quant_train(torch, lt, ds, params, X, y,
+                                      args.rows, main_r[63])
+            forced = phase_forced_cegb(torch, lt, ds, params, X, y,
+                                       args.rows)
             big_n = phase_big_n(torch, lt, ds, params, X, y, args.rows)
             bagging = phase_bagging(torch, lt, ds, params, X, y, args.rows)
             bpar[(63, "standard")] = phase_bag_parity(
@@ -3370,6 +3751,7 @@ def main() -> int:
         del ds
         torch.cuda.empty_cache()
     f64_launches = phase_f64(torch, lt)
+    stopping = phase_early_stopping(torch, lt, X, y)
     del X, y
     gc.collect()
     t0 = time.perf_counter()
@@ -3430,6 +3812,26 @@ def main() -> int:
         entry("histogram_f64", "lightgbm_tpu/ops/histogram.py:39", 63,
               "f64", f64_launches["leafwise"]),
     ]
+    # B1's integer branch: the 63-bin root's numbers, the gathered leaf's
+    # and the 255-bin ones beside them; launches from phase 18 (b)
+    for bits in (8, 16):
+        p = qpar[f"63 int{bits} root"]
+        kernels.append({
+            "name": f"histogram_int{bits}", "route": "cuda",
+            "source": KERNEL_SOURCE,
+            "replaces": "lightgbm_tpu/ops/pallas_hist.py:205",
+            "launches": quant[bits]["launches"][f"B1_i{bits}"],
+            "max_abs_err": 0.0, "ms": p["ms"], "plain_ms": p["plain_ms"],
+            "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
+            "library_ms": p["library_ms"], "cold_ms": p["cold_ms"],
+            "launches_per_call": p["graph"]["kernels"],
+            **{f"{k.replace(' ', '_')}_{m}": qpar[k][m]
+               for k in (f"63 int{bits} leaf", f"255 int{bits} root",
+                         f"255 int{bits} leaf")
+               for m in ("ms", "cold_ms", "plain_ms", "library_ms",
+                         "bound_ms")},
+            "shape": f"root {args.rows}x28, 63 bins, int{bits} payload "
+                     "(the integer branch of pallas_hist.py:167-171)"})
     for bins in (63, 255):
         launches = aligned_r[bins]["launches"]
         kernels.append(aentry(f"move_pass_partition_{bins}bin",
@@ -3614,6 +4016,8 @@ def main() -> int:
                     "mslr": mslr, "rank_kernel": rpar,
                     "airline": airline, "bagging": bagging,
                     "multiclass": mc, "mc_kernels": mpar,
+                    "quant_kernel": qpar, "quant": quant,
+                    "forced_cegb": forced, "early_stopping": stopping,
                     "bag_kernels": {f"{b} {lay}": v for (b, lay), v
                                     in bpar.items()},
                     "proto_path": proto_path, "proto_kernels": ppar,

@@ -6,7 +6,11 @@ Same API and model text as ``lightgbm_tpu``; entry points run on the
 for what is ported so far.
 """
 from .basic import Booster, Dataset, LightGBMError
+from .callback import (EarlyStopException, early_stopping, print_evaluation,
+                       record_evaluation)
 from .config import Config
 from .engine import train
 
-__all__ = ["Booster", "Config", "Dataset", "LightGBMError", "train"]
+__all__ = ["Booster", "Config", "Dataset", "LightGBMError", "train",
+           "early_stopping", "print_evaluation", "record_evaluation",
+           "EarlyStopException"]

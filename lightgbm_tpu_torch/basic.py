@@ -123,6 +123,8 @@ class Booster:
         self._gbdt: Optional[GBDT] = None
         self._loaded: Optional[Dict] = None
         self._name_valid_sets: List[str] = []
+        self._train_set = train_set
+        self._valid_sets_public: List[Dataset] = []
         self.name_train_set = "training"
         if model_file is not None:
             with open(model_file) as fh:
@@ -174,6 +176,7 @@ class Booster:
         data.construct()
         self._gbdt.add_valid_dataset(data._handle)
         self._name_valid_sets.append(name)
+        self._valid_sets_public.append(data)
         return self
 
     def update(self) -> bool:

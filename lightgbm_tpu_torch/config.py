@@ -382,18 +382,22 @@ class Config:
     # tpu_rank_tile documents under fused on, or auto on the card); 0 =
     # exact sigmoid everywhere
     tpu_rank_sigmoid_bins: int = 0
-    # the JAX package's quantized histograms (auto / on / off); the port
-    # does not quantize, which is what the JAX package does under auto off
-    # the TPU and under off, and raises on on (ROADMAP A.2)
+    # quantized histograms (auto / on / off): under on the leaf-wise
+    # builder rounds g and h stochastically to tpu_quant_hist_bits (8 or
+    # 16) once a tree and sums the integers (kernel B1's integer branch);
+    # auto and off never quantize, which is what the JAX package does
+    # under auto off the TPU; f64 histograms, gpu_use_dp and the level
+    # builder never quantize
     tpu_quant_hist: str = "auto"
     # the JAX package's TPU knobs, kept with its defaults so that both
     # packages write the same parameters block into the model text; the
     # port accepts them and they change nothing here: the histogram
     # chunk, the Pallas switch, the fused iteration program, the
     # smallest padded leaf, the mesh axis name, the serving engine's
-    # predict policy, the sub-binned MXU accumulation, the VMEM budget of
-    # the aligned move's histogram store and the quantized histograms'
-    # width (lightgbm_tpu/config.py:364-515)
+    # predict policy, the sub-binned MXU accumulation and the VMEM budget
+    # of the aligned move's histogram store (lightgbm_tpu/config.py:
+    # 364-515); and the quantized histograms' width, which tpu_quant_hist
+    # reads
     tpu_hist_chunk: int = 1 << 16
     tpu_use_pallas: bool = True
     tpu_fuse_iteration: bool = False
@@ -508,6 +512,26 @@ class Config:
             self.num_leaves = min(self.num_leaves, full)
 
     # ------------------------------------------------------------------
+    @property
+    def forces_host_learner(self) -> bool:
+        """True when the config alone needs the host SerialTreeLearner:
+        the per-(row, feature) lazy CEGB penalty (JAX package:
+        `Config.forces_host_learner`). The port lacks that learner and
+        raises on it (ROADMAP A.3)."""
+        return len(self.cegb_penalty_feature_lazy) > 0
+
+    @property
+    def sequential_device_only(self) -> bool:
+        """True when the config needs the strictly sequential leaf-wise
+        loop: forced splits and CEGB penalties depend on the order the
+        splits are committed in, which the speculative aligned and level
+        builders replay out of order (JAX package:
+        `Config.sequential_device_only`)."""
+        return bool(self.forcedsplits_filename) \
+            or self.cegb_penalty_split > 0 \
+            or len(self.cegb_penalty_feature_coupled) > 0 \
+            or len(self.cegb_penalty_feature_lazy) > 0
+
     @property
     def num_tree_per_iteration(self) -> int:
         if self.objective == "multiclass" or self.objective == "multiclassova":

@@ -15,7 +15,21 @@ read per split (the chosen leaf's split and the children's best splits):
   (`FeatureHistogram::Subtract`), and one split search for both children;
 - ``max_depth``, ``min_data_in_leaf`` and ``min_sum_hessian_in_leaf`` act
   exactly as in the reference; monotone constraints propagate to the
-  children.
+  children;
+- forced splits (``forcedsplits_filename``, reference `ForceSplits`,
+  serial_tree_learner.cpp:597-755): the JSON flattens to nodes, a BFS
+  queue of (leaf, node) seeded with the root is popped ahead of the
+  gain-driven choice, and each pop splits its leaf at the node's
+  threshold, its sums read from the leaf's stored histogram
+  (`forced_info`); a threshold that empties a child is skipped;
+- CEGB (``cegb_penalty_split``, ``cegb_penalty_feature_coupled``,
+  reference `CalculateOndemandCosts`): the split penalty scales with the
+  leaf's row count, the coupled penalty charges a feature once per
+  model; the penalty is taken off each feature's gain before the masks;
+- quantized histograms (``tpu_quant_hist=on``): g and h are rounded
+  stochastically to int8 or int16 once a tree (`quantize_gh`), every
+  histogram sums the integers (kernel B1's integer branch) and is scaled
+  back by the column's scale, as are the root's sums.
 
 The JAX package pads leaf slices to a table of bucket sizes because XLA
 needs static shapes; launches here take the exact slice, so nothing is
@@ -30,12 +44,13 @@ import torch
 
 from ..config import Config
 from ..io.dataset import Dataset
-from ..ops.histogram import leaf_histogram, subtract_histogram
+from ..ops.histogram import leaf_histogram, quantize_gh, subtract_histogram
 from ..ops.partition import (MISSING_NAN_C, MISSING_ZERO_C,
                              categorical_goes_left, leaf_value_fill,
                              split_partition, unpermute_to_rows)
 from ..ops.split import SplitHyper, make_split_finder
-from ..utils.xla_math import fma_f32
+from ..utils import prng
+from ..utils.xla_math import fma_f32, sum_f32
 from .tree import Tree
 
 # packed per-leaf "best split" float lanes (`pack_best_payload`)
@@ -54,6 +69,7 @@ LI_W = 8
 # rows from which `auto` trains a non-pointwise objective on the aligned
 # engine (the JAX package's row floor)
 NON_POINTWISE_ROW_FLOOR = 1_000_000
+
 
 
 class TreeRecord(NamedTuple):
@@ -106,11 +122,11 @@ class DeviceTreeLearner:
             raise NotImplementedError(
                 f"tpu_grow_mode={cfg.tpu_grow_mode!r}: the leaf-wise, "
                 "aligned and level builders are ported")
-        if cfg.forcedsplits_filename or cfg.cegb_penalty_split > 0 \
-                or cfg.cegb_penalty_feature_coupled \
-                or cfg.cegb_penalty_feature_lazy:
-            raise NotImplementedError("forced splits and CEGB are not "
-                                      "ported yet")
+        if cfg.forces_host_learner:
+            raise NotImplementedError(
+                "cegb_penalty_feature_lazy: the lazy CEGB penalty runs on "
+                "the JAX package's host SerialTreeLearner, which is not "
+                "ported yet (ROADMAP A.3)")
         self.cfg = cfg
         self.ds = dataset
         self.device = device
@@ -123,9 +139,12 @@ class DeviceTreeLearner:
         self.bins = dataset.bins.to(device).contiguous()
         self._bins_T: Optional[torch.Tensor] = None
         self.hyper = SplitHyper.from_config(cfg)
-        self.finder = make_split_finder(self.hyper, self.meta,
-                                        self.max_bin_global, device)
         self.mappers = dataset.used_mappers()
+        # forced splits: (feature, threshold bin, left node, right node)
+        self.forced = self._forced_nodes()
+        self.finder = make_split_finder(self.hyper, self.meta,
+                                        self.max_bin_global, device,
+                                        tested_report=bool(self.forced))
         self._feat_rng = np.random.RandomState(cfg.feature_fraction_seed)
         self.hist_precision = "f64" if cfg.tpu_use_f64_hist else "f32"
         self._depth_limit = cfg.max_depth if cfg.max_depth > 0 else 1 << 30
@@ -134,6 +153,93 @@ class DeviceTreeLearner:
         self.level_fallbacks = 0
         # (rounds, executed splits, exact) of the last level build
         self.level_last: Optional[Tuple[int, int, bool]] = None
+        # quantized histograms: active bits (0 = f32 payloads) and why
+        # not, and the per-tree sequence number of the rounding key
+        self.quant_bits, self.quant_why = self._resolve_quant_bits(cfg)
+        self._qseq = 0
+        # CEGB: the split penalty an f32 row, and the features earlier
+        # trees of the model used (their coupled penalty is paid)
+        self._cegb_on = (cfg.cegb_penalty_split > 0
+                         or len(cfg.cegb_penalty_feature_coupled) > 0)
+        self._cegb_coupled_on = len(cfg.cegb_penalty_feature_coupled) > 0
+        self._cegb_sp = np.float32(float(cfg.cegb_penalty_split)
+                                   * float(cfg.cegb_tradeoff))
+        self._cegb_used = np.zeros(self.num_features, bool)
+
+    def _resolve_quant_bits(self, cfg: Config) -> Tuple[int, Optional[str]]:
+        """``tpu_quant_hist`` resolved to active bits (0: f32 payloads)
+        and the reason when it does not quantize (JAX package:
+        `_resolve_quant_bits`): off never; f64 histograms and gpu_use_dp
+        never; the level builder never; on quantizes; auto quantizes in
+        the JAX package only on a TPU, so never here."""
+        mode = str(cfg.tpu_quant_hist).strip().lower()
+        if mode == "off":
+            return 0, "tpu_quant_hist=off"
+        bits = 8 if int(cfg.tpu_quant_hist_bits) == 8 else 16
+        if cfg.tpu_use_f64_hist or cfg.gpu_use_dp:
+            prec = "f64" if cfg.tpu_use_f64_hist else "f32"
+            return 0, f"hist_precision={prec} never quantizes"
+        if cfg.tpu_grow_mode == "level":
+            return 0, "tpu_grow_mode=level keeps f32 payloads"
+        if mode == "on":
+            return bits, None
+        return 0, "auto: no TPU attached"
+
+    def _next_qseq(self) -> int:
+        """The sequence number of the next tree's rounding key."""
+        self._qseq += 1
+        return self._qseq
+
+    def _forced_nodes(self):
+        """The forced-splits JSON flattened to (inner feature, threshold
+        bin, left node, right node) tuples, nodes indexed in the list
+        (-1: no child); a node on an unused feature drops with its subtree
+        (JAX package: `_forced_nodes`)."""
+        if not self.cfg.forcedsplits_filename:
+            return []
+        import json
+        with open(self.cfg.forcedsplits_filename) as fh:
+            root = json.load(fh)
+        out = []
+        fmap = self.ds.used_feature_map
+
+        def flat(node):
+            if not isinstance(node, dict) or "feature" not in node:
+                return -1
+            real_f = int(node["feature"])
+            f = int(fmap[real_f]) if real_f < len(fmap) else -1
+            if f < 0:
+                return -1
+            idx = len(out)
+            out.append(None)
+            thr = int(self.mappers[f].values_to_bins(
+                np.asarray([float(node["threshold"])]))[0])
+            lft = flat(node.get("left"))
+            rgt = flat(node.get("right"))
+            out[idx] = (f, thr, lft, rgt)
+            return idx
+
+        flat(root)
+        return out
+
+    def _cegb_coupled_eff(self) -> np.ndarray:
+        """f32 [F]: each feature's coupled penalty times the tradeoff,
+        zero for the features earlier trees used (the once-per-model
+        charge; JAX package: `_cegb_coupled_eff`)."""
+        cp = np.zeros(self.num_features, np.float32)
+        if self._cegb_coupled_on:
+            arr = np.asarray(self.cfg.cegb_penalty_feature_coupled,
+                             np.float64)
+            real = np.asarray(self.ds.real_feature_idx)
+            cp[:len(real)] = arr[real] * float(self.cfg.cegb_tradeoff)
+            cp[self._cegb_used] = 0.0
+        return cp
+
+    def _cegb_note_record(self, rec: "TreeRecord") -> None:
+        """Mark the features a grown tree split on as used by the model
+        (JAX package: `_cegb_note_record`)."""
+        if self._cegb_coupled_on:
+            self._cegb_used[rec.feature[:rec.num_splits]] = True
 
     @property
     def bins_T(self) -> torch.Tensor:
@@ -167,14 +273,15 @@ class DeviceTreeLearner:
 
     # ------------------------------------------------------------------
     def _eval_leaves(self, hist, sg, sh, cnt, minc, maxc, depth, fmask,
-                     root=False):
+                     root=False, cegb=None):
         """Best split of each leaf in a batch, on the device: hist
         [K, F, B, 3] f32 and host per-leaf sums -> host arrays (f32 [K,
         BF_W] BF_* lanes, i64 [K, BI_W] BI_* lanes), the reference's
         eval_leaf + pack_best_payload, read back in one copy. ``root``
-        marks the leaf-wise builder's root search (`make_split_finder`)."""
+        marks the leaf-wise builder's root search (`make_split_finder`);
+        ``cegb`` is (used [F], coupled [F]) f32 under CEGB."""
         return self._unpack_eval(self._eval_leaves_dev(
-            hist, sg, sh, cnt, minc, maxc, depth, fmask, root).cpu())
+            hist, sg, sh, cnt, minc, maxc, depth, fmask, root, cegb).cpu())
 
     @staticmethod
     def _unpack_eval(both: torch.Tensor):
@@ -186,7 +293,7 @@ class DeviceTreeLearner:
         return both[:, :BF_W].numpy(), vi
 
     def _eval_leaves_dev(self, hist, sg, sh, cnt, minc, maxc, depth, fmask,
-                         root=False) -> torch.Tensor:
+                         root=False, cegb=None) -> torch.Tensor:
         """`_eval_leaves` before the read: [K, BF_W + BI_W] f32 on the
         device, the BI_* lanes as int32 bits."""
         dev = self.device
@@ -197,7 +304,10 @@ class DeviceTreeLearner:
         out = self.finder(hist, t(sg, torch.float32), t(sh, torch.float32),
                           t(cnt, torch.int32), t(minc, torch.float32),
                           t(maxc, torch.float32), root)
-        gain = torch.where(fmask > 0, out["gain"], float("-inf"))
+        gain = out["gain"]
+        if cegb is not None:
+            gain = gain - self._cegb_penalty(t(cnt, torch.float32), *cegb)
+        gain = torch.where(fmask > 0, gain, float("-inf"))
         deep = t(np.asarray(depth) >= self._depth_limit, torch.bool)
         gain = torch.where(deep[:, None], float("-inf"), gain)
         f = torch.argmax(gain, dim=1, keepdim=True)
@@ -257,6 +367,64 @@ class DeviceTreeLearner:
         returns (final partition indices [N] int32, TreeRecord)."""
         return self._grow(grad, hess, feature_mask)
 
+    def _cegb_penalty(self, cnt: torch.Tensor, used: np.ndarray,
+                      coupled: np.ndarray) -> torch.Tensor:
+        """[K, F] f32 CEGB penalty of K leaves of ``cnt`` rows (JAX
+        package: `_cegb_pen`): the split penalty times the row count, plus
+        the coupled penalty of each feature the tree has not used yet.
+        The product is rounded before the add: XLA computes it on the
+        leaf's scalar count, apart from the [F] add, so nothing is
+        contracted (found against the JAX program's f64 trees)."""
+        pen = cnt[:, None] * float(self._cegb_sp)
+        if not self._cegb_coupled_on:
+            return pen.expand(-1, self.num_features)
+        c = torch.as_tensor(coupled * (np.float32(1.0) - used),
+                            device=self.device)
+        return pen + c[None, :]
+
+    def _forced_info(self, ph: torch.Tensor, sg, sh, cntg: int, f: int,
+                     thr: int):
+        """(BF_* f32 lanes, BI_* int lanes) of the forced split of a leaf
+        at (f, thr), from its stored histogram ``ph`` [F, B, 3] and its
+        sums (JAX package: `forced_info`): the bins up to the threshold
+        summed in f32 in XLA's order (`sum_f32`, on the host), less the
+        NaN bin where the threshold takes it, the right side by
+        difference, the gain and outputs of the plain leaf formula (L1
+        and L2, no constraint)."""
+        f32 = np.float32
+        nbf = int(self.meta["num_bin"][f])
+        hi = min(thr + 1, nbf)
+        row = ph[f].cpu().numpy()
+        acc = sum_f32(np.where((np.arange(row.shape[0]) < hi)[:, None],
+                               row, np.float32(0.0)))
+        lg, lh, lcf = acc[0], acc[1], acc[2]
+        if int(self.meta["missing_type"][f]) == 2 and hi > nbf - 1:
+            last = row[min(max(nbf - 1, 0), row.shape[0] - 1)]
+            lg, lh, lcf = lg - last[0], lh - last[1], lcf - last[2]
+        lc = int(np.rint(lcf))
+        sg, sh = f32(sg), f32(sh)
+        rg, rh = f32(sg - lg), f32(sh - lh)
+        l1, l2 = f32(self.hyper.lambda_l1), f32(self.hyper.lambda_l2)
+
+        def tl1(v):
+            return f32(np.sign(v) * max(f32(abs(v) - l1), f32(0.0)))
+
+        def pgain(v, h):
+            d = f32(h + l2)
+            return f32(f32(tl1(v) * tl1(v)) / d) if d > 0 else f32(0.0)
+
+        def outp(v, h):
+            d = f32(h + l2)
+            return f32(-tl1(v) / d) if d > 0 else f32(0.0)
+
+        gain = f32(f32(pgain(lg, lh) + pgain(rg, rh)) - pgain(sg, sh))
+        vf = np.zeros(BF_W, np.float32)
+        vf[[BF_GAIN, BF_LG, BF_LH, BF_RG, BF_RH, BF_LOUT, BF_ROUT]] = (
+            gain, lg, lh, rg, rh, outp(lg, lh), outp(rg, rh))
+        vi = np.zeros(BI_W, np.int64)
+        vi[[BI_FEAT, BI_THR, BI_LC, BI_RC]] = (f, thr, lc, cntg - lc)
+        return vf, vi
+
     def _grow(self, grad: torch.Tensor, hess: torch.Tensor,
               feature_mask: Optional[np.ndarray],
               indices: Optional[torch.Tensor] = None,
@@ -275,24 +443,54 @@ class DeviceTreeLearner:
         mono = self.meta["monotone"]
         gh = torch.stack([grad, hess], dim=1).to(torch.float32).contiguous()
         fmask = self.fmask_tensor(feature_mask)
+        qscale = None
+        if self.quant_bits:
+            # one rounding key a tree over all N rows (after bagging's and
+            # GOSS's reweighting): fold_in(PRNGKey(data_random_seed), qseq)
+            key = prng.fold_in(prng.key(cfg.data_random_seed),
+                               self._next_qseq())
+            gh, qs = quantize_gh(gh, self.quant_bits, key)
+            qscale = torch.cat([qs, torch.ones(1, dtype=torch.float32,
+                                               device=dev)])
+
+        def hist(idx, begin, count):
+            return leaf_histogram(self.bins, gh, idx, begin, count, B, prec)
+
+        def in_units(h):
+            # a quantized histogram back in gradient units: g and h by
+            # their column's scale, the count as it is
+            return h * qscale if qscale is not None \
+                else h.to(torch.float32)
 
         if indices is None:
             # ---------- root: contiguous rows, no index slice
             n = self.n
             indices = torch.arange(n, dtype=torch.int32, device=dev)
-            root_hist = leaf_histogram(self.bins, gh, None, 0, n, B, prec)
+            root_hist = in_units(hist(None, 0, n))
             root_gh = gh
         else:
             # ---------- root: the bag's rows, gathered
             n = root_count
-            root_hist = leaf_histogram(self.bins, gh, indices, 0, n, B,
-                                       prec)
+            root_hist = in_units(hist(indices, 0, n))
             root_gh = gh[indices[:n].long()]
-        sums = root_gh.double().sum(0) if prec == "f64" else root_gh.sum(0)
+        if qscale is not None:
+            # exact integer sums, rounded to f32 once, times the scale
+            root_q = root_gh.long().sum(0).cpu().numpy()
+            sums = torch.as_tensor(root_q.astype(np.float32),
+                                   device=dev) * qscale[:2]
+        else:
+            sums = root_gh.double().sum(0) if prec == "f64" \
+                else root_gh.sum(0)
         root_g, root_h = sums.to(torch.float32).cpu().numpy()
         store = torch.zeros((L, self.num_features, B, 3), dtype=torch.float32,
                             device=dev)
-        store[0] = root_hist.to(torch.float32)
+        store[0] = root_hist
+        # a quantized tree whose leaves all fit the JAX package's smallest
+        # padded bucket: there its child histograms are inlined, not taken
+        # from a switch, and XLA contracts the larger child's stored copy
+        one_bucket = (qscale is not None
+                      and 1 << max(n - 1, 0).bit_length()
+                      <= int(cfg.tpu_min_pad))
 
         # ---------- host per-leaf state (f32 values as the reference keeps)
         leaf_sg = np.zeros(L, np.float32)
@@ -317,17 +515,47 @@ class DeviceTreeLearner:
         rec_gain = np.zeros(Lm1, np.float32)
         rec_iscat = np.zeros(Lm1, bool)
         rec_bits = np.zeros((Lm1, 8), np.int64)
+        # CEGB: the features this tree split on, and the coupled
+        # penalties left to pay
+        cegb = None
+        if self._cegb_on:
+            used = np.zeros(self.num_features, np.float32)
+            cegb = (used, self._cegb_coupled_eff())
+        # forced splits: the BFS queue of (leaf, node), node 0 at the root
+        forced = self.forced
+        queue = [(0, 0)] if forced else []
+        qhead = 0
 
         vf, vi = self._eval_leaves(store[:1], [root_g], [root_h], [n],
                                    [-np.inf], [np.inf], [0], fmask,
-                                   root=True)
+                                   root=True, cegb=cegb)
         best_f[0], best_i[0] = vf[0], vi[0]
+        if qscale is not None:
+            # the JAX program's root search contracts the scale product of
+            # the root's g sum into the right side's difference: g_right =
+            # fma(sum q_g, scale_g, -g_left)
+            best_f[0, BF_RG] = np.float32(
+                float(np.float32(root_q[0])) * float(qscale[0])
+                - float(best_f[0, BF_LG]))
 
         s = 0
-        while s < L - 1 and best_f[:, BF_GAIN].max() > 0.0:
-            bl = int(np.argmax(best_f[:, BF_GAIN]))
+        while s < L - 1 and (best_f[:, BF_GAIN].max() > 0.0
+                             or qhead < len(queue)):
             new_leaf = s + 1
-            bf, bi = best_f[bl].copy(), best_i[bl]
+            node = None
+            if qhead < len(queue):
+                # a forced split ahead of the gain-driven choice
+                bl, nid = queue[qhead]
+                qhead += 1
+                node = forced[nid]
+                bf, bi = self._forced_info(
+                    store[bl], leaf_sg[bl], leaf_sh[bl],
+                    int(leaf_count[bl]), node[0], node[1])
+                if min(bi[BI_LC], bi[BI_RC]) < 1:
+                    continue            # a child would be empty: skipped
+            else:
+                bl = int(np.argmax(best_f[:, BF_GAIN]))
+                bf, bi = best_f[bl].copy(), best_i[bl]
             f, thr = int(bi[BI_FEAT]), int(bi[BI_THR])
             dleft = bool(bi[BI_DEFLEFT])
             left_cnt_g, right_cnt_g = int(bi[BI_LC]), int(bi[BI_RC])
@@ -370,21 +598,35 @@ class DeviceTreeLearner:
             smaller_is_left = left_cnt_g <= right_cnt_g
             sm_begin = begin if smaller_is_left else begin + left_cnt
             sm_count = left_cnt if smaller_is_left else right_cnt
-            sm_hist = leaf_histogram(self.bins, gh, indices, sm_begin,
-                                     sm_count, B, prec).to(torch.float32)
-            lg_hist = subtract_histogram(store[bl], sm_hist)
+            raw = hist(indices, sm_begin, sm_count)
+            sm_hist = in_units(raw)
+            lg_hist = lg_store = subtract_histogram(store[bl], sm_hist)
+            if one_bucket:
+                # the JAX program stores the larger child with the scale
+                # product contracted into the difference, and searches it
+                # uncontracted
+                lg_store = fma_f32(-raw, qscale, store[bl])
             left_hist, right_hist = ((sm_hist, lg_hist) if smaller_is_left
                                      else (lg_hist, sm_hist))
-            store[bl] = left_hist
-            store[new_leaf] = right_hist
+            store[bl] = sm_hist if smaller_is_left else lg_store
+            store[new_leaf] = lg_store if smaller_is_left else sm_hist
+            if cegb is not None:
+                used[f] = 1.0           # its coupled penalty is paid
 
             vf, vi = self._eval_leaves(
                 torch.stack([left_hist, right_hist]),
                 [bf[BF_LG], bf[BF_RG]], [bf[BF_LH], bf[BF_RH]],
                 [left_cnt_g, right_cnt_g], [lmin, rmin], [lmax, rmax],
-                [depth, depth], fmask)
+                [depth, depth], fmask, cegb=cegb)
             best_f[bl], best_i[bl] = vf[0], vi[0]
             best_f[new_leaf], best_i[new_leaf] = vf[1], vi[1]
+            if node is not None:
+                # the node's children, left then right: the left child
+                # keeps leaf bl, the right child is the new leaf
+                if node[2] >= 0:
+                    queue.append((bl, node[2]))
+                if node[3] >= 0:
+                    queue.append((new_leaf, node[3]))
             s += 1
 
         record = TreeRecord(
@@ -396,6 +638,7 @@ class DeviceTreeLearner:
             leaf_begin=leaf_begin.astype(np.int32),
             leaf_count=leaf_count.astype(np.int32),
             is_cat=rec_iscat, cat_bitset=rec_bits)
+        self._cegb_note_record(record)
         return indices, record
 
     # ------------------------------------------------------------------
@@ -485,6 +728,13 @@ class DeviceTreeLearner:
         cfg = self.cfg
         if cfg.tpu_grow_mode not in ("auto", "aligned"):
             return f"tpu_grow_mode={cfg.tpu_grow_mode}"
+        if cfg.sequential_device_only:
+            # forced splits and CEGB need the sequential leaf-wise loop
+            return "sequential-only features (forced splits/CEGB)"
+        if (str(cfg.tpu_quant_hist).strip().lower() == "on"
+                and self.quant_bits > 0):
+            # the quantized histograms live on the leaf-wise builder
+            return "tpu_quant_hist=on (quantized hist rides the fused path)"
         if not (cfg.tpu_aligned_interpret or self.device.type == "cuda"):
             return "CUDA kernels unavailable (CPU device, " \
                 "tpu_aligned_interpret off)"
@@ -535,11 +785,13 @@ class DeviceTreeLearner:
         """True when the level builder (`level_builder.py`) grows this
         learner's unbagged trees (JAX package: `level_mode_ok`, serial
         only): the grow mode asks for it, the bins are uint8, and there is
-        a feature and a split to make. A bagged iteration grows leaf-wise
-        (`train`: the level records assume a full fresh root); a K-class
-        iteration grows its trees here one by one; data-parallel training
-        raises before a learner is built."""
+        a feature and a split to make, and no forced split or CEGB
+        penalty needs the sequential loop. A bagged iteration grows
+        leaf-wise (`train`: the level records assume a full fresh root); a
+        K-class iteration grows its trees here one by one; data-parallel
+        training raises before a learner is built."""
         return (self.cfg.tpu_grow_mode == "level"
+                and not self.cfg.sequential_device_only
                 and self.bins.dtype == torch.uint8
                 and self.num_features > 0
                 and self.cfg.num_leaves >= 2)

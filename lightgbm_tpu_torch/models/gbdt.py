@@ -103,9 +103,6 @@ def _check_supported(cfg: Config) -> None:
     if cfg.tree_learner != "serial":
         raise NotImplementedError("distributed tree learners are not "
                                   "ported yet")
-    if cfg.tpu_quant_hist.strip().lower() == "on":
-        raise NotImplementedError("tpu_quant_hist=on: quantized histograms "
-                                  "are not ported yet (ROADMAP A.2)")
 
 
 class GBDT:

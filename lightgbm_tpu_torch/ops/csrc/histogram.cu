@@ -58,6 +58,20 @@
 // in turn without a per-tile flush, one flush a CTA into the f64 sums, the
 // last CTA's f64 output.
 //
+// The integer path (tpu_quant_hist=on; the Pallas kernel's integer
+// payload, pallas_hist.py:167-171) takes gh as the int8 or int16 [N, 2]
+// of ops/histogram.py::quantize_gh: a quarter or half of the f32 bytes a
+// row. Its sums are exact: hist_int_kernel<Q> adds q_g, q_h and the count
+// to three 32-bit shared cells with native ATOMS.ADD (three adds a site
+// against the f32 path's five, and no scale pass); a CTA flushes its
+// cells into int64 sums in device memory (the scratch's f64 words, read
+// as int64: zero is zero in both) before they could pass 2^31 (at most
+// 2^31 / qmax rows: 16,384 rows of |q| <= 32,767 fit), and the last CTA
+// of a feature tile rounds each exact sum to f32 once, as the plain twin
+// rounds its int64 sums. So the kernel equals the twin bit for bit. It
+// keeps the launch structure above: one launch a call, tickets, no
+// memset.
+//
 // The gather of the leaf's rows is fused: the kernels read the leaf's
 // slice of the partition, indices[begin, begin + count), and the rows of
 // bins [N, F] (uint8) and gh [N, 2] (f32) it names, or the contiguous rows
@@ -281,7 +295,111 @@ hist_f64_kernel(const uint8_t* __restrict__ bins, int num_features,
   finish(s, base, cells, out);
 }
 
-template <typename Kernel, typename Out>
+// The integer path's end of a call: the feature tile's last CTA rounds
+// its cells' int64 sums (the scratch's f64 words read as int64) and
+// counts to out [F * B, 3] in f32 once and zeroes them and the ticket.
+__device__ void finish_int(const Scratch& s, long long base, int cells,
+                           float* out) {
+  if (!last_to_arrive(s.tickets + blockIdx.y, gridDim.x)) return;
+  __threadfence();
+  long long* sums = reinterpret_cast<long long*>(s.sums) + 2 * base;
+  unsigned* cnt = s.cnt + base;
+  float* dst = out + kStats * base;
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+    dst[3 * i] = __ll2float_rn(__ldcg(sums + 2 * i));
+    dst[3 * i + 1] = __ll2float_rn(__ldcg(sums + 2 * i + 1));
+    dst[3 * i + 2] = static_cast<float>(__ldcg(cnt + i));
+    sums[2 * i] = 0;
+    sums[2 * i + 1] = 0;
+    cnt[i] = 0u;
+  }
+  if (threadIdx.x == 0) s.tickets[blockIdx.y] = 0u;
+}
+
+__device__ __forceinline__ void red_add_s64(long long* p, long long v) {
+  asm volatile("red.relaxed.gpu.global.add.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+// One row's quantized (g, h) pair: two int8 or two int16, read in one load
+template <typename Q> struct QPair;
+template <> struct QPair<int8_t> { using T = char2; };
+template <> struct QPair<int16_t> { using T = short2; };
+
+// The integer path: gh is int8 or int16 [N, 2]; cells [cells, 3] of
+// 32-bit words (q_g, q_h, count), flushed into the int64 sums whenever
+// the rows added since the last flush could reach 2^31 / qmax, and at the
+// CTA's end.
+template <typename Q>
+__global__ void __launch_bounds__(kThreads, 1)
+hist_int_kernel(const uint8_t* __restrict__ bins, int num_features,
+                const Q* __restrict__ gh,
+                const int32_t* __restrict__ indices, long long begin,
+                long long count, int num_bins, int feat_per_block,
+                int tile_rows, int words, Scratch s,
+                float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr long long kQMax = sizeof(Q) == 1 ? 127 : 32767;
+  constexpr long long kFlushRows = 0x7fffffffLL / kQMax;
+  const int f0 = blockIdx.y * feat_per_block;
+  const int nf = min(feat_per_block, num_features - f0);
+  const int cells = nf * num_bins;
+  const long long base = static_cast<long long>(f0) * num_bins;
+  unsigned* w = reinterpret_cast<unsigned*>(smem_raw);
+  long long* sums = reinterpret_cast<long long*>(s.sums) + 2 * base;
+  for (int i = threadIdx.x; i < kStats * cells; i += blockDim.x) w[i] = 0u;
+  const int warp = threadIdx.x >> 5;
+  const int rot_w = words ? warp % (nf >> 2) : 0;
+  const int rot_f = warp % nf;
+  using Pair = typename QPair<Q>::T;
+  const Pair* gh2 = reinterpret_cast<const Pair*>(gh);
+  const long long num_tiles = (count + tile_rows - 1) / tile_rows;
+  long long held = 0;                    // rows in the cells since a flush
+  for (long long tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+    const long long r0 = tile * tile_rows;
+    const int n = static_cast<int>(min(static_cast<long long>(tile_rows),
+                                       count - r0));
+    if (held + n > kFlushRows) {
+      // the cells into the int64 sums before they could overflow
+      __syncthreads();
+      for (int c = threadIdx.x; c < cells; c += blockDim.x) {
+        unsigned* p = w + kStats * c;
+        if (p[2] == 0u) continue;
+        red_add_s64(sums + 2 * c, static_cast<int>(p[0]));
+        red_add_s64(sums + 2 * c + 1, static_cast<int>(p[1]));
+        red_add(s.cnt + base + c, p[2]);
+        p[0] = p[1] = p[2] = 0u;
+      }
+      held = 0;
+    }
+    __syncthreads();
+    for (int q = threadIdx.x; q < n; q += blockDim.x) {
+      const long long row = leaf_row(indices, begin, r0 + q);
+      const Pair v = gh2[row];
+      const unsigned g = static_cast<unsigned>(static_cast<int>(v.x));
+      const unsigned h = static_cast<unsigned>(static_cast<int>(v.y));
+      add_row(bins + row * num_features + f0, nf, words != 0, rot_w, rot_f,
+              num_bins, [&](int c) {
+                unsigned* p = w + kStats * c;
+                atomicAdd(p, g);
+                atomicAdd(p + 1, h);
+                atomicAdd(p + 2, 1u);
+              });
+    }
+    held += n;
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < cells; c += blockDim.x) {
+    const unsigned* p = w + kStats * c;
+    if (p[2] == 0u) continue;
+    red_add_s64(sums + 2 * c, static_cast<int>(p[0]));
+    red_add_s64(sums + 2 * c + 1, static_cast<int>(p[1]));
+    red_add(s.cnt + base + c, p[2]);
+  }
+  finish_int(s, base, cells, out);
+}
+
+template <typename Kernel, typename Out, typename GH = float>
 int launch(Kernel kernel, const void* bins, int num_features, const void* gh,
            const void* indices, long long begin, long long count,
            int num_bins, int feat_per_block, int tile_rows, int grid_x,
@@ -294,7 +412,7 @@ int launch(Kernel kernel, const void* bins, int num_features, const void* gh,
   kernel<<<dim3(grid_x, grid_y), kThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(bins), num_features,
-      static_cast<const float*>(gh), static_cast<const int32_t*>(indices),
+      static_cast<const GH*>(gh), static_cast<const int32_t*>(indices),
       begin, count, num_bins, feat_per_block, tile_rows, words, s,
       static_cast<Out*>(out));
   return static_cast<int>(cudaGetLastError());
@@ -335,44 +453,79 @@ int lgbt_hist_f64(const void* bins, int num_features, const void* gh,
       tickets, out, stream);
 }
 
-// Once per device (the current one): lets both kernels take the
+// The integer path: gh int8 (lgbt_hist_i8) or int16 (lgbt_hist_i16)
+// [N, 2], out f32, the other arguments as lgbt_hist_f32's.
+int lgbt_hist_i8(const void* bins, int num_features, const void* gh,
+                 const void* indices, long long begin, long long count,
+                 int num_bins, int feat_per_block, int tile_rows,
+                 int grid_x, int words, int smem, void* sums, void* cnt,
+                 void* tickets, void* out, void* stream) {
+  return launch<decltype(&hist_int_kernel<int8_t>), float, int8_t>(
+      hist_int_kernel<int8_t>, bins, num_features, gh, indices, begin,
+      count, num_bins, feat_per_block, tile_rows, grid_x, words, smem, sums,
+      cnt, tickets, out, stream);
+}
+
+int lgbt_hist_i16(const void* bins, int num_features, const void* gh,
+                  const void* indices, long long begin, long long count,
+                  int num_bins, int feat_per_block, int tile_rows,
+                  int grid_x, int words, int smem, void* sums, void* cnt,
+                  void* tickets, void* out, void* stream) {
+  return launch<decltype(&hist_int_kernel<int16_t>), float, int16_t>(
+      hist_int_kernel<int16_t>, bins, num_features, gh, indices, begin,
+      count, num_bins, feat_per_block, tile_rows, grid_x, words, smem, sums,
+      cnt, tickets, out, stream);
+}
+
+// Once per device (the current one): lets the kernels take the
 // shared-memory opt-in less their static shared memory as dynamic shared
 // memory. Returns those bytes, -1 on a CUDA error.
 int lgbt_hist_setup(int device) {
+  const void* kernels[] = {
+      reinterpret_cast<const void*>(hist_fixed_kernel),
+      reinterpret_cast<const void*>(hist_f64_kernel),
+      reinterpret_cast<const void*>(hist_int_kernel<int8_t>),
+      reinterpret_cast<const void*>(hist_int_kernel<int16_t>)};
   int optin = 0;
-  cudaFuncAttributes fixed_attr, f64_attr;
   if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess
-      || cudaFuncGetAttributes(&fixed_attr, hist_fixed_kernel) != cudaSuccess
-      || cudaFuncGetAttributes(&f64_attr, hist_f64_kernel) != cudaSuccess) {
+                             device) != cudaSuccess) {
     cudaGetLastError();
     return -1;
   }
-  const int dynamic = optin - static_cast<int>(
-      fixed_attr.sharedSizeBytes > f64_attr.sharedSizeBytes
-          ? fixed_attr.sharedSizeBytes : f64_attr.sharedSizeBytes);
-  if (cudaFuncSetAttribute(hist_fixed_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           dynamic) != cudaSuccess
-      || cudaFuncSetAttribute(hist_f64_kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              dynamic) != cudaSuccess) {
-    cudaGetLastError();                  // clear the error for later launches
-    return -1;
+  size_t static_max = 0;
+  for (const void* k : kernels) {
+    cudaFuncAttributes attr;
+    if (cudaFuncGetAttributes(&attr, k) != cudaSuccess) {
+      cudaGetLastError();
+      return -1;
+    }
+    if (attr.sharedSizeBytes > static_max) static_max = attr.sharedSizeBytes;
+  }
+  const int dynamic = optin - static_cast<int>(static_max);
+  for (const void* k : kernels) {
+    if (cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dynamic) != cudaSuccess) {
+      cudaGetLastError();                // clear the error for later launches
+      return -1;
+    }
   }
   return dynamic;
 }
 
-// CTAs of the f32 (f64 == 0) or f64 kernel that the CUDA occupancy
-// calculator fits on an SM of the current device with `smem` bytes of
-// dynamic shared memory each (after lgbt_hist_setup); -1 on a CUDA error.
-int lgbt_hist_occupancy(int f64, int smem) {
+// CTAs of the f32 (kind 0), f64 (1), int8 (2) or int16 (3) kernel that
+// the CUDA occupancy calculator fits on an SM of the current device with
+// `smem` bytes of dynamic shared memory each (after lgbt_hist_setup); -1
+// on a CUDA error.
+int lgbt_hist_occupancy(int kind, int smem) {
+  const void* kernels[] = {
+      reinterpret_cast<const void*>(hist_fixed_kernel),
+      reinterpret_cast<const void*>(hist_f64_kernel),
+      reinterpret_cast<const void*>(hist_int_kernel<int8_t>),
+      reinterpret_cast<const void*>(hist_int_kernel<int16_t>)};
+  if (kind < 0 || kind > 3) return -1;
   int n = -1;
-  const cudaError_t e = f64
-      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, hist_f64_kernel,
-                                                      kThreads, smem)
-      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, hist_fixed_kernel,
-                                                      kThreads, smem);
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, kernels[kind], kThreads, smem);
   return e == cudaSuccess ? n : -1;
 }
 

@@ -19,6 +19,12 @@ and rounds to f32 once in both precisions; on the card ``"f32"`` takes
 B1's fixed-point cells over row tiles that never cross a segment (within
 2e-6 of the segment's sum of |g| (|h|) of the twin), and ``"f64"`` f64
 shared sums, equal to the twin's.
+
+A quantized payload (`quantize_gh`: ``gh`` int8 or int16 [N, 2], the
+``tpu_quant_hist`` path) takes B1's integer branch, ``"i8"`` / ``"i16"``:
+native 32-bit integer shared atomics over the exact integers, int64 sums
+in device memory, each rounded to f32 once; the twin sums in int64 and
+rounds once too, so the two are equal bit for bit.
 """
 from __future__ import annotations
 
@@ -26,18 +32,26 @@ import ctypes
 import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 # payload columns: gradient, hessian, count
 NUM_HIST_STATS = 3
 
 # kernel launches per precision (a launch is one call that ran the CUDA
-# kernel; the plain CPU path does not count): B1 (`leaf_histogram`) and B5
+# kernel; the plain CPU path does not count): B1 (`leaf_histogram`), its
+# integer branch by the quantized payload's width, and B5
 # (`histogram_from_words`)
 LAUNCHES: Dict[str, int] = {"f32": 0, "f64": 0}
+INT_LAUNCHES: Dict[str, int] = {"i8": 0, "i16": 0}
 WORDS_LAUNCHES: Dict[str, int] = {"f32": 0, "f64": 0}
 
 _DTYPES = {"f32": torch.float32, "f64": torch.float64}
+# B1's integer branch by the dtype of a quantized gh, and its bound
+_INT_KINDS = {torch.int8: "i8", torch.int16: "i16"}
+QMAX = {8: 127.0, 16: 32767.0}
+# the kernels' indices in the libraries' occupancy query
+_KIND_INDEX = {"f32": 0, "f64": 1, "i8": 2, "i16": 3}
 # B1 (histogram.cu) and B5 (histogram_words.cu): one CTA of 1024 threads
 # an SM, over tiles of at most HIST_TILE_ROWS rows (of a leaf, or of a
 # segment), each scaled to its own largest |g| and |h| (2^14 rows keep a
@@ -50,8 +64,9 @@ HIST_TILE_ROWS = 16_384
 # sweep on the card, PERF.md, slice 9)
 HIST_SPREAD = 7.2
 # shared bytes a cell: f32, the hi/lo int32 words of g and of h and a u32
-# count; f64, the f64 sums of g and h and a u32 count
-_CELL_BYTES = {"f32": 20, "f64": 20}
+# count; f64, the f64 sums of g and h and a u32 count; the integer
+# branch, the int32 sums of q_g and q_h and a u32 count
+_CELL_BYTES = {"f32": 20, "f64": 20, "i8": 12, "i16": 12}
 # shared bytes a CTA beyond its cells: the tile's largest |g| and |h| bits
 _SMEM_EXTRA = 8
 # the kernels' libraries ("histogram": B1, "histogram_words": B5) and the
@@ -73,7 +88,7 @@ _scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def reset_launches() -> None:
-    for d in (LAUNCHES, WORDS_LAUNCHES):
+    for d in (LAUNCHES, INT_LAUNCHES, WORDS_LAUNCHES):
         for k in d:
             d[k] = 0
 
@@ -90,7 +105,11 @@ def histogram_plain(bins: torch.Tensor, gh: torch.Tensor,
                     num_bins: int, precision: str = "f32") -> torch.Tensor:
     """Plain PyTorch version of the kernel: the leaf's rows gathered, then
     one ``index_add_`` over the flat cell index ``f * num_bins + bin``,
-    accumulated in f32 or f64."""
+    accumulated in f32 or f64; an integer ``gh`` in int64, rounded to f32
+    once."""
+    if gh.dtype in _INT_KINDS:
+        return _histogram_plain_int(bins, gh, indices, begin, count,
+                                    num_bins)
     dtype = _DTYPES[precision]
     f = bins.shape[1]
     rows = _leaf_rows(indices, begin, count, bins.device)
@@ -106,6 +125,46 @@ def histogram_plain(bins: torch.Tensor, gh: torch.Tensor,
     return out.view(f, num_bins, NUM_HIST_STATS)
 
 
+def _histogram_plain_int(bins, gh, indices, begin, count, num_bins):
+    """`histogram_plain` of a quantized int8/int16 ``gh``: exact int64
+    sums of the integers and the count, each rounded to f32 once."""
+    f = bins.shape[1]
+    rows = _leaf_rows(indices, begin, count, bins.device)
+    payload = torch.cat([gh[rows].long(),
+                         torch.ones((rows.numel(), 1), dtype=torch.int64,
+                                    device=bins.device)], dim=1)
+    cell = bins[rows].long() + torch.arange(
+        f, device=bins.device) * num_bins                      # [P, F]
+    out = torch.zeros((f * num_bins, NUM_HIST_STATS), dtype=torch.int64,
+                      device=bins.device)
+    out.index_add_(0, cell.reshape(-1),
+                   payload[:, None, :].expand(-1, f, -1).reshape(-1, 3))
+    return out.to(torch.float32).view(f, num_bins, NUM_HIST_STATS)
+
+
+def quantize_gh(gh: torch.Tensor, bits: int, key
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stochastic-rounded per-column quantization of the [N, 2] f32
+    grad/hess payload (JAX package: `ops/histogram.py::quantize_gh`):
+    ``scale = max(absmax / qmax, 1e-30)`` a column in f32 (the division
+    by the constant taken as XLA takes it, a product with the constant's
+    f32 reciprocal), then ``q =
+    clip(floor(gh / scale + u), -qmax, qmax)`` with ``u`` the f32 draw of
+    ``jax.random.uniform(key, (N, 2))`` (``utils/prng.py``), so that
+    ``E[q * scale] == gh``. Returns (q int8/int16 [N, 2], scale f32 [2]);
+    the caller multiplies finished histograms and leaf sums by
+    ``scale``."""
+    from ..utils import prng
+    qmax = QMAX[bits]
+    absmax = gh.abs().amax(0)
+    # XLA divides by the constant as a product with its f32 reciprocal
+    qinv = float(np.float32(1.0) / np.float32(qmax))
+    scale = torch.clamp(absmax * qinv, min=1e-30)
+    u = prng.uniform_key(key, tuple(gh.shape), gh.device)
+    q = torch.clamp(torch.floor(gh / scale + u), -qmax, qmax)
+    return q.to(torch.int8 if bits == 8 else torch.int16), scale
+
+
 def _lib(name: str = "histogram") -> Dict[str, object]:
     """The C entry points of library ``name`` (`_PREFIX`), by role:
     "f32", "f64" (the two kernels' launches), "setup", "occupancy"."""
@@ -117,9 +176,11 @@ def _lib(name: str = "histogram") -> Dict[str, object]:
         launch = ([p, i, p, p, ll, ll, i, i, i, i, i, i, p, p, p, p, p]
                   if name == "histogram" else
                   [p, ll, p, p, p, p, i, i, i, i, i, i, p, p, p, p, p])
+        roles = [("f32", launch), ("f64", launch)]
+        if name == "histogram":
+            roles += [("i8", launch), ("i16", launch)]
         fns = {}
-        for role, args in (("f32", launch), ("f64", launch),
-                           ("setup", [i]), ("occupancy", [i, i])):
+        for role, args in (*roles, ("setup", [i]), ("occupancy", [i, i])):
             fn = getattr(lib, f"{_PREFIX[name]}_{role}")
             fn.argtypes = args
             fn.restype = i
@@ -223,7 +284,7 @@ def hist_ctas_per_sm(ordinal: int, precision: str, smem: int,
     device ``ordinal``."""
     _device(ordinal, name)
     with torch.cuda.device(ordinal):
-        n = _lib(name)["occupancy"](int(precision == "f64"), smem)
+        n = _lib(name)["occupancy"](_KIND_INDEX[precision], smem)
     if n < 0:
         raise RuntimeError(f"{name} kernel: the CUDA occupancy query "
                            "failed")
@@ -266,14 +327,19 @@ def _scratch_for(dev: torch.device, ordinal: int, stream: int, cells: int,
     return s
 
 
-def _histogram_cuda(bins, gh, indices, begin, count, num_bins, precision):
+def _histogram_cuda(bins, gh, indices, begin, count, num_bins, precision,
+                    ctas: Optional[int] = None):
     dev = bins.device
     if bins.dtype != torch.uint8 or bins.dim() != 2 \
             or not bins.is_contiguous():
         raise ValueError("bins must be a contiguous uint8 [N, F] tensor")
-    if gh.dtype != torch.float32 or gh.shape != (bins.shape[0], 2) \
-            or not gh.is_contiguous() or gh.device != dev:
-        raise ValueError("gh must be a contiguous f32 [N, 2] tensor on the "
+    if gh.dtype in _INT_KINDS:
+        precision = _INT_KINDS[gh.dtype]
+    elif gh.dtype != torch.float32:
+        raise ValueError("gh must be f32, int8 or int16")
+    if gh.shape != (bins.shape[0], 2) or not gh.is_contiguous() \
+            or gh.device != dev:
+        raise ValueError("gh must be a contiguous [N, 2] tensor on the "
                          "device of bins")
     if indices is not None:
         if indices.dtype != torch.int32 or not indices.is_contiguous() \
@@ -287,7 +353,7 @@ def _histogram_cuda(bins, gh, indices, begin, count, num_bins, precision):
     if not 1 <= num_bins <= 256:
         raise ValueError(f"num_bins={num_bins} outside [1, 256]")
     f = bins.shape[1]
-    dtype = _DTYPES[precision]
+    dtype = _DTYPES.get(precision, torch.float32)
     if count == 0 or f == 0:
         return torch.zeros((f, num_bins, NUM_HIST_STATS), dtype=dtype,
                            device=dev)
@@ -298,6 +364,9 @@ def _histogram_cuda(bins, gh, indices, begin, count, num_bins, precision):
                                                      precision)
     fpb, grid_x, tile_rows = launch_shape(count, f, num_bins, precision,
                                           num_sms, optin, ctas_per_sm)
+    if ctas is not None:
+        # a grid of the caller's (tests: one CTA over many tiles)
+        grid_x = max(1, min(int(ctas), -(-count // tile_rows)))
     words = int(f % 4 == 0 and fpb % 4 == 0 and bins.data_ptr() % 4 == 0)
     out = torch.empty((f, num_bins, NUM_HIST_STATS), dtype=dtype, device=dev)
     with torch.cuda.device(dev):
@@ -316,7 +385,7 @@ def _histogram_cuda(bins, gh, indices, begin, count, num_bins, precision):
                            f"{err} (CTAs={grid_x}, features/tile={fpb}, "
                            f"rows/tile={tile_rows}, bins={num_bins}, "
                            f"{precision})")
-    LAUNCHES[precision] += 1
+    (INT_LAUNCHES if precision in INT_LAUNCHES else LAUNCHES)[precision] += 1
     return out
 
 
@@ -327,7 +396,9 @@ def leaf_histogram(bins: torch.Tensor, gh: torch.Tensor,
     ``bins`` [N, F] uint8 and ``gh`` [N, 2] f32, or the contiguous rows
     ``[begin, begin + count)`` when ``indices`` is None (the identity root
     partition). Returns [F, num_bins, 3] in f32 (``"f32"``) or f64
-    (``"f64"``)."""
+    (``"f64"``). An int8/int16 ``gh`` (`quantize_gh`) takes the integer
+    branch whatever ``precision`` says: the exact integer sums, each
+    rounded to f32 once."""
     if precision not in _DTYPES:
         raise ValueError(f"precision must be f32 or f64, got {precision!r}")
     if bins.is_cuda:

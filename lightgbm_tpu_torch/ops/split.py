@@ -218,7 +218,8 @@ def _bitset_words(sel_bins: torch.Tensor) -> torch.Tensor:
 
 
 def make_split_finder(hyper: SplitHyper, feature_meta: Dict[str, np.ndarray],
-                      max_bin: int, device=torch.device("cpu")):
+                      max_bin: int, device=torch.device("cpu"),
+                      tested_report: bool = False):
     """Build the split finder for a fixed dataset + config.
 
     feature_meta arrays (length F): num_bin, default_bin, missing_type
@@ -235,7 +236,9 @@ def make_split_finder(hyper: SplitHyper, feature_meta: Dict[str, np.ndarray],
     sends left; zero without a categorical feature) come with every
     search; with a categorical feature also ``cat_dir``, ``n_elig`` and
     ``use_onehot`` [K, F] and ``sort_order`` [K, F, B], as the JAX
-    finder returns them.
+    finder returns them. ``tested_report`` subtracts the tested copy of
+    the parent's gain shift from the reported gain as well: the JAX
+    leaf-wise program with forced splits contracts both copies alike.
     """
     def dev(a, dtype):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
@@ -401,7 +404,8 @@ def make_split_finder(hyper: SplitHyper, feature_meta: Dict[str, np.ndarray],
         num_data_f = num_data.to(torch.float32)[:, None, None]
         min_c = min_constraint.to(torch.float32)[:, None, None]
         max_c = max_constraint.to(torch.float32)[:, None, None]
-        min_gain_shift = (_leaf_gain(sum_grad, sum_hess, l1, l2, mds)
+        report = _leaf_gain_tested if tested_report else _leaf_gain
+        min_gain_shift = (report(sum_grad, sum_hess, l1, l2, mds)
                           + h.min_gain_to_split)
         tested_shift = (_leaf_gain_tested(sum_grad, sum_hess, l1, l2, mds)
                         + h.min_gain_to_split)

@@ -18,6 +18,12 @@ reported gain. The port keeps both copies (`ops/split.py::_leaf_gain`,
 `_leaf_gain_tested`), so the ``split_gain`` written to the model text,
 and which noise-level splits are taken, are the JAX package's bit for
 bit.
+
+XLA's CPU backend sums an f32 axis of more than 32 elements in windows
+of 32 (its tree-reduction rewrite: the axis padded with zeros to a
+multiple of 32, the padding split evenly before and after, each window
+summed in order, then the windows' sums by the same rule); `sum_f32`
+follows it on the host.
 """
 from __future__ import annotations
 
@@ -54,3 +60,24 @@ def exp_f32(x: torch.Tensor) -> torch.Tensor:
     y = z * two_n
     return torch.where(y < float(np.finfo(np.float32).tiny),
                        torch.zeros_like(y), y)
+
+
+def sum_f32(v: np.ndarray) -> np.ndarray:
+    """f32 sum over axis 0 of ``v`` [n, ...] in the order of XLA's CPU
+    reduction: in order for n <= 32, else by windows of 32 of the
+    zero-padded axis, recursively."""
+    v = np.asarray(v, np.float32)
+    n = v.shape[0]
+    if n > 32:
+        pad = -n % 32
+        lo = pad // 2
+        z = np.zeros((1,) + v.shape[1:], np.float32)
+        v = np.concatenate([np.repeat(z, lo, 0), v,
+                            np.repeat(z, pad - lo, 0)])
+        return sum_f32(np.stack([sum_f32(v[i:i + 32])
+                                 for i in range(0, n + pad, 32)]))
+    acc = np.zeros(v.shape[1:], np.float32)
+    for x in v:
+        acc = (acc + x).astype(np.float32)
+    return acc
+

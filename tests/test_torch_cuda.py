@@ -1,6 +1,8 @@
 """Tests of the port that need the card: the CUDA histogram kernels (B1
 and the level builder's B5), the aligned engine's kernels and the
-lambdarank kernel against their plain twins, f64 training on the card
+lambdarank kernel against their plain twins, B1's integer branch
+(quantized payloads) bit-equal to its twin and quantized training on the
+card against the CPU, f64 training on the card
 against the CPU (leaf-wise and level), the aligned engine on the card
 (binary, and lambdarank on EXT records), the categorical route of B2 and
 B3 and categorical f64 training against the CPU, and the prototype
@@ -22,6 +24,7 @@ from lightgbm_tpu_torch.ops import histogram as H
 from lightgbm_tpu_torch.ops import proto as P
 from lightgbm_tpu_torch.ops import rank as R
 from lightgbm_tpu_torch.ops.ranking import discount_table
+from lightgbm_tpu_torch.utils import prng
 from lightgbm_tpu_torch.utils.launches import graph_launches
 
 
@@ -164,6 +167,143 @@ def test_hist_back_to_back_calls_on_gpu(cuda):
             scale = _leaf_abs_sums(tgh, idx, b, c)
             assert bool(((out[..., :2] - ref[..., :2]).abs()
                          <= 1e-5 * scale).all())
+
+
+def _mk_q(n, f, max_bin, bits, seed, extreme=False):
+    """uint8 bins [n, f] and the quantized payload of random g/h
+    (`quantize_gh`, int8 or int16 [n, 2]); ``extreme``: every value at
+    +-qmax, the largest sums a cell can take."""
+    bins, gh = _mk(n, f, max_bin, seed)
+    if extreme:
+        sign = np.where(np.random.RandomState(seed).rand(n) < 0.5, -1, 1)
+        gh = np.stack([sign, np.ones(n)], 1).astype(np.float32)
+    q, _ = H.quantize_gh(torch.tensor(gh), bits,
+                         prng.fold_in(prng.key(seed), 1))
+    return bins, q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("max_bin", [63, 255])
+def test_int_kernel_matches_plain_on_gpu(cuda, max_bin, bits):
+    """B1's integer branch (int8 / int16 quantized g and h) bit-equal to
+    its twin: over gathered leaves of 0, 1, 16,383, 16,384, 16,385 and
+    20,000 rows, the root, the 20,000-row leaf on bins one byte off a
+    4-byte boundary, and at 255 bins 137 features (four feature tiles);
+    one launch a call, counted by width."""
+    bins, q = _mk_q(50000, 28, max_bin, bits, seed=21)
+    tb = torch.tensor(bins, device=cuda)
+    tq = q.to(cuda)
+    perm = torch.randperm(50000, device=cuda).to(torch.int32)
+    cases = [(tb, tq, perm, 1000, count)
+             for count in (0, 1, 16_383, 16_384, 16_385, 20_000)]
+    cases.append((tb, tq, None, 0, 50000))
+    odd = torch.empty(tb.numel() + 1, dtype=torch.uint8,
+                      device=cuda)[1:].view(tb.shape)
+    odd.copy_(tb)
+    cases.append((odd, tq, perm, 1000, 20_000))
+    if max_bin == 255:
+        wide, wq = _mk_q(30000, 137, max_bin, bits, seed=22)
+        tw, twq = torch.tensor(wide, device=cuda), wq.to(cuda)
+        wperm = torch.randperm(30000, device=cuda).to(torch.int32)
+        cases += [(tw, twq, wperm, 500, 20_000), (tw, twq, None, 0, 30000)]
+    H.reset_launches()
+    for b, g, idx, begin, count in cases:
+        got = H.leaf_histogram(b, g, idx, begin, count, max_bin)
+        ref = H.histogram_plain(b, g, idx, begin, count, max_bin)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, ref)
+    launched = sum(1 for c in cases if c[4] > 0)
+    assert H.INT_LAUNCHES == {"i8": launched if bits == 8 else 0,
+                              "i16": launched if bits == 16 else 0}
+    assert H.LAUNCHES == {"f32": 0, "f64": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 16])
+def test_int_kernel_flushes_on_gpu(cuda, bits):
+    """One CTA over 300,000 rows of +-qmax payloads in two bins (int16: a
+    flush of its 32-bit cells every four 16,384-row tiles) and over a
+    gathered leaf of them: bit-equal to the twin, whose int64 sums pass
+    2^31."""
+    bins, q = _mk_q(300_000, 8, 2, bits, seed=23, extreme=True)
+    tb, tq = torch.tensor(bins, device=cuda), q.to(cuda)
+    perm = torch.randperm(300_000, device=cuda).to(torch.int32)
+    for idx, begin, count in ((None, 0, 300_000), (perm, 1, 299_990)):
+        ref = H.histogram_plain(tb, tq, idx, begin, count, 2)
+        for ctas in (1, 3, None):
+            got = H._histogram_cuda(tb, tq, idx, begin, count, 2, "f32",
+                                    ctas=ctas)
+            assert torch.equal(got, ref)
+    if bits == 16:
+        assert float(ref[..., 1].abs().max()) > 2 ** 31
+
+
+@pytest.mark.cuda
+def test_int_back_to_back_with_f32_on_gpu(cuda):
+    """f32, int8 and int16 calls in a row on the same stream, without a
+    synchronize: the integer branch reads the shared scratch's f64 words
+    as int64 sums, and each call leaves it zero for the next."""
+    bins, gh = _mk(30000, 28, 63, seed=24)
+    tb, tgh = torch.tensor(bins, device=cuda), torch.tensor(gh, device=cuda)
+    q8, _ = H.quantize_gh(torch.tensor(gh), 8, prng.key(3))
+    q16, _ = H.quantize_gh(torch.tensor(gh), 16, prng.key(4))
+    perm = torch.randperm(30000, device=cuda).to(torch.int32)
+    calls = [(tgh, perm, 0, 20000, 255), (q8.to(cuda), perm, 20000, 10000,
+                                          63),
+             (q16.to(cuda), None, 0, 30000, 255), (tgh, None, 0, 30000, 63),
+             (q8.to(cuda), perm, 5, 1, 63), (q16.to(cuda), perm, 7, 20000,
+                                             63)]
+    outs = [H.leaf_histogram(tb, g, idx, b, c, nb) for g, idx, b, c, nb
+            in calls]
+    for out, (g, idx, b, c, nb) in zip(outs, calls):
+        ref = H.histogram_plain(tb, g, idx, b, c, nb)
+        if g.dtype == torch.float32:
+            assert torch.equal(out[..., 2], ref[..., 2])
+            scale = _leaf_abs_sums(g, idx, b, c)
+            assert bool(((out[..., :2] - ref[..., :2]).abs()
+                         <= 1e-5 * scale).all())
+        else:
+            assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_int_ctas_per_sm_on_gpu(cuda):
+    """The occupancy calculator fits at least one 1,024-thread CTA of the
+    integer branch (12-byte cells) on an SM at the HIGGS and MSLR
+    shapes."""
+    ordinal = cuda.index or 0
+    num_sms, optin = H._device(ordinal)
+    for F, B in ((28, 63), (28, 255), (137, 255)):
+        for kind in ("i8", "i16"):
+            fpb = H.launch_shape(10_500_000, F, B, kind, num_sms, optin)[0]
+            smem = H.hist_smem(fpb, B, kind)
+            assert smem <= optin
+            assert H.hist_ctas_per_sm(ordinal, kind, smem) >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 16])
+def test_quantized_training_on_gpu_equals_cpu(cuda, bits):
+    """tpu_quant_hist=on: the integer branch equals its twin, so the
+    trees grown on the card are the CPU's, byte for byte."""
+    rng = np.random.RandomState(2)
+    X = rng.standard_normal((3000, 8))
+    y = (X[:, 0] + X[:, 1] * X[:, 2] + rng.standard_normal(3000) > 0)
+    params = {"objective": "binary", "num_leaves": 15, "max_bin": 63,
+              "tpu_quant_hist": "on", "tpu_quant_hist_bits": bits,
+              "tpu_grow_mode": "leafwise", "verbosity": -1}
+    texts = {}
+    for dev in ("cuda", "cpu"):
+        H.reset_launches()
+        bst = tlgb.train({**params, "device_type": dev},
+                         tlgb.Dataset(X, label=y.astype(np.float64)),
+                         num_boost_round=3, verbose_eval=False)
+        assert (H.INT_LAUNCHES[f"i{bits}"] > 0) == (dev == "cuda")
+        assert H.LAUNCHES["f32"] == 0
+        t = bst.model_to_string()
+        texts[dev] = t[t.index("Tree=0"):t.index("end of trees")]
+    assert texts["cuda"] == texts["cpu"]
 
 
 def _words_abs_sums(g, h, beg, cnt):

@@ -4,8 +4,9 @@ diverge without a word (ROADMAP C.17, C.18, C.20-C.23, C.25):
 - ``feature_fraction < 1`` draws the JAX package's feature subsets, so
   the f64 leaf-wise model text is byte-equal and the aligned engine
   splits on the same features;
-- early stopping and ``tpu_quant_hist=on``, not ported yet, raise where
-  they used to train silently; their off values train as before;
+- early stopping, under each alias of its param, and ``tpu_quant_hist=
+  on`` train as the JAX package does (they raised until they were
+  ported); their off values train as before;
 - under a binding ``max_delta_step`` clamp (with L1/L2, ``max_depth`` or
   a monotone constraint) the f64 tree sections, leaf-wise and level,
   are the JAX package's byte for byte: the parent's gain shift is
@@ -120,15 +121,28 @@ def test_feature_fraction_matches_jax(x64, frac, path):
 @pytest.mark.parametrize("alias", ["early_stopping_round",
                                    "early_stopping_rounds",
                                    "early_stopping"])
-def test_early_stopping_raises(alias):
-    """C.20: a positive early-stopping round in params raises, naming
-    ROADMAP A.3, where the port used to train every round."""
+def test_early_stopping_alias_matches_jax(x64, alias):
+    """C.20: a positive early-stopping round under each alias in params
+    stops training as the JAX package does (the port used to train every
+    round, then raised until early stopping was ported): the same best
+    iteration, best score and trees, at learning rate 0.5 and 40 rounds,
+    where the validation logloss turns."""
     X, y, _ = _slice_data()
-    ds = tlgb.Dataset(X, label=y)
-    with pytest.raises(NotImplementedError, match="A.3"):
-        tlgb.train({**SLICE, "device_type": "cpu", alias: 3}, ds,
-                   num_boost_round=ROUNDS, valid_sets=[ds],
-                   verbose_eval=False)
+    params = {**SLICE, "learning_rate": 0.5, alias: 2,
+              "metric": "binary_logloss"}
+    out = {}
+    for name, pkg in (("jax", jlgb), ("port", tlgb)):
+        p = params if pkg is jlgb else {**params, "device_type": "cpu"}
+        tr = pkg.Dataset(X[:3000], label=y[:3000])
+        out[name] = pkg.train(p, tr, num_boost_round=40,
+                              valid_sets=[tr.create_valid(
+                                  X[3000:], label=y[3000:])],
+                              verbose_eval=False)
+    jb, tb = out["jax"], out["port"]
+    assert 0 < tb.best_iteration == jb.best_iteration < 40
+    assert tb.num_trees() == jb.num_trees() < 40
+    assert dict(tb.best_score["valid_0"]) == dict(jb.best_score["valid_0"])
+    assert _tree_sections(tb) == _tree_sections(jb)
 
 
 @pytest.mark.parametrize("value", [0, None])
@@ -141,16 +155,20 @@ def test_early_stopping_off_trains(value):
     assert bst.num_trees() == ROUNDS
 
 
-def test_quant_hist_on_raises():
-    """C.21: tpu_quant_hist=on raises, naming ROADMAP A.2, instead of
-    training unquantized. (The JAX package quantizes under on, on the CPU
-    too, unless something keeps full-precision payloads: f64 histograms,
-    as SLICE's, the level builder or a parallel learner.)"""
+def test_quant_hist_on_matches_jax():
+    """C.21: tpu_quant_hist=on quantizes as the JAX package does (the
+    port used to train unquantized, then raised until the quantized
+    histograms were ported): at 8 bits, without SLICE's f64 histograms
+    (which never quantize), the tree sections are the JAX package's byte
+    for byte; the integer sums of 4,000 rows stay below 2^24, where the
+    JAX package's f32 sums are exact."""
     X, y, _ = _slice_data()
-    with pytest.raises(NotImplementedError, match="A.2"):
-        tlgb.train({**SLICE, "device_type": "cpu", "tpu_quant_hist": "on"},
-                   tlgb.Dataset(X, label=y), num_boost_round=ROUNDS,
-                   verbose_eval=False)
+    params = {**SLICE, "tpu_use_f64_hist": False, "tpu_quant_hist": "on",
+              "tpu_quant_hist_bits": 8}
+    jb, tb, _ = _leafwise_pair(params)
+    assert tb._gbdt.learner.quant_bits == 8
+    assert tb.num_trees() == jb.num_trees() == ROUNDS
+    assert _tree_sections(tb) == _tree_sections(jb)
 
 
 @pytest.mark.parametrize("mode", ["auto", "off"])
