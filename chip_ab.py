@@ -57,6 +57,13 @@ lambdarank gradient (kernel B6, ``rank.cu``) and the prototype move (P2,
         (``tpu_grow_mode=level``, ``max_depth`` 8, 63 and 255 bins):
         median iteration and level build ms, holdout AUC, and one
         profiled round's wall, busy and B5 device ms and launches;
+    python3 chip_ab.py unbundled --baseline DIR
+        the unbundled route of B2's partition and of B3 in the checkout
+        at DIR, the design before the bundled branch (its entry points
+        take the bitset table and no bundled flag), against this
+        checkout's on the same records: the root's and the widest
+        round's moves and the widest round's count pass of a big-n tree
+        at the HIGGS shape (63 and 255 bins), warm and cold;
     python3 chip_ab.py move --baseline DIR [--cat]
         B2's partition of the checkout at DIR, the one-launch design
         before the categorical route (its C entry point takes no bitset
@@ -811,6 +818,99 @@ def move(torch, CS, lt, A, baseline: str, cat: bool = False) -> dict:
             "move_calls": prof["move_calls"]})
         CS.log(f"move mslr {which}: {res[f'mslr {which}'][-1]}")
     A._move_partition_cuda = impl["B"]
+    return res
+
+
+def parent_partition(torch, A, lib):
+    """`_move_partition_cuda` for B2's entry point before the bundled
+    branch: the bitset table, no bundled flag."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lgbt_move_partition.argtypes = [p, i, i, i, i, i, i, i, p, p, p, p,
+                                        p, p, p, p, i, p, p, p]
+    lib.lgbt_move_partition.restype = i
+
+    def run(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
+            bits, w_used, out, cptr=0, bundled=False):
+        if bundled:
+            raise ValueError("the parent partition has no bundled branch")
+        nc, W, C = records.shape
+        dev = records.device
+        lanes, smem = A.move_smem(C, w_used, A._lib()[
+            "lgbt_aligned_smem_optin"](dev.index or 0))
+        scratch = torch.empty(4 * nc + 2, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.lgbt_move_partition(
+                records.data_ptr(), nc, W, C, w_used, lanes, smem, bits,
+                r1.data_ptr(), r2.data_ptr(), meta.data_ptr(),
+                wsel.data_ptr(), basel.data_ptr(), baser.data_ptr(),
+                hslots.data_ptr(), cptr, num_slots, scratch.data_ptr(),
+                out.data_ptr(), A._stream(dev))
+        A._raise_on(err, "parent partition")
+        return scratch[2 * nc + 2:3 * nc + 2], scratch[3 * nc + 2:]
+    return run
+
+
+def unbundled(torch, CS, lt, A, baseline: str) -> dict:
+    """The unbundled route of B2's partition and of B3 in the checkout at
+    DIR, the design before the bundled branch (A), against this
+    checkout's unbundled instantiations (B), on the same records: the
+    root's and the widest round's moves and the widest round's count pass
+    of one big-n tree (``tpu_force_big_n``, STANDARD records) at the
+    HIGGS shape, 63 and 255 bins; each move checked against the twin,
+    each count equal to the twin's; the launches alone, warm (20
+    launches between CUDA events) and cold (`chip_smoke.cold_ms`)."""
+    src = os.path.join(baseline, "lightgbm_tpu_torch", "ops", "csrc",
+                       "aligned.cu")
+    lib = nvcc_lib(src, "parent_aligned", os.path.dirname(src))
+    part = {"A": parent_partition(torch, A, lib),
+            "B": A._move_partition_cuda}
+    cnt = {"A": baseline_count(torch, A, lib, with_cbits=True)[0],
+           "B": A._count_cuda}
+    n, f = 10_500_000, 28
+    X, y = CS.synth_higgs(n, f)
+    res = {}
+    for max_bin in (63, 255):
+        params = {"objective": "binary", "num_leaves": 255,
+                  "max_bin": max_bin, "learning_rate": 0.1,
+                  "min_data_in_leaf": 20, "feature_fraction": 1.0,
+                  "verbosity": -1, "tpu_force_big_n": True}
+        ds = lt.Dataset(X, label=y, params=params,
+                        free_raw_data=False).construct()
+        calls = CS.capture_kernel_calls(torch, lt, ds, params)
+        del ds
+        args = calls["count_wide"]
+        ref = A.count_pass_plain(*args)
+        k = args[6]
+        for which in ORDER:
+            A._move_partition_cuda = part[which]
+            r = {}
+            try:
+                for key in ("move_root", "move_wide"):
+                    margs = calls[key]
+                    CS.check_move(torch, A, margs,
+                                  f"chip_ab unbundled {which} {key}")
+                    buf = torch.empty_like(margs[0])
+                    pa = (*margs[:8], margs[8], margs[12], margs[13], buf)
+                    r[f"{key} partition ms"] = CS.cuda_ms(
+                        torch, lambda p=pa, w=which: part[w](*p), reps=20)
+                    r[f"{key} partition cold ms"] = CS.cold_ms(
+                        torch, lambda p=pa, w=which: part[w](*p))
+                    del buf, pa
+            finally:
+                A._move_partition_cuda = part["B"]
+            out = torch.zeros(k, dtype=torch.int32, device=CS.DEVICE)
+            cnt[which](*args, out)
+            if not torch.equal(out, ref):
+                raise AssertionError(f"chip_ab unbundled count {which} "
+                                     "differs from the twin")
+            r["count ms"] = CS.cuda_ms(
+                torch, lambda w=which: cnt[w](*args, out), reps=20)
+            r["count cold ms"] = CS.cold_ms(
+                torch, lambda w=which: cnt[w](*args, out))
+            res.setdefault(f"higgs{max_bin} {which}", []).append(r)
+            CS.log(f"unbundled higgs{max_bin} {which}: {r}")
+        del calls, args, ref
+        torch.cuda.empty_cache()
     return res
 
 
@@ -1850,7 +1950,8 @@ def main() -> int:
                                      "words-sweep", "move", "rank",
                                      "rank-sweep", "proto-move", "count",
                                      "proto-ring", "proto-move-sweep",
-                                     "proto-ring-sweep", "count-sweep"))
+                                     "proto-ring-sweep", "count-sweep",
+                                     "unbundled"))
     ap.add_argument("--baseline", help="checkout of the earlier design "
                     "(engine, hist, words, move, rank, proto-move, count, "
                     "proto-ring)")
@@ -1903,6 +2004,10 @@ def main() -> int:
         else:
             res = (hist if args.what == "hist" else words)(
                 torch, CS, lt, H, args.baseline)
+    elif args.what == "unbundled":
+        if not args.baseline:
+            ap.error("unbundled needs --baseline DIR")
+        res = unbundled(torch, CS, lt, A, args.baseline)
     elif args.what == "words-sweep":
         res = words_sweep(torch, CS, lt, H)
     elif args.what == "proto-move-sweep":

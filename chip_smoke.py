@@ -37,7 +37,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 4. leaf-wise path: ``train`` (``tpu_grow_mode=leafwise``) ->
    ``Booster.predict`` / ``model_to_string`` on synthetic HIGGS-shaped
    data (10.5M x 28, 500k holdout, the recipe of
-   ``bench.py::synth_higgs``), 255 leaves, 10 rounds at max_bin 63 and 5
+   ``bench.py::synth_higgs``), 255 leaves, 6 rounds at max_bin 63 and 4
    at 255; the kernel launch counts are zeroed just before each run and
    read just after; holdout AUC must exceed 0.6 and the card's
    predictions must match a CPU predict of the same model text;
@@ -117,7 +117,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    twin; f32 and f64 timed beside the twin, the byte bound and one
    ``index_add_``;
 13. level path: ``train`` with ``tpu_grow_mode=level`` on phase 4's data
-   and params (10 rounds at 63 bins, 5 at 255); the log must name the
+   and params (6 rounds at 63 bins, 4 at 255); the log must name the
    level path, B5's launches are zeroed before and read after, a call of
    B5's plain twin fails the run; rounds and executed splits per tree,
    fallbacks, each level build timed on its own; holdout AUC above 0.6
@@ -158,8 +158,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    the log, grow categorical nodes and route by a bitset in B2, with a
    holdout AUC above 0.6 and above the same run's on the columns as
    numbers, the card's predictions against a CPU predict, one profiled
-   round (B2's partition one launch a call); (b) leaf-wise, 5 rounds,
-   AUC within 2e-3 of (a)'s at 5 rounds; (c) level at ``max_depth`` 8,
+   round (B2's partition one launch a call); (b) leaf-wise, 3 rounds,
+   AUC within 2e-3 of (a)'s at 3 rounds; (c) level at ``max_depth`` 8,
    10 rounds, no fallback, AUC within 2e-3 of ``auto``'s at
    ``max_depth`` 8 (both grow the same leaf-wise trees; (a)'s deeper
    trees reach another AUC); (d)
@@ -212,8 +212,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    with 7 builds an iteration, every B2 and B4 launch a class kind;
    rounds per tree and fallbacks, the median iteration and one profiled
    round (busy share, launches, syncs); (b) the same at 255 bins, 3
-   rounds; (c) leaf-wise, 2 rounds: (a)'s metrics at 2 rounds within
-   2e-3 of (c)'s; (d) one-vs-all under ``auto`` ("score" lanes), 3
+   rounds, not profiled; (c) leaf-wise, 1 round: (a)'s metrics at 1
+   round within 2e-3 of (c)'s; (d) one-vs-all under ``auto`` ("score" lanes), 3
    rounds; (e) softmax with ``bagging_fraction`` 0.8 every round, 3
    rounds, and one-vs-all so, 3 rounds: the bag bit and B3 driving the
    layout; (f) ``tpu_grow_mode=level`` at ``max_depth`` 8, 3 rounds; (g)
@@ -238,22 +238,49 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    call (a captured CUDA graph), the twin, one int64 ``index_add_`` and
    the byte bound; the kernel's SASS atomics, which must hold no
    compare-and-swap loop; (b) ``tpu_quant_hist=on`` at 16 and 8 bits,
-   leaf-wise on phase 4's data (255 leaves, 63 bins), 5 rounds each, the
+   leaf-wise on phase 4's data (255 leaves, 63 bins), 3 rounds each, the
    counts zeroed just before and read just after: B1's integer launches,
    no f32 one, the median iteration, holdout AUC within 2e-3 of phase
-   4's f32 run at 5 rounds, one profiled round of the 8-bit run (B1's
+   4's f32 run at 3 rounds, one profiled round of the 8-bit run (B1's
    integer kernel once an integer call); a 20,000-row cut whose card predictions match
    the CPU port's within 1e-5 with the same leaf counts, and whether the
    tree sections are equal; (c) a three-level forced-splits JSON on
    HIGGS features with the CEGB split penalty and a coupled penalty a
-   feature, leaf-wise on phase 4's data, 5 rounds: every tree starts
+   feature, leaf-wise on phase 4's data, 3 rounds: every tree starts
    with the forced splits in BFS order; then a 20,000-row f64 cut whose
    card tree sections equal the CPU port's, each tree charging the
    coupled penalty only of the features no earlier tree used; (d) early
    stopping on a 20,000-row cut with a 10,000-row validation set (AUC
    and logloss, ``early_stopping_rounds`` 3, f64 histograms), with and
    without ``first_metric_only``: ``best_iteration`` and ``best_score``
-   on the card equal the CPU port's.
+   on the card equal the CPU port's;
+19. sparse input and exclusive feature bundling on the one-hot airline
+   table of szilard/benchm-ml's one-hot runs (`airline_onehot_csr` of
+   phase 15's `synth_airline` rows, Zipf s 1.3: 10,000,000 + 500,000
+   rows, DepTime and Distance dense and the six code columns one-hot,
+   674 columns in a CSR of 8 entries a row; 255 leaves, max_bin 255):
+   the CSR's Dataset times its sparse ingest apart from the bundling
+   plan and its application, and logs G and the bundled and unbundled
+   bytes; (a) ``auto``, 5 rounds, which must take the aligned engine on
+   the bundled records with no fallback, every B2 launch bundled, one
+   profiled round; ``tpu_force_big_n``, 3 rounds, every B3 launch
+   bundled; leaf-wise, 3 rounds; ``enable_bundle=false`` on the same
+   CSR, 3 rounds, whose holdout AUC the bundled ``auto`` run's at 3
+   rounds must be within 2e-3 of; every run's median iteration, the
+   plain twins counted (a call fails it); (b) B2's partition (the root's
+   and the widest round's moves, COMPACT) and B3 (a big-n tree's widest
+   round, STANDARD) bundled against their twins on those records:
+   moved records and counts bit-equal, the children's histograms within
+   1e-5 x sum |g|; each timed warm and cold beside the unbundled
+   instantiation on the same records, the twin and the byte bound, one
+   call's graph nodes; (c) a 20,000-row cut on the card and on the CPU
+   (15 leaves, 63 bins, 3 rounds): f64 leaf-wise tree sections and CSR
+   predictions equal, the aligned engine's bundled trees within C.7's
+   bound; (d) when the smoke has
+   taken less than 1,000 s: the Allstate law of the JAX package's
+   tests/test_efb.py at 1,000,000 rows under ``auto``, which must refuse
+   the aligned engine for num_features > 1020 and grow leaf-wise, 3
+   rounds, G <= 150, finite predictions.
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -284,7 +311,8 @@ PROTO_SOURCE = "lightgbm_tpu_torch/ops/csrc/proto.cu"
 SOURCES = {"histogram": KERNEL_SOURCE, "aligned": ALIGNED_SOURCE,
            "rank": RANK_SOURCE, "histogram_words": WORDS_SOURCE,
            "proto": PROTO_SOURCE}
-ROUNDS = {63: 10, 255: 5}
+# cut from 10 and 5 to make room for phase 19
+ROUNDS = {63: 6, 255: 4}
 # the kernels of aligned.cu: B2 move_pass launches the partition (after one
 # memset of its scratch) and the smaller children's slot_hist +
 # hist_finalize; B4 slot_hist_pass (the tree's root) slot_hist +
@@ -667,6 +695,7 @@ def train_run(torch, lt, ds, params, rounds, Xte, yte, what) -> tuple:
     bst = lt.train(params, ds, num_boost_round=rounds, callbacks=[stamp],
                    verbose_eval=False)
     launches = {"B1": H.LAUNCHES["f32"], **A.LAUNCHES,
+                **{f"{k}_bundled": v for k, v in A.BUNDLED_LAUNCHES.items()},
                 "B5": sum(H.WORDS_LAUNCHES.values())}
     trees = bst.num_trees()
     iters = np.diff([t_start] + stamps)
@@ -727,9 +756,9 @@ def phase_main(torch, lt, X, y, rows: int, max_bin: int) -> tuple:
         f"{r['peak_bytes'] / 2**30:.3f} GiB, model text "
         f"{r['model_chars']} chars")
     if max_bin == 63:
-        # phase 18 (b) holds the quantized runs of 5 rounds to this
-        r["auc_at_5"] = holdout_auc(lt, bst.predict(
-            Xte, raw_score=True, num_iteration=5), yte)
+        # phase 18 (b) holds the quantized runs of Q_ROUNDS to this
+        r["auc_at_q"] = holdout_auc(lt, bst.predict(
+            Xte, raw_score=True, num_iteration=Q_ROUNDS), yte)
         r["profile"] = profile_round(torch, bst)
     del bst
     torch.cuda.empty_cache()
@@ -1274,14 +1303,16 @@ def bound(nbytes: float, ops: float):
 
 
 def check_move(torch, A, args, what, gh_off=2, cbits=None,
-               bag_lane=-1) -> float:
+               bag_lane=-1, bundled=False) -> float:
     """The move kernel against its twin: records equal on the rows the new
     layout covers (the twin run into two fills marks them) in the used
     lanes; the smaller children's histograms by `check_hist`. ``cbits``:
-    the round's bitset table; ``bag_lane``: the bag mode."""
+    the round's bitset table; ``bag_lane``: the bag mode; ``bundled``:
+    the bundled branch."""
     rec, meta, hs, k = args[0], args[5], args[7], args[8]
     wcnt, w_used, grad = args[11], args[13], args[14]
-    kw = {"gh_off": gh_off, "cbits": cbits, "bag_lane": bag_lane}
+    kw = {"gh_off": gh_off, "cbits": cbits, "bag_lane": bag_lane,
+          "bundled": bundled}
     out, hist = A.move_pass(*args, **kw)
     ref_a, ref_hist = A.move_pass_plain(*args, out=torch.full_like(rec, -1),
                                         **kw)
@@ -1947,7 +1978,8 @@ def synth_mslr(n: int, f: int, seed: int = 11):
 # Origin, Dest (categorical), DepTime, Distance (numerical)
 AIRLINE_CODES = (12, 31, 7, 22, 300, 300)
 AIRLINE_CATS = list(range(len(AIRLINE_CODES)))
-AIRLINE_ROUNDS = {"auto": 10, "leafwise": 5, "level": 10, "big_n": 3}
+# the leaf-wise run cut from 5 to make room for phase 19
+AIRLINE_ROUNDS = {"auto": 10, "leafwise": 3, "level": 10, "big_n": 3}
 AIRLINE_ZIPF = 1.3           # Origin and Dest: a few hub airports
 
 
@@ -2264,6 +2296,419 @@ def phase_airline_parity(torch, lt, ds, params, A) -> dict:
     del calls, args, alone
     torch.cuda.empty_cache()
     return res
+
+
+# the one-hot airline table (phase 19): the six code columns of
+# `synth_airline` one-hot, DepTime and Distance dense in front
+EFB_ROUNDS = {"auto": 5, "big_n": 3, "leafwise": 3, "unbundled": 3}
+EFB_CUT_ROWS = 20_000
+# phase 19 (d), the Allstate law at 1M rows, runs when the smoke has
+# taken less than this many seconds so far
+EFB_ALLSTATE_ROWS = 1_000_000
+EFB_ALLSTATE_BEFORE_S = 1000.0
+
+
+def airline_onehot_csr(X):
+    """The one-hot airline table of szilard/benchm-ml's one-hot runs from
+    `synth_airline` rows: DepTime and Distance (columns 0 and 1), then
+    Month, DayofMonth, DayOfWeek, UniqueCarrier, Origin and Dest one-hot
+    (12 + 31 + 7 + 22 + 300 + 300 columns); a scipy CSR of 8 entries a
+    row (a DepTime of 0 stored as an explicit zero)."""
+    import scipy.sparse as sp
+    n = len(X)
+    offs = 2 + np.concatenate([[0], np.cumsum(AIRLINE_CODES)[:-1]])
+    cols = np.empty((n, 8), np.int32)
+    cols[:, 0], cols[:, 1] = 0, 1
+    for j in range(len(AIRLINE_CODES)):
+        cols[:, 2 + j] = offs[j] + X[:, j].astype(np.int32) \
+            - (1 if j < 3 else 0)
+    data = np.ones((n, 8), np.float32)
+    data[:, 0], data[:, 1] = X[:, 6], X[:, 7]
+    return sp.csr_matrix((data.reshape(-1), cols.reshape(-1),
+                          np.arange(0, 8 * n + 1, 8, dtype=np.int64)),
+                         shape=(n, 2 + sum(AIRLINE_CODES)))
+
+
+def efb_dataset(torch, lt, X, y, params, what) -> tuple:
+    """A constructed Dataset of a CSR matrix, the sparse ingest timed
+    apart from the bundling plan (`plan_bundles`) and its application on
+    the device (`apply_bundles`); G, F and the bins' bytes bundled and
+    not."""
+    from lightgbm_tpu_torch.io import dataset as D
+    spent = {"plan_s": 0.0, "apply_s": 0.0}
+    real = {"plan": D.plan_bundles, "apply": D.apply_bundles}
+
+    def timed(key, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent[f"{key}_s"] += time.perf_counter() - t0
+            return out
+        return run
+
+    D.plan_bundles = timed("plan", real["plan"])
+    D.apply_bundles = timed("apply", real["apply"])
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ds = lt.Dataset(X, label=y, params=params,
+                        free_raw_data=False).construct()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        D.plan_bundles, D.apply_bundles = real["plan"], real["apply"]
+    h = ds._handle
+    r = {"construct_s": total, **spent,
+         "ingest_s": total - spent["plan_s"] - spent["apply_s"],
+         "features": h.num_features, "storage_cols": h.num_storage_cols,
+         "bins_bytes": h.num_data * h.num_storage_cols,
+         "unbundled_bytes": h.num_data * h.num_features,
+         "bundled": h.bundles is not None}
+    if h.bundles is not None:
+        r["group_num_bin"] = [int(v) for v in h.bundles.group_num_bin]
+    log(f"{what}: {X.shape[0]} x {X.shape[1]} CSR ({X.nnz / X.shape[0]:.2f} "
+        f"nonzeros a row) -> {r['features']} features in "
+        f"{r['storage_cols']} storage columns, {r['bins_bytes']} bytes of "
+        f"bins ({r['unbundled_bytes']} unbundled); construct "
+        f"{total:.3f} s: sparse ingest {r['ingest_s']:.3f} s, plan "
+        f"{spent['plan_s']:.3f} s, apply {spent['apply_s']:.3f} s")
+    return ds, r
+
+
+def same_trees(ta, tb, what) -> None:
+    """The trees of two runs split on the same features at the same bins,
+    their leaf values within rtol 1e-4, atol 1e-5 (C.7's bound)."""
+    if len(ta) != len(tb):
+        raise AssertionError(f"{what}: {len(ta)} trees against {len(tb)}")
+    for i, (a, b) in enumerate(zip(ta, tb)):
+        k = b.num_leaves - 1
+        if a.num_leaves != b.num_leaves \
+                or list(a.split_feature[:k]) != list(b.split_feature[:k]) \
+                or list(a.threshold_in_bin[:k]) \
+                != list(b.threshold_in_bin[:k]):
+            raise AssertionError(f"{what}: tree {i} splits differ")
+        np.testing.assert_allclose(np.asarray(a.leaf_value[:k + 1]),
+                                   np.asarray(b.leaf_value[:k + 1]),
+                                   rtol=1e-4, atol=1e-5)
+
+
+def phase_efb(torch, lt, rows: int, holdout: int, t_main: float) -> dict:
+    """Phase 19: sparse input and exclusive feature bundling on the
+    one-hot airline table (`airline_onehot_csr` of `synth_airline`,
+    255 leaves, max_bin 255): (a) ``auto`` (the aligned engine on the
+    bundled records), ``tpu_force_big_n``, leaf-wise and
+    ``enable_bundle=false``; (b) B2's and B3's bundled branch against
+    their twins (`phase_efb_parity`); (c) the card against the CPU on a
+    20,000-row cut; (d) the Allstate law leaf-wise at 1M rows when the
+    time allows."""
+    from lightgbm_tpu_torch.ops import aligned as A
+    t_phase = t0 = time.perf_counter()
+    X, y = synth_airline(rows + holdout)
+    Xs = airline_onehot_csr(X)
+    del X
+    Xtr, ytr, Xte, yte = Xs[:rows], y[:rows], Xs[rows:], y[rows:]
+    log(f"data: {rows}+{holdout} one-hot airline rows, {Xs.shape[1]} "
+        f"columns, {Xs.nnz / Xs.shape[0]:.2f} nonzeros a row, in "
+        f"{time.perf_counter() - t0:.3f} s")
+    del Xs
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+              "learning_rate": 0.1, "min_data_in_leaf": 20,
+              "feature_fraction": 1.0, "verbosity": -1}
+    res = {}
+    ds, res["dataset"] = efb_dataset(torch, lt, Xtr, ytr, params,
+                                     "phase 19 (a) bundled")
+    if not res["dataset"]["bundled"]:
+        raise AssertionError("the one-hot airline table did not bundle")
+    # (a) auto: the aligned engine on the bundled records
+    bst, a = airline_run(torch, lt, ds, params, EFB_ROUNDS["auto"], Xte,
+                         yte, "one-hot auto")
+    g = bst._gbdt
+    if a["train_path"] != "aligned" or not g.learner.bundled \
+            or a["fallbacks"]:
+        raise AssertionError(f"one-hot auto took {a['train_path']} with "
+                             f"{a['fallbacks']} fallbacks")
+    lc = a["launches"]
+    if not lc["move_pass_bundled"] == lc["move_pass"] > 0:
+        raise AssertionError(f"one-hot auto: {lc['move_pass_bundled']} "
+                             f"bundled of {lc['move_pass']} B2 launches")
+    n3 = EFB_ROUNDS["unbundled"]
+    a[f"auc_at_{n3}"] = holdout_auc(lt, bst.predict(
+        Xte, raw_score=True, num_iteration=n3), yte)
+    a["profile"] = profile_round(torch, bst)
+    del bst, g
+    torch.cuda.empty_cache()
+    res["auto"] = a
+    # big-n: B3's bundled branch every round
+    bst, bn = airline_run(torch, lt, ds, {**params, "tpu_force_big_n": True},
+                          EFB_ROUNDS["big_n"], Xte, yte, "one-hot big-n")
+    lc = bn["launches"]
+    if bst._gbdt._aligned_eng.compact or bn["fallbacks"] \
+            or not lc["count_pass_bundled"] == lc["count_pass"] > 0:
+        raise AssertionError(f"one-hot big-n: {lc['count_pass_bundled']} "
+                             f"bundled of {lc['count_pass']} B3 launches, "
+                             f"{bn['fallbacks']} fallbacks")
+    del bst
+    torch.cuda.empty_cache()
+    res["big_n"] = bn
+    # leaf-wise: B1 over the storage columns, the split feature unpacked
+    bst, lw = airline_run(torch, lt, ds, {**params,
+                                          "tpu_grow_mode": "leafwise"},
+                          EFB_ROUNDS["leafwise"], Xte, yte,
+                          "one-hot leafwise")
+    if lw["train_path"] != "leafwise" or not lw["launches"]["B1"]:
+        raise AssertionError("one-hot leaf-wise did not run B1")
+    del bst
+    torch.cuda.empty_cache()
+    res["leafwise"] = lw
+    # (b) the kernels against their twins on the bundled records
+    res["kernels"] = phase_efb_parity(torch, lt, ds, params, A)
+    del ds
+    gc.collect()
+    torch.cuda.empty_cache()
+    # enable_bundle=false on the same CSR: 674 feature columns
+    unb = {**params, "enable_bundle": False}
+    ds, res["dataset_unbundled"] = efb_dataset(torch, lt, Xtr, ytr, unb,
+                                               "phase 19 (a) unbundled")
+    bst, ub = airline_run(torch, lt, ds, unb, n3, Xte, yte,
+                          "one-hot unbundled")
+    del bst, ds
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["unbundled"] = ub
+    log(f"phase 19 (a): holdout AUC at {n3} rounds bundled "
+        f"{a[f'auc_at_{n3}']:.6f}, unbundled {ub['auc']:.6f}; median "
+        f"iteration auto {a['median_iter_ms']:.1f} ms, big-n "
+        f"{bn['median_iter_ms']:.1f} ms, leaf-wise "
+        f"{lw['median_iter_ms']:.1f} ms, unbundled "
+        f"{ub['median_iter_ms']:.1f} ms ({ub['train_path']})")
+    if abs(a[f"auc_at_{n3}"] - ub["auc"]) > 2e-3:
+        raise AssertionError(f"bundled AUC {a[f'auc_at_{n3}']} is not "
+                             f"within 2e-3 of unbundled {ub['auc']}")
+    # (c) the card against the CPU on a 20,000-row cut
+    res["cut"] = phase_efb_cut(torch, lt, Xtr[:EFB_CUT_ROWS],
+                               ytr[:EFB_CUT_ROWS], Xte[:EFB_CUT_ROWS])
+    del Xtr, Xte
+    gc.collect()
+    # (d) leaf-wise past 1020 features
+    if time.perf_counter() - t_main < EFB_ALLSTATE_BEFORE_S:
+        res["allstate"] = phase_efb_allstate(torch, lt)
+    else:
+        log(f"phase 19 (d): skipped, the smoke is past "
+            f"{EFB_ALLSTATE_BEFORE_S:.0f} s")
+        res["allstate"] = None
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 19: {res['phase_s']:.1f} s")
+    return res
+
+
+def phase_efb_parity(torch, lt, ds, params, A) -> dict:
+    """Phase 19 (b): B2's and B3's bundled branch on the calls of one
+    tree on the one-hot airline records, the root's and the widest
+    round's moves (COMPACT) and the widest round's count pass of a big-n
+    tree (STANDARD), through the kernels and their twins: the partitions
+    and counts bit-equal (integers), the children's histograms by
+    `check_hist`. B2's partition alone and B3's launch alone timed, warm
+    and cold (L2), beside the unbundled instantiation on the same
+    records (what the unpack costs), the twin and the byte bound; one
+    call's nodes from a captured CUDA graph."""
+    from lightgbm_tpu_torch.utils.launches import graph_launches
+    res = {}
+    calls = capture_kernel_calls(torch, lt, ds, params)
+    err = max(check_move(torch, A, calls[key], f"one-hot {key}",
+                         bundled=True) for key in ("move_root", "move_wide"))
+    args = calls["move_wide"]
+    rec, r1, r2, meta, k, bits, w_used = (args[0], args[1], args[2],
+                                          args[5], args[8], args[12],
+                                          args[13])
+    nc, W, C = rec.shape
+    cnt = meta & 0xFFFFF
+    is_copy = ((r1 >> 16) & 1) == 1
+    packed = (((r2 >> 24) & 1) == 1) & ~is_copy & (cnt > 0)
+    if not bool(packed.any()):
+        raise AssertionError("the widest one-hot round splits no bundled "
+                             "feature")
+    split_rows = int(cnt[~is_copy].sum())
+    copy_chunks = int((is_copy & (cnt > 0)).sum())
+    buf = torch.empty_like(rec)
+    part = (*args[:8], k, bits, w_used, buf, 0, True)
+    flat = (*args[:8], k, bits, w_used, buf, 0, False)
+    no_hist = (*args[:8], 0, *args[9:])
+    moved = 2 * (split_rows * w_used * 4 + copy_chunks * w_used * C * 4)
+    r = {"max_abs_err": 0.0, "moves_max_abs_err": err,
+         "split_blocks": calls["wide_blocks"], "split_rows": split_rows,
+         "packed_rows": int(cnt[packed].sum()), "copy_chunks": copy_chunks,
+         "ms": cuda_ms(torch, lambda: A._move_partition_cuda(*part),
+                       reps=20),
+         "cold_ms": cold_ms(torch, lambda: A._move_partition_cuda(*part)),
+         "unbundled_ms": cuda_ms(torch,
+                                 lambda: A._move_partition_cuda(*flat),
+                                 reps=20),
+         "unbundled_cold_ms": cold_ms(
+             torch, lambda: A._move_partition_cuda(*flat)),
+         "plain_ms": cuda_ms(torch, lambda: A.move_pass_plain(
+             *no_hist, out=buf, bundled=True), reps=2),
+         "library_ms": None,
+         "graph": graph_launches(lambda: A._move_partition_cuda(*part))}
+    if r["graph"] != {"kernels": 1, "memsets": 1, "other": 0}:
+        raise AssertionError(f"B2's bundled partition enqueued "
+                             f"{r['graph']}, not one memset and one kernel")
+    r["launches_per_call"] = r["graph"]["kernels"] + r["graph"]["memsets"]
+    r["bound_ms"], r["bound_by"] = bound(moved + nc * 9 * 4, 0)
+    res["partition_bundled"] = r
+    del buf, part, flat, calls
+    torch.cuda.empty_cache()
+    calls = capture_kernel_calls(torch, lt, ds,
+                                 {**params, "tpu_force_big_n": True})
+    err = check_move(torch, A, calls["move_wide"],
+                     "one-hot move_wide, STANDARD", bundled=True)
+    args = calls["count_wide"]
+    if args is None:
+        raise AssertionError("the one-hot big-n tree made no count pass")
+    got = A.count_pass(*args, bundled=True)
+    if not torch.equal(got, A.count_pass_plain(*args, bundled=True)):
+        raise AssertionError("count_pass differs from its twin on the "
+                             "one-hot round")
+    meta, ks, k = args[3], args[5], args[6]
+    nc = args[0].shape[0]
+    rows = int((meta & 0xFFFFF)[(ks >= 0) & (ks < k)].sum())
+    alone = torch.empty(k, dtype=torch.int32, device=DEVICE)
+    r = {"max_abs_err": 0.0, "moves_max_abs_err": err, "rows": rows,
+         "chunks": nc,
+         "ms": cuda_ms(torch, lambda: A._count_cuda(*args, alone, 0, True),
+                       reps=20),
+         "cold_ms": cold_ms(torch, lambda: A._count_cuda(*args, alone, 0,
+                                                          True)),
+         "unbundled_ms": cuda_ms(torch, lambda: A._count_cuda(
+             *args, alone, 0, False), reps=20),
+         "unbundled_cold_ms": cold_ms(torch, lambda: A._count_cuda(
+             *args, alone, 0, False)),
+         "wrapper_ms": cuda_ms(torch, lambda: A.count_pass(
+             *args, bundled=True), reps=20),
+         "plain_ms": cuda_ms(torch, lambda: A.count_pass_plain(
+             *args, bundled=True), reps=2),
+         "library_ms": None,
+         "graph": graph_launches(lambda: A.count_pass(*args, bundled=True))}
+    if r["graph"] != {"kernels": 1, "memsets": 0, "other": 0}:
+        raise AssertionError(f"B3's bundled count enqueued {r['graph']}, "
+                             "not one kernel")
+    r["launches_per_call"] = r["graph"]["kernels"]
+    r["bound_ms"], r["bound_by"] = bound(rows * 4 + nc * 5 * 4 + k * 4,
+                                         rows)
+    res["count_bundled"] = r
+    shown = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    for name, r in res.items():
+        log(f"kernel {name} (one-hot airline): kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, library none, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{ {k: v for k, v in r.items() if k not in shown} }")
+    del calls, args, alone
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_efb_cut(torch, lt, Xc, yc, Xp) -> dict:
+    """Phase 19 (c): a 20,000-row cut of the one-hot airline CSR on the
+    card and on the CPU: the f64 leaf-wise tree sections equal and the
+    two boosters' CSR predictions (of ``Xp``) equal; the aligned engine's
+    bundled trees (the kernels on the card, the twins on the CPU) within
+    C.7's bound, no fallback."""
+    t0 = time.perf_counter()
+    # 15 leaves and 63 bins (the bundles keep theirs): the CPU runs take
+    # the host's cores
+    base = {"objective": "binary", "num_leaves": 15, "max_bin": 63,
+            "learning_rate": 0.1, "min_data_in_leaf": 20, "verbosity": -1}
+    runs = {}
+    for mode, extra in (("f64", {"tpu_use_f64_hist": True,
+                                 "tpu_grow_mode": "leafwise"}),
+                        ("aligned", {"tpu_grow_mode": "aligned"})):
+        for dev in ("cuda", "cpu"):
+            p = {**base, **extra, "device_type": dev}
+            if dev == "cpu" and mode == "aligned":
+                p["tpu_aligned_interpret"] = True
+            bst = lt.train(p, lt.Dataset(Xc, label=yc), num_boost_round=3,
+                           verbose_eval=False)
+            g = bst._gbdt
+            if not g.learner.bundled:
+                raise AssertionError(f"phase 19 (c) {mode} {dev}: not "
+                                     "bundled")
+            if mode == "aligned" and (g.train_path != "aligned"
+                                      or g._aligned_eng.fallbacks):
+                raise AssertionError(f"phase 19 (c) aligned {dev}: path "
+                                     f"{g.train_path}")
+            runs[(mode, dev)] = bst
+    text = [runs[("f64", d)].model_to_string() for d in ("cuda", "cpu")]
+    sect = [t[t.index("Tree=0"):t.index("end of trees")] for t in text]
+    if sect[0] != sect[1]:
+        raise AssertionError("phase 19 (c): the f64 leaf-wise tree "
+                             "sections differ between the card and the CPU")
+    pc, pp = (runs[("f64", d)].predict(Xp, raw_score=True)
+              for d in ("cuda", "cpu"))
+    if not np.array_equal(pc, pp):
+        raise AssertionError("phase 19 (c): CSR predictions differ, max "
+                             f"{np.abs(pc - pp).max()}")
+    same_trees(runs[("aligned", "cpu")].trees, runs[("aligned", "cuda")].trees,
+               "phase 19 (c) aligned")
+    r = {"rows": Xc.shape[0], "trees": len(runs[("f64", "cuda")].trees),
+         "seconds": time.perf_counter() - t0}
+    log(f"phase 19 (c): {r['rows']}-row cut, f64 leaf-wise tree sections "
+        f"and CSR predictions equal on the card and the CPU, aligned "
+        f"bundled trees within C.7's bound; {r['seconds']:.1f} s")
+    return r
+
+
+def allstate_csr(n: int, seed: int = 0):
+    """The Allstate law of the JAX package's tests/test_efb.py (after
+    LightGBM's Allstate benchmark, 13,184,290 x 4,228): 100 one-hot
+    blocks of 20-60 columns, one column of each set in every row; the
+    label is whether a row holds one of the first 40 columns."""
+    import scipy.sparse as sp
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(20, 60, 100)
+    cols = np.empty((n, len(sizes)), np.int32)
+    off = 0
+    for b, gs in enumerate(sizes):
+        cols[:, b] = off + rng.integers(0, gs, n)
+        off += int(gs)
+    Xs = sp.csr_matrix((np.ones(cols.size, np.float32), cols.reshape(-1),
+                        np.arange(0, cols.size + 1, len(sizes),
+                                  dtype=np.int64)), shape=(n, off))
+    y = (np.asarray(Xs[:, :40].sum(axis=1)).ravel() > 0).astype(np.float32)
+    return Xs, y
+
+
+def phase_efb_allstate(torch, lt) -> dict:
+    """Phase 19 (d): the Allstate law at 1,000,000 rows under ``auto``:
+    past 1,020 features the aligned gate refuses (and says so), and the
+    trees grow leaf-wise on the bundled storage columns, 3 rounds, 255
+    leaves; G <= 150 and finite predictions."""
+    t0 = time.perf_counter()
+    Xs, y = allstate_csr(EFB_ALLSTATE_ROWS)
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+              "learning_rate": 0.1, "verbosity": -1}
+    ds, d = efb_dataset(torch, lt, Xs, y, params, "phase 19 (d) Allstate law")
+    t1 = time.perf_counter()
+    bst = lt.train(params, ds, num_boost_round=3, verbose_eval=False)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    g = bst._gbdt
+    why = g.aligned_gate() or ""
+    p = bst.predict(Xs[:20000])
+    r = {**d, "train_s": train_s, "path": g.train_path, "gate": why,
+         "finite": bool(np.isfinite(p).all()),
+         "seconds": time.perf_counter() - t0}
+    log(f"phase 19 (d): {d['features']} features in {d['storage_cols']} "
+        f"storage columns, path {g.train_path} ({why}), 3 rounds in "
+        f"{train_s:.3f} s, phase {r['seconds']:.1f} s")
+    if not (d["storage_cols"] <= 150 and g.train_path == "leafwise"
+            and why.startswith("num_features") and "> 1020" in why
+            and r["finite"]):
+        raise AssertionError(f"phase 19 (d) failed: {r}")
+    del bst, ds, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
 
 
 def ndcg_at(preds, y, group, k=10) -> float:
@@ -2914,12 +3359,12 @@ COVTYPE_RANGES = ((1859, 3858), (0, 360), (0, 66), (0, 1397), (-173, 601),
 COVTYPE_CODES = (4, 40)
 COVTYPE_CATS = [10, 11]
 # rounds of each run; cut (from 10, 5, 5, 5, 5, 3 and 5) to make room for
-# phase 18 in the run's time limit: the leaf-wise run takes 20-29 s an
-# iteration at this shape on an H100 80GB HBM3 at 700 W, so (a) and (c)
-# are compared at MC_COMPARE rounds
-MC_ROUNDS = {"auto": 5, "auto_255": 3, "leafwise": 2, "ova": 3, "bag": 3,
+# phase 18 in the run's time limit, and the leaf-wise run from 2 to 1 for
+# phase 19: it takes 20-29 s an iteration at this shape on an H100 80GB
+# HBM3 at 700 W, so (a) and (c) are compared at MC_COMPARE rounds
+MC_ROUNDS = {"auto": 5, "auto_255": 3, "leafwise": 1, "ova": 3, "bag": 3,
              "ova_bag": 3, "level": 3}
-MC_COMPARE = 2
+MC_COMPARE = 1
 MC_KERNEL_ROWS = 10_485_760
 MC_PARAMS = {"objective": "multiclass", "num_class": 7, "num_leaves": 255,
              "learning_rate": 0.1, "min_data_in_leaf": 20,
@@ -3006,8 +3451,10 @@ def mc_run(torch, lt, ds, params, rounds, Xte, yte, what, path,
         raise AssertionError(f"{what}: {bst.num_trees()} trees after "
                              f"{rounds} rounds of {K} classes")
     iters = np.diff([t_start] + stamps)
+    # a run of one round has no iteration after its first
     r = {"first_round_s": float(iters[0]),
-         "median_iter_ms": statistics.median(iters[1:]) * 1e3,
+         "median_iter_ms": statistics.median(
+             iters[1:] if len(iters) > 1 else iters) * 1e3,
          "launches": launches, "peak_bytes": torch.cuda.max_memory_allocated()}
     if path == "aligned":
         eng = g._aligned_eng
@@ -3091,7 +3538,9 @@ def phase_multiclass(torch, lt, holdout_share: float = 0.1) -> dict:
                         f"multiclass auto {max_bin} ({'ab'[key != 'auto']})",
                         "aligned", "prob")
         r["binning_s"] = bin_s
-        r["profile"] = profile_round(torch, bst)
+        if key == "auto":
+            # one profiled round (cut from one a bin count for phase 19)
+            r["profile"] = profile_round(torch, bst)
         res[key] = r
         del bst
         if max_bin == 255:
@@ -3366,7 +3815,8 @@ FORCED_HIGGS = {
 # feature, the last seven features (the |products|) the dearest
 CEGB_HIGGS = {"cegb_penalty_split": 1e-6, "cegb_tradeoff": 1.0,
               "cegb_penalty_feature_coupled": [0.5] * 21 + [4.0] * 7}
-Q_ROUNDS = 5
+# cut from 5 to make room for phase 19
+Q_ROUNDS = 3
 CUT_ROUNDS = 3     # the 20,000-row cuts' rounds (31 leaves), CPU beside
 
 
@@ -3472,9 +3922,9 @@ def tree_sections(bst) -> str:
 def phase_quant_train(torch, lt, ds, params, X, y, rows: int,
                       leaf: dict) -> dict:
     """Phase 18 (b): ``tpu_quant_hist=on`` at 16 and 8 bits, leaf-wise at
-    the HIGGS shape (255 leaves, 63 bins), 5 rounds each, the B1 counts
+    the HIGGS shape (255 leaves, 63 bins), Q_ROUNDS each, the B1 counts
     zeroed just before and read just after; holdout AUC within 2e-3 of
-    the f32 leaf-wise run's at 5 rounds (phase 4); one profiled round of
+    the f32 leaf-wise run's at Q_ROUNDS (phase 4); one profiled round of
     the 8-bit run (B1's integer kernel launched once an integer call);
     then on a 20,000-row cut the card's predictions against the CPU port's, the
     same leaves, and whether the tree sections are equal."""
@@ -3494,11 +3944,11 @@ def phase_quant_train(torch, lt, ds, params, X, y, rows: int,
         if bst._gbdt.learner.quant_bits != bits:
             raise AssertionError(f"quantized {bits}: the learner did not "
                                  "quantize")
-        r["auc_f32_at_5"] = leaf["auc_at_5"]
-        if abs(r["auc"] - leaf["auc_at_5"]) > 2e-3:
+        r["auc_f32_at_q"] = leaf["auc_at_q"]
+        if abs(r["auc"] - leaf["auc_at_q"]) > 2e-3:
             raise AssertionError(f"quantized {bits}: holdout AUC {r['auc']} "
                                  f"not within 2e-3 of the f32 run's "
-                                 f"{leaf['auc_at_5']}")
+                                 f"{leaf['auc_at_q']}")
         prof = ""
         if bits == 8:
             # one profiled round (~70,000 launches: the profiler's own
@@ -3512,7 +3962,7 @@ def phase_quant_train(torch, lt, ds, params, X, y, rows: int,
             f"{r['median_iter_ms']:.1f} ms, first round "
             f"{r['first_round_s']:.3f} s, B1 launches "
             f"{r['launches'][f'B1_i{bits}']}, holdout AUC {r['auc']:.6f} "
-            f"(f32 at 5 rounds {leaf['auc_at_5']:.6f}){prof}")
+            f"(f32 at {Q_ROUNDS} rounds {leaf['auc_at_q']:.6f}){prof}")
         res[bits] = r
         del bst
         torch.cuda.empty_cache()
@@ -3778,6 +4228,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     mc = phase_multiclass(torch, lt)
     mpar = phase_mc_parity(torch, lt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    efb = phase_efb(torch, lt, args.airline_rows, args.holdout, t_main)
 
     def entry(name, replaces, bins, prec, launches):
         p = par[bins]
@@ -3976,6 +4429,29 @@ def main() -> int:
             **{k: v for k, v in p.items() if k.startswith("k31_")
                or k in ("cold_ms", "wrapper_ms")},
             "shape": f"{shape}, {mc_dims}"})
+    # the bundled branch of B2's partition and of B3 (phase 19)
+    for name, key, line, launches, shape in (
+            ("move_pass_partition_bundled", "partition_bundled", 960,
+             efb["auto"]["launches"]["move_pass_bundled"],
+             "partition of the widest round of tree 1, COMPACT"),
+            ("count_pass_bundled", "count_bundled", 1056,
+             efb["big_n"]["launches"]["count_pass_bundled"],
+             "count pass of the widest round of tree 1, STANDARD")):
+        p = efb["kernels"][key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": ALIGNED_SOURCE,
+            "replaces": f"lightgbm_tpu/ops/aligned.py:{line}",
+            "launches": launches, "max_abs_err": p["max_abs_err"],
+            "ms": p["ms"], "plain_ms": p["plain_ms"],
+            "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
+            "library_ms": p["library_ms"],
+            **{k: p[k] for k in ("wrapper_ms", "cold_ms", "unbundled_ms",
+                                 "unbundled_cold_ms", "launches_per_call")
+               if k in p},
+            "shape": f"{shape}, one-hot airline {args.airline_rows}x"
+                     f"{efb['dataset']['features']} in "
+                     f"{efb['dataset']['storage_cols']} storage columns, "
+                     "255 bins, bundled"})
     plaunch = proto_path["launches"]
     rows = proto_path["aligned"]["rows"]
     proto_entries = (
@@ -4015,7 +4491,7 @@ def main() -> int:
                     "level_kernel": {str(k): v for k, v in lpar.items()},
                     "mslr": mslr, "rank_kernel": rpar,
                     "airline": airline, "bagging": bagging,
-                    "multiclass": mc, "mc_kernels": mpar,
+                    "multiclass": mc, "mc_kernels": mpar, "efb": efb,
                     "quant_kernel": qpar, "quant": quant,
                     "forced_cegb": forced, "early_stopping": stopping,
                     "bag_kernels": {f"{b} {lay}": v for (b, lay), v

@@ -1,6 +1,6 @@
-"""Public Dataset / Booster (port of lightgbm_tpu/basic.py, dense input,
-binary, L2, multiclass (softmax and one-vs-all) and lambdarank
-objectives; gbdt, goss, dart and rf boosting).
+"""Public Dataset / Booster (port of lightgbm_tpu/basic.py: dense and
+scipy CSR/CSC input, binary, L2, multiclass (softmax and one-vs-all)
+and lambdarank objectives; gbdt, goss, dart and rf boosting).
 
 `Booster.predict` walks the trees on the run's device (``cuda`` unless
 the params ask for ``device_type=cpu``); `model_to_string` writes the
@@ -28,6 +28,11 @@ class LightGBMError(Exception):
     pass
 
 
+def _is_sparse(data) -> bool:
+    """A scipy sparse matrix (CSR, CSC, ...)."""
+    return hasattr(data, "tocsc") and not isinstance(data, np.ndarray)
+
+
 def _to_matrix(data) -> np.ndarray:
     if isinstance(data, np.ndarray):
         return data if data.dtype in (np.float32, np.float64) \
@@ -35,7 +40,7 @@ def _to_matrix(data) -> np.ndarray:
     if isinstance(data, (list, tuple)):
         return np.asarray(data, np.float64)
     raise LightGBMError(f"Cannot convert data of type {type(data)} (the "
-                        "port takes dense numpy matrices)")
+                        "port takes numpy matrices and scipy sparse ones)")
 
 
 class Dataset:
@@ -69,8 +74,14 @@ class Dataset:
                  else list(self.feature_name))
         cats = (None if self.categorical_feature in ("auto", None)
                 else [int(c) for c in self.categorical_feature])
-        self._handle = _CoreDataset.from_matrix(
-            _to_matrix(self.data), label=self.label, config=cfg,
+        # CSR/CSC stays sparse (`from_sparse`; JAX package:
+        # basic.py:213-247)
+        sparse_in = _is_sparse(self.data)
+        maker = (_CoreDataset.from_sparse if sparse_in
+                 else _CoreDataset.from_matrix)
+        self._handle = maker(
+            self.data if sparse_in else _to_matrix(self.data),
+            label=self.label, config=cfg,
             weight=self.weight, group=self.group,
             init_score=self.init_score, feature_names=names,
             categorical_feature=cats, reference=ref,
@@ -208,11 +219,21 @@ class Booster:
     def predict(self, data, num_iteration: Optional[int] = None,
                 raw_score: bool = False, pred_leaf: bool = False,
                 start_iteration: int = 0) -> np.ndarray:
-        """Predictions for a dense matrix [N, F_total]: probabilities (or
-        the objective's output transform) unless ``raw_score``, [N] for
-        one class and [N, K] for K; leaf indices [N, T] with
-        ``pred_leaf``. ``start_iteration`` and ``num_iteration`` count
-        iterations of K trees."""
+        """Predictions for a dense or scipy sparse matrix [N, F_total]:
+        probabilities (or the objective's output transform) unless
+        ``raw_score``, [N] for one class and [N, K] for K; leaf indices
+        [N, T] with ``pred_leaf``. ``start_iteration`` and
+        ``num_iteration`` count iterations of K trees. A sparse matrix is
+        made dense a block of rows at a time, under 256 MB of f64 a block
+        (the reference's LGBM_BoosterPredictForCSR; JAX package:
+        basic.py:658-670)."""
+        if _is_sparse(data):
+            csr = data.tocsr()
+            rows_per = max(1, (256 << 20) // (8 * max(1, csr.shape[1])))
+            return np.concatenate([
+                self.predict(csr[lo:lo + rows_per].toarray(), num_iteration,
+                             raw_score, pred_leaf, start_iteration)
+                for lo in range(0, max(csr.shape[0], 1), rows_per)], axis=0)
         X = _to_matrix(data)
         k = self.num_tree_per_iteration
         if num_iteration is None or num_iteration <= 0:

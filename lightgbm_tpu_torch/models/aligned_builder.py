@@ -29,6 +29,13 @@ finder's counts (LI_COUNTG, the tree's leaf counts) are in-bag counts,
 while the layout's counts (LI_COUNT) are physical and come from B3; the
 score update reaches every row, in the bag or not.
 
+Bundled bins (`io/bundling.py`): the records pack the G storage columns
+at ``hist_bins`` bins, B4's and B2's histograms run over G x hist_bins,
+each chunk's route words carry its split feature's storage column (word
+and shift) and the bundle offset and packing in r2, which B2 and B3
+unpack before they route, and the per-feature view is expanded only for
+the split search (`DeviceTreeLearner.expand_hist`).
+
 A K-class objective (softmax or one-vs-all) takes COMPACT records with K
 score lanes, under softmax K probability lanes too, and the integer class
 in the meta lane; each class's tree is a `train_iter` whose kernels read
@@ -133,21 +140,27 @@ def chunk_maps(begin, count, exists, nc: int, chunk: int, cnts_pc=None,
     return slot_of, cnt_of, first, last, in_any
 
 
-def route_words(feat, thr, default_left, split, meta, bits: int, is_cat):
-    """Per-slot route words (r1, r2, wsel) of the slots' best splits; r1's
-    copy bit is set where ``split`` is False, its categorical bit where
-    ``is_cat`` is 1."""
+def route_words(feat, thr, default_left, split, lr, bits: int, is_cat):
+    """Per-slot route words (r1, r2, wsel) of the slots' best splits on
+    learner ``lr``'s data; r1's copy bit is set where ``split`` is False,
+    its categorical bit where ``is_cat`` is 1. A split routes by its
+    feature's storage column (word and shift), and r2 carries the bundle
+    offset and packing (0 unbundled; JAX package:
+    aligned_builder.py:805-832)."""
     bpw = _bpw_for_bits(bits)
+    meta = lr.meta
+    scol = lr.bcol[feat]
     r1 = (np.clip(thr, 0, 255)
-          | (((feat % bpw) * bits) << R_SHIFT)
+          | (((scol % bpw) * bits) << R_SHIFT)
           | (default_left << R_DL)
           | (meta["missing_type"][feat].astype(np.int64) << R_MT)
           | ((1 - split.astype(np.int64)) << R_COPY)
           | (np.asarray(is_cat, np.int64) << R_CAT))
     r2 = pack_route2(np.clip(meta["default_bin"][feat], 0, 255)
                      .astype(np.int64),
-                     np.clip(meta["num_bin"][feat], 1, 256).astype(np.int64))
-    return r1, r2, feat // bpw
+                     np.clip(meta["num_bin"][feat], 1, 256).astype(np.int64),
+                     lr.boff[feat], lr.bpk[feat])
+    return r1, r2, scol // bpw
 
 
 def new_layout(sel, exists, right_slot, left_local, count, chunk: int):
@@ -261,9 +274,10 @@ class AlignedEngine:
         self.pgrad = pg
         self.grad = pg if self.compact else None
         with_prob = self.mc_mode == "prob"
+        # the storage columns at their bins (bundles hold up to 256)
         rec, self.wcnt, self.W, cnts, self.bits = pack_records(
             learner.bins, label, weight, C, compact=self.compact,
-            max_bin=learner.max_bin_global, ext=self.ext, with_bag=bagged,
+            max_bin=learner.hist_bins, ext=self.ext, with_bag=bagged,
             num_class=num_class, with_prob=with_prob)
         nc_data = rec.shape[0]
         self.NC = NC = nc_data + S + 2
@@ -434,7 +448,9 @@ class AlignedEngine:
         Sm1 = S - 1
         K = min(Sm1, K_CAP)
         Lm1 = max(cfg.num_leaves - 1, 1)
-        F, B = lr.num_features, lr.max_bin_global
+        # histograms over the storage columns (the features, unbundled)
+        F, B = lr.num_storage_cols, lr.hist_bins
+        bundled = lr.bundled
         bits, wcnt, grad, gh_off = self.bits, self.wcnt, self.grad, \
             self.gh_off
         if self.num_class > 1:
@@ -460,7 +476,7 @@ class AlignedEngine:
                               grad, gh_off=gh_off,
                               bag_lane=self.bag_lane)[0]
         store[0] = root
-        tot = root[0].sum(0).cpu().numpy()           # feature 0's bins
+        tot = root[0].sum(0).cpu().numpy()           # column 0's bins
         root_g, root_h = np.float32(tot[0]), np.float32(tot[1])
         root_cnt_g = int(tot[2])
 
@@ -527,7 +543,7 @@ class AlignedEngine:
                 cnts_pc=cnts_pc, root_span=done == 0)
             r1_s, r2_s, wsel_s = route_words(
                 bestI[:, BI_FEAT], bestI[:, BI_THR], bestI[:, BI_DEFLEFT],
-                sel, meta, bits, bestI[:, BI_ISCAT])
+                sel, lr, bits, bestI[:, BI_ISCAT])
             # the round's compact bitset table, a row a selection rank
             # (row K the pad row; JAX package: aligned_builder.py:821-826)
             cbits = None
@@ -549,8 +565,8 @@ class AlignedEngine:
                 up = self._upload(r1_s[slot_of], r2_s[slot_of], meta_pc,
                                   wsel_s[slot_of], ks_pc)
                 phys = count_pass(self.rec, up[0], up[1], up[2], up[3],
-                                  up[4], K, bits,
-                                  cbits=cbits).cpu().numpy()
+                                  up[4], K, bits, cbits=cbits,
+                                  bundled=bundled).cpu().numpy()
                 left_local = np.where(sel, phys[np.clip(selrank, 0, K - 1)],
                                       leafI[:, LI_COUNT])
             else:
@@ -578,7 +594,7 @@ class AlignedEngine:
                                   self.w_used, grad,
                                   out=self._spare if self.rec.is_cuda
                                   else None, gh_off=gh_off, cbits=cbits,
-                                  bag_lane=self.bag_lane)
+                                  bag_lane=self.bag_lane, bundled=bundled)
             self._spare, self.rec = self.rec, out
 
             # ---- tables: children of the selected slots

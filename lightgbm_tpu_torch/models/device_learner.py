@@ -29,7 +29,13 @@ read per split (the chosen leaf's split and the children's best splits):
 - quantized histograms (``tpu_quant_hist=on``): g and h are rounded
   stochastically to int8 or int16 once a tree (`quantize_gh`), every
   histogram sums the integers (kernel B1's integer branch) and is scaled
-  back by the column's scale, as are the root's sums.
+  back by the column's scale, as are the root's sums;
+- bundled bins (`io/bundling.py`): the histograms and their store run
+  over the G storage columns at ``hist_bins`` bins (a bundle holds up to
+  256), each leaf's per-feature view is sliced out at its split search
+  (`expand_hist`, the skipped default bins rebuilt from the leaf's
+  totals), and the partition and the traversals read the split
+  feature's storage column and unpack it (`bundle_unpack`).
 
 The JAX package pads leaf slices to a table of bucket sizes because XLA
 needs static shapes; launches here take the exact slice, so nothing is
@@ -45,7 +51,8 @@ import torch
 from ..config import Config
 from ..io.dataset import Dataset
 from ..ops.histogram import leaf_histogram, quantize_gh, subtract_histogram
-from ..ops.partition import (MISSING_NAN_C, MISSING_ZERO_C,
+from ..io.bundling import expansion_map
+from ..ops.partition import (MISSING_NAN_C, MISSING_ZERO_C, bundle_unpack,
                              categorical_goes_left, leaf_value_fill,
                              split_partition, unpermute_to_rows)
 from ..ops.split import SplitHyper, make_split_finder
@@ -69,6 +76,9 @@ LI_W = 8
 # rows from which `auto` trains a non-pointwise objective on the aligned
 # engine (the JAX package's row floor)
 NON_POINTWISE_ROW_FLOOR = 1_000_000
+# per-feature histogram cells (leaves x features x bins) one split search
+# takes at once
+EVAL_CELLS = 1 << 25
 
 
 
@@ -138,6 +148,7 @@ class DeviceTreeLearner:
             if self.num_features else 2
         self.bins = dataset.bins.to(device).contiguous()
         self._bins_T: Optional[torch.Tensor] = None
+        self._init_bundles(dataset.bundles)
         self.hyper = SplitHyper.from_config(cfg)
         self.mappers = dataset.used_mappers()
         # forced splits: (feature, threshold bin, left node, right node)
@@ -165,6 +176,54 @@ class DeviceTreeLearner:
         self._cegb_sp = np.float32(float(cfg.cegb_penalty_split)
                                    * float(cfg.cegb_tradeoff))
         self._cegb_used = np.zeros(self.num_features, bool)
+
+    def _init_bundles(self, bnd) -> None:
+        """The bundled view (JAX package: device_learner.py:267-288): the
+        storage columns' count and bins (``num_storage_cols``,
+        ``hist_bins``), each feature's storage column, offset and packing
+        (``bcol``, ``boff``, ``bpk``, host arrays over features), and the
+        expansion tables on the device (``_emap`` [F, B] flat indices into
+        G x hist_bins, -1 for none; ``_edef`` [F, B] f32, 1 at a packed
+        feature's default bin)."""
+        F = self.num_features
+        self.bundled = bnd is not None
+        self.num_storage_cols = int(self.bins.shape[1])
+        if not self.bundled:
+            self.hist_bins = self.max_bin_global
+            self.bcol = np.arange(F, dtype=np.int64)
+            self.boff = np.zeros(F, np.int64)
+            self.bpk = np.zeros(F, np.int64)
+            return
+        self.hist_bins = int(max(self.max_bin_global,
+                                 int(bnd.group_num_bin.max())))
+        m_idx, dmask = expansion_map(bnd, self.meta["num_bin"],
+                                     self.meta["default_bin"],
+                                     self.hist_bins)
+        B = self.max_bin_global
+        self._emap = torch.as_tensor(m_idx[:, :B].astype(np.int64),
+                                     device=self.device)
+        self._edef = torch.as_tensor(dmask[:, :B].astype(np.float32),
+                                     device=self.device)
+        self.bcol = bnd.col.astype(np.int64)
+        self.boff = bnd.off.astype(np.int64)
+        self.bpk = bnd.packed.astype(np.int64)
+
+    def expand_hist(self, hist: torch.Tensor, sg, sh, cnt) -> torch.Tensor:
+        """[K, G, hist_bins, 3] bundle histograms -> [K, F, B, 3]
+        per-feature histograms (JAX package: `expand_hist`, the
+        reference's FixHistogram, dataset.cpp:928-947): each feature's
+        bins sliced out, a packed feature's default bin the leaf's totals
+        (``sg``, ``sh``, ``cnt`` [K] f32 tensors) less its other bins,
+        summed in f32 in XLA's order, the count rounded to an integer so
+        that the min_data_in_leaf guards see exact counts."""
+        k = hist.shape[0]
+        flat = hist.reshape(k, -1, 3)
+        safe = self._emap.clamp(0, flat.shape[1] - 1)
+        out = flat[:, safe] * (self._emap >= 0)[None, :, :, None]
+        totals = torch.stack([sg, sh, cnt], dim=1)                # [K, 3]
+        fix = totals[:, None, :] - sum_f32(out, 2)
+        fix[..., 2] = torch.round(fix[..., 2])
+        return out + self._edef[None, :, :, None] * fix[:, :, None, :]
 
     def _resolve_quant_bits(self, cfg: Config) -> Tuple[int, Optional[str]]:
         """``tpu_quant_hist`` resolved to active bits (0: f32 payloads)
@@ -252,7 +311,9 @@ class DeviceTreeLearner:
     def feature_mask(self) -> Optional[np.ndarray]:
         """The features one tree may split on (None: all), drawn as the
         JAX package draws them, once per call in the same order, so that
-        its trees and the port's use the same subsets."""
+        its trees and the port's use the same subsets. Over every feature,
+        bundled or not: the JAX package draws from the first G features
+        of bundled data and masks the rest (ROADMAP C.24)."""
         frac = self.cfg.feature_fraction
         if frac >= 1.0:
             return None
@@ -275,7 +336,8 @@ class DeviceTreeLearner:
     def _eval_leaves(self, hist, sg, sh, cnt, minc, maxc, depth, fmask,
                      root=False, cegb=None):
         """Best split of each leaf in a batch, on the device: hist
-        [K, F, B, 3] f32 and host per-leaf sums -> host arrays (f32 [K,
+        [K, F, B, 3] f32 (bundled: [K, G, hist_bins, 3], expanded here)
+        and host per-leaf sums -> host arrays (f32 [K,
         BF_W] BF_* lanes, i64 [K, BI_W] BI_* lanes), the reference's
         eval_leaf + pack_best_payload, read back in one copy. ``root``
         marks the leaf-wise builder's root search (`make_split_finder`);
@@ -295,12 +357,28 @@ class DeviceTreeLearner:
     def _eval_leaves_dev(self, hist, sg, sh, cnt, minc, maxc, depth, fmask,
                          root=False, cegb=None) -> torch.Tensor:
         """`_eval_leaves` before the read: [K, BF_W + BI_W] f32 on the
-        device, the BI_* lanes as int32 bits."""
+        device, the BI_* lanes as int32 bits. A batch of more than
+        ``EVAL_CELLS`` per-feature cells (a wide table's widest rounds)
+        is searched a slice of leaves at a time, each leaf's search the
+        same, so that the finder's temporaries stay bounded."""
+        k = hist.shape[0]
+        step = max(1, EVAL_CELLS // (self.num_features
+                                     * self.max_bin_global))
+        if k > step:
+            return torch.cat([self._eval_leaves_dev(
+                hist[i:i + step], sg[i:i + step], sh[i:i + step],
+                cnt[i:i + step], minc[i:i + step], maxc[i:i + step],
+                depth[i:i + step], fmask, root, cegb)
+                for i in range(0, k, step)])
         dev = self.device
 
         def t(vals, dtype):
             return torch.tensor(np.asarray(vals), dtype=dtype, device=dev)
 
+        if self.bundled:
+            hist = self.expand_hist(hist, t(sg, torch.float32),
+                                    t(sh, torch.float32),
+                                    t(cnt, torch.float32))
         out = self.finder(hist, t(sg, torch.float32), t(sh, torch.float32),
                           t(cnt, torch.int32), t(minc, torch.float32),
                           t(maxc, torch.float32), root)
@@ -315,7 +393,6 @@ class DeviceTreeLearner:
         def at(a):
             return torch.gather(a, 1, f)[:, 0]
 
-        k = hist.shape[0]
         zf = torch.zeros(k, dtype=torch.float32, device=dev)
         vec_f = torch.stack([at(gain), at(out["left_g"]), at(out["left_h"]),
                              at(out["right_g"]), at(out["right_h"]),
@@ -385,18 +462,23 @@ class DeviceTreeLearner:
     def _forced_info(self, ph: torch.Tensor, sg, sh, cntg: int, f: int,
                      thr: int):
         """(BF_* f32 lanes, BI_* int lanes) of the forced split of a leaf
-        at (f, thr), from its stored histogram ``ph`` [F, B, 3] and its
-        sums (JAX package: `forced_info`): the bins up to the threshold
-        summed in f32 in XLA's order (`sum_f32`, on the host), less the
+        at (f, thr), from its stored histogram ``ph`` [F, B, 3] (bundled:
+        expanded from [G, hist_bins, 3]) and its sums (JAX package:
+        `forced_info`): the bins up to the threshold
+        summed in f32 in XLA's order (`sum_f32`), less the
         NaN bin where the threshold takes it, the right side by
         difference, the gain and outputs of the plain leaf formula (L1
         and L2, no constraint)."""
         f32 = np.float32
+        if self.bundled:
+            ph = self.expand_hist(ph[None], *(
+                torch.tensor([v], dtype=torch.float32, device=self.device)
+                for v in (sg, sh, cntg)))[0]
         nbf = int(self.meta["num_bin"][f])
         hi = min(thr + 1, nbf)
+        keep = torch.arange(ph.shape[1], device=ph.device) < hi
+        acc = sum_f32(torch.where(keep[:, None], ph[f], 0.0)).cpu().numpy()
         row = ph[f].cpu().numpy()
-        acc = sum_f32(np.where((np.arange(row.shape[0]) < hi)[:, None],
-                               row, np.float32(0.0)))
         lg, lh, lcf = acc[0], acc[1], acc[2]
         if int(self.meta["missing_type"][f]) == 2 and hi > nbf - 1:
             last = row[min(max(nbf - 1, 0), row.shape[0] - 1)]
@@ -436,7 +518,7 @@ class DeviceTreeLearner:
         dev = self.device
         L = cfg.num_leaves
         Lm1 = max(L - 1, 1)
-        B = self.max_bin_global
+        BH = self.hist_bins
         prec = self.hist_precision
         nb, db, mt = (self.meta["num_bin"], self.meta["default_bin"],
                       self.meta["missing_type"])
@@ -454,7 +536,7 @@ class DeviceTreeLearner:
                                                device=dev)])
 
         def hist(idx, begin, count):
-            return leaf_histogram(self.bins, gh, idx, begin, count, B, prec)
+            return leaf_histogram(self.bins, gh, idx, begin, count, BH, prec)
 
         def in_units(h):
             # a quantized histogram back in gradient units: g and h by
@@ -482,8 +564,8 @@ class DeviceTreeLearner:
             sums = root_gh.double().sum(0) if prec == "f64" \
                 else root_gh.sum(0)
         root_g, root_h = sums.to(torch.float32).cpu().numpy()
-        store = torch.zeros((L, self.num_features, B, 3), dtype=torch.float32,
-                            device=dev)
+        store = torch.zeros((L, self.num_storage_cols, BH, 3),
+                            dtype=torch.float32, device=dev)
         store[0] = root_hist
         # a quantized tree whose leaves all fit the JAX package's smallest
         # padded bucket: there its child histograms are inlined, not taken
@@ -562,10 +644,12 @@ class DeviceTreeLearner:
             begin, count = int(leaf_begin[bl]), int(leaf_count[bl])
             iscat = bool(bi[BI_ISCAT])
             words = bi[BI_CAT0:BI_CAT0 + 8]
+            # the split feature's storage column, unpacked under bundling
             left_cnt = split_partition(
-                indices, self.bins_T[f], begin, count, thr, dleft,
-                int(mt[f]), int(db[f]), int(nb[f]),
-                torch.as_tensor(words, device=dev) if iscat else None)
+                indices, self.bins_T[int(self.bcol[f])], begin, count, thr,
+                dleft, int(mt[f]), int(db[f]), int(nb[f]),
+                torch.as_tensor(words, device=dev) if iscat else None,
+                int(self.boff[f]), int(self.bpk[f]))
             right_cnt = count - left_cnt
             rec_iscat[s] = iscat
             rec_bits[s] = words
@@ -671,7 +755,7 @@ class DeviceTreeLearner:
         """score_row += scale * tree(x) over a binned matrix (a validation
         set, or the training bins after a bagged tree, whose partition
         misses the out-of-bag rows), by traversal of the record's tree."""
-        leaves = traverse_record(bins, record, self.meta)
+        leaves = traverse_record(bins, record, self.meta, self.ds.bundles)
         lv = torch.as_tensor(record.leaf_value, device=bins.device)
         score_row.copy_(fma_f32(lv[leaves], float(np.float32(scale)),
                                 score_row))
@@ -755,7 +839,7 @@ class DeviceTreeLearner:
             return "no features"
         if cfg.num_leaves < 2:
             return "num_leaves < 2"
-        if self.max_bin_global > 256:
+        if self.max_bin_global > 256 or self.hist_bins > 256:
             return "max_bin > 256"
         if objective.num_model_per_iteration != 1:
             # K score lanes and the class in the COMPACT meta lane: its
@@ -785,13 +869,16 @@ class DeviceTreeLearner:
         """True when the level builder (`level_builder.py`) grows this
         learner's unbagged trees (JAX package: `level_mode_ok`, serial
         only): the grow mode asks for it, the bins are uint8, and there is
-        a feature and a split to make, and no forced split or CEGB
-        penalty needs the sequential loop. A bagged iteration grows
+        a feature and a split to make, no forced split or CEGB penalty
+        needs the sequential loop, and the bins are not bundled (its
+        packed words hold feature bins; bundled trees grow leaf-wise, as
+        in the JAX package). A bagged iteration grows
         leaf-wise (`train`: the level records assume a full fresh root); a
         K-class iteration grows its trees here one by one; data-parallel
         training raises before a learner is built."""
         return (self.cfg.tpu_grow_mode == "level"
                 and not self.cfg.sequential_device_only
+                and not self.bundled
                 and self.bins.dtype == torch.uint8
                 and self.num_features > 0
                 and self.cfg.num_leaves >= 2)
@@ -835,10 +922,11 @@ class DeviceTreeLearner:
                              bagged=bagged, num_class=num_class)
 
 
-def traverse_record(bins: torch.Tensor, rec: TreeRecord, meta
-                    ) -> torch.Tensor:
+def traverse_record(bins: torch.Tensor, rec: TreeRecord, meta,
+                    bundles=None) -> torch.Tensor:
     """[N] leaf index per row of one record's tree over binned data
-    (reference `traverse_record`, device_learner.py:1693)."""
+    (reference `traverse_record`, device_learner.py:1693); ``bundles``
+    (a `BundleInfo`) maps features to bundled storage columns."""
     ns = int(rec.num_splits)
     if ns == 0:
         return torch.zeros(bins.shape[0], dtype=torch.int64,
@@ -850,14 +938,17 @@ def traverse_record(bins: torch.Tensor, rec: TreeRecord, meta
                         rec.default_left[:ns], meta["missing_type"][feat],
                         meta["default_bin"][feat], meta["num_bin"][feat],
                         rec.is_cat[:ns],
-                        np.asarray(rec.cat_bitset[:ns], np.int64))
+                        np.asarray(rec.cat_bitset[:ns], np.int64),
+                        _node_bundles(bundles, feat))
 
 
-def traverse_tree(bins: torch.Tensor, tree: Tree) -> torch.Tensor:
+def traverse_tree(bins: torch.Tensor, tree: Tree,
+                  bundles=None) -> torch.Tensor:
     """[N] leaf index per row of a host `Tree` over binned data, from its
     bin thresholds and per-node bin metadata (JAX package:
-    `TreePredictor.predict_binned_leaves`); a leaf's index is the one its
-    value has in ``tree.leaf_value``."""
+    `TreePredictor.predict_binned_leaves`, bundled storage unpacked as its
+    `_predict_binned_stacked` does); a leaf's index is the one its value
+    has in ``tree.leaf_value``."""
     ns = tree.num_leaves - 1
     if ns <= 0:
         return torch.zeros(bins.shape[0], dtype=torch.int64,
@@ -870,19 +961,31 @@ def traverse_tree(bins: torch.Tensor, tree: Tree) -> torch.Tensor:
         c = int(tree.threshold_in_bin[s])
         w = words[cb[c]:cb[c + 1]][:8]
         bits[s, :len(w)] = w
+    feat = tree.split_feature_inner[:ns].astype(np.int64)
     return _walk_binned(bins, tree.left_child[:ns], tree.right_child[:ns],
-                        tree.split_feature_inner[:ns].astype(np.int64),
-                        tree.threshold_in_bin[:ns].astype(np.int32),
+                        feat, tree.threshold_in_bin[:ns].astype(np.int32),
                         (dt & 2) != 0, (dt >> 2) & 3,
                         tree.node_default_bin[:ns], tree.node_num_bin[:ns],
-                        is_cat, bits)
+                        is_cat, bits, _node_bundles(bundles, feat))
+
+
+def _node_bundles(bundles, feat: np.ndarray):
+    """(storage column, offset, packed) of each node's feature, or None
+    for unbundled bins."""
+    if bundles is None:
+        return None
+    return (bundles.col[feat].astype(np.int64),
+            bundles.off[feat].astype(np.int64),
+            bundles.packed[feat].astype(np.int64))
 
 
 def _walk_binned(bins, left, right, feat, thr, default_left, missing_type,
-                 default_bin, num_bin, is_cat, cat_bits) -> torch.Tensor:
+                 default_bin, num_bin, is_cat, cat_bits,
+                 node_bundle=None) -> torch.Tensor:
     """[N] leaf index per row of the tree whose nodes (split order,
     parents first) the per-node host arrays describe; ``left``/``right``
-    hold a child node or ``~leaf``."""
+    hold a child node or ``~leaf``; ``node_bundle`` (`_node_bundles`)
+    reads each node's storage column and unpacks it."""
     n = bins.shape[0]
     dev = bins.device
     ns = len(feat)
@@ -905,11 +1008,18 @@ def _walk_binned(bins, left, right, feat, thr, default_left, missing_type,
     if has_cat:
         cat_t = t(np.asarray(is_cat, bool))
         bits_t = t(cat_bits)                                      # [ns, 8]
+    if node_bundle is not None:
+        col_t, off_t, pk_t = (t(a) for a in node_bundle)
     rows = torch.arange(n, device=dev)
     node = torch.zeros(n, dtype=torch.int64, device=dev)
     for _ in range(int(depth.max()) + 1):
         safe = node.clamp(min=0)
-        fval = bins[rows, f_t[safe]].to(torch.int32)
+        if node_bundle is None:
+            fval = bins[rows, f_t[safe]].to(torch.int32)
+        else:
+            fval = bundle_unpack(bins[rows, col_t[safe]].to(torch.int64),
+                                 off_t[safe], pk_t[safe], db_t[safe],
+                                 nb_t[safe]).to(torch.int32)
         base = fval <= thr_t[safe]
         m = mt_t[safe]
         is_default = torch.where(m == MISSING_ZERO_C, fval == db_t[safe],

@@ -282,7 +282,8 @@ class GBDT:
                             scale: float = 1.0) -> None:
         """su.score[class_id] += scale * tree(x) by binned traversal of a
         host tree (JAX package: gbdt.py:318-324)."""
-        su.add_tree_by_leaves(traverse_tree(bins, tree),
+        su.add_tree_by_leaves(traverse_tree(bins, tree,
+                                            self.train_data.bundles),
                               tree.leaf_value[:tree.num_leaves] * scale,
                               class_id)
 

@@ -48,6 +48,7 @@ import torch
 
 from ..utils import log
 from .objectives import PointGrad
+from .partition import bundle_unpack
 
 NUM_STATS = 3
 MISSING_NONE_C, MISSING_ZERO_C, MISSING_NAN_C = 0, 1, 2
@@ -62,7 +63,8 @@ R_DL = 13
 R_MT = 14
 R_COPY = 16
 R_CAT = 25
-# route word 2: default_bin | (num_bin - 1) << 8 (`pack_route2`)
+# route word 2: default_bin | (num_bin - 1) << 8 | bundle offset << 16 |
+# packed << 24 (`pack_route2`)
 # chunk meta word: valid rows | first chunk of block << 20 | last << 21
 META_CNT_MASK = (1 << 20) - 1
 META_FIRST = 20
@@ -80,6 +82,8 @@ LAUNCHES: Dict[str, int] = {"move_pass": 0, "count_pass": 0,
                             "slot_hist_pass_bag": 0}
 # of those, the launches of a `ClassGrad`'s kinds (a K-class objective)
 CLASS_LAUNCHES: Dict[str, int] = {"move_pass": 0, "slot_hist_pass": 0}
+# and the launches of the bundled branch (bundled storage columns)
+BUNDLED_LAUNCHES: Dict[str, int] = {"move_pass": 0, "count_pass": 0}
 
 _GRAD_KIND = {None: 0, "binary": 1, "l2": 2, "prob": 3, "score": 4}
 # the slot histogram (B4, B2's smaller children; CTAs of 1024 threads):
@@ -99,15 +103,15 @@ COUNT_THREADS = 256
 _COUNT_WARPS = COUNT_THREADS // 32
 _fns: Dict[str, object] = {}
 _ctas: Dict[Tuple[int, int], int] = {}
-# (ordinal, num_slots) -> (CTAs an SM, SMs, shared-memory opt-in) of the
-# count pass; (ordinal, stream) -> its scratch: u32 [slots] then the ticket,
-# zero between calls
-_count_shapes: Dict[Tuple[int, int], Tuple[int, int, int]] = {}
+# (ordinal, num_slots, bundled) -> (CTAs an SM, SMs, shared-memory
+# opt-in) of the count pass; (ordinal, stream) -> its scratch: u32 [slots]
+# then the ticket, zero between calls
+_count_shapes: Dict[Tuple[int, int, bool], Tuple[int, int, int]] = {}
 _count_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def reset_launches() -> None:
-    for d in (LAUNCHES, CLASS_LAUNCHES):
+    for d in (LAUNCHES, CLASS_LAUNCHES, BUNDLED_LAUNCHES):
         for k in d:
             d[k] = 0
 
@@ -214,13 +218,23 @@ def pack_records(bins: torch.Tensor, label, weight, chunk: int,
     nc = (n + chunk - 1) // chunk
     n_pad = nc * chunk
     rec = torch.zeros((nc, w_pad, chunk), dtype=torch.int32, device=dev)
-    for w in range(wcnt):
-        acc = torch.zeros(n_pad, dtype=torch.int64, device=dev)
-        for i in range(bpw):
-            col = w * bpw + i
-            if col < f:
-                acc[:n] |= bins[:, col].to(torch.int64) << (bits * i)
-        rec[:, w, :] = _as_int32(acc).view(nc, chunk)
+    # a block of whole chunks at a time, read row by row (a wide table's
+    # columns one by one would be strided reads of the whole matrix): its
+    # words are the sums of each word's bins shifted into their fields
+    shifts = torch.arange(bpw, device=dev, dtype=torch.int64) * bits
+    step = max(1, (1 << 24) // max(wcnt * bpw * chunk, 1)) * chunk
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        blk = torch.zeros((hi - lo, wcnt * bpw), dtype=torch.int64,
+                          device=dev)
+        blk[:, :f] = bins[lo:hi]
+        words = (blk.view(hi - lo, wcnt, bpw) << shifts).sum(2)
+        c0, c1 = lo // chunk, (hi + chunk - 1) // chunk
+        full = torch.zeros(((c1 - c0) * chunk, wcnt), dtype=torch.int64,
+                           device=dev)
+        full[:hi - lo] = words
+        rec[c0:c1, :wcnt, :] = _as_int32(full).view(
+            c1 - c0, chunk, wcnt).transpose(1, 2)
     rid = rid_base + torch.arange(n_pad, dtype=torch.int64, device=dev)
 
     def lane(vals: torch.Tensor) -> torch.Tensor:
@@ -254,10 +268,22 @@ def pack_records(bins: torch.Tensor, label, weight, chunk: int,
     return rec, wcnt, w_pad, cnts, bits
 
 
-def pack_route2(db, nb):
-    """Route word 2: default_bin | (num_bin - 1) << 8 (8-bit fields, so
-    num_bin <= 256). Works on ints and numpy arrays."""
-    return (db & 255) | (((nb - 1) & 255) << 8)
+def pack_route2(db, nb, boff=0, bpk=0):
+    """Route word 2: default_bin | (num_bin - 1) << 8 | boff << 16 | bpk
+    << 24 (8-bit fields, so num_bin <= 256 and, under bundling, a
+    bundle's offset below 256, which its 256-bin cap keeps), the JAX
+    package's layout. Works on ints and numpy arrays."""
+    return ((db & 255) | (((nb - 1) & 255) << 8) | ((boff & 255) << 16)
+            | ((bpk & 1) << 24))
+
+
+def unpack_bundle(binv: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
+    """A bundled storage value -> the split feature's bin, from route
+    word 2's fields (JAX package: `_unpack_bundle`): the map of
+    `ops/partition.py::bundle_unpack`. Runs before the routing, which
+    takes feature bins. ``r2`` broadcasts against ``binv``."""
+    return bundle_unpack(binv, (r2 >> 16) & 255, (r2 >> 24) & 1, r2 & 255,
+                         ((r2 >> 8) & 255) + 1)
 
 
 def goes_left(binv: torch.Tensor, r1: torch.Tensor, r2: torch.Tensor,
@@ -430,10 +456,12 @@ def _cat_words(cbits, ks, binv):
 
 
 def count_pass_plain(records, r1, r2, meta, wsel, kslots, num_slots, bits,
-                     cbits=None):
+                     cbits=None, bundled=False):
     """Plain twin of `count_pass`."""
     nc, _, C = records.shape
     binv = _split_bins(records, r1, wsel, bits)
+    if bundled:
+        binv = unpack_bundle(binv, r2[:, None])
     left = goes_left(binv, r1[:, None], r2[:, None], _valid_rows(meta, C),
                      _cat_words(cbits, kslots, binv))
     per_chunk = left.sum(dim=1).to(torch.int32)
@@ -445,7 +473,8 @@ def count_pass_plain(records, r1, r2, meta, wsel, kslots, num_slots, bits,
 
 def move_pass_plain(records, r1, r2, basel, baser, meta, wsel, hslots,
                     num_slots, num_features, num_bins, wcnt, bits, w_used,
-                    grad=None, out=None, gh_off=2, cbits=None, bag_lane=-1):
+                    grad=None, out=None, gh_off=2, cbits=None, bag_lane=-1,
+                    bundled=False):
     """Plain twin of `move_pass`: block-segmented exclusive ranks of the
     left and right rows in (chunk, row) order, one scatter of the used
     lanes, copy chunks' used lanes moved whole, and the smaller children's
@@ -458,6 +487,8 @@ def move_pass_plain(records, r1, r2, basel, baser, meta, wsel, hslots,
     copy = ((r1 >> R_COPY) & 1) != 0
     hslot = hslots & 0xFFFFFF
     binv = _split_bins(records, r1, wsel, bits)
+    if bundled:
+        binv = unpack_bundle(binv, r2[:, None])
     left = goes_left(binv, r1[:, None], r2[:, None], valid,
                      _cat_words(cbits, hslot, binv))
     split = valid & ~copy[:, None]
@@ -500,10 +531,10 @@ def _lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         sigs = {
             "lgbt_count_pass": [p, ctypes.c_longlong, i, i, p, p, p, p, p,
-                                p, i, i, i, i, p, p, p, p],
-            "lgbt_count_occupancy": [i],
+                                p, i, i, i, i, i, p, p, p, p],
+            "lgbt_count_occupancy": [i, i],
             "lgbt_move_partition": [p, i, i, i, i, i, i, i, p, p, p, p, p,
-                                    p, p, p, i, p, p, p],
+                                    p, p, p, i, i, p, p, p],
             "lgbt_slot_hist": [p, i, i, i, i, i, i, i, i, i, i, i, i, p, p,
                                i, i, f, f, f, i, i, i, i, p, p, p, p],
             "lgbt_slot_hist_occupancy": [i],
@@ -738,17 +769,19 @@ def count_launch_shape(nc: int, num_slots: int, ctas_per_sm: int,
                             -(-nc // _COUNT_WARPS)))
 
 
-def _count_shape(ordinal: int, num_slots: int) -> Tuple[int, int, int]:
-    """(CTAs an SM, SMs, shared-memory opt-in) of the count pass at
-    ``num_slots`` on device ``ordinal``, queried once."""
-    key = (ordinal, num_slots)
+def _count_shape(ordinal: int, num_slots: int,
+                 bundled: bool = False) -> Tuple[int, int, int]:
+    """(CTAs an SM, SMs, shared-memory opt-in) of the count pass (its
+    ``bundled`` instantiation) at ``num_slots`` on device ``ordinal``,
+    queried once."""
+    key = (ordinal, num_slots, bool(bundled))
     st = _count_shapes.get(key)
     if st is None:
         fns = _lib()
         optin = fns["lgbt_aligned_smem_optin"](ordinal)
         smem, _ = count_launch_shape(1, num_slots, 1, 1, optin)
         with torch.cuda.device(ordinal):
-            n = fns["lgbt_count_occupancy"](smem)
+            n = fns["lgbt_count_occupancy"](smem, int(bundled))
         if n < 0:
             raise RuntimeError("count_pass: the CUDA occupancy query failed")
         st = (n, torch.cuda.get_device_properties(
@@ -771,39 +804,42 @@ def _count_scratch_for(dev: torch.device, ordinal: int, stream: int,
 
 
 def count_pass(records, r1, r2, meta, wsel, kslots, num_slots, bits,
-               cbits=None):
+               cbits=None, bundled=False):
     """[num_slots] int32 left rows per compact slot: kslots[i] is the slot
-    of chunk i's split (``num_slots`` skips); r1/r2/meta/wsel/cbits as for
-    `move_pass` (copy bit clear on counted chunks; a chunk's bitset is
-    row kslots[i] of cbits); a chunk's rows r < min(meta count, C). On
-    the card one launch a call (no zeroing): the output comes from
-    ``torch.empty``."""
+    of chunk i's split (``num_slots`` skips); r1/r2/meta/wsel/cbits/
+    bundled as for `move_pass` (copy bit clear on counted chunks; a
+    chunk's bitset is row kslots[i] of cbits); a chunk's rows r <
+    min(meta count, C). On the card one launch a call (no zeroing): the
+    output comes from ``torch.empty``."""
     if not records.is_cuda:
         return count_pass_plain(records, r1, r2, meta, wsel, kslots,
-                                num_slots, bits, cbits)
+                                num_slots, bits, cbits, bundled)
     _check_cuda(records, r1, r2, meta, wsel, kslots)
     cptr = _cbits_ptr(cbits, records, num_slots)
     out = torch.empty(num_slots, dtype=torch.int32, device=records.device)
     if num_slots == 0:
         return out
     _count_cuda(records, r1, r2, meta, wsel, kslots, num_slots, bits, out,
-                cptr)
+                cptr, bundled)
     LAUNCHES["count_pass"] += 1
     if cbits is not None:
         LAUNCHES["count_pass_cat"] += 1
+    if bundled:
+        BUNDLED_LAUNCHES["count_pass"] += 1
     return out
 
 
 def _count_cuda(records, r1, r2, meta, wsel, kslots, num_slots, bits,
-                out, cptr: int = 0) -> None:
+                out, cptr: int = 0, bundled: bool = False) -> None:
     """`count_pass`'s launch alone, on checked arguments, into ``out``
-    [num_slots] (num_slots >= 1); ``cptr`` the bitset table's address."""
+    [num_slots] (num_slots >= 1); ``cptr`` the bitset table's address,
+    ``bundled`` the kernel's instantiation that unpacks bundles."""
     nc, W, C = records.shape
     dev = records.device
     ordinal = dev.index if dev.index is not None \
         else torch.cuda.current_device()
     _, grid = count_launch_shape(nc, num_slots,
-                                 *_count_shape(ordinal, num_slots))
+                                 *_count_shape(ordinal, num_slots, bundled))
     vec = int(C % 4 == 0 and records.data_ptr() % 16 == 0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -811,7 +847,7 @@ def _count_cuda(records, r1, r2, meta, wsel, kslots, num_slots, bits,
         err = _lib()["lgbt_count_pass"](
             records.data_ptr(), nc, W, C, r1.data_ptr(), r2.data_ptr(),
             meta.data_ptr(), wsel.data_ptr(), kslots.data_ptr(), cptr,
-            num_slots, bits, vec, grid, sc.data_ptr(),
+            num_slots, bits, int(bool(bundled)), vec, grid, sc.data_ptr(),
             sc.data_ptr() + 4 * (sc.numel() - 1), out.data_ptr(), stream)
     if err != 0:
         _count_scratch.pop((ordinal, stream), None)
@@ -822,7 +858,8 @@ def _count_cuda(records, r1, r2, meta, wsel, kslots, num_slots, bits,
 def move_pass(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
               num_features, num_bins, wcnt, bits, w_used, grad=None,
               out: Optional[torch.Tensor] = None, gh_off: int = 2,
-              cbits: Optional[torch.Tensor] = None, bag_lane: int = -1):
+              cbits: Optional[torch.Tensor] = None, bag_lane: int = -1,
+              bundled: bool = False):
     """Stable two-way partition of every block in one pass, plus the
     smaller children's histograms.
 
@@ -834,9 +871,13 @@ def move_pass(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
     << 24 names the compact slot of the block's smaller child (side 0:
     the left rows), ``num_slots`` skips. A categorical split (r1's R_CAT
     bit) routes by row ``slot`` of ``cbits`` (int32 [(num_slots + 1) *
-    8]; None reads as all zero). ``grad``, ``gh_off`` and ``bag_lane`` as
-    for `slot_hist_pass`: every row moves, in the bag or not (its meta
-    word or bag lane with it), and the histograms take the in-bag rows.
+    8]; None reads as all zero). ``bundled``: the split word holds
+    bundled storage columns, and each chunk's split value is unpacked to
+    its feature's bin from r2's offset and packing (`unpack_bundle`)
+    before it is routed; the histograms stay over the storage columns.
+    ``grad``, ``gh_off`` and ``bag_lane`` as for `slot_hist_pass`: every
+    row moves, in the bag or not (its meta word or bag lane with it), and
+    the histograms take the in-bag rows.
 
     Returns (records_out, hist[num_slots, F, num_bins, 3]). Lanes >=
     ``w_used`` of moved rows and of copy chunks, and rows outside the new
@@ -847,7 +888,7 @@ def move_pass(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
         return move_pass_plain(records, r1, r2, basel, baser, meta, wsel,
                                hslots, num_slots, num_features, num_bins,
                                wcnt, bits, w_used, grad, out, gh_off, cbits,
-                               bag_lane)
+                               bag_lane, bundled)
     _check_cuda(records, r1, r2, basel, baser, meta, wsel, hslots)
     cptr = _cbits_ptr(cbits, records, num_slots)
     dev = records.device
@@ -860,7 +901,7 @@ def move_pass(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
                          "the shape of records")
     nslot, ncnt = _move_partition_cuda(records, r1, r2, basel, baser, meta,
                                        wsel, hslots, num_slots, bits,
-                                       w_used, out, cptr)
+                                       w_used, out, cptr, bundled)
     hist = _slot_hist_cuda(out, nslot, ncnt, num_slots, num_features,
                            num_bins, wcnt, bits, grad, gh_off, bag_lane)
     LAUNCHES["move_pass"] += 1
@@ -868,16 +909,20 @@ def move_pass(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
         LAUNCHES["move_pass_cat"] += 1
     if bag_lane != -1:
         LAUNCHES["move_pass_bag"] += 1
+    if bundled:
+        BUNDLED_LAUNCHES["move_pass"] += 1
     if isinstance(grad, ClassGrad):
         CLASS_LAUNCHES["move_pass"] += 1
     return out, hist
 
 
 def _move_partition_cuda(records, r1, r2, basel, baser, meta, wsel, hslots,
-                         num_slots, bits, w_used, out, cptr: int = 0):
+                         num_slots, bits, w_used, out, cptr: int = 0,
+                         bundled: bool = False):
     """`move_pass`'s partition into ``out`` (one memset of its scratch,
-    one launch of the partition kernel); ``cptr`` the bitset table's
-    address (0: none). Returns the smaller children's chunk map (nslot,
+    one launch of the partition kernel, its instantiation that unpacks
+    bundles where ``bundled``); ``cptr`` the bitset table's address (0:
+    none). Returns the smaller children's chunk map (nslot,
     ncnt), the slots and row counts its histogram takes (ncnt 0 on every
     other chunk)."""
     nc, W, C = records.shape
@@ -896,6 +941,7 @@ def _move_partition_cuda(records, r1, r2, basel, baser, meta, wsel, hslots,
             records.data_ptr(), nc, W, C, w_used, lanes, smem, bits,
             r1.data_ptr(), r2.data_ptr(), meta.data_ptr(), wsel.data_ptr(),
             basel.data_ptr(), baser.data_ptr(), hslots.data_ptr(), cptr,
-            num_slots, scratch.data_ptr(), out.data_ptr(), _stream(dev))
+            num_slots, int(bool(bundled)), scratch.data_ptr(), out.data_ptr(),
+            _stream(dev))
     _raise_on(err, "move_pass")
     return scratch[2 * nc + 2:3 * nc + 2], scratch[3 * nc + 2:]

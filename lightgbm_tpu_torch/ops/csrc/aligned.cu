@@ -13,15 +13,24 @@
 // blocks own disjoint chunk-aligned ranges; per-chunk int32 arrays carry
 // the routing (r1: threshold | shift << 8 | default_left << 13 |
 // missing_type << 14 | copy << 16 | categorical << 25; r2: default_bin |
-// (num_bin - 1) << 8; wsel: the split word lane; meta: count | first << 20
-// | last << 21). A categorical split routes a row left iff its bin's bit
-// is set in the split's bitset: 8 words over bins, row k of the round's
+// (num_bin - 1) << 8 | bundle offset << 16 | packed << 24; wsel: the
+// split word lane; meta: count | first << 20 | last << 21). A
+// categorical split routes a row left iff its bin's bit is set in the
+// split's bitset: 8 words over bins, row k of the round's
 // compact table cbits (int32 [(K + 1) * 8]; a null table reads as zeros),
 // k the chunk's kslots entry (B3) or its hslots slot (B2). A chunk is
 // categorical or not as a whole, so the numerical chunks' predicate stays
 // free of the table: B3's warp takes the chunk's 8 words into lanes 0-7
 // and gives each row its word by a shuffle, B2's CTA puts them into
-// shared memory beside the ballots.
+// shared memory beside the ballots. Under exclusive feature bundling the
+// words hold bundled storage columns (io/bundling.py): the Bundled
+// instantiations of B2's and B3's kernels, chosen at the launch, map the
+// split word's value to the split feature's own bin (unpack_bundle, from
+// r2's offset and packed bit) before the numerical routing, replacing the
+// bundled=True branch of the TPU kernels (lightgbm_tpu/ops/aligned.py:
+// 709-710 and 1018-1019). The JAX package never bundles a categorical
+// feature, so a bundled launch has no categorical chunk: each kernel has
+// three kinds, numerical, categorical and bundled.
 //
 // What the TPU kernels do that has no counterpart here: the Pallas move
 // kernel carries each block's left/right fill from grid step to grid step
@@ -178,6 +187,18 @@ __device__ __forceinline__ bool goes_left(int binv, int r1, int r2) {
   return is_def ? dl != 0 : binv <= thr;
 }
 
+// A bundled storage value -> the split feature's bin, as
+// ops/aligned.py::unpack_bundle: the feature owns [boff, boff + nb - 1)
+// with its default bin skipped, anything else reads as the default; an
+// unpacked feature (bpk 0) keeps the value.
+__device__ __forceinline__ int unpack_bundle(int binv, int r2) {
+  if (!((r2 >> 24) & 1)) return binv;
+  const int db = r2 & 255, nb = ((r2 >> 8) & 255) + 1;
+  const int p = binv - ((r2 >> 16) & 255);
+  if (p < 0 || p >= nb - 1) return db;
+  return p >= db ? p + 1 : p;
+}
+
 // The logistic loss's (g, h) of one score with label pos
 // (binary_objective.hpp, in the JAX package's f32 op order)
 __device__ __forceinline__ void logistic(float score, bool pos, float sig,
@@ -252,10 +273,11 @@ __device__ __forceinline__ bool in_bag(const int32_t* chunk, int C, int r,
 }
 
 // Row r (of a chunk's cnt valid rows) with split word v goes left: a
-// numerical split by goes_left; a categorical one (Cat) by bit b & 31 of
-// its bitset's word b >> 5, which lane b >> 5 of the warp holds in cw
-// (every lane of the warp must call it).
-template <bool Cat>
+// numerical split by goes_left (Bundled: of the unpacked bin); a
+// categorical one (Cat) by bit b & 31 of its bitset's word b >> 5, which
+// lane b >> 5 of the warp holds in cw (every lane of the warp must call
+// it).
+template <bool Cat, bool Bundled>
 __device__ __forceinline__ int row_left(int v, int r, int cnt, int shift,
                                         int mask, int r1c, int r2c,
                                         unsigned cw) {
@@ -264,7 +286,7 @@ __device__ __forceinline__ int row_left(int v, int r, int cnt, int shift,
     const unsigned w = __shfl_sync(kFull, cw, b >> 5);
     return (r < cnt) & static_cast<int>((w >> (b & 31)) & 1u);
   }
-  return r < cnt && goes_left(b, r1c, r2c);
+  return r < cnt && goes_left(Bundled ? unpack_bundle(b, r2c) : b, r1c, r2c);
 }
 
 // The left rows of one chunk's rows r < cnt, one warp: the split word's
@@ -275,7 +297,7 @@ __device__ __forceinline__ int row_left(int v, int r, int cnt, int shift,
 // in warp-uniform steps, since each row's word comes by a shuffle, with
 // two loads in flight (the shuffles' operands would otherwise raise the
 // kernel's registers). Valid in every lane.
-template <bool Cat>
+template <bool Cat, bool Bundled>
 __device__ __forceinline__ int warp_left_rows(const int32_t* word, int cnt,
                                               bool vec, int shift, int mask,
                                               int r1c, int r2c, unsigned cw,
@@ -298,17 +320,21 @@ __device__ __forceinline__ int warp_left_rows(const int32_t* word, int cnt,
 #pragma unroll
       for (int j = 0; j < kLoads; ++j) {
         const int r = 4 * (i0 + off + 32 * j);
-        n += row_left<Cat>(v[j].x, r, cnt, shift, mask, r1c, r2c, cw)
-            + row_left<Cat>(v[j].y, r + 1, cnt, shift, mask, r1c, r2c, cw)
-            + row_left<Cat>(v[j].z, r + 2, cnt, shift, mask, r1c, r2c, cw)
-            + row_left<Cat>(v[j].w, r + 3, cnt, shift, mask, r1c, r2c, cw);
+        n += row_left<Cat, Bundled>(v[j].x, r, cnt, shift, mask, r1c, r2c,
+                                    cw)
+            + row_left<Cat, Bundled>(v[j].y, r + 1, cnt, shift, mask, r1c,
+                                     r2c, cw)
+            + row_left<Cat, Bundled>(v[j].z, r + 2, cnt, shift, mask, r1c,
+                                     r2c, cw)
+            + row_left<Cat, Bundled>(v[j].w, r + 3, cnt, shift, mask, r1c,
+                                     r2c, cw);
       }
     }
   } else {
     for (int r0 = lane - off; r0 < cnt; r0 += 32) {
       const int r = r0 + off;
-      n += row_left<Cat>(r < cnt ? __ldg(word + r) : 0, r, cnt, shift, mask,
-                         r1c, r2c, cw);
+      n += row_left<Cat, Bundled>(r < cnt ? __ldg(word + r) : 0, r, cnt,
+                                  shift, mask, r1c, r2c, cw);
     }
   }
   return __reduce_add_sync(kFull, n);
@@ -324,7 +350,9 @@ __device__ __forceinline__ int warp_left_rows(const int32_t* word, int cnt,
 // non-zero counters to the scratch (u32 [num_slots], zero between calls)
 // with one red, takes the ticket, and the last CTA writes out and zeroes
 // the scratch and the ticket for the next call on the stream. Integer
-// adds: exact, in any order.
+// adds: exact, in any order. Bundled: the split values are unpacked
+// before the routing (and no chunk is categorical).
+template <bool Bundled>
 __global__ void __launch_bounds__(kCountThreads, 4)
 count_kernel(const int32_t* __restrict__ rec, long long nc, int W, int C,
              const int32_t* __restrict__ r1, const int32_t* __restrict__ r2,
@@ -356,14 +384,17 @@ count_kernel(const int32_t* __restrict__ rec, long long nc, int W, int C,
     int n;
     // warp-uniform; a copy chunk (never counted by the engine) routes
     // every row left whatever its categorical bit
-    if (((r1c >> kCat) & 1) && !((r1c >> kCopy) & 1)) {
+    if constexpr (Bundled) {
+      n = warp_left_rows<false, true>(word, cnt, vec != 0, shift, mask, r1c,
+                                      r2[c], 0u, lane);
+    } else if (((r1c >> kCat) & 1) && !((r1c >> kCopy) & 1)) {
       const unsigned cw = lane < 8 && cbits != nullptr
           ? __ldg(cbits + 8LL * ks + lane) : 0u;
-      n = warp_left_rows<true>(word, cnt, vec != 0, shift, mask, r1c, r2[c],
-                               cw, lane);
+      n = warp_left_rows<true, false>(word, cnt, vec != 0, shift, mask, r1c,
+                                      r2[c], cw, lane);
     } else {
-      n = warp_left_rows<false>(word, cnt, vec != 0, shift, mask, r1c,
-                                r2[c], 0u, lane);
+      n = warp_left_rows<false, false>(word, cnt, vec != 0, shift, mask,
+                                       r1c, r2[c], 0u, lane);
     }
     if (lane == 0 && n != 0) {
       atomicAdd(slot_left + ks, static_cast<unsigned>(n));
@@ -397,7 +428,9 @@ count_kernel(const int32_t* __restrict__ rec, long long nc, int W, int C,
 // flags [nc], *ticket and ncnt come in zeroed. Shared memory: the mbarrier
 // (16 B), the stage (lanes x C words), the permutation (C u16), the
 // ballots and their prefix (2 x ceil(C / 32) words) and the 8 bitset
-// words.
+// words. Bundled: a split value is unpacked before it is routed (and no
+// chunk is categorical).
+template <bool Bundled>
 __global__ void __launch_bounds__(kMoveThreads, 4)
 partition_kernel(const int32_t* __restrict__ rec, int W, int C, int w_used,
                  int lanes, int bits, const int32_t* __restrict__ r1,
@@ -435,7 +468,7 @@ partition_kernel(const int32_t* __restrict__ rec, int W, int C, int w_used,
   const int r1c = r1[c];
   const bool split = ((r1c >> kCopy) & 1) == 0;
   const bool moves = split && cnt > 0;
-  const bool cat = moves && ((r1c >> kCat) & 1);
+  const bool cat = !Bundled && moves && ((r1c >> kCat) & 1);
   const long long cw = static_cast<long long>(W) * C;
   const int32_t* src = rec + c * cw;
   const int groups = (w_used + lanes - 1) / lanes;
@@ -473,7 +506,8 @@ partition_kernel(const int32_t* __restrict__ rec, int W, int C, int w_used,
     } else {
       agg_left = rank_rows(cnt, nw, kMoveThreads, ballot, prefix,
                            [&](int r) {
-        return goes_left((word[r < C ? r : 0] >> shift) & mask, r1c, r2c);
+        const int b = (word[r < C ? r : 0] >> shift) & mask;
+        return goes_left(Bundled ? unpack_bundle(b, r2c) : b, r1c, r2c);
       });
     }
     agg_valid = cnt;
@@ -786,22 +820,24 @@ extern "C" {
 // B3: out[num_slots] = left rows of the chunks whose kslots entry is that
 // slot, in one launch of `grid` CTAs with num_slots u32 of dynamic shared
 // memory (ops/aligned.py::count_launch_shape); cbits the round's bitset
-// table (null: none); scratch (u32 [num_slots]) and ticket are zero
-// before and after the call. vec: C % 4 == 0 and rec 16-byte aligned.
-// Returns the CUDA error code (0 = ok).
+// table (null: none); bundled: the instantiation that unpacks bundled
+// split values; scratch (u32 [num_slots]) and ticket are zero before and
+// after the call. vec: C % 4 == 0 and rec 16-byte aligned. Returns the
+// CUDA error code (0 = ok).
 int lgbt_count_pass(const void* rec, long long nc, int W, int C,
                     const void* r1, const void* r2, const void* meta,
                     const void* wsel, const void* kslots, const void* cbits,
-                    int num_slots, int bits, int vec, int grid, void* scratch,
-                    void* ticket, void* out, void* stream) {
+                    int num_slots, int bits, int bundled, int vec, int grid,
+                    void* scratch, void* ticket, void* out, void* stream) {
   const int smem = static_cast<int>(sizeof(unsigned)) * num_slots;
+  auto kernel = bundled ? count_kernel<true> : count_kernel<false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  count_kernel<<<grid, kCountThreads, smem,
-                 static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kCountThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(rec), nc, W, C,
       static_cast<const int32_t*>(r1), static_cast<const int32_t*>(r2),
       static_cast<const int32_t*>(meta), static_cast<const int32_t*>(wsel),
@@ -812,22 +848,23 @@ int lgbt_count_pass(const void* rec, long long nc, int W, int C,
   return check();
 }
 
-// CTAs of count_kernel that the CUDA occupancy calculator fits on an SM
-// of the current device with `smem` bytes of dynamic shared memory each;
-// 0 where they do not fit, -1 on a CUDA error. The kernel's opt-in is
-// raised only above the default 48 KB, never lowered (a later call with
-// more slots launches within it).
-int lgbt_count_occupancy(int smem) {
+// CTAs of count_kernel (its bundled instantiation where `bundled`) that
+// the CUDA occupancy calculator fits on an SM of the current device with
+// `smem` bytes of dynamic shared memory each; 0 where they do not fit, -1
+// on a CUDA error. The kernel's opt-in is raised only above the default
+// 48 KB, never lowered (a later call with more slots launches within it).
+int lgbt_count_occupancy(int smem, int bundled) {
   int n = -1;
+  auto kernel = bundled ? count_kernel<true> : count_kernel<false>;
   if (smem > 48 * 1024
-      && cudaFuncSetAttribute(count_kernel,
+      && cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               smem) != cudaSuccess) {
     cudaGetLastError();                  // too much: clear the error
     return 0;
   }
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, count_kernel, kCountThreads, smem) != cudaSuccess) {
+          &n, kernel, kCountThreads, smem) != cudaSuccess) {
     return -1;
   }
   return n;
@@ -838,25 +875,28 @@ int lgbt_count_occupancy(int smem) {
 // [NC] u64, the ticket and a pad word, nslot [NC], ncnt [NC]), then one
 // launch of partition_kernel with `lanes` lanes a stage and `smem` bytes
 // of dynamic shared memory (ops/aligned.py::move_smem); cbits the round's
-// bitset table (null: none). nslot and ncnt hold the smaller children's
-// map (ncnt 0 elsewhere).
+// bitset table (null: none); bundled: the instantiation that unpacks
+// bundled split values. nslot and ncnt hold the smaller children's map
+// (ncnt 0 elsewhere).
 int lgbt_move_partition(const void* rec, int nc, int W, int C, int w_used,
                         int lanes, int smem, int bits, const void* r1,
                         const void* r2, const void* meta, const void* wsel,
                         const void* basel, const void* baser,
                         const void* hslots, const void* cbits, int num_slots,
-                        void* scratch, void* out, void* stream) {
+                        int bundled, void* scratch, void* out,
+                        void* stream) {
   if (nc == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(
       scratch, 0, sizeof(int32_t) * (4 * static_cast<size_t>(nc) + 2), s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaFuncSetAttribute(partition_kernel,
+  auto kernel = bundled ? partition_kernel<true> : partition_kernel<false>;
+  e = cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   int32_t* sc = static_cast<int32_t*>(scratch);
-  partition_kernel<<<nc, kMoveThreads, smem, s>>>(
+  kernel<<<nc, kMoveThreads, smem, s>>>(
       static_cast<const int32_t*>(rec), W, C, w_used, lanes, bits,
       static_cast<const int32_t*>(r1), static_cast<const int32_t*>(r2),
       static_cast<const int32_t*>(meta), static_cast<const int32_t*>(wsel),

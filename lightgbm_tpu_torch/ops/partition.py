@@ -50,17 +50,35 @@ def categorical_goes_left(binvals: torch.Tensor,
     return (((w >> (binvals & 31).long()) & 1) != 0) & (word < nw)
 
 
+def bundle_unpack(raw, boff, bpk, default_bin, num_bin):
+    """A bundled storage value -> the feature's own bin (`io/bundling.py`
+    layout: the feature owns [boff, boff + num_bin - 1) with its default
+    bin skipped; a value outside that range means its default); ``bpk``
+    0 leaves the value as it is. Scalars or tensors that broadcast."""
+    p = raw - boff
+    in_range = (p >= 0) & (p < num_bin - 1)
+    b = torch.where(p >= default_bin, p + 1, p)
+    unpacked = torch.where(in_range, b, default_bin)
+    return torch.where(torch.as_tensor(bpk != 0, device=raw.device),
+                       unpacked, raw)
+
+
 def split_partition(indices: torch.Tensor, bins_col: torch.Tensor,
                     begin: int, count: int, threshold: int,
                     default_left: bool, missing_type: int, default_bin: int,
                     num_bin: int,
-                    cat_bitset: Optional[torch.Tensor] = None) -> int:
+                    cat_bitset: Optional[torch.Tensor] = None,
+                    bundle_off: int = 0, bundle_packed: int = 0) -> int:
     """Stable-partition one leaf's slice ``indices[begin:begin+count]`` in
-    place by the split feature's bin column ``bins_col`` [N]; returns the
-    left count (one host read). A categorical split passes its bitset
-    (``cat_bitset``, words [8]) and routes by it alone."""
+    place by the split feature's bin column ``bins_col`` [N] (its storage
+    column under bundling: ``bundle_packed`` unpacks it from
+    ``bundle_off``); returns the left count (one host read). A
+    categorical split passes its bitset (``cat_bitset``, words [8]) and
+    routes by it alone."""
     idx = indices[begin:begin + count]
     b = bins_col[idx.long()].to(torch.int32)
+    if bundle_packed:
+        b = bundle_unpack(b, bundle_off, 1, default_bin, num_bin)
     if cat_bitset is not None:
         goes_left = categorical_goes_left(b, cat_bitset)
     else:

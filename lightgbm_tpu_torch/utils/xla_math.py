@@ -23,7 +23,7 @@ XLA's CPU backend sums an f32 axis of more than 32 elements in windows
 of 32 (its tree-reduction rewrite: the axis padded with zeros to a
 multiple of 32, the padding split evenly before and after, each window
 summed in order, then the windows' sums by the same rule); `sum_f32`
-follows it on the host.
+follows it.
 """
 from __future__ import annotations
 
@@ -62,22 +62,20 @@ def exp_f32(x: torch.Tensor) -> torch.Tensor:
                        torch.zeros_like(y), y)
 
 
-def sum_f32(v: np.ndarray) -> np.ndarray:
-    """f32 sum over axis 0 of ``v`` [n, ...] in the order of XLA's CPU
-    reduction: in order for n <= 32, else by windows of 32 of the
-    zero-padded axis, recursively."""
-    v = np.asarray(v, np.float32)
+def sum_f32(v: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """f32 sum of ``v`` over ``dim`` in the order of XLA's CPU reduction,
+    on the tensor's device: in order for 32 elements or fewer, else by
+    windows of 32 of the zero-padded axis, recursively."""
+    v = v.movedim(dim, 0)
     n = v.shape[0]
     if n > 32:
         pad = -n % 32
         lo = pad // 2
-        z = np.zeros((1,) + v.shape[1:], np.float32)
-        v = np.concatenate([np.repeat(z, lo, 0), v,
-                            np.repeat(z, pad - lo, 0)])
-        return sum_f32(np.stack([sum_f32(v[i:i + 32])
-                                 for i in range(0, n + pad, 32)]))
-    acc = np.zeros(v.shape[1:], np.float32)
+        z = v.new_zeros((lo,) + v.shape[1:])
+        z2 = v.new_zeros((pad - lo,) + v.shape[1:])
+        w = torch.cat([z, v, z2]).reshape((-1, 32) + v.shape[1:])
+        return sum_f32(sum_f32(w, 1), 0)
+    acc = torch.zeros(v.shape[1:], dtype=torch.float32, device=v.device)
     for x in v:
-        acc = (acc + x).astype(np.float32)
+        acc = acc + x
     return acc
-

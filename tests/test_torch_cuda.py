@@ -5,8 +5,9 @@ lambdarank kernel against their plain twins, B1's integer branch
 card against the CPU, f64 training on the card
 against the CPU (leaf-wise and level), the aligned engine on the card
 (binary, and lambdarank on EXT records), the categorical route of B2 and
-B3 and categorical f64 training against the CPU, and the prototype
-kernels P1-P3 against their twins. They import
+B3 and categorical f64 training against the CPU, the bundled branch of
+B2 and B3 (exclusive feature bundling) and bundled f64 training against
+the CPU, and the prototype kernels P1-P3 against their twins. They import
 neither JAX nor the JAX package, so they run where only PyTorch is
 installed:
 
@@ -1818,3 +1819,123 @@ def test_multiclass_aligned_on_gpu(cuda):
     np.testing.assert_allclose(
         g._aligned_eng.row_scores_all()[:, :5000].t().cpu().numpy(),
         bst.predict(X[:5000], raw_score=True), rtol=1e-5, atol=1e-5)
+
+
+def _efb_data(n, seed=0):
+    """n rows: 4 dense columns and 7 one-hot blocks of 8 (at most one
+    column of a block is 1 in a row), which bundle into a few storage
+    columns; the label reads two one-hot columns."""
+    rng = np.random.RandomState(seed)
+    X = np.zeros((n, 60))
+    X[:, :4] = rng.standard_normal((n, 4))
+    for b in range(7):
+        pick = rng.randint(0, 9, n)
+        on = pick < 8
+        X[np.nonzero(on)[0], 4 + 8 * b + pick[on]] = 1.0
+    margin = X[:, 0] + 1.5 * (X[:, 9] > 0) - (X[:, 30] > 0)
+    y = (rng.rand(n) < 1 / (1 + np.exp(-margin))).astype(np.float64)
+    return X, y
+
+
+def _efb_calls(monkeypatch, force_big_n, bundle=True):
+    """Clones of the (args, kwargs) of every B2 and B3 call of an aligned
+    run on the card at 255 bins on `_efb_data`, bundled or (``bundle``
+    False: ``enable_bundle=false``) not."""
+    X, y = _efb_data(60000)
+    calls = []
+
+    def recorder(name, fn):
+        def wrapped(*args, **kw):
+            calls.append((name, tuple(a.clone() if torch.is_tensor(a)
+                                      else a for a in args), dict(kw)))
+            return fn(*args, **kw)
+        return wrapped
+
+    for name in ("move_pass", "count_pass"):
+        monkeypatch.setattr(AB, name, recorder(name, getattr(AB, name)))
+    A.reset_launches()
+    bst = tlgb.train({"objective": "binary", "num_leaves": 31,
+                      "max_bin": 255, "verbosity": -1,
+                      "tpu_force_big_n": force_big_n,
+                      "enable_bundle": bundle},
+                     tlgb.Dataset(X, label=y), num_boost_round=2,
+                     verbose_eval=False)
+    g = bst._gbdt
+    assert g.train_path == "aligned" and g.learner.bundled == bundle
+    assert g._aligned_eng.fallbacks == 0
+    moves, counts = A.LAUNCHES["move_pass"], A.LAUNCHES["count_pass"]
+    assert moves > 0 and (counts > 0) == force_big_n
+    assert A.BUNDLED_LAUNCHES == {"move_pass": moves if bundle else 0,
+                                  "count_pass": counts if bundle else 0}
+    return calls
+
+
+def _check_efb_calls(calls):
+    """Each recorded B2 and B3 call through the kernel and its twin, with
+    the call's own ``bundled``: counts and moved records bit-equal, the
+    children's histograms within C.7's bound."""
+    for name, args, kw in calls:
+        kw = {k: v for k, v in kw.items() if k != "out"}
+        if name == "count_pass":
+            assert torch.equal(A.count_pass(*args, **kw),
+                               A.count_pass_plain(*args, **kw))
+            continue
+        rec, meta, hs, k = args[0], args[5], args[7], args[8]
+        wcnt, w_used, grad = args[11], args[13], args[14]
+        out, hist = A.move_pass(*args, **kw)
+        ref_a, ref_hist = A.move_pass_plain(
+            *args, **kw, out=torch.full_like(rec, -1))
+        ref_b, _ = A.move_pass_plain(*args, **kw,
+                                     out=torch.full_like(rec, -2))
+        cov = ref_a[:, 0] == ref_b[:, 0]
+        for u in range(w_used):
+            assert torch.equal(out[:, u][cov], ref_a[:, u][cov])
+        _assert_hist_close(hist, ref_hist, _slot_abs_sums(
+            rec, hs & 0xFFFFFF, meta, k, wcnt, grad,
+            kw.get("gh_off", 2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("force_big_n", [False, True])
+def test_bundled_kernels_match_twins_on_gpu(cuda, monkeypatch, force_big_n):
+    """The bundled branch of B2's partition and of B3 against their twins
+    on every call of a bundled aligned run (COMPACT, and STANDARD under
+    tpu_force_big_n): counts and moved records bit-equal, the children's
+    histograms within C.7's bound."""
+    calls = _efb_calls(monkeypatch, force_big_n)
+    assert all(kw.get("bundled") for _, _, kw in calls)
+    _check_efb_calls(calls)
+
+
+@pytest.mark.cuda
+def test_unbundled_route_unchanged_on_gpu(cuda, monkeypatch):
+    """The same table with ``enable_bundle=false``: every B2 and B3 call
+    takes the unbundled instantiation (no bundled launch counted) and
+    equals its twin."""
+    calls = _efb_calls(monkeypatch, True, bundle=False)
+    assert not any(kw.get("bundled") for _, _, kw in calls)
+    _check_efb_calls(calls)
+
+
+@pytest.mark.cuda
+def test_f64_bundled_training_on_gpu_equals_cpu(cuda):
+    """Bundled data from a CSR matrix, leaf-wise at tpu_use_f64_hist: the
+    card's tree sections equal the CPU's, and so do the CSR predictions
+    of the two boosters."""
+    import scipy.sparse as sp
+    X, y = _efb_data(20000, seed=2)
+    Xs = sp.csr_matrix(X)
+    params = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+              "verbosity": -1, "tpu_use_f64_hist": True,
+              "tpu_grow_mode": "leafwise"}
+    out = []
+    for dev in ("cuda", "cpu"):
+        bst = tlgb.train({**params, "device_type": dev},
+                         tlgb.Dataset(Xs, label=y), num_boost_round=3,
+                         verbose_eval=False)
+        assert bst._gbdt.learner.bundled
+        t = bst.model_to_string()
+        out.append((t[t.index("Tree=0"):t.index("end of trees")],
+                    bst.predict(Xs[:3000], raw_score=True)))
+    assert out[0][0] == out[1][0]
+    np.testing.assert_array_equal(out[0][1], out[1][1])
