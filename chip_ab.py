@@ -144,6 +144,15 @@ lambdarank gradient (kernel B6, ``rank.cu``) and the prototype move (P2,
         B3 on the widest round of one big-n tree: this checkout's kernel
         (B) against builds held to 32 registers and with 8 loads in
         flight a thread (A), A, B, B, A;
+    python3 chip_ab.py kinds --baseline DIR
+        the slot histogram (B4, and B2's smaller-child histograms) of the
+        checkout at DIR, the design before the pointwise objective kinds
+        (its C entry point is this checkout's), against this checkout's
+        with the binary and l2 kinds on the same records, A, B, B, A,
+        warm and cold: the root pass and the widest round's children of
+        one aligned tree at the HIGGS shape (COMPACT, 63 and 255 bins),
+        each checked against the plain twin; then this checkout's other
+        kinds on them;
     python3 chip_ab.py words-sweep
         this checkout's B5 on the calls of one level tree at the HIGGS
         shape (the root and the widest round at 255 leaves, the widest
@@ -1418,6 +1427,104 @@ def hist_bag(torch, CS, lt, A, baseline: str, mc: bool = False) -> dict:
     return res
 
 
+def same_entry_slot_hist(torch, A, lib=None):
+    """`_slot_hist_cuda` through the slot histogram of ``lib``, a build of
+    an aligned.cu whose C entry points are this checkout's (None: this
+    checkout's own), its occupancy looked up from that build and kept
+    apart."""
+    A._lib()
+    names = ("lgbt_slot_hist", "lgbt_slot_hist_occupancy",
+             "lgbt_aligned_smem_optin")
+    fns = {}
+    for name in names:
+        if lib is None:
+            fns[name] = A._fns[name]
+            continue
+        fn = getattr(lib, name)
+        fn.argtypes = A._fns[name].argtypes
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    ctas = {}
+
+    def run(*args):
+        saved = A._fns, A._ctas
+        A._fns, A._ctas = fns, ctas
+        try:
+            return A._slot_hist_cuda(*args)
+        finally:
+            A._fns, A._ctas = saved
+    return run
+
+
+def kinds(torch, CS, lt, A, baseline: str) -> dict:
+    """`kinds`: the slot histogram of the checkout at DIR (A) against
+    this checkout's (B), A, B, B, A, with the binary kind and the l2 kind
+    on the COMPACT records of one binary tree's second iteration under
+    ``auto`` at the HIGGS shape (63 and 255 bins): its root pass and its
+    widest round's smaller children (on the records this checkout's
+    partition moved), each checked against the plain twin, warm and cold;
+    then B alone with each pointwise kind of phase 20."""
+    from lightgbm_tpu_torch.ops.objectives import PointGrad
+    src = os.path.join(baseline, "lightgbm_tpu_torch", "ops", "csrc",
+                       "aligned.cu")
+    impl = {"A": same_entry_slot_hist(torch, A, nvcc_lib(
+                src, "baseline_kinds", os.path.dirname(src))),
+            "B": same_entry_slot_hist(torch, A)}
+    grads = {"binary": PointGrad("binary", 1.0, 1.0, 1.0),
+             "l2": PointGrad("l2"),
+             "huber": PointGrad("huber", 0.9), "fair": PointGrad("fair"),
+             "poisson": PointGrad("poisson", float(np.float32(0.7))),
+             "gamma": PointGrad("gamma"),
+             "tweedie": PointGrad("tweedie", -0.5, 0.5),
+             "xentropy": PointGrad("xentropy")}
+    X, y = CS.synth_higgs(10_500_000, 28)
+    res = {}
+    for max_bin in (63, 255):
+        params = {"objective": "binary", "num_leaves": 255,
+                  "max_bin": max_bin, "learning_rate": 0.1,
+                  "min_data_in_leaf": 20, "feature_fraction": 1.0,
+                  "verbosity": -1}
+        ds = lt.Dataset(X, label=y, params=params,
+                        free_raw_data=False).construct()
+        calls = CS.capture_kernel_calls(torch, lt, ds, params, skip=1)
+        del ds
+        root, move = calls["slot_hist_pass"], calls["move_wide"]
+        buf = torch.empty_like(move[0])
+        nslot, ncnt = A._move_partition_cuda(
+            *move[:9], move[12], move[13], buf)
+        rec, _, _, k, F, B, wcnt, bits, _ = root
+        heads = {"root": root[:4], "children": (buf, nslot, ncnt, move[8])}
+        for case, head in heads.items():
+            scale = None
+            for kind, grad in grads.items():
+                args = (*head, F, B, wcnt, bits, grad, 2)
+                ref = A.slot_hist_pass_plain(*args[:9])
+                scale = CS.slot_abs_sums(torch, A, head[0], head[1],
+                                         head[2], head[3], wcnt, grad)
+                what = f"{case} {max_bin} {kind}"
+                order = ORDER if kind in ("binary", "l2") else ("B",)
+                for which in order:
+                    fn = impl[which]
+                    got = fn(*args)
+                    if bool(torch.isfinite(ref[..., :2]).all()):
+                        CS.check_hist(torch, got, ref, scale,
+                                      f"chip_ab kinds {which}, {what}")
+                    else:
+                        CS.check_hist_nonfinite(
+                            torch, got, ref, scale,
+                            f"chip_ab kinds {which}, {what}")
+                    r = {"ms": CS.cuda_ms(torch, lambda a=args, f=fn:
+                                          f(*a), reps=20),
+                         "cold_ms": CS.cold_ms(torch, lambda a=args, f=fn:
+                                               f(*a))}
+                    res.setdefault(f"{what} {which}", []).append(r)
+                    CS.log(f"kinds {what} {which}: {r}")
+                del ref
+        del calls, buf, nslot, ncnt, heads
+        torch.cuda.empty_cache()
+    return res
+
+
 def count_compact(torch, CS, lt, A, impl) -> dict:
     """`count --compact`: B3 of the checkout at DIR (A, whose entry point
     takes the bitset table, passed none) against this checkout's (B), A,
@@ -1951,7 +2058,7 @@ def main() -> int:
                                      "rank-sweep", "proto-move", "count",
                                      "proto-ring", "proto-move-sweep",
                                      "proto-ring-sweep", "count-sweep",
-                                     "unbundled"))
+                                     "unbundled", "kinds"))
     ap.add_argument("--baseline", help="checkout of the earlier design "
                     "(engine, hist, words, move, rank, proto-move, count, "
                     "proto-ring)")
@@ -2004,10 +2111,11 @@ def main() -> int:
         else:
             res = (hist if args.what == "hist" else words)(
                 torch, CS, lt, H, args.baseline)
-    elif args.what == "unbundled":
+    elif args.what in ("unbundled", "kinds"):
         if not args.baseline:
-            ap.error("unbundled needs --baseline DIR")
-        res = unbundled(torch, CS, lt, A, args.baseline)
+            ap.error(f"{args.what} needs --baseline DIR")
+        res = (unbundled if args.what == "unbundled" else kinds)(
+            torch, CS, lt, A, args.baseline)
     elif args.what == "words-sweep":
         res = words_sweep(torch, CS, lt, H)
     elif args.what == "proto-move-sweep":

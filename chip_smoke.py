@@ -37,7 +37,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 4. leaf-wise path: ``train`` (``tpu_grow_mode=leafwise``) ->
    ``Booster.predict`` / ``model_to_string`` on synthetic HIGGS-shaped
    data (10.5M x 28, 500k holdout, the recipe of
-   ``bench.py::synth_higgs``), 255 leaves, 6 rounds at max_bin 63 and 4
+   ``bench.py::synth_higgs``), 255 leaves, 5 rounds at max_bin 63 and 3
    at 255; the kernel launch counts are zeroed just before each run and
    read just after; holdout AUC must exceed 0.6 and the card's
    predictions must match a CPU predict of the same model text;
@@ -95,8 +95,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    one launch a call, and two calls bit-equal;
 10. ranking path: lambdarank at the MSLR shape (2.27M x 137, 255 bins,
    255 leaves, ``min_data_in_leaf`` 50) through ``train`` under ``auto``
-   (6 rounds; it must take the aligned engine on EXT records) and pinned
-   leaf-wise (3 rounds), the kernel counts zeroed just before each run
+   (4 rounds; it must take the aligned engine on EXT records) and pinned
+   leaf-wise (2 rounds), the kernel counts zeroed just before each run
    and read just after, the plain twins of B2, B4 and B6 counted too (a
    call fails the run); NDCG@10 over the queries of the first 200,000
    rows (the protocol of ``bench.py::run_mslr``): the two runs' at 3
@@ -117,7 +117,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    twin; f32 and f64 timed beside the twin, the byte bound and one
    ``index_add_``;
 13. level path: ``train`` with ``tpu_grow_mode=level`` on phase 4's data
-   and params (6 rounds at 63 bins, 4 at 255); the log must name the
+   and params (5 rounds at 63 bins, 3 at 255); the log must name the
    level path, B5's launches are zeroed before and read after, a call of
    B5's plain twin fails the run; rounds and executed splits per tree,
    fallbacks, each level build timed on its own; holdout AUC above 0.6
@@ -208,15 +208,15 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    read from the log, [N, 7] finite predictions (softmax rows summing to
    1), the card's against a CPU predict of its model text, holdout
    multi_logloss and multi_error: (a) softmax under ``auto`` at 63 bins,
-   5 rounds, which must take the aligned engine in its "prob" lanes
+   3 rounds, which must take the aligned engine in its "prob" lanes
    with 7 builds an iteration, every B2 and B4 launch a class kind;
    rounds per tree and fallbacks, the median iteration and one profiled
-   round (busy share, launches, syncs); (b) the same at 255 bins, 3
+   round (busy share, launches, syncs); (b) the same at 255 bins, 2
    rounds, not profiled; (c) leaf-wise, 1 round: (a)'s metrics at 1
-   round within 2e-3 of (c)'s; (d) one-vs-all under ``auto`` ("score" lanes), 3
-   rounds; (e) softmax with ``bagging_fraction`` 0.8 every round, 3
-   rounds, and one-vs-all so, 3 rounds: the bag bit and B3 driving the
-   layout; (f) ``tpu_grow_mode=level`` at ``max_depth`` 8, 3 rounds; (g)
+   round within 2e-3 of (c)'s; (d) one-vs-all under ``auto`` ("score" lanes), 2
+   rounds; (e) softmax with ``bagging_fraction`` 0.8 every round, 2
+   rounds, and one-vs-all so, 2 rounds: the bag bit and B3 driving the
+   layout; (f) ``tpu_grow_mode=level`` at ``max_depth`` 8, 2 rounds; (g)
    f64 leaf-wise at 20,000 rows, 3 rounds: the card's tree sections are
    the CPU's. Then, on the same table drawn at 10,485,760 rows (63
    bins), one iteration of each of softmax and one-vs-all, unbagged and
@@ -280,7 +280,34 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    taken less than 1,000 s: the Allstate law of the JAX package's
    tests/test_efb.py at 1,000,000 rows under ``auto``, which must refuse
    the aligned engine for num_features > 1020 and grow leaf-wise, 3
-   rounds, G <= 150, finite predictions.
+   rounds, G <= 150, finite predictions;
+20. the rest of the objectives: (a) at the shape of UCI
+   YearPredictionMSD (the `year` dataset of NVIDIA's gbm-bench;
+   `synth_year`, seed 19: 463,715 + 51,630 rows x 90 f32 features, a
+   release year from 1922 to 2011), 255 leaves and bins: regression_l1,
+   quantile (alpha 0.9) and mape on the host `SerialTreeLearner` (B1 its
+   histograms), 3 rounds each, one round of the l1 run profiled (B1's
+   launches as its calls); huber, fair, poisson, gamma and tweedie under
+   ``auto``, 5 rounds each, which must take the aligned engine on
+   STANDARD records (real-valued labels) with no fallback; huber
+   leaf-wise, 3 rounds; every run's learner, median iteration, holdout
+   default metric and the card's predictions against a CPU predict of
+   its model text; (b) beside phase 4 at 63 bins: xentropy under
+   ``auto``, 5 rounds, on COMPACT records with its kind computed in B4
+   and B2's children, no fallback, holdout AUC within 2e-3 of phase 5's
+   binary run at 5 rounds; xentlambda, 3 rounds, on the builder the gate
+   picks (EXT records from 1M rows); huber, fair, poisson, gamma, tweedie
+   and xentropy 2 rounds each under ``auto`` (COMPACT), the second
+   iteration's kernel calls recorded, each kind's launches counted; (c)
+   on those records B4's root and B2's smaller-child histograms of the
+   widest round with each kind against the twin (counts equal, NaN and
+   Inf where the twin has them, finite g/h within 1e-5 x the slot's sum
+   of |g|), timed warm and cold beside the binary kind on the same
+   records, the twin, one ``index_add_`` and the bound; (d) a
+   20,000-row cut of (a)'s table (15 leaves, 63 bins, f64 histograms, 2
+   rounds, binned once a device and label), every new objective on the card and on the CPU (xentropy
+   and xentlambda on the year scaled to [0, 1]): tree sections and
+   predictions equal, l1, quantile and mape on the host learner.
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -311,8 +338,8 @@ PROTO_SOURCE = "lightgbm_tpu_torch/ops/csrc/proto.cu"
 SOURCES = {"histogram": KERNEL_SOURCE, "aligned": ALIGNED_SOURCE,
            "rank": RANK_SOURCE, "histogram_words": WORDS_SOURCE,
            "proto": PROTO_SOURCE}
-# cut from 10 and 5 to make room for phase 19
-ROUNDS = {63: 6, 255: 4}
+# cut from 10 and 5 to make room for phase 19, and again for phase 20
+ROUNDS = {63: 5, 255: 3}
 # the kernels of aligned.cu: B2 move_pass launches the partition (after one
 # memset of its scratch) and the smaller children's slot_hist +
 # hist_finalize; B4 slot_hist_pass (the tree's root) slot_hist +
@@ -327,7 +354,7 @@ HIST_KERNELS = ("hist_fixed_kernel", "hist_f64_kernel", "hist_int_kernel")
 # the kernels of histogram_words.cu (B5): one launch a call, f32 and f64
 WORDS_KERNELS = ("words_fixed_kernel", "words_f64_kernel")
 MSLR_ROWS, MSLR_FEATURES = 2_270_000, 137     # bench.py stage 3
-MSLR_ROUNDS, MSLR_LEAF_ROUNDS = 6, 3
+MSLR_ROUNDS, MSLR_LEAF_ROUNDS = 4, 2     # 6 and 3 before phase 20
 NDCG_ROWS = 200_000
 # f32 operations of one pair factor (rank.cu::pair_terms, an FMA counted
 # as 2, the bf16 roundings not at all): 18 arithmetic operations around
@@ -806,6 +833,10 @@ def phase_aligned_main(torch, lt, ds, params, X, y, rows: int, max_bin: int,
         f"{r['auc']:.6f} (leaf-wise {leaf['auc']:.6f}), predict "
         f"{r['predict_s']:.3f} s, peak device memory "
         f"{r['peak_bytes'] / 2**30:.3f} GiB")
+    if rounds >= XENT_ROUNDS:
+        # phase 20 (b) holds xentropy's AUC at this many rounds to it
+        r["auc_at_xent"] = holdout_auc(lt, bst.predict(
+            Xte, raw_score=True, num_iteration=XENT_ROUNDS), yte)
     r["profile"] = profile_round(torch, bst)
     del bst, g
     torch.cuda.empty_cache()
@@ -3362,8 +3393,9 @@ COVTYPE_CATS = [10, 11]
 # phase 18 in the run's time limit, and the leaf-wise run from 2 to 1 for
 # phase 19: it takes 20-29 s an iteration at this shape on an H100 80GB
 # HBM3 at 700 W, so (a) and (c) are compared at MC_COMPARE rounds
-MC_ROUNDS = {"auto": 5, "auto_255": 3, "leafwise": 1, "ova": 3, "bag": 3,
-             "ova_bag": 3, "level": 3}
+# cut from 5 and 3 to make room for phase 20
+MC_ROUNDS = {"auto": 3, "auto_255": 2, "leafwise": 1, "ova": 2, "bag": 2,
+             "ova_bag": 2, "level": 2}
 MC_COMPARE = 1
 MC_KERNEL_ROWS = 10_485_760
 MC_PARAMS = {"objective": "multiclass", "num_class": 7, "num_leaves": 255,
@@ -4138,6 +4170,361 @@ def phase_early_stopping(torch, lt, X, y) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the rest of the objectives
+YEAR_TRAIN, YEAR_TEST, YEAR_FEATURES = 463_715, 51_630, 90
+YEAR_ROUNDS = {"host": 3, "auto": 5, "leafwise": 3}
+YEAR_HOST = (("regression_l1", {}), ("quantile", {"alpha": 0.9}),
+             ("mape", {}))
+YEAR_AUTO = ("huber", "fair", "poisson", "gamma", "tweedie")
+# the pointwise kinds of B4 and B2's children that ``auto`` takes
+KIND_OBJECTIVES = ("huber", "fair", "poisson", "gamma", "tweedie",
+                   "xentropy")
+XENT_ROUNDS, XENTLAMBDA_ROUNDS, KIND_ROUNDS = 5, 3, 2
+OBJ_CUT_ROWS, OBJ_CUT_ROUNDS = 20_000, 2
+# every objective this phase's cut holds card against CPU, its parameters
+CUT_OBJECTIVES = {
+    "regression_l1": {}, "quantile": {"alpha": 0.9}, "mape": {},
+    "huber": {}, "fair": {}, "poisson": {}, "gamma": {}, "tweedie": {},
+    "xentropy": {}, "xentlambda": {}}
+# f32 operations of one row's gradient and hessian by kind, an FMA counted
+# as 2 and XLA's exp as 27 (as in OPS_PER_PAIR)
+KIND_OPS = {"huber": 5, "fair": 8, "poisson": 2 * 27 + 2,
+            "gamma": 27 + 3, "tweedie": 2 * 27 + 10, "xentropy": 27 + 5}
+
+
+def synth_year(n: int, seed: int = 19):
+    """Rows at the shape of UCI YearPredictionMSD (the `year` dataset of
+    NVIDIA's gbm-bench): 90 f32 features, 12 timbre means then 78 timbre
+    covariances, each at a scale of its own, and a release year from 1922
+    to 2011 skewed to the 2000s as the published one is, from a noisy
+    nonlinear function of the features."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, YEAR_FEATURES), dtype=np.float32)
+    w = rng.standard_normal(YEAR_FEATURES).astype(np.float32) \
+        / np.sqrt(YEAR_FEATURES)
+    margin = X @ w + 0.4 * np.sin(2.0 * X[:, 0]) * X[:, 1] \
+        - 0.3 * (np.abs(X[:, 2]) > 1.0)
+    age = np.exp(rng.normal(2.1 + 0.45 * margin, 0.7))
+    year = np.clip(2011.0 - np.floor(age), 1922, 2011).astype(np.float32)
+    X *= np.concatenate([rng.uniform(5, 50, 12),
+                         rng.uniform(20, 2000, 78)]).astype(np.float32)
+    return X, year
+
+
+def holdout_metric(lt, bst, raw, yte) -> tuple:
+    """(name, value) of the booster's default metric on holdout labels
+    ``yte`` and raw scores ``raw``, through its objective's output."""
+    from lightgbm_tpu_torch.io.dataset import Metadata
+    from lightgbm_tpu_torch.ops.metrics import create_metrics
+    g = bst._gbdt
+    (m,) = create_metrics(g.cfg)
+    md = Metadata(len(yte))
+    md.set_label(yte)
+    m.init(md, len(yte))
+    return m.eval(np.asarray(raw, np.float64)[None, :], g.objective)[0]
+
+
+def year_run(torch, lt, ds, params, rounds, Xte, yte, what) -> tuple:
+    """One ``train`` of phase 20 (a) on the card, timed per iteration,
+    with every kernel count zeroed just before and read just after: the
+    learner and path it took, the aligned engine's layout and fallbacks,
+    the median iteration, the default metric on the holdout, and the
+    card's predictions against a CPU predict of the model text."""
+    from lightgbm_tpu_torch.ops import aligned as A
+    from lightgbm_tpu_torch.ops import histogram as H
+    stamps = []
+
+    def stamp(env):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    gc.collect()
+    torch.cuda.synchronize()
+    H.reset_launches()
+    A.reset_launches()
+    t_start = time.perf_counter()
+    bst = lt.train(params, ds, num_boost_round=rounds, callbacks=[stamp],
+                   verbose_eval=False)
+    launches = {"B1": H.LAUNCHES["f32"] + H.LAUNCHES["f64"], **A.LAUNCHES}
+    g = bst._gbdt
+    eng = g._aligned_eng
+    iters = np.diff([t_start] + stamps)
+    raw = bst.predict(Xte, raw_score=True)
+    name, value = holdout_metric(lt, bst, raw, yte)
+    cpu = lt.Booster(model_str=bst.model_to_string(),
+                     params={"device_type": "cpu"})
+    sub = Xte[:4000]
+    np.testing.assert_allclose(bst.predict(sub, raw_score=True),
+                               cpu.predict(sub, raw_score=True),
+                               rtol=1e-5, atol=1e-5)
+    if not np.all(np.isfinite(raw)) or not np.isfinite(value):
+        raise AssertionError(f"{what}: predictions or {name} not finite")
+    if bst.num_trees() != rounds:
+        raise AssertionError(f"{what}: {bst.num_trees()} trees after "
+                             f"{rounds} rounds")
+    r = {"learner": type(g.learner).__name__, "train_path": g.train_path,
+         "compact": None if eng is None else eng.compact,
+         "fallbacks": 0 if eng is None else eng.fallbacks,
+         "first_round_s": float(iters[0]),
+         "median_iter_ms": statistics.median(iters[1:]) * 1e3,
+         "metric": name, "holdout": value, "launches": launches}
+    if r["fallbacks"]:
+        raise AssertionError(f"{what}: {r['fallbacks']} aligned fallbacks")
+    log(f"phase 20 {what}: {r['learner']} ({r['train_path']}"
+        + ("" if eng is None else
+           f", {'COMPACT' if eng.compact else 'STANDARD'} records")
+        + f"), first round {r['first_round_s']:.3f} s, median iteration "
+        f"{r['median_iter_ms']:.1f} ms over {rounds - 1}, holdout {name} "
+        f"{value:.6f}, fallbacks {r['fallbacks']}, launches B1 "
+        f"{launches['B1']} B2 {launches['move_pass']} B4 "
+        f"{launches['slot_hist_pass']}")
+    return bst, r
+
+
+def phase_year(torch, lt) -> dict:
+    """Phase 20 (a) and (d): the Year shape's runs (`year_run`) and the
+    20,000-row cut card against CPU (`phase_objective_cut`)."""
+    t_phase = t0 = time.perf_counter()
+    X, y = synth_year(YEAR_TRAIN + YEAR_TEST)
+    Xtr, ytr = X[:YEAR_TRAIN], y[:YEAR_TRAIN]
+    Xte, yte = X[YEAR_TRAIN:], y[YEAR_TRAIN:]
+    log(f"data: {YEAR_TRAIN}+{YEAR_TEST} x {YEAR_FEATURES} synthetic "
+        f"YearPredictionMSD rows in {time.perf_counter() - t0:.3f} s")
+    params = {"num_leaves": 255, "max_bin": 255, "learning_rate": 0.1,
+              "min_data_in_leaf": 20, "verbosity": -1}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = lt.Dataset(Xtr, label=ytr, params=params,
+                    free_raw_data=False).construct()
+    torch.cuda.synchronize()
+    res = {"binning_s": time.perf_counter() - t0, "runs": {}}
+    log(f"phase 20 (a): binning {res['binning_s']:.3f} s")
+    runs = res["runs"]
+    for obj, extra in YEAR_HOST:
+        bst, r = year_run(torch, lt, ds, {**params, "objective": obj,
+                                          **extra}, YEAR_ROUNDS["host"],
+                          Xte, yte, f"{obj} (host)")
+        if r["learner"] != "SerialTreeLearner" or r["train_path"] != "host" \
+                or not r["launches"]["B1"]:
+            raise AssertionError(f"phase 20 {obj}: {r['learner']} on "
+                                 f"{r['train_path']}, B1 "
+                                 f"{r['launches']['B1']}")
+        if obj == "regression_l1":
+            r["profile"] = profile_round(torch, bst)
+        runs[obj] = r
+        del bst
+    for obj in YEAR_AUTO:
+        bst, r = year_run(torch, lt, ds, {**params, "objective": obj},
+                          YEAR_ROUNDS["auto"], Xte, yte, f"{obj} auto")
+        lc = r["launches"]
+        if r["train_path"] != "aligned" or r["compact"] \
+                or not lc["move_pass"] or not lc["slot_hist_pass"]:
+            raise AssertionError(f"phase 20 {obj} auto: {r['train_path']}, "
+                                 f"compact {r['compact']}, launches {lc}")
+        runs[f"{obj}_auto"] = r
+        del bst
+    bst, r = year_run(torch, lt, ds, {**params, "objective": "huber",
+                                      "tpu_grow_mode": "leafwise"},
+                      YEAR_ROUNDS["leafwise"], Xte, yte, "huber leaf-wise")
+    if r["train_path"] != "leafwise" or not r["launches"]["B1"]:
+        raise AssertionError("phase 20 huber leaf-wise did not run B1")
+    runs["huber_leafwise"] = r
+    del bst, ds
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["cut"] = phase_objective_cut(torch, lt, Xtr[:OBJ_CUT_ROWS],
+                                     ytr[:OBJ_CUT_ROWS], Xte[:2000])
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 20 (a), (d): {res['phase_s']:.1f} s")
+    return res
+
+
+def phase_objective_cut(torch, lt, Xc, yc, Xp) -> dict:
+    """Phase 20 (d): every new objective on a 20,000-row cut, f64
+    histograms, leaf-wise or on the host learner, on the card and on the
+    CPU, OBJ_CUT_ROUNDS each: the tree sections equal and the predictions of
+    ``Xp`` equal. The cut is binned once a device and label (the year,
+    or the year scaled to [0, 1] for the cross-entropy objectives)."""
+    t0 = time.perf_counter()
+    base = {"num_leaves": 15, "max_bin": 63, "learning_rate": 0.1,
+            "min_data_in_leaf": 20, "verbosity": -1,
+            "tpu_use_f64_hist": True, "tpu_grow_mode": "leafwise"}
+    labels = {"year": yc, "prob": (yc - 1922.0) / 89.0}
+    sets = {(dev, name): lt.Dataset(
+        Xc, label=lab, params={**base, "device_type": dev}).construct()
+        for dev in ("cuda", "cpu") for name, lab in labels.items()}
+    out = {}
+    for obj, extra in CUT_OBJECTIVES.items():
+        label = "prob" if obj.startswith("xent") else "year"
+        sect, preds, learners = [], [], []
+        for dev in ("cuda", "cpu"):
+            bst = lt.train({**base, "objective": obj, **extra,
+                            "device_type": dev}, sets[(dev, label)],
+                           num_boost_round=OBJ_CUT_ROUNDS,
+                           verbose_eval=False)
+            sect.append(tree_sections(bst))
+            preds.append(bst.predict(Xp))
+            learners.append(type(bst._gbdt.learner).__name__)
+        host = obj in ("regression_l1", "quantile", "mape")
+        if learners != ["SerialTreeLearner" if host
+                        else "DeviceTreeLearner"] * 2:
+            raise AssertionError(f"phase 20 (d) {obj}: learners {learners}")
+        if sect[0] != sect[1]:
+            raise AssertionError(f"phase 20 (d) {obj}: the f64 tree "
+                                 "sections differ between the card and "
+                                 "the CPU")
+        if not np.array_equal(preds[0], preds[1]):
+            raise AssertionError(f"phase 20 (d) {obj}: predictions differ, "
+                                 f"max {np.abs(preds[0] - preds[1]).max()}")
+        out[obj] = learners[0]
+    r = {"rows": len(yc), "objectives": out,
+         "seconds": time.perf_counter() - t0}
+    log(f"phase 20 (d): {len(yc)}-row cut, {len(out)} objectives, f64 tree "
+        f"sections and predictions equal on the card and the CPU; "
+        f"{r['seconds']:.1f} s")
+    return r
+
+
+def check_kind(torch, got, ref, scale, what) -> float:
+    """`check_hist`, or `check_hist_nonfinite` where the twin's cells hold
+    NaN or Inf (an exp that overflowed); returns the largest finite
+    |difference|."""
+    if bool(torch.isfinite(ref[..., :2]).all()):
+        return check_hist(torch, got, ref, scale, what)
+    return check_hist_nonfinite(torch, got, ref, scale, what)["max_abs_err"]
+
+
+def kind_parity(torch, A, calls, kind) -> dict:
+    """Phase 20 (c) on one kind's recorded calls: B4's root pass and the
+    widest round's smaller-child histograms (B2's, on the records the
+    kernel's partition moved) against the twin, each timed warm and cold
+    beside the binary kind on the same records, the twin, one
+    ``index_add_`` and the bound (the bytes of the rows' words, score
+    and meta lanes, or the kind's f32 operations in both passes and the
+    adds, whichever takes longer)."""
+    from lightgbm_tpu_torch.ops.objectives import PointGrad
+    binary = PointGrad("binary", 1.0, 1.0, 1.0)
+    root = calls["slot_hist_pass"]
+    rec, slots, meta, k, F, B, wcnt, bits, grad = root
+    if grad is None or grad.kind != kind:
+        raise AssertionError(f"phase 20 (c) {kind}: the engine passed "
+                             f"{grad}")
+    move = calls["move_wide"]
+    buf = torch.empty_like(move[0])
+    nslot, ncnt = A._move_partition_cuda(*move[:9], move[12], move[13], buf)
+    _, child_ref = A.move_pass_plain(*move)
+    cases = {"root": ((rec, slots, meta, k), A.slot_hist_pass_plain(*root)),
+             "children": ((buf, nslot, ncnt, move[8]), child_ref)}
+    res = {}
+    for case, (head, ref) in cases.items():
+        args = (*head, F, B, wcnt, bits, grad)
+        as_binary = (*head, F, B, wcnt, bits, binary)
+        what = f"{case}, {kind}"
+        recs, chunk_slot, chunk_meta, kk = head
+        err = check_kind(torch, A._slot_hist_cuda(*args, 2), ref,
+                         slot_abs_sums(torch, A, recs, chunk_slot,
+                                       chunk_meta, kk, wcnt, grad), what)
+        mapped = (chunk_slot >= 0) & (chunk_slot < kk)
+        rows = int((chunk_meta & 0xFFFFF)[mapped].sum())
+        nc = recs.shape[0]
+        r = {"max_abs_err": err, "rows": rows,
+             "ms": cuda_ms(torch, lambda a=args: A._slot_hist_cuda(*a, 2)),
+             "cold_ms": cold_ms(torch,
+                                lambda a=args: A._slot_hist_cuda(*a, 2)),
+             "binary_ms": cuda_ms(
+                 torch, lambda a=as_binary: A._slot_hist_cuda(*a, 2)),
+             "binary_cold_ms": cold_ms(
+                 torch, lambda a=as_binary: A._slot_hist_cuda(*a, 2)),
+             "plain_ms": cuda_ms(
+                 torch, lambda a=args: A.slot_hist_pass_plain(*a), reps=2),
+             "library_ms": hist_library_ms(torch, A, recs, chunk_slot,
+                                           chunk_meta, kk, F, B, wcnt,
+                                           bits, grad, 2)}
+        r["bound_ms"], r["bound_by"] = bound(
+            rows * (wcnt + 2) * 4 + nc * 2 * 4 + kk * F * B * 3 * 4,
+            (2 * KIND_OPS[kind] + 3 * F) * rows)
+        log(f"kernel slot_hist {kind} {case}: kernel {r['ms']:.4f} ms warm "
+            f"{r['cold_ms']:.4f} cold (binary kind {r['binary_ms']:.4f} / "
+            f"{r['binary_cold_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+            f"ms ({r['bound_by']}), {rows} rows, max |d| {err:.3e}")
+        res[case] = r
+    del buf, nslot, ncnt, cases, child_ref
+    return res
+
+
+def phase_objectives_higgs(torch, lt, ds, params, X, y, rows: int,
+                           aligned: dict) -> dict:
+    """Phase 20 (b) and (c) on phase 4's data at 63 bins: xentropy and
+    xentlambda through ``train``, then each kind's two-round run with its
+    second iteration's kernel calls recorded, and `kind_parity` on
+    them."""
+    from lightgbm_tpu_torch.ops import aligned as A
+    t_phase = time.perf_counter()
+    Xte, yte = X[rows:], y[rows:]
+    res = {"kinds": {}}
+    bst, r = train_run(torch, lt, ds, {**params, "objective": "xentropy"},
+                       XENT_ROUNDS, Xte, yte, "xentropy auto")
+    point = {w: A.POINT_LAUNCHES[(w, "xentropy")]
+             for w in ("slot_hist_pass", "move_pass")}
+    g = bst._gbdt
+    eng = g._aligned_eng
+    if g.train_path != "aligned" or not eng.compact or eng.fallbacks \
+            or not all(point.values()) \
+            or point["move_pass"] != r["launches"]["move_pass"]:
+        raise AssertionError(f"phase 20 xentropy auto: {g.train_path}, "
+                             f"kind launches {point}, fallbacks "
+                             f"{None if eng is None else eng.fallbacks}")
+    r.update(point_launches=point, auc_binary=aligned["auc_at_xent"],
+             rounds_per_tree=[s[0] for s in g.aligned_stats])
+    log(f"phase 20 (b) xentropy auto: median iteration "
+        f"{r['median_iter_ms']:.1f} ms, COMPACT, xentropy kind launches "
+        f"{point}, holdout AUC {r['auc']:.6f} (binary auto "
+        f"{r['auc_binary']:.6f} at {XENT_ROUNDS} rounds)")
+    if abs(r["auc"] - r["auc_binary"]) > 2e-3:
+        raise AssertionError(f"xentropy AUC {r['auc']} is not within 2e-3 "
+                             f"of binary's {r['auc_binary']}")
+    res["xentropy"] = r
+    del bst, g, eng
+    bst, r = train_run(torch, lt, ds, {**params, "objective": "xentlambda"},
+                       XENTLAMBDA_ROUNDS, Xte, yte, "xentlambda")
+    g = bst._gbdt
+    eng = g._aligned_eng
+    r.update(train_path=g.train_path,
+             ext=None if eng is None else eng.ext,
+             fallbacks=0 if eng is None else eng.fallbacks,
+             gate=g.aligned_gate())
+    if r["fallbacks"]:
+        raise AssertionError(f"phase 20 xentlambda: {r['fallbacks']} "
+                             "fallbacks")
+    log(f"phase 20 (b) xentlambda: {r['train_path']} (EXT {r['ext']}, gate "
+        f"{r['gate']}), median iteration {r['median_iter_ms']:.1f} ms, "
+        f"holdout AUC {r['auc']:.6f}")
+    res["xentlambda"] = r
+    del bst, g, eng
+    torch.cuda.empty_cache()
+    for kind in KIND_OBJECTIVES:
+        A.reset_launches()
+        calls = capture_kernel_calls(torch, lt, ds,
+                                     {**params, "objective": kind},
+                                     skip=KIND_ROUNDS - 1)
+        launches = {w: A.POINT_LAUNCHES[(w, kind)]
+                    for w in ("slot_hist_pass", "move_pass")}
+        if not all(launches.values()):
+            raise AssertionError(f"phase 20 {kind}: kind launches "
+                                 f"{launches}")
+        kp = kind_parity(torch, A, calls, kind)
+        kp["launches"] = (res["xentropy"]["point_launches"]
+                          if kind == "xentropy" else launches)
+        res["kinds"][kind] = kp
+        del calls
+        torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 20 (b), (c): {res['phase_s']:.1f} s")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=10_500_000)
@@ -4157,10 +4544,17 @@ def main() -> int:
         raise AssertionError("the port imported jax or lightgbm_tpu")
     dev = torch.device(DEVICE)
     info = phase_device(torch)
+    stamps = [("start", time.perf_counter())]
+
+    def stamp(what):
+        # wall seconds of each stretch of phases, logged at the end
+        stamps.append((what, time.perf_counter()))
     phase_build()
     sass = phase_sass()
+    stamp("phases 1-2")
     par = phase_parity(torch, dev, args.rows)
     qpar = phase_quant_parity(torch, dev, args.rows)
+    stamp("phases 3, 18 (a)")
     t0 = time.perf_counter()
     X, y = synth_higgs(args.rows + args.holdout, 28)
     log(f"data: {args.rows}+{args.holdout} x 28 synthetic rows in "
@@ -4177,6 +4571,8 @@ def main() -> int:
                                       args.rows, main_r[63])
             forced = phase_forced_cegb(torch, lt, ds, params, X, y,
                                        args.rows)
+            objectives = phase_objectives_higgs(torch, lt, ds, params, X, y,
+                                                args.rows, aligned_r[63])
             big_n = phase_big_n(torch, lt, ds, params, X, y, args.rows)
             bagging = phase_bagging(torch, lt, ds, params, X, y, args.rows)
             bpar[(63, "standard")] = phase_bag_parity(
@@ -4200,8 +4596,10 @@ def main() -> int:
         lpar[max_bin] = phase_level_parity(torch, lt, ds, params, max_bin)
         del ds
         torch.cuda.empty_cache()
+    stamp("phases 4-7, 11-13, 16, 18 (b), (c), 20 (b), (c)")
     f64_launches = phase_f64(torch, lt)
     stopping = phase_early_stopping(torch, lt, X, y)
+    stamp("phases 8, 18 (d)")
     del X, y
     gc.collect()
     t0 = time.perf_counter()
@@ -4215,22 +4613,31 @@ def main() -> int:
                                               mslr["aligned"]["profile"])
     ext_bag = phase_ext_bag(torch, lt, mds, mparams)
     bpar[(255, "ext")] = ext_bag["kernels"]
+    stamp("phases 9-11 (MSLR)")
     del mds, Xm, ym, gm
     gc.collect()
     torch.cuda.empty_cache()
     info["state_phase14"] = card_state("phase 14")
     proto_path = phase_proto_path(torch)
     ppar = phase_proto_parity(torch)
+    stamp("phase 14")
     gc.collect()
     torch.cuda.empty_cache()
     airline = phase_airline(torch, lt, args.airline_rows, args.holdout)
+    stamp("phase 15")
     gc.collect()
     torch.cuda.empty_cache()
     mc = phase_multiclass(torch, lt)
     mpar = phase_mc_parity(torch, lt)
+    stamp("phase 17")
     gc.collect()
     torch.cuda.empty_cache()
     efb = phase_efb(torch, lt, args.airline_rows, args.holdout, t_main)
+    stamp("phase 19")
+    gc.collect()
+    torch.cuda.empty_cache()
+    year = phase_year(torch, lt)
+    stamp("phase 20 (a), (d)")
 
     def entry(name, replaces, bins, prec, launches):
         p = par[bins]
@@ -4452,6 +4859,26 @@ def main() -> int:
                      f"{efb['dataset']['features']} in "
                      f"{efb['dataset']['storage_cols']} storage columns, "
                      "255 bins, bundled"})
+    # the pointwise objective kinds of B4 and B2's children (phase 20)
+    for kind, kp in objectives["kinds"].items():
+        for name, case, line, launch_key, shape in (
+                (f"slot_hist_pass_{kind}", "root", 1141, "slot_hist_pass",
+                 "root pass"),
+                (f"move_pass_child_hist_{kind}", "children", 960,
+                 "move_pass", "smaller children of the widest round")):
+            p = kp[case]
+            kernels.append({
+                "name": name, "route": "cuda", "source": ALIGNED_SOURCE,
+                "replaces": f"lightgbm_tpu/ops/aligned.py:{line}",
+                "launches": kp["launches"][launch_key],
+                "max_abs_err": p["max_abs_err"], "ms": p["ms"],
+                "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
+                "bound_by": p["bound_by"], "library_ms": p["library_ms"],
+                **{k: p[k] for k in ("cold_ms", "binary_ms",
+                                     "binary_cold_ms", "rows")},
+                "shape": f"{shape}, {args.rows}x28, 63 bins, COMPACT, the "
+                         f"{kind} kind (the objective's gradient of "
+                         "_payload_gh, aligned.py:350-383)"})
     plaunch = proto_path["launches"]
     rows = proto_path["aligned"]["rows"]
     proto_entries = (
@@ -4480,6 +4907,9 @@ def main() -> int:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was never launched on its "
                                  "main path")
+    log("wall s: " + ", ".join(
+        f"{what} {t - stamps[i][1]:.1f}"
+        for i, (what, t) in enumerate(stamps[1:])))
     log(f"chip_smoke: {time.perf_counter() - t_main:.1f} s")
     log(json.dumps({"hist_kernel": {str(k): v for k, v in par.items()},
                     "main": {str(k): v for k, v in main_r.items()},
@@ -4492,6 +4922,7 @@ def main() -> int:
                     "mslr": mslr, "rank_kernel": rpar,
                     "airline": airline, "bagging": bagging,
                     "multiclass": mc, "mc_kernels": mpar, "efb": efb,
+                    "objectives": {"higgs": objectives, "year": year},
                     "quant_kernel": qpar, "quant": quant,
                     "forced_cegb": forced, "early_stopping": stopping,
                     "bag_kernels": {f"{b} {lay}": v for (b, lay), v

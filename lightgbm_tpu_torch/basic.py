@@ -190,10 +190,24 @@ class Booster:
         self._valid_sets_public.append(data)
         return self
 
-    def update(self) -> bool:
+    def update(self, train_set: Optional[Dataset] = None,
+               fobj=None) -> bool:
         """One boosting iteration (reference basic.py:1846). Returns True
-        if training finished (cannot split any more)."""
-        return self._gbdt.train_one_iter()
+        if training finished (cannot split any more). ``fobj(preds,
+        train_set) -> (grad, hess)`` takes the raw training scores ([N],
+        [N, K] for K classes) and gives the iteration's gradients; the
+        aligned engine is left first, as it cannot follow the tree (JAX
+        package: basic.py:466-492)."""
+        if fobj is None:
+            return self._gbdt.train_one_iter()
+        gbdt = self._gbdt
+        gbdt.drop_aligned()
+        scores = gbdt.train_score.numpy()
+        k = self.num_tree_per_iteration
+        grad, hess = fobj(scores[0] if k == 1 else scores.T,
+                          self._train_set)
+        return gbdt.train_one_iter(np.asarray(grad, np.float32).reshape(k, -1),
+                                   np.asarray(hess, np.float32).reshape(k, -1))
 
     @property
     def current_iteration(self) -> int:

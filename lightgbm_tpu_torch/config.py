@@ -516,8 +516,8 @@ class Config:
     def forces_host_learner(self) -> bool:
         """True when the config alone needs the host SerialTreeLearner:
         the per-(row, feature) lazy CEGB penalty (JAX package:
-        `Config.forces_host_learner`). The port lacks that learner and
-        raises on it (ROADMAP A.3)."""
+        `Config.forces_host_learner`), whose marks only the host
+        `SerialTreeLearner` keeps."""
         return len(self.cegb_penalty_feature_lazy) > 0
 
     @property

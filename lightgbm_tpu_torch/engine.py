@@ -6,8 +6,9 @@ train set's and the validation sets' metrics and ``feval``'s values,
 then the callbacks that run after it (`callback.py`: printing every
 ``verbose_eval`` rounds, ``evals_result``, early stopping), each group
 sorted by ``order``. An `EarlyStopException` ends training and sets
-``best_iteration`` (1-based) and ``best_score``. ``fobj``, ``init_model``
-and ``cv`` are later slices (ROADMAP A.3); ``learning_rates`` raises, as
+``best_iteration`` (1-based) and ``best_score``. ``fobj`` trains from
+custom gradients (``objective=none``). ``init_model`` and ``cv`` are
+later slices (ROADMAP A.3); ``learning_rates`` raises, as
 its callback calls ``Booster.reset_parameter``, which the JAX package's
 `Booster` lacks.
 """
@@ -31,6 +32,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
           num_boost_round: int = 100,
           valid_sets: Optional[List[Dataset]] = None,
           valid_names: Optional[List[str]] = None,
+          fobj: Optional[Callable] = None,
           feval: Optional[Callable] = None,
           early_stopping_rounds: Optional[int] = None,
           evals_result: Optional[Dict] = None,
@@ -51,6 +53,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
         if alias in params:
             v = params.pop(alias)
             early_stopping_rounds = None if v is None else int(v)
+    if fobj is not None:
+        params["objective"] = "none"
     if not isinstance(train_set, Dataset):
         raise TypeError("Training only accepts Dataset object")
     booster = Booster(params=params, train_set=train_set)
@@ -97,7 +101,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
         for cb in before:
             cb(callback_mod.CallbackEnv(booster, params, i, 0,
                                         num_boost_round, None))
-        booster.update()
+        booster.update(fobj=fobj)
         results = [(train_data_name, m, v, b)
                    for _, m, v, b in booster.eval_train()] \
             if eval_train else []

@@ -432,7 +432,7 @@ class AlignedEngine:
             return ClassGrad("prob", k, ln["prob"] + k, ln["meta"])
         pg = self.objective.score_point_grad(k)
         return ClassGrad("score", k, ln["score"] + k, ln["meta"],
-                         pg.sigmoid, pg.w_pos, pg.w_neg)
+                         pg.c0, pg.c1, pg.c2)
 
     def train_iter(self, scale: float, fmask: Optional[np.ndarray] = None,
                    grads=None, class_k: int = 0):

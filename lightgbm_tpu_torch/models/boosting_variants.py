@@ -5,9 +5,10 @@ Re-creates `src/boosting/goss.hpp`, `src/boosting/dart.hpp`,
 `src/boosting/rf.hpp` and `Boosting::CreateBoosting`
 (`src/boosting/boosting.cpp:35-69`). Each variant changes a hook of
 `GBDT` (`get_training_score`, `_bagging`, `_post_bagging_gradients`) or,
-for RF, the iteration itself, and trains leaf-wise: the aligned engine's
-score lane cannot follow dropped scores or re-weighted gradients, as in
-the JAX package. Every random draw is the JAX package's: GOSS's keys by
+for RF, the iteration itself, and trains leaf-wise (or on the host
+learner for the renewing objectives): the aligned engine's score lane
+cannot follow dropped scores or re-weighted gradients, as in the JAX
+package. Every random draw is the JAX package's: GOSS's keys by
 the port's Threefry (`utils/prng.py`) from a seed of ``_bag_rng``, DART's
 drops from ``RandomState(drop_seed)`` in the same order of calls. A
 K-class model drops, renormalizes and averages its K trees of an
@@ -113,9 +114,9 @@ class DART(GBDT):
             self._dropped_this_iter = True
         return self.train_score.score
 
-    def train_one_iter(self) -> bool:
+    def train_one_iter(self, grad=None, hess=None) -> bool:
         self._dropped_this_iter = False
-        if super().train_one_iter():
+        if super().train_one_iter(grad, hess):
             return True
         # the tree_weight / sum_weight bookkeeping must stay aligned with
         # the models: stop at the first iteration without a split, at once
@@ -239,24 +240,42 @@ class RF(GBDT):
     def aligned_gate(self) -> str:
         return "boosting=rf (one-time gradients, its own iteration)"
 
-    def train_one_iter(self) -> bool:
-        """rf.hpp:103-166: a leaf-wise tree a class on the bag, its bias
-        the class's init score, folded into the running average of that
-        class's scores."""
+    def _build_rf_tree(self, k: int) -> Tree:
+        """Class k's tree on the bag: leaf-wise, or on the host learner,
+        where a renewing objective sets the leaves from the residuals of
+        the constant init score (JAX package: boosting_variants.py:
+        276-297)."""
+        g, h = self._rf_grad[k], self._rf_hess[k]
+        if self.use_host:
+            self._log_train_path("host")
+            tree, leaf_map = self.learner.train(g, h, self.bag_data_indices,
+                                                self.bag_data_cnt)
+            if tree.num_leaves > 1 and getattr(
+                    self.objective, "is_renew_tree_output", False):
+                self.learner.renew_tree_output(
+                    tree, leaf_map, self.objective,
+                    np.full(self.num_data, self.init_scores[k]),
+                    self._label_np, self._weight_np)
+            return tree
+        self._log_train_path("leafwise")
+        fmask = self.learner.feature_mask()
+        root, count = self.learner.init_root_partition(
+            self.bag_data_indices, self.bag_data_cnt)
+        _, rec = self.learner.train(g, h, root, count, fmask)
+        return self.learner.record_to_tree(rec, 1.0)
+
+    def train_one_iter(self, grad=None, hess=None) -> bool:
+        """rf.hpp:103-166: a tree a class on the bag, its bias the class's
+        init score, folded into the running average of that class's
+        scores (the one-time gradients; ``grad`` and ``hess`` are not
+        read, as in the JAX package)."""
         self._bagging(self.iter)
         K = self.num_tree_per_iteration
         for k in range(K):
             tree = Tree(2)
             if self.objective.need_train \
                     and self.train_data.num_features > 0:
-                self._log_train_path("leafwise")
-                fmask = self.learner.feature_mask()
-                root, count = self.learner.init_root_partition(
-                    self.bag_data_indices, self.bag_data_cnt)
-                _, rec = self.learner.train(self._rf_grad[k],
-                                            self._rf_hess[k], root, count,
-                                            fmask)
-                tree = self.learner.record_to_tree(rec, 1.0)
+                tree = self._build_rf_tree(k)
             if tree.num_leaves > 1:
                 if abs(self.init_scores[k]) > K_EPSILON:
                     tree.add_bias(self.init_scores[k])

@@ -132,11 +132,6 @@ class DeviceTreeLearner:
             raise NotImplementedError(
                 f"tpu_grow_mode={cfg.tpu_grow_mode!r}: the leaf-wise, "
                 "aligned and level builders are ported")
-        if cfg.forces_host_learner:
-            raise NotImplementedError(
-                "cegb_penalty_feature_lazy: the lazy CEGB penalty runs on "
-                "the JAX package's host SerialTreeLearner, which is not "
-                "ported yet (ROADMAP A.3)")
         self.cfg = cfg
         self.ds = dataset
         self.device = device

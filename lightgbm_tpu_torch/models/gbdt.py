@@ -26,6 +26,14 @@ in turn, each added to its score lane when it ends; an inexact class
 restores the copy and grows the whole iteration leaf-wise on the same
 bag and feature masks (the JAX package's `_aligned_mc_fallback`).
 
+An objective that renews its leaf outputs (regression_l1, quantile,
+mape) and the lazy CEGB penalty train on the host `SerialTreeLearner`
+(`serial_learner.py`), as in the JAX package (gbdt.py:155-201): a tree a
+class from the iteration's gradients, its leaves renewed from the scores
+before the tree, then shrunk, scored by traversal and given the bias
+(`_train_one_iter_host`, gbdt.py:755-790). Custom gradients
+(``train_one_iter(grad, hess)``, ``objective=none``) grow leaf-wise.
+
 Under ``tpu_grow_mode=level`` a tree grows on the speculative level
 builder (`level_builder.py`) from the objective's row-order gradients,
 and an inexact replay grows that tree leaf-wise, as in the JAX package
@@ -56,6 +64,7 @@ from ..ops.objectives import create_objective
 from ..utils import log
 from .aligned_builder import replay_spec
 from .device_learner import DeviceTreeLearner, traverse_tree
+from .serial_learner import SerialTreeLearner
 from .tree import Tree
 
 K_EPSILON = 1e-15
@@ -118,15 +127,22 @@ class GBDT:
         self.train_data = train_data
         self.num_data = train_data.num_data
         self.objective = create_objective(cfg)
-        if self.objective is None:
-            raise NotImplementedError("custom objectives (objective=none) "
-                                      "are not ported yet")
-        self.objective.init(train_data.metadata, self.num_data, device)
-        self.num_tree_per_iteration = cfg.num_tree_per_iteration
+        if self.objective is not None:
+            self.objective.init(train_data.metadata, self.num_data, device)
+            self.num_tree_per_iteration = \
+                self.objective.num_model_per_iteration
+        else:
+            # custom gradients (objective=none): K from num_class
+            self.num_tree_per_iteration = max(1, cfg.num_class)
         self.shrinkage_rate = cfg.learning_rate
         self.models: List[Tree] = []
         self.iter = 0
-        self.learner = DeviceTreeLearner(cfg, train_data, device)
+        # the host learner for leaf renewal and the lazy CEGB penalty
+        self.use_host = bool(
+            getattr(self.objective, "is_renew_tree_output", False)
+            or cfg.forces_host_learner)
+        self.learner = (SerialTreeLearner if self.use_host
+                        else DeviceTreeLearner)(cfg, train_data, device)
         self.train_score = _ScoreUpdater(self.num_data,
                                          self.num_tree_per_iteration,
                                          train_data.metadata.init_score,
@@ -146,6 +162,11 @@ class GBDT:
         self._label_np = (np.asarray(train_data.metadata.label, np.float64)
                           if train_data.metadata.label is not None
                           else np.zeros(self.num_data))
+        self._weight_np = (np.asarray(train_data.metadata.weight, np.float64)
+                           if train_data.metadata.weight is not None
+                           else None)
+        self._need_train = (self.objective is None
+                            or self.objective.need_train)
         self._balanced_bagging = (
             cfg.objective == "binary"
             and (cfg.pos_bagging_fraction < 1.0
@@ -157,7 +178,7 @@ class GBDT:
         self.level_stats: List[Tuple[int, int, bool]] = []
         self._aligned_eng = None
         self._train_score_stale = False
-        if cfg.tpu_grow_mode == "aligned":
+        if cfg.tpu_grow_mode == "aligned" and not self.use_host:
             why = self.learner.aligned_mode_gate(self.objective)
             if why is not None:
                 raise NotImplementedError(
@@ -182,6 +203,7 @@ class GBDT:
     def boost_from_average(self, class_id: int) -> float:
         """reference GBDT::BoostFromAverage (gbdt.cpp:342-365)."""
         if (not self.models and not self.train_score.has_init_score
+                and self.objective is not None
                 and self.cfg.boost_from_average):
             init_score = self.objective.boost_from_score(class_id)
             if abs(init_score) > K_EPSILON:
@@ -192,31 +214,47 @@ class GBDT:
         return 0.0
 
     # ------------------------------------------------------------------
-    def train_one_iter(self) -> bool:
+    def train_one_iter(self, grad=None, hess=None) -> bool:
         """reference GBDT::TrainOneIter (gbdt.cpp:367-448) along the JAX
         package's fused path (`_train_one_iter_fused`, gbdt.py:1518):
         gradients of every class once, the bag, the hook on them, then a
-        tree a class, each on a feature mask of its own. Returns True
-        when training should stop."""
+        tree a class, each on a feature mask of its own; or on the host
+        learner (`_train_one_iter_host`). ``grad`` and ``hess`` ([K * N]
+        or [K, N], a custom objective's) replace the objective's
+        gradients, with no boost from the average. Returns True when
+        training should stop."""
         K = self.num_tree_per_iteration
-        init_scores = [self.boost_from_average(k) for k in range(K)]
-        if not self.objective.need_train or \
-                self.train_data.num_features == 0:
-            for k in range(K):
-                self.learner.feature_mask()
-                self._append_constant_tree(k, init_scores)
-            if len(self.models) > K:
-                del self.models[-K:]
-            return True
-        if self._aligned_eligible():
-            self._log_train_path("aligned")
-            if K > 1:
-                return self._train_one_iter_aligned_mc(init_scores)
-            return self._train_one_iter_aligned(init_scores[0])
-        g, h = self.objective.get_gradients(self.get_training_score())
+        if grad is None or hess is None:
+            init_scores = [self.boost_from_average(k) for k in range(K)]
+            if (not self._need_train
+                    or self.train_data.num_features == 0) \
+                    and not self.use_host:
+                for k in range(K):
+                    self.learner.feature_mask()
+                    self._append_constant_tree(k, init_scores)
+                if len(self.models) > K:
+                    del self.models[-K:]
+                return True
+            if not self.use_host and self._aligned_eligible():
+                self._log_train_path("aligned")
+                if K > 1:
+                    return self._train_one_iter_aligned_mc(init_scores)
+                return self._train_one_iter_aligned(init_scores[0])
+            g, h = self.objective.get_gradients(self.get_training_score())
+        else:
+            init_scores = [0.0] * K
+
+            def rows(a):
+                return torch.as_tensor(
+                    np.asarray(a, np.float32).reshape(K, self.num_data),
+                    device=self.device)
+            g, h = rows(grad), rows(hess)
         self._cur_grad, self._cur_hess = g, h
         self._bagging(self.iter)
         g, h = self._post_bagging_gradients(g, h)
+        if self.use_host:
+            self._log_train_path("host")
+            return self._train_one_iter_host(g, h, init_scores)
         level = self.bag_data_indices is None \
             and self.learner.level_mode_ok()
         self._log_train_path("level" if level else "leafwise")
@@ -226,6 +264,49 @@ class GBDT:
                    else self._grow_leafwise(k, g[k], h[k], fmask))
             self._append_class_tree(rec, init_scores[k], k)
         return self._end_iter()
+
+    def _train_one_iter_host(self, g, h, init_scores) -> bool:
+        """One iteration on the host learner (JAX package's per-tree
+        path, gbdt.py:755-790): a tree a class on the bag; a renewing
+        objective sets its leaves from the scores before the tree, then
+        the tree is shrunk, added to the scores by traversal and given
+        the bias. An iteration without a split ends training at once."""
+        K = self.num_tree_per_iteration
+        should_continue = False
+        for k in range(K):
+            tree, leaf_map = Tree(2), {}
+            if self._need_train and self.train_data.num_features > 0:
+                tree, leaf_map = self.learner.train(
+                    g[k], h[k], self.bag_data_indices, self.bag_data_cnt)
+            if tree.num_leaves > 1:
+                should_continue = True
+                if getattr(self.objective, "is_renew_tree_output", False):
+                    self.learner.renew_tree_output(
+                        tree, leaf_map, self.objective,
+                        self.train_score.numpy()[k], self._label_np,
+                        self._weight_np)
+                tree.apply_shrinkage(self.shrinkage_rate)
+                self._update_score(tree, k)
+                if abs(init_scores[k]) > K_EPSILON:
+                    tree.add_bias(init_scores[k])
+                self.models.append(tree)
+            else:
+                self._append_constant_tree(k, init_scores)
+        if not should_continue:
+            # keep the constant first iteration, drop later no-split ones
+            # (gbdt.cpp:436-444)
+            if len(self.models) > K:
+                del self.models[-K:]
+            return True
+        self.iter += 1
+        return False
+
+    def drop_aligned(self) -> None:
+        """Leave the aligned engine (custom gradients: it cannot follow a
+        tree grown elsewhere); the training scores come back to row
+        order first."""
+        self._sync_train_score()
+        self._aligned_eng = None
 
     # ------------------------------------------------------------------
     def get_training_score(self) -> torch.Tensor:
@@ -356,7 +437,7 @@ class GBDT:
         the class's gradient hooks GBDT's own, and every learner gate
         passing (JAX package: `_aligned_eligible`, and for K classes
         `_aligned_mc_eligible`)."""
-        return (self.objective.need_train
+        return (self._need_train
                 and self.train_data.num_features > 0
                 and self.aligned_gate() is None)
 
@@ -378,7 +459,7 @@ class GBDT:
             return
         self.train_path = path
         msg = f"training path: {path}"
-        if path == "leafwise":
+        if path in ("leafwise", "host"):
             why = self.aligned_gate() or "bagged iteration"
             msg += f" (aligned engine rejected: {why})"
         log.info(msg)
@@ -495,7 +576,7 @@ class GBDT:
         t = Tree(2)
         if len(self.models) < self.num_tree_per_iteration:
             output = (self.objective.boost_from_score(k)
-                      if not self.objective.need_train else init_scores[k])
+                      if not self._need_train else init_scores[k])
             t.as_constant_tree(output)
             if abs(output) > K_EPSILON:
                 self.train_score.add_constant(output, k)

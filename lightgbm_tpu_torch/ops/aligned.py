@@ -85,7 +85,15 @@ CLASS_LAUNCHES: Dict[str, int] = {"move_pass": 0, "slot_hist_pass": 0}
 # and the launches of the bundled branch (bundled storage columns)
 BUNDLED_LAUNCHES: Dict[str, int] = {"move_pass": 0, "count_pass": 0}
 
-_GRAD_KIND = {None: 0, "binary": 1, "l2": 2, "prob": 3, "score": 4}
+_GRAD_KIND = {None: 0, "binary": 1, "l2": 2, "prob": 3, "score": 4, "l1": 5,
+              "huber": 6, "fair": 7, "poisson": 8, "quantile": 9,
+              "gamma": 10, "tweedie": 11, "xentropy": 12}
+# of those, the launches of each `PointGrad` kind (COMPACT records):
+# (wrapper, kind) -> launches
+POINT_KINDS = tuple(k for k in _GRAD_KIND if k not in (None, "prob",
+                                                       "score"))
+POINT_LAUNCHES: Dict[Tuple[str, str], int] = {
+    (w, k): 0 for w in ("move_pass", "slot_hist_pass") for k in POINT_KINDS}
 # the slot histogram (B4, B2's smaller children; CTAs of 1024 threads):
 # tiles of at most 16,384 rows (the bound of the fixed-point rounding,
 # ops/csrc/aligned.cu), hi/lo int32 of g and of h and a u32 count a cell
@@ -111,7 +119,7 @@ _count_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def reset_launches() -> None:
-    for d in (LAUNCHES, CLASS_LAUNCHES, BUNDLED_LAUNCHES):
+    for d in (LAUNCHES, CLASS_LAUNCHES, BUNDLED_LAUNCHES, POINT_LAUNCHES):
         for k in d:
             d[k] = 0
 
@@ -587,14 +595,17 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def _grad_args(grad, wcnt: int):
-    """(kind, sigmoid, w_pos, w_neg, class, value lane, meta lane) of the
-    kernels' payload."""
+    """(kind, c0, c1, c2, class, value lane, meta lane) of the kernels'
+    payload: a `PointGrad`'s constants, or a `ClassGrad`'s sigmoid and
+    label weights."""
     if grad is None:
         return 0, 0.0, 0.0, 0.0, 0, 0, wcnt + 1
-    lane, cls = (grad.lane, grad.cls) if isinstance(grad, ClassGrad) \
-        else (wcnt, 0)
-    return (_GRAD_KIND[grad.kind], float(grad.sigmoid), float(grad.w_pos),
-            float(grad.w_neg), cls, lane, _meta_lane(grad, wcnt))
+    if isinstance(grad, ClassGrad):
+        return (_GRAD_KIND[grad.kind], float(grad.sigmoid),
+                float(grad.w_pos), float(grad.w_neg), grad.cls, grad.lane,
+                grad.meta_lane)
+    return (_GRAD_KIND[grad.kind], float(grad.c0), float(grad.c1),
+            float(grad.c2), 0, wcnt, _meta_lane(grad, wcnt))
 
 
 def slot_hist_smem(C: int, num_features: int, num_bins: int,
@@ -749,6 +760,8 @@ def slot_hist_pass(records, slots, meta, num_slots, num_features, num_bins,
         LAUNCHES["slot_hist_pass_bag"] += 1
     if isinstance(grad, ClassGrad):
         CLASS_LAUNCHES["slot_hist_pass"] += 1
+    elif grad is not None:
+        POINT_LAUNCHES["slot_hist_pass", grad.kind] += 1
     return out
 
 
@@ -913,6 +926,8 @@ def move_pass(records, r1, r2, basel, baser, meta, wsel, hslots, num_slots,
         BUNDLED_LAUNCHES["move_pass"] += 1
     if isinstance(grad, ClassGrad):
         CLASS_LAUNCHES["move_pass"] += 1
+    elif grad is not None:
+        POINT_LAUNCHES["move_pass", grad.kind] += 1
     return out, hist
 
 

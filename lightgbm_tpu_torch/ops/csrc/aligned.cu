@@ -146,10 +146,18 @@
 // routes keep their code; multiclass is COMPACT only, bagged by the meta
 // bit.
 // Gradients of the COMPACT layout are computed in the histogram kernel
-// from the score lane and the label bits of the meta lane, with the
-// JAX package's f32 op order pinned by __fmul_rn/__fadd_rn/__fdiv_rn (so
-// nvcc contracts nothing) and XLA's exp polynomial with true fused
-// multiply-adds. The CPU twin computes those fused steps in f64 and
+// from the score lane and the label bits of the meta lane, by the kind of
+// the objective (`pointwise`: the JAX package's _payload_gh calls the
+// objective's own gradient in its kernel, so each pointwise objective is
+// a branch of it: binary logloss, l2, huber, fair, poisson, gamma,
+// tweedie and xentropy, and l1 and quantile, which train on the host
+// learner), with the JAX package's f32 op order pinned by
+// __fmul_rn/__fadd_rn/__fdiv_rn (so nvcc contracts nothing but the
+// products XLA contracts, __fmaf_rn) and XLA's exp polynomial with true
+// fused multiply-adds. The kind is a runtime argument: a few scalar ops a
+// row in the scale pass and the sum. Poisson's, gamma's and tweedie's
+// exp may overflow to Inf; such a run takes the non-finite path above.
+// The CPU twin computes those fused steps in f64 and
 // rounds twice, so a row's gradient may differ in its last bit in rare
 // cases; histograms are held to 1e-5 x sum |g| of the slot.
 #include <cstdint>
@@ -169,7 +177,9 @@ constexpr int kCntMask = (1 << 20) - 1;
 constexpr int kFirst = 20, kLast = 21;
 constexpr int kMetaLabel = 24, kMetaLabelMask = 127;
 constexpr int kGradLanes = 0, kGradBinary = 1, kGradL2 = 2, kGradProb = 3,
-              kGradScore = 4;
+              kGradScore = 4, kGradL1 = 5, kGradHuber = 6, kGradFair = 7,
+              kGradPoisson = 8, kGradQuantile = 9, kGradGamma = 10,
+              kGradTweedie = 11, kGradXentropy = 12;
 constexpr int kMcNone = 0, kMcProb = 1, kMcScore = 2;
 constexpr int kCountThreads = 256;  // count CTAs, 4 an SM
 constexpr int kMoveThreads = 256;  // partition CTAs, 4 an SM
@@ -214,14 +224,84 @@ __device__ __forceinline__ void logistic(float score, bool pos, float sig,
   h = __fmul_rn(__fmul_rn(absr, __fsub_rn(sig, absr)), lw);
 }
 
+// sign(x) as jnp.sign and torch.sign: +-1, 0 at 0, NaN at NaN
+__device__ __forceinline__ float sign_of(float x) {
+  return x > 0.0f ? 1.0f : x < 0.0f ? -1.0f : x == 0.0f ? 0.0f : x;
+}
+
+// The (g, h) of a single-class pointwise objective of kind `kind` at score
+// s and label y (ops/objectives.py::PointGrad, in the JAX package's f32 op
+// order; the products XLA contracts are __fmaf_rn, every other step
+// rounded on its own), its constants c0, c1, c2 (the PointGrad's):
+// l2; l1; huber (alpha); fair (c, c^2); poisson (max_delta_step);
+// quantile (1 - alpha, -alpha); gamma; tweedie (1 - rho, 2 - rho);
+// xentropy; anything else the logistic loss (sigmoid, w_pos, w_neg).
+__device__ __forceinline__ void pointwise(int kind, float s, float y,
+                                          float c0, float c1, float c2,
+                                          float& g, float& h) {
+  switch (kind) {
+    case kGradL2:
+      g = __fsub_rn(s, y);
+      h = 1.0f;
+      return;
+    case kGradL1:
+      g = sign_of(__fsub_rn(s, y));
+      h = 1.0f;
+      return;
+    case kGradHuber: {
+      const float d = __fsub_rn(s, y);
+      g = fabsf(d) <= c0 ? d : __fmul_rn(sign_of(d), c0);
+      h = 1.0f;
+      return;
+    }
+    case kGradFair: {
+      const float x = __fsub_rn(s, y);
+      const float d = __fadd_rn(fabsf(x), c0);
+      g = __fdiv_rn(__fmul_rn(c0, x), d);
+      h = __fdiv_rn(c1, __fmul_rn(d, d));
+      return;
+    }
+    case kGradPoisson:
+      g = __fsub_rn(exp_xla(s), y);
+      h = exp_xla(__fadd_rn(s, c0));
+      return;
+    case kGradQuantile:
+      g = __fsub_rn(s, y) >= 0.0f ? c0 : c1;
+      h = 1.0f;
+      return;
+    case kGradGamma: {
+      const float m = __fmul_rn(y, exp_xla(-s));
+      g = __fsub_rn(1.0f, m);
+      h = m;
+      return;
+    }
+    case kGradTweedie: {
+      const float e1 = exp_xla(__fmul_rn(c0, s));
+      const float e2 = exp_xla(__fmul_rn(c1, s));
+      g = __fmaf_rn(-y, e1, e2);
+      h = __fmaf_rn(__fmul_rn(-y, c0), e1, __fmul_rn(c1, e2));
+      return;
+    }
+    case kGradXentropy: {
+      const float z = __fdiv_rn(1.0f, __fadd_rn(1.0f, exp_xla(-s)));
+      g = __fsub_rn(z, y);
+      h = __fmul_rn(z, __fsub_rn(1.0f, z));
+      return;
+    }
+    default:
+      logistic(s, y > 0.0f, c0, c1, c2, g, h);
+  }
+}
+
 // (g, h) of one row: from the grad/hess lanes at wcnt + gh_off (STANDARD:
-// 2, EXT: 1), recomputed from the score lane and the meta label (COMPACT),
-// or for class cls (Mc) from its lane val_lane and whether the label of
-// the meta lane is cls
+// 2, EXT: 1), recomputed from the score lane and the meta label (COMPACT,
+// `pointwise`), or for class cls (Mc) from its lane val_lane and whether
+// the label of the meta lane is cls (c0, c1, c2 that class's sigmoid and
+// label weights)
 template <int Mc>
 __device__ __forceinline__ void payload(const int32_t* chunk, int C, int r,
                                         int wcnt, int gh_off, int kind,
-                                        float sig, float wp, float wn,
+                                        float c0, float c1, float c2,
                                         int cls, int val_lane, int meta_lane,
                                         float& g, float& h) {
   if (Mc != kMcNone) {
@@ -233,7 +313,7 @@ __device__ __forceinline__ void payload(const int32_t* chunk, int C, int r,
       g = __fsub_rn(v, lab ? 1.0f : 0.0f);
       h = __fmul_rn(__fmul_rn(2.0f, v), __fsub_rn(1.0f, v));
     } else {
-      logistic(v, lab, sig, wp, wn, g, h);
+      logistic(v, lab, c0, c1, c2, g, h);
     }
     return;
   }
@@ -248,12 +328,7 @@ __device__ __forceinline__ void payload(const int32_t* chunk, int C, int r,
   const int meta = chunk[static_cast<long long>(meta_lane) * C + r];
   const float label = static_cast<float>((meta >> kMetaLabel)
                                          & kMetaLabelMask);
-  if (kind == kGradL2) {
-    g = __fsub_rn(score, label);
-    h = 1.0f;
-    return;
-  }
-  logistic(score, label > 0.0f, sig, wp, wn, g, h);
+  pointwise(kind, score, label, c0, c1, c2, g, h);
 }
 
 // Row r of a chunk is in the bag: every row (kBagNone), bit 31 of the
@@ -912,9 +987,11 @@ int lgbt_move_partition(const void* rec, int nc, int W, int C, int w_used,
 // B4 (and B2's smaller-child histograms): out [num_slots, F, B, 3] f32;
 // gh ([num_slots, F, B, 2] f64) and cnt ([num_slots, F, B] u32) are
 // accumulators zeroed by the caller. kind 0 reads the grad/hess lanes at
-// wcnt + gh_off; 1 (binary logloss) and 2 (l2) recompute them from the
-// score lane and the meta lane meta_lane; 3 (softmax) and 4 (one-vs-all)
-// class cls's from lane val_lane and the meta lane. bag_lane -1 takes
+// wcnt + gh_off; 1 (binary logloss), 2 (l2) and 5-12 (l1, huber, fair,
+// poisson, quantile, gamma, tweedie, xentropy) recompute them from the
+// score lane and the meta lane meta_lane, with the kind's constants in
+// sig, wp, wn (`pointwise`); 3 (softmax) and 4 (one-vs-all) class cls's
+// from lane val_lane and the meta lane. bag_lane -1 takes
 // every valid row, -2 the rows with COMPACT's meta bit 31 set, >= 0
 // those whose f32 lane bag_lane is above 0.5 (not with kinds 3 and 4).
 // feat_per_block, tile_chunks, grid_x and smem are the launch shape of

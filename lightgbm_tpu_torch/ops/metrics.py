@@ -1,5 +1,8 @@
-"""Evaluation metrics (copied from lightgbm_tpu/ops/metrics.py: l2, rmse,
-binary logloss, binary error, AUC, multi_logloss, multi_error and NDCG).
+"""Evaluation metrics (copied from lightgbm_tpu/ops/metrics.py: the
+regression family's -- l1, l2, rmse, quantile, huber, fair, poisson,
+mape, gamma, gamma_deviance and tweedie --, binary logloss and error,
+AUC, multi_logloss, multi_error, NDCG and MAP, and the cross-entropy
+ones, xentropy, xentlambda and kldiv).
 
 Re-creates the reference metric interface (`src/metric/*.hpp`, factory
 `src/metric/metric.cpp:16-60`): `eval(raw_scores, objective)` applying
@@ -21,6 +24,10 @@ from ..config import Config
 from .ranking import dcg_at_k, max_dcg_at_k
 
 K_EPSILON = 1e-15
+
+
+def _safe_log(x):
+    return np.log(np.maximum(x, 1e-308))
 
 
 class Metric:
@@ -83,6 +90,90 @@ class RMSEMetric(L2Metric):
 
     def average(self, s):
         return math.sqrt(s / self.sum_weights)
+
+
+class L1Metric(_PointwiseMetric):
+    name = "l1"
+
+    def loss(self, y, p):
+        return np.abs(p - y)
+
+
+class QuantileMetric(_PointwiseMetric):
+    name = "quantile"
+
+    def loss(self, y, p):
+        delta = y - p
+        return np.where(delta < 0, (self.cfg.alpha - 1.0) * delta,
+                        self.cfg.alpha * delta)
+
+
+class HuberMetric(_PointwiseMetric):
+    name = "huber"
+
+    def loss(self, y, p):
+        d = p - y
+        a = self.cfg.alpha
+        return np.where(np.abs(d) <= a, 0.5 * d * d,
+                        a * (np.abs(d) - 0.5 * a))
+
+
+class FairMetric(_PointwiseMetric):
+    name = "fair"
+
+    def loss(self, y, p):
+        x = np.abs(p - y)
+        c = self.cfg.fair_c
+        return c * x - c * c * np.log(1.0 + x / c)
+
+
+class PoissonMetric(_PointwiseMetric):
+    name = "poisson"
+
+    def loss(self, y, p):
+        p = np.maximum(p, 1e-10)
+        return p - y * np.log(p)
+
+
+class MAPEMetric(_PointwiseMetric):
+    name = "mape"
+
+    def loss(self, y, p):
+        return np.abs(y - p) / np.maximum(1.0, np.abs(y))
+
+
+class GammaMetric(_PointwiseMetric):
+    name = "gamma"
+
+    def loss(self, y, p):
+        # (regression_metric.hpp:261-268)
+        theta = -1.0 / p
+        b = -_safe_log(-theta)
+        c = _safe_log(y) - _safe_log(y)  # psi=1: log(y/1) - log(y) = 0
+        return -((y * theta - b) + c)
+
+
+class GammaDevianceMetric(_PointwiseMetric):
+    name = "gamma_deviance"
+
+    def loss(self, y, p):
+        tmp = y / (p + 1e-9)
+        return tmp - _safe_log(tmp) - 1.0
+
+    def average(self, s):
+        return s * 2.0
+
+
+class TweedieMetric(_PointwiseMetric):
+    name = "tweedie"
+
+    def loss(self, y, p):
+        rho = self.cfg.tweedie_variance_power
+        eps = 1e-10
+        p = np.maximum(p, eps)
+        a = y * np.exp((1 - rho) * np.log(p)) / (1 - rho)
+        b = np.exp((2 - rho) * np.log(p)) / (2 - rho)
+        return -a + b
 
 
 class BinaryLoglossMetric(_PointwiseMetric):
@@ -260,17 +351,90 @@ class NDCGMetric(_RankMetric):
         return out
 
 
+class MAPMetric(_RankMetric):
+    """MAP@k per query, averaged over queries; a query without a relevant
+    row counts 1 (reference map_metric.hpp)."""
+    name = "map"
+
+    def eval(self, scores, objective):
+        score = scores[0].astype(np.float64)
+        y = (self.label > 0).astype(np.float64)
+        out = []
+        for k in self.cfg.eval_at:
+            accum = 0.0
+            for q in range(self.num_queries):
+                lo, hi = self.qb[q], self.qb[q + 1]
+                order = np.argsort(-score[lo:hi], kind="stable")
+                rel = y[lo:hi][order][:k]
+                hits = np.cumsum(rel)
+                denom = np.arange(1, len(rel) + 1)
+                npos = y[lo:hi].sum()
+                if npos > 0:
+                    accum += float(np.sum(rel * hits / denom)
+                                   / min(npos, k))
+                else:
+                    accum += 1.0
+            out.append((f"{self.name}@{k}", accum / self.num_queries))
+        return out
+
+
+class CrossEntropyMetric(_PointwiseMetric):
+    name = "xentropy"
+
+    def loss(self, y, p):
+        p = np.clip(p, K_EPSILON, 1 - K_EPSILON)
+        return -y * np.log(p) - (1 - y) * np.log(1 - p)
+
+
+class CrossEntropyLambdaMetric(Metric):
+    name = "xentlambda"
+
+    def eval(self, scores, objective):
+        # (xentropy_metric.hpp:166+): scores converted via the lambda link
+        raw = scores[0].astype(np.float64)
+        if objective is not None and objective.name == "xentlambda":
+            lam = objective.convert_output(raw)
+        else:
+            lam = np.log1p(np.exp(raw))
+        w = self.weight if self.weight is not None else np.ones_like(raw)
+        y = self.label
+        hhat = lam * w
+        p = 1.0 - np.exp(-hhat)
+        p = np.clip(p, K_EPSILON, 1 - K_EPSILON)
+        pt = -y * np.log(p) - (1 - y) * np.log(1 - p)
+        return [(self.name, float(np.sum(pt)) / self.num_data)]
+
+
+class KLDivMetric(_PointwiseMetric):
+    name = "kldiv"
+
+    def loss(self, y, p):
+        p = np.clip(p, K_EPSILON, 1 - K_EPSILON)
+        yy = np.clip(y, K_EPSILON, 1 - K_EPSILON)
+        # KL(y||p) = xent(y,p) - entropy(y)
+        return (yy * np.log(yy) + (1 - yy) * np.log(1 - yy)
+                - y * np.log(p) - (1 - y) * np.log(1 - p))
+
+
 _METRICS = {
-    "l2": L2Metric, "rmse": RMSEMetric,
+    "l1": L1Metric, "l2": L2Metric, "rmse": RMSEMetric,
+    "quantile": QuantileMetric, "huber": HuberMetric, "fair": FairMetric,
+    "poisson": PoissonMetric, "mape": MAPEMetric, "gamma": GammaMetric,
+    "gamma_deviance": GammaDevianceMetric, "tweedie": TweedieMetric,
     "binary_logloss": BinaryLoglossMetric, "binary_error": BinaryErrorMetric,
     "auc": AUCMetric, "multi_logloss": MultiLoglossMetric,
-    "multi_error": MultiErrorMetric, "ndcg": NDCGMetric,
+    "multi_error": MultiErrorMetric, "ndcg": NDCGMetric, "map": MAPMetric,
+    "xentropy": CrossEntropyMetric, "xentlambda": CrossEntropyLambdaMetric,
+    "kldiv": KLDivMetric,
 }
 
 _DEFAULT_METRIC_FOR_OBJECTIVE = {
-    "regression": "l2", "binary": "binary_logloss",
-    "multiclass": "multi_logloss", "multiclassova": "multi_logloss",
-    "lambdarank": "ndcg",
+    "regression": "l2", "regression_l1": "l1", "huber": "huber",
+    "fair": "fair", "poisson": "poisson", "quantile": "quantile",
+    "mape": "mape", "gamma": "gamma", "tweedie": "tweedie",
+    "binary": "binary_logloss", "multiclass": "multi_logloss",
+    "multiclassova": "multi_logloss", "xentropy": "xentropy",
+    "xentlambda": "xentlambda", "lambdarank": "ndcg",
 }
 
 
@@ -291,6 +455,6 @@ def create_metrics(cfg: Config, names: Optional[Sequence[str]] = None
     for n in (names if names is not None else metric_names(cfg)):
         cls = _METRICS.get(n)
         if cls is None:
-            raise NotImplementedError(f"metric {n!r} is not ported yet")
+            raise ValueError(f"Unknown metric: {n}")
         out.append(cls(cfg))
     return out

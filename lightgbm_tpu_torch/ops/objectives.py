@@ -1,14 +1,19 @@
-"""Objective functions (port of lightgbm_tpu/ops/objectives.py: the base
-class, `RegressionL2`, `BinaryLogloss`, `MulticlassSoftmax`,
-`MulticlassOVA` and `LambdarankNDCG`).
+"""Objective functions (port of lightgbm_tpu/ops/objectives.py: the
+regression family -- l2, l1, huber, fair, poisson, quantile, mape, gamma
+and tweedie --, binary logloss, multiclass softmax and one-vs-all,
+cross-entropy (xentropy, xentlambda) and lambdarank), with the
+percentile leaf renewal of l1, quantile and mape.
 
 Gradients are f32 torch tensors on the device of the scores, computed
 with the JAX package's f32 op order. Its ``exp`` is XLA's, which is not
 correctly rounded and differs from every library ``exp`` in the last bit
 for a few percent of inputs; `exp_f32` computes the same polynomial
-with the same fused multiply-adds (`utils/xla_math.py`), so the port's
-gradients are the JAX package's bit for bit, on the CPU and on CUDA
-alike. Scores are laid out ``[num_tree_per_iteration, num_data]``.
+with the same fused multiply-adds (`utils/xla_math.py`), and the
+products XLA's CPU backend contracts into an add are fused here too
+(`fma_f32`), so the port's gradients are the JAX package's bit for bit,
+on the CPU and on CUDA alike. Weighted xentlambda is the exception: its
+``log1p`` is the library's, not XLA's (ROADMAP C.31). Scores are laid
+out ``[num_tree_per_iteration, num_data]``.
 """
 from __future__ import annotations
 
@@ -20,40 +25,122 @@ import torch
 
 from ..config import Config
 from ..io.dataset import Metadata
-from ..utils.xla_math import exp_f32
+from ..utils.xla_math import exp_f32, fma_f32
 from .rank import lambdarank_grad, rank_work
 from .ranking import discount_table, max_dcg_at_k
+
+_F32 = np.float32
 
 
 class PointGrad(NamedTuple):
     """The pointwise gradient of a single-class objective, as a function
-    of (score, label, weight|None) and as the parameters the aligned
-    engine's CUDA kernels inline (JAX package: ``point_grad_fn``, its
-    closure). ``kind`` is "binary" (logistic loss with ``sigmoid`` and the
-    label weights) or "l2" (score - label, hessian 1)."""
+    of (score, label, weight|None) and as the kind and three f32
+    constants the aligned engine's CUDA kernels inline (JAX package:
+    ``point_grad_fn``, its closure). The kinds and their constants
+    ``c0, c1, c2``, each an f32 value computed on the host as the JAX
+    package computes it (a Python float rounded once):
+
+    - "binary": logistic loss; sigmoid, w_pos, w_neg (the label weights);
+    - "l2": score - label, hessian 1;
+    - "l1": sign(score - label), hessian 1;
+    - "huber": the difference clipped to +-alpha, hessian 1; alpha;
+    - "fair": c x / (|x| + c), c^2 / (|x| + c)^2; c, c^2;
+    - "poisson": exp(s) - label, exp(s + max_delta_step); max_delta_step;
+    - "quantile": 1 - alpha or -alpha by the difference's sign, hessian
+      1; 1 - alpha, -alpha;
+    - "gamma": 1 - label exp(-s), label exp(-s);
+    - "tweedie": -label e1 + e2, -label (1 - rho) e1 + (2 - rho) e2 with
+      e1 = exp((1 - rho) s), e2 = exp((2 - rho) s); 1 - rho, 2 - rho;
+    - "xentropy": z - label, z (1 - z) with z = 1 / (1 + exp(-s)).
+
+    Where XLA's CPU backend fuses a product into the add that follows
+    it, or reorders a product, the port does too (`fma_f32`; gamma's and
+    tweedie's gradients, found against the JAX program's bits)."""
     kind: str
-    sigmoid: float = 1.0
-    w_pos: float = 1.0
-    w_neg: float = 1.0
+    c0: float = 1.0
+    c1: float = 1.0
+    c2: float = 1.0
 
     def __call__(self, score: torch.Tensor, label: torch.Tensor,
                  weight: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if self.kind == "l2":
-            g, h = score - label, torch.ones_like(score)
-        else:
-            sig = self.sigmoid
-            pos = label > 0
-            sl = torch.where(pos, 1.0, -1.0)
-            lw = torch.where(pos, self.w_pos, self.w_neg)
-            response = -sl * sig / (1.0 + exp_f32(sl * sig * score))
-            absr = torch.abs(response)
-            g = response * lw
-            h = absr * (sig - absr) * lw
+        if self.kind == "gamma":
+            return _gamma(self, score, label, weight)
+        g, h = _POINT_GRADS[self.kind](self, score, label)
         if weight is not None:
             g = g * weight
             h = h * weight
         return g, h
+
+
+def _binary(pg, score, label):
+    sig = pg.c0
+    pos = label > 0
+    sl = torch.where(pos, 1.0, -1.0)
+    lw = torch.where(pos, pg.c1, pg.c2)
+    response = -sl * sig / (1.0 + exp_f32(sl * sig * score))
+    absr = torch.abs(response)
+    return response * lw, absr * (sig - absr) * lw
+
+
+def _l2(pg, score, label):
+    return score - label, torch.ones_like(score)
+
+
+def _l1(pg, score, label):
+    return torch.sign(score - label), torch.ones_like(score)
+
+
+def _huber(pg, score, label):
+    diff = score - label
+    g = torch.where(torch.abs(diff) <= pg.c0, diff, torch.sign(diff) * pg.c0)
+    return g, torch.ones_like(score)
+
+
+def _fair(pg, score, label):
+    x = score - label
+    d = torch.abs(x) + pg.c0
+    # a true quotient: a Python number over a tensor is its reciprocal's
+    # product in torch
+    return pg.c0 * x / d, torch.full_like(d, pg.c1) / (d * d)
+
+
+def _poisson(pg, score, label):
+    return exp_f32(score) - label, exp_f32(score + pg.c0)
+
+
+def _quantile(pg, score, label):
+    g = torch.where(score - label >= 0, pg.c0, pg.c1).to(score.dtype)
+    return g, torch.ones_like(score)
+
+
+def _gamma(pg, score, label, weight=None):
+    # XLA's forms differ with the weights: unweighted it rounds label *
+    # exp(-s) once for g and h; weighted it contracts that product into
+    # g's subtraction and takes h as (label w) exp(-s)
+    e = exp_f32(-score)
+    if weight is None:
+        m = label * e
+        return 1.0 - m, m
+    return fma_f32(-label, e, 1.0) * weight, (label * weight) * e
+
+
+def _tweedie(pg, score, label):
+    e1 = exp_f32(pg.c0 * score)
+    e2 = exp_f32(pg.c1 * score)
+    g = fma_f32(-label, e1, e2)
+    h = fma_f32(-label * pg.c0, e1, pg.c1 * e2)
+    return g, h
+
+
+def _xentropy(pg, score, label):
+    z = 1.0 / (1.0 + exp_f32(-score))
+    return z - label, z * (1.0 - z)
+
+
+_POINT_GRADS = {"binary": _binary, "l2": _l2, "l1": _l1, "huber": _huber,
+                "fair": _fair, "poisson": _poisson, "quantile": _quantile,
+                "gamma": _gamma, "tweedie": _tweedie, "xentropy": _xentropy}
 
 
 class ObjectiveFunction:
@@ -89,14 +176,8 @@ class ObjectiveFunction:
     def get_gradients(self, scores: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """grad/hess f32 [K, N] given scores [K, N]."""
-        g, h = self._point_grad(scores[0], self.label)
-        if self.weight is not None:
-            g = g * self.weight
-            h = h * self.weight
+        g, h = self.point_grad_fn()(scores[0], self.label, self.weight)
         return g[None, :], h[None, :]
-
-    def _point_grad(self, score, label):
-        raise NotImplementedError
 
     def point_grad_fn(self) -> Optional[PointGrad]:
         """The objective's gradient as a pure function of one row's
@@ -116,6 +197,13 @@ class ObjectiveFunction:
 
     def convert_output(self, raw: np.ndarray) -> np.ndarray:
         return raw
+
+    def _mean_label(self) -> float:
+        """The (weighted) mean label, the boost of l2 and its kin."""
+        if self._weight_np is not None:
+            return float(np.sum(self._label_np * self._weight_np)
+                         / np.sum(self._weight_np))
+        return float(np.mean(self._label_np))
 
     def __str__(self) -> str:
         return self.name
@@ -137,23 +225,199 @@ class RegressionL2(ObjectiveFunction):
         if self.weight is not None:
             self.is_constant_hessian = False
 
-    def _point_grad(self, score, label):
-        return score - label, torch.ones_like(score)
-
     def point_grad_fn(self) -> PointGrad:
         return PointGrad("l2")
 
     def boost_from_score(self, class_id):
         # weighted mean (regression_objective.hpp:156-177)
-        if self._weight_np is not None:
-            return float(np.sum(self._label_np * self._weight_np)
-                         / np.sum(self._weight_np))
-        return float(np.mean(self._label_np))
+        return self._mean_label()
 
     def convert_output(self, raw):
         if self.cfg.reg_sqrt:
             return np.sign(raw) * raw * raw
         return raw
+
+
+def _percentile(data: np.ndarray, alpha: float) -> float:
+    """reference PercentileFun (regression_objective.hpp:18-44)."""
+    n = len(data)
+    if n <= 1:
+        return float(data[0]) if n else 0.0
+    s = np.sort(data)
+    float_pos = (1.0 - alpha) * n
+    pos = int(float_pos)
+    if pos < 1:
+        return float(s[-1])
+    if pos >= n:
+        return float(s[0])
+    bias = float_pos - pos
+    v1 = s[n - pos]
+    v2 = s[n - pos - 1]
+    # scanned from the top for the alpha-percentile of the residuals
+    return float(v1 - (v1 - v2) * bias)
+
+
+def _weighted_percentile(data: np.ndarray, w: np.ndarray,
+                         alpha: float) -> float:
+    """reference WeightedPercentileFun (regression_objective.hpp:46-76)."""
+    n = len(data)
+    if n <= 1:
+        return float(data[0]) if n else 0.0
+    order = np.argsort(data, kind="stable")
+    cdf = np.cumsum(w[order])
+    threshold = cdf[-1] * alpha
+    pos = int(np.searchsorted(cdf, threshold, side="right"))
+    pos = min(pos, n - 1)
+    if pos == 0 or pos == n - 1:
+        return float(data[order[pos]])
+    v1 = data[order[pos - 1]]
+    v2 = data[order[pos]]
+    if cdf[pos] <= cdf[pos - 1]:
+        return float(v2)
+    return float(v1 + (v2 - v1) * (threshold - cdf[pos - 1])
+                 / (cdf[pos] - cdf[pos - 1]))
+
+
+class _PercentileRenewMixin:
+    """Leaf-output renewal by residual percentile (reference
+    RegressionL1loss::RenewTreeOutput, regression_objective.hpp:233-268):
+    the host learner sets each leaf's output to the percentile of its
+    rows' residuals before shrinkage."""
+    is_renew_tree_output = True
+    renew_alpha = 0.5
+
+    def renew_leaf_output(self, residuals: np.ndarray,
+                          weights: Optional[np.ndarray]) -> float:
+        if len(residuals) == 0:
+            return 0.0
+        if weights is None:
+            return _percentile(residuals, self.renew_alpha)
+        return _weighted_percentile(residuals, weights, self.renew_alpha)
+
+    def residual(self, label: np.ndarray, score: np.ndarray) -> np.ndarray:
+        return label - score
+
+
+class RegressionL1(_PercentileRenewMixin, RegressionL2):
+    name = "regression_l1"
+    is_constant_hessian = True
+
+    def point_grad_fn(self):
+        return PointGrad("l1")
+
+    def boost_from_score(self, class_id):
+        if self._weight_np is not None:
+            return _weighted_percentile(self._label_np, self._weight_np, 0.5)
+        return _percentile(self._label_np, 0.5)
+
+
+class RegressionHuber(RegressionL2):
+    name = "huber"
+    is_constant_hessian = True
+
+    def point_grad_fn(self):
+        return PointGrad("huber", float(_F32(self.cfg.alpha)))
+
+
+class RegressionFair(ObjectiveFunction):
+    name = "fair"
+
+    def point_grad_fn(self):
+        c = float(self.cfg.fair_c)
+        # the JAX package's c * c is a Python float, rounded once
+        return PointGrad("fair", float(_F32(c)), float(_F32(c * c)))
+
+    def boost_from_score(self, class_id):
+        # the reference's RegressionFairLoss keeps l2's mean boost
+        return self._mean_label()
+
+
+class _LogLinkMixin:
+    """The log link's boost (the log of the mean label) and output."""
+
+    def boost_from_score(self, class_id):
+        return math.log(max(self._mean_label(), 1e-20))
+
+    def convert_output(self, raw):
+        return np.exp(raw)
+
+
+class RegressionPoisson(_LogLinkMixin, ObjectiveFunction):
+    name = "poisson"
+
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        super().init(metadata, num_data, device)
+        if np.any(self._label_np < 0):
+            raise ValueError("[poisson]: at least one target label is "
+                             "negative")
+
+    def point_grad_fn(self):
+        return PointGrad("poisson",
+                         float(_F32(self.cfg.poisson_max_delta_step)))
+
+
+class RegressionQuantile(_PercentileRenewMixin, ObjectiveFunction):
+    name = "quantile"
+    is_constant_hessian = True
+
+    @property
+    def renew_alpha(self):
+        return self.cfg.alpha
+
+    def point_grad_fn(self):
+        a = float(self.cfg.alpha)
+        return PointGrad("quantile", float(_F32(1.0 - a)), float(_F32(-a)))
+
+    def boost_from_score(self, class_id):
+        if self._weight_np is not None:
+            return _weighted_percentile(self._label_np, self._weight_np,
+                                        self.cfg.alpha)
+        return _percentile(self._label_np, self.cfg.alpha)
+
+
+class RegressionMAPE(_PercentileRenewMixin, ObjectiveFunction):
+    """Not pointwise for the engine: its label weights are stored in row
+    order."""
+    name = "mape"
+    is_constant_hessian = True
+
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        super().init(metadata, num_data, device)
+        # label_weight = w / max(1, |label|) (regression_objective.hpp:575-589)
+        w = (self._weight_np if self._weight_np is not None
+             else np.ones(num_data, np.float32))
+        self._label_weight_np = (w / np.maximum(1.0, np.abs(self._label_np))
+                                 ).astype(np.float32)
+        self._label_weight = torch.as_tensor(self._label_weight_np,
+                                             device=device)
+
+    def get_gradients(self, scores):
+        g = torch.sign(scores[0] - self.label) * self._label_weight
+        return g[None, :], self._label_weight[None, :].clone()
+
+    def boost_from_score(self, class_id):
+        return _weighted_percentile(self._label_np, self._label_weight_np,
+                                    0.5)
+
+    def renew_leaf_output(self, residuals, weights):
+        # the weights here are the label weights (hpp:640-658)
+        return _weighted_percentile(residuals, weights, 0.5)
+
+
+class RegressionGamma(_LogLinkMixin, ObjectiveFunction):
+    name = "gamma"
+
+    def point_grad_fn(self):
+        return PointGrad("gamma")
+
+
+class RegressionTweedie(_LogLinkMixin, ObjectiveFunction):
+    name = "tweedie"
+
+    def point_grad_fn(self):
+        rho = float(self.cfg.tweedie_variance_power)
+        return PointGrad("tweedie", float(_F32(1 - rho)),
+                         float(_F32(2 - rho)))
 
 
 class BinaryLogloss(ObjectiveFunction):
@@ -324,6 +588,74 @@ class MulticlassOVA(ObjectiveFunction):
         return 1.0 / (1.0 + np.exp(-self.cfg.sigmoid * raw))
 
 
+class _CrossEntropyBase(ObjectiveFunction):
+    """Labels in [0, 1] (reference xentropy_objective.hpp)."""
+
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        super().init(metadata, num_data, device)
+        if np.any(self._label_np < 0) or np.any(self._label_np > 1):
+            raise ValueError(f"[{self.name}]: labels must be in [0, 1]")
+
+    def _mean_prob(self) -> float:
+        if self._weight_np is not None:
+            suml = float(np.sum(self._label_np * self._weight_np))
+            sumw = float(np.sum(self._weight_np))
+        else:
+            suml = float(np.sum(self._label_np))
+            sumw = float(len(self._label_np))
+        return min(max(suml / max(sumw, 1e-20), 1e-15), 1 - 1e-15)
+
+
+class CrossEntropy(_CrossEntropyBase):
+    name = "xentropy"
+
+    def point_grad_fn(self):
+        return PointGrad("xentropy")
+
+    def boost_from_score(self, class_id):
+        # (xentropy_objective.hpp:116-133): log-odds of the mean label
+        pavg = self._mean_prob()
+        return math.log(pavg / (1.0 - pavg))
+
+    def convert_output(self, raw):
+        return 1.0 / (1.0 + np.exp(-raw))
+
+
+class CrossEntropyLambda(_CrossEntropyBase):
+    """Not pointwise for the engine: its weights are exposures inside the
+    link, not factors of the gradient."""
+    name = "xentlambda"
+
+    def get_gradients(self, scores):
+        """(xentropy_objective.hpp:185-224): weights act as exposure/trials
+        under the log(1 + exp(score)) link. Unweighted it is xentropy's
+        gradient; weighted, ``log1p`` is the library's (ROADMAP C.31)."""
+        score = scores[0]
+        if self.weight is None:
+            g, h = PointGrad("xentropy")(score, self.label)
+            return g[None, :], h[None, :]
+        w, y = self.weight, self.label
+        epf = exp_f32(score)
+        hhat = torch.log1p(epf)
+        z = 1.0 - exp_f32(-w * hhat)
+        enf = 1.0 / epf
+        g = (1.0 - y / z) * w / (1.0 + enf)
+        c = 1.0 / (1.0 - z)
+        d = 1.0 + epf
+        a = w * epf / (d * d)
+        d = c - 1.0
+        b = (c / (d * d)) * (1.0 + w * epf - c)
+        h = a * (1.0 + y * b)
+        return g[None, :], h[None, :]
+
+    def boost_from_score(self, class_id):
+        pavg = self._mean_prob()
+        return math.log(math.log1p(pavg / (1.0 - pavg)))
+
+    def convert_output(self, raw):
+        return np.log1p(np.exp(raw))
+
+
 # the JAX package's fused lambdarank kernel packs queries into tiles of
 # 128-document subtiles (lightgbm_tpu/ops/pallas_rank.py:68)
 RANK_SUBTILE = 128
@@ -393,9 +725,23 @@ class LambdarankNDCG(ObjectiveFunction):
         return g[None, :], h[None, :]
 
 
-_OBJECTIVES = {"regression": RegressionL2, "binary": BinaryLogloss,
-               "multiclass": MulticlassSoftmax,
-               "multiclassova": MulticlassOVA, "lambdarank": LambdarankNDCG}
+_OBJECTIVES = {
+    "regression": RegressionL2,
+    "regression_l1": RegressionL1,
+    "huber": RegressionHuber,
+    "fair": RegressionFair,
+    "poisson": RegressionPoisson,
+    "quantile": RegressionQuantile,
+    "mape": RegressionMAPE,
+    "gamma": RegressionGamma,
+    "tweedie": RegressionTweedie,
+    "binary": BinaryLogloss,
+    "multiclass": MulticlassSoftmax,
+    "multiclassova": MulticlassOVA,
+    "xentropy": CrossEntropy,
+    "xentlambda": CrossEntropyLambda,
+    "lambdarank": LambdarankNDCG,
+}
 
 
 def create_objective(cfg: Config) -> Optional[ObjectiveFunction]:
@@ -405,7 +751,5 @@ def create_objective(cfg: Config) -> Optional[ObjectiveFunction]:
         return None
     cls = _OBJECTIVES.get(cfg.objective)
     if cls is None:
-        raise NotImplementedError(
-            f"objective {cfg.objective!r} is not ported yet (the port "
-            f"has: {', '.join(sorted(_OBJECTIVES))})")
+        raise ValueError(f"Unknown objective: {cfg.objective}")
     return cls(cfg)

@@ -7,7 +7,9 @@ against the CPU (leaf-wise and level), the aligned engine on the card
 (binary, and lambdarank on EXT records), the categorical route of B2 and
 B3 and categorical f64 training against the CPU, the bundled branch of
 B2 and B3 (exclusive feature bundling) and bundled f64 training against
-the CPU, and the prototype kernels P1-P3 against their twins. They import
+the CPU, the pointwise objective kinds of B2 and B4 (COMPACT records),
+the host learner's f64 training against the CPU, and the prototype
+kernels P1-P3 against their twins. They import
 neither JAX nor the JAX package, so they run where only PyTorch is
 installed:
 
@@ -700,6 +702,81 @@ def test_aligned_l2_compact_on_gpu(cuda, monkeypatch):
                                A.move_pass_plain(*args)[1],
                                _slot_abs_sums(rec, hs & 0xFFFFFF, meta, k,
                                               wcnt, grad))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective", [
+    "binary", "regression", "huber", "fair", "poisson", "gamma", "tweedie",
+    "xentropy", "regression_l1", "quantile"])
+def test_aligned_point_kinds_on_gpu(cuda, monkeypatch, objective):
+    """Each pointwise objective on 0/1 labels trains on COMPACT records
+    with its kind computed in the kernel; l1 and quantile, which train on
+    the host learner, take the records of a binary run with their kind
+    swapped in. B4 and B2's smaller-child histograms against their twins:
+    counts equal, NaN and Inf where the twin has them, finite g/h within
+    1e-5 x the slot's sum of |g| (|h|)."""
+    from lightgbm_tpu_torch.ops.objectives import PointGrad
+    rng = np.random.default_rng(9)
+    X = rng.standard_normal((60000, 28))
+    y = (X[:, 0] + X[:, 1] * X[:, 2] + rng.standard_normal(60000) > 0) \
+        .astype(np.float64)
+    host = objective in ("regression_l1", "quantile")
+    calls = _record_aligned(monkeypatch, {
+        "objective": "binary" if host else objective, "num_leaves": 31,
+        "max_bin": 63}, X, y, rounds=2)
+    kind = {"regression": "l2", "regression_l1": "l1"}.get(objective,
+                                                            objective)
+    if not host and kind not in ("binary", "l2"):
+        assert A.POINT_LAUNCHES["slot_hist_pass", kind] > 0
+        assert A.POINT_LAUNCHES["move_pass", kind] > 0
+    swap = {"l1": PointGrad("l1"), "quantile": PointGrad("quantile", 0.1,
+                                                         -0.9)}.get(kind)
+    for name, args, kw in calls:
+        grad = args[8] if name == "slot_hist_pass" else args[14]
+        if swap is not None:
+            args = args[:8] + (swap,) if name == "slot_hist_pass" \
+                else args[:14] + (swap,) + args[15:]
+            grad = swap
+        assert grad.kind == kind
+        if name == "slot_hist_pass":
+            rec, slots, meta, k, _, _, wcnt = args[:7]
+            _assert_hist_nonfinite(A.slot_hist_pass(*args),
+                                   A.slot_hist_pass_plain(*args),
+                                   _slot_abs_sums(rec, slots, meta, k, wcnt,
+                                                  grad))
+        else:
+            rec, meta, hs, k, wcnt = (args[0], args[5], args[7], args[8],
+                                      args[11])
+            _assert_hist_nonfinite(A.move_pass(*args)[1],
+                                   A.move_pass_plain(*args)[1],
+                                   _slot_abs_sums(rec, hs & 0xFFFFFF, meta,
+                                                  k, wcnt, grad))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective", ["regression_l1", "quantile", "mape"])
+def test_host_learner_f64_on_gpu_equals_cpu(cuda, objective):
+    """The host learner's f64 trees (B1's f64 kernel, bit-equal to its
+    twin) on the card equal the CPU's, as do the predictions."""
+    rng = np.random.default_rng(10)
+    X = rng.standard_normal((20000, 12))
+    y = X[:, 0] * 3 + X[:, 1] * X[:, 2] + rng.standard_normal(20000)
+    params = {"objective": objective, "num_leaves": 31, "max_bin": 63,
+              "verbosity": -1, "tpu_use_f64_hist": True,
+              "bagging_fraction": 0.8, "bagging_freq": 1}
+    texts, preds = [], []
+    for dev in ("cuda", "cpu"):
+        H.reset_launches()
+        bst = tlgb.train({**params, "device_type": dev},
+                         tlgb.Dataset(X, label=y), num_boost_round=3,
+                         verbose_eval=False)
+        assert bst._gbdt.train_path == "host"
+        assert (H.LAUNCHES["f64"] > 0) == (dev == "cuda")
+        t = bst.model_to_string()
+        texts.append(t[t.index("Tree=0"):t.index("end of trees")])
+        preds.append(bst.predict(X[:2000]))
+    assert texts[0] == texts[1]
+    np.testing.assert_array_equal(preds[0], preds[1])
 
 
 @pytest.mark.cuda

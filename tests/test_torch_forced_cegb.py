@@ -11,7 +11,7 @@ the CPU: the f64 tree sections of the model text are byte-equal.
   K = 3 (a coupled feature is paid once per model, across every class's
   tree).
 - ``auto`` and ``level`` grow these trees leaf-wise, with the JAX
-  package's gate reason; the lazy penalty raises, naming ROADMAP A.3;
+  package's gate reason; the lazy penalty trains on the host learner;
   `convert.from_reference` carries such a JAX model across.
 
 The JAX runs clear `compile_cache.clear_programs()` first (ROADMAP C.19);
@@ -240,15 +240,14 @@ def test_sequential_options_grow_leafwise(x64, tmp_path, mode):
     assert _sections(tb.model_to_string()) == _sections(jb.model_to_string())
 
 
-def test_lazy_penalty_raises():
-    """The lazy CEGB penalty needs the JAX package's host learner, not
-    ported yet: it raises, naming ROADMAP A.3."""
-    X, y = _data()
-    with pytest.raises(NotImplementedError, match="A.3"):
-        tlgb.train({**BASE, "device_type": "cpu",
-                    "cegb_penalty_feature_lazy": [1.0] * 11},
-                   tlgb.Dataset(X, label=y), num_boost_round=1,
-                   verbose_eval=False)
+def test_lazy_penalty_raises(x64):
+    """The lazy CEGB penalty no longer raises: it trains on the port's
+    host `SerialTreeLearner`, as in the JAX package, with byte-equal
+    f64 tree sections."""
+    params = {**BASE, "cegb_penalty_feature_lazy": [0.01] * 11}
+    jb, tb, _ = _pair(params)
+    assert type(tb._gbdt.learner).__name__ == "SerialTreeLearner"
+    assert _sections(tb.model_to_string()) == _sections(jb.model_to_string())
 
 
 def test_convert_carries_forced_cegb_model(x64, tmp_path):
