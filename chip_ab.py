@@ -34,6 +34,14 @@ lambdarank gradient (kernel B6, ``rank.cu``) and the prototype move (P2,
         (``tpu_grow_mode=leafwise``, HIGGS shape, 63 and 255 bins): median
         iteration ms, holdout AUC, and one profiled round's wall, busy and
         B1 device ms and launches;
+    python3 chip_ab.py hist --baseline DIR --uint8
+        B1 of the checkout at DIR, whose entry points are this
+        checkout's uint8 ones (the design before the uint16 route),
+        against this checkout's uint8 route, each alone at
+        chip_smoke.py's phase-3 sizes (the 10.5M x 28 root in f32, f64
+        and the int8 and int16 payloads of ``quantize_gh``, gathered
+        leaves of half the rows and of 20,000), 63 and 255 bins, each
+        checked against the plain twin and timed warm and cold;
     python3 chip_ab.py hist --baseline DIR --bag
         the slot histogram (B4 and B2's smaller children,
         ``aligned.cu::slot_hist_kernel``) of the checkout at DIR, the
@@ -415,6 +423,89 @@ def hist(torch, CS, lt, H, baseline: str) -> dict:
         del ds
         torch.cuda.empty_cache()
     H._histogram_cuda = impl["B"]
+    return res
+
+
+def same_entry_hist(lib) -> dict:
+    """The C entry points of B1's library ``lib`` built from a checkout
+    whose uint8 entry points are this checkout's, by the roles of
+    ``ops/histogram.py::_lib`` (f32, f64, i8, i16, setup, occupancy)."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    launch = [p, i, p, p, ll, ll, i, i, i, i, i, i, p, p, p, p, p]
+    fns = {}
+    for role, args in (("f32", launch), ("f64", launch), ("i8", launch),
+                       ("i16", launch), ("setup", [i]),
+                       ("occupancy", [i, i])):
+        fn = getattr(lib, f"lgbt_hist_{role}")
+        fn.argtypes = args
+        fn.restype = i
+        fns[role] = fn
+    return fns
+
+
+def hist_uint8(torch, CS, H, baseline: str) -> dict:
+    """B1's uint8 route of the checkout at ``baseline`` (A) against this
+    checkout's (B), both through this checkout's wrapper and launch
+    shapes: the library's entry points swapped in, the shape caches
+    emptied at each swap (the scratch they share is zero between
+    calls)."""
+    from lightgbm_tpu_torch.utils import prng
+    src = os.path.join(baseline, "lightgbm_tpu_torch", "ops", "csrc",
+                       "histogram.cu")
+    libs = {"A": same_entry_hist(nvcc_lib(src, "baseline_hist8",
+                                          os.path.dirname(src))),
+            "B": H._lib()}
+    dev = torch.device(CS.DEVICE)
+    n, f = 10_500_000, 28
+    gen = torch.Generator(device=dev).manual_seed(3)
+    res = {}
+    for bins in (63, 255):
+        binm = torch.randint(0, bins, (n, f), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        gh = CS.leaf_gh(torch, n, 5 + bins, dev)
+        perm = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+        pays = {"f32": gh, "f64": gh,
+                "i8": H.quantize_gh(gh, 8, prng.key(8))[0],
+                "i16": H.quantize_gh(gh, 16, prng.key(16))[0]}
+        cases = {"root f32": ("f32", None, 0, n),
+                 "root f64": ("f64", None, 0, n),
+                 "root i8": ("i8", None, 0, n),
+                 "root i16": ("i16", None, 0, n),
+                 "large child f32": ("f32", perm, n // 4 + 1, n // 2),
+                 "small child f32": ("f32", perm, n // 16 + 7, 20_000)}
+        refs = {what: H.histogram_plain(binm, pays[k], idx, b, c, bins,
+                                        "f64" if k == "f64" else "f32")
+                for what, (k, idx, b, c) in cases.items()}
+        for which in ORDER:
+            H._fns["histogram"] = libs[which]
+            H._devices.clear()
+            H._shapes.clear()
+            r = {}
+            for what, (k, idx, b, c) in cases.items():
+                prec = "f64" if k == "f64" else "f32"
+
+                def kern(k=k, idx=idx, b=b, c=c, prec=prec):
+                    return H.leaf_histogram(binm, pays[k], idx, b, c, bins,
+                                            prec)
+                got = kern()
+                if k == "f32":
+                    CS.check_hist(torch, got[None], refs[what][None],
+                                  CS.leaf_abs_sums(torch, gh, idx, b, c),
+                                  f"chip_ab hist {which} {what}, {bins} "
+                                  "bins")
+                elif not torch.equal(got, refs[what]):
+                    raise AssertionError(f"chip_ab hist {which} {what}, "
+                                         f"{bins} bins: differs from the "
+                                         "twin")
+                r[f"{what} ms"] = CS.cuda_ms(torch, kern, reps=10)
+                r[f"{what} cold ms"] = CS.cold_ms(torch, kern)
+            res.setdefault(f"{bins} {which}", []).append(r)
+            CS.log(f"hist uint8 {bins} bins {which}: {r}")
+        del binm, gh, perm, pays, refs
+        torch.cuda.empty_cache()
+    H._fns["histogram"] = libs["B"]
+    H._devices.clear()
+    H._shapes.clear()
     return res
 
 
@@ -2073,6 +2164,9 @@ def main() -> int:
                     "against DIR's design before the class kinds")
     ap.add_argument("--compact", action="store_true", help="count: B3 on "
                     "the COMPACT records of a bagged tree")
+    ap.add_argument("--uint8", action="store_true", help="hist: B1's uint8 "
+                    "route against DIR's, whose entry points are this "
+                    "checkout's")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2103,6 +2197,8 @@ def main() -> int:
                         args.compact)
         elif args.what == "hist" and (args.bag or args.mc):
             res = hist_bag(torch, CS, lt, A, args.baseline, args.mc)
+        elif args.what == "hist" and args.uint8:
+            res = hist_uint8(torch, CS, H, args.baseline)
         elif args.what == "move":
             res = move(torch, CS, lt, A, args.baseline, args.cat)
         elif args.what == "rank":

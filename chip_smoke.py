@@ -307,7 +307,33 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    20,000-row cut of (a)'s table (15 leaves, 63 bins, f64 histograms, 2
    rounds, binned once a device and label), every new objective on the card and on the CPU (xentropy
    and xentlambda on the year scaled to [0, 1]): tree sections and
-   predictions equal, l1, quantile and mape on the host learner.
+   predictions equal, l1, quantile and mape on the host learner;
+21. uint16 bins, data files, the CLI and `cv` (``--only 21`` runs phases
+   1, 2 and 21 alone): (a) B1's uint16 route (``lgbt_hist16_*``) against
+   its twin at the HIGGS shape (``synth_higgs``, 10,485,760 x 28) binned
+   on the card at max_bin 511, the root and a gathered leaf of 20,000
+   rows, f32 (within 1e-5 x the leaf's sum of |g|), f64 and the int8 and
+   int16 payloads of ``quantize_gh`` (equal); each timed warm and cold
+   beside the twin, one ``index_add_`` and its byte bound (2 B a bin);
+   then 200,000 x 3 at 20,000 bins, whose cells take tiles of the bin
+   axis, in f32, f64 and int8; (b) the airline table uncut (Zipf s 1.1
+   for Origin and Dest: ~274 bins, a uint16 matrix; 10M + 500k x 8, six
+   categorical columns, 255 leaves and bins): ``auto`` must log the
+   leaf-wise path with "bins not uint8", 3 rounds, every B1 launch on
+   the uint16 route, the median iteration, holdout AUC and one profiled
+   round; int8 and int16 quantized, a round each; a 20,000-row cut,
+   still uint16, f64 leaf-wise on the card and on the CPU, equal; (c)
+   the Year shape (`synth_year`, uncut) written as CSV files with a
+   header (timed apart), then ``python -m lightgbm_tpu_torch`` in its
+   own process: ``task=train`` (l2, 255 leaves and bins, 5 rounds,
+   ``valid=`` the test file, ``save_binary``), ``task=predict`` (equal
+   to the in-process `Booster.predict`), a train from the ``.bin`` (the
+   same model), ``input_model=`` for 2 more rounds (the input model's
+   trees first); ``task=convert_model``, compiled with the host C++
+   compiler, its raw scores of 1,000 rows within 1e-12 of the model's;
+   parse, binning and binary-load s and the median iteration; (d) `cv`,
+   3 folds and 3 rounds on the card, then a 20,000-row cut, f64
+   leaf-wise, whose result dict on the card equals the CPU's.
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -723,7 +749,8 @@ def train_run(torch, lt, ds, params, rounds, Xte, yte, what) -> tuple:
                    verbose_eval=False)
     launches = {"B1": H.LAUNCHES["f32"], **A.LAUNCHES,
                 **{f"{k}_bundled": v for k, v in A.BUNDLED_LAUNCHES.items()},
-                "B5": sum(H.WORDS_LAUNCHES.values())}
+                "B5": sum(H.WORDS_LAUNCHES.values()),
+                **{f"B1_u16_{k}": v for k, v in H.WIDE_LAUNCHES.items()}}
     trees = bst.num_trees()
     iters = np.diff([t_start] + stamps)
     peak = torch.cuda.max_memory_allocated()
@@ -1574,8 +1601,15 @@ def profile_round(torch, bst, hist_names=HIST_KERNELS,
     from lightgbm_tpu_torch.ops import histogram as H
     from lightgbm_tpu_torch.ops import rank as R
     torch.cuda.synchronize()
-    calls = dict(H.LAUNCHES)
-    icalls = sum(H.INT_LAUNCHES.values())
+
+    def b1_calls():
+        # B1's calls by precision, its uint16 route's in them
+        wide = H.WIDE_LAUNCHES
+        return {"f32": H.LAUNCHES["f32"] + wide["f32"],
+                "f64": H.LAUNCHES["f64"] + wide["f64"],
+                "int": sum(H.INT_LAUNCHES.values()) + wide["i8"]
+                + wide["i16"]}
+    calls = b1_calls()
     wcalls = dict(H.WORDS_LAUNCHES)
     moves = A.LAUNCHES["move_pass"]
     counts = A.LAUNCHES["count_pass"]
@@ -1586,23 +1620,28 @@ def profile_round(torch, bst, hist_names=HIST_KERNELS,
         bst.update()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    calls = {k: H.LAUNCHES[k] - v for k, v in calls.items()}
-    calls["int"] = sum(H.INT_LAUNCHES.values()) - icalls
+    calls = {k: v - calls[k] for k, v in b1_calls().items()}
     wcalls = {k: H.WORDS_LAUNCHES[k] - v for k, v in wcalls.items()}
     moves = A.LAUNCHES["move_pass"] - moves
     counts = A.LAUNCHES["count_pass"] - counts
     grads = R.LAUNCHES["lambdarank_grad"] - grads
+    # the profiler's raw events, summed by name here: `key_averages`
+    # builds an event tree of every CPU op first, tens of seconds for a
+    # round of ~160,000 launches
     cuda = torch.autograd.DeviceType.CUDA
-    kernels, syncs, memsets = [], 0, 0
-    for e in prof.key_averages():
-        if e.device_type == cuda:
-            kernels.append((e.self_device_time_total / 1e3, e.count, e.key))
-            if "Memset" in e.key:
-                memsets += e.count
-        elif e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
-                       "cudaMemcpyAsync"):
-            syncs += e.count
-    kernels.sort(reverse=True)
+    dev_ms, dev_n, syncs = {}, {}, 0
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == cuda:
+            dev_ms[name] = dev_ms.get(name, 0.0) + e.duration_ns() / 1e6
+            dev_n[name] = dev_n.get(name, 0) + 1
+        elif name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                      "cudaMemcpyAsync"):
+            syncs += 1
+    # kernel names demangled, as `key_averages` gives them
+    kernels = sorted(((ms, dev_n[name], torch._C._demangle(name))
+                      for name, ms in dev_ms.items()), reverse=True)
+    memsets = sum(k[1] for k in kernels if "Memset" in k[2])
     busy_ms = sum(k[0] for k in kernels)
     launches = sum(k[1] for k in kernels)
     log(f"profile one round: wall {wall_ms:.1f} ms, device busy "
@@ -2014,11 +2053,13 @@ AIRLINE_ROUNDS = {"auto": 10, "leafwise": 3, "level": 10, "big_n": 3}
 AIRLINE_ZIPF = 1.3           # Origin and Dest: a few hub airports
 
 
-def synth_airline(n: int, seed: int = 13):
+def synth_airline(n: int, seed: int = 13, zipf: float = AIRLINE_ZIPF):
     """Airline-delay-shaped rows (float32 [n, 8]) and the
     ``dep_delayed_15min`` label: Month 1-12, DayofMonth 1-31, DayOfWeek
-    1-7, UniqueCarrier 0-21 uniform; Origin and Dest Zipf-skewed (s 1.1)
-    over 300 airports whose ranks are shuffled against their codes;
+    1-7, UniqueCarrier 0-21 uniform; Origin and Dest Zipf-skewed (s
+    ``zipf``: the published table's ~1.1, whose 273 bins need uint16;
+    phase 15 keeps 1.3, within uint8, for the aligned engine) over 300
+    airports whose ranks are shuffled against their codes;
     DepTime as hhmm (0-2359, most departures by day) and Distance 30-5000
     miles (log-normal). The label (about 19% positive) is drawn from a
     logistic model with a random effect per category of each categorical
@@ -2033,7 +2074,7 @@ def synth_airline(n: int, seed: int = 13):
     for j, codes in enumerate(AIRLINE_CODES):
         effect = model.normal(0.0, 0.35, codes).astype(np.float32)
         if codes == 300:
-            p = 1.0 / np.arange(1, codes + 1) ** AIRLINE_ZIPF
+            p = 1.0 / np.arange(1, codes + 1) ** zipf
             c = np.searchsorted(np.cumsum(p / p.sum()), rng.random(n))
             code = model.permutation(codes)[np.minimum(c, codes - 1)]
         else:
@@ -2091,6 +2132,7 @@ def airline_run(torch, lt, ds, params, rounds, Xte, yte, what) -> tuple:
         raise AssertionError(f"{what}: the log does not name the "
                              f"{g.train_path} path: {lines[:3]}")
     r["cat_nodes_per_tree"] = [int(t.num_cat) for t in bst.trees]
+    r["path_log"] = [ln for ln in lines if "training path" in ln]
     stats = g.aligned_stats if g.train_path == "aligned" \
         else g.level_stats if g.train_path == "level" else []
     r["rounds_per_tree"] = [st[0] for st in stats]
@@ -4525,12 +4567,540 @@ def phase_objectives_higgs(torch, lt, ds, params, X, y, rows: int,
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 21: uint16 bins (B1's uint16 route), files and the CLI, cv
+# ---------------------------------------------------------------------------
+U16_ROWS, U16_BINS = 10_485_760, 511
+U16_LEAF_ROWS = 20_000
+# a feature count and bin count whose f32 cells need bin tiles
+U16_TILED_ROWS, U16_TILED_F, U16_TILED_BINS = 200_000, 3, 20_000
+U16_ROUNDS = {"leafwise": 3, "quant": 1}
+U16_CUT_ROWS, U16_CUT_ROUNDS = 20_000, 2
+CLI_ROUNDS, CLI_MORE = 5, 2
+CV_FOLDS, CV_ROUNDS, CV_CUT_ROWS = 3, 3, 20_000
+PHASE21_DIR = os.path.join("build", "phase21")
+
+
+def u16_bound_ms(count: int, f: int, bins: int, gh_bytes: int,
+                 out_itemsize: int, indexed: bool):
+    """Least time for one call of B1's uint16 route: the leaf's uint16
+    bins rows (2 B a bin), its (g, h) pairs and its indices read once,
+    the output written once, against 3 adds a (row, feature) at the f32
+    rate (f64 for an f64 output)."""
+    nbytes = count * (2 * f + gh_bytes + (4 if indexed else 0)) \
+        + f * bins * 3 * out_itemsize
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 3 * f * count / (F64_OPS_PER_S if out_itemsize == 8
+                             else F32_OPS_PER_S)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def u16_check(torch, H, binm, pay, idx, begin, count, bins, prec, what):
+    """B1's uint16 route against its twin: f64 and integer payloads
+    equal, f32 by `check_hist`; returns the f32 max |difference|."""
+    got = H.leaf_histogram(binm, pay, idx, begin, count, bins, prec)
+    ref = H.histogram_plain(binm, pay, idx, begin, count, bins, prec)
+    torch.cuda.synchronize()
+    if prec == "f64" or pay.dtype != torch.float32:
+        if not torch.equal(got, ref):
+            d = (got - ref).abs().max().item()
+            raise AssertionError(f"B1 uint16 {what}, {bins} bins, {prec}: "
+                                 f"differs from its twin, max |d| {d}")
+        return 0.0
+    return check_hist(torch, got[None], ref[None], leaf_abs_sums(
+        torch, pay, idx, begin, count), f"B1 uint16 {what}, {bins} bins")
+
+
+def phase_u16_parity(torch, lt, dev) -> dict:
+    """Phase 21 (a): B1's uint16 route against its twin at the HIGGS
+    shape binned at max_bin 511 (``synth_higgs``, seed 7, 10,485,760 x
+    28, bins on the card by `lt.Dataset`): the contiguous root and a
+    gathered leaf of 20,000 rows, f32 (within 1e-5 x the leaf's sum of
+    |g|), f64 and int8 / int16 payloads of ``quantize_gh`` (equal); each
+    timed warm and cold beside its twin, one ``index_add_`` over a
+    prebuilt flat index and its byte bound; then a 200,000 x 3 table of
+    20,000 bins, whose cells need the bin-axis tiles, in every
+    precision."""
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.ops.bins import take_bins
+    from lightgbm_tpu_torch.utils import prng
+    t_phase = t0 = time.perf_counter()
+    f, n = 28, U16_ROWS
+    X, y = synth_higgs(n, f)
+    ds = lt.Dataset(X, label=y, params={"max_bin": U16_BINS,
+                                        "verbosity": -1}).construct()
+    torch.cuda.synchronize()
+    binm = ds._handle.bins
+    nb = max(m.num_bin for m in ds._handle.used_mappers())
+    del X, y, ds
+    gc.collect()
+    if binm.dtype != torch.uint16 or binm.shape != (n, f) or nb <= 256:
+        raise AssertionError(f"phase 21 (a): bins {binm.dtype} "
+                             f"{tuple(binm.shape)}, {nb} bins")
+    bins = nb
+    log(f"phase 21 (a): {n}x{f} HIGGS rows binned at max_bin {U16_BINS} "
+        f"on the card in {time.perf_counter() - t0:.3f} s (with the data), "
+        f"{bins} bins, uint16")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    gh = leaf_gh(torch, n, 21, dev)
+    perm = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    pays = {"f32": gh, "f64": gh}
+    for bits in (8, 16):
+        pays[f"i{bits}"] = H.quantize_gh(gh, bits,
+                                         prng.fold_in(prng.key(21), bits))[0]
+    res = {"bins": bins, "rows": n, "max_abs_err_f32": 0.0}
+    for what, idx, begin, count in (("root", None, 0, n),
+                                    ("leaf", perm, n // 16 + 7,
+                                     U16_LEAF_ROWS)):
+        rows_ = (idx[begin:begin + count].long() if idx is not None
+                 else torch.arange(count, device=dev))
+        cell = (take_bins(binm, rows_).long() + torch.arange(f, device=dev)
+                * bins).reshape(-1)
+        for kind, pay in pays.items():
+            prec = "f64" if kind == "f64" else "f32"
+            err = u16_check(torch, H, binm, pay, idx, begin, count, bins,
+                            prec, f"{what} {kind}")
+            res["max_abs_err_f32"] = max(res["max_abs_err_f32"], err)
+
+            def kern(pay=pay, prec=prec):
+                return H.leaf_histogram(binm, pay, idx, begin, count, bins,
+                                        prec)
+            dtype = {"f32": torch.float32, "f64": torch.float64}.get(
+                kind, torch.int64)
+            p = torch.cat([pay[rows_].to(dtype), torch.ones(
+                (count, 1), dtype=dtype, device=dev)], 1)
+            p = p[:, None, :].expand(-1, f, -1).reshape(-1, 3)
+            acc = torch.zeros((f * bins, 3), dtype=dtype, device=dev)
+            gh_bytes = 8 if kind in ("f32", "f64") else 2 * int(kind[1:]) // 8
+            b_ms, b_by = u16_bound_ms(count, f, bins, gh_bytes,
+                                      8 if kind == "f64" else 4,
+                                      idx is not None)
+            r = {"rows": count, "max_abs_err": err,
+                 "ms": cuda_ms(torch, kern, reps=10),
+                 "cold_ms": cold_ms(torch, kern),
+                 "plain_ms": cuda_ms(torch, lambda pay=pay, prec=prec:
+                                     H.histogram_plain(binm, pay, idx, begin,
+                                                       count, bins, prec),
+                                     reps=2),
+                 "library_ms": cuda_ms(torch, lambda: acc.index_add_(
+                     0, cell, p), reps=2),
+                 "bound_ms": b_ms, "bound_by": b_by}
+            del p, acc
+            res[f"{what} {kind}"] = r
+            log(f"kernel B1 uint16 {what} {count}x{f}, {bins} bins, {kind}: "
+                f"{'equal to' if err == 0.0 else 'within 1e-5 of'} the "
+                f"twin, warm {r['ms']:.4f} ms, cold {r['cold_ms']:.4f} ms, "
+                f"plain {r['plain_ms']:.4f} ms, index_add_ "
+                f"{r['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        del cell, rows_
+    del binm, gh, perm, pays
+    torch.cuda.empty_cache()
+    # the bin-axis tiles
+    tn, tf, tb = U16_TILED_ROWS, U16_TILED_F, U16_TILED_BINS
+    tbins = torch.randint(0, tb, (tn, tf), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.int16).view(
+                              torch.uint16)
+    tgh = leaf_gh(torch, tn, 22, dev)
+    tperm = torch.randperm(tn, generator=gen, device=dev).to(torch.int32)
+    num_sms, optin = H._device(dev.index or 0)
+    shape = H.launch_shape16(tn, tf, tb, "f32", num_sms, optin)
+    if shape[1] >= tb:
+        raise AssertionError(f"phase 21 (a): {tb} bins took no bin tiles "
+                             f"({shape})")
+    q8 = H.quantize_gh(tgh, 8, prng.key(3))[0]
+    for what, idx, begin, count in (("root", None, 0, tn),
+                                    ("leaf", tperm, 11, tn // 3)):
+        for kind, pay, prec in (("f32", tgh, "f32"), ("f64", tgh, "f64"),
+                                ("i8", q8, "f32")):
+            res["max_abs_err_f32"] = max(
+                res["max_abs_err_f32"],
+                u16_check(torch, H, tbins, pay, idx, begin, count, tb,
+                          prec, f"tiled {what} {kind}"))
+    res["tiled"] = {"rows": tn, "features": tf, "bins": tb,
+                    "bins_per_tile": shape[1]}
+    log(f"phase 21 (a): {tn}x{tf} at {tb} bins in tiles of {shape[1]} bins "
+        f"(f32), f32, f64 and int8 against the twin; max f32 |d| "
+        f"{res['max_abs_err_f32']:.3e}")
+    del tbins, tgh, tperm, q8
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 21 (a): {res['phase_s']:.1f} s")
+    return res
+
+
+def phase_u16_airline(torch, lt, rows: int, holdout: int) -> dict:
+    """Phase 21 (b): the airline table uncut (`synth_airline`, Zipf s 1.1
+    for Origin and Dest, whose ~273 bins make the matrix uint16; 10M +
+    500k x 8, the six code columns categorical, 255 leaves and bins):
+    ``auto`` must log the leaf-wise path with the reason "bins not
+    uint8", 3 rounds, every B1 launch on the uint16 route; one profiled
+    round; ``tpu_quant_hist=on`` at 8 and 16 bits, 2 rounds each (B1's
+    uint16 integer kernels); then a 20,000-row cut, still uint16, f64
+    leaf-wise on the card and on the CPU: tree sections and predictions
+    equal."""
+    from lightgbm_tpu_torch.ops import histogram as H
+    t_phase = t0 = time.perf_counter()
+    X, y = synth_airline(rows + holdout, zipf=1.1)
+    Xtr, ytr, Xte, yte = X[:rows], y[:rows], X[rows:], y[rows:]
+    log(f"data: {rows}+{holdout} x 8 airline rows at Zipf s 1.1 in "
+        f"{time.perf_counter() - t0:.3f} s")
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+              "learning_rate": 0.1, "min_data_in_leaf": 20,
+              "feature_fraction": 1.0, "verbosity": -1}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = lt.Dataset(Xtr, label=ytr, params=params,
+                    categorical_feature=AIRLINE_CATS,
+                    free_raw_data=False).construct()
+    torch.cuda.synchronize()
+    res = {"binning_s": time.perf_counter() - t0,
+           "num_bin": [m.num_bin for m in ds._handle.used_mappers()]}
+    if ds._handle.bins.dtype != torch.uint16:
+        raise AssertionError(f"phase 21 (b): bins {ds._handle.bins.dtype}, "
+                             f"bins per column {res['num_bin']}")
+    log(f"phase 21 (b): binning {res['binning_s']:.3f} s, bins per column "
+        f"{res['num_bin']}, uint16 matrix")
+    bst, a = airline_run(torch, lt, ds, params, U16_ROUNDS["leafwise"],
+                         Xte, yte, "auto, uint16 bins")
+    why = "training path: leafwise (aligned engine rejected: bins not uint8)"
+    if a["train_path"] != "leafwise" \
+            or not any(why in ln for ln in a["path_log"]):
+        raise AssertionError(f"phase 21 (b): {a['train_path']}, log "
+                             f"{a['path_log']}")
+    if a["launches"]["B1"] or not a["launches"]["B1_u16_f32"]:
+        raise AssertionError(f"phase 21 (b): B1 launches {a['launches']}")
+    if not any(a["cat_nodes_per_tree"]):
+        raise AssertionError("phase 21 (b): no categorical node")
+    a["profile"] = profile_round(torch, bst)
+    a["profile_b1_launches"] = sum(
+        k["launches"] for k in a["profile"]["hist_kernels"].values())
+    del bst
+    res["leafwise"] = a
+    for bits in (8, 16):
+        bst, q = airline_run(torch, lt, ds, {
+            **params, "tpu_grow_mode": "leafwise", "tpu_quant_hist": "on",
+            "tpu_quant_hist_bits": bits}, U16_ROUNDS["quant"], Xte, yte,
+            f"quantized int{bits}, uint16 bins")
+        if not q["launches"][f"B1_u16_i{bits}"] \
+                or q["launches"]["B1_u16_f32"]:
+            raise AssertionError(f"phase 21 (b) int{bits}: launches "
+                                 f"{q['launches']}")
+        res[f"quant{bits}"] = q
+        del bst
+    del ds
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the f64 cut, card against CPU
+    base = {"objective": "binary", "num_leaves": 15, "max_bin": 63,
+            "learning_rate": 0.1, "min_data_in_leaf": 20, "verbosity": -1,
+            "tpu_use_f64_hist": True, "tpu_grow_mode": "leafwise"}
+    H.reset_launches()
+    sect, preds = [], []
+    for dev_type in ("cuda", "cpu"):
+        p = {**base, "device_type": dev_type}
+        cds = lt.Dataset(Xtr[:U16_CUT_ROWS], label=ytr[:U16_CUT_ROWS],
+                         params=p, categorical_feature=AIRLINE_CATS)
+        bst = lt.train(p, cds, num_boost_round=U16_CUT_ROUNDS,
+                       verbose_eval=False)
+        if bst._gbdt.train_data.bins.dtype != torch.uint16:
+            raise AssertionError("phase 21 (b): the cut's bins are not "
+                                 "uint16")
+        sect.append(tree_sections(bst))
+        preds.append(bst.predict(Xte[:2000]))
+        if dev_type == "cuda":
+            res["cut_f64_launches"] = H.WIDE_LAUNCHES["f64"]
+    if sect[0] != sect[1] or not np.array_equal(preds[0], preds[1]):
+        raise AssertionError("phase 21 (b): the uint16 cut's f64 trees or "
+                             "predictions differ between the card and the "
+                             "CPU")
+    if not res["cut_f64_launches"]:
+        raise AssertionError("phase 21 (b): the f64 cut never ran B1's "
+                             "uint16 f64 kernel")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 21 (b): the {U16_CUT_ROWS}-row uint16 cut's f64 tree "
+        f"sections and predictions equal on the card and the CPU; "
+        f"{res['phase_s']:.1f} s")
+    return res
+
+
+def _write_part(args) -> str:
+    path, block = args
+    np.savetxt(path, block, delimiter=",", fmt="%.9g")
+    return path
+
+
+def write_csv(path: str, y, X, header) -> None:
+    """label first, then the features, ``%.9g`` (f32 values read back
+    exactly), a header line; formatted by 8 spawned worker processes a
+    block of rows each, then joined."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    M = np.concatenate([y[:, None].astype(np.float64),
+                        X.astype(np.float64)], axis=1)
+    blocks = np.array_split(M, 8)
+    parts = [(f"{path}.part{i}", b) for i, b in enumerate(blocks)]
+    with ProcessPoolExecutor(
+            8, mp_context=multiprocessing.get_context("spawn")) as pool:
+        names = list(pool.map(_write_part, parts))
+    with open(path, "w") as out:
+        out.write(",".join(header) + "\n")
+        for name in names:
+            with open(name) as fh:
+                while True:
+                    chunk = fh.read(1 << 24)
+                    if not chunk:
+                        break
+                    out.write(chunk)
+            os.remove(name)
+
+
+def run_cli(args, cwd, what) -> str:
+    """``python -m lightgbm_tpu_torch`` in a process of its own, the
+    checkout on its path; returns its standard output, fails the run on a
+    non-zero exit."""
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch",
+                           *args], cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 21 (c) {what}: exit "
+                             f"{proc.returncode}\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    log(f"phase 21 (c) {what}: {time.perf_counter() - t0:.1f} s, "
+        f"{proc.stdout.strip().splitlines()[-1]}")
+    return proc.stdout
+
+
+def model_trees(text: str) -> list:
+    """The tree blocks of a model text without their ``Tree=i`` lines."""
+    body = text[text.index("Tree=0"):text.index("end of trees")]
+    return [blk.split("\n", 1)[1] for blk in body.split("Tree=")[1:]]
+
+
+def phase_files(torch, lt) -> dict:
+    """Phase 21 (c) and (d): the Year shape (`synth_year`, seed 19,
+    463,715 + 51,630 x 90, uncut) written as CSV files with a header
+    (the write timed apart), then ``python -m lightgbm_tpu_torch`` in
+    four runs: ``task=train`` (l2, 255 leaves and bins, 5 rounds,
+    ``valid=`` the test file, ``save_binary``), ``task=predict`` on the
+    test file (its output equal to the in-process `Booster.predict`'s),
+    a second train from the ``.bin`` (the model text equal to the
+    first's up to the params), ``input_model=`` for 2 more rounds (the
+    first 5 trees the input model's); ``task=convert_model``, the C++
+    compiled with the host compiler, whose raw scores of 1,000 test rows
+    are the model's within 1e-12; parse, binning and binary-load s and
+    the median iteration in this process. (d) `cv`, 3 folds and 3 rounds
+    on the card; on a 20,000-row cut, f64 leaf-wise, the card's result
+    dict equal to the CPU's."""
+    import shutil
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io.dataset import Dataset as CoreDataset
+    from lightgbm_tpu_torch.io.loader import DatasetLoader
+    t_phase = t0 = time.perf_counter()
+    X, y = synth_year(YEAR_TRAIN + YEAR_TEST)
+    Xtr, ytr = X[:YEAR_TRAIN], y[:YEAR_TRAIN]
+    Xte, yte = X[YEAR_TRAIN:], y[YEAR_TRAIN:]
+    work = os.path.abspath(PHASE21_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    header = ["year"] + [f"f{j}" for j in range(YEAR_FEATURES)]
+    t0 = time.perf_counter()
+    write_csv(os.path.join(work, "train.csv"), ytr, Xtr, header)
+    write_csv(os.path.join(work, "test.csv"), yte, Xte, header)
+    res = {"write_s": time.perf_counter() - t0,
+           "csv_bytes": os.path.getsize(os.path.join(work, "train.csv"))}
+    log(f"phase 21 (c): CSV files written in {res['write_s']:.1f} s "
+        f"({res['csv_bytes'] / 2**20:.1f} MiB of training rows)")
+    common = ["task=train", "objective=regression", "header=true",
+              "num_leaves=255", "max_bin=255", "learning_rate=0.1",
+              "min_data_in_leaf=20", "verbosity=-1"]
+    run_cli(common + ["data=train.csv", "valid=test.csv",
+                      f"num_trees={CLI_ROUNDS}", "save_binary=true",
+                      "metric=l2", "output_model=m1.txt"], work, "train")
+    first = open(os.path.join(work, "m1.txt")).read()
+    run_cli(["task=predict", "data=test.csv", "header=true",
+             "input_model=m1.txt", "output_result=pred.txt"], work,
+            "predict")
+    bst = lt.Booster(model_file=os.path.join(work, "m1.txt"))
+    mine = bst.predict(Xte.astype(np.float64))
+    got = open(os.path.join(work, "pred.txt")).read().split()
+    if got != [f"{v:g}" for v in mine]:
+        raise AssertionError("phase 21 (c): task=predict's output differs "
+                             "from Booster.predict's")
+    run_cli(common + ["data=train.csv.bin", f"num_trees={CLI_ROUNDS}",
+                      "output_model=m_bin.txt"], work, "train from .bin")
+    again = open(os.path.join(work, "m_bin.txt")).read()
+    if again[:again.index("end of trees")] \
+            != first[:first.index("end of trees")]:
+        raise AssertionError("phase 21 (c): the run from the .bin wrote "
+                             "another model")
+    run_cli(common + ["data=train.csv", "input_model=m1.txt",
+                      f"num_trees={CLI_MORE}", "output_model=m2.txt"], work,
+            "input_model")
+    cont = open(os.path.join(work, "m2.txt")).read()
+    if model_trees(cont)[:CLI_ROUNDS] != model_trees(first) \
+            or len(model_trees(cont)) != CLI_ROUNDS + CLI_MORE:
+        raise AssertionError("phase 21 (c): the continued model does not "
+                             "start with the input model's trees")
+    res["convert"] = check_convert(torch, lt, work, Xte)
+    # the stages in this process
+    cfg = Config.from_params({"header": True, "max_bin": 255,
+                              "verbosity": -1})
+    t0 = time.perf_counter()
+    labels, feats, _ = DatasetLoader(cfg).parse_file(
+        os.path.join(work, "train.csv"))
+    res["parse_s"] = time.perf_counter() - t0
+    if not np.array_equal(feats.astype(np.float32), Xtr):
+        raise AssertionError("phase 21 (c): the parsed rows are not the "
+                             "written ones")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    core = CoreDataset.from_matrix(feats, label=labels, config=cfg,
+                                   device=torch.device(DEVICE))
+    torch.cuda.synchronize()
+    res["binning_s"] = time.perf_counter() - t0
+    del feats, core
+    t0 = time.perf_counter()
+    loaded = lt.Dataset(os.path.join(work, "train.csv.bin"),
+                        params={"verbosity": -1}).construct()
+    torch.cuda.synchronize()
+    res["binary_load_s"] = time.perf_counter() - t0
+    stamps = []
+
+    def stamp(env):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    t0 = time.perf_counter()
+    lt.train({"objective": "regression", "num_leaves": 255,
+              "learning_rate": 0.1, "min_data_in_leaf": 20,
+              "verbosity": -1}, loaded, num_boost_round=CLI_ROUNDS,
+             callbacks=[stamp], verbose_eval=False)
+    res["median_iter_ms"] = statistics.median(
+        np.diff([t0] + stamps)[1:]) * 1e3
+    log(f"phase 21 (c): parse {res['parse_s']:.3f} s, binning "
+        f"{res['binning_s']:.3f} s, binary load {res['binary_load_s']:.3f} "
+        f"s, median iteration {res['median_iter_ms']:.1f} ms (the .bin "
+        f"dataset, auto)")
+    del loaded
+    shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["cv"] = phase_cv(torch, lt, Xtr, ytr)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 21 (c), (d): {res['phase_s']:.1f} s")
+    return res
+
+
+def check_convert(torch, lt, work, Xte) -> dict:
+    """``task=convert_model`` of the continued model (in this process,
+    through the CLI's `main`), the C++ compiled with the host compiler
+    and run on 1,000 test rows: its raw scores within 1e-12 of the
+    model's."""
+    import shutil
+    from lightgbm_tpu_torch import cli
+    t0 = time.perf_counter()
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        if cli.main(["task=convert_model", "input_model=m2.txt",
+                     "convert_model=pred.cpp"]) != 0:
+            raise AssertionError("phase 21 (c): convert_model failed")
+    finally:
+        os.chdir(cwd)
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise AssertionError("phase 21 (c): no host C++ compiler")
+    rows = Xte[:1000].astype(np.float64)
+    np.savetxt(os.path.join(work, "rows.txt"), rows, fmt="%.17g")
+    code = open(os.path.join(work, "pred.cpp")).read() + r'''
+#include <cstdio>
+#include <cstdlib>
+int main() {
+  static double row[%d];
+  FILE* f = std::fopen("rows.txt", "r");
+  for (;;) {
+    for (int j = 0; j < %d; ++j) {
+      if (std::fscanf(f, "%%lf", &row[j]) != 1) return 0;
+    }
+    std::printf("%%.17g\n", PredictRaw(row, 0));
+  }
+}
+''' % (rows.shape[1], rows.shape[1])
+    with open(os.path.join(work, "main.cpp"), "w") as fh:
+        fh.write(code)
+    subprocess.run([cxx, "-O1", "-o", os.path.join(work, "pred"),
+                    os.path.join(work, "main.cpp")], check=True,
+                   capture_output=True, text=True)
+    out = subprocess.run([os.path.join(work, "pred")], cwd=work, check=True,
+                         capture_output=True, text=True).stdout.split()
+    got = np.array([float(v) for v in out])
+    ref = lt.Booster(model_file=os.path.join(work, "m2.txt")).predict(
+        rows, raw_score=True)
+    d = float(np.abs(got - ref).max()) if len(got) == len(ref) else None
+    if d is None or d > 1e-12:
+        raise AssertionError(f"phase 21 (c): the compiled C++ scores differ "
+                             f"from the model's ({d})")
+    r = {"rows": len(got), "max_abs_diff": d,
+         "seconds": time.perf_counter() - t0}
+    log(f"phase 21 (c): convert_model's C++ on {len(got)} rows, max |d| "
+        f"{d:.3e} against the model's raw scores; {r['seconds']:.1f} s")
+    return r
+
+
+def phase_cv(torch, lt, Xtr, ytr) -> dict:
+    """Phase 21 (d): `cv` on the Year table, 3 folds and 3 rounds on the
+    card under ``auto`` (255 leaves and bins), timed; then a 20,000-row
+    cut, f64 leaf-wise (15 leaves, 63 bins), the card's result dict equal
+    to the CPU's."""
+    t0 = time.perf_counter()
+    params = {"objective": "regression", "num_leaves": 255, "max_bin": 255,
+              "learning_rate": 0.1, "min_data_in_leaf": 20,
+              "verbosity": -1, "metric": ["l2", "l1"]}
+    res = lt.cv(params, lt.Dataset(Xtr, label=ytr, params=params),
+                num_boost_round=CV_ROUNDS, nfold=CV_FOLDS, seed=21,
+                return_cvbooster=True)
+    cvb = res.pop("cvbooster")
+    paths = [b._gbdt.train_path for b in cvb.boosters]
+    out = {"seconds": time.perf_counter() - t0, "paths": paths,
+           "result": {k: v for k, v in res.items()}}
+    if any(len(v) != CV_ROUNDS or not np.all(np.isfinite(v))
+           for v in res.values()) or len(res) != 4:
+        raise AssertionError(f"phase 21 (d): cv result {res}")
+    log(f"phase 21 (d): cv {CV_FOLDS} folds x {CV_ROUNDS} rounds on "
+        f"{len(ytr)} rows in {out['seconds']:.1f} s, paths {paths}, "
+        f"valid l2 mean {res['valid l2-mean']}")
+    del cvb
+    base = {"objective": "regression", "num_leaves": 15, "max_bin": 63,
+            "learning_rate": 0.1, "min_data_in_leaf": 20, "verbosity": -1,
+            "tpu_use_f64_hist": True, "tpu_grow_mode": "leafwise",
+            "metric": ["l2", "l1"]}
+    dicts = [lt.cv({**base, "device_type": dev},
+                   lt.Dataset(Xtr[:CV_CUT_ROWS], label=ytr[:CV_CUT_ROWS],
+                              params={**base, "device_type": dev}),
+                   num_boost_round=CV_ROUNDS, nfold=CV_FOLDS, seed=21)
+             for dev in ("cuda", "cpu")]
+    if dicts[0] != dicts[1]:
+        raise AssertionError(f"phase 21 (d): the cut's cv results differ "
+                             f"between the card and the CPU: {dicts}")
+    out["cut"] = {"rows": CV_CUT_ROWS, "result": dicts[0]}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 21 (d): the {CV_CUT_ROWS}-row cut's cv results equal on "
+        f"the card and the CPU; {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=10_500_000)
     ap.add_argument("--holdout", type=int, default=500_000)
     ap.add_argument("--mslr-rows", type=int, default=MSLR_ROWS)
     ap.add_argument("--airline-rows", type=int, default=10_000_000)
+    ap.add_argument("--only", choices=("21",), help="phases 1-2 and this "
+                    "phase alone (its kernels in the kernels line)")
     args = ap.parse_args()
     t_main = time.perf_counter()
     import torch
@@ -4552,6 +5122,9 @@ def main() -> int:
     phase_build()
     sass = phase_sass()
     stamp("phases 1-2")
+    if args.only == "21":
+        kernels = u16_kernels(torch, lt, dev, args, stamp)
+        return finish(torch, info, stamps, t_main, {}, kernels)
     par = phase_parity(torch, dev, args.rows)
     qpar = phase_quant_parity(torch, dev, args.rows)
     stamp("phases 3, 18 (a)")
@@ -4638,6 +5211,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     year = phase_year(torch, lt)
     stamp("phase 20 (a), (d)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    u16_entries = u16_kernels(torch, lt, dev, args, stamp)
 
     def entry(name, replaces, bins, prec, launches):
         p = par[bins]
@@ -4903,6 +5479,75 @@ def main() -> int:
             **{k: p[k] for k in ("wrapper_ms", "cold_ms",
                                  "launches_per_call") if k in p},
             "shape": shape})
+    kernels += u16_entries
+    return finish(torch, info, stamps, t_main, {
+        "hist_kernel": {str(k): v for k, v in par.items()},
+        "main": {str(k): v for k, v in main_r.items()},
+        "aligned": {str(k): v for k, v in aligned_r.items()},
+        "big_n": big_n,
+        "aligned_kernels": {f"{b} {lay}": v for (b, lay), v
+                            in apar.items()},
+        "level": {str(k): v for k, v in level_r.items()},
+        "level_kernel": {str(k): v for k, v in lpar.items()},
+        "mslr": mslr, "rank_kernel": rpar,
+        "airline": airline, "bagging": bagging,
+        "multiclass": mc, "mc_kernels": mpar, "efb": efb,
+        "objectives": {"higgs": objectives, "year": year},
+        "quant_kernel": qpar, "quant": quant,
+        "forced_cegb": forced, "early_stopping": stopping,
+        "bag_kernels": {f"{b} {lay}": v for (b, lay), v
+                        in bpar.items()},
+        "proto_path": proto_path, "proto_kernels": ppar,
+        "sass_atomics": sass,
+        "card": {k: info[k] for k in ("state", "state_phase14")}},
+        kernels)
+
+
+def u16_kernels(torch, lt, dev, args, stamp) -> list:
+    """Phase 21, and its entries of the kernels line: B1's uint16 route
+    in each precision, its numbers from (a) (the root's, the gathered
+    leaf's as ``leaf_*``), its launches from (b)'s runs."""
+    u16 = phase_u16_parity(torch, lt, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    air = phase_u16_airline(torch, lt, args.airline_rows, args.holdout)
+    gc.collect()
+    torch.cuda.empty_cache()
+    files = phase_files(torch, lt)
+    stamp("phase 21")
+    log(json.dumps({"phase21": {"kernel": u16, "airline": air,
+                                "files": files}}, default=str))
+    launches = {"f32": air["leafwise"]["launches"]["B1_u16_f32"],
+                "f64": air["cut_f64_launches"],
+                "i8": air["quant8"]["launches"]["B1_u16_i8"],
+                "i16": air["quant16"]["launches"]["B1_u16_i16"]}
+    out = []
+    for kind, name in (("f32", "histogram_u16_f32"),
+                       ("f64", "histogram_u16_f64"),
+                       ("i8", "histogram_u16_int8"),
+                       ("i16", "histogram_u16_int16")):
+        p, leaf = u16[f"root {kind}"], u16[f"leaf {kind}"]
+        out.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": "lightgbm_tpu/ops/pallas_hist.py:205",
+            "launches": launches[kind],
+            "max_abs_err": max(p["max_abs_err"], leaf["max_abs_err"]),
+            "ms": p["ms"], "plain_ms": p["plain_ms"],
+            "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
+            "library_ms": p["library_ms"], "cold_ms": p["cold_ms"],
+            **{f"leaf_{k}": leaf[k] for k in ("ms", "cold_ms", "plain_ms",
+                                              "library_ms", "bound_ms")},
+            "shape": f"root {u16['rows']}x28, {u16['bins']} bins, uint16, "
+                     f"{kind}; leaf: {U16_LEAF_ROWS} gathered rows (the "
+                     "uint16 route of pallas_hist.py:205, which casts its "
+                     "bins to uint8: ROADMAP C.32)"})
+    return out
+
+
+def finish(torch, info, stamps, t_main, results, kernels) -> int:
+    """The run's end: every kernel of the line launched on its main path,
+    the wall seconds of each stretch, the results, the kernels line and
+    the contract's last line."""
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was never launched on its "
@@ -4911,27 +5556,7 @@ def main() -> int:
         f"{what} {t - stamps[i][1]:.1f}"
         for i, (what, t) in enumerate(stamps[1:])))
     log(f"chip_smoke: {time.perf_counter() - t_main:.1f} s")
-    log(json.dumps({"hist_kernel": {str(k): v for k, v in par.items()},
-                    "main": {str(k): v for k, v in main_r.items()},
-                    "aligned": {str(k): v for k, v in aligned_r.items()},
-                    "big_n": big_n,
-                    "aligned_kernels": {f"{b} {lay}": v for (b, lay), v
-                                        in apar.items()},
-                    "level": {str(k): v for k, v in level_r.items()},
-                    "level_kernel": {str(k): v for k, v in lpar.items()},
-                    "mslr": mslr, "rank_kernel": rpar,
-                    "airline": airline, "bagging": bagging,
-                    "multiclass": mc, "mc_kernels": mpar, "efb": efb,
-                    "objectives": {"higgs": objectives, "year": year},
-                    "quant_kernel": qpar, "quant": quant,
-                    "forced_cegb": forced, "early_stopping": stopping,
-                    "bag_kernels": {f"{b} {lay}": v for (b, lay), v
-                                    in bpar.items()},
-                    "proto_path": proto_path, "proto_kernels": ppar,
-                    "sass_atomics": sass,
-                    "power": info["smi"],
-                    "card": {k: info[k] for k in ("state",
-                                                  "state_phase14")}}))
+    log(json.dumps({**results, "power": info["smi"]}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

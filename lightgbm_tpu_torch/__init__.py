@@ -9,8 +9,8 @@ from .basic import Booster, Dataset, LightGBMError
 from .callback import (EarlyStopException, early_stopping, print_evaluation,
                        record_evaluation)
 from .config import Config
-from .engine import train
+from .engine import cv, train
 
-__all__ = ["Booster", "Config", "Dataset", "LightGBMError", "train",
+__all__ = ["Booster", "Config", "Dataset", "LightGBMError", "cv", "train",
            "early_stopping", "print_evaluation", "record_evaluation",
            "EarlyStopException"]

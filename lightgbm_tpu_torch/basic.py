@@ -1,11 +1,13 @@
 """Public Dataset / Booster (port of lightgbm_tpu/basic.py: dense and
-scipy CSR/CSC input, binary, L2, multiclass (softmax and one-vs-all)
-and lambdarank objectives; gbdt, goss, dart and rf boosting).
+scipy CSR/CSC input and data files, row subsets and the binary dataset
+file; every objective; gbdt, goss, dart and rf boosting).
 
-`Booster.predict` walks the trees on the run's device (``cuda`` unless
-the params ask for ``device_type=cpu``); `model_to_string` writes the
-JAX package's model text, and a Booster loads model text written by
-either package.
+A `Dataset` takes a matrix or a path: a text file (CSV, TSV, space or
+LibSVM, with its sidecars; `io/loader.py`) or a binary dataset file of
+either package. `Booster.predict` walks the trees on the run's device
+(``cuda`` unless the params ask for ``device_type=cpu``), over a matrix
+or a data file; `model_to_string` writes the JAX package's model text,
+and a Booster loads model text written by either package.
 """
 from __future__ import annotations
 
@@ -63,13 +65,25 @@ class Dataset:
         self.params = dict(params or {})
         self.free_raw_data = free_raw_data
         self._handle: Optional[_CoreDataset] = None
+        self.used_indices: Optional[np.ndarray] = None
 
     def construct(self) -> "Dataset":
         if self._handle is not None:
             return self
         ref = (self.reference.construct()._handle
                if self.reference is not None else None)
+        if self.used_indices is not None:
+            # a subset of the (constructed) reference: one gather of its
+            # device bins, the mappers shared (JAX package: basic.py:167)
+            self._handle = ref.subset(self.used_indices)
+            if self.label is not None:
+                self._handle.metadata.set_label(self.label)
+            if self.group is not None:
+                self._handle.metadata.set_group(self.group)
+            return self
         cfg = Config.from_params(self.params)
+        if isinstance(self.data, str):
+            return self._construct_from_file(cfg, ref)
         names = (None if self.feature_name in ("auto", None)
                  else list(self.feature_name))
         cats = (None if self.categorical_feature in ("auto", None)
@@ -90,11 +104,66 @@ class Dataset:
             self.data = None
         return self
 
+    def _construct_from_file(self, cfg: Config, ref) -> "Dataset":
+        """A path (JAX package: basic.py:178-208): the constructor's
+        categorical_feature folds into the config spec the loader reads;
+        the labels, weights, groups and init scores given here override
+        the file's."""
+        if self.categorical_feature not in ("auto", None):
+            cats = list(self.categorical_feature)
+            if any(isinstance(c, str) for c in cats):
+                cfg.categorical_feature = "name:" + ",".join(
+                    str(c) for c in cats)
+            else:
+                cfg.categorical_feature = ",".join(str(int(c)) for c in cats)
+        from .io.loader import DatasetLoader
+        loader = DatasetLoader(cfg, device=resolve_device(cfg))
+        if ref is not None:
+            self._handle = loader.load_from_file_align_with_other_dataset(
+                self.data, ref)
+        else:
+            self._handle = loader.load_from_file(self.data)
+        md = self._handle.metadata
+        if self.label is not None:
+            md.set_label(self.label)
+        if self.weight is not None:
+            md.set_weight(self.weight)
+        if self.group is not None:
+            md.set_group(self.group)
+        if self.init_score is not None:
+            md.set_init_score(self.init_score)
+        return self
+
     def create_valid(self, data, label=None, weight=None, group=None,
                      init_score=None, params=None) -> "Dataset":
         return Dataset(data, label=label, reference=self, weight=weight,
                        group=group, init_score=init_score,
                        params=params or self.params)
+
+    def subset(self, used_indices, params=None) -> "Dataset":
+        """The rows ``used_indices`` of this dataset, sharing its bin
+        mappers, built at `construct` (reference basic.py subset)."""
+        ds = Dataset(None, reference=self, params=params or self.params)
+        ds.used_indices = np.asarray(used_indices, np.int64)
+        return ds
+
+    def save_binary(self, filename: str) -> "Dataset":
+        """Write the JAX package's binary dataset file."""
+        self.construct()
+        self._handle.save_binary(filename)
+        return self
+
+    def set_label(self, label) -> "Dataset":
+        self.label = label
+        if self._handle is not None and label is not None:
+            self._handle.metadata.set_label(label)
+        return self
+
+    def set_weight(self, weight) -> "Dataset":
+        self.weight = weight
+        if self._handle is not None:
+            self._handle.metadata.set_weight(weight)
+        return self
 
     def set_group(self, group) -> "Dataset":
         """Query sizes (or boundaries) of the rows, in row order."""
@@ -102,6 +171,28 @@ class Dataset:
         if self._handle is not None:
             self._handle.metadata.set_group(group)
         return self
+
+    def set_init_score(self, init_score) -> "Dataset":
+        self.init_score = init_score
+        if self._handle is not None:
+            self._handle.metadata.set_init_score(init_score)
+        return self
+
+    def get_weight(self):
+        if self._handle is not None \
+                and self._handle.metadata.weight is not None:
+            return np.asarray(self._handle.metadata.weight)
+        return self.weight
+
+    def get_group(self):
+        """Query sizes, from the constructed dataset where it has them."""
+        if self._handle is not None \
+                and self._handle.metadata.query_boundaries is not None:
+            return np.diff(self._handle.metadata.query_boundaries)
+        return self.group
+
+    def get_init_score(self):
+        return self.init_score
 
     @property
     def num_data(self) -> int:
@@ -232,7 +323,8 @@ class Booster:
     # ------------------------------------------------------------------
     def predict(self, data, num_iteration: Optional[int] = None,
                 raw_score: bool = False, pred_leaf: bool = False,
-                start_iteration: int = 0) -> np.ndarray:
+                pred_contrib: bool = False, start_iteration: int = 0,
+                **kwargs) -> np.ndarray:
         """Predictions for a dense or scipy sparse matrix [N, F_total]:
         probabilities (or the objective's output transform) unless
         ``raw_score``, [N] for one class and [N, K] for K; leaf indices
@@ -240,13 +332,22 @@ class Booster:
         ``num_iteration`` count iterations of K trees. A sparse matrix is
         made dense a block of rows at a time, under 256 MB of f64 a block
         (the reference's LGBM_BoosterPredictForCSR; JAX package:
-        basic.py:658-670)."""
+        basic.py:658-670). A path predicts a data file's rows (reference
+        LGBM_BoosterPredictForFile; ``header`` / ``data_has_header`` in
+        the keyword arguments), read as `_read_predict_file` reads it.
+        ``pred_contrib`` raises until SHAP is ported (ROADMAP A.5)."""
+        if pred_contrib:
+            raise NotImplementedError("pred_contrib: SHAP values are not "
+                                      "ported yet (ROADMAP A.5)")
+        if isinstance(data, str):
+            data = self._read_predict_file(data, kwargs)
         if _is_sparse(data):
             csr = data.tocsr()
             rows_per = max(1, (256 << 20) // (8 * max(1, csr.shape[1])))
             return np.concatenate([
                 self.predict(csr[lo:lo + rows_per].toarray(), num_iteration,
-                             raw_score, pred_leaf, start_iteration)
+                             raw_score, pred_leaf,
+                             start_iteration=start_iteration)
                 for lo in range(0, max(csr.shape[0], 1), rows_per)], axis=0)
         X = _to_matrix(data)
         k = self.num_tree_per_iteration
@@ -279,6 +380,57 @@ class Booster:
             return np.stack([objective.convert_output(raw[:, c])
                              for c in range(k)], axis=1)
         return objective.convert_output(raw)
+
+    def _read_predict_file(self, path: str, kwargs: Dict) -> np.ndarray:
+        """The feature matrix of a data file to predict (JAX package:
+        basic.py:595-640): a file whose column count equals the model's
+        feature count has no label column (reference predictor.hpp:185),
+        with a warning where its first column looks like a label; LibSVM
+        rows missing trailing features read them as zero."""
+        from .io.file_io import open_file
+        from .io.loader import DatasetLoader
+        from .utils import log
+        cfg = Config.from_params({**self.params, **kwargs})
+        cfg.header = bool(kwargs.get("data_has_header",
+                                     kwargs.get("header", cfg.header)))
+        nf_model = (self._gbdt.train_data.num_total_features
+                    if self._gbdt is not None else
+                    self._loaded.get("max_feature_idx", -2) + 1)
+        with open_file(path, errors="replace") as f:
+            if cfg.header:
+                f.readline()
+            first = f.readline()
+        ncols = 0
+        if first.strip():
+            if ":" in first and "," not in first:
+                ncols = -1          # libsvm: sparse, keep default
+            else:
+                for sep in ("\t", ",", " "):
+                    if sep in first:
+                        ncols = len(first.rstrip("\r\n").split(sep))
+                        break
+        if ncols == nf_model:
+            cfg.label_column = "-1"
+            try:
+                tok = first.replace("\t", ",").replace(" ", ",") \
+                    .split(",")[0]
+                v = float(tok)
+                if np.isfinite(v) and v == int(v) and 0 <= v <= 100:
+                    log.warning(
+                        f"treating {path!r} as label-free because its "
+                        f"column count ({ncols}) equals the model's "
+                        f"feature count, but the first column looks "
+                        f"label-like; if this file HAS labels, the "
+                        f"features are mis-aligned — score a file "
+                        f"with {nf_model + 1} columns or strip the "
+                        f"label column")
+            except ValueError:
+                pass
+        _, feats, _ex = DatasetLoader(cfg, device=self.device).parse_file(
+            path)
+        if ncols == -1 and nf_model > 0 and feats.shape[1] < nf_model:
+            feats = np.pad(feats, ((0, 0), (0, nf_model - feats.shape[1])))
+        return feats
 
     def _is_average_output(self) -> bool:
         """An RF model averages its trees: one this booster trained, or

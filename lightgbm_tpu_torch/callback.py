@@ -74,7 +74,9 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
     """Stop when no validation result has improved for
     ``stopping_rounds`` iterations (reference callback.py:174-236): the
     train set's own results never stop training; with
-    ``first_metric_only`` only the first metric does; off under DART."""
+    ``first_metric_only`` only the first metric does; off under DART.
+    It takes `cv`'s 5-field results too, which the JAX package's raises
+    on (ROADMAP C.33)."""
     best_score: List[float] = []
     best_iter: List[int] = []
     best_score_list: List = []
@@ -98,7 +100,8 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
             print(f"Training until validation scores don't improve for "
                   f"{stopping_rounds} rounds.")
         first_metric[0] = env.evaluation_result_list[0][1]
-        for _, _, _, bigger_better in env.evaluation_result_list:
+        for entry in env.evaluation_result_list:
+            bigger_better = entry[3]
             best_iter.append(0)
             best_score_list.append(None)
             if bigger_better:
@@ -121,7 +124,9 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
         if not enabled[0]:
             return
         for i in range(len(env.evaluation_result_list)):
-            data_name, eval_name, score, _ = env.evaluation_result_list[i]
+            # a result is (data, metric, value, bigger_is_better), and
+            # cv's has its standard deviation fifth
+            data_name, eval_name, score = env.evaluation_result_list[i][:3]
             if best_score_list[i] is None or cmp_op[i](score, best_score[i]):
                 best_score[i] = score
                 best_iter[i] = env.iteration

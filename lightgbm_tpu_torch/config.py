@@ -407,6 +407,14 @@ class Config:
     tpu_hist_subbin: str = "auto"
     tpu_hist_spill_vmem_mb: float = 48.0
     tpu_quant_hist_bits: int = 16
+    # file and CLI options (lightgbm_tpu/config.py:472, 538, 556-562): the
+    # CLI's rolling snapshot count, read; streaming ingest, tracing and
+    # checkpoints, which the port lacks (ROADMAP A.4, A.9, A.8), parsed so
+    # that a run which sets them raises rather than ignoring them
+    tpu_snapshot_keep: int = 3
+    tpu_stream_chunk_rows: int = 0
+    tpu_trace: bool = False
+    tpu_checkpoint_dir: str = ""
 
     # internal (set by trainer, reference config.h:832-833)
     is_parallel: bool = False

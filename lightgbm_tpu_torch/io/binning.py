@@ -383,3 +383,38 @@ class BinMapper:
         if self.bin_type == BIN_NUMERICAL:
             return float(self.bin_upper_bound[bin_idx])
         return float(self.bin_2_categorical[bin_idx])
+
+    # ------------------------------------------------------------------
+    def to_dict(self) -> dict:
+        """The binary dataset file's mapper entry (JAX package:
+        `BinMapper.to_dict`; the same keys, order and value forms)."""
+        return {
+            "num_bin": int(self.num_bin),
+            "missing_type": self.missing_type,
+            "is_trivial": bool(self.is_trivial),
+            "sparse_rate": self.sparse_rate,
+            "bin_type": self.bin_type,
+            "bin_upper_bound": [repr(float(x)) for x in self.bin_upper_bound],
+            "bin_2_categorical": [int(c) for c in self.bin_2_categorical],
+            "min_val": self.min_val,
+            "max_val": self.max_val,
+            "default_bin": int(self.default_bin),
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "BinMapper":
+        m = cls()
+        m.num_bin = int(d["num_bin"])
+        m.missing_type = d["missing_type"]
+        m.is_trivial = bool(d["is_trivial"])
+        m.sparse_rate = float(d["sparse_rate"])
+        m.bin_type = d["bin_type"]
+        m.bin_upper_bound = np.asarray([float(x)
+                                        for x in d["bin_upper_bound"]])
+        m.bin_2_categorical = [int(x) for x in d["bin_2_categorical"]]
+        m.categorical_2_bin = {c: i for i, c in
+                               enumerate(m.bin_2_categorical)}
+        m.min_val = float(d["min_val"])
+        m.max_val = float(d["max_val"])
+        m.default_bin = int(d["default_bin"])
+        return m

@@ -1,5 +1,6 @@
 """Binned dataset container (port of lightgbm_tpu/io/dataset.py: dense
-and scipy CSR/CSC input, exclusive feature bundling).
+and scipy CSR/CSC input, exclusive feature bundling, row subsets and the
+binary dataset file).
 
 Bin finding runs on the host exactly as in the JAX package (the same
 sample draw, the same `BinMapper`s), so both packages bin a matrix to the
@@ -7,23 +8,32 @@ same bins. A dense matrix's full ingest, value -> bin for every row, runs
 on the device as one `torch.searchsorted` per feature; a sparse matrix is
 binned from each column's nonzeros on the host, which are scattered over
 the column's zero bin on the device (no dense float copy is made).
-The binned matrix lives there as ``uint8 [N, F]``, or, once bundled
-(`io/bundling.py`), as ``uint8 [N, G]`` storage columns: ``num_features``
-counts the features, ``num_storage_cols`` the columns. Streaming ingest
-and the binary dataset file are later slices.
+The binned matrix lives there as ``uint8 [N, F]`` while every used
+feature has at most 256 bins, else as ``uint16 [N, F]`` (the JAX
+package's rule; `ops/bins.py` says how torch reads it), or, once bundled
+(`io/bundling.py`, uint8 only), as ``uint8 [N, G]`` storage columns:
+``num_features`` counts the features, ``num_storage_cols`` the columns.
+`save_binary` writes the JAX package's binary dataset file byte for
+byte, and `load_binary` reads a file of either package. Streaming ingest
+is a later slice.
 """
 from __future__ import annotations
 
+import json
+import struct
+import warnings
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..config import Config
+from ..ops.bins import bins_dtype, storage_view, to_storage
 from .binning import (BIN_CATEGORICAL, BIN_NUMERICAL, MISSING_NAN,
                       MISSING_NONE, MISSING_ZERO, BinMapper)
 from .bundling import BundleInfo, apply_bundles, plan_bundles
 
+_BINARY_MAGIC = b"tpu_gbdt_dataset_v1\n"
 _MISSING_CODE = {MISSING_NONE: 0, MISSING_ZERO: 1, MISSING_NAN: 2}
 _BINTYPE_CODE = {BIN_NUMERICAL: 0, BIN_CATEGORICAL: 1}
 
@@ -124,8 +134,8 @@ class Dataset:
 
     Attributes
     ----------
-    bins : torch.Tensor uint8 [num_data, num_storage_cols] on ``device``:
-        a column a used feature, or a bundle's storage column
+    bins : torch.Tensor uint8 or uint16 [num_data, num_storage_cols] on
+        ``device``: a column a used feature, or a bundle's storage column
     bundles : BundleInfo or None
         the bundling of the used features (`io/bundling.py`)
     mappers : list[BinMapper]
@@ -147,6 +157,12 @@ class Dataset:
         self.feature_names: List[str] = []
         self.metadata: Metadata = Metadata(0)
         self.max_bin: int = 255
+        self.min_data_in_bin: int = 3
+        self.use_missing: bool = True
+        self.zero_as_missing: bool = False
+        # the init scores are an init model's raw predictions (the CLI's
+        # continued training; `engine._seed_from_model`)
+        self.init_score_from_model: bool = False
         self.monotone_constraints: np.ndarray = np.zeros(0, dtype=np.int8)
         self.feature_penalty: np.ndarray = np.zeros(0, dtype=np.float64)
 
@@ -207,6 +223,9 @@ class Dataset:
         self.num_total_features = f
         self.metadata = Metadata(n)
         self.max_bin = cfg.max_bin
+        self.min_data_in_bin = cfg.min_data_in_bin
+        self.use_missing = cfg.use_missing
+        self.zero_as_missing = cfg.zero_as_missing
         self.feature_names = (list(feature_names) if feature_names
                               else [f"Column_{i}" for i in range(f)])
         if reference is not None:
@@ -273,19 +292,31 @@ class Dataset:
         self.feature_penalty = pen[self.real_feature_idx] \
             if used else np.zeros(0, dtype=np.float64)
 
+    def _bins_dtype(self) -> torch.dtype:
+        """The matrix's type by the JAX package's rule (uint16 past 256
+        bins), warning as it does of categorical features whose bins the
+        256-bin bitset cannot all reach."""
+        used = self.real_feature_idx
+        for j in used:
+            m = self.mappers[j]
+            if m.bin_type == BIN_CATEGORICAL and m.num_bin > 256:
+                warnings.warn(
+                    f"categorical feature {j} has {m.num_bin} bins; only the "
+                    "256 most frequent categories are split candidates "
+                    "(device bitset limit)")
+        return bins_dtype(max((self.mappers[j].num_bin for j in used),
+                              default=2))
+
     def _ingest(self, data: np.ndarray) -> torch.Tensor:
-        """uint8 [N, F_used] bins on the device. Numerical columns bin on
-        the device, chunk by chunk; categorical columns bin on the host
-        (`BinMapper.values_to_bins`)."""
+        """uint8 or uint16 [N, F_used] bins on the device. Numerical
+        columns bin on the device, chunk by chunk; categorical columns
+        bin on the host (`BinMapper.values_to_bins`)."""
         used = self.real_feature_idx
         ms = [self.mappers[j] for j in used]
-        if any(m.num_bin > 256 for m in ms):
-            raise NotImplementedError(
-                "more than 256 bins per feature (uint16 bins) is not "
-                "ported yet")
+        dtype = self._bins_dtype()
         n = self.num_data
-        bins = torch.empty((n, len(used)), dtype=torch.uint8,
-                           device=self.device)
+        bins = torch.empty((n, len(used)), dtype=dtype, device=self.device)
+        store = storage_view(bins)
         for lo in range(0, n, _INGEST_ROWS):
             hi = min(n, lo + _INGEST_ROWS)
             chunk = torch.as_tensor(
@@ -293,13 +324,12 @@ class Dataset:
                     self.device).to(torch.float64)
             for c, m in enumerate(ms):
                 if m.bin_type == BIN_NUMERICAL:
-                    bins[lo:hi, c] = values_to_bins_torch(m, chunk[:, c]).to(
-                        torch.uint8)
+                    vals = values_to_bins_torch(m, chunk[:, c])
                 else:
-                    host = m.values_to_bins(
-                        np.asarray(data[lo:hi, used[c]], np.float64))
-                    bins[lo:hi, c] = torch.as_tensor(host.astype(np.uint8),
-                                                     device=self.device)
+                    vals = torch.as_tensor(m.values_to_bins(
+                        np.asarray(data[lo:hi, used[c]], np.float64)),
+                        device=self.device)
+                store[lo:hi, c] = to_storage(vals, dtype)
         return bins
 
     # ------------------------------------------------------------------
@@ -318,7 +348,7 @@ class Dataset:
         `Dataset.from_sparse`): each column's bins are found from its
         nonzeros in the sample rows (zeros are implied by the count, as in
         the dense path), then each column's nonzero bins, found on the
-        host, are scattered over its zero bin in the uint8 matrix on the
+        host, are scattered over its zero bin in the binned matrix on the
         device (the JAX package scatters on the host; the bytes are the
         same)."""
         cfg = config or Config()
@@ -352,23 +382,21 @@ class Dataset:
                 self.mappers.append(m)
             self._finalize_used_features(cfg, f)
         used = self.real_feature_idx
-        if any(self.mappers[j].num_bin > 256 for j in used):
-            raise NotImplementedError(
-                "more than 256 bins per feature (uint16 bins) is not "
-                "ported yet")
+        dtype = self._bins_dtype()
         # each column's zero bin, then its nonzeros' bins (found on the
         # host) scattered over it on the device, a block of columns at a
         # time as flat positions row * F + column
         nf = len(used)
-        bins = torch.zeros((n, nf), dtype=torch.uint8, device=self.device)
-        flat = bins.view(-1)
+        bins = torch.zeros((n, nf), dtype=dtype, device=self.device)
+        store = storage_view(bins)
+        flat = store.view(-1)
         pos, vals, held = [], [], 0
 
         def scatter():
             if pos:
                 flat[torch.as_tensor(np.concatenate(pos)).to(
-                    self.device)] = torch.as_tensor(
-                        np.concatenate(vals)).to(self.device)
+                    self.device)] = to_storage(torch.as_tensor(
+                        np.concatenate(vals)).to(self.device), dtype)
             pos.clear()
             vals.clear()
 
@@ -377,13 +405,14 @@ class Dataset:
             zero_bin = int(m.values_to_bins(np.zeros(1))[0])
             if zero_bin:
                 scatter()
-                bins[:, col_idx] = zero_bin
+                store[:, col_idx] = to_storage(
+                    torch.tensor(zero_bin, device=self.device), dtype)
             lo, hi = csc.indptr[j], csc.indptr[j + 1]
             if hi > lo:
                 nz_bins = m.values_to_bins(
                     np.asarray(csc.data[lo:hi], np.float64))
                 pos.append(csc.indices[lo:hi].astype(np.int64) * nf + col_idx)
-                vals.append(nz_bins.astype(np.uint8))
+                vals.append(nz_bins.astype(np.int32))
                 held += hi - lo
                 if held >= _INGEST_ROWS * 8:
                     scatter()
@@ -428,6 +457,142 @@ class Dataset:
             return
         self.bundles = info
         self.bins = apply_bundles(self.bins, info, db)
+
+    # ------------------------------------------------------------------
+    def subset(self, row_indices) -> "Dataset":
+        """Row subset sharing the bin mappers (reference
+        `Dataset::CopySubset`, used by `cv`'s folds; JAX package:
+        `Dataset.subset`): one gather of the device bins. Query
+        boundaries do not survive an arbitrary subset, as there."""
+        idx = np.asarray(row_indices, dtype=np.int64)
+        out = Dataset()
+        out.device = self.device
+        out.num_data = len(idx)
+        for attr in ("num_total_features", "bundles", "mappers",
+                     "used_feature_map", "real_feature_idx", "feature_names",
+                     "max_bin", "min_data_in_bin", "use_missing",
+                     "zero_as_missing", "init_score_from_model",
+                     "monotone_constraints", "feature_penalty"):
+            setattr(out, attr, getattr(self, attr))
+        if self.bins is not None:
+            rows = torch.as_tensor(idx, device=self.device)
+            out.bins = storage_view(self.bins)[rows].view(self.bins.dtype)
+        out.metadata = Metadata(len(idx))
+        md = self.metadata
+        if md.label is not None:
+            out.metadata.label = md.label[idx]
+        if md.weight is not None:
+            out.metadata.weight = md.weight[idx]
+        if md.init_score is not None:
+            ns = len(md.init_score) // self.num_data
+            out.metadata.init_score = md.init_score.reshape(
+                ns, self.num_data)[:, idx].reshape(-1)
+        return out
+
+    # ------------------------------------------------------------------
+    # binary serialization (reference Dataset::SaveBinaryFile /
+    # DatasetLoader::LoadFromBinFile): the JAX package's format, the
+    # magic, a length-prefixed JSON header with its keys in its order,
+    # then the arrays as `np.save` writes them
+    def _host_bins(self) -> np.ndarray:
+        host = storage_view(self.bins).cpu().numpy()
+        return host.view(np.uint16) if self.bins.dtype == torch.uint16 \
+            else host
+
+    def save_binary(self, path: str) -> None:
+        bins = None if self.bins is None else self._host_bins()
+        header = {
+            "num_data": self.num_data,
+            "num_total_features": self.num_total_features,
+            "max_bin": self.max_bin,
+            "min_data_in_bin": self.min_data_in_bin,
+            "use_missing": self.use_missing,
+            "zero_as_missing": self.zero_as_missing,
+            "feature_names": self.feature_names,
+            "used_feature_map": self.used_feature_map.tolist(),
+            "real_feature_idx": self.real_feature_idx.tolist(),
+            "monotone": self.monotone_constraints.tolist(),
+            "penalty": self.feature_penalty.tolist(),
+            "mappers": [m.to_dict() for m in self.mappers],
+            "bins_dtype": str(bins.dtype) if bins is not None else "",
+            "bundles": (None if self.bundles is None else {
+                "num_groups": int(self.bundles.num_groups),
+                "col": self.bundles.col.tolist(),
+                "off": self.bundles.off.tolist(),
+                "packed": self.bundles.packed.tolist(),
+                "group_num_bin": self.bundles.group_num_bin.tolist(),
+            }),
+            "has_label": self.metadata.label is not None,
+            "has_weight": self.metadata.weight is not None,
+            "has_query": self.metadata.query_boundaries is not None,
+            "has_init_score": self.metadata.init_score is not None,
+        }
+        from .file_io import open_file
+        with open_file(path, "wb") as fh:
+            fh.write(_BINARY_MAGIC)
+            hb = json.dumps(header).encode()
+            fh.write(struct.pack("<q", len(hb)))
+            fh.write(hb)
+            if bins is not None:
+                np.save(fh, bins, allow_pickle=False)
+            for arr in (self.metadata.label, self.metadata.weight,
+                        self.metadata.query_boundaries,
+                        self.metadata.init_score):
+                if arr is not None:
+                    np.save(fh, arr, allow_pickle=False)
+
+    @classmethod
+    def load_binary(cls, path: str,
+                    device: Optional[torch.device] = None) -> "Dataset":
+        """A binary dataset file of either package, its bins on
+        ``device`` (the CPU by default)."""
+        from .file_io import open_file
+        with open_file(path, "rb") as fh:
+            if fh.read(len(_BINARY_MAGIC)) != _BINARY_MAGIC:
+                raise ValueError(f"{path} is not a tpu_gbdt binary dataset")
+            (hlen,) = struct.unpack("<q", fh.read(8))
+            header = json.loads(fh.read(hlen).decode())
+            self = cls()
+            self.device = torch.device(device) if device is not None \
+                else torch.device("cpu")
+            for key in ("num_data", "num_total_features", "max_bin",
+                        "min_data_in_bin", "use_missing", "zero_as_missing",
+                        "feature_names"):
+                setattr(self, key, header[key])
+            self.used_feature_map = np.asarray(header["used_feature_map"],
+                                               dtype=np.int32)
+            self.real_feature_idx = np.asarray(header["real_feature_idx"],
+                                               dtype=np.int32)
+            self.monotone_constraints = np.asarray(header["monotone"],
+                                                   dtype=np.int8)
+            self.feature_penalty = np.asarray(header["penalty"])
+            self.mappers = [BinMapper.from_dict(d) for d in header["mappers"]]
+            bd = header.get("bundles")
+            if bd is not None:
+                self.bundles = BundleInfo(
+                    num_groups=int(bd["num_groups"]),
+                    col=np.asarray(bd["col"], np.int32),
+                    off=np.asarray(bd["off"], np.int32),
+                    packed=np.asarray(bd["packed"], bool),
+                    group_num_bin=np.asarray(bd["group_num_bin"], np.int32))
+            self.metadata = Metadata(self.num_data)
+            if header["bins_dtype"]:
+                host = np.load(fh, allow_pickle=False)
+                wide = host.dtype == np.uint16
+                self.bins = torch.from_numpy(
+                    host.view(np.int16) if wide else host).to(self.device)
+                if wide:
+                    self.bins = self.bins.view(torch.uint16)
+            md = self.metadata
+            if header["has_label"]:
+                md.label = np.load(fh, allow_pickle=False)
+            if header["has_weight"]:
+                md.weight = np.load(fh, allow_pickle=False)
+            if header["has_query"]:
+                md.query_boundaries = np.load(fh, allow_pickle=False)
+            if header["has_init_score"]:
+                md.init_score = np.load(fh, allow_pickle=False)
+        return self
 
     # ------------------------------------------------------------------
     def feature_meta_arrays(self) -> Dict[str, np.ndarray]:

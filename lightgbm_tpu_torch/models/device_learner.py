@@ -50,6 +50,7 @@ import torch
 
 from ..config import Config
 from ..io.dataset import Dataset
+from ..ops.bins import storage_view, take_bins
 from ..ops.histogram import leaf_histogram, quantize_gh, subtract_histogram
 from ..io.bundling import expansion_map
 from ..ops.partition import (MISSING_NAN_C, MISSING_ZERO_C, bundle_unpack,
@@ -141,7 +142,8 @@ class DeviceTreeLearner:
         self.has_cat = bool((self.meta["bin_type"] == 1).any())
         self.max_bin_global = int(self.meta["num_bin"].max()) \
             if self.num_features else 2
-        self.bins = dataset.bins.to(device).contiguous()
+        self.bins = storage_view(dataset.bins).to(device).contiguous().view(
+            dataset.bins.dtype)
         self._bins_T: Optional[torch.Tensor] = None
         self._init_bundles(dataset.bundles)
         self.hyper = SplitHyper.from_config(cfg)
@@ -300,7 +302,8 @@ class DeviceTreeLearner:
         """Transposed bins [F, N]: the split feature's column is one
         contiguous row for the partition step."""
         if self._bins_T is None:
-            self._bins_T = self.bins.t().contiguous()
+            self._bins_T = storage_view(self.bins).t().contiguous().view(
+                self.bins.dtype)
         return self._bins_T
 
     def feature_mask(self) -> Optional[np.ndarray]:
@@ -1010,7 +1013,7 @@ def _walk_binned(bins, left, right, feat, thr, default_left, missing_type,
     for _ in range(int(depth.max()) + 1):
         safe = node.clamp(min=0)
         if node_bundle is None:
-            fval = bins[rows, f_t[safe]].to(torch.int32)
+            fval = take_bins(bins, rows, f_t[safe])
         else:
             fval = bundle_unpack(bins[rows, col_t[safe]].to(torch.int64),
                                  off_t[safe], pk_t[safe], db_t[safe],

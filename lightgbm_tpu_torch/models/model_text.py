@@ -177,3 +177,141 @@ def load_model_from_string(text: str) -> Dict:
     out.setdefault("num_tree_per_iteration", 1)
     out.setdefault("objective", "regression")
     return out
+
+
+# ---------------------------------------------------------------------------
+# if-else C++ codegen (reference `GBDT::SaveModelToIfElse` /
+# `Tree::ToIfElse`, gbdt_model_text.cpp:64-246, tree.cpp:314-470): emits a
+# standalone translation unit with one nested-if function per tree plus a
+# `Predict` aggregator, for deployment without the framework.
+# ---------------------------------------------------------------------------
+def _tree_to_if_else(tree: Tree, idx: int) -> str:
+    lines = [f"double PredictTree{idx}(const double* arr) {{"]
+    cat_decls = []
+    for ci in range(len(tree.cat_boundaries) - 1):
+        lo, hi = tree.cat_boundaries[ci], tree.cat_boundaries[ci + 1]
+        words = ", ".join(f"{int(w)}u" for w in tree.cat_threshold[lo:hi])
+        cat_decls.append(
+            f"  static const unsigned int cat_threshold_{idx}_{ci}[] = "
+            f"{{{words}}};")
+    lines.extend(cat_decls)
+
+    def emit(node: int, depth: int) -> None:
+        pad = "  " * (depth + 1)
+        if node < 0:
+            leaf = ~node
+            lines.append(f"{pad}return {float(tree.leaf_value[leaf])!r};")
+            return
+        f = int(tree.split_feature[node])
+        mt = tree.node_missing_type(node)
+        if tree.node_is_categorical(node):
+            # cat-bitset index lives in `threshold` in BOTH the native and
+            # reference text formats (reference Tree::ToIfElse casts
+            # threshold_[node]); threshold_in_bin is absent from reference
+            # files and would silently pick bitset 0
+            ci = int(tree.threshold[node])
+            cond = (f"CategoricalDecision(arr[{f}], "
+                    f"cat_threshold_{idx}_{ci}, "
+                    f"{tree.cat_boundaries[ci + 1] - tree.cat_boundaries[ci]},"
+                    f" {mt})")
+        else:
+            thr = float(tree.threshold[node])
+            dl = "true" if tree.node_default_left(node) else "false"
+            cond = f"NumericalDecision(arr[{f}], {thr!r}, {mt}, {dl})"
+        lines.append(f"{pad}if ({cond}) {{")
+        emit(int(tree.left_child[node]), depth + 1)
+        lines.append(f"{pad}}} else {{")
+        emit(int(tree.right_child[node]), depth + 1)
+        lines.append(f"{pad}}}")
+
+    if tree.num_leaves <= 1:
+        lines.append(f"  return {float(tree.leaf_value[0])!r};")
+    else:
+        emit(0, 0)
+    lines.append("}")
+    return "\n".join(lines)
+
+
+_IF_ELSE_PRELUDE = '''\
+// Generated by lightgbm_tpu (reference: GBDT::SaveModelToIfElse,
+// src/boosting/gbdt_model_text.cpp:64). Standalone single-row predictor.
+#include <cmath>
+#include <cstdint>
+
+namespace {
+
+inline bool IsZero(double v) { return v > -1e-35 && v < 1e-35; }
+
+// missing_type: 0=None 1=Zero 2=NaN (include/LightGBM/bin.h:26-30)
+inline bool NumericalDecision(double fval, double threshold,
+                              int missing_type, bool default_left) {
+  if (std::isnan(fval) && missing_type != 2) fval = 0.0;
+  if ((missing_type == 1 && IsZero(fval)) ||
+      (missing_type == 2 && std::isnan(fval))) {
+    return default_left;
+  }
+  return fval <= threshold;
+}
+
+inline bool FindInBitset(const unsigned int* bits, int n, int pos) {
+  int i1 = pos / 32;
+  if (i1 >= n) return false;
+  return (bits[i1] >> (pos % 32)) & 1;
+}
+
+inline bool CategoricalDecision(double fval, const unsigned int* bits,
+                                int n_words, int missing_type) {
+  int ival;
+  if (std::isnan(fval)) {
+    if (missing_type == 2) return false;
+    ival = 0;
+  } else {
+    ival = static_cast<int>(fval);
+    if (ival < 0) return false;
+  }
+  return FindInBitset(bits, n_words, ival);
+}
+
+}  // namespace
+
+'''
+
+
+def model_to_if_else(models: List[Tree], num_tree_per_iteration: int,
+                     average_output: bool = False) -> str:
+    """Emit a standalone C++ predictor for the ensemble (the CLI
+    ``task=convert_model`` output, reference `application.h:84`)."""
+    parts = [_IF_ELSE_PRELUDE]
+    for i, t in enumerate(models):
+        parts.append(_tree_to_if_else(t, i))
+        parts.append("")
+    n = len(models)
+    k = max(1, num_tree_per_iteration)
+    funs = ", ".join(f"PredictTree{i}" for i in range(n)) or ""
+    parts.append(f"static double (*const kTreeFuns[{max(n, 1)}])"
+                 f"(const double*) = {{{funs}}};")
+    parts.append(f"""
+extern "C" {{
+
+const int kNumTrees = {n};
+const int kNumTreePerIteration = {k};
+
+// raw ensemble score for one class; output array len {k} for PredictMulti
+double PredictRaw(const double* features, int class_id) {{
+  double sum = 0.0;
+  for (int i = class_id; i < kNumTrees; i += kNumTreePerIteration) {{
+    sum += kTreeFuns[i](features);
+  }}
+  {"return kNumTrees ? sum / (kNumTrees / kNumTreePerIteration) : sum;"
+   if average_output else "return sum;"}
+}}
+
+void PredictMulti(const double* features, double* out) {{
+  for (int c = 0; c < kNumTreePerIteration; ++c) {{
+    out[c] = PredictRaw(features, c);
+  }}
+}}
+
+}}  // extern "C"
+""")
+    return "\n".join(parts)

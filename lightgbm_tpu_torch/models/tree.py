@@ -189,6 +189,12 @@ class Tree:
     def node_is_categorical(self, node: int) -> bool:
         return bool(self.decision_type[node] & K_CATEGORICAL_MASK)
 
+    def node_missing_type(self, node: int) -> int:
+        return (int(self.decision_type[node]) >> 2) & 3
+
+    def node_default_left(self, node: int) -> bool:
+        return bool(self.decision_type[node] & K_DEFAULT_LEFT_MASK)
+
     # ------------------------------------------------------------------
     # text model round-trip (reference Tree::ToString tree.cpp:206-239 /
     # Tree::Tree(const char*) tree.cpp:472+)

@@ -72,9 +72,23 @@
 // keeps the launch structure above: one launch a call, tickets, no
 // memset.
 //
+// The uint16 route (a matrix whose largest feature has more than 256
+// bins, the JAX package's dtype rule): the bin type is a template
+// parameter of each kernel, chosen at the launch (lgbt_hist16_*). A row's
+// bins are read as 32-bit words, two features a load (`add_row16`): whole
+// words where every tile's row slice starts on a 4-byte boundary (F and
+// the feature tile even), else the words that hold its halves. Cells are
+// 20 (12) bytes as above, so a tile holds fewer features: 511 bins take
+// ~10 KB a feature, 1,023 ~20 KB. Where one feature's cells exceed the
+// shared-memory opt-in (beyond ~11,600 bins of 20-byte cells) the bin
+// axis is tiled too: blockIdx.z takes the bins [b0, b0 + bin_tile) of a
+// one-feature tile, whose cells are contiguous in the output, and each
+// (feature tile, bin tile) pair has its own ticket. The uint8
+// instantiations keep the word reads above and one bin tile.
+//
 // The gather of the leaf's rows is fused: the kernels read the leaf's
 // slice of the partition, indices[begin, begin + count), and the rows of
-// bins [N, F] (uint8) and gh [N, 2] (f32) it names, or the contiguous rows
+// bins [N, F] (uint8 or uint16) and gh [N, 2] (f32) it names, or the contiguous rows
 // [begin, begin + count) when indices is null (the identity root
 // partition). No gathered [P, F] copy is written.
 //
@@ -152,31 +166,122 @@ __device__ __forceinline__ void add_row(const uint8_t* brow, int nf,
   }
 }
 
-// The end of a call: the feature tile's last CTA writes its cells [base,
-// base + cells) of out [F * B, 3] (`finalize`).
+// One row's uint16 bins of the CTA's tile (brow, nf features) into the
+// cells: add(f * nbt + bin - b0) for each feature f whose bin lies in the
+// CTA's bin tile [b0, b0 + nbt), from the warp's feature on, wrapping;
+// read as 32-bit words, two features a load. words: brow is 4-byte
+// aligned and nf is even; else brow is 2-byte aligned and each bin is
+// taken from the aligned word that holds it.
+template <typename Add>
+__device__ __forceinline__ void add_row16(const uint16_t* brow, int nf,
+                                          bool words, int rot_w, int rot_f,
+                                          int b0, int nbt, const Add& add) {
+  if (words) {
+    const unsigned* wrow = reinterpret_cast<const unsigned*>(brow);
+    const int nw = nf >> 1;
+    int w = rot_w;
+    unsigned word = __ldg(wrow + w);
+    for (int k = 0; k < nw; ++k) {
+      const int nxt = w + 1 == nw ? 0 : w + 1;
+      const unsigned next = k + 1 < nw ? __ldg(wrow + nxt) : 0u;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int b = static_cast<int>((word >> (16 * j)) & 0xffffu) - b0;
+        if (static_cast<unsigned>(b) < static_cast<unsigned>(nbt)) {
+          add((2 * w + j) * nbt + b);
+        }
+      }
+      w = nxt;
+      word = next;
+    }
+    return;
+  }
+  const int o = static_cast<int>((reinterpret_cast<uintptr_t>(brow) & 3u)
+                                 >> 1);
+  const unsigned* wrow = reinterpret_cast<const unsigned*>(brow - o);
+  int f = rot_f;
+  int w = (o + f) >> 1;
+  unsigned word = __ldg(wrow + w);
+  for (int k = 0; k < nf; ++k) {
+    const int pos = o + f;
+    if (pos >> 1 != w) {
+      w = pos >> 1;
+      word = __ldg(wrow + w);
+    }
+    const int b = static_cast<int>((word >> (16 * (pos & 1))) & 0xffffu) - b0;
+    if (static_cast<unsigned>(b) < static_cast<unsigned>(nbt)) {
+      add(f * nbt + b);
+    }
+    f = f + 1 == nf ? 0 : f + 1;
+  }
+}
+
+// A row's bins by their type: uint8 rows take add_row (one bin tile, the
+// cell f * num_bins + bin), uint16 rows add_row16
+template <typename Add>
+__device__ __forceinline__ void add_bins(const uint8_t* brow, int nf,
+                                         bool words, int rot_w, int rot_f,
+                                         int num_bins, int, int,
+                                         const Add& add) {
+  add_row(brow, nf, words, rot_w, rot_f, num_bins, add);
+}
+template <typename Add>
+__device__ __forceinline__ void add_bins(const uint16_t* brow, int nf,
+                                         bool words, int rot_w, int rot_f,
+                                         int, int b0, int nbt,
+                                         const Add& add) {
+  add_row16(brow, nf, words, rot_w, rot_f, b0, nbt, add);
+}
+
+// A CTA's tile: features [f0, f0 + nf) (blockIdx.y) and bins [b0, b0 +
+// nbt) (blockIdx.z; one tile of all bins but where the uint16 route tiles
+// the bin axis of a one-feature tile), whose cells [base, base + cells)
+// of the output are contiguous, and its ticket
+struct Tile {
+  int f0, nf, b0, nbt, cells, ticket, rot_w, rot_f;
+  long long base;
+  template <typename Bin>
+  __device__ Tile(int num_features, int num_bins, int feat_per_block,
+                  int bin_tile, int words, const Bin*) {
+    constexpr int kPer = 4 / static_cast<int>(sizeof(Bin));
+    f0 = blockIdx.y * feat_per_block;
+    nf = min(feat_per_block, num_features - f0);
+    b0 = blockIdx.z * bin_tile;
+    nbt = min(bin_tile, num_bins - b0);
+    cells = nf * nbt;
+    base = static_cast<long long>(f0) * num_bins + b0;
+    ticket = blockIdx.y * gridDim.z + blockIdx.z;
+    const int warp = threadIdx.x >> 5;
+    rot_w = words ? warp % (nf / kPer) : 0;
+    rot_f = warp % nf;
+  }
+};
+
+// The end of a call: the tile's last CTA writes its cells [base, base +
+// cells) of out [F * B, 3] (`finalize`).
 template <typename Out>
-__device__ void finish(const Scratch& s, long long base, int cells,
-                       Out* out) {
-  if (last_to_arrive(s.tickets + blockIdx.y, gridDim.x)) {
-    finalize(s.sums + 2 * base, s.cnt + base, s.tickets + blockIdx.y, cells,
-             out + kStats * base);
+__device__ void finish(const Scratch& s, const Tile& t, Out* out) {
+  if (last_to_arrive(s.tickets + t.ticket, gridDim.x)) {
+    finalize(s.sums + 2 * t.base, s.cnt + t.base, s.tickets + t.ticket,
+             t.cells, out + kStats * t.base);
   }
 }
 
 // The f32 path. blockIdx.y picks a tile of feat_per_block features; the
 // CTAs of one feature tile take the leaf's tiles of tile_rows rows in turn.
+template <typename Bin>
 __global__ void __launch_bounds__(kThreads, 1)
-hist_fixed_kernel(const uint8_t* __restrict__ bins, int num_features,
+hist_fixed_kernel(const Bin* __restrict__ bins, int num_features,
                   const float* __restrict__ gh,
                   const int32_t* __restrict__ indices, long long begin,
-                  long long count, int num_bins, int feat_per_block,
-                  int tile_rows, int words, Scratch s,
+                  long long count, int num_bins, int bin_tile,
+                  int feat_per_block, int tile_rows, int words, Scratch s,
                   float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int f0 = blockIdx.y * feat_per_block;
-  const int nf = min(feat_per_block, num_features - f0);
-  const int cells = nf * num_bins;
-  const long long base = static_cast<long long>(f0) * num_bins;
+  const Tile t(num_features, num_bins, feat_per_block, bin_tile, words,
+               bins);
+  const int f0 = t.f0, nf = t.nf, cells = t.cells;
+  const long long base = t.base;
   Cells sm;
   sm.w = reinterpret_cast<unsigned*>(smem_raw);
   sm.sums = s.sums + 2 * base;
@@ -185,9 +290,6 @@ hist_fixed_kernel(const uint8_t* __restrict__ bins, int num_features,
     sm.w[i] = 0u;
   }
   if (threadIdx.x < 2) run_max[threadIdx.x] = 0u;
-  const int warp = threadIdx.x >> 5;
-  const int rot_w = words ? warp % (nf >> 2) : 0;
-  const int rot_f = warp % nf;
   const float2* gh2 = reinterpret_cast<const float2*>(gh);
   const long long num_tiles = (count + tile_rows - 1) / tile_rows;
   for (long long tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
@@ -221,9 +323,9 @@ hist_fixed_kernel(const uint8_t* __restrict__ bins, int num_features,
       unsigned g_hi, g_lo, h_hi, h_lo;
       fg.split(v.x, g_hi, g_lo);
       fh.split(v.y, h_hi, h_lo);
-      add_row(bins + row * num_features + f0, nf, words != 0, rot_w, rot_f,
-              num_bins,
-              [&](int c) { sm.add(c, g_hi, g_lo, h_hi, h_lo); });
+      add_bins(bins + row * num_features + f0, nf, words != 0, t.rot_w,
+               t.rot_f, num_bins, t.b0, t.nbt,
+               [&](int c) { sm.add(c, g_hi, g_lo, h_hi, h_lo); });
     }
     __syncthreads();
     if (threadIdx.x < 2) run_max[threadIdx.x] = 0u;
@@ -241,31 +343,29 @@ hist_fixed_kernel(const uint8_t* __restrict__ bins, int num_features,
       for (int u = 0; u < kCellWords; ++u) p[u] = 0u;
     }
   }
-  finish(s, base, cells, out);
+  finish(s, t, out);
 }
 
 // The f64 path: shared f64 sums [cells, 2] and u32 counts [cells] (20
 // bytes a cell, as the f32 path's), one flush a CTA.
+template <typename Bin>
 __global__ void __launch_bounds__(kThreads, 1)
-hist_f64_kernel(const uint8_t* __restrict__ bins, int num_features,
+hist_f64_kernel(const Bin* __restrict__ bins, int num_features,
                 const float* __restrict__ gh,
                 const int32_t* __restrict__ indices, long long begin,
-                long long count, int num_bins, int feat_per_block,
-                int tile_rows, int words, Scratch s,
+                long long count, int num_bins, int bin_tile,
+                int feat_per_block, int tile_rows, int words, Scratch s,
                 double* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int f0 = blockIdx.y * feat_per_block;
-  const int nf = min(feat_per_block, num_features - f0);
-  const int cells = nf * num_bins;
-  const long long base = static_cast<long long>(f0) * num_bins;
+  const Tile t(num_features, num_bins, feat_per_block, bin_tile, words,
+               bins);
+  const int f0 = t.f0, nf = t.nf, cells = t.cells;
+  const long long base = t.base;
   double* sg = reinterpret_cast<double*>(smem_raw);
   unsigned* sn = reinterpret_cast<unsigned*>(sg + 2 * cells);
   for (int i = threadIdx.x; i < 2 * cells; i += blockDim.x) sg[i] = 0.0;
   for (int i = threadIdx.x; i < cells; i += blockDim.x) sn[i] = 0u;
   __syncthreads();
-  const int warp = threadIdx.x >> 5;
-  const int rot_w = words ? warp % (nf >> 2) : 0;
-  const int rot_f = warp % nf;
   const float2* gh2 = reinterpret_cast<const float2*>(gh);
   const long long num_tiles = (count + tile_rows - 1) / tile_rows;
   for (long long tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
@@ -276,12 +376,12 @@ hist_f64_kernel(const uint8_t* __restrict__ bins, int num_features,
       const long long row = leaf_row(indices, begin, r0 + q);
       const float2 v = __ldg(gh2 + row);
       const double g = v.x, h = v.y;
-      add_row(bins + row * num_features + f0, nf, words != 0, rot_w, rot_f,
-              num_bins, [&](int c) {
-                atomicAdd(sg + 2 * c, g);
-                atomicAdd(sg + 2 * c + 1, h);
-                atomicAdd(sn + c, 1u);
-              });
+      add_bins(bins + row * num_features + f0, nf, words != 0, t.rot_w,
+               t.rot_f, num_bins, t.b0, t.nbt, [&](int c) {
+                 atomicAdd(sg + 2 * c, g);
+                 atomicAdd(sg + 2 * c + 1, h);
+                 atomicAdd(sn + c, 1u);
+               });
     }
   }
   __syncthreads();
@@ -292,20 +392,19 @@ hist_f64_kernel(const uint8_t* __restrict__ bins, int num_features,
     red_add(s.sums + 2 * (base + c) + 1, sg[2 * c + 1]);
     red_add(s.cnt + base + c, k);
   }
-  finish(s, base, cells, out);
+  finish(s, t, out);
 }
 
 // The integer path's end of a call: the feature tile's last CTA rounds
 // its cells' int64 sums (the scratch's f64 words read as int64) and
 // counts to out [F * B, 3] in f32 once and zeroes them and the ticket.
-__device__ void finish_int(const Scratch& s, long long base, int cells,
-                           float* out) {
-  if (!last_to_arrive(s.tickets + blockIdx.y, gridDim.x)) return;
+__device__ void finish_int(const Scratch& s, const Tile& t, float* out) {
+  if (!last_to_arrive(s.tickets + t.ticket, gridDim.x)) return;
   __threadfence();
-  long long* sums = reinterpret_cast<long long*>(s.sums) + 2 * base;
-  unsigned* cnt = s.cnt + base;
-  float* dst = out + kStats * base;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+  long long* sums = reinterpret_cast<long long*>(s.sums) + 2 * t.base;
+  unsigned* cnt = s.cnt + t.base;
+  float* dst = out + kStats * t.base;
+  for (int i = threadIdx.x; i < t.cells; i += blockDim.x) {
     dst[3 * i] = __ll2float_rn(__ldcg(sums + 2 * i));
     dst[3 * i + 1] = __ll2float_rn(__ldcg(sums + 2 * i + 1));
     dst[3 * i + 2] = static_cast<float>(__ldcg(cnt + i));
@@ -313,7 +412,7 @@ __device__ void finish_int(const Scratch& s, long long base, int cells,
     sums[2 * i + 1] = 0;
     cnt[i] = 0u;
   }
-  if (threadIdx.x == 0) s.tickets[blockIdx.y] = 0u;
+  if (threadIdx.x == 0) s.tickets[t.ticket] = 0u;
 }
 
 __device__ __forceinline__ void red_add_s64(long long* p, long long v) {
@@ -330,27 +429,24 @@ template <> struct QPair<int16_t> { using T = short2; };
 // 32-bit words (q_g, q_h, count), flushed into the int64 sums whenever
 // the rows added since the last flush could reach 2^31 / qmax, and at the
 // CTA's end.
-template <typename Q>
+template <typename Q, typename Bin>
 __global__ void __launch_bounds__(kThreads, 1)
-hist_int_kernel(const uint8_t* __restrict__ bins, int num_features,
+hist_int_kernel(const Bin* __restrict__ bins, int num_features,
                 const Q* __restrict__ gh,
                 const int32_t* __restrict__ indices, long long begin,
-                long long count, int num_bins, int feat_per_block,
-                int tile_rows, int words, Scratch s,
+                long long count, int num_bins, int bin_tile,
+                int feat_per_block, int tile_rows, int words, Scratch s,
                 float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr long long kQMax = sizeof(Q) == 1 ? 127 : 32767;
   constexpr long long kFlushRows = 0x7fffffffLL / kQMax;
-  const int f0 = blockIdx.y * feat_per_block;
-  const int nf = min(feat_per_block, num_features - f0);
-  const int cells = nf * num_bins;
-  const long long base = static_cast<long long>(f0) * num_bins;
+  const Tile t(num_features, num_bins, feat_per_block, bin_tile, words,
+               bins);
+  const int f0 = t.f0, nf = t.nf, cells = t.cells;
+  const long long base = t.base;
   unsigned* w = reinterpret_cast<unsigned*>(smem_raw);
   long long* sums = reinterpret_cast<long long*>(s.sums) + 2 * base;
   for (int i = threadIdx.x; i < kStats * cells; i += blockDim.x) w[i] = 0u;
-  const int warp = threadIdx.x >> 5;
-  const int rot_w = words ? warp % (nf >> 2) : 0;
-  const int rot_f = warp % nf;
   using Pair = typename QPair<Q>::T;
   const Pair* gh2 = reinterpret_cast<const Pair*>(gh);
   const long long num_tiles = (count + tile_rows - 1) / tile_rows;
@@ -378,13 +474,13 @@ hist_int_kernel(const uint8_t* __restrict__ bins, int num_features,
       const Pair v = gh2[row];
       const unsigned g = static_cast<unsigned>(static_cast<int>(v.x));
       const unsigned h = static_cast<unsigned>(static_cast<int>(v.y));
-      add_row(bins + row * num_features + f0, nf, words != 0, rot_w, rot_f,
-              num_bins, [&](int c) {
-                unsigned* p = w + kStats * c;
-                atomicAdd(p, g);
-                atomicAdd(p + 1, h);
-                atomicAdd(p + 2, 1u);
-              });
+      add_bins(bins + row * num_features + f0, nf, words != 0, t.rot_w,
+               t.rot_f, num_bins, t.b0, t.nbt, [&](int c) {
+                 unsigned* p = w + kStats * c;
+                 atomicAdd(p, g);
+                 atomicAdd(p + 1, h);
+                 atomicAdd(p + 2, 1u);
+               });
     }
     held += n;
   }
@@ -396,96 +492,119 @@ hist_int_kernel(const uint8_t* __restrict__ bins, int num_features,
     red_add_s64(sums + 2 * c + 1, static_cast<int>(p[1]));
     red_add(s.cnt + base + c, p[2]);
   }
-  finish_int(s, base, cells, out);
+  finish_int(s, t, out);
 }
 
-template <typename Kernel, typename Out, typename GH = float>
+template <typename Bin, typename Out, typename GH, typename Kernel>
 int launch(Kernel kernel, const void* bins, int num_features, const void* gh,
            const void* indices, long long begin, long long count,
-           int num_bins, int feat_per_block, int tile_rows, int grid_x,
-           int words, int smem, void* sums, void* cnt, void* tickets,
-           void* out, void* stream) {
+           int num_bins, int bin_tile, int feat_per_block, int tile_rows,
+           int grid_x, int words, int smem, void* sums, void* cnt,
+           void* tickets, void* out, void* stream) {
   if (count <= 0 || num_features <= 0) return 0;
   const int grid_y = (num_features + feat_per_block - 1) / feat_per_block;
+  const int grid_z = (num_bins + bin_tile - 1) / bin_tile;
   const Scratch s{static_cast<double*>(sums), static_cast<unsigned*>(cnt),
                   static_cast<unsigned*>(tickets)};
-  kernel<<<dim3(grid_x, grid_y), kThreads, smem,
+  kernel<<<dim3(grid_x, grid_y, grid_z), kThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(bins), num_features,
+      static_cast<const Bin*>(bins), num_features,
       static_cast<const GH*>(gh), static_cast<const int32_t*>(indices),
-      begin, count, num_bins, feat_per_block, tile_rows, words, s,
+      begin, count, num_bins, bin_tile, feat_per_block, tile_rows, words, s,
       static_cast<Out*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
+// The kernels, uint8 routes first (the occupancy query's kinds 0-3: f32,
+// f64, int8, int16), then the uint16 routes (kinds 4-7)
+const void* const kKernels[] = {
+    reinterpret_cast<const void*>(hist_fixed_kernel<uint8_t>),
+    reinterpret_cast<const void*>(hist_f64_kernel<uint8_t>),
+    reinterpret_cast<const void*>(hist_int_kernel<int8_t, uint8_t>),
+    reinterpret_cast<const void*>(hist_int_kernel<int16_t, uint8_t>),
+    reinterpret_cast<const void*>(hist_fixed_kernel<uint16_t>),
+    reinterpret_cast<const void*>(hist_f64_kernel<uint16_t>),
+    reinterpret_cast<const void*>(hist_int_kernel<int8_t, uint16_t>),
+    reinterpret_cast<const void*>(hist_int_kernel<int16_t, uint16_t>)};
+constexpr int kNumKernels = 8;
+
 }  // namespace
+
+#define LGBT_HIST_ARGS                                                      \
+  const void *bins, int num_features, const void *gh, const void *indices,  \
+      long long begin, long long count, int num_bins
+#define LGBT_HIST_TAIL                                                      \
+  int feat_per_block, int tile_rows, int grid_x, int words, int smem,       \
+      void *sums, void *cnt, void *tickets, void *out, void *stream
+#define LGBT_HIST_PASS(bin_tile)                                            \
+  bins, num_features, gh, indices, begin, count, num_bins, bin_tile,        \
+      feat_per_block, tile_rows, grid_x, words, smem, sums, cnt, tickets,   \
+      out, stream
 
 extern "C" {
 
-// out: [F, num_bins, 3] (f32 here, f64 for lgbt_hist_f64). sums ([F,
-// num_bins, 2] f64), cnt ([F, num_bins] u32) and tickets (u32, one a
-// feature tile): the scratch of calls on this stream, zero before the
-// call and zero again when it ends. feat_per_block, tile_rows, grid_x and
-// smem are
+// uint8 bins [N, F]. out: [F, num_bins, 3] (f32 here, f64 for
+// lgbt_hist_f64). sums ([F, num_bins, 2] f64), cnt ([F, num_bins] u32)
+// and tickets (u32, one a feature tile): the scratch of calls on this
+// stream, zero before the call and zero again when it ends.
+// feat_per_block, tile_rows, grid_x and smem are
 // ops/histogram.py::launch_shape's; words is 1 where each row's feature
 // tiles start on a 4-byte boundary and hold whole words. Needs
 // lgbt_hist_setup on the device first. Returns the CUDA error code (0 =
 // ok).
-int lgbt_hist_f32(const void* bins, int num_features, const void* gh,
-                  const void* indices, long long begin, long long count,
-                  int num_bins, int feat_per_block, int tile_rows,
-                  int grid_x, int words, int smem, void* sums, void* cnt,
-                  void* tickets, void* out, void* stream) {
-  return launch<decltype(&hist_fixed_kernel), float>(
-      hist_fixed_kernel, bins, num_features, gh, indices, begin, count,
-      num_bins, feat_per_block, tile_rows, grid_x, words, smem, sums, cnt,
-      tickets, out, stream);
+int lgbt_hist_f32(LGBT_HIST_ARGS, LGBT_HIST_TAIL) {
+  return launch<uint8_t, float, float>(hist_fixed_kernel<uint8_t>,
+                                       LGBT_HIST_PASS(num_bins));
 }
 
-int lgbt_hist_f64(const void* bins, int num_features, const void* gh,
-                  const void* indices, long long begin, long long count,
-                  int num_bins, int feat_per_block, int tile_rows,
-                  int grid_x, int words, int smem, void* sums, void* cnt,
-                  void* tickets, void* out, void* stream) {
-  return launch<decltype(&hist_f64_kernel), double>(
-      hist_f64_kernel, bins, num_features, gh, indices, begin, count,
-      num_bins, feat_per_block, tile_rows, grid_x, words, smem, sums, cnt,
-      tickets, out, stream);
+int lgbt_hist_f64(LGBT_HIST_ARGS, LGBT_HIST_TAIL) {
+  return launch<uint8_t, double, float>(hist_f64_kernel<uint8_t>,
+                                        LGBT_HIST_PASS(num_bins));
 }
 
 // The integer path: gh int8 (lgbt_hist_i8) or int16 (lgbt_hist_i16)
 // [N, 2], out f32, the other arguments as lgbt_hist_f32's.
-int lgbt_hist_i8(const void* bins, int num_features, const void* gh,
-                 const void* indices, long long begin, long long count,
-                 int num_bins, int feat_per_block, int tile_rows,
-                 int grid_x, int words, int smem, void* sums, void* cnt,
-                 void* tickets, void* out, void* stream) {
-  return launch<decltype(&hist_int_kernel<int8_t>), float, int8_t>(
-      hist_int_kernel<int8_t>, bins, num_features, gh, indices, begin,
-      count, num_bins, feat_per_block, tile_rows, grid_x, words, smem, sums,
-      cnt, tickets, out, stream);
+int lgbt_hist_i8(LGBT_HIST_ARGS, LGBT_HIST_TAIL) {
+  return launch<uint8_t, float, int8_t>(hist_int_kernel<int8_t, uint8_t>,
+                                        LGBT_HIST_PASS(num_bins));
 }
 
-int lgbt_hist_i16(const void* bins, int num_features, const void* gh,
-                  const void* indices, long long begin, long long count,
-                  int num_bins, int feat_per_block, int tile_rows,
-                  int grid_x, int words, int smem, void* sums, void* cnt,
-                  void* tickets, void* out, void* stream) {
-  return launch<decltype(&hist_int_kernel<int16_t>), float, int16_t>(
-      hist_int_kernel<int16_t>, bins, num_features, gh, indices, begin,
-      count, num_bins, feat_per_block, tile_rows, grid_x, words, smem, sums,
-      cnt, tickets, out, stream);
+int lgbt_hist_i16(LGBT_HIST_ARGS, LGBT_HIST_TAIL) {
+  return launch<uint8_t, float, int16_t>(hist_int_kernel<int16_t, uint8_t>,
+                                         LGBT_HIST_PASS(num_bins));
+}
+
+// The uint16 route: bins uint16 [N, F], bin_tile the bins a CTA takes
+// (num_bins but where the bin axis is tiled; then feat_per_block is 1),
+// tickets one a (feature tile, bin tile); feat_per_block, bin_tile,
+// tile_rows, grid_x and smem are ops/histogram.py::launch_shape16's;
+// words is 1 where each row's feature tiles start on a 4-byte boundary
+// and hold whole words (F and feat_per_block even). The other arguments
+// as lgbt_hist_f32's.
+int lgbt_hist16_f32(LGBT_HIST_ARGS, int bin_tile, LGBT_HIST_TAIL) {
+  return launch<uint16_t, float, float>(hist_fixed_kernel<uint16_t>,
+                                        LGBT_HIST_PASS(bin_tile));
+}
+
+int lgbt_hist16_f64(LGBT_HIST_ARGS, int bin_tile, LGBT_HIST_TAIL) {
+  return launch<uint16_t, double, float>(hist_f64_kernel<uint16_t>,
+                                         LGBT_HIST_PASS(bin_tile));
+}
+
+int lgbt_hist16_i8(LGBT_HIST_ARGS, int bin_tile, LGBT_HIST_TAIL) {
+  return launch<uint16_t, float, int8_t>(hist_int_kernel<int8_t, uint16_t>,
+                                         LGBT_HIST_PASS(bin_tile));
+}
+
+int lgbt_hist16_i16(LGBT_HIST_ARGS, int bin_tile, LGBT_HIST_TAIL) {
+  return launch<uint16_t, float, int16_t>(
+      hist_int_kernel<int16_t, uint16_t>, LGBT_HIST_PASS(bin_tile));
 }
 
 // Once per device (the current one): lets the kernels take the
 // shared-memory opt-in less their static shared memory as dynamic shared
 // memory. Returns those bytes, -1 on a CUDA error.
 int lgbt_hist_setup(int device) {
-  const void* kernels[] = {
-      reinterpret_cast<const void*>(hist_fixed_kernel),
-      reinterpret_cast<const void*>(hist_f64_kernel),
-      reinterpret_cast<const void*>(hist_int_kernel<int8_t>),
-      reinterpret_cast<const void*>(hist_int_kernel<int16_t>)};
   int optin = 0;
   if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              device) != cudaSuccess) {
@@ -493,7 +612,7 @@ int lgbt_hist_setup(int device) {
     return -1;
   }
   size_t static_max = 0;
-  for (const void* k : kernels) {
+  for (const void* k : kKernels) {
     cudaFuncAttributes attr;
     if (cudaFuncGetAttributes(&attr, k) != cudaSuccess) {
       cudaGetLastError();
@@ -502,7 +621,7 @@ int lgbt_hist_setup(int device) {
     if (attr.sharedSizeBytes > static_max) static_max = attr.sharedSizeBytes;
   }
   const int dynamic = optin - static_cast<int>(static_max);
-  for (const void* k : kernels) {
+  for (const void* k : kKernels) {
     if (cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              dynamic) != cudaSuccess) {
       cudaGetLastError();                // clear the error for later launches
@@ -512,20 +631,15 @@ int lgbt_hist_setup(int device) {
   return dynamic;
 }
 
-// CTAs of the f32 (kind 0), f64 (1), int8 (2) or int16 (3) kernel that
-// the CUDA occupancy calculator fits on an SM of the current device with
-// `smem` bytes of dynamic shared memory each (after lgbt_hist_setup); -1
-// on a CUDA error.
+// CTAs of kernel `kind` (kKernels: 0-3 the uint8 f32, f64, int8 and int16
+// kernels, 4-7 the uint16 ones) that the CUDA occupancy calculator fits
+// on an SM of the current device with `smem` bytes of dynamic shared
+// memory each (after lgbt_hist_setup); -1 on a CUDA error.
 int lgbt_hist_occupancy(int kind, int smem) {
-  const void* kernels[] = {
-      reinterpret_cast<const void*>(hist_fixed_kernel),
-      reinterpret_cast<const void*>(hist_f64_kernel),
-      reinterpret_cast<const void*>(hist_int_kernel<int8_t>),
-      reinterpret_cast<const void*>(hist_int_kernel<int16_t>)};
-  if (kind < 0 || kind > 3) return -1;
+  if (kind < 0 || kind >= kNumKernels) return -1;
   int n = -1;
   const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, kernels[kind], kThreads, smem);
+      &n, kKernels[kind], kThreads, smem);
   return e == cudaSuccess ? n : -1;
 }
 

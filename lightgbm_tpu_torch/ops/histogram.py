@@ -25,6 +25,13 @@ A quantized payload (`quantize_gh`: ``gh`` int8 or int16 [N, 2], the
 native 32-bit integer shared atomics over the exact integers, int64 sums
 in device memory, each rounded to f32 once; the twin sums in int64 and
 rounds once too, so the two are equal bit for bit.
+
+uint16 bins (a matrix with a feature of more than 256 bins, `ops/bins.py`)
+take B1's uint16 route, every precision and payload of it: the kernels'
+``uint16_t`` instantiations (``lgbt_hist16_*``), counted in
+`WIDE_LAUNCHES`, over fewer features a tile (`launch_shape16`) and, where
+one feature's cells exceed a CTA's shared memory, tiles of the bin axis.
+The twins read both types.
 """
 from __future__ import annotations
 
@@ -34,6 +41,8 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .bins import take_bins
 
 # payload columns: gradient, hessian, count
 NUM_HIST_STATS = 3
@@ -45,13 +54,17 @@ NUM_HIST_STATS = 3
 LAUNCHES: Dict[str, int] = {"f32": 0, "f64": 0}
 INT_LAUNCHES: Dict[str, int] = {"i8": 0, "i16": 0}
 WORDS_LAUNCHES: Dict[str, int] = {"f32": 0, "f64": 0}
+# B1's uint16 route, by precision and integer payload
+WIDE_LAUNCHES: Dict[str, int] = {"f32": 0, "f64": 0, "i8": 0, "i16": 0}
 
 _DTYPES = {"f32": torch.float32, "f64": torch.float64}
 # B1's integer branch by the dtype of a quantized gh, and its bound
 _INT_KINDS = {torch.int8: "i8", torch.int16: "i16"}
 QMAX = {8: 127.0, 16: 32767.0}
-# the kernels' indices in the libraries' occupancy query
+# the kernels' indices in the libraries' occupancy query (B1's uint16
+# route: these plus `_WIDE_KIND`)
 _KIND_INDEX = {"f32": 0, "f64": 1, "i8": 2, "i16": 3}
+_WIDE_KIND = 4
 # B1 (histogram.cu) and B5 (histogram_words.cu): one CTA of 1024 threads
 # an SM, over tiles of at most HIST_TILE_ROWS rows (of a leaf, or of a
 # segment), each scaled to its own largest |g| and |h| (2^14 rows keep a
@@ -76,10 +89,10 @@ _fns: Dict[str, Dict[str, object]] = {}
 # (library, device ordinal) -> (SMs, dynamic shared memory a CTA may
 # take), once the library's setup ran
 _devices: Dict[Tuple[str, int], Tuple[int, int]] = {}
-# (library, ordinal, F, num_bins, precision) -> (SMs, dynamic shared bytes
-# a CTA may take, CTAs an SM, shared bytes a CTA): what a call needs from
-# above
-_shapes: Dict[Tuple[str, int, int, int, str],
+# (library, ordinal, F, num_bins, precision, uint16 route) -> (SMs,
+# dynamic shared bytes a CTA may take, CTAs an SM, shared bytes a CTA):
+# what a call needs from above
+_shapes: Dict[Tuple[str, int, int, int, str, bool],
               Tuple[int, int, int, int]] = {}
 # (ordinal, stream) -> the scratch of B1's and B5's calls on that stream:
 # f64 sums [cells, 2], and u32 counts [cells] followed by the tickets,
@@ -88,7 +101,7 @@ _scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def reset_launches() -> None:
-    for d in (LAUNCHES, INT_LAUNCHES, WORDS_LAUNCHES):
+    for d in (LAUNCHES, INT_LAUNCHES, WORDS_LAUNCHES, WIDE_LAUNCHES):
         for k in d:
             d[k] = 0
 
@@ -116,7 +129,7 @@ def histogram_plain(bins: torch.Tensor, gh: torch.Tensor,
     payload = torch.cat([gh[rows].to(dtype),
                          torch.ones((rows.numel(), 1), dtype=dtype,
                                     device=bins.device)], dim=1)
-    cell = bins[rows].long() + torch.arange(
+    cell = take_bins(bins, rows).long() + torch.arange(
         f, device=bins.device) * num_bins                      # [P, F]
     out = torch.zeros((f * num_bins, NUM_HIST_STATS), dtype=dtype,
                       device=bins.device)
@@ -133,7 +146,7 @@ def _histogram_plain_int(bins, gh, indices, begin, count, num_bins):
     payload = torch.cat([gh[rows].long(),
                          torch.ones((rows.numel(), 1), dtype=torch.int64,
                                     device=bins.device)], dim=1)
-    cell = bins[rows].long() + torch.arange(
+    cell = take_bins(bins, rows).long() + torch.arange(
         f, device=bins.device) * num_bins                      # [P, F]
     out = torch.zeros((f * num_bins, NUM_HIST_STATS), dtype=torch.int64,
                       device=bins.device)
@@ -167,7 +180,9 @@ def quantize_gh(gh: torch.Tensor, bits: int, key
 
 def _lib(name: str = "histogram") -> Dict[str, object]:
     """The C entry points of library ``name`` (`_PREFIX`), by role:
-    "f32", "f64" (the two kernels' launches), "setup", "occupancy"."""
+    "f32", "f64" (the two kernels' launches), for B1 also "i8", "i16"
+    and the uint16 route's "16_f32" ... "16_i16" (``lgbt_hist16_*``),
+    "setup", "occupancy"."""
     fns = _fns.get(name)
     if fns is None:
         from ..utils import cuda_build
@@ -176,12 +191,19 @@ def _lib(name: str = "histogram") -> Dict[str, object]:
         launch = ([p, i, p, p, ll, ll, i, i, i, i, i, i, p, p, p, p, p]
                   if name == "histogram" else
                   [p, ll, p, p, p, p, i, i, i, i, i, i, p, p, p, p, p])
-        roles = [("f32", launch), ("f64", launch)]
+        pre = _PREFIX[name]
+        roles = [("f32", f"{pre}_f32", launch), ("f64", f"{pre}_f64", launch)]
         if name == "histogram":
-            roles += [("i8", launch), ("i16", launch)]
+            # the uint16 route takes bin_tile after num_bins
+            wide = launch[:7] + [i] + launch[7:]
+            roles += [(k, f"{pre}_{k}", launch) for k in ("i8", "i16")]
+            roles += [(f"16_{k}", f"{pre}16_{k}", wide)
+                      for k in ("f32", "f64", "i8", "i16")]
+        roles += [("setup", f"{pre}_setup", [i]),
+                  ("occupancy", f"{pre}_occupancy", [i, i])]
         fns = {}
-        for role, args in (*roles, ("setup", [i]), ("occupancy", [i, i])):
-            fn = getattr(lib, f"{_PREFIX[name]}_{role}")
+        for role, symbol, args in roles:
+            fn = getattr(lib, symbol)
             fn.argtypes = args
             fn.restype = i
             fns[role] = fn
@@ -225,25 +247,60 @@ def _spread(rows: int, num_bins: int, num_sms: int, ctas_per_sm: int,
                                           / num_bins))))
 
 
+def _row_tiles(count: int, cell_bins: int, num_sms: int, ctas_per_sm: int,
+               grid_yz: int) -> Tuple[int, int]:
+    """(CTAs along the rows, rows per tile): the leaf's ``count`` rows
+    spread over `_spread`'s CTAs, each taking the same number of equal
+    tiles of at most `HIST_TILE_ROWS` rows; never more CTAs than
+    tiles."""
+    rows = max(count, 1)
+    ctas = _spread(rows, cell_bins, num_sms, ctas_per_sm, grid_yz)
+    rows_per_cta = -(-rows // ctas)
+    tiles_per_cta = -(-rows_per_cta // HIST_TILE_ROWS)
+    tile_rows = -(-rows // (ctas * tiles_per_cta))
+    return min(ctas, -(-rows // tile_rows)), tile_rows
+
+
 def launch_shape(count: int, num_features: int, num_bins: int,
                  precision: str, num_sms: int, smem_optin: int,
                  ctas_per_sm: int = 1) -> Tuple[int, int, int]:
     """(features per tile, CTAs along the rows, rows per tile) of kernel
-    B1: the features cut into the fewest equal tiles whose cells fit
-    ``smem_optin`` bytes (whole 4-feature words where ``num_features`` %
-    4 == 0); the leaf's ``count`` rows spread over `_spread`'s CTAs, each
-    taking the same number of equal tiles of at most `HIST_TILE_ROWS`
-    rows; never more CTAs than tiles."""
+    B1 over uint8 bins: the features cut into the fewest equal tiles
+    whose cells fit ``smem_optin`` bytes (whole 4-feature words where
+    ``num_features`` % 4 == 0); the rows as `_row_tiles` cuts them."""
     step = 4 if num_features % 4 == 0 \
         and _cells_fit(num_bins, precision, smem_optin) >= 4 else 1
     fpb = _feature_tile(num_features, num_bins, precision, smem_optin, step)
-    rows = max(count, 1)
-    ctas = _spread(rows, num_bins, num_sms, ctas_per_sm,
-                   -(-num_features // fpb))
-    rows_per_cta = -(-rows // ctas)
-    tiles_per_cta = -(-rows_per_cta // HIST_TILE_ROWS)
-    tile_rows = -(-rows // (ctas * tiles_per_cta))
-    return fpb, min(ctas, -(-rows // tile_rows)), tile_rows
+    return (fpb, *_row_tiles(count, num_bins, num_sms, ctas_per_sm,
+                             -(-num_features // fpb)))
+
+
+def launch_shape16(count: int, num_features: int, num_bins: int,
+                   precision: str, num_sms: int, smem_optin: int,
+                   ctas_per_sm: int = 1) -> Tuple[int, int, int, int]:
+    """(features per tile, bins per tile, CTAs along the rows, rows per
+    tile) of B1's uint16 route: the features cut into the fewest equal
+    tiles whose cells fit ``smem_optin`` bytes (whole 2-feature words
+    where ``num_features`` is even), all bins a tile; where one feature's
+    cells do not fit, one feature a tile and its bins cut into the fewest
+    equal tiles that fit; the rows as `_row_tiles` cuts them, spread by
+    the bins a tile."""
+    fit = _cells_fit(num_bins, precision, smem_optin)
+    if fit >= 1:
+        step = 2 if num_features % 2 == 0 and fit >= 2 else 1
+        fpb = _feature_tile(num_features, num_bins, precision, smem_optin,
+                            step)
+        bin_tile = num_bins
+    else:
+        per = (smem_optin - _SMEM_EXTRA) // _CELL_BYTES[precision]
+        if per < 1:
+            raise ValueError(f"no {precision} cell fits the {smem_optin} B "
+                             "of shared memory")
+        fpb = 1
+        bin_tile = -(-num_bins // -(-num_bins // per))
+    grid_yz = -(-num_features // fpb) * -(-num_bins // bin_tile)
+    return (fpb, bin_tile, *_row_tiles(count, bin_tile, num_sms,
+                                       ctas_per_sm, grid_yz))
 
 
 def words_launch_shape(rows: int, num_features: int, num_bins: int,
@@ -278,13 +335,14 @@ def _device(ordinal: int, name: str = "histogram") -> Tuple[int, int]:
 
 
 def hist_ctas_per_sm(ordinal: int, precision: str, smem: int,
-                     name: str = "histogram") -> int:
-    """CTAs of library ``name``'s ``precision`` kernel with ``smem``
-    shared bytes each that the CUDA occupancy calculator fits on an SM of
-    device ``ordinal``."""
+                     name: str = "histogram", wide: bool = False) -> int:
+    """CTAs of library ``name``'s ``precision`` kernel (B1's uint16 route
+    where ``wide``) with ``smem`` shared bytes each that the CUDA
+    occupancy calculator fits on an SM of device ``ordinal``."""
     _device(ordinal, name)
     with torch.cuda.device(ordinal):
-        n = _lib(name)["occupancy"](_KIND_INDEX[precision], smem)
+        n = _lib(name)["occupancy"](
+            _KIND_INDEX[precision] + (_WIDE_KIND if wide else 0), smem)
     if n < 0:
         raise RuntimeError(f"{name} kernel: the CUDA occupancy query "
                            "failed")
@@ -292,20 +350,29 @@ def hist_ctas_per_sm(ordinal: int, precision: str, smem: int,
 
 
 def _shape_state(ordinal: int, num_features: int, num_bins: int,
-                 precision: str, name: str = "histogram"
+                 precision: str, name: str = "histogram", wide: bool = False
                  ) -> Tuple[int, int, int, int]:
     """(SMs, dynamic shared bytes a CTA may take, CTAs an SM, shared bytes
-    a CTA) of library ``name``'s ``precision`` kernel at ``num_features``
-    x ``num_bins`` on device ``ordinal``, queried once."""
-    key = (name, ordinal, num_features, num_bins, precision)
+    a CTA) of library ``name``'s ``precision`` kernel (B1's uint16 route
+    where ``wide``) at ``num_features`` x ``num_bins`` on device
+    ``ordinal``, queried once; the occupancy query sizes the grid and
+    never the tiles, which take the whole opt-in they need."""
+    key = (name, ordinal, num_features, num_bins, precision, wide)
     st = _shapes.get(key)
     if st is None:
         num_sms, optin = _device(ordinal, name)
-        shape = launch_shape if name == "histogram" else words_launch_shape
-        fpb = shape(1, num_features, num_bins, precision, num_sms, optin)[0]
-        smem = hist_smem(fpb, num_bins, precision)
+        if wide:
+            fpb, bin_tile = launch_shape16(1, num_features, num_bins,
+                                           precision, num_sms, optin)[:2]
+        else:
+            shape = launch_shape if name == "histogram" \
+                else words_launch_shape
+            fpb = shape(1, num_features, num_bins, precision, num_sms,
+                        optin)[0]
+            bin_tile = num_bins
+        smem = hist_smem(fpb, bin_tile, precision)
         st = (num_sms, optin,
-              hist_ctas_per_sm(ordinal, precision, smem, name), smem)
+              hist_ctas_per_sm(ordinal, precision, smem, name, wide), smem)
         _shapes[key] = st
     return st
 
@@ -330,9 +397,11 @@ def _scratch_for(dev: torch.device, ordinal: int, stream: int, cells: int,
 def _histogram_cuda(bins, gh, indices, begin, count, num_bins, precision,
                     ctas: Optional[int] = None):
     dev = bins.device
-    if bins.dtype != torch.uint8 or bins.dim() != 2 \
+    wide = bins.dtype == torch.uint16
+    if bins.dtype not in (torch.uint8, torch.uint16) or bins.dim() != 2 \
             or not bins.is_contiguous():
-        raise ValueError("bins must be a contiguous uint8 [N, F] tensor")
+        raise ValueError("bins must be a contiguous uint8 or uint16 [N, F] "
+                         "tensor")
     if gh.dtype in _INT_KINDS:
         precision = _INT_KINDS[gh.dtype]
     elif gh.dtype != torch.float32:
@@ -350,32 +419,41 @@ def _histogram_cuda(bins, gh, indices, begin, count, num_bins, precision,
             raise ValueError("leaf slice outside the partition")
     elif begin < 0 or begin + count > bins.shape[0]:
         raise ValueError("row range outside bins")
-    if not 1 <= num_bins <= 256:
-        raise ValueError(f"num_bins={num_bins} outside [1, 256]")
+    top = 1 << (16 if wide else 8)
+    if not 1 <= num_bins <= top:
+        raise ValueError(f"num_bins={num_bins} outside [1, {top}]")
     f = bins.shape[1]
     dtype = _DTYPES.get(precision, torch.float32)
     if count == 0 or f == 0:
         return torch.zeros((f, num_bins, NUM_HIST_STATS), dtype=dtype,
                            device=dev)
-    fn = _lib()[precision]
+    fn = _lib()[f"16_{precision}" if wide else precision]
     ordinal = dev.index if dev.index is not None \
         else torch.cuda.current_device()
     num_sms, optin, ctas_per_sm, smem = _shape_state(ordinal, f, num_bins,
-                                                     precision)
-    fpb, grid_x, tile_rows = launch_shape(count, f, num_bins, precision,
-                                          num_sms, optin, ctas_per_sm)
+                                                     precision, wide=wide)
+    if wide:
+        fpb, bin_tile, grid_x, tile_rows = launch_shape16(
+            count, f, num_bins, precision, num_sms, optin, ctas_per_sm)
+        per_word = 2
+    else:
+        fpb, grid_x, tile_rows = launch_shape(count, f, num_bins, precision,
+                                              num_sms, optin, ctas_per_sm)
+        bin_tile, per_word = num_bins, 4
     if ctas is not None:
         # a grid of the caller's (tests: one CTA over many tiles)
         grid_x = max(1, min(int(ctas), -(-count // tile_rows)))
-    words = int(f % 4 == 0 and fpb % 4 == 0 and bins.data_ptr() % 4 == 0)
+    words = int(f % per_word == 0 and fpb % per_word == 0
+                and bins.data_ptr() % 4 == 0)
+    tickets = -(-f // fpb) * -(-num_bins // bin_tile)
     out = torch.empty((f, num_bins, NUM_HIST_STATS), dtype=dtype, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        sums, cnt = _scratch_for(dev, ordinal, stream, f * num_bins,
-                                 -(-f // fpb))
-        err = fn(bins.data_ptr(), f, gh.data_ptr(),
-                 None if indices is None else indices.data_ptr(),
-                 int(begin), int(count), int(num_bins), fpb, tile_rows,
+        sums, cnt = _scratch_for(dev, ordinal, stream, f * num_bins, tickets)
+        head = (bins.data_ptr(), f, gh.data_ptr(),
+                None if indices is None else indices.data_ptr(),
+                int(begin), int(count), int(num_bins))
+        err = fn(*head, *((bin_tile,) if wide else ()), fpb, tile_rows,
                  grid_x, words, smem, sums.data_ptr(), cnt.data_ptr(),
                  cnt.data_ptr() + 4 * (sums.numel() // 2), out.data_ptr(),
                  stream)
@@ -383,9 +461,14 @@ def _histogram_cuda(bins, gh, indices, begin, count, num_bins, precision,
         _scratch.pop((ordinal, stream), None)
         raise RuntimeError(f"histogram kernel launch failed: CUDA error "
                            f"{err} (CTAs={grid_x}, features/tile={fpb}, "
-                           f"rows/tile={tile_rows}, bins={num_bins}, "
-                           f"{precision})")
-    (INT_LAUNCHES if precision in INT_LAUNCHES else LAUNCHES)[precision] += 1
+                           f"bins/tile={bin_tile}, rows/tile={tile_rows}, "
+                           f"bins={num_bins}, {precision}, "
+                           f"{'uint16' if wide else 'uint8'})")
+    if wide:
+        WIDE_LAUNCHES[precision] += 1
+    else:
+        (INT_LAUNCHES if precision in INT_LAUNCHES
+         else LAUNCHES)[precision] += 1
     return out
 
 
@@ -393,7 +476,7 @@ def leaf_histogram(bins: torch.Tensor, gh: torch.Tensor,
                    indices: Optional[torch.Tensor], begin: int, count: int,
                    num_bins: int, precision: str = "f32") -> torch.Tensor:
     """Histogram of one leaf: the rows ``indices[begin:begin + count]`` of
-    ``bins`` [N, F] uint8 and ``gh`` [N, 2] f32, or the contiguous rows
+    ``bins`` [N, F] uint8 or uint16 and ``gh`` [N, 2] f32, or the contiguous rows
     ``[begin, begin + count)`` when ``indices`` is None (the identity root
     partition). Returns [F, num_bins, 3] in f32 (``"f32"``) or f64
     (``"f64"``). An int8/int16 ``gh`` (`quantize_gh`) takes the integer

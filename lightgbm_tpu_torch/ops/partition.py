@@ -21,6 +21,8 @@ from typing import Optional
 
 import torch
 
+from .bins import take_bins
+
 MISSING_NONE_C, MISSING_ZERO_C, MISSING_NAN_C = 0, 1, 2
 
 
@@ -76,7 +78,7 @@ def split_partition(indices: torch.Tensor, bins_col: torch.Tensor,
     categorical split passes its bitset (``cat_bitset``, words [8]) and
     routes by it alone."""
     idx = indices[begin:begin + count]
-    b = bins_col[idx.long()].to(torch.int32)
+    b = take_bins(bins_col, idx.long())
     if bundle_packed:
         b = bundle_unpack(b, bundle_off, 1, default_bin, num_bin)
     if cat_bitset is not None:

@@ -1,12 +1,15 @@
 """Tree-ensemble prediction on the device (port of
-lightgbm_tpu/ops/predict.py: `TreePredictor.predict_raw` and
-`predict_raw_values`).
+lightgbm_tpu/ops/predict.py: `TreePredictor.predict_raw`,
+`predict_raw_values` and `predict_binned_leaves`).
 
 All rows advance one level per step through the stacked node arrays of
 every tree at once, in f64 with the decision semantics of
 `Tree::NumericalDecision` / `CategoricalDecision` (tree.h:216-270); the
 per-tree values are summed in tree order, as the reference's host walk
-does. This module reaches no kernel of its own.
+does. `predict_binned_leaves` walks the binned matrix (uint8, uint16 or
+EFB-bundled) by the trees' bin thresholds instead, as continued training
+replays an init model onto the training scores. This module reaches no
+kernel of its own.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from ..models.tree import Tree
+from .bins import take_bins
 
 MISSING_NONE_C, MISSING_ZERO_C, MISSING_NAN_C = 0, 1, 2
 
@@ -24,10 +28,13 @@ MISSING_NONE_C, MISSING_ZERO_C, MISSING_NAN_C = 0, 1, 2
 _FRONTIER_CELLS = 1 << 24
 
 
-def stack_trees(trees: List[Tree]) -> Dict[str, np.ndarray]:
+def stack_trees(trees: List[Tree], binned: bool = False
+                ) -> Dict[str, np.ndarray]:
     """Stack per-tree node arrays into [T, max_nodes] matrices (+ flat
-    categorical bitsets) for batched traversal over raw feature values
-    (reference `stack_trees(binned=False)`)."""
+    categorical bitsets) for batched traversal over raw feature values,
+    or, ``binned``, over the binned matrix: the inner feature, bin
+    threshold, default and bin count of each node and the bitsets over
+    bins (JAX package: `stack_trees`)."""
     t_count = len(trees)
     max_nodes = max(max(t.num_leaves - 1, 1) for t in trees)
     max_leaves = max(t.num_leaves for t in trees)
@@ -38,6 +45,7 @@ def stack_trees(trees: List[Tree]) -> Dict[str, np.ndarray]:
     sf, dt, lc, rc = zeros(np.int64), zeros(np.int64), zeros(np.int64), \
         zeros(np.int64)
     thr = zeros(np.float64)
+    thr_bin, dbin, nbin = zeros(np.int64), zeros(np.int64), zeros(np.int64)
     cat_start, cat_len = zeros(np.int64), zeros(np.int64)
     leaf_val = np.zeros((t_count, max_leaves), np.float64)
     words: List[int] = []
@@ -47,8 +55,12 @@ def stack_trees(trees: List[Tree]) -> Dict[str, np.ndarray]:
         n = t.num_leaves - 1
         num_leaves[i] = t.num_leaves
         if n > 0:
-            sf[i, :n] = t.split_feature[:n]
+            sf[i, :n] = (t.split_feature_inner if binned
+                         else t.split_feature)[:n]
             thr[i, :n] = t.threshold[:n]
+            thr_bin[i, :n] = t.threshold_in_bin[:n]
+            dbin[i, :n] = t.node_default_bin[:n]
+            nbin[i, :n] = t.node_num_bin[:n]
             dt[i, :n] = t.decision_type[:n]
             lc[i, :n] = t.left_child[:n]
             rc[i, :n] = t.right_child[:n]
@@ -61,15 +73,17 @@ def stack_trees(trees: List[Tree]) -> Dict[str, np.ndarray]:
                         stack.append((int(c), d + 1))
         leaf_val[i, :t.num_leaves] = t.leaf_value[:t.num_leaves]
         start = len(words)
-        words.extend(int(w) for w in t.cat_threshold)
+        bounds = t.cat_boundaries_inner if binned else t.cat_boundaries
+        words.extend(int(w) for w in (t.cat_threshold_inner if binned
+                                      else t.cat_threshold))
         for node in range(n):
             if t.node_is_categorical(node):
                 ci = int(t.threshold_in_bin[node])
-                cat_start[i, node] = start + t.cat_boundaries[ci]
-                cat_len[i, node] = (t.cat_boundaries[ci + 1]
-                                    - t.cat_boundaries[ci])
+                cat_start[i, node] = start + bounds[ci]
+                cat_len[i, node] = bounds[ci + 1] - bounds[ci]
     return {
-        "split_feature": sf, "threshold": thr, "decision_type": dt,
+        "split_feature": sf, "threshold": thr, "threshold_in_bin": thr_bin,
+        "default_bin": dbin, "num_bin": nbin, "decision_type": dt,
         "left_child": lc, "right_child": rc, "cat_start": cat_start,
         "cat_len": cat_len, "cat_words": np.asarray(words or [0], np.int64),
         "leaf_value": leaf_val, "num_leaves": num_leaves,
@@ -150,6 +164,62 @@ def predict_raw_values(trees: List[Tree], X, leaf_index: bool = False,
     if leaf_index:
         return torch.cat(leaves_out).cpu().numpy()
     return out.cpu().numpy()
+
+
+def predict_binned_leaves(trees: List[Tree], bins: torch.Tensor,
+                          bundles=None) -> torch.Tensor:
+    """[T, N] leaf index of every tree for each row of the binned matrix
+    ``bins`` (uint8 or uint16 [N, F], or [N, G] storage columns with
+    ``bundles``, a `BundleInfo`), on its device (JAX package:
+    `TreePredictor.predict_binned_leaves`): every tree advances one
+    level a step, by the bin semantics of `DenseBin::Split`
+    (`ops/partition.py`)."""
+    from .partition import bundle_unpack
+    dev = bins.device
+    n = bins.shape[0]
+    if not trees:
+        return torch.zeros((0, n), dtype=torch.int64, device=dev)
+    host = stack_trees(trees, binned=True)
+    stk = {k: torch.as_tensor(v, device=dev) for k, v in host.items()
+           if isinstance(v, np.ndarray)}
+    if bundles is not None:
+        col, off, pk = (torch.as_tensor(np.asarray(a, np.int64), device=dev)
+                        for a in (bundles.col, bundles.off, bundles.packed))
+    t_count = len(trees)
+    rows = torch.arange(n, device=dev)[None, :]
+
+    def take(a, idx):
+        return torch.gather(a, 1, idx)
+
+    node = torch.zeros((t_count, n), dtype=torch.int64, device=dev)
+    node[stk["num_leaves"] <= 1] = -1
+    words = stk["cat_words"]
+    for _ in range(host["max_depth"]):
+        safe = node.clamp(min=0)
+        feat = take(stk["split_feature"], safe)
+        d = take(stk["decision_type"], safe)
+        db = take(stk["default_bin"], safe)
+        nb = take(stk["num_bin"], safe)
+        if bundles is None:
+            fval = take_bins(bins, rows, feat).long()
+        else:
+            fval = bundle_unpack(take_bins(bins, rows, col[feat]).long(),
+                                 off[feat], pk[feat], db, nb)
+        mt = (d >> 2) & 3
+        is_default = torch.where(mt == MISSING_ZERO_C, fval == db,
+                                 (mt == MISSING_NAN_C) & (fval == nb - 1))
+        go_left = torch.where(is_default, (d & 2) != 0,
+                              fval <= take(stk["threshold_in_bin"], safe))
+        if host["has_cat"]:
+            widx = (take(stk["cat_start"], safe) + (fval >> 5)).clamp(
+                0, words.shape[0] - 1)
+            cat_left = (((words[widx] >> (fval & 31)) & 1) != 0) \
+                & ((fval >> 5) < take(stk["cat_len"], safe))
+            go_left = torch.where((d & 1) != 0, cat_left, go_left)
+        nxt = torch.where(go_left, take(stk["left_child"], safe),
+                          take(stk["right_child"], safe))
+        node = torch.where(node >= 0, nxt, node)
+    return ~node
 
 
 class TreePredictor:

@@ -2,7 +2,8 @@
 and the level builder's B5), the aligned engine's kernels and the
 lambdarank kernel against their plain twins, B1's integer branch
 (quantized payloads) bit-equal to its twin and quantized training on the
-card against the CPU, f64 training on the card
+card against the CPU, B1's uint16 route (bins past 256, its bin-axis
+tiles) against its twin and its training against the CPU, f64 training on the card
 against the CPU (leaf-wise and level), the aligned engine on the card
 (binary, and lambdarank on EXT records), the categorical route of B2 and
 B3 and categorical f64 training against the CPU, the bundled branch of
@@ -220,6 +221,117 @@ def test_int_kernel_matches_plain_on_gpu(cuda, max_bin, bits):
     assert H.INT_LAUNCHES == {"i8": launched if bits == 8 else 0,
                               "i16": launched if bits == 16 else 0}
     assert H.LAUNCHES == {"f32": 0, "f64": 0}
+
+
+def _u16(arr, device):
+    """A uint16 numpy array as a torch.uint16 tensor on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).to(
+        device).view(torch.uint16)
+
+
+def _u16_payloads(gh, device):
+    """The f32 payload and its int8 / int16 quantized forms."""
+    from lightgbm_tpu_torch.utils import prng
+    t = torch.tensor(gh, device=device)
+    return {"f32": t, "f64": t,
+            "i8": H.quantize_gh(t, 8, prng.key(8))[0],
+            "i16": H.quantize_gh(t, 16, prng.key(16))[0]}
+
+
+def _u16_check(b, pay, kind, idx, begin, count, nbins):
+    prec = "f64" if kind == "f64" else "f32"
+    got = H.leaf_histogram(b, pay, idx, begin, count, nbins, prec)
+    ref = H.histogram_plain(b, pay, idx, begin, count, nbins, prec)
+    if kind == "f32":
+        assert torch.equal(got[..., 2], ref[..., 2])
+        scale = _leaf_abs_sums(pay, idx, begin, count)
+        assert bool(((got[..., :2] - ref[..., :2]).abs()
+                     <= 1e-5 * scale).all())
+    else:
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "f64", "i8", "i16"])
+@pytest.mark.parametrize("nbins,features", [(511, 28), (1023, 27)])
+def test_u16_kernel_matches_plain_on_gpu(cuda, nbins, features, kind):
+    """B1's uint16 route against its twin: f32 within 1e-5 of the leaf's
+    sum of |g| (|h|), f64 and the integer payloads equal; over gathered
+    leaves of 0, 1, 16,385 and 20,000 rows and the root, and the
+    20,000-row leaf on bins 2 bytes off a 4-byte boundary (read through
+    the words that hold each bin); F even (whole 2-feature words) and
+    odd; one launch a call, counted in `WIDE_LAUNCHES`."""
+    rng = np.random.RandomState(31)
+    bins = rng.randint(0, nbins, (50000, features)).astype(np.uint16)
+    bins[::7, 0] = nbins - 1
+    _, gh = _mk(50000, 2, 2, seed=32)
+    tb = _u16(bins, cuda)
+    pay = _u16_payloads(gh, cuda)[kind]
+    perm = torch.randperm(50000, device=cuda).to(torch.int32)
+    cases = [(tb, perm, 1000, count) for count in (0, 1, 16_385, 20_000)]
+    cases.append((tb, None, 0, 50000))
+    odd = torch.empty(tb.numel() + 1, dtype=torch.int16,
+                      device=cuda)[1:].view(tb.shape)
+    odd.copy_(tb.view(torch.int16))
+    odd = odd.view(torch.uint16)
+    assert odd.is_contiguous() and odd.data_ptr() % 4 == 2
+    cases.append((odd, perm, 1000, 20_000))
+    H.reset_launches()
+    for b, idx, begin, count in cases:
+        _u16_check(b, pay, kind, idx, begin, count, nbins)
+    launched = sum(1 for c in cases if c[3] > 0)
+    assert H.WIDE_LAUNCHES[kind] == launched
+    assert sum(H.WIDE_LAUNCHES.values()) == launched
+    assert H.LAUNCHES == {"f32": 0, "f64": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "f64", "i8"])
+def test_u16_bin_tiles_on_gpu(cuda, kind):
+    """Bins whose one feature's cells exceed a CTA's shared memory (20,000
+    and 40,000 bins): the bin axis in tiles, each with its ticket, equal
+    to the twin (f32 within the bound), root and gathered leaf; a
+    feature's bins all land."""
+    for nbins, features in ((20_000, 3), (40_000, 2)):
+        rng = np.random.RandomState(nbins)
+        bins = rng.randint(0, nbins, (120_000, features)).astype(np.uint16)
+        _, gh = _mk(120_000, 2, 2, seed=33)
+        tb = _u16(bins, cuda)
+        pay = _u16_payloads(gh, cuda)[kind]
+        sms, optin = H._device(cuda.index or 0)
+        _, bin_tile, _, _ = H.launch_shape16(120_000, features, nbins,
+                                             kind, sms, optin)
+        assert bin_tile < nbins
+        perm = torch.randperm(120_000, device=cuda).to(torch.int32)
+        for idx, begin, count in ((None, 0, 120_000), (perm, 7, 40_000)):
+            _u16_check(tb, pay, kind, idx, begin, count, nbins)
+
+
+@pytest.mark.cuda
+def test_u16_training_on_gpu_equals_cpu(cuda):
+    """max_bin 511 (uint16 bins), f64 histograms, leaf-wise and on the
+    host learner (l1): the card's tree sections equal the CPU's, every B1
+    launch on the uint16 route."""
+    rng = np.random.RandomState(34)
+    X = rng.standard_normal((20000, 8))
+    y = X[:, 0] - 0.5 * X[:, 1] * X[:, 2] + 0.1 * rng.standard_normal(20000)
+    for obj in ("regression", "regression_l1"):
+        params = {"objective": obj, "num_leaves": 15, "max_bin": 511,
+                  "tpu_grow_mode": "leafwise", "tpu_use_f64_hist": True,
+                  "verbosity": -1}
+        texts = []
+        for dev in ("cuda", "cpu"):
+            H.reset_launches()
+            bst = tlgb.train({**params, "device_type": dev},
+                             tlgb.Dataset(X, label=y), num_boost_round=3,
+                             verbose_eval=False)
+            assert bst._gbdt.train_data.bins.dtype == torch.uint16
+            t = bst.model_to_string()
+            texts.append(t[t.index("Tree=0"):t.index("end of trees")])
+            if dev == "cuda":
+                assert H.WIDE_LAUNCHES["f64"] > 0
+                assert H.LAUNCHES == {"f32": 0, "f64": 0}
+        assert texts[0] == texts[1]
 
 
 @pytest.mark.cuda
