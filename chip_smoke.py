@@ -333,7 +333,35 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    compiler, its raw scores of 1,000 rows within 1e-12 of the model's;
    parse, binning and binary-load s and the median iteration; (d) `cv`,
    3 folds and 3 rounds on the card, then a 20,000-row cut, f64
-   leaf-wise, whose result dict on the card equals the CPU's.
+   leaf-wise, whose result dict on the card equals the CPU's;
+22. ingest (``--only 22`` runs phases 1, 2 and 22 alone), after a check
+   that the native library (``lightgbm_tpu_torch/native.py``) built from
+   ``src/native/`` into ``build/torch_native/``: (a) the Year shape
+   (uncut) as CSV files without a header: the native parse equal to the
+   numpy parse of the file (NaN equal to NaN), both timed; a two-round
+   load on the card, its bins equal to the same load's on the CPU; a
+   streamed load (chunks of 65,536 lines), its bins equal to the one-shot
+   load's; each load timed alone; 3 rounds of ``auto`` from each, the
+   streamed run's trees equal to the one-shot run's; (b) phase 4's HIGGS
+   matrix as a float32 ``np.memmap`` through `stream_matrix` (chunks of
+   1,048,576 rows) under ``torch.profiler``: bins equal to `from_matrix`'s
+   on the card, 3 leaf-wise rounds from each with equal trees, both
+   ingests' seconds and the card's idle share during the streamed one;
+   (c) ``task=train`` with ``input_model=`` and ``valid=`` on (a)'s files
+   for 2 more rounds in its own process: exit 0, a valid l2 line each
+   round equal to the in-process `train(init_model=, valid_sets=)` on
+   the same loads; (d) a binary model (40 rounds, learning rate 0.5) and
+   a 3-class softmax model scored on the card with ``pred_early_stop``
+   (freq 2, margin 1.0): equal to a CPU booster's scores of the same
+   model text (the native predictor) and unequal to the full scores on
+   some row; (e) where pyarrow imports, (a)'s training rows as a Parquet
+   file through the columnar load, its bins equal to (a)'s streamed
+   bins (else one line says that (e) did not run). With
+   ``--prefetch-ab N`` (a)'s streamed load and (b)'s `stream_matrix` also
+   run N times each with and without a prefetch thread (the JAX
+   package's ``ChunkPrefetcher`` at depth 2, defined here: a thread
+   reads chunk k + 1 into memory while the port bins chunk k), in
+   alternating order, each timed alone.
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -651,18 +679,40 @@ def phase_parity(torch, dev, rows: int) -> dict:
                 if prec == "f32":
                     r["max_abs_err_f32"] = max(r["max_abs_err_f32"], err)
             if idx is not None:
-                ms = cuda_ms(torch, lambda: H.leaf_histogram(
-                    binm, gh, idx, begin, count, bins, "f32"), reps=10)
+                def kern():
+                    return H.leaf_histogram(binm, gh, idx, begin, count,
+                                            bins, "f32")
+                ms = cuda_ms(torch, kern, reps=10)
                 b_ms = hist_bound_ms(count, f, bins, 4, True)[0]
                 sec_ms = (count * (32 * (row_sectors(f) + 1) + 4)
                           + f * bins * 3 * 4) / HBM_BYTES_PER_S * 1e3
-                r["gathered"][what] = {"rows": count, "ms": ms,
-                                       "bound_ms": b_ms,
-                                       "sector_bound_ms": sec_ms}
+                g = r["gathered"][what] = {"rows": count, "ms": ms,
+                                           "bound_ms": b_ms,
+                                           "sector_bound_ms": sec_ms}
+                extra = ""
+                if what == "small child":
+                    # the main path's gathered leaf: cold, and one
+                    # index_add_ over a prebuilt flat index beside it
+                    rows_ = idx[begin:begin + count].long()
+                    cell = (binm[rows_].long() + torch.arange(
+                        f, device=dev) * bins).reshape(-1)
+                    pay = torch.cat([gh[rows_], torch.ones(
+                        (count, 1), device=dev)], 1)
+                    pay = pay[:, None, :].expand(-1, f, -1).reshape(-1, 3)
+                    acc = torch.zeros((f * bins, 3), device=dev)
+                    g["cold_ms"] = cold_ms(torch, kern)
+                    g["library_ms"] = cuda_ms(
+                        torch, lambda: acc.index_add_(0, cell, pay), reps=10)
+                    g["plain_ms"] = cuda_ms(torch, lambda: H.histogram_plain(
+                        binm, gh, idx, begin, count, bins, "f32"), reps=2)
+                    del rows_, cell, pay, acc
+                    extra = (f", cold {g['cold_ms']:.4f} ms, plain "
+                             f"{g['plain_ms']:.4f} ms, index_add_ "
+                             f"{g['library_ms']:.4f} ms")
                 log(f"time {what} {count} of {n} rows, {bins} bins, f32: "
-                    f"kernel {ms:.4f} ms, bound {b_ms:.4f} ms, sector "
-                    f"bound {sec_ms:.4f} ms ({row_sectors(f):.2f} sectors "
-                    f"a row + 1 for gh)")
+                    f"kernel {ms:.4f} ms{extra}, bound {b_ms:.4f} ms, "
+                    f"sector bound {sec_ms:.4f} ms ({row_sectors(f):.2f} "
+                    f"sectors a row + 1 for gh)")
         sizes = ", ".join(str(c[2]) for c in cases.values()
                           if c[0] is not None)
         log(f"parity {bins} bins: f64 equal, f32 counts equal, f32 max |d| "
@@ -4832,7 +4882,7 @@ def _write_part(args) -> str:
 
 def write_csv(path: str, y, X, header) -> None:
     """label first, then the features, ``%.9g`` (f32 values read back
-    exactly), a header line; formatted by 8 spawned worker processes a
+    exactly), a header line unless ``header`` is None; formatted by 8 spawned worker processes a
     block of rows each, then joined."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -4844,7 +4894,8 @@ def write_csv(path: str, y, X, header) -> None:
             8, mp_context=multiprocessing.get_context("spawn")) as pool:
         names = list(pool.map(_write_part, parts))
     with open(path, "w") as out:
-        out.write(",".join(header) + "\n")
+        if header is not None:
+            out.write(",".join(header) + "\n")
         for name in names:
             with open(name) as fh:
                 while True:
@@ -4855,7 +4906,7 @@ def write_csv(path: str, y, X, header) -> None:
             os.remove(name)
 
 
-def run_cli(args, cwd, what) -> str:
+def run_cli(args, cwd, what, phase="phase 21 (c)") -> str:
     """``python -m lightgbm_tpu_torch`` in a process of its own, the
     checkout on its path; returns its standard output, fails the run on a
     non-zero exit."""
@@ -4867,10 +4918,10 @@ def run_cli(args, cwd, what) -> str:
                            *args], cwd=cwd, env=env, capture_output=True,
                           text=True, timeout=600)
     if proc.returncode != 0:
-        raise AssertionError(f"phase 21 (c) {what}: exit "
+        raise AssertionError(f"{phase} {what}: exit "
                              f"{proc.returncode}\n{proc.stdout[-2000:]}\n"
                              f"{proc.stderr[-4000:]}")
-    log(f"phase 21 (c) {what}: {time.perf_counter() - t0:.1f} s, "
+    log(f"{phase} {what}: {time.perf_counter() - t0:.1f} s, "
         f"{proc.stdout.strip().splitlines()[-1]}")
     return proc.stdout
 
@@ -4995,6 +5046,371 @@ def phase_files(torch, lt) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 22: ingest
+PHASE22_DIR = os.path.join("build", "phase22")
+STREAM_FILE_CHUNK, STREAM_MATRIX_CHUNK = 65_536, 1 << 20
+INGEST_ROUNDS, ES_BINARY_ROUNDS, ES_MC_ROUNDS, ES_ROWS = 3, 40, 10, 100_000
+ES = {"pred_early_stop": True, "pred_early_stop_freq": 2,
+      "pred_early_stop_margin": 1.0}
+
+
+def check_native(lt) -> str:
+    """The native library builds from ``src/native/`` into
+    ``build/torch_native/``; returns its path."""
+    from lightgbm_tpu_torch import native
+    root = os.path.dirname(os.path.abspath(__file__))
+    if not native.native_available():
+        raise AssertionError("phase 22: the native library did not build")
+    path = native.built_path()
+    if os.path.dirname(path) != os.path.join(root, "build", "torch_native") \
+            or not os.path.isfile(path) or native.SRC_DIR != os.path.join(
+                root, "src", "native"):
+        raise AssertionError(f"phase 22: the native library is {path}")
+    omp = path == native.library_path(native.CXX_FLAGS)
+    log(f"phase 22: native library {os.path.relpath(path, root)} from "
+        f"src/native ({', '.join(native.SOURCES)}), "
+        f"{'with' if omp else 'WITHOUT'} OpenMP (the compilers tried: "
+        f"{native._compilers()})")
+    return path
+
+
+def timed(torch, fn):
+    """(result, seconds) of ``fn()``, the card synchronized after it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def trees_text(bst) -> str:
+    text = bst.model_to_string()
+    return text[text.index("Tree=0"):text.index("end of trees")]
+
+
+def device_busy_ms(torch, prof) -> float:
+    """The card's busy ms in a profiled window: its kernels and copies,
+    summed over the profiler's raw events."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.duration_ns() / 1e6
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda)
+
+
+class PrefetchChunks:
+    """The JAX package's ``ChunkPrefetcher`` at depth 2, for the A/B of
+    ``--prefetch-ab`` only: a thread makes chunk k + 1, and reads its rows
+    into memory, while the consumer bins chunk k."""
+
+    _DONE = object()
+
+    def __init__(self, chunks) -> None:
+        import queue
+        import threading
+        self._gen, self._exc = iter(chunks), None
+        self._q = queue.Queue(maxsize=1)
+        self._t = threading.Thread(target=self._produce, daemon=True)
+        self._t.start()
+
+    def _produce(self) -> None:
+        try:
+            for feats, labs, w in self._gen:
+                self._q.put((np.ascontiguousarray(feats), labs, w))
+        except BaseException as e:      # raised on the consumer's side
+            self._exc = e
+        finally:
+            self._q.put(self._DONE)
+
+    def __iter__(self):
+        while True:
+            item = self._q.get()
+            if item is self._DONE:
+                self._t.join()
+                if self._exc is not None:
+                    raise self._exc
+                return
+            yield item
+
+
+def prefetch_ab(torch, make, runs: int, tag: str) -> dict:
+    """``runs`` loads by ``make()`` with the port's one thread and
+    ``runs`` with `PrefetchChunks` patched into `io.stream.run_pipeline`,
+    alternating (ABBA ...): each load's seconds and its stage ms."""
+    from lightgbm_tpu_torch.io import stream
+    plain = stream.run_pipeline
+    out = {"one_thread": [], "prefetch": []}
+    for r in range(runs):
+        order = ("one_thread", "prefetch") if r % 2 == 0 else (
+            "prefetch", "one_thread")
+        for name in order:
+            if name == "prefetch":
+                stream.run_pipeline = lambda ds, chunks: plain(
+                    ds, PrefetchChunks(chunks))
+            try:
+                d, sec = timed(torch, make)
+            finally:
+                stream.run_pipeline = plain
+            st = d._handle._ingest_stats
+            out[name].append({"s": sec, "parse_ms": st["parse_ms"],
+                              "bin_ms": st["bin_ms"]})
+            del d
+            gc.collect()
+    for name in ("one_thread", "prefetch"):
+        out[f"{name}_median_s"] = float(np.median([v["s"]
+                                                   for v in out[name]]))
+    stages = [(round(v["parse_ms"]), round(v["bin_ms"]))
+              for v in out["one_thread"]]
+    log(f"{tag} prefetch A/B, {runs} loads each: one thread "
+        f"{[round(v['s'], 3) for v in out['one_thread']]} s (median "
+        f"{out['one_thread_median_s']:.3f}), prefetch thread "
+        f"{[round(v['s'], 3) for v in out['prefetch']]} s (median "
+        f"{out['prefetch_median_s']:.3f}); one thread's parse / bin ms "
+        f"{stages}")
+    return out
+
+
+def phase_stream_higgs(torch, lt, X, y, rows: int, ab: int = 0) -> dict:
+    """Phase 22 (b): phase 4's HIGGS matrix saved as a float32 memmap,
+    then `stream_matrix` over it (chunks of 1,048,576 rows) under
+    `torch.profiler` against `from_matrix` on the card: equal bins, 3
+    leaf-wise rounds from each with equal trees; both ingests' seconds
+    and the card's idle share during the streamed one."""
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    work = os.path.abspath(PHASE22_DIR)
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "higgs.f32")
+    mm = np.memmap(path, np.float32, "w+", shape=(rows, X.shape[1]))
+    mm[:] = X[:rows]
+    mm.flush()
+    del mm
+    mm = np.memmap(path, np.float32, "r", shape=(rows, X.shape[1]))
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": 63,
+              "learning_rate": 0.1, "tpu_grow_mode": "leafwise",
+              "verbosity": -1}
+    one, one_s = timed(torch, lambda: lt.Dataset(
+        X[:rows], label=y[:rows], params=params).construct())
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        st, st_s = timed(torch, lambda: lt.Dataset(
+            mm, label=y[:rows], params={
+                **params, "tpu_stream_chunk_rows": STREAM_MATRIX_CHUNK}
+        ).construct())
+    busy_ms = device_busy_ms(torch, prof)
+    if not torch.equal(st._handle.bins, one._handle.bins):
+        raise AssertionError("phase 22 (b): stream_matrix's bins differ from "
+                             "from_matrix's")
+    texts = []
+    for ds in (one, st):
+        bst = lt.train(params, ds, num_boost_round=INGEST_ROUNDS,
+                       verbose_eval=False)
+        texts.append(trees_text(bst))
+        del bst
+    if texts[0] != texts[1]:
+        raise AssertionError("phase 22 (b): the streamed dataset trained "
+                             "other trees")
+    del one
+    if ab:
+        ab = prefetch_ab(torch, lambda: lt.Dataset(
+            mm, label=y[:rows], params={
+                **params, "tpu_stream_chunk_rows": STREAM_MATRIX_CHUNK}
+        ).construct(), ab, "phase 22 (b)")
+    r = {"rows": rows, "from_matrix_s": one_s, "stream_s": st_s,
+         "stream_stats": st._handle._ingest_stats, "busy_ms": busy_ms,
+         "idle_share": 1 - busy_ms / (st_s * 1e3),
+         "memmap_bytes": os.path.getsize(path), "prefetch_ab": ab or None}
+    del st, mm
+    os.remove(path)
+    r["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 22 (b): HIGGS {rows}x{X.shape[1]} from a "
+        f"{r['memmap_bytes'] / 2**30:.2f} GiB float32 memmap: stream_matrix "
+        f"{st_s:.3f} s (chunks of {STREAM_MATRIX_CHUNK}; stages "
+        f"{ {k: round(v, 1) for k, v in r['stream_stats'].items()} }), "
+        f"card busy {busy_ms:.1f} ms, idle {100 * r['idle_share']:.1f}%; "
+        f"from_matrix {one_s:.3f} s; bins equal, {INGEST_ROUNDS} leaf-wise "
+        f"rounds from each with equal trees; {r['phase_s']:.1f} s")
+    return r
+
+
+def phase_ingest(torch, lt, ab: int = 0) -> dict:
+    """Phase 22 (a), (c), (d), (e) on the Year shape's CSV files without
+    a header (see the module docstring)."""
+    import shutil
+    from lightgbm_tpu_torch import native
+    from lightgbm_tpu_torch.cli import _wrap_core
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io import stream
+    from lightgbm_tpu_torch.io.loader import DatasetLoader
+    from lightgbm_tpu_torch.io.parser import create_parser, parse_dense
+    t_phase = time.perf_counter()
+    X, y = synth_year(YEAR_TRAIN + YEAR_TEST)
+    Xtr, ytr = X[:YEAR_TRAIN], y[:YEAR_TRAIN]
+    work = os.path.abspath(PHASE22_DIR)
+    os.makedirs(work, exist_ok=True)
+    train, test = (os.path.join(work, f) for f in ("train.csv", "test.csv"))
+    res = {}
+    (_, res["write_s"]) = timed(torch, lambda: (
+        write_csv(train, ytr, Xtr, None),
+        write_csv(test, y[YEAR_TRAIN:], X[YEAR_TRAIN:], None)))
+    # (a) the native parse against the numpy parse
+    (lab, feats, fmt), res["native_parse_s"] = timed(
+        torch, lambda: native.parse_file(train, 0))
+
+    def numpy_parse():
+        with open(train) as fh:
+            lines = fh.read().splitlines()
+        return parse_dense(lines, create_parser(lines[:32], 0))
+    (plab, pfeats), res["numpy_parse_s"] = timed(torch, numpy_parse)
+    if not (np.array_equal(lab, plab) and np.array_equal(
+            feats, pfeats, equal_nan=True)
+            and np.array_equal(feats.astype(np.float32), Xtr)):
+        raise AssertionError("phase 22 (a): the native parse differs from "
+                             "the numpy parse")
+    del pfeats, plab
+    log(f"phase 22 (a): CSV files written in {res['write_s']:.1f} s; "
+        f"parse of {os.path.getsize(train) / 2**20:.1f} MiB ({fmt}): "
+        f"native {res['native_parse_s']:.3f} s, numpy "
+        f"{res['numpy_parse_s']:.3f} s, equal")
+    base = {"objective": "regression", "num_leaves": 255, "max_bin": 255,
+            "learning_rate": 0.1, "min_data_in_leaf": 20, "verbosity": -1}
+    loads = {"one-shot": {}, "two-round": {"two_round": True},
+             "streamed": {"tpu_stream_chunk_rows": STREAM_FILE_CHUNK}}
+    ds = {}
+    for name, extra in loads.items():
+        ds[name], res[f"{name}_load_s"] = timed(torch, lambda: lt.Dataset(
+            train, params={**base, **extra}).construct())
+    cpu_two, res["two-round_cpu_load_s"] = timed(torch, lambda: lt.Dataset(
+        train, params={**base, "two_round": True,
+                       "device_type": "cpu"}).construct())
+    if not torch.equal(ds["two-round"]._handle.bins.cpu(),
+                       cpu_two._handle.bins):
+        raise AssertionError("phase 22 (a): the two-round bins on the card "
+                             "differ from the CPU's")
+    del cpu_two
+    if not torch.equal(ds["streamed"]._handle.bins,
+                       ds["one-shot"]._handle.bins):
+        raise AssertionError("phase 22 (a): the streamed bins differ from "
+                             "the one-shot load's")
+    res["stream_stats"] = ds["streamed"]._handle._ingest_stats
+    if ab:
+        res["prefetch_ab"] = prefetch_ab(torch, lambda: lt.Dataset(
+            train, params={**base, **loads["streamed"]}).construct(), ab,
+            "phase 22 (a)")
+    texts = {}
+    for name, d in ds.items():
+        bst = lt.train(base, d, num_boost_round=INGEST_ROUNDS,
+                       verbose_eval=False)
+        texts[name] = trees_text(bst)
+        res[f"{name}_path"] = bst._gbdt.train_path
+        if name == "one-shot":
+            bst.save_model(os.path.join(work, "m1.txt"))
+        del bst
+    if texts["streamed"] != texts["one-shot"]:
+        raise AssertionError("phase 22 (a): the streamed run's trees differ "
+                             "from the one-shot run's")
+    log("phase 22 (a): loads " + ", ".join(
+        f"{n} {res[f'{n}_load_s']:.3f} s" for n in loads)
+        + f", two-round on the CPU {res['two-round_cpu_load_s']:.3f} s; "
+        f"two-round bins card = CPU, streamed bins = one-shot's; "
+        f"{INGEST_ROUNDS} rounds of auto from each ({res['one-shot_path']}), "
+        f"the streamed trees the one-shot ones; streamed stages "
+        f"{ {k: round(v, 1) for k, v in res['stream_stats'].items()} }")
+    stream_bins = ds["streamed"]._handle.bins
+    del ds
+    # (c) C.35: input_model with valid= through the CLI
+    args = [f"{k}={v}" for k, v in base.items()] + [
+        "task=train", "data=train.csv", "valid=test.csv", "metric=l2",
+        "input_model=m1.txt", f"num_trees={CLI_MORE}",
+        "output_model=m2.txt"]
+    out = run_cli(args, work, "input_model with valid=", "phase 22 (c)")
+    printed = [ln for ln in out.splitlines() if ln.startswith("[")]
+    prior = lt.Booster(model_file=os.path.join(work, "m1.txt"))
+    cfg = Config.from_params({**base, "metric": "l2"})
+    loader = DatasetLoader(cfg, predict_fun=lambda A: prior.predict(
+        A, raw_score=True))
+    core = loader.load_from_file(train)
+    vcore = loader.load_from_file_align_with_other_dataset(test, core)
+    ev = {}
+    lt.train({**base, "metric": "l2"}, _wrap_core(core, base),
+             num_boost_round=CLI_MORE, init_model=os.path.join(work,
+                                                               "m1.txt"),
+             valid_sets=[_wrap_core(vcore, base)], valid_names=["test.csv"],
+             evals_result=ev, verbose_eval=False)
+    want = [f"[{i + 1}]\ttest.csv's l2: {v:g}"
+            for i, v in enumerate(ev["test.csv"]["l2"])]
+    if printed != want:
+        raise AssertionError(f"phase 22 (c): the CLI printed {printed}, the "
+                             f"in-process run {want}")
+    res["cli_valid_l2"] = ev["test.csv"]["l2"]
+    log(f"phase 22 (c): task=train input_model= valid=: exit 0, "
+        f"{printed} equal to the in-process run")
+    del core, vcore, prior
+    # (d) C.36: prediction early stopping on the card against the CPU
+    Xte = X[YEAR_TRAIN:].astype(np.float64)
+    res["early_stop"] = {}
+    for kind, params, rounds, label in (
+            ("binary", {"objective": "binary"}, ES_BINARY_ROUNDS,
+             (ytr[:ES_ROWS] > np.median(ytr)).astype(np.float64)),
+            ("multiclass", {"objective": "multiclass", "num_class": 3},
+             ES_MC_ROUNDS, np.digitize(ytr[:ES_ROWS], np.quantile(
+                 ytr, [1 / 3, 2 / 3])).astype(np.float64))):
+        p = {**params, "num_leaves": 63, "learning_rate": 0.5,
+             "verbosity": -1}
+        bst = lt.train(p, lt.Dataset(Xtr[:ES_ROWS], label=label, params=p),
+                       num_boost_round=rounds, verbose_eval=False)
+        card, card_s = timed(torch, lambda: bst.predict(Xte, **ES))
+        cpu = lt.Booster(model_str=bst.model_to_string(),
+                         params={"device_type": "cpu"})
+        host, host_s = timed(torch, lambda: cpu.predict(Xte, **ES))
+        full = bst.predict(Xte)
+        moved = int(np.sum(np.any((card != full).reshape(len(Xte), -1),
+                                  axis=1)))
+        if not np.array_equal(card, host) or moved == 0:
+            raise AssertionError(f"phase 22 (d) {kind}: the card's early-"
+                                 f"stopped scores equal the CPU's: "
+                                 f"{np.array_equal(card, host)}, rows moved "
+                                 f"from the full scores {moved}")
+        res["early_stop"][kind] = {"rows_moved": moved, "card_s": card_s,
+                                   "cpu_s": host_s, "max_move": float(
+                                       np.abs(card - full).max())}
+        log(f"phase 22 (d) {kind}: pred_early_stop on the card equal to the "
+            f"CPU's native predictor ({card_s:.3f} / {host_s:.3f} s), "
+            f"{moved} of {len(Xte)} rows moved from the full scores, by up "
+            f"to {res['early_stop'][kind]['max_move']:.4f}")
+        del bst, cpu
+    # (e) the columnar load
+    if stream.pyarrow_available():
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+        # the parsed f64 values: the CSV's decimals, not the f32 ones
+        pq_path = os.path.join(work, "train.parquet")
+        cols = {"label": lab}
+        cols.update({f"f{j}": feats[:, j] for j in range(feats.shape[1])})
+        pq.write_table(pa.table(cols), pq_path)
+        del cols
+        col, res["columnar_load_s"] = timed(torch, lambda: lt.Dataset(
+            pq_path, params={**base, "tpu_stream_chunk_rows":
+                             STREAM_FILE_CHUNK}).construct())
+        if not torch.equal(col._handle.bins, stream_bins):
+            raise AssertionError("phase 22 (e): the Parquet load's bins "
+                                 "differ from the streamed CSV load's")
+        log(f"phase 22 (e): Parquet load {res['columnar_load_s']:.3f} s, "
+            "bins equal to the streamed CSV load's")
+        del col
+    else:
+        res["columnar_load_s"] = None
+        log("phase 22 (e): not run: pyarrow does not import on this "
+            "machine")
+    del stream_bins, lab, feats
+    shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 22 (a), (c)-(e): {res['phase_s']:.1f} s")
+    return res
+
+
 def check_convert(torch, lt, work, Xte) -> dict:
     """``task=convert_model`` of the continued model (in this process,
     through the CLI's `main`), the C++ compiled with the host compiler
@@ -5099,8 +5515,12 @@ def main() -> int:
     ap.add_argument("--holdout", type=int, default=500_000)
     ap.add_argument("--mslr-rows", type=int, default=MSLR_ROWS)
     ap.add_argument("--airline-rows", type=int, default=10_000_000)
-    ap.add_argument("--only", choices=("21",), help="phases 1-2 and this "
-                    "phase alone (its kernels in the kernels line)")
+    ap.add_argument("--only", choices=("21", "22"), help="phases 1-2 and "
+                    "this phase alone (phase 21's kernels in the kernels "
+                    "line)")
+    ap.add_argument("--prefetch-ab", type=int, default=0, metavar="N",
+                    help="phase 22: N streamed loads with and N without a "
+                    "prefetch thread, (a) and (b) each")
     args = ap.parse_args()
     t_main = time.perf_counter()
     import torch
@@ -5125,6 +5545,16 @@ def main() -> int:
     if args.only == "21":
         kernels = u16_kernels(torch, lt, dev, args, stamp)
         return finish(torch, info, stamps, t_main, {}, kernels)
+    if args.only == "22":
+        check_native(lt)
+        X, y = synth_higgs(args.rows, 28)
+        ingest = {"higgs": phase_stream_higgs(torch, lt, X, y, args.rows,
+                                              args.prefetch_ab)}
+        del X, y
+        gc.collect()
+        ingest.update(phase_ingest(torch, lt, args.prefetch_ab))
+        stamp("phase 22")
+        return finish(torch, info, stamps, t_main, {"ingest": ingest}, [])
     par = phase_parity(torch, dev, args.rows)
     qpar = phase_quant_parity(torch, dev, args.rows)
     stamp("phases 3, 18 (a)")
@@ -5173,6 +5603,10 @@ def main() -> int:
     f64_launches = phase_f64(torch, lt)
     stopping = phase_early_stopping(torch, lt, X, y)
     stamp("phases 8, 18 (d)")
+    check_native(lt)
+    ingest = {"higgs": phase_stream_higgs(torch, lt, X, y, args.rows,
+                                          args.prefetch_ab)}
+    stamp("phase 22 (b)")
     del X, y
     gc.collect()
     t0 = time.perf_counter()
@@ -5214,9 +5648,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     u16_entries = u16_kernels(torch, lt, dev, args, stamp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ingest.update(phase_ingest(torch, lt, args.prefetch_ab))
+    stamp("phase 22 (a), (c)-(e)")
 
     def entry(name, replaces, bins, prec, launches):
         p = par[bins]
+        leaf = p["gathered"]["small child"] if prec == "f32" else {}
         return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": (p["max_abs_err_f32"] if prec == "f32"
@@ -5225,7 +5664,12 @@ def main() -> int:
                 "bound_ms": p[f"bound_ms_{prec}"],
                 "bound_by": p[f"bound_by_{prec}"],
                 "library_ms": p[f"library_ms_{prec}"],
-                "shape": f"root {args.rows}x28, {bins} bins, {prec}"}
+                **{f"leaf_{k}": leaf[k] for k in (
+                    "ms", "cold_ms", "plain_ms", "library_ms", "bound_ms")
+                   if k in leaf},
+                "shape": f"root {args.rows}x28, {bins} bins, {prec}"
+                         + (f"; leaf: {leaf['rows']} gathered rows"
+                            if leaf else "")}
 
     def aentry(name, kernel, line, bins, layout, launches, shape,
                dims=f"{args.rows}x28"):
@@ -5495,6 +5939,7 @@ def main() -> int:
         "objectives": {"higgs": objectives, "year": year},
         "quant_kernel": qpar, "quant": quant,
         "forced_cegb": forced, "early_stopping": stopping,
+        "ingest": ingest,
         "bag_kernels": {f"{b} {lay}": v for (b, lay), v
                         in bpar.items()},
         "proto_path": proto_path, "proto_kernels": ppar,

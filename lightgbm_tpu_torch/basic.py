@@ -11,11 +11,11 @@ and a Booster loads model text written by either package.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
-from .config import Config, resolve_device
+from .config import Config, _to_bool, resolve_device
 from .io.dataset import Dataset as _CoreDataset
 from .models.boosting_variants import create_boosting
 from .models.gbdt import GBDT
@@ -23,7 +23,7 @@ from .models.model_text import (_feature_infos, load_model_from_string,
                                 save_model_to_string)
 from .models.tree import Tree
 from .ops.objectives import create_objective
-from .ops.predict import predict_raw_values
+from .ops.predict import flatten_forest, predict_raw_values
 
 
 class LightGBMError(Exception):
@@ -89,10 +89,15 @@ class Dataset:
         cats = (None if self.categorical_feature in ("auto", None)
                 else [int(c) for c in self.categorical_feature])
         # CSR/CSC stays sparse (`from_sparse`; JAX package:
-        # basic.py:213-247)
+        # basic.py:213-247); a dense matrix streams a chunk at a time
+        # with ``tpu_stream_chunk_rows`` > 0 (`io/stream.py`: the same
+        # sample draw, so the same bins)
         sparse_in = _is_sparse(self.data)
-        maker = (_CoreDataset.from_sparse if sparse_in
-                 else _CoreDataset.from_matrix)
+        if not sparse_in and int(cfg.tpu_stream_chunk_rows) > 0:
+            from .io.stream import stream_matrix as maker
+        else:
+            maker = (_CoreDataset.from_sparse if sparse_in
+                     else _CoreDataset.from_matrix)
         self._handle = maker(
             self.data if sparse_in else _to_matrix(self.data),
             label=self.label, config=cfg,
@@ -228,6 +233,10 @@ class Booster:
         self._train_set = train_set
         self._valid_sets_public: List[Dataset] = []
         self.name_train_set = "training"
+        # the native predictor's flattened forest, keyed by the trees it
+        # holds and the model's generation (bumped by each update)
+        self._flat_cache: Optional[Tuple] = None
+        self._model_gen = 0
         if model_file is not None:
             with open(model_file) as fh:
                 self._init_from_string(fh.read())
@@ -289,6 +298,7 @@ class Booster:
         [N, K] for K classes) and gives the iteration's gradients; the
         aligned engine is left first, as it cannot follow the tree (JAX
         package: basic.py:466-492)."""
+        self._model_gen += 1
         if fobj is None:
             return self._gbdt.train_one_iter()
         gbdt = self._gbdt
@@ -335,7 +345,12 @@ class Booster:
         basic.py:658-670). A path predicts a data file's rows (reference
         LGBM_BoosterPredictForFile; ``header`` / ``data_has_header`` in
         the keyword arguments), read as `_read_predict_file` reads it.
-        ``pred_contrib`` raises until SHAP is ported (ROADMAP A.5)."""
+        ``pred_early_stop`` (with ``pred_early_stop_freq`` and
+        ``pred_early_stop_margin``, in the keyword arguments or the
+        params) stops a row's trees early (`_early_stop`). A booster on
+        the CPU predicts through the native predictor where the library
+        builds, one on the card by the torch traversal. ``pred_contrib``
+        raises until SHAP is ported (ROADMAP A.5)."""
         if pred_contrib:
             raise NotImplementedError("pred_contrib: SHAP values are not "
                                       "ported yet (ROADMAP A.5)")
@@ -347,25 +362,27 @@ class Booster:
             return np.concatenate([
                 self.predict(csr[lo:lo + rows_per].toarray(), num_iteration,
                              raw_score, pred_leaf,
-                             start_iteration=start_iteration)
+                             start_iteration=start_iteration, **kwargs)
                 for lo in range(0, max(csr.shape[0], 1), rows_per)], axis=0)
         X = _to_matrix(data)
         k = self.num_tree_per_iteration
         if num_iteration is None or num_iteration <= 0:
             num_iteration = (self.best_iteration
                              if self.best_iteration > 0 else -1)
-        trees = self.trees[max(int(start_iteration or 0), 0) * k:]
+        s_iter = max(int(start_iteration or 0), 0)
+        trees = self.trees[s_iter * k:]
         if num_iteration > 0:
             trees = trees[:num_iteration * k]
+        early_stop = self._early_stop(kwargs, raw_score, pred_leaf)
+        raw = (self._predict_native(trees, X, k, s_iter, pred_leaf,
+                                    early_stop)
+               if self.device.type == "cpu" and trees else None)
+        if raw is None:
+            raw = predict_raw_values(trees, X, leaf_index=pred_leaf,
+                                     device=self.device, num_class=k,
+                                     early_stop=early_stop)
         if pred_leaf:
-            return predict_raw_values(trees, X, leaf_index=True,
-                                      device=self.device)
-        if k == 1:
-            raw = predict_raw_values(trees, X, device=self.device)
-        else:
-            raw = np.stack([predict_raw_values(trees[c::k], X,
-                                               device=self.device)
-                            for c in range(k)], axis=1)
+            return raw.astype(np.int32)
         if self._is_average_output():
             raw = raw / max(1, len(trees) // k)
         if raw_score:
@@ -380,6 +397,49 @@ class Booster:
             return np.stack([objective.convert_output(raw[:, c])
                              for c in range(k)], axis=1)
         return objective.convert_output(raw)
+
+    def _early_stop(self, kwargs: Dict, raw_score: bool,
+                    pred_leaf: bool) -> Optional[Tuple[int, float]]:
+        """(freq in trees, margin) of prediction early stopping, or None
+        (JAX package: basic.py:689-694, 761-776): ``pred_early_stop``
+        from the keyword arguments or the params, on only for a binary
+        objective or K > 1 classes, and off with ``raw_score`` and
+        ``pred_leaf``; ``pred_early_stop_freq`` counts iterations of K
+        trees. The params' strings are read as the config reads them (a
+        model file's ``[pred_early_stop: False]`` is false; ROADMAP
+        C.37)."""
+        opts = {**self.params, **kwargs}
+        k = self.num_tree_per_iteration
+        if not (_to_bool(opts.get("pred_early_stop", False))
+                and not raw_score and not pred_leaf
+                and (k > 1 or self._cfg.objective == "binary")):
+            return None
+        return (int(float(opts.get("pred_early_stop_freq", 10))) * k,
+                float(opts.get("pred_early_stop_margin", 10.0)))
+
+    def _predict_native(self, trees: List[Tree], X: np.ndarray, k: int,
+                        s_iter: int, pred_leaf: bool,
+                        early_stop) -> Optional[np.ndarray]:
+        """A CPU booster's prediction through the native predictor
+        (`native.predict_forest`, the JAX package's CPU route, early
+        stopping inside it): raw scores [N] or [N, K], or leaf indices;
+        None without the library. The flattened forest is cached, keyed
+        as the JAX package keys it."""
+        from . import native
+        if not native.native_available():
+            return None
+        key = (len(trees), k, s_iter, self._model_gen)
+        if self._flat_cache is not None and self._flat_cache[0] == key:
+            flat = self._flat_cache[1]
+        else:
+            flat = flatten_forest(trees, k)
+            self._flat_cache = (key, flat)
+        if X.shape[1] <= int(flat["feat"].max(initial=-1)):
+            raise ValueError(
+                f"data has {X.shape[1]} features but the model was trained "
+                f"with at least {int(flat['feat'].max()) + 1}")
+        freq, margin = early_stop if early_stop is not None else (0, 0.0)
+        return native.predict_forest(X, flat, k, pred_leaf, freq, margin)
 
     def _read_predict_file(self, path: str, kwargs: Dict) -> np.ndarray:
         """The feature matrix of a data file to predict (JAX package:

@@ -407,12 +407,18 @@ class Config:
     tpu_hist_subbin: str = "auto"
     tpu_hist_spill_vmem_mb: float = 48.0
     tpu_quant_hist_bits: int = 16
-    # file and CLI options (lightgbm_tpu/config.py:472, 538, 556-562): the
-    # CLI's rolling snapshot count, read; streaming ingest, tracing and
-    # checkpoints, which the port lacks (ROADMAP A.4, A.9, A.8), parsed so
-    # that a run which sets them raises rather than ignoring them
+    # file and CLI options (lightgbm_tpu/config.py:472-495, 538, 556-562):
+    # the CLI's rolling snapshot count; streamed ingest (io/stream.py): rows
+    # a chunk (0: the one-shot routes), the JAX package's prefetch depth
+    # (checked, >= 0; the port reads and bins on one thread) and the
+    # stream-to-shard switch ("auto" and "off" stream to one device, "on"
+    # raises: ROADMAP A.7); tracing and checkpoints, which the port
+    # lacks (A.9, A.8), parsed so that a run which sets them raises rather
+    # than ignoring them
     tpu_snapshot_keep: int = 3
     tpu_stream_chunk_rows: int = 0
+    tpu_stream_shard: str = "auto"
+    tpu_stream_pipeline_depth: int = 2
     tpu_trace: bool = False
     tpu_checkpoint_dir: str = ""
 

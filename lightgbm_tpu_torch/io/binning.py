@@ -1,5 +1,8 @@
 """Feature quantization: value -> bin mapping (copied from
-lightgbm_tpu/io/binning.py, pure-Python path).
+lightgbm_tpu/io/binning.py): numerical bounds from the native search
+(`native.py`) where the library builds, else from the Python search, and
+the canonical sample draw (`sample_indices`, from
+lightgbm_tpu/dist/binning.py).
 
 Re-creates the behavior of the reference `BinMapper`
 (`src/io/bin.cpp:22-419`, `include/LightGBM/bin.h:70-250,461-497`): greedy
@@ -26,6 +29,17 @@ MISSING_NAN = "nan"
 
 BIN_NUMERICAL = "numerical"
 BIN_CATEGORICAL = "categorical"
+
+
+def sample_indices(n: int, sample_cnt: int, seed: int) -> np.ndarray:
+    """The sorted rows of the bin-construction sample: every route that
+    finds bins (the one-shot matrix, the streamed sample pass) draws them
+    here, so their bounds are equal by construction (JAX package:
+    `dist.binning.sample_indices`)."""
+    rng = np.random.RandomState(seed)
+    if sample_cnt < n:
+        return np.sort(rng.choice(n, sample_cnt, replace=False))
+    return np.arange(n, dtype=np.int64)
 
 
 def _next_after(x: float) -> float:
@@ -237,6 +251,14 @@ class BinMapper:
         self.default_bin = 0
         zero_cnt = int(total_sample_cnt - n_values - na_cnt)
 
+        if bin_type == BIN_NUMERICAL:
+            native_bounds = self._native_numerical_bounds(
+                values, total_sample_cnt, na_cnt, max_bin, min_data_in_bin)
+            if native_bounds is not None:
+                return self._finish_numerical(values, native_bounds,
+                                              total_sample_cnt, na_cnt,
+                                              zero_cnt, min_split_data)
+
         # distinct values with zero spliced into sorted order
         values = np.sort(values, kind="stable")
         dv, cv = _distinct_counts(values, zero_cnt)
@@ -336,6 +358,67 @@ class BinMapper:
             if bin_type == BIN_CATEGORICAL:
                 assert self.default_bin > 0
             self.sparse_rate = cnt_in_bin[self.default_bin] / max(
+                total_sample_cnt, 1)
+        else:
+            self.sparse_rate = 1.0
+        return self
+
+    def _native_numerical_bounds(self, values: np.ndarray,
+                                 total_sample_cnt: int, na_cnt: int,
+                                 max_bin: int, min_data_in_bin: int):
+        """The numerical bounds from the native search (`native.py`,
+        src/native/binning.cpp), as the JAX package calls it: with a NaN
+        bin the search gets one bin and the NaN count less, and the NaN
+        bound is appended; None -> the Python search."""
+        from ..native import find_bin_numerical, native_available
+        if not native_available():
+            return None
+        if self.missing_type == MISSING_NAN:
+            bounds = find_bin_numerical(values, total_sample_cnt - na_cnt,
+                                        max_bin - 1, min_data_in_bin)
+            if bounds is None:
+                return None
+            return np.concatenate([bounds, [math.nan]])
+        bounds = find_bin_numerical(values, total_sample_cnt, max_bin,
+                                    min_data_in_bin)
+        if bounds is None:
+            return None
+        if self.missing_type == MISSING_ZERO and len(bounds) == 2:
+            self.missing_type = MISSING_NONE
+        return bounds
+
+    def _finish_numerical(self, values: np.ndarray, bounds: np.ndarray,
+                          total_sample_cnt: int, na_cnt: int, zero_cnt: int,
+                          min_split_data: int) -> "BinMapper":
+        """The mapper's state from native bounds: min and max of the
+        values (0 with zeros), the bins' counts by one searchsorted, the
+        filter, the default bin and the sparse rate."""
+        self.bin_upper_bound = np.asarray(bounds, dtype=np.float64)
+        self.num_bin = len(bounds)
+        if len(values):
+            self.min_val = float(values.min())
+            self.max_val = float(values.max())
+            if zero_cnt > 0:
+                self.min_val = min(self.min_val, 0.0)
+                self.max_val = max(self.max_val, 0.0)
+        else:
+            self.min_val = self.max_val = 0.0
+        r = self.num_bin - 1 - (1 if self.missing_type == MISSING_NAN else 0)
+        idx = np.searchsorted(self.bin_upper_bound[:r], values, side="left")
+        cnt_in_bin = np.bincount(idx, minlength=self.num_bin).astype(np.int64)
+        zero_bin = int(np.searchsorted(self.bin_upper_bound[:r], 0.0,
+                                       side="left"))
+        cnt_in_bin[zero_bin] += zero_cnt
+        if self.missing_type == MISSING_NAN:
+            cnt_in_bin[self.num_bin - 1] = na_cnt
+        self.is_trivial = self.num_bin <= 1
+        if not self.is_trivial and _need_filter(
+                cnt_in_bin.tolist(), total_sample_cnt, min_split_data,
+                BIN_NUMERICAL):
+            self.is_trivial = True
+        if not self.is_trivial:
+            self.default_bin = int(self.value_to_bin(0.0))
+            self.sparse_rate = float(cnt_in_bin[self.default_bin]) / max(
                 total_sample_cnt, 1)
         else:
             self.sparse_rate = 1.0

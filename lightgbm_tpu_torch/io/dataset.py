@@ -14,8 +14,11 @@ package's rule; `ops/bins.py` says how torch reads it), or, once bundled
 (`io/bundling.py`, uint8 only), as ``uint8 [N, G]`` storage columns:
 ``num_features`` counts the features, ``num_storage_cols`` the columns.
 `save_binary` writes the JAX package's binary dataset file byte for
-byte, and `load_binary` reads a file of either package. Streaming ingest
-is a later slice.
+byte, and `load_binary` reads a file of either package. On the CPU the
+native binner (`native.py`) bins a dense matrix, as in the JAX package.
+The push-rows flow (`create_from_sample`, `push_rows` /
+`push_binned_rows`, `finish_load`) builds a dataset a chunk at a time for
+two-round and streamed loading (`io/loader.py`, `io/stream.py`).
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import torch
 from ..config import Config
 from ..ops.bins import bins_dtype, storage_view, to_storage
 from .binning import (BIN_CATEGORICAL, BIN_NUMERICAL, MISSING_NAN,
-                      MISSING_NONE, MISSING_ZERO, BinMapper)
+                      MISSING_NONE, MISSING_ZERO, BinMapper, sample_indices)
 from .bundling import BundleInfo, apply_bundles, plan_bundles
 
 _BINARY_MAGIC = b"tpu_gbdt_dataset_v1\n"
@@ -249,14 +252,19 @@ class Dataset:
     def _find_bins(self, data: np.ndarray, cfg: Config, cat_set) -> None:
         """Per-feature BinMappers from a row sample (reference
         bin_construct_sample_cnt, dataset_loader.cpp:162+) — the JAX
-        package's draw, so both packages find the same boundaries."""
-        n, f = data.shape
-        rng = np.random.RandomState(cfg.data_random_seed)
+        package's draw (`sample_indices`), so both packages, and the
+        streamed route, find the same boundaries."""
+        n = data.shape[0]
         sample_cnt = min(n, max(cfg.bin_construct_sample_cnt, 1))
-        if sample_cnt < n:
-            sample = data[np.sort(rng.choice(n, sample_cnt, replace=False))]
-        else:
-            sample = data
+        sample = data[sample_indices(n, sample_cnt, cfg.data_random_seed)] \
+            if sample_cnt < n else data
+        self._mappers_from_sample(sample, cfg, cat_set)
+
+    def _mappers_from_sample(self, sample: np.ndarray, cfg: Config,
+                             cat_set) -> None:
+        """One BinMapper a column of the sample rows, then the used
+        features."""
+        f = sample.shape[1]
         self.mappers = []
         for j in range(f):
             col = np.asarray(sample[:, j], dtype=np.float64)
@@ -308,17 +316,33 @@ class Dataset:
                               default=2))
 
     def _ingest(self, data: np.ndarray) -> torch.Tensor:
-        """uint8 or uint16 [N, F_used] bins on the device. Numerical
-        columns bin on the device, chunk by chunk; categorical columns
-        bin on the host (`BinMapper.values_to_bins`)."""
+        """uint8 or uint16 [N, F_used] bins on the device (`_bin_into`)."""
+        bins = torch.empty((self.num_data, len(self.real_feature_idx)),
+                           dtype=self._bins_dtype(), device=self.device)
+        self._bin_into(bins, 0, data)
+        return bins
+
+    def _bin_into(self, bins: torch.Tensor, pos: int,
+                  data: np.ndarray) -> None:
+        """Rows ``pos`` .. ``pos + len(data)`` of ``bins`` from raw rows
+        [k, F_total]: on a CPU dataset by the native binner where the
+        library builds (`_native_bin_matrix`, the JAX package's route);
+        else numerical columns on the device, chunk by chunk, and
+        categorical ones on the host (`BinMapper.values_to_bins`)."""
         used = self.real_feature_idx
         ms = [self.mappers[j] for j in used]
-        dtype = self._bins_dtype()
-        n = self.num_data
-        bins = torch.empty((n, len(used)), dtype=dtype, device=self.device)
+        dtype = bins.dtype
+        k = data.shape[0]
         store = storage_view(bins)
-        for lo in range(0, n, _INGEST_ROWS):
-            hi = min(n, lo + _INGEST_ROWS)
+        if self.device.type == "cpu" and len(used):
+            host = self._native_bin_matrix(
+                data, used, np.uint16 if dtype == torch.uint16 else np.uint8)
+            if host is not None:
+                store[pos:pos + k] = torch.from_numpy(
+                    host.view(np.int16) if dtype == torch.uint16 else host)
+                return
+        for lo in range(0, k, _INGEST_ROWS):
+            hi = min(k, lo + _INGEST_ROWS)
             chunk = torch.as_tensor(
                 np.ascontiguousarray(data[lo:hi][:, used])).to(
                     self.device).to(torch.float64)
@@ -329,8 +353,138 @@ class Dataset:
                     vals = torch.as_tensor(m.values_to_bins(
                         np.asarray(data[lo:hi, used[c]], np.float64)),
                         device=self.device)
-                store[lo:hi, c] = to_storage(vals, dtype)
-        return bins
+                store[pos + lo:pos + hi, c] = to_storage(vals, dtype)
+
+    def _native_bin_matrix(self, data: np.ndarray, used: np.ndarray,
+                           dtype) -> Optional[np.ndarray]:
+        """The bins of the columns ``used`` through the native OpenMP
+        binner (src/native/binning.cpp `lgbt_bin_matrix`; JAX package:
+        `Dataset._native_bin_matrix`); None -> the torch route."""
+        from ..native import bin_matrix, native_available
+        if not native_available():
+            return None
+        data = np.asarray(data)
+        if data.dtype not in (np.float32, np.float64):
+            data = data.astype(np.float64)
+        ms = [self.mappers[j] for j in used]
+        bounds_list = [m.bin_upper_bound if m.bin_type == BIN_NUMERICAL
+                       else np.zeros(0) for m in ms]
+        cats_list, cat_bins_list = [], []
+        for m in ms:
+            if m.bin_type == BIN_CATEGORICAL and m.categorical_2_bin:
+                ck = np.fromiter(m.categorical_2_bin.keys(), np.int64)
+                cv = np.fromiter(m.categorical_2_bin.values(), np.int64)
+                order = np.argsort(ck)
+                cats_list.append(ck[order])
+                cat_bins_list.append(cv[order].astype(np.int32))
+            else:
+                cats_list.append(np.zeros(0, np.int64))
+                cat_bins_list.append(np.zeros(0, np.int32))
+
+        def offsets(parts):
+            return np.concatenate([[0], np.cumsum([len(p) for p in parts])]
+                                  ).astype(np.int64)
+        return bin_matrix(
+            data, np.asarray(used, np.int32),
+            np.asarray([_BINTYPE_CODE[m.bin_type] for m in ms], np.int32),
+            np.asarray([_MISSING_CODE[m.missing_type] for m in ms],
+                       np.int32),
+            np.asarray([m.num_bin for m in ms], np.int32),
+            np.concatenate(bounds_list), offsets(bounds_list),
+            np.concatenate(cats_list), np.concatenate(cat_bins_list),
+            offsets(cats_list), dtype)
+
+    # ------------------------------------------------------------------
+    # the push-rows flow (reference `LGBM_DatasetCreateFromSampledColumn`
+    # + `PushRows` + `FinishLoad`, c_api.h:52-256; JAX package:
+    # `Dataset.create_from_sample` ... `finish_load`)
+    @classmethod
+    def create_from_sample(cls, sample: Optional[np.ndarray], n_total: int,
+                           config: Optional[Config] = None,
+                           feature_names: Optional[List[str]] = None,
+                           categorical_feature: Optional[Sequence[int]]
+                           = None,
+                           reference: Optional["Dataset"] = None,
+                           device: Optional[torch.device] = None
+                           ) -> "Dataset":
+        """Step 1 of 3: the bin mappers from a row sample (all its rows;
+        with ``reference``, that set's mappers and no sample), and the
+        binned matrix of ``n_total`` rows on ``device``, which
+        `push_rows` / `push_binned_rows` fill in row order."""
+        cfg = config or Config()
+        f = (reference.num_total_features if reference is not None
+             else np.asarray(sample).shape[1])
+        self = cls._empty(int(n_total), f, cfg, feature_names, reference,
+                          device)
+        if reference is None:
+            self._mappers_from_sample(np.asarray(sample, np.float64), cfg,
+                                      _cat_set_from(cfg, categorical_feature))
+        self.bins = torch.zeros((self.num_data, len(self.real_feature_idx)),
+                                dtype=self._bins_dtype(), device=self.device)
+        self._push_cfg, self._push_ref = cfg, reference
+        self._push_pos = 0
+        self._push_label = self._push_weight = self._push_init = None
+        return self
+
+    def _push_meta(self, k: int, label, weight, init_score) -> int:
+        """Advance the push cursor by ``k`` rows, keeping their label,
+        weight and init score slices; returns the rows' first position."""
+        if getattr(self, "_push_pos", None) is None:
+            raise RuntimeError("pushing rows needs a dataset made by "
+                               "create_from_sample")
+        pos = self._push_pos
+        if pos + k > self.num_data:
+            raise ValueError(f"push overflow: {pos + k} > "
+                             f"n_total={self.num_data}")
+        for attr, vals, fill in (("_push_label", label, 0.0),
+                                 ("_push_weight", weight, 1.0),
+                                 ("_push_init", init_score, 0.0)):
+            if vals is not None:
+                if getattr(self, attr) is None:
+                    setattr(self, attr, np.full(self.num_data, fill))
+                getattr(self, attr)[pos:pos + k] = np.asarray(vals,
+                                                              np.float64)
+        self._push_pos = pos + k
+        return pos
+
+    def push_rows(self, data: np.ndarray, label=None, weight=None,
+                  init_score=None) -> None:
+        """Step 2: bin one chunk of raw rows [k, F_total] into the matrix
+        (`_bin_into`: the native binner on a CPU dataset, the device
+        otherwise), its metadata slices beside it (reference
+        `Dataset::PushOneRow`)."""
+        data = np.asarray(data)
+        if data.dtype not in (np.float32, np.float64):
+            data = data.astype(np.float64)
+        pos = self._push_meta(data.shape[0], label, weight, init_score)
+        self._bin_into(self.bins, pos, data)
+
+    def push_binned_rows(self, binned, label=None, weight=None,
+                         init_score=None) -> None:
+        """Step 2, rows binned already ([k, F_used], a tensor in the
+        matrix's type or its storage view, or a numpy array)."""
+        binned = torch.as_tensor(binned)
+        k = binned.shape[0]
+        if binned.shape[1] != self.bins.shape[1]:
+            raise ValueError(f"push_binned_rows width {binned.shape[1]} != "
+                             f"{self.bins.shape[1]} used features")
+        pos = self._push_meta(k, label, weight, init_score)
+        store = storage_view(self.bins)
+        store[pos:pos + k] = storage_view(binned).to(store.dtype)
+
+    def finish_load(self, group=None) -> "Dataset":
+        """Step 3 (reference `Dataset::FinishLoad`, dataset.cpp:330): check
+        the row count, set the metadata and bundle (`_maybe_bundle`,
+        which keeps ``num_features`` F apart from ``num_storage_cols``)."""
+        if self._push_pos != self.num_data:
+            raise ValueError(f"finish_load: {self._push_pos} rows pushed, "
+                             f"{self.num_data} declared")
+        cfg, ref = self._push_cfg, self._push_ref
+        label, weight, init = (self._push_label, self._push_weight,
+                               self._push_init)
+        self._push_cfg = self._push_ref = self._push_pos = None
+        self._push_label = self._push_weight = self._push_init = None
+        return self._finish(cfg, ref, label, weight, group, init)
 
     # ------------------------------------------------------------------
     @classmethod

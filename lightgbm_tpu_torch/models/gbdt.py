@@ -61,6 +61,7 @@ from ..config import Config
 from ..io.dataset import Dataset
 from ..ops.metrics import Metric, create_metrics
 from ..ops.objectives import create_objective
+from ..ops.predict import predict_binned_leaves
 from ..utils import log
 from .aligned_builder import replay_spec
 from .device_learner import DeviceTreeLearner, traverse_tree
@@ -187,14 +188,23 @@ class GBDT:
 
     # ------------------------------------------------------------------
     def add_valid_dataset(self, ds: Dataset) -> None:
-        """reference GBDT::AddValidDataset (gbdt.cpp:119-147)."""
-        if self.models:
-            raise NotImplementedError("adding a validation set after "
-                                      "training began is not ported yet")
+        """reference GBDT::AddValidDataset (gbdt.cpp:119-147). Where the
+        model has trees already (continued training, or a set added after
+        training), they are replayed onto the set's scores by its bins,
+        tree i on class i % K, each an f32 add of its leaf values (JAX
+        package: gbdt.py:316-324); not where the set's init scores are
+        that model's raw predictions already (the CLI's ``input_model``,
+        ROADMAP C.34)."""
+        su = _ScoreUpdater(ds.num_data, self.num_tree_per_iteration,
+                           ds.metadata.init_score, self.device)
+        if self.models and not ds.init_score_from_model:
+            leaves = predict_binned_leaves(self.models, ds.bins, ds.bundles)
+            for i, tree in enumerate(self.models):
+                su.add_tree_by_leaves(leaves[i],
+                                      tree.leaf_value[:tree.num_leaves],
+                                      i % self.num_tree_per_iteration)
         self.valid_sets.append(ds)
-        self.valid_scores.append(_ScoreUpdater(
-            ds.num_data, self.num_tree_per_iteration,
-            ds.metadata.init_score, self.device))
+        self.valid_scores.append(su)
         ms = create_metrics(self.cfg)
         for m in ms:
             m.init(ds.metadata, ds.num_data)

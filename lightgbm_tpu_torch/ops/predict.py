@@ -1,19 +1,22 @@
 """Tree-ensemble prediction on the device (port of
 lightgbm_tpu/ops/predict.py: `TreePredictor.predict_raw`,
-`predict_raw_values` and `predict_binned_leaves`).
+`predict_raw_values`, `predict_binned_leaves` and `flatten_forest`).
 
 All rows advance one level per step through the stacked node arrays of
 every tree at once, in f64 with the decision semantics of
 `Tree::NumericalDecision` / `CategoricalDecision` (tree.h:216-270); the
-per-tree values are summed in tree order, as the reference's host walk
-does. `predict_binned_leaves` walks the binned matrix (uint8, uint16 or
+per-tree values are added in tree order, as the reference's host walk
+does, each to its class, and prediction early stopping stops a row's adds
+once its margin passes (reference prediction_early_stop.cpp).
+`predict_binned_leaves` walks the binned matrix (uint8, uint16 or
 EFB-bundled) by the trees' bin thresholds instead, as continued training
-replays an init model onto the training scores. This module reaches no
-kernel of its own.
+replays an init model onto the training and validation scores.
+`flatten_forest` lays the trees out for the native CPU predictor
+(`native.predict_forest`). This module reaches no kernel of its own.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -135,21 +138,32 @@ def _leaves_chunk(X: torch.Tensor, stk: Dict[str, torch.Tensor],
 
 
 def predict_raw_values(trees: List[Tree], X, leaf_index: bool = False,
-                       device: Optional[torch.device] = None) -> np.ndarray:
-    """Raw prediction over raw feature values: [N] summed leaf values in
-    f64, or [N, T] leaf indices when ``leaf_index``."""
+                       device: Optional[torch.device] = None,
+                       num_class: int = 1,
+                       early_stop: Optional[Tuple[int, float]] = None
+                       ) -> np.ndarray:
+    """Raw prediction over raw feature values in f64: [N] (one class) or
+    [N, K] (``num_class`` K, tree i adding to class i % K), or [N, T]
+    leaf indices when ``leaf_index``. ``early_stop`` = (freq in trees,
+    margin): after every freq-th tree but the last, a row whose margin
+    passes stops adding, |score| > margin for one class and the gap
+    between its two largest scores for K (the native predictor's test,
+    src/native/predictor.cpp)."""
     device = torch.device(device) if device is not None \
         else torch.device("cpu")
     X = torch.as_tensor(np.asarray(X, np.float64), device=device)
     n = X.shape[0]
     if not trees:
-        return np.zeros((n, 0), np.int32) if leaf_index else np.zeros(n)
+        if leaf_index:
+            return np.zeros((n, 0), np.int32)
+        return np.zeros(n) if num_class == 1 else np.zeros((n, num_class))
     host = stack_trees(trees)
     stk = {k: torch.as_tensor(v, device=device) for k, v in host.items()
            if isinstance(v, np.ndarray)}
     t_count = len(trees)
     rows_per = max(1, _FRONTIER_CELLS // t_count)
-    out = torch.zeros(n, dtype=torch.float64, device=device)
+    out = torch.zeros((num_class, n), dtype=torch.float64, device=device)
+    freq, margin = early_stop if early_stop is not None else (0, 0.0)
     leaves_out = []
     for lo in range(0, n, rows_per):
         leaves = _leaves_chunk(X[lo:lo + rows_per], stk, host["max_depth"],
@@ -158,12 +172,77 @@ def predict_raw_values(trees: List[Tree], X, leaf_index: bool = False,
             leaves_out.append(leaves.t().to(torch.int32))
             continue
         vals = torch.gather(stk["leaf_value"], 1, leaves)
-        acc = out[lo:lo + rows_per]
-        for t in range(t_count):        # tree order, as the reference sums
-            acc += vals[t]
+        acc = out[:, lo:lo + rows_per]
+        active = None
+        for t in range(t_count):        # tree order, as the reference adds
+            c = t % num_class
+            if active is None:
+                acc[c] += vals[t]
+            else:
+                acc[c] = torch.where(active, acc[c] + vals[t], acc[c])
+            if freq > 0 and (t + 1) % freq == 0 and t + 1 < t_count:
+                if num_class == 1:
+                    passed = acc[0].abs() > margin
+                else:
+                    top = torch.topk(acc, 2, dim=0).values
+                    passed = top[0] - top[1] > margin
+                active = ~passed if active is None else active & ~passed
     if leaf_index:
         return torch.cat(leaves_out).cpu().numpy()
-    return out.cpu().numpy()
+    res = out.cpu().numpy()
+    return res[0] if num_class == 1 else res.T
+
+
+def flatten_forest(trees: List[Tree], num_class: int = 1
+                   ) -> Dict[str, np.ndarray]:
+    """The trees' node arrays end to end for the native batch predictor
+    (src/native/predictor.cpp; JAX package: `flatten_forest`), keyed as
+    its C interface takes them."""
+    t_count = len(trees)
+    node_off = np.zeros(t_count + 1, np.int64)
+    leaf_off = np.zeros(t_count + 1, np.int64)
+    cat_bnd_off = np.zeros(t_count + 1, np.int64)
+    cat_words_off = np.zeros(t_count + 1, np.int64)
+    for i, t in enumerate(trees):
+        node_off[i + 1] = node_off[i] + max(t.num_leaves - 1, 0)
+        leaf_off[i + 1] = leaf_off[i] + t.num_leaves
+        cat_bnd_off[i + 1] = cat_bnd_off[i] + len(t.cat_boundaries)
+        cat_words_off[i + 1] = cat_words_off[i] + len(t.cat_threshold)
+    total_nodes = max(int(node_off[-1]), 1)
+    left = np.empty(total_nodes, np.int32)
+    right = np.empty(total_nodes, np.int32)
+    feat = np.zeros(total_nodes, np.int32)
+    thresh = np.zeros(total_nodes, np.float64)
+    dtype = np.zeros(total_nodes, np.int8)
+    leaf_value = np.zeros(max(int(leaf_off[-1]), 1), np.float64)
+    cat_boundaries = np.zeros(max(int(cat_bnd_off[-1]), 1), np.int32)
+    cat_words = np.zeros(max(int(cat_words_off[-1]), 1), np.uint32)
+    for i, t in enumerate(trees):
+        n = t.num_leaves - 1
+        a, b = int(node_off[i]), int(node_off[i + 1])
+        if n > 0:
+            left[a:b] = t.left_child[:n]
+            right[a:b] = t.right_child[:n]
+            feat[a:b] = t.split_feature[:n]
+            thresh[a:b] = t.threshold[:n]
+            dtype[a:b] = t.decision_type[:n]
+        la, lb = int(leaf_off[i]), int(leaf_off[i + 1])
+        leaf_value[la:lb] = t.leaf_value[:t.num_leaves]
+        ca, cb = int(cat_bnd_off[i]), int(cat_bnd_off[i + 1])
+        cat_boundaries[ca:cb] = np.asarray(t.cat_boundaries, np.int32)
+        wa, wb = int(cat_words_off[i]), int(cat_words_off[i + 1])
+        if wb > wa:
+            cat_words[wa:wb] = np.asarray(t.cat_threshold, np.uint32)
+    return {
+        "node_off": node_off, "leaf_off": leaf_off,
+        "left": left, "right": right, "feat": feat, "thresh": thresh,
+        "dtype": dtype, "leaf_value": leaf_value,
+        "cat_bnd_off": cat_bnd_off, "cat_boundaries": cat_boundaries,
+        "cat_words_off": cat_words_off, "cat_words": cat_words,
+        "num_leaves": np.asarray([t.num_leaves for t in trees], np.int32),
+        "tree_class": (np.arange(t_count, dtype=np.int32)
+                       % max(num_class, 1)),
+    }
 
 
 def predict_binned_leaves(trees: List[Tree], bins: torch.Tensor,

@@ -538,8 +538,8 @@ def test_cli_module_subprocess(tmp_path):
                         params={"device_type": "cpu"}).num_trees() == 2
 
 
-@pytest.mark.parametrize("option", ["two_round", "stream", "columnar",
-                                    "refit", "serve", "trace", "checkpoint"])
+@pytest.mark.parametrize("option", ["refit", "serve", "trace",
+                                    "checkpoint"])
 def test_missing_options_raise(tmp_path, option):
     """A file or CLI option the port lacks raises NotImplementedError
     naming its ROADMAP item; none is ignored."""
@@ -547,15 +547,11 @@ def test_missing_options_raise(tmp_path, option):
     base = ["objective=binary", f"data={tr}", "header=true", "num_trees=1",
             "verbosity=-1", "device_type=cpu",
             f"output_model={tmp_path / 'm.txt'}"]
-    args = {"two_round": ["two_round=true"],
-            "stream": ["tpu_stream_chunk_rows=100"],
-            "columnar": [f"data={tmp_path / 'x.parquet'}"],
-            "refit": ["task=refit", f"input_model={tmp_path / 'm.txt'}"],
+    args = {"refit": ["task=refit", f"input_model={tmp_path / 'm.txt'}"],
             "serve": ["task=serve"],
             "trace": ["tpu_trace=true"],
             "checkpoint": [f"tpu_checkpoint_dir={tmp_path / 'ck'}"]}[option]
-    item = {"two_round": "A.4", "stream": "A.4", "columnar": "A.4",
-            "refit": "A.5", "serve": "A.6", "trace": "A.9",
+    item = {"refit": "A.5", "serve": "A.6", "trace": "A.9",
             "checkpoint": "A.8"}[option]
     with pytest.raises(NotImplementedError, match=item):
         tcli.Application(base + args).run()
