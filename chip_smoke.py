@@ -323,7 +323,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    the uint16 route, the median iteration, holdout AUC and one profiled
    round; int8 and int16 quantized, a round each; a 20,000-row cut,
    still uint16, f64 leaf-wise on the card and on the CPU, equal; (c)
-   the Year shape (`synth_year`, uncut) written as CSV files with a
+   the Year shape (`synth_year`; a quarter of its training rows,
+   ``FILE_ROWS``, and its 51,630 test rows) written as CSV files with a
    header (timed apart), then ``python -m lightgbm_tpu_torch`` in its
    own process: ``task=train`` (l2, 255 leaves and bins, 5 rounds,
    ``valid=`` the test file, ``save_binary``), ``task=predict`` (equal
@@ -337,7 +338,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 22. ingest (``--only 22`` runs phases 1, 2 and 22 alone), after a check
    that the native library (``lightgbm_tpu_torch/native.py``) built from
    ``src/native/`` into ``build/torch_native/``: (a) the Year shape
-   (uncut) as CSV files without a header: the native parse equal to the
+   (``FILE_ROWS`` training rows, as in phase 21 (c)) as CSV files without
+   a header: the native parse equal to the
    numpy parse of the file (NaN equal to NaN), both timed; a two-round
    load on the card, its bins equal to the same load's on the CPU; a
    streamed load (chunks of 65,536 lines), its bins equal to the one-shot
@@ -361,7 +363,29 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    run N times each with and without a prefetch thread (the JAX
    package's ``ChunkPrefetcher`` at depth 2, defined here: a thread
    reads chunk k + 1 into memory while the port bins chunk k), in
-   alternating order, each timed alone.
+   alternating order, each timed alone;
+23. the Python surface (``--only 23`` runs phases 1, 2 and 23 alone), each
+   estimator fit with every count of B1-B6 zeroed just before and read
+   just after: (a) ``LGBMClassifier`` (5 rounds, 255 leaves, 63 bins,
+   ``auto``, an ``eval_set``) on phase 4's HIGGS rows, on the aligned
+   engine with B2 and B4 launched, ``predict_proba`` the sigmoid of the
+   raw scores, its holdout AUC within 2e-3 of phase 5's ``auto`` run;
+   a leaf-wise ``LGBMClassifier`` (2 rounds on 2,097,152 rows) launching
+   B1; (b) split and gain importances (the splits summing to the split
+   nodes) and ``dump_model``, node by node the trees of the model text;
+   (c) ``pred_contrib`` of 64 holdout rows on the host, each row summing
+   to its raw score within 1e-9 x max |raw|, rows a second; (d) ``refit``
+   on 1,000,000 other rows (``decay_rate`` 0.9) on the card, its model
+   text equal to the CPU's refit of the same model and rows; (e) on a
+   20,000-row cut, 3 rounds, ``rollback_one_iter``, 1 more round: f64
+   leaf-wise tree sections card = CPU; ``auto`` (the aligned engine,
+   left at the rollback) within C.7's tolerance of the CPU's run through
+   the twins; then (a)'s booster rolled back and grown one more round;
+   (f) a pickled ``LGBMClassifier`` predicting as before; (g)
+   ``LGBMRegressor`` (l2, the Year shape, 2 rounds, B4's STANDARD route)
+   and ``LGBMRanker`` (1,048,576 rows of the MSLR shape, 2 rounds, EXT
+   records with B6), each fit's launches logged and added to its
+   kernels' entries of the ``kernels`` line (``surface_launches``).
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -4265,6 +4289,10 @@ def phase_early_stopping(torch, lt, X, y) -> dict:
 # ---------------------------------------------------------------------------
 # phase 20: the rest of the objectives
 YEAR_TRAIN, YEAR_TEST, YEAR_FEATURES = 463_715, 51_630, 90
+# the training rows that phases 21 (c), (d) and 22 (a), (c)-(e) write to
+# their CSV files: a quarter of Year's, a depth cut to keep the smoke in
+# its time limit (the test file keeps its 51,630 rows)
+FILE_ROWS = YEAR_TRAIN // 4
 YEAR_ROUNDS = {"host": 3, "auto": 5, "leafwise": 3}
 YEAR_HOST = (("regression_l1", {}), ("quantile", {"alpha": 0.9}),
              ("mape", {}))
@@ -4934,7 +4962,8 @@ def model_trees(text: str) -> list:
 
 def phase_files(torch, lt) -> dict:
     """Phase 21 (c) and (d): the Year shape (`synth_year`, seed 19,
-    463,715 + 51,630 x 90, uncut) written as CSV files with a header
+    the first ``FILE_ROWS`` of its 463,715 training rows + 51,630 x 90)
+    written as CSV files with a header
     (the write timed apart), then ``python -m lightgbm_tpu_torch`` in
     four runs: ``task=train`` (l2, 255 leaves and bins, 5 rounds,
     ``valid=`` the test file, ``save_binary``), ``task=predict`` on the
@@ -4953,7 +4982,7 @@ def phase_files(torch, lt) -> dict:
     from lightgbm_tpu_torch.io.loader import DatasetLoader
     t_phase = t0 = time.perf_counter()
     X, y = synth_year(YEAR_TRAIN + YEAR_TEST)
-    Xtr, ytr = X[:YEAR_TRAIN], y[:YEAR_TRAIN]
+    Xtr, ytr = X[:FILE_ROWS], y[:FILE_ROWS]
     Xte, yte = X[YEAR_TRAIN:], y[YEAR_TRAIN:]
     work = os.path.abspath(PHASE21_DIR)
     shutil.rmtree(work, ignore_errors=True)
@@ -5245,7 +5274,7 @@ def phase_ingest(torch, lt, ab: int = 0) -> dict:
     from lightgbm_tpu_torch.io.parser import create_parser, parse_dense
     t_phase = time.perf_counter()
     X, y = synth_year(YEAR_TRAIN + YEAR_TEST)
-    Xtr, ytr = X[:YEAR_TRAIN], y[:YEAR_TRAIN]
+    Xtr, ytr = X[:FILE_ROWS], y[:FILE_ROWS]
     work = os.path.abspath(PHASE22_DIR)
     os.makedirs(work, exist_ok=True)
     train, test = (os.path.join(work, f) for f in ("train.csv", "test.csv"))
@@ -5509,13 +5538,391 @@ def phase_cv(torch, lt, Xtr, ytr) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the Python surface
+# ---------------------------------------------------------------------------
+SURFACE_ROUNDS = 5            # (a): phase 5's 63-bin rounds
+SURFACE_LEAF_ROUNDS = 2       # (a)'s leaf-wise classifier, for B1's count
+SURFACE_LEAF_ROWS = 2_097_152  # and its rows, a cut of (a)'s 10.5M
+SURFACE_SHAP_ROWS = 64
+SURFACE_REFIT_ROWS = 1_000_000
+SURFACE_CUT_ROWS = 20_000
+SURFACE_MSLR_ROWS = 1_048_576  # MSLR cut from 2.27M rows; the aligned
+#                                engine takes ranking from 1M rows
+SURFACE_G_ROUNDS = 2
+
+
+def surface_counts():
+    """Zero every kernel count of B1, B2-B4 and B6."""
+    from lightgbm_tpu_torch.ops import aligned as A
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.ops import rank as R
+    H.reset_launches()
+    A.reset_launches()
+    R.reset_launches()
+
+
+def surface_read():
+    """The counts of B1 (f32), B2, B3, B4 and B6 since `surface_counts`."""
+    from lightgbm_tpu_torch.ops import aligned as A
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.ops import rank as R
+    return {"B1": H.LAUNCHES["f32"], **A.LAUNCHES, **R.LAUNCHES}
+
+
+def surface_fit(torch, est, X, y, what, **fit_kw) -> dict:
+    """``est.fit`` on the card with every count zeroed just before and
+    read just after, timed per iteration."""
+    stamps = []
+
+    def stamp(env):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    gc.collect()
+    torch.cuda.synchronize()
+    surface_counts()
+    t0 = time.perf_counter()
+    est.fit(X, y, callbacks=[stamp], **fit_kw)
+    torch.cuda.synchronize()
+    launches = surface_read()
+    iters = np.diff([t0] + stamps)
+    r = {"fit_s": time.perf_counter() - t0,
+         "first_round_s": float(iters[0]),
+         "median_iter_ms": statistics.median(iters[1:]) * 1e3
+         if len(iters) > 1 else float("nan"),
+         "launches": launches,
+         "train_path": est.booster_._gbdt.train_path}
+    log(f"phase 23 {what}: fit {r['fit_s']:.3f} s, first round "
+        f"{r['first_round_s']:.3f} s, median iteration "
+        f"{r['median_iter_ms']:.1f} ms, path {r['train_path']}, launches "
+        f"B1 {launches['B1']} B2 {launches['move_pass']} B3 "
+        f"{launches['count_pass']} B4 {launches['slot_hist_pass']} B6 "
+        f"{launches['lambdarank_grad']}")
+    return r
+
+
+def json_tree_equal(node, tree, idx) -> int:
+    """Hold one node of `dump_model`'s tree (and those below it) against
+    ``tree``'s arrays at ``idx`` (a node, or ~leaf); returns the nodes
+    seen."""
+    if idx < 0:
+        leaf = ~idx
+        if node.get("leaf_index") != leaf \
+                or node["leaf_value"] != float(tree.leaf_value[leaf]) \
+                or node["leaf_count"] != int(tree.leaf_count[leaf]):
+            raise AssertionError(f"phase 23 (b): leaf {leaf} of the dump "
+                                 "differs from the model text's")
+        return 1
+    same = (node.get("split_index") == idx
+            and node["split_feature"] == int(tree.split_feature[idx])
+            and node["threshold"] == float(tree.threshold[idx])
+            and node["split_gain"] == float(tree.split_gain[idx])
+            and node["internal_value"] == float(tree.internal_value[idx])
+            and node["internal_count"] == int(tree.internal_count[idx])
+            and node["default_left"] == tree.node_default_left(idx))
+    if not same:
+        raise AssertionError(f"phase 23 (b): node {idx} of the dump differs "
+                             "from the model text's")
+    return 1 + json_tree_equal(node["left_child"], tree,
+                               int(tree.left_child[idx])) \
+        + json_tree_equal(node["right_child"], tree,
+                          int(tree.right_child[idx]))
+
+
+def tree_match(ta, tb, what, rtol=1e-4, atol=1e-5) -> None:
+    """C.7's tolerance: equal shapes and split features, leaf values
+    within ``rtol`` / ``atol``."""
+    if len(ta) != len(tb):
+        raise AssertionError(f"{what}: {len(ta)} trees against {len(tb)}")
+    for i, (a, b) in enumerate(zip(ta, tb)):
+        k = a.num_leaves - 1
+        if a.num_leaves != b.num_leaves or \
+                list(a.split_feature[:k]) != list(b.split_feature[:k]):
+            raise AssertionError(f"{what}: tree {i} splits differ")
+        np.testing.assert_allclose(a.leaf_value[:k + 1],
+                                   b.leaf_value[:k + 1], rtol=rtol,
+                                   atol=atol, err_msg=f"{what}: tree {i}")
+
+
+def phase_surface(torch, lt, X, y, rows: int, auto_auc=None) -> dict:
+    """Phase 23: the sklearn estimators and the Booster's Python surface on
+    the card at the HIGGS shape, the Year shape and the MSLR shape."""
+    import pickle
+    t_phase = time.perf_counter()
+    Xtr, ytr, Xte, yte = X[:rows], y[:rows], X[rows:], y[rows:]
+    res = {}
+    kw = {"num_leaves": 255, "max_bin": 63, "verbosity": -1}
+    # (a) LGBMClassifier under auto with an eval set
+    clf = lt.LGBMClassifier(n_estimators=SURFACE_ROUNDS, **kw)
+    a = surface_fit(torch, clf, Xtr, ytr, "(a) LGBMClassifier auto",
+                    eval_set=[(Xte, yte)], eval_metric="auc")
+    t0 = time.perf_counter()
+    proba = clf.predict_proba(Xte)
+    a["predict_proba_s"] = time.perf_counter() - t0
+    raw_te = clf.predict(Xte, raw_score=True)
+    if proba.shape != (len(yte), 2) or not np.all(np.isfinite(proba)) \
+            or not np.allclose(proba[:, 1], 1.0 / (1.0 + np.exp(-raw_te)),
+                               rtol=1e-12, atol=1e-15):
+        raise AssertionError("phase 23 (a): predict_proba is not finite of "
+                             f"shape ({len(yte)}, 2), or not the sigmoid "
+                             "of the raw scores")
+    a["auc"] = holdout_auc(lt, raw_te, yte)
+    a["auc_eval_set"] = clf.evals_result_["valid_0"]["auc"][-1]
+    if a["train_path"] != "aligned" or not a["launches"]["move_pass"] \
+            or not a["launches"]["slot_hist_pass"]:
+        raise AssertionError(f"phase 23 (a): path {a['train_path']}, "
+                             f"launches {a['launches']}")
+    if auto_auc is None:
+        bst, ref = train_run(torch, lt, lt.Dataset(
+            Xtr, label=ytr, params={"objective": "binary", **kw}),
+            {"objective": "binary", "learning_rate": 0.1,
+             "min_data_in_leaf": 20, **kw}, SURFACE_ROUNDS, Xte, yte,
+            "phase 23 (a) reference: train auto")
+        auto_auc = ref["auc"]
+        del bst
+    a["auc_phase5"] = auto_auc
+    if abs(a["auc"] - auto_auc) > 2e-3:
+        raise AssertionError(f"phase 23 (a): AUC {a['auc']} is not within "
+                             f"2e-3 of phase 5's auto run {auto_auc}")
+    log(f"phase 23 (a): holdout AUC {a['auc']:.6f} (eval_set "
+        f"{a['auc_eval_set']:.6f}; phase 5 auto {auto_auc:.6f}), "
+        f"predict_proba {len(yte)} rows {a['predict_proba_s']:.3f} s")
+    res["classifier"] = a
+    # (a) the leaf-wise classifier: B1
+    leaf = lt.LGBMClassifier(n_estimators=SURFACE_LEAF_ROUNDS,
+                             tpu_grow_mode="leafwise", **kw)
+    lw = surface_fit(torch, leaf, Xtr[:SURFACE_LEAF_ROWS],
+                     ytr[:SURFACE_LEAF_ROWS], "(a) LGBMClassifier leaf-wise")
+    if lw["train_path"] != "leafwise" or not lw["launches"]["B1"]:
+        raise AssertionError(f"phase 23 (a) leaf-wise: path "
+                             f"{lw['train_path']}, launches {lw['launches']}")
+    res["classifier_leafwise"] = lw
+    del leaf
+    gc.collect()
+    torch.cuda.empty_cache()
+    bst = clf.booster_
+    text = bst.model_to_string()
+    # (b) feature importances and dump_model
+    split = clf.feature_importances_
+    gain = bst.feature_importance("gain")
+    nodes = sum(t.num_leaves - 1 for t in bst.trees)
+    if split.shape != (28,) or split.sum() != nodes \
+            or not np.all(np.isfinite(gain)) or gain.sum() <= 0 \
+            or not np.array_equal(split > 0, gain > 0):
+        raise AssertionError(f"phase 23 (b): importances split {split}, "
+                             f"gain {gain}, {nodes} split nodes")
+    t0 = time.perf_counter()
+    dump = bst.dump_model()
+    json.dumps(dump)
+    dump_s = time.perf_counter() - t0
+    loaded = lt.Booster(model_str=text, params={"device_type": "cpu"})
+    seen = 0
+    for info, tree in zip(dump["tree_info"], loaded.trees):
+        if info["num_leaves"] != tree.num_leaves:
+            raise AssertionError("phase 23 (b): leaf counts differ")
+        seen += json_tree_equal(info["tree_structure"], tree,
+                                0 if tree.num_leaves > 1 else ~0)
+    if len(dump["tree_info"]) != len(loaded.trees) \
+            or seen != sum(2 * t.num_leaves - 1 for t in loaded.trees):
+        raise AssertionError("phase 23 (b): the dump's trees are not the "
+                             "model text's")
+    res["importance"] = {"split": split.tolist(), "gain": gain.tolist(),
+                         "dump_s": dump_s, "dump_nodes": seen}
+    log(f"phase 23 (b): importances (split sum {int(split.sum())} = split "
+        f"nodes, gain sum {gain.sum():.6g}); dump_model {seen} nodes in "
+        f"{dump_s:.3f} s, equal to the model text's trees")
+    # (c) SHAP on 64 holdout rows
+    rows_c = Xte[:SURFACE_SHAP_ROWS]
+    t0 = time.perf_counter()
+    contrib = bst.predict(rows_c, pred_contrib=True)
+    shap_s = time.perf_counter() - t0
+    raw = bst.predict(rows_c, raw_score=True)
+    err = float(np.abs(contrib.sum(axis=1) - raw).max())
+    tol = 1e-9 * float(np.abs(raw).max())
+    if contrib.shape != (SURFACE_SHAP_ROWS, 29) or err > tol:
+        raise AssertionError(f"phase 23 (c): contributions {contrib.shape}, "
+                             f"|sum - raw| {err} > {tol}")
+    res["shap"] = {"rows": SURFACE_SHAP_ROWS, "seconds": shap_s,
+                   "rows_per_s": SURFACE_SHAP_ROWS / shap_s,
+                   "max_sum_err": err}
+    log(f"phase 23 (c): pred_contrib of {SURFACE_SHAP_ROWS} rows x "
+        f"{len(bst.trees)} trees of {bst.trees[-1].num_leaves} leaves in "
+        f"{shap_s:.3f} s on the host ({SURFACE_SHAP_ROWS / shap_s:.1f} "
+        f"rows/s), max |sum - raw| {err:.3g}")
+    # (d) refit on other rows, card against CPU
+    Xn, yn = synth_higgs(SURFACE_REFIT_ROWS, 28, seed=23)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        b = lt.Booster(model_str=text, params={"device_type": dev})
+        surface_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b.refit(Xn, yn, decay_rate=0.9)
+        torch.cuda.synchronize()
+        out[dev] = (time.perf_counter() - t0, b.model_to_string())
+    if out["cuda"][1] != out["cpu"][1]:
+        raise AssertionError("phase 23 (d): the card's refit model text "
+                             "differs from the CPU's")
+    if out["cuda"][1] == text:
+        raise AssertionError("phase 23 (d): refit changed nothing")
+    res["refit"] = {"rows": SURFACE_REFIT_ROWS, "card_s": out["cuda"][0],
+                    "cpu_s": out["cpu"][0]}
+    log(f"phase 23 (d): refit on {SURFACE_REFIT_ROWS} other rows, card "
+        f"{out['cuda'][0]:.3f} s, CPU {out['cpu'][0]:.3f} s, model text "
+        "equal")
+    del Xn, yn, out
+    # (e) rollback then one more round on a cut, card against CPU
+    res["rollback"] = phase_surface_rollback(torch, lt, Xtr, ytr)
+    # (f) a pickled classifier
+    back = pickle.loads(pickle.dumps(clf))
+    if not np.array_equal(back.predict_proba(Xte), proba):
+        raise AssertionError("phase 23 (f): the unpickled classifier "
+                             "predicts otherwise")
+    log("phase 23 (f): the unpickled LGBMClassifier's predict_proba equals "
+        "the original's")
+    del back
+    # (e) at full size: rollback of (a)'s aligned booster, one more round
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst.rollback_one_iter()
+    torch.cuda.synchronize()
+    rb_ms = (time.perf_counter() - t0) * 1e3
+    bst.update()
+    auc_rb = holdout_auc(lt, bst.predict(Xte, raw_score=True), yte)
+    if bst.num_trees() != SURFACE_ROUNDS or bst._gbdt.train_path \
+            != "leafwise" or abs(auc_rb - a["auc"]) > 5e-3:
+        raise AssertionError(f"phase 23 (e): after the rollback "
+                             f"{bst.num_trees()} trees on "
+                             f"{bst._gbdt.train_path}, AUC {auc_rb}")
+    res["rollback"]["full_ms"] = rb_ms
+    res["rollback"]["full_auc"] = auc_rb
+    log(f"phase 23 (e): rollback of (a)'s booster ({rows} rows, the "
+        f"aligned engine left) {rb_ms:.1f} ms; one more round leaf-wise, "
+        f"AUC {auc_rb:.6f}")
+    del clf, bst, loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (g) LGBMRegressor on Year, LGBMRanker on the MSLR shape
+    Xy, yy = synth_year(YEAR_TRAIN + YEAR_TEST)
+    reg = lt.LGBMRegressor(n_estimators=SURFACE_G_ROUNDS, num_leaves=255,
+                           max_bin=255, verbosity=-1)
+    g = surface_fit(torch, reg, Xy[:YEAR_TRAIN], yy[:YEAR_TRAIN],
+                    "(g) LGBMRegressor l2, Year")
+    eng = reg.booster_._gbdt._aligned_eng
+    pred = reg.predict(Xy[YEAR_TRAIN:])
+    if g["train_path"] != "aligned" or eng.compact \
+            or not g["launches"]["slot_hist_pass"] \
+            or not np.all(np.isfinite(pred)):
+        raise AssertionError(f"phase 23 (g) regressor: {g['train_path']}, "
+                             f"launches {g['launches']}")
+    g["holdout_l2"] = float(np.mean((pred - yy[YEAR_TRAIN:]) ** 2))
+    res["regressor"] = g
+    del reg, eng, Xy, yy
+    gc.collect()
+    torch.cuda.empty_cache()
+    Xm, ym, gm = synth_mslr(SURFACE_MSLR_ROWS, MSLR_FEATURES)
+    rank = lt.LGBMRanker(n_estimators=SURFACE_G_ROUNDS, num_leaves=255,
+                         max_bin=255, min_child_samples=50, verbosity=-1)
+    r = surface_fit(torch, rank, Xm, ym, "(g) LGBMRanker, MSLR shape",
+                    group=gm)
+    qs, nrows = ndcg_queries(gm, NDCG_ROWS)
+    r["ndcg10"] = ndcg_at(rank.predict(Xm[:nrows]), ym[:nrows], qs)
+    if r["launches"]["lambdarank_grad"] < SURFACE_G_ROUNDS \
+            or not np.isfinite(r["ndcg10"]):
+        raise AssertionError(f"phase 23 (g) ranker: launches "
+                             f"{r['launches']}, NDCG@10 {r['ndcg10']}")
+    log(f"phase 23 (g): ranker NDCG@10 {r['ndcg10']:.6f} over "
+        f"{len(qs)} queries")
+    res["ranker"] = r
+    del rank, Xm, ym, gm
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 23: {res['phase_s']:.1f} s")
+    return res
+
+
+def add_surface_launches(kernels, surface) -> None:
+    """Phase 23's launches of each kernel it drives, on that kernel's
+    entries of the kernels line (``surface_launches``, by run)."""
+    runs = {"histogram_f32_63bin": (("classifier_leafwise", "B1"),),
+            "move_pass_partition_63bin": (("classifier", "move_pass"),),
+            "move_pass_child_hist_63bin": (("classifier", "move_pass"),),
+            "slot_hist_pass_63bin": (("classifier", "slot_hist_pass"),),
+            "move_pass_partition_ext_255bin": (("ranker", "move_pass"),),
+            "move_pass_child_hist_ext_255bin": (("ranker", "move_pass"),),
+            "slot_hist_pass_ext_255bin": (("ranker", "slot_hist_pass"),),
+            "lambdarank_grad": (("ranker", "lambdarank_grad"),),
+            # B4 on STANDARD records (Year l2) has no unbagged entry: the
+            # bag branch's STANDARD entry stands for it
+            "slot_hist_pass_bag_standard_63bin": (("regressor",
+                                                   "slot_hist_pass"),)}
+    for k in kernels:
+        for run, key in runs.get(k["name"], ()):
+            k.setdefault("surface_launches", {})[run] = \
+                surface[run]["launches"][key]
+
+
+def phase_surface_rollback(torch, lt, Xtr, ytr) -> dict:
+    """Phase 23 (e) on a 20,000-row cut (31 leaves, 63 bins): 3 rounds,
+    `rollback_one_iter`, 1 more round; f64 leaf-wise on the card and the
+    CPU, the tree sections equal; then ``auto`` on the card (the aligned
+    engine, left at the rollback) against the CPU's aligned engine
+    through its twins (``tpu_aligned_interpret``), within C.7's
+    tolerance."""
+    Xc, yc = Xtr[:SURFACE_CUT_ROWS], ytr[:SURFACE_CUT_ROWS]
+    base = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+            "learning_rate": 0.1, "min_data_in_leaf": 20, "verbosity": -1}
+    out = {}
+    for mode, extra in (("f64", {"tpu_use_f64_hist": True,
+                                 "tpu_grow_mode": "leafwise"}),
+                        ("auto", {"tpu_aligned_interpret": True})):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            p = {**base, **extra, "device_type": dev}
+            b = lt.Booster(params=p, train_set=lt.Dataset(Xc, label=yc,
+                                                          params=p))
+            for _ in range(3):
+                b.update()
+            path = b._gbdt.train_path
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b.rollback_one_iter()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            b.update()
+            runs[dev] = (b, path, ms)
+        (bc, pc, ms_c), (bh, ph, ms_h) = runs["cuda"], runs["cpu"]
+        if mode == "f64":
+            if tree_sections(bc) != tree_sections(bh):
+                raise AssertionError("phase 23 (e): the f64 trees after the "
+                                     "rollback differ between the card and "
+                                     "the CPU")
+        else:
+            if pc != "aligned" or ph != "aligned" \
+                    or bc._gbdt.train_path != "leafwise":
+                raise AssertionError(f"phase 23 (e) auto: paths {pc}, {ph}, "
+                                     f"then {bc._gbdt.train_path}")
+            tree_match(bc.trees, bh.trees, "phase 23 (e) auto")
+        out[mode] = {"card_ms": ms_c, "cpu_ms": ms_h,
+                     "trees": bc.num_trees()}
+        log(f"phase 23 (e) {mode}: 3 rounds, rollback (card {ms_c:.2f} ms, "
+            f"CPU {ms_h:.2f} ms), 1 more round: "
+            + ("tree sections equal" if mode == "f64" else
+               "within C.7's tolerance, the same split features"))
+        del runs, bc, bh
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=10_500_000)
     ap.add_argument("--holdout", type=int, default=500_000)
     ap.add_argument("--mslr-rows", type=int, default=MSLR_ROWS)
     ap.add_argument("--airline-rows", type=int, default=10_000_000)
-    ap.add_argument("--only", choices=("21", "22"), help="phases 1-2 and "
+    ap.add_argument("--only", choices=("21", "22", "23"),
+                    help="phases 1-2 and "
                     "this phase alone (phase 21's kernels in the kernels "
                     "line)")
     ap.add_argument("--prefetch-ab", type=int, default=0, metavar="N",
@@ -5555,6 +5962,11 @@ def main() -> int:
         ingest.update(phase_ingest(torch, lt, args.prefetch_ab))
         stamp("phase 22")
         return finish(torch, info, stamps, t_main, {"ingest": ingest}, [])
+    if args.only == "23":
+        X, y = synth_higgs(args.rows + args.holdout, 28)
+        surface = phase_surface(torch, lt, X, y, args.rows)
+        stamp("phase 23")
+        return finish(torch, info, stamps, t_main, {"surface": surface}, [])
     par = phase_parity(torch, dev, args.rows)
     qpar = phase_quant_parity(torch, dev, args.rows)
     stamp("phases 3, 18 (a)")
@@ -5607,6 +6019,9 @@ def main() -> int:
     ingest = {"higgs": phase_stream_higgs(torch, lt, X, y, args.rows,
                                           args.prefetch_ab)}
     stamp("phase 22 (b)")
+    surface = phase_surface(torch, lt, X, y, args.rows,
+                            auto_auc=aligned_r[63]["auc"])
+    stamp("phase 23")
     del X, y
     gc.collect()
     t0 = time.perf_counter()
@@ -5924,6 +6339,7 @@ def main() -> int:
                                  "launches_per_call") if k in p},
             "shape": shape})
     kernels += u16_entries
+    add_surface_launches(kernels, surface)
     return finish(torch, info, stamps, t_main, {
         "hist_kernel": {str(k): v for k, v in par.items()},
         "main": {str(k): v for k, v in main_r.items()},
@@ -5939,7 +6355,7 @@ def main() -> int:
         "objectives": {"higgs": objectives, "year": year},
         "quant_kernel": qpar, "quant": quant,
         "forced_cegb": forced, "early_stopping": stopping,
-        "ingest": ingest,
+        "ingest": ingest, "surface": surface,
         "bag_kernels": {f"{b} {lay}": v for (b, lay), v
                         in bpar.items()},
         "proto_path": proto_path, "proto_kernels": ppar,

@@ -1,26 +1,36 @@
-"""Public Dataset / Booster (port of lightgbm_tpu/basic.py: dense and
-scipy CSR/CSC input and data files, row subsets and the binary dataset
-file; every objective; gbdt, goss, dart and rf boosting).
+"""Public Dataset / Booster (port of lightgbm_tpu/basic.py: dense,
+scipy CSR/CSC and pandas input and data files, row subsets, column
+merges and the binary dataset file; every objective; gbdt, goss, dart
+and rf boosting).
 
-A `Dataset` takes a matrix or a path: a text file (CSV, TSV, space or
+A `Dataset` takes a matrix, a DataFrame (its ``category`` columns
+categorical, their categories kept in the model text as
+``pandas_categorical``) or a path: a text file (CSV, TSV, space or
 LibSVM, with its sidecars; `io/loader.py`) or a binary dataset file of
 either package. `Booster.predict` walks the trees on the run's device
 (``cuda`` unless the params ask for ``device_type=cpu``), over a matrix
-or a data file; `model_to_string` writes the JAX package's model text,
-and a Booster loads model text written by either package.
+or a data file, and gives SHAP values on the host with ``pred_contrib``
+(`ops/shap.py`); `model_to_string` writes the JAX package's model text,
+and a Booster loads model text written by either package. `refit`,
+`rollback_one_iter`, `dump_model`, `feature_importance` and pickling
+follow the JAX package's `Booster`. pandas is never imported here: a
+frame is read through its own methods.
 """
 from __future__ import annotations
 
+import copy
+import json
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
 from .config import Config, _to_bool, resolve_device
 from .io.dataset import Dataset as _CoreDataset
+from .io.dataset import Metadata
 from .models.boosting_variants import create_boosting
 from .models.gbdt import GBDT
-from .models.model_text import (_feature_infos, load_model_from_string,
-                                save_model_to_string)
+from .models.model_text import (_feature_infos, dump_model_json,
+                                load_model_from_string, save_model_to_string)
 from .models.tree import Tree
 from .ops.objectives import create_objective
 from .ops.predict import flatten_forest, predict_raw_values
@@ -35,14 +45,69 @@ def _is_sparse(data) -> bool:
     return hasattr(data, "tocsc") and not isinstance(data, np.ndarray)
 
 
+def _is_pandas(data) -> bool:
+    """A DataFrame, known by its ``columns`` (pandas is not imported)."""
+    return hasattr(data, "columns") and hasattr(data, "values")
+
+
 def _to_matrix(data) -> np.ndarray:
     if isinstance(data, np.ndarray):
         return data if data.dtype in (np.float32, np.float64) \
             else data.astype(np.float64)
     if isinstance(data, (list, tuple)):
         return np.asarray(data, np.float64)
+    if _is_pandas(data):
+        return _data_from_pandas(data)[0]
     raise LightGBMError(f"Cannot convert data of type {type(data)} (the "
-                        "port takes numpy matrices and scipy sparse ones)")
+                        "port takes numpy matrices, scipy sparse ones and "
+                        "pandas DataFrames)")
+
+
+def _data_from_pandas(df, pandas_categorical=None):
+    """DataFrame -> (matrix, feature names, categorical columns, their
+    categories), as the JAX package reads it (basic.py:95-135, after the
+    reference basic.py:255-298): a ``category`` column becomes its codes
+    (NaN, code -1, is missing), an ``object`` column raises, and the
+    column names become the feature names. With ``pandas_categorical``
+    (the training frame's category lists, in categorical-column order)
+    the codes are taken against those categories, so a frame with other
+    categories predicts as the training frame did. Under pandas 3 a
+    string column has the ``str`` dtype, not ``object``, and raises
+    numpy's ValueError on its conversion to float, as in the JAX package
+    (ROADMAP C.39)."""
+    feature_names = [str(c) for c in df.columns]
+    cat_cols = []
+    cat_categories = []
+    arrs = []
+    cat_i = 0
+    for i, col in enumerate(df.columns):
+        s = df[col]
+        if str(s.dtype) == "category":
+            cat_cols.append(i)
+            if pandas_categorical is not None:
+                if cat_i >= len(pandas_categorical):
+                    raise LightGBMError(
+                        "train and predict DataFrames have different "
+                        "numbers of categorical columns")
+                s = s.cat.set_categories(list(pandas_categorical[cat_i]))
+            cat_categories.append([c for c in s.cat.categories])
+            cat_i += 1
+            codes = s.cat.codes.to_numpy().astype(np.float64)
+            arrs.append(np.where(codes < 0, np.nan, codes))
+        elif s.dtype == object:
+            raise LightGBMError(
+                f"DataFrame.dtypes for column {col} must be int, float or "
+                "bool (or category)")
+        else:
+            arrs.append(s.to_numpy().astype(np.float64))
+    return np.column_stack(arrs) if arrs else np.empty((len(df), 0)), \
+        feature_names, cat_cols, cat_categories
+
+
+def _threshold_l1(s: np.ndarray, l1: float) -> np.ndarray:
+    """The l1-thresholded gradient sums of refit (JAX package:
+    `threshold_l1_host`)."""
+    return np.sign(s) * np.maximum(np.abs(s) - l1, 0.0)
 
 
 class Dataset:
@@ -66,6 +131,7 @@ class Dataset:
         self.free_raw_data = free_raw_data
         self._handle: Optional[_CoreDataset] = None
         self.used_indices: Optional[np.ndarray] = None
+        self.pandas_categorical = None
 
     def construct(self) -> "Dataset":
         if self._handle is not None:
@@ -86,20 +152,42 @@ class Dataset:
             return self._construct_from_file(cfg, ref)
         names = (None if self.feature_name in ("auto", None)
                  else list(self.feature_name))
-        cats = (None if self.categorical_feature in ("auto", None)
-                else [int(c) for c in self.categorical_feature])
-        # CSR/CSC stays sparse (`from_sparse`; JAX package:
-        # basic.py:213-247); a dense matrix streams a chunk at a time
-        # with ``tpu_stream_chunk_rows`` > 0 (`io/stream.py`: the same
-        # sample draw, so the same bins)
+        raw_cats = (None if self.categorical_feature in ("auto", None)
+                    else list(self.categorical_feature))
+        # a DataFrame: its columns' names and its category columns, unless
+        # given (JAX package: basic.py:215-222); CSR/CSC stays sparse
+        # (`from_sparse`; basic.py:213-247); a dense matrix streams a
+        # chunk at a time with ``tpu_stream_chunk_rows`` > 0
+        # (`io/stream.py`: the same sample draw, so the same bins)
         sparse_in = _is_sparse(self.data)
+        if _is_pandas(self.data):
+            mat, pd_names, pd_cats, pd_categories = \
+                _data_from_pandas(self.data)
+            if names is None:
+                names = pd_names
+            if raw_cats is None and pd_cats:
+                raw_cats = pd_cats
+            self.pandas_categorical = pd_categories or None
+        else:
+            mat = self.data if sparse_in else _to_matrix(self.data)
+        cats = None
+        if raw_cats is not None:
+            cats = []
+            for c in raw_cats:
+                if isinstance(c, str):
+                    if names is None or c not in names:
+                        raise LightGBMError(
+                            f"Unknown categorical feature name: {c!r}")
+                    cats.append(names.index(c))
+                else:
+                    cats.append(int(c))
         if not sparse_in and int(cfg.tpu_stream_chunk_rows) > 0:
             from .io.stream import stream_matrix as maker
         else:
             maker = (_CoreDataset.from_sparse if sparse_in
                      else _CoreDataset.from_matrix)
         self._handle = maker(
-            self.data if sparse_in else _to_matrix(self.data),
+            mat,
             label=self.label, config=cfg,
             weight=self.weight, group=self.group,
             init_score=self.init_score, feature_names=names,
@@ -199,6 +287,28 @@ class Dataset:
     def get_init_score(self):
         return self.init_score
 
+    def get_field(self, name: str):
+        """``label``, ``weight``, ``group`` or ``init_score``."""
+        return {"label": self.get_label, "weight": self.get_weight,
+                "group": self.get_group,
+                "init_score": self.get_init_score}[name]()
+
+    def set_field(self, name: str, data) -> "Dataset":
+        return {"label": self.set_label, "weight": self.set_weight,
+                "group": self.set_group,
+                "init_score": self.set_init_score}[name](data)
+
+    def add_features_from(self, other: "Dataset") -> "Dataset":
+        """Append ``other``'s features to this dataset's columns
+        (reference LGBM_DatasetAddFeaturesFrom; JAX package:
+        basic.py:339-346): both constructed over the same rows, their bin
+        matrices joined on their device (`io.dataset.Dataset.
+        add_features_from`)."""
+        self.construct()
+        other.construct()
+        self._handle.add_features_from(other._handle)
+        return self
+
     @property
     def num_data(self) -> int:
         return self.construct()._handle.num_data
@@ -237,6 +347,8 @@ class Booster:
         # holds and the model's generation (bumped by each update)
         self._flat_cache: Optional[Tuple] = None
         self._model_gen = 0
+        # a DataFrame's category lists, by categorical column
+        self.pandas_categorical = None
         if model_file is not None:
             with open(model_file) as fh:
                 self._init_from_string(fh.read())
@@ -247,6 +359,7 @@ class Booster:
                 raise TypeError("Training data should be Dataset instance")
             train_set._update_params(self.params)
             train_set.construct()
+            self.pandas_categorical = train_set.pandas_categorical
             self._cfg = Config.from_params(self.params)
             self.device = resolve_device(self._cfg)
             self._gbdt = create_boosting(self._cfg, train_set._handle,
@@ -256,6 +369,13 @@ class Booster:
                 "need at least one of train_set/model_file/model_str")
 
     def _init_from_string(self, text: str) -> None:
+        for line in text.splitlines():
+            if line.startswith("pandas_categorical:"):
+                try:
+                    self.pandas_categorical = json.loads(
+                        line.split(":", 1)[1])
+                except json.JSONDecodeError:
+                    pass
         self._init_from_loaded(load_model_from_string(text))
 
     def _init_from_loaded(self, loaded: Dict) -> None:
@@ -310,6 +430,72 @@ class Booster:
         return gbdt.train_one_iter(np.asarray(grad, np.float32).reshape(k, -1),
                                    np.asarray(hess, np.float32).reshape(k, -1))
 
+    def rollback_one_iter(self) -> "Booster":
+        """Remove the last iteration's trees and their scores
+        (`GBDT.rollback_one_iter`); the next `predict` rebuilds its
+        flattened forest."""
+        self._gbdt.rollback_one_iter()
+        self._model_gen += 1
+        return self
+
+    def refit(self, data, label, decay_rate: float = 0.9,
+              leaf_preds=None, **kwargs) -> "Booster":
+        """Refit the trees' leaf outputs to new data (reference
+        basic.py:2337 -> `GBDT::RefitTree` gbdt.cpp:297-320; JAX package:
+        basic.py:508-561): ``leaf = decay_rate * old + (1 - decay_rate) *
+        new * shrinkage``, ``new`` the closed-form output of the new rows'
+        gradient sums in each leaf, iteration by iteration from the
+        refitted scores. The leaf indices come from the predictor (every
+        tree, whatever ``best_iteration``) and the gradients from the
+        objective on the booster's device; the sums are f64 on the host,
+        `np.bincount` in the JAX package's order, so that the leaves keep
+        its bits. The trees change in place."""
+        import torch
+        trees = self.trees
+        if not trees:
+            raise LightGBMError("No trees to refit")
+        X = (np.asarray(data.toarray(), np.float64) if _is_sparse(data)
+             else _to_matrix(data))
+        label = np.asarray(label, np.float64).reshape(-1)
+        n = len(X)
+        k = self.num_tree_per_iteration
+        if leaf_preds is None and self.device.type == "cpu":
+            leaf_preds = self._predict_native(trees, X, k, 0, True, None)
+        if leaf_preds is None:
+            leaf_preds = predict_raw_values(trees, X, leaf_index=True,
+                                            device=self.device, num_class=k)
+        leaf_preds = np.asarray(leaf_preds, np.int64).reshape(n, len(trees))
+        cfg = self._cfg
+        objective = create_objective(cfg)
+        if objective is None:
+            raise LightGBMError("Cannot refit due to null objective function.")
+        md = Metadata(n)
+        md.set_label(label)
+        objective.init(md, n, self.device)
+        scores = np.zeros((k, n), np.float64)
+        l1, l2 = cfg.lambda_l1, cfg.lambda_l2
+        mds = cfg.max_delta_step
+        for it in range(len(trees) // k):
+            g, h = objective.get_gradients(torch.as_tensor(
+                scores.astype(np.float32), device=self.device))
+            g = g.cpu().numpy().astype(np.float64)
+            h = h.cpu().numpy().astype(np.float64)
+            for tid in range(k):
+                tree = trees[it * k + tid]
+                lp = leaf_preds[:, it * k + tid]
+                nl = tree.num_leaves
+                sg = np.bincount(lp, weights=g[tid], minlength=nl)[:nl]
+                sh = np.bincount(lp, weights=h[tid], minlength=nl)[:nl]
+                out = -_threshold_l1(sg, l1) / (sh + l2 + 1e-15)
+                if mds > 0:
+                    out = np.clip(out, -mds, mds)
+                new_vals = (decay_rate * tree.leaf_value[:nl]
+                            + (1.0 - decay_rate) * out * tree.shrinkage)
+                tree.leaf_value[:nl] = new_vals
+                scores[tid] += new_vals[lp]
+        self._model_gen += 1
+        return self
+
     @property
     def current_iteration(self) -> int:
         return self._gbdt.iter if self._gbdt else \
@@ -317,6 +503,9 @@ class Booster:
 
     def num_trees(self) -> int:
         return len(self.trees)
+
+    def num_model_per_iteration(self) -> int:
+        return self.num_tree_per_iteration
 
     def eval_train(self):
         return self._gbdt.eval_train()
@@ -350,10 +539,10 @@ class Booster:
         params) stops a row's trees early (`_early_stop`). A booster on
         the CPU predicts through the native predictor where the library
         builds, one on the card by the torch traversal. ``pred_contrib``
-        raises until SHAP is ported (ROADMAP A.5)."""
-        if pred_contrib:
-            raise NotImplementedError("pred_contrib: SHAP values are not "
-                                      "ported yet (ROADMAP A.5)")
+        gives SHAP values [N, F + 1] ([N, K (F + 1)] for K classes), the
+        expected value last, on the host (`ops/shap.py`). A DataFrame's
+        category codes are taken against the training frame's categories
+        (``pandas_categorical``)."""
         if isinstance(data, str):
             data = self._read_predict_file(data, kwargs)
         if _is_sparse(data):
@@ -361,10 +550,13 @@ class Booster:
             rows_per = max(1, (256 << 20) // (8 * max(1, csr.shape[1])))
             return np.concatenate([
                 self.predict(csr[lo:lo + rows_per].toarray(), num_iteration,
-                             raw_score, pred_leaf,
+                             raw_score, pred_leaf, pred_contrib,
                              start_iteration=start_iteration, **kwargs)
                 for lo in range(0, max(csr.shape[0], 1), rows_per)], axis=0)
-        X = _to_matrix(data)
+        if self.pandas_categorical and _is_pandas(data):
+            X = _data_from_pandas(data, self.pandas_categorical)[0]
+        else:
+            X = _to_matrix(data)
         k = self.num_tree_per_iteration
         if num_iteration is None or num_iteration <= 0:
             num_iteration = (self.best_iteration
@@ -373,6 +565,9 @@ class Booster:
         trees = self.trees[s_iter * k:]
         if num_iteration > 0:
             trees = trees[:num_iteration * k]
+        if pred_contrib and not pred_leaf:
+            from .ops.shap import predict_contrib
+            return predict_contrib(trees, X, k)
         early_stop = self._early_stop(kwargs, raw_score, pred_leaf)
         raw = (self._predict_native(trees, X, k, s_iter, pred_leaf,
                                     early_stop)
@@ -501,20 +696,30 @@ class Booster:
 
     # ------------------------------------------------------------------
     def model_to_string(self, num_iteration: int = -1) -> str:
+        """The JAX package's model text; a DataFrame's category lists
+        follow it on a ``pandas_categorical:`` line (basic.py:843-850)."""
         if self._gbdt is not None:
             ds = self._gbdt.train_data
-            return save_model_to_string(
+            out = save_model_to_string(
                 self._gbdt.models, self._cfg, self.num_tree_per_iteration,
                 ds.num_total_features - 1, ds.feature_names,
                 _feature_infos(ds.mappers), num_iteration,
                 self._objective_string(self._gbdt.objective))
-        fn = self._loaded.get("feature_names") or []
-        return save_model_to_string(
-            self._loaded["trees"], self._cfg,
-            self._loaded.get("num_tree_per_iteration", 1),
-            self._loaded.get("max_feature_idx", max(len(fn) - 1, 0)),
-            fn, self._loaded.get("feature_infos"), num_iteration,
-            self._loaded.get("objective", ""))
+        else:
+            fn = self._loaded.get("feature_names") or []
+            out = save_model_to_string(
+                self._loaded["trees"], self._cfg,
+                self._loaded.get("num_tree_per_iteration", 1),
+                self._loaded.get("max_feature_idx", max(len(fn) - 1, 0)),
+                fn, self._loaded.get("feature_infos"), num_iteration,
+                self._loaded.get("objective", ""))
+        if self.pandas_categorical:
+            try:
+                out += "\npandas_categorical:" + json.dumps(
+                    self.pandas_categorical) + "\n"
+            except TypeError:
+                pass
+        return out
 
     @staticmethod
     def _objective_string(obj) -> str:
@@ -534,3 +739,112 @@ class Booster:
         with open(filename, "w") as fh:
             fh.write(self.model_to_string(num_iteration))
         return self
+
+    def dump_model(self, num_iteration: int = -1) -> dict:
+        """The model as JSON-ready dicts (`dump_model_json`)."""
+        if self._gbdt is not None:
+            ds = self._gbdt.train_data
+            return dump_model_json(
+                self._gbdt.models, self._cfg, self.num_tree_per_iteration,
+                ds.num_total_features - 1, ds.feature_names, num_iteration,
+                self._objective_string(self._gbdt.objective))
+        fn = self._loaded.get("feature_names") or []
+        return dump_model_json(
+            self._loaded["trees"], self._cfg,
+            self._loaded.get("num_tree_per_iteration", 1),
+            self._loaded.get("max_feature_idx", max(len(fn) - 1, 0)),
+            fn, num_iteration, self._loaded.get("objective", ""))
+
+    # ------------------------------------------------------------------
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: int = -1) -> np.ndarray:
+        """Splits (``split``) or summed split gains (``gain``) of each
+        feature over the first ``iteration`` iterations, or all
+        (reference basic.py:2410+)."""
+        if self._gbdt is not None:
+            nf = self._gbdt.train_data.num_total_features
+        else:
+            nf = self._loaded.get("max_feature_idx", 0) + 1
+        imp = np.zeros(nf)
+        trees = self.trees
+        if iteration and iteration > 0:
+            trees = trees[:iteration * self.num_tree_per_iteration]
+        for t in trees:
+            for node in range(t.num_leaves - 1):
+                f = t.split_feature[node]
+                if importance_type == "split":
+                    imp[f] += 1
+                else:
+                    imp[f] += t.split_gain[node]
+        return imp
+
+    def feature_name(self) -> List[str]:
+        if self._gbdt is not None:
+            return list(self._gbdt.train_data.feature_names)
+        return list(self._loaded.get("feature_names") or [])
+
+    def get_split_value_histogram(self, feature, bins=None,
+                                  xgboost_style: bool = False):
+        """Histogram of a feature's numerical split thresholds over every
+        tree (reference basic.py:2470+): (hist, bin_edges), or with
+        ``xgboost_style`` the (SplitValue, Count) rows of the non-empty
+        bins, a DataFrame where pandas imports, else an array."""
+        if isinstance(feature, str):
+            names = self.feature_name()
+            if feature not in names:
+                raise LightGBMError(f"Unknown feature name {feature}")
+            feature = names.index(feature)
+        values = []
+        for t in self.trees:
+            for node in range(max(t.num_leaves - 1, 0)):
+                if t.split_feature[node] == feature \
+                        and not t.node_is_categorical(node):
+                    values.append(float(t.threshold[node]))
+        values = np.asarray(values, np.float64)
+        if bins is None or (isinstance(bins, int)
+                            and bins > len(np.unique(values))):
+            bins = max(len(np.unique(values)), 1)
+        hist, bin_edges = np.histogram(values, bins=bins)
+        if xgboost_style:
+            ret = np.column_stack((bin_edges[1:], hist))
+            ret = ret[ret[:, 1] > 0]
+            try:
+                import pandas as pd
+            except ImportError:
+                return ret
+            return pd.DataFrame(ret, columns=["SplitValue", "Count"])
+        return hist, bin_edges
+
+    def free_dataset(self) -> "Booster":
+        return self
+
+    # ------------------------------------------------------------------
+    # copies and pickling go through the model text (JAX package:
+    # basic.py:963-990), with the params, so the copy runs where the
+    # original did
+    def __copy__(self):
+        return self.__deepcopy__(None)
+
+    def __deepcopy__(self, memo):
+        clone = Booster(params=copy.deepcopy(self.params, memo),
+                        model_str=self.model_to_string())
+        clone.best_iteration = self.best_iteration
+        clone.best_score = copy.deepcopy(self.best_score, memo)
+        clone.params = copy.deepcopy(self.params, memo)
+        clone.name_train_set = self.name_train_set
+        return clone
+
+    def __getstate__(self):
+        return {"model_str": self.model_to_string(),
+                "best_iteration": self.best_iteration,
+                "best_score": self.best_score,
+                "params": self.params,
+                "name_train_set": self.name_train_set}
+
+    def __setstate__(self, state):
+        self.__init__(params=dict(state.get("params", {})),
+                      model_str=state["model_str"])
+        self.best_iteration = state["best_iteration"]
+        self.best_score = state["best_score"]
+        self.params = state.get("params", {})
+        self.name_train_set = state.get("name_train_set", "training")

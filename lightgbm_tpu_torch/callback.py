@@ -1,14 +1,14 @@
 """Training callbacks (port of lightgbm_tpu/callback.py, reference
 `python-package/lightgbm/callback.py:78-236`): `print_evaluation`,
-`record_evaluation` and `early_stopping`, with the `EarlyStopException`
-control flow `engine.train` relies on.
+`record_evaluation`, `early_stopping` and `reset_parameter`, with the
+`EarlyStopException` control flow `engine.train` relies on.
 
 A callback is called with a `CallbackEnv` after each iteration's
 evaluation, or before the iteration when it has ``before_iteration``
 set; callbacks run in the order of their ``order`` attribute.
-``reset_parameter`` is left out: the JAX package's `Booster` has no
-``reset_parameter`` method, so a callback that calls it fails there
-(ROADMAP A.3).
+`reset_parameter`'s callback calls ``env.model.reset_parameter``, which
+neither package's `Booster` has: a change of a parameter raises
+AttributeError in both (ROADMAP C.40).
 """
 from __future__ import annotations
 
@@ -66,6 +66,33 @@ def record_evaluation(eval_result: Dict) -> Callable:
             eval_result.setdefault(data_name, collections.OrderedDict())
             eval_result[data_name].setdefault(eval_name, []).append(result)
     _callback.order = 20
+    return _callback
+
+
+def reset_parameter(**kwargs) -> Callable:
+    """Reset parameters on a schedule before each iteration (reference
+    callback.py:128-172): a value is a list of one value an iteration or
+    a function of the iteration; a changed value goes to
+    ``env.model.reset_parameter`` and into ``env.params``."""
+    def _callback(env: CallbackEnv) -> None:
+        new_parameters = {}
+        for key, value in kwargs.items():
+            if isinstance(value, list):
+                if len(value) != env.end_iteration - env.begin_iteration:
+                    raise ValueError(
+                        f"Length of list {key!r} has to equal to "
+                        "'num_boost_round'.")
+                new_param = value[env.iteration - env.begin_iteration]
+            else:
+                new_param = value(env.iteration - env.begin_iteration)
+            if new_param != env.params.get(key, None):
+                new_parameters[key] = new_param
+        if new_parameters:
+            if env.model is not None:
+                env.model.reset_parameter(new_parameters)
+            env.params.update(new_parameters)
+    _callback.before_iteration = True
+    _callback.order = 10
     return _callback
 
 

@@ -4,13 +4,14 @@ config=train.conf`` (port of lightgbm_tpu/cli.py).
 Re-creates the reference CLI (`src/main.cpp`, `src/application/
 application.cpp`): ``key=value`` args with a ``config=`` file
 (`LoadParameters` `application.cpp:48-81`), task dispatch
-train/predict/convert_model (`application.h:78-88`), periodic model
+train/predict/convert_model/refit (`application.h:78-88`), periodic model
 snapshots (`gbdt.cpp:289-293`), and prediction-result files compatible
 with `Predictor` output (`src/application/predictor.hpp`). Training
 reads its files through `io/loader.py` onto the run's device (``cuda``
 unless ``device_type=cpu``) and trains through `engine.train`.
-``task=refit`` waits for `Booster.refit` (ROADMAP A.5), ``task=serve``
-for serving (A.6); tracing (A.9) and checkpoints (A.8) raise as
+``task=refit`` refits a model's leaves to a data file's rows
+(`Booster.refit`, ``refit_decay_rate``); ``task=serve`` waits for
+serving (ROADMAP A.6); tracing (A.9) and checkpoints (A.8) raise as
 `engine.train` raises on them.
 """
 from __future__ import annotations
@@ -104,8 +105,7 @@ class Application:
         elif task in ("convert_model",):
             self.convert_model()
         elif task == "refit":
-            raise NotImplementedError("task=refit needs Booster.refit, "
-                                      "which is not ported yet (ROADMAP A.5)")
+            self.refit()
         elif task == "serve":
             raise NotImplementedError("task=serve: serving is not ported yet "
                                       "(ROADMAP A.6)")
@@ -196,6 +196,29 @@ class Application:
         with open_file(out, "w") as f:
             f.write(code)
         print(f"Finished converting model. Code saved to {out}")
+
+
+    # ------------------------------------------------------------------
+    def refit(self) -> None:
+        """``task=refit`` (reference application.cpp; JAX package:
+        cli.py:349-364): the model's leaf indices of the data file's
+        rows, then `Booster.refit` with ``refit_decay_rate``, written to
+        ``output_model``."""
+        cfg = self.config
+        if not cfg.input_model:
+            raise LightGBMError("No model file: set input_model=<file>")
+        if not cfg.data:
+            raise LightGBMError("No refit data: set data=<file>")
+        booster = Booster(model_file=cfg.input_model,
+                          params=dict(self.raw_params))
+        loader = DatasetLoader(cfg, device=booster.device)
+        labels, feats, _ex = loader.parse_file(cfg.data)
+        leaf_preds = booster.predict(feats, pred_leaf=True)
+        booster.refit(feats, labels, decay_rate=cfg.refit_decay_rate,
+                      leaf_preds=leaf_preds)
+        out = cfg.output_model or "LightGBM_model.txt"
+        booster.save_model(out)
+        print(f"Finished refitting. Model saved to {out}")
 
 
 def _atomic_write_text(path: str, text: str) -> None:

@@ -644,6 +644,48 @@ class Dataset:
         return out
 
     # ------------------------------------------------------------------
+    def add_features_from(self, other: "Dataset") -> None:
+        """Append ``other``'s features to this dataset's columns
+        (reference `Dataset::AddFeaturesFrom`, dataset.cpp:349-437; JAX
+        package: io/dataset.py:890-924). Both hold the same rows;
+        ``other``'s metadata is dropped. The bin matrices are joined on
+        this dataset's device, a uint8 one widened to uint16 where the
+        other is uint16. Bundled storage columns cannot be joined."""
+        if self.num_data != other.num_data:
+            raise ValueError(
+                f"Cannot add features from a dataset with {other.num_data} "
+                f"rows to one with {self.num_data} rows")
+        if self.bundles is not None or other.bundles is not None:
+            raise NotImplementedError(
+                "add_features_from: a dataset with bundled features")
+        off = self.num_total_features
+        shift = self.num_features
+        self.mappers = self.mappers + other.mappers
+        self.feature_names = self.feature_names + other.feature_names
+        self.num_total_features += other.num_total_features
+        other_map = other.used_feature_map.copy()
+        other_map[other_map >= 0] += shift
+        self.used_feature_map = np.concatenate(
+            [self.used_feature_map, other_map])
+        self.real_feature_idx = np.concatenate(
+            [self.real_feature_idx, other.real_feature_idx + off])
+        if self.bins is None:
+            self.bins = other.bins
+        elif other.bins is not None:
+            dtype = (torch.uint16 if torch.uint16 in (self.bins.dtype,
+                                                      other.bins.dtype)
+                     else torch.uint8)
+            parts = [to_storage(storage_view(b.to(self.device)), dtype)
+                     if b.dtype != dtype else storage_view(b.to(self.device))
+                     for b in (self.bins, other.bins)]
+            self.bins = torch.cat(parts, dim=1).view(dtype)
+        self.monotone_constraints = np.concatenate(
+            [self.monotone_constraints,
+             other.monotone_constraints]).astype(np.int8)
+        self.feature_penalty = np.concatenate(
+            [self.feature_penalty, other.feature_penalty])
+
+    # ------------------------------------------------------------------
     # binary serialization (reference Dataset::SaveBinaryFile /
     # DatasetLoader::LoadFromBinFile): the JAX package's format, the
     # magic, a length-prefixed JSON header with its keys in its order,

@@ -178,6 +178,8 @@ class GBDT:
         self.aligned_stats: List[Tuple[int, int, bool]] = []
         self.level_stats: List[Tuple[int, int, bool]] = []
         self._aligned_eng = None
+        # set for good by `drop_aligned` (JAX package: _aligned_disabled)
+        self._aligned_disabled = False
         self._train_score_stale = False
         if cfg.tpu_grow_mode == "aligned" and not self.use_host:
             why = self.learner.aligned_mode_gate(self.objective)
@@ -312,11 +314,40 @@ class GBDT:
         return False
 
     def drop_aligned(self) -> None:
-        """Leave the aligned engine (custom gradients: it cannot follow a
-        tree grown elsewhere); the training scores come back to row
-        order first."""
+        """Leave the aligned engine for good (custom gradients and
+        rollback: its permuted score lanes cannot follow a tree grown or
+        removed elsewhere; JAX package: `_drop_aligned`); the training
+        scores come back to row order first."""
         self._sync_train_score()
         self._aligned_eng = None
+        self._aligned_disabled = True
+
+    def rollback_one_iter(self) -> None:
+        """reference GBDT::RollbackOneIter (gbdt.cpp:450-466; JAX
+        package: gbdt.py:1611-1635): the aligned engine is left for good
+        (its score lanes hold the last iteration), the iteration's
+        deferred empty-tree records are dropped, and its K trees are
+        subtracted from the training and validation scores, each an f32
+        add of the negated leaf values by binned traversal, before they
+        leave the model."""
+        K = self.num_tree_per_iteration
+        if self.iter <= 0:
+            return
+        if self._aligned_eng is not None:
+            self.drop_aligned()
+        if self._pending_numsplits:
+            del self._pending_numsplits[-K:]
+        start = len(self.models) - K
+        for k in range(K):
+            tree = self.models[start + k]
+            if tree.num_leaves > 1:
+                self.apply_tree_to_score(self.train_score, self.learner.bins,
+                                         tree, k, scale=-1.0)
+                for ds, su in zip(self.valid_sets, self.valid_scores):
+                    self.apply_tree_to_score(su, ds.bins, tree, k,
+                                             scale=-1.0)
+        del self.models[-K:]
+        self.iter -= 1
 
     # ------------------------------------------------------------------
     def get_training_score(self) -> torch.Tensor:
@@ -448,6 +479,7 @@ class GBDT:
         passing (JAX package: `_aligned_eligible`, and for K classes
         `_aligned_mc_eligible`)."""
         return (self._need_train
+                and not self._aligned_disabled
                 and self.train_data.num_features > 0
                 and self.aligned_gate() is None)
 

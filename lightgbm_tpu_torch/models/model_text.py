@@ -2,10 +2,10 @@
 lightgbm_tpu/models/model_text.py).
 
 Re-creates the reference `gbdt_model_text.cpp` (`SaveModelToString` `:248`,
-`LoadModelFromString` `:347`, JSON `DumpModel` `:19`): a `tree`-headed text
-format with ensemble metadata, per-tree blocks, feature importances and the
-parameter dump, so models round-trip and remain human-diffable against
-reference model files.
+`LoadModelFromString` `:347`, JSON `DumpModel` `:19` as `dump_model_json`):
+a `tree`-headed text format with ensemble metadata, per-tree blocks,
+feature importances and the parameter dump, so models round-trip and
+remain human-diffable against reference model files.
 """
 from __future__ import annotations
 
@@ -177,6 +177,32 @@ def load_model_from_string(text: str) -> Dict:
     out.setdefault("num_tree_per_iteration", 1)
     out.setdefault("objective", "regression")
     return out
+
+
+def dump_model_json(models: List[Tree], cfg: Config,
+                    num_tree_per_iteration: int, max_feature_idx: int,
+                    feature_names: List[str],
+                    num_iteration: int = -1,
+                    objective_string: str = "") -> dict:
+    """reference GBDT::DumpModel (gbdt_model_text.cpp:19-62): the model
+    as a JSON-ready dict, a `Tree.to_json` a tree."""
+    if num_iteration < 0:
+        used = models
+    else:
+        used = models[:num_iteration * num_tree_per_iteration]
+    return {
+        "name": "tree",
+        "version": "v2",
+        "num_class": max(1, cfg.num_class),
+        "num_tree_per_iteration": num_tree_per_iteration,
+        "label_index": 0,
+        "max_feature_idx": max_feature_idx,
+        "objective": objective_string or cfg.objective,
+        "average_output": cfg.boosting == "rf",
+        "feature_names": list(feature_names),
+        "tree_info": [dict(tree_index=i, **t.to_json())
+                      for i, t in enumerate(used)],
+    }
 
 
 # ---------------------------------------------------------------------------

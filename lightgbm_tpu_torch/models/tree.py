@@ -21,6 +21,7 @@ import numpy as np
 
 K_CATEGORICAL_MASK = 1
 K_DEFAULT_LEFT_MASK = 2
+MISSING_NONE_C, MISSING_ZERO_C, MISSING_NAN_C = 0, 1, 2
 
 
 def _avoid_inf(x: float) -> float:
@@ -194,6 +195,70 @@ class Tree:
 
     def node_default_left(self, node: int) -> bool:
         return bool(self.decision_type[node] & K_DEFAULT_LEFT_MASK)
+
+    def _decision(self, fval: float, node: int) -> int:
+        """The child of ``node`` a raw value ``fval`` goes to (reference
+        Tree::Decision, tree.h: NumericalDecision / CategoricalDecision),
+        as the JAX package decides it on the host."""
+        if self.node_is_categorical(node):
+            mt = self.node_missing_type(node)
+            if math.isnan(fval):
+                if mt == MISSING_NAN_C:
+                    return self.right_child[node]
+                ival = 0
+            else:
+                ival = int(fval)
+                if ival < 0:
+                    return self.right_child[node]
+            cat_idx = int(self.threshold_in_bin[node])
+            lo = self.cat_boundaries[cat_idx]
+            hi = self.cat_boundaries[cat_idx + 1]
+            bits = np.asarray(self.cat_threshold[lo:hi], dtype=np.uint32)
+            return (self.left_child[node] if find_in_bitset(bits, ival)
+                    else self.right_child[node])
+        mt = self.node_missing_type(node)
+        if math.isnan(fval) and mt != MISSING_NAN_C:
+            fval = 0.0
+        if ((mt == MISSING_ZERO_C and -1e-35 <= fval <= 1e-35)
+                or (mt == MISSING_NAN_C and math.isnan(fval))):
+            return (self.left_child[node] if self.node_default_left(node)
+                    else self.right_child[node])
+        return (self.left_child[node] if fval <= self.threshold[node]
+                else self.right_child[node])
+
+    def to_json(self) -> dict:
+        """reference Tree::ToJSON (tree.cpp:241+): the tree as nested
+        split and leaf dicts."""
+        def node_json(node: int) -> dict:
+            if node < 0:
+                leaf = ~node
+                return {
+                    "leaf_index": int(leaf),
+                    "leaf_value": float(self.leaf_value[leaf]),
+                    "leaf_count": int(self.leaf_count[leaf]),
+                }
+            return {
+                "split_index": int(node),
+                "split_feature": int(self.split_feature[node]),
+                "split_gain": float(self.split_gain[node]),
+                "threshold": float(self.threshold[node]),
+                "decision_type": ("==" if self.node_is_categorical(node)
+                                  else "<="),
+                "default_left": self.node_default_left(node),
+                "missing_type": ["None", "Zero", "NaN"][
+                    self.node_missing_type(node)],
+                "internal_value": float(self.internal_value[node]),
+                "internal_count": int(self.internal_count[node]),
+                "left_child": node_json(int(self.left_child[node])),
+                "right_child": node_json(int(self.right_child[node])),
+            }
+
+        return {
+            "num_leaves": int(self.num_leaves),
+            "num_cat": int(self.num_cat),
+            "shrinkage": float(self.shrinkage),
+            "tree_structure": node_json(0 if self.num_leaves > 1 else ~0),
+        }
 
     # ------------------------------------------------------------------
     # text model round-trip (reference Tree::ToString tree.cpp:206-239 /

@@ -9,8 +9,9 @@ against the CPU (leaf-wise and level), the aligned engine on the card
 B3 and categorical f64 training against the CPU, the bundled branch of
 B2 and B3 (exclusive feature bundling) and bundled f64 training against
 the CPU, the pointwise objective kinds of B2 and B4 (COMPACT records),
-the host learner's f64 training against the CPU, and the prototype
-kernels P1-P3 against their twins. They import
+the host learner's f64 training against the CPU, the prototype kernels
+P1-P3 against their twins, and the Python surface on the card (SHAP,
+`refit` and `rollback_one_iter` against the CPU). They import
 neither JAX nor the JAX package, so they run where only PyTorch is
 installed:
 
@@ -2128,3 +2129,82 @@ def test_f64_bundled_training_on_gpu_equals_cpu(cuda):
                     bst.predict(Xs[:3000], raw_score=True)))
     assert out[0][0] == out[1][0]
     np.testing.assert_array_equal(out[0][1], out[1][1])
+
+
+def _surface_data(n, seed=0):
+    rng = np.random.RandomState(seed)
+    X = rng.standard_normal((n, 8)).astype(np.float32)
+    y = ((X[:, 0] + X[:, 1] * X[:, 2] + 0.5 * rng.standard_normal(n)) > 0
+         ).astype(np.float32)
+    return X, y
+
+
+@pytest.mark.cuda
+def test_pred_contrib_on_gpu_equals_cpu(cuda):
+    """SHAP values of a booster on the card equal a CPU booster's of the
+    same model text, and each row sums to its raw score."""
+    X, y = _surface_data(20000)
+    bst = tlgb.train({"objective": "binary", "num_leaves": 31,
+                      "verbosity": -1}, tlgb.Dataset(X, label=y),
+                     num_boost_round=3, verbose_eval=False)
+    cpu = tlgb.Booster(model_str=bst.model_to_string(),
+                       params={"device_type": "cpu"})
+    got = bst.predict(X[:32], pred_contrib=True)
+    np.testing.assert_array_equal(got, cpu.predict(X[:32], pred_contrib=True))
+    raw = bst.predict(X[:32], raw_score=True)
+    np.testing.assert_allclose(got.sum(axis=1), raw, rtol=0,
+                               atol=1e-9 * np.abs(raw).max())
+
+
+@pytest.mark.cuda
+def test_refit_on_gpu_equals_cpu(cuda):
+    """`refit` on the card (leaf indices and gradients there) writes the
+    CPU refit's model text byte for byte."""
+    X, y = _surface_data(30000, seed=1)
+    text = tlgb.train({"objective": "binary", "num_leaves": 31,
+                       "verbosity": -1}, tlgb.Dataset(X[:20000],
+                                                      label=y[:20000]),
+                      num_boost_round=3, verbose_eval=False).model_to_string()
+    out = []
+    for dev in ("cuda", "cpu"):
+        b = tlgb.Booster(model_str=text, params={"device_type": dev})
+        b.refit(X[20000:], y[20000:], decay_rate=0.9)
+        out.append(b.model_to_string())
+    assert out[0] == out[1] != text
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f64", "auto"])
+def test_rollback_on_gpu_matches_cpu(cuda, mode):
+    """3 rounds, `rollback_one_iter`, 1 more round on the card and on the
+    CPU: f64 leaf-wise tree sections equal; ``auto`` (the aligned engine,
+    left at the rollback; the CPU's through its twins) within C.7's
+    tolerance with the same split features."""
+    X, y = _surface_data(20000, seed=2)
+    extra = ({"tpu_use_f64_hist": True, "tpu_grow_mode": "leafwise"}
+             if mode == "f64" else {"tpu_aligned_interpret": True})
+    boosters = []
+    for dev in ("cuda", "cpu"):
+        p = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+             "verbosity": -1, "device_type": dev, **extra}
+        b = tlgb.Booster(params=p, train_set=tlgb.Dataset(X, label=y))
+        for _ in range(3):
+            b.update()
+        b.rollback_one_iter()
+        b.update()
+        boosters.append(b)
+    gpu, cpu = boosters
+    assert gpu.num_trees() == 3
+    if mode == "f64":
+        tg, tc = gpu.model_to_string(), cpu.model_to_string()
+        assert tg[tg.index("Tree=0"):tg.index("end of trees")] == \
+            tc[tc.index("Tree=0"):tc.index("end of trees")]
+        return
+    assert gpu._gbdt._aligned_eng is None
+    assert gpu._gbdt.train_path == "leafwise"
+    for a, b in zip(gpu.trees, cpu.trees):
+        k = a.num_leaves - 1
+        assert a.num_leaves == b.num_leaves
+        assert list(a.split_feature[:k]) == list(b.split_feature[:k])
+        np.testing.assert_allclose(a.leaf_value[:k + 1], b.leaf_value[:k + 1],
+                                   rtol=1e-4, atol=1e-5)

@@ -321,7 +321,7 @@ def test_subset_shares_mappers():
 def test_predict_from_file_matches_jax(x64, tmp_path):
     """`Booster.predict(path)`: a labelled file, and a label-free one
     (its column count is the model's feature count), predict as the JAX
-    package's booster does; `pred_contrib` raises until SHAP is ported."""
+    package's booster does, SHAP values (`pred_contrib`) too."""
     X, y = _table(500)
     params = {**BASE, "objective": "binary"}
     tb = tlgb.train({**params, "device_type": "cpu"},
@@ -336,8 +336,8 @@ def test_predict_from_file_matches_jax(x64, tmp_path):
     for path in (lab, free):
         np.testing.assert_array_equal(tb.predict(path), jb.predict(path))
     np.testing.assert_array_equal(tb.predict(free), tb.predict(X))
-    with pytest.raises(NotImplementedError, match="A.5"):
-        tb.predict(X, pred_contrib=True)
+    np.testing.assert_array_equal(tb.predict(lab, pred_contrib=True),
+                                  jb.predict(lab, pred_contrib=True))
 
 
 # ---------------------------------------------------------------------------
@@ -538,8 +538,7 @@ def test_cli_module_subprocess(tmp_path):
                         params={"device_type": "cpu"}).num_trees() == 2
 
 
-@pytest.mark.parametrize("option", ["refit", "serve", "trace",
-                                    "checkpoint"])
+@pytest.mark.parametrize("option", ["serve", "trace", "checkpoint"])
 def test_missing_options_raise(tmp_path, option):
     """A file or CLI option the port lacks raises NotImplementedError
     naming its ROADMAP item; none is ignored."""
@@ -547,12 +546,10 @@ def test_missing_options_raise(tmp_path, option):
     base = ["objective=binary", f"data={tr}", "header=true", "num_trees=1",
             "verbosity=-1", "device_type=cpu",
             f"output_model={tmp_path / 'm.txt'}"]
-    args = {"refit": ["task=refit", f"input_model={tmp_path / 'm.txt'}"],
-            "serve": ["task=serve"],
+    args = {"serve": ["task=serve"],
             "trace": ["tpu_trace=true"],
             "checkpoint": [f"tpu_checkpoint_dir={tmp_path / 'ck'}"]}[option]
-    item = {"refit": "A.5", "serve": "A.6", "trace": "A.9",
-            "checkpoint": "A.8"}[option]
+    item = {"serve": "A.6", "trace": "A.9", "checkpoint": "A.8"}[option]
     with pytest.raises(NotImplementedError, match=item):
         tcli.Application(base + args).run()
 

@@ -66,3 +66,43 @@ def test_cuda_without_gpu_raises(monkeypatch):
             tlgb.train({"objective": "binary", "verbosity": -1, **params},
                        tlgb.Dataset(X, label=[0, 1, 0, 1]),
                        num_boost_round=1)
+
+
+def test_import_and_fit_without_optional_modules():
+    """scikit-learn, matplotlib, graphviz and pandas are optional (the
+    machine with the card has none of them): with their imports blocked
+    the package imports, exports the estimators and the plotting
+    functions, and `LGBMClassifier` fits and predicts; a plotting call
+    raises ImportError."""
+    code = "\n".join([
+        "import sys",
+        "for m in ('sklearn', 'matplotlib', 'pandas', 'graphviz'):",
+        "    sys.modules[m] = None",
+        "import numpy as np",
+        "import lightgbm_tpu_torch as lgb",
+        "from lightgbm_tpu_torch import sklearn as sk",
+        "assert not sk._HAS_SKLEARN",
+        "assert {'LGBMClassifier', 'LGBMRanker', 'plot_importance',",
+        "        'reset_parameter'} <= set(lgb.__all__)",
+        "rng = np.random.RandomState(0)",
+        "X = rng.standard_normal((300, 4)); y = (X[:, 0] > 0).astype(int)",
+        "clf = lgb.LGBMClassifier(n_estimators=3, num_leaves=7,",
+        "                         verbosity=-1, device_type='cpu').fit(X, y)",
+        "p = clf.predict_proba(X)",
+        "assert p.shape == (300, 2) and np.allclose(p.sum(1), 1.0)",
+        "assert (clf.predict(X) == y).mean() > 0.8",
+        "c = clf.predict(X[:5], pred_contrib=True)",
+        "assert c.shape == (5, 5)",
+        "try:",
+        "    lgb.plot_importance(clf)",
+        "except ImportError:",
+        "    pass",
+        "else:",
+        "    raise AssertionError('plot_importance without matplotlib')",
+        "loaded = [m for m in ('sklearn', 'matplotlib', 'pandas', 'graphviz')",
+        "          if sys.modules.get(m) is not None]",
+        "assert not loaded, loaded",
+    ])
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                   check=True, timeout=120)

@@ -8,6 +8,7 @@ indices, early stopping). Every array is made here from seeded numpy
 data."""
 import functools
 import os
+import time
 
 import numpy as np
 import pytest
@@ -25,6 +26,22 @@ from lightgbm_tpu_torch.io import parser as tparser
 from lightgbm_tpu_torch.ops import predict as tpredict
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_loaded():
+    """The JAX package's library is this file's oracle. Its `get_lib`
+    runs ``make`` in ``src/native`` and loads the file it writes; under
+    pytest-xdist every worker runs that make at once while collecting
+    tests/test_native.py (its ``skipif``), and a worker whose load meets
+    another worker's half-written library takes the library for
+    unavailable for good (``_lib_tried``). Load it again once those
+    builds are over, in the test only."""
+    deadline = time.monotonic() + 180
+    while jnative.get_lib() is None and time.monotonic() < deadline:
+        time.sleep(2)
+        jnative._lib_tried = False
+    assert jnative.get_lib() is not None, "the JAX package's library"
 
 
 @pytest.fixture
